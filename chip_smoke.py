@@ -7,25 +7,36 @@ Run from the repository root with one CUDA card visible:
 Phases (each asserts; any failure exits non-zero and prints no result):
 
 1. The card's name and power limit (nvidia-smi), and CUDA must be present.
-2. Build every kernel of the main path from ``csrc/`` (one nvcc per source,
+2. Build every kernel of the main paths from ``csrc/`` (one nvcc per source,
    started together).
-3. Each kernel against its plain PyTorch version on the same inputs on the
-   card: at the main path's shape (500 tickers x 1260 bars x the 2000-combo
-   headline grid, cost 1e-3), at cost 0, with ragged lengths and at T=251.
-   Positions must be identical, so n_trades and turnover (sums of small
-   integers) must be bit-equal; every other metric must agree at
-   rtol=2e-4, atol=2e-5. Kernel and plain times come from CUDA events
-   after warmup.
-4. The main path at full width: 500 synthetic tickers x 1260 daily bars as
-   DBX1 payloads in 500 sma_crossover JobSpecs with the headline grid,
+3. Each kernel entry against its plain PyTorch version on the same inputs
+   on the card, in four cases: the main path's shape (500 tickers x 1260
+   bars x the family's bench grid, cost 1e-3), cost 0, ragged lengths
+   (32 x 1260) and T=251 (32 x 251). K1 on the 2000-combo SMA grid; K2's
+   inline entry on the 1000-combo bollinger grid and its table entry on
+   the 1000-combo stochastic %K table, each with both machines
+   (hysteresis, touch); K3's momentum entry on 2000 lookback lanes and its
+   donchian entry on the 1000-lane high/low breakout table. Positions must
+   be identical, so n_trades and turnover (sums of small integers) must be
+   bit-equal; every other metric must agree at rtol=2e-4, atol=2e-5.
+   Kernel and plain times come from CUDA events after warmup.
+4. The main paths at full width, one per strategy: 500 synthetic tickers x
+   1260 daily bars as DBX1 payloads in 500 JobSpecs with the bench grid,
    through ``TorchSweepBackend(device="cuda").process``. Every DBXM block
-   decodes to 2000 combos with finite sharpe, and each kernel's launch
-   count, reset just before the run, grew. A small batch on a 1/32 price
-   tick grid (exact f32 cumsums) then goes through the same backend and
-   must agree with the port's generic sweep, the golden path, at
-   rtol=2e-4, atol=2e-5.
-5. One JSON line with each kernel's launches, error, times and bound; then
-   the JSON result line, last.
+   decodes to the grid size with finite sharpe, and the path's kernel
+   launch count, reset just before the run, grew. A 16-job batch then goes
+   through the same backend and is held against the port's generic sweep
+   (the golden path) on the card: for sma_crossover on a 1/32 price tick
+   grid (exact f32 cumsums) at rtol=2e-4, atol=2e-5; for the exact-signal
+   families (stochastic, momentum, donchian, donchian_hl) with identical
+   positions (n_trades, turnover bit-equal); for bollinger and
+   bollinger_touch under the flip rule of ``tests/torch_parity.py`` (the
+   centering mean and the cumsums run on tensors of other shapes there, so
+   a z-score at the band can round the other way). The generic path sums
+   equity in another order, so for the new families cagr is held to the
+   error its final equity may carry (``_cagr_slack``).
+5. One JSON line with each kernel entry's launches, error, times and bound;
+   then the JSON result line, last.
 
 This script imports nothing of JAX and nothing of the JAX package.
 """
@@ -43,9 +54,14 @@ import numpy as np
 import torch
 
 # H100 SXM peaks (NVIDIA data sheet, dense): fp32 outside the tensor cores
-# and HBM3 bandwidth. The bound of a kernel is the larger of its operations
-# over the first and its bytes over the second.
+# and HBM3 bandwidth. The fp32 peak counts a fused multiply-add as two
+# operations; the kernels are built with -fmad=false and the counts below
+# take each add, multiply, compare and division as one, each a lane-cycle
+# of its own, so single operations issue at half the peak. The bound of a
+# kernel is the larger of its operations over that rate and its bytes over
+# the memory rate.
 PEAK_FP32_FLOPS = 67e12
+PEAK_FP32_OPS = PEAK_FP32_FLOPS / 2
 PEAK_HBM_BYTES = 3.35e12
 
 RTOL, ATOL = 2e-4, 2e-5
@@ -62,6 +78,35 @@ SLOW_AXIS = np.arange(30, 230, 2, dtype=np.float32)     # 100 slow windows
 # with its sign (2 more) = 6.
 OPS_PER_BAR = 20
 OPS_PER_SIGNAL_BAR = 6
+# Per (combo, bar) past the warmup, from csrc/band_machine.cu and
+# csrc/single_window.cu, beside the 20 of the metric update: the inline
+# z (three window sums, mean div, s1*s1, two divs by w, s2 sub, clamp,
+# sqrt, +eps, c-m, div = 13) and the machine (entry compares 2, state
+# compares 2 = 4); the table entry the machine only; momentum sub+sign;
+# the donchian latch two compares.
+OPS_SIGNAL = {"band_inline": 17, "band_table": 4, "momentum": 2,
+              "donchian": 2}
+
+# The bench grids of the new families (bench.py, configs bollinger_fused,
+# bollinger_touch_fused, stochastic_fused, momentum_fused, donchian_fused,
+# donchian_hl_fused), as wire axes.
+BOLL_AXES = {"k": np.linspace(0.5, 3.0, 50).astype(np.float32),
+             "window": np.arange(10, 50, 2, dtype=np.float32)}
+STOCH_AXES = {"band": np.linspace(10, 40, 8).astype(np.float32),
+              "window": np.arange(5, 130, dtype=np.float32)}
+MOM_AXES = {"lookback": np.tile(np.arange(5, 130, dtype=np.float32), 16)}
+DON_AXES = {"window": np.tile(np.arange(10, 135, dtype=np.float32), 8)}
+# strategy -> (axes, kernel entry it launches, positions exact vs golden)
+FAMILIES = {
+    "bollinger": (BOLL_AXES, "band_inline", False),
+    "bollinger_touch": (BOLL_AXES, "band_inline", False),
+    "stochastic": (STOCH_AXES, "band_table", True),
+    "momentum": (MOM_AXES, "momentum", True),
+    "donchian": (DON_AXES, "donchian", True),
+    "donchian_hl": (DON_AXES, "donchian", True),
+}
+PKG = "distributed_backtesting_exploration_tpu_torch"
+REF = "distributed_backtesting_exploration_tpu/ops/fused.py"
 
 
 def _fail(msg: str) -> None:
@@ -86,6 +131,14 @@ def _cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def _flat_grid(axes: dict) -> dict:
+    """Flat per-combo arrays of the product of ``axes`` in the wire's
+    canonical (sorted) axis order, row-major."""
+    names = sorted(axes)
+    mesh = np.meshgrid(*(axes[n] for n in names), indexing="ij")
+    return {n: m.reshape(-1).astype(np.float32) for n, m in zip(names, mesh)}
 
 
 def phase_card() -> str:
@@ -118,10 +171,8 @@ def _k1_inputs(fused, pnl, close, t_real, fast, slow):
             *(torch.from_numpy(a).to(dev) for a in (tr, fw, sw, warm)))
 
 
-def _k1_compare(fused, label, inputs, cost):
-    """Kernel vs plain on the same inputs; returns (max_abs, max_rel)."""
-    got = fused.fused_sma_cuda(*inputs, cost=cost, ppy=252)
-    ref = fused.fused_sma_plain(*inputs, cost=cost, ppy=252)
+def _compare(fused, tag, label, got, ref):
+    """Kernel vs plain output planes; returns (max_abs, max_rel)."""
     torch.cuda.synchronize()
     names = fused.Metrics._fields
     max_abs = max_rel = 0.0
@@ -139,22 +190,52 @@ def _k1_compare(fused, label, inputs, cost):
                f"{float(err.max())}")
         max_abs = max(max_abs, float(err.max()))
         max_rel = max(max_rel, float((err / b.abs().clamp_min(1e-6)).max()))
-    print(f"k1 {label}: max_abs_err {max_abs:.3e} max_rel_err {max_rel:.3e}")
+    print(f"{tag} {label}: max_abs_err {max_abs:.3e} max_rel_err "
+          f"{max_rel:.3e}")
     return max_abs, max_rel
+
+
+def _k1_compare(fused, label, inputs, cost):
+    """Kernel vs plain on the same inputs; returns (max_abs, max_rel)."""
+    got = fused.fused_sma_cuda(*inputs, cost=cost, ppy=252)
+    ref = fused.fused_sma_plain(*inputs, cost=cost, ppy=252)
+    return _compare(fused, "k1", label, got, ref)
+
+
+def _bound(tr, warm, P, ops_bar, ops_signal, n_bytes) -> tuple[float, str]:
+    """Least time for the work: operations over the fp32 rate (every bar
+    below a ticker's length, plus the signal work on the bars past each
+    lane's warmup) against ``n_bytes`` over the memory rate."""
+    trf = tr.double()[:, None]
+    signal = (trf - (warm.double()[None, :] - 1)).clamp_min(0)
+    ops = float(ops_bar * trf.sum() * P
+                + ops_signal * torch.minimum(signal, trf).sum())
+    t_ops, t_bytes = ops / PEAK_FP32_OPS, n_bytes / PEAK_HBM_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
 
 
 def _k1_bound_ms(inputs) -> tuple[float, str]:
     cs, _, tr, fast, _, warm = inputs
     N, T = cs.shape
     P = fast.shape[0]
-    trf = tr.double()[:, None]
-    signal = (trf - (warm.double()[None, :] - 1)).clamp_min(0)
-    ops = float(OPS_PER_BAR * trf.sum() * P
-                + OPS_PER_SIGNAL_BAR * torch.minimum(signal, trf).sum())
     n_bytes = 4 * (2 * N * T + N + 3 * P + 9 * N * P)
-    t_ops, t_bytes = ops / PEAK_FP32_FLOPS, n_bytes / PEAK_HBM_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+    return _bound(tr, warm, P, OPS_PER_BAR, OPS_PER_SIGNAL_BAR, n_bytes)
+
+
+def _small_cases(data, head):
+    """The three small cases beside the headline: (label, OHLCV panel,
+    t_real, cost)."""
+    small = data.OHLCV(*(f[:32] for f in head))
+    lens = np.random.default_rng(1).integers(200, N_BARS + 1, 32)
+    ragged = data.OHLCV(*(f.copy() for f in small))
+    for f in ragged:
+        for i, n in enumerate(lens):
+            f[i, n:] = f[i, n - 1]
+    short = data.synthetic_ohlcv(32, 251, seed=3)
+    return [("32x1260 cost=0", small, None, 0.0),
+            ("ragged 32x1260", ragged, lens, COST),
+            ("32x251", short, None, COST)]
 
 
 def phase_kernels(fused, pnl, data) -> dict:
@@ -189,10 +270,8 @@ def phase_kernels(fused, pnl, data) -> dict:
     print(f"k1 headline: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"bound {bound_ms:.4f} ms ({bound_by})")
     return {"name": "fused_sma", "route": "cuda",
-            "source": "distributed_backtesting_exploration_tpu_torch/csrc/"
-                      "fused_sma.cu",
-            "replaces": "distributed_backtesting_exploration_tpu/ops/"
-                        "fused.py:728",
+            "source": f"{PKG}/csrc/fused_sma.cu",
+            "replaces": f"{REF}:728",
             "tpu_kernel": "ops/fused.py:_fused_call",
             "max_abs_err": max(e[0] for e in errs),
             "max_rel_err": max(e[1] for e in errs),
@@ -200,37 +279,205 @@ def phase_kernels(fused, pnl, data) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
-def _jobs_from_panel(pb, data, panel):
-    grid = {"fast": pb.GridAxis(values=[float(v) for v in FAST_AXIS]),
-            "slow": pb.GridAxis(values=[float(v) for v in SLOW_AXIS])}
-    jobs = [pb.JobSpec(
-        id=f"job-{i:04d}", strategy="sma_crossover",
+# --- K2 and K3: inputs of each entry as its sweep wrapper prepares them ---
+
+def _common(fused, pnl, panel, t_real):
+    dev = torch.device("cuda")
+    close, high, low = (torch.as_tensor(f, device=dev).contiguous()
+                        for f in (panel.close, panel.high, panel.low))
+    tr = fused._check_t_real(t_real, *close.shape)
+    r = pnl.simple_returns(close).contiguous()
+    return dev, close, high, low, torch.from_numpy(tr).to(dev), r
+
+
+def _band_inline_inputs(fused, pnl, panel, t_real):
+    dev, close, _, _, tr, r = _common(fused, pnl, panel, t_real)
+    g = _flat_grid(BOLL_AXES)
+    _, win, _, warm = fused._window_setup(g["window"], "windows", 0.0, 1)
+    xc = close - close.mean(dim=1, keepdim=True)
+    rows = (close, torch.cumsum(close, 1), torch.cumsum(xc, 1),
+            torch.cumsum(xc * xc, 1), r)
+    return (*(x.contiguous() for x in rows), tr,
+            *fused._to(dev, win, g["k"], warm))
+
+
+def _band_table_inputs(fused, pnl, panel, t_real):
+    dev, close, high, low, tr, r = _common(fused, pnl, panel, t_real)
+    g = _flat_grid(STOCH_AXES)
+    windows, _, widx, warm = fused._window_setup(g["window"], "windows",
+                                                 0.0, 1)
+    z = fused.stochastic_z_table(close, high, low, windows)
+    return (z, r, tr, *fused._to(dev, widx, g["band"], warm))
+
+
+def _momentum_inputs(fused, pnl, panel, t_real):
+    dev, close, _, _, tr, r = _common(fused, pnl, panel, t_real)
+    _, lb, _, warm = fused._window_setup(MOM_AXES["lookback"], "lookbacks",
+                                         1.0, 0)
+    return (close, r, tr, *fused._to(dev, lb, warm))
+
+
+def _donchian_inputs(fused, pnl, panel, t_real):
+    dev, close, high, low, tr, r = _common(fused, pnl, panel, t_real)
+    windows, _, widx, warm = fused._window_setup(DON_AXES["window"],
+                                                 "windows", 1.0, 1)
+    sig = fused.donchian_sign_table(close, high, low, windows)
+    return (sig, r, tr, *fused._to(dev, widx, warm))
+
+
+def _entry_bytes(inputs) -> int:
+    """Bytes each entry must move: every input read once, the (9, N, P)
+    metrics written once."""
+    n_in = sum(x.numel() * x.element_size() for x in inputs)
+    N = inputs[0].shape[0]
+    P = inputs[-1].shape[0]
+    return n_in + 4 * 9 * N * P
+
+
+# entry -> (tag, TPU kernel line, source, function making the inputs,
+#           position of t_real in the inputs, kernel, plain, machines)
+def _entries(fused):
+    return {
+        "band_inline": ("k2", 1166, "band_machine.cu", _band_inline_inputs,
+                        5, fused.band_inline_cuda, fused.band_inline_plain,
+                        ("hysteresis", "touch")),
+        "band_table": ("k2", 1166, "band_machine.cu", _band_table_inputs, 2,
+                       fused.band_table_cuda, fused.band_machine_plain,
+                       ("hysteresis", "touch")),
+        "momentum": ("k3", 1933, "single_window.cu", _momentum_inputs, 2,
+                     fused.momentum_cuda, fused.momentum_plain, (None,)),
+        "donchian": ("k3", 1933, "single_window.cu", _donchian_inputs, 2,
+                     fused.donchian_cuda, fused.donchian_plain, (None,)),
+    }
+
+
+def phase_new_kernels(fused, pnl, data) -> dict:
+    """K2 and K3, every entry and machine, against their plain versions in
+    the four cases; times and bound at the headline shape. Returns one
+    kernels-line record per entry."""
+    head = data.synthetic_ohlcv(N_TICKERS, N_BARS, seed=0)
+    cases = [(f"headline {N_TICKERS}x{N_BARS}", head, None, COST)] + _small_cases(
+        data, head)
+    out = {}
+    for entry, (tag, line, src, build, tr_at, kernel, plain, machines) in \
+            _entries(fused).items():
+        errs = []
+        timing = {}
+        for label, panel, t_real, cost in cases:
+            inputs = build(fused, pnl, panel, t_real)
+            for machine in machines:
+                kw = {"cost": cost, "ppy": 252}
+                if machine is not None:
+                    kw.update(machine=machine, z_exit=0.0)
+                name = f"{entry}" + (f" {machine}" if machine else "")
+                errs.append(_compare(fused, tag, f"{name} {label}",
+                                     kernel(*inputs, **kw),
+                                     plain(*inputs, **kw)))
+                if label.startswith("headline"):
+                    ms = _cuda_ms(lambda: kernel(*inputs, **kw), reps=20,
+                                  warmup=2)
+                    plain_ms = _cuda_ms(lambda: plain(*inputs, **kw),
+                                        reps=2, warmup=1)
+                    bound = _bound(inputs[tr_at], inputs[-1],
+                                   inputs[-1].shape[0], OPS_PER_BAR,
+                                   OPS_SIGNAL[entry],
+                                   _entry_bytes(inputs))
+                    timing[machine] = (ms, plain_ms, bound)
+                    print(f"{tag} {name} headline: kernel {ms:.4f} ms, "
+                          f"plain {plain_ms:.4f} ms, bound {bound[0]:.4f} "
+                          f"ms ({bound[1]})")
+        ms, plain_ms, bound = timing[machines[0]]
+        out[entry] = {
+            "name": entry, "route": "cuda",
+            "source": f"{PKG}/csrc/{src}", "replaces": f"{REF}:{line}",
+            "max_abs_err": max(e[0] for e in errs),
+            "max_rel_err": max(e[1] for e in errs),
+            "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
+        if machines[0] is not None:
+            out[entry]["machine_timed"] = machines[0]
+            out[entry]["touch_ms"] = timing["touch"][0]
+    return out
+
+
+# --- the main paths -------------------------------------------------------
+
+def _jobs(pb, data, panel, strategy, axes, cost=COST):
+    grid = {k: pb.GridAxis(values=[float(v) for v in vals])
+            for k, vals in axes.items()}
+    return [pb.JobSpec(
+        id=f"{strategy}-{i:04d}", strategy=strategy,
         ohlcv=data.to_wire_bytes(data.OHLCV(*(f[i] for f in panel))),
-        grid=grid, cost=COST, periods_per_year=252)
+        grid=grid, cost=cost, periods_per_year=252)
         for i in range(panel.close.shape[0])]
-    return jobs
 
 
-def _main_path_stages(jobs, data, wire, fused) -> None:
+def _jobs_from_panel(pb, data, panel):
+    return _jobs(pb, data, panel, "sma_crossover",
+                 {"fast": FAST_AXIS, "slow": SLOW_AXIS})
+
+
+def _main_path_stages(jobs, data, wire, compute, strategy, axes) -> None:
     """One batch's host stages timed apart, in the backend's order: DBX1
-    decode, stacking, the fused sweep with its host<->device copies, and
-    DBXM packing."""
+    decode, stacking, the fused sweep with its host<->device copies and
+    torch prep, and DBXM packing."""
+    spec = compute._FUSED_STRATEGIES[strategy]
     t = [time.perf_counter()]
     series = [data.from_wire_bytes(j.ohlcv) for j in jobs]
     t.append(time.perf_counter())
-    close = np.stack([s.close for s in series])
-    fast = np.repeat(FAST_AXIS, SLOW_AXIS.size)
-    slow = np.tile(SLOW_AXIS, FAST_AXIS.size)
+    fields = {f: np.stack([getattr(s, f) for s in series])
+              for f in spec.fields}
+    grid = _flat_grid(axes)
     t.append(time.perf_counter())
-    m = fused.fused_sma_sweep(close, fast, slow, cost=COST, device="cuda")
+    m = spec.run(fields, grid, cost=COST, periods_per_year=252,
+                 device="cuda")
     host = torch.stack(list(m)).cpu().numpy()
     t.append(time.perf_counter())
     for i in range(len(jobs)):
-        wire.metrics_to_bytes(fused.Metrics(*host[:, i]))
+        wire.metrics_to_bytes(compute.Metrics(*host[:, i]))
     t.append(time.perf_counter())
     names = ("decode", "stack", "sweep+copies", "pack")
-    print("main path stages (s): " + ", ".join(
+    print(f"{strategy} main path stages (s): " + ", ".join(
         f"{n} {b - a:.4f}" for n, a, b in zip(names, t, t[1:])))
+
+
+def _drive(kernels_mod, backend, wire, jobs, n_combos, entry, label):
+    """One full-width batch with the launch counts reset just before it;
+    returns (launch counts, seconds)."""
+    kernels_mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = backend.process(jobs)
+    batch_s = time.perf_counter() - t0
+    launches = dict(kernels_mod.LAUNCHES)
+    print(f"{label} main path launches {launches}")
+    _check(launches.get(entry, 0) > 0,
+           f"the {label} main path launched {entry} no time")
+    _check(len(done) == len(jobs), f"{label}: {len(done)} completions for "
+           f"{len(jobs)} jobs")
+    by_id = {c.job_id: wire.metrics_from_bytes(c.metrics) for c in done}
+    _check(set(by_id) == {j.id for j in jobs}, f"{label}: completion ids "
+           "differ")
+    for jid, m in by_id.items():
+        for f in m:
+            _check(f.shape == (n_combos,), f"{jid}: shape {f.shape}")
+        _check(bool(np.isfinite(m.sharpe).all()), f"{jid}: sharpe not finite")
+    return launches, batch_s
+
+
+def _repeat(backend, jobs, n_combos, label, batch_s, reps) -> None:
+    # Host time of one batch varies between identical calls (the card's
+    # host shares its cores), so report min and median.
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        backend.process(jobs)
+        times.append(time.perf_counter() - t0)
+    med, best = statistics.median(times), min(times)
+    n_bt = len(jobs) * n_combos
+    print(f"{label} main path: {len(jobs)} jobs x {n_combos} combos, first "
+          f"batch {batch_s:.4f} s; {reps} more: min {best:.4f} s "
+          f"({n_bt / best:.1f} backtests/s), median {med:.4f} s "
+          f"({n_bt / med:.1f} backtests/s), max {max(times):.4f} s")
 
 
 def phase_main_path(kernels_mod, compute, wire, pb, data, sweep, models,
@@ -238,24 +485,9 @@ def phase_main_path(kernels_mod, compute, wire, pb, data, sweep, models,
     jobs = _jobs_from_panel(
         pb, data, data.synthetic_ohlcv(N_TICKERS, N_BARS, seed=7))
     backend = compute.TorchSweepBackend(device="cuda")
-    kernels_mod.reset_launch_counts()
-    t0 = time.perf_counter()
-    done = backend.process(jobs)
-    batch_s = time.perf_counter() - t0
-    launches = dict(kernels_mod.LAUNCHES)
-    print(f"main path launches {launches}")
-    _check(launches.get("fused_sma", 0) > 0,
-           "the main path launched K1 no time")
-
-    _check(len(done) == len(jobs), f"{len(done)} completions for "
-           f"{len(jobs)} jobs")
-    by_id = {c.job_id: wire.metrics_from_bytes(c.metrics) for c in done}
-    _check(set(by_id) == {j.id for j in jobs}, "completion ids differ")
     n_combos = FAST_AXIS.size * SLOW_AXIS.size
-    for jid, m in by_id.items():
-        for f in m:
-            _check(f.shape == (n_combos,), f"{jid}: shape {f.shape}")
-        _check(bool(np.isfinite(m.sharpe).all()), f"{jid}: sharpe not finite")
+    launches, batch_s = _drive(kernels_mod, backend, wire, jobs, n_combos,
+                               "fused_sma", "sma_crossover")
 
     # The golden path (the port's generic sweep, independent code) on a
     # small batch through the same backend. Closes are on a 1/32 tick grid
@@ -282,21 +514,94 @@ def phase_main_path(kernels_mod, compute, wire, pb, data, sweep, models,
                f"{float(np.abs(a - b).max())}")
     print(f"main path vs golden path: {k} jobs x {n_combos} combos agree")
 
-    # Host time of one batch varies by several times between identical
-    # calls (the card's host shares its cores), so report min and median.
-    times = []
-    for _ in range(10):
-        t0 = time.perf_counter()
-        backend.process(jobs)
-        times.append(time.perf_counter() - t0)
-    med, best = statistics.median(times), min(times)
-    n_bt = len(jobs) * n_combos
-    print(f"main path: {len(jobs)} jobs x {n_combos} combos, first batch "
-          f"{batch_s:.4f} s; 10 more: min {best:.4f} s "
-          f"({n_bt / best:.1f} backtests/s), median {med:.4f} s "
-          f"({n_bt / med:.1f} backtests/s), max {max(times):.4f} s")
-    _main_path_stages(jobs, data, wire, fused)
+    _repeat(backend, jobs, n_combos, "sma_crossover", batch_s, 10)
+    _main_path_stages(jobs, data, wire, compute, "sma_crossover",
+                      {"fast": FAST_AXIS, "slow": SLOW_AXIS})
     return launches
+
+
+def _cagr_slack(gold) -> np.ndarray:
+    """What cagr may carry of its final equity's error: cagr =
+    eq ** (1 / years) - 1 multiplies an error in eq by
+    eq ** (1 / years - 1) / years, which grows as eq -> 0, and the two
+    paths sum the equity in other orders. The equity error allowed is
+    total_return's own tolerance. The slack is capped at the flip rule's
+    own bound (0.01 + 0.01 |cagr|), so cagr stays checked where the final
+    equity nears 0."""
+    tr = gold.total_return.cpu().numpy()
+    cagr = gold.cagr.cpu().numpy()
+    eq = np.maximum(1.0 + tr, 1e-12)
+    years = N_BARS / 252
+    slack = eq ** (1.0 / years - 1.0) / years * (ATOL + RTOL * np.abs(tr))
+    return np.minimum(slack, 0.01 + 0.01 * np.abs(cagr))
+
+
+def _golden_check(label, got, gold, exact: bool) -> int:
+    """Backend metrics against the generic sweep's; returns the number of
+    flipped cells. Where the positions must be identical (``exact``),
+    n_trades and turnover must be bit-equal and no cell may be set aside
+    as flipped."""
+    fields = gold._fields
+    slack = {name: 0.0 for name in fields}
+    slack["cagr"] = _cagr_slack(gold)
+    flipped = np.zeros(got["turnover"].shape, dtype=bool)
+    if exact:
+        for name in ("n_trades", "turnover"):
+            _check(np.array_equal(got[name], getattr(gold, name).cpu()
+                                  .numpy()),
+                   f"{label} vs golden path: {name} differs: positions are "
+                   "not identical")
+    else:
+        for name in fields:
+            a, b = got[name], getattr(gold, name).cpu().numpy()
+            flipped |= np.abs(a - b) > (0.01 + 0.01 * np.abs(b)
+                                        + slack[name])
+    n_flips = int(flipped.sum())
+    _check(n_flips <= max(1, int(0.01 * flipped.size)),
+           f"{label} vs golden path: {n_flips}/{flipped.size} flips")
+    for name in fields:
+        a, b = got[name], getattr(gold, name).cpu().numpy()
+        bad = (np.abs(a - b) > ATOL + RTOL * np.abs(b) + slack[name]) \
+            & ~flipped
+        _check(not bad.any(), f"{label} vs golden path: {name} off in "
+               f"{int(bad.sum())} unflipped cells, max abs err "
+               f"{float(np.abs(a - b)[~flipped].max())}")
+    return n_flips
+
+
+def phase_new_main_paths(kernels_mod, compute, wire, pb, data, sweep,
+                         models) -> dict:
+    """The six new strategies' main paths; returns the launches per kernel
+    entry summed over their runs."""
+    backend = compute.TorchSweepBackend(device="cuda")
+    total: dict = {}
+    for seed, (strategy, (axes, entry, exact)) in enumerate(
+            FAMILIES.items(), start=20):
+        panel = data.synthetic_ohlcv(N_TICKERS, N_BARS, seed=seed)
+        jobs = _jobs(pb, data, panel, strategy, axes)
+        n_combos = int(np.prod([v.size for v in axes.values()]))
+        launches, batch_s = _drive(kernels_mod, backend, wire, jobs,
+                                   n_combos, entry, strategy)
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+
+        small = data.synthetic_ohlcv(16, N_BARS, seed=seed + 100)
+        gjobs = _jobs(pb, data, small, strategy, axes)
+        gdone = {c.job_id: wire.metrics_from_bytes(c.metrics)
+                 for c in backend.process(gjobs)}
+        got = {name: np.stack([getattr(gdone[j.id], name) for j in gjobs])
+               for name in compute.Metrics._fields}
+        grid = sweep.product_grid(**{k: axes[k] for k in sorted(axes)})
+        gold = sweep.run_sweep(small, models.get_strategy(strategy), grid,
+                               cost=COST, device="cuda")
+        n_flips = _golden_check(strategy, got, gold, exact)
+        print(f"{strategy} main path vs golden path: 16 jobs x {n_combos} "
+              f"combos agree ({'identical positions' if exact else 'flip rule'}"
+              f", {n_flips} flipped cells)")
+
+        _repeat(backend, jobs, n_combos, strategy, batch_s, 5)
+        _main_path_stages(jobs, data, wire, compute, strategy, axes)
+    return total
 
 
 def main() -> None:
@@ -311,10 +616,17 @@ def main() -> None:
 
     phase_build(_kernels)
     k1 = phase_kernels(fused, pnl, data)
+    new = phase_new_kernels(fused, pnl, data)
     launches = phase_main_path(_kernels, compute, wire, pb, data, sweep,
                                models, fused)
     k1["launches"] = launches.get("fused_sma", 0)
-    print(json.dumps({"kernels": [k1]}))
+    new_launches = phase_new_main_paths(_kernels, compute, wire, pb, data,
+                                        sweep, models)
+    for entry, rec in new.items():
+        rec["launches"] = new_launches.get(entry, 0)
+        _check(rec["launches"] > 0, f"{entry} launched no time on the main "
+               "paths")
+    print(json.dumps({"kernels": [k1, *new.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -22,12 +22,11 @@
 //   to XLA). One CTA covers one ticker x 128 combos; the ticker's cs and r
 //   rows are staged in shared memory when they fit, else read through the
 //   read-only cache.
-// - One sequential pass per thread over t < t_real[ticker] carries prev,
-//   s1, s2, the downside square sum, cumulative net, running peak, mdd,
-//   wins, active bars and turnover. It replaces both the "scan" and the
-//   "ladder" epilogues of the TPU kernel. Bars at or past t_real contribute
-//   nothing, which equals the reference holding the last position through
-//   repeat-last padding.
+// - One sequential pass per thread over t < t_real[ticker] carries the
+//   position and the metric sums (metrics_tail.cuh, shared with K2 and K3).
+//   It replaces both the "scan" and the "ladder" epilogues of the TPU
+//   kernel. Bars at or past t_real contribute nothing, which equals the
+//   reference holding the last position through repeat-last padding.
 // - Output: (9, N, P) f32 in the reference's `_metrics_pack` order and
 //   formulas. The wrapper allocates it; the kernel allocates nothing.
 //
@@ -42,13 +41,11 @@
 // multiply-add is contracted, so the epilogue rounds as the plain PyTorch
 // version does.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "metrics_tail.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
-constexpr float kEps = 1e-12f;
 // Stage cs and r in shared memory up to this many bytes per CTA (both rows:
 // T <= 12288 bars); longer histories read through the read-only cache.
 constexpr size_t kMaxStagedBytes = 96 * 1024;
@@ -89,51 +86,16 @@ __global__ void __launch_bounds__(kThreads) fused_sma_kernel(
   const float fsw = static_cast<float>(sw);
   const int t_on = warm[p] - 1;
 
-  float prev = 0.f, s1 = 0.f, s2 = 0.f, dsq = 0.f, cum = 0.f;
-  float peak = -INFINITY, mdd = 0.f, wins = 0.f, active = 0.f, turn = 0.f;
+  dbx::MetricsAcc acc;
   for (int t = 0; t < tr; ++t) {
     float pos = 0.f;
     if (t >= t_on) {
-      const float d = sma_at(cs_row, t, fw, ffw) - sma_at(cs_row, t, sw, fsw);
-      // jnp.sign: +-1, and d itself for +-0 (and NaN).
-      pos = d > 0.f ? 1.f : (d < 0.f ? -1.f : d);
+      pos = dbx::sign_of(sma_at(cs_row, t, fw, ffw) -
+                         sma_at(cs_row, t, sw, fsw));
     }
-    const float dp = fabsf(pos - prev);
-    const float net = prev * r_row[t] - cost * dp;
-    s1 += net;
-    s2 += net * net;
-    const float down = fminf(net, 0.f);
-    dsq += down * down;
-    cum += net;
-    const float eq = 1.f + cum;
-    peak = fmaxf(peak, eq);
-    mdd = fmaxf(mdd, (peak - eq) / fmaxf(peak, kEps));
-    if (prev != 0.f) {
-      active += 1.f;
-      if (net > 0.f) wins += 1.f;
-    }
-    turn += dp;
-    prev = pos;
+    acc.step(pos, r_row[t], cost);
   }
-
-  const float nf = static_cast<float>(tr);
-  const float mean = s1 / nf;
-  const float sd = sqrtf(fmaxf(s2 / nf - mean * mean, 0.f));
-  const float dstd = sqrtf(dsq / nf);
-  const float ann = sqrtf(ppy);
-  const float eq_final = 1.f + cum;
-  const float years = fmaxf(nf / ppy, kEps);
-  const size_t plane = static_cast<size_t>(N) * P;
-  float* o = out + static_cast<size_t>(n) * P + p;
-  o[0 * plane] = mean / (sd + kEps) * ann;                    // sharpe
-  o[1 * plane] = mean / (dstd + kEps) * ann;                  // sortino
-  o[2 * plane] = mdd;                                         // max_drawdown
-  o[3 * plane] = eq_final - 1.f;                              // total_return
-  o[4 * plane] = powf(fmaxf(eq_final, kEps), 1.f / years) - 1.f;  // cagr
-  o[5 * plane] = sd * ann;                                    // volatility
-  o[6 * plane] = wins / (active + kEps);                      // hit_rate
-  o[7 * plane] = 0.5f * turn;                                 // n_trades
-  o[8 * plane] = turn;                                        // turnover
+  acc.store(out, n, p, N, P, tr, ppy);
 }
 
 }  // namespace
@@ -159,12 +121,8 @@ extern "C" int dbx_fused_sma(const void* cs, const void* r,
   const auto* a_w = static_cast<const int*>(warm);
   auto* a_out = static_cast<float*>(out);
   if (smem <= kMaxStagedBytes) {
-    if (smem > 48 * 1024) {
-      cudaError_t err = cudaFuncSetAttribute(
-          fused_sma_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(smem));
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
+    const int err = dbx::allow_smem(fused_sma_kernel<true>, smem);
+    if (err != 0) return err;
     fused_sma_kernel<true><<<grid, kThreads, smem, s>>>(
         a_cs, a_r, a_tr, a_f, a_s, a_w, a_out, N, T, P, cost,
         static_cast<float>(ppy));

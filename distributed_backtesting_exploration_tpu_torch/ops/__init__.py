@@ -1,5 +1,6 @@
-"""Compute ops: rolling indicators, the PnL engine, performance metrics and
-the fused sweep (K1). Time is always the last axis."""
+"""Compute ops: rolling indicators, signal machines, the PnL engine,
+performance metrics and the fused sweeps (K1-K3). Time is always the last
+axis."""
 
 from .rolling import rolling_sum, rolling_mean, valid_mask  # noqa: F401
 from .pnl import simple_returns, backtest_prefix, BacktestResult  # noqa: F401
@@ -10,4 +11,12 @@ from .metrics import (  # noqa: F401
     metrics_from_reductions,
     summary_metrics,
 )
-from .fused import fused_sma_sweep  # noqa: F401
+from .fused import (  # noqa: F401
+    fused_bollinger_sweep,
+    fused_bollinger_touch_sweep,
+    fused_donchian_hl_sweep,
+    fused_donchian_sweep,
+    fused_momentum_sweep,
+    fused_sma_sweep,
+    fused_stochastic_sweep,
+)

@@ -4,8 +4,8 @@ Each kernel source under ``csrc/`` is compiled with ``nvcc`` into a shared
 library with a plain C interface and loaded with ``ctypes``. The build runs
 at first use, never at import (the CPU test machines have no ``nvcc``),
 into ``_build/`` inside the package (listed in ``.gitignore``). The library
-name carries a hash of the source and the flags, so an edited source is
-rebuilt rather than reused.
+name carries a hash of the source, the shared headers (``csrc/*.cuh``) and
+the flags, so an edited source or header is rebuilt rather than reused.
 
 ``LAUNCHES`` counts launches per kernel: each wrapper adds one where it
 launches its kernel, and nowhere else, so a run can show that its main
@@ -61,8 +61,11 @@ def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` into ``_build/`` (if not already built)
     and return the library path."""
     src = SRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(
-        NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     lib = BUILD_DIR / f"lib{name}-{digest}.so"
     if lib.exists():
         return lib
@@ -93,13 +96,47 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def fused_sma_lib() -> ctypes.CDLL:
-    """K1's library with its C signature declared."""
-    lib = load("fused_sma")
-    fn = lib.dbx_fused_sma
-    if fn.argtypes is None:
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci,
-                       ctypes.c_float, ci, vp]
-        fn.restype = ci
+_VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+# C signature of every entry point, by library: pointers as c_void_p (a
+# plain int would cut them to 32 bits), then the sizes and scalars.
+_SIGNATURES = {
+    "fused_sma": {
+        "dbx_fused_sma": [_VP] * 7 + [_CI] * 3 + [_CF, _CI, _VP],
+    },
+    "band_machine": {
+        "dbx_band_inline": [_VP] * 10 + [_CI] * 4 + [_CF, _CF, _CI, _VP],
+        "dbx_band_table": [_VP] * 7 + [_CI] * 5 + [_CF, _CF, _CI, _VP],
+    },
+    "single_window": {
+        "dbx_momentum": [_VP] * 6 + [_CI] * 3 + [_CF, _CI, _VP],
+        "dbx_donchian": [_VP] * 6 + [_CI] * 4 + [_CF, _CI, _VP],
+    },
+}
+
+
+def _typed(name: str) -> ctypes.CDLL:
+    lib = load(name)
+    for entry, argtypes in _SIGNATURES[name].items():
+        fn = getattr(lib, entry)
+        if fn.argtypes is None:
+            fn.argtypes = argtypes
+            fn.restype = _CI
     return lib
+
+
+def fused_sma_lib() -> ctypes.CDLL:
+    """K1's library (``csrc/fused_sma.cu``) with its C signature declared."""
+    return _typed("fused_sma")
+
+
+def band_machine_lib() -> ctypes.CDLL:
+    """K2's library (``csrc/band_machine.cu``): ``dbx_band_inline`` and
+    ``dbx_band_table``."""
+    return _typed("band_machine")
+
+
+def single_window_lib() -> ctypes.CDLL:
+    """K3's library (``csrc/single_window.cu``): ``dbx_momentum`` and
+    ``dbx_donchian``."""
+    return _typed("single_window")

@@ -1,21 +1,31 @@
-"""Fused SMA-crossover sweep: K1 of the port (reference ``ops/fused.py``).
+"""Fused parameter sweeps: K1-K3 of the port (reference ``ops/fused.py``).
 
-:func:`fused_sma_sweep` computes the 9 metrics of every (ticker, combo)
-backtest of an SMA-crossover grid and returns them as :class:`Metrics` of
-``(N, P)`` fields, like the reference's ``fused_sma_sweep``. It prepares
-the inputs host-side and with plain torch ops (distinct windows, the close
-cumsum, the simple returns) and hands them to :func:`fused_sma`:
+Each ``fused_*_sweep`` computes the 9 metrics of every (ticker, combo)
+backtest of one strategy's grid and returns them as :class:`Metrics` of
+``(N, P)`` fields, like the reference's wrapper of the same name. It
+prepares the inputs host-side and with plain torch ops (distinct windows,
+cumsums, returns, the z- or breakout-sign tables) and hands them to one
+kernel entry:
 
-- on a CUDA tensor, :func:`fused_sma_cuda` launches the hand-written kernel
-  ``csrc/fused_sma.cu`` (it raises on anything it cannot launch: there is
-  no fallback);
-- on a CPU tensor, :func:`fused_sma_plain` computes the same function with
-  plain PyTorch ops. It is also the yardstick the kernel is held against on
-  the card.
+==============================  ========================  ===================
+sweep                           entry                     kernel source
+==============================  ========================  ===================
+``fused_sma_sweep``             :func:`fused_sma`         ``fused_sma.cu``
+``fused_bollinger_sweep``,      :func:`band_inline`       ``band_machine.cu``
+``fused_bollinger_touch_sweep``
+``fused_stochastic_sweep``      :func:`band_table`        ``band_machine.cu``
+``fused_momentum_sweep``        :func:`momentum`          ``single_window.cu``
+``fused_donchian_sweep``,       :func:`donchian`          ``single_window.cu``
+``fused_donchian_hl_sweep``
+==============================  ========================  ===================
 
-Numerics: the per-lane SMA values use the reference table's exact op
-sequence, so on the same cumsum the kernel and the plain version take
-identical positions; the metric sums differ only by f32 association.
+Each entry dispatches on its inputs' device: on a CUDA tensor its
+``*_cuda`` wrapper launches the hand-written kernel (and raises on anything
+it cannot launch: there is no fallback); on a CPU tensor its ``*_plain``
+version computes the same function with plain PyTorch ops. The plain
+versions step bar by bar in the kernels' order (:class:`_MetricState`), so
+on the card a kernel and its plain version agree to the bit; they are the
+yardstick the kernels are held against.
 """
 
 from __future__ import annotations
@@ -32,8 +42,11 @@ from .pnl import simple_returns
 
 _EPS = 1e-12
 _N_METRICS = 9
-_KERNEL_THREADS = 128      # lanes per CTA (csrc/fused_sma.cu kThreads)
+_KERNEL_THREADS = 128      # lanes per CTA (kThreads in every csrc/*.cu)
 _MAX_PARAM_BLOCKS = 65535  # CUDA gridDim.y limit
+_MACHINES = {"hysteresis": 0, "touch": 1}
+# The reference's stand-in for the generic channel's +-inf warmup fill.
+_CHANNEL_FILL = 1e30
 
 
 def _epilogue_ok(epilogue) -> bool:
@@ -61,14 +74,11 @@ def _resolve_epilogue(epilogue: str | None) -> str:
         f"or 'ladder', got {epilogue!r}")
 
 
-def _resolve_table(table: str | None) -> str:
-    """The reference's table rule: ``"inline"`` or ``"hbm"``; None means
-    ``"inline"``. Any other value raises."""
-    if table is None:
-        return "inline"
-    if table not in ("inline", "hbm"):
+def _check_table(table: str | None) -> None:
+    """The reference's table rule: None, ``"inline"`` or ``"hbm"``. Any
+    other value raises."""
+    if table not in (None, "inline", "hbm"):
         raise ValueError(f"table must be 'inline' or 'hbm', got {table!r}")
-    return table
 
 
 def _distinct_windows(vals: np.ndarray, what: str) -> np.ndarray:
@@ -81,6 +91,18 @@ def _distinct_windows(vals: np.ndarray, what: str) -> np.ndarray:
     return np.unique(np.round(vals)).astype(np.float32)
 
 
+def _flat(x) -> np.ndarray:
+    return np.asarray(x, np.float32).reshape(-1)
+
+
+def _same_length(**arrays) -> None:
+    shapes = {k: v.shape for k, v in arrays.items()}
+    if len(set(shapes.values())) > 1:
+        raise ValueError(
+            f"{' and '.join(shapes)} must be flat per-combo arrays of one "
+            f"length; got {' and '.join(str(s) for s in shapes.values())}")
+
+
 def _grid_setup(fast, slow):
     """Per-lane integer windows and warmup of a flat (fast, slow) grid.
 
@@ -89,12 +111,8 @@ def _grid_setup(fast, slow):
     values, truncated to an integer as the reference's kernel truncates it.
     Returns ``(fast_w, slow_w, warm)``, each an ``(P,)`` int32 array.
     """
-    fast = np.asarray(fast, np.float32).reshape(-1)
-    slow = np.asarray(slow, np.float32).reshape(-1)
-    if fast.shape != slow.shape:
-        raise ValueError(
-            f"fast and slow must be flat per-combo arrays of one length; got "
-            f"{fast.shape} and {slow.shape}")
+    fast, slow = _flat(fast), _flat(slow)
+    _same_length(fast=fast, slow=slow)
     windows = _distinct_windows(np.concatenate([fast, slow]), "windows")
     if windows.size and windows[0] < 1:
         raise ValueError(
@@ -103,6 +121,22 @@ def _grid_setup(fast, slow):
     slow_w = np.round(slow).astype(np.int32)
     warm = np.maximum(fast, slow).astype(np.int32)
     return fast_w, slow_w, warm
+
+
+def _window_setup(vals, what: str, warm_offset: float, min_window: int):
+    """Distinct windows and per-lane window, row and warmup of one window
+    axis (the reference's ``_boll_grid_setup`` / ``_single_window_grid_setup``
+    without the one-hot): warmup ``value + warm_offset`` in f32, truncated
+    to an integer. Returns ``(windows, win, widx, warm)``: the sorted
+    distinct windows, then ``(P,)`` int32 arrays."""
+    windows = _distinct_windows(vals, what)
+    if windows.size and windows[0] < min_window:
+        raise ValueError(f"fused sweep {what} must be at least {min_window} "
+                         f"bar(s); got {windows[0]:g}")
+    rounded = np.round(vals).astype(np.float32)
+    widx = np.searchsorted(windows, rounded).astype(np.int32)
+    warm = (vals + np.float32(warm_offset)).astype(np.int32)
+    return windows, rounded.astype(np.int32), widx, warm
 
 
 def _check_t_real(t_real, N: int, T: int) -> np.ndarray:
@@ -118,6 +152,126 @@ def _check_t_real(t_real, N: int, T: int) -> np.ndarray:
     return tr.astype(np.int32)
 
 
+def _check_launch(name: str, dev: torch.device, P: int, **args) -> None:
+    """Refuse what a kernel cannot take: ``args`` maps each argument name to
+    ``(tensor, dtype, shape)``; every tensor must be a contiguous tensor of
+    that dtype and shape on ``dev`` (a CUDA device)."""
+    if dev.type != "cuda":
+        raise ValueError(f"{name} needs CUDA tensors; got {dev}")
+    for arg, (x, dtype, shape) in args.items():
+        if x.device != dev:
+            raise ValueError(f"{arg} is on {x.device}, the inputs on {dev}")
+        if x.dtype != dtype:
+            raise TypeError(f"{arg} must be {dtype}, got {x.dtype}")
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{arg} must have shape {shape}, got "
+                             f"{tuple(x.shape)}")
+        if not x.is_contiguous():
+            raise ValueError(f"{arg} must be contiguous")
+    if -(-P // _KERNEL_THREADS) > _MAX_PARAM_BLOCKS:
+        raise ValueError(f"{P} combos exceed the kernel's grid limit of "
+                         f"{_MAX_PARAM_BLOCKS * _KERNEL_THREADS}")
+
+
+def _launch(name: str, entry, *args) -> None:
+    """Call a C entry on the current stream and count the launch."""
+    with torch.cuda.device(args[0].device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = entry(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
+                      for a in args), stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    _kernels.LAUNCHES[name] += 1
+
+
+class _MetricState:
+    """The kernels' per-bar PnL and metric sums over ``(N, P)`` lanes, in
+    the order of ``csrc/metrics_tail.cuh``.
+
+    One :meth:`step` per bar carries the running sums as the kernels do. A
+    vectorized ``cumsum`` over time would associate the equity sum
+    differently, and where a combo's additive equity ends near zero, CAGR
+    (``final ** (1 / years)``) magnifies that last-bit difference past any
+    f32 tolerance; the same order keeps the kernels and the plain versions
+    in step there too.
+    """
+
+    def __init__(self, t_real: torch.Tensor, P: int):
+        N = t_real.shape[0]
+        dev = t_real.device
+        self.t_real = t_real
+        self.tr = t_real.long()[:, None]                       # (N, 1)
+        self.zero = torch.zeros((N, P), dtype=torch.float32, device=dev)
+        zero = self.zero
+        self.prev, self.s1, self.s2, self.dsq, self.cum = (zero,) * 5
+        self.mdd, self.wins, self.active, self.turn = (zero,) * 4
+        self.peak = torch.full((N, P), -math.inf, dtype=torch.float32,
+                               device=dev)
+
+    def step(self, t: int, pos: torch.Tensor, r_col: torch.Tensor,
+             cost: float) -> None:
+        """Bar ``t``: ``pos`` is the ``(N, P)`` position decided at its
+        close, ``r_col`` the ``(N, 1)`` simple returns of the bar. Bars at
+        or past a ticker's real length change nothing: zero net, no
+        turnover, the last position held."""
+        zero, prev = self.zero, self.prev
+        ok = t < self.tr
+        dp = torch.where(ok, (pos - prev).abs(), zero)
+        net = torch.where(ok, prev * r_col - cost * dp, zero)
+        self.s1 = self.s1 + net
+        self.s2 = self.s2 + net * net
+        down = net.clamp_max(0.0)
+        self.dsq = self.dsq + down * down
+        self.cum = self.cum + net
+        eq = 1.0 + self.cum
+        self.peak = torch.maximum(self.peak, eq)
+        self.mdd = torch.maximum(self.mdd,
+                                 (self.peak - eq) / self.peak.clamp_min(_EPS))
+        act = (prev != 0) & ok
+        self.active = self.active + act
+        self.wins = self.wins + (act & (net > 0))
+        self.turn = self.turn + dp
+        self.prev = torch.where(ok, pos, prev)
+
+    def planes(self, ppy: int) -> torch.Tensor:
+        """The ``(9, N, P)`` metric planes in :class:`Metrics` order."""
+        m = metrics_from_reductions(
+            s1=self.s1, s2=self.s2, downside_sq_sum=self.dsq, mdd=self.mdd,
+            eq_final=1.0 + self.cum, wins_sum=self.wins,
+            active_sum=self.active, turnover=self.turn,
+            n=self.t_real.to(torch.float32)[:, None], periods_per_year=ppy)
+        return torch.stack(list(m), 0)
+
+
+def _on_device(plain, cuda, x: torch.Tensor):
+    """The plain version for a CPU tensor, the kernel wrapper otherwise."""
+    return plain if x.device.type == "cpu" else cuda
+
+
+def _shift_t(x: torch.Tensor, s: int, fill: float) -> torch.Tensor:
+    """``y[..., t] = x[..., t - s]`` with ``fill`` for ``t < s``."""
+    T = x.shape[-1]
+    s = min(s, T)
+    if s == 0:
+        return x
+    return torch.cat([torch.full_like(x[..., :s], fill), x[..., :T - s]],
+                     dim=-1)
+
+
+def _lagged_window_sum(c: torch.Tensor, windows: torch.Tensor) -> torch.Tensor:
+    """``c[:, t] - c[:, t - w]`` for every window, ``c[:, t - w] = 0`` for
+    ``t < w``: ``(N, T)`` rows -> ``(N, W, T)``, the kernels' op order."""
+    N, T = c.shape
+    W = windows.shape[0]
+    lag_idx = torch.arange(T, device=c.device)[None, :] - windows[:, None]
+    lag = torch.gather(c[:, None, :].expand(N, W, T), -1,
+                       lag_idx.clamp_min(0).expand(N, -1, -1))
+    lag = torch.where(lag_idx >= 0, lag, torch.zeros_like(lag))
+    return c[:, None, :] - lag
+
+
+# --- K1: SMA crossover ----------------------------------------------------
+
 def fused_sma_plain(cs, r, t_real, fast, slow, warm, *, cost: float,
                     ppy: int) -> torch.Tensor:
     """Plain PyTorch version of K1: the kernel's algorithm as tensor ops.
@@ -126,65 +280,28 @@ def fused_sma_plain(cs, r, t_real, fast, slow, warm, *, cost: float,
     ``t_real`` the ``(N,)`` real lengths; ``fast``/``slow``/``warm`` the
     ``(P,)`` integer windows and warmups. Returns the ``(9, N, P)`` metric
     planes in :class:`Metrics` field order.
-
-    One step per bar over all ``(N, P)`` lanes, carrying the kernel's
-    running sums in the kernel's order. A vectorized ``cumsum`` over time
-    would associate the equity sum differently, and where a combo's
-    additive equity ends near zero, CAGR (``final ** (1 / years)``)
-    magnifies that last-bit difference past any f32 tolerance; the same
-    order keeps the kernel and this version in step there too.
     """
     N, T = cs.shape
     P = fast.shape[0]
-    dev = cs.device
-    t = torch.arange(T, device=dev)
+    t = torch.arange(T, device=cs.device)
     # Distinct-window SMA table with the reference's op sequence:
     # (cs[t] - cs[t-w]) / float(w), cs[t-w] = 0 for t < w, 0 for t < w-1.
     windows, inv = torch.unique(torch.cat([fast, slow]).long(),
                                 return_inverse=True)
     fi, si = inv[:P], inv[P:]
-    lag_idx = t[None, :] - windows[:, None]                     # (W, T)
-    lag = torch.gather(cs[:, None, :].expand(N, windows.shape[0], T), -1,
-                       lag_idx.clamp_min(0).expand(N, -1, -1))
-    lag = torch.where(lag_idx >= 0, lag, torch.zeros_like(lag))
-    table = (cs[:, None, :] - lag) / windows.to(cs.dtype)[:, None]
+    table = _lagged_window_sum(cs, windows) / windows.to(cs.dtype)[:, None]
     table = torch.where(t[None, :] >= windows[:, None] - 1, table,
                         torch.zeros_like(table))
     table = table.permute(2, 0, 1).contiguous()                 # (T, N, W)
 
-    zero = torch.zeros((N, P), dtype=torch.float32, device=dev)
-    prev, s1, s2, dsq, cum = zero, zero, zero, zero, zero
-    mdd, wins, active, turn = zero, zero, zero, zero
-    peak = torch.full((N, P), -math.inf, dtype=torch.float32, device=dev)
+    st = _MetricState(t_real, P)
     t_on = (warm.long() - 1)[None, :]                           # (1, P)
-    tr = t_real.long()[:, None]                                 # (N, 1)
     for step in range(T):
         row = table[step]
-        d = row[:, fi] - row[:, si]
-        pos = torch.where(step >= t_on, torch.sign(d), zero)
-        # Bars at or past a ticker's real length change nothing: zero net,
-        # no turnover, the last position held.
-        ok = step < tr
-        dp = torch.where(ok, (pos - prev).abs(), zero)
-        net = torch.where(ok, prev * r[:, step:step + 1] - cost * dp, zero)
-        s1 = s1 + net
-        s2 = s2 + net * net
-        down = net.clamp_max(0.0)
-        dsq = dsq + down * down
-        cum = cum + net
-        eq = 1.0 + cum
-        peak = torch.maximum(peak, eq)
-        mdd = torch.maximum(mdd, (peak - eq) / peak.clamp_min(_EPS))
-        act = (prev != 0) & ok
-        active = active + act
-        wins = wins + (act & (net > 0))
-        turn = turn + dp
-        prev = torch.where(ok, pos, prev)
-    m = metrics_from_reductions(
-        s1=s1, s2=s2, downside_sq_sum=dsq, mdd=mdd, eq_final=1.0 + cum,
-        wins_sum=wins, active_sum=active, turnover=turn,
-        n=t_real.to(torch.float32)[:, None], periods_per_year=ppy)
-    return torch.stack(list(m), 0)
+        pos = torch.where(step >= t_on, torch.sign(row[:, fi] - row[:, si]),
+                          st.zero)
+        st.step(step, pos, r[:, step:step + 1], cost)
+    return st.planes(ppy)
 
 
 def fused_sma_cuda(cs, r, t_real, fast, slow, warm, *, cost: float,
@@ -197,41 +314,16 @@ def fused_sma_cuda(cs, r, t_real, fast, slow, warm, *, cost: float,
     """
     N, T = cs.shape
     P = fast.shape[0]
-    dev = cs.device
-    if dev.type != "cuda":
-        raise ValueError(f"fused_sma_cuda needs CUDA tensors; got {dev}")
-    for name, x, dtype, shape in (
-            ("cs", cs, torch.float32, (N, T)),
-            ("r", r, torch.float32, (N, T)),
-            ("t_real", t_real, torch.int32, (N,)),
-            ("fast", fast, torch.int32, (P,)),
-            ("slow", slow, torch.int32, (P,)),
-            ("warm", warm, torch.int32, (P,))):
-        if x.device != dev:
-            raise ValueError(f"{name} is on {x.device}, cs on {dev}")
-        if x.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
-        if tuple(x.shape) != shape:
-            raise ValueError(f"{name} must have shape {shape}, got "
-                             f"{tuple(x.shape)}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if -(-P // _KERNEL_THREADS) > _MAX_PARAM_BLOCKS:
-        raise ValueError(f"{P} combos exceed the kernel's grid limit of "
-                         f"{_MAX_PARAM_BLOCKS * _KERNEL_THREADS}")
-    out = torch.empty((_N_METRICS, N, P), dtype=torch.float32, device=dev)
-    if N == 0 or P == 0:
-        return out
-    lib = _kernels.fused_sma_lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.dbx_fused_sma(
-            cs.data_ptr(), r.data_ptr(), t_real.data_ptr(), fast.data_ptr(),
-            slow.data_ptr(), warm.data_ptr(), out.data_ptr(), N, T, P,
-            float(cost), int(ppy), stream)
-    if err != 0:
-        raise RuntimeError(f"fused_sma kernel launch failed: CUDA error {err}")
-    _kernels.LAUNCHES["fused_sma"] += 1
+    f32, i32 = torch.float32, torch.int32
+    _check_launch("fused_sma_cuda", cs.device, P,
+                  cs=(cs, f32, (N, T)), r=(r, f32, (N, T)),
+                  t_real=(t_real, i32, (N,)), fast=(fast, i32, (P,)),
+                  slow=(slow, i32, (P,)), warm=(warm, i32, (P,)))
+    out = torch.empty((_N_METRICS, N, P), dtype=f32, device=cs.device)
+    if N and P:
+        _launch("fused_sma", _kernels.fused_sma_lib().dbx_fused_sma,
+                cs, r, t_real, fast, slow, warm, out, N, T, P, float(cost),
+                int(ppy))
     return out
 
 
@@ -239,10 +331,338 @@ def fused_sma(cs, r, t_real, fast, slow, warm, *, cost: float,
               ppy: int) -> torch.Tensor:
     """K1 on the inputs' device: the kernel on CUDA, the plain version on
     the CPU."""
-    if cs.device.type == "cpu":
-        return fused_sma_plain(cs, r, t_real, fast, slow, warm, cost=cost,
-                               ppy=ppy)
-    return fused_sma_cuda(cs, r, t_real, fast, slow, warm, cost=cost, ppy=ppy)
+    fn = _on_device(fused_sma_plain, fused_sma_cuda, cs)
+    return fn(cs, r, t_real, fast, slow, warm, cost=cost, ppy=ppy)
+
+
+# --- K2: band machine (bollinger, bollinger_touch, stochastic) ------------
+
+def boll_z_table(close, cs, csx, csx2, windows) -> torch.Tensor:
+    """The ``(N, W, T)`` Bollinger z-table of each distinct window, in
+    ``csrc/band_machine.cu``'s op order (the reference's
+    ``_build_boll_z_scratch``): ``m = (cs[t] - cs[t-w]) / w``,
+    ``var = max((s2 - s1*s1/w) / w, 0)`` from the centered window sums,
+    ``z = (c - m) / (sqrt(var) + 1e-12)``, 0 for ``t < w - 1``."""
+    windows = windows.long()
+    fw = windows.to(torch.float32)[:, None]
+    m = _lagged_window_sum(cs, windows) / fw
+    s1 = _lagged_window_sum(csx, windows)
+    s2 = _lagged_window_sum(csx2, windows)
+    var = ((s2 - s1 * s1 / fw) / fw).clamp_min(0.0)
+    z = (close[:, None, :] - m) / (torch.sqrt(var) + _EPS)
+    t = torch.arange(close.shape[1], device=close.device)
+    return torch.where(t[None, :] >= windows[:, None] - 1, z,
+                       torch.zeros_like(z))
+
+
+def _machine_code(machine: str) -> int:
+    if machine not in _MACHINES:
+        raise ValueError(f"machine must be one of {sorted(_MACHINES)}, got "
+                         f"{machine!r}")
+    return _MACHINES[machine]
+
+
+def band_machine_plain(z, r, t_real, widx, k, warm, *, machine: str,
+                       z_exit: float, cost: float, ppy: int) -> torch.Tensor:
+    """Plain PyTorch version of K2 over a z-table (``dbx_band_table``).
+
+    ``z`` is the ``(N, W, T)`` z-table, ``widx`` each lane's row in it,
+    ``k`` the ``(P,)`` entry bands, ``warm`` the ``(P,)`` integer warmups.
+    ``machine`` is ``"hysteresis"`` (enter beyond +-k, leave a long at
+    ``z >= -z_exit`` and a short at ``z <= z_exit``) or ``"touch"``
+    (memoryless). Returns the ``(9, N, P)`` metric planes.
+    """
+    _machine_code(machine)
+    N, W, T = z.shape
+    P = widx.shape[0]
+    zt = z.permute(2, 0, 1)                                     # (T, N, W)
+    lanes = widx.long()
+    kk = k[None, :]
+    zx = torch.tensor(z_exit, dtype=torch.float32, device=z.device)
+    st = _MetricState(t_real, P)
+    one = torch.ones((), dtype=torch.float32, device=z.device)
+    zero = torch.zeros((), dtype=torch.float32, device=z.device)
+    t_on = (warm.long() - 1)[None, :]
+    for step in range(T):
+        zs = zt[step][:, lanes]                                 # (N, P)
+        nxt = torch.where(zs < -kk, one, torch.where(zs > kk, -one, zero))
+        if machine == "hysteresis":
+            prev = st.prev
+            held = torch.where(
+                prev > 0, torch.where(zs >= -zx, zero, prev),
+                torch.where(zs <= zx, zero, prev))
+            nxt = torch.where(prev == 0, nxt, held)
+        pos = torch.where(step >= t_on, nxt, st.zero)
+        st.step(step, pos, r[:, step:step + 1], cost)
+    return st.planes(ppy)
+
+
+def band_inline_plain(close, cs, csx, csx2, r, t_real, window, k, warm, *,
+                      machine: str, z_exit: float, cost: float,
+                      ppy: int) -> torch.Tensor:
+    """Plain PyTorch version of K2's inline entry (``dbx_band_inline``):
+    the z-table of the lanes' distinct windows (:func:`boll_z_table`), then
+    :func:`band_machine_plain`. ``close``, ``cs``, ``csx``, ``csx2`` and
+    ``r`` are ``(N, T)``: the close, its cumsum, the cumsums of the centered
+    close and of its square, the simple returns; ``window`` the ``(P,)``
+    integer windows."""
+    windows, widx = torch.unique(window.long(), return_inverse=True)
+    z = boll_z_table(close, cs, csx, csx2, windows)
+    return band_machine_plain(z, r, t_real, widx, k, warm, machine=machine,
+                              z_exit=z_exit, cost=cost, ppy=ppy)
+
+
+def band_inline_cuda(close, cs, csx, csx2, r, t_real, window, k, warm, *,
+                     machine: str, z_exit: float, cost: float,
+                     ppy: int) -> torch.Tensor:
+    """Launch K2's inline entry (``csrc/band_machine.cu``,
+    ``dbx_band_inline``): same inputs and output as
+    :func:`band_inline_plain`, all on one CUDA device."""
+    N, T = close.shape
+    P = window.shape[0]
+    code = _machine_code(machine)
+    f32, i32 = torch.float32, torch.int32
+    row = (N, T)
+    _check_launch("band_inline_cuda", close.device, P,
+                  close=(close, f32, row), cs=(cs, f32, row),
+                  csx=(csx, f32, row), csx2=(csx2, f32, row),
+                  r=(r, f32, row), t_real=(t_real, i32, (N,)),
+                  window=(window, i32, (P,)), k=(k, f32, (P,)),
+                  warm=(warm, i32, (P,)))
+    out = torch.empty((_N_METRICS, N, P), dtype=f32, device=close.device)
+    if N and P:
+        _launch("band_inline", _kernels.band_machine_lib().dbx_band_inline,
+                close, cs, csx, csx2, r, t_real, window, k, warm, out, N, T,
+                P, code, float(z_exit), float(cost), int(ppy))
+    return out
+
+
+def band_table_cuda(z, r, t_real, widx, k, warm, *, machine: str,
+                    z_exit: float, cost: float, ppy: int) -> torch.Tensor:
+    """Launch K2's table entry (``csrc/band_machine.cu``,
+    ``dbx_band_table``): same inputs and output as
+    :func:`band_machine_plain`, all on one CUDA device."""
+    N, W, T = z.shape
+    P = widx.shape[0]
+    code = _machine_code(machine)
+    f32, i32 = torch.float32, torch.int32
+    _check_launch("band_table_cuda", z.device, P,
+                  z=(z, f32, (N, W, T)), r=(r, f32, (N, T)),
+                  t_real=(t_real, i32, (N,)), widx=(widx, i32, (P,)),
+                  k=(k, f32, (P,)), warm=(warm, i32, (P,)))
+    out = torch.empty((_N_METRICS, N, P), dtype=f32, device=z.device)
+    if N and P:
+        _launch("band_table", _kernels.band_machine_lib().dbx_band_table,
+                z, r, t_real, widx, k, warm, out, N, T, W, P, code,
+                float(z_exit), float(cost), int(ppy))
+    return out
+
+
+def band_inline(close, cs, csx, csx2, r, t_real, window, k, warm, *,
+                machine: str, z_exit: float, cost: float,
+                ppy: int) -> torch.Tensor:
+    """K2's inline entry on the inputs' device."""
+    fn = _on_device(band_inline_plain, band_inline_cuda, close)
+    return fn(close, cs, csx, csx2, r, t_real, window, k, warm,
+              machine=machine, z_exit=z_exit, cost=cost, ppy=ppy)
+
+
+def band_table(z, r, t_real, widx, k, warm, *, machine: str, z_exit: float,
+               cost: float, ppy: int) -> torch.Tensor:
+    """K2's table entry on the inputs' device."""
+    fn = _on_device(band_machine_plain, band_table_cuda, z)
+    return fn(z, r, t_real, widx, k, warm, machine=machine, z_exit=z_exit,
+              cost=cost, ppy=ppy)
+
+
+# --- K3: single window (momentum, donchian, donchian_hl) ------------------
+
+def momentum_plain(close, r, t_real, lookback, warm, *, cost: float,
+                   ppy: int) -> torch.Tensor:
+    """Plain PyTorch version of K3's momentum entry (``dbx_momentum``):
+    ``pos = sign(close[t] - close[max(t - w, 0)])`` after the warmup.
+    ``close``/``r`` are ``(N, T)``, ``lookback``/``warm`` ``(P,)`` int32.
+    Returns the ``(9, N, P)`` metric planes."""
+    N, T = close.shape
+    P = lookback.shape[0]
+    lb = lookback.long()
+    st = _MetricState(t_real, P)
+    t_on = (warm.long() - 1)[None, :]
+    for step in range(T):
+        past = close[:, (step - lb).clamp_min(0)]               # (N, P)
+        pos = torch.where(step >= t_on,
+                          torch.sign(close[:, step:step + 1] - past), st.zero)
+        st.step(step, pos, r[:, step:step + 1], cost)
+    return st.planes(ppy)
+
+
+def donchian_plain(sig, r, t_real, widx, warm, *, cost: float,
+                   ppy: int) -> torch.Tensor:
+    """Plain PyTorch version of K3's donchian entry (``dbx_donchian``): the
+    breakout latch over the ``(N, W, T)`` int8 sign table, row ``widx`` per
+    lane: +1 on an up breakout, -1 on a down one, else hold; flat before
+    the warmup. Returns the ``(9, N, P)`` metric planes."""
+    N, W, T = sig.shape
+    P = widx.shape[0]
+    st_t = sig.permute(2, 0, 1)                                 # (T, N, W)
+    lanes = widx.long()
+    st = _MetricState(t_real, P)
+    one = torch.ones((), dtype=torch.float32, device=sig.device)
+    t_on = (warm.long() - 1)[None, :]
+    for step in range(T):
+        s = st_t[step][:, lanes]                                # (N, P)
+        nxt = torch.where(s > 0, one, torch.where(s < 0, -one, st.prev))
+        pos = torch.where(step >= t_on, nxt, st.zero)
+        st.step(step, pos, r[:, step:step + 1], cost)
+    return st.planes(ppy)
+
+
+def momentum_cuda(close, r, t_real, lookback, warm, *, cost: float,
+                  ppy: int) -> torch.Tensor:
+    """Launch K3's momentum entry (``csrc/single_window.cu``,
+    ``dbx_momentum``): same inputs and output as :func:`momentum_plain`."""
+    N, T = close.shape
+    P = lookback.shape[0]
+    f32, i32 = torch.float32, torch.int32
+    _check_launch("momentum_cuda", close.device, P,
+                  close=(close, f32, (N, T)), r=(r, f32, (N, T)),
+                  t_real=(t_real, i32, (N,)),
+                  lookback=(lookback, i32, (P,)), warm=(warm, i32, (P,)))
+    out = torch.empty((_N_METRICS, N, P), dtype=f32, device=close.device)
+    if N and P:
+        _launch("momentum", _kernels.single_window_lib().dbx_momentum,
+                close, r, t_real, lookback, warm, out, N, T, P, float(cost),
+                int(ppy))
+    return out
+
+
+def donchian_cuda(sig, r, t_real, widx, warm, *, cost: float,
+                  ppy: int) -> torch.Tensor:
+    """Launch K3's donchian entry (``csrc/single_window.cu``,
+    ``dbx_donchian``): same inputs and output as :func:`donchian_plain`."""
+    N, W, T = sig.shape
+    P = widx.shape[0]
+    i32 = torch.int32
+    _check_launch("donchian_cuda", sig.device, P,
+                  sig=(sig, torch.int8, (N, W, T)),
+                  r=(r, torch.float32, (N, T)), t_real=(t_real, i32, (N,)),
+                  widx=(widx, i32, (P,)), warm=(warm, i32, (P,)))
+    out = torch.empty((_N_METRICS, N, P), dtype=torch.float32,
+                      device=sig.device)
+    if N and P:
+        _launch("donchian", _kernels.single_window_lib().dbx_donchian,
+                sig, r, t_real, widx, warm, out, N, T, W, P, float(cost),
+                int(ppy))
+    return out
+
+
+def momentum(close, r, t_real, lookback, warm, *, cost: float,
+             ppy: int) -> torch.Tensor:
+    """K3's momentum entry on the inputs' device."""
+    fn = _on_device(momentum_plain, momentum_cuda, close)
+    return fn(close, r, t_real, lookback, warm, cost=cost, ppy=ppy)
+
+
+def donchian(sig, r, t_real, widx, warm, *, cost: float,
+             ppy: int) -> torch.Tensor:
+    """K3's donchian entry on the inputs' device."""
+    fn = _on_device(donchian_plain, donchian_cuda, sig)
+    return fn(sig, r, t_real, widx, warm, cost=cost, ppy=ppy)
+
+
+# --- table prep (torch ops before the launch) -----------------------------
+
+def _extrema_rows(src: torch.Tensor, windows: np.ndarray, mode: str):
+    """Yield each distinct window's ``(N, T)`` rolling max/min of ``src``
+    from ONE sparse table (the reference's ``_extrema_table``): doubling
+    levels ``level[j][t] = op(x[t - 2^j + 1 .. t])``, then every window is
+    the op of two overlapping spans. Exact (max/min of raw prices); warmup
+    bars ``t < w - 1`` are left as computed (the callers mask them)."""
+    op = torch.maximum if mode == "max" else torch.minimum
+    neutral = -math.inf if mode == "max" else math.inf
+    max_j = max(int(w).bit_length() - 1 for w in windows)
+    levels = [src]
+    for j in range(max_j):
+        levels.append(op(levels[j], _shift_t(levels[j], 1 << j, neutral)))
+    for w in windows:
+        w = int(w)
+        j = w.bit_length() - 1                      # largest 2^j <= w
+        yield w, op(levels[j], _shift_t(levels[j], w - (1 << j), neutral))
+
+
+def stochastic_z_table(close, high, low, windows: np.ndarray) -> torch.Tensor:
+    """The ``(N, W, T)`` centered %K table of each distinct window (the
+    reference's ``_fused_stoch_call`` prep): ``%K - 50`` with the channel
+    from the highs and lows, 50 where the channel is flat, 0 before
+    ``t = w - 1``."""
+    N, T = close.shape
+    t = torch.arange(T, device=close.device)
+    z = torch.empty((N, len(windows), T), dtype=torch.float32,
+                    device=close.device)
+    rows = zip(_extrema_rows(high, windows, "max"),
+               _extrema_rows(low, windows, "min"))
+    for i, ((w, hi), (_, lo)) in enumerate(rows):
+        rng = hi - lo
+        k_pct = torch.where(rng > _EPS, 100.0 * (close - lo) / (rng + _EPS),
+                            50.0) - 50.0
+        z[:, i] = torch.where(t >= w - 1, k_pct, 0.0)
+    return z
+
+
+def donchian_sign_table(close, hi_src, lo_src,
+                        windows: np.ndarray) -> torch.Tensor:
+    """The ``(N, W, T)`` int8 breakout-sign table (the reference's
+    ``_fused_don_call`` HBM table): +1 where the close is at or above the
+    prior bar's channel high, -1 at or below the prior low, up wins; the
+    channel is +-1e30 before ``t = w - 1`` and at ``t = 0``."""
+    N, T = close.shape
+    t = torch.arange(T, device=close.device)
+    sig = torch.empty((N, len(windows), T), dtype=torch.int8,
+                      device=close.device)
+    rows = zip(_extrema_rows(hi_src, windows, "max"),
+               _extrema_rows(lo_src, windows, "min"))
+    for i, ((w, hi), (_, lo)) in enumerate(rows):
+        hi = torch.where(t >= w - 1, hi, _CHANNEL_FILL)
+        lo = torch.where(t >= w - 1, lo, -_CHANNEL_FILL)
+        up = close >= _shift_t(hi, 1, _CHANNEL_FILL)
+        down = close <= _shift_t(lo, 1, -_CHANNEL_FILL)
+        sig[:, i] = torch.where(up, 1, torch.where(down, -1, 0)).to(torch.int8)
+    return sig
+
+
+# --- sweep wrappers -------------------------------------------------------
+
+def _prologue(carry_out: bool, table, epilogue, device):
+    """The reference wrappers' argument rules: ``carry_out=True`` (the
+    streaming checkpoint) is not ported yet and raises; ``table`` and
+    ``epilogue`` are validated and an invalid value raises. Returns the
+    resolved device."""
+    if carry_out:
+        raise NotImplementedError(
+            "carry_out=True (the streaming checkpoint) is not ported yet; "
+            "see the streaming slice in ROADMAP.md, Queue 1")
+    _check_table(table)
+    _resolve_epilogue(epilogue)
+    return device_mod.resolve(device)
+
+
+def _panel(dev: torch.device, close, *others):
+    """``close`` and any further ``(N, T)`` fields as f32 tensors on
+    ``dev``, all of one shape."""
+    fields = [device_mod.as_tensor(f, torch.float32, dev).contiguous()
+              for f in (close, *others)]
+    if fields[0].ndim != 2:
+        raise ValueError(f"close must be (N, T); got {tuple(fields[0].shape)}")
+    for f in fields[1:]:
+        if f.shape != fields[0].shape:
+            raise ValueError(f"every field must be (N, T) = "
+                             f"{tuple(fields[0].shape)}; got {tuple(f.shape)}")
+    return fields
+
+
+def _to(dev: torch.device, *arrays):
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                 for a in arrays)
 
 
 def fused_sma_sweep(close, fast, slow, *, t_real=None, cost: float = 0.0,
@@ -268,24 +688,177 @@ def fused_sma_sweep(close, fast, slow, *, t_real=None, cost: float = 0.0,
     changes nothing. ``carry_out=True`` (the streaming checkpoint) is not
     ported yet and raises ``NotImplementedError``.
     """
-    if carry_out:
-        raise NotImplementedError(
-            "carry_out=True (the streaming checkpoint) is not ported yet; "
-            "see the streaming slice in ROADMAP.md, Queue 1")
-    _resolve_table(table)
-    _resolve_epilogue(epilogue)
-    dev = device_mod.resolve(device)
-    close = device_mod.as_tensor(close, torch.float32, dev)
-    if close.ndim != 2:
-        raise ValueError(f"close must be (N, T); got {tuple(close.shape)}")
+    dev = _prologue(carry_out, table, epilogue, device)
+    (close,) = _panel(dev, close)
     N, T = close.shape
     fast_w, slow_w, warm = _grid_setup(fast, slow)
     tr = _check_t_real(t_real, N, T)
-    tr_t, fast_t, slow_t, warm_t = (torch.from_numpy(a).to(dev)
-                                    for a in (tr, fast_w, slow_w, warm))
     planes = fused_sma(
         torch.cumsum(close, dim=1).contiguous(),
         simple_returns(close).contiguous(),
-        tr_t, fast_t, slow_t, warm_t,
+        *_to(dev, tr, fast_w, slow_w, warm),
         cost=float(cost), ppy=int(periods_per_year))
     return Metrics(*planes)
+
+
+def _bollinger_family_sweep(close, window, k, *, machine: str, z_exit: float,
+                            t_real, cost, periods_per_year, table, epilogue,
+                            carry_out, device) -> Metrics:
+    dev = _prologue(carry_out, table, epilogue, device)
+    (close,) = _panel(dev, close)
+    N, T = close.shape
+    window, k = _flat(window), _flat(k)
+    _same_length(window=window, k=k)
+    _, win, _, warm = _window_setup(window, "windows", 0.0, 1)
+    tr = _check_t_real(t_real, N, T)
+    # Centered with the mean over all T columns of the group, as the
+    # reference's `_fused_boll_call` centers over the stacked panel.
+    xc = close - close.mean(dim=1, keepdim=True)
+    cs = torch.cumsum(close, dim=1)
+    csx = torch.cumsum(xc, dim=1)
+    csx2 = torch.cumsum(xc * xc, dim=1)
+    planes = band_inline(close, cs, csx, csx2,
+                         simple_returns(close).contiguous(),
+                         *_to(dev, tr, win, k, warm), machine=machine,
+                         z_exit=float(z_exit), cost=float(cost),
+                         ppy=int(periods_per_year))
+    return Metrics(*planes)
+
+
+def fused_bollinger_sweep(close, window, k, *, t_real=None,
+                          z_exit: float = 0.0, cost: float = 0.0,
+                          periods_per_year: int = 252,
+                          table: str | None = None,
+                          epilogue: str | None = None,
+                          carry_out: bool = False,
+                          device: str | torch.device =
+                          device_mod.DEFAULT_DEVICE) -> Metrics:
+    """Fused Bollinger mean-reversion sweep: ``(N, T)`` closes x ``(P,)``
+    lanes (K2, hysteresis machine).
+
+    ``window``/``k`` are flat per-combo arrays (:func:`product_grid`
+    order); windows must be integral bar counts. Matches the generic
+    ``run_sweep(..., "bollinger")`` path. The kernel forms each lane's z
+    from the cumsum rows, whatever the valid ``table`` value. Other
+    arguments as :func:`fused_sma_sweep`.
+    """
+    return _bollinger_family_sweep(
+        close, window, k, machine="hysteresis", z_exit=z_exit, t_real=t_real,
+        cost=cost, periods_per_year=periods_per_year, table=table,
+        epilogue=epilogue, carry_out=carry_out, device=device)
+
+
+def fused_bollinger_touch_sweep(close, window, k, *, t_real=None,
+                                cost: float = 0.0,
+                                periods_per_year: int = 252,
+                                table: str | None = None,
+                                epilogue: str | None = None,
+                                carry_out: bool = False,
+                                device: str | torch.device =
+                                device_mod.DEFAULT_DEVICE) -> Metrics:
+    """Fused band-touch sweep (K2, memoryless machine): long/short while
+    outside the +-k band, flat inside. Same layout and arguments as
+    :func:`fused_bollinger_sweep`."""
+    return _bollinger_family_sweep(
+        close, window, k, machine="touch", z_exit=0.0, t_real=t_real,
+        cost=cost, periods_per_year=periods_per_year, table=table,
+        epilogue=epilogue, carry_out=carry_out, device=device)
+
+
+def fused_stochastic_sweep(close, high, low, window, band, *, t_real=None,
+                           cost: float = 0.0, periods_per_year: int = 252,
+                           epilogue: str | None = None,
+                           carry_out: bool = False,
+                           device: str | torch.device =
+                           device_mod.DEFAULT_DEVICE) -> Metrics:
+    """Fused stochastic-%K reversion sweep: ``(N, T)`` panels x ``(P,)``
+    lanes (K2's table entry, hysteresis machine with z_exit = 0 on the
+    centered %K table).
+
+    ``window``/``band`` are flat per-combo arrays; windows must be integral
+    bar counts. Matches ``run_sweep(..., "stochastic")``.
+    """
+    dev = _prologue(carry_out, None, epilogue, device)
+    close, high, low = _panel(dev, close, high, low)
+    N, T = close.shape
+    window, band = _flat(window), _flat(band)
+    _same_length(window=window, band=band)
+    windows, _, widx, warm = _window_setup(window, "windows", 0.0, 1)
+    tr = _check_t_real(t_real, N, T)
+    z = stochastic_z_table(close, high, low, windows)
+    planes = band_table(z, simple_returns(close).contiguous(),
+                        *_to(dev, tr, widx, band, warm), machine="hysteresis",
+                        z_exit=0.0, cost=float(cost),
+                        ppy=int(periods_per_year))
+    return Metrics(*planes)
+
+
+def fused_momentum_sweep(close, lookback, *, t_real=None, cost: float = 0.0,
+                         periods_per_year: int = 252,
+                         table: str | None = None,
+                         epilogue: str | None = None,
+                         carry_out: bool = False,
+                         device: str | torch.device =
+                         device_mod.DEFAULT_DEVICE) -> Metrics:
+    """Fused time-series momentum sweep: ``(N, T)`` closes x ``(P,)`` lanes
+    (K3's momentum entry). Lookbacks must be integral; the signal is exact.
+    A valid ``table`` changes nothing (the kernel reads the staged close
+    row). Other arguments as :func:`fused_sma_sweep`."""
+    dev = _prologue(carry_out, table, epilogue, device)
+    (close,) = _panel(dev, close)
+    N, T = close.shape
+    _, lb, _, warm = _window_setup(_flat(lookback), "lookbacks",
+                                   1.0, 0)
+    tr = _check_t_real(t_real, N, T)
+    planes = momentum(close, simple_returns(close).contiguous(),
+                      *_to(dev, tr, lb, warm), cost=float(cost),
+                      ppy=int(periods_per_year))
+    return Metrics(*planes)
+
+
+def _donchian_family_sweep(close, hi_src, lo_src, window, *, t_real, cost,
+                           periods_per_year) -> Metrics:
+    N, T = close.shape
+    windows, _, widx, warm = _window_setup(_flat(window),
+                                           "windows", 1.0, 1)
+    tr = _check_t_real(t_real, N, T)
+    sig = donchian_sign_table(close, hi_src, lo_src, windows)
+    planes = donchian(sig, simple_returns(close).contiguous(),
+                      *_to(close.device, tr, widx, warm), cost=float(cost),
+                      ppy=int(periods_per_year))
+    return Metrics(*planes)
+
+
+def fused_donchian_sweep(close, window, *, t_real=None, cost: float = 0.0,
+                         periods_per_year: int = 252,
+                         table: str | None = None,
+                         epilogue: str | None = None,
+                         carry_out: bool = False,
+                         device: str | torch.device =
+                         device_mod.DEFAULT_DEVICE) -> Metrics:
+    """Fused Donchian-breakout sweep on the close channel: ``(N, T)``
+    closes x ``(P,)`` lanes (K3's donchian entry over the breakout-sign
+    table). Windows must be integral; channels are exact, so positions are
+    the generic path's. A valid ``table`` changes nothing: the table is
+    always built with torch ops (the reference's default, ``"hbm"``)."""
+    dev = _prologue(carry_out, table, epilogue, device)
+    (close,) = _panel(dev, close)
+    return _donchian_family_sweep(
+        close, close, close, window, t_real=t_real, cost=cost,
+        periods_per_year=periods_per_year)
+
+
+def fused_donchian_hl_sweep(close, high, low, window, *, t_real=None,
+                            cost: float = 0.0, periods_per_year: int = 252,
+                            table: str | None = None,
+                            epilogue: str | None = None,
+                            carry_out: bool = False,
+                            device: str | torch.device =
+                            device_mod.DEFAULT_DEVICE) -> Metrics:
+    """Fused high/low-channel Donchian sweep: the breakout channel comes
+    from the highs and lows; otherwise as :func:`fused_donchian_sweep`."""
+    dev = _prologue(carry_out, table, epilogue, device)
+    close, high, low = _panel(dev, close, high, low)
+    return _donchian_family_sweep(
+        close, high, low, window, t_real=t_real, cost=cost,
+        periods_per_year=periods_per_year)

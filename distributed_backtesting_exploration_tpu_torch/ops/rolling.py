@@ -1,7 +1,8 @@
-"""Rolling-window indicators as O(T) cumulative-sum ops (PyTorch).
+"""Rolling-window indicators (PyTorch).
 
-The part of the reference's ``ops/rolling.py`` the SMA sweep needs. Time is
-the last axis. A rolling sum over window ``w`` is ``cs[t] - cs[t-w]`` on the
+The part of the reference's ``ops/rolling.py`` the ported families need:
+cumulative-sum sums, means, variances and z-scores, and windowed extrema.
+Time is the last axis. A rolling sum over window ``w`` is ``cs[t] - cs[t-w]`` on the
 inclusive prefix sum, where the shifted read is a clipped gather so that
 ``w`` may be a tensor of windows that broadcasts against the series (the
 port's stand-in for the reference's ``vmap`` over traced windows).
@@ -55,11 +56,89 @@ def rolling_sum(x: Tensor, window, *, fill: float = math.nan) -> Tensor:
     ``out[..., t] = sum(x[..., t-window+1 : t+1])``; warmup -> ``fill``.
     """
     cs = torch.cumsum(x, dim=-1)
-    out = cs - _shifted(cs, window)
-    valid = valid_mask(x.shape[-1], _as_window(window, x))
-    return torch.where(valid, out, torch.full_like(out, fill))
+    return _mask_warmup(cs - _shifted(cs, window), window, fill)
 
 
 def rolling_mean(x: Tensor, window, *, fill: float = math.nan) -> Tensor:
     """Rolling mean (SMA) over the trailing ``window`` bars."""
     return rolling_sum(x, window, fill=fill) / _as_window(window, x)
+
+
+def _mask_warmup(out: Tensor, window, fill: float) -> Tensor:
+    valid = valid_mask(out.shape[-1], _as_window(window, out))
+    return torch.where(valid, out, torch.full_like(out, fill))
+
+
+def _centered(x: Tensor) -> Tensor:
+    # Constant per-series shift: preserves variances, kills the float32
+    # cancellation between E[x^2] and E[x]^2 for price-level inputs.
+    return x - x.mean(dim=-1, keepdim=True)
+
+
+def rolling_var(x: Tensor, window, *, ddof: int = 0,
+                fill: float = math.nan) -> Tensor:
+    """Rolling population (ddof=0) or sample (ddof=1) variance, from
+    series-centered second moments (the reference's op order)."""
+    xc = _centered(x)
+    w = _as_window(window, x)
+    s1 = rolling_sum(xc, window)
+    s2 = rolling_sum(xc * xc, window)
+    var = ((s2 - s1 * s1 / w) / (w - ddof)).clamp_min(0.0)
+    return _mask_warmup(var, window, fill)
+
+
+def rolling_std(x: Tensor, window, *, ddof: int = 0,
+                fill: float = math.nan) -> Tensor:
+    """Rolling standard deviation."""
+    return torch.sqrt(rolling_var(x, window, ddof=ddof, fill=fill))
+
+
+def rolling_zscore(x: Tensor, window, *, ddof: int = 0, eps: float = 1e-12,
+                   fill: float = math.nan) -> Tensor:
+    """``(x - rolling_mean) / (rolling_std + eps)``: the Bollinger entry
+    signal."""
+    m = rolling_mean(x, window)
+    sd = rolling_std(x, window, ddof=ddof)
+    return _mask_warmup((x - m) / (sd + eps), window, fill)
+
+
+def _rolling_extremum(x: Tensor, window, max_window, fill: float,
+                      mode: str) -> Tensor:
+    T = x.shape[-1]
+    w = _as_window(window, x)
+    top = math.ceil(float(w.max()))
+    bound = top if max_window is None else min(int(max_window), top)
+    neutral = -math.inf if mode == "max" else math.inf
+    pick = torch.maximum if mode == "max" else torch.minimum
+    # Offset o reads x[t - o] for every lane whose window covers it
+    # (o < window, t - o >= 0); other lanes see the neutral value.
+    out = torch.where(0 < w, x, neutral)
+    for o in range(1, min(bound, T)):
+        shifted = torch.cat(
+            [torch.full_like(x[..., :o], neutral), x[..., :T - o]], dim=-1)
+        out = pick(out, torch.where(o < w, shifted, neutral))
+    if max_window is not None:
+        # As the reference's traced-window kernel: a window beyond the view
+        # bound poisons its output instead of truncating the lookback.
+        out = torch.where(w <= max_window, out, torch.full_like(out, math.nan))
+    return _mask_warmup(out, window, fill)
+
+
+def rolling_max(x: Tensor, window, *, max_window: int | None = None,
+                fill: float = math.nan) -> Tensor:
+    """Rolling max over the trailing ``window`` bars (inclusive).
+
+    ``window`` may be a tensor of windows that broadcasts against ``x``
+    (e.g. ``(P, 1)`` against ``(N, 1, T)``). With ``max_window`` set, a
+    window beyond it yields NaN, as the reference's traced-window kernel
+    (``rolling_extrema_traced``) does. Max of exact values is exact in any
+    order, so this equals the reference's doubling and masked-view forms.
+    """
+    return _rolling_extremum(x, window, max_window, fill, "max")
+
+
+def rolling_min(x: Tensor, window, *, max_window: int | None = None,
+                fill: float = math.nan) -> Tensor:
+    """Rolling min over the trailing ``window`` bars; see
+    :func:`rolling_max`."""
+    return _rolling_extremum(x, window, max_window, fill, "min")

@@ -6,22 +6,27 @@ reference's ``JaxSweepBackend`` does for the SMA-crossover sweep: it
 decodes each DBX1 payload, groups stackable jobs, runs one fused sweep per
 group on the backend's device and packs one DBXM block per job.
 
-The slice serves plain SMA-crossover sweeps only. Any other strategy, and
-any job field the slice does not serve (streaming append, scenario spec
-batches, walk-forward, pairs, top-k, best-returns), raises
-``NotImplementedError`` naming it; nothing is computed some other way.
+The port serves the strategies of ``_FUSED_STRATEGIES``: sma_crossover
+(K1), bollinger, bollinger_touch and stochastic (K2), momentum, donchian
+and donchian_hl (K3). Any other strategy, and any job field the port does
+not serve (streaming append, scenario spec batches, walk-forward, pairs,
+top-k, best-returns), raises ``NotImplementedError`` naming it; nothing is
+computed some other way.
 """
 
 from __future__ import annotations
 
 import logging
+import math
 import time
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
 from .. import device as device_mod
 from ..models import base as models_base
+from ..models import donchian, stochastic
 from ..ops import fused
 from ..ops.metrics import Metrics
 from ..parallel import sweep as sweep_mod
@@ -30,8 +35,53 @@ from . import wire
 
 log = logging.getLogger("dbx.torch.compute")
 
-_SMA = "sma_crossover"
-_SMA_AXES = {"fast", "slow"}
+
+class _FusedSpec(NamedTuple):
+    """One fused-kernel routing row (the reference's ``_FusedSpec``)."""
+
+    axes: frozenset            # the grid axes the fused sweep takes
+    window_axes: tuple         # axes holding bar counts (must be integral)
+    run: Callable              # (fields, grid, **kw) -> Metrics
+    fields: tuple = ("close",)  # OHLCV columns the kernel consumes
+    max_window: float = math.inf  # the generic path's channel view bound
+
+
+# Strategy -> fused route, modelled on the reference's
+# ``JaxSweepBackend._FUSED_STRATEGIES``. ``run`` gets the stacked fields by
+# name and the flat grid.
+_FUSED_STRATEGIES = {
+    "sma_crossover": _FusedSpec(
+        frozenset({"fast", "slow"}), ("fast", "slow"),
+        lambda f, g, **kw: fused.fused_sma_sweep(
+            f["close"], g["fast"], g["slow"], **kw)),
+    "bollinger": _FusedSpec(
+        frozenset({"window", "k"}), ("window",),
+        lambda f, g, **kw: fused.fused_bollinger_sweep(
+            f["close"], g["window"], g["k"], **kw)),
+    "bollinger_touch": _FusedSpec(
+        frozenset({"window", "k"}), ("window",),
+        lambda f, g, **kw: fused.fused_bollinger_touch_sweep(
+            f["close"], g["window"], g["k"], **kw)),
+    "stochastic": _FusedSpec(
+        frozenset({"window", "band"}), ("window",),
+        lambda f, g, **kw: fused.fused_stochastic_sweep(
+            f["close"], f["high"], f["low"], g["window"], g["band"], **kw),
+        fields=("close", "high", "low"), max_window=stochastic.MAX_WINDOW),
+    "momentum": _FusedSpec(
+        frozenset({"lookback"}), ("lookback",),
+        lambda f, g, **kw: fused.fused_momentum_sweep(
+            f["close"], g["lookback"], **kw)),
+    "donchian": _FusedSpec(
+        frozenset({"window"}), ("window",),
+        lambda f, g, **kw: fused.fused_donchian_sweep(
+            f["close"], g["window"], **kw),
+        max_window=donchian.MAX_WINDOW),
+    "donchian_hl": _FusedSpec(
+        frozenset({"window"}), ("window",),
+        lambda f, g, **kw: fused.fused_donchian_hl_sweep(
+            f["close"], f["high"], f["low"], g["window"], **kw),
+        fields=("close", "high", "low"), max_window=donchian.MAX_WINDOW),
+}
 
 
 class Completion:
@@ -68,7 +118,7 @@ def _stack_field_ragged(series_list, t_max: int,
 
 def _unsupported(job) -> str | None:
     """What in ``job`` the slice does not serve, or None."""
-    if job.strategy != _SMA:
+    if job.strategy not in _FUSED_STRATEGIES:
         return f"strategy {job.strategy!r}"
     if job.append_parent_digest:
         return "streaming append (append_parent_digest)"
@@ -85,24 +135,31 @@ def _unsupported(job) -> str | None:
     return None
 
 
-def _fused_demotion_reason(axes: dict) -> str | None:
-    """None when an SMA group routes to the fused sweep; otherwise why it
-    takes the generic path (the reference's ``_fused_demotion_reason``
-    minus its TPU memory caps, which the Hopper kernel does not have)."""
-    if set(axes) != _SMA_AXES:
+def _fused_demotion_reason(spec: _FusedSpec, axes: dict) -> str | None:
+    """None when a group routes to its fused sweep; otherwise why it takes
+    the generic path (the reference's ``_fused_demotion_reason`` minus its
+    TPU memory caps, which the Hopper kernels do not have)."""
+    if set(axes) != spec.axes:
         return (f"grid axes {sorted(axes)} do not match the fused contract "
-                f"{sorted(_SMA_AXES)}")
-    wins = np.concatenate([axes["fast"], axes["slow"]])
+                f"{sorted(spec.axes)}")
+    wins = np.concatenate([axes[a] for a in spec.window_axes])
     if wins.size == 0:
         return "empty window grid"
     if not np.allclose(wins, np.round(wins)):
-        return "non-integral window values in axes ['fast', 'slow']"
+        return (f"non-integral window values in axes "
+                f"{list(spec.window_axes)}")
+    if float(wins.max()) > spec.max_window:
+        # The generic channel paths poison windows beyond their view bound
+        # to NaN; the fused kernels have no such bound, so larger windows
+        # stay on the semantics-defining generic path.
+        return (f"max window {int(wins.max())} exceeds the channel view "
+                f"bound {spec.max_window}")
     return None
 
 
 class TorchSweepBackend:
-    """SMA-crossover sweep backend on one device (``"cuda"`` unless the
-    caller asks for ``"cpu"``)."""
+    """Sweep backend on one device (``"cuda"`` unless the caller asks for
+    ``"cpu"``)."""
 
     def __init__(self, *, device: str | torch.device =
                  device_mod.DEFAULT_DEVICE):
@@ -154,17 +211,20 @@ class TorchSweepBackend:
         grid = sweep_mod.product_grid(**axes)
         cost = float(job0.cost)
         ppy = job0.periods_per_year or 252
-        demotion = _fused_demotion_reason(axes)
+        spec = _FUSED_STRATEGIES[job0.strategy]
+        demotion = _fused_demotion_reason(spec, axes)
         if demotion is None:
             if len(set(lengths)) > 1:
-                close = _stack_field_ragged(series, max(lengths))
+                fields = {f: _stack_field_ragged(series, max(lengths), field=f)
+                          for f in spec.fields}
                 t_real = np.asarray(lengths, np.int32)
             else:
-                close = np.stack([s.close for s in series])
+                fields = {f: np.stack([getattr(s, f) for s in series])
+                          for f in spec.fields}
                 t_real = None
-            m = fused.fused_sma_sweep(
-                close, grid["fast"], grid["slow"], t_real=t_real, cost=cost,
-                periods_per_year=ppy, device=self.device)
+            m = spec.run(fields, {k: v.numpy() for k, v in grid.items()},
+                         t_real=t_real, cost=cost, periods_per_year=ppy,
+                         device=self.device)
         else:
             log.warning("jobs %s (%s) take the generic path: %s",
                         [j.id for j in group], job0.strategy, demotion)

@@ -2,8 +2,9 @@
 
 ``TorchSweepBackend(device="cpu").process`` against
 ``JaxSweepBackend(use_fused=True).process`` on the same JobSpecs (DBXM
-blocks decoded and held to the flip rule of ``torch_parity``), and one
-in-process reference dispatcher drained by the port's gRPC worker.
+blocks decoded and held to the flip rule of ``torch_parity``), for every
+strategy the port serves, and one in-process reference dispatcher drained
+by the port's gRPC worker.
 """
 
 import threading
@@ -27,6 +28,16 @@ from distributed_backtesting_exploration_tpu_torch.utils import data
 from torch_parity import assert_metrics_match
 
 GRID = parse_grid("fast=3:5,slow=10:14:2")
+# A small grid of each strategy the port serves.
+GRIDS = {
+    "sma_crossover": GRID,
+    "bollinger": parse_grid("window=10:20:5,k=1:3"),
+    "bollinger_touch": parse_grid("window=8:16:4,k=1:3"),
+    "stochastic": parse_grid("window=10:14:2,band=20:40:10"),
+    "momentum": parse_grid("lookback=5:21:8"),
+    "donchian": parse_grid("window=10:30:10"),
+    "donchian_hl": parse_grid("window=8:24:8"),
+}
 
 
 def _specs(recs):
@@ -62,6 +73,46 @@ def test_backend_matches_jax_backend(bars):
                          _stack(_decoded(want), ids))
 
 
+def test_backend_routes_mixed_batch_of_ported_strategies():
+    # One batch of all seven strategies, two payload lengths each in one
+    # power-of-two length bucket (2200 and 2500 bytes), so every group is
+    # ragged: each takes its fused sweep with t_real, and every block
+    # matches the reference backend's.
+    recs = []
+    for k, (strategy, grid) in enumerate(GRIDS.items()):
+        for n in (110, 125):
+            recs += synthetic_jobs(1, n, strategy, grid, cost=1e-3,
+                                   seed=40 + 2 * k + n)
+    specs = _specs(recs)
+    got = _decoded(compute.TorchSweepBackend(device="cpu").process(specs))
+    want = _decoded(
+        ref_compute.JaxSweepBackend(use_fused=True).process(specs))
+    assert set(got) == {r.id for r in recs}
+    for strategy in GRIDS:
+        ids = [r.id for r in recs if r.strategy == strategy]
+        assert_metrics_match(_stack(got, ids), _stack(want, ids))
+
+
+@pytest.mark.parametrize("strategy,grid", [
+    ("bollinger", {"window": np.float32([9.5, 20.0]),
+                   "k": np.float32([1.0, 2.0])}),
+    ("momentum", {"lookback": np.float32([4.5, 12.0])}),
+    ("donchian_hl", {"window": np.float32([10.0, 300.0])}),
+], ids=["non-integral-window", "non-integral-lookback",
+        "beyond-view-bound"])
+def test_backend_demotes_what_the_kernels_do_not_take(strategy, grid,
+                                                      caplog):
+    recs = synthetic_jobs(2, 90, strategy, grid, cost=1e-3, seed=8)
+    specs = _specs(recs)
+    with caplog.at_level("WARNING", logger="dbx.torch.compute"):
+        got = compute.TorchSweepBackend(device="cpu").process(specs)
+    assert "take the generic path" in caplog.text
+    want = ref_compute.JaxSweepBackend(use_fused=True).process(specs)
+    ids = [r.id for r in recs]
+    assert_metrics_match(_stack(_decoded(got), ids),
+                         _stack(_decoded(want), ids))
+
+
 def test_backend_non_integral_grid_takes_generic_path():
     grid = {"fast": np.float32([3.5, 5.0]), "slow": np.float32([12.25])}
     recs = synthetic_jobs(2, 80, "sma_crossover", grid, cost=1e-3, seed=3)
@@ -74,7 +125,7 @@ def test_backend_non_integral_grid_takes_generic_path():
 
 
 @pytest.mark.parametrize("field,value,what", [
-    ("strategy", "bollinger", "strategy 'bollinger'"),
+    ("strategy", "rsi", "strategy 'rsi'"),
     ("top_k", 4, "top-k"),
     ("best_returns", True, "best-returns"),
     ("wf_train", 40, "walk-forward"),
@@ -111,6 +162,8 @@ def test_stack_field_ragged_repeats_last_bar():
 
 def test_worker_drains_reference_dispatcher():
     recs = synthetic_jobs(5, 128, "sma_crossover", GRID, cost=1e-3, seed=5)
+    recs += synthetic_jobs(2, 128, "bollinger", GRIDS["bollinger"],
+                           cost=1e-3, seed=6)
     queue = JobQueue()
     for rec in recs:
         queue.enqueue(rec)
@@ -134,15 +187,15 @@ def test_worker_drains_reference_dispatcher():
         srv.stop()
     assert not t.is_alive()
     s = queue.stats()
-    assert s["jobs_completed"] == 5 and s["jobs_pending"] == 0
-    assert w.jobs_completed == 5 and w.completions_dropped == 0
+    assert s["jobs_completed"] == 7 and s["jobs_pending"] == 0
+    assert w.jobs_completed == 7 and w.completions_dropped == 0
 
     # The stored DBXM blocks equal a direct sweep of the same jobs.
     for rec in recs:
         series = data.from_wire_bytes(rec.ohlcv)
         axes = dict(sorted(rec.grid.items()))   # canonical DBXM order
         want = sweep.run_sweep(data.OHLCV(*(f[None, :] for f in series)),
-                               get_strategy("sma_crossover"),
+                               get_strategy(rec.strategy),
                                sweep.product_grid(**axes), cost=1e-3,
                                device="cpu")
         got = wire.metrics_from_bytes(disp.results[rec.id])

@@ -43,9 +43,16 @@ def _sources() -> list[Path]:
     return sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 
+def _kernel_sources() -> list[Path]:
+    return sorted(PKG.glob("csrc/*.cu")) + sorted(PKG.glob("csrc/*.cuh"))
+
+
 def test_every_module_imports_with_jax_blocked():
     mods = _port_modules()
-    assert len(mods) >= 15, mods
+    assert len(mods) >= 20, mods
+    for m in ("ops.signals", "models.bollinger", "models.stochastic",
+              "models.momentum", "models.donchian"):
+        assert f"{dbxt.__name__}.{m}" in mods
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "import importlib\n"
@@ -78,6 +85,27 @@ def test_no_jax_or_reference_imports(path):
             root = name.split(".")[0]
             assert root not in ("jax", "jaxlib", REF), (
                 f"{path.name}:{node.lineno} imports {name}")
+
+
+def test_kernel_sources_are_the_slices_and_include_nothing_else():
+    names = {p.name for p in _kernel_sources()}
+    assert {"fused_sma.cu", "band_machine.cu", "single_window.cu",
+            "metrics_tail.cuh"} <= names
+
+
+@pytest.mark.parametrize("path", _kernel_sources(), ids=lambda p: p.name)
+def test_kernel_sources_include_only_cuda_and_their_own_headers(path):
+    # A kernel source stands alone: system headers and its own csrc/
+    # headers, nothing of JAX or of the reference package.
+    text = path.read_text()
+    assert "jax" not in text.replace(REF, "").lower()
+    for line in text.splitlines():
+        if line.startswith("#include"):
+            target = line.split(None, 1)[1].strip()
+            if target.startswith('"'):
+                assert (path.parent / target.strip('"')).exists(), line
+            else:
+                assert target.startswith("<") and "/" not in target, line
 
 
 def test_default_device_is_cuda_and_raises_without_it():
@@ -123,3 +151,38 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     i = torch.zeros((1,), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         fused.fused_sma_cuda(x, x, i, i, i, i, cost=0.0, ppy=252)
+
+
+@pytest.mark.parametrize("dispatch,plain,cuda,n_args", [
+    ("band_inline", "band_inline_plain", "band_inline_cuda", 9),
+    ("band_table", "band_machine_plain", "band_table_cuda", 6),
+    ("momentum", "momentum_plain", "momentum_cuda", 5),
+    ("donchian", "donchian_plain", "donchian_cuda", 5),
+])
+def test_new_entries_never_take_the_plain_version_off_the_cpu(
+        monkeypatch, dispatch, plain, cuda, n_args):
+    calls = []
+    monkeypatch.setattr(fused, cuda, lambda *a, **k: calls.append("cuda"))
+    monkeypatch.setattr(fused, plain, lambda *a, **k: calls.append("plain"))
+    kw = {"cost": 0.0, "ppy": 252}
+    if dispatch.startswith("band"):
+        kw.update(machine="hysteresis", z_exit=0.0)
+    for x in (torch.empty((2, 8), device="meta"), torch.empty((2, 8))):
+        getattr(fused, dispatch)(x, *([None] * (n_args - 1)), **kw)
+    assert calls == ["cuda", "plain"]
+
+
+@pytest.mark.parametrize("wrapper", ["band_inline_cuda", "band_table_cuda",
+                                     "momentum_cuda", "donchian_cuda"])
+def test_new_kernel_wrappers_refuse_cpu_tensors(wrapper):
+    x = torch.zeros((1, 8))
+    i = torch.zeros((1,), dtype=torch.int32)
+    args = {"band_inline_cuda": (x, x, x, x, x, i, i, x[0, :1], i),
+            "band_table_cuda": (x[None], x, i, i, x[0, :1], i),
+            "momentum_cuda": (x, x, i, i, i),
+            "donchian_cuda": (x[None].to(torch.int8), x, i, i, i)}[wrapper]
+    kw = {"cost": 0.0, "ppy": 252}
+    if wrapper.startswith("band"):
+        kw.update(machine="hysteresis", z_exit=0.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        getattr(fused, wrapper)(*args, **kw)

@@ -1,15 +1,15 @@
-"""K1 (``csrc/fused_sma.cu``) against its plain PyTorch version on the card.
+"""K1-K3 (``csrc/*.cu``) against their plain PyTorch versions on the card.
 
 Marked ``cuda``: every test skips with a reason where no CUDA card is
-present (the kernel has no CPU mode). On a machine with a card, and without
+present (the kernels have no CPU mode). On a machine with a card, and without
 JAX (this file and ``torch_parity`` import none), run:
 
     python -m pytest --noconftest -p no:cacheprovider \
         tests/test_torch_kernels_cuda.py
 
-Both versions take the same cumsum and returns, so positions are identical
-(n_trades and turnover bit-equal) and the other metrics agree at
-rtol=2e-4, atol=2e-5.
+Both versions take the same inputs (cumsums, returns, z- or sign tables),
+so positions are identical (n_trades and turnover bit-equal) and the other
+metrics agree at rtol=2e-4, atol=2e-5.
 """
 
 import numpy as np
@@ -28,7 +28,8 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: K1 is a CUDA kernel with no CPU mode")
+        pytest.skip("needs a CUDA card: the kernels are CUDA kernels with no "
+                    "CPU mode")
     return torch.device("cuda")
 
 
@@ -43,9 +44,12 @@ def _inputs(dev, close, fast_axis, slow_axis, t_real=None):
             *(torch.from_numpy(a).to(dev) for a in (tr, fw, sw, warm)))
 
 
-def _assert_kernel_matches_plain(inputs, cost):
-    got = fused.fused_sma_cuda(*inputs, cost=cost, ppy=252)
-    ref = fused.fused_sma_plain(*inputs, cost=cost, ppy=252)
+def _assert_kernel_matches_plain(inputs, cost, kernel=None, plain=None,
+                                 **kw):
+    kernel = kernel or fused.fused_sma_cuda
+    plain = plain or fused.fused_sma_plain
+    got = kernel(*inputs, cost=cost, ppy=252, **kw)
+    ref = plain(*inputs, cost=cost, ppy=252, **kw)
     torch.cuda.synchronize()
     for k, name in enumerate(fused.Metrics._fields):
         a, b = got[k].cpu().numpy(), ref[k].cpu().numpy()
@@ -102,3 +106,130 @@ def test_wrapper_checks_its_inputs(cuda):
     with pytest.raises(ValueError, match="is on"):
         fused.fused_sma_cuda(cs, r, tr.cpu(), fw, sw, warm, cost=0.0,
                              ppy=252)
+
+
+def _panel(dev, n, T, seed, lens=None):
+    p = data.synthetic_ohlcv(n, T, seed=seed)
+    if lens is not None:
+        for f in p:
+            for i, m in enumerate(lens):
+                f[i, m:] = f[i, m - 1]
+    close, high, low = (torch.as_tensor(f, device=dev).contiguous()
+                        for f in (p.close, p.high, p.low))
+    tr = torch.from_numpy(fused._check_t_real(lens, n, T)).to(dev)
+    return close, high, low, tr, fused.simple_returns(close).contiguous()
+
+
+def _band_inline_inputs(dev, n, T, seed, lens=None):
+    close, _, _, tr, r = _panel(dev, n, T, seed, lens)
+    g = sweep.product_grid(k=np.float32([0.5, 1.0, 2.0]),
+                           window=np.float32([5, 10, 20, 40]))
+    _, win, _, warm = fused._window_setup(g["window"].numpy(), "windows",
+                                          0.0, 1)
+    xc = close - close.mean(1, keepdim=True)
+    rows = (close, torch.cumsum(close, 1), torch.cumsum(xc, 1),
+            torch.cumsum(xc * xc, 1), r)
+    return (*(x.contiguous() for x in rows), tr,
+            *fused._to(dev, win, g["k"].numpy(), warm))
+
+
+def _band_table_inputs(dev, n, T, seed, lens=None):
+    close, high, low, tr, r = _panel(dev, n, T, seed, lens)
+    g = sweep.product_grid(band=np.float32([15, 30]),
+                           window=np.float32([5, 14, 30]))
+    windows, _, widx, warm = fused._window_setup(g["window"].numpy(),
+                                                 "windows", 0.0, 1)
+    z = fused.stochastic_z_table(close, high, low, windows)
+    return (z, r, tr, *fused._to(dev, widx, g["band"].numpy(), warm))
+
+
+def _momentum_inputs(dev, n, T, seed, lens=None):
+    close, _, _, tr, r = _panel(dev, n, T, seed, lens)
+    _, lb, _, warm = fused._window_setup(np.float32([1, 5, 21, 300]),
+                                         "lookbacks", 1.0, 0)
+    return (close, r, tr, *fused._to(dev, lb, warm))
+
+
+def _donchian_inputs(dev, n, T, seed, lens=None):
+    close, high, low, tr, r = _panel(dev, n, T, seed, lens)
+    windows, _, widx, warm = fused._window_setup(
+        np.float32([10, 3, 55, 10, 300]), "windows", 1.0, 1)
+    sig = fused.donchian_sign_table(close, high, low, windows)
+    return (sig, r, tr, *fused._to(dev, widx, warm))
+
+
+_NEW_ENTRIES = {
+    "band_inline_hysteresis": (_band_inline_inputs, fused.band_inline_cuda,
+                               fused.band_inline_plain,
+                               {"machine": "hysteresis", "z_exit": 0.0}),
+    "band_inline_touch": (_band_inline_inputs, fused.band_inline_cuda,
+                          fused.band_inline_plain,
+                          {"machine": "touch", "z_exit": 0.0}),
+    "band_table_hysteresis": (_band_table_inputs, fused.band_table_cuda,
+                              fused.band_machine_plain,
+                              {"machine": "hysteresis", "z_exit": 0.0}),
+    "band_table_touch": (_band_table_inputs, fused.band_table_cuda,
+                         fused.band_machine_plain,
+                         {"machine": "touch", "z_exit": 0.0}),
+    "momentum": (_momentum_inputs, fused.momentum_cuda,
+                 fused.momentum_plain, {}),
+    "donchian": (_donchian_inputs, fused.donchian_cuda,
+                 fused.donchian_plain, {}),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(_NEW_ENTRIES))
+@pytest.mark.parametrize("n,T,cost,seed", [
+    (3, 200, 1e-3, 0),
+    (2, 251, 0.0, 5),
+    (1, 13000, 1e-3, 4),       # above 48 KB of staged rows, or unstaged
+])
+def test_new_kernels_match_plain(cuda, entry, n, T, cost, seed):
+    build, kernel, plain, kw = _NEW_ENTRIES[entry]
+    _assert_kernel_matches_plain(build(cuda, n, T, seed), cost, kernel,
+                                 plain, **kw)
+
+
+@pytest.mark.parametrize("entry", sorted(_NEW_ENTRIES))
+def test_new_kernels_match_plain_ragged(cuda, entry):
+    build, kernel, plain, kw = _NEW_ENTRIES[entry]
+    _assert_kernel_matches_plain(
+        build(cuda, 3, 300, 9, np.asarray([300, 251, 170])), 1e-3, kernel,
+        plain, **kw)
+
+
+def test_new_launch_counters_count_kernel_launches_only(cuda):
+    p = data.synthetic_ohlcv(2, 120, seed=1)
+    _kernels.reset_launch_counts()
+    for entry, (build, kernel, plain, kw) in _NEW_ENTRIES.items():
+        plain(*build(cuda, 2, 120, 1), cost=0.0, ppy=252, **kw)
+    assert sum(_kernels.LAUNCHES.values()) == 0
+    fused.fused_bollinger_sweep(p.close, [10.0], [1.0], device="cuda")
+    fused.fused_bollinger_touch_sweep(p.close, [10.0], [1.0], table="hbm",
+                                      device="cuda")
+    fused.fused_stochastic_sweep(p.close, p.high, p.low, [10.0], [20.0],
+                                 device="cuda")
+    fused.fused_momentum_sweep(p.close, [5.0], device="cuda")
+    fused.fused_donchian_sweep(p.close, [10.0], device="cuda")
+    fused.fused_donchian_hl_sweep(p.close, p.high, p.low, [10.0],
+                                  device="cuda")
+    torch.cuda.synchronize()
+    assert dict(_kernels.LAUNCHES) == {"band_inline": 2, "band_table": 1,
+                                       "momentum": 1, "donchian": 2}
+
+
+def test_new_wrappers_check_their_inputs(cuda):
+    z, r, tr, widx, k, warm = _band_table_inputs(cuda, 2, 60, 1)
+    kw = {"machine": "hysteresis", "z_exit": 0.0, "cost": 0.0, "ppy": 252}
+    with pytest.raises(TypeError, match="float32"):
+        fused.band_table_cuda(z.double(), r, tr, widx, k, warm, **kw)
+    with pytest.raises(ValueError, match="machine"):
+        fused.band_table_cuda(z, r, tr, widx, k, warm, **{**kw,
+                                                          "machine": "x"})
+    sig, r, tr, widx, warm = _donchian_inputs(cuda, 2, 60, 1)
+    with pytest.raises(TypeError, match="int8"):
+        fused.donchian_cuda(sig.float(), r, tr, widx, warm, cost=0.0,
+                            ppy=252)
+    close, r, tr, lb, warm = _momentum_inputs(cuda, 2, 60, 1)
+    with pytest.raises(ValueError, match="shape"):
+        fused.momentum_cuda(close, r, tr, lb, warm[:1], cost=0.0, ppy=252)
