@@ -16,8 +16,10 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    inline entry on the 1000-combo bollinger grid and its table entry on
    the 1000-combo stochastic %K table, each with both machines
    (hysteresis, touch); K3's momentum entry on 2000 lookback lanes and its
-   donchian entry on the 1000-lane high/low breakout table. Positions must
-   be identical, so n_trades and turnover (sums of small integers) must be
+   donchian entry on the 1000-lane high/low breakout table; K4 (macd) and
+   K5 (trix) on their 1000-combo EMA tables. K2's table entry also runs
+   on the rsi and the keltner z-tables at 32 x 1260. Positions must be
+   identical, so n_trades and turnover (sums of small integers) must be
    bit-equal; every other metric must agree at rtol=2e-4, atol=2e-5.
    Kernel and plain times come from CUDA events after warmup.
 4. The main paths at full width, one per strategy: 500 synthetic tickers x
@@ -32,9 +34,16 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    positions (n_trades, turnover bit-equal); for bollinger and
    bollinger_touch under the flip rule of ``tests/torch_parity.py`` (the
    centering mean and the cumsums run on tensors of other shapes there, so
-   a z-score at the band can round the other way). The generic path sums
-   equity in another order, so for the new families cagr is held to the
-   error its final equity may carry (``_cagr_slack``).
+   a z-score at the band can round the other way); for rsi and keltner with
+   identical positions (both paths build their tables with the same ops);
+   for macd and trix under the reference's flip-aware budget (the kernels
+   carry the signal EMA sequentially, the generic path as a shift-doubling
+   ladder, so a crossing at a knife edge can land a bar apart: that moves
+   a trade by one bar, and sharpe by less than the flip rule's threshold).
+   There every cell off by more than rtol=2e-3, atol=2e-4 counts as
+   flipped, and at most max(1, 1%) may flip. The generic path sums equity
+   in another order, so for the new families cagr is held to the error its
+   final equity may carry (``_cagr_slack``).
 5. One JSON line with each kernel entry's launches, error, times and bound;
    then the JSON result line, last.
 
@@ -83,28 +92,52 @@ OPS_PER_SIGNAL_BAR = 6
 # z (three window sums, mean div, s1*s1, two divs by w, s2 sub, clamp,
 # sqrt, +eps, c-m, div = 13) and the machine (entry compares 2, state
 # compares 2 = 4); the table entry the machine only; momentum sub+sign;
-# the donchian latch two compares.
+# the donchian latch two compares; macd and trix x - signal and its sign.
 OPS_SIGNAL = {"band_inline": 17, "band_table": 4, "momentum": 2,
-              "donchian": 2}
+              "donchian": 2, "macd": 2, "trix": 2}
+# Per (combo, bar) below the ticker's length, beside the 20 of the metric
+# update, from csrc/ema_cross.cu: macd the row difference and the signal
+# EMA (sub, two muls, add = 4); trix the zero test of the previous value,
+# the division, the -1 and the signal EMA (1 + 1 + 1 + 3 = 6).
+OPS_EACH_BAR = {"macd": 4, "trix": 6}
 
-# The bench grids of the new families (bench.py, configs bollinger_fused,
-# bollinger_touch_fused, stochastic_fused, momentum_fused, donchian_fused,
-# donchian_hl_fused), as wire axes.
+# The bench grids of the other families (bench.py, configs
+# bollinger_fused, bollinger_touch_fused, stochastic_fused, momentum_fused,
+# donchian_fused, donchian_hl_fused, rsi_fused, keltner_fused, macd_fused,
+# trix_fused), as wire axes.
 BOLL_AXES = {"k": np.linspace(0.5, 3.0, 50).astype(np.float32),
              "window": np.arange(10, 50, 2, dtype=np.float32)}
 STOCH_AXES = {"band": np.linspace(10, 40, 8).astype(np.float32),
               "window": np.arange(5, 130, dtype=np.float32)}
 MOM_AXES = {"lookback": np.tile(np.arange(5, 130, dtype=np.float32), 16)}
 DON_AXES = {"window": np.tile(np.arange(10, 135, dtype=np.float32), 8)}
-# strategy -> (axes, kernel entry it launches, positions exact vs golden)
+RSI_AXES = {"band": np.linspace(10, 30, 40).astype(np.float32),
+            "period": np.arange(5, 55, 2, dtype=np.float32)}
+KELT_AXES = {"k": np.linspace(1.0, 3.0, 40).astype(np.float32),
+             "window": np.arange(5, 55, 2, dtype=np.float32)}
+MACD_AXES = {"fast": np.arange(5, 15, dtype=np.float32),
+             "slow": np.arange(20, 60, 4, dtype=np.float32),
+             "signal": np.arange(5, 15, dtype=np.float32)}
+TRIX_AXES = {"span": np.arange(5, 15, dtype=np.float32),
+             "signal": np.tile(np.arange(3, 13, dtype=np.float32), 10)}
+# strategy -> (axes, kernel entry it launches, check against the golden
+# path: "exact" identical positions, "flip" the flip rule, "shift" the
+# flip-aware budget of a signal line that rounds in another order)
 FAMILIES = {
-    "bollinger": (BOLL_AXES, "band_inline", False),
-    "bollinger_touch": (BOLL_AXES, "band_inline", False),
-    "stochastic": (STOCH_AXES, "band_table", True),
-    "momentum": (MOM_AXES, "momentum", True),
-    "donchian": (DON_AXES, "donchian", True),
-    "donchian_hl": (DON_AXES, "donchian", True),
+    "bollinger": (BOLL_AXES, "band_inline", "flip"),
+    "bollinger_touch": (BOLL_AXES, "band_inline", "flip"),
+    "stochastic": (STOCH_AXES, "band_table", "exact"),
+    "momentum": (MOM_AXES, "momentum", "exact"),
+    "donchian": (DON_AXES, "donchian", "exact"),
+    "donchian_hl": (DON_AXES, "donchian", "exact"),
+    "rsi": (RSI_AXES, "band_table", "exact"),
+    "keltner": (KELT_AXES, "band_table", "exact"),
+    "macd": (MACD_AXES, "macd", "shift"),
+    "trix": (TRIX_AXES, "trix", "shift"),
 }
+# The reference's flip-aware budget for the "shift" families
+# (tests/test_fused.py `_macd_flip_aware_check`).
+SHIFT_RTOL, SHIFT_ATOL = 2e-3, 2e-4
 PKG = "distributed_backtesting_exploration_tpu_torch"
 REF = "distributed_backtesting_exploration_tpu/ops/fused.py"
 
@@ -325,6 +358,46 @@ def _donchian_inputs(fused, pnl, panel, t_real):
     return (sig, r, tr, *fused._to(dev, widx, warm))
 
 
+def _rsi_table_inputs(fused, pnl, panel, t_real):
+    dev, close, _, _, tr, r = _common(fused, pnl, panel, t_real)
+    g = _flat_grid(RSI_AXES)
+    periods, _, widx, warm = fused._window_setup(g["period"], "periods",
+                                                 1.0, 1)
+    z = fused.rsi_z_table(close, periods)
+    return (z, r, tr, *fused._to(dev, widx, g["band"], warm))
+
+
+def _keltner_table_inputs(fused, pnl, panel, t_real):
+    dev, close, high, low, tr, r = _common(fused, pnl, panel, t_real)
+    g = _flat_grid(KELT_AXES)
+    windows, _, widx, warm = fused._window_setup(g["window"], "windows",
+                                                 0.0, 1)
+    z = fused.keltner_z_table(close, high, low, windows)
+    return (z, r, tr, *fused._to(dev, widx, g["k"], warm))
+
+
+def _macd_inputs(fused, pnl, panel, t_real):
+    dev, close, _, _, tr, r = _common(fused, pnl, panel, t_real)
+    g = _flat_grid(MACD_AXES)
+    spans, fidx, sidx, a_sig, warm = fused._macd_grid_setup(
+        g["fast"], g["slow"], g["signal"])
+    return (fused.macd_ema_table(close, spans), r, tr,
+            *fused._to(dev, fidx, sidx, a_sig, warm))
+
+
+def _trix_inputs(fused, pnl, panel, t_real):
+    dev, close, _, _, tr, r = _common(fused, pnl, panel, t_real)
+    g = _flat_grid(TRIX_AXES)
+    spans, widx, a_sig, warm = fused._trix_grid_setup(g["span"], g["signal"])
+    return (fused.trix_ema_table(close, spans), r, tr,
+            *fused._to(dev, widx, a_sig, warm))
+
+
+# Further inputs of an entry, run at 32 x 1260 beside its four cases.
+EXTRA_CASES = {"band_table": (("rsi z-table", _rsi_table_inputs),
+                              ("keltner z-table", _keltner_table_inputs))}
+
+
 def _entry_bytes(inputs) -> int:
     """Bytes each entry must move: every input read once, the (9, N, P)
     metrics written once."""
@@ -348,23 +421,33 @@ def _entries(fused):
                      fused.momentum_cuda, fused.momentum_plain, (None,)),
         "donchian": ("k3", 1933, "single_window.cu", _donchian_inputs, 2,
                      fused.donchian_cuda, fused.donchian_plain, (None,)),
+        "macd": ("k4", 2661, "ema_cross.cu", _macd_inputs, 2,
+                 fused.macd_cuda, fused.macd_plain, (None,)),
+        "trix": ("k5", 3009, "ema_cross.cu", _trix_inputs, 2,
+                 fused.trix_cuda, fused.trix_plain, (None,)),
     }
 
 
 def phase_new_kernels(fused, pnl, data) -> dict:
-    """K2 and K3, every entry and machine, against their plain versions in
-    the four cases; times and bound at the headline shape. Returns one
-    kernels-line record per entry."""
+    """K2-K5, every entry and machine, against their plain versions in the
+    four cases (and K2's table entry on the rsi and keltner z-tables);
+    times and bound at the headline shape. Returns one kernels-line record
+    per entry."""
     head = data.synthetic_ohlcv(N_TICKERS, N_BARS, seed=0)
     cases = [(f"headline {N_TICKERS}x{N_BARS}", head, None, COST)] + _small_cases(
         data, head)
+    small = data.OHLCV(*(f[:32] for f in head))
     out = {}
     for entry, (tag, line, src, build, tr_at, kernel, plain, machines) in \
             _entries(fused).items():
         errs = []
         timing = {}
-        for label, panel, t_real, cost in cases:
-            inputs = build(fused, pnl, panel, t_real)
+        runs = [(label, build, panel, t_real, cost)
+                for label, panel, t_real, cost in cases]
+        runs += [(f"{what} 32x{N_BARS}", extra, small, None, COST)
+                 for what, extra in EXTRA_CASES.get(entry, ())]
+        for label, make, panel, t_real, cost in runs:
+            inputs = make(fused, pnl, panel, t_real)
             for machine in machines:
                 kw = {"cost": cost, "ppy": 252}
                 if machine is not None:
@@ -379,7 +462,8 @@ def phase_new_kernels(fused, pnl, data) -> dict:
                     plain_ms = _cuda_ms(lambda: plain(*inputs, **kw),
                                         reps=2, warmup=1)
                     bound = _bound(inputs[tr_at], inputs[-1],
-                                   inputs[-1].shape[0], OPS_PER_BAR,
+                                   inputs[-1].shape[0],
+                                   OPS_PER_BAR + OPS_EACH_BAR.get(entry, 0),
                                    OPS_SIGNAL[entry],
                                    _entry_bytes(inputs))
                     timing[machine] = (ms, plain_ms, bound)
@@ -536,16 +620,20 @@ def _cagr_slack(gold) -> np.ndarray:
     return np.minimum(slack, 0.01 + 0.01 * np.abs(cagr))
 
 
-def _golden_check(label, got, gold, exact: bool) -> int:
+def _golden_check(label, got, gold, check: str) -> int:
     """Backend metrics against the generic sweep's; returns the number of
-    flipped cells. Where the positions must be identical (``exact``),
+    flipped cells. ``check`` is a ``FAMILIES`` check: for ``"exact"``,
     n_trades and turnover must be bit-equal and no cell may be set aside
-    as flipped."""
+    as flipped; for ``"flip"``, a cell off by more than 0.01 + 0.01 |ref|
+    is flipped; for ``"shift"``, one off by more than the flip-aware
+    budget's rtol and atol."""
     fields = gold._fields
     slack = {name: 0.0 for name in fields}
     slack["cagr"] = _cagr_slack(gold)
+    rtol, atol = (SHIFT_RTOL, SHIFT_ATOL) if check == "shift" else (RTOL,
+                                                                     ATOL)
     flipped = np.zeros(got["turnover"].shape, dtype=bool)
-    if exact:
+    if check == "exact":
         for name in ("n_trades", "turnover"):
             _check(np.array_equal(got[name], getattr(gold, name).cpu()
                                   .numpy()),
@@ -554,14 +642,17 @@ def _golden_check(label, got, gold, exact: bool) -> int:
     else:
         for name in fields:
             a, b = got[name], getattr(gold, name).cpu().numpy()
-            flipped |= np.abs(a - b) > (0.01 + 0.01 * np.abs(b)
-                                        + slack[name])
+            if check == "flip":
+                off = 0.01 + 0.01 * np.abs(b)
+            else:
+                off = atol + rtol * np.abs(b)
+            flipped |= np.abs(a - b) > off + slack[name]
     n_flips = int(flipped.sum())
     _check(n_flips <= max(1, int(0.01 * flipped.size)),
            f"{label} vs golden path: {n_flips}/{flipped.size} flips")
     for name in fields:
         a, b = got[name], getattr(gold, name).cpu().numpy()
-        bad = (np.abs(a - b) > ATOL + RTOL * np.abs(b) + slack[name]) \
+        bad = (np.abs(a - b) > atol + rtol * np.abs(b) + slack[name]) \
             & ~flipped
         _check(not bad.any(), f"{label} vs golden path: {name} off in "
                f"{int(bad.sum())} unflipped cells, max abs err "
@@ -571,11 +662,11 @@ def _golden_check(label, got, gold, exact: bool) -> int:
 
 def phase_new_main_paths(kernels_mod, compute, wire, pb, data, sweep,
                          models) -> dict:
-    """The six new strategies' main paths; returns the launches per kernel
-    entry summed over their runs."""
+    """The main paths of the strategies of ``FAMILIES``; returns the
+    launches per kernel entry summed over their runs."""
     backend = compute.TorchSweepBackend(device="cuda")
     total: dict = {}
-    for seed, (strategy, (axes, entry, exact)) in enumerate(
+    for seed, (strategy, (axes, entry, check)) in enumerate(
             FAMILIES.items(), start=20):
         panel = data.synthetic_ohlcv(N_TICKERS, N_BARS, seed=seed)
         jobs = _jobs(pb, data, panel, strategy, axes)
@@ -594,10 +685,11 @@ def phase_new_main_paths(kernels_mod, compute, wire, pb, data, sweep,
         grid = sweep.product_grid(**{k: axes[k] for k in sorted(axes)})
         gold = sweep.run_sweep(small, models.get_strategy(strategy), grid,
                                cost=COST, device="cuda")
-        n_flips = _golden_check(strategy, got, gold, exact)
+        n_flips = _golden_check(strategy, got, gold, check)
+        rule = {"exact": "identical positions", "flip": "flip rule",
+                "shift": "flip-aware budget"}[check]
         print(f"{strategy} main path vs golden path: 16 jobs x {n_combos} "
-              f"combos agree ({'identical positions' if exact else 'flip rule'}"
-              f", {n_flips} flipped cells)")
+              f"combos agree ({rule}, {n_flips} flipped cells)")
 
         _repeat(backend, jobs, n_combos, strategy, batch_s, 5)
         _main_path_stages(jobs, data, wire, compute, strategy, axes)

@@ -3,4 +3,5 @@ API and the registry."""
 
 from .base import Strategy, register, get_strategy, available_strategies  # noqa: F401
 from . import (  # noqa: F401
-    bollinger, donchian, momentum, sma_crossover, stochastic)
+    bollinger, donchian, keltner, macd, momentum, rsi, sma_crossover,
+    stochastic, trix)

@@ -112,6 +112,10 @@ _SIGNATURES = {
         "dbx_momentum": [_VP] * 6 + [_CI] * 3 + [_CF, _CI, _VP],
         "dbx_donchian": [_VP] * 6 + [_CI] * 4 + [_CF, _CI, _VP],
     },
+    "ema_cross": {
+        "dbx_macd": [_VP] * 8 + [_CI] * 4 + [_CF, _CI, _VP],
+        "dbx_trix": [_VP] * 7 + [_CI] * 4 + [_CF, _CI, _VP],
+    },
 }
 
 
@@ -140,3 +144,9 @@ def single_window_lib() -> ctypes.CDLL:
     """K3's library (``csrc/single_window.cu``): ``dbx_momentum`` and
     ``dbx_donchian``."""
     return _typed("single_window")
+
+
+def ema_cross_lib() -> ctypes.CDLL:
+    """K4's and K5's library (``csrc/ema_cross.cu``): ``dbx_macd`` and
+    ``dbx_trix``."""
+    return _typed("ema_cross")

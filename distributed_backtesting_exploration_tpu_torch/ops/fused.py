@@ -1,11 +1,11 @@
-"""Fused parameter sweeps: K1-K3 of the port (reference ``ops/fused.py``).
+"""Fused parameter sweeps: K1-K5 of the port (reference ``ops/fused.py``).
 
 Each ``fused_*_sweep`` computes the 9 metrics of every (ticker, combo)
 backtest of one strategy's grid and returns them as :class:`Metrics` of
 ``(N, P)`` fields, like the reference's wrapper of the same name. It
 prepares the inputs host-side and with plain torch ops (distinct windows,
-cumsums, returns, the z- or breakout-sign tables) and hands them to one
-kernel entry:
+cumsums, returns, the z-, breakout-sign or EMA tables) and hands them to
+one kernel entry:
 
 ==============================  ========================  ===================
 sweep                           entry                     kernel source
@@ -17,6 +17,10 @@ sweep                           entry                     kernel source
 ``fused_momentum_sweep``        :func:`momentum`          ``single_window.cu``
 ``fused_donchian_sweep``,       :func:`donchian`          ``single_window.cu``
 ``fused_donchian_hl_sweep``
+``fused_rsi_sweep``,            :func:`band_table`        ``band_machine.cu``
+``fused_keltner_sweep``
+``fused_macd_sweep``            :func:`macd`              ``ema_cross.cu``
+``fused_trix_sweep``            :func:`trix`              ``ema_cross.cu``
 ==============================  ========================  ===================
 
 Each entry dispatches on its inputs' device: on a CUDA tensor its
@@ -36,7 +40,7 @@ import numpy as np
 import torch
 
 from .. import device as device_mod
-from . import _kernels
+from . import _kernels, rolling
 from .metrics import Metrics, metrics_from_reductions
 from .pnl import simple_returns
 
@@ -137,6 +141,41 @@ def _window_setup(vals, what: str, warm_offset: float, min_window: int):
     widx = np.searchsorted(windows, rounded).astype(np.int32)
     warm = (vals + np.float32(warm_offset)).astype(np.int32)
     return windows, rounded.astype(np.int32), widx, warm
+
+
+def _signal_decay(signal: np.ndarray) -> np.ndarray:
+    """Per-lane signal-line decay ``2 / (signal + 1)`` in f32, host-side as
+    the reference's ``_macd_grid_setup`` forms it; signal spans are
+    validated as integral only."""
+    _distinct_windows(signal, "signal spans")
+    return np.float32(2.0) / (signal + np.float32(1.0))
+
+
+def _macd_grid_setup(fast, slow, signal):
+    """The reference's ``_macd_grid_setup`` without the selector: the
+    distinct spans of ``fast`` and ``slow``, each lane's fast and slow row
+    in their table, its signal decay, and its warmup ``slow + signal - 1``
+    in f32, truncated. Returns ``(spans, fidx, sidx, a_sig, warm)``."""
+    fast, slow, signal = _flat(fast), _flat(slow), _flat(signal)
+    _same_length(fast=fast, slow=slow, signal=signal)
+    spans, _, fidx, _ = _window_setup(np.concatenate([fast, slow]), "spans",
+                                      0.0, 1)
+    P = fast.shape[0]
+    warm = (slow + signal - np.float32(1.0)).astype(np.int32)
+    return spans, fidx[:P], fidx[P:], _signal_decay(signal), warm
+
+
+def _trix_grid_setup(span, signal):
+    """The reference's ``_trix_grid_setup`` without the one-hot: distinct
+    spans, each lane's row, its signal decay and its warmup
+    ``3*span + signal - 2`` in f32, truncated. Returns
+    ``(spans, widx, a_sig, warm)``."""
+    span, signal = _flat(span), _flat(signal)
+    _same_length(span=span, signal=signal)
+    spans, _, widx, _ = _window_setup(span, "spans", 0.0, 1)
+    warm = (np.float32(3.0) * span + signal
+            - np.float32(2.0)).astype(np.int32)
+    return spans, widx, _signal_decay(signal), warm
 
 
 def _check_t_real(t_real, N: int, T: int) -> np.ndarray:
@@ -570,6 +609,116 @@ def donchian(sig, r, t_real, widx, warm, *, cost: float,
     return fn(sig, r, t_real, widx, warm, cost=cost, ppy=ppy)
 
 
+# --- K4 and K5: EMA signal-line crossover (macd, trix) --------------------
+
+def _signal_cross_plain(series, r, t_real, a_sig, warm, *, cost: float,
+                        ppy: int) -> torch.Tensor:
+    """The shared tail of K4 and K5 in ``csrc/ema_cross.cu``'s order:
+    ``series(step)`` gives the lanes' ``(N, P)`` value x at a bar; the
+    signal line is ``s = x`` at bar 0, then ``(1-a)*s + a*x`` (two
+    multiplies and one add, ``1-a`` formed once); ``pos = sign(x - s)``
+    from bar ``warm - 1``."""
+    T = r.shape[1]
+    P = a_sig.shape[0]
+    a = a_sig[None, :]
+    keep = 1.0 - a
+    st = _MetricState(t_real, P)
+    t_on = (warm.long() - 1)[None, :]
+    sig = st.zero
+    for step in range(T):
+        x = series(step)
+        sig = x if step == 0 else keep * sig + a * x
+        pos = torch.where(step >= t_on, torch.sign(x - sig), st.zero)
+        st.step(step, pos, r[:, step:step + 1], cost)
+    return st.planes(ppy)
+
+
+def macd_plain(tbl, r, t_real, fidx, sidx, a_sig, warm, *, cost: float,
+               ppy: int) -> torch.Tensor:
+    """Plain PyTorch version of K4 (``dbx_macd``): the macd line is each
+    lane's fast row minus its slow row of the ``(N, W, T)`` EMA table;
+    ``fidx``/``sidx`` are the ``(P,)`` rows, ``a_sig`` the ``(P,)`` signal
+    decays, ``warm`` the ``(P,)`` integer warmups. Returns the
+    ``(9, N, P)`` metric planes."""
+    tt = tbl.permute(2, 0, 1)                                   # (T, N, W)
+    fi, si = fidx.long(), sidx.long()
+    return _signal_cross_plain(lambda t: tt[t][:, fi] - tt[t][:, si], r,
+                               t_real, a_sig, warm, cost=cost, ppy=ppy)
+
+
+def trix_plain(tbl, r, t_real, widx, a_sig, warm, *, cost: float,
+               ppy: int) -> torch.Tensor:
+    """Plain PyTorch version of K5 (``dbx_trix``): x is the one-bar rate of
+    change of each lane's row ``widx`` of the ``(N, W, T)`` triple-EMA
+    table, ``e3[t] / e3[t-1] - 1`` with a previous value of 0 taken as 1,
+    and 0 at bar 0. Other arguments as :func:`macd_plain`."""
+    tt = tbl.permute(2, 0, 1)                                   # (T, N, W)
+    lanes = widx.long()
+    one = torch.ones((), dtype=tbl.dtype, device=tbl.device)
+
+    def series(t):
+        if t == 0:
+            return torch.zeros((tbl.shape[0], lanes.shape[0]),
+                               dtype=tbl.dtype, device=tbl.device)
+        prev = tt[t - 1][:, lanes]
+        return tt[t][:, lanes] / torch.where(prev == 0, one, prev) - 1.0
+
+    return _signal_cross_plain(series, r, t_real, a_sig, warm, cost=cost,
+                               ppy=ppy)
+
+
+def macd_cuda(tbl, r, t_real, fidx, sidx, a_sig, warm, *, cost: float,
+              ppy: int) -> torch.Tensor:
+    """Launch K4 (``csrc/ema_cross.cu``, ``dbx_macd``): same inputs and
+    output as :func:`macd_plain`, all on one CUDA device."""
+    N, W, T = tbl.shape
+    P = fidx.shape[0]
+    f32, i32 = torch.float32, torch.int32
+    _check_launch("macd_cuda", tbl.device, P,
+                  tbl=(tbl, f32, (N, W, T)), r=(r, f32, (N, T)),
+                  t_real=(t_real, i32, (N,)), fidx=(fidx, i32, (P,)),
+                  sidx=(sidx, i32, (P,)), a_sig=(a_sig, f32, (P,)),
+                  warm=(warm, i32, (P,)))
+    out = torch.empty((_N_METRICS, N, P), dtype=f32, device=tbl.device)
+    if N and P:
+        _launch("macd", _kernels.ema_cross_lib().dbx_macd, tbl, r, t_real,
+                fidx, sidx, a_sig, warm, out, N, T, W, P, float(cost),
+                int(ppy))
+    return out
+
+
+def trix_cuda(tbl, r, t_real, widx, a_sig, warm, *, cost: float,
+              ppy: int) -> torch.Tensor:
+    """Launch K5 (``csrc/ema_cross.cu``, ``dbx_trix``): same inputs and
+    output as :func:`trix_plain`, all on one CUDA device."""
+    N, W, T = tbl.shape
+    P = widx.shape[0]
+    f32, i32 = torch.float32, torch.int32
+    _check_launch("trix_cuda", tbl.device, P,
+                  tbl=(tbl, f32, (N, W, T)), r=(r, f32, (N, T)),
+                  t_real=(t_real, i32, (N,)), widx=(widx, i32, (P,)),
+                  a_sig=(a_sig, f32, (P,)), warm=(warm, i32, (P,)))
+    out = torch.empty((_N_METRICS, N, P), dtype=f32, device=tbl.device)
+    if N and P:
+        _launch("trix", _kernels.ema_cross_lib().dbx_trix, tbl, r, t_real,
+                widx, a_sig, warm, out, N, T, W, P, float(cost), int(ppy))
+    return out
+
+
+def macd(tbl, r, t_real, fidx, sidx, a_sig, warm, *, cost: float,
+         ppy: int) -> torch.Tensor:
+    """K4 on the inputs' device."""
+    fn = _on_device(macd_plain, macd_cuda, tbl)
+    return fn(tbl, r, t_real, fidx, sidx, a_sig, warm, cost=cost, ppy=ppy)
+
+
+def trix(tbl, r, t_real, widx, a_sig, warm, *, cost: float,
+         ppy: int) -> torch.Tensor:
+    """K5 on the inputs' device."""
+    fn = _on_device(trix_plain, trix_cuda, tbl)
+    return fn(tbl, r, t_real, widx, a_sig, warm, cost=cost, ppy=ppy)
+
+
 # --- table prep (torch ops before the launch) -----------------------------
 
 def _extrema_rows(src: torch.Tensor, windows: np.ndarray, mode: str):
@@ -628,6 +777,72 @@ def donchian_sign_table(close, hi_src, lo_src,
         down = close <= _shift_t(lo, 1, -_CHANNEL_FILL)
         sig[:, i] = torch.where(up, 1, torch.where(down, -1, 0)).to(torch.int8)
     return sig
+
+
+# The EMA tables below are built in one pass over an (N, W, T) tensor: the
+# ladder is elementwise, so a (W, 1) column of decays broadcast against the
+# (N, 1, T) series gives each row the values a per-window loop would. Each
+# repeats its generic model's ops (models/macd.py, trix.py, rsi.py,
+# keltner.py) on the distinct windows, so the fused and generic paths see
+# the same values.
+
+def _col(dev: torch.device, values: np.ndarray) -> torch.Tensor:
+    """``(W,)`` values as a ``(W, 1)`` f32 column on ``dev``."""
+    return torch.from_numpy(np.asarray(values, np.float32)).to(dev)[:, None]
+
+
+def macd_ema_table(close, spans: np.ndarray) -> torch.Tensor:
+    """The ``(N, W, T)`` EMAs of the close demeaned by its first bar, one
+    row per distinct span (the reference's ``_fused_macd_call`` prep)."""
+    x = (close - close[:, :1])[:, None, :]
+    return rolling.ema_ladder(x, span=_col(close.device, spans)).contiguous()
+
+
+def trix_ema_table(close, spans: np.ndarray) -> torch.Tensor:
+    """The ``(N, W, T)`` triple EMAs of the close, one row per distinct span
+    (the reference's ``_fused_trix_call`` prep): three chained ladders."""
+    span = _col(close.device, spans)
+    e = close[:, None, :]
+    for _ in range(3):
+        e = rolling.ema_ladder(e, span=span)
+    return e.contiguous()
+
+
+def rsi_z_table(close, periods: np.ndarray) -> torch.Tensor:
+    """The ``(N, W, T)`` centered RSI, ``rsi - 50``, of each distinct period
+    (the reference's ``_fused_rsi_call`` prep): Wilder ladders of the gains
+    and losses with decay ``1/period``, then
+    ``100 - 100 / (1 + ag / (al + 1e-12)) - 50``."""
+    diff = torch.diff(close, dim=-1, prepend=close[:, :1])
+    gains = diff.clamp_min(0.0)[:, None, :]
+    losses = (-diff).clamp_min(0.0)[:, None, :]
+    one = torch.ones((), dtype=close.dtype, device=close.device)
+    alpha = torch.div(one, _col(close.device, periods))
+    ag = rolling.ema(gains, alpha=alpha)
+    al = rolling.ema(losses, alpha=alpha)
+    rsi = 100.0 - torch.div(100.0 * one, 1.0 + ag / (al + _EPS))
+    return (rsi - 50.0).contiguous()
+
+
+def keltner_z_table(close, high, low, windows: np.ndarray) -> torch.Tensor:
+    """The ``(N, W, T)`` Keltner z-table of each distinct window (the
+    reference's ``_fused_keltner_call`` prep): the close's deviation from
+    its EMA midline over the ATR, the windowed mean of the true range from
+    its ``(N, T)`` cumsum; 0 before ``t = w - 1`` and where the ATR is not
+    above 1e-12."""
+    prev = torch.cat([close[:, :1], close[:, :-1]], dim=1)
+    true_range = torch.maximum(high - low,
+                               torch.maximum((high - prev).abs(),
+                                             (low - prev).abs()))
+    w = torch.from_numpy(np.asarray(windows).astype(np.int64)).to(close.device)
+    fw = _col(close.device, windows)
+    atr = _lagged_window_sum(torch.cumsum(true_range, dim=1), w) / fw
+    mid = rolling.ema(close[:, None, :], span=fw)
+    dev = close[:, None, :] - mid
+    t = torch.arange(close.shape[1], device=close.device)
+    have = (t[None, :] >= w[:, None] - 1) & (atr > _EPS)
+    return torch.where(have, dev / (atr + _EPS),
+                       torch.zeros((), dtype=dev.dtype, device=dev.device))
 
 
 # --- sweep wrappers -------------------------------------------------------
@@ -780,15 +995,28 @@ def fused_stochastic_sweep(close, high, low, window, band, *, t_real=None,
     """
     dev = _prologue(carry_out, None, epilogue, device)
     close, high, low = _panel(dev, close, high, low)
+    return _band_table_sweep(
+        close, window, band, ("window", "band"), 0.0,
+        lambda w: stochastic_z_table(close, high, low, w), t_real=t_real,
+        cost=cost, periods_per_year=periods_per_year)
+
+
+def _band_table_sweep(close, window, band, names, warm_offset: float,
+                      z_table, *, t_real, cost, periods_per_year) -> Metrics:
+    """K2's table entry, hysteresis machine with z_exit = 0, over the
+    z-table ``z_table(windows)`` of the distinct windows. ``window`` and
+    ``band`` are the flat per-combo values, ``names`` their argument names
+    for the error messages; each lane's warmup is its window plus
+    ``warm_offset``."""
     N, T = close.shape
     window, band = _flat(window), _flat(band)
-    _same_length(window=window, band=band)
-    windows, _, widx, warm = _window_setup(window, "windows", 0.0, 1)
+    _same_length(**dict(zip(names, (window, band))))
+    windows, _, widx, warm = _window_setup(window, f"{names[0]}s",
+                                           warm_offset, 1)
     tr = _check_t_real(t_real, N, T)
-    z = stochastic_z_table(close, high, low, windows)
-    planes = band_table(z, simple_returns(close).contiguous(),
-                        *_to(dev, tr, widx, band, warm), machine="hysteresis",
-                        z_exit=0.0, cost=float(cost),
+    planes = band_table(z_table(windows), simple_returns(close).contiguous(),
+                        *_to(close.device, tr, widx, band, warm),
+                        machine="hysteresis", z_exit=0.0, cost=float(cost),
                         ppy=int(periods_per_year))
     return Metrics(*planes)
 
@@ -862,3 +1090,98 @@ def fused_donchian_hl_sweep(close, high, low, window, *, t_real=None,
     return _donchian_family_sweep(
         close, high, low, window, t_real=t_real, cost=cost,
         periods_per_year=periods_per_year)
+
+
+def fused_rsi_sweep(close, period, band, *, t_real=None, cost: float = 0.0,
+                    periods_per_year: int = 252,
+                    epilogue: str | None = None,
+                    carry_out: bool = False,
+                    device: str | torch.device =
+                    device_mod.DEFAULT_DEVICE) -> Metrics:
+    """Fused RSI mean-reversion sweep: ``(N, T)`` closes x ``(P,)`` lanes
+    (K2's table entry, hysteresis machine with z_exit = 0 on the centered
+    RSI table).
+
+    ``period``/``band`` are flat per-combo arrays (:func:`product_grid`
+    order); periods must be integral bar counts. Matches
+    ``run_sweep(..., "rsi")``: both paths build the RSI with the same ops.
+    Other arguments as :func:`fused_sma_sweep`.
+    """
+    dev = _prologue(carry_out, None, epilogue, device)
+    (close,) = _panel(dev, close)
+    return _band_table_sweep(
+        close, period, band, ("period", "band"), 1.0,
+        lambda p: rsi_z_table(close, p), t_real=t_real, cost=cost,
+        periods_per_year=periods_per_year)
+
+
+def fused_keltner_sweep(close, high, low, window, k, *, t_real=None,
+                        cost: float = 0.0, periods_per_year: int = 252,
+                        epilogue: str | None = None,
+                        carry_out: bool = False,
+                        device: str | torch.device =
+                        device_mod.DEFAULT_DEVICE) -> Metrics:
+    """Fused Keltner-channel reversion sweep: ``(N, T)`` panels x ``(P,)``
+    lanes (K2's table entry, hysteresis machine with z_exit = 0 on the
+    ATR-normalized deviation from the EMA midline).
+
+    ``window``/``k`` are flat per-combo arrays; windows must be integral bar
+    counts. Matches ``run_sweep(..., "keltner")``: both paths build the
+    deviation with the same ops.
+    """
+    dev = _prologue(carry_out, None, epilogue, device)
+    close, high, low = _panel(dev, close, high, low)
+    return _band_table_sweep(
+        close, window, k, ("window", "k"), 0.0,
+        lambda w: keltner_z_table(close, high, low, w), t_real=t_real,
+        cost=cost, periods_per_year=periods_per_year)
+
+
+def fused_macd_sweep(close, fast, slow, signal, *, t_real=None,
+                     cost: float = 0.0, periods_per_year: int = 252,
+                     epilogue: str | None = None,
+                     carry_out: bool = False,
+                     device: str | torch.device =
+                     device_mod.DEFAULT_DEVICE) -> Metrics:
+    """Fused MACD signal-line crossover sweep: ``(N, T)`` closes x ``(P,)``
+    lanes (K4).
+
+    ``fast``/``slow``/``signal`` are flat per-combo span arrays
+    (:func:`product_grid` order); spans and signal spans must be integral.
+    Matches ``run_sweep(..., "macd")`` to the reference's flip-aware budget:
+    the EMA table is the generic path's ladder, but the kernel carries the
+    signal line sequentially, which rounds in another order than the
+    generic ladder. Other arguments as :func:`fused_sma_sweep`.
+    """
+    dev = _prologue(carry_out, None, epilogue, device)
+    (close,) = _panel(dev, close)
+    N, T = close.shape
+    spans, fidx, sidx, a_sig, warm = _macd_grid_setup(fast, slow, signal)
+    tr = _check_t_real(t_real, N, T)
+    planes = macd(macd_ema_table(close, spans),
+                  simple_returns(close).contiguous(),
+                  *_to(dev, tr, fidx, sidx, a_sig, warm), cost=float(cost),
+                  ppy=int(periods_per_year))
+    return Metrics(*planes)
+
+
+def fused_trix_sweep(close, span, signal, *, t_real=None, cost: float = 0.0,
+                     periods_per_year: int = 252,
+                     epilogue: str | None = None,
+                     carry_out: bool = False,
+                     device: str | torch.device =
+                     device_mod.DEFAULT_DEVICE) -> Metrics:
+    """Fused TRIX signal-line crossover sweep: ``(N, T)`` closes x ``(P,)``
+    lanes (K5). ``span``/``signal`` are flat per-combo span arrays; both
+    must be integral. Matches ``run_sweep(..., "trix")`` to the same
+    flip-aware budget as :func:`fused_macd_sweep`, for the same reason."""
+    dev = _prologue(carry_out, None, epilogue, device)
+    (close,) = _panel(dev, close)
+    N, T = close.shape
+    spans, widx, a_sig, warm = _trix_grid_setup(span, signal)
+    tr = _check_t_real(t_real, N, T)
+    planes = trix(trix_ema_table(close, spans),
+                  simple_returns(close).contiguous(),
+                  *_to(dev, tr, widx, a_sig, warm), cost=float(cost),
+                  ppy=int(periods_per_year))
+    return Metrics(*planes)

@@ -1,7 +1,8 @@
 """Rolling-window indicators (PyTorch).
 
 The part of the reference's ``ops/rolling.py`` the ported families need:
-cumulative-sum sums, means, variances and z-scores, and windowed extrema.
+cumulative-sum sums, means, variances and z-scores, windowed extrema, and
+the exponential moving average (as the reference's shift-doubling ladder).
 Time is the last axis. A rolling sum over window ``w`` is ``cs[t] - cs[t-w]`` on the
 inclusive prefix sum, where the shifted read is a clipped gather so that
 ``w`` may be a tensor of windows that broadcasts against the series (the
@@ -100,6 +101,65 @@ def rolling_zscore(x: Tensor, window, *, ddof: int = 0, eps: float = 1e-12,
     m = rolling_mean(x, window)
     sd = rolling_std(x, window, ddof=ddof)
     return _mask_warmup((x - m) / (sd + eps), window, fill)
+
+
+def _decay(x: Tensor, span, alpha) -> Tensor:
+    """The EMA decay as a tensor of ``x``'s dtype: ``alpha``, or
+    ``2 / (span + 1)`` as one IEEE division, as the reference computes it
+    (``2.0 / span_tensor`` in torch would round twice: a reciprocal, then
+    a multiply)."""
+    if (span is None) == (alpha is None):
+        raise ValueError("pass exactly one of span= or alpha=")
+    if alpha is not None:
+        return _as_window(alpha, x)
+    return torch.div(_as_window(2.0, x), _as_window(span, x) + 1.0)
+
+
+def ema_ladder(x: Tensor, *, span=None, alpha=None) -> Tensor:
+    """Exponential moving average along the last axis as the reference's
+    Hillis-Steele shift-doubling ladder (``rolling.ema_ladder``), op for op.
+
+    ``y[t] = (1-a) * y[t-1] + a * x[t]``, ``y[0] = x[0]``, with
+    ``a = 2/(span+1)`` when ``span`` is given. The recurrence is carried as
+    ``(A, B)`` pairs: ``A = 1-a`` (0 at bar 0), ``B = a*x`` (``x`` at bar
+    0); each of the ~log2(T) passes shifts the pairs down by ``step`` bars,
+    filling with the identity ``(1, 0)``, and folds them in as
+    ``A, B = Ae*A, A*Be + B``, the multiply and the add two separate ops.
+
+    ``span``/``alpha`` are scalars or tensors that broadcast against ``x``
+    with a time axis of 1 (e.g. ``(W, 1)`` decays against ``(N, 1, T)``
+    series give ``(N, W, T)``): the port's stand-in for the reference's
+    ``vmap`` over traced decays. ``A`` depends on the decay only, so it is
+    kept at the decay's shape; each element takes the same values as in the
+    reference's full-shape ``A``.
+    """
+    alpha = _decay(x, span, alpha)
+    T = x.shape[-1]
+    t0 = torch.arange(T, device=x.device) == 0
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    A = torch.where(t0, zero, 1.0 - alpha)          # y[0] = x[0] exactly
+    B = torch.where(t0, x, x * alpha)
+    step = 1
+    while step < T:
+        Ae = torch.cat([torch.ones_like(A[..., :step]), A[..., :-step]], -1)
+        Be = torch.cat([torch.zeros_like(B[..., :step]), B[..., :-step]], -1)
+        A, B = Ae * A, A * Be + B
+        step *= 2
+    return B
+
+
+def ema(x: Tensor, *, span=None, alpha=None) -> Tensor:
+    """Exponential moving average, ``y[t] = (1-a) * y[t-1] + a * x[t]``,
+    ``y[0] = x[0]``, ``a = 2/(span+1)`` when ``span`` is given.
+
+    The reference evaluates this with ``lax.associative_scan``, which torch
+    does not have. The port evaluates the same recurrence with
+    :func:`ema_ladder`, so it rounds in the ladder's order (the reference's
+    ``ema_ladder``, and the fused prep's ``_ema_rows``), not in the
+    associative scan's: against the reference's ``ema`` it may differ in
+    the last bits. ``span``/``alpha`` broadcast as in :func:`ema_ladder`.
+    """
+    return ema_ladder(x, span=span, alpha=alpha)
 
 
 def _rolling_extremum(x: Tensor, window, max_window, fill: float,

@@ -7,11 +7,12 @@ decodes each DBX1 payload, groups stackable jobs, runs one fused sweep per
 group on the backend's device and packs one DBXM block per job.
 
 The port serves the strategies of ``_FUSED_STRATEGIES``: sma_crossover
-(K1), bollinger, bollinger_touch and stochastic (K2), momentum, donchian
-and donchian_hl (K3). Any other strategy, and any job field the port does
-not serve (streaming append, scenario spec batches, walk-forward, pairs,
-top-k, best-returns), raises ``NotImplementedError`` naming it; nothing is
-computed some other way.
+(K1), bollinger, bollinger_touch, stochastic, rsi and keltner (K2),
+momentum, donchian and donchian_hl (K3), macd (K4) and trix (K5). Any
+other strategy (vwap_reversion, obv_trend, pairs), and any job field the
+port does not serve (streaming append, scenario spec batches, walk-forward,
+pairs, top-k, best-returns), raises ``NotImplementedError`` naming it;
+nothing is computed some other way.
 """
 
 from __future__ import annotations
@@ -81,6 +82,23 @@ _FUSED_STRATEGIES = {
         lambda f, g, **kw: fused.fused_donchian_hl_sweep(
             f["close"], f["high"], f["low"], g["window"], **kw),
         fields=("close", "high", "low"), max_window=donchian.MAX_WINDOW),
+    "rsi": _FusedSpec(
+        frozenset({"period", "band"}), ("period",),
+        lambda f, g, **kw: fused.fused_rsi_sweep(
+            f["close"], g["period"], g["band"], **kw)),
+    "keltner": _FusedSpec(
+        frozenset({"window", "k"}), ("window",),
+        lambda f, g, **kw: fused.fused_keltner_sweep(
+            f["close"], f["high"], f["low"], g["window"], g["k"], **kw),
+        fields=("close", "high", "low")),
+    "macd": _FusedSpec(
+        frozenset({"fast", "slow", "signal"}), ("fast", "slow", "signal"),
+        lambda f, g, **kw: fused.fused_macd_sweep(
+            f["close"], g["fast"], g["slow"], g["signal"], **kw)),
+    "trix": _FusedSpec(
+        frozenset({"span", "signal"}), ("span", "signal"),
+        lambda f, g, **kw: fused.fused_trix_sweep(
+            f["close"], g["span"], g["signal"], **kw)),
 }
 
 
@@ -119,7 +137,8 @@ def _stack_field_ragged(series_list, t_max: int,
 def _unsupported(job) -> str | None:
     """What in ``job`` the slice does not serve, or None."""
     if job.strategy not in _FUSED_STRATEGIES:
-        return f"strategy {job.strategy!r}"
+        return (f"strategy {job.strategy!r} (served: "
+                f"{', '.join(sorted(_FUSED_STRATEGIES))})")
     if job.append_parent_digest:
         return "streaming append (append_parent_digest)"
     if job.scenario_batch:

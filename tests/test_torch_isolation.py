@@ -51,7 +51,8 @@ def test_every_module_imports_with_jax_blocked():
     mods = _port_modules()
     assert len(mods) >= 20, mods
     for m in ("ops.signals", "models.bollinger", "models.stochastic",
-              "models.momentum", "models.donchian"):
+              "models.momentum", "models.donchian", "models.macd",
+              "models.trix", "models.rsi", "models.keltner"):
         assert f"{dbxt.__name__}.{m}" in mods
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
@@ -90,7 +91,7 @@ def test_no_jax_or_reference_imports(path):
 def test_kernel_sources_are_the_slices_and_include_nothing_else():
     names = {p.name for p in _kernel_sources()}
     assert {"fused_sma.cu", "band_machine.cu", "single_window.cu",
-            "metrics_tail.cuh"} <= names
+            "ema_cross.cu", "metrics_tail.cuh"} <= names
 
 
 @pytest.mark.parametrize("path", _kernel_sources(), ids=lambda p: p.name)
@@ -158,6 +159,8 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     ("band_table", "band_machine_plain", "band_table_cuda", 6),
     ("momentum", "momentum_plain", "momentum_cuda", 5),
     ("donchian", "donchian_plain", "donchian_cuda", 5),
+    ("macd", "macd_plain", "macd_cuda", 7),
+    ("trix", "trix_plain", "trix_cuda", 6),
 ])
 def test_new_entries_never_take_the_plain_version_off_the_cpu(
         monkeypatch, dispatch, plain, cuda, n_args):
@@ -173,14 +176,17 @@ def test_new_entries_never_take_the_plain_version_off_the_cpu(
 
 
 @pytest.mark.parametrize("wrapper", ["band_inline_cuda", "band_table_cuda",
-                                     "momentum_cuda", "donchian_cuda"])
+                                     "momentum_cuda", "donchian_cuda",
+                                     "macd_cuda", "trix_cuda"])
 def test_new_kernel_wrappers_refuse_cpu_tensors(wrapper):
     x = torch.zeros((1, 8))
     i = torch.zeros((1,), dtype=torch.int32)
     args = {"band_inline_cuda": (x, x, x, x, x, i, i, x[0, :1], i),
             "band_table_cuda": (x[None], x, i, i, x[0, :1], i),
             "momentum_cuda": (x, x, i, i, i),
-            "donchian_cuda": (x[None].to(torch.int8), x, i, i, i)}[wrapper]
+            "donchian_cuda": (x[None].to(torch.int8), x, i, i, i),
+            "macd_cuda": (x[None], x, i, i, i, x[0, :1], i),
+            "trix_cuda": (x[None], x, i, i, x[0, :1], i)}[wrapper]
     kw = {"cost": 0.0, "ppy": 252}
     if wrapper.startswith("band"):
         kw.update(machine="hysteresis", z_exit=0.0)

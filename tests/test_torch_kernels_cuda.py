@@ -1,4 +1,4 @@
-"""K1-K3 (``csrc/*.cu``) against their plain PyTorch versions on the card.
+"""K1-K5 (``csrc/*.cu``) against their plain PyTorch versions on the card.
 
 Marked ``cuda``: every test skips with a reason where no CUDA card is
 present (the kernels have no CPU mode). On a machine with a card, and without
@@ -7,7 +7,7 @@ JAX (this file and ``torch_parity`` import none), run:
     python -m pytest --noconftest -p no:cacheprovider \
         tests/test_torch_kernels_cuda.py
 
-Both versions take the same inputs (cumsums, returns, z- or sign tables),
+Both versions take the same inputs (cumsums, returns, z-, sign or EMA tables),
 so positions are identical (n_trades and turnover bit-equal) and the other
 metrics agree at rtol=2e-4, atol=2e-5.
 """
@@ -158,6 +158,47 @@ def _donchian_inputs(dev, n, T, seed, lens=None):
     return (sig, r, tr, *fused._to(dev, widx, warm))
 
 
+def _rsi_table_inputs(dev, n, T, seed, lens=None):
+    close, _, _, tr, r = _panel(dev, n, T, seed, lens)
+    g = sweep.product_grid(band=np.float32([10, 25]),
+                           period=np.float32([5, 14, 30]))
+    periods, _, widx, warm = fused._window_setup(g["period"].numpy(),
+                                                 "periods", 1.0, 1)
+    z = fused.rsi_z_table(close, periods)
+    return (z, r, tr, *fused._to(dev, widx, g["band"].numpy(), warm))
+
+
+def _keltner_table_inputs(dev, n, T, seed, lens=None):
+    close, high, low, tr, r = _panel(dev, n, T, seed, lens)
+    g = sweep.product_grid(k=np.float32([1.0, 2.0]),
+                           window=np.float32([5, 20, 60]))
+    windows, _, widx, warm = fused._window_setup(g["window"].numpy(),
+                                                 "windows", 0.0, 1)
+    z = fused.keltner_z_table(close, high, low, windows)
+    return (z, r, tr, *fused._to(dev, widx, g["k"].numpy(), warm))
+
+
+def _macd_inputs(dev, n, T, seed, lens=None):
+    close, _, _, tr, r = _panel(dev, n, T, seed, lens)
+    g = sweep.product_grid(fast=np.float32([5, 12]),
+                           slow=np.float32([20, 26, 300]),
+                           signal=np.float32([3, 9]))
+    spans, fidx, sidx, a_sig, warm = fused._macd_grid_setup(
+        g["fast"].numpy(), g["slow"].numpy(), g["signal"].numpy())
+    return (fused.macd_ema_table(close, spans), r, tr,
+            *fused._to(dev, fidx, sidx, a_sig, warm))
+
+
+def _trix_inputs(dev, n, T, seed, lens=None):
+    close, _, _, tr, r = _panel(dev, n, T, seed, lens)
+    g = sweep.product_grid(span=np.float32([3, 8, 100]),
+                           signal=np.float32([2, 9]))
+    spans, widx, a_sig, warm = fused._trix_grid_setup(g["span"].numpy(),
+                                                      g["signal"].numpy())
+    return (fused.trix_ema_table(close, spans), r, tr,
+            *fused._to(dev, widx, a_sig, warm))
+
+
 _NEW_ENTRIES = {
     "band_inline_hysteresis": (_band_inline_inputs, fused.band_inline_cuda,
                                fused.band_inline_plain,
@@ -175,6 +216,14 @@ _NEW_ENTRIES = {
                  fused.momentum_plain, {}),
     "donchian": (_donchian_inputs, fused.donchian_cuda,
                  fused.donchian_plain, {}),
+    "band_table_rsi": (_rsi_table_inputs, fused.band_table_cuda,
+                       fused.band_machine_plain,
+                       {"machine": "hysteresis", "z_exit": 0.0}),
+    "band_table_keltner": (_keltner_table_inputs, fused.band_table_cuda,
+                           fused.band_machine_plain,
+                           {"machine": "hysteresis", "z_exit": 0.0}),
+    "macd": (_macd_inputs, fused.macd_cuda, fused.macd_plain, {}),
+    "trix": (_trix_inputs, fused.trix_cuda, fused.trix_plain, {}),
 }
 
 
@@ -233,3 +282,37 @@ def test_new_wrappers_check_their_inputs(cuda):
     close, r, tr, lb, warm = _momentum_inputs(cuda, 2, 60, 1)
     with pytest.raises(ValueError, match="shape"):
         fused.momentum_cuda(close, r, tr, lb, warm[:1], cost=0.0, ppy=252)
+
+
+def test_ema_launch_counters_count_kernel_launches_only(cuda):
+    p = data.synthetic_ohlcv(2, 120, seed=2)
+    _kernels.reset_launch_counts()
+    for entry in ("macd", "trix"):
+        build, _, plain, _ = _NEW_ENTRIES[entry]
+        plain(*build(cuda, 2, 120, 2), cost=0.0, ppy=252)
+    assert sum(_kernels.LAUNCHES.values()) == 0
+    fused.fused_macd_sweep(p.close, [5.0], [20.0], [9.0], device="cuda")
+    fused.fused_trix_sweep(p.close, [8.0], [9.0], device="cuda")
+    fused.fused_rsi_sweep(p.close, [14.0], [20.0], device="cuda")
+    fused.fused_keltner_sweep(p.close, p.high, p.low, [20.0], [1.5],
+                              device="cuda")
+    torch.cuda.synchronize()
+    assert dict(_kernels.LAUNCHES) == {"macd": 1, "trix": 1,
+                                       "band_table": 2}
+
+
+def test_ema_wrappers_check_their_inputs(cuda):
+    tbl, r, tr, fidx, sidx, a_sig, warm = _macd_inputs(cuda, 2, 60, 1)
+    with pytest.raises(TypeError, match="float32"):
+        fused.macd_cuda(tbl, r, tr, fidx, sidx, a_sig.double(), warm,
+                        cost=0.0, ppy=252)
+    with pytest.raises(ValueError, match="shape"):
+        fused.macd_cuda(tbl, r, tr, fidx, sidx[:1], a_sig, warm, cost=0.0,
+                        ppy=252)
+    tbl, r, tr, widx, a_sig, warm = _trix_inputs(cuda, 2, 60, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused.trix_cuda(tbl.transpose(1, 2).contiguous().transpose(1, 2),
+                        r, tr, widx, a_sig, warm, cost=0.0, ppy=252)
+    with pytest.raises(ValueError, match="is on"):
+        fused.trix_cuda(tbl, r, tr, widx.cpu(), a_sig, warm, cost=0.0,
+                        ppy=252)
