@@ -17,33 +17,48 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    the 1000-combo stochastic %K table, each with both machines
    (hysteresis, touch); K3's momentum entry on 2000 lookback lanes and its
    donchian entry on the 1000-lane high/low breakout table; K4 (macd) and
-   K5 (trix) on their 1000-combo EMA tables. K2's table entry also runs
-   on the rsi and the keltner z-tables at 32 x 1260. Positions must be
-   identical, so n_trades and turnover (sums of small integers) must be
-   bit-equal; every other metric must agree at rtol=2e-4, atol=2e-5.
-   Kernel and plain times come from CUDA events after warmup.
+   K5 (trix) on their 1000-combo EMA tables; K6 (obv) on the 2000-lane
+   OBV grid; K7 (pairs) on 1000 pairs x 1260 bars x the 500-combo pairs
+   grid, its small cases on 32 pairs. K2's table entry also runs on the
+   rsi, keltner and vwap z-tables at 32 x 1260 and at 500 x 1260, where it
+   is timed too. Positions must be identical, so n_trades and turnover
+   (sums of small integers) must be bit-equal; every other metric must
+   agree at rtol=2e-4, atol=2e-5. Kernel and plain times come from CUDA
+   events after warmup.
 4. The main paths at full width, one per strategy: 500 synthetic tickers x
-   1260 daily bars as DBX1 payloads in 500 JobSpecs with the bench grid,
-   through ``TorchSweepBackend(device="cuda").process``. Every DBXM block
-   decodes to the grid size with finite sharpe, and the path's kernel
-   launch count, reset just before the run, grew. A 16-job batch then goes
+   1260 daily bars as DBX1 payloads in 500 JobSpecs with the bench grid
+   (for pairs 1000 two-legged JobSpecs, the legs from 2000 synthetic
+   tickers), through ``TorchSweepBackend(device="cuda").process``. Every
+   DBXM block decodes to the grid size with finite sharpe, and the path's
+   kernel launch count, reset just before the run, grew. A 16-job batch
+   then goes
    through the same backend and is held against the port's generic sweep
    (the golden path) on the card: for sma_crossover on a 1/32 price tick
    grid (exact f32 cumsums) at rtol=2e-4, atol=2e-5; for the exact-signal
    families (stochastic, momentum, donchian, donchian_hl) with identical
    positions (n_trades, turnover bit-equal); for bollinger and
    bollinger_touch under the flip rule of ``tests/torch_parity.py`` (the
-   centering mean and the cumsums run on tensors of other shapes there, so
-   a z-score at the band can round the other way); for rsi and keltner with
-   identical positions (both paths build their tables with the same ops);
-   for macd and trix under the reference's flip-aware budget (the kernels
-   carry the signal EMA sequentially, the generic path as a shift-doubling
-   ladder, so a crossing at a knife edge can land a bar apart: that moves
-   a trade by one bar, and sharpe by less than the flip rule's threshold).
-   There every cell off by more than rtol=2e-3, atol=2e-4 counts as
-   flipped, and at most max(1, 1%) may flip. The generic path sums equity
-   in another order, so for the new families cagr is held to the error its
-   final equity may carry (``_cagr_slack``).
+   centering mean and the cumsums run on tensors of other shapes there,
+   so a z-score at the band can round the other way; whether n_trades and
+   turnover came out bit-equal is printed); for rsi, keltner and obv_trend
+   with identical positions (both paths build their tables, or the OBV
+   and its cumsum, with the same ops on rows of one count); for macd and
+   trix under the reference's flip-aware budget (the kernels carry the
+   signal EMA sequentially, the generic path as a shift-doubling ladder,
+   so a crossing at a knife edge can land a bar apart: that moves a trade
+   by one bar, and sharpe by less than the flip rule's threshold), and for
+   vwap_reversion and pairs (against ``models.pairs.run_pairs_sweep``)
+   under the same budget, which is the reference's pairs budget
+   (``tests/test_fused.py`` ``_check_pairs``): the two paths take the
+   z-scores' cumsums over tensors of other row counts, which torch's CUDA
+   scan sums in other orders, and the windowed variance cancels, so a z at
+   the band can land a bar apart. There every cell off by more than
+   rtol=2e-3, atol=2e-4 counts as flipped, and at most max(1, 1%) may
+   flip. For vwap_reversion and pairs the golden path then runs again one
+   k (z_entry) at a time, so its tensors have the fused path's row count
+   and sum in its order: positions must then be identical. The generic
+   path sums equity in another order, so for the new families cagr is
+   held to the error its final equity may carry (``_cagr_slack``).
 5. One JSON line with each kernel entry's launches, error, times and bound;
    then the JSON result line, last.
 
@@ -58,6 +73,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -92,9 +108,15 @@ OPS_PER_SIGNAL_BAR = 6
 # z (three window sums, mean div, s1*s1, two divs by w, s2 sub, clamp,
 # sqrt, +eps, c-m, div = 13) and the machine (entry compares 2, state
 # compares 2 = 4); the table entry the machine only; momentum sub+sign;
-# the donchian latch two compares; macd and trix x - signal and its sign.
+# the donchian latch two compares; macd and trix x - signal and its sign;
+# from csrc/fused_sma.cu, obv - sma and its sign; pairs the machine, as the
+# table entry.
 OPS_SIGNAL = {"band_inline": 17, "band_table": 4, "momentum": 2,
-              "donchian": 2, "macd": 2, "trix": 2}
+              "donchian": 2, "macd": 2, "trix": 2, "obv": 2, "pairs": 4}
+# The SMA of the OBV (sub, div) is a function of (ticker, window, bar): the
+# function needs it once per distinct window past its warmup, though K6
+# forms it in every lane.
+OPS_OBV_SMA = 2
 # Per (combo, bar) below the ticker's length, beside the 20 of the metric
 # update, from csrc/ema_cross.cu: macd the row difference and the signal
 # EMA (sub, two muls, add = 4); trix the zero test of the previous value,
@@ -104,7 +126,7 @@ OPS_EACH_BAR = {"macd": 4, "trix": 6}
 # The bench grids of the other families (bench.py, configs
 # bollinger_fused, bollinger_touch_fused, stochastic_fused, momentum_fused,
 # donchian_fused, donchian_hl_fused, rsi_fused, keltner_fused, macd_fused,
-# trix_fused), as wire axes.
+# trix_fused, vwap_fused, obv_fused and pairs), as wire axes.
 BOLL_AXES = {"k": np.linspace(0.5, 3.0, 50).astype(np.float32),
              "window": np.arange(10, 50, 2, dtype=np.float32)}
 STOCH_AXES = {"band": np.linspace(10, 40, 8).astype(np.float32),
@@ -120,6 +142,12 @@ MACD_AXES = {"fast": np.arange(5, 15, dtype=np.float32),
              "signal": np.arange(5, 15, dtype=np.float32)}
 TRIX_AXES = {"span": np.arange(5, 15, dtype=np.float32),
              "signal": np.tile(np.arange(3, 13, dtype=np.float32), 10)}
+VWAP_AXES = {"k": np.linspace(0.5, 3.0, 50).astype(np.float32),
+             "window": np.arange(10, 50, 2, dtype=np.float32)}
+OBV_AXES = {"window": np.tile(np.arange(5, 130, dtype=np.float32), 16)}
+PAIRS_AXES = {"lookback": np.arange(20, 70, 5, dtype=np.float32),
+              "z_entry": np.linspace(0.5, 3.0, 50).astype(np.float32)}
+N_PAIRS = 1000
 # strategy -> (axes, kernel entry it launches, check against the golden
 # path: "exact" identical positions, "flip" the flip rule, "shift" the
 # flip-aware budget of a signal line that rounds in another order)
@@ -134,9 +162,20 @@ FAMILIES = {
     "keltner": (KELT_AXES, "band_table", "exact"),
     "macd": (MACD_AXES, "macd", "shift"),
     "trix": (TRIX_AXES, "trix", "shift"),
+    "obv_trend": (OBV_AXES, "obv", "exact"),
+    "vwap_reversion": (VWAP_AXES, "band_table", "shift"),
+    "pairs": (PAIRS_AXES, "pairs", "shift"),
 }
+# The "shift" families whose golden path takes the z-score's cumsums over
+# (tickers, combos, bars) tensors where the fused path takes them over
+# (tickers, distinct windows, bars): torch's CUDA scan splits a row over a
+# number of threads set by the row count, so the two sum in other orders.
+# Run one value of this axis at a time, the golden path's tensors have the
+# fused path's row count, and positions must then be identical.
+SAME_ORDER_AXIS = {"vwap_reversion": "k", "pairs": "z_entry"}
 # The reference's flip-aware budget for the "shift" families
-# (tests/test_fused.py `_macd_flip_aware_check`).
+# (tests/test_fused.py `_macd_flip_aware_check`, the tolerance of its pairs
+# budget `_check_pairs`).
 SHIFT_RTOL, SHIFT_ATOL = 2e-3, 2e-4
 PKG = "distributed_backtesting_exploration_tpu_torch"
 REF = "distributed_backtesting_exploration_tpu/ops/fused.py"
@@ -235,14 +274,22 @@ def _k1_compare(fused, label, inputs, cost):
     return _compare(fused, "k1", label, got, ref)
 
 
-def _bound(tr, warm, P, ops_bar, ops_signal, n_bytes) -> tuple[float, str]:
-    """Least time for the work: operations over the fp32 rate (every bar
-    below a ticker's length, plus the signal work on the bars past each
-    lane's warmup) against ``n_bytes`` over the memory rate."""
+def _signal_bars(tr, warm) -> float:
+    """Bars below each ticker's length at or past each lane's warmup - 1,
+    summed over (ticker, lane)."""
     trf = tr.double()[:, None]
     signal = (trf - (warm.double()[None, :] - 1)).clamp_min(0)
-    ops = float(ops_bar * trf.sum() * P
-                + ops_signal * torch.minimum(signal, trf).sum())
+    return float(torch.minimum(signal, trf).sum())
+
+
+def _bound(tr, warm, P, ops_bar, ops_signal, n_bytes,
+           extra_ops: float = 0.0) -> tuple[float, str]:
+    """Least time for the work: operations over the fp32 rate (every bar
+    below a ticker's length, plus the signal work on the bars past each
+    lane's warmup, plus ``extra_ops``) against ``n_bytes`` over the memory
+    rate."""
+    ops = float(ops_bar * tr.double().sum() * P
+                + ops_signal * _signal_bars(tr, warm) + extra_ops)
     t_ops, t_bytes = ops / PEAK_FP32_OPS, n_bytes / PEAK_HBM_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
@@ -393,9 +440,68 @@ def _trix_inputs(fused, pnl, panel, t_real):
             *fused._to(dev, widx, a_sig, warm))
 
 
-# Further inputs of an entry, run at 32 x 1260 beside its four cases.
-EXTRA_CASES = {"band_table": (("rsi z-table", _rsi_table_inputs),
-                              ("keltner z-table", _keltner_table_inputs))}
+def _volume(panel, dev):
+    return torch.as_tensor(panel.volume, device=dev).contiguous()
+
+
+def _vwap_table_inputs(fused, pnl, panel, t_real):
+    dev, close, _, _, tr, r = _common(fused, pnl, panel, t_real)
+    g = _flat_grid(VWAP_AXES)
+    windows, _, widx, warm = fused._window_setup(g["window"], "windows",
+                                                 -1.0, 1, 2.0)
+    z = fused.vwap_z_table(close, _volume(panel, dev), windows)
+    return (z, r, tr, *fused._to(dev, widx, g["k"], warm))
+
+
+def _obv_inputs(fused, pnl, panel, t_real):
+    dev, close, _, _, tr, r = _common(fused, pnl, panel, t_real)
+    _, win, _, warm = fused._window_setup(OBV_AXES["window"], "windows",
+                                          0.0, 1)
+    series = fused.rolling.obv_series(close, _volume(panel, dev))
+    return (series.contiguous(), torch.cumsum(series, 1).contiguous(), r,
+            tr, *fused._to(dev, win, warm))
+
+
+def _pairs_inputs(fused, pnl, legs, t_real):
+    dev = torch.device("cuda")
+    y, x = (torch.as_tensor(c, device=dev).contiguous() for c in legs)
+    g = _flat_grid(PAIRS_AXES)
+    windows, widx, k, zx, warm = fused._pairs_grid_setup(
+        g["lookback"], g["z_entry"], 0.0)
+    z, hr = fused.pairs_tables(y, x, windows)
+    tr = fused._check_t_real(t_real, *y.shape)
+    return (z, hr, *fused._to(dev, tr, widx, k, zx, warm))
+
+
+def _pairs_legs(data, n_pairs, n_bars, seed):
+    closes = data.synthetic_ohlcv(2 * n_pairs, n_bars, seed=seed)
+    return (data.OHLCV(*(f[:n_pairs] for f in closes)),
+            data.OHLCV(*(f[n_pairs:] for f in closes)))
+
+
+def _pairs_cases(data):
+    """K7's four cases, on (y, x) close legs: the main path's 1000 pairs,
+    and 32 of them at cost 0, ragged (both legs of a pair padded alike)
+    and at T=251."""
+    y, x = (leg.close for leg in _pairs_legs(data, N_PAIRS, N_BARS, 1))
+    sy, sx = y[:32], x[:32]
+    lens = np.random.default_rng(1).integers(200, N_BARS + 1, 32)
+    ry, rx = sy.copy(), sx.copy()
+    for leg in (ry, rx):
+        for i, n in enumerate(lens):
+            leg[i, n:] = leg[i, n - 1]
+    short = (leg.close for leg in _pairs_legs(data, 32, 251, 3))
+    return [(f"headline {N_PAIRS}x{N_BARS}", (y, x), None, COST),
+            (f"32x{N_BARS} cost=0", (sy, sx), None, 0.0),
+            (f"ragged 32x{N_BARS}", (ry, rx), lens, COST),
+            ("32x251", tuple(short), None, COST)]
+
+
+# Further tables of an entry, each run at 32 x 1260 and at the main path's
+# 500 x 1260 (compared, and timed on the machine its strategy uses).
+EXTRA_CASES = {"band_table": (("rsi", _rsi_table_inputs),
+                              ("keltner", _keltner_table_inputs),
+                              ("vwap", _vwap_table_inputs))}
 
 
 def _entry_bytes(inputs) -> int:
@@ -407,115 +513,196 @@ def _entry_bytes(inputs) -> int:
     return n_in + 4 * 9 * N * P
 
 
-# entry -> (tag, TPU kernel line, source, function making the inputs,
-#           position of t_real in the inputs, kernel, plain, machines)
+class Entry(NamedTuple):
+    """One kernel entry of phase 3: its tag, the TPU kernel's line, its
+    source, the function making its inputs, the position of t_real in
+    them, the kernel and plain versions, the machines it runs, and its
+    cases (None: the shared ones of 500 tickers)."""
+
+    tag: str
+    line: int
+    src: str
+    build: Callable
+    tr_at: int
+    kernel: Callable
+    plain: Callable
+    machines: tuple
+    cases: Callable | None = None
+
+
 def _entries(fused):
     return {
-        "band_inline": ("k2", 1166, "band_machine.cu", _band_inline_inputs,
-                        5, fused.band_inline_cuda, fused.band_inline_plain,
-                        ("hysteresis", "touch")),
-        "band_table": ("k2", 1166, "band_machine.cu", _band_table_inputs, 2,
-                       fused.band_table_cuda, fused.band_machine_plain,
-                       ("hysteresis", "touch")),
-        "momentum": ("k3", 1933, "single_window.cu", _momentum_inputs, 2,
-                     fused.momentum_cuda, fused.momentum_plain, (None,)),
-        "donchian": ("k3", 1933, "single_window.cu", _donchian_inputs, 2,
-                     fused.donchian_cuda, fused.donchian_plain, (None,)),
-        "macd": ("k4", 2661, "ema_cross.cu", _macd_inputs, 2,
-                 fused.macd_cuda, fused.macd_plain, (None,)),
-        "trix": ("k5", 3009, "ema_cross.cu", _trix_inputs, 2,
-                 fused.trix_cuda, fused.trix_plain, (None,)),
+        "band_inline": Entry("k2", 1166, "band_machine.cu",
+                             _band_inline_inputs, 5, fused.band_inline_cuda,
+                             fused.band_inline_plain,
+                             ("hysteresis", "touch")),
+        "band_table": Entry("k2", 1166, "band_machine.cu",
+                            _band_table_inputs, 2, fused.band_table_cuda,
+                            fused.band_machine_plain,
+                            ("hysteresis", "touch")),
+        "momentum": Entry("k3", 1933, "single_window.cu", _momentum_inputs,
+                          2, fused.momentum_cuda, fused.momentum_plain,
+                          (None,)),
+        "donchian": Entry("k3", 1933, "single_window.cu", _donchian_inputs,
+                          2, fused.donchian_cuda, fused.donchian_plain,
+                          (None,)),
+        "macd": Entry("k4", 2661, "ema_cross.cu", _macd_inputs, 2,
+                      fused.macd_cuda, fused.macd_plain, (None,)),
+        "trix": Entry("k5", 3009, "ema_cross.cu", _trix_inputs, 2,
+                      fused.trix_cuda, fused.trix_plain, (None,)),
+        "obv": Entry("k6", 2841, "fused_sma.cu", _obv_inputs, 3,
+                     fused.obv_cuda, fused.obv_plain, (None,)),
+        "pairs": Entry("k7", 1482, "band_machine.cu", _pairs_inputs, 2,
+                       fused.pairs_cuda, fused.pairs_plain, (None,),
+                       _pairs_cases),
     }
 
 
+def _kw(machine, cost):
+    kw = {"cost": cost, "ppy": 252}
+    if machine is not None:
+        kw.update(machine=machine, z_exit=0.0)
+    return kw
+
+
+def _entry_bound(entry, e: Entry, inputs):
+    tr, warm = inputs[e.tr_at], inputs[-1]
+    extra = 0.0
+    if entry == "obv":
+        # warm = window: the SMA of each distinct window from bar w - 1.
+        extra = OPS_OBV_SMA * _signal_bars(tr, torch.unique(warm))
+    return _bound(tr, warm, warm.shape[0],
+                  OPS_PER_BAR + OPS_EACH_BAR.get(entry, 0),
+                  OPS_SIGNAL[entry], _entry_bytes(inputs), extra)
+
+
 def phase_new_kernels(fused, pnl, data) -> dict:
-    """K2-K5, every entry and machine, against their plain versions in the
-    four cases (and K2's table entry on the rsi and keltner z-tables);
-    times and bound at the headline shape. Returns one kernels-line record
-    per entry."""
+    """K2-K7, every entry and machine, against their plain versions in the
+    four cases (and K2's table entry on the rsi, keltner and vwap
+    z-tables); times and bound at the main path's shape, the first case.
+    Returns one kernels-line record per entry."""
     head = data.synthetic_ohlcv(N_TICKERS, N_BARS, seed=0)
-    cases = [(f"headline {N_TICKERS}x{N_BARS}", head, None, COST)] + _small_cases(
-        data, head)
+    shared = [(f"headline {N_TICKERS}x{N_BARS}", head, None, COST)] + \
+        _small_cases(data, head)
     small = data.OHLCV(*(f[:32] for f in head))
     out = {}
-    for entry, (tag, line, src, build, tr_at, kernel, plain, machines) in \
-            _entries(fused).items():
+    for entry, e in _entries(fused).items():
         errs = []
         timing = {}
-        runs = [(label, build, panel, t_real, cost)
-                for label, panel, t_real, cost in cases]
-        runs += [(f"{what} 32x{N_BARS}", extra, small, None, COST)
-                 for what, extra in EXTRA_CASES.get(entry, ())]
-        for label, make, panel, t_real, cost in runs:
+        runs = [(label, e.build, panel, t_real, cost) for label, panel,
+                t_real, cost in (e.cases(data) if e.cases else shared)]
+        for what, extra in EXTRA_CASES.get(entry, ()):
+            runs += [(f"{what} z-table 32x{N_BARS}", extra, small, None,
+                      COST),
+                     (f"{what} z-table {N_TICKERS}x{N_BARS}", extra, head,
+                      None, COST)]
+        tables = {}
+        for i, (label, make, panel, t_real, cost) in enumerate(runs):
             inputs = make(fused, pnl, panel, t_real)
-            for machine in machines:
-                kw = {"cost": cost, "ppy": 252}
-                if machine is not None:
-                    kw.update(machine=machine, z_exit=0.0)
+            for machine in e.machines:
+                kw = _kw(machine, cost)
                 name = f"{entry}" + (f" {machine}" if machine else "")
-                errs.append(_compare(fused, tag, f"{name} {label}",
-                                     kernel(*inputs, **kw),
-                                     plain(*inputs, **kw)))
-                if label.startswith("headline"):
-                    ms = _cuda_ms(lambda: kernel(*inputs, **kw), reps=20,
+                errs.append(_compare(fused, e.tag, f"{name} {label}",
+                                     e.kernel(*inputs, **kw),
+                                     e.plain(*inputs, **kw)))
+                if i == 0:
+                    ms = _cuda_ms(lambda: e.kernel(*inputs, **kw), reps=20,
                                   warmup=2)
-                    plain_ms = _cuda_ms(lambda: plain(*inputs, **kw),
+                    plain_ms = _cuda_ms(lambda: e.plain(*inputs, **kw),
                                         reps=2, warmup=1)
-                    bound = _bound(inputs[tr_at], inputs[-1],
-                                   inputs[-1].shape[0],
-                                   OPS_PER_BAR + OPS_EACH_BAR.get(entry, 0),
-                                   OPS_SIGNAL[entry],
-                                   _entry_bytes(inputs))
+                    bound = _entry_bound(entry, e, inputs)
                     timing[machine] = (ms, plain_ms, bound)
-                    print(f"{tag} {name} headline: kernel {ms:.4f} ms, "
+                    print(f"{e.tag} {name} headline: kernel {ms:.4f} ms, "
                           f"plain {plain_ms:.4f} ms, bound {bound[0]:.4f} "
                           f"ms ({bound[1]})")
-        ms, plain_ms, bound = timing[machines[0]]
+            if i > 0 and label.endswith(f"{N_TICKERS}x{N_BARS}"):
+                # Another main path's table: timed on its machine.
+                kw = _kw(e.machines[0], cost)
+                ms = _cuda_ms(lambda: e.kernel(*inputs, **kw), reps=20,
+                              warmup=2)
+                bound = _entry_bound(entry, e, inputs)
+                what = label.split(" z-table")[0]
+                tables[what] = {"ms": ms, "bound_ms": bound[0],
+                                "bound_by": bound[1]}
+                print(f"{e.tag} {entry} {e.machines[0]} {label}: kernel "
+                      f"{ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+        ms, plain_ms, bound = timing[e.machines[0]]
         out[entry] = {
             "name": entry, "route": "cuda",
-            "source": f"{PKG}/csrc/{src}", "replaces": f"{REF}:{line}",
-            "max_abs_err": max(e[0] for e in errs),
-            "max_rel_err": max(e[1] for e in errs),
+            "source": f"{PKG}/csrc/{e.src}", "replaces": f"{REF}:{e.line}",
+            "max_abs_err": max(err[0] for err in errs),
+            "max_rel_err": max(err[1] for err in errs),
             "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
-        if machines[0] is not None:
-            out[entry]["machine_timed"] = machines[0]
+        if e.machines[0] is not None:
+            out[entry]["machine_timed"] = e.machines[0]
             out[entry]["touch_ms"] = timing["touch"][0]
+        if tables:
+            out[entry]["other_tables"] = tables
     return out
 
 
 # --- the main paths -------------------------------------------------------
 
-def _jobs(pb, data, panel, strategy, axes, cost=COST):
+def _jobs(pb, data, strategy, axes, panels, cost=COST):
+    """One JobSpec per row of ``panels``: an OHLCV panel, and for pairs
+    the second leg's panel too (``ohlcv2``)."""
     grid = {k: pb.GridAxis(values=[float(v) for v in vals])
             for k, vals in axes.items()}
+    legs = ("ohlcv", "ohlcv2")
     return [pb.JobSpec(
-        id=f"{strategy}-{i:04d}", strategy=strategy,
-        ohlcv=data.to_wire_bytes(data.OHLCV(*(f[i] for f in panel))),
-        grid=grid, cost=cost, periods_per_year=252)
-        for i in range(panel.close.shape[0])]
+        id=f"{strategy}-{i:04d}", strategy=strategy, grid=grid, cost=cost,
+        periods_per_year=252,
+        **{leg: data.to_wire_bytes(data.OHLCV(*(f[i] for f in panel)))
+           for leg, panel in zip(legs, panels)})
+        for i in range(panels[0].close.shape[0])]
 
 
 def _jobs_from_panel(pb, data, panel):
-    return _jobs(pb, data, panel, "sma_crossover",
-                 {"fast": FAST_AXIS, "slow": SLOW_AXIS})
+    return _jobs(pb, data, "sma_crossover",
+                 {"fast": FAST_AXIS, "slow": SLOW_AXIS}, (panel,))
 
 
-def _main_path_stages(jobs, data, wire, compute, strategy, axes) -> None:
-    """One batch's host stages timed apart, in the backend's order: DBX1
-    decode, stacking, the fused sweep with its host<->device copies and
-    torch prep, and DBXM packing."""
+def _panels(data, strategy, n, seed):
+    """The panels of ``n`` jobs: one synthetic OHLCV panel, or for pairs
+    the (y, x) legs from ``2 n`` synthetic tickers."""
+    if strategy == "pairs":
+        return _pairs_legs(data, n, N_BARS, seed)
+    return (data.synthetic_ohlcv(n, N_BARS, seed=seed),)
+
+
+def _route(compute, fused, strategy, axes):
+    """The backend's fused route of ``strategy`` as (stack, run): stack
+    the decoded legs of a batch's jobs into the sweep's inputs, and run the
+    fused sweep on the card."""
+    g = _flat_grid(axes)
+    if strategy == "pairs":
+        def stack(legs):
+            return [np.stack([job[i].close for job in legs]) for i in (0, 1)]
+
+        def run(yx):
+            return fused.fused_pairs_sweep(*yx, g["lookback"], g["z_entry"],
+                                           cost=COST, device="cuda")
+        return stack, run
     spec = compute._FUSED_STRATEGIES[strategy]
+    return (lambda legs: {f: np.stack([getattr(job[0], f) for job in legs])
+                          for f in spec.fields},
+            lambda fields: spec.run(fields, g, cost=COST,
+                                    periods_per_year=252, device="cuda"))
+
+
+def _main_path_stages(jobs, data, wire, compute, strategy, stack,
+                      run) -> None:
+    """One batch's host stages timed apart, in the backend's order: DBX1
+    decode of every leg, stacking (``stack``), the fused sweep with its
+    host<->device copies and torch prep (``run``), and DBXM packing."""
     t = [time.perf_counter()]
-    series = [data.from_wire_bytes(j.ohlcv) for j in jobs]
+    legs = [[data.from_wire_bytes(b) for b in (j.ohlcv, j.ohlcv2) if b]
+            for j in jobs]
     t.append(time.perf_counter())
-    fields = {f: np.stack([getattr(s, f) for s in series])
-              for f in spec.fields}
-    grid = _flat_grid(axes)
+    inputs = stack(legs)
     t.append(time.perf_counter())
-    m = spec.run(fields, grid, cost=COST, periods_per_year=252,
-                 device="cuda")
-    host = torch.stack(list(m)).cpu().numpy()
+    host = torch.stack(list(run(inputs))).cpu().numpy()
     t.append(time.perf_counter())
     for i in range(len(jobs)):
         wire.metrics_to_bytes(compute.Metrics(*host[:, i]))
@@ -600,7 +787,8 @@ def phase_main_path(kernels_mod, compute, wire, pb, data, sweep, models,
 
     _repeat(backend, jobs, n_combos, "sma_crossover", batch_s, 10)
     _main_path_stages(jobs, data, wire, compute, "sma_crossover",
-                      {"fast": FAST_AXIS, "slow": SLOW_AXIS})
+                      *_route(compute, fused, "sma_crossover",
+                              {"fast": FAST_AXIS, "slow": SLOW_AXIS}))
     return launches
 
 
@@ -660,39 +848,85 @@ def _golden_check(label, got, gold, check: str) -> int:
     return n_flips
 
 
+def _report_golden(label, got, gold, check, n_combos) -> None:
+    n_flips = _golden_check(label, got, gold, check)
+    rule = {"exact": "identical positions", "flip": "flip rule",
+            "shift": "flip-aware budget"}[check]
+    same = all(np.array_equal(got[name], getattr(gold, name).cpu().numpy())
+               for name in ("n_trades", "turnover"))
+    print(f"{label} main path vs golden path: 16 jobs x {n_combos} combos "
+          f"agree ({rule}, {n_flips} flipped cells; n_trades and turnover "
+          f"bit-equal: {same})")
+
+
+def _gold(sweep, models, strategy, panels, grid):
+    """The golden path: the port's generic sweep (for pairs
+    ``models.pairs.run_pairs_sweep``) on the card."""
+    if strategy == "pairs":
+        y, x = panels
+        return models.pairs.run_pairs_sweep(y.close, x.close, grid,
+                                            cost=COST, device="cuda")
+    return sweep.run_sweep(panels[0], models.get_strategy(strategy), grid,
+                           cost=COST, device="cuda")
+
+
+def _gold_same_order(sweep, models, strategy, panels, axes, fields):
+    """The golden path run one value of ``SAME_ORDER_AXIS[strategy]`` at a
+    time, put back in the grid's order: its (tickers, combos, bars) tensors
+    then have the fused path's row count, so torch sums their rows in the
+    fused path's order."""
+    flat = _flat_grid(axes)
+    split = flat[SAME_ORDER_AXIS[strategy]]
+    n = panels[0].close.shape[0]
+    out = {name: np.empty((n, split.size), np.float32) for name in fields}
+    for v in np.unique(split):
+        sel = split == v
+        m = _gold(sweep, models, strategy, panels,
+                  {k: a[sel] for k, a in flat.items()})
+        for name in fields:
+            out[name][:, sel] = getattr(m, name).cpu().numpy()
+    return out
+
+
 def phase_new_main_paths(kernels_mod, compute, wire, pb, data, sweep,
-                         models) -> dict:
+                         models, fused) -> dict:
     """The main paths of the strategies of ``FAMILIES``; returns the
     launches per kernel entry summed over their runs."""
     backend = compute.TorchSweepBackend(device="cuda")
     total: dict = {}
     for seed, (strategy, (axes, entry, check)) in enumerate(
             FAMILIES.items(), start=20):
-        panel = data.synthetic_ohlcv(N_TICKERS, N_BARS, seed=seed)
-        jobs = _jobs(pb, data, panel, strategy, axes)
+        # pairs: bench.py's legs, synthetic_ohlcv(2000, 1260, seed=1).
+        n_jobs, main_seed = ((N_PAIRS, 1) if strategy == "pairs"
+                             else (N_TICKERS, seed))
+        jobs = _jobs(pb, data, strategy, axes,
+                     _panels(data, strategy, n_jobs, main_seed))
         n_combos = int(np.prod([v.size for v in axes.values()]))
         launches, batch_s = _drive(kernels_mod, backend, wire, jobs,
                                    n_combos, entry, strategy)
         for name, n in launches.items():
             total[name] = total.get(name, 0) + n
 
-        small = data.synthetic_ohlcv(16, N_BARS, seed=seed + 100)
-        gjobs = _jobs(pb, data, small, strategy, axes)
+        small = _panels(data, strategy, 16, seed + 100)
+        gjobs = _jobs(pb, data, strategy, axes, small)
         gdone = {c.job_id: wire.metrics_from_bytes(c.metrics)
                  for c in backend.process(gjobs)}
         got = {name: np.stack([getattr(gdone[j.id], name) for j in gjobs])
                for name in compute.Metrics._fields}
         grid = sweep.product_grid(**{k: axes[k] for k in sorted(axes)})
-        gold = sweep.run_sweep(small, models.get_strategy(strategy), grid,
-                               cost=COST, device="cuda")
-        n_flips = _golden_check(strategy, got, gold, check)
-        rule = {"exact": "identical positions", "flip": "flip rule",
-                "shift": "flip-aware budget"}[check]
-        print(f"{strategy} main path vs golden path: 16 jobs x {n_combos} "
-              f"combos agree ({rule}, {n_flips} flipped cells)")
+        gold = _gold(sweep, models, strategy, small, grid)
+        _report_golden(strategy, got, gold, check, n_combos)
+        if strategy in SAME_ORDER_AXIS:
+            same = _gold_same_order(sweep, models, strategy, small, axes,
+                                    gold._fields)
+            _report_golden(f"{strategy} (golden path in the fused path's "
+                           "cumsum order)", got, gold._make(
+                               torch.from_numpy(same[name])
+                               for name in gold._fields), "exact", n_combos)
 
         _repeat(backend, jobs, n_combos, strategy, batch_s, 5)
-        _main_path_stages(jobs, data, wire, compute, strategy, axes)
+        _main_path_stages(jobs, data, wire, compute, strategy,
+                          *_route(compute, fused, strategy, axes))
     return total
 
 
@@ -713,7 +947,7 @@ def main() -> None:
                                models, fused)
     k1["launches"] = launches.get("fused_sma", 0)
     new_launches = phase_new_main_paths(_kernels, compute, wire, pb, data,
-                                        sweep, models)
+                                        sweep, models, fused)
     for entry, rec in new.items():
         rec["launches"] = new_launches.get(entry, 0)
         _check(rec["launches"] > 0, f"{entry} launched no time on the main "

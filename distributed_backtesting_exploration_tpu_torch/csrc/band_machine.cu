@@ -1,4 +1,5 @@
-// Band-machine sweeps for Hopper (sm_90a): K2 of the port.
+// Band-machine sweeps for Hopper (sm_90a): K2 of the port, and K7, the
+// pairs sweep, which runs the same hysteresis machine.
 //
 // Replaces the TPU kernel of the reference package,
 // distributed_backtesting_exploration_tpu/ops/fused.py: `_band_machine_pallas`
@@ -45,6 +46,19 @@
 // (PERF.md, section 6). Staging a CTA's z rows, or giving a CTA one window,
 // is a later speed step (ROADMAP.md, Queue 2), as is sharing the inline z
 // across the lanes of one window.
+//
+// K7 (dbx_pairs) replaces the reference's `_fused_pairs_call` with its body
+// `_pairs_kernel`: one one-hot selection of a stacked (z, hedged return)
+// table row per lane, the band ladder with per-lane z_entry and z_exit,
+// net = prev * hr - cost * |dpos| and `_metrics_pack`. Here each thread
+// reads its lane's rows of two torch-built (N, W, T) tables (the spread
+// z-score and the hedged spread return, 50 MB each at 1000 pairs x 10
+// lookbacks x 1260 bars), steps band_next<kHysteresis> with its own k and
+// z_exit, and passes hr[t] to MetricsAcc::step in place of the ticker's
+// return, which is exactly the reference's net. The pairs grid runs
+// lookback-major, so a warp's 32 lanes read one or two rows a bar: loads
+// coalesce into a few sectors and the kernel is bound by its ~24 fp32
+// operations a (combo, bar), not by the 100 MB of tables.
 //
 // Built without fast math and with -fmad=false: divisions and sqrtf are
 // IEEE round-to-nearest and nothing is contracted, so z equals the torch
@@ -161,6 +175,31 @@ __global__ void __launch_bounds__(kThreads) band_table_kernel(
   acc.store(out, n, p, N, P, tr, ppy);
 }
 
+__global__ void __launch_bounds__(kThreads) pairs_kernel(
+    const float* __restrict__ z, const float* __restrict__ hr,
+    const int* __restrict__ t_real, const int* __restrict__ widx,
+    const float* __restrict__ k, const float* __restrict__ z_exit,
+    const int* __restrict__ warm, float* __restrict__ out, int N, int T,
+    int W, int P, float cost, float ppy) {
+  const int n = blockIdx.x;
+  const int p = blockIdx.y * kThreads + threadIdx.x;
+  if (p >= P) return;
+  const int tr = min(max(t_real[n], 0), T);
+  const size_t row = (static_cast<size_t>(n) * W + widx[p]) * T;
+  const float* z_row = z + row;
+  const float* hr_row = hr + row;
+  const float kk = k[p];
+  const float zx = z_exit[p];
+  const int t_on = warm[p] - 1;
+  dbx::MetricsAcc acc;
+  for (int t = 0; t < tr; ++t) {
+    float pos = 0.f;
+    if (t >= t_on) pos = band_next<kHysteresis>(acc.prev, z_row[t], kk, zx);
+    acc.step(pos, hr_row[t], cost);
+  }
+  acc.store(out, n, p, N, P, tr, ppy);
+}
+
 template <int kMachine>
 int launch_inline(const float* close, const float* cs, const float* csx,
                   const float* csx2, const float* r, const int* t_real,
@@ -256,4 +295,23 @@ extern "C" int dbx_band_table(const void* z, const void* r,
                 static_cast<const int*>(warm), static_cast<float*>(out), N, T,
                 W, P, z_exit, cost, static_cast<float>(ppy),
                 static_cast<cudaStream_t>(stream));
+}
+
+// dbx_pairs (K7): z, hr: (N, W, T) f32 spread z-table (0 before each
+// lookback's warmup) and hedged-return table; t_real: (N,) i32; widx: (P,)
+// i32 row of each lane; k, z_exit: (P,) f32 entry and exit bands; warm: (P,)
+// i32 (truncated 2 * lookback - 1).
+extern "C" int dbx_pairs(const void* z, const void* hr, const void* t_real,
+                         const void* widx, const void* k, const void* z_exit,
+                         const void* warm, void* out, int N, int T, int W,
+                         int P, float cost, int ppy, void* stream) {
+  if (N <= 0 || P <= 0) return static_cast<int>(cudaSuccess);
+  const dim3 grid(N, (P + kThreads - 1) / kThreads);
+  pairs_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(z), static_cast<const float*>(hr),
+      static_cast<const int*>(t_real), static_cast<const int*>(widx),
+      static_cast<const float*>(k), static_cast<const float*>(z_exit),
+      static_cast<const int*>(warm), static_cast<float*>(out), N, T, W, P,
+      cost, static_cast<float>(ppy));
+  return static_cast<int>(cudaGetLastError());
 }

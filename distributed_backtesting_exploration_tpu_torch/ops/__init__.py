@@ -1,5 +1,5 @@
 """Compute ops: rolling indicators, signal machines, the PnL engine,
-performance metrics and the fused sweeps (K1-K5). Time is always the last
+performance metrics and the fused sweeps (K1-K7). Time is always the last
 axis."""
 
 from .rolling import rolling_sum, rolling_mean, valid_mask  # noqa: F401
@@ -19,8 +19,11 @@ from .fused import (  # noqa: F401
     fused_keltner_sweep,
     fused_macd_sweep,
     fused_momentum_sweep,
+    fused_obv_sweep,
+    fused_pairs_sweep,
     fused_rsi_sweep,
     fused_sma_sweep,
     fused_stochastic_sweep,
     fused_trix_sweep,
+    fused_vwap_sweep,
 )

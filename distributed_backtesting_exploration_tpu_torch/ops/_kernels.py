@@ -103,10 +103,12 @@ _VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "fused_sma": {
         "dbx_fused_sma": [_VP] * 7 + [_CI] * 3 + [_CF, _CI, _VP],
+        "dbx_obv": [_VP] * 7 + [_CI] * 3 + [_CF, _CI, _VP],
     },
     "band_machine": {
         "dbx_band_inline": [_VP] * 10 + [_CI] * 4 + [_CF, _CF, _CI, _VP],
         "dbx_band_table": [_VP] * 7 + [_CI] * 5 + [_CF, _CF, _CI, _VP],
+        "dbx_pairs": [_VP] * 8 + [_CI] * 4 + [_CF, _CI, _VP],
     },
     "single_window": {
         "dbx_momentum": [_VP] * 6 + [_CI] * 3 + [_CF, _CI, _VP],
@@ -130,13 +132,14 @@ def _typed(name: str) -> ctypes.CDLL:
 
 
 def fused_sma_lib() -> ctypes.CDLL:
-    """K1's library (``csrc/fused_sma.cu``) with its C signature declared."""
+    """K1's and K6's library (``csrc/fused_sma.cu``): ``dbx_fused_sma`` and
+    ``dbx_obv``."""
     return _typed("fused_sma")
 
 
 def band_machine_lib() -> ctypes.CDLL:
-    """K2's library (``csrc/band_machine.cu``): ``dbx_band_inline`` and
-    ``dbx_band_table``."""
+    """K2's and K7's library (``csrc/band_machine.cu``):
+    ``dbx_band_inline``, ``dbx_band_table`` and ``dbx_pairs``."""
     return _typed("band_machine")
 
 

@@ -1,11 +1,11 @@
-"""Fused parameter sweeps: K1-K5 of the port (reference ``ops/fused.py``).
+"""Fused parameter sweeps: K1-K7 of the port (reference ``ops/fused.py``).
 
 Each ``fused_*_sweep`` computes the 9 metrics of every (ticker, combo)
 backtest of one strategy's grid and returns them as :class:`Metrics` of
 ``(N, P)`` fields, like the reference's wrapper of the same name. It
 prepares the inputs host-side and with plain torch ops (distinct windows,
-cumsums, returns, the z-, breakout-sign or EMA tables) and hands them to
-one kernel entry:
+cumsums, returns, OBV, the z-, breakout-sign, EMA or pairs tables) and
+hands them to one kernel entry:
 
 ==============================  ========================  ===================
 sweep                           entry                     kernel source
@@ -18,9 +18,12 @@ sweep                           entry                     kernel source
 ``fused_donchian_sweep``,       :func:`donchian`          ``single_window.cu``
 ``fused_donchian_hl_sweep``
 ``fused_rsi_sweep``,            :func:`band_table`        ``band_machine.cu``
-``fused_keltner_sweep``
+``fused_keltner_sweep``,
+``fused_vwap_sweep``
 ``fused_macd_sweep``            :func:`macd`              ``ema_cross.cu``
 ``fused_trix_sweep``            :func:`trix`              ``ema_cross.cu``
+``fused_obv_sweep``             :func:`obv`               ``fused_sma.cu``
+``fused_pairs_sweep``           :func:`pairs`             ``band_machine.cu``
 ==============================  ========================  ===================
 
 Each entry dispatches on its inputs' device: on a CUDA tensor its
@@ -127,19 +130,21 @@ def _grid_setup(fast, slow):
     return fast_w, slow_w, warm
 
 
-def _window_setup(vals, what: str, warm_offset: float, min_window: int):
+def _window_setup(vals, what: str, warm_offset: float, min_window: int,
+                  warm_scale: float = 1.0):
     """Distinct windows and per-lane window, row and warmup of one window
     axis (the reference's ``_boll_grid_setup`` / ``_single_window_grid_setup``
-    without the one-hot): warmup ``value + warm_offset`` in f32, truncated
-    to an integer. Returns ``(windows, win, widx, warm)``: the sorted
-    distinct windows, then ``(P,)`` int32 arrays."""
+    without the one-hot): warmup ``warm_scale * value + warm_offset`` in
+    f32, truncated to an integer. Returns ``(windows, win, widx, warm)``:
+    the sorted distinct windows, then ``(P,)`` int32 arrays."""
     windows = _distinct_windows(vals, what)
     if windows.size and windows[0] < min_window:
         raise ValueError(f"fused sweep {what} must be at least {min_window} "
                          f"bar(s); got {windows[0]:g}")
     rounded = np.round(vals).astype(np.float32)
     widx = np.searchsorted(windows, rounded).astype(np.int32)
-    warm = (vals + np.float32(warm_offset)).astype(np.int32)
+    warm = (np.float32(warm_scale) * vals
+            + np.float32(warm_offset)).astype(np.int32)
     return windows, rounded.astype(np.int32), widx, warm
 
 
@@ -298,15 +303,29 @@ def _shift_t(x: torch.Tensor, s: int, fill: float) -> torch.Tensor:
 
 
 def _lagged_window_sum(c: torch.Tensor, windows: torch.Tensor) -> torch.Tensor:
-    """``c[:, t] - c[:, t - w]`` for every window, ``c[:, t - w] = 0`` for
-    ``t < w``: ``(N, T)`` rows -> ``(N, W, T)``, the kernels' op order."""
-    N, T = c.shape
-    W = windows.shape[0]
+    """``c[..., t] - c[..., t - w]`` for every window, ``c[..., t - w] = 0``
+    for ``t < w`` (the kernels' op order, and the reference's
+    ``_cumsum_window_tools``): ``(N, T)`` cumsum rows give ``(N, W, T)``,
+    one row per window; ``(N, W, T)`` rows take window ``w`` on row ``w``."""
+    if c.ndim == 2:
+        c = c[:, None, :].expand(c.shape[0], windows.shape[0], c.shape[1])
+    N, W, T = c.shape
     lag_idx = torch.arange(T, device=c.device)[None, :] - windows[:, None]
-    lag = torch.gather(c[:, None, :].expand(N, W, T), -1,
-                       lag_idx.clamp_min(0).expand(N, -1, -1))
+    lag = torch.gather(c, -1, lag_idx.clamp_min(0).expand(N, -1, -1))
     lag = torch.where(lag_idx >= 0, lag, torch.zeros_like(lag))
-    return c[:, None, :] - lag
+    return c - lag
+
+
+def _sma_rows(cs: torch.Tensor, windows: torch.Tensor) -> torch.Tensor:
+    """The distinct-window SMA table of the ``(N, T)`` cumsum ``cs`` with
+    the reference's ``_sma_table`` op sequence, ``(cs[t] - cs[t-w]) /
+    float(w)``, 0 for ``t < w - 1``, laid out ``(T, N, W)`` for a bar-by-bar
+    pass."""
+    t = torch.arange(cs.shape[1], device=cs.device)
+    table = _lagged_window_sum(cs, windows) / windows.to(cs.dtype)[:, None]
+    table = torch.where(t[None, :] >= windows[:, None] - 1, table,
+                        torch.zeros_like(table))
+    return table.permute(2, 0, 1).contiguous()
 
 
 # --- K1: SMA crossover ----------------------------------------------------
@@ -322,16 +341,10 @@ def fused_sma_plain(cs, r, t_real, fast, slow, warm, *, cost: float,
     """
     N, T = cs.shape
     P = fast.shape[0]
-    t = torch.arange(T, device=cs.device)
-    # Distinct-window SMA table with the reference's op sequence:
-    # (cs[t] - cs[t-w]) / float(w), cs[t-w] = 0 for t < w, 0 for t < w-1.
     windows, inv = torch.unique(torch.cat([fast, slow]).long(),
                                 return_inverse=True)
     fi, si = inv[:P], inv[P:]
-    table = _lagged_window_sum(cs, windows) / windows.to(cs.dtype)[:, None]
-    table = torch.where(t[None, :] >= windows[:, None] - 1, table,
-                        torch.zeros_like(table))
-    table = table.permute(2, 0, 1).contiguous()                 # (T, N, W)
+    table = _sma_rows(cs, windows)                              # (T, N, W)
 
     st = _MetricState(t_real, P)
     t_on = (warm.long() - 1)[None, :]                           # (1, P)
@@ -374,6 +387,53 @@ def fused_sma(cs, r, t_real, fast, slow, warm, *, cost: float,
     return fn(cs, r, t_real, fast, slow, warm, cost=cost, ppy=ppy)
 
 
+# --- K6: OBV trend (obv_trend) --------------------------------------------
+
+def obv_plain(obv, cs, r, t_real, window, warm, *, cost: float,
+              ppy: int) -> torch.Tensor:
+    """Plain PyTorch version of K6 (``dbx_obv``): ``pos = sign(obv[t] -
+    sma_w[t])`` from bar ``warm - 1``, the SMA of the OBV from its cumsum
+    ``cs`` in K1's op order. ``obv``, ``cs`` and ``r`` are ``(N, T)``;
+    ``window``/``warm`` the ``(P,)`` int32 windows and warmups. Returns the
+    ``(9, N, P)`` metric planes."""
+    N, T = obv.shape
+    P = window.shape[0]
+    windows, widx = torch.unique(window.long(), return_inverse=True)
+    table = _sma_rows(cs, windows)                              # (T, N, W)
+    st = _MetricState(t_real, P)
+    t_on = (warm.long() - 1)[None, :]
+    for step in range(T):
+        d = obv[:, step:step + 1] - table[step][:, widx]
+        pos = torch.where(step >= t_on, torch.sign(d), st.zero)
+        st.step(step, pos, r[:, step:step + 1], cost)
+    return st.planes(ppy)
+
+
+def obv_cuda(obv, cs, r, t_real, window, warm, *, cost: float,
+             ppy: int) -> torch.Tensor:
+    """Launch K6 (``csrc/fused_sma.cu``, ``dbx_obv``): same inputs and
+    output as :func:`obv_plain`, all on one CUDA device."""
+    N, T = obv.shape
+    P = window.shape[0]
+    f32, i32 = torch.float32, torch.int32
+    _check_launch("obv_cuda", obv.device, P,
+                  obv=(obv, f32, (N, T)), cs=(cs, f32, (N, T)),
+                  r=(r, f32, (N, T)), t_real=(t_real, i32, (N,)),
+                  window=(window, i32, (P,)), warm=(warm, i32, (P,)))
+    out = torch.empty((_N_METRICS, N, P), dtype=f32, device=obv.device)
+    if N and P:
+        _launch("obv", _kernels.fused_sma_lib().dbx_obv, obv, cs, r, t_real,
+                window, warm, out, N, T, P, float(cost), int(ppy))
+    return out
+
+
+def obv(obv, cs, r, t_real, window, warm, *, cost: float,
+        ppy: int) -> torch.Tensor:
+    """K6 on the inputs' device."""
+    fn = _on_device(obv_plain, obv_cuda, obv)
+    return fn(obv, cs, r, t_real, window, warm, cost=cost, ppy=ppy)
+
+
 # --- K2: band machine (bollinger, bollinger_touch, stochastic) ------------
 
 def boll_z_table(close, cs, csx, csx2, windows) -> torch.Tensor:
@@ -401,6 +461,20 @@ def _machine_code(machine: str) -> int:
     return _MACHINES[machine]
 
 
+def _band_next(prev, zs, k, z_exit, machine: str):
+    """The band machine's next ``(N, P)`` state from ``prev`` on a valid
+    bar with z-scores ``zs``, in ``band_next``'s order
+    (``csrc/band_machine.cu``)."""
+    one = torch.ones((), dtype=zs.dtype, device=zs.device)
+    zero = torch.zeros((), dtype=zs.dtype, device=zs.device)
+    nxt = torch.where(zs < -k, one, torch.where(zs > k, -one, zero))
+    if machine == "touch":
+        return nxt
+    held = torch.where(prev > 0, torch.where(zs >= -z_exit, zero, prev),
+                       torch.where(zs <= z_exit, zero, prev))
+    return torch.where(prev == 0, nxt, held)
+
+
 def band_machine_plain(z, r, t_real, widx, k, warm, *, machine: str,
                        z_exit: float, cost: float, ppy: int) -> torch.Tensor:
     """Plain PyTorch version of K2 over a z-table (``dbx_band_table``).
@@ -419,18 +493,10 @@ def band_machine_plain(z, r, t_real, widx, k, warm, *, machine: str,
     kk = k[None, :]
     zx = torch.tensor(z_exit, dtype=torch.float32, device=z.device)
     st = _MetricState(t_real, P)
-    one = torch.ones((), dtype=torch.float32, device=z.device)
-    zero = torch.zeros((), dtype=torch.float32, device=z.device)
     t_on = (warm.long() - 1)[None, :]
     for step in range(T):
         zs = zt[step][:, lanes]                                 # (N, P)
-        nxt = torch.where(zs < -kk, one, torch.where(zs > kk, -one, zero))
-        if machine == "hysteresis":
-            prev = st.prev
-            held = torch.where(
-                prev > 0, torch.where(zs >= -zx, zero, prev),
-                torch.where(zs <= zx, zero, prev))
-            nxt = torch.where(prev == 0, nxt, held)
+        nxt = _band_next(st.prev, zs, kk, zx, machine)
         pos = torch.where(step >= t_on, nxt, st.zero)
         st.step(step, pos, r[:, step:step + 1], cost)
     return st.planes(ppy)
@@ -719,6 +785,56 @@ def trix(tbl, r, t_real, widx, a_sig, warm, *, cost: float,
     return fn(tbl, r, t_real, widx, a_sig, warm, cost=cost, ppy=ppy)
 
 
+# --- K7: pairs ------------------------------------------------------------
+
+def pairs_plain(z, hr, t_real, widx, k, z_exit, warm, *, cost: float,
+                ppy: int) -> torch.Tensor:
+    """Plain PyTorch version of K7 (``dbx_pairs``): the hysteresis band
+    machine over row ``widx`` of the ``(N, W, T)`` spread z-table with the
+    lane's own ``k`` and ``z_exit`` (``(P,)`` f32), earning row ``widx`` of
+    the hedged-return table ``hr``: ``net = prev * hr - cost * |dpos|``.
+    Returns the ``(9, N, P)`` metric planes."""
+    N, W, T = z.shape
+    P = widx.shape[0]
+    zt, ht = z.permute(2, 0, 1), hr.permute(2, 0, 1)            # (T, N, W)
+    lanes = widx.long()
+    kk, zx = k[None, :], z_exit[None, :]
+    st = _MetricState(t_real, P)
+    t_on = (warm.long() - 1)[None, :]
+    for step in range(T):
+        nxt = _band_next(st.prev, zt[step][:, lanes], kk, zx, "hysteresis")
+        pos = torch.where(step >= t_on, nxt, st.zero)
+        st.step(step, pos, ht[step][:, lanes], cost)
+    return st.planes(ppy)
+
+
+def pairs_cuda(z, hr, t_real, widx, k, z_exit, warm, *, cost: float,
+               ppy: int) -> torch.Tensor:
+    """Launch K7 (``csrc/band_machine.cu``, ``dbx_pairs``): same inputs and
+    output as :func:`pairs_plain`, all on one CUDA device."""
+    N, W, T = z.shape
+    P = widx.shape[0]
+    f32, i32 = torch.float32, torch.int32
+    _check_launch("pairs_cuda", z.device, P,
+                  z=(z, f32, (N, W, T)), hr=(hr, f32, (N, W, T)),
+                  t_real=(t_real, i32, (N,)), widx=(widx, i32, (P,)),
+                  k=(k, f32, (P,)), z_exit=(z_exit, f32, (P,)),
+                  warm=(warm, i32, (P,)))
+    out = torch.empty((_N_METRICS, N, P), dtype=f32, device=z.device)
+    if N and P:
+        _launch("pairs", _kernels.band_machine_lib().dbx_pairs, z, hr,
+                t_real, widx, k, z_exit, warm, out, N, T, W, P, float(cost),
+                int(ppy))
+    return out
+
+
+def pairs(z, hr, t_real, widx, k, z_exit, warm, *, cost: float,
+          ppy: int) -> torch.Tensor:
+    """K7 on the inputs' device."""
+    fn = _on_device(pairs_plain, pairs_cuda, z)
+    return fn(z, hr, t_real, widx, k, z_exit, warm, cost=cost, ppy=ppy)
+
+
 # --- table prep (torch ops before the launch) -----------------------------
 
 def _extrema_rows(src: torch.Tensor, windows: np.ndarray, mode: str):
@@ -791,6 +907,12 @@ def _col(dev: torch.device, values: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.asarray(values, np.float32)).to(dev)[:, None]
 
 
+def _windows_col(dev: torch.device, windows: np.ndarray):
+    """Distinct windows as ``(W,)`` int64 and a ``(W, 1)`` f32 column."""
+    w = torch.from_numpy(np.asarray(windows).astype(np.int64)).to(dev)
+    return w, _col(dev, windows)
+
+
 def macd_ema_table(close, spans: np.ndarray) -> torch.Tensor:
     """The ``(N, W, T)`` EMAs of the close demeaned by its first bar, one
     row per distinct span (the reference's ``_fused_macd_call`` prep)."""
@@ -834,8 +956,7 @@ def keltner_z_table(close, high, low, windows: np.ndarray) -> torch.Tensor:
     true_range = torch.maximum(high - low,
                                torch.maximum((high - prev).abs(),
                                              (low - prev).abs()))
-    w = torch.from_numpy(np.asarray(windows).astype(np.int64)).to(close.device)
-    fw = _col(close.device, windows)
+    w, fw = _windows_col(close.device, windows)
     atr = _lagged_window_sum(torch.cumsum(true_range, dim=1), w) / fw
     mid = rolling.ema(close[:, None, :], span=fw)
     dev = close[:, None, :] - mid
@@ -843,6 +964,79 @@ def keltner_z_table(close, high, low, windows: np.ndarray) -> torch.Tensor:
     have = (t[None, :] >= w[:, None] - 1) & (atr > _EPS)
     return torch.where(have, dev / (atr + _EPS),
                        torch.zeros((), dtype=dev.dtype, device=dev.device))
+
+
+def vwap_z_table(close, volume, windows: np.ndarray) -> torch.Tensor:
+    """The ``(N, W, T)`` z-table of the close's deviation from its rolling
+    VWAP, one row per distinct window (the reference's ``_fused_vwap_call``
+    prep, op for op): the deviation is 0 before ``t = w - 1`` and where the
+    window's volume is not above 1e-12; its z-score is centered with the
+    deviation's mean over all T bars of the panel (a ragged group's pad
+    bars included, as the reference centers over the stacked panel); z is 0
+    before ``t = w - 1``."""
+    w, fw = _windows_col(close.device, windows)
+    t = torch.arange(close.shape[1], device=close.device)
+    warm_ok = t[None, :] >= w[:, None] - 1                      # (W, T)
+    zero = torch.zeros((), dtype=close.dtype, device=close.device)
+    pv = _lagged_window_sum(torch.cumsum(close * volume, dim=1), w)
+    v = _lagged_window_sum(torch.cumsum(volume, dim=1), w)
+    dev = torch.where(warm_ok & (v > _EPS),
+                      close[:, None, :] - pv / (v + _EPS), zero)
+    m = _lagged_window_sum(torch.cumsum(dev, dim=2), w) / fw
+    xc = dev - dev.mean(dim=2, keepdim=True)
+    s1 = _lagged_window_sum(torch.cumsum(xc, dim=2), w)
+    s2 = _lagged_window_sum(torch.cumsum(xc * xc, dim=2), w)
+    var = ((s2 - s1 * s1 / fw) / fw).clamp_min(0.0)
+    z = (dev - m) / (torch.sqrt(var) + _EPS)
+    return torch.where(warm_ok, z, zero)
+
+
+def pairs_tables(y_close, x_close, windows: np.ndarray):
+    """The ``(N, W, T)`` spread z-table and hedged-return table of each
+    pair and distinct lookback (the reference's ``_fused_pairs_call`` prep,
+    op for op). Rolling OLS of y on x from the windowed moments of the legs
+    centered by their means over all T bars: ``beta = cov / (var + 1e-12)``,
+    ``var = max(sxx - sx*sx/w, 0)``, ``alpha = (sy/w + my) - beta*(sx/w +
+    mx)``; during the OLS warmup (``t < w - 1``) beta is 0 and the spread is
+    exactly y. The spread's z-score: moments of the spread centered by its
+    mean over all T bars, the window mean of the uncentered spread; 0 before
+    ``t = 2w - 2``. ``hr = (r_y - beta[t-1] r_x) / max(1 + |beta[t-1]|, 1)``
+    with ``beta[-1] = 0``. Returns ``(z, hr)``."""
+    y, x = y_close, x_close
+    w, fw = _windows_col(y.device, windows)
+    t = torch.arange(y.shape[1], device=y.device)
+    zero = torch.zeros((), dtype=y.dtype, device=y.device)
+
+    def wsum(series):                       # (N, T) or (N, W, T) -> (N, W, T)
+        return _lagged_window_sum(torch.cumsum(series, dim=-1), w)
+
+    mx = x.mean(dim=1, keepdim=True)                            # (N, 1)
+    my = y.mean(dim=1, keepdim=True)
+    xc, yc = x - mx, y - my
+    sx, sy = wsum(xc), wsum(yc)
+    sxx, sxy = wsum(xc * xc), wsum(xc * yc)
+    cov = sxy - sx * sy / fw
+    var = (sxx - sx * sx / fw).clamp_min(0.0)
+    beta = cov / (var + _EPS)
+    alpha = (sy / fw + my[:, :, None]) - beta * (sx / fw + mx[:, :, None])
+    ols_ok = t[None, :] >= w[:, None] - 1                       # (W, T)
+    beta_tbl = torch.where(ols_ok, beta, zero)
+    y3, x3 = y[:, None, :], x[:, None, :]
+    spread = torch.where(ols_ok, y3 - (alpha + beta * x3), y3)
+
+    sc = spread - spread.mean(dim=-1, keepdim=True)
+    s1, s2 = wsum(sc), wsum(sc * sc)
+    varz = ((s2 - s1 * s1 / fw) / fw).clamp_min(0.0)
+    mz = wsum(spread) / fw
+    z = (spread - mz) / (torch.sqrt(varz) + _EPS)
+    z = torch.where(t[None, :] >= 2 * w[:, None] - 2, z, zero)
+
+    ry = simple_returns(y)[:, None, :]
+    rx = simple_returns(x)[:, None, :]
+    beta_prev = torch.cat([torch.zeros_like(beta_tbl[..., :1]),
+                           beta_tbl[..., :-1]], dim=-1)
+    hr = (ry - beta_prev * rx) / (1.0 + beta_prev.abs()).clamp_min(1.0)
+    return z.contiguous(), hr.contiguous()
 
 
 # --- sweep wrappers -------------------------------------------------------
@@ -1002,22 +1196,120 @@ def fused_stochastic_sweep(close, high, low, window, band, *, t_real=None,
 
 
 def _band_table_sweep(close, window, band, names, warm_offset: float,
-                      z_table, *, t_real, cost, periods_per_year) -> Metrics:
+                      z_table, *, t_real, cost, periods_per_year,
+                      warm_scale: float = 1.0) -> Metrics:
     """K2's table entry, hysteresis machine with z_exit = 0, over the
     z-table ``z_table(windows)`` of the distinct windows. ``window`` and
     ``band`` are the flat per-combo values, ``names`` their argument names
-    for the error messages; each lane's warmup is its window plus
-    ``warm_offset``."""
+    for the error messages; each lane's warmup is ``warm_scale`` times its
+    window plus ``warm_offset``."""
     N, T = close.shape
     window, band = _flat(window), _flat(band)
     _same_length(**dict(zip(names, (window, band))))
     windows, _, widx, warm = _window_setup(window, f"{names[0]}s",
-                                           warm_offset, 1)
+                                           warm_offset, 1, warm_scale)
     tr = _check_t_real(t_real, N, T)
     planes = band_table(z_table(windows), simple_returns(close).contiguous(),
                         *_to(close.device, tr, widx, band, warm),
                         machine="hysteresis", z_exit=0.0, cost=float(cost),
                         ppy=int(periods_per_year))
+    return Metrics(*planes)
+
+
+def fused_vwap_sweep(close, volume, window, k, *, t_real=None,
+                     cost: float = 0.0, periods_per_year: int = 252,
+                     epilogue: str | None = None,
+                     carry_out: bool = False,
+                     device: str | torch.device =
+                     device_mod.DEFAULT_DEVICE) -> Metrics:
+    """Fused VWAP-deviation reversion sweep: ``(N, T)`` closes and volumes
+    x ``(P,)`` lanes (K2's table entry, hysteresis machine with z_exit = 0
+    on :func:`vwap_z_table`).
+
+    ``window``/``k`` are flat per-combo arrays (:func:`product_grid` order);
+    windows must be integral bar counts, and each lane's warmup is
+    ``2 * window - 1`` (the VWAP needs ``window`` bars, its deviation's
+    z-score another ``window``). A window longer than the history leaves
+    its lanes flat. Matches ``run_sweep(..., "vwap_reversion")``.
+    """
+    dev = _prologue(carry_out, None, epilogue, device)
+    close, volume = _panel(dev, close, volume)
+    return _band_table_sweep(
+        close, window, k, ("window", "k"), -1.0,
+        lambda w: vwap_z_table(close, volume, w), t_real=t_real, cost=cost,
+        periods_per_year=periods_per_year, warm_scale=2.0)
+
+
+def fused_obv_sweep(close, volume, window, *, t_real=None, cost: float = 0.0,
+                    periods_per_year: int = 252,
+                    table: str | None = None,
+                    epilogue: str | None = None,
+                    carry_out: bool = False,
+                    device: str | torch.device = device_mod.DEFAULT_DEVICE,
+                    ) -> Metrics:
+    """Fused OBV-trend sweep: ``(N, T)`` closes and volumes x ``(P,)``
+    windows (K6).
+
+    ``window`` is a flat per-combo array; windows must be integral bar
+    counts. The OBV is :func:`~.rolling.obv_series`, the generic model's
+    own, and its windowed mean takes the generic rolling mean's op order,
+    so this matches ``run_sweep(..., "obv_trend")``. A valid ``table``
+    changes nothing (the kernel forms each lane's SMA from the staged OBV
+    cumsum row, K1's design). Other arguments as :func:`fused_sma_sweep`.
+    """
+    dev = _prologue(carry_out, table, epilogue, device)
+    close, volume = _panel(dev, close, volume)
+    N, T = close.shape
+    _, win, _, warm = _window_setup(_flat(window), "windows", 0.0, 1)
+    tr = _check_t_real(t_real, N, T)
+    series = rolling.obv_series(close, volume).contiguous()
+    planes = obv(series, torch.cumsum(series, dim=1).contiguous(),
+                 simple_returns(close).contiguous(),
+                 *_to(dev, tr, win, warm), cost=float(cost),
+                 ppy=int(periods_per_year))
+    return Metrics(*planes)
+
+
+def _pairs_grid_setup(lookback, z_entry, z_exit):
+    """The reference's ``_pairs_grid_setup`` without the one-hot and the
+    padded lanes: the distinct lookbacks, each lane's row, entry band, exit
+    band (``z_exit`` a scalar or per-combo) and warmup ``2 * lookback - 1``
+    in f32, truncated. Returns ``(windows, widx, k, zx, warm)``."""
+    lookback, z_entry = _flat(lookback), _flat(z_entry)
+    z_exit = np.broadcast_to(np.asarray(z_exit, np.float32).reshape(-1),
+                             lookback.shape).copy()
+    _same_length(lookback=lookback, z_entry=z_entry, z_exit=z_exit)
+    windows, _, widx, warm = _window_setup(lookback, "lookbacks", -1.0, 1,
+                                           2.0)
+    return windows, widx, z_entry, z_exit, warm
+
+
+def fused_pairs_sweep(y_close, x_close, lookback, z_entry, *, t_real=None,
+                      z_exit=0.0, cost: float = 0.0,
+                      periods_per_year: int = 252,
+                      epilogue: str | None = None,
+                      carry_out: bool = False,
+                      device: str | torch.device =
+                      device_mod.DEFAULT_DEVICE) -> Metrics:
+    """Fused rolling-OLS pairs sweep: ``(N, T)`` pair legs x ``(P,)`` lanes
+    (K7; ``BASELINE.json`` configs[3]).
+
+    ``lookback``/``z_entry`` are flat per-combo arrays (:func:`product_grid`
+    order); ``z_exit`` is a scalar or a per-combo array. Lookbacks are bar
+    counts and must be integral. ``t_real`` gives each pair's real length in
+    a ragged group whose legs repeat their last bar. Matches
+    :func:`~..models.pairs.run_pairs_sweep` within the reference's pairs
+    budget: the tables (:func:`pairs_tables`) take the generic path's
+    formulas and op order.
+    """
+    dev = _prologue(carry_out, None, epilogue, device)
+    y_close, x_close = _panel(dev, y_close, x_close)
+    N, T = y_close.shape
+    windows, widx, k, zx, warm = _pairs_grid_setup(lookback, z_entry, z_exit)
+    tr = _check_t_real(t_real, N, T)
+    z, hr = pairs_tables(y_close, x_close, windows)
+    planes = pairs(z, hr, *_to(dev, tr, widx, k, zx, warm), cost=float(cost),
+                   ppy=int(periods_per_year))
     return Metrics(*planes)
 
 

@@ -1,8 +1,9 @@
 """Rolling-window indicators (PyTorch).
 
 The part of the reference's ``ops/rolling.py`` the ported families need:
-cumulative-sum sums, means, variances and z-scores, windowed extrema, and
-the exponential moving average (as the reference's shift-doubling ladder).
+cumulative-sum sums, means, variances and z-scores, the rolling OLS of the
+pairs trade, on-balance volume, windowed extrema, and the exponential
+moving average (as the reference's shift-doubling ladder).
 Time is the last axis. A rolling sum over window ``w`` is ``cs[t] - cs[t-w]`` on the
 inclusive prefix sum, where the shifted read is a clipped gather so that
 ``w`` may be a tensor of windows that broadcasts against the series (the
@@ -101,6 +102,40 @@ def rolling_zscore(x: Tensor, window, *, ddof: int = 0, eps: float = 1e-12,
     m = rolling_mean(x, window)
     sd = rolling_std(x, window, ddof=ddof)
     return _mask_warmup((x - m) / (sd + eps), window, fill)
+
+
+def rolling_ols(y: Tensor, x: Tensor, window, *, eps: float = 1e-12,
+                fill: float = math.nan) -> tuple[Tensor, Tensor]:
+    """Rolling least squares of ``y`` on ``x`` with an intercept, from
+    windowed moments of the series-centered legs (the reference's op
+    order): ``beta = cov / (var + eps)`` with ``cov = sxy - sx*sy/w`` and
+    ``var = max(sxx - sx*sx/w, 0)``, ``alpha = (sy/w + my) - beta*(sx/w +
+    mx)``. Returns ``(alpha, beta)``, each broadcast of ``y``, ``x`` and the
+    window; warmup bars ``t < w - 1`` hold ``fill``."""
+    w = _as_window(window, y)
+    mx = x.mean(dim=-1, keepdim=True)
+    my = y.mean(dim=-1, keepdim=True)
+    xc, yc = x - mx, y - my
+    sx = rolling_sum(xc, window)
+    sy = rolling_sum(yc, window)
+    sxx = rolling_sum(xc * xc, window)
+    sxy = rolling_sum(xc * yc, window)
+    cov = sxy - sx * sy / w
+    var = (sxx - sx * sx / w).clamp_min(0.0)
+    beta = cov / (var + eps)
+    alpha = (sy / w + my) - beta * (sx / w + mx)
+    return _mask_warmup(alpha, window, fill), _mask_warmup(beta, window, fill)
+
+
+def obv_series(close: Tensor, volume: Tensor) -> Tensor:
+    """Normalized on-balance volume, ``(..., T)``, ``obv[0] = 0``:
+    ``cumsum(sign(close[t] - close[t-1]) * v)`` with ``v`` the volume over
+    the first bar's (a first bar of 0 divides by 1). One definition for the
+    generic model and the fused prep, as in the reference."""
+    v0 = volume[..., :1]
+    v = volume / torch.where(v0 == 0.0, torch.ones_like(v0), v0)
+    step = torch.sign(torch.diff(close, dim=-1, prepend=close[..., :1])) * v
+    return torch.cumsum(step, dim=-1)
 
 
 def _decay(x: Tensor, span, alpha) -> Tensor:

@@ -78,13 +78,8 @@ def run_sweep(
     if bar_mask is not None:
         mask = device_mod.as_tensor(bar_mask, torch.bool, dev)[:, None, :]
         last_idx = (mask.to(torch.int64).sum(-1) - 1).clamp_min(0)
-    params = {k: device_mod.as_tensor(v, torch.float32, dev)
-              for k, v in grid.items()}
-    P = grid_size(params)
-    chunk = max(1, _CHUNK_ELEMS // max(N * T, 1))
-    parts = []
-    for lo in range(0, P, chunk):
-        sub = {k: v[lo:lo + chunk, None] for k, v in params.items()}
+
+    def one_chunk(sub):
         pos = strategy.positions(fields, sub)             # (N, Pc, T)
         if mask is not None:
             # Padding is a suffix: HOLD the last valid position through the
@@ -94,7 +89,29 @@ def run_sweep(
                 pos, -1, last_idx.expand(N, pos.shape[1])[..., None])
             pos = torch.where(mask, pos, pos_last)
         res = pnl_mod.backtest_prefix(fields.close, pos, cost=cost)
-        parts.append(metrics_mod.summary_metrics(
+        return metrics_mod.summary_metrics(
             res.returns, res.equity, res.positions,
-            periods_per_year=periods_per_year, mask=mask))
+            periods_per_year=periods_per_year, mask=mask)
+
+    return map_param_chunks(grid, N * T, dev, one_chunk)
+
+
+def map_param_chunks(grid: Mapping[str, object], row_elems: int,
+                     dev: torch.device, one_chunk) -> metrics_mod.Metrics:
+    """Evaluate a sweep over chunks of the param axis (the reference's
+    ``map_param_chunks``, shared by the single-asset and pairs sweeps).
+
+    ``one_chunk(sub)`` gets each grid value as a ``(P_chunk, 1)`` f32 column
+    on ``dev`` and returns :class:`~..ops.metrics.Metrics` of
+    ``(..., P_chunk)`` fields; a chunk is sized so that one
+    ``(..., P_chunk, T)`` intermediate of ``row_elems`` elements per param
+    stays near ``_CHUNK_ELEMS``. Returns the ``(..., P)`` fields in flat
+    grid order.
+    """
+    params = {k: device_mod.as_tensor(v, torch.float32, dev)
+              for k, v in grid.items()}
+    P = grid_size(params)
+    chunk = max(1, _CHUNK_ELEMS // max(row_elems, 1))
+    parts = [one_chunk({k: v[lo:lo + chunk, None] for k, v in params.items()})
+             for lo in range(0, P, chunk)]
     return metrics_mod.Metrics(*(torch.cat(f, dim=-1) for f in zip(*parts)))

@@ -6,13 +6,17 @@ reference's ``JaxSweepBackend`` does for the SMA-crossover sweep: it
 decodes each DBX1 payload, groups stackable jobs, runs one fused sweep per
 group on the backend's device and packs one DBXM block per job.
 
-The port serves the strategies of ``_FUSED_STRATEGIES``: sma_crossover
-(K1), bollinger, bollinger_touch, stochastic, rsi and keltner (K2),
-momentum, donchian and donchian_hl (K3), macd (K4) and trix (K5). Any
-other strategy (vwap_reversion, obv_trend, pairs), and any job field the
-port does not serve (streaming append, scenario spec batches, walk-forward,
-pairs, top-k, best-returns), raises ``NotImplementedError`` naming it;
-nothing is computed some other way.
+The port serves every strategy of the reference: the single-asset
+families of ``_FUSED_STRATEGIES`` (sma_crossover on K1; bollinger,
+bollinger_touch, stochastic, rsi, keltner and vwap_reversion on K2;
+momentum, donchian and donchian_hl on K3; macd on K4, trix on K5,
+obv_trend on K6) and the two-legged pairs jobs (K7, the second leg in
+``JobSpec.ohlcv2``). A pairs
+job without a second leg, or with legs of unequal length, completes with
+an empty metric block and a logged error, as in the reference. The job
+fields the port does not serve yet (streaming append, scenario batches,
+walk-forward, top-k, best-returns) raise ``NotImplementedError`` naming
+them; nothing is computed some other way.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ import torch
 
 from .. import device as device_mod
 from ..models import base as models_base
-from ..models import donchian, stochastic
+from ..models import donchian, pairs as pairs_mod, stochastic
 from ..ops import fused
 from ..ops.metrics import Metrics
 from ..parallel import sweep as sweep_mod
@@ -99,7 +103,18 @@ _FUSED_STRATEGIES = {
         frozenset({"span", "signal"}), ("span", "signal"),
         lambda f, g, **kw: fused.fused_trix_sweep(
             f["close"], g["span"], g["signal"], **kw)),
+    "obv_trend": _FusedSpec(
+        frozenset({"window"}), ("window",),
+        lambda f, g, **kw: fused.fused_obv_sweep(
+            f["close"], f["volume"], g["window"], **kw),
+        fields=("close", "volume")),
+    "vwap_reversion": _FusedSpec(
+        frozenset({"window", "k"}), ("window",),
+        lambda f, g, **kw: fused.fused_vwap_sweep(
+            f["close"], f["volume"], g["window"], g["k"], **kw),
+        fields=("close", "volume")),
 }
+_PAIRS = "pairs"
 
 
 class Completion:
@@ -135,18 +150,19 @@ def _stack_field_ragged(series_list, t_max: int,
 
 
 def _unsupported(job) -> str | None:
-    """What in ``job`` the slice does not serve, or None."""
-    if job.strategy not in _FUSED_STRATEGIES:
+    """What in ``job`` the port does not serve, or None."""
+    if job.strategy != _PAIRS and job.strategy not in _FUSED_STRATEGIES:
         return (f"strategy {job.strategy!r} (served: "
-                f"{', '.join(sorted(_FUSED_STRATEGIES))})")
+                f"{', '.join(sorted([*_FUSED_STRATEGIES, _PAIRS]))})")
     if job.append_parent_digest:
         return "streaming append (append_parent_digest)"
     if job.scenario_batch:
         return "scenario spec batch (scenario_batch)"
     if job.wf_train > 0:
         return "walk-forward (wf_train)"
-    if job.ohlcv2 or job.panel_digest2:
-        return "pairs second leg (ohlcv2)"
+    if (job.ohlcv2 or job.panel_digest2) and job.strategy != _PAIRS:
+        return (f"a second leg (ohlcv2) on strategy {job.strategy!r}; only "
+                "pairs jobs take one")
     if job.top_k > 0:
         return "top-k selection (top_k)"
     if job.best_returns:
@@ -176,6 +192,30 @@ def _fused_demotion_reason(spec: _FusedSpec, axes: dict) -> str | None:
     return None
 
 
+def _pairs_demotion_reason(axes: dict) -> str | None:
+    """None when a pairs group routes to the fused pairs sweep; otherwise
+    why it takes the generic path (the reference's pairs gates minus its
+    TPU memory caps)."""
+    lb = axes.get("lookback", np.empty(0))
+    if lb.size == 0:
+        return "no 'lookback' axis in grid"
+    if not np.allclose(lb, np.round(lb)):
+        return "non-integral lookback values"
+    return None
+
+
+def _decode(job, leg2: bool = False):
+    """A job's leg as OHLCV; raises on a digest-only leg (this backend asks
+    for inline payloads)."""
+    payload = job.ohlcv2 if leg2 else job.ohlcv
+    if not payload:
+        raise ValueError(
+            f"job {job.id}: no inline payload{' for leg 2' if leg2 else ''} "
+            "(digest-only dispatch); this backend needs the DBX1 bytes "
+            "inline")
+    return data_mod.from_wire_bytes(payload)
+
+
 class TorchSweepBackend:
     """Sweep backend on one device (``"cuda"`` unless the caller asks for
     ``"cpu"``)."""
@@ -193,8 +233,8 @@ class TorchSweepBackend:
         """Run a job batch to completion and return one Completion per job.
 
         Jobs are grouped as the reference's ``submit`` groups them: by
-        strategy, grid, power-of-two payload length bucket, cost and
-        periods per year.
+        strategy, grid, power-of-two payload length bucket of each leg,
+        cost and periods per year.
         """
         jobs = list(jobs)
         for job in jobs:
@@ -209,21 +249,19 @@ class TorchSweepBackend:
             key = (job.strategy,
                    tuple(sorted((k, v.tobytes()) for k, v in axes.items())),
                    (len(job.ohlcv) or job.panel_bytes_len).bit_length(),
+                   (len(job.ohlcv2) or job.panel_bytes_len2).bit_length(),
                    job.cost, job.periods_per_year)
             groups.setdefault(key, []).append(job)
         out: list[Completion] = []
         for group in groups.values():
-            out.extend(self._run_group(group))
+            run = (self._run_pairs_group if group[0].strategy == _PAIRS
+                   else self._run_group)
+            out.extend(run(group))
         return out
 
     def _run_group(self, group) -> list[Completion]:
         t0 = time.perf_counter()
-        for job in group:
-            if not job.ohlcv:
-                raise ValueError(
-                    f"job {job.id}: no inline payload (digest-only "
-                    "dispatch); this backend needs the DBX1 bytes inline")
-        series = [data_mod.from_wire_bytes(j.ohlcv) for j in group]
+        series = [_decode(j) for j in group]
         lengths = [s.n_bars for s in series]
         job0 = group[0]
         axes = wire.grid_from_proto(job0.grid)
@@ -252,8 +290,71 @@ class TorchSweepBackend:
                 batch, models_base.get_strategy(job0.strategy), grid,
                 cost=cost, bar_mask=mask, periods_per_year=ppy,
                 device=self.device)
-        host = torch.stack(list(m)).cpu().numpy()          # (9, N, P)
-        per_job = (time.perf_counter() - t0) / len(group)
-        return [Completion(job.id, wire.metrics_to_bytes(Metrics(*host[:, i])),
-                           per_job, trace_id=job.trace_id)
-                for i, job in enumerate(group)]
+        return _completions(group, m, t0)
+
+    def _run_pairs_group(self, group) -> list[Completion]:
+        """Two-legged jobs (the reference's ``_submit_pairs_group`` for
+        plain pairs jobs): stack both legs, run the fused pairs sweep, with
+        ``t_real`` for a ragged group; a group the kernel does not take runs
+        the generic ``run_pairs_sweep``, one job at a time when ragged (it
+        has no bar mask). A job without a second leg, or with legs of
+        unequal length, completes with an empty metric block."""
+        t0 = time.perf_counter()
+        good, bad = [], []
+        for j in group:
+            if not j.ohlcv2 and not j.panel_digest2:
+                log.error("pairs job %s has no second leg (ohlcv2); "
+                          "completing with empty metrics", j.id)
+                bad.append(j)
+                continue
+            y, x = _decode(j), _decode(j, leg2=True)
+            if y.n_bars != x.n_bars:
+                log.error("pairs job %s legs differ in length (%d vs %d); "
+                          "completing with empty metrics", j.id, y.n_bars,
+                          x.n_bars)
+                bad.append(j)
+                continue
+            good.append((j, y, x))
+        out = [Completion(j.id, b"", 0.0, trace_id=j.trace_id) for j in bad]
+        if not good:
+            return out
+        jobs = [j for j, _, _ in good]
+        lens = np.asarray([y.n_bars for _, y, _ in good], np.int32)
+        t_max = int(lens.max())
+        y_close = _stack_field_ragged([y for _, y, _ in good], t_max)
+        x_close = _stack_field_ragged([x for _, _, x in good], t_max)
+        uniform = len(set(lens.tolist())) == 1
+        job0 = jobs[0]
+        axes = wire.grid_from_proto(job0.grid)
+        grid = sweep_mod.product_grid(**axes)
+        kw = dict(cost=float(job0.cost),
+                  periods_per_year=job0.periods_per_year or 252,
+                  device=self.device)
+        demotion = _pairs_demotion_reason(axes)
+        if demotion is None:
+            g = {k: v.numpy() for k, v in grid.items()}
+            m = fused.fused_pairs_sweep(
+                y_close, x_close, g["lookback"], g["z_entry"],
+                z_exit=g.get("z_exit", 0.0),
+                t_real=None if uniform else lens, **kw)
+        else:
+            log.warning("jobs %s (pairs) take the generic path: %s",
+                        [j.id for j in jobs], demotion)
+            if uniform:
+                m = pairs_mod.run_pairs_sweep(y_close, x_close, grid, **kw)
+            else:
+                rows = [pairs_mod.run_pairs_sweep(
+                    y_close[i:i + 1, :n], x_close[i:i + 1, :n], grid, **kw)
+                    for i, n in enumerate(lens)]
+                m = Metrics(*(torch.cat(f, dim=0) for f in zip(*rows)))
+        return out + _completions(jobs, m, t0)
+
+
+def _completions(jobs, m: Metrics, t0: float) -> list[Completion]:
+    """One DBXM block per job from the ``(N, P)`` metric fields of its
+    group, with the group's seconds shared out per job."""
+    host = torch.stack(list(m)).cpu().numpy()              # (9, N, P)
+    per_job = (time.perf_counter() - t0) / len(jobs)
+    return [Completion(job.id, wire.metrics_to_bytes(Metrics(*host[:, i])),
+                       per_job, trace_id=job.trace_id)
+            for i, job in enumerate(jobs)]

@@ -41,7 +41,10 @@ GRIDS = {
     "keltner": parse_grid("window=10:20:5,k=1:3"),
     "macd": parse_grid("fast=5:13:4,slow=20:40:10,signal=5:13:4"),
     "trix": parse_grid("span=5:13:4,signal=4:14:5"),
+    "obv_trend": parse_grid("window=6:30:8"),
+    "vwap_reversion": parse_grid("window=8:20:6,k=1:3"),
 }
+PAIRS_GRID = parse_grid("lookback=8:20:6,z_entry=1:3")
 # The reference's flip-aware budget for the families whose signal EMA or
 # cumsums round differently in the two packages (test_torch_fused_ema.py);
 # the default torch_parity tolerances for the others.
@@ -50,6 +53,7 @@ TOL = {"macd": (2e-3, 2e-4), "trix": (2e-3, 2e-4), "keltner": (2e-3, 2e-4)}
 
 def _specs(recs):
     return [ref_pb.JobSpec(id=r.id, strategy=r.strategy, ohlcv=r.ohlcv,
+                           ohlcv2=r.ohlcv2 or b"",
                            grid=ref_wire.grid_to_proto(r.grid), cost=r.cost,
                            periods_per_year=252, trace_id=f"t-{r.id}")
             for r in recs]
@@ -82,7 +86,7 @@ def test_backend_matches_jax_backend(bars):
 
 
 def test_backend_routes_mixed_batch_of_ported_strategies():
-    # One batch of all eleven strategies, two payload lengths each in one
+    # One batch of all thirteen strategies, two payload lengths each in one
     # power-of-two length bucket (2200 and 2500 bytes), so every group is
     # ragged: each takes its fused sweep with t_real, and every block
     # matches the reference backend's.
@@ -135,9 +139,7 @@ def test_backend_non_integral_grid_takes_generic_path():
 
 
 @pytest.mark.parametrize("field,value,what", [
-    ("strategy", "vwap_reversion", "strategy 'vwap_reversion'"),
-    ("strategy", "obv_trend", "strategy 'obv_trend'"),
-    ("strategy", "pairs", "strategy 'pairs'"),
+    ("strategy", "no_such_strategy", "strategy 'no_such_strategy'"),
     ("top_k", 4, "top-k"),
     ("best_returns", True, "best-returns"),
     ("wf_train", 40, "walk-forward"),
@@ -151,6 +153,81 @@ def test_backend_refuses_what_it_does_not_serve(field, value, what):
         spec.scenario_batch.add()
     else:
         setattr(spec, field, value)
+    with pytest.raises(NotImplementedError, match=what):
+        compute.TorchSweepBackend(device="cpu").process([spec])
+
+
+# Pairs jobs against the reference backend: the reference's pairs budget
+# (tests/test_fused.py `_check_pairs`: at most max(1, 1%) flipped cells, the
+# rest at rtol=2e-3, atol=2e-4).
+def _pairs_match(got, want, ids):
+    return assert_metrics_match(_stack(got, ids), _stack(want, ids),
+                                rtol=2e-3, atol=2e-4)
+
+
+@pytest.mark.parametrize("bars,grid", [
+    ([96], PAIRS_GRID),
+    ([110, 125], PAIRS_GRID),
+    ([96], {"lookback": np.float32([8.5, 12.0]),
+            "z_entry": np.float32([1.0, 2.0])}),
+    ([110, 125], {"lookback": np.float32([8.5, 12.0]),
+                  "z_entry": np.float32([1.0, 2.0]),
+                  "z_exit": np.float32([0.0, 0.5, 0.0, 0.5])}),
+], ids=["uniform", "ragged", "demoted-uniform", "demoted-ragged"])
+def test_backend_pairs_matches_jax_backend(bars, grid, caplog):
+    # Uniform and ragged pairs groups take the fused pairs sweep (with
+    # t_real when ragged); non-integral lookbacks take the generic
+    # run_pairs_sweep, one job at a time when ragged.
+    recs = []
+    for k, n in enumerate(bars):
+        recs += synthetic_jobs(2, n, "pairs", grid, cost=1e-3, seed=30 + k)
+    specs = _specs(recs)
+    with caplog.at_level("WARNING", logger="dbx.torch.compute"):
+        got = _decoded(compute.TorchSweepBackend(device="cpu").process(specs))
+    assert ("take the generic path" in caplog.text) == (
+        not float(grid["lookback"][0]).is_integer())
+    want = _decoded(
+        ref_compute.JaxSweepBackend(use_fused=True).process(specs))
+    _pairs_match(got, want, [r.id for r in recs])
+
+
+def test_backend_completes_malformed_pairs_jobs_empty(caplog):
+    # The reference's malformed-pairs case (tests/test_rpc_integration.py):
+    # no second leg, or legs of unequal length, completes with an empty
+    # metric block and a logged error; the good job is computed.
+    grid = {"lookback": np.asarray([8.0], np.float32),
+            "z_entry": np.asarray([1.0], np.float32)}
+    good = synthetic_jobs(1, 96, "pairs", grid, cost=1e-3, seed=13)[0]
+    no_leg = synthetic_jobs(1, 96, "pairs", grid, cost=1e-3, seed=14)[0]
+    uneven = synthetic_jobs(1, 96, "pairs", grid, cost=1e-3, seed=16)[0]
+    short = data.synthetic_ohlcv(1, 50, seed=15)
+    no_leg.ohlcv2 = None
+    uneven.ohlcv2 = data.to_wire_bytes(data.OHLCV(*(f[0] for f in short)))
+    specs = _specs([good, no_leg, uneven])
+    with caplog.at_level("ERROR", logger="dbx.torch.compute"):
+        out = {c.job_id: c for c in
+               compute.TorchSweepBackend(device="cpu").process(specs)}
+    assert set(out) == {good.id, no_leg.id, uneven.id}
+    assert out[no_leg.id].metrics == b"" and out[uneven.id].metrics == b""
+    assert "no second leg" in caplog.text and "differ in length" in caplog.text
+    got = wire.metrics_from_bytes(out[good.id].metrics)
+    assert got.sharpe.shape == (1,) and np.isfinite(got.sharpe).all()
+    want = ref_compute.JaxSweepBackend(use_fused=True).process(specs)
+    want = {c.job_id: c.metrics for c in want}
+    assert want[no_leg.id] == b"" and want[uneven.id] == b""
+    _pairs_match({good.id: got},
+                 {good.id: wire.metrics_from_bytes(want[good.id])},
+                 [good.id])
+
+
+@pytest.mark.parametrize("field,value,what", [
+    ("wf_train", 40, "walk-forward"),
+    ("top_k", 4, "top-k"),
+    ("best_returns", True, "best-returns"),
+])
+def test_backend_refuses_unported_pairs_fields(field, value, what):
+    (spec,) = _specs(synthetic_jobs(1, 64, "pairs", PAIRS_GRID))
+    setattr(spec, field, value)
     with pytest.raises(NotImplementedError, match=what):
         compute.TorchSweepBackend(device="cpu").process([spec])
 
@@ -212,3 +289,46 @@ def test_worker_drains_reference_dispatcher():
                                device="cpu")
         got = wire.metrics_from_bytes(disp.results[rec.id])
         assert_metrics_match(Metrics(*(f[None, :] for f in got)), want)
+
+
+def test_worker_drains_reference_dispatcher_volume_and_pairs():
+    # The port's worker drains obv_trend, vwap_reversion and pairs jobs
+    # (second legs included) from a reference dispatcher; every stored
+    # block matches the reference backend on the same jobs.
+    recs = synthetic_jobs(3, 128, "obv_trend", GRIDS["obv_trend"],
+                          cost=1e-3, seed=21)
+    recs += synthetic_jobs(2, 128, "vwap_reversion",
+                           GRIDS["vwap_reversion"], cost=1e-3, seed=22)
+    recs += synthetic_jobs(2, 128, "pairs", PAIRS_GRID, cost=1e-3, seed=23)
+    queue = JobQueue()
+    for rec in recs:
+        queue.enqueue(rec)
+    disp = Dispatcher(queue, PeerRegistry(prune_window_s=10.0))
+    srv = DispatcherServer(disp, bind="localhost:0",
+                           prune_interval_s=0.1).start()
+    w = Worker(f"localhost:{srv.port}",
+               compute.TorchSweepBackend(device="cpu"), poll_interval_s=0.02,
+               status_interval_s=0.05, jobs_per_chip=4)
+    t = threading.Thread(target=lambda: w.run(max_idle_polls=10),
+                         daemon=True)
+    t.start()
+    try:
+        deadline = time.monotonic() + 60.0
+        while not queue.drained and time.monotonic() < deadline:
+            time.sleep(0.02)
+        assert queue.drained, queue.stats()
+    finally:
+        w.stop()
+        t.join(timeout=10)
+        srv.stop()
+    assert not t.is_alive()
+    assert queue.stats()["jobs_completed"] == len(recs)
+    assert w.jobs_completed == len(recs) and w.completions_dropped == 0
+
+    got = {r.id: wire.metrics_from_bytes(disp.results[r.id]) for r in recs}
+    want = _decoded(
+        ref_compute.JaxSweepBackend(use_fused=True).process(_specs(recs)))
+    for strategy in ("obv_trend", "vwap_reversion"):
+        ids = [r.id for r in recs if r.strategy == strategy]
+        assert_metrics_match(_stack(got, ids), _stack(want, ids))
+    _pairs_match(got, want, [r.id for r in recs if r.strategy == "pairs"])

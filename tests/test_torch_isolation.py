@@ -52,7 +52,8 @@ def test_every_module_imports_with_jax_blocked():
     assert len(mods) >= 20, mods
     for m in ("ops.signals", "models.bollinger", "models.stochastic",
               "models.momentum", "models.donchian", "models.macd",
-              "models.trix", "models.rsi", "models.keltner"):
+              "models.trix", "models.rsi", "models.keltner", "models.obv",
+              "models.vwap", "models.pairs"):
         assert f"{dbxt.__name__}.{m}" in mods
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
@@ -161,6 +162,8 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     ("donchian", "donchian_plain", "donchian_cuda", 5),
     ("macd", "macd_plain", "macd_cuda", 7),
     ("trix", "trix_plain", "trix_cuda", 6),
+    ("obv", "obv_plain", "obv_cuda", 6),
+    ("pairs", "pairs_plain", "pairs_cuda", 7),
 ])
 def test_new_entries_never_take_the_plain_version_off_the_cpu(
         monkeypatch, dispatch, plain, cuda, n_args):
@@ -177,7 +180,8 @@ def test_new_entries_never_take_the_plain_version_off_the_cpu(
 
 @pytest.mark.parametrize("wrapper", ["band_inline_cuda", "band_table_cuda",
                                      "momentum_cuda", "donchian_cuda",
-                                     "macd_cuda", "trix_cuda"])
+                                     "macd_cuda", "trix_cuda", "obv_cuda",
+                                     "pairs_cuda"])
 def test_new_kernel_wrappers_refuse_cpu_tensors(wrapper):
     x = torch.zeros((1, 8))
     i = torch.zeros((1,), dtype=torch.int32)
@@ -186,7 +190,10 @@ def test_new_kernel_wrappers_refuse_cpu_tensors(wrapper):
             "momentum_cuda": (x, x, i, i, i),
             "donchian_cuda": (x[None].to(torch.int8), x, i, i, i),
             "macd_cuda": (x[None], x, i, i, i, x[0, :1], i),
-            "trix_cuda": (x[None], x, i, i, x[0, :1], i)}[wrapper]
+            "trix_cuda": (x[None], x, i, i, x[0, :1], i),
+            "obv_cuda": (x, x, x, i, i, i),
+            "pairs_cuda": (x[None], x[None], i, i, x[0, :1], x[0, :1],
+                           i)}[wrapper]
     kw = {"cost": 0.0, "ppy": 252}
     if wrapper.startswith("band"):
         kw.update(machine="hysteresis", z_exit=0.0)

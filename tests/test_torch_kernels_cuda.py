@@ -1,4 +1,4 @@
-"""K1-K5 (``csrc/*.cu``) against their plain PyTorch versions on the card.
+"""K1-K7 (``csrc/*.cu``) against their plain PyTorch versions on the card.
 
 Marked ``cuda``: every test skips with a reason where no CUDA card is
 present (the kernels have no CPU mode). On a machine with a card, and without
@@ -7,7 +7,8 @@ JAX (this file and ``torch_parity`` import none), run:
     python -m pytest --noconftest -p no:cacheprovider \
         tests/test_torch_kernels_cuda.py
 
-Both versions take the same inputs (cumsums, returns, z-, sign or EMA tables),
+Both versions take the same inputs (cumsums, returns, OBV rows, z-, sign, EMA
+or pairs tables),
 so positions are identical (n_trades and turnover bit-equal) and the other
 metrics agree at rtol=2e-4, atol=2e-5.
 """
@@ -16,7 +17,8 @@ import numpy as np
 import pytest
 import torch
 
-from distributed_backtesting_exploration_tpu_torch.ops import _kernels, fused
+from distributed_backtesting_exploration_tpu_torch.ops import (
+    _kernels, fused, rolling)
 from distributed_backtesting_exploration_tpu_torch.parallel import sweep
 from distributed_backtesting_exploration_tpu_torch.utils import data
 
@@ -199,6 +201,53 @@ def _trix_inputs(dev, n, T, seed, lens=None):
             *fused._to(dev, widx, a_sig, warm))
 
 
+def _close_volume(dev, n, T, seed, lens=None):
+    p = data.synthetic_ohlcv(n, T, seed=seed)
+    close, volume = p.close, p.volume
+    for f in (close, volume):
+        for i, m in enumerate(lens if lens is not None else ()):
+            f[i, m:] = f[i, m - 1]
+    close, volume = (torch.as_tensor(f, device=dev).contiguous()
+                     for f in (close, volume))
+    tr = torch.from_numpy(fused._check_t_real(lens, n, T)).to(dev)
+    return close, volume, tr, fused.simple_returns(close).contiguous()
+
+
+def _obv_inputs(dev, n, T, seed, lens=None):
+    close, volume, tr, r = _close_volume(dev, n, T, seed, lens)
+    _, win, _, warm = fused._window_setup(np.float32([3, 8, 20, 8, 300]),
+                                          "windows", 0.0, 1)
+    series = rolling.obv_series(close, volume).contiguous()
+    return (series, torch.cumsum(series, 1).contiguous(), r, tr,
+            *fused._to(dev, win, warm))
+
+
+def _vwap_table_inputs(dev, n, T, seed, lens=None):
+    close, volume, tr, r = _close_volume(dev, n, T, seed, lens)
+    g = sweep.product_grid(k=np.float32([1.0, 2.0]),
+                           window=np.float32([6, 20, 60]))
+    windows, _, widx, warm = fused._window_setup(g["window"].numpy(),
+                                                 "windows", -1.0, 1, 2.0)
+    z = fused.vwap_z_table(close, volume, windows)
+    return (z, r, tr, *fused._to(dev, widx, g["k"].numpy(), warm))
+
+
+def _pairs_inputs(dev, n, T, seed, lens=None):
+    closes = data.synthetic_ohlcv(2 * n, T, seed=seed).close
+    for i, m in enumerate(lens if lens is not None else ()):
+        closes[[i, n + i], m:] = closes[[i, n + i], m - 1:m]
+    y, x = (torch.as_tensor(c, device=dev).contiguous()
+            for c in (closes[:n], closes[n:]))
+    g = sweep.product_grid(lookback=np.float32([5, 20, 300]),
+                           z_entry=np.float32([0.5, 1.5]),
+                           z_exit=np.float32([0.0, 0.5]))
+    windows, widx, k, zx, warm = fused._pairs_grid_setup(
+        g["lookback"].numpy(), g["z_entry"].numpy(), g["z_exit"].numpy())
+    z, hr = fused.pairs_tables(y, x, windows)
+    tr = torch.from_numpy(fused._check_t_real(lens, n, T)).to(dev)
+    return (z, hr, tr, *fused._to(dev, widx, k, zx, warm))
+
+
 _NEW_ENTRIES = {
     "band_inline_hysteresis": (_band_inline_inputs, fused.band_inline_cuda,
                                fused.band_inline_plain,
@@ -224,6 +273,11 @@ _NEW_ENTRIES = {
                            {"machine": "hysteresis", "z_exit": 0.0}),
     "macd": (_macd_inputs, fused.macd_cuda, fused.macd_plain, {}),
     "trix": (_trix_inputs, fused.trix_cuda, fused.trix_plain, {}),
+    "obv": (_obv_inputs, fused.obv_cuda, fused.obv_plain, {}),
+    "band_table_vwap": (_vwap_table_inputs, fused.band_table_cuda,
+                        fused.band_machine_plain,
+                        {"machine": "hysteresis", "z_exit": 0.0}),
+    "pairs": (_pairs_inputs, fused.pairs_cuda, fused.pairs_plain, {}),
 }
 
 
@@ -316,3 +370,32 @@ def test_ema_wrappers_check_their_inputs(cuda):
     with pytest.raises(ValueError, match="is on"):
         fused.trix_cuda(tbl, r, tr, widx.cpu(), a_sig, warm, cost=0.0,
                         ppy=252)
+
+
+def test_volume_and_pairs_launch_counters_count_kernel_launches_only(cuda):
+    p = data.synthetic_ohlcv(4, 120, seed=3)
+    _kernels.reset_launch_counts()
+    for entry in ("obv", "band_table_vwap", "pairs"):
+        build, _, plain, kw = _NEW_ENTRIES[entry]
+        plain(*build(cuda, 2, 120, 3), cost=0.0, ppy=252, **kw)
+    assert sum(_kernels.LAUNCHES.values()) == 0
+    fused.fused_obv_sweep(p.close, p.volume, [10.0], device="cuda")
+    fused.fused_vwap_sweep(p.close, p.volume, [10.0], [1.0], device="cuda")
+    fused.fused_pairs_sweep(p.close[:2], p.close[2:], [10.0], [1.0],
+                            device="cuda")
+    torch.cuda.synchronize()
+    assert dict(_kernels.LAUNCHES) == {"obv": 1, "band_table": 1,
+                                       "pairs": 1}
+
+
+def test_volume_and_pairs_wrappers_check_their_inputs(cuda):
+    obv, cs, r, tr, win, warm = _obv_inputs(cuda, 2, 60, 1)
+    with pytest.raises(TypeError, match="float32"):
+        fused.obv_cuda(obv.double(), cs, r, tr, win, warm, cost=0.0, ppy=252)
+    z, hr, tr, widx, k, zx, warm = _pairs_inputs(cuda, 2, 60, 1)
+    with pytest.raises(ValueError, match="shape"):
+        fused.pairs_cuda(z, hr[:, :1].contiguous(), tr, widx, k, zx, warm,
+                         cost=0.0, ppy=252)
+    with pytest.raises(ValueError, match="is on"):
+        fused.pairs_cuda(z, hr, tr, widx, k, zx.cpu(), warm, cost=0.0,
+                         ppy=252)

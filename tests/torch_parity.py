@@ -21,15 +21,22 @@ def to_np(x) -> np.ndarray:
     return np.asarray(x)
 
 
-def assert_metrics_match(got, ref, *, rtol=RTOL, atol=ATOL) -> int:
+def assert_metrics_match(got, ref, *, rtol=RTOL, atol=ATOL,
+                         drift_counts: bool = False) -> int:
     """Hold ``got`` (port Metrics) against ``ref`` (reference Metrics) under
-    the flip rule; return the number of flipped cells."""
+    the flip rule; return the number of flipped cells. With
+    ``drift_counts``, a cell off by more than ``rtol``/``atol`` in any
+    metric counts against the same budget as a flipped one (the rule
+    ``chip_smoke.py`` applies to macd, trix, vwap_reversion and pairs)."""
     assert tuple(got._fields) == tuple(ref._fields)
     flipped = np.zeros(to_np(ref.turnover).shape, dtype=bool)
     for name in ref._fields:
         a, b = to_np(getattr(got, name)), to_np(getattr(ref, name))
         assert a.shape == b.shape, (name, a.shape, b.shape)
-        flipped |= np.abs(a - b) > (0.01 + 0.01 * np.abs(b))
+        if drift_counts:
+            flipped |= np.abs(a - b) > atol + rtol * np.abs(b)
+        else:
+            flipped |= np.abs(a - b) > 0.01 + 0.01 * np.abs(b)
     n_flips = int(flipped.sum())
     assert n_flips <= max(1, int(0.01 * flipped.size)), (
         f"{n_flips}/{flipped.size} position-path flips")
