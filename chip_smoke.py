@@ -24,7 +24,14 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    is timed too. Positions must be identical, so n_trades and turnover
    (sums of small integers) must be bit-equal; every other metric must
    agree at rtol=2e-4, atol=2e-5. Kernel and plain times come from CUDA
-   events after warmup.
+   events after warmup. Then K8, the roofline stage scaffolds
+   (``csrc/stages.cu``): every (stage, lanes) case of ``dbx_sma_stage``
+   (500 x 1260 x the 2000-combo SMA grid) and ``dbx_boll_stage`` (500 x
+   1260 x the 1000-combo bollinger grid), on the bench's seed-0 panel,
+   against its plain version: every output row must be bit-equal (same
+   inputs, every operation in the same order). Each case is timed beside
+   its bound and, for touch and matmul, the one PyTorch call computing
+   the same function.
 4. The main paths at full width, one per strategy: 500 synthetic tickers x
    1260 daily bars as DBX1 payloads in 500 JobSpecs with the bench grid
    (for pairs 1000 two-legged JobSpecs, the legs from 2000 synthetic
@@ -59,8 +66,12 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    and sum in its order: positions must then be identical. The generic
    path sums equity in another order, so for the new families cagr is
    held to the error its final equity may carry (``_cagr_slack``).
-5. One JSON line with each kernel entry's launches, error, times and bound;
-   then the JSON result line, last.
+   K8's main path is the port bench (``python -m
+   distributed_backtesting_exploration_tpu_torch.bench``), run here
+   in-process on every config with 3 timed iterations: every config must
+   report a rate and every K8 case must launch; its JSON line is printed.
+5. One JSON line with each kernel entry's (K8: each case's) launches,
+   error, times, bound and library time; then the JSON result line, last.
 
 This script imports nothing of JAX and nothing of the JAX package.
 """
@@ -78,94 +89,29 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-# H100 SXM peaks (NVIDIA data sheet, dense): fp32 outside the tensor cores
-# and HBM3 bandwidth. The fp32 peak counts a fused multiply-add as two
-# operations; the kernels are built with -fmad=false and the counts below
-# take each add, multiply, compare and division as one, each a lane-cycle
-# of its own, so single operations issue at half the peak. The bound of a
-# kernel is the larger of its operations over that rate and its bytes over
-# the memory rate.
-PEAK_FP32_FLOPS = 67e12
-PEAK_FP32_OPS = PEAK_FP32_FLOPS / 2
-PEAK_HBM_BYTES = 3.35e12
+from distributed_backtesting_exploration_tpu_torch import roofline
+from distributed_backtesting_exploration_tpu_torch.roofline import (
+    OPS_EACH_BAR, OPS_OBV_SMA, OPS_PER_BAR, OPS_PER_SIGNAL_BAR, OPS_SIGNAL)
 
 RTOL, ATOL = 2e-4, 2e-5
 N_TICKERS, N_BARS, COST = 500, 1260, 1e-3
-FAST_AXIS = np.arange(5, 25, dtype=np.float32)          # 20 fast windows
-SLOW_AXIS = np.arange(30, 230, 2, dtype=np.float32)     # 100 slow windows
 
-# Floating-point operations of K1 per (combo, bar), counted from
-# csrc/fused_sma.cu: every bar does the PnL and metric updates (position
-# change sub+abs, net mul+mul+sub, s1 add, s2 mul+add, downside min, its
-# square mul+add, cumulative add, equity add, peak max, drawdown
-# sub+max+div, mdd max, turnover add, active/win count 2 = 20); a bar past
-# the warmup also forms the two SMAs (sub+div each) and their difference
-# with its sign (2 more) = 6.
-OPS_PER_BAR = 20
-OPS_PER_SIGNAL_BAR = 6
-# Per (combo, bar) past the warmup, from csrc/band_machine.cu and
-# csrc/single_window.cu, beside the 20 of the metric update: the inline
-# z (three window sums, mean div, s1*s1, two divs by w, s2 sub, clamp,
-# sqrt, +eps, c-m, div = 13) and the machine (entry compares 2, state
-# compares 2 = 4); the table entry the machine only; momentum sub+sign;
-# the donchian latch two compares; macd and trix x - signal and its sign;
-# from csrc/fused_sma.cu, obv - sma and its sign; pairs the machine, as the
-# table entry.
-OPS_SIGNAL = {"band_inline": 17, "band_table": 4, "momentum": 2,
-              "donchian": 2, "macd": 2, "trix": 2, "obv": 2, "pairs": 4}
-# The SMA of the OBV (sub, div) is a function of (ticker, window, bar): the
-# function needs it once per distinct window past its warmup, though K6
-# forms it in every lane.
-OPS_OBV_SMA = 2
-# Per (combo, bar) below the ticker's length, beside the 20 of the metric
-# update, from csrc/ema_cross.cu: macd the row difference and the signal
-# EMA (sub, two muls, add = 4); trix the zero test of the previous value,
-# the division, the -1 and the signal EMA (1 + 1 + 1 + 3 = 6).
-OPS_EACH_BAR = {"macd": 4, "trix": 6}
-
-# The bench grids of the other families (bench.py, configs
-# bollinger_fused, bollinger_touch_fused, stochastic_fused, momentum_fused,
-# donchian_fused, donchian_hl_fused, rsi_fused, keltner_fused, macd_fused,
-# trix_fused, vwap_fused, obv_fused and pairs), as wire axes.
-BOLL_AXES = {"k": np.linspace(0.5, 3.0, 50).astype(np.float32),
-             "window": np.arange(10, 50, 2, dtype=np.float32)}
-STOCH_AXES = {"band": np.linspace(10, 40, 8).astype(np.float32),
-              "window": np.arange(5, 130, dtype=np.float32)}
-MOM_AXES = {"lookback": np.tile(np.arange(5, 130, dtype=np.float32), 16)}
-DON_AXES = {"window": np.tile(np.arange(10, 135, dtype=np.float32), 8)}
-RSI_AXES = {"band": np.linspace(10, 30, 40).astype(np.float32),
-            "period": np.arange(5, 55, 2, dtype=np.float32)}
-KELT_AXES = {"k": np.linspace(1.0, 3.0, 40).astype(np.float32),
-             "window": np.arange(5, 55, 2, dtype=np.float32)}
-MACD_AXES = {"fast": np.arange(5, 15, dtype=np.float32),
-             "slow": np.arange(20, 60, 4, dtype=np.float32),
-             "signal": np.arange(5, 15, dtype=np.float32)}
-TRIX_AXES = {"span": np.arange(5, 15, dtype=np.float32),
-             "signal": np.tile(np.arange(3, 13, dtype=np.float32), 10)}
-VWAP_AXES = {"k": np.linspace(0.5, 3.0, 50).astype(np.float32),
-             "window": np.arange(10, 50, 2, dtype=np.float32)}
-OBV_AXES = {"window": np.tile(np.arange(5, 130, dtype=np.float32), 16)}
-PAIRS_AXES = {"lookback": np.arange(20, 70, 5, dtype=np.float32),
-              "z_entry": np.linspace(0.5, 3.0, 50).astype(np.float32)}
+# The bench grids (the reference's bench.py, roofline.bench_axes) as wire
+# axes.
+AXES = roofline.bench_axes()
+FAST_AXIS = AXES["sma_crossover"]["fast"]          # 20 fast windows
+SLOW_AXIS = AXES["sma_crossover"]["slow"]          # 100 slow windows
 N_PAIRS = 1000
-# strategy -> (axes, kernel entry it launches, check against the golden
-# path: "exact" identical positions, "flip" the flip rule, "shift" the
-# flip-aware budget of a signal line that rounds in another order)
-FAMILIES = {
-    "bollinger": (BOLL_AXES, "band_inline", "flip"),
-    "bollinger_touch": (BOLL_AXES, "band_inline", "flip"),
-    "stochastic": (STOCH_AXES, "band_table", "exact"),
-    "momentum": (MOM_AXES, "momentum", "exact"),
-    "donchian": (DON_AXES, "donchian", "exact"),
-    "donchian_hl": (DON_AXES, "donchian", "exact"),
-    "rsi": (RSI_AXES, "band_table", "exact"),
-    "keltner": (KELT_AXES, "band_table", "exact"),
-    "macd": (MACD_AXES, "macd", "shift"),
-    "trix": (TRIX_AXES, "trix", "shift"),
-    "obv_trend": (OBV_AXES, "obv", "exact"),
-    "vwap_reversion": (VWAP_AXES, "band_table", "shift"),
-    "pairs": (PAIRS_AXES, "pairs", "shift"),
-}
+# strategy -> its check against the golden path: "exact" identical
+# positions, "flip" the flip rule, "shift" the flip-aware budget of a
+# signal line that rounds in another order. FAMILIES adds its axes and the
+# kernel entry it launches.
+CHECKS = {"bollinger": "flip", "bollinger_touch": "flip",
+          "stochastic": "exact", "momentum": "exact", "donchian": "exact",
+          "donchian_hl": "exact", "rsi": "exact", "keltner": "exact",
+          "macd": "shift", "trix": "shift", "obv_trend": "exact",
+          "vwap_reversion": "shift", "pairs": "shift"}
+FAMILIES = {s: (AXES[s], roofline.ENTRY[s], c) for s, c in CHECKS.items()}
 # The "shift" families whose golden path takes the z-score's cumsums over
 # (tickers, combos, bars) tensors where the fused path takes them over
 # (tickers, distinct windows, bars): torch's CUDA scan splits a row over a
@@ -277,9 +223,7 @@ def _k1_compare(fused, label, inputs, cost):
 def _signal_bars(tr, warm) -> float:
     """Bars below each ticker's length at or past each lane's warmup - 1,
     summed over (ticker, lane)."""
-    trf = tr.double()[:, None]
-    signal = (trf - (warm.double()[None, :] - 1)).clamp_min(0)
-    return float(torch.minimum(signal, trf).sum())
+    return roofline.signal_bars(tr.cpu().numpy(), warm.cpu().numpy())
 
 
 def _bound(tr, warm, P, ops_bar, ops_signal, n_bytes,
@@ -290,9 +234,7 @@ def _bound(tr, warm, P, ops_bar, ops_signal, n_bytes,
     rate."""
     ops = float(ops_bar * tr.double().sum() * P
                 + ops_signal * _signal_bars(tr, warm) + extra_ops)
-    t_ops, t_bytes = ops / PEAK_FP32_OPS, n_bytes / PEAK_HBM_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+    return roofline.bound_ms(ops, n_bytes)
 
 
 def _k1_bound_ms(inputs) -> tuple[float, str]:
@@ -372,7 +314,7 @@ def _common(fused, pnl, panel, t_real):
 
 def _band_inline_inputs(fused, pnl, panel, t_real):
     dev, close, _, _, tr, r = _common(fused, pnl, panel, t_real)
-    g = _flat_grid(BOLL_AXES)
+    g = _flat_grid(AXES["bollinger"])
     _, win, _, warm = fused._window_setup(g["window"], "windows", 0.0, 1)
     xc = close - close.mean(dim=1, keepdim=True)
     rows = (close, torch.cumsum(close, 1), torch.cumsum(xc, 1),
@@ -383,7 +325,7 @@ def _band_inline_inputs(fused, pnl, panel, t_real):
 
 def _band_table_inputs(fused, pnl, panel, t_real):
     dev, close, high, low, tr, r = _common(fused, pnl, panel, t_real)
-    g = _flat_grid(STOCH_AXES)
+    g = _flat_grid(AXES["stochastic"])
     windows, _, widx, warm = fused._window_setup(g["window"], "windows",
                                                  0.0, 1)
     z = fused.stochastic_z_table(close, high, low, windows)
@@ -392,14 +334,14 @@ def _band_table_inputs(fused, pnl, panel, t_real):
 
 def _momentum_inputs(fused, pnl, panel, t_real):
     dev, close, _, _, tr, r = _common(fused, pnl, panel, t_real)
-    _, lb, _, warm = fused._window_setup(MOM_AXES["lookback"], "lookbacks",
-                                         1.0, 0)
+    _, lb, _, warm = fused._window_setup(AXES["momentum"]["lookback"],
+                                         "lookbacks", 1.0, 0)
     return (close, r, tr, *fused._to(dev, lb, warm))
 
 
 def _donchian_inputs(fused, pnl, panel, t_real):
     dev, close, high, low, tr, r = _common(fused, pnl, panel, t_real)
-    windows, _, widx, warm = fused._window_setup(DON_AXES["window"],
+    windows, _, widx, warm = fused._window_setup(AXES["donchian"]["window"],
                                                  "windows", 1.0, 1)
     sig = fused.donchian_sign_table(close, high, low, windows)
     return (sig, r, tr, *fused._to(dev, widx, warm))
@@ -407,7 +349,7 @@ def _donchian_inputs(fused, pnl, panel, t_real):
 
 def _rsi_table_inputs(fused, pnl, panel, t_real):
     dev, close, _, _, tr, r = _common(fused, pnl, panel, t_real)
-    g = _flat_grid(RSI_AXES)
+    g = _flat_grid(AXES["rsi"])
     periods, _, widx, warm = fused._window_setup(g["period"], "periods",
                                                  1.0, 1)
     z = fused.rsi_z_table(close, periods)
@@ -416,7 +358,7 @@ def _rsi_table_inputs(fused, pnl, panel, t_real):
 
 def _keltner_table_inputs(fused, pnl, panel, t_real):
     dev, close, high, low, tr, r = _common(fused, pnl, panel, t_real)
-    g = _flat_grid(KELT_AXES)
+    g = _flat_grid(AXES["keltner"])
     windows, _, widx, warm = fused._window_setup(g["window"], "windows",
                                                  0.0, 1)
     z = fused.keltner_z_table(close, high, low, windows)
@@ -425,7 +367,7 @@ def _keltner_table_inputs(fused, pnl, panel, t_real):
 
 def _macd_inputs(fused, pnl, panel, t_real):
     dev, close, _, _, tr, r = _common(fused, pnl, panel, t_real)
-    g = _flat_grid(MACD_AXES)
+    g = _flat_grid(AXES["macd"])
     spans, fidx, sidx, a_sig, warm = fused._macd_grid_setup(
         g["fast"], g["slow"], g["signal"])
     return (fused.macd_ema_table(close, spans), r, tr,
@@ -434,7 +376,7 @@ def _macd_inputs(fused, pnl, panel, t_real):
 
 def _trix_inputs(fused, pnl, panel, t_real):
     dev, close, _, _, tr, r = _common(fused, pnl, panel, t_real)
-    g = _flat_grid(TRIX_AXES)
+    g = _flat_grid(AXES["trix"])
     spans, widx, a_sig, warm = fused._trix_grid_setup(g["span"], g["signal"])
     return (fused.trix_ema_table(close, spans), r, tr,
             *fused._to(dev, widx, a_sig, warm))
@@ -446,7 +388,7 @@ def _volume(panel, dev):
 
 def _vwap_table_inputs(fused, pnl, panel, t_real):
     dev, close, _, _, tr, r = _common(fused, pnl, panel, t_real)
-    g = _flat_grid(VWAP_AXES)
+    g = _flat_grid(AXES["vwap_reversion"])
     windows, _, widx, warm = fused._window_setup(g["window"], "windows",
                                                  -1.0, 1, 2.0)
     z = fused.vwap_z_table(close, _volume(panel, dev), windows)
@@ -455,8 +397,8 @@ def _vwap_table_inputs(fused, pnl, panel, t_real):
 
 def _obv_inputs(fused, pnl, panel, t_real):
     dev, close, _, _, tr, r = _common(fused, pnl, panel, t_real)
-    _, win, _, warm = fused._window_setup(OBV_AXES["window"], "windows",
-                                          0.0, 1)
+    _, win, _, warm = fused._window_setup(AXES["obv_trend"]["window"],
+                                          "windows", 0.0, 1)
     series = fused.rolling.obv_series(close, _volume(panel, dev))
     return (series.contiguous(), torch.cumsum(series, 1).contiguous(), r,
             tr, *fused._to(dev, win, warm))
@@ -465,7 +407,7 @@ def _obv_inputs(fused, pnl, panel, t_real):
 def _pairs_inputs(fused, pnl, legs, t_real):
     dev = torch.device("cuda")
     y, x = (torch.as_tensor(c, device=dev).contiguous() for c in legs)
-    g = _flat_grid(PAIRS_AXES)
+    g = _flat_grid(AXES["pairs"])
     windows, widx, k, zx, warm = fused._pairs_grid_setup(
         g["lookback"], g["z_entry"], 0.0)
     z, hr = fused.pairs_tables(y, x, windows)
@@ -930,11 +872,115 @@ def phase_new_main_paths(kernels_mod, compute, wire, pb, data, sweep,
     return total
 
 
+# --- K8: the roofline stage scaffolds and the port bench --------------------
+
+# The TPU kernel each scaffold replaces: bench.py `stage_call` and
+# `boll_stage_call`, at their pallas_call's function.
+STAGE_REF = {"sma": "bench.py:362", "boll": "bench.py:567"}
+
+
+def _stage_library_ms(stage, inp) -> float | None:
+    """One PyTorch call computing a stage's function, where there is one:
+    touch the tables' sums; matmul the contraction of the table with the
+    lanes' one-hot (+1 fast row and -1 slow row for SMA), full f32 (TF32
+    off, as the package sets it). None for the later stages."""
+    if stage == "touch":
+        return _cuda_ms(lambda: inp.table.sum(dim=(1, 2)), reps=20,
+                        warmup=2)
+    if stage != "matmul":
+        return None
+    W, P = inp.table.shape[1], inp.row_a.shape[0]
+    lanes = torch.arange(P, device=inp.table.device)
+    onehot = torch.zeros((W, P), dtype=torch.float32,
+                         device=inp.table.device)
+    ones = torch.ones(P, dtype=torch.float32, device=inp.table.device)
+    onehot.index_put_((inp.row_a.long(), lanes), ones, accumulate=True)
+    if inp.row_b is not None:
+        onehot.index_put_((inp.row_b.long(), lanes), -ones, accumulate=True)
+    return _cuda_ms(lambda: torch.einsum("nwt,wp->np", inp.table, onehot),
+                    reps=20, warmup=2)
+
+
+def phase_stages(stages, bench, data) -> list:
+    """Every (stage, lanes) case of K8's two entries at the bench's shape
+    (SMA 500 x 1260 x 2000, bollinger 500 x 1260 x 1000, on the bench's
+    seed-0 panel) against its plain version: every row must be bit-equal
+    (same inputs, every operation in the same order). Times, bound and
+    library call per case; returns one kernels-line record per case."""
+    close = torch.as_tensor(data.synthetic_ohlcv(N_TICKERS, N_BARS,
+                                                 seed=0).close,
+                            device="cuda")
+    sg = roofline.product(AXES["sma_crossover"])
+    bg = roofline.product(AXES["bollinger"])
+    kinds = {
+        "sma": (stages.sma_stage_inputs(close, sg["fast"], sg["slow"],
+                                        device="cuda"),
+                bench.SMA_CASES, stages.sma_stage_cuda,
+                stages.sma_stage_plain),
+        "boll": (stages.boll_stage_inputs(close, bg["window"], bg["k"],
+                                          device="cuda"),
+                 bench.BOLL_CASES, stages.boll_stage_cuda,
+                 stages.boll_stage_plain)}
+    records = []
+    for kind, (inp, cases, kernel, plain) in kinds.items():
+        N, W, T = inp.table.shape
+        for stage, lanes in cases:
+            if stage == "prep":        # the table build: no kernel
+                continue
+            label = f"{kind}_stage_{stage}_l{lanes}"
+            got = kernel(inp, stage=stage, lanes=lanes)
+            ref = plain(inp, stage=stage, lanes=lanes)
+            torch.cuda.synchronize()
+            _check(bool(torch.isfinite(got).all()), f"{label}: not finite")
+            err = float((got - ref).abs().max())
+            _check(bool(torch.equal(got, ref)), f"{label}: differs from its "
+                   f"plain version, max abs err {err}")
+            ms = _cuda_ms(lambda: kernel(inp, stage=stage, lanes=lanes),
+                          reps=20, warmup=2)
+            plain_ms = _cuda_ms(lambda: plain(inp, stage=stage, lanes=lanes),
+                                reps=1, warmup=0)
+            bound_ms, bound_by = roofline.stage_bound(
+                kind, stage, N=N, T_pad=T, W_pad=W, tr=inp.tr,
+                warm=inp.warm.cpu().numpy())
+            library_ms = _stage_library_ms(stage, inp)
+            lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+            print(f"k8 {label} {N}x{T}x{W}x{inp.row_a.shape[0]}: kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                  f"{bound_ms:.4f} ms ({bound_by}), library {lib}, max abs "
+                  f"err {err:.3e}")
+            records.append({
+                "name": label, "route": "cuda",
+                "source": f"{PKG}/csrc/stages.cu",
+                "replaces": STAGE_REF[kind], "max_abs_err": err, "ms": ms,
+                "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": library_ms})
+    return records
+
+
+def phase_bench(kernels_mod, bench, records) -> None:
+    """K8's main path: the port bench in-process on every config (fewer
+    iterations than its default), with the launch counts reset just before
+    it; every K8 case must have launched. Prints the bench's JSON line."""
+    kernels_mod.reset_launch_counts()
+    result = bench.run(bench.Settings(iters=3, warmup=1))
+    launches = dict(kernels_mod.LAUNCHES)
+    print(json.dumps(result))
+    print(f"bench launches {launches}")
+    for name in (*bench.FUSED, "roofline_stages_full",
+                 "roofline_stages_boll_full"):
+        _check(result["configs"].get(name, 0) > 0, f"bench: {name} gave "
+               "no rate")
+    for rec in records:
+        rec["launches"] = launches.get(rec["name"], 0)
+        _check(rec["launches"] > 0, f"{rec['name']} launched no time in the "
+               "bench")
+
+
 def main() -> None:
     phase_card()
-    from distributed_backtesting_exploration_tpu_torch import models
+    from distributed_backtesting_exploration_tpu_torch import bench, models
     from distributed_backtesting_exploration_tpu_torch.ops import (
-        _kernels, fused, pnl)
+        _kernels, fused, pnl, stages)
     from distributed_backtesting_exploration_tpu_torch.parallel import sweep
     from distributed_backtesting_exploration_tpu_torch.rpc import (
         backtesting_pb2 as pb, compute, wire)
@@ -943,6 +989,7 @@ def main() -> None:
     phase_build(_kernels)
     k1 = phase_kernels(fused, pnl, data)
     new = phase_new_kernels(fused, pnl, data)
+    k8 = phase_stages(stages, bench, data)
     launches = phase_main_path(_kernels, compute, wire, pb, data, sweep,
                                models, fused)
     k1["launches"] = launches.get("fused_sma", 0)
@@ -952,7 +999,8 @@ def main() -> None:
         rec["launches"] = new_launches.get(entry, 0)
         _check(rec["launches"] > 0, f"{entry} launched no time on the main "
                "paths")
-    print(json.dumps({"kernels": [k1, *new.values()]}))
+    phase_bench(_kernels, bench, k8)
+    print(json.dumps({"kernels": [k1, *new.values(), *k8]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

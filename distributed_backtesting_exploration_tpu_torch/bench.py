@@ -1,0 +1,375 @@
+"""The port's benchmark: backtests/s of each fused sweep on one card, and
+the roofline stage attribution of its SMA and bollinger kernels.
+
+Run on the card from the repository root:
+
+    python -m distributed_backtesting_exploration_tpu_torch.bench
+
+It is the counterpart of the reference's ``bench.py`` for the configs the
+port serves: the 14 fused sweeps (``sma_fused`` the headline: 500 tickers x
+1260 daily bars x a 2000-combo SMA-crossover grid) with the reference's
+grids, and ``roofline_stages``, the stage scaffolds of K8
+(``ops/stages.py``). It prints one JSON line to stdout with the
+reference's top-level keys:
+
+    {"metric": ..., "value": N, "unit": "backtests/sec", "vs_baseline": N,
+     "configs": {name: rate, ...}, "roofline": {...}, "device": {...}}
+
+``roofline`` holds ``sma_stages`` and ``bollinger_stages`` (seconds per
+sweep of each stage and the attribution the reference derives from them)
+and, per config, its shares of the H100's fp32 and memory peaks
+(:mod:`.roofline`); ``device`` the card's name and power limit. The
+reference's baseline is 1 backtest/s, so ``vs_baseline`` is the rate.
+
+Method, as the reference's: the first call (here the kernel build) is
+excluded, then ``DBX_BENCH_WARMUP`` calls, then ``DBX_BENCH_ITERS`` timed
+calls whose sharpe sums chain into one device accumulator, synchronized
+once at the end. The panel is made from seed 0 (pairs: seed 1, 2 legs a
+pair) and put on the device before timing. Unlike the reference, whose
+stage calls each rebuild their table, the stage kernels here are timed on
+tables built once: the table build is its own case, ``prep``.
+
+The port has one kernel design per family, a sequential pass per lane, so
+the reference's substrate A/Bs (``full_ladder``, ``signal_ladder``,
+``table_hbm``/``table_inline``, ``epilogue_ladder``/``epilogue_scan``) run
+the same code on both sides and their ratios read about 1 by construction.
+
+Environment: ``DBX_BENCH_TICKERS`` (500), ``DBX_BENCH_BARS`` (1260),
+``DBX_BENCH_PARAMS`` (2000), ``DBX_BENCH_ITERS`` (10),
+``DBX_BENCH_WARMUP`` (12), ``DBX_BENCH_CONFIGS`` (a comma list, default
+all) and ``DBX_BENCH_CPU=1``, the explicit request to run the plain
+versions on the CPU (a structure check; its times are the CPU's). Without
+it the bench runs on CUDA and raises where there is no card.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from . import device as device_mod
+from . import roofline
+from .ops import fused, stages
+from .utils import data
+
+COST = 1e-3
+HEADLINE = "sma_fused"
+METRIC = ("backtests/sec/chip (ticker x param combos), SMA-crossover sweep, "
+          "5y daily bars")
+
+# Bench config -> (strategy, sweep, panel fields, grid axes in the sweep's
+# argument order); the grids are the reference bench's
+# (roofline.bench_axes). pairs takes two close legs.
+FUSED = {
+    "sma_fused": ("sma_crossover", fused.fused_sma_sweep, ("close",),
+                  ("fast", "slow")),
+    "bollinger_fused": ("bollinger", fused.fused_bollinger_sweep,
+                        ("close",), ("window", "k")),
+    "bollinger_touch_fused": ("bollinger_touch",
+                              fused.fused_bollinger_touch_sweep, ("close",),
+                              ("window", "k")),
+    "momentum_fused": ("momentum", fused.fused_momentum_sweep, ("close",),
+                       ("lookback",)),
+    "donchian_fused": ("donchian", fused.fused_donchian_sweep, ("close",),
+                       ("window",)),
+    "donchian_hl_fused": ("donchian_hl", fused.fused_donchian_hl_sweep,
+                          ("close", "high", "low"), ("window",)),
+    "vwap_fused": ("vwap_reversion", fused.fused_vwap_sweep,
+                   ("close", "volume"), ("window", "k")),
+    "keltner_fused": ("keltner", fused.fused_keltner_sweep,
+                      ("close", "high", "low"), ("window", "k")),
+    "stochastic_fused": ("stochastic", fused.fused_stochastic_sweep,
+                         ("close", "high", "low"), ("window", "band")),
+    "rsi_fused": ("rsi", fused.fused_rsi_sweep, ("close",),
+                  ("period", "band")),
+    "macd_fused": ("macd", fused.fused_macd_sweep, ("close",),
+                   ("fast", "slow", "signal")),
+    "trix_fused": ("trix", fused.fused_trix_sweep, ("close",),
+                   ("span", "signal")),
+    "obv_fused": ("obv_trend", fused.fused_obv_sweep, ("close", "volume"),
+                  ("window",)),
+    "pairs": ("pairs", fused.fused_pairs_sweep, None,
+              ("lookback", "z_entry")),
+}
+# The reference bench's order, roofline_stages second.
+CONFIGS = ("sma_fused", "roofline_stages", *list(FUSED)[1:])
+_WINDOW_AXES = {"fast", "slow", "window", "lookback", "period", "span"}
+
+# (stage, lanes) cases of the SMA scaffold (the reference's bench.py
+# roofline_stages list) and the bollinger scaffold's stages (at 128 lanes).
+SMA_CASES = (("prep", 128), ("touch", 128), ("matmul", 128),
+             ("signal", 128), ("no_ladders", 128), ("full", 128),
+             ("full_ladder", 128), ("full", 256), ("full", 512),
+             ("full", 1024), ("no_ladders", 512))
+BOLL_CASES = tuple((s, 128) for s in stages.BOLL_STAGES)
+
+
+class Settings(NamedTuple):
+    n_tickers: int = 500
+    n_bars: int = 1260
+    n_params: int = 2000
+    iters: int = 10
+    warmup: int = 12
+    configs: frozenset | None = None
+    cpu: bool = False
+
+
+def settings_from_env(env) -> Settings:
+    only = env.get("DBX_BENCH_CONFIGS")
+    return Settings(
+        n_tickers=int(env.get("DBX_BENCH_TICKERS", 500)),
+        n_bars=int(env.get("DBX_BENCH_BARS", 1260)),
+        n_params=int(env.get("DBX_BENCH_PARAMS", 2000)),
+        iters=int(env.get("DBX_BENCH_ITERS", 10)),
+        warmup=int(env.get("DBX_BENCH_WARMUP", 12)),
+        configs=frozenset(only.split(",")) if only else None,
+        cpu=env.get("DBX_BENCH_CPU") == "1")
+
+
+def device_info(dev: torch.device) -> dict:
+    """The device a run measured: for a card its name, ``nvidia-smi``'s
+    power limit (None where it gives none) and the card count."""
+    if dev.type == "cpu":
+        return {"platform": "cpu", "name": "cpu", "power_limit": None,
+                "count": 0}
+    limit = None
+    try:
+        smi = subprocess.run(
+            ["nvidia-smi", "-i", str(dev.index or 0),
+             "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60)
+        fields = smi.stdout.strip().split(",")
+        if smi.returncode == 0 and len(fields) == 2:
+            limit = fields[1].strip()
+    except (OSError, subprocess.SubprocessError):
+        pass
+    return {"platform": "gpu", "name": torch.cuda.get_device_name(dev),
+            "power_limit": limit, "count": torch.cuda.device_count()}
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _measure(run: Callable[[], torch.Tensor], n_backtests: int, *,
+             iters: int, warmup: int, name: str, dev: torch.device) -> float:
+    """Backtests/s of ``run`` (returning its (N, P) sharpe or stage row):
+    the first call (the build) and ``warmup`` calls untimed, then ``iters``
+    calls chained into one accumulator, synchronized once."""
+    t0 = time.perf_counter()
+    first = run()
+    if not bool(torch.isfinite(first).all()):
+        raise RuntimeError(f"{name}: non-finite output")
+    build_s = time.perf_counter() - t0
+    acc = torch.zeros((), dtype=torch.float64, device=dev)
+    for _ in range(warmup):
+        acc = acc + run().sum()
+    _sync(dev)
+    t0 = time.perf_counter()
+    acc = torch.zeros((), dtype=torch.float64, device=dev)
+    for _ in range(iters):
+        acc = acc + run().sum()
+    total = float(acc)   # the synchronizing fetch
+    elapsed = time.perf_counter() - t0
+    if not np.isfinite(total):
+        raise RuntimeError(f"{name}: non-finite accumulator")
+    rate = n_backtests * iters / elapsed
+    print(f"bench[{name}]: first call {build_s:.3f}s, {iters}x "
+          f"{n_backtests} backtests in {elapsed:.6f}s -> {rate / 1e6:.4f}M/s",
+          file=sys.stderr)
+    return rate
+
+
+def _attribution(times: dict, full_key: str = "full_l128") -> dict:
+    """The reference's consecutive-delta attribution of stage times."""
+    full_s = times[full_key]
+    out = {
+        "selection_matmul_pct": 100 * times["matmul_l128"] / full_s,
+        "signal_delta_pct": 100 * (times["signal_l128"]
+                                   - times["matmul_l128"]) / full_s,
+        "reductions_delta_pct": 100 * (times["no_ladders_l128"]
+                                       - times["signal_l128"]) / full_s,
+        "ladders_delta_pct": 100 * (full_s - times["no_ladders_l128"])
+        / full_s,
+    }
+    if "full_ladder_l128" in times:
+        out["ladder_fallback_delta_pct"] = 100 * (
+            times["full_ladder_l128"] - times["no_ladders_l128"]) / times[
+                "full_ladder_l128"]
+        out["epilogue_scan_speedup"] = times["full_ladder_l128"] / full_s
+    return out
+
+
+class _Bench:
+    def __init__(self, s: Settings, dev: torch.device):
+        self.s, self.dev = s, dev
+        self.rates: dict[str, float] = {}
+        self.roofline: dict = {}
+        panel = data.synthetic_ohlcv(s.n_tickers, s.n_bars, seed=0)
+        self.panel = {f: torch.as_tensor(getattr(panel, f), device=dev)
+                      for f in ("close", "high", "low", "volume")}
+        self.axes = roofline.bench_axes(s.n_params)
+        _sync(dev)
+
+    def measure(self, run, n_backtests, name):
+        return _measure(run, n_backtests, name=name, dev=self.dev,
+                        iters=self.s.iters, warmup=self.s.warmup)
+
+    def grid(self, strategy: str) -> dict[str, np.ndarray]:
+        return roofline.product(self.axes[strategy])
+
+    def fused_config(self, name: str) -> None:
+        strategy, sweep, fields, names = FUSED[name]
+        g = self.grid(strategy)
+        P = len(g[names[0]])
+        iters, warmup = self.s.iters, self.s.warmup
+        if fields is None:
+            # bench.py's pairs: 2 * n_pairs synthetic tickers, seed 1, and
+            # fewer runs.
+            n_rows = min(2 * self.s.n_tickers, 1000)
+            legs = data.synthetic_ohlcv(2 * n_rows, self.s.n_bars,
+                                        seed=1).close
+            closes = torch.as_tensor(legs, device=self.dev)
+            inputs = (closes[:n_rows], closes[n_rows:])
+            iters, warmup = max(iters // 2, 3), max(warmup // 3, 2)
+        else:
+            inputs = tuple(self.panel[f] for f in fields)
+            n_rows = self.s.n_tickers
+        args = inputs + tuple(g[n] for n in names)
+        _sync(self.dev)
+        rate = _measure(
+            lambda: sweep(*args, cost=COST, device=self.dev).sharpe,
+            n_rows * P, name=name, dev=self.dev, iters=iters, warmup=warmup)
+        self.rates[name] = rate
+        n_distinct = np.unique(np.concatenate(
+            [g[n] for n in names if n in _WINDOW_AXES])).size
+        self.roofline[name] = roofline.utilization(
+            rate if self.dev.type == "cuda" else None, self.s.n_bars,
+            roofline.config_model(strategy, n_distinct, P, self.s.n_bars))
+
+    def _stage_times(self, kind: str, cases, a, b) -> dict[str, float]:
+        close = self.panel["close"]
+        make, stage_fn = ((stages.sma_stage_inputs, stages.sma_stage)
+                          if kind == "sma" else
+                          (stages.boll_stage_inputs, stages.boll_stage))
+        inp = make(close, a, b, device=self.dev)
+        n_bt = self.s.n_tickers * len(a)
+        times = {}
+        for stage, lanes in cases:
+            if stage == "prep":
+                def run():
+                    return stages.prep_value(make(close, a, b,
+                                                  device=self.dev))
+            else:
+                def run(stage=stage, lanes=lanes):
+                    return stage_fn(inp, stage=stage, lanes=lanes)[0]
+            rate = self.measure(run, n_bt, f"{kind}_stage_{stage}_l{lanes}")
+            times[f"{stage}_l{lanes}"] = n_bt / rate
+        return times
+
+    def _sweep_time(self, sweep, args, n_bt, name, **kw) -> float:
+        rate = self.measure(
+            lambda: sweep(*args, cost=COST, device=self.dev, **kw).sharpe,
+            n_bt, name)
+        return n_bt / rate
+
+    def roofline_stages(self) -> None:
+        close = self.panel["close"]
+        g = self.grid("sma_crossover")
+        fast, slow = g["fast"], g["slow"]
+        n_bt = self.s.n_tickers * len(fast)
+        p_pad = -(-len(fast) // 128) * 128
+        # Lane counts the padded grid does not fill are skipped, as the
+        # reference skips them.
+        cases = [(st, n) for st, n in SMA_CASES
+                 if p_pad >= n and p_pad % n == 0]
+        times = self._stage_times("sma", cases, fast, slow)
+        attr = _attribution(times)
+        if "full_l512" in times:
+            attr["wide_block_speedup_l512"] = (times["full_l128"]
+                                               / times["full_l512"])
+        for mode in ("hbm", "inline"):
+            times[f"table_{mode}"] = self._sweep_time(
+                fused.fused_sma_sweep, (close, fast, slow), n_bt,
+                f"sma_table_{mode}", table=mode)
+        attr["inline_table_speedup"] = (times["table_hbm"]
+                                        / times["table_inline"])
+        for mode in ("ladder", "scan"):
+            times[f"epilogue_{mode}"] = self._sweep_time(
+                fused.fused_sma_sweep, (close, fast, slow), n_bt,
+                f"sma_epilogue_{mode}", epilogue=mode)
+        attr["epilogue_e2e_speedup"] = (times["epilogue_ladder"]
+                                        / times["epilogue_scan"])
+        self.roofline["sma_stages"] = {
+            **{f"{k}_s_per_sweep": v for k, v in times.items()}, **attr}
+        self.rates["roofline_stages_full"] = n_bt / times["full_l128"]
+        print(f"bench[roofline_stages]: attribution {attr}", file=sys.stderr)
+
+        bg = self.grid("bollinger")
+        window, k = bg["window"], bg["k"]
+        b_bt = self.s.n_tickers * len(window)
+        btimes = self._stage_times("boll", BOLL_CASES, window, k)
+        battr = _attribution(btimes)
+        battr["compose_delta_pct"] = 100 * (
+            btimes["signal_l128"] - btimes["matmul_l128"]) / btimes[
+                "full_l128"]
+        battr["compose_ladder_delta_pct"] = 100 * (
+            btimes["signal_ladder_l128"] - btimes["matmul_l128"]) / btimes[
+                "full_l128"]
+        for mode in ("ladder", "scan"):
+            btimes[f"epilogue_{mode}"] = self._sweep_time(
+                fused.fused_bollinger_sweep, (close, window, k), b_bt,
+                f"boll_epilogue_{mode}", epilogue=mode)
+        battr["epilogue_e2e_speedup"] = (btimes["epilogue_ladder"]
+                                         / btimes["epilogue_scan"])
+        self.roofline["bollinger_stages"] = {
+            **{f"{k}_s_per_sweep": v for k, v in btimes.items()}, **battr}
+        self.rates["roofline_stages_boll_full"] = b_bt / btimes["full_l128"]
+        print(f"bench[roofline_stages/bollinger]: attribution {battr}",
+              file=sys.stderr)
+
+
+def run(s: Settings) -> dict:
+    """Run the configs of ``s`` and return the result line's object."""
+    dev = (torch.device("cpu") if s.cpu
+           else device_mod.resolve(device_mod.DEFAULT_DEVICE))
+    print(f"bench: device={dev} tickers={s.n_tickers} bars={s.n_bars} "
+          f"params={s.n_params}", file=sys.stderr)
+    b = _Bench(s, dev)
+    for name in CONFIGS:
+        if s.configs is not None and name not in s.configs:
+            continue
+        if name == "roofline_stages":
+            b.roofline_stages()
+        else:
+            b.fused_config(name)
+    if not b.rates:
+        raise SystemExit(f"bench: no configs ran: DBX_BENCH_CONFIGS="
+                         f"{','.join(sorted(s.configs or ()))} matched "
+                         f"nothing (known: {', '.join(CONFIGS)})")
+    headline = HEADLINE if HEADLINE in b.rates else next(iter(b.rates))
+    metric = METRIC if headline == HEADLINE else (
+        f"backtests/sec/chip (ticker x param combos), config={headline}")
+    return {"metric": metric, "value": b.rates[headline],
+            "unit": "backtests/sec", "vs_baseline": b.rates[headline],
+            "configs": b.rates, "roofline": b.roofline,
+            "device": device_info(dev)}
+
+
+def main(env=None) -> None:
+    """Print the result line of a run set by ``env`` (default the process
+    environment)."""
+    print(json.dumps(run(settings_from_env(os.environ if env is None
+                                           else env))))
+
+
+if __name__ == "__main__":
+    main()

@@ -65,25 +65,17 @@
 // z-table built from the same cumsums, and the positions and metrics equal
 // the plain PyTorch version's bit for bit.
 
+#include "band_next.cuh"
 #include "metrics_tail.cuh"
 
 namespace {
 
+using dbx::band_next;
+using dbx::kHysteresis;
+using dbx::kTouch;
+
 constexpr int kThreads = 128;
 constexpr size_t kMaxStagedBytes = 96 * 1024;
-constexpr int kHysteresis = 0;
-constexpr int kTouch = 1;
-
-// Next state of the band machine from `state` (exactly -1, 0 or +1) on a
-// valid bar with z-score `z`.
-template <int kMachine>
-__device__ __forceinline__ float band_next(float state, float z, float k,
-                                           float z_exit) {
-  const float entered = z < -k ? 1.f : (z > k ? -1.f : 0.f);
-  if (kMachine == kTouch || state == 0.f) return entered;
-  if (state > 0.f) return z >= -z_exit ? 0.f : state;
-  return z <= z_exit ? 0.f : state;
-}
 
 // Windowed sum cs[t] - cs[t-w] (cs[t-w] = 0 for t < w).
 __device__ __forceinline__ float wsum(const float* cs, int t, int w) {

@@ -118,6 +118,10 @@ _SIGNATURES = {
         "dbx_macd": [_VP] * 8 + [_CI] * 4 + [_CF, _CI, _VP],
         "dbx_trix": [_VP] * 7 + [_CI] * 4 + [_CF, _CI, _VP],
     },
+    "stages": {
+        "dbx_sma_stage": [_VP] * 6 + [_CI] * 7 + [_CF, _CI, _VP],
+        "dbx_boll_stage": [_VP] * 6 + [_CI] * 7 + [_CF, _CI, _VP],
+    },
 }
 
 
@@ -153,3 +157,9 @@ def ema_cross_lib() -> ctypes.CDLL:
     """K4's and K5's library (``csrc/ema_cross.cu``): ``dbx_macd`` and
     ``dbx_trix``."""
     return _typed("ema_cross")
+
+
+def stages_lib() -> ctypes.CDLL:
+    """K8's library (``csrc/stages.cu``), the roofline stage scaffolds:
+    ``dbx_sma_stage`` and ``dbx_boll_stage``."""
+    return _typed("stages")

@@ -316,16 +316,19 @@ def _lagged_window_sum(c: torch.Tensor, windows: torch.Tensor) -> torch.Tensor:
     return c - lag
 
 
-def _sma_rows(cs: torch.Tensor, windows: torch.Tensor) -> torch.Tensor:
-    """The distinct-window SMA table of the ``(N, T)`` cumsum ``cs`` with
-    the reference's ``_sma_table`` op sequence, ``(cs[t] - cs[t-w]) /
-    float(w)``, 0 for ``t < w - 1``, laid out ``(T, N, W)`` for a bar-by-bar
-    pass."""
+def sma_table(cs: torch.Tensor, windows: torch.Tensor) -> torch.Tensor:
+    """The ``(N, W, T)`` distinct-window SMA table of the ``(N, T)`` cumsum
+    ``cs`` with the reference's ``_sma_table`` op sequence,
+    ``(cs[t] - cs[t-w]) / float(w)``, 0 for ``t < w - 1``."""
     t = torch.arange(cs.shape[1], device=cs.device)
     table = _lagged_window_sum(cs, windows) / windows.to(cs.dtype)[:, None]
-    table = torch.where(t[None, :] >= windows[:, None] - 1, table,
-                        torch.zeros_like(table))
-    return table.permute(2, 0, 1).contiguous()
+    return torch.where(t[None, :] >= windows[:, None] - 1, table,
+                       torch.zeros_like(table))
+
+
+def _sma_rows(cs: torch.Tensor, windows: torch.Tensor) -> torch.Tensor:
+    """:func:`sma_table` laid out ``(T, N, W)`` for a bar-by-bar pass."""
+    return sma_table(cs, windows).permute(2, 0, 1).contiguous()
 
 
 # --- K1: SMA crossover ----------------------------------------------------

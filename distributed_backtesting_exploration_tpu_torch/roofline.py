@@ -1,0 +1,212 @@
+"""The H100's peaks, the operation counts of the port's kernels and the
+bench grids: one source for ``chip_smoke.py`` and the port bench
+(:mod:`.bench`).
+
+Bounds. A kernel's bound is the least time the card could take for its
+work: the larger of its fp32 operations over the fp32 rate and the bytes
+it must move (each input read once, each output written once) over the
+memory rate. The fp32 peak (H100 SXM, NVIDIA data sheet, dense) counts a
+fused multiply-add as two operations; the kernels are built with
+-fmad=false and the counts below take each add, multiply, compare and
+division as one, each a lane-cycle of its own, so single operations issue
+at half the peak.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+PEAK_FP32_FLOPS = 67e12
+PEAK_FP32_OPS = PEAK_FP32_FLOPS / 2
+PEAK_HBM_BYTES = 3.35e12
+
+# Floating-point operations of K1 per (combo, bar), counted from
+# csrc/fused_sma.cu: every bar does the PnL and metric updates (position
+# change sub+abs, net mul+mul+sub, s1 add, s2 mul+add, downside min, its
+# square mul+add, cumulative add, equity add, peak max, drawdown
+# sub+max+div, mdd max, turnover add, active/win count 2 = 20); a bar past
+# the warmup also forms the two SMAs (sub+div each) and their difference
+# with its sign (2 more) = 6.
+OPS_PER_BAR = 20
+OPS_PER_SIGNAL_BAR = 6
+# Per (combo, bar) past the warmup, from csrc/band_machine.cu and
+# csrc/single_window.cu, beside the 20 of the metric update: the inline
+# z (three window sums, mean div, s1*s1, two divs by w, s2 sub, clamp,
+# sqrt, +eps, c-m, div = 13) and the machine (entry compares 2, state
+# compares 2 = 4); the table entry the machine only; momentum sub+sign;
+# the donchian latch two compares; macd and trix x - signal and its sign;
+# from csrc/fused_sma.cu, obv - sma and its sign; pairs the machine, as the
+# table entry.
+OPS_SIGNAL = {"band_inline": 17, "band_table": 4, "momentum": 2,
+              "donchian": 2, "macd": 2, "trix": 2, "obv": 2, "pairs": 4}
+# The SMA of the OBV (sub, div) is a function of (ticker, window, bar): the
+# function needs it once per distinct window past its warmup, though K6
+# forms it in every lane.
+OPS_OBV_SMA = 2
+# Per (combo, bar) below the ticker's length, beside the 20 of the metric
+# update, from csrc/ema_cross.cu: macd the row difference and the signal
+# EMA (sub, two muls, add = 4); trix the zero test of the previous value,
+# the division, the -1 and the signal EMA (1 + 1 + 1 + 3 = 6).
+OPS_EACH_BAR = {"macd": 4, "trix": 6}
+
+# K8 (csrc/stages.cu), per (lane, bar), by scaffold and stage: "all" counts
+# on every bar the stage walks (T_pad bars for matmul and signal, the real
+# bars for no_ladders and full), "signal" on those bars at or past the
+# lane's warmup - 1. matmul: the SMA's row difference and the add (the
+# bollinger z is a read and an add); signal: SMA sub and sign, bollinger
+# the machine (4), then the product and the add; no_ladders: the metric
+# update of OPS_PER_BAR less the equity, peak and drawdown (cumulative
+# add, equity add, peak max, drawdown sub+max+div, mdd max = 7), and for
+# bollinger also less the downside min and square and the hit counts (5),
+# with the SMA's sub and sign or the machine past the warmup; full: the
+# metric update with the same. touch is the ticker's table sum, one add an
+# element (a function of the ticker, whatever the lanes).
+STAGE_OPS = {
+    "sma": {"matmul": (2, 0), "signal": (0, 4), "no_ladders": (13, 2),
+            "full": (OPS_PER_BAR, 2)},
+    "boll": {"matmul": (1, 0), "signal": (0, 6), "no_ladders": (8, 4),
+             "full": (OPS_PER_BAR, 4)},
+}
+
+
+def bound_ms(ops: float, n_bytes: float) -> tuple[float, str]:
+    """Least time for ``ops`` single fp32 operations and ``n_bytes`` of
+    memory traffic on the H100, in ms, and which of the two bounds it."""
+    t_ops, t_bytes = ops / PEAK_FP32_OPS, n_bytes / PEAK_HBM_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def signal_bars(tr, warm, limit=None) -> float:
+    """Bars below ``limit`` (default each ticker's length ``tr``) at or past
+    each lane's ``warm - 1``, summed over (ticker, lane); ``tr`` (N,) and
+    ``warm`` (P,) integer arrays."""
+    tr = np.asarray(tr, np.float64)[:, None]
+    end = tr if limit is None else np.full_like(tr, float(limit))
+    live = end - (np.asarray(warm, np.float64)[None, :] - 1)
+    return float(np.minimum(np.clip(live, 0, None), end).sum())
+
+
+def stage_bound(kind: str, stage: str, *, N: int, T_pad: int, W_pad: int,
+                tr: int, warm) -> tuple[float, str]:
+    """Bound of one K8 stage (``kind`` "sma" or "boll") on an (N, W_pad,
+    T_pad) table, ``tr`` real bars and the lanes' (P,) warmups: the bytes
+    it reads (the table; from signal on, the returns row too; the lanes'
+    rows, bands and warmups) and writes (9 rows of (N, P) f32)."""
+    P = len(warm)
+    out = 4.0 * 9 * N * P
+    table = 4.0 * N * W_pad * T_pad
+    if stage == "touch":
+        return bound_ms(N * W_pad * T_pad, table + out)
+    lane_bytes = 4.0 * P * 3
+    stage = {"signal_ladder": "signal", "full_ladder": "full"}.get(stage,
+                                                                   stage)
+    every, live = STAGE_OPS[kind][stage]
+    limit = T_pad if stage in ("matmul", "signal") else tr
+    tr_col = np.full((N,), tr)
+    ops = every * N * P * limit + live * signal_bars(tr_col, warm, limit)
+    n_bytes = table + out + lane_bytes
+    if stage != "matmul":
+        n_bytes += 4.0 * N * T_pad
+    return bound_ms(ops, n_bytes)
+
+
+# --- the bench grids -------------------------------------------------------
+
+def bench_axes(n_params: int = 2000) -> dict[str, dict[str, np.ndarray]]:
+    """Each fused strategy's grid axes as the reference's ``bench.py``
+    builds them for ``DBX_BENCH_PARAMS=n_params``, in its argument order
+    (the flat grid is their row-major product, ``product_grid``'s order).
+    At the default 2000: sma_crossover 2000 combos, momentum and obv_trend
+    2000, pairs 500, every other family 1000."""
+    f32 = np.float32
+    small = min(n_params, 1000)
+    band = {"k": np.linspace(0.5, 3.0, max(small // 20, 1)).astype(f32),
+            "window": np.arange(10, 50, 2, dtype=f32)}
+    donchian = {"window": np.tile(np.arange(10, 135, dtype=f32),
+                                  max(small // 125, 1))}
+    return {
+        "sma_crossover": {
+            "fast": np.arange(5, 25, dtype=f32),
+            "slow": np.arange(30, 30 + 2 * max(n_params // 20, 1), 2,
+                              dtype=f32)},
+        "bollinger": band,
+        "bollinger_touch": band,
+        "momentum": {"lookback": np.tile(np.arange(5, 130, dtype=f32),
+                                         max(n_params // 125, 1))},
+        "donchian": donchian,
+        "donchian_hl": donchian,
+        "vwap_reversion": band,
+        "keltner": {"k": np.linspace(1.0, 3.0, max(small // 25, 1))
+                    .astype(f32),
+                    "window": np.arange(5, 55, 2, dtype=f32)},
+        "stochastic": {"band": np.linspace(10, 40, max(small // 125, 1))
+                       .astype(f32),
+                       "window": np.arange(5, 130, dtype=f32)},
+        "rsi": {"band": np.linspace(10, 30, max(small // 25, 1)).astype(f32),
+                "period": np.arange(5, 55, 2, dtype=f32)},
+        "macd": {"fast": np.arange(5, 15, dtype=f32),
+                 "slow": np.arange(20, 60, 4, dtype=f32),
+                 "signal": np.arange(5, 15, dtype=f32)},
+        "trix": {"span": np.arange(5, 15, dtype=f32),
+                 "signal": np.tile(np.arange(3, 13, dtype=f32), 10)},
+        "obv_trend": {"window": np.tile(np.arange(5, 130, dtype=f32),
+                                        max(n_params // 125, 1))},
+        "pairs": {"lookback": np.arange(20, 70, 5, dtype=f32),
+                  "z_entry": np.linspace(0.5, 3.0, 50).astype(f32)},
+    }
+
+
+def product(axes: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+    """Flat per-combo arrays of the row-major product of ``axes`` in their
+    order."""
+    mesh = np.meshgrid(*axes.values(), indexing="ij")
+    return {n: m.reshape(-1).astype(np.float32) for n, m in zip(axes, mesh)}
+
+
+# --- the per-config model of the port bench --------------------------------
+
+# Kernel entry of each fused strategy, and the (T)-long f32 input rows it
+# reads per ticker as a function of its distinct windows W: K1 the cumsum
+# and returns; K2 inline close, three cumsums and returns; the table
+# entries W table rows and returns (the donchian sign table is int8, a
+# quarter row each); K6 obv, its cumsum and returns; K7 two rows a lookback.
+ENTRY = {"sma_crossover": "fused_sma", "bollinger": "band_inline",
+         "bollinger_touch": "band_inline", "stochastic": "band_table",
+         "rsi": "band_table", "keltner": "band_table",
+         "vwap_reversion": "band_table", "momentum": "momentum",
+         "donchian": "donchian", "donchian_hl": "donchian", "macd": "macd",
+         "trix": "trix", "obv_trend": "obv", "pairs": "pairs"}
+_ROWS = {"fused_sma": lambda w: 2, "band_inline": lambda w: 5,
+         "band_table": lambda w: w + 1, "momentum": lambda w: 2,
+         "donchian": lambda w: w / 4 + 1, "macd": lambda w: w + 1,
+         "trix": lambda w: w + 1, "obv": lambda w: 3,
+         "pairs": lambda w: 2 * w}
+
+
+def config_model(strategy: str, n_distinct: int, P: int,
+                 T: int) -> dict[str, float]:
+    """Operations and bytes per (cell, bar) of one fused sweep's kernel:
+    the metric update, the entry's signal work on every bar (an upper
+    bound: warmup bars do less), its input rows shared by the ticker's P
+    lanes, and the 9 metrics of each cell."""
+    entry = ENTRY[strategy]
+    ops = OPS_PER_BAR + OPS_EACH_BAR.get(entry, 0) + (
+        OPS_PER_SIGNAL_BAR if entry == "fused_sma" else OPS_SIGNAL[entry])
+    n_bytes = 4.0 * _ROWS[entry](n_distinct) / P + 4.0 * 9 / T
+    return {"ops": float(ops), "bytes": n_bytes}
+
+
+def utilization(rate: float | None, n_bars: int,
+                model: dict[str, float]) -> dict:
+    """A config's roofline entry at backtests/s ``rate``: the shares of the
+    H100's fp32 and memory peaks its (cell, bar)s take, which of the two
+    would bound it, and its operations per (cell, bar). ``rate`` None (a
+    run off the card) gives no shares."""
+    t_ops = model["ops"] / PEAK_FP32_OPS
+    t_bytes = model["bytes"] / PEAK_HBM_BYTES
+    cell_bars = None if rate is None else rate * n_bars
+    return {"fp32_util": None if rate is None else cell_bars * t_ops,
+            "hbm_util": None if rate is None else cell_bars * t_bytes,
+            "bound": "fp32" if t_ops >= t_bytes else "hbm",
+            "ops_per_cell_bar": model["ops"]}

@@ -1,0 +1,167 @@
+"""The port's bench (``distributed_backtesting_exploration_tpu_torch.bench``)
+run in-process on the CPU at the reference bench test's tiny size: every
+config reports a rate, and the roofline stage keys are the reference's,
+read from ``tests/test_z_bench_roofline.py`` so that the two cannot drift.
+
+A structure test, not a measurement: on the CPU the bench runs the plain
+versions, and its times are the CPU's.
+"""
+
+import ast
+import contextlib
+import io
+import json
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from distributed_backtesting_exploration_tpu_torch import bench, roofline
+
+REF_TEST = Path(__file__).resolve().parent / "test_z_bench_roofline.py"
+
+
+def _ref_constants() -> dict:
+    """The literal module constants of the reference bench's test."""
+    out = {}
+    for node in ast.parse(REF_TEST.read_text()).body:
+        if isinstance(node, ast.Assign) and len(node.targets) == 1 and \
+                isinstance(node.targets[0], ast.Name):
+            try:
+                out[node.targets[0].id] = ast.literal_eval(node.value)
+            except ValueError:
+                pass
+    return out
+
+
+REF = _ref_constants()
+TINY = {k: v for k, v in REF["_TINY_ENV"].items()
+        if k not in ("DBX_BENCH_CONFIGS", "DBX_BENCH_CACHE")}
+FUSED_CONFIGS = ("sma_fused", "bollinger_fused", "bollinger_touch_fused",
+                 "momentum_fused", "donchian_fused", "donchian_hl_fused",
+                 "vwap_fused", "keltner_fused", "stochastic_fused",
+                 "rsi_fused", "macd_fused", "trix_fused", "obv_fused",
+                 "pairs")
+
+
+@pytest.fixture(scope="module")
+def result():
+    """One tiny in-process run of every config, as printed."""
+    assert TINY["DBX_BENCH_CPU"] == "1"
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        bench.main(TINY)
+    lines = buf.getvalue().strip().splitlines()
+    assert len(lines) == 1
+    return json.loads(lines[0])
+
+
+def test_reference_keys_are_read():
+    assert {"SMA_STAGE_KEYS", "BOLL_STAGE_KEYS", "ATTRIBUTION_KEYS",
+            "_TINY_ENV"} <= set(REF)
+    assert TINY["DBX_BENCH_TICKERS"] == "2"
+
+
+def test_top_level_keys(result):
+    assert {"metric", "value", "unit", "vs_baseline", "configs",
+            "roofline", "device"} <= set(result)
+    assert result["unit"] == "backtests/sec"
+    assert result["value"] == result["configs"]["sma_fused"]
+    assert result["vs_baseline"] == result["value"]
+    assert result["metric"] == bench.METRIC
+
+
+def test_every_config_reports_a_positive_rate(result):
+    configs = result["configs"]
+    for name in FUSED_CONFIGS:
+        assert configs[name] > 0.0, name
+    assert configs["roofline_stages_full"] > 0.0
+    assert configs["roofline_stages_boll_full"] > 0.0
+    assert len(FUSED_CONFIGS) + 1 == 15 == len(bench.CONFIGS)
+
+
+def test_sma_stage_keys_are_the_references(result):
+    stages = result["roofline"]["sma_stages"]
+    for key in REF["SMA_STAGE_KEYS"]:
+        assert stages[key] > 0.0, key
+    for key in REF["ATTRIBUTION_KEYS"] + ("inline_table_speedup",):
+        assert key in stages, key
+    assert stages["epilogue_scan_speedup"] > 0.0
+
+
+def test_bollinger_stage_keys_are_the_references(result):
+    stages = result["roofline"]["bollinger_stages"]
+    for key in REF["BOLL_STAGE_KEYS"]:
+        assert stages[key] > 0.0, key
+    for key in REF["ATTRIBUTION_KEYS"] + ("compose_delta_pct",
+                                          "compose_ladder_delta_pct"):
+        assert key in stages, key
+
+
+def test_config_roofline_entries_name_no_device_share_off_the_card(result):
+    for name in FUSED_CONFIGS:
+        entry = result["roofline"][name]
+        assert entry["bound"] in ("fp32", "hbm"), name
+        assert entry["ops_per_cell_bar"] > 0, name
+        # A CPU run gives no share of the H100's peaks.
+        assert entry["fp32_util"] is None and entry["hbm_util"] is None
+
+
+def test_device_is_named_and_no_tpu_figure_is_printed(result):
+    assert result["device"] == {"platform": "cpu", "name": "cpu",
+                                "power_limit": None, "count": 0}
+    text = json.dumps(result).lower()
+    for word in ("v5e", "tpu", "mxu", "vpu"):
+        assert word not in text, word
+
+
+def test_utilization_at_a_rate():
+    model = roofline.config_model("sma_crossover", 120, 2000, 1260)
+    u = roofline.utilization(1e7, 1260, model)
+    assert u["bound"] == "fp32"
+    assert u["fp32_util"] == pytest.approx(
+        1e7 * 1260 * model["ops"] / roofline.PEAK_FP32_OPS)
+    assert 0 < u["hbm_util"] < u["fp32_util"]
+
+
+def test_bench_grids_have_the_reference_sizes():
+    sizes = {s: int(np.prod([len(v) for v in ax.values()]))
+             for s, ax in roofline.bench_axes(2000).items()}
+    assert sizes == {"sma_crossover": 2000, "momentum": 2000,
+                     "obv_trend": 2000, "pairs": 500,
+                     **{s: 1000 for s in (
+                         "bollinger", "bollinger_touch", "donchian",
+                         "donchian_hl", "vwap_reversion", "keltner",
+                         "stochastic", "rsi", "macd", "trix")}}
+    g = roofline.product(roofline.bench_axes(2000)["rsi"])
+    # bench.py's rsi grid: the band repeated over the 25 periods.
+    np.testing.assert_array_equal(g["period"][:26],
+                                  np.r_[np.arange(5, 55, 2), 5])
+
+
+def test_stage_bounds():
+    warm = np.full(2000, 1)
+    ms, by = roofline.stage_bound("sma", "touch", N=500, T_pad=1264,
+                                  W_pad=120, tr=1260, warm=warm)
+    assert by == "bytes"
+    assert ms == pytest.approx(1e3 * 4 * (500 * 120 * 1264 + 9 * 500 * 2000)
+                               / roofline.PEAK_HBM_BYTES)
+    ms_full, by = roofline.stage_bound("sma", "full", N=500, T_pad=1264,
+                                       W_pad=120, tr=1260, warm=warm)
+    assert by == "operations" and ms_full > ms
+
+
+def test_without_the_cpu_request_the_bench_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works")
+    s = bench.settings_from_env({**TINY, "DBX_BENCH_CPU": "0",
+                                 "DBX_BENCH_CONFIGS": "sma_fused"})
+    with pytest.raises(RuntimeError, match="cuda"):
+        bench.run(s)
+
+
+def test_unknown_configs_stop_the_bench():
+    s = bench.settings_from_env({**TINY, "DBX_BENCH_CONFIGS": "e2e"})
+    with pytest.raises(SystemExit, match="no configs ran"):
+        bench.run(s)

@@ -53,7 +53,8 @@ def test_every_module_imports_with_jax_blocked():
     for m in ("ops.signals", "models.bollinger", "models.stochastic",
               "models.momentum", "models.donchian", "models.macd",
               "models.trix", "models.rsi", "models.keltner", "models.obv",
-              "models.vwap", "models.pairs"):
+              "models.vwap", "models.pairs", "bench", "roofline",
+              "ops.stages"):
         assert f"{dbxt.__name__}.{m}" in mods
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
@@ -92,7 +93,8 @@ def test_no_jax_or_reference_imports(path):
 def test_kernel_sources_are_the_slices_and_include_nothing_else():
     names = {p.name for p in _kernel_sources()}
     assert {"fused_sma.cu", "band_machine.cu", "single_window.cu",
-            "ema_cross.cu", "metrics_tail.cuh"} <= names
+            "ema_cross.cu", "stages.cu", "metrics_tail.cuh",
+            "band_next.cuh"} <= names
 
 
 @pytest.mark.parametrize("path", _kernel_sources(), ids=lambda p: p.name)

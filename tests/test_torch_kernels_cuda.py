@@ -1,4 +1,4 @@
-"""K1-K7 (``csrc/*.cu``) against their plain PyTorch versions on the card.
+"""K1-K8 (``csrc/*.cu``) against their plain PyTorch versions on the card.
 
 Marked ``cuda``: every test skips with a reason where no CUDA card is
 present (the kernels have no CPU mode). On a machine with a card, and without
@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from distributed_backtesting_exploration_tpu_torch.ops import (
-    _kernels, fused, rolling)
+    _kernels, fused, rolling, stages)
 from distributed_backtesting_exploration_tpu_torch.parallel import sweep
 from distributed_backtesting_exploration_tpu_torch.utils import data
 
@@ -399,3 +399,102 @@ def test_volume_and_pairs_wrappers_check_their_inputs(cuda):
     with pytest.raises(ValueError, match="is on"):
         fused.pairs_cuda(z, hr, tr, widx, k, zx.cpu(), warm, cost=0.0,
                          ppy=252)
+
+
+# --- K8: the roofline stage scaffolds (csrc/stages.cu) ----------------------
+
+def _stage_inputs(dev, kind, n, T, seed, n_b=75):
+    """A scaffold's inputs on ``n`` x ``T`` closes: SMA 4 fast x ``n_b``
+    slow windows, bollinger 15 bands x ``n_b`` // 4 windows (300 lanes at
+    the default, a count no lane block divides)."""
+    close = data.synthetic_ohlcv(n, T, seed=seed).close
+    if kind == "sma":
+        g = sweep.product_grid(fast=np.float32([3, 5, 8, 13]),
+                               slow=np.arange(20, 20 + 2 * n_b, 2,
+                                              dtype=np.float32))
+        return stages.sma_stage_inputs(close, g["fast"].numpy(),
+                                       g["slow"].numpy(), device=dev)
+    g = sweep.product_grid(k=np.linspace(0.5, 3.0, 15).astype(np.float32),
+                           window=np.arange(5, 5 + n_b // 4 * 2, 2,
+                                            dtype=np.float32))
+    return stages.boll_stage_inputs(close, g["window"].numpy(),
+                                    g["k"].numpy(), device=dev)
+
+
+def _stage_versions(kind):
+    if kind == "sma":
+        return stages.sma_stage_cuda, stages.sma_stage_plain
+    return stages.boll_stage_cuda, stages.boll_stage_plain
+
+
+def _assert_stage_matches_plain(inp, kind, stage, lanes):
+    # Same inputs, same order of every operation: each row bit-equal.
+    kernel, plain = _stage_versions(kind)
+    got = kernel(inp, stage=stage, lanes=lanes)
+    ref = plain(inp, stage=stage, lanes=lanes)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    for i in range(9):
+        np.testing.assert_array_equal(got[i].cpu().numpy(),
+                                      ref[i].cpu().numpy(),
+                                      err_msg=f"{kind} {stage} row {i}")
+
+
+_STAGE_CASES = ([("sma", s) for s in stages.SMA_STAGES[1:]]
+                + [("boll", s) for s in stages.BOLL_STAGES[1:]])
+
+
+@pytest.mark.parametrize("lanes", stages.LANES)
+@pytest.mark.parametrize("kind,stage", _STAGE_CASES)
+def test_stage_kernels_match_plain(cuda, kind, stage, lanes):
+    _assert_stage_matches_plain(_stage_inputs(cuda, kind, 3, 251, 0), kind,
+                                stage, lanes)
+
+
+@pytest.mark.parametrize("kind", ["sma", "boll"])
+@pytest.mark.parametrize("stage", ["signal", "full"])
+@pytest.mark.parametrize("T", [13000, 30000])   # above 48 KB; unstaged
+def test_stage_kernels_match_plain_on_long_rows(cuda, kind, stage, T):
+    _assert_stage_matches_plain(_stage_inputs(cuda, kind, 1, T, 2, n_b=8),
+                                kind, stage, 128)
+
+
+def test_stage_launch_counters_count_kernel_launches_only(cuda):
+    close = data.synthetic_ohlcv(2, 100, seed=1).close
+    inp = stages.sma_stage_inputs(close, [3.0, 4.0], [10.0, 12.0],
+                                  device=cuda)
+    _kernels.reset_launch_counts()
+    stages.sma_stage_plain(inp, stage="full")
+    stages.boll_stage_plain(
+        stages.boll_stage_inputs(close, [5.0], [1.0], device=cuda),
+        stage="touch")
+    assert sum(_kernels.LAUNCHES.values()) == 0
+    stages.sma_stage_call(close, [3.0], [10.0], stage="full", lanes=256,
+                          device="cuda")
+    stages.sma_stage_call(close, [3.0], [10.0], stage="prep",
+                          device="cuda")
+    stages.sma_stage(inp, stage="full_ladder")
+    stages.boll_stage_call(close, [5.0], [1.0], stage="signal_ladder",
+                           device="cuda")
+    torch.cuda.synchronize()
+    assert dict(_kernels.LAUNCHES) == {"sma_stage_full_l256": 1,
+                                       "sma_stage_full_ladder_l128": 1,
+                                       "boll_stage_signal_ladder_l128": 1}
+
+
+def test_stage_wrappers_check_their_inputs(cuda):
+    inp = _stage_inputs(cuda, "sma", 2, 60, 1, n_b=4)
+    with pytest.raises(TypeError, match="float32"):
+        stages.sma_stage_cuda(inp._replace(table=inp.table.double()),
+                              stage="full")
+    with pytest.raises(ValueError, match="shape"):
+        stages.sma_stage_cuda(inp._replace(row_b=inp.row_b[:1]),
+                              stage="full")
+    with pytest.raises(ValueError, match="is on"):
+        stages.sma_stage_cuda(inp._replace(warm=inp.warm.cpu()),
+                              stage="full")
+    with pytest.raises(ValueError, match="tr"):
+        stages.sma_stage_cuda(inp._replace(tr=10_000), stage="full")
+    binp = _stage_inputs(cuda, "boll", 2, 60, 1, n_b=8)
+    with pytest.raises(ValueError, match="needs k"):
+        stages.boll_stage_cuda(binp._replace(k=None), stage="full")

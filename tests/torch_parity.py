@@ -29,9 +29,19 @@ def assert_metrics_match(got, ref, *, rtol=RTOL, atol=ATOL,
     metric counts against the same budget as a flipped one (the rule
     ``chip_smoke.py`` applies to macd, trix, vwap_reversion and pairs)."""
     assert tuple(got._fields) == tuple(ref._fields)
-    flipped = np.zeros(to_np(ref.turnover).shape, dtype=bool)
-    for name in ref._fields:
-        a, b = to_np(getattr(got, name)), to_np(getattr(ref, name))
+    return assert_planes_match(
+        [getattr(got, name) for name in ref._fields],
+        [getattr(ref, name) for name in ref._fields], ref._fields,
+        rtol=rtol, atol=atol, drift_counts=drift_counts)
+
+
+def assert_planes_match(got, ref, names, *, rtol=RTOL, atol=ATOL,
+                        drift_counts: bool = False) -> int:
+    """:func:`assert_metrics_match` over parallel lists of same-shaped
+    planes, ``names`` labelling each; a cell flips if any plane is off."""
+    flipped = np.zeros(to_np(ref[0]).shape, dtype=bool)
+    for name, x, y in zip(names, got, ref):
+        a, b = to_np(x), to_np(y)
         assert a.shape == b.shape, (name, a.shape, b.shape)
         if drift_counts:
             flipped |= np.abs(a - b) > atol + rtol * np.abs(b)
@@ -40,8 +50,8 @@ def assert_metrics_match(got, ref, *, rtol=RTOL, atol=ATOL,
     n_flips = int(flipped.sum())
     assert n_flips <= max(1, int(0.01 * flipped.size)), (
         f"{n_flips}/{flipped.size} position-path flips")
-    for name in ref._fields:
-        a = to_np(getattr(got, name))[~flipped]
-        b = to_np(getattr(ref, name))[~flipped]
+    for name, x, y in zip(names, got, ref):
+        a = to_np(x)[~flipped]
+        b = to_np(y)[~flipped]
         np.testing.assert_allclose(a, b, rtol=rtol, atol=atol, err_msg=name)
     return n_flips
