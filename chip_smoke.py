@@ -13,17 +13,26 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    on the card, in four cases: the main path's shape (500 tickers x 1260
    bars x the family's bench grid, cost 1e-3), cost 0, ragged lengths
    (32 x 1260) and T=251 (32 x 251). K1 on the 2000-combo SMA grid; K2's
-   inline entry on the 1000-combo bollinger grid and its table entry on
-   the 1000-combo stochastic %K table, each with both machines
+   inline entry on the 1000-combo bollinger grid, its table entry on the
+   1000-combo rsi z-table (and on the keltner and vwap z-tables at
+   32 x 1260 and at 500 x 1260, where it is timed too) and its stochastic
+   entry on the 1000-combo stochastic grid, each with both machines
    (hysteresis, touch); K3's momentum entry on 2000 lookback lanes and its
-   donchian entry on the 1000-lane high/low breakout table; K4 (macd) and
-   K5 (trix) on their 1000-combo EMA tables; K6 (obv) on the 2000-lane
-   OBV grid; K7 (pairs) on 1000 pairs x 1260 bars x the 500-combo pairs
-   grid, its small cases on 32 pairs. K2's table entry also runs on the
-   rsi, keltner and vwap z-tables at 32 x 1260 and at 500 x 1260, where it
-   is timed too. Positions must be identical, so n_trades and turnover
-   (sums of small integers) must be bit-equal; every other metric must
-   agree at rtol=2e-4, atol=2e-5. Kernel and plain times come from CUDA
+   donchian entry on the 1000-lane high/low grid; K4 (macd) and K5 (trix)
+   on their 1000-combo EMA tables; K6 (obv) on the 2000-lane OBV grid; K7
+   (pairs) on 1000 pairs x 1260 bars x the 500-combo pairs grid, its small
+   cases on 32 pairs. The window-major entries (K2's table and stochastic
+   entries, K3's donchian) take their lanes sorted by window, as their
+   sweeps pass them, and run two more cases: long rows (4 x 5000, where
+   the channel levels live in device memory) and a grid of 2368 lanes
+   whose lane blocks (1024 lanes, 128 for the table entry) straddle
+   windows, held against the plain version in the caller's lane order,
+   and launched in that order too. Their registers, resident warps an SM
+   and shared memory are printed (``csrc/occupancy.cuh``).
+   Positions must be identical, so n_trades and turnover (sums of small
+   integers) must be bit-equal; every other metric must agree at
+   rtol=2e-4, atol=2e-5, and for the window-major entries every metric
+   must be bit-equal. Kernel and plain times come from CUDA
    events after warmup. Then K8, the roofline stage scaffolds
    (``csrc/stages.cu``): every (stage, lanes) case of ``dbx_sma_stage``
    (500 x 1260 x the 2000-combo SMA grid) and ``dbx_boll_stage`` (500 x
@@ -66,6 +75,9 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    and sum in its order: positions must then be identical. The generic
    path sums equity in another order, so for the new families cagr is
    held to the error its final equity may carry (``_cagr_slack``).
+   The stochastic, donchian and donchian_hl sweeps must also leave no
+   (N, W, T) table on the card: their peak allocation during a 500-ticker
+   sweep stays below one int8 breakout-sign table of that grid.
    K8's main path is the port bench (``python -m
    distributed_backtesting_exploration_tpu_torch.bench``), run here
    in-process on every config with 3 timed iterations: every config must
@@ -78,6 +90,7 @@ This script imports nothing of JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import statistics
 import subprocess
@@ -91,7 +104,8 @@ import torch
 
 from distributed_backtesting_exploration_tpu_torch import roofline
 from distributed_backtesting_exploration_tpu_torch.roofline import (
-    OPS_EACH_BAR, OPS_OBV_SMA, OPS_PER_BAR, OPS_PER_SIGNAL_BAR, OPS_SIGNAL)
+    OPS_EACH_BAR, OPS_LEVEL, OPS_PER_BAR, OPS_PER_SIGNAL_BAR, OPS_SIGNAL,
+    OPS_WINDOW)
 
 RTOL, ATOL = 2e-4, 2e-5
 N_TICKERS, N_BARS, COST = 500, 1260, 1e-3
@@ -189,8 +203,9 @@ def _k1_inputs(fused, pnl, close, t_real, fast, slow):
             *(torch.from_numpy(a).to(dev) for a in (tr, fw, sw, warm)))
 
 
-def _compare(fused, tag, label, got, ref):
-    """Kernel vs plain output planes; returns (max_abs, max_rel)."""
+def _compare(fused, tag, label, got, ref, exact: bool = False):
+    """Kernel vs plain output planes; returns (max_abs, max_rel). With
+    ``exact`` every metric must be bit-equal."""
     torch.cuda.synchronize()
     names = fused.Metrics._fields
     max_abs = max_rel = 0.0
@@ -198,10 +213,10 @@ def _compare(fused, tag, label, got, ref):
         a, b = got[k], ref[k]
         _check(bool(torch.isfinite(a).all()), f"{label}: {name} not finite")
         err = (a - b).abs()
-        if name in ("n_trades", "turnover"):
+        if exact or name in ("n_trades", "turnover"):
             _check(bool(torch.equal(a, b)),
                    f"{label}: {name} differs (max {float(err.max())}): "
-                   "positions are not identical")
+                   "not bit-equal")
         bad = err > ATOL + RTOL * b.abs()
         _check(not bool(bad.any()),
                f"{label}: {name} off in {int(bad.sum())} cells, max abs err "
@@ -323,13 +338,19 @@ def _band_inline_inputs(fused, pnl, panel, t_real):
             *fused._to(dev, win, g["k"], warm))
 
 
-def _band_table_inputs(fused, pnl, panel, t_real):
+def _lanes(fused, dev, widx, *per_lane):
+    """Per-lane arrays in window-major slot order, as the sweeps pass them,
+    on ``dev``, then the ``lane`` array."""
+    lane, _, *sorted_ = fused.window_major(widx, *per_lane)
+    return (*fused._to(dev, *sorted_), *fused._to(dev, lane))
+
+
+def _band_stoch_inputs(fused, pnl, panel, t_real, axes=None):
     dev, close, high, low, tr, r = _common(fused, pnl, panel, t_real)
-    g = _flat_grid(AXES["stochastic"])
-    windows, _, widx, warm = fused._window_setup(g["window"], "windows",
-                                                 0.0, 1)
-    z = fused.stochastic_z_table(close, high, low, windows)
-    return (z, r, tr, *fused._to(dev, widx, g["band"], warm))
+    g = _flat_grid(axes or AXES["stochastic"])
+    _, win, widx, warm = fused._window_setup(g["window"], "windows", 0.0, 1)
+    return (close, high, low, r, tr,
+            *_lanes(fused, dev, widx, win, g["band"], warm))
 
 
 def _momentum_inputs(fused, pnl, panel, t_real):
@@ -339,21 +360,20 @@ def _momentum_inputs(fused, pnl, panel, t_real):
     return (close, r, tr, *fused._to(dev, lb, warm))
 
 
-def _donchian_inputs(fused, pnl, panel, t_real):
+def _donchian_inputs(fused, pnl, panel, t_real, axes=None):
     dev, close, high, low, tr, r = _common(fused, pnl, panel, t_real)
-    windows, _, widx, warm = fused._window_setup(AXES["donchian"]["window"],
-                                                 "windows", 1.0, 1)
-    sig = fused.donchian_sign_table(close, high, low, windows)
-    return (sig, r, tr, *fused._to(dev, widx, warm))
+    _, win, widx, warm = fused._window_setup(
+        (axes or AXES["donchian"])["window"], "windows", 1.0, 1)
+    return (close, high, low, r, tr, *_lanes(fused, dev, widx, win, warm))
 
 
-def _rsi_table_inputs(fused, pnl, panel, t_real):
+def _rsi_table_inputs(fused, pnl, panel, t_real, axes=None):
     dev, close, _, _, tr, r = _common(fused, pnl, panel, t_real)
-    g = _flat_grid(AXES["rsi"])
+    g = _flat_grid(axes or AXES["rsi"])
     periods, _, widx, warm = fused._window_setup(g["period"], "periods",
                                                  1.0, 1)
     z = fused.rsi_z_table(close, periods)
-    return (z, r, tr, *fused._to(dev, widx, g["band"], warm))
+    return (z, r, tr, *_lanes(fused, dev, widx, widx, g["band"], warm))
 
 
 def _keltner_table_inputs(fused, pnl, panel, t_real):
@@ -362,7 +382,7 @@ def _keltner_table_inputs(fused, pnl, panel, t_real):
     windows, _, widx, warm = fused._window_setup(g["window"], "windows",
                                                  0.0, 1)
     z = fused.keltner_z_table(close, high, low, windows)
-    return (z, r, tr, *fused._to(dev, widx, g["k"], warm))
+    return (z, r, tr, *_lanes(fused, dev, widx, widx, g["k"], warm))
 
 
 def _macd_inputs(fused, pnl, panel, t_real):
@@ -392,7 +412,7 @@ def _vwap_table_inputs(fused, pnl, panel, t_real):
     windows, _, widx, warm = fused._window_setup(g["window"], "windows",
                                                  -1.0, 1, 2.0)
     z = fused.vwap_z_table(close, _volume(panel, dev), windows)
-    return (z, r, tr, *fused._to(dev, widx, g["k"], warm))
+    return (z, r, tr, *_lanes(fused, dev, widx, widx, g["k"], warm))
 
 
 def _obv_inputs(fused, pnl, panel, t_real):
@@ -441,25 +461,42 @@ def _pairs_cases(data):
 
 # Further tables of an entry, each run at 32 x 1260 and at the main path's
 # 500 x 1260 (compared, and timed on the machine its strategy uses).
-EXTRA_CASES = {"band_table": (("rsi", _rsi_table_inputs),
-                              ("keltner", _keltner_table_inputs),
+EXTRA_CASES = {"band_table": (("keltner", _keltner_table_inputs),
                               ("vwap", _vwap_table_inputs))}
+
+# The window-major entries' two further cases: long rows (the channel
+# levels in device memory, the table rows read there), and a grid of 2368
+# lanes (8 bands or repeats x 296 windows) whose lane blocks straddle
+# windows, held against the plain version in the caller's lane order.
+LONG_ROWS = (4, 5000)
+STRADDLE_AXES = {
+    "band_stoch": {"band": np.linspace(10, 40, 8).astype(np.float32),
+                   "window": np.arange(5, 301, dtype=np.float32)},
+    "band_table": {"band": np.linspace(10, 30, 8).astype(np.float32),
+                   "period": np.arange(5, 301, dtype=np.float32)},
+    "donchian": {"window": np.tile(np.arange(5, 301, dtype=np.float32), 8)},
+}
 
 
 def _entry_bytes(inputs) -> int:
-    """Bytes each entry must move: every input read once, the (9, N, P)
-    metrics written once."""
-    n_in = sum(x.numel() * x.element_size() for x in inputs)
+    """Bytes each entry must move: every distinct input read once, the
+    (9, N, P) metrics written once."""
+    seen = {}
+    for x in inputs:
+        seen[(x.data_ptr(), x.numel())] = x.numel() * x.element_size()
     N = inputs[0].shape[0]
     P = inputs[-1].shape[0]
-    return n_in + 4 * 9 * N * P
+    return sum(seen.values()) + 4 * 9 * N * P
 
 
 class Entry(NamedTuple):
     """One kernel entry of phase 3: its tag, the TPU kernel's line, its
     source, the function making its inputs, the position of t_real in
     them, the kernel and plain versions, the machines it runs, and its
-    cases (None: the shared ones of 500 tickers)."""
+    cases (None: the shared ones of 500 tickers). A window-major entry
+    ends its inputs with its ``n_lane`` per-lane arrays (window or table
+    row, [k,] warm) and ``lane``; it is held bit-equal and runs the
+    long-row and straddling cases."""
 
     tag: str
     line: int
@@ -470,6 +507,7 @@ class Entry(NamedTuple):
     plain: Callable
     machines: tuple
     cases: Callable | None = None
+    n_lane: int = 0
 
 
 def _entries(fused):
@@ -479,15 +517,19 @@ def _entries(fused):
                              fused.band_inline_plain,
                              ("hysteresis", "touch")),
         "band_table": Entry("k2", 1166, "band_machine.cu",
-                            _band_table_inputs, 2, fused.band_table_cuda,
+                            _rsi_table_inputs, 2, fused.band_table_cuda,
                             fused.band_machine_plain,
-                            ("hysteresis", "touch")),
+                            ("hysteresis", "touch"), n_lane=3),
+        "band_stoch": Entry("k2", 1166, "band_machine.cu",
+                            _band_stoch_inputs, 4, fused.band_stoch_cuda,
+                            fused.band_stoch_plain,
+                            ("hysteresis", "touch"), n_lane=3),
         "momentum": Entry("k3", 1933, "single_window.cu", _momentum_inputs,
                           2, fused.momentum_cuda, fused.momentum_plain,
                           (None,)),
         "donchian": Entry("k3", 1933, "single_window.cu", _donchian_inputs,
-                          2, fused.donchian_cuda, fused.donchian_plain,
-                          (None,)),
+                          4, fused.donchian_cuda, fused.donchian_plain,
+                          (None,), n_lane=2),
         "macd": Entry("k4", 2661, "ema_cross.cu", _macd_inputs, 2,
                       fused.macd_cuda, fused.macd_plain, (None,)),
         "trix": Entry("k5", 3009, "ema_cross.cu", _trix_inputs, 2,
@@ -507,22 +549,81 @@ def _kw(machine, cost):
     return kw
 
 
+def _level_ops(tr, window) -> float:
+    """The level build of a channel entry: per ticker, the levels up to the
+    largest power of two <= min(its largest window, its length), one max and
+    one min a level and bar."""
+    w_max = int(window.max())
+    return float(sum(OPS_LEVEL * n * (max(min(w_max, n), 1).bit_length() - 1)
+                     for n in tr.cpu().tolist()))
+
+
 def _entry_bound(entry, e: Entry, inputs):
-    tr, warm = inputs[e.tr_at], inputs[-1]
-    extra = 0.0
-    if entry == "obv":
-        # warm = window: the SMA of each distinct window from bar w - 1.
-        extra = OPS_OBV_SMA * _signal_bars(tr, torch.unique(warm))
+    tr = inputs[e.tr_at]
+    warm = inputs[-2] if e.n_lane else inputs[-1]
+    # The per-window work once per (ticker, distinct window), from its
+    # warmup: a lane's warmup is a function of its window alone.
+    extra = OPS_WINDOW.get(entry, 0) * _signal_bars(tr, torch.unique(warm))
+    if entry in ("band_stoch", "donchian"):
+        extra += _level_ops(tr, inputs[e.tr_at + 1])
     return _bound(tr, warm, warm.shape[0],
                   OPS_PER_BAR + OPS_EACH_BAR.get(entry, 0),
                   OPS_SIGNAL[entry], _entry_bytes(inputs), extra)
 
 
+def _lane_cases(data, entry: str, e: Entry):
+    """The long-row and straddling runs of a window-major entry: (label,
+    inputs function, panel, t_real, cost, caller order)."""
+    n, T = LONG_ROWS
+    long = data.synthetic_ohlcv(n, T, seed=5)
+    small = data.synthetic_ohlcv(8, N_BARS, seed=6)
+    axes = STRADDLE_AXES[entry]
+
+    def straddle(fused, pnl, panel, t_real):
+        return e.build(fused, pnl, panel, t_real, axes=axes)
+    return [(f"long rows {n}x{T}", e.build, long, None, COST, False),
+            (f"straddling 8x{N_BARS}x2368", straddle, small, None, COST,
+             True)]
+
+
+def _occupancy(fused, entry: str, T: int) -> dict:
+    """The build report of a window-major entry's kernel at row length
+    ``T``, as its C entry launches it (``csrc/occupancy.cuh``): registers
+    a thread, resident CTAs and warps an SM, lanes and dynamic shared
+    memory a CTA."""
+    info = (ctypes.c_int * 4)()
+    if entry == "donchian":
+        lib = fused._kernels.single_window_lib()
+        err = lib.dbx_donchian_occupancy(T, info)
+    else:
+        lib = fused._kernels.band_machine_lib()
+        err = lib.dbx_band_occupancy(int(entry == "band_stoch"), T, info)
+    _check(err == 0, f"{entry} occupancy query failed: CUDA error {err}")
+    regs, ctas, lanes, smem = info
+    return {"registers": regs, "ctas_per_sm": ctas,
+            "warps_per_sm": ctas * lanes // 32, "lanes": lanes,
+            "smem_bytes": smem}
+
+
+def _caller_order(inputs, n_lane: int):
+    """The same inputs with the slots put back in the caller's lane order
+    and ``lane`` the identity: the plain version's reference for the
+    window-major launch."""
+    *head, lane = inputs
+    inv = torch.empty_like(lane)
+    inv[lane.long()] = torch.arange(lane.numel(), dtype=lane.dtype,
+                                    device=lane.device)
+    per_lane = [x[inv.long()] for x in head[-n_lane:]]
+    ident = torch.arange(lane.numel(), dtype=lane.dtype, device=lane.device)
+    return (*head[:-n_lane], *per_lane, ident)
+
+
 def phase_new_kernels(fused, pnl, data) -> dict:
     """K2-K7, every entry and machine, against their plain versions in the
-    four cases (and K2's table entry on the rsi, keltner and vwap
-    z-tables); times and bound at the main path's shape, the first case.
-    Returns one kernels-line record per entry."""
+    four cases (and K2's table entry on the keltner and vwap z-tables; the
+    window-major entries also on long rows and a straddling grid); times
+    and bound at the main path's shape, the first case. Returns one
+    kernels-line record per entry."""
     head = data.synthetic_ohlcv(N_TICKERS, N_BARS, seed=0)
     shared = [(f"headline {N_TICKERS}x{N_BARS}", head, None, COST)] + \
         _small_cases(data, head)
@@ -531,22 +632,34 @@ def phase_new_kernels(fused, pnl, data) -> dict:
     for entry, e in _entries(fused).items():
         errs = []
         timing = {}
-        runs = [(label, e.build, panel, t_real, cost) for label, panel,
-                t_real, cost in (e.cases(data) if e.cases else shared)]
+        runs = [(label, e.build, panel, t_real, cost, False)
+                for label, panel, t_real, cost in (e.cases(data) if e.cases
+                                                   else shared)]
         for what, extra in EXTRA_CASES.get(entry, ()):
             runs += [(f"{what} z-table 32x{N_BARS}", extra, small, None,
-                      COST),
+                      COST, False),
                      (f"{what} z-table {N_TICKERS}x{N_BARS}", extra, head,
-                      None, COST)]
+                      None, COST, False)]
+        if e.n_lane:
+            runs += _lane_cases(data, entry, e)
         tables = {}
-        for i, (label, make, panel, t_real, cost) in enumerate(runs):
+        for i, (label, make, panel, t_real, cost, caller) in enumerate(runs):
             inputs = make(fused, pnl, panel, t_real)
+            ref_in = _caller_order(inputs, e.n_lane) if caller else inputs
             for machine in e.machines:
                 kw = _kw(machine, cost)
                 name = f"{entry}" + (f" {machine}" if machine else "")
+                ref = e.plain(*ref_in, **kw)
                 errs.append(_compare(fused, e.tag, f"{name} {label}",
-                                     e.kernel(*inputs, **kw),
-                                     e.plain(*inputs, **kw)))
+                                     e.kernel(*inputs, **kw), ref,
+                                     exact=bool(e.n_lane)))
+                if caller:
+                    errs.append(_compare(
+                        fused, e.tag, f"{name} {label} (caller's order)",
+                        e.kernel(*ref_in, **kw), ref, exact=True))
+                if i == 0 and e.n_lane and machine == e.machines[0]:
+                    occupancy = _occupancy(fused, entry, N_BARS)
+                    print(f"{e.tag} {entry} at T={N_BARS}: {occupancy}")
                 if i == 0:
                     ms = _cuda_ms(lambda: e.kernel(*inputs, **kw), reps=20,
                                   warmup=2)
@@ -557,7 +670,7 @@ def phase_new_kernels(fused, pnl, data) -> dict:
                     print(f"{e.tag} {name} headline: kernel {ms:.4f} ms, "
                           f"plain {plain_ms:.4f} ms, bound {bound[0]:.4f} "
                           f"ms ({bound[1]})")
-            if i > 0 and label.endswith(f"{N_TICKERS}x{N_BARS}"):
+            if i > 0 and label.endswith(f"z-table {N_TICKERS}x{N_BARS}"):
                 # Another main path's table: timed on its machine.
                 kw = _kw(e.machines[0], cost)
                 ms = _cuda_ms(lambda: e.kernel(*inputs, **kw), reps=20,
@@ -581,6 +694,8 @@ def phase_new_kernels(fused, pnl, data) -> dict:
             out[entry]["touch_ms"] = timing["touch"][0]
         if tables:
             out[entry]["other_tables"] = tables
+        if e.n_lane:
+            out[entry]["occupancy"] = occupancy
     return out
 
 
@@ -830,6 +945,32 @@ def _gold_same_order(sweep, models, strategy, panels, axes, fields):
     return out
 
 
+# The sweeps whose channel the kernel builds: no (N, W, T) table on the card.
+NO_TABLE = ("stochastic", "donchian", "donchian_hl")
+
+
+def _check_no_table(jobs, data, strategy, axes, stack, run) -> None:
+    """One batch's fused sweep on the card with its peak allocation above
+    what was allocated before it: it must stay below one int8 (N, W, T)
+    table of the batch's distinct windows (the smallest table the sweep
+    once built)."""
+    inputs = stack([[data.from_wire_bytes(j.ohlcv)] for j in jobs])
+    N, T = inputs["close"].shape
+    W = np.unique(axes["window"]).size
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    m = run(inputs)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del m
+    table = N * W * T
+    print(f"{strategy} sweep peak allocation {peak} bytes; an int8 "
+          f"(N, W, T) table is {table} bytes")
+    _check(peak < table, f"{strategy}: the sweep allocated {peak} bytes, "
+           f"as much as an (N, W, T) table ({table})")
+
+
 def phase_new_main_paths(kernels_mod, compute, wire, pb, data, sweep,
                          models, fused) -> dict:
     """The main paths of the strategies of ``FAMILIES``; returns the
@@ -869,6 +1010,9 @@ def phase_new_main_paths(kernels_mod, compute, wire, pb, data, sweep,
         _repeat(backend, jobs, n_combos, strategy, batch_s, 5)
         _main_path_stages(jobs, data, wire, compute, strategy,
                           *_route(compute, fused, strategy, axes))
+        if strategy in NO_TABLE:
+            _check_no_table(jobs, data, strategy, axes,
+                            *_route(compute, fused, strategy, axes))
     return total
 
 

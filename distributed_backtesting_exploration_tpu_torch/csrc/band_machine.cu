@@ -20,32 +20,47 @@
 //   evaluates the machine as a log-depth composition of transition maps,
 //   which only selects among -1/0/+1. One thread per lane reading its own
 //   z value and stepping the machine bar by bar gives the same positions.
-// - Two C entries:
-//   * dbx_band_inline (bollinger): no z-table. Inputs are the close row and
-//     the cumsum rows of close, centered close and centered close squared
-//     (torch ops before the launch) plus the simple returns: 5 rows, staged
-//     in shared memory (5 x 1260 x 4 B = 25 KB at the headline T). Each lane
-//     forms its window's z per bar in `_build_boll_z_scratch`'s op order:
-//     m = (cs[t] - cs[t-w]) / w, s1 and s2 the centered window sums,
-//     var = max((s2 - s1*s1/w) / w, 0), z = (c - m) / (sqrt(var) + 1e-12),
-//     z = 0 for t < w - 1.
-//   * dbx_band_table (stochastic): reads a torch-built (N, W, T) f32
-//     z-table, row widx[lane].
-//     At the stochastic bench shape that table is 500 x 125 x 1260 x 4 B =
-//     315 MB, which the card's 80 GB holds with room to spare; only the
-//     returns row is staged.
-// - One CTA covers one ticker x 128 combos; one sequential pass per thread
-//   over t < t_real[ticker] with the PnL and metrics of metrics_tail.cuh.
+// - dbx_band_inline (bollinger): no z-table. Inputs are the close row and
+//   the cumsum rows of close, centered close and centered close squared
+//   (torch ops before the launch) plus the simple returns: 5 rows, staged
+//   in shared memory (5 x 1260 x 4 B = 25 KB at the headline T). Each lane
+//   forms its window's z per bar in `_build_boll_z_scratch`'s op order:
+//   m = (cs[t] - cs[t-w]) / w, s1 and s2 the centered window sums,
+//   var = max((s2 - s1*s1/w) / w, 0), z = (c - m) / (sqrt(var) + 1e-12),
+//   z = 0 for t < w - 1. One CTA covers one ticker x 128 combos.
+// - The table entry is one body, `band_source_kernel`, templated on where
+//   a lane's z comes from, with two C entries:
+//   * dbx_band_table (rsi, keltner, vwap_reversion): a torch-built
+//     (N, W, T) f32 z-table (EMA and cumsum prep), each lane reading its
+//     row in device memory; the CTA stages only the returns row. Staging
+//     the CTA's distinct table rows too was measured and gained nothing
+//     (PERF.md, section 6).
+//   * dbx_band_stoch (stochastic): no table. The CTA builds the sparse-table
+//     levels of the ticker's high and low rows in shared memory
+//     (extrema.cuh), and each lane forms its channel and %K per bar in
+//     `stochastic_z_table`'s op order: rng = hi - lo,
+//     k = rng > 1e-12 ? 100 * (c - lo) / (rng + 1e-12) : 50, minus 50, and
+//     0 for t < w - 1. When the levels do not fit in shared memory (long
+//     rows), the wrapper builds them in device memory with torch ops, one
+//     op per level and side, and the same body reads them there.
+//   Lanes run window-major: the wrapper sorts them by window on the host
+//   and passes `lane`, each slot's lane in the caller's order, where the
+//   kernel writes its metrics. A warp's lanes then share one to four
+//   windows, so their loads are broadcasts of a few words (of the levels
+//   in shared memory, or of the table rows through L1).
+//   A stochastic CTA covers one ticker x 1024 combos: the staged rows and
+//   levels take up to 227 KB, one CTA an SM, and 1024 lanes keep 32 warps
+//   resident to hide each lane's sequential chain. A z-table CTA covers 128
+//   combos.
+// - One sequential pass per thread over t < t_real[ticker] with the PnL and
+//   metrics of metrics_tail.cuh.
 //
 // What bounds it. The inline entry spends about 13 fp32 operations per
-// (combo, bar) on z (three divisions and a square root) beside the 20 of
-// the metric update. The table entry reads 4 B of z per (combo, bar); the
-// bench grids run window-minor, so the 32 lanes of a warp hold 32 windows
-// and each bar's load touches 32 table rows, one sector each. That load,
-// not arithmetic, keeps the table entry far above its operations bound
-// (PERF.md, section 6). Staging a CTA's z rows, or giving a CTA one window,
-// is a later speed step (ROADMAP.md, Queue 2), as is sharing the inline z
-// across the lanes of one window.
+// (combo, bar) on z (three divisions and a square root), the stochastic
+// entry 9 on the channel and %K, beside the 4 of the machine and the 20 of
+// the metric update; the table entry reads 4 B of z per (combo, bar),
+// a warp's lanes on one to four rows. All are bound by their operations
+// (PERF.md, section 6).
 //
 // K7 (dbx_pairs) replaces the reference's `_fused_pairs_call` with its body
 // `_pairs_kernel`: one one-hot selection of a stacked (z, hedged return)
@@ -61,12 +76,14 @@
 // operations a (combo, bar), not by the 100 MB of tables.
 //
 // Built without fast math and with -fmad=false: divisions and sqrtf are
-// IEEE round-to-nearest and nothing is contracted, so z equals the torch
-// z-table built from the same cumsums, and the positions and metrics equal
-// the plain PyTorch version's bit for bit.
+// IEEE round-to-nearest and nothing is contracted, so z and %K equal the
+// torch tables built from the same inputs, and the positions and metrics
+// equal the plain PyTorch version's bit for bit.
 
 #include "band_next.cuh"
+#include "extrema.cuh"
 #include "metrics_tail.cuh"
+#include "occupancy.cuh"
 
 namespace {
 
@@ -76,6 +93,9 @@ using dbx::kTouch;
 
 constexpr int kThreads = 128;
 constexpr size_t kMaxStagedBytes = 96 * 1024;
+// Lanes per CTA of the stochastic source: one CTA an SM (its staged rows
+// and levels take up to 227 KB), 32 warps.
+constexpr int kStochThreads = 1024;
 
 // Windowed sum cs[t] - cs[t-w] (cs[t-w] = 0 for t < w).
 __device__ __forceinline__ float wsum(const float* cs, int t, int w) {
@@ -136,35 +156,126 @@ __global__ void __launch_bounds__(kThreads) band_inline_kernel(
   acc.store(out, n, p, N, P, tr, ppy);
 }
 
-template <int kMachine, bool kStaged>
-__global__ void __launch_bounds__(kThreads) band_table_kernel(
-    const float* __restrict__ z, const float* __restrict__ r,
-    const int* __restrict__ t_real, const int* __restrict__ widx,
-    const float* __restrict__ k, const int* __restrict__ warm,
-    float* __restrict__ out, int N, int T, int W, int P, float z_exit,
-    float cost, float ppy) {
+// z sources of the table entry. Each gives `stage`, run by every thread of
+// the CTA before its lanes start (it stages what the CTA's lanes read and
+// returns the ticker's view), and the view's `lane(row)`, whose z(t) is the
+// lane's z at bar t. `row` is the lane's entry of the entry's per-lane row
+// array: a table row for TableZ, the window for StochZ.
+
+// A torch-built (N, W, T) z-table, each lane reading its row in device
+// memory; with kStaged the returns row is copied to shared memory.
+template <bool kStaged>
+struct TableZ {
+  static constexpr int kLanes = kThreads;
+  const float* z;
+  int W;
+
+  struct Lane {
+    const float* row;
+    __device__ __forceinline__ float z(int t) const { return row[t]; }
+  };
+
+  struct Ticker {
+    const float* r;
+    const float* table;  // the ticker's (W, T) rows
+    int T;
+    __device__ __forceinline__ Lane lane(int row) const {
+      return {table + static_cast<size_t>(row) * T};
+    }
+  };
+
+  __device__ __forceinline__ Ticker stage(float* smem, int n, int T, int tr,
+                                          const float* r_row, const int*,
+                                          int, int) const {
+    const float* table = z + static_cast<size_t>(n) * W * T;
+    if (!kStaged) return {r_row, table, T};
+    for (int t = threadIdx.x; t < tr; t += blockDim.x) smem[t] = r_row[t];
+    __syncthreads();
+    return {smem, table, T};
+  }
+};
+
+// Stochastic %K from the sparse-table levels of the ticker's high and low
+// rows: built in shared memory with kStaged (extrema.cuh), else read from
+// (N, L + 1, T) level tensors in device memory.
+template <bool kStaged>
+struct StochZ {
+  static constexpr int kLanes = kStochThreads;
+  const float* close;
+  const float* high;
+  const float* low;
+  const float* lev_hi;
+  const float* lev_lo;
+  int L;
+
+  struct Lane {
+    dbx::Channel ch;
+    const float* c;
+    int w1;  // w - 1: the first bar with a full window
+    __device__ __forceinline__ float z(int t) const {
+      if (t < w1) return 0.f;
+      const float hi = ch.high(t);
+      const float lo = ch.low(t);
+      const float rng = hi - lo;
+      const float k = rng > dbx::kEps ? 100.f * (c[t] - lo) / (rng + dbx::kEps)
+                                      : 50.f;
+      return k - 50.f;
+    }
+  };
+
+  struct Ticker {
+    const float* r;
+    const float* c;
+    const float* lev_hi;
+    const float* lev_lo;
+    int T;
+    __device__ __forceinline__ Lane lane(int w) const {
+      w = max(w, 1);
+      return {dbx::Channel(lev_hi, lev_lo, T, w), c, w - 1};
+    }
+  };
+
+  __device__ __forceinline__ Ticker stage(float* smem, int n, int T, int tr,
+                                          const float* r_row,
+                                          const int* window, int slot,
+                                          int P) const {
+    const size_t row = static_cast<size_t>(n) * T;
+    if (!kStaged) {
+      const size_t lev = static_cast<size_t>(n) * (L + 1) * T;
+      return {r_row, close + row, lev_hi + lev, lev_lo + lev, T};
+    }
+    const dbx::StagedChannel st = dbx::stage_channel(
+        smem, close + row, r_row, high + row, low + row, window, slot, P, T,
+        tr, L);
+    return {st.r, st.close, st.lev_hi, st.lev_lo, T};
+  }
+};
+
+template <int kMachine, class Source>
+__global__ void __launch_bounds__(Source::kLanes) band_source_kernel(
+    Source src, const float* __restrict__ r, const int* __restrict__ t_real,
+    const int* __restrict__ row, const float* __restrict__ k,
+    const int* __restrict__ warm, const int* __restrict__ lane,
+    float* __restrict__ out, int N, int T, int P, float z_exit, float cost,
+    float ppy) {
   extern __shared__ float staged[];
   const int n = blockIdx.x;
-  const int p = blockIdx.y * kThreads + threadIdx.x;
+  const int slot = blockIdx.y * Source::kLanes + threadIdx.x;
   const int tr = min(max(t_real[n], 0), T);
-  const float* r_row = r + static_cast<size_t>(n) * T;
-  if (kStaged) {
-    for (int t = threadIdx.x; t < tr; t += kThreads) staged[t] = r_row[t];
-    __syncthreads();
-    r_row = staged;
-  }
-  if (p >= P) return;
+  const auto tk = src.stage(staged, n, T, tr, r + static_cast<size_t>(n) * T,
+                            row, slot, P);
+  if (slot >= P) return;
 
-  const float* z_row = z + (static_cast<size_t>(n) * W + widx[p]) * T;
-  const float kk = k[p];
-  const int t_on = warm[p] - 1;
+  const auto ln = tk.lane(row[slot]);
+  const float kk = k[slot];
+  const int t_on = warm[slot] - 1;
   dbx::MetricsAcc acc;
   for (int t = 0; t < tr; ++t) {
     float pos = 0.f;
-    if (t >= t_on) pos = band_next<kMachine>(acc.prev, z_row[t], kk, z_exit);
-    acc.step(pos, r_row[t], cost);
+    if (t >= t_on) pos = band_next<kMachine>(acc.prev, ln.z(t), kk, z_exit);
+    acc.step(pos, tk.r[t], cost);
   }
-  acc.store(out, n, p, N, P, tr, ppy);
+  acc.store(out, n, lane[slot], N, P, tr, ppy);
 }
 
 __global__ void __launch_bounds__(kThreads) pairs_kernel(
@@ -214,23 +325,32 @@ int launch_inline(const float* close, const float* cs, const float* csx,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int kMachine>
-int launch_table(const float* z, const float* r, const int* t_real,
-                 const int* widx, const float* k, const int* warm, float* out,
-                 int N, int T, int W, int P, float z_exit, float cost,
-                 float ppy, cudaStream_t s) {
-  const dim3 grid(N, (P + kThreads - 1) / kThreads);
-  const size_t smem = static_cast<size_t>(T) * sizeof(float);
-  if (smem <= kMaxStagedBytes) {
-    const int err = dbx::allow_smem(band_table_kernel<kMachine, true>, smem);
-    if (err != 0) return err;
-    band_table_kernel<kMachine, true><<<grid, kThreads, smem, s>>>(
-        z, r, t_real, widx, k, warm, out, N, T, W, P, z_exit, cost, ppy);
-  } else {
-    band_table_kernel<kMachine, false><<<grid, kThreads, 0, s>>>(
-        z, r, t_real, widx, k, warm, out, N, T, W, P, z_exit, cost, ppy);
-  }
+template <int kMachine, class Source>
+int launch_source(const Source& src, size_t smem, const float* r,
+                  const int* t_real, const int* row, const float* k,
+                  const int* warm, const int* lane, float* out, int N, int T,
+                  int P, float z_exit, float cost, float ppy,
+                  cudaStream_t s) {
+  constexpr int kLanes = Source::kLanes;
+  const dim3 grid(N, (P + kLanes - 1) / kLanes);
+  auto kernel = band_source_kernel<kMachine, Source>;
+  const int err = dbx::allow_smem(kernel, smem);
+  if (err != 0) return err;
+  kernel<<<grid, kLanes, smem, s>>>(src, r, t_real, row, k, warm, lane, out,
+                                    N, T, P, z_exit, cost, ppy);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <class Source>
+int launch_machine(int machine, const Source& src, size_t smem,
+                   const float* r, const int* t_real, const int* row,
+                   const float* k, const int* warm, const int* lane,
+                   float* out, int N, int T, int P, float z_exit, float cost,
+                   float ppy, cudaStream_t s) {
+  auto launch = machine == kTouch ? launch_source<kTouch, Source>
+                                  : launch_source<kHysteresis, Source>;
+  return launch(src, smem, r, t_real, row, k, warm, lane, out, N, T, P,
+                z_exit, cost, ppy, s);
 }
 
 }  // namespace
@@ -266,27 +386,111 @@ extern "C" int dbx_band_inline(const void* close, const void* cs,
                 static_cast<cudaStream_t>(stream));
 }
 
+// The table entry's arguments beside its source: r: (N, T) f32;
+// t_real: (N,) i32; k: (P,) f32; warm: (P,) i32; lane: (P,) i32, the
+// caller's lane of each slot (slot p's metrics go to out[:, n, lane[p]]).
+//
 // dbx_band_table: z: (N, W, T) f32 z-table (0 before each window's warmup);
-// r: (N, T) f32; t_real: (N,) i32; widx: (P,) i32 row of each lane in z;
-// k: (P,) f32; warm: (P,) i32.
+// widx: (P,) i32 row of each slot in z.
 extern "C" int dbx_band_table(const void* z, const void* r,
                               const void* t_real, const void* widx,
-                              const void* k, const void* warm, void* out,
-                              int N, int T, int W, int P, int machine,
-                              float z_exit, float cost, int ppy,
-                              void* stream) {
+                              const void* k, const void* warm,
+                              const void* lane, void* out, int N, int T,
+                              int W, int P, int machine, float z_exit,
+                              float cost, int ppy, void* stream) {
   if (N <= 0 || P <= 0) return static_cast<int>(cudaSuccess);
   if (machine != kHysteresis && machine != kTouch) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  auto launch = machine == kTouch ? launch_table<kTouch>
-                                  : launch_table<kHysteresis>;
-  return launch(static_cast<const float*>(z), static_cast<const float*>(r),
-                static_cast<const int*>(t_real),
-                static_cast<const int*>(widx), static_cast<const float*>(k),
-                static_cast<const int*>(warm), static_cast<float*>(out), N, T,
-                W, P, z_exit, cost, static_cast<float>(ppy),
-                static_cast<cudaStream_t>(stream));
+  const auto* a_z = static_cast<const float*>(z);
+  const auto* a_r = static_cast<const float*>(r);
+  const auto* a_tr = static_cast<const int*>(t_real);
+  const auto* a_row = static_cast<const int*>(widx);
+  const auto* a_k = static_cast<const float*>(k);
+  const auto* a_w = static_cast<const int*>(warm);
+  const auto* a_lane = static_cast<const int*>(lane);
+  auto* a_out = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float f_ppy = static_cast<float>(ppy);
+  const size_t smem = static_cast<size_t>(T) * sizeof(float);
+  if (smem <= kMaxStagedBytes) {
+    return launch_machine(machine, TableZ<true>{a_z, W}, smem, a_r, a_tr,
+                          a_row, a_k, a_w, a_lane, a_out, N, T, P, z_exit,
+                          cost, f_ppy, s);
+  }
+  return launch_machine(machine, TableZ<false>{a_z, W}, 0, a_r, a_tr, a_row,
+                        a_k, a_w, a_lane, a_out, N, T, P, z_exit, cost,
+                        f_ppy, s);
+}
+
+// dbx_band_stoch: close, high, low: (N, T) f32; window: (P,) i32 window of
+// each slot; lev_hi, lev_lo: null where the kernel builds the levels in
+// shared memory, else (N, L + 1, T) f32 levels of the highs (max) and lows
+// (min) in device memory, L = dbx_channel_levels(T) (extrema.cuh).
+extern "C" int dbx_band_stoch(const void* close, const void* high,
+                              const void* low, const void* r,
+                              const void* lev_hi, const void* lev_lo,
+                              const void* t_real, const void* window,
+                              const void* k, const void* warm,
+                              const void* lane, void* out, int N, int T,
+                              int P, int machine, float z_exit, float cost,
+                              int ppy, void* stream) {
+  if (N <= 0 || P <= 0) return static_cast<int>(cudaSuccess);
+  if (machine != kHysteresis && machine != kTouch) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto* a_c = static_cast<const float*>(close);
+  const auto* a_h = static_cast<const float*>(high);
+  const auto* a_l = static_cast<const float*>(low);
+  const auto* a_lh = static_cast<const float*>(lev_hi);
+  const auto* a_ll = static_cast<const float*>(lev_lo);
+  const auto* a_r = static_cast<const float*>(r);
+  const auto* a_tr = static_cast<const int*>(t_real);
+  const auto* a_win = static_cast<const int*>(window);
+  const auto* a_k = static_cast<const float*>(k);
+  const auto* a_w = static_cast<const int*>(warm);
+  const auto* a_lane = static_cast<const int*>(lane);
+  auto* a_out = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float f_ppy = static_cast<float>(ppy);
+  const int L = dbx::channel_levels(T);
+  if (dbx::channel_staged(T)) {
+    return launch_machine(machine,
+                          StochZ<true>{a_c, a_h, a_l, nullptr, nullptr, L},
+                          dbx::channel_smem_bytes(T), a_r, a_tr, a_win, a_k,
+                          a_w, a_lane, a_out, N, T, P, z_exit, cost, f_ppy,
+                          s);
+  }
+  if (a_lh == nullptr || a_ll == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_machine(machine, StochZ<false>{a_c, a_h, a_l, a_lh, a_ll, L},
+                        0, a_r, a_tr, a_win, a_k, a_w, a_lane, a_out, N, T,
+                        P, z_exit, cost, f_ppy, s);
+}
+
+// dbx_band_occupancy: the build report (occupancy.cuh: registers, resident
+// CTAs an SM, lanes, dynamic shared memory in info[0..3]) of the table
+// entry's hysteresis kernel at row length T on the z-table source
+// (source 0) or the stochastic source (source 1), as dbx_band_table and
+// dbx_band_stoch launch it.
+extern "C" int dbx_band_occupancy(int source, int T, int* info) {
+  const size_t r_bytes = static_cast<size_t>(T) * sizeof(float);
+  if (source == 0) {
+    if (r_bytes <= kMaxStagedBytes) {
+      return dbx::launch_report(band_source_kernel<kHysteresis, TableZ<true>>,
+                                kThreads, r_bytes, info);
+    }
+    return dbx::launch_report(band_source_kernel<kHysteresis, TableZ<false>>,
+                              kThreads, 0, info);
+  }
+  if (dbx::channel_staged(T)) {
+    return dbx::launch_report(band_source_kernel<kHysteresis, StochZ<true>>,
+                              kStochThreads, dbx::channel_smem_bytes(T),
+                              info);
+  }
+  return dbx::launch_report(band_source_kernel<kHysteresis, StochZ<false>>,
+                            kStochThreads, 0, info);
 }
 
 // dbx_pairs (K7): z, hr: (N, W, T) f32 spread z-table (0 before each

@@ -97,6 +97,7 @@ def load(name: str) -> ctypes.CDLL:
 
 
 _VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_PI = ctypes.POINTER(ctypes.c_int)
 
 # C signature of every entry point, by library: pointers as c_void_p (a
 # plain int would cut them to 32 bits), then the sizes and scalars.
@@ -107,12 +108,17 @@ _SIGNATURES = {
     },
     "band_machine": {
         "dbx_band_inline": [_VP] * 10 + [_CI] * 4 + [_CF, _CF, _CI, _VP],
-        "dbx_band_table": [_VP] * 7 + [_CI] * 5 + [_CF, _CF, _CI, _VP],
+        "dbx_band_table": [_VP] * 8 + [_CI] * 5 + [_CF, _CF, _CI, _VP],
+        "dbx_band_stoch": [_VP] * 12 + [_CI] * 4 + [_CF, _CF, _CI, _VP],
         "dbx_pairs": [_VP] * 8 + [_CI] * 4 + [_CF, _CI, _VP],
+        "dbx_channel_levels": [_CI],
+        "dbx_band_occupancy": [_CI, _CI, _PI],
     },
     "single_window": {
         "dbx_momentum": [_VP] * 6 + [_CI] * 3 + [_CF, _CI, _VP],
-        "dbx_donchian": [_VP] * 6 + [_CI] * 4 + [_CF, _CI, _VP],
+        "dbx_donchian": [_VP] * 11 + [_CI] * 3 + [_CF, _CI, _VP],
+        "dbx_channel_levels": [_CI],
+        "dbx_donchian_occupancy": [_CI, _PI],
     },
     "ema_cross": {
         "dbx_macd": [_VP] * 8 + [_CI] * 4 + [_CF, _CI, _VP],
@@ -143,7 +149,8 @@ def fused_sma_lib() -> ctypes.CDLL:
 
 def band_machine_lib() -> ctypes.CDLL:
     """K2's and K7's library (``csrc/band_machine.cu``):
-    ``dbx_band_inline``, ``dbx_band_table`` and ``dbx_pairs``."""
+    ``dbx_band_inline``, ``dbx_band_table``, ``dbx_band_stoch`` and
+    ``dbx_pairs``."""
     return _typed("band_machine")
 
 

@@ -4,8 +4,8 @@ Each ``fused_*_sweep`` computes the 9 metrics of every (ticker, combo)
 backtest of one strategy's grid and returns them as :class:`Metrics` of
 ``(N, P)`` fields, like the reference's wrapper of the same name. It
 prepares the inputs host-side and with plain torch ops (distinct windows,
-cumsums, returns, OBV, the z-, breakout-sign, EMA or pairs tables) and
-hands them to one kernel entry:
+cumsums, returns, OBV, the z-, EMA or pairs tables) and hands them to one
+kernel entry:
 
 ==============================  ========================  ===================
 sweep                           entry                     kernel source
@@ -13,7 +13,7 @@ sweep                           entry                     kernel source
 ``fused_sma_sweep``             :func:`fused_sma`         ``fused_sma.cu``
 ``fused_bollinger_sweep``,      :func:`band_inline`       ``band_machine.cu``
 ``fused_bollinger_touch_sweep``
-``fused_stochastic_sweep``      :func:`band_table`        ``band_machine.cu``
+``fused_stochastic_sweep``      :func:`band_stoch`        ``band_machine.cu``
 ``fused_momentum_sweep``        :func:`momentum`          ``single_window.cu``
 ``fused_donchian_sweep``,       :func:`donchian`          ``single_window.cu``
 ``fused_donchian_hl_sweep``
@@ -33,6 +33,13 @@ version computes the same function with plain PyTorch ops. The plain
 versions step bar by bar in the kernels' order (:class:`_MetricState`), so
 on the card a kernel and its plain version agree to the bit; they are the
 yardstick the kernels are held against.
+
+The channel entries (:func:`band_stoch`, :func:`donchian`) take the raw
+rows and build the channel extrema on the card (no ``(N, W, T)`` table),
+and the table entries (:func:`band_table`, :func:`band_stoch`,
+:func:`donchian`) take their lanes window-major: the sweep sorts them by
+window (:func:`window_major`) and passes ``lane``, each slot's lane in the
+caller's order, where the entry writes the slot's metrics.
 """
 
 from __future__ import annotations
@@ -49,7 +56,7 @@ from .pnl import simple_returns
 
 _EPS = 1e-12
 _N_METRICS = 9
-_KERNEL_THREADS = 128      # lanes per CTA (kThreads in every csrc/*.cu)
+_KERNEL_THREADS = 128      # lanes per CTA (kThreads in csrc/*.cu)
 _MAX_PARAM_BLOCKS = 65535  # CUDA gridDim.y limit
 _MACHINES = {"hysteresis": 0, "touch": 1}
 # The reference's stand-in for the generic channel's +-inf warmup fill.
@@ -146,6 +153,18 @@ def _window_setup(vals, what: str, warm_offset: float, min_window: int,
     warm = (np.float32(warm_scale) * vals
             + np.float32(warm_offset)).astype(np.int32)
     return windows, rounded.astype(np.int32), widx, warm
+
+
+def window_major(widx: np.ndarray, *per_lane: np.ndarray):
+    """The lanes of one grid in window-major order: a stable sort by each
+    lane's window row ``widx``. Returns ``(lane, widx, *per_lane)`` in slot
+    order: ``lane[p]`` is slot p's lane in the caller's order, the others
+    the per-lane arrays permuted alike (int32 ``lane``). The entries that
+    take ``lane`` write slot p's metrics at ``lane[p]``, so the caller sees
+    its own order, and each lane's arithmetic is the same in any order."""
+    order = np.argsort(widx, kind="stable")
+    return (order.astype(np.int32), widx[order],
+            *(np.asarray(a)[order] for a in per_lane))
 
 
 def _signal_decay(signal: np.ndarray) -> np.ndarray:
@@ -290,6 +309,36 @@ class _MetricState:
 def _on_device(plain, cuda, x: torch.Tensor):
     """The plain version for a CPU tensor, the kernel wrapper otherwise."""
     return plain if x.device.type == "cpu" else cuda
+
+
+def _to_lanes(planes: torch.Tensor, lane) -> torch.Tensor:
+    """``(9, N, P)`` planes in slot order put in the caller's lane order:
+    slot p at lane ``lane[p]`` (``lane`` None: the orders are one)."""
+    if lane is None:
+        return planes
+    out = torch.empty_like(planes)
+    out[:, :, lane.long()] = planes
+    return out
+
+
+def _lane_arg(lane, P: int, dev: torch.device) -> torch.Tensor:
+    """A kernel's ``lane`` argument: the identity where the caller gives
+    none."""
+    if lane is None:
+        return torch.arange(P, dtype=torch.int32, device=dev)
+    return lane
+
+
+def _channel_levels(lib, hi_src, lo_src, T: int):
+    """The ``(N, L + 1, T)`` level tensors of a channel entry in device
+    memory where its library (``lib``) says the kernel cannot build them in
+    shared memory at row length ``T`` (long rows), else ``(None, None)``:
+    the kernel builds them itself."""
+    L = lib.dbx_channel_levels(int(T))
+    if L < 0:
+        return None, None
+    return (extrema_levels(hi_src, L, "max").contiguous(),
+            extrema_levels(lo_src, L, "min").contiguous())
 
 
 def _shift_t(x: torch.Tensor, s: int, fill: float) -> torch.Tensor:
@@ -478,15 +527,18 @@ def _band_next(prev, zs, k, z_exit, machine: str):
     return torch.where(prev == 0, nxt, held)
 
 
-def band_machine_plain(z, r, t_real, widx, k, warm, *, machine: str,
-                       z_exit: float, cost: float, ppy: int) -> torch.Tensor:
+def band_machine_plain(z, r, t_real, widx, k, warm, lane=None, *,
+                       machine: str, z_exit: float, cost: float,
+                       ppy: int) -> torch.Tensor:
     """Plain PyTorch version of K2 over a z-table (``dbx_band_table``).
 
-    ``z`` is the ``(N, W, T)`` z-table, ``widx`` each lane's row in it,
-    ``k`` the ``(P,)`` entry bands, ``warm`` the ``(P,)`` integer warmups.
-    ``machine`` is ``"hysteresis"`` (enter beyond +-k, leave a long at
-    ``z >= -z_exit`` and a short at ``z <= z_exit``) or ``"touch"``
-    (memoryless). Returns the ``(9, N, P)`` metric planes.
+    ``z`` is the ``(N, W, T)`` z-table, ``widx`` each slot's row in it,
+    ``k`` the ``(P,)`` entry bands, ``warm`` the ``(P,)`` integer warmups,
+    ``lane`` the ``(P,)`` int32 lane of each slot in the caller's order
+    (None: slot p is lane p; see :func:`window_major`). ``machine`` is
+    ``"hysteresis"`` (enter beyond +-k, leave a long at ``z >= -z_exit`` and
+    a short at ``z <= z_exit``) or ``"touch"`` (memoryless). Returns the
+    ``(9, N, P)`` metric planes in lane order.
     """
     _machine_code(machine)
     N, W, T = z.shape
@@ -502,7 +554,7 @@ def band_machine_plain(z, r, t_real, widx, k, warm, *, machine: str,
         nxt = _band_next(st.prev, zs, kk, zx, machine)
         pos = torch.where(step >= t_on, nxt, st.zero)
         st.step(step, pos, r[:, step:step + 1], cost)
-    return st.planes(ppy)
+    return _to_lanes(st.planes(ppy), lane)
 
 
 def band_inline_plain(close, cs, csx, csx2, r, t_real, window, k, warm, *,
@@ -545,24 +597,76 @@ def band_inline_cuda(close, cs, csx, csx2, r, t_real, window, k, warm, *,
     return out
 
 
-def band_table_cuda(z, r, t_real, widx, k, warm, *, machine: str,
-                    z_exit: float, cost: float, ppy: int) -> torch.Tensor:
-    """Launch K2's table entry (``csrc/band_machine.cu``,
+def band_table_cuda(z, r, t_real, widx, k, warm, lane=None, *,
+                    machine: str, z_exit: float, cost: float,
+                    ppy: int) -> torch.Tensor:
+    """Launch K2's table entry on a z-table (``csrc/band_machine.cu``,
     ``dbx_band_table``): same inputs and output as
-    :func:`band_machine_plain`, all on one CUDA device."""
+    :func:`band_machine_plain`, all on one CUDA device. Each lane reads
+    its table row in device memory, a warp's lanes on a few rows when the
+    slots run window-major."""
     N, W, T = z.shape
     P = widx.shape[0]
     code = _machine_code(machine)
     f32, i32 = torch.float32, torch.int32
+    lane = _lane_arg(lane, P, z.device)
     _check_launch("band_table_cuda", z.device, P,
                   z=(z, f32, (N, W, T)), r=(r, f32, (N, T)),
                   t_real=(t_real, i32, (N,)), widx=(widx, i32, (P,)),
-                  k=(k, f32, (P,)), warm=(warm, i32, (P,)))
+                  k=(k, f32, (P,)), warm=(warm, i32, (P,)),
+                  lane=(lane, i32, (P,)))
     out = torch.empty((_N_METRICS, N, P), dtype=f32, device=z.device)
     if N and P:
         _launch("band_table", _kernels.band_machine_lib().dbx_band_table,
-                z, r, t_real, widx, k, warm, out, N, T, W, P, code,
+                z, r, t_real, widx, k, warm, lane, out, N, T, W, P, code,
                 float(z_exit), float(cost), int(ppy))
+    return out
+
+
+def band_stoch_plain(close, high, low, r, t_real, window, k, warm,
+                     lane=None, *, machine: str, z_exit: float, cost: float,
+                     ppy: int) -> torch.Tensor:
+    """Plain PyTorch version of K2's stochastic entry (``dbx_band_stoch``):
+    the centered %K rows of the lanes' distinct windows
+    (:func:`stochastic_z_table`, channels from the highs and lows), then
+    :func:`band_machine_plain`. ``close``, ``high``, ``low`` and ``r`` are
+    ``(N, T)``; ``window`` the ``(P,)`` int32 window of each slot; ``k``,
+    ``warm`` and ``lane`` as :func:`band_machine_plain`."""
+    windows, widx = torch.unique(window.long(), return_inverse=True)
+    z = stochastic_z_table(close, high, low, windows.cpu().numpy())
+    return band_machine_plain(z, r, t_real, widx, k, warm, lane,
+                              machine=machine, z_exit=z_exit, cost=cost,
+                              ppy=ppy)
+
+
+def band_stoch_cuda(close, high, low, r, t_real, window, k, warm, lane=None,
+                    *, machine: str, z_exit: float, cost: float,
+                    ppy: int) -> torch.Tensor:
+    """Launch K2's stochastic entry (``csrc/band_machine.cu``,
+    ``dbx_band_stoch``): same inputs and output as :func:`band_stoch_plain`,
+    all on one CUDA device. The kernel builds the channel levels of each
+    ticker in shared memory; for rows too long for that, the levels are
+    built here in device memory (:func:`extrema_levels`) and the kernel
+    reads them there."""
+    N, T = close.shape
+    P = window.shape[0]
+    code = _machine_code(machine)
+    f32, i32 = torch.float32, torch.int32
+    lane = _lane_arg(lane, P, close.device)
+    row = (N, T)
+    _check_launch("band_stoch_cuda", close.device, P,
+                  close=(close, f32, row), high=(high, f32, row),
+                  low=(low, f32, row), r=(r, f32, row),
+                  t_real=(t_real, i32, (N,)), window=(window, i32, (P,)),
+                  k=(k, f32, (P,)), warm=(warm, i32, (P,)),
+                  lane=(lane, i32, (P,)))
+    out = torch.empty((_N_METRICS, N, P), dtype=f32, device=close.device)
+    if N and P:
+        lib = _kernels.band_machine_lib()
+        lev_hi, lev_lo = _channel_levels(lib, high, low, T)
+        _launch("band_stoch", lib.dbx_band_stoch, close, high, low, r,
+                lev_hi, lev_lo, t_real, window, k, warm, lane, out, N, T, P,
+                code, float(z_exit), float(cost), int(ppy))
     return out
 
 
@@ -575,12 +679,21 @@ def band_inline(close, cs, csx, csx2, r, t_real, window, k, warm, *,
               machine=machine, z_exit=z_exit, cost=cost, ppy=ppy)
 
 
-def band_table(z, r, t_real, widx, k, warm, *, machine: str, z_exit: float,
-               cost: float, ppy: int) -> torch.Tensor:
+def band_table(z, r, t_real, widx, k, warm, lane=None, *, machine: str,
+               z_exit: float, cost: float, ppy: int) -> torch.Tensor:
     """K2's table entry on the inputs' device."""
     fn = _on_device(band_machine_plain, band_table_cuda, z)
-    return fn(z, r, t_real, widx, k, warm, machine=machine, z_exit=z_exit,
-              cost=cost, ppy=ppy)
+    return fn(z, r, t_real, widx, k, warm, lane, machine=machine,
+              z_exit=z_exit, cost=cost, ppy=ppy)
+
+
+def band_stoch(close, high, low, r, t_real, window, k, warm, lane=None, *,
+               machine: str, z_exit: float, cost: float,
+               ppy: int) -> torch.Tensor:
+    """K2's stochastic entry on the inputs' device."""
+    fn = _on_device(band_stoch_plain, band_stoch_cuda, close)
+    return fn(close, high, low, r, t_real, window, k, warm, lane,
+              machine=machine, z_exit=z_exit, cost=cost, ppy=ppy)
 
 
 # --- K3: single window (momentum, donchian, donchian_hl) ------------------
@@ -604,12 +717,13 @@ def momentum_plain(close, r, t_real, lookback, warm, *, cost: float,
     return st.planes(ppy)
 
 
-def donchian_plain(sig, r, t_real, widx, warm, *, cost: float,
-                   ppy: int) -> torch.Tensor:
-    """Plain PyTorch version of K3's donchian entry (``dbx_donchian``): the
-    breakout latch over the ``(N, W, T)`` int8 sign table, row ``widx`` per
-    lane: +1 on an up breakout, -1 on a down one, else hold; flat before
-    the warmup. Returns the ``(9, N, P)`` metric planes."""
+def donchian_latch_plain(sig, r, t_real, widx, warm, lane=None, *,
+                         cost: float, ppy: int) -> torch.Tensor:
+    """The breakout latch of K3's donchian entry over an ``(N, W, T)`` int8
+    sign table (:func:`donchian_sign_table`), row ``widx`` per slot: +1 on
+    an up breakout, -1 on a down one, else hold; flat before the warmup.
+    ``lane`` as :func:`band_machine_plain`. Returns the ``(9, N, P)``
+    metric planes in lane order."""
     N, W, T = sig.shape
     P = widx.shape[0]
     st_t = sig.permute(2, 0, 1)                                 # (T, N, W)
@@ -622,7 +736,22 @@ def donchian_plain(sig, r, t_real, widx, warm, *, cost: float,
         nxt = torch.where(s > 0, one, torch.where(s < 0, -one, st.prev))
         pos = torch.where(step >= t_on, nxt, st.zero)
         st.step(step, pos, r[:, step:step + 1], cost)
-    return st.planes(ppy)
+    return _to_lanes(st.planes(ppy), lane)
+
+
+def donchian_plain(close, hi_src, lo_src, r, t_real, window, warm,
+                   lane=None, *, cost: float, ppy: int) -> torch.Tensor:
+    """Plain PyTorch version of K3's donchian entry (``dbx_donchian``): the
+    breakout-sign rows of the lanes' distinct windows
+    (:func:`donchian_sign_table`, the channel from ``hi_src`` and
+    ``lo_src``), then :func:`donchian_latch_plain`. ``close``, ``hi_src``,
+    ``lo_src`` and ``r`` are ``(N, T)``; ``window`` and ``warm`` the
+    ``(P,)`` int32 window and warmup of each slot; ``lane`` as
+    :func:`band_machine_plain`."""
+    windows, widx = torch.unique(window.long(), return_inverse=True)
+    sig = donchian_sign_table(close, hi_src, lo_src, windows.cpu().numpy())
+    return donchian_latch_plain(sig, r, t_real, widx, warm, lane, cost=cost,
+                                ppy=ppy)
 
 
 def momentum_cuda(close, r, t_real, lookback, warm, *, cost: float,
@@ -644,23 +773,31 @@ def momentum_cuda(close, r, t_real, lookback, warm, *, cost: float,
     return out
 
 
-def donchian_cuda(sig, r, t_real, widx, warm, *, cost: float,
-                  ppy: int) -> torch.Tensor:
+def donchian_cuda(close, hi_src, lo_src, r, t_real, window, warm,
+                  lane=None, *, cost: float, ppy: int) -> torch.Tensor:
     """Launch K3's donchian entry (``csrc/single_window.cu``,
-    ``dbx_donchian``): same inputs and output as :func:`donchian_plain`."""
-    N, W, T = sig.shape
-    P = widx.shape[0]
-    i32 = torch.int32
-    _check_launch("donchian_cuda", sig.device, P,
-                  sig=(sig, torch.int8, (N, W, T)),
-                  r=(r, torch.float32, (N, T)), t_real=(t_real, i32, (N,)),
-                  widx=(widx, i32, (P,)), warm=(warm, i32, (P,)))
-    out = torch.empty((_N_METRICS, N, P), dtype=torch.float32,
-                      device=sig.device)
+    ``dbx_donchian``): same inputs and output as :func:`donchian_plain`,
+    all on one CUDA device. The kernel builds the channel levels of each
+    ticker in shared memory; for rows too long for that, the levels are
+    built here in device memory (:func:`extrema_levels`) and the kernel
+    reads them there."""
+    N, T = close.shape
+    P = window.shape[0]
+    f32, i32 = torch.float32, torch.int32
+    lane = _lane_arg(lane, P, close.device)
+    row = (N, T)
+    _check_launch("donchian_cuda", close.device, P,
+                  close=(close, f32, row), hi_src=(hi_src, f32, row),
+                  lo_src=(lo_src, f32, row), r=(r, f32, row),
+                  t_real=(t_real, i32, (N,)), window=(window, i32, (P,)),
+                  warm=(warm, i32, (P,)), lane=(lane, i32, (P,)))
+    out = torch.empty((_N_METRICS, N, P), dtype=f32, device=close.device)
     if N and P:
-        _launch("donchian", _kernels.single_window_lib().dbx_donchian,
-                sig, r, t_real, widx, warm, out, N, T, W, P, float(cost),
-                int(ppy))
+        lib = _kernels.single_window_lib()
+        lev_hi, lev_lo = _channel_levels(lib, hi_src, lo_src, T)
+        _launch("donchian", lib.dbx_donchian, close, hi_src, lo_src, r,
+                lev_hi, lev_lo, t_real, window, warm, lane, out, N, T, P,
+                float(cost), int(ppy))
     return out
 
 
@@ -671,11 +808,12 @@ def momentum(close, r, t_real, lookback, warm, *, cost: float,
     return fn(close, r, t_real, lookback, warm, cost=cost, ppy=ppy)
 
 
-def donchian(sig, r, t_real, widx, warm, *, cost: float,
-             ppy: int) -> torch.Tensor:
+def donchian(close, hi_src, lo_src, r, t_real, window, warm, lane=None, *,
+             cost: float, ppy: int) -> torch.Tensor:
     """K3's donchian entry on the inputs' device."""
-    fn = _on_device(donchian_plain, donchian_cuda, sig)
-    return fn(sig, r, t_real, widx, warm, cost=cost, ppy=ppy)
+    fn = _on_device(donchian_plain, donchian_cuda, close)
+    return fn(close, hi_src, lo_src, r, t_real, window, warm, lane, cost=cost,
+              ppy=ppy)
 
 
 # --- K4 and K5: EMA signal-line crossover (macd, trix) --------------------
@@ -840,18 +978,36 @@ def pairs(z, hr, t_real, widx, k, z_exit, warm, *, cost: float,
 
 # --- table prep (torch ops before the launch) -----------------------------
 
-def _extrema_rows(src: torch.Tensor, windows: np.ndarray, mode: str):
-    """Yield each distinct window's ``(N, T)`` rolling max/min of ``src``
-    from ONE sparse table (the reference's ``_extrema_table``): doubling
-    levels ``level[j][t] = op(x[t - 2^j + 1 .. t])``, then every window is
-    the op of two overlapping spans. Exact (max/min of raw prices); warmup
-    bars ``t < w - 1`` are left as computed (the callers mask them)."""
+def _level_list(src: torch.Tensor, L: int, mode: str) -> list:
+    """The sparse table's doubling levels of ``src`` (the reference's
+    ``_extrema_table``): ``level[0] = src``, ``level[j][t] =
+    op(level[j-1][t], level[j-1][t - 2^(j-1)])`` with the neutral value
+    before the shift, so ``level[j][t] = op(src[t - 2^j + 1 .. t])``; one
+    op per level."""
     op = torch.maximum if mode == "max" else torch.minimum
     neutral = -math.inf if mode == "max" else math.inf
-    max_j = max(int(w).bit_length() - 1 for w in windows)
     levels = [src]
-    for j in range(max_j):
+    for j in range(L):
         levels.append(op(levels[j], _shift_t(levels[j], 1 << j, neutral)))
+    return levels
+
+
+def extrema_levels(src: torch.Tensor, L: int, mode: str) -> torch.Tensor:
+    """Levels 0..L of ``src`` (``(N, T)``) as one ``(N, L + 1, T)`` tensor,
+    the layout the channel kernels read when the levels do not fit in
+    shared memory."""
+    return torch.stack(_level_list(src, L, mode), dim=1)
+
+
+def _extrema_rows(src: torch.Tensor, windows: np.ndarray, mode: str):
+    """Yield each distinct window's ``(N, T)`` rolling max/min of ``src``
+    from ONE sparse table (:func:`_level_list`): every window is the op of
+    two overlapping spans. Exact (max/min of raw prices); warmup bars
+    ``t < w - 1`` are left as computed (the callers mask them)."""
+    op = torch.maximum if mode == "max" else torch.minimum
+    neutral = -math.inf if mode == "max" else math.inf
+    levels = _level_list(src, max(int(w).bit_length() - 1 for w in windows),
+                         mode)
     for w in windows:
         w = int(w)
         j = w.bit_length() - 1                      # largest 2^j <= w
@@ -862,7 +1018,8 @@ def stochastic_z_table(close, high, low, windows: np.ndarray) -> torch.Tensor:
     """The ``(N, W, T)`` centered %K table of each distinct window (the
     reference's ``_fused_stoch_call`` prep): ``%K - 50`` with the channel
     from the highs and lows, 50 where the channel is flat, 0 before
-    ``t = w - 1``."""
+    ``t = w - 1``. :func:`band_stoch_plain` steps over it; the kernel forms
+    the same values per lane and bar and writes no table."""
     N, T = close.shape
     t = torch.arange(T, device=close.device)
     z = torch.empty((N, len(windows), T), dtype=torch.float32,
@@ -882,7 +1039,9 @@ def donchian_sign_table(close, hi_src, lo_src,
     """The ``(N, W, T)`` int8 breakout-sign table (the reference's
     ``_fused_don_call`` HBM table): +1 where the close is at or above the
     prior bar's channel high, -1 at or below the prior low, up wins; the
-    channel is +-1e30 before ``t = w - 1`` and at ``t = 0``."""
+    channel is +-1e30 before ``t = w - 1`` and at ``t = 0``.
+    :func:`donchian_plain` steps over it; the kernel forms the same signs
+    per lane and bar and writes no table."""
     N, T = close.shape
     t = torch.arange(T, device=close.device)
     sig = torch.empty((N, len(windows), T), dtype=torch.int8,
@@ -1184,36 +1343,45 @@ def fused_stochastic_sweep(close, high, low, window, band, *, t_real=None,
                            device: str | torch.device =
                            device_mod.DEFAULT_DEVICE) -> Metrics:
     """Fused stochastic-%K reversion sweep: ``(N, T)`` panels x ``(P,)``
-    lanes (K2's table entry, hysteresis machine with z_exit = 0 on the
-    centered %K table).
+    lanes (K2's stochastic entry, hysteresis machine with z_exit = 0 on the
+    centered %K, whose channel the kernel builds from the highs and lows:
+    no ``(N, W, T)`` table on the card).
 
     ``window``/``band`` are flat per-combo arrays; windows must be integral
     bar counts. Matches ``run_sweep(..., "stochastic")``.
     """
     dev = _prologue(carry_out, None, epilogue, device)
     close, high, low = _panel(dev, close, high, low)
-    return _band_table_sweep(
-        close, window, band, ("window", "band"), 0.0,
-        lambda w: stochastic_z_table(close, high, low, w), t_real=t_real,
-        cost=cost, periods_per_year=periods_per_year)
+    N, T = close.shape
+    window, band = _flat(window), _flat(band)
+    _same_length(window=window, band=band)
+    _, win, widx, warm = _window_setup(window, "windows", 0.0, 1)
+    lane, _, win, band, warm = window_major(widx, win, band, warm)
+    tr = _check_t_real(t_real, N, T)
+    planes = band_stoch(close, high, low, simple_returns(close).contiguous(),
+                        *_to(dev, tr, win, band, warm, lane),
+                        machine="hysteresis", z_exit=0.0, cost=float(cost),
+                        ppy=int(periods_per_year))
+    return Metrics(*planes)
 
 
 def _band_table_sweep(close, window, band, names, warm_offset: float,
                       z_table, *, t_real, cost, periods_per_year,
                       warm_scale: float = 1.0) -> Metrics:
     """K2's table entry, hysteresis machine with z_exit = 0, over the
-    z-table ``z_table(windows)`` of the distinct windows. ``window`` and
-    ``band`` are the flat per-combo values, ``names`` their argument names
-    for the error messages; each lane's warmup is ``warm_scale`` times its
-    window plus ``warm_offset``."""
+    z-table ``z_table(windows)`` of the distinct windows, lanes
+    window-major. ``window`` and ``band`` are the flat per-combo values,
+    ``names`` their argument names for the error messages; each lane's
+    warmup is ``warm_scale`` times its window plus ``warm_offset``."""
     N, T = close.shape
     window, band = _flat(window), _flat(band)
     _same_length(**dict(zip(names, (window, band))))
     windows, _, widx, warm = _window_setup(window, f"{names[0]}s",
                                            warm_offset, 1, warm_scale)
+    lane, widx, band, warm = window_major(widx, band, warm)
     tr = _check_t_real(t_real, N, T)
     planes = band_table(z_table(windows), simple_returns(close).contiguous(),
-                        *_to(close.device, tr, widx, band, warm),
+                        *_to(close.device, tr, widx, band, warm, lane),
                         machine="hysteresis", z_exit=0.0, cost=float(cost),
                         ppy=int(periods_per_year))
     return Metrics(*planes)
@@ -1342,13 +1510,13 @@ def fused_momentum_sweep(close, lookback, *, t_real=None, cost: float = 0.0,
 def _donchian_family_sweep(close, hi_src, lo_src, window, *, t_real, cost,
                            periods_per_year) -> Metrics:
     N, T = close.shape
-    windows, _, widx, warm = _window_setup(_flat(window),
-                                           "windows", 1.0, 1)
+    _, win, widx, warm = _window_setup(_flat(window), "windows", 1.0, 1)
+    lane, _, win, warm = window_major(widx, win, warm)
     tr = _check_t_real(t_real, N, T)
-    sig = donchian_sign_table(close, hi_src, lo_src, windows)
-    planes = donchian(sig, simple_returns(close).contiguous(),
-                      *_to(close.device, tr, widx, warm), cost=float(cost),
-                      ppy=int(periods_per_year))
+    planes = donchian(close, hi_src, lo_src,
+                      simple_returns(close).contiguous(),
+                      *_to(close.device, tr, win, warm, lane),
+                      cost=float(cost), ppy=int(periods_per_year))
     return Metrics(*planes)
 
 
@@ -1360,10 +1528,12 @@ def fused_donchian_sweep(close, window, *, t_real=None, cost: float = 0.0,
                          device: str | torch.device =
                          device_mod.DEFAULT_DEVICE) -> Metrics:
     """Fused Donchian-breakout sweep on the close channel: ``(N, T)``
-    closes x ``(P,)`` lanes (K3's donchian entry over the breakout-sign
-    table). Windows must be integral; channels are exact, so positions are
-    the generic path's. A valid ``table`` changes nothing: the table is
-    always built with torch ops (the reference's default, ``"hbm"``)."""
+    closes x ``(P,)`` lanes (K3's donchian entry, which builds each
+    window's channel and breakout sign on the card: no ``(N, W, T)`` table).
+    Windows must be integral; channels are exact, so positions are the
+    generic path's. A valid ``table`` changes nothing: the port runs one
+    design (the reference's ``"inline"`` substrate, ``_don_kernel_inline``)
+    whatever the value."""
     dev = _prologue(carry_out, table, epilogue, device)
     (close,) = _panel(dev, close)
     return _donchian_family_sweep(

@@ -33,16 +33,24 @@ OPS_PER_SIGNAL_BAR = 6
 # csrc/single_window.cu, beside the 20 of the metric update: the inline
 # z (three window sums, mean div, s1*s1, two divs by w, s2 sub, clamp,
 # sqrt, +eps, c-m, div = 13) and the machine (entry compares 2, state
-# compares 2 = 4); the table entry the machine only; momentum sub+sign;
-# the donchian latch two compares; macd and trix x - signal and its sign;
-# from csrc/fused_sma.cu, obv - sma and its sign; pairs the machine, as the
-# table entry.
-OPS_SIGNAL = {"band_inline": 17, "band_table": 4, "momentum": 2,
-              "donchian": 2, "macd": 2, "trix": 2, "obv": 2, "pairs": 4}
-# The SMA of the OBV (sub, div) is a function of (ticker, window, bar): the
-# function needs it once per distinct window past its warmup, though K6
-# forms it in every lane.
-OPS_OBV_SMA = 2
+# compares 2 = 4); the table, stochastic and pairs entries the machine;
+# momentum sub+sign; donchian the latch's two selects; macd and trix
+# x - signal and its sign; from csrc/fused_sma.cu, obv - sma and its sign.
+OPS_SIGNAL = {"band_inline": 17, "band_table": 4, "band_stoch": 4,
+              "momentum": 2, "donchian": 2, "macd": 2, "trix": 2, "obv": 2,
+              "pairs": 4}
+# Per (ticker, distinct window, bar) past the window's warmup: work that is
+# a function of the window, not of the lane, so the function needs it once
+# per distinct window though the kernels form it in every lane. K6 the SMA
+# of the OBV (sub, div = 2); the stochastic entry the %K from the levels
+# (the channel's max and min, rng sub, its compare, c - lo, *100,
+# rng + eps, div, -50 = 9); donchian the channel's max and min and the two
+# breakout compares (4; the channel of bar t - 1 on bar t: the warmup is
+# window + 1).
+OPS_WINDOW = {"obv": 2, "band_stoch": 9, "donchian": 4}
+# The channel entries' level build, per ticker, level above the rows and
+# bar: one max and one min (csrc/extrema.cuh).
+OPS_LEVEL = 2
 # Per (combo, bar) below the ticker's length, beside the 20 of the metric
 # update, from csrc/ema_cross.cu: macd the row difference and the signal
 # EMA (sub, two muls, add = 4); trix the zero test of the previous value,
@@ -169,17 +177,19 @@ def product(axes: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
 # Kernel entry of each fused strategy, and the (T)-long f32 input rows it
 # reads per ticker as a function of its distinct windows W: K1 the cumsum
 # and returns; K2 inline close, three cumsums and returns; the table
-# entries W table rows and returns (the donchian sign table is int8, a
-# quarter row each); K6 obv, its cumsum and returns; K7 two rows a lookback.
+# entries W table rows and returns; the channel entries (stochastic,
+# donchian) the close, the channel's two sources and returns; K6 obv, its
+# cumsum and returns; K7 two rows a lookback.
 ENTRY = {"sma_crossover": "fused_sma", "bollinger": "band_inline",
-         "bollinger_touch": "band_inline", "stochastic": "band_table",
+         "bollinger_touch": "band_inline", "stochastic": "band_stoch",
          "rsi": "band_table", "keltner": "band_table",
          "vwap_reversion": "band_table", "momentum": "momentum",
          "donchian": "donchian", "donchian_hl": "donchian", "macd": "macd",
          "trix": "trix", "obv_trend": "obv", "pairs": "pairs"}
 _ROWS = {"fused_sma": lambda w: 2, "band_inline": lambda w: 5,
-         "band_table": lambda w: w + 1, "momentum": lambda w: 2,
-         "donchian": lambda w: w / 4 + 1, "macd": lambda w: w + 1,
+         "band_table": lambda w: w + 1, "band_stoch": lambda w: 4,
+         "momentum": lambda w: 2, "donchian": lambda w: 4,
+         "macd": lambda w: w + 1,
          "trix": lambda w: w + 1, "obv": lambda w: 3,
          "pairs": lambda w: 2 * w}
 
@@ -188,11 +198,14 @@ def config_model(strategy: str, n_distinct: int, P: int,
                  T: int) -> dict[str, float]:
     """Operations and bytes per (cell, bar) of one fused sweep's kernel:
     the metric update, the entry's signal work on every bar (an upper
-    bound: warmup bars do less), its input rows shared by the ticker's P
-    lanes, and the 9 metrics of each cell."""
+    bound: warmup bars do less) with the per-window work shared by the
+    lanes of each of the ``n_distinct`` windows, its input rows shared by
+    the ticker's P lanes, and the 9 metrics of each cell."""
     entry = ENTRY[strategy]
-    ops = OPS_PER_BAR + OPS_EACH_BAR.get(entry, 0) + (
-        OPS_PER_SIGNAL_BAR if entry == "fused_sma" else OPS_SIGNAL[entry])
+    signal = (OPS_PER_SIGNAL_BAR if entry == "fused_sma"
+              else OPS_SIGNAL[entry])
+    ops = (OPS_PER_BAR + OPS_EACH_BAR.get(entry, 0) + signal
+           + OPS_WINDOW.get(entry, 0) * n_distinct / P)
     n_bytes = 4.0 * _ROWS[entry](n_distinct) / P + 4.0 * 9 / T
     return {"ops": float(ops), "bytes": n_bytes}
 

@@ -13,10 +13,12 @@ momentum, donchian and donchian_hl on K3; macd on K4, trix on K5,
 obv_trend on K6) and the two-legged pairs jobs (K7, the second leg in
 ``JobSpec.ohlcv2``). A pairs
 job without a second leg, or with legs of unequal length, completes with
-an empty metric block and a logged error, as in the reference. The job
-fields the port does not serve yet (streaming append, scenario batches,
-walk-forward, top-k, best-returns) raise ``NotImplementedError`` naming
-them; nothing is computed some other way.
+an empty metric block and a logged error, as in the reference. A job
+carrying a field the port does not serve yet (streaming append, scenario
+batches, walk-forward, top-k, best-returns) is refused on its own: it gets
+a logged warning naming the field and no completion, so it stays leased
+and the dispatcher re-queues it when the lease runs out, while the other
+jobs of its batch are served. Nothing is computed some other way.
 """
 
 from __future__ import annotations
@@ -230,21 +232,25 @@ class TorchSweepBackend:
         return 1
 
     def process(self, jobs) -> list[Completion]:
-        """Run a job batch to completion and return one Completion per job.
+        """Run a job batch and return one Completion per servable job.
 
-        Jobs are grouped as the reference's ``submit`` groups them: by
+        A job that ``_unsupported`` refuses is logged and left without a
+        completion (it stays leased until the dispatcher re-queues it);
+        the rest are grouped as the reference's ``submit`` groups them: by
         strategy, grid, power-of-two payload length bucket of each leg,
-        cost and periods per year.
+        cost and periods per year. A batch of refused jobs returns ``[]``.
         """
-        jobs = list(jobs)
+        served = []
         for job in jobs:
             what = _unsupported(job)
-            if what is not None:
-                raise NotImplementedError(
-                    f"job {job.id}: {what} is not ported to the PyTorch "
-                    "backend yet (see ROADMAP.md, Queue 1)")
+            if what is None:
+                served.append(job)
+            else:
+                log.warning("job %s refused: %s is not ported to the "
+                            "PyTorch backend yet (see ROADMAP.md, Queue 1); "
+                            "it stays leased", job.id, what)
         groups: dict[tuple, list] = {}
-        for job in jobs:
+        for job in served:
             axes = wire.grid_from_proto(job.grid)
             key = (job.strategy,
                    tuple(sorted((k, v.tobytes()) for k, v in axes.items())),

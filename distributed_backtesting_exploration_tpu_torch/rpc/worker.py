@@ -5,9 +5,11 @@ The loop: a heartbeat thread sends ``SendStatus`` every
 and the main loop polls ``RequestJobs`` with ``accepts_digest_only=False``
 (payloads arrive inline, no ``FetchPayload`` needed), runs the batch
 through the backend's ``process`` and reports the results with
-``CompleteJobs``. A batch the backend refuses (a job the port does not
-serve yet) is logged and left leased: the dispatcher re-queues it when the
-lease expires.
+``CompleteJobs``. A job the backend refuses (a field the port does not
+serve yet) gets no completion and stays leased, and the dispatcher
+re-queues it when the lease expires; the other jobs of its batch are
+reported. A batch whose ``process`` raises is logged and left leased the
+same way.
 
 Run it:
 
@@ -124,7 +126,11 @@ class Worker:
             return
         finally:
             self._busy.clear()
-        self._report(stub, completions)
+        if len(completions) < len(jobs):
+            log.info("%d of %d jobs refused; leaving their leases to "
+                     "re-queue them", len(jobs) - len(completions), len(jobs))
+        if completions:
+            self._report(stub, completions)
 
     def _report(self, stub, completions) -> None:
         req = pb.CompleteBatch(worker_id=self.worker_id, items=[

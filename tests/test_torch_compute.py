@@ -138,6 +138,28 @@ def test_backend_non_integral_grid_takes_generic_path():
                          _stack(_decoded(want), ids))
 
 
+def _refuse(spec, field, value):
+    if field == "scenario_batch":
+        spec.scenario_batch.add()
+    else:
+        setattr(spec, field, value)
+
+
+def _assert_serves_around(refused, good, what, caplog):
+    """A batch [refused, good]: the good job's DBXM bytes equal a solo
+    run's, the refused job gets no completion, and the log names it and
+    why."""
+    backend = compute.TorchSweepBackend(device="cpu")
+    (solo,) = backend.process([good])
+    with caplog.at_level("WARNING", logger="dbx.torch.compute"):
+        out = backend.process([refused, good])
+    assert [c.job_id for c in out] == [good.id]
+    assert out[0].metrics == solo.metrics and out[0].metrics
+    refusal = [r.getMessage() for r in caplog.records
+               if r.getMessage().startswith(f"job {refused.id} refused")]
+    assert len(refusal) == 1 and what in refusal[0]
+
+
 @pytest.mark.parametrize("field,value,what", [
     ("strategy", "no_such_strategy", "strategy 'no_such_strategy'"),
     ("top_k", 4, "top-k"),
@@ -147,14 +169,22 @@ def test_backend_non_integral_grid_takes_generic_path():
     ("scenario_batch", True, "scenario"),
     ("ohlcv2", b"DBX1", "pairs"),
 ])
-def test_backend_refuses_what_it_does_not_serve(field, value, what):
-    (spec,) = _specs(synthetic_jobs(1, 64, "sma_crossover", GRID))
-    if field == "scenario_batch":
-        spec.scenario_batch.add()
-    else:
-        setattr(spec, field, value)
-    with pytest.raises(NotImplementedError, match=what):
-        compute.TorchSweepBackend(device="cpu").process([spec])
+def test_backend_refuses_what_it_does_not_serve(field, value, what, caplog):
+    # A refused job no longer blocks its batch: the servable job beside it
+    # completes, the refused one stays leased (no completion).
+    refused, good = _specs(synthetic_jobs(2, 64, "sma_crossover", GRID))
+    _refuse(refused, field, value)
+    _assert_serves_around(refused, good, what, caplog)
+
+
+def test_backend_batch_of_refused_jobs_returns_nothing(caplog):
+    specs = _specs(synthetic_jobs(3, 64, "sma_crossover", GRID))
+    for spec, (field, value) in zip(specs, [("top_k", 4), ("wf_train", 40),
+                                            ("strategy", "nope")]):
+        _refuse(spec, field, value)
+    with caplog.at_level("WARNING", logger="dbx.torch.compute"):
+        assert compute.TorchSweepBackend(device="cpu").process(specs) == []
+    assert caplog.text.count("refused") == 3
 
 
 # Pairs jobs against the reference backend: the reference's pairs budget
@@ -225,11 +255,10 @@ def test_backend_completes_malformed_pairs_jobs_empty(caplog):
     ("top_k", 4, "top-k"),
     ("best_returns", True, "best-returns"),
 ])
-def test_backend_refuses_unported_pairs_fields(field, value, what):
-    (spec,) = _specs(synthetic_jobs(1, 64, "pairs", PAIRS_GRID))
-    setattr(spec, field, value)
-    with pytest.raises(NotImplementedError, match=what):
-        compute.TorchSweepBackend(device="cpu").process([spec])
+def test_backend_refuses_unported_pairs_fields(field, value, what, caplog):
+    refused, good = _specs(synthetic_jobs(2, 64, "pairs", PAIRS_GRID))
+    _refuse(refused, field, value)
+    _assert_serves_around(refused, good, what, caplog)
 
 
 def test_backend_refuses_digest_only_payload():

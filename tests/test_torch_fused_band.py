@@ -302,3 +302,98 @@ def test_rolling_extrema_match_reference(mode):
         jnp.asarray(x), 20.0, max_window=16, mode=mode))
     np.testing.assert_array_equal(np.isnan(bounded), np.isnan(ref_bounded))
     assert np.isnan(bounded[:, 19:]).all()
+
+
+def _stoch_rows(panel, lens=None):
+    c, h, lo = (torch.from_numpy(f) for f in (panel.close, panel.high,
+                                              panel.low))
+    n, T = c.shape
+    tr = torch.from_numpy(fused._check_t_real(lens, n, T))
+    return c, h, lo, fused.simple_returns(c), tr
+
+
+def _table_form(c, h, lo, r, tr, g, kw):
+    """The stochastic entry's old table form: the (N, W, T) %K table and the
+    table entry's plain version over it, lanes in the caller's order."""
+    windows, _, widx, warm = fused._window_setup(g["window"], "windows", 0.0,
+                                                 1)
+    z = fused.stochastic_z_table(c, h, lo, windows)
+    return fused.band_machine_plain(
+        z, r, tr, *(torch.from_numpy(a) for a in (widx, g["band"], warm)),
+        **kw)
+
+
+@pytest.mark.parametrize("case", ["ragged", "beyond_history", "window_1",
+                                  "straddling"])
+@pytest.mark.parametrize("machine", ["hysteresis", "touch"])
+def test_band_stoch_plain_equals_table_form(case, machine):
+    # The stochastic entry's plain version (raw rows, window-major lanes)
+    # equals the %K table form in the caller's order, bit for bit.
+    lens = None
+    if case == "ragged":
+        panel, lens, _ = _ragged([150, 200, 97], seed=61)
+        g = _grid(band=[20.0, 30.0], window=[3, 10, 14, 64])
+    elif case == "beyond_history":
+        panel = data.synthetic_ohlcv(2, 120, seed=62)
+        g = _grid(band=[25.0], window=[10, 200])
+    elif case == "window_1":
+        panel = data.synthetic_ohlcv(2, 90, seed=63)
+        g = _grid(band=[10.0, 40.0], window=[1, 2, 7])
+    else:   # 3 x 60 lanes: 128-lane blocks straddle windows
+        panel = data.synthetic_ohlcv(2, 100, seed=64)
+        g = _grid(band=[15.0, 25.0, 35.0], window=list(range(1, 61)))
+    c, h, lo, r, tr = _stoch_rows(panel, lens)
+    kw = dict(machine=machine, z_exit=0.0, cost=1e-3, ppy=252)
+    want = _table_form(c, h, lo, r, tr, g, kw)
+    _, win, widx, warm = fused._window_setup(g["window"], "windows", 0.0, 1)
+    lane, _, win, band, warm = fused.window_major(widx, win, g["band"], warm)
+    got = fused.band_stoch(c, h, lo, r, tr, *(torch.from_numpy(a) for a in
+                                              (win, band, warm, lane)), **kw)
+    assert got.shape == (9, c.shape[0], g["band"].size)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("source", ["stochastic", "rsi"])
+def test_window_major_lanes_give_the_callers_planes(source):
+    # The table entry over a grid whose 128-lane blocks straddle windows:
+    # lanes in window-major order with `lane` give the caller's-order
+    # planes bit for bit.
+    panel = data.synthetic_ohlcv(2, 80, seed=65)
+    c, h, lo, r, tr = _stoch_rows(panel)
+    g = _grid(band=[12.0, 20.0, 28.0], window=list(range(2, 62)))
+    windows, _, widx, warm = fused._window_setup(g["window"], "windows", 0.0,
+                                                 1)
+    z = (fused.stochastic_z_table(c, h, lo, windows) if source ==
+         "stochastic" else fused.rsi_z_table(c, windows))
+    kw = dict(machine="hysteresis", z_exit=0.0, cost=1e-3, ppy=252)
+    want = fused.band_table(z, r, tr, *(torch.from_numpy(a) for a in
+                                        (widx, g["band"], warm)), **kw)
+    lane, widx_s, band_s, warm_s = fused.window_major(widx, g["band"], warm)
+    assert (np.diff(widx_s) >= 0).all()
+    assert sorted(lane.tolist()) == list(range(widx.size))
+    got = fused.band_table(z, r, tr, *(torch.from_numpy(a) for a in
+                                       (widx_s, band_s, warm_s, lane)), **kw)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("mode", ["max", "min"])
+def test_extrema_levels_give_the_channel_rows(mode):
+    # The device-memory levels of the long-row variant: level j is the
+    # rolling extreme over 2^j bars, so every channel row follows from two
+    # of its spans as `_extrema_rows` takes them.
+    x = torch.from_numpy(data.synthetic_ohlcv(2, 70, seed=66).high)
+    L = 6                                   # floor(log2 70)
+    lev = fused.extrema_levels(x, L, mode)
+    assert lev.shape == (2, L + 1, 70)
+    op = torch.maximum if mode == "max" else torch.minimum
+    for j in range(L + 1):
+        want = rolling.rolling_max(x, 1 << j, fill=0.0) if mode == "max" \
+            else rolling.rolling_min(x, 1 << j, fill=0.0)
+        t0 = (1 << j) - 1
+        assert torch.equal(lev[:, j, t0:], want[:, t0:])
+    for w, row in fused._extrema_rows(x, np.asarray([1, 5, 64, 70]), mode):
+        j = w.bit_length() - 1
+        span = op(lev[:, j], fused._shift_t(lev[:, j], w - (1 << j),
+                                            -np.inf if mode == "max"
+                                            else np.inf))
+        assert torch.equal(row, span)

@@ -15,6 +15,7 @@ metrics agree at ``torch_parity``'s rtol=2e-4, atol=2e-5.
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from distributed_backtesting_exploration_tpu.models.base import (
     get_strategy as ref_strategy)
@@ -174,3 +175,51 @@ def test_fused_single_window_plain_matches_generic_sweep(strategy):
     want = sweep.run_sweep(panel, get_strategy(strategy), {axis: vals},
                            cost=1e-3, bar_mask=mask, device="cpu")
     assert assert_metrics_match(got, want) == 0
+
+
+def _donchian_table_form(c, hi, lo, r, tr, vals):
+    """The donchian entry's old table form: the (N, W, T) int8 breakout-sign
+    table and the latch over it, lanes in the caller's order."""
+    windows, _, widx, warm = fused._window_setup(np.float32(vals), "windows",
+                                                 1.0, 1)
+    sig = fused.donchian_sign_table(c, hi, lo, windows)
+    return fused.donchian_latch_plain(
+        sig, r, tr, *(torch.from_numpy(a) for a in (widx, warm)), cost=1e-3,
+        ppy=252)
+
+
+@pytest.mark.parametrize("case", ["ragged", "beyond_history", "window_1",
+                                  "straddling"])
+@pytest.mark.parametrize("channel", ["close", "high_low"])
+def test_donchian_plain_equals_table_form(case, channel):
+    # The donchian entry's plain version (raw rows, window-major lanes)
+    # equals the sign-table form in the caller's order, bit for bit; the
+    # high/low channel with distinct highs and lows.
+    lens = None
+    if case == "ragged":
+        panel, lens, _ = _ragged([150, 200, 97], seed=71)
+        vals = [10, 3, 55, 10]
+    elif case == "beyond_history":
+        panel = data.synthetic_ohlcv(2, 100, seed=72)
+        vals = [10, 200]
+    elif case == "window_1":
+        panel = data.synthetic_ohlcv(2, 90, seed=73)
+        vals = [1, 2, 1, 9]
+    else:   # 4 x 50 lanes: 128-lane blocks straddle windows
+        panel = data.synthetic_ohlcv(2, 120, seed=74)
+        vals = np.tile(np.arange(1, 51), 4)
+    c, h, lo = (torch.from_numpy(f) for f in (panel.close, panel.high,
+                                              panel.low))
+    assert not torch.equal(h, lo)
+    hi_src, lo_src = (c, c) if channel == "close" else (h, lo)
+    r = fused.simple_returns(c)
+    tr = torch.from_numpy(fused._check_t_real(lens, *c.shape))
+    want = _donchian_table_form(c, hi_src, lo_src, r, tr, vals)
+    _, win, widx, warm = fused._window_setup(np.float32(vals), "windows",
+                                             1.0, 1)
+    lane, _, win, warm = fused.window_major(widx, win, warm)
+    got = fused.donchian(c, hi_src, lo_src, r, tr,
+                         *(torch.from_numpy(a) for a in (win, warm, lane)),
+                         cost=1e-3, ppy=252)
+    assert got.shape == (9, c.shape[0], len(vals))
+    assert torch.equal(got, want)

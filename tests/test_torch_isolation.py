@@ -160,8 +160,9 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 @pytest.mark.parametrize("dispatch,plain,cuda,n_args", [
     ("band_inline", "band_inline_plain", "band_inline_cuda", 9),
     ("band_table", "band_machine_plain", "band_table_cuda", 6),
+    ("band_stoch", "band_stoch_plain", "band_stoch_cuda", 8),
     ("momentum", "momentum_plain", "momentum_cuda", 5),
-    ("donchian", "donchian_plain", "donchian_cuda", 5),
+    ("donchian", "donchian_plain", "donchian_cuda", 7),
     ("macd", "macd_plain", "macd_cuda", 7),
     ("trix", "trix_plain", "trix_cuda", 6),
     ("obv", "obv_plain", "obv_cuda", 6),
@@ -181,6 +182,7 @@ def test_new_entries_never_take_the_plain_version_off_the_cpu(
 
 
 @pytest.mark.parametrize("wrapper", ["band_inline_cuda", "band_table_cuda",
+                                     "band_stoch_cuda",
                                      "momentum_cuda", "donchian_cuda",
                                      "macd_cuda", "trix_cuda", "obv_cuda",
                                      "pairs_cuda"])
@@ -189,8 +191,9 @@ def test_new_kernel_wrappers_refuse_cpu_tensors(wrapper):
     i = torch.zeros((1,), dtype=torch.int32)
     args = {"band_inline_cuda": (x, x, x, x, x, i, i, x[0, :1], i),
             "band_table_cuda": (x[None], x, i, i, x[0, :1], i),
+            "band_stoch_cuda": (x, x, x, x, i, i, x[0, :1], i),
             "momentum_cuda": (x, x, i, i, i),
-            "donchian_cuda": (x[None].to(torch.int8), x, i, i, i),
+            "donchian_cuda": (x, x, x, x, i, i, i),
             "macd_cuda": (x[None], x, i, i, i, x[0, :1], i),
             "trix_cuda": (x[None], x, i, i, x[0, :1], i),
             "obv_cuda": (x, x, x, i, i, i),

@@ -7,10 +7,12 @@ JAX (this file and ``torch_parity`` import none), run:
     python -m pytest --noconftest -p no:cacheprovider \
         tests/test_torch_kernels_cuda.py
 
-Both versions take the same inputs (cumsums, returns, OBV rows, z-, sign, EMA
-or pairs tables),
-so positions are identical (n_trades and turnover bit-equal) and the other
-metrics agree at rtol=2e-4, atol=2e-5.
+Both versions take the same inputs (cumsums, returns, OBV rows, the raw
+rows of the channel entries, z-, EMA or pairs tables), so positions are
+identical (n_trades and turnover bit-equal) and the other metrics agree at
+rtol=2e-4, atol=2e-5; the window-major entries (K2's table and stochastic
+entries, K3's donchian) take their lanes sorted by window, as their sweeps
+pass them, and must be bit-equal in every metric.
 """
 
 import numpy as np
@@ -47,16 +49,16 @@ def _inputs(dev, close, fast_axis, slow_axis, t_real=None):
 
 
 def _assert_kernel_matches_plain(inputs, cost, kernel=None, plain=None,
-                                 **kw):
+                                 ref_inputs=None, exact=False, **kw):
     kernel = kernel or fused.fused_sma_cuda
     plain = plain or fused.fused_sma_plain
     got = kernel(*inputs, cost=cost, ppy=252, **kw)
-    ref = plain(*inputs, cost=cost, ppy=252, **kw)
+    ref = plain(*(ref_inputs or inputs), cost=cost, ppy=252, **kw)
     torch.cuda.synchronize()
     for k, name in enumerate(fused.Metrics._fields):
         a, b = got[k].cpu().numpy(), ref[k].cpu().numpy()
         assert np.isfinite(a).all(), name
-        if name in ("n_trades", "turnover"):
+        if exact or name in ("n_trades", "turnover"):
             np.testing.assert_array_equal(a, b, err_msg=name)
         np.testing.assert_allclose(a, b, rtol=RTOL, atol=ATOL, err_msg=name)
 
@@ -135,14 +137,31 @@ def _band_inline_inputs(dev, n, T, seed, lens=None):
             *fused._to(dev, win, g["k"].numpy(), warm))
 
 
+def _lanes(dev, widx, *per_lane):
+    """Per-lane arrays in window-major slot order, as the sweeps pass them,
+    then ``lane``."""
+    lane, _, *sorted_ = fused.window_major(widx, *per_lane)
+    return (*fused._to(dev, *sorted_), *fused._to(dev, lane))
+
+
+def _stoch_grid(bands=(15, 30), windows=(1, 5, 14, 30, 300)):
+    g = sweep.product_grid(band=np.float32(bands), window=np.float32(windows))
+    return fused._window_setup(g["window"].numpy(), "windows", 0.0, 1), g
+
+
 def _band_table_inputs(dev, n, T, seed, lens=None):
+    # The table entry on the stochastic %K table.
     close, high, low, tr, r = _panel(dev, n, T, seed, lens)
-    g = sweep.product_grid(band=np.float32([15, 30]),
-                           window=np.float32([5, 14, 30]))
-    windows, _, widx, warm = fused._window_setup(g["window"].numpy(),
-                                                 "windows", 0.0, 1)
+    (windows, _, widx, warm), g = _stoch_grid()
     z = fused.stochastic_z_table(close, high, low, windows)
-    return (z, r, tr, *fused._to(dev, widx, g["band"].numpy(), warm))
+    return (z, r, tr, *_lanes(dev, widx, widx, g["band"].numpy(), warm))
+
+
+def _band_stoch_inputs(dev, n, T, seed, lens=None, **grid):
+    close, high, low, tr, r = _panel(dev, n, T, seed, lens)
+    (_, win, widx, warm), g = _stoch_grid(**grid)
+    return (close, high, low, r, tr,
+            *_lanes(dev, widx, win, g["band"].numpy(), warm))
 
 
 def _momentum_inputs(dev, n, T, seed, lens=None):
@@ -152,12 +171,12 @@ def _momentum_inputs(dev, n, T, seed, lens=None):
     return (close, r, tr, *fused._to(dev, lb, warm))
 
 
-def _donchian_inputs(dev, n, T, seed, lens=None):
+def _donchian_inputs(dev, n, T, seed, lens=None,
+                     windows=(10, 3, 55, 10, 1, 300)):
     close, high, low, tr, r = _panel(dev, n, T, seed, lens)
-    windows, _, widx, warm = fused._window_setup(
-        np.float32([10, 3, 55, 10, 300]), "windows", 1.0, 1)
-    sig = fused.donchian_sign_table(close, high, low, windows)
-    return (sig, r, tr, *fused._to(dev, widx, warm))
+    _, win, widx, warm = fused._window_setup(np.float32(windows), "windows",
+                                             1.0, 1)
+    return (close, high, low, r, tr, *_lanes(dev, widx, win, warm))
 
 
 def _rsi_table_inputs(dev, n, T, seed, lens=None):
@@ -167,7 +186,7 @@ def _rsi_table_inputs(dev, n, T, seed, lens=None):
     periods, _, widx, warm = fused._window_setup(g["period"].numpy(),
                                                  "periods", 1.0, 1)
     z = fused.rsi_z_table(close, periods)
-    return (z, r, tr, *fused._to(dev, widx, g["band"].numpy(), warm))
+    return (z, r, tr, *_lanes(dev, widx, widx, g["band"].numpy(), warm))
 
 
 def _keltner_table_inputs(dev, n, T, seed, lens=None):
@@ -177,7 +196,7 @@ def _keltner_table_inputs(dev, n, T, seed, lens=None):
     windows, _, widx, warm = fused._window_setup(g["window"].numpy(),
                                                  "windows", 0.0, 1)
     z = fused.keltner_z_table(close, high, low, windows)
-    return (z, r, tr, *fused._to(dev, widx, g["k"].numpy(), warm))
+    return (z, r, tr, *_lanes(dev, widx, widx, g["k"].numpy(), warm))
 
 
 def _macd_inputs(dev, n, T, seed, lens=None):
@@ -229,7 +248,7 @@ def _vwap_table_inputs(dev, n, T, seed, lens=None):
     windows, _, widx, warm = fused._window_setup(g["window"].numpy(),
                                                  "windows", -1.0, 1, 2.0)
     z = fused.vwap_z_table(close, volume, windows)
-    return (z, r, tr, *fused._to(dev, widx, g["k"].numpy(), warm))
+    return (z, r, tr, *_lanes(dev, widx, widx, g["k"].numpy(), warm))
 
 
 def _pairs_inputs(dev, n, T, seed, lens=None):
@@ -261,6 +280,12 @@ _NEW_ENTRIES = {
     "band_table_touch": (_band_table_inputs, fused.band_table_cuda,
                          fused.band_machine_plain,
                          {"machine": "touch", "z_exit": 0.0}),
+    "band_stoch_hysteresis": (_band_stoch_inputs, fused.band_stoch_cuda,
+                              fused.band_stoch_plain,
+                              {"machine": "hysteresis", "z_exit": 0.0}),
+    "band_stoch_touch": (_band_stoch_inputs, fused.band_stoch_cuda,
+                         fused.band_stoch_plain,
+                         {"machine": "touch", "z_exit": 0.0}),
     "momentum": (_momentum_inputs, fused.momentum_cuda,
                  fused.momentum_plain, {}),
     "donchian": (_donchian_inputs, fused.donchian_cuda,
@@ -281,6 +306,11 @@ _NEW_ENTRIES = {
 }
 
 
+# The window-major entries: held bit-equal.
+_EXACT = {e for e in _NEW_ENTRIES
+          if e.startswith(("band_table", "band_stoch", "donchian"))}
+
+
 @pytest.mark.parametrize("entry", sorted(_NEW_ENTRIES))
 @pytest.mark.parametrize("n,T,cost,seed", [
     (3, 200, 1e-3, 0),
@@ -288,9 +318,10 @@ _NEW_ENTRIES = {
     (1, 13000, 1e-3, 4),       # above 48 KB of staged rows, or unstaged
 ])
 def test_new_kernels_match_plain(cuda, entry, n, T, cost, seed):
+    # At T = 13000 the channel levels live in device memory.
     build, kernel, plain, kw = _NEW_ENTRIES[entry]
     _assert_kernel_matches_plain(build(cuda, n, T, seed), cost, kernel,
-                                 plain, **kw)
+                                 plain, exact=entry in _EXACT, **kw)
 
 
 @pytest.mark.parametrize("entry", sorted(_NEW_ENTRIES))
@@ -298,7 +329,53 @@ def test_new_kernels_match_plain_ragged(cuda, entry):
     build, kernel, plain, kw = _NEW_ENTRIES[entry]
     _assert_kernel_matches_plain(
         build(cuda, 3, 300, 9, np.asarray([300, 251, 170])), 1e-3, kernel,
-        plain, **kw)
+        plain, exact=entry in _EXACT, **kw)
+
+
+def _caller_order(inputs, n_lane):
+    """Window-major inputs with the slots put back in the caller's lane
+    order and ``lane`` the identity."""
+    *head, lane = inputs
+    inv = torch.empty_like(lane)
+    ident = torch.arange(lane.numel(), dtype=lane.dtype, device=lane.device)
+    inv[lane.long()] = ident
+    return (*head[:-n_lane], *(x[inv.long()] for x in head[-n_lane:]),
+            ident)
+
+
+_STRADDLE = {   # 6 x 300 = 1800 lanes: the lane blocks straddle windows
+    "band_stoch": (lambda dev: _band_stoch_inputs(
+        dev, 2, 400, 7, bands=np.linspace(10, 40, 6),
+        windows=np.arange(1, 301)), fused.band_stoch_cuda,
+        fused.band_stoch_plain, 3, {"machine": "hysteresis", "z_exit": 0.0}),
+    "band_table": (lambda dev: _band_table_straddle(dev),
+                   fused.band_table_cuda, fused.band_machine_plain, 3,
+                   {"machine": "touch", "z_exit": 0.0}),
+    "donchian": (lambda dev: _donchian_inputs(
+        dev, 2, 400, 7, windows=np.tile(np.arange(1, 301), 6)),
+        fused.donchian_cuda, fused.donchian_plain, 2, {}),
+}
+
+
+def _band_table_straddle(dev):
+    close, high, low, tr, r = _panel(dev, 2, 400, 7)
+    (windows, _, widx, warm), g = _stoch_grid(np.linspace(10, 40, 6),
+                                              np.arange(1, 301))
+    z = fused.stochastic_z_table(close, high, low, windows)
+    return (z, r, tr, *_lanes(dev, widx, widx, g["band"].numpy(), warm))
+
+
+@pytest.mark.parametrize("entry", sorted(_STRADDLE))
+def test_window_major_entries_match_plain_on_straddling_grid(cuda, entry):
+    # The window-major launch and the caller's-order launch both equal the
+    # plain version in the caller's order, bit for bit.
+    build, kernel, plain, n_lane, kw = _STRADDLE[entry]
+    inputs = build(cuda)
+    caller = _caller_order(inputs, n_lane)
+    _assert_kernel_matches_plain(inputs, 1e-3, kernel, plain,
+                                 ref_inputs=caller, exact=True, **kw)
+    _assert_kernel_matches_plain(caller, 1e-3, kernel, plain, exact=True,
+                                 **kw)
 
 
 def test_new_launch_counters_count_kernel_launches_only(cuda):
@@ -317,22 +394,34 @@ def test_new_launch_counters_count_kernel_launches_only(cuda):
     fused.fused_donchian_hl_sweep(p.close, p.high, p.low, [10.0],
                                   device="cuda")
     torch.cuda.synchronize()
-    assert dict(_kernels.LAUNCHES) == {"band_inline": 2, "band_table": 1,
+    assert dict(_kernels.LAUNCHES) == {"band_inline": 2, "band_stoch": 1,
                                        "momentum": 1, "donchian": 2}
 
 
 def test_new_wrappers_check_their_inputs(cuda):
-    z, r, tr, widx, k, warm = _band_table_inputs(cuda, 2, 60, 1)
+    z, r, tr, widx, k, warm, lane = _band_table_inputs(cuda, 2, 60, 1)
     kw = {"machine": "hysteresis", "z_exit": 0.0, "cost": 0.0, "ppy": 252}
     with pytest.raises(TypeError, match="float32"):
-        fused.band_table_cuda(z.double(), r, tr, widx, k, warm, **kw)
+        fused.band_table_cuda(z.double(), r, tr, widx, k, warm, lane, **kw)
     with pytest.raises(ValueError, match="machine"):
-        fused.band_table_cuda(z, r, tr, widx, k, warm, **{**kw,
-                                                          "machine": "x"})
-    sig, r, tr, widx, warm = _donchian_inputs(cuda, 2, 60, 1)
-    with pytest.raises(TypeError, match="int8"):
-        fused.donchian_cuda(sig.float(), r, tr, widx, warm, cost=0.0,
-                            ppy=252)
+        fused.band_table_cuda(z, r, tr, widx, k, warm, lane,
+                              **{**kw, "machine": "x"})
+    with pytest.raises(ValueError, match="shape"):
+        fused.band_table_cuda(z, r, tr, widx, k, warm, lane[:1], **kw)
+    c, h, lo, r, tr, win, k, warm, lane = _band_stoch_inputs(cuda, 2, 60, 1)
+    with pytest.raises(TypeError, match="int32"):
+        fused.band_stoch_cuda(c, h, lo, r, tr, win, k, warm, lane.long(),
+                              **kw)
+    with pytest.raises(ValueError, match="is on"):
+        fused.band_stoch_cuda(c, h.cpu(), lo, r, tr, win, k, warm, lane,
+                              **kw)
+    c, h, lo, r, tr, win, warm, lane = _donchian_inputs(cuda, 2, 60, 1)
+    with pytest.raises(TypeError, match="float32"):
+        fused.donchian_cuda(c, h.double(), lo, r, tr, win, warm, lane,
+                            cost=0.0, ppy=252)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused.donchian_cuda(c, h, torch.cat([lo, lo], 1)[:, ::2], r, tr,
+                            win, warm, lane, cost=0.0, ppy=252)
     close, r, tr, lb, warm = _momentum_inputs(cuda, 2, 60, 1)
     with pytest.raises(ValueError, match="shape"):
         fused.momentum_cuda(close, r, tr, lb, warm[:1], cost=0.0, ppy=252)
