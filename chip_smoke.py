@@ -28,11 +28,21 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    whose lane blocks (1024 lanes, 128 for the table entry) straddle
    windows, held against the plain version in the caller's lane order,
    and launched in that order too. Their registers, resident warps an SM
-   and shared memory are printed (``csrc/occupancy.cuh``).
-   Positions must be identical, so n_trades and turnover (sums of small
-   integers) must be bit-equal; every other metric must agree at
-   rtol=2e-4, atol=2e-5, and for the window-major entries every metric
-   must be bit-equal. Kernel and plain times come from CUDA
+   and shared memory are printed (``csrc/occupancy.cuh``). The tile
+   entries (K1 and K2's inline entry, which form each window's value once
+   per bar block in shared memory, ``csrc/bar_blocks.cuh``) run three more
+   cases: long rows (4 x 13000), a grid of many distinct windows (K1 fast
+   2..129 x slow 130..400, K2 8 k x window 5..300, on 4 x 1260) and eight
+   histories that end mid-block and are shorter than most windows; then a
+   sweep of their CTA width (128-1024 lanes), bit-equal and timed at each;
+   their build report and the per-bar instruction count of their metric
+   loop in the SASS (``cuobjdump -sass``) are printed. Their kernel time is
+   the kernel alone, with the tiles' window lists built beforehand; the
+   time through the wrapper, which builds them with torch ops, is printed
+   beside it. Positions must be identical, so n_trades and turnover (sums
+   of small integers) must be bit-equal; every other metric must agree at
+   rtol=2e-4, atol=2e-5, and for the window-major and tile entries every
+   metric must be bit-equal. Kernel and plain times come from CUDA
    events after warmup. Then K8, the roofline stage scaffolds
    (``csrc/stages.cu``): every (stage, lanes) case of ``dbx_sma_stage``
    (500 x 1260 x the 2000-combo SMA grid) and ``dbx_boll_stage`` (500 x
@@ -83,7 +93,9 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    in-process on every config with 3 timed iterations: every config must
    report a rate and every K8 case must launch; its JSON line is printed.
 5. One JSON line with each kernel entry's (K8: each case's) launches,
-   error, times, bound and library time; then the JSON result line, last.
+   error, times, bound and library time (the tile entries also their
+   width sweep, wrapper time, build report and SASS count); then the JSON
+   result line, last.
 
 This script imports nothing of JAX and nothing of the JAX package.
 """
@@ -91,12 +103,15 @@ This script imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import ctypes
+import functools
 import json
+import re
 import statistics
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -104,8 +119,7 @@ import torch
 
 from distributed_backtesting_exploration_tpu_torch import roofline
 from distributed_backtesting_exploration_tpu_torch.roofline import (
-    OPS_EACH_BAR, OPS_LEVEL, OPS_PER_BAR, OPS_PER_SIGNAL_BAR, OPS_SIGNAL,
-    OPS_WINDOW)
+    OPS_EACH_BAR, OPS_LEVEL, OPS_PER_BAR, OPS_SIGNAL, OPS_WINDOW)
 
 RTOL, ATOL = 2e-4, 2e-5
 N_TICKERS, N_BARS, COST = 500, 1260, 1e-3
@@ -229,10 +243,11 @@ def _compare(fused, tag, label, got, ref, exact: bool = False):
 
 
 def _k1_compare(fused, label, inputs, cost):
-    """Kernel vs plain on the same inputs; returns (max_abs, max_rel)."""
+    """Kernel vs plain on the same inputs, every metric bit-equal; returns
+    (max_abs, max_rel)."""
     got = fused.fused_sma_cuda(*inputs, cost=cost, ppy=252)
     ref = fused.fused_sma_plain(*inputs, cost=cost, ppy=252)
-    return _compare(fused, "k1", label, got, ref)
+    return _compare(fused, "k1", label, got, ref, exact=True)
 
 
 def _signal_bars(tr, warm) -> float:
@@ -253,11 +268,150 @@ def _bound(tr, warm, P, ops_bar, ops_signal, n_bytes,
 
 
 def _k1_bound_ms(inputs) -> tuple[float, str]:
-    cs, _, tr, fast, _, warm = inputs
+    """K1's bound: the metric update and the difference and sign per lane,
+    the SMA once per (ticker, distinct window, bar) from the first bar a
+    lane reads the window."""
+    cs, _, tr, fast, slow, warm = inputs
     N, T = cs.shape
     P = fast.shape[0]
     n_bytes = 4 * (2 * N * T + N + 3 * P + 9 * N * P)
-    return _bound(tr, warm, P, OPS_PER_BAR, OPS_PER_SIGNAL_BAR, n_bytes)
+    per_window = roofline.window_signal_bars(
+        *(x.cpu().numpy() for x in (tr, warm, fast, slow)))
+    return _bound(tr, warm, P, OPS_PER_BAR, OPS_SIGNAL["fused_sma"], n_bytes,
+                  OPS_WINDOW["fused_sma"] * per_window)
+
+
+# The tile entries (K1 and K2's inline entry, csrc/bar_blocks.cuh): the CTA
+# widths of the width sweep, and the further cases that hold them bit-equal
+# to their plain versions: long rows, a grid of many distinct windows, and
+# histories that end mid-block and are shorter than most windows.
+TILE_LANES = (128, 256, 512, 1024)
+LONG_TILE_ROWS = (4, 13000)
+SHORT_LENS = np.asarray([1, 5, 63, 65, 100, 127, 129, 700])
+
+
+def _short_histories(data, n_bars=N_BARS):
+    """Eight tickers padded by repeating their last bar past SHORT_LENS."""
+    panel = data.synthetic_ohlcv(SHORT_LENS.size, n_bars, seed=8)
+    for f in panel:
+        for i, n in enumerate(SHORT_LENS):
+            f[i, n:] = f[i, n - 1]
+    return panel
+
+
+def _tile_report(fused, entry: str, lanes: int, *windows) -> dict:
+    """The build report of a tile entry's kernel on ``lanes``-lane tiles of
+    lanes reading ``windows`` (``csrc/occupancy.cuh``), and the longest
+    window list of those tiles."""
+    wins, counts, *_ = fused.window_tiles(lanes, *windows)
+    info = (ctypes.c_int * 4)()
+    if entry == "fused_sma":
+        err = fused._kernels.fused_sma_lib().dbx_fused_sma_occupancy(
+            lanes, wins.shape[1], info)
+    else:
+        err = fused._kernels.band_machine_lib().dbx_band_inline_occupancy(
+            lanes, wins.shape[1], info)
+    return {**_report(entry, err, info), "window_list": int(counts.max())}
+
+
+def _sass_loops(kernels_mod, lib: str, kernel: str) -> list:
+    """The loops of ``kernel`` (a substring of its mangled name) in the
+    SASS of library ``lib`` (``cuobjdump -sass``), innermost only: for each,
+    its SASS instructions and its FMNMX count. MetricsAcc::step takes four
+    FMNMX a bar (two fmaxf of the peak and drawdown, the peak's floor and
+    the downside fminf), so instructions / (FMNMX / 4) is the per-bar
+    count of a loop that steps the metrics."""
+    tool = Path(kernels_mod._nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(kernels_mod.build(lib))],
+                          capture_output=True, text=True, check=True).stdout
+    out = []
+    for func in text.split("Function : ")[1:]:
+        name = func.split(None, 1)[0]
+        if kernel not in name:
+            continue
+        addr, ops, labels, branches = None, {}, {}, []
+        pending = []
+        for line in func.splitlines():
+            lab = re.match(r"\s*(\.L_x_\d+):", line)
+            if lab:
+                pending.append(lab.group(1))
+                continue
+            m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+            if not m:
+                continue
+            addr = int(m.group(1), 16)
+            for lab_name in pending:
+                labels[lab_name] = addr
+            pending = []
+            ops[addr] = m.group(2)
+            tgt = re.search(r"\bBRA\b[^`]*?(?:`\((\.L_x_\d+)\)|"
+                            r"\s(0x[0-9a-f]+)\s*$)", m.group(2))
+            if tgt:
+                branches.append((addr, tgt.group(1) or int(tgt.group(2), 16)))
+        loops = []
+        for at, tgt in branches:
+            start = labels.get(tgt) if isinstance(tgt, str) else tgt
+            if start is not None and start <= at:
+                loops.append((start, at))
+        for start, end in loops:
+            if any(start <= a and b <= end and (a, b) != (start, end)
+                   for a, b in loops):
+                continue            # holds another loop: not innermost
+            body = [op for a, op in ops.items() if start <= a <= end]
+            out.append({"kernel": name, "start": hex(start),
+                        "instructions": len(body),
+                        "fmnmx": sum("FMNMX" in op for op in body)})
+    _check(bool(out), f"no loop of {kernel} found in the SASS of {lib}")
+    return out
+
+
+def _per_bar(loops) -> float:
+    """The per-bar instruction count of the metric loop: the innermost loop
+    with the most FMNMX (four a bar)."""
+    loop = max(loops, key=lambda x: (x["fmnmx"], x["instructions"]))
+    _check(loop["fmnmx"] >= 4, "no metric loop in the SASS")
+    return loop["instructions"] / (loop["fmnmx"] / 4)
+
+
+def _k1_launch(fused, inputs, cost, lanes):
+    """K1 on ``inputs`` at ``lanes`` lanes a CTA with its tiles built
+    beforehand: (its output planes, a function that launches the kernel
+    alone), for the kernel's CUDA-event time without the wrapper's tile
+    build."""
+    cs, r, tr, fast, slow, warm = inputs
+    tiles = fused.window_tiles(lanes, fast, slow)
+    out = torch.empty((9, cs.shape[0], fast.shape[0]), device=cs.device)
+    return out, lambda: fused._launch_fused_sma(cs, r, tr, tiles, warm, out,
+                                                lanes, cost=cost, ppy=252)
+
+
+def _inline_launch(fused, inputs, kw, lanes):
+    """K2's inline entry as :func:`_k1_launch`."""
+    *rows, tr, window, k, warm = inputs
+    tiles = fused.window_tiles(lanes, window)
+    out = torch.empty((9, rows[0].shape[0], window.shape[0]),
+                      device=window.device)
+    code = fused._machine_code(kw["machine"])
+    return out, lambda: fused._launch_band_inline(
+        rows, tr, tiles, k, warm, out, lanes, code=code,
+        z_exit=kw["z_exit"], cost=kw["cost"], ppy=kw["ppy"])
+
+
+def _width_sweep(launch, plain_ref, label) -> dict:
+    """A tile entry at every width of TILE_LANES (``launch(lanes)`` as
+    :func:`_k1_launch` gives it): bit-equal to its plain version's planes
+    ``plain_ref``, and the kernel's CUDA-event ms at each."""
+    times = {}
+    for lanes in TILE_LANES:
+        out, run = launch(lanes)
+        run()
+        torch.cuda.synchronize()
+        _check(bool(torch.equal(out, plain_ref)),
+               f"{label} at {lanes} lanes differs from its plain version")
+        times[lanes] = _cuda_ms(run, reps=20, warmup=2)
+    print(f"{label} width sweep (kernel ms by lanes a CTA): " + ", ".join(
+        f"{n} {t:.4f}" for n, t in times.items()))
+    return times
 
 
 def _small_cases(data, head):
@@ -275,7 +429,7 @@ def _small_cases(data, head):
             ("32x251", short, None, COST)]
 
 
-def phase_kernels(fused, pnl, data) -> dict:
+def phase_kernels(kernels_mod, fused, pnl, data) -> dict:
     grid_f = np.repeat(FAST_AXIS, SLOW_AXIS.size)
     grid_s = np.tile(SLOW_AXIS, FAST_AXIS.size)
     head = data.synthetic_ohlcv(N_TICKERS, N_BARS, seed=0).close
@@ -297,15 +451,42 @@ def phase_kernels(fused, pnl, data) -> dict:
     errs.append(_k1_compare(
         fused, "32x251x2000",
         _k1_inputs(fused, pnl, short, None, grid_f, grid_s), COST))
+    n, T = LONG_TILE_ROWS
+    errs.append(_k1_compare(
+        fused, f"long rows {n}x{T}x2000",
+        _k1_inputs(fused, pnl, data.synthetic_ohlcv(n, T, seed=5).close,
+                   None, grid_f, grid_s), COST))
+    wide_f = np.repeat(np.arange(2, 130, dtype=np.float32), 271)
+    wide_s = np.tile(np.arange(130, 401, dtype=np.float32), 128)
+    errs.append(_k1_compare(
+        fused, f"many windows 4x{N_BARS}x{wide_f.size} (fast 2..129 x slow "
+        "130..400)", _k1_inputs(fused, pnl, head[:4], None, wide_f, wide_s),
+        COST))
+    errs.append(_k1_compare(
+        fused, f"short histories {SHORT_LENS.tolist()} x2000",
+        _k1_inputs(fused, pnl, _short_histories(data).close, SHORT_LENS,
+                   grid_f, grid_s), COST))
 
-    ms = _cuda_ms(lambda: fused.fused_sma_cuda(*main_in, cost=COST, ppy=252),
+    ref = fused.fused_sma_plain(*main_in, cost=COST, ppy=252)
+    widths = _width_sweep(
+        lambda lanes: _k1_launch(fused, main_in, COST, lanes), ref,
+        "k1 fused_sma")
+    ms = _cuda_ms(_k1_launch(fused, main_in, COST, fused._SMA_LANES)[1],
                   reps=20, warmup=2)
+    wrapper_ms = _cuda_ms(
+        lambda: fused.fused_sma_cuda(*main_in, cost=COST, ppy=252), reps=20,
+        warmup=2)
     plain_ms = _cuda_ms(
         lambda: fused.fused_sma_plain(*main_in, cost=COST, ppy=252),
         reps=2, warmup=1)
     bound_ms, bound_by = _k1_bound_ms(main_in)
-    print(f"k1 headline: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {bound_ms:.4f} ms ({bound_by})")
+    print(f"k1 headline: kernel {ms:.4f} ms, wrapper (with its tile "
+          f"build) {wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by})")
+    occupancy = _tile_report(fused, "fused_sma", fused._SMA_LANES,
+                             *main_in[3:5])
+    loops = _sass_loops(kernels_mod, "fused_sma", "fused_sma_kernel")
+    print(f"k1 fused_sma at the headline: {occupancy}; SASS loops {loops}")
     return {"name": "fused_sma", "route": "cuda",
             "source": f"{PKG}/csrc/fused_sma.cu",
             "replaces": f"{REF}:728",
@@ -313,7 +494,10 @@ def phase_kernels(fused, pnl, data) -> dict:
             "max_abs_err": max(e[0] for e in errs),
             "max_rel_err": max(e[1] for e in errs),
             "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "wrapper_ms": wrapper_ms, "width_ms": widths,
+            "occupancy": occupancy,
+            "sass_per_bar": _per_bar(loops)}
 
 
 # --- K2 and K3: inputs of each entry as its sweep wrapper prepares them ---
@@ -327,9 +511,9 @@ def _common(fused, pnl, panel, t_real):
     return dev, close, high, low, torch.from_numpy(tr).to(dev), r
 
 
-def _band_inline_inputs(fused, pnl, panel, t_real):
+def _band_inline_inputs(fused, pnl, panel, t_real, axes=None):
     dev, close, _, _, tr, r = _common(fused, pnl, panel, t_real)
-    g = _flat_grid(AXES["bollinger"])
+    g = _flat_grid(axes or AXES["bollinger"])
     _, win, _, warm = fused._window_setup(g["window"], "windows", 0.0, 1)
     xc = close - close.mean(dim=1, keepdim=True)
     rows = (close, torch.cumsum(close, 1), torch.cumsum(xc, 1),
@@ -496,7 +680,9 @@ class Entry(NamedTuple):
     cases (None: the shared ones of 500 tickers). A window-major entry
     ends its inputs with its ``n_lane`` per-lane arrays (window or table
     row, [k,] warm) and ``lane``; it is held bit-equal and runs the
-    long-row and straddling cases."""
+    long-row and straddling cases. A tile entry (``tile_axes``: its grid
+    of many distinct windows) is held bit-equal, runs the long-row,
+    many-window and short-history cases and the width sweep."""
 
     tag: str
     line: int
@@ -508,6 +694,7 @@ class Entry(NamedTuple):
     machines: tuple
     cases: Callable | None = None
     n_lane: int = 0
+    tile_axes: dict | None = None
 
 
 def _entries(fused):
@@ -515,7 +702,11 @@ def _entries(fused):
         "band_inline": Entry("k2", 1166, "band_machine.cu",
                              _band_inline_inputs, 5, fused.band_inline_cuda,
                              fused.band_inline_plain,
-                             ("hysteresis", "touch")),
+                             ("hysteresis", "touch"),
+                             tile_axes={"k": np.linspace(0.5, 3.0, 8)
+                                        .astype(np.float32),
+                                        "window": np.arange(
+                                            5, 301, dtype=np.float32)}),
         "band_table": Entry("k2", 1166, "band_machine.cu",
                             _rsi_table_inputs, 2, fused.band_table_cuda,
                             fused.band_machine_plain,
@@ -586,6 +777,22 @@ def _lane_cases(data, entry: str, e: Entry):
              True)]
 
 
+def _tile_cases(data, e: Entry):
+    """The further runs of a tile entry: (label, inputs function, panel,
+    t_real, cost, caller order)."""
+    n, T = LONG_TILE_ROWS
+    n_wide = int(np.prod([a.size for a in e.tile_axes.values()]))
+
+    def wide(fused, pnl, panel, t_real):
+        return e.build(fused, pnl, panel, t_real, axes=e.tile_axes)
+    return [(f"long rows {n}x{T}", e.build,
+             data.synthetic_ohlcv(n, T, seed=5), None, COST, False),
+            (f"many windows 4x{N_BARS}x{n_wide}", wide,
+             data.synthetic_ohlcv(4, N_BARS, seed=6), None, COST, False),
+            (f"short histories {SHORT_LENS.tolist()}", e.build,
+             _short_histories(data), SHORT_LENS, COST, False)]
+
+
 def _occupancy(fused, entry: str, T: int) -> dict:
     """The build report of a window-major entry's kernel at row length
     ``T``, as its C entry launches it (``csrc/occupancy.cuh``): registers
@@ -598,6 +805,11 @@ def _occupancy(fused, entry: str, T: int) -> dict:
     else:
         lib = fused._kernels.band_machine_lib()
         err = lib.dbx_band_occupancy(int(entry == "band_stoch"), T, info)
+    return _report(entry, err, info)
+
+
+def _report(entry: str, err: int, info) -> dict:
+    """A build report's ``info[0..3]`` (``csrc/occupancy.cuh``) by name."""
     _check(err == 0, f"{entry} occupancy query failed: CUDA error {err}")
     regs, ctas, lanes, smem = info
     return {"registers": regs, "ctas_per_sm": ctas,
@@ -632,6 +844,7 @@ def phase_new_kernels(fused, pnl, data) -> dict:
     for entry, e in _entries(fused).items():
         errs = []
         timing = {}
+        widths, wrapper_ms = {}, {}
         runs = [(label, e.build, panel, t_real, cost, False)
                 for label, panel, t_real, cost in (e.cases(data) if e.cases
                                                    else shared)]
@@ -642,6 +855,8 @@ def phase_new_kernels(fused, pnl, data) -> dict:
                       None, COST, False)]
         if e.n_lane:
             runs += _lane_cases(data, entry, e)
+        if e.tile_axes:
+            runs += _tile_cases(data, e)
         tables = {}
         for i, (label, make, panel, t_real, cost, caller) in enumerate(runs):
             inputs = make(fused, pnl, panel, t_real)
@@ -652,7 +867,7 @@ def phase_new_kernels(fused, pnl, data) -> dict:
                 ref = e.plain(*ref_in, **kw)
                 errs.append(_compare(fused, e.tag, f"{name} {label}",
                                      e.kernel(*inputs, **kw), ref,
-                                     exact=bool(e.n_lane)))
+                                     exact=bool(e.n_lane or e.tile_axes)))
                 if caller:
                     errs.append(_compare(
                         fused, e.tag, f"{name} {label} (caller's order)",
@@ -660,9 +875,18 @@ def phase_new_kernels(fused, pnl, data) -> dict:
                 if i == 0 and e.n_lane and machine == e.machines[0]:
                     occupancy = _occupancy(fused, entry, N_BARS)
                     print(f"{e.tag} {entry} at T={N_BARS}: {occupancy}")
+                run = functools.partial(e.kernel, *inputs, **kw)
+                if i == 0 and e.tile_axes:
+                    head_win = inputs[6]
+                    widths[machine] = _width_sweep(
+                        lambda lanes: _inline_launch(fused, inputs, kw,
+                                                     lanes), ref,
+                        f"{e.tag} {name}")
+                    wrapper_ms[machine] = _cuda_ms(run, reps=20, warmup=2)
+                    run = _inline_launch(fused, inputs, kw,
+                                         fused._BAND_INLINE_LANES)[1]
                 if i == 0:
-                    ms = _cuda_ms(lambda: e.kernel(*inputs, **kw), reps=20,
-                                  warmup=2)
+                    ms = _cuda_ms(run, reps=20, warmup=2)
                     plain_ms = _cuda_ms(lambda: e.plain(*inputs, **kw),
                                         reps=2, warmup=1)
                     bound = _entry_bound(entry, e, inputs)
@@ -696,6 +920,18 @@ def phase_new_kernels(fused, pnl, data) -> dict:
             out[entry]["other_tables"] = tables
         if e.n_lane:
             out[entry]["occupancy"] = occupancy
+        if e.tile_axes:
+            # band_inline_kernel<kMachine>: hysteresis 0, touch 1.
+            loops = {m: _sass_loops(fused._kernels, "band_machine",
+                                    f"band_inline_kernelILi{code}E")
+                     for m, code in fused._MACHINES.items()}
+            out[entry].update(
+                wrapper_ms=wrapper_ms, width_ms=widths,
+                sass_per_bar={m: _per_bar(x) for m, x in loops.items()},
+                occupancy=_tile_report(fused, entry,
+                                       fused._BAND_INLINE_LANES, head_win))
+            print(f"{e.tag} {entry} at the headline: "
+                  f"{out[entry]['occupancy']}; SASS loops {loops}")
     return out
 
 
@@ -1131,7 +1367,7 @@ def main() -> None:
     from distributed_backtesting_exploration_tpu_torch.utils import data
 
     phase_build(_kernels)
-    k1 = phase_kernels(fused, pnl, data)
+    k1 = phase_kernels(_kernels, fused, pnl, data)
     new = phase_new_kernels(fused, pnl, data)
     k8 = phase_stages(stages, bench, data)
     launches = phase_main_path(_kernels, compute, wire, pb, data, sweep,

@@ -20,14 +20,18 @@
 //   evaluates the machine as a log-depth composition of transition maps,
 //   which only selects among -1/0/+1. One thread per lane reading its own
 //   z value and stepping the machine bar by bar gives the same positions.
-// - dbx_band_inline (bollinger): no z-table. Inputs are the close row and
-//   the cumsum rows of close, centered close and centered close squared
-//   (torch ops before the launch) plus the simple returns: 5 rows, staged
-//   in shared memory (5 x 1260 x 4 B = 25 KB at the headline T). Each lane
-//   forms its window's z per bar in `_build_boll_z_scratch`'s op order:
-//   m = (cs[t] - cs[t-w]) / w, s1 and s2 the centered window sums,
-//   var = max((s2 - s1*s1/w) / w, 0), z = (c - m) / (sqrt(var) + 1e-12),
-//   z = 0 for t < w - 1. One CTA covers one ticker x 128 combos.
+// - dbx_band_inline (bollinger): no z-table in device memory. Inputs are the
+//   close row and the cumsum rows of close, centered close and centered close
+//   squared (torch ops before the launch) plus the simple returns. One CTA
+//   covers one ticker x one tile of lanes and forms the z of the tile's
+//   distinct windows (a list built by torch ops before the launch, with each
+//   lane's index into it) once per (window, bar), a block of bars at a time
+//   in shared memory (bar_blocks.cuh), as `_build_boll_z_scratch` forms its
+//   VMEM table once per ticker, and in its op order: m = (cs[t] - cs[t-w]) /
+//   w, s1 and s2 the centered window sums, var = max((s2 - s1*s1/w) / w, 0),
+//   z = (c - m) / (sqrt(var) + 1e-12), z = 0 for t < w - 1. The rows are read
+//   once per (window, bar) through L1; each lane then reads its window's z
+//   from the block. The bench grid's tiles read 20 windows.
 // - The table entry is one body, `band_source_kernel`, templated on where
 //   a lane's z comes from, with two C entries:
 //   * dbx_band_table (rsi, keltner, vwap_reversion): a torch-built
@@ -55,12 +59,13 @@
 // - One sequential pass per thread over t < t_real[ticker] with the PnL and
 //   metrics of metrics_tail.cuh.
 //
-// What bounds it. The inline entry spends about 13 fp32 operations per
-// (combo, bar) on z (three divisions and a square root), the stochastic
-// entry 9 on the channel and %K, beside the 4 of the machine and the 20 of
-// the metric update; the table entry reads 4 B of z per (combo, bar),
-// a warp's lanes on one to four rows. All are bound by their operations
-// (PERF.md, section 6).
+// What bounds it. Every entry steps the 4 operations of the machine and
+// the 20 of the metric update (one IEEE division) per (combo, bar). The
+// inline entry's z (13 operations: three divisions and a square root) runs
+// once per (window, bar) of a tile, 1/50 of the lanes' count on the bench
+// grid; the stochastic entry spends 9 per (combo, bar) on the channel and
+// %K; the table entry reads 4 B of z per (combo, bar), a warp's lanes on
+// one to four rows. All are bound by their operations (PERF.md, section 6).
 //
 // K7 (dbx_pairs) replaces the reference's `_fused_pairs_call` with its body
 // `_pairs_kernel`: one one-hot selection of a stacked (z, hedged return)
@@ -81,6 +86,7 @@
 // equal the plain PyTorch version's bit for bit.
 
 #include "band_next.cuh"
+#include "bar_blocks.cuh"
 #include "extrema.cuh"
 #include "metrics_tail.cuh"
 #include "occupancy.cuh"
@@ -92,6 +98,7 @@ using dbx::kHysteresis;
 using dbx::kTouch;
 
 constexpr int kThreads = 128;
+// The table entry stages its returns row up to this many bytes.
 constexpr size_t kMaxStagedBytes = 96 * 1024;
 // Lanes per CTA of the stochastic source: one CTA an SM (its staged rows
 // and levels take up to 227 KB), 32 warps.
@@ -102,6 +109,7 @@ __device__ __forceinline__ float wsum(const float* cs, int t, int w) {
   return cs[t] - (t >= w ? cs[t - w] : 0.f);
 }
 
+// The z-score of window w at bar t: the inline entry's per-window value.
 __device__ __forceinline__ float boll_z(const float* c, const float* cs,
                                         const float* csx, const float* csx2,
                                         int t, int w, float fw) {
@@ -114,46 +122,46 @@ __device__ __forceinline__ float boll_z(const float* c, const float* cs,
   return (c[t] - m) / (sqrtf(var) + dbx::kEps);
 }
 
-template <int kMachine, bool kStaged>
-__global__ void __launch_bounds__(kThreads) band_inline_kernel(
+// wins: the (n_tiles, wmax) window lists, counts: their lengths; wi: each
+// lane's index into its tile's list.
+template <int kMachine>
+__global__ void __launch_bounds__(dbx::kMaxTileLanes) band_inline_kernel(
     const float* __restrict__ close, const float* __restrict__ cs,
     const float* __restrict__ csx, const float* __restrict__ csx2,
     const float* __restrict__ r, const int* __restrict__ t_real,
-    const int* __restrict__ window, const float* __restrict__ k,
+    const int* __restrict__ wins, const int* __restrict__ counts,
+    const int* __restrict__ wi, const float* __restrict__ k,
     const int* __restrict__ warm, float* __restrict__ out, int N, int T,
-    int P, float z_exit, float cost, float ppy) {
-  extern __shared__ float staged[];
+    int P, int wmax, float z_exit, float cost, float ppy) {
+  extern __shared__ float smem[];
   const int n = blockIdx.x;
-  const int p = blockIdx.y * kThreads + threadIdx.x;
+  const int p = blockIdx.y * blockDim.x + threadIdx.x;
   const int tr = min(max(t_real[n], 0), T);
   const size_t row = static_cast<size_t>(n) * T;
-  const float* rows[5] = {close + row, cs + row, csx + row, csx2 + row,
-                          r + row};
-  if (kStaged) {
-    for (int i = 0; i < 5; ++i) {
-      for (int t = threadIdx.x; t < tr; t += kThreads) {
-        staged[i * T + t] = rows[i][t];
-      }
-    }
-    __syncthreads();
-    for (int i = 0; i < 5; ++i) rows[i] = staged + i * T;
-  }
-  if (p >= P) return;
+  const float* c_row = close + row;
+  const float* cs_row = cs + row;
+  const float* csx_row = csx + row;
+  const float* csx2_row = csx2 + row;
+  const int* list = wins + static_cast<size_t>(blockIdx.y) * wmax;
+  const bool live = p < P;
+  const int j_lane = live ? wi[p] : 0;
+  const float kk = live ? k[p] : 0.f;
+  const int t_on = live ? warm[p] - 1 : 0;
 
-  const int w = window[p];
-  const float fw = static_cast<float>(w);
-  const float kk = k[p];
-  const int t_on = warm[p] - 1;
   dbx::MetricsAcc acc;
-  for (int t = 0; t < tr; ++t) {
-    float pos = 0.f;
-    if (t >= t_on) {
-      const float z = boll_z(rows[0], rows[1], rows[2], rows[3], t, w, fw);
-      pos = band_next<kMachine>(acc.prev, z, kk, z_exit);
-    }
-    acc.step(pos, rows[4][t], cost);
-  }
-  acc.store(out, n, p, N, P, tr, ppy);
+  dbx::bar_block_pass(
+      smem, counts[blockIdx.y], tr, r + row, live,
+      [&](int j, int t) {
+        const int w = list[j];
+        return boll_z(c_row, cs_row, csx_row, csx2_row, t, w,
+                      static_cast<float>(w));
+      },
+      [&](const float* v, float rt, int t) {
+        // Read and step the machine on every bar, then select: no branch.
+        const float pos = band_next<kMachine>(acc.prev, v[j_lane], kk, z_exit);
+        acc.step(t >= t_on ? pos : 0.f, rt, cost);
+      });
+  if (live) acc.store(out, n, p, N, P, tr, ppy);
 }
 
 // z sources of the table entry. Each gives `stage`, run by every thread of
@@ -303,28 +311,6 @@ __global__ void __launch_bounds__(kThreads) pairs_kernel(
   acc.store(out, n, p, N, P, tr, ppy);
 }
 
-template <int kMachine>
-int launch_inline(const float* close, const float* cs, const float* csx,
-                  const float* csx2, const float* r, const int* t_real,
-                  const int* window, const float* k, const int* warm,
-                  float* out, int N, int T, int P, float z_exit, float cost,
-                  float ppy, cudaStream_t s) {
-  const dim3 grid(N, (P + kThreads - 1) / kThreads);
-  const size_t smem = 5 * static_cast<size_t>(T) * sizeof(float);
-  if (smem <= kMaxStagedBytes) {
-    const int err = dbx::allow_smem(band_inline_kernel<kMachine, true>, smem);
-    if (err != 0) return err;
-    band_inline_kernel<kMachine, true><<<grid, kThreads, smem, s>>>(
-        close, cs, csx, csx2, r, t_real, window, k, warm, out, N, T, P,
-        z_exit, cost, ppy);
-  } else {
-    band_inline_kernel<kMachine, false><<<grid, kThreads, 0, s>>>(
-        close, cs, csx, csx2, r, t_real, window, k, warm, out, N, T, P,
-        z_exit, cost, ppy);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <int kMachine, class Source>
 int launch_source(const Source& src, size_t smem, const float* r,
                   const int* t_real, const int* row, const float* k,
@@ -361,29 +347,51 @@ int launch_machine(int machine, const Source& src, size_t smem,
 //
 // dbx_band_inline: close, cs, csx, csx2, r: (N, T) f32 (close, its cumsum,
 // the cumsums of the centered close and of its square, simple returns);
-// t_real: (N,) i32; window, warm: (P,) i32 (rounded window, truncated
-// warmup); k: (P,) f32 entry band.
+// t_real: (N,) i32; wins: (n_tiles, wmax) i32, the sorted distinct windows
+// each tile of `lanes` lanes reads, counts: (n_tiles,) i32 their number (at
+// most wmax); wi: (P,) i32 each lane's index into its tile's list; k: (P,)
+// f32 entry band; warm: (P,) i32 (truncated warmup). lanes: a multiple of
+// 32 up to 1024, the lanes a CTA.
 extern "C" int dbx_band_inline(const void* close, const void* cs,
                                const void* csx, const void* csx2,
                                const void* r, const void* t_real,
-                               const void* window, const void* k,
+                               const void* wins, const void* counts,
+                               const void* wi, const void* k,
                                const void* warm, void* out, int N, int T,
-                               int P, int machine, float z_exit, float cost,
-                               int ppy, void* stream) {
+                               int P, int lanes, int wmax, int machine,
+                               float z_exit, float cost, int ppy,
+                               void* stream) {
   if (N <= 0 || P <= 0) return static_cast<int>(cudaSuccess);
-  if (machine != kHysteresis && machine != kTouch) {
+  if ((machine != kHysteresis && machine != kTouch) ||
+      !dbx::tile_ok(lanes, wmax)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  auto launch = machine == kTouch ? launch_inline<kTouch>
-                                  : launch_inline<kHysteresis>;
-  return launch(static_cast<const float*>(close),
-                static_cast<const float*>(cs), static_cast<const float*>(csx),
-                static_cast<const float*>(csx2), static_cast<const float*>(r),
-                static_cast<const int*>(t_real),
-                static_cast<const int*>(window), static_cast<const float*>(k),
-                static_cast<const int*>(warm), static_cast<float*>(out), N, T,
-                P, z_exit, cost, static_cast<float>(ppy),
-                static_cast<cudaStream_t>(stream));
+  auto kernel = machine == kTouch ? band_inline_kernel<kTouch>
+                                  : band_inline_kernel<kHysteresis>;
+  const size_t smem = dbx::block_smem_bytes(wmax);
+  const int err = dbx::allow_smem(kernel, smem);
+  if (err != 0) return err;
+  const dim3 grid(N, (P + lanes - 1) / lanes);
+  kernel<<<grid, lanes, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(close), static_cast<const float*>(cs),
+      static_cast<const float*>(csx), static_cast<const float*>(csx2),
+      static_cast<const float*>(r), static_cast<const int*>(t_real),
+      static_cast<const int*>(wins), static_cast<const int*>(counts),
+      static_cast<const int*>(wi), static_cast<const float*>(k),
+      static_cast<const int*>(warm), static_cast<float*>(out), N, T, P, wmax,
+      z_exit, cost, static_cast<float>(ppy));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dbx_band_inline_occupancy: the build report (occupancy.cuh) of the
+// inline entry's hysteresis kernel launched as dbx_band_inline launches it
+// on `lanes`-lane tiles with lists of at most `wmax` windows.
+extern "C" int dbx_band_inline_occupancy(int lanes, int wmax, int* info) {
+  if (!dbx::tile_ok(lanes, wmax)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return dbx::launch_report(band_inline_kernel<kHysteresis>, lanes,
+                            dbx::block_smem_bytes(wmax), info);
 }
 
 // The table entry's arguments beside its source: r: (N, T) f32;

@@ -103,11 +103,13 @@ _PI = ctypes.POINTER(ctypes.c_int)
 # plain int would cut them to 32 bits), then the sizes and scalars.
 _SIGNATURES = {
     "fused_sma": {
-        "dbx_fused_sma": [_VP] * 7 + [_CI] * 3 + [_CF, _CI, _VP],
+        "dbx_fused_sma": [_VP] * 9 + [_CI] * 5 + [_CF, _CI, _VP],
+        "dbx_fused_sma_occupancy": [_CI, _CI, _PI],
         "dbx_obv": [_VP] * 7 + [_CI] * 3 + [_CF, _CI, _VP],
     },
     "band_machine": {
-        "dbx_band_inline": [_VP] * 10 + [_CI] * 4 + [_CF, _CF, _CI, _VP],
+        "dbx_band_inline": [_VP] * 12 + [_CI] * 6 + [_CF, _CF, _CI, _VP],
+        "dbx_band_inline_occupancy": [_CI, _CI, _PI],
         "dbx_band_table": [_VP] * 8 + [_CI] * 5 + [_CF, _CF, _CI, _VP],
         "dbx_band_stoch": [_VP] * 12 + [_CI] * 4 + [_CF, _CF, _CI, _VP],
         "dbx_pairs": [_VP] * 8 + [_CI] * 4 + [_CF, _CI, _VP],

@@ -34,7 +34,11 @@ versions step bar by bar in the kernels' order (:class:`_MetricState`), so
 on the card a kernel and its plain version agree to the bit; they are the
 yardstick the kernels are held against.
 
-The channel entries (:func:`band_stoch`, :func:`donchian`) take the raw
+:func:`fused_sma` and :func:`band_inline` run their lanes in tiles, one
+tile a CTA, that form the SMA or z of the tile's distinct windows once per
+bar block in shared memory; their CUDA wrappers build the tiles' window
+lists with torch ops on the card (:func:`window_tiles`). The channel
+entries (:func:`band_stoch`, :func:`donchian`) take the raw
 rows and build the channel extrema on the card (no ``(N, W, T)`` table),
 and the table entries (:func:`band_table`, :func:`band_stoch`,
 :func:`donchian`) take their lanes window-major: the sweep sorts them by
@@ -57,6 +61,11 @@ from .pnl import simple_returns
 _EPS = 1e-12
 _N_METRICS = 9
 _KERNEL_THREADS = 128      # lanes per CTA (kThreads in csrc/*.cu)
+# Lanes a tile (one CTA) of K1 and of K2's inline entry, which share the
+# values of a tile's distinct windows (csrc/bar_blocks.cuh): the fastest of
+# chip_smoke.py's width sweep (PERF.md, section 6).
+_SMA_LANES = 1024
+_BAND_INLINE_LANES = 512
 _MAX_PARAM_BLOCKS = 65535  # CUDA gridDim.y limit
 _MACHINES = {"hysteresis": 0, "touch": 1}
 # The reference's stand-in for the generic channel's +-inf warmup fill.
@@ -155,6 +164,43 @@ def _window_setup(vals, what: str, warm_offset: float, min_window: int,
     return windows, rounded.astype(np.int32), widx, warm
 
 
+def window_tiles(lanes: int, *windows: torch.Tensor):
+    """The window lists of the tiles of K1 and K2's inline entry
+    (``csrc/bar_blocks.cuh``), built with torch ops on the windows' device.
+
+    The kernels run ``lanes`` consecutive lanes a tile, one tile a CTA, and
+    form the value of each window a tile reads once per bar in shared
+    memory. ``windows`` are one or two ``(P,)`` integer tensors of each
+    lane's windows (K2: its window; K1: its fast and its slow window).
+    Returns ``(wins, counts, *idx)``, all int32: ``wins`` the
+    ``(n_tiles, Wc)`` lists, ``Wc = lanes * len(windows)``, row t holding
+    tile t's ``counts[t]`` sorted distinct windows, then its smallest window
+    again; and per tensor of ``windows`` the ``(P,)`` index of each lane's
+    window in its tile's list: ``wins[p // lanes, idx[p]]`` is lane p's
+    window. The empty lanes of a ragged last tile repeat its first lane. No
+    step waits on the device: a list's width is its bound, its length a
+    count.
+    """
+    cols = [w.reshape(-1).long() for w in windows]
+    P = cols[0].shape[0]
+    n_tiles = -(-P // lanes)
+    pad = n_tiles * lanes - P
+    if pad:
+        cols = [torch.cat([w, w[(n_tiles - 1) * lanes:][:1].expand(pad)])
+                for w in cols]
+    vals = torch.cat([w.view(n_tiles, lanes) for w in cols], dim=1)
+    srt, order = torch.sort(vals, dim=1, stable=True)
+    first = torch.ones_like(srt, dtype=torch.bool)
+    first[:, 1:] = srt[:, 1:] != srt[:, :-1]
+    rank = torch.cumsum(first, dim=1) - 1        # index in the tile's list
+    wins = srt[:, :1].expand_as(srt).clone()
+    wins.scatter_(1, rank, srt)                  # equal windows, equal ranks
+    idx = torch.empty_like(rank).scatter_(1, order, rank)
+    return (wins.int(), (rank[:, -1] + 1).int(),
+            *(idx[:, i * lanes:(i + 1) * lanes].reshape(-1)[:P].int()
+              for i in range(len(cols))))
+
+
 def window_major(widx: np.ndarray, *per_lane: np.ndarray):
     """The lanes of one grid in window-major order: a stable sort by each
     lane's window row ``widx``. Returns ``(lane, widx, *per_lane)`` in slot
@@ -215,10 +261,12 @@ def _check_t_real(t_real, N: int, T: int) -> np.ndarray:
     return tr.astype(np.int32)
 
 
-def _check_launch(name: str, dev: torch.device, P: int, **args) -> None:
+def _check_launch(name: str, dev: torch.device, P: int,
+                  lanes: int = _KERNEL_THREADS, **args) -> None:
     """Refuse what a kernel cannot take: ``args`` maps each argument name to
     ``(tensor, dtype, shape)``; every tensor must be a contiguous tensor of
-    that dtype and shape on ``dev`` (a CUDA device)."""
+    that dtype and shape on ``dev`` (a CUDA device), and the ``P`` combos
+    must fit the grid of ``lanes`` lanes a CTA."""
     if dev.type != "cuda":
         raise ValueError(f"{name} needs CUDA tensors; got {dev}")
     for arg, (x, dtype, shape) in args.items():
@@ -231,9 +279,9 @@ def _check_launch(name: str, dev: torch.device, P: int, **args) -> None:
                              f"{tuple(x.shape)}")
         if not x.is_contiguous():
             raise ValueError(f"{arg} must be contiguous")
-    if -(-P // _KERNEL_THREADS) > _MAX_PARAM_BLOCKS:
+    if -(-P // lanes) > _MAX_PARAM_BLOCKS:
         raise ValueError(f"{P} combos exceed the kernel's grid limit of "
-                         f"{_MAX_PARAM_BLOCKS * _KERNEL_THREADS}")
+                         f"{_MAX_PARAM_BLOCKS * lanes}")
 
 
 def _launch(name: str, entry, *args) -> None:
@@ -413,22 +461,35 @@ def fused_sma_cuda(cs, r, t_real, fast, slow, warm, *, cost: float,
     """Launch K1 (``csrc/fused_sma.cu``) on PyTorch's current stream.
 
     Same inputs and output as :func:`fused_sma_plain`, all on one CUDA
-    device. Raises on a wrong device, dtype, shape or layout, and when the
-    launch reports an error.
+    device. The lanes run in tiles of ``_SMA_LANES``, whose window lists
+    are built on the card from ``fast`` and ``slow`` (:func:`window_tiles`).
+    Raises on a wrong device, dtype, shape or layout, and when the launch
+    reports an error.
     """
     N, T = cs.shape
     P = fast.shape[0]
+    lanes = _SMA_LANES
     f32, i32 = torch.float32, torch.int32
-    _check_launch("fused_sma_cuda", cs.device, P,
+    _check_launch("fused_sma_cuda", cs.device, P, lanes,
                   cs=(cs, f32, (N, T)), r=(r, f32, (N, T)),
                   t_real=(t_real, i32, (N,)), fast=(fast, i32, (P,)),
                   slow=(slow, i32, (P,)), warm=(warm, i32, (P,)))
     out = torch.empty((_N_METRICS, N, P), dtype=f32, device=cs.device)
     if N and P:
-        _launch("fused_sma", _kernels.fused_sma_lib().dbx_fused_sma,
-                cs, r, t_real, fast, slow, warm, out, N, T, P, float(cost),
-                int(ppy))
+        _launch_fused_sma(cs, r, t_real, window_tiles(lanes, fast, slow),
+                          warm, out, lanes, cost=cost, ppy=ppy)
     return out
+
+
+def _launch_fused_sma(cs, r, t_real, tiles, warm, out, lanes: int, *,
+                      cost: float, ppy: int) -> None:
+    """K1's launch on checked inputs and its tiles (:func:`window_tiles`
+    of the fast and slow windows)."""
+    wins, counts, fi, si = tiles
+    N, T = cs.shape
+    _launch("fused_sma", _kernels.fused_sma_lib().dbx_fused_sma, cs, r,
+            t_real, wins, counts, fi, si, warm, out, N, T, fi.shape[0],
+            lanes, wins.shape[1], float(cost), int(ppy))
 
 
 def fused_sma(cs, r, t_real, fast, slow, warm, *, cost: float,
@@ -577,13 +638,15 @@ def band_inline_cuda(close, cs, csx, csx2, r, t_real, window, k, warm, *,
                      ppy: int) -> torch.Tensor:
     """Launch K2's inline entry (``csrc/band_machine.cu``,
     ``dbx_band_inline``): same inputs and output as
-    :func:`band_inline_plain`, all on one CUDA device."""
+    :func:`band_inline_plain`, all on one CUDA device; the lanes run in
+    tiles of ``_BAND_INLINE_LANES`` as :func:`fused_sma_cuda`'s do."""
     N, T = close.shape
     P = window.shape[0]
+    lanes = _BAND_INLINE_LANES
     code = _machine_code(machine)
     f32, i32 = torch.float32, torch.int32
     row = (N, T)
-    _check_launch("band_inline_cuda", close.device, P,
+    _check_launch("band_inline_cuda", close.device, P, lanes,
                   close=(close, f32, row), cs=(cs, f32, row),
                   csx=(csx, f32, row), csx2=(csx2, f32, row),
                   r=(r, f32, row), t_real=(t_real, i32, (N,)),
@@ -591,10 +654,23 @@ def band_inline_cuda(close, cs, csx, csx2, r, t_real, window, k, warm, *,
                   warm=(warm, i32, (P,)))
     out = torch.empty((_N_METRICS, N, P), dtype=f32, device=close.device)
     if N and P:
-        _launch("band_inline", _kernels.band_machine_lib().dbx_band_inline,
-                close, cs, csx, csx2, r, t_real, window, k, warm, out, N, T,
-                P, code, float(z_exit), float(cost), int(ppy))
+        _launch_band_inline((close, cs, csx, csx2, r), t_real,
+                            window_tiles(lanes, window), k, warm, out, lanes,
+                            code=code, z_exit=z_exit, cost=cost, ppy=ppy)
     return out
+
+
+def _launch_band_inline(rows, t_real, tiles, k, warm, out, lanes: int, *,
+                        code: int, z_exit: float, cost: float,
+                        ppy: int) -> None:
+    """K2 inline's launch on checked inputs (``rows``: close, cs, csx, csx2,
+    r), its tiles (:func:`window_tiles` of the windows) and the machine's
+    code."""
+    wins, counts, wi = tiles
+    N, T = rows[0].shape
+    _launch("band_inline", _kernels.band_machine_lib().dbx_band_inline,
+            *rows, t_real, wins, counts, wi, k, warm, out, N, T, wi.shape[0],
+            lanes, wins.shape[1], code, float(z_exit), float(cost), int(ppy))
 
 
 def band_table_cuda(z, r, t_real, widx, k, warm, lane=None, *,

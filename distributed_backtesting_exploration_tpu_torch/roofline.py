@@ -20,34 +20,33 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_FP32_OPS = PEAK_FP32_FLOPS / 2
 PEAK_HBM_BYTES = 3.35e12
 
-# Floating-point operations of K1 per (combo, bar), counted from
-# csrc/fused_sma.cu: every bar does the PnL and metric updates (position
-# change sub+abs, net mul+mul+sub, s1 add, s2 mul+add, downside min, its
-# square mul+add, cumulative add, equity add, peak max, drawdown
-# sub+max+div, mdd max, turnover add, active/win count 2 = 20); a bar past
-# the warmup also forms the two SMAs (sub+div each) and their difference
-# with its sign (2 more) = 6.
+# Floating-point operations per (combo, bar) below the ticker's length,
+# from csrc/metrics_tail.cuh: the PnL and metric updates (position change
+# sub+abs, net mul+mul+sub, s1 add, s2 mul+add, downside min, its square
+# mul+add, cumulative add, equity add, peak max, drawdown sub+max+div, mdd
+# max, turnover add, active/win count 2 = 20).
 OPS_PER_BAR = 20
-OPS_PER_SIGNAL_BAR = 6
-# Per (combo, bar) past the warmup, from csrc/band_machine.cu and
-# csrc/single_window.cu, beside the 20 of the metric update: the inline
-# z (three window sums, mean div, s1*s1, two divs by w, s2 sub, clamp,
-# sqrt, +eps, c-m, div = 13) and the machine (entry compares 2, state
-# compares 2 = 4); the table, stochastic and pairs entries the machine;
-# momentum sub+sign; donchian the latch's two selects; macd and trix
-# x - signal and its sign; from csrc/fused_sma.cu, obv - sma and its sign.
-OPS_SIGNAL = {"band_inline": 17, "band_table": 4, "band_stoch": 4,
-              "momentum": 2, "donchian": 2, "macd": 2, "trix": 2, "obv": 2,
-              "pairs": 4}
-# Per (ticker, distinct window, bar) past the window's warmup: work that is
-# a function of the window, not of the lane, so the function needs it once
-# per distinct window though the kernels form it in every lane. K6 the SMA
-# of the OBV (sub, div = 2); the stochastic entry the %K from the levels
-# (the channel's max and min, rng sub, its compare, c - lo, *100,
-# rng + eps, div, -50 = 9); donchian the channel's max and min and the two
-# breakout compares (4; the channel of bar t - 1 on bar t: the warmup is
-# window + 1).
-OPS_WINDOW = {"obv": 2, "band_stoch": 9, "donchian": 4}
+# Per (combo, bar) past the warmup, beside the metric update: K1
+# (csrc/fused_sma.cu) the fast - slow difference and its sign; from
+# csrc/band_machine.cu the machine (entry compares 2, state compares 2 = 4)
+# of the inline, table, stochastic and pairs entries; from
+# csrc/single_window.cu momentum sub+sign and donchian the latch's two
+# selects; macd and trix x - signal and its sign; from csrc/fused_sma.cu,
+# obv - sma and its sign.
+OPS_SIGNAL = {"fused_sma": 2, "band_inline": 4, "band_table": 4,
+              "band_stoch": 4, "momentum": 2, "donchian": 2, "macd": 2,
+              "trix": 2, "obv": 2, "pairs": 4}
+# Per (ticker, distinct window, bar) from the first bar a lane reads the
+# window: work that is a function of the window, not of the lane, so the
+# function needs it once per distinct window. K1 and K6 the SMA (sub, div
+# = 2); K2's inline z (three window sums, mean div, s1*s1, two divs by w,
+# s2 sub, clamp, sqrt, +eps, c-m, div = 13); the stochastic entry the %K
+# from the levels (the channel's max and min, rng sub, its compare,
+# c - lo, *100, rng + eps, div, -50 = 9); donchian the channel's max and
+# min and the two breakout compares (4; the channel of bar t - 1 on bar t:
+# the warmup is window + 1).
+OPS_WINDOW = {"fused_sma": 2, "band_inline": 13, "obv": 2, "band_stoch": 9,
+              "donchian": 4}
 # The channel entries' level build, per ticker, level above the rows and
 # bar: one max and one min (csrc/extrema.cuh).
 OPS_LEVEL = 2
@@ -93,6 +92,20 @@ def signal_bars(tr, warm, limit=None) -> float:
     end = tr if limit is None else np.full_like(tr, float(limit))
     live = end - (np.asarray(warm, np.float64)[None, :] - 1)
     return float(np.minimum(np.clip(live, 0, None), end).sum())
+
+
+def window_signal_bars(tr, warm, *windows) -> float:
+    """Bars below each ticker's length ``tr`` from the first bar a lane
+    reads each distinct window, summed over (ticker, window): a window's
+    first bar is the least ``warm - 1`` of the lanes reading it. ``warm``
+    and each of ``windows`` (a lane's windows: K1 its fast and slow ones)
+    are (P,) integer arrays."""
+    warm = np.asarray(warm)
+    w = np.concatenate([np.asarray(a).reshape(-1) for a in windows])
+    distinct, inv = np.unique(w, return_inverse=True)
+    firsts = np.full(distinct.shape, np.iinfo(np.int64).max, np.int64)
+    np.minimum.at(firsts, inv, np.tile(warm.astype(np.int64), len(windows)))
+    return signal_bars(tr, firsts)
 
 
 def stage_bound(kind: str, stage: str, *, N: int, T_pad: int, W_pad: int,
@@ -202,9 +215,7 @@ def config_model(strategy: str, n_distinct: int, P: int,
     lanes of each of the ``n_distinct`` windows, its input rows shared by
     the ticker's P lanes, and the 9 metrics of each cell."""
     entry = ENTRY[strategy]
-    signal = (OPS_PER_SIGNAL_BAR if entry == "fused_sma"
-              else OPS_SIGNAL[entry])
-    ops = (OPS_PER_BAR + OPS_EACH_BAR.get(entry, 0) + signal
+    ops = (OPS_PER_BAR + OPS_EACH_BAR.get(entry, 0) + OPS_SIGNAL[entry]
            + OPS_WINDOW.get(entry, 0) * n_distinct / P)
     n_bytes = 4.0 * _ROWS[entry](n_distinct) / P + 4.0 * 9 / T
     return {"ops": float(ops), "bytes": n_bytes}

@@ -125,6 +125,49 @@ def test_utilization_at_a_rate():
     assert 0 < u["hbm_util"] < u["fp32_util"]
 
 
+def test_tile_entries_count_per_window_work_once_per_window():
+    # K1's SMA (sub, div) and K2 inline's z (13 ops) are functions of the
+    # window: counted once per (ticker, distinct window, bar) from the
+    # first bar a lane reads the window, beside the metric update and the
+    # per-lane difference and sign (K1) or machine (K2).
+    assert roofline.OPS_SIGNAL["fused_sma"] == 2
+    assert roofline.OPS_WINDOW["fused_sma"] == 2
+    assert roofline.OPS_SIGNAL["band_inline"] == 4
+    assert roofline.OPS_WINDOW["band_inline"] == 13
+    sma = roofline.config_model("sma_crossover", 120, 2000, 1260)
+    boll = roofline.config_model("bollinger", 20, 1000, 1260)
+    assert sma["ops"] == pytest.approx(22.12)
+    assert boll["ops"] == pytest.approx(24.26)
+    # The bounds at the headline, 500 tickers x 1260 bars.
+    tr = np.full(500, 1260)
+    axes = roofline.bench_axes(2000)
+    g = roofline.product(axes["sma_crossover"])
+    fast, slow = g["fast"].astype(int), g["slow"].astype(int)
+    warm = np.maximum(fast, slow)
+    ops = (roofline.OPS_PER_BAR * 500 * 1260 * 2000
+           + 2 * roofline.signal_bars(tr, warm)
+           + 2 * roofline.window_signal_bars(tr, warm, fast, slow))
+    n_bytes = 4 * (2 * 500 * 1260 + 500 + 3 * 2000 + 9 * 500 * 2000)
+    assert roofline.bound_ms(ops, n_bytes) == (
+        pytest.approx(0.8239, abs=1e-4), "operations")
+    win = roofline.product(axes["bollinger"])["window"].astype(int)
+    ops = (roofline.OPS_PER_BAR * 500 * 1260 * 1000
+           + 4 * roofline.signal_bars(tr, win)
+           + 13 * roofline.window_signal_bars(tr, win, win))
+    assert roofline.bound_ms(ops, 0.0)[0] == pytest.approx(0.4545, abs=1e-4)
+
+
+def test_window_signal_bars_start_at_the_first_lane_reading_a_window():
+    # Window 5 is read from bar 9 (warm 10) by one lane and from bar 2 by
+    # another, so from bar 2: 8 bars of a 10-bar ticker and 5 of a 7-bar
+    # one; window 12 only from bar 11, past both tickers' ends.
+    tr = np.asarray([10, 7])
+    warm = np.asarray([10, 3, 12])
+    fast = np.asarray([5, 5, 12])
+    assert roofline.window_signal_bars(tr, warm, fast) == 8 + 5
+    assert roofline.window_signal_bars(tr, warm, fast, fast) == 8 + 5
+
+
 def test_bench_grids_have_the_reference_sizes():
     sizes = {s: int(np.prod([len(v) for v in ax.values()]))
              for s, ax in roofline.bench_axes(2000).items()}

@@ -31,7 +31,8 @@ from distributed_backtesting_exploration_tpu_torch.ops import (
 from distributed_backtesting_exploration_tpu_torch.parallel import sweep
 from distributed_backtesting_exploration_tpu_torch.utils import data
 
-from torch_parity import assert_metrics_match, to_np
+from torch_parity import (assert_metrics_match, assert_window_tiles,
+                          to_np)
 
 
 def _grid(**axes):
@@ -351,6 +352,38 @@ def test_band_stoch_plain_equals_table_form(case, machine):
                                               (win, band, warm, lane)), **kw)
     assert got.shape == (9, c.shape[0], g["band"].size)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("lanes,ks,windows", [
+    (1024, np.linspace(0.5, 3.0, 50), range(10, 50, 2)),  # the bench grid
+    (128, np.linspace(0.5, 3.0, 50), range(10, 50, 2)),   # ragged last tile
+    (32, [1.0], [5, 9, 20]),                    # one tile, 3 of 32 lanes
+    (256, np.linspace(0.5, 3.0, 8), range(5, 301)),       # many windows
+])
+def test_window_tiles_give_each_lane_its_window(lanes, ks, windows):
+    # K2 inline's tile lists: every lane's index gives back its window,
+    # and a list holds at most one window a lane.
+    g = _grid(k=ks, window=list(windows))
+    _, win, _, _ = fused._window_setup(g["window"], "windows", 0.0, 1)
+    win = torch.from_numpy(win)
+    assert_window_tiles(lanes, (win,), fused.window_tiles(lanes, win))
+
+
+def test_window_tiles_select_the_plain_versions_z_rows():
+    # The z of a tile's list, selected by each lane's index, is the lane's
+    # own z row bit for bit, as the kernel's bar blocks hand it over.
+    panel = data.synthetic_ohlcv(2, 90, seed=32)
+    c = torch.from_numpy(panel.close)
+    xc = c - c.mean(1, keepdim=True)
+    cs, csx, csx2 = (torch.cumsum(x, 1) for x in (c, xc, xc * xc))
+    win = torch.tensor([20, 5, 20, 9, 95, 5, 33], dtype=torch.int32).repeat(10)
+    lanes = 32
+    wins, counts, wi = fused.window_tiles(lanes, win)
+    for t in range(wins.shape[0]):
+        sel = slice(t * lanes, (t + 1) * lanes)
+        table = fused.boll_z_table(c, cs, csx, csx2, wins[t, :counts[t]])
+        want = fused.boll_z_table(c, cs, csx, csx2, win[sel])
+        assert torch.equal(table[:, wi[sel].long()], want)
 
 
 @pytest.mark.parametrize("source", ["stochastic", "rsi"])

@@ -18,7 +18,8 @@ from distributed_backtesting_exploration_tpu_torch.ops import fused
 from distributed_backtesting_exploration_tpu_torch.parallel import sweep
 from distributed_backtesting_exploration_tpu_torch.utils import data
 
-from torch_parity import assert_metrics_match, to_np
+from torch_parity import (assert_metrics_match, assert_window_tiles,
+                          to_np)
 
 
 def _flat(fast_axis, slow_axis):
@@ -160,3 +161,45 @@ def test_fused_plain_version_on_shared_inputs_matches_sweep_wrapper():
     m = fused.fused_sma_sweep(close, fast, slow, cost=1e-3, device="cpu")
     for k, f in enumerate(m):
         np.testing.assert_array_equal(to_np(planes[k]), to_np(f))
+
+
+@pytest.mark.parametrize("lanes,fast_axis,slow_axis", [
+    (1024, range(5, 25), range(30, 230, 2)),    # the bench grid: 2 tiles
+    (128, range(5, 25), range(30, 230, 2)),     # ragged last tile
+    (32, [3, 5, 8], [13, 21]),                  # one tile, 6 of 32 lanes
+    (64, range(2, 21), range(10, 31)),          # fast and slow overlap
+    (256, range(2, 130), range(130, 401)),      # many distinct windows
+])
+def test_window_tiles_give_each_lane_its_windows(lanes, fast_axis,
+                                                 slow_axis):
+    # K1's tile lists: every lane's fast and slow index give back its
+    # windows, and a list holds at most two windows a lane.
+    fw, sw, _ = fused._grid_setup(*_flat(list(fast_axis), list(slow_axis)))
+    fw, sw = torch.from_numpy(fw), torch.from_numpy(sw)
+    assert_window_tiles(lanes, (fw, sw), fused.window_tiles(lanes, fw, sw))
+
+
+def test_window_tiles_select_the_plain_versions_sma_rows():
+    # The SMAs of a tile's list, selected by each lane's indices, are the
+    # lane's own fast and slow SMA rows bit for bit, as the kernel's bar
+    # blocks hand them to its lanes.
+    close = torch.from_numpy(data.synthetic_ohlcv(2, 90, seed=41).close)
+    cs = torch.cumsum(close, 1)
+    fw, sw, _ = fused._grid_setup(*_flat([2, 3, 5, 40, 95], [4, 9, 30, 60]))
+    fw, sw = torch.from_numpy(fw), torch.from_numpy(sw)
+    lanes = 32
+    wins, counts, fi, si = fused.window_tiles(lanes, fw, sw)
+    for t in range(wins.shape[0]):
+        sel = slice(t * lanes, (t + 1) * lanes)
+        table = fused.sma_table(cs, wins[t, :counts[t]].long())
+        for w, i in ((fw, fi), (sw, si)):
+            want = fused.sma_table(cs, w[sel].long())
+            assert torch.equal(table[:, i[sel].long()], want)
+
+
+def test_window_tiles_of_no_lanes():
+    wins, counts, fi, si = fused.window_tiles(
+        128, torch.zeros(0, dtype=torch.int32),
+        torch.zeros(0, dtype=torch.int32))
+    assert wins.shape == (0, 256) and counts.shape == (0,)
+    assert fi.shape == si.shape == (0,)

@@ -12,7 +12,9 @@ rows of the channel entries, z-, EMA or pairs tables), so positions are
 identical (n_trades and turnover bit-equal) and the other metrics agree at
 rtol=2e-4, atol=2e-5; the window-major entries (K2's table and stochastic
 entries, K3's donchian) take their lanes sorted by window, as their sweeps
-pass them, and must be bit-equal in every metric.
+pass them, and must be bit-equal in every metric, as must the tile entries
+(K1 and K2's inline entry, which share each window's value across the
+lanes of a CTA) at every CTA width.
 """
 
 import numpy as np
@@ -72,7 +74,8 @@ def _assert_kernel_matches_plain(inputs, cost, kernel=None, plain=None,
 ])
 def test_kernel_matches_plain(cuda, n, T, fast, slow, cost, seed):
     close = data.synthetic_ohlcv(n, T, seed=seed).close
-    _assert_kernel_matches_plain(_inputs(cuda, close, fast, slow), cost)
+    _assert_kernel_matches_plain(_inputs(cuda, close, fast, slow), cost,
+                                 exact=True)
 
 
 def test_kernel_matches_plain_ragged(cuda):
@@ -81,7 +84,7 @@ def test_kernel_matches_plain_ragged(cuda):
     for i, n in enumerate(lens):
         close[i, n:] = close[i, n - 1]
     _assert_kernel_matches_plain(
-        _inputs(cuda, close, [3, 5, 8], [13, 21], lens), 1e-3)
+        _inputs(cuda, close, [3, 5, 8], [13, 21], lens), 1e-3, exact=True)
 
 
 def test_launch_counter_counts_kernel_launches_only(cuda):
@@ -124,10 +127,10 @@ def _panel(dev, n, T, seed, lens=None):
     return close, high, low, tr, fused.simple_returns(close).contiguous()
 
 
-def _band_inline_inputs(dev, n, T, seed, lens=None):
+def _band_inline_inputs(dev, n, T, seed, lens=None, ks=(0.5, 1.0, 2.0),
+                        windows=(5, 10, 20, 40)):
     close, _, _, tr, r = _panel(dev, n, T, seed, lens)
-    g = sweep.product_grid(k=np.float32([0.5, 1.0, 2.0]),
-                           window=np.float32([5, 10, 20, 40]))
+    g = sweep.product_grid(k=np.float32(ks), window=np.float32(windows))
     _, win, _, warm = fused._window_setup(g["window"].numpy(), "windows",
                                           0.0, 1)
     xc = close - close.mean(1, keepdim=True)
@@ -306,9 +309,10 @@ _NEW_ENTRIES = {
 }
 
 
-# The window-major entries: held bit-equal.
+# The window-major entries and K2's inline entry: held bit-equal.
 _EXACT = {e for e in _NEW_ENTRIES
-          if e.startswith(("band_table", "band_stoch", "donchian"))}
+          if e.startswith(("band_table", "band_stoch", "donchian",
+                           "band_inline"))}
 
 
 @pytest.mark.parametrize("entry", sorted(_NEW_ENTRIES))
@@ -376,6 +380,77 @@ def test_window_major_entries_match_plain_on_straddling_grid(cuda, entry):
                                  ref_inputs=caller, exact=True, **kw)
     _assert_kernel_matches_plain(caller, 1e-3, kernel, plain, exact=True,
                                  **kw)
+
+
+# The tile entries (K1, K2's inline entry; csrc/bar_blocks.cuh): inputs on
+# a case's panel, and their kernel, plain version and machine.
+_SHORT_LENS = np.asarray([1, 5, 63, 65, 127, 129, 300])
+
+
+def _sma_tile_inputs(dev, n, T, seed, lens=None, fast=range(5, 25),
+                     slow=range(30, 70, 2)):
+    p = data.synthetic_ohlcv(n, T, seed=seed).close
+    for i, m in enumerate(lens if lens is not None else ()):
+        p[i, m:] = p[i, m - 1]
+    return _inputs(dev, p, list(fast), list(slow), lens)
+
+
+_TILE_ENTRIES = {
+    "fused_sma": (_sma_tile_inputs, fused.fused_sma_cuda,
+                  fused.fused_sma_plain, {}),
+    "band_inline_hysteresis": (_band_inline_inputs, fused.band_inline_cuda,
+                               fused.band_inline_plain,
+                               {"machine": "hysteresis", "z_exit": 0.3}),
+    "band_inline_touch": (_band_inline_inputs, fused.band_inline_cuda,
+                          fused.band_inline_plain,
+                          {"machine": "touch", "z_exit": 0.0}),
+}
+_TILE_CASES = {
+    # The old kernels' unstaged branch, now the same code.
+    "long_rows": lambda build, dev: build(dev, 4, 13000, 4),
+    # Many distinct windows: lists too long for a block of 128 bars.
+    "many_windows": lambda build, dev: (
+        _sma_tile_inputs(dev, 2, 420, 6, fast=range(2, 130),
+                         slow=range(130, 401))
+        if build is _sma_tile_inputs else
+        build(dev, 2, 420, 6, ks=np.linspace(0.5, 3.0, 8),
+              windows=np.arange(5, 301))),
+    # Histories that end mid-block, shorter than most windows.
+    "short_histories": lambda build, dev: build(
+        dev, _SHORT_LENS.size, 300, 8, lens=_SHORT_LENS),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_TILE_CASES))
+@pytest.mark.parametrize("entry", sorted(_TILE_ENTRIES))
+def test_tile_entries_match_plain(cuda, entry, case):
+    build, kernel, plain, kw = _TILE_ENTRIES[entry]
+    _assert_kernel_matches_plain(_TILE_CASES[case](build, cuda), 1e-3,
+                                 kernel, plain, exact=True, **kw)
+
+
+@pytest.mark.parametrize("lanes", [32, 128, 256, 512, 1024])
+@pytest.mark.parametrize("entry", sorted(_TILE_ENTRIES))
+def test_tile_entries_match_plain_at_every_width(cuda, monkeypatch, entry,
+                                                 lanes):
+    # 400 (K1) and 96 (K2) lanes: a ragged last tile at most widths.
+    monkeypatch.setattr(fused, "_SMA_LANES", lanes)
+    monkeypatch.setattr(fused, "_BAND_INLINE_LANES", lanes)
+    build, kernel, plain, kw = _TILE_ENTRIES[entry]
+    inputs = build(cuda, 3, 300, 9, lens=np.asarray([300, 251, 170]))
+    got = kernel(*inputs, cost=1e-3, ppy=252, **kw)
+    ref = plain(*inputs, cost=1e-3, ppy=252, **kw)
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("lanes", [0, 48, 2048])
+def test_tile_entries_refuse_a_width_they_cannot_launch(cuda, lanes):
+    cs, r, tr, fast, slow, warm = _sma_tile_inputs(cuda, 2, 60, 1)
+    out = torch.empty((9, 2, fast.shape[0]), device=cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fused._launch_fused_sma(cs, r, tr, fused.window_tiles(max(lanes, 1),
+                                                              fast, slow),
+                                warm, out, lanes, cost=0.0, ppy=252)
 
 
 def test_new_launch_counters_count_kernel_launches_only(cuda):

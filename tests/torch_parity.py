@@ -55,3 +55,29 @@ def assert_planes_match(got, ref, names, *, rtol=RTOL, atol=ATOL,
         b = to_np(y)[~flipped]
         np.testing.assert_allclose(a, b, rtol=rtol, atol=atol, err_msg=name)
     return n_flips
+
+
+def assert_window_tiles(lanes, windows, tiles):
+    """The invariants of ``tiles = fused.window_tiles(lanes, *windows)``,
+    ``(wins, counts, *idx)``: each lane's index gives back its window in its
+    tile's list; a list is its tile's sorted distinct windows, ``counts``
+    of them, padded with windows of the tile; no list is wider than
+    ``lanes * len(windows)``."""
+    wins, counts, *idx = (to_np(x) for x in tiles)
+    windows = [to_np(w) for w in windows]
+    P = windows[0].size
+    n_tiles = -(-P // lanes)
+    assert wins.dtype == np.int32 and counts.dtype == np.int32
+    assert wins.shape == (n_tiles, lanes * len(windows))
+    assert counts.shape == (n_tiles,)
+    tile = np.arange(P) // lanes
+    for w, i in zip(windows, idx):
+        assert i.dtype == np.int32 and i.shape == (P,)
+        assert (i < counts[tile]).all()
+        np.testing.assert_array_equal(wins[tile, i], w)
+    for t in range(n_tiles):
+        lanes_t = slice(t * lanes, min((t + 1) * lanes, P))
+        read = np.unique(np.concatenate([w[lanes_t] for w in windows]))
+        assert counts[t] == read.size
+        np.testing.assert_array_equal(wins[t, :read.size], read)
+        assert np.isin(wins[t, read.size:], read).all()
