@@ -48,9 +48,16 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    (500 x 1260 x the 2000-combo SMA grid) and ``dbx_boll_stage`` (500 x
    1260 x the 1000-combo bollinger grid), on the bench's seed-0 panel,
    against its plain version: every output row must be bit-equal (same
-   inputs, every operation in the same order). Each case is timed beside
-   its bound and, for touch and matmul, the one PyTorch call computing
-   the same function.
+   inputs, every operation in the same order). Each case is timed through
+   its wrapper (CUDA events around 20 calls) beside its bound and, for
+   touch and matmul, the one PyTorch call computing the same function,
+   timed the same way; the device time of each, from a CUDA graph of 20
+   calls, is printed beside. Each entry's build report (registers,
+   resident CTAs, shared memory, cluster size, bars a block, ring), the
+   SASS a bar of its matmul and full loops and matmul at every width are
+   printed. Then every stage at every width on five more shapes (about
+   400 distinct windows, T=37, one ticker, 75 lanes, a 13000-bar row),
+   bit-equal.
 4. The main paths at full width, one per strategy: 500 synthetic tickers x
    1260 daily bars as DBX1 payloads in 500 JobSpecs with the bench grid
    (for pairs 1000 two-legged JobSpecs, the legs from 2000 synthetic
@@ -174,6 +181,27 @@ def _cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     start.record()
     for _ in range(reps):
         fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def _graph_ms(fn, reps: int = 20) -> float:
+    """CUDA-event ms of one call of ``fn`` replayed from a CUDA graph of
+    ``reps`` calls: the device's time without the host's launch cost,
+    printed beside :func:`_cuda_ms` where a call is short."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
@@ -360,7 +388,9 @@ def _sass_loops(kernels_mod, lib: str, kernel: str) -> list:
             body = [op for a, op in ops.items() if start <= a <= end]
             out.append({"kernel": name, "start": hex(start),
                         "instructions": len(body),
-                        "fmnmx": sum("FMNMX" in op for op in body)})
+                        "fmnmx": sum("FMNMX" in op for op in body),
+                        "fadd": sum(op.split()[0].startswith("FADD")
+                                    for op in body if op.split())})
     _check(bool(out), f"no loop of {kernel} found in the SASS of {lib}")
     return out
 
@@ -1259,34 +1289,81 @@ def phase_new_main_paths(kernels_mod, compute, wire, pb, data, sweep,
 STAGE_REF = {"sma": "bench.py:362", "boll": "bench.py:567"}
 
 
-def _stage_library_ms(stage, inp) -> float | None:
+def _stage_library_call(stage, inp) -> Callable | None:
     """One PyTorch call computing a stage's function, where there is one:
     touch the tables' sums; matmul the contraction of the table with the
     lanes' one-hot (+1 fast row and -1 slow row for SMA), full f32 (TF32
     off, as the package sets it). None for the later stages."""
     if stage == "touch":
-        return _cuda_ms(lambda: inp.table.sum(dim=(1, 2)), reps=20,
-                        warmup=2)
+        return lambda: inp.table.sum(dim=(1, 2))
     if stage != "matmul":
         return None
     W, P = inp.table.shape[1], inp.row_a.shape[0]
-    lanes = torch.arange(P, device=inp.table.device)
     onehot = torch.zeros((W, P), dtype=torch.float32,
                          device=inp.table.device)
+    lanes = torch.arange(P, device=inp.table.device)
     ones = torch.ones(P, dtype=torch.float32, device=inp.table.device)
     onehot.index_put_((inp.row_a.long(), lanes), ones, accumulate=True)
     if inp.row_b is not None:
         onehot.index_put_((inp.row_b.long(), lanes), -ones, accumulate=True)
-    return _cuda_ms(lambda: torch.einsum("nwt,wp->np", inp.table, onehot),
-                    reps=20, warmup=2)
+    return lambda: torch.einsum("nwt,wp->np", inp.table, onehot)
 
 
-def phase_stages(stages, bench, data) -> list:
+def _stage_edge_cases(stages, data) -> list:
+    """K8's shapes beside the bench's, (label, kind, inputs): about 400
+    distinct windows (4-bar blocks at 128 lanes), T shorter than a block
+    and no multiple of 4, one ticker, 75 lanes, and a long row."""
+    def sma(n, T, seed, n_fast, n_slow):
+        close = data.synthetic_ohlcv(n, T, seed=seed).close
+        g = roofline.product({
+            "fast": np.float32([3, 5, 8, 13][:n_fast]),
+            "slow": np.arange(20, 20 + 2 * n_slow, 2, dtype=np.float32)})
+        return stages.sma_stage_inputs(close, g["fast"], g["slow"],
+                                       device="cuda")
+
+    def boll(n, T, seed, n_k, n_w):
+        close = data.synthetic_ohlcv(n, T, seed=seed).close
+        g = roofline.product({
+            "k": np.linspace(0.5, 3.0, n_k).astype(np.float32),
+            "window": np.arange(5, 5 + 2 * n_w, 2, dtype=np.float32)})
+        return stages.boll_stage_inputs(close, g["window"], g["k"],
+                                        device="cuda")
+
+    shapes = (("wide 2x251, 400 windows", (2, 251, 3, 4, 396),
+               (2, 251, 3, 15, 400)),
+              ("short 3x37", (3, 37, 4, 4, 24), (3, 37, 4, 4, 6)),
+              ("one ticker 1x300", (1, 300, 5, 4, 40), (1, 300, 5, 4, 10)),
+              ("75 lanes 2x251", (2, 251, 6, 3, 25), (2, 251, 6, 3, 25)),
+              ("long row 1x13000", (1, 13000, 2, 4, 8), (1, 13000, 2, 15, 2)))
+    return [case for label, a, b in shapes
+            for case in ((label, "sma", sma(*a)), (label, "boll", boll(*b)))]
+
+
+def _stage_sass(kernels_mod, kind: str) -> dict:
+    """SASS instructions a bar of the matmul and full loops of one K8
+    entry: full by the metric loop's FMNMX (:func:`_per_bar`), matmul by
+    its FADD (a bar's subtraction and sum for SMA, its sum for
+    bollinger) in the innermost loop with the most of them."""
+    family = {"sma": 0, "boll": 1}[kind]
+    matmul = _sass_loops(kernels_mod, "stages",
+                         f"stage_kernelILi{family}ELi1EE")
+    full = _sass_loops(kernels_mod, "stages",
+                       f"stage_kernelILi{family}ELi4EE")
+    loop = max(matmul, key=lambda x: (x["fadd"], x["instructions"]))
+    _check(loop["fadd"] > 0, f"no matmul loop in the SASS of {kind}")
+    return {"matmul": loop["instructions"] / (loop["fadd"] / (2 - family)),
+            "full": _per_bar(full)}
+
+
+def phase_stages(kernels_mod, stages, bench, data) -> list:
     """Every (stage, lanes) case of K8's two entries at the bench's shape
     (SMA 500 x 1260 x 2000, bollinger 500 x 1260 x 1000, on the bench's
     seed-0 panel) against its plain version: every row must be bit-equal
-    (same inputs, every operation in the same order). Times, bound and
-    library call per case; returns one kernels-line record per case."""
+    (same inputs, every operation in the same order). Times through the
+    wrapper (device times beside), bound and library call per case; each
+    entry's build report, SASS a bar and matmul at every width; then every
+    stage at every width on the edge shapes of :func:`_stage_edge_cases`,
+    bit-equal. Returns one kernels-line record per bench case."""
     close = torch.as_tensor(data.synthetic_ohlcv(N_TICKERS, N_BARS,
                                                  seed=0).close,
                             device="cuda")
@@ -1304,12 +1381,14 @@ def phase_stages(stages, bench, data) -> list:
     records = []
     for kind, (inp, cases, kernel, plain) in kinds.items():
         N, W, T = inp.table.shape
+        refs = {}
         for stage, lanes in cases:
             if stage == "prep":        # the table build: no kernel
                 continue
             label = f"{kind}_stage_{stage}_l{lanes}"
             got = kernel(inp, stage=stage, lanes=lanes)
             ref = plain(inp, stage=stage, lanes=lanes)
+            refs[stage] = ref
             torch.cuda.synchronize()
             _check(bool(torch.isfinite(got).all()), f"{label}: not finite")
             err = float((got - ref).abs().max())
@@ -1317,15 +1396,22 @@ def phase_stages(stages, bench, data) -> list:
                    f"plain version, max abs err {err}")
             ms = _cuda_ms(lambda: kernel(inp, stage=stage, lanes=lanes),
                           reps=20, warmup=2)
+            device_ms = _graph_ms(lambda: kernel(inp, stage=stage,
+                                                 lanes=lanes))
             plain_ms = _cuda_ms(lambda: plain(inp, stage=stage, lanes=lanes),
                                 reps=1, warmup=0)
             bound_ms, bound_by = roofline.stage_bound(
                 kind, stage, N=N, T_pad=T, W_pad=W, tr=inp.tr,
                 warm=inp.warm.cpu().numpy())
-            library_ms = _stage_library_ms(stage, inp)
-            lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+            call = _stage_library_call(stage, inp)
+            library_ms, lib = None, "none"
+            if call is not None:
+                library_ms = _cuda_ms(call, reps=20, warmup=2)
+                lib = (f"{library_ms:.4f} ms (device {_graph_ms(call):.4f} "
+                       "ms)")
             print(f"k8 {label} {N}x{T}x{W}x{inp.row_a.shape[0]}: kernel "
-                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                  f"{ms:.4f} ms (device {device_ms:.4f} ms), "
+                  f"plain {plain_ms:.4f} ms, bound "
                   f"{bound_ms:.4f} ms ({bound_by}), library {lib}, max abs "
                   f"err {err:.3e}")
             records.append({
@@ -1334,6 +1420,42 @@ def phase_stages(stages, bench, data) -> list:
                 "replaces": STAGE_REF[kind], "max_abs_err": err, "ms": ms,
                 "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": library_ms})
+        report = {stage: stages.stage_occupancy(kind, inp, stage=stage)
+                  for stage in ("touch", "matmul", "signal", "no_ladders",
+                                "full")}
+        print(f"k8 {kind} build report (128 lanes): {report}")
+        print(f"k8 {kind} SASS a bar: {_stage_sass(kernels_mod, kind)}")
+        # Every CTA stages its ticker's whole table: wider CTAs take in
+        # less of it a lane.
+        widths = {}
+        for lanes in stages.LANES:
+            _check(bool(torch.equal(kernel(inp, stage="matmul", lanes=lanes),
+                                    refs["matmul"])),
+                   f"{kind} matmul at {lanes} lanes differs from its plain "
+                   "version")
+            widths[lanes] = _cuda_ms(lambda: kernel(inp, stage="matmul",
+                                                    lanes=lanes),
+                                     reps=20, warmup=2)
+        print(f"k8 {kind}_stage_matmul width sweep (ms by lanes a CTA): "
+              + ", ".join(f"{n} {t:.4f}" for n, t in widths.items()))
+    for label, kind, inp in _stage_edge_cases(stages, data):
+        kernel, plain = {"sma": (stages.sma_stage_cuda,
+                                 stages.sma_stage_plain),
+                         "boll": (stages.boll_stage_cuda,
+                                  stages.boll_stage_plain)}[kind]
+        all_stages = (stages.SMA_STAGES if kind == "sma" else
+                      stages.BOLL_STAGES)[1:]
+        for stage in all_stages:
+            ref = plain(inp, stage=stage)
+            for lanes in stages.LANES:
+                got = kernel(inp, stage=stage, lanes=lanes)
+                torch.cuda.synchronize()
+                _check(bool(torch.equal(got, ref)), f"k8 {kind} {stage} at "
+                       f"{lanes} lanes on {label} differs from its plain "
+                       "version")
+        print(f"k8 {kind} {label} (table {tuple(inp.table.shape)}, "
+              f"{inp.row_a.shape[0]} lanes): every stage at every width "
+              "bit-equal")
     return records
 
 
@@ -1369,7 +1491,7 @@ def main() -> None:
     phase_build(_kernels)
     k1 = phase_kernels(_kernels, fused, pnl, data)
     new = phase_new_kernels(fused, pnl, data)
-    k8 = phase_stages(stages, bench, data)
+    k8 = phase_stages(_kernels, stages, bench, data)
     launches = phase_main_path(_kernels, compute, wire, pb, data, sweep,
                                models, fused)
     k1["launches"] = launches.get("fused_sma", 0)

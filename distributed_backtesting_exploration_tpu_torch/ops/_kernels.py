@@ -57,14 +57,17 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def build(name: str) -> Path:
+def build(name: str, defines: tuple[str, ...] = ()) -> Path:
     """Compile ``csrc/<name>.cu`` into ``_build/`` (if not already built)
-    and return the library path."""
+    and return the library path. ``defines`` (``"NAME=VALUE"``) go to nvcc
+    as ``-D`` flags: a source's build-time settings, which only a sweep
+    over them sets."""
     src = SRC_DIR / f"{name}.cu"
+    flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
     h = hashlib.sha256(src.read_bytes())
     for header in sorted(SRC_DIR.glob("*.cuh")):
         h.update(header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     digest = h.hexdigest()[:16]
     lib = BUILD_DIR / f"lib{name}-{digest}.so"
     if lib.exists():
@@ -73,7 +76,7 @@ def build(name: str) -> Path:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+        proc = subprocess.run([_nvcc(), *flags, "-o", tmp, str(src)],
                               capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
@@ -129,6 +132,7 @@ _SIGNATURES = {
     "stages": {
         "dbx_sma_stage": [_VP] * 6 + [_CI] * 7 + [_CF, _CI, _VP],
         "dbx_boll_stage": [_VP] * 6 + [_CI] * 7 + [_CF, _CI, _VP],
+        "dbx_stage_occupancy": [_CI] * 6 + [_PI],
     },
 }
 

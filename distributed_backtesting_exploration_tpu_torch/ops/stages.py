@@ -8,7 +8,8 @@ bollinger kernel reading its z-table (``_boll_kernel``). The stages:
 
 - ``prep``: no kernel, the table build alone (the sum of the table plus
   the first bar's return, in every lane);
-- ``touch``: the sum of the ticker's whole table, in every lane;
+- ``touch``: the sum of the ticker's whole table, in every lane, in an
+  order set by the table's shape alone (:func:`_touch_plain`);
 - ``matmul``: the sum over the padded bars of each lane's selected value
   (SMA: fast row minus slow row of the table; bollinger: its z row);
 - ``signal`` (and ``signal_ladder``): the sum over the padded bars of
@@ -31,6 +32,7 @@ on the card the two agree to the bit.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
@@ -51,6 +53,12 @@ COST, PPY = 1e-3, 252
 # Stage code of each kernel stage in csrc/stages.cu.
 _CODES = {"touch": 0, "matmul": 1, "signal": 2, "signal_ladder": 2,
           "no_ladders": 3, "full": 4, "full_ladder": 4}
+# cudaErrorInvalidConfiguration: the entries' answer to a table whose
+# blocks do not fit a CTA's shared memory.
+_NO_LAYOUT = 9
+# touch's fixed order (csrc/stages.cu `touch_sum`): chunks a ticker's table
+# is cut into; float4 accumulators of each of a warp's 32 lanes.
+TOUCH_CHUNKS, TOUCH_ACCS, _WARP = 64, 4, 32
 
 
 class StageInputs(NamedTuple):
@@ -157,22 +165,39 @@ def prep_value(inp: StageInputs) -> torch.Tensor:
 
 # --- plain versions, in csrc/stages.cu's order ----------------------------
 
-def _touch_plain(table: torch.Tensor, P: int, lanes: int) -> torch.Tensor:
-    """The kernel's CTA sum: lane i adds elements i, i + lanes, ... of the
-    flattened table, then a tree halves the partial sums."""
+def _halve(x: torch.Tensor) -> torch.Tensor:
+    """Fold the last axis (a power of 2) by halves: ``x[:h] + x[h:]`` until
+    one is left, the order of a warp's butterfly as its lane 0 sees it."""
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] + x[..., h:]
+    return x[..., 0]
+
+
+def _touch_plain(table: torch.Tensor, P: int) -> torch.Tensor:
+    """The kernel's touch sum (``csrc/stages.cu`` ``touch_sum``), in an
+    order set by the table's shape alone: the flattened table, as 16-byte
+    words, is cut into TOUCH_CHUNKS chunks of q words (zeros past the end);
+    in a chunk, lane i of a warp adds word ``(j * 4 + u) * 32 + i`` to its
+    accumulator u on pass j, in order; each lane folds its 4 x 4 sums with
+    a fixed tree, the warp's 32 by halves, the chunks' by halves."""
     N = table.shape[0]
     flat = table.reshape(N, -1)
-    M = -(-flat.shape[1] // lanes)
-    parts = torch.nn.functional.pad(flat, (0, M * lanes - flat.shape[1]))
-    parts = parts.view(N, M, lanes)
-    acc = torch.zeros((N, lanes), dtype=table.dtype, device=table.device)
-    for m in range(M):
-        acc = acc + parts[:, m]
-    h = lanes // 2
-    while h:
-        acc = acc[:, :h] + acc[:, h:2 * h]
-        h //= 2
-    return acc.expand(N, P)
+    m4 = flat.shape[1] // 4
+    q = -(-m4 // TOUCH_CHUNKS)
+    per_pass = TOUCH_ACCS * _WARP
+    passes = -(-q // per_pass)
+    words = torch.nn.functional.pad(flat, (0, (TOUCH_CHUNKS * q - m4) * 4))
+    words = words.view(N, TOUCH_CHUNKS, q, 4)
+    words = torch.nn.functional.pad(words, (0, 0, 0, passes * per_pass - q))
+    words = words.view(N, TOUCH_CHUNKS, passes, TOUCH_ACCS, _WARP, 4)
+    acc = torch.zeros((N, TOUCH_CHUNKS, TOUCH_ACCS, _WARP, 4),
+                      dtype=table.dtype, device=table.device)
+    for j in range(passes):
+        acc = acc + words[:, :, j]
+    s = (acc[..., 0] + acc[..., 1]) + (acc[..., 2] + acc[..., 3])
+    lane = (s[:, :, 0] + s[:, :, 1]) + (s[:, :, 2] + s[:, :, 3])
+    return _halve(_halve(lane))[:, None].expand(N, P)
 
 
 class _Reductions:
@@ -225,7 +250,7 @@ def _stage_plain(inp: StageInputs, stage: str, lanes: int) -> torch.Tensor:
     N, _, T = inp.table.shape
     P = inp.row_a.shape[0]
     if stage == "touch":
-        return _touch_plain(inp.table, P, lanes)[None].expand(9, N, P)
+        return _touch_plain(inp.table, P)[None].expand(9, N, P)
     tt = inp.table.permute(2, 0, 1)                             # (T, N, W)
     a = inp.row_a.long()
     sma = inp.row_b is not None
@@ -309,12 +334,28 @@ def _stage_cuda(kind: str, inp: StageInputs, stage: str,
         warm=(inp.warm, i32, (P,)))
     if not 1 <= inp.tr <= T:
         raise ValueError(f"tr must lie in [1, {T}], got {inp.tr}")
+    if T % 4 or inp.table.data_ptr() % 16 or inp.r.data_ptr() % 16:
+        raise ValueError("the kernel copies 16-byte words: T must be a "
+                         "multiple of 4 and table and r 16-byte aligned")
     out = torch.empty((9, N, P), dtype=f32, device=inp.table.device)
     if N and P:
+        # fused._launch, but with the entry's refusal of a table too wide
+        # for its blocks raised as the caller's error.
+        label = f"{kind}_stage_{stage}_l{lanes}"
         entry = getattr(_kernels.stages_lib(), f"dbx_{kind}_stage")
-        fused._launch(f"{kind}_stage_{stage}_l{lanes}", entry, inp.r,
-                      inp.table, inp.row_a, lane_b, inp.warm, out, N, T, W,
-                      P, inp.tr, _CODES[stage], lanes, COST, PPY)
+        with torch.cuda.device(out.device):
+            err = entry(inp.r.data_ptr(), inp.table.data_ptr(),
+                        inp.row_a.data_ptr(), lane_b.data_ptr(),
+                        inp.warm.data_ptr(), out.data_ptr(), N, T, W, P,
+                        inp.tr, _CODES[stage], lanes, COST, PPY,
+                        torch.cuda.current_stream().cuda_stream)
+        if err == _NO_LAYOUT:
+            raise ValueError(f"no layout of a ({W}, {T}) table at {lanes} "
+                             "lanes fits a CTA's shared memory")
+        if err != 0:
+            raise RuntimeError(f"{label} kernel launch failed: CUDA error "
+                               f"{err}")
+        _kernels.LAUNCHES[label] += 1
     return out
 
 
@@ -322,8 +363,9 @@ def sma_stage_cuda(inp: StageInputs, *, stage: str,
                    lanes: int = 128) -> torch.Tensor:
     """Launch ``dbx_sma_stage`` (``csrc/stages.cu``) on PyTorch's current
     stream: same inputs and output as :func:`sma_stage_plain`, all on one
-    CUDA device. Raises on a wrong device, dtype, shape or layout, and
-    when the launch reports an error."""
+    CUDA device. Raises on a wrong device, dtype, shape or alignment, on a
+    table too wide for the kernel's blocks (thousands of rows), and when
+    the launch reports an error."""
     _check_stage(stage, SMA_STAGES[1:], lanes)
     return _stage_cuda("sma", inp, stage, lanes)
 
@@ -331,9 +373,29 @@ def sma_stage_cuda(inp: StageInputs, *, stage: str,
 def boll_stage_cuda(inp: StageInputs, *, stage: str,
                     lanes: int = 128) -> torch.Tensor:
     """Launch ``dbx_boll_stage`` (``csrc/stages.cu``): same inputs and
-    output as :func:`boll_stage_plain`."""
+    output as :func:`sma_stage_cuda`, on :func:`boll_stage_plain`'s
+    inputs."""
     _check_stage(stage, BOLL_STAGES[1:], lanes)
     return _stage_cuda("boll", inp, stage, lanes)
+
+
+def stage_occupancy(kind: str, inp: StageInputs, *, stage: str,
+                    lanes: int = 128) -> dict:
+    """The build report of K8's ``kind`` ("sma" or "boll") entry launched
+    on ``inp`` as the wrappers launch it (``dbx_stage_occupancy``): its
+    registers a thread, resident CTAs an SM, lanes, dynamic shared memory,
+    cluster size, bars a block, block buffers and the clusters the card
+    holds at once."""
+    N, W, T = inp.table.shape
+    info = (ctypes.c_int * 8)()
+    err = _kernels.stages_lib().dbx_stage_occupancy(
+        0 if kind == "sma" else 1, _CODES[stage], T, W, inp.row_a.shape[0],
+        lanes, info)
+    if err != 0:
+        raise RuntimeError(f"dbx_stage_occupancy failed: CUDA error {err}")
+    keys = ("registers", "ctas_per_sm", "lanes", "smem_bytes", "cluster",
+            "block_bars", "ring", "max_active_clusters")
+    return dict(zip(keys, info))
 
 
 def sma_stage(inp: StageInputs, *, stage: str,

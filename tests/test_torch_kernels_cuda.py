@@ -567,20 +567,21 @@ def test_volume_and_pairs_wrappers_check_their_inputs(cuda):
 
 # --- K8: the roofline stage scaffolds (csrc/stages.cu) ----------------------
 
-def _stage_inputs(dev, kind, n, T, seed, n_b=75):
-    """A scaffold's inputs on ``n`` x ``T`` closes: SMA 4 fast x ``n_b``
-    slow windows, bollinger 15 bands x ``n_b`` // 4 windows (300 lanes at
-    the default, a count no lane block divides)."""
+def _stage_inputs(dev, kind, n, T, seed, n_b=75, n_a=None):
+    """A scaffold's inputs on ``n`` x ``T`` closes: SMA ``n_a`` (4) fast x
+    ``n_b`` slow windows, bollinger ``n_a`` (15) bands x ``n_b`` // 4
+    windows (300 lanes at the defaults, a count no lane block divides)."""
     close = data.synthetic_ohlcv(n, T, seed=seed).close
     if kind == "sma":
-        g = sweep.product_grid(fast=np.float32([3, 5, 8, 13]),
+        fast = np.float32([3, 5, 8, 13, 17][:n_a or 4])
+        g = sweep.product_grid(fast=fast,
                                slow=np.arange(20, 20 + 2 * n_b, 2,
                                               dtype=np.float32))
         return stages.sma_stage_inputs(close, g["fast"].numpy(),
                                        g["slow"].numpy(), device=dev)
-    g = sweep.product_grid(k=np.linspace(0.5, 3.0, 15).astype(np.float32),
-                           window=np.arange(5, 5 + n_b // 4 * 2, 2,
-                                            dtype=np.float32))
+    g = sweep.product_grid(
+        k=np.linspace(0.5, 3.0, n_a or 15).astype(np.float32),
+        window=np.arange(5, 5 + n_b // 4 * 2, 2, dtype=np.float32))
     return stages.boll_stage_inputs(close, g["window"].numpy(),
                                     g["k"].numpy(), device=dev)
 
@@ -591,17 +592,20 @@ def _stage_versions(kind):
     return stages.boll_stage_cuda, stages.boll_stage_plain
 
 
-def _assert_stage_matches_plain(inp, kind, stage, lanes):
-    # Same inputs, same order of every operation: each row bit-equal.
+def _assert_stage_matches_plain(inp, kind, stage, lanes, ref=None):
+    # Same inputs, same order of every operation: each row bit-equal. No
+    # lane count (nor the cluster size it leads to) changes a bit.
     kernel, plain = _stage_versions(kind)
     got = kernel(inp, stage=stage, lanes=lanes)
-    ref = plain(inp, stage=stage, lanes=lanes)
+    if ref is None:
+        ref = plain(inp, stage=stage, lanes=lanes)
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
     for i in range(9):
         np.testing.assert_array_equal(got[i].cpu().numpy(),
                                       ref[i].cpu().numpy(),
-                                      err_msg=f"{kind} {stage} row {i}")
+                                      err_msg=f"{kind} {stage} row {i} at "
+                                      f"{lanes} lanes")
 
 
 _STAGE_CASES = ([("sma", s) for s in stages.SMA_STAGES[1:]]
@@ -615,12 +619,57 @@ def test_stage_kernels_match_plain(cuda, kind, stage, lanes):
                                 stage, lanes)
 
 
-@pytest.mark.parametrize("kind", ["sma", "boll"])
-@pytest.mark.parametrize("stage", ["signal", "full"])
-@pytest.mark.parametrize("T", [13000, 30000])   # above 48 KB; unstaged
+@pytest.mark.parametrize("T", [13000, 30000])   # each row far past a block
+@pytest.mark.parametrize("kind,stage", _STAGE_CASES)
 def test_stage_kernels_match_plain_on_long_rows(cuda, kind, stage, T):
-    _assert_stage_matches_plain(_stage_inputs(cuda, kind, 1, T, 2, n_b=8),
-                                kind, stage, 128)
+    inp = _stage_inputs(cuda, kind, 1, T, 2, n_b=8)
+    ref = _stage_versions(kind)[1](inp, stage=stage)
+    for lanes in stages.LANES:
+        _assert_stage_matches_plain(inp, kind, stage, lanes, ref)
+
+
+# Shapes the bench does not reach: (N, T, seed, {kind: (n_b, n_a)}).
+# "wide": about 400 distinct windows, so that a 128-lane CTA's blocks hold
+# 4 bars; "short": T shorter than one block and no multiple of 4;
+# "one_ticker": N = 1; "p75": 75 lanes, a count no lane block divides.
+_STAGE_SHAPES = {"wide": (2, 251, 3, {"sma": (396, 4), "boll": (1600, 15)}),
+                 "short": (3, 37, 4, {"sma": (24, 4), "boll": (24, 4)}),
+                 "one_ticker": (1, 300, 5, {"sma": (40, 4),
+                                            "boll": (40, 4)}),
+                 "p75": (2, 251, 6, {"sma": (25, 3), "boll": (100, 3)})}
+
+
+@pytest.mark.parametrize("shape", sorted(_STAGE_SHAPES))
+@pytest.mark.parametrize("kind,stage", _STAGE_CASES)
+def test_stage_kernels_match_plain_on_edge_shapes(cuda, kind, stage, shape):
+    n, T, seed, lanes_of = _STAGE_SHAPES[shape]
+    n_b, n_a = lanes_of[kind]
+    inp = _stage_inputs(cuda, kind, n, T, seed, n_b=n_b, n_a=n_a)
+    if shape == "wide":
+        assert inp.table.shape[1] >= 400
+        info = stages.stage_occupancy(kind, inp, stage=stage)
+        assert stage == "touch" or info["block_bars"] == 4, info
+    if shape == "p75":
+        assert inp.row_a.shape[0] == 75
+    ref = _stage_versions(kind)[1](inp, stage=stage)
+    for lanes in stages.LANES:
+        _assert_stage_matches_plain(inp, kind, stage, lanes, ref)
+
+
+@pytest.mark.parametrize("n_b", [75, 500])
+@pytest.mark.parametrize("kind", ["sma", "boll"])
+def test_stage_touch_is_one_sum_at_every_width(cuda, kind, n_b):
+    # touch's order depends on the table's shape alone: every lane count,
+    # and so every cluster size (1 to 16 CTAs over these two grids), gives
+    # the plain version's bits.
+    inp = _stage_inputs(cuda, kind, 3, 251, 7, n_b=n_b)
+    ref = _stage_versions(kind)[1](inp, stage="touch")
+    clusters = set()
+    for lanes in stages.LANES:
+        clusters.add(stages.stage_occupancy(kind, inp, stage="touch",
+                                            lanes=lanes)["cluster"])
+        _assert_stage_matches_plain(inp, kind, "touch", lanes, ref)
+    assert clusters == ({1, 2, 4} if n_b == 75 else {2, 4, 8, 16}), clusters
 
 
 def test_stage_launch_counters_count_kernel_launches_only(cuda):
@@ -662,3 +711,7 @@ def test_stage_wrappers_check_their_inputs(cuda):
     binp = _stage_inputs(cuda, "boll", 2, 60, 1, n_b=8)
     with pytest.raises(ValueError, match="needs k"):
         stages.boll_stage_cuda(binp._replace(k=None), stage="full")
+    wide = torch.zeros((1, 8000, 8), device=cuda)
+    with pytest.raises(ValueError, match="no layout"):
+        stages.sma_stage_cuda(inp._replace(table=wide, r=inp.r[:1, :8],
+                                           tr=8), stage="full")

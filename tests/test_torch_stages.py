@@ -300,19 +300,68 @@ def test_ladder_stages_run_the_same_design():
 
 @pytest.mark.parametrize("lanes", stages.LANES)
 def test_touch_plain_is_the_kernels_tree_sum(lanes):
-    # The plain touch repeats the kernel's order: strided partial sums per
-    # lane, then halving. Against a float64 sum it holds at the f32 sum's
-    # bound, and every lane count gives a sum within it.
+    # The plain touch repeats the kernel's fixed order (64 chunks, four
+    # float4 accumulators a lane, fixed trees), set by the table's shape
+    # alone: every lane count gives the same bits, and against a float64
+    # sum it holds at the f32 sum's bound.
     tbl = torch.from_numpy(
         np.random.default_rng(lanes).normal(100, 10, (2, 8, 200))
         .astype(np.float32))
-    got = stages._touch_plain(tbl, 3, lanes)
-    assert got.shape == (2, 3)
+    inp = stages.StageInputs(torch.zeros((2, 200)), tbl,
+                             torch.zeros(3, dtype=torch.int32), None, None,
+                             torch.ones(3, dtype=torch.int32), 200)
+    got = stages.sma_stage_plain(inp, stage="touch", lanes=lanes)
+    assert got.shape == (9, 2, 3)
     exact = tbl.double().sum(dim=(1, 2))
     n = tbl[0].numel()
-    np.testing.assert_allclose(to_np(got[:, 0]), to_np(exact),
+    np.testing.assert_allclose(to_np(got[0, :, 0]), to_np(exact),
                                rtol=n * 2 ** -24)
-    assert torch.equal(got[:, 0], got[:, 2])
+    for lanes_b in stages.LANES:
+        assert torch.equal(
+            got, stages.boll_stage_plain(inp, stage="touch", lanes=lanes_b))
+
+
+def _touch_walk(table: np.ndarray) -> np.float32:
+    """csrc/stages.cu ``touch_sum`` on one (W, T) table, walked as its
+    threads do, one float32 operation at a time."""
+    f = np.float32
+    flat = table.reshape(-1)
+    m4 = flat.size // 4
+    q = -(-m4 // stages.TOUCH_CHUNKS)
+    passes = -(-q // (4 * 32))
+
+    def butterfly(v):
+        for off in (16, 8, 4, 2, 1):
+            v = np.array([f(v[i] + v[i ^ off]) for i in range(32)], f)
+        assert (v == v[0]).all()
+        return v[0]
+
+    sums = []
+    for c in range(stages.TOUCH_CHUNKS):
+        n_words = min(q, m4 - c * q)
+        lanes = []
+        for lane in range(32):
+            acc = np.zeros((4, 4), f)
+            for j in range(passes):
+                for u in range(4):
+                    i = (j * 4 + u) * 32 + lane
+                    at = (c * q + i) * 4
+                    x = flat[at:at + 4] if i < n_words else np.zeros(4, f)
+                    acc[u] = acc[u] + x
+            s = [f(f(a[0] + a[1]) + f(a[2] + a[3])) for a in acc]
+            lanes.append(f(f(s[0] + s[1]) + f(s[2] + s[3])))
+        sums.append(butterfly(np.array(lanes, f)))
+    return butterfly(np.array([f(sums[i] + sums[i + 32]) for i in range(32)],
+                              f))
+
+
+@pytest.mark.parametrize("W,T", [(8, 200), (24, 128), (3, 4)])
+def test_touch_plain_matches_the_kernels_walk(W, T):
+    tbl = np.random.default_rng(W).normal(100, 10, (2, W, T)).astype(
+        np.float32)
+    got = to_np(stages._touch_plain(torch.from_numpy(tbl), 1))
+    for n in range(2):
+        assert got[n, 0].tobytes() == _touch_walk(tbl[n]).tobytes()
 
 
 def test_stage_and_lanes_are_checked():
