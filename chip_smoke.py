@@ -29,21 +29,26 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    windows, held against the plain version in the caller's lane order,
    and launched in that order too. Their registers, resident warps an SM
    and shared memory are printed (``csrc/occupancy.cuh``). The tile
-   entries (K1 and K2's inline entry, which form each window's value once
-   per bar block in shared memory, ``csrc/bar_blocks.cuh``) run three more
-   cases: long rows (4 x 13000), a grid of many distinct windows (K1 fast
-   2..129 x slow 130..400, K2 8 k x window 5..300, on 4 x 1260) and eight
-   histories that end mid-block and are shorter than most windows; then a
-   sweep of their CTA width (128-1024 lanes), bit-equal and timed at each;
-   their build report and the per-bar instruction count of their metric
-   loop in the SASS (``cuobjdump -sass``) are printed. Their kernel time is
-   the kernel alone, with the tiles' window lists built beforehand; the
-   time through the wrapper, which builds them with torch ops, is printed
-   beside it. Positions must be identical, so n_trades and turnover (sums
-   of small integers) must be bit-equal; every other metric must agree at
-   rtol=2e-4, atol=2e-5, and for the window-major and tile entries every
-   metric must be bit-equal. Kernel and plain times come from CUDA
-   events after warmup. Then K8, the roofline stage scaffolds
+   entries (K1, K2's inline entry and K6, which form each window's value
+   once per bar block in shared memory, ``csrc/bar_blocks.cuh``) and K3's
+   momentum entry run three more cases: long rows (4 x 13000), a grid of
+   many distinct windows (K1 fast 2..129 x slow 130..400, K2 8 k x window
+   5..300, K6 and momentum windows 2..400 three times, on 4 x 1260) and
+   eight histories that end mid-block and are shorter than most windows;
+   then the tile entries sweep their CTA width (128-1024 lanes), bit-equal
+   and timed at each; their build report and the per-bar instruction count
+   of their metric loop in the SASS (``cuobjdump -sass``, :func:`_per_bar`)
+   are printed. Their kernel time is the kernel alone, with the tiles'
+   window lists built beforehand; the time through the wrapper, which
+   builds them with torch ops, is printed beside it. K1 and momentum also
+   run crafted returns (8 x 1260, cost 0 and 1e-3) that drive equity
+   through 0, below 0, to +-inf and to NaN: NaN where the plain version
+   has NaN, every other value bit-equal. Positions must be identical, so
+   n_trades and turnover (sums of small integers) must be bit-equal; every
+   other metric must agree at rtol=2e-4, atol=2e-5, and for the
+   window-major and tile entries and momentum every metric must be
+   bit-equal. Kernel and plain times come from CUDA events after warmup.
+   Then K8, the roofline stage scaffolds
    (``csrc/stages.cu``): every (stage, lanes) case of ``dbx_sma_stage``
    (500 x 1260 x the 2000-combo SMA grid) and ``dbx_boll_stage`` (500 x
    1260 x the 1000-combo bollinger grid), on the bench's seed-0 panel,
@@ -270,6 +275,52 @@ def _compare(fused, tag, label, got, ref, exact: bool = False):
     return max_abs, max_rel
 
 
+def _crafted_returns(n_bars: int) -> np.ndarray:
+    """Eight rows of simple returns that drive a lane's equity through 0,
+    below 0, to +-inf and to NaN: steps of 30-250% either way (rows 0, 1),
+    -100% on every bar (row 2: equity exactly 0 at cost 0, then below), a
+    +inf and a -inf return (rows 3, 4), a NaN (row 5), returns of 3e38 that
+    overflow the sums (row 6) and subnormal ones (row 7)."""
+    rng = np.random.default_rng(12)
+    r = (rng.choice(np.float32([-1, 1]), (8, n_bars))
+         * rng.uniform(0.3, 2.5, (8, n_bars))).astype(np.float32)
+    r[2] = -1.0
+    r[3, n_bars // 2] = np.inf
+    r[4, n_bars // 2] = -np.inf
+    r[5, n_bars // 2] = np.nan
+    r[6, n_bars // 3:] = 3e38
+    r[7] *= np.float32(1e-40)
+    return r
+
+
+def _compare_bits(fused, tag, label, got, ref):
+    """Kernel vs plain output planes where they need not be finite: NaN
+    where the plain version has NaN, every other value bit-equal. The plain
+    version must reach NaN, +-inf and a total return below -1 (equity below
+    0). Returns (0, 0), the errors of the comparison."""
+    torch.cuda.synchronize()
+    for k, name in enumerate(fused.Metrics._fields):
+        a, b = got[k], ref[k]
+        nan = torch.isnan(b)
+        _check(bool(torch.equal(torch.isnan(a), nan))
+               and bool(torch.equal(a[~nan].view(torch.int32),
+                                    b[~nan].view(torch.int32))),
+               f"{label}: {name} differs from its plain version")
+    _check(bool(torch.isnan(ref).any()) and bool(torch.isinf(ref).any())
+           and bool((ref[3] < -1).any()),
+           f"{label}: the returns reached no NaN, inf or negative equity")
+    print(f"{tag} {label}: bit-equal ({int(torch.isnan(ref).sum())} NaN, "
+          f"{int(torch.isinf(ref).sum())} inf cells; total return below -1 "
+          f"in {int((ref[3] < -1).sum())} lanes)")
+    return 0.0, 0.0
+
+
+def _with_returns(inputs, at: int, r: np.ndarray):
+    """``inputs`` with the returns at position ``at`` replaced by ``r``."""
+    return (*inputs[:at], torch.as_tensor(r, device=inputs[at].device),
+            *inputs[at + 1:])
+
+
 def _k1_compare(fused, label, inputs, cost):
     """Kernel vs plain on the same inputs, every metric bit-equal; returns
     (max_abs, max_rel)."""
@@ -309,10 +360,11 @@ def _k1_bound_ms(inputs) -> tuple[float, str]:
                   OPS_WINDOW["fused_sma"] * per_window)
 
 
-# The tile entries (K1 and K2's inline entry, csrc/bar_blocks.cuh): the CTA
-# widths of the width sweep, and the further cases that hold them bit-equal
-# to their plain versions: long rows, a grid of many distinct windows, and
-# histories that end mid-block and are shorter than most windows.
+# The tile entries (K1, K2's inline entry and K6, csrc/bar_blocks.cuh): the
+# CTA widths of the width sweep, and the further cases that hold them (and
+# momentum) bit-equal to their plain versions: long rows, a grid of many
+# distinct windows, and histories that end mid-block and are shorter than
+# most windows.
 TILE_LANES = (128, 256, 512, 1024)
 LONG_TILE_ROWS = (4, 13000)
 SHORT_LENS = np.asarray([1, 5, 63, 65, 100, 127, 129, 700])
@@ -327,28 +379,38 @@ def _short_histories(data, n_bars=N_BARS):
     return panel
 
 
+# Each tile entry's library and the C entry of its build report.
+TILE_REPORTS = {"fused_sma": ("fused_sma", "dbx_fused_sma_occupancy"),
+                "band_inline": ("band_machine", "dbx_band_inline_occupancy"),
+                "obv": ("fused_sma", "dbx_obv_occupancy")}
+
+
 def _tile_report(fused, entry: str, lanes: int, *windows) -> dict:
     """The build report of a tile entry's kernel on ``lanes``-lane tiles of
     lanes reading ``windows`` (``csrc/occupancy.cuh``), and the longest
     window list of those tiles."""
     wins, counts, *_ = fused.window_tiles(lanes, *windows)
     info = (ctypes.c_int * 4)()
-    if entry == "fused_sma":
-        err = fused._kernels.fused_sma_lib().dbx_fused_sma_occupancy(
-            lanes, wins.shape[1], info)
-    else:
-        err = fused._kernels.band_machine_lib().dbx_band_inline_occupancy(
-            lanes, wins.shape[1], info)
+    lib, query = TILE_REPORTS[entry]
+    err = getattr(fused._kernels._typed(lib), query)(lanes, wins.shape[1],
+                                                      info)
     return {**_report(entry, err, info), "window_list": int(counts.max())}
+
+
+def _mnemonic(op: str) -> str:
+    """A SASS instruction's opcode without its predicate and modifiers."""
+    words = [w for w in op.split() if not w.startswith("@")]
+    return words[0].split(".")[0] if words else ""
 
 
 def _sass_loops(kernels_mod, lib: str, kernel: str) -> list:
     """The loops of ``kernel`` (a substring of its mangled name) in the
     SASS of library ``lib`` (``cuobjdump -sass``), innermost only: for each,
-    its SASS instructions and its FMNMX count. MetricsAcc::step takes four
-    FMNMX a bar (two fmaxf of the peak and drawdown, the peak's floor and
-    the downside fminf), so instructions / (FMNMX / 4) is the per-bar
-    count of a loop that steps the metrics."""
+    its SASS instructions, and those of its common path with their FMNMX,
+    FFMA and FADD. The common path leaves out the blocks that a forward
+    branch inside the loop skips and that hold a MUFU.RCP: the drawdown
+    division of MetricsAcc::step, which runs only on a bar that may set a
+    new maximum drawdown (``csrc/metrics_tail.cuh``)."""
     tool = Path(kernels_mod._nvcc()).parent / "cuobjdump"
     text = subprocess.run([str(tool), "-sass", str(kernels_mod.build(lib))],
                           capture_output=True, text=True, check=True).stdout
@@ -376,31 +438,43 @@ def _sass_loops(kernels_mod, lib: str, kernel: str) -> list:
                             r"\s(0x[0-9a-f]+)\s*$)", m.group(2))
             if tgt:
                 branches.append((addr, tgt.group(1) or int(tgt.group(2), 16)))
-        loops = []
-        for at, tgt in branches:
-            start = labels.get(tgt) if isinstance(tgt, str) else tgt
-            if start is not None and start <= at:
-                loops.append((start, at))
+        jumps = [(at, labels.get(tgt) if isinstance(tgt, str) else tgt)
+                 for at, tgt in branches]
+        jumps = [(at, tgt) for at, tgt in jumps if tgt is not None]
+        loops = [(tgt, at) for at, tgt in jumps if tgt <= at]
         for start, end in loops:
             if any(start <= a and b <= end and (a, b) != (start, end)
                    for a, b in loops):
                 continue            # holds another loop: not innermost
-            body = [op for a, op in ops.items() if start <= a <= end]
+            body = {a: op for a, op in ops.items() if start <= a <= end}
+            rare = set()
+            for at, tgt in jumps:
+                if start <= at < tgt <= end:
+                    block = [a for a in body if at < a < tgt]
+                    if any("MUFU.RCP" in body[a] for a in block):
+                        rare.update(block)
+            common = [op for a, op in body.items() if a not in rare]
+
+            def count(mnemonic):
+                return sum(_mnemonic(op) == mnemonic for op in common)
             out.append({"kernel": name, "start": hex(start),
-                        "instructions": len(body),
-                        "fmnmx": sum("FMNMX" in op for op in body),
-                        "fadd": sum(op.split()[0].startswith("FADD")
-                                    for op in body if op.split())})
+                        "instructions": len(body), "common": len(common),
+                        "fmnmx": count("FMNMX"), "ffma": count("FFMA"),
+                        "fadd": count("FADD")})
     _check(bool(out), f"no loop of {kernel} found in the SASS of {lib}")
     return out
 
 
 def _per_bar(loops) -> float:
     """The per-bar instruction count of the metric loop: the innermost loop
-    with the most FMNMX (four a bar)."""
-    loop = max(loops, key=lambda x: (x["fmnmx"], x["instructions"]))
-    _check(loop["fmnmx"] >= 4, "no metric loop in the SASS")
-    return loop["instructions"] / (loop["fmnmx"] / 4)
+    with the most FMNMX on its common path, whose instructions there over
+    its bars an iteration. MetricsAcc::step takes three FMNMX a bar on its
+    common path (the running peak, the peak's floor, the downside min; the
+    drawdown's max sits with its division), so the bars an iteration are
+    FMNMX / 3."""
+    loop = max(loops, key=lambda x: (x["fmnmx"], x["common"]))
+    _check(loop["fmnmx"] >= 3, "no metric loop in the SASS")
+    return loop["common"] / (loop["fmnmx"] / 3)
 
 
 def _k1_launch(fused, inputs, cost, lanes):
@@ -425,6 +499,16 @@ def _inline_launch(fused, inputs, kw, lanes):
     return out, lambda: fused._launch_band_inline(
         rows, tr, tiles, k, warm, out, lanes, code=code,
         z_exit=kw["z_exit"], cost=kw["cost"], ppy=kw["ppy"])
+
+
+def _obv_launch(fused, inputs, kw, lanes):
+    """K6 as :func:`_k1_launch`."""
+    obv, cs, r, tr, window, warm = inputs
+    tiles = fused.window_tiles(lanes, window)
+    out = torch.empty((9, obv.shape[0], window.shape[0]), device=obv.device)
+    return out, lambda: fused._launch_obv(obv, cs, r, tr, tiles, warm, out,
+                                          lanes, cost=kw["cost"],
+                                          ppy=kw["ppy"])
 
 
 def _width_sweep(launch, plain_ref, label) -> dict:
@@ -496,6 +580,14 @@ def phase_kernels(kernels_mod, fused, pnl, data) -> dict:
         fused, f"short histories {SHORT_LENS.tolist()} x2000",
         _k1_inputs(fused, pnl, _short_histories(data).close, SHORT_LENS,
                    grid_f, grid_s), COST))
+    crafted = _with_returns(
+        _k1_inputs(fused, pnl, head[:8], None, grid_f, grid_s), 1,
+        _crafted_returns(N_BARS))
+    for cost in (0.0, COST):
+        errs.append(_compare_bits(
+            fused, "k1", f"crafted returns 8x{N_BARS}x2000 cost={cost}",
+            fused.fused_sma_cuda(*crafted, cost=cost, ppy=252),
+            fused.fused_sma_plain(*crafted, cost=cost, ppy=252)))
 
     ref = fused.fused_sma_plain(*main_in, cost=COST, ppy=252)
     widths = _width_sweep(
@@ -567,10 +659,10 @@ def _band_stoch_inputs(fused, pnl, panel, t_real, axes=None):
             *_lanes(fused, dev, widx, win, g["band"], warm))
 
 
-def _momentum_inputs(fused, pnl, panel, t_real):
+def _momentum_inputs(fused, pnl, panel, t_real, axes=None):
     dev, close, _, _, tr, r = _common(fused, pnl, panel, t_real)
-    _, lb, _, warm = fused._window_setup(AXES["momentum"]["lookback"],
-                                         "lookbacks", 1.0, 0)
+    _, lb, _, warm = fused._window_setup(
+        (axes or AXES["momentum"])["lookback"], "lookbacks", 1.0, 0)
     return (close, r, tr, *fused._to(dev, lb, warm))
 
 
@@ -629,10 +721,10 @@ def _vwap_table_inputs(fused, pnl, panel, t_real):
     return (z, r, tr, *_lanes(fused, dev, widx, widx, g["k"], warm))
 
 
-def _obv_inputs(fused, pnl, panel, t_real):
+def _obv_inputs(fused, pnl, panel, t_real, axes=None):
     dev, close, _, _, tr, r = _common(fused, pnl, panel, t_real)
-    _, win, _, warm = fused._window_setup(AXES["obv_trend"]["window"],
-                                          "windows", 0.0, 1)
+    _, win, _, warm = fused._window_setup(
+        (axes or AXES["obv_trend"])["window"], "windows", 0.0, 1)
     series = fused.rolling.obv_series(close, _volume(panel, dev))
     return (series.contiguous(), torch.cumsum(series, 1).contiguous(), r,
             tr, *fused._to(dev, win, warm))
@@ -703,6 +795,21 @@ def _entry_bytes(inputs) -> int:
     return sum(seen.values()) + 4 * 9 * N * P
 
 
+class Tile(NamedTuple):
+    """What a tile entry (``csrc/bar_blocks.cuh``) reports beside its
+    cases: the launch of its kernel alone on tiles built beforehand
+    (``launch(fused, inputs, kw, lanes)`` as :func:`_k1_launch`), the name
+    of its shipped width in ``ops/fused.py``, the position of each lane's
+    window in its inputs, its library and its kernels' names in the SASS
+    (by machine)."""
+
+    launch: Callable
+    lanes: str
+    window_at: int
+    lib: str
+    sass: dict
+
+
 class Entry(NamedTuple):
     """One kernel entry of phase 3: its tag, the TPU kernel's line, its
     source, the function making its inputs, the position of t_real in
@@ -710,9 +817,11 @@ class Entry(NamedTuple):
     cases (None: the shared ones of 500 tickers). A window-major entry
     ends its inputs with its ``n_lane`` per-lane arrays (window or table
     row, [k,] warm) and ``lane``; it is held bit-equal and runs the
-    long-row and straddling cases. A tile entry (``tile_axes``: its grid
-    of many distinct windows) is held bit-equal, runs the long-row,
-    many-window and short-history cases and the width sweep."""
+    long-row and straddling cases. An entry with ``wide_axes`` (its grid
+    of many distinct windows) is held bit-equal and runs the long-row,
+    many-window and short-history cases; a tile entry (``tile``) also the
+    width sweep. ``returns_at``: the position of the returns in the inputs
+    of an entry that also runs the crafted returns."""
 
     tag: str
     line: int
@@ -724,7 +833,13 @@ class Entry(NamedTuple):
     machines: tuple
     cases: Callable | None = None
     n_lane: int = 0
-    tile_axes: dict | None = None
+    wide_axes: dict | None = None
+    tile: Tile | None = None
+    returns_at: int | None = None
+
+
+# Many distinct windows on one axis: 399 a list, tiled three times.
+WIDE_WINDOWS = np.tile(np.arange(2, 401, dtype=np.float32), 3)
 
 
 def _entries(fused):
@@ -733,10 +848,15 @@ def _entries(fused):
                              _band_inline_inputs, 5, fused.band_inline_cuda,
                              fused.band_inline_plain,
                              ("hysteresis", "touch"),
-                             tile_axes={"k": np.linspace(0.5, 3.0, 8)
+                             wide_axes={"k": np.linspace(0.5, 3.0, 8)
                                         .astype(np.float32),
                                         "window": np.arange(
-                                            5, 301, dtype=np.float32)}),
+                                            5, 301, dtype=np.float32)},
+                             tile=Tile(_inline_launch, "_BAND_INLINE_LANES",
+                                       6, "band_machine",
+                                       {m: f"band_inline_kernelILi{code}E"
+                                        for m, code in
+                                        fused._MACHINES.items()})),
         "band_table": Entry("k2", 1166, "band_machine.cu",
                             _rsi_table_inputs, 2, fused.band_table_cuda,
                             fused.band_machine_plain,
@@ -747,7 +867,8 @@ def _entries(fused):
                             ("hysteresis", "touch"), n_lane=3),
         "momentum": Entry("k3", 1933, "single_window.cu", _momentum_inputs,
                           2, fused.momentum_cuda, fused.momentum_plain,
-                          (None,)),
+                          (None,), wide_axes={"lookback": WIDE_WINDOWS},
+                          returns_at=1),
         "donchian": Entry("k3", 1933, "single_window.cu", _donchian_inputs,
                           4, fused.donchian_cuda, fused.donchian_plain,
                           (None,), n_lane=2),
@@ -756,7 +877,10 @@ def _entries(fused):
         "trix": Entry("k5", 3009, "ema_cross.cu", _trix_inputs, 2,
                       fused.trix_cuda, fused.trix_plain, (None,)),
         "obv": Entry("k6", 2841, "fused_sma.cu", _obv_inputs, 3,
-                     fused.obv_cuda, fused.obv_plain, (None,)),
+                     fused.obv_cuda, fused.obv_plain, (None,),
+                     wide_axes={"window": WIDE_WINDOWS},
+                     tile=Tile(_obv_launch, "_OBV_LANES", 4, "fused_sma",
+                               {None: "obv_kernel"})),
         "pairs": Entry("k7", 1482, "band_machine.cu", _pairs_inputs, 2,
                        fused.pairs_cuda, fused.pairs_plain, (None,),
                        _pairs_cases),
@@ -808,13 +932,13 @@ def _lane_cases(data, entry: str, e: Entry):
 
 
 def _tile_cases(data, e: Entry):
-    """The further runs of a tile entry: (label, inputs function, panel,
-    t_real, cost, caller order)."""
+    """The further runs of an entry with ``wide_axes``: (label, inputs
+    function, panel, t_real, cost, caller order)."""
     n, T = LONG_TILE_ROWS
-    n_wide = int(np.prod([a.size for a in e.tile_axes.values()]))
+    n_wide = int(np.prod([a.size for a in e.wide_axes.values()]))
 
     def wide(fused, pnl, panel, t_real):
-        return e.build(fused, pnl, panel, t_real, axes=e.tile_axes)
+        return e.build(fused, pnl, panel, t_real, axes=e.wide_axes)
     return [(f"long rows {n}x{T}", e.build,
              data.synthetic_ohlcv(n, T, seed=5), None, COST, False),
             (f"many windows 4x{N_BARS}x{n_wide}", wide,
@@ -863,9 +987,10 @@ def _caller_order(inputs, n_lane: int):
 def phase_new_kernels(fused, pnl, data) -> dict:
     """K2-K7, every entry and machine, against their plain versions in the
     four cases (and K2's table entry on the keltner and vwap z-tables; the
-    window-major entries also on long rows and a straddling grid); times
-    and bound at the main path's shape, the first case. Returns one
-    kernels-line record per entry."""
+    window-major entries also on long rows and a straddling grid; the tile
+    entries and momentum on the cases of :func:`_tile_cases`, momentum on
+    crafted returns); times and bound at the main path's shape, the first
+    case. Returns one kernels-line record per entry."""
     head = data.synthetic_ohlcv(N_TICKERS, N_BARS, seed=0)
     shared = [(f"headline {N_TICKERS}x{N_BARS}", head, None, COST)] + \
         _small_cases(data, head)
@@ -885,8 +1010,15 @@ def phase_new_kernels(fused, pnl, data) -> dict:
                       None, COST, False)]
         if e.n_lane:
             runs += _lane_cases(data, entry, e)
-        if e.tile_axes:
+        if e.wide_axes:
             runs += _tile_cases(data, e)
+        if e.returns_at is not None:
+            def crafted(fused, pnl, panel, t_real):
+                return _with_returns(e.build(fused, pnl, panel, t_real),
+                                     e.returns_at, _crafted_returns(N_BARS))
+            runs += [(f"crafted returns 8x{N_BARS} cost={cost}", crafted,
+                      data.OHLCV(*(f[:8] for f in head)), None, cost, False)
+                     for cost in (0.0, COST)]
         tables = {}
         for i, (label, make, panel, t_real, cost, caller) in enumerate(runs):
             inputs = make(fused, pnl, panel, t_real)
@@ -895,9 +1027,13 @@ def phase_new_kernels(fused, pnl, data) -> dict:
                 kw = _kw(machine, cost)
                 name = f"{entry}" + (f" {machine}" if machine else "")
                 ref = e.plain(*ref_in, **kw)
-                errs.append(_compare(fused, e.tag, f"{name} {label}",
-                                     e.kernel(*inputs, **kw), ref,
-                                     exact=bool(e.n_lane or e.tile_axes)))
+                got = e.kernel(*inputs, **kw)
+                if label.startswith("crafted"):
+                    errs.append(_compare_bits(fused, e.tag, f"{name} {label}",
+                                              got, ref))
+                    continue
+                errs.append(_compare(fused, e.tag, f"{name} {label}", got,
+                                     ref, exact=bool(e.n_lane or e.wide_axes)))
                 if caller:
                     errs.append(_compare(
                         fused, e.tag, f"{name} {label} (caller's order)",
@@ -906,15 +1042,15 @@ def phase_new_kernels(fused, pnl, data) -> dict:
                     occupancy = _occupancy(fused, entry, N_BARS)
                     print(f"{e.tag} {entry} at T={N_BARS}: {occupancy}")
                 run = functools.partial(e.kernel, *inputs, **kw)
-                if i == 0 and e.tile_axes:
-                    head_win = inputs[6]
+                if i == 0 and e.tile:
+                    head_win = inputs[e.tile.window_at]
                     widths[machine] = _width_sweep(
-                        lambda lanes: _inline_launch(fused, inputs, kw,
-                                                     lanes), ref,
+                        lambda lanes: e.tile.launch(fused, inputs, kw,
+                                                    lanes), ref,
                         f"{e.tag} {name}")
                     wrapper_ms[machine] = _cuda_ms(run, reps=20, warmup=2)
-                    run = _inline_launch(fused, inputs, kw,
-                                         fused._BAND_INLINE_LANES)[1]
+                    run = e.tile.launch(fused, inputs, kw,
+                                        getattr(fused, e.tile.lanes))[1]
                 if i == 0:
                     ms = _cuda_ms(run, reps=20, warmup=2)
                     plain_ms = _cuda_ms(lambda: e.plain(*inputs, **kw),
@@ -950,16 +1086,18 @@ def phase_new_kernels(fused, pnl, data) -> dict:
             out[entry]["other_tables"] = tables
         if e.n_lane:
             out[entry]["occupancy"] = occupancy
-        if e.tile_axes:
-            # band_inline_kernel<kMachine>: hysteresis 0, touch 1.
-            loops = {m: _sass_loops(fused._kernels, "band_machine",
-                                    f"band_inline_kernelILi{code}E")
-                     for m, code in fused._MACHINES.items()}
+        if e.tile:
+            loops = {m: _sass_loops(fused._kernels, e.tile.lib, kernel)
+                     for m, kernel in e.tile.sass.items()}
+            per_bar = {m: _per_bar(x) for m, x in loops.items()}
+            if e.machines == (None,):       # one machine: no dict by machine
+                wrapper_ms, widths, per_bar = (x[None] for x in (
+                    wrapper_ms, widths, per_bar))
             out[entry].update(
-                wrapper_ms=wrapper_ms, width_ms=widths,
-                sass_per_bar={m: _per_bar(x) for m, x in loops.items()},
+                wrapper_ms=wrapper_ms, width_ms=widths, sass_per_bar=per_bar,
                 occupancy=_tile_report(fused, entry,
-                                       fused._BAND_INLINE_LANES, head_win))
+                                       getattr(fused, e.tile.lanes),
+                                       head_win))
             print(f"{e.tag} {entry} at the headline: "
                   f"{out[entry]['occupancy']}; SASS loops {loops}")
     return out

@@ -1,16 +1,17 @@
 // Per-window values formed once per bar block in shared memory and shared
 // by the lanes of one CTA: the read path of K1 (fused_sma.cu,
-// dbx_fused_sma) and of K2's inline entry (band_machine.cu,
-// dbx_band_inline).
+// dbx_fused_sma), of K2's inline entry (band_machine.cu, dbx_band_inline)
+// and of K6 (fused_sma.cu, dbx_obv: the sign of OBV minus its SMA).
 //
 // Replaces the per-ticker tables of the reference's TPU kernels,
 // distributed_backtesting_exploration_tpu/ops/fused.py: `_kernel_inline`
-// builds the SMA table of every distinct window in VMEM, and
-// `_build_boll_z_scratch` the Bollinger z-table, once per ticker; each
-// lane then selects its rows. A whole table does not fit in a block's
-// shared memory on Hopper (120 windows x 1264 bars x 4 B = 606 KB at the
-// headline), so here a CTA (one ticker, one tile of lanes) forms the values
-// of its tile's windows a block of B bars at a time.
+// builds the SMA table of every distinct window in VMEM,
+// `_build_boll_z_scratch` the Bollinger z-table and `_obv_kernel_inline`
+// the SMA-of-OBV table, once per ticker; each lane then selects its rows.
+// A whole table does not fit in a block's shared memory on Hopper (120
+// windows x 1264 bars x 4 B = 606 KB at the headline), so here a CTA (one
+// ticker, one tile of lanes) forms the values of its tile's windows a
+// block of B bars at a time.
 //
 // A tile's windows are a row of a padded (n_tiles, Wc) list that the
 // wrapper builds with torch ops on the card (ops/fused.py `window_tiles`),

@@ -34,7 +34,12 @@
 //   covers one ticker x 1024 combos (the levels take up to 227 KB, one CTA
 //   an SM, 32 warps).
 // - dbx_momentum: one CTA covers one ticker x 128 combos, the close and
-//   returns rows staged in shared memory when they fit.
+//   returns rows staged in shared memory when they fit. Its sign is a
+//   function of (ticker, lookback, bar), but forming it once per lookback
+//   and bar block in shared memory (bar_blocks.cuh, K1's design) was not
+//   faster on the H100 (PERF.md, section 6): this per-lane read
+//   takes no barrier and keeps more warps resident, and its sub and sign
+//   are two of a lane's 22 operations a bar.
 // - One sequential pass per thread over t < t_real[ticker] with the PnL and
 //   metrics of metrics_tail.cuh.
 //

@@ -309,12 +309,11 @@ struct ReductionAcc {
     s1 += net;
     s2 += net * net;
     if (kDownHit) {
-      const float down = fminf(net, 0.f);
+      const float down = dbx::min_nan(net, 0.f);
       dsq += down * down;
-      if (prev != 0.f) {
-        active += 1.f;
-        if (net > 0.f) wins += 1.f;
-      }
+      const float act = prev != 0.f ? 1.f : 0.f;
+      active += act;
+      wins += net > 0.f ? act : 0.f;
     }
     turn += dp;
     prev = pos;
@@ -324,7 +323,7 @@ struct ReductionAcc {
                                         int tr) const {
     const float nf = static_cast<float>(tr);
     const float mean = s1 / nf;
-    const float sd = sqrtf(fmaxf(s2 / nf - mean * mean, 0.f));
+    const float sd = sqrtf(dbx::max_nan(s2 / nf - mean * mean, 0.f));
     if (kDownHit) {
       const float dstd = sqrtf(dsq / nf);
       const float hit = wins / (active + dbx::kEps);

@@ -108,7 +108,8 @@ _SIGNATURES = {
     "fused_sma": {
         "dbx_fused_sma": [_VP] * 9 + [_CI] * 5 + [_CF, _CI, _VP],
         "dbx_fused_sma_occupancy": [_CI, _CI, _PI],
-        "dbx_obv": [_VP] * 7 + [_CI] * 3 + [_CF, _CI, _VP],
+        "dbx_obv": [_VP] * 9 + [_CI] * 5 + [_CF, _CI, _VP],
+        "dbx_obv_occupancy": [_CI, _CI, _PI],
     },
     "band_machine": {
         "dbx_band_inline": [_VP] * 12 + [_CI] * 6 + [_CF, _CF, _CI, _VP],

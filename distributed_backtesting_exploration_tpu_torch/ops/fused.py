@@ -34,12 +34,13 @@ versions step bar by bar in the kernels' order (:class:`_MetricState`), so
 on the card a kernel and its plain version agree to the bit; they are the
 yardstick the kernels are held against.
 
-:func:`fused_sma` and :func:`band_inline` run their lanes in tiles, one
-tile a CTA, that form the SMA or z of the tile's distinct windows once per
-bar block in shared memory; their CUDA wrappers build the tiles' window
-lists with torch ops on the card (:func:`window_tiles`). The channel
-entries (:func:`band_stoch`, :func:`donchian`) take the raw
-rows and build the channel extrema on the card (no ``(N, W, T)`` table),
+:func:`fused_sma`, :func:`band_inline` and :func:`obv` run their lanes in
+tiles, one tile a CTA, that form the SMA, z or signal of the tile's
+distinct windows once per bar block in shared memory; their CUDA wrappers
+build the tiles' window lists with torch ops on the card
+(:func:`window_tiles`). The channel entries (:func:`band_stoch`,
+:func:`donchian`) take the raw rows and build the channel extrema on the
+card (no ``(N, W, T)`` table),
 and the table entries (:func:`band_table`, :func:`band_stoch`,
 :func:`donchian`) take their lanes window-major: the sweep sorts them by
 window (:func:`window_major`) and passes ``lane``, each slot's lane in the
@@ -61,11 +62,12 @@ from .pnl import simple_returns
 _EPS = 1e-12
 _N_METRICS = 9
 _KERNEL_THREADS = 128      # lanes per CTA (kThreads in csrc/*.cu)
-# Lanes a tile (one CTA) of K1 and of K2's inline entry, which share the
+# Lanes a tile (one CTA) of K1, K2's inline entry and K6, which share the
 # values of a tile's distinct windows (csrc/bar_blocks.cuh): the fastest of
 # chip_smoke.py's width sweep (PERF.md, section 6).
 _SMA_LANES = 1024
 _BAND_INLINE_LANES = 512
+_OBV_LANES = 1024
 _MAX_PARAM_BLOCKS = 65535  # CUDA gridDim.y limit
 _MACHINES = {"hysteresis": 0, "touch": 1}
 # The reference's stand-in for the generic channel's +-inf warmup fill.
@@ -165,13 +167,13 @@ def _window_setup(vals, what: str, warm_offset: float, min_window: int,
 
 
 def window_tiles(lanes: int, *windows: torch.Tensor):
-    """The window lists of the tiles of K1 and K2's inline entry
+    """The window lists of the tiles of K1, K2's inline entry and K6
     (``csrc/bar_blocks.cuh``), built with torch ops on the windows' device.
 
     The kernels run ``lanes`` consecutive lanes a tile, one tile a CTA, and
     form the value of each window a tile reads once per bar in shared
     memory. ``windows`` are one or two ``(P,)`` integer tensors of each
-    lane's windows (K2: its window; K1: its fast and its slow window).
+    lane's windows (K2, K6: its window; K1: its fast and its slow window).
     Returns ``(wins, counts, *idx)``, all int32: ``wins`` the
     ``(n_tiles, Wc)`` lists, ``Wc = lanes * len(windows)``, row t holding
     tile t's ``counts[t]`` sorted distinct windows, then its smallest window
@@ -525,19 +527,32 @@ def obv_plain(obv, cs, r, t_real, window, warm, *, cost: float,
 def obv_cuda(obv, cs, r, t_real, window, warm, *, cost: float,
              ppy: int) -> torch.Tensor:
     """Launch K6 (``csrc/fused_sma.cu``, ``dbx_obv``): same inputs and
-    output as :func:`obv_plain`, all on one CUDA device."""
+    output as :func:`obv_plain`, all on one CUDA device. The lanes run in
+    tiles of ``_OBV_LANES`` as :func:`fused_sma_cuda`'s do."""
     N, T = obv.shape
     P = window.shape[0]
+    lanes = _OBV_LANES
     f32, i32 = torch.float32, torch.int32
-    _check_launch("obv_cuda", obv.device, P,
+    _check_launch("obv_cuda", obv.device, P, lanes,
                   obv=(obv, f32, (N, T)), cs=(cs, f32, (N, T)),
                   r=(r, f32, (N, T)), t_real=(t_real, i32, (N,)),
                   window=(window, i32, (P,)), warm=(warm, i32, (P,)))
     out = torch.empty((_N_METRICS, N, P), dtype=f32, device=obv.device)
     if N and P:
-        _launch("obv", _kernels.fused_sma_lib().dbx_obv, obv, cs, r, t_real,
-                window, warm, out, N, T, P, float(cost), int(ppy))
+        _launch_obv(obv, cs, r, t_real, window_tiles(lanes, window), warm,
+                    out, lanes, cost=cost, ppy=ppy)
     return out
+
+
+def _launch_obv(obv, cs, r, t_real, tiles, warm, out, lanes: int, *,
+                cost: float, ppy: int) -> None:
+    """K6's launch on checked inputs and its tiles (:func:`window_tiles`
+    of the windows)."""
+    wins, counts, wi = tiles
+    N, T = obv.shape
+    _launch("obv", _kernels.fused_sma_lib().dbx_obv, obv, cs, r, t_real,
+            wins, counts, wi, warm, out, N, T, wi.shape[0], lanes,
+            wins.shape[1], float(cost), int(ppy))
 
 
 def obv(obv, cs, r, t_real, window, warm, *, cost: float,

@@ -22,31 +22,35 @@ PEAK_HBM_BYTES = 3.35e12
 
 # Floating-point operations per (combo, bar) below the ticker's length,
 # from csrc/metrics_tail.cuh: the PnL and metric updates (position change
-# sub+abs, net mul+mul+sub, s1 add, s2 mul+add, downside min, its square
-# mul+add, cumulative add, equity add, peak max, drawdown sub+max+div, mdd
-# max, turnover add, active/win count 2 = 20).
+# sub+abs 2, net mul+mul+sub 3, s1 add 1, s2 mul+add 2, downside min 1,
+# its square mul+add 2, equity add 1 (1 + s1: the one cumulative sum), peak
+# max 1, drawdown sub+floor 2, its quotient or, on the bars where it cannot
+# raise mdd, the fused multiply-add that shows so 1, mdd max 1, turnover
+# add 1, active/win count 2 = 20).
 OPS_PER_BAR = 20
 # Per (combo, bar) past the warmup, beside the metric update: K1
 # (csrc/fused_sma.cu) the fast - slow difference and its sign; from
 # csrc/band_machine.cu the machine (entry compares 2, state compares 2 = 4)
 # of the inline, table, stochastic and pairs entries; from
-# csrc/single_window.cu momentum sub+sign and donchian the latch's two
-# selects; macd and trix x - signal and its sign; from csrc/fused_sma.cu,
-# obv - sma and its sign.
+# csrc/single_window.cu donchian the latch's two selects; macd and trix
+# x - signal and its sign. K6 reads its window's sign; momentum's sign,
+# which its kernel forms per lane, is a function of the lookback and counts
+# in OPS_WINDOW.
 OPS_SIGNAL = {"fused_sma": 2, "band_inline": 4, "band_table": 4,
-              "band_stoch": 4, "momentum": 2, "donchian": 2, "macd": 2,
-              "trix": 2, "obv": 2, "pairs": 4}
+              "band_stoch": 4, "momentum": 0, "donchian": 2, "macd": 2,
+              "trix": 2, "obv": 0, "pairs": 4}
 # Per (ticker, distinct window, bar) from the first bar a lane reads the
 # window: work that is a function of the window, not of the lane, so the
-# function needs it once per distinct window. K1 and K6 the SMA (sub, div
-# = 2); K2's inline z (three window sums, mean div, s1*s1, two divs by w,
-# s2 sub, clamp, sqrt, +eps, c-m, div = 13); the stochastic entry the %K
-# from the levels (the channel's max and min, rng sub, its compare,
-# c - lo, *100, rng + eps, div, -50 = 9); donchian the channel's max and
-# min and the two breakout compares (4; the channel of bar t - 1 on bar t:
-# the warmup is window + 1).
-OPS_WINDOW = {"fused_sma": 2, "band_inline": 13, "obv": 2, "band_stoch": 9,
-              "donchian": 4}
+# function needs it once per distinct window. K1 the SMA (sub, div = 2);
+# K6 the SMA of the OBV, obv - sma and its sign (4); momentum the price
+# change and its sign (2); K2's inline z (three window sums, mean div,
+# s1*s1, two divs by w, s2 sub, clamp, sqrt, +eps, c-m, div = 13); the
+# stochastic entry the %K from the levels (the channel's max and min, rng
+# sub, its compare, c - lo, *100, rng + eps, div, -50 = 9); donchian the
+# channel's max and min and the two breakout compares (4; the channel of
+# bar t - 1 on bar t: the warmup is window + 1).
+OPS_WINDOW = {"fused_sma": 2, "band_inline": 13, "obv": 4, "momentum": 2,
+              "band_stoch": 9, "donchian": 4}
 # The channel entries' level build, per ticker, level above the rows and
 # bar: one max and one min (csrc/extrema.cuh).
 OPS_LEVEL = 2
@@ -62,16 +66,16 @@ OPS_EACH_BAR = {"macd": 4, "trix": 6}
 # lane's warmup - 1. matmul: the SMA's row difference and the add (the
 # bollinger z is a read and an add); signal: SMA sub and sign, bollinger
 # the machine (4), then the product and the add; no_ladders: the metric
-# update of OPS_PER_BAR less the equity, peak and drawdown (cumulative
-# add, equity add, peak max, drawdown sub+max+div, mdd max = 7), and for
+# update of OPS_PER_BAR less the equity, peak and drawdown (equity add,
+# peak max, drawdown sub+floor and its test, mdd max = 6), and for
 # bollinger also less the downside min and square and the hit counts (5),
 # with the SMA's sub and sign or the machine past the warmup; full: the
 # metric update with the same. touch is the ticker's table sum, one add an
 # element (a function of the ticker, whatever the lanes).
 STAGE_OPS = {
-    "sma": {"matmul": (2, 0), "signal": (0, 4), "no_ladders": (13, 2),
+    "sma": {"matmul": (2, 0), "signal": (0, 4), "no_ladders": (14, 2),
             "full": (OPS_PER_BAR, 2)},
-    "boll": {"matmul": (1, 0), "signal": (0, 6), "no_ladders": (8, 4),
+    "boll": {"matmul": (1, 0), "signal": (0, 6), "no_ladders": (9, 4),
              "full": (OPS_PER_BAR, 4)},
 }
 

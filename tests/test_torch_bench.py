@@ -157,6 +157,20 @@ def test_tile_entries_count_per_window_work_once_per_window():
     assert roofline.bound_ms(ops, 0.0)[0] == pytest.approx(0.4545, abs=1e-4)
 
 
+def test_obv_and_momentum_count_their_signal_once_per_window():
+    # K6's SMA of the OBV, the difference and its sign, and momentum's
+    # price change and its sign are functions of (ticker, window, bar):
+    # counted once per distinct window, none per lane beside the update.
+    assert roofline.OPS_SIGNAL["obv"] == roofline.OPS_SIGNAL["momentum"] == 0
+    assert roofline.OPS_WINDOW["obv"] == 4
+    assert roofline.OPS_WINDOW["momentum"] == 2
+    # The bench grids: 125 distinct windows over 2000 lanes.
+    obv = roofline.config_model("obv_trend", 125, 2000, 1260)
+    mom = roofline.config_model("momentum", 125, 2000, 1260)
+    assert obv["ops"] == pytest.approx(20.25)
+    assert mom["ops"] == pytest.approx(20.125)
+
+
 def test_window_signal_bars_start_at_the_first_lane_reading_a_window():
     # Window 5 is read from bar 9 (warm 10) by one lane and from bar 2 by
     # another, so from bar 2: 8 bars of a 10-bar ticker and 5 of a 7-bar

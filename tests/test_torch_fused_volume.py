@@ -32,7 +32,7 @@ from distributed_backtesting_exploration_tpu_torch.ops import fused, rolling
 from distributed_backtesting_exploration_tpu_torch.parallel import sweep
 from distributed_backtesting_exploration_tpu_torch.utils import data
 
-from torch_parity import assert_metrics_match, to_np
+from torch_parity import assert_metrics_match, assert_window_tiles, to_np
 
 
 def _grid(**axes):
@@ -164,3 +164,19 @@ def test_volume_entries_stop_at_t_real():
                                    atol=0)
         torch.testing.assert_close(vwap_all[:, i], vwap_one[:, 0], rtol=0,
                                    atol=0)
+
+
+@pytest.mark.parametrize("lanes,tiles", [
+    (1024, 16),     # the bench grid: two tiles of 125 distinct windows
+    (1024, 9),      # 1125 lanes: a ragged last tile of 101
+    (128, 16),      # 16 tiles, the last one ragged
+    (32, 1),        # four tiles of 32 windows, the last one of 29
+])
+def test_window_tiles_give_each_obv_lane_its_window(lanes, tiles):
+    # K6's tile lists on its tiled bench grid: every lane's index
+    # gives back its window, and a list holds at most one a lane.
+    _, w, _, _ = fused._window_setup(
+        np.tile(np.arange(5, 130, dtype=np.float32), tiles), "windows",
+        0.0, 1)
+    w = torch.from_numpy(w)
+    assert_window_tiles(lanes, (w,), fused.window_tiles(lanes, w))

@@ -13,8 +13,10 @@ identical (n_trades and turnover bit-equal) and the other metrics agree at
 rtol=2e-4, atol=2e-5; the window-major entries (K2's table and stochastic
 entries, K3's donchian) take their lanes sorted by window, as their sweeps
 pass them, and must be bit-equal in every metric, as must the tile entries
-(K1 and K2's inline entry, which share each window's value across the
-lanes of a CTA) at every CTA width.
+(K1, K2's inline entry and K6, which share each window's value across the
+lanes of a CTA) at every CTA width, and K3's momentum entry. On returns
+that drive equity to +-inf and NaN, K1 and momentum give NaN where their
+plain versions do and every other value bit-equal.
 """
 
 import numpy as np
@@ -26,7 +28,7 @@ from distributed_backtesting_exploration_tpu_torch.ops import (
 from distributed_backtesting_exploration_tpu_torch.parallel import sweep
 from distributed_backtesting_exploration_tpu_torch.utils import data
 
-from torch_parity import ATOL, RTOL
+from torch_parity import ATOL, RTOL, crafted_returns
 
 pytestmark = pytest.mark.cuda
 
@@ -167,9 +169,9 @@ def _band_stoch_inputs(dev, n, T, seed, lens=None, **grid):
             *_lanes(dev, widx, win, g["band"].numpy(), warm))
 
 
-def _momentum_inputs(dev, n, T, seed, lens=None):
+def _momentum_inputs(dev, n, T, seed, lens=None, lookbacks=(1, 5, 21, 300)):
     close, _, _, tr, r = _panel(dev, n, T, seed, lens)
-    _, lb, _, warm = fused._window_setup(np.float32([1, 5, 21, 300]),
+    _, lb, _, warm = fused._window_setup(np.float32(lookbacks),
                                          "lookbacks", 1.0, 0)
     return (close, r, tr, *fused._to(dev, lb, warm))
 
@@ -235,10 +237,10 @@ def _close_volume(dev, n, T, seed, lens=None):
     return close, volume, tr, fused.simple_returns(close).contiguous()
 
 
-def _obv_inputs(dev, n, T, seed, lens=None):
+def _obv_inputs(dev, n, T, seed, lens=None, windows=(3, 8, 20, 8, 300)):
     close, volume, tr, r = _close_volume(dev, n, T, seed, lens)
-    _, win, _, warm = fused._window_setup(np.float32([3, 8, 20, 8, 300]),
-                                          "windows", 0.0, 1)
+    _, win, _, warm = fused._window_setup(np.float32(windows), "windows",
+                                          0.0, 1)
     series = rolling.obv_series(close, volume).contiguous()
     return (series, torch.cumsum(series, 1).contiguous(), r, tr,
             *fused._to(dev, win, warm))
@@ -309,10 +311,10 @@ _NEW_ENTRIES = {
 }
 
 
-# The window-major entries and K2's inline entry: held bit-equal.
+# The window-major entries and the tile entries: held bit-equal.
 _EXACT = {e for e in _NEW_ENTRIES
           if e.startswith(("band_table", "band_stoch", "donchian",
-                           "band_inline"))}
+                           "band_inline", "momentum", "obv"))}
 
 
 @pytest.mark.parametrize("entry", sorted(_NEW_ENTRIES))
@@ -382,8 +384,8 @@ def test_window_major_entries_match_plain_on_straddling_grid(cuda, entry):
                                  **kw)
 
 
-# The tile entries (K1, K2's inline entry; csrc/bar_blocks.cuh): inputs on
-# a case's panel, and their kernel, plain version and machine.
+# The tile entries (K1, K2's inline entry, K6; csrc/bar_blocks.cuh): inputs
+# on a case's panel, and their kernel, plain version and machine.
 _SHORT_LENS = np.asarray([1, 5, 63, 65, 127, 129, 300])
 
 
@@ -404,17 +406,27 @@ _TILE_ENTRIES = {
     "band_inline_touch": (_band_inline_inputs, fused.band_inline_cuda,
                           fused.band_inline_plain,
                           {"machine": "touch", "z_exit": 0.0}),
+    "obv": (_obv_inputs, fused.obv_cuda, fused.obv_plain, {}),
+}
+# The tile entries' cases, which K3 momentum's per-lane read runs too.
+_CASE_ENTRIES = {**_TILE_ENTRIES,
+                 "momentum": (_momentum_inputs, fused.momentum_cuda,
+                              fused.momentum_plain, {})}
+# Each tile entry's grid of many distinct windows: lists too long for a
+# block of 128 bars.
+_WIDE = np.tile(np.arange(2, 401), 2)
+_MANY_WINDOWS = {
+    _sma_tile_inputs: {"fast": range(2, 130), "slow": range(130, 401)},
+    _band_inline_inputs: {"ks": np.linspace(0.5, 3.0, 8),
+                          "windows": np.arange(5, 301)},
+    _obv_inputs: {"windows": _WIDE},
+    _momentum_inputs: {"lookbacks": _WIDE},
 }
 _TILE_CASES = {
     # The old kernels' unstaged branch, now the same code.
     "long_rows": lambda build, dev: build(dev, 4, 13000, 4),
-    # Many distinct windows: lists too long for a block of 128 bars.
-    "many_windows": lambda build, dev: (
-        _sma_tile_inputs(dev, 2, 420, 6, fast=range(2, 130),
-                         slow=range(130, 401))
-        if build is _sma_tile_inputs else
-        build(dev, 2, 420, 6, ks=np.linspace(0.5, 3.0, 8),
-              windows=np.arange(5, 301))),
+    "many_windows": lambda build, dev: build(dev, 2, 420, 6,
+                                             **_MANY_WINDOWS[build]),
     # Histories that end mid-block, shorter than most windows.
     "short_histories": lambda build, dev: build(
         dev, _SHORT_LENS.size, 300, 8, lens=_SHORT_LENS),
@@ -422,9 +434,9 @@ _TILE_CASES = {
 
 
 @pytest.mark.parametrize("case", sorted(_TILE_CASES))
-@pytest.mark.parametrize("entry", sorted(_TILE_ENTRIES))
+@pytest.mark.parametrize("entry", sorted(_CASE_ENTRIES))
 def test_tile_entries_match_plain(cuda, entry, case):
-    build, kernel, plain, kw = _TILE_ENTRIES[entry]
+    build, kernel, plain, kw = _CASE_ENTRIES[entry]
     _assert_kernel_matches_plain(_TILE_CASES[case](build, cuda), 1e-3,
                                  kernel, plain, exact=True, **kw)
 
@@ -433,9 +445,10 @@ def test_tile_entries_match_plain(cuda, entry, case):
 @pytest.mark.parametrize("entry", sorted(_TILE_ENTRIES))
 def test_tile_entries_match_plain_at_every_width(cuda, monkeypatch, entry,
                                                  lanes):
-    # 400 (K1) and 96 (K2) lanes: a ragged last tile at most widths.
-    monkeypatch.setattr(fused, "_SMA_LANES", lanes)
-    monkeypatch.setattr(fused, "_BAND_INLINE_LANES", lanes)
+    # 400 (K1), 96 (K2) and 5 (K6) lanes: a ragged last tile at most
+    # widths.
+    for name in ("_SMA_LANES", "_BAND_INLINE_LANES", "_OBV_LANES"):
+        monkeypatch.setattr(fused, name, lanes)
     build, kernel, plain, kw = _TILE_ENTRIES[entry]
     inputs = build(cuda, 3, 300, 9, lens=np.asarray([300, 251, 170]))
     got = kernel(*inputs, cost=1e-3, ppy=252, **kw)
@@ -451,6 +464,24 @@ def test_tile_entries_refuse_a_width_they_cannot_launch(cuda, lanes):
         fused._launch_fused_sma(cs, r, tr, fused.window_tiles(max(lanes, 1),
                                                               fast, slow),
                                 warm, out, lanes, cost=0.0, ppy=252)
+
+
+@pytest.mark.parametrize("cost", [0.0, 1e-3])
+@pytest.mark.parametrize("entry", ["fused_sma", "momentum"])
+def test_crafted_returns_match_plain(cuda, entry, cost):
+    # NaN where the plain version has NaN, every other value bit-equal:
+    # the metric update propagates NaN as torch's max and clamp do.
+    build, kernel, plain, kw = _CASE_ENTRIES[entry]
+    inputs = list(build(cuda, 8, 300, 3))
+    inputs[1] = torch.as_tensor(crafted_returns(300), device=cuda)
+    got = kernel(*inputs, cost=cost, ppy=252, **kw).cpu().numpy()
+    ref = plain(*inputs, cost=cost, ppy=252, **kw).cpu().numpy()
+    assert np.isnan(ref).any() and np.isinf(ref).any()
+    assert (ref[3] < -1).any()                       # equity below 0
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(ref))
+    ok = ~np.isnan(ref)
+    np.testing.assert_array_equal(got[ok].view(np.uint32),
+                                  ref[ok].view(np.uint32))
 
 
 def test_new_launch_counters_count_kernel_launches_only(cuda):

@@ -81,3 +81,22 @@ def assert_window_tiles(lanes, windows, tiles):
         assert counts[t] == read.size
         np.testing.assert_array_equal(wins[t, :read.size], read)
         assert np.isin(wins[t, read.size:], read).all()
+
+
+def crafted_returns(n_bars: int) -> np.ndarray:
+    """Eight rows of simple returns that drive a lane's equity through 0,
+    below 0, to +-inf and to NaN (``chip_smoke.py``'s crafted case): steps
+    of 30-250% either way (rows 0, 1), -100% on every bar (row 2: equity
+    exactly 0 at cost 0, then below), a +inf and a -inf return (rows 3, 4),
+    a NaN (row 5), returns of 3e38 that overflow the sums (row 6) and
+    subnormal ones (row 7)."""
+    rng = np.random.default_rng(12)
+    r = (rng.choice(np.float32([-1, 1]), (8, n_bars))
+         * rng.uniform(0.3, 2.5, (8, n_bars))).astype(np.float32)
+    r[2] = -1.0
+    r[3, n_bars // 2] = np.inf
+    r[4, n_bars // 2] = -np.inf
+    r[5, n_bars // 2] = np.nan
+    r[6, n_bars // 3:] = 3e38
+    r[7] *= np.float32(1e-40)
+    return r
