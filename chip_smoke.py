@@ -19,35 +19,48 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    entry on the 1000-combo stochastic grid, each with both machines
    (hysteresis, touch); K3's momentum entry on 2000 lookback lanes and its
    donchian entry on the 1000-lane high/low grid; K4 (macd) and K5 (trix)
-   on their 1000-combo EMA tables; K6 (obv) on the 2000-lane OBV grid; K7
-   (pairs) on 1000 pairs x 1260 bars x the 500-combo pairs grid, its small
-   cases on 32 pairs. The window-major entries (K2's table and stochastic
-   entries, K3's donchian) take their lanes sorted by window, as their
-   sweeps pass them, and run two more cases: long rows (4 x 5000, where
-   the channel levels live in device memory) and a grid of 2368 lanes
+   on their 1000-combo EMA tables (trix's built on the card by
+   ``dbx_ema_rows``); K6 (obv) on the 2000-lane OBV grid; K7 (pairs) on
+   1000 pairs x 1260 bars x the 500-combo pairs grid, its small cases on
+   32 pairs, its tables built on the card by ``dbx_pairs_tables``; the SASS
+   a bar of K7's metric loop and of K2's table entry's. The window-major
+   entries (K2's table and stochastic entries, K3's donchian) take their
+   lanes sorted by window, as their sweeps pass them, and run two more
+   cases: long rows (4 x 5000, where the channel levels live in device
+   memory) and a grid of 2368 lanes
    whose lane blocks (1024 lanes, 128 for the table entry) straddle
    windows, held against the plain version in the caller's lane order,
    and launched in that order too. Their registers, resident warps an SM
    and shared memory are printed (``csrc/occupancy.cuh``). The tile
-   entries (K1, K2's inline entry and K6, which form each window's value
-   once per bar block in shared memory, ``csrc/bar_blocks.cuh``) and K3's
-   momentum entry run three more cases: long rows (4 x 13000), a grid of
-   many distinct windows (K1 fast 2..129 x slow 130..400, K2 8 k x window
-   5..300, K6 and momentum windows 2..400 three times, on 4 x 1260) and
+   entries (K1, K2's inline entry, K5 and K6, which form each window's
+   value once per bar block in shared memory, ``csrc/bar_blocks.cuh``) and
+   K3's momentum entry run three more cases: long rows (4 x 13000), a grid
+   of many distinct windows (K1 fast 2..129 x slow 130..400, K2 8 k x
+   window 5..300, K5 spans 2..400 x 2 signals, K6 and momentum windows
+   2..400 three times, on 4 x 1260) and
    eight histories that end mid-block and are shorter than most windows;
    then the tile entries sweep their CTA width (128-1024 lanes), bit-equal
    and timed at each; their build report and the per-bar instruction count
    of their metric loop in the SASS (``cuobjdump -sass``, :func:`_per_bar`)
    are printed. Their kernel time is the kernel alone, with the tiles'
    window lists built beforehand; the time through the wrapper, which
-   builds them with torch ops, is printed beside it. K1 and momentum also
-   run crafted returns (8 x 1260, cost 0 and 1e-3) that drive equity
+   builds them with torch ops, is printed beside it. K1, momentum and K5
+   also run crafted returns (8 x 1260, cost 0 and 1e-3) that drive equity
    through 0, below 0, to +-inf and to NaN: NaN where the plain version
    has NaN, every other value bit-equal. Positions must be identical, so
    n_trades and turnover (sums of small integers) must be bit-equal; every
    other metric must agree at rtol=2e-4, atol=2e-5, and for the
    window-major and tile entries and momentum every metric must be
    bit-equal. Kernel and plain times come from CUDA events after warmup.
+   Then the table kernels: ``dbx_ema_rows`` (``csrc/ema_rows.cu``) against
+   ``trix_ema_table`` on trix's table of the main path's panel, 32 ragged
+   rows, T=251 and long rows (4 x 13000, in device memory), and with one
+   ladder against ``macd_ema_table``; ``dbx_pairs_tables``
+   (``csrc/pairs_tables.cu``) against ``pairs_tables_plain`` on K7's four
+   cases and long rows (4 x 3000, four lookbacks a CTA, and 2 x 13000 in
+   device memory): every value bit-equal; each timed at its main path's shape beside its bound and
+   plain version (pairs also beside ``pairs_tables``, the torch prep it
+   replaced).
    Then K8, the roofline stage scaffolds
    (``csrc/stages.cu``): every (stage, lanes) case of ``dbx_sma_stage``
    (500 x 1260 x the 2000-combo SMA grid) and ``dbx_boll_stage`` (500 x
@@ -88,26 +101,35 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    vwap_reversion and pairs (against ``models.pairs.run_pairs_sweep``)
    under the same budget, which is the reference's pairs budget
    (``tests/test_fused.py`` ``_check_pairs``): the two paths take the
-   z-scores' cumsums over tensors of other row counts, which torch's CUDA
-   scan sums in other orders, and the windowed variance cancels, so a z at
-   the band can land a bar apart. There every cell off by more than
+   z-scores' sums in other orders, and the windowed variance cancels, so
+   a z at the band can land a bar apart. There every cell off by more than
    rtol=2e-3, atol=2e-4 counts as flipped, and at most max(1, 1%) may
-   flip. For vwap_reversion and pairs the golden path then runs again one
-   k (z_entry) at a time, so its tensors have the fused path's row count
-   and sum in its order: positions must then be identical. The generic
+   flip. vwap's fused path takes torch's CUDA cumsum over tensors of
+   another row count, which that scan splits in another order: its golden
+   path runs again one k at a time, so its tensors have the fused path's
+   row count and sum in its order, and positions must then be identical.
+   pairs' fused path takes each windowed sum as the f64 difference of two
+   f64 prefix sums, rounded once (``csrc/pairs_tables.cu``), where the
+   generic path takes it in f32 from torch's f32 CUDA scan, which cancels:
+   its budget is held against the generic path run in f64 (the witness,
+   :func:`_gold_f64`), and the counts of cells off against the generic
+   path in f32, and between that path and the witness, are printed. The
+   generic
    path sums equity in another order, so for the new families cagr is
    held to the error its final equity may carry (``_cagr_slack``).
    The stochastic, donchian and donchian_hl sweeps must also leave no
    (N, W, T) table on the card: their peak allocation during a 500-ticker
-   sweep stays below one int8 breakout-sign table of that grid.
+   sweep stays below one int8 breakout-sign table of that grid; the pairs
+   sweep's stays below three f32 (N, W, T) tables (z, hr and less than one
+   more). trix's and pairs' main paths must launch their table kernels.
    K8's main path is the port bench (``python -m
    distributed_backtesting_exploration_tpu_torch.bench``), run here
    in-process on every config with 3 timed iterations: every config must
    report a rate and every K8 case must launch; its JSON line is printed.
 5. One JSON line with each kernel entry's (K8: each case's) launches,
    error, times, bound and library time (the tile entries also their
-   width sweep, wrapper time, build report and SASS count); then the JSON
-   result line, last.
+   width sweep, wrapper time, build report and SASS count; the table
+   kernels each a record of their own); then the JSON result line, last.
 
 This script imports nothing of JAX and nothing of the JAX package.
 """
@@ -158,7 +180,16 @@ FAMILIES = {s: (AXES[s], roofline.ENTRY[s], c) for s, c in CHECKS.items()}
 # number of threads set by the row count, so the two sum in other orders.
 # Run one value of this axis at a time, the golden path's tensors have the
 # fused path's row count, and positions must then be identical.
-SAME_ORDER_AXIS = {"vwap_reversion": "k", "pairs": "z_entry"}
+SAME_ORDER_AXIS = {"vwap_reversion": "k"}
+# The kernel that builds a strategy's table on its main path.
+TABLE_KERNELS = {"trix": "ema_rows", "pairs": "pairs_tables"}
+# The families whose fused path takes its windowed moments on the card as
+# f64 differences of f64 prefix sums, rounded once (csrc/pairs_tables.cu),
+# nearer exact arithmetic than the generic path's f32 sums, which cancel:
+# their budget is held against the generic path run in f64
+# (:func:`_gold_f64`), and the cells off against the generic path in f32,
+# and between it and the f64 run, are counted and printed.
+F64_WITNESS = ("pairs",)
 # The reference's flip-aware budget for the "shift" families
 # (tests/test_fused.py `_macd_flip_aware_check`, the tolerance of its pairs
 # budget `_check_pairs`).
@@ -382,7 +413,8 @@ def _short_histories(data, n_bars=N_BARS):
 # Each tile entry's library and the C entry of its build report.
 TILE_REPORTS = {"fused_sma": ("fused_sma", "dbx_fused_sma_occupancy"),
                 "band_inline": ("band_machine", "dbx_band_inline_occupancy"),
-                "obv": ("fused_sma", "dbx_obv_occupancy")}
+                "obv": ("fused_sma", "dbx_obv_occupancy"),
+                "trix": ("ema_cross", "dbx_trix_occupancy")}
 
 
 def _tile_report(fused, entry: str, lanes: int, *windows) -> dict:
@@ -403,9 +435,10 @@ def _mnemonic(op: str) -> str:
     return words[0].split(".")[0] if words else ""
 
 
-def _sass_loops(kernels_mod, lib: str, kernel: str) -> list:
-    """The loops of ``kernel`` (a substring of its mangled name) in the
-    SASS of library ``lib`` (``cuobjdump -sass``), innermost only: for each,
+def _sass_loops(kernels_mod, lib: str, kernel) -> list:
+    """The loops of ``kernel`` (a substring of its mangled name, or a tuple
+    of substrings it holds all of) in the SASS of library ``lib``
+    (``cuobjdump -sass``), innermost only: for each,
     its SASS instructions, and those of its common path with their FMNMX,
     FFMA and FADD. The common path leaves out the blocks that a forward
     branch inside the loop skips and that hold a MUFU.RCP: the drawdown
@@ -415,9 +448,10 @@ def _sass_loops(kernels_mod, lib: str, kernel: str) -> list:
     text = subprocess.run([str(tool), "-sass", str(kernels_mod.build(lib))],
                           capture_output=True, text=True, check=True).stdout
     out = []
+    parts = kernel if isinstance(kernel, tuple) else (kernel,)
     for func in text.split("Function : ")[1:]:
         name = func.split(None, 1)[0]
-        if kernel not in name:
+        if not all(part in name for part in parts):
             continue
         addr, ops, labels, branches = None, {}, {}, []
         pending = []
@@ -509,6 +543,16 @@ def _obv_launch(fused, inputs, kw, lanes):
     return out, lambda: fused._launch_obv(obv, cs, r, tr, tiles, warm, out,
                                           lanes, cost=kw["cost"],
                                           ppy=kw["ppy"])
+
+
+def _trix_launch(fused, inputs, kw, lanes):
+    """K5 as :func:`_k1_launch`."""
+    tbl, r, tr, widx, a_sig, warm = inputs
+    tiles = fused.window_tiles(lanes, widx)
+    out = torch.empty((9, tbl.shape[0], widx.shape[0]), device=tbl.device)
+    return out, lambda: fused._launch_trix(tbl, r, tr, tiles, a_sig, warm,
+                                           out, lanes, cost=kw["cost"],
+                                           ppy=kw["ppy"])
 
 
 def _width_sweep(launch, plain_ref, label) -> dict:
@@ -700,11 +744,11 @@ def _macd_inputs(fused, pnl, panel, t_real):
             *fused._to(dev, fidx, sidx, a_sig, warm))
 
 
-def _trix_inputs(fused, pnl, panel, t_real):
+def _trix_inputs(fused, pnl, panel, t_real, axes=None):
     dev, close, _, _, tr, r = _common(fused, pnl, panel, t_real)
-    g = _flat_grid(AXES["trix"])
+    g = _flat_grid(axes or AXES["trix"])
     spans, widx, a_sig, warm = fused._trix_grid_setup(g["span"], g["signal"])
-    return (fused.trix_ema_table(close, spans), r, tr,
+    return (fused.trix_sweep_table(close, spans), r, tr,
             *fused._to(dev, widx, a_sig, warm))
 
 
@@ -736,7 +780,7 @@ def _pairs_inputs(fused, pnl, legs, t_real):
     g = _flat_grid(AXES["pairs"])
     windows, widx, k, zx, warm = fused._pairs_grid_setup(
         g["lookback"], g["z_entry"], 0.0)
-    z, hr = fused.pairs_tables(y, x, windows)
+    z, hr = fused.pairs_sweep_tables(y, x, windows)
     tr = fused._check_t_real(t_real, *y.shape)
     return (z, hr, *fused._to(dev, tr, widx, k, zx, warm))
 
@@ -875,7 +919,12 @@ def _entries(fused):
         "macd": Entry("k4", 2661, "ema_cross.cu", _macd_inputs, 2,
                       fused.macd_cuda, fused.macd_plain, (None,)),
         "trix": Entry("k5", 3009, "ema_cross.cu", _trix_inputs, 2,
-                      fused.trix_cuda, fused.trix_plain, (None,)),
+                      fused.trix_cuda, fused.trix_plain, (None,),
+                      wide_axes={"signal": np.float32([3, 9]),
+                                 "span": np.arange(2, 401, dtype=np.float32)},
+                      tile=Tile(_trix_launch, "_TRIX_LANES", 3, "ema_cross",
+                                {None: "trix_kernel"}),
+                      returns_at=1),
         "obv": Entry("k6", 2841, "fused_sma.cu", _obv_inputs, 3,
                      fused.obv_cuda, fused.obv_plain, (None,),
                      wide_axes={"window": WIDE_WINDOWS},
@@ -906,9 +955,15 @@ def _level_ops(tr, window) -> float:
 def _entry_bound(entry, e: Entry, inputs):
     tr = inputs[e.tr_at]
     warm = inputs[-2] if e.n_lane else inputs[-1]
-    # The per-window work once per (ticker, distinct window), from its
-    # warmup: a lane's warmup is a function of its window alone.
-    extra = OPS_WINDOW.get(entry, 0) * _signal_bars(tr, torch.unique(warm))
+    if entry == "trix":
+        # The rate of change once per (ticker, span, bar) from bar 0.
+        extra = OPS_WINDOW[entry] * inputs[0].shape[1] * float(
+            tr.double().sum())
+    else:
+        # The per-window work once per (ticker, distinct window), from its
+        # warmup: a lane's warmup is a function of its window alone.
+        extra = OPS_WINDOW.get(entry, 0) * _signal_bars(tr,
+                                                        torch.unique(warm))
     if entry in ("band_stoch", "donchian"):
         extra += _level_ops(tr, inputs[e.tr_at + 1])
     return _bound(tr, warm, warm.shape[0],
@@ -982,6 +1037,13 @@ def _caller_order(inputs, n_lane: int):
     per_lane = [x[inv.long()] for x in head[-n_lane:]]
     ident = torch.arange(lane.numel(), dtype=lane.dtype, device=lane.device)
     return (*head[:-n_lane], *per_lane, ident)
+
+
+# The per-lane entries whose metric loop's SASS a bar is printed: K7, and
+# K2's table entry (hysteresis, rows staged), which runs the same band
+# machine and metric update.
+LOOP_SASS = {"band_table": ("band_source_kernelILi0E", "TableZILb1E"),
+             "pairs": "pairs_kernel"}
 
 
 def phase_new_kernels(fused, pnl, data) -> dict:
@@ -1086,6 +1148,11 @@ def phase_new_kernels(fused, pnl, data) -> dict:
             out[entry]["other_tables"] = tables
         if e.n_lane:
             out[entry]["occupancy"] = occupancy
+        if entry in LOOP_SASS:
+            per_bar = _per_bar(_sass_loops(fused._kernels, "band_machine",
+                                           LOOP_SASS[entry]))
+            out[entry]["sass_per_bar"] = per_bar
+            print(f"{e.tag} {entry} SASS a bar (common path): {per_bar}")
         if e.tile:
             loops = {m: _sass_loops(fused._kernels, e.tile.lib, kernel)
                      for m, kernel in e.tile.sass.items()}
@@ -1101,6 +1168,134 @@ def phase_new_kernels(fused, pnl, data) -> dict:
             print(f"{e.tag} {entry} at the headline: "
                   f"{out[entry]['occupancy']}; SASS loops {loops}")
     return out
+
+
+# --- the table kernels (csrc/ema_rows.cu, csrc/pairs_tables.cu) ----------
+
+def _bits_equal(a, b) -> bool:
+    return bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+
+
+def _max_abs_err(a, b) -> float:
+    """The largest |a - b| over the cells where a and b are finite (the
+    tables' other cells are held by :func:`_bits_equal`)."""
+    ok = torch.isfinite(a) & torch.isfinite(b)
+    return float((a[ok] - b[ok]).abs().max()) if bool(ok.any()) else 0.0
+
+
+def _ema_rows_cases(fused, data):
+    """``dbx_ema_rows``'s cases, (label, x, decay, ladders, plain): trix's
+    table of the main path's panel, of 32 ragged rows (padded by their last
+    bar), at T=251 and on long rows (4 x 13000, on scratch in device
+    memory), and macd's one-ladder table of the main path's panel."""
+    dev = torch.device("cuda")
+    head = data.synthetic_ohlcv(N_TICKERS, N_BARS, seed=0)
+    spans = np.unique(AXES["trix"]["span"])
+    _, (_, ragged, _, _), (_, short, _, _) = _small_cases(data, head)
+    n, T = LONG_TILE_ROWS
+    long = data.synthetic_ohlcv(n, T, seed=5)
+    cases = []
+    for label, panel in ((f"trix {N_TICKERS}x{N_BARS}", head),
+                         (f"trix ragged 32x{N_BARS}", ragged),
+                         ("trix 32x251", short),
+                         (f"trix long rows {n}x{T}", long)):
+        close = torch.as_tensor(panel.close, device=dev).contiguous()
+        cases.append((label, close, fused.ema_decay(dev, spans), 3,
+                      functools.partial(fused.trix_ema_table, close, spans)))
+    close = torch.as_tensor(head.close, device=dev).contiguous()
+    macd_spans = np.unique(np.concatenate([AXES["macd"]["fast"],
+                                           AXES["macd"]["slow"]]))
+    cases.append((f"macd one ladder {N_TICKERS}x{N_BARS}",
+                  (close - close[:, :1]).contiguous(),
+                  fused.ema_decay(dev, macd_spans), 1,
+                  functools.partial(fused.macd_ema_table, close, macd_spans)))
+    return cases
+
+
+def _pairs_table_cases(data):
+    """``dbx_pairs_tables``'s cases, (label, (y, x) close legs): the cases of
+    :func:`_pairs_cases`, and long rows: 4 x 3000 (four lookbacks a CTA)
+    and 2 x 13000 (on scratch in device memory)."""
+    longs = [(f"long rows {n}x{T}",
+              tuple(leg.close for leg in _pairs_legs(data, n, T, 5)))
+             for n, T in ((4, 3000), (2, 13000))]
+    return ([(label, legs) for label, legs, _, _ in _pairs_cases(data)]
+            + longs)
+
+
+def phase_tables(fused, data) -> dict:
+    """The table kernels against their plain versions, every value
+    bit-equal: ``dbx_ema_rows`` against ``trix_ema_table`` (and, one
+    ladder, ``macd_ema_table``), ``dbx_pairs_tables`` against
+    ``pairs_tables_plain``; each timed at its main path's shape beside its
+    bound and plain version (pairs also beside ``pairs_tables``, the torch
+    prep it replaced on the card). Returns one kernels-line record each."""
+    dev = torch.device("cuda")
+    records = {}
+    errs = {"ema_rows": [], "pairs_tables": []}
+    for i, (label, x, decay, ladders, plain) in enumerate(
+            _ema_rows_cases(fused, data)):
+        got = fused.ema_rows_cuda(x, decay, ladders)
+        ref = plain()
+        torch.cuda.synchronize()
+        errs["ema_rows"].append(_max_abs_err(got, ref))
+        _check(_bits_equal(got, ref), f"ema_rows {label} differs from its "
+               f"plain version (max {errs['ema_rows'][-1]})")
+        print(f"ema_rows {label} {tuple(got.shape)}: bit-equal")
+        if i == 0:
+            N, W, T = got.shape
+            ms = _cuda_ms(lambda: fused.ema_rows_cuda(x, decay, ladders),
+                          reps=20, warmup=2)
+            plain_ms = _cuda_ms(plain, reps=5, warmup=1)
+            bound = roofline.ema_rows_bound(N, W, T, ladders)
+            records["ema_rows"] = {
+                "name": "ema_rows", "route": "cuda",
+                "source": f"{PKG}/csrc/ema_rows.cu",
+                "replaces": f"{REF}:3009", "ms": ms,
+                "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+                "bound_by": bound[1], "library_ms": None}
+            print(f"ema_rows {label}: kernel {ms:.4f} ms, plain "
+                  f"(trix_ema_table) {plain_ms:.4f} ms, bound "
+                  f"{bound[0]:.4f} ms ({bound[1]})")
+    windows = torch.from_numpy(
+        np.unique(AXES["pairs"]["lookback"]).astype(np.int32)).to(dev)
+    for i, (label, legs) in enumerate(_pairs_table_cases(data)):
+        y, x = (torch.as_tensor(c, device=dev).contiguous() for c in legs)
+        args = (y, x, x.mean(dim=1), y.mean(dim=1), windows)
+        got = fused.pairs_tables_cuda(*args)
+        ref = fused.pairs_tables_plain(*args)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("z", "hr"), got, ref):
+            errs["pairs_tables"].append(_max_abs_err(a, b))
+            _check(_bits_equal(a, b), f"pairs_tables {label}: {name} "
+                   f"differs from its plain version (max "
+                   f"{errs['pairs_tables'][-1]})")
+        print(f"pairs_tables {label} {tuple(got[0].shape)}: z and hr "
+              f"bit-equal (lookbacks a CTA, scratch floats a CTA: "
+              f"{fused.pairs_tables_plan(y.shape[1], windows.numel())})")
+        if i == 0:
+            N, W, T = got[0].shape
+            ms = _cuda_ms(lambda: fused.pairs_tables_cuda(*args), reps=20,
+                          warmup=2)
+            plain_ms = _cuda_ms(lambda: fused.pairs_tables_plain(*args),
+                                reps=1, warmup=1)
+            spans = windows.cpu().numpy()
+            prep_ms = _cuda_ms(lambda: fused.pairs_tables(y, x, spans),
+                               reps=5, warmup=1)
+            bound = roofline.pairs_tables_bound(N, W, T)
+            records["pairs_tables"] = {
+                "name": "pairs_tables", "route": "cuda",
+                "source": f"{PKG}/csrc/pairs_tables.cu",
+                "replaces": f"{REF}:1482", "ms": ms,
+                "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+                "bound_by": bound[1], "library_ms": None,
+                "torch_prep_ms": prep_ms}
+            print(f"pairs_tables {label}: kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, torch prep (pairs_tables) "
+                  f"{prep_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+    for name, rec in records.items():
+        rec["max_abs_err"] = max(errs[name])
+    return records
 
 
 # --- the main paths -------------------------------------------------------
@@ -1269,18 +1464,43 @@ def _cagr_slack(gold) -> np.ndarray:
     return np.minimum(slack, 0.01 + 0.01 * np.abs(cagr))
 
 
+def _tolerance(check: str):
+    return (SHIFT_RTOL, SHIFT_ATOL) if check == "shift" else (RTOL, ATOL)
+
+
+def _flipped(got, gold, check: str, slack) -> np.ndarray:
+    """The cells of a ``"flip"`` or ``"shift"`` check that count as
+    flipped: for ``"flip"``, off by more than 0.01 + 0.01 |ref|; for
+    ``"shift"``, by more than the flip-aware budget's rtol and atol."""
+    rtol, atol = _tolerance(check)
+    flipped = np.zeros(got["turnover"].shape, dtype=bool)
+    for name in gold._fields:
+        a, b = got[name], getattr(gold, name).cpu().numpy()
+        if check == "flip":
+            off = 0.01 + 0.01 * np.abs(b)
+        else:
+            off = atol + rtol * np.abs(b)
+        flipped |= np.abs(a - b) > off + slack[name]
+    return flipped
+
+
+def _slack(gold) -> dict:
+    """Each metric's slack beyond its tolerance: cagr's
+    (:func:`_cagr_slack`), 0 for the rest."""
+    slack = {name: 0.0 for name in gold._fields}
+    slack["cagr"] = _cagr_slack(gold)
+    return slack
+
+
 def _golden_check(label, got, gold, check: str) -> int:
     """Backend metrics against the generic sweep's; returns the number of
     flipped cells. ``check`` is a ``FAMILIES`` check: for ``"exact"``,
     n_trades and turnover must be bit-equal and no cell may be set aside
-    as flipped; for ``"flip"``, a cell off by more than 0.01 + 0.01 |ref|
-    is flipped; for ``"shift"``, one off by more than the flip-aware
-    budget's rtol and atol."""
+    as flipped; for ``"flip"`` and ``"shift"``, at most max(1, 1%) of the
+    cells may flip (:func:`_flipped`)."""
     fields = gold._fields
-    slack = {name: 0.0 for name in fields}
-    slack["cagr"] = _cagr_slack(gold)
-    rtol, atol = (SHIFT_RTOL, SHIFT_ATOL) if check == "shift" else (RTOL,
-                                                                     ATOL)
+    slack = _slack(gold)
+    rtol, atol = _tolerance(check)
     flipped = np.zeros(got["turnover"].shape, dtype=bool)
     if check == "exact":
         for name in ("n_trades", "turnover"):
@@ -1289,13 +1509,7 @@ def _golden_check(label, got, gold, check: str) -> int:
                    f"{label} vs golden path: {name} differs: positions are "
                    "not identical")
     else:
-        for name in fields:
-            a, b = got[name], getattr(gold, name).cpu().numpy()
-            if check == "flip":
-                off = 0.01 + 0.01 * np.abs(b)
-            else:
-                off = atol + rtol * np.abs(b)
-            flipped |= np.abs(a - b) > off + slack[name]
+        flipped = _flipped(got, gold, check, slack)
     n_flips = int(flipped.sum())
     _check(n_flips <= max(1, int(0.01 * flipped.size)),
            f"{label} vs golden path: {n_flips}/{flipped.size} flips")
@@ -1329,6 +1543,17 @@ def _gold(sweep, models, strategy, panels, grid):
                                             cost=COST, device="cuda")
     return sweep.run_sweep(panels[0], models.get_strategy(strategy), grid,
                            cost=COST, device="cuda")
+
+
+def _gold_f64(sweep, models, panels, grid):
+    """The generic pairs sweep (``models.pairs.pair_backtest``) on the card
+    with its legs in f64, so every sum and quotient of its tables is f64:
+    the witness pairs' fused path is held to."""
+    y, x = (torch.as_tensor(leg.close, dtype=torch.float64,
+                            device="cuda")[:, None, :] for leg in panels)
+    return sweep.map_param_chunks(
+        grid, y.shape[0] * y.shape[-1], torch.device("cuda"),
+        lambda sub: models.pairs.pair_backtest(y, x, sub, cost=COST))
 
 
 def _gold_same_order(sweep, models, strategy, panels, axes, fields):
@@ -1375,6 +1600,28 @@ def _check_no_table(jobs, data, strategy, axes, stack, run) -> None:
            f"as much as an (N, W, T) table ({table})")
 
 
+def _check_pairs_tables_only(jobs, data, axes, stack, run) -> None:
+    """One batch's pairs sweep on the card with its peak allocation above
+    what was allocated before it: below three (N, W, T) f32 tables, z and hr
+    and less than one more (the torch prep held about 17)."""
+    inputs = stack([[data.from_wire_bytes(b) for b in (j.ohlcv, j.ohlcv2)]
+                    for j in jobs])
+    N, T = inputs[0].shape
+    W = np.unique(axes["lookback"]).size
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    m = run(inputs)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del m
+    table = 4 * N * W * T
+    print(f"pairs sweep peak allocation {peak} bytes; an f32 (N, W, T) "
+          f"table is {table} bytes")
+    _check(peak < 3 * table, f"pairs: the sweep allocated {peak} bytes, "
+           f"more than z, hr and another (N, W, T) table ({3 * table})")
+
+
 def phase_new_main_paths(kernels_mod, compute, wire, pb, data, sweep,
                          models, fused) -> dict:
     """The main paths of the strategies of ``FAMILIES``; returns the
@@ -1391,6 +1638,10 @@ def phase_new_main_paths(kernels_mod, compute, wire, pb, data, sweep,
         n_combos = int(np.prod([v.size for v in axes.values()]))
         launches, batch_s = _drive(kernels_mod, backend, wire, jobs,
                                    n_combos, entry, strategy)
+        if strategy in TABLE_KERNELS:
+            table = TABLE_KERNELS[strategy]
+            _check(launches.get(table, 0) > 0,
+                   f"the {strategy} main path launched {table} no time")
         for name, n in launches.items():
             total[name] = total.get(name, 0) + n
 
@@ -1401,8 +1652,22 @@ def phase_new_main_paths(kernels_mod, compute, wire, pb, data, sweep,
         got = {name: np.stack([getattr(gdone[j.id], name) for j in gjobs])
                for name in compute.Metrics._fields}
         grid = sweep.product_grid(**{k: axes[k] for k in sorted(axes)})
-        gold = _gold(sweep, models, strategy, small, grid)
-        _report_golden(strategy, got, gold, check, n_combos)
+        if strategy in F64_WITNESS:
+            f32 = _gold(sweep, models, strategy, small, grid)
+            gold = _gold_f64(sweep, models, small, grid)
+            f32_np = {name: getattr(f32, name).cpu().numpy()
+                      for name in f32._fields}
+            print(f"{strategy} cells of {got['turnover'].size} off by more "
+                  "than the flip-aware budget's tolerance: main path vs "
+                  "golden path in f32 "
+                  f"{int(_flipped(got, f32, check, _slack(f32)).sum())}, "
+                  "golden path in f32 vs in f64 "
+                  f"{int(_flipped(f32_np, gold, check, _slack(gold)).sum())}")
+            _report_golden(f"{strategy} (golden path in f64)", got, gold,
+                           check, n_combos)
+        else:
+            gold = _gold(sweep, models, strategy, small, grid)
+            _report_golden(strategy, got, gold, check, n_combos)
         if strategy in SAME_ORDER_AXIS:
             same = _gold_same_order(sweep, models, strategy, small, axes,
                                     gold._fields)
@@ -1417,6 +1682,9 @@ def phase_new_main_paths(kernels_mod, compute, wire, pb, data, sweep,
         if strategy in NO_TABLE:
             _check_no_table(jobs, data, strategy, axes,
                             *_route(compute, fused, strategy, axes))
+        if strategy == "pairs":
+            _check_pairs_tables_only(jobs, data, axes,
+                                     *_route(compute, fused, strategy, axes))
     return total
 
 
@@ -1629,6 +1897,7 @@ def main() -> None:
     phase_build(_kernels)
     k1 = phase_kernels(_kernels, fused, pnl, data)
     new = phase_new_kernels(fused, pnl, data)
+    new.update(phase_tables(fused, data))
     k8 = phase_stages(_kernels, stages, bench, data)
     launches = phase_main_path(_kernels, compute, wire, pb, data, sweep,
                                models, fused)

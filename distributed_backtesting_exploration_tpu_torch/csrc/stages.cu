@@ -386,6 +386,10 @@ __device__ __forceinline__ float touch_sum(const float* table, int T, int W,
   const int passes = (q + 32 * kTouchAccs - 1) / (32 * kTouchAccs);
   const float4* words = reinterpret_cast<const float4*>(table);
   float* sums = cluster.map_shared_rank(chunks, 0);
+  // Every CTA of the cluster has started before any writes the first
+  // CTA's shared memory: distributed shared memory may be touched only
+  // then.
+  cluster.sync();
   for (int c = rank * warps + static_cast<int>(threadIdx.x) / 32;
        c < kTouchChunks; c += C * warps) {
     const int len = min(q, m4 - c * q);

@@ -128,7 +128,16 @@ _SIGNATURES = {
     },
     "ema_cross": {
         "dbx_macd": [_VP] * 8 + [_CI] * 4 + [_CF, _CI, _VP],
-        "dbx_trix": [_VP] * 7 + [_CI] * 4 + [_CF, _CI, _VP],
+        "dbx_trix": [_VP] * 9 + [_CI] * 6 + [_CF, _CI, _VP],
+        "dbx_trix_occupancy": [_CI, _CI, _PI],
+    },
+    "ema_rows": {
+        "dbx_ema_rows": [_VP] * 4 + [_CI] * 4 + [_VP],
+        "dbx_ema_rows_scratch": [_CI],
+    },
+    "pairs_tables": {
+        "dbx_pairs_tables": [_VP] * 8 + [_CI] * 3 + [_VP],
+        "dbx_pairs_tables_plan": [_CI, _CI, _PI],
     },
     "stages": {
         "dbx_sma_stage": [_VP] * 6 + [_CI] * 7 + [_CF, _CI, _VP],
@@ -171,6 +180,18 @@ def ema_cross_lib() -> ctypes.CDLL:
     """K4's and K5's library (``csrc/ema_cross.cu``): ``dbx_macd`` and
     ``dbx_trix``."""
     return _typed("ema_cross")
+
+
+def ema_rows_lib() -> ctypes.CDLL:
+    """The EMA-table library (``csrc/ema_rows.cu``): ``dbx_ema_rows``, the
+    triple-EMA table K5 reads."""
+    return _typed("ema_rows")
+
+
+def pairs_tables_lib() -> ctypes.CDLL:
+    """K7's table library (``csrc/pairs_tables.cu``): ``dbx_pairs_tables``,
+    the spread z-table and hedged-return table."""
+    return _typed("pairs_tables")
 
 
 def stages_lib() -> ctypes.CDLL:

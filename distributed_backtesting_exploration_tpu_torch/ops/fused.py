@@ -22,8 +22,10 @@ sweep                           entry                     kernel source
 ``fused_vwap_sweep``
 ``fused_macd_sweep``            :func:`macd`              ``ema_cross.cu``
 ``fused_trix_sweep``            :func:`trix`              ``ema_cross.cu``
+                                :func:`ema_rows_cuda`     ``ema_rows.cu``
 ``fused_obv_sweep``             :func:`obv`               ``fused_sma.cu``
 ``fused_pairs_sweep``           :func:`pairs`             ``band_machine.cu``
+                                :func:`pairs_tables_cuda` ``pairs_tables.cu``
 ==============================  ========================  ===================
 
 Each entry dispatches on its inputs' device: on a CUDA tensor its
@@ -34,21 +36,25 @@ versions step bar by bar in the kernels' order (:class:`_MetricState`), so
 on the card a kernel and its plain version agree to the bit; they are the
 yardstick the kernels are held against.
 
-:func:`fused_sma`, :func:`band_inline` and :func:`obv` run their lanes in
-tiles, one tile a CTA, that form the SMA, z or signal of the tile's
-distinct windows once per bar block in shared memory; their CUDA wrappers
-build the tiles' window lists with torch ops on the card
+:func:`fused_sma`, :func:`band_inline`, :func:`obv` and :func:`trix` run
+their lanes in tiles, one tile a CTA, that form the SMA, z or signal of
+the tile's distinct windows once per bar block in shared memory; their
+CUDA wrappers build the tiles' window lists with torch ops on the card
 (:func:`window_tiles`). The channel entries (:func:`band_stoch`,
 :func:`donchian`) take the raw rows and build the channel extrema on the
 card (no ``(N, W, T)`` table),
 and the table entries (:func:`band_table`, :func:`band_stoch`,
 :func:`donchian`) take their lanes window-major: the sweep sorts them by
 window (:func:`window_major`) and passes ``lane``, each slot's lane in the
-caller's order, where the entry writes the slot's metrics.
+caller's order, where the entry writes the slot's metrics. On the card,
+trix's triple-EMA table and pairs' z- and hedged-return tables are built
+by kernels of their own (:func:`ema_rows_cuda`, :func:`pairs_tables_cuda`).
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 
 import numpy as np
@@ -62,12 +68,13 @@ from .pnl import simple_returns
 _EPS = 1e-12
 _N_METRICS = 9
 _KERNEL_THREADS = 128      # lanes per CTA (kThreads in csrc/*.cu)
-# Lanes a tile (one CTA) of K1, K2's inline entry and K6, which share the
-# values of a tile's distinct windows (csrc/bar_blocks.cuh): the fastest of
-# chip_smoke.py's width sweep (PERF.md, section 6).
+# Lanes a tile (one CTA) of K1, K2's inline entry, K5 and K6, which share
+# the values of a tile's distinct windows (csrc/bar_blocks.cuh): the fastest
+# of chip_smoke.py's width sweep (PERF.md, section 6).
 _SMA_LANES = 1024
 _BAND_INLINE_LANES = 512
 _OBV_LANES = 1024
+_TRIX_LANES = 1024
 _MAX_PARAM_BLOCKS = 65535  # CUDA gridDim.y limit
 _MACHINES = {"hysteresis": 0, "touch": 1}
 # The reference's stand-in for the generic channel's +-inf warmup fill.
@@ -167,13 +174,14 @@ def _window_setup(vals, what: str, warm_offset: float, min_window: int,
 
 
 def window_tiles(lanes: int, *windows: torch.Tensor):
-    """The window lists of the tiles of K1, K2's inline entry and K6
+    """The window lists of the tiles of K1, K2's inline entry, K5 and K6
     (``csrc/bar_blocks.cuh``), built with torch ops on the windows' device.
 
     The kernels run ``lanes`` consecutive lanes a tile, one tile a CTA, and
     form the value of each window a tile reads once per bar in shared
     memory. ``windows`` are one or two ``(P,)`` integer tensors of each
-    lane's windows (K2, K6: its window; K1: its fast and its slow window).
+    lane's windows (K2, K6: its window; K1: its fast and its slow window;
+    K5: its span's row in the triple-EMA table).
     Returns ``(wins, counts, *idx)``, all int32: ``wins`` the
     ``(n_tiles, Wc)`` lists, ``Wc = lanes * len(windows)``, row t holding
     tile t's ``counts[t]`` sorted distinct windows, then its smallest window
@@ -988,19 +996,34 @@ def macd_cuda(tbl, r, t_real, fidx, sidx, a_sig, warm, *, cost: float,
 def trix_cuda(tbl, r, t_real, widx, a_sig, warm, *, cost: float,
               ppy: int) -> torch.Tensor:
     """Launch K5 (``csrc/ema_cross.cu``, ``dbx_trix``): same inputs and
-    output as :func:`trix_plain`, all on one CUDA device."""
+    output as :func:`trix_plain`, all on one CUDA device. The lanes run in
+    tiles of ``_TRIX_LANES``, whose lists of table rows are built on the
+    card from ``widx`` (:func:`window_tiles`); each tile forms the rate of
+    change of its rows once per bar."""
     N, W, T = tbl.shape
     P = widx.shape[0]
+    lanes = _TRIX_LANES
     f32, i32 = torch.float32, torch.int32
-    _check_launch("trix_cuda", tbl.device, P,
+    _check_launch("trix_cuda", tbl.device, P, lanes,
                   tbl=(tbl, f32, (N, W, T)), r=(r, f32, (N, T)),
                   t_real=(t_real, i32, (N,)), widx=(widx, i32, (P,)),
                   a_sig=(a_sig, f32, (P,)), warm=(warm, i32, (P,)))
     out = torch.empty((_N_METRICS, N, P), dtype=f32, device=tbl.device)
     if N and P:
-        _launch("trix", _kernels.ema_cross_lib().dbx_trix, tbl, r, t_real,
-                widx, a_sig, warm, out, N, T, W, P, float(cost), int(ppy))
+        _launch_trix(tbl, r, t_real, window_tiles(lanes, widx), a_sig, warm,
+                     out, lanes, cost=cost, ppy=ppy)
     return out
+
+
+def _launch_trix(tbl, r, t_real, tiles, a_sig, warm, out, lanes: int, *,
+                 cost: float, ppy: int) -> None:
+    """K5's launch on checked inputs and its tiles (:func:`window_tiles`
+    of the lanes' table rows)."""
+    wins, counts, wi = tiles
+    N, W, T = tbl.shape
+    _launch("trix", _kernels.ema_cross_lib().dbx_trix, tbl, r, t_real, wins,
+            counts, wi, a_sig, warm, out, N, T, W, wi.shape[0], lanes,
+            wins.shape[1], float(cost), int(ppy))
 
 
 def macd(tbl, r, t_real, fidx, sidx, a_sig, warm, *, cost: float,
@@ -1183,6 +1206,53 @@ def trix_ema_table(close, spans: np.ndarray) -> torch.Tensor:
     return e.contiguous()
 
 
+def ema_decay(dev: torch.device, spans: np.ndarray) -> torch.Tensor:
+    """The ``(W,)`` f32 EMA decays ``2 / (span + 1)`` of the distinct
+    spans, formed as :func:`~.rolling.ema_ladder` forms them."""
+    return rolling._decay(torch.empty(0, device=dev), _col(dev, spans),
+                          None).reshape(-1).contiguous()
+
+
+def ema_rows_cuda(x, decay, ladders: int) -> torch.Tensor:
+    """Launch ``dbx_ema_rows`` (``csrc/ema_rows.cu``): the ``(N, W, T)``
+    table of ``ladders`` (1 to 3) chained EMA ladders of the ``(N, T)`` f32
+    rows ``x``, one row per ``(W,)`` f32 decay, on the card. With the decays
+    of :func:`ema_decay` it equals, bit for bit, :func:`trix_ema_table`
+    (3 ladders of the close) and :func:`macd_ema_table` (1 ladder of the
+    close demeaned by its first bar), the plain versions; rows too long to
+    stage in shared memory run on scratch in device memory."""
+    N, T = x.shape
+    W = decay.shape[0]
+    if not 1 <= ladders <= 3:
+        raise ValueError(f"ladders must be 1, 2 or 3, got {ladders}")
+    _check_launch("ema_rows_cuda", x.device, 0,
+                  x=(x, torch.float32, (N, T)),
+                  decay=(decay, torch.float32, (W,)))
+    out = torch.empty((N, W, T), dtype=torch.float32, device=x.device)
+    if N and W and T:
+        n_scratch = _ema_rows_scratch(int(T))
+        scratch = (torch.empty((N * W * n_scratch,), dtype=torch.float32,
+                               device=x.device) if n_scratch else None)
+        _launch("ema_rows", _kernels.ema_rows_lib().dbx_ema_rows, x, decay,
+                out, scratch, N, T, W, int(ladders))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _ema_rows_scratch(T: int) -> int:
+    """Floats of device-memory scratch a row of ``dbx_ema_rows`` needs at
+    row length ``T``, 0 where it is staged in shared memory."""
+    return int(_kernels.ema_rows_lib().dbx_ema_rows_scratch(T))
+
+
+def trix_sweep_table(close, spans: np.ndarray) -> torch.Tensor:
+    """K5's triple-EMA table on the close's device: :func:`trix_ema_table`
+    (torch ops) on the CPU, :func:`ema_rows_cuda` on the card."""
+    if close.device.type == "cpu":
+        return trix_ema_table(close, spans)
+    return ema_rows_cuda(close, ema_decay(close.device, spans), 3)
+
+
 def rsi_z_table(close, periods: np.ndarray) -> torch.Tensor:
     """The ``(N, W, T)`` centered RSI, ``rsi - 50``, of each distinct period
     (the reference's ``_fused_rsi_call`` prep): Wilder ladders of the gains
@@ -1254,17 +1324,32 @@ def pairs_tables(y_close, x_close, windows: np.ndarray):
     exactly y. The spread's z-score: moments of the spread centered by its
     mean over all T bars, the window mean of the uncentered spread; 0 before
     ``t = 2w - 2``. ``hr = (r_y - beta[t-1] r_x) / max(1 + |beta[t-1]|, 1)``
-    with ``beta[-1] = 0``. Returns ``(z, hr)``."""
+    with ``beta[-1] = 0``. Returns ``(z, hr)``. The windowed sums are
+    differences of ``torch.cumsum`` rows, the spread's mean
+    ``torch.mean``'s."""
     y, x = y_close, x_close
     w, fw = _windows_col(y.device, windows)
+    return _pairs_z_hr(y, x, x.mean(dim=1, keepdim=True),
+                       y.mean(dim=1, keepdim=True), w, fw,
+                       lambda s: torch.cumsum(s, dim=-1),
+                       lambda s: s.mean(dim=-1, keepdim=True))
+
+
+def _pairs_z_hr(y, x, mx, my, w, fw, prefix, spread_mean):
+    """The formulas of :func:`pairs_tables` on the ``(N, T)`` legs: ``mx``
+    and ``my`` their ``(N, 1)`` means, ``w`` the ``(W,)`` int64 lookbacks
+    and ``fw`` their ``(W, 1)`` f32 column; ``prefix(s)`` the inclusive
+    prefix sums of ``s`` along its last axis and ``spread_mean(s)`` the
+    ``(N, W, 1)`` mean of the spread over its T bars, the two orders of
+    summation the callers choose. A windowed sum is the difference of two
+    prefix sums in their dtype, rounded to the series' (f32 for torch's
+    cumsum of f32; f64 for :func:`seq_cumsum`, so rounded once)."""
     t = torch.arange(y.shape[1], device=y.device)
     zero = torch.zeros((), dtype=y.dtype, device=y.device)
 
     def wsum(series):                       # (N, T) or (N, W, T) -> (N, W, T)
-        return _lagged_window_sum(torch.cumsum(series, dim=-1), w)
+        return _lagged_window_sum(prefix(series), w).to(series.dtype)
 
-    mx = x.mean(dim=1, keepdim=True)                            # (N, 1)
-    my = y.mean(dim=1, keepdim=True)
     xc, yc = x - mx, y - my
     sx, sy = wsum(xc), wsum(yc)
     sxx, sxy = wsum(xc * xc), wsum(xc * yc)
@@ -1277,7 +1362,7 @@ def pairs_tables(y_close, x_close, windows: np.ndarray):
     y3, x3 = y[:, None, :], x[:, None, :]
     spread = torch.where(ols_ok, y3 - (alpha + beta * x3), y3)
 
-    sc = spread - spread.mean(dim=-1, keepdim=True)
+    sc = spread - spread_mean(spread)
     s1, s2 = wsum(sc), wsum(sc * sc)
     varz = ((s2 - s1 * s1 / fw) / fw).clamp_min(0.0)
     mz = wsum(spread) / fw
@@ -1290,6 +1375,99 @@ def pairs_tables(y_close, x_close, windows: np.ndarray):
                            beta_tbl[..., :-1]], dim=-1)
     hr = (ry - beta_prev * rx) / (1.0 + beta_prev.abs()).clamp_min(1.0)
     return z.contiguous(), hr.contiguous()
+
+
+def seq_cumsum(v: torch.Tensor) -> torch.Tensor:
+    """The f64 prefix sums of ``v`` (f32) along its last axis, each row
+    summed bar by bar in f64 (the order of ``csrc/pairs_tables.cu``, on any
+    device; torch's CPU cumsum of f32 sums so too, and rounds each bar to
+    f32)."""
+    acc = torch.zeros(v.shape[:-1], dtype=torch.float64, device=v.device)
+    out = torch.empty(v.shape, dtype=torch.float64, device=v.device)
+    for t in range(v.shape[-1]):
+        acc = acc + v[..., t].double()
+        out[..., t] = acc
+    return out
+
+
+def lane_tree_mean(s: torch.Tensor) -> torch.Tensor:
+    """The ``(..., 1)`` f32 mean of ``s`` (f32) over its last axis in the
+    order of ``csrc/pairs_tables.cu``: lane l of 32 sums the elements l,
+    l + 32, ... in f64 (0 past the end), the 32 sums fold in a fixed tree
+    (l + 16, then l + 8, ...), and the total is divided by the length in
+    f64 and rounded to f32."""
+    T = s.shape[-1]
+    v = torch.nn.functional.pad(s, (0, -T % 32)).double()
+    v = v.reshape(*s.shape[:-1], -1, 32)
+    acc = torch.zeros(v.shape[:-2] + (32,), dtype=torch.float64,
+                      device=s.device)
+    for i in range(v.shape[-2]):
+        acc = acc + v[..., i, :]
+    for half in (16, 8, 4, 2, 1):
+        acc = acc[..., :half] + acc[..., half:2 * half]
+    return (acc / T).float()
+
+
+def pairs_tables_plain(y, x, mx, my, windows):
+    """Plain PyTorch version of ``dbx_pairs_tables``: the formulas of
+    :func:`pairs_tables` in the kernel's order. ``y`` and ``x`` are the
+    ``(N, T)`` f32 legs, ``mx`` and ``my`` their ``(N,)`` f32 means,
+    ``windows`` the ``(W,)`` int32 distinct lookbacks. Every prefix sum is
+    :func:`seq_cumsum`'s, in f64, and every windowed sum the f64 difference
+    of two of them rounded once to f32 (where :func:`pairs_tables` takes it
+    in f32 from f32 prefix sums, which cancel); the spread's mean is
+    :func:`lane_tree_mean`'s. Returns ``(z, hr)``."""
+    return _pairs_z_hr(y, x, mx[:, None], my[:, None], windows.long(),
+                       windows.to(torch.float32)[:, None], seq_cumsum,
+                       lane_tree_mean)
+
+
+def pairs_tables_cuda(y, x, mx, my, windows):
+    """Launch ``dbx_pairs_tables`` (``csrc/pairs_tables.cu``): same inputs
+    and output as :func:`pairs_tables_plain`, all on one CUDA device. No
+    ``(N, W, T)`` tensor but the two tables is allocated, save scratch for
+    rows too long to stage in shared memory."""
+    N, T = y.shape
+    W = windows.shape[0]
+    f32 = torch.float32
+    _check_launch("pairs_tables_cuda", y.device, 0,
+                  y=(y, f32, (N, T)), x=(x, f32, (N, T)),
+                  mx=(mx, f32, (N,)), my=(my, f32, (N,)),
+                  windows=(windows, torch.int32, (W,)))
+    z = torch.empty((N, W, T), dtype=f32, device=y.device)
+    hr = torch.empty_like(z)
+    if N and W and T:
+        lib = _kernels.pairs_tables_lib()
+        group, per_cta = pairs_tables_plan(T, W)
+        scratch = (torch.empty((N * -(-W // group) * per_cta,), dtype=f32,
+                               device=y.device) if per_cta else None)
+        _launch("pairs_tables", lib.dbx_pairs_tables, y, x, mx, my, windows,
+                z, hr, scratch, N, T, W)
+    return z, hr
+
+
+@functools.lru_cache(maxsize=None)
+def pairs_tables_plan(T: int, W: int) -> tuple[int, int]:
+    """How ``dbx_pairs_tables`` lays out a launch at row length ``T`` and
+    ``W`` lookbacks: the lookbacks a CTA takes (one CTA per pair and group
+    of them), and the floats of device-memory scratch a CTA needs, 0 where
+    its rows are staged in shared memory."""
+    info = (ctypes.c_int * 2)()
+    err = _kernels.pairs_tables_lib().dbx_pairs_tables_plan(int(T), int(W),
+                                                            info)
+    if err != 0:
+        raise ValueError(f"dbx_pairs_tables takes no T={T}, W={W}")
+    return int(info[0]), int(info[1])
+
+
+def pairs_sweep_tables(y, x, windows: np.ndarray):
+    """K7's tables on the legs' device: :func:`pairs_tables` (torch ops) on
+    the CPU, :func:`pairs_tables_cuda` on the card from the legs' means in
+    torch."""
+    if y.device.type == "cpu":
+        return pairs_tables(y, x, windows)
+    return pairs_tables_cuda(y, x, x.mean(dim=1), y.mean(dim=1),
+                             *_to(y.device, windows.astype(np.int32)))
 
 
 # --- sweep wrappers -------------------------------------------------------
@@ -1561,15 +1739,17 @@ def fused_pairs_sweep(y_close, x_close, lookback, z_entry, *, t_real=None,
     counts and must be integral. ``t_real`` gives each pair's real length in
     a ragged group whose legs repeat their last bar. Matches
     :func:`~..models.pairs.run_pairs_sweep` within the reference's pairs
-    budget: the tables (:func:`pairs_tables`) take the generic path's
-    formulas and op order.
+    budget: the tables take the generic path's formulas and op order
+    (:func:`pairs_tables` on the CPU; on the card :func:`pairs_tables_cuda`,
+    whose windowed sums are f64 differences rounded once, so a z at the
+    band can land a bar apart from the generic path's f32 sums).
     """
     dev = _prologue(carry_out, None, epilogue, device)
     y_close, x_close = _panel(dev, y_close, x_close)
     N, T = y_close.shape
     windows, widx, k, zx, warm = _pairs_grid_setup(lookback, z_entry, z_exit)
     tr = _check_t_real(t_real, N, T)
-    z, hr = pairs_tables(y_close, x_close, windows)
+    z, hr = pairs_sweep_tables(y_close, x_close, windows)
     planes = pairs(z, hr, *_to(dev, tr, widx, k, zx, warm), cost=float(cost),
                    ppy=int(periods_per_year))
     return Metrics(*planes)
@@ -1728,15 +1908,16 @@ def fused_trix_sweep(close, span, signal, *, t_real=None, cost: float = 0.0,
                      device: str | torch.device =
                      device_mod.DEFAULT_DEVICE) -> Metrics:
     """Fused TRIX signal-line crossover sweep: ``(N, T)`` closes x ``(P,)``
-    lanes (K5). ``span``/``signal`` are flat per-combo span arrays; both
-    must be integral. Matches ``run_sweep(..., "trix")`` to the same
-    flip-aware budget as :func:`fused_macd_sweep`, for the same reason."""
+    lanes (K5, on the triple-EMA table of :func:`trix_sweep_table`).
+    ``span``/``signal`` are flat per-combo span arrays; both must be
+    integral. Matches ``run_sweep(..., "trix")`` to the same flip-aware
+    budget as :func:`fused_macd_sweep`, for the same reason."""
     dev = _prologue(carry_out, None, epilogue, device)
     (close,) = _panel(dev, close)
     N, T = close.shape
     spans, widx, a_sig, warm = _trix_grid_setup(span, signal)
     tr = _check_t_real(t_real, N, T)
-    planes = trix(trix_ema_table(close, spans),
+    planes = trix(trix_sweep_table(close, spans),
                   simple_returns(close).contiguous(),
                   *_to(dev, tr, widx, a_sig, warm), cost=float(cost),
                   ppy=int(periods_per_year))

@@ -18,6 +18,9 @@ import numpy as np
 
 PEAK_FP32_FLOPS = 67e12
 PEAK_FP32_OPS = PEAK_FP32_FLOPS / 2
+# fp64 outside the tensor cores (same data sheet), counted alike.
+PEAK_FP64_FLOPS = 34e12
+PEAK_FP64_OPS = PEAK_FP64_FLOPS / 2
 PEAK_HBM_BYTES = 3.35e12
 
 # Floating-point operations per (combo, bar) below the ticker's length,
@@ -48,17 +51,40 @@ OPS_SIGNAL = {"fused_sma": 2, "band_inline": 4, "band_table": 4,
 # stochastic entry the %K from the levels (the channel's max and min, rng
 # sub, its compare, c - lo, *100, rng + eps, div, -50 = 9); donchian the
 # channel's max and min and the two breakout compares (4; the channel of
-# bar t - 1 on bar t: the warmup is window + 1).
+# bar t - 1 on bar t: the warmup is window + 1); trix the rate of change of
+# the span's triple EMA (zero test, division, -1 = 3), on every bar from
+# bar 0, where its signal line starts (csrc/ema_cross.cu).
 OPS_WINDOW = {"fused_sma": 2, "band_inline": 13, "obv": 4, "momentum": 2,
-              "band_stoch": 9, "donchian": 4}
+              "band_stoch": 9, "donchian": 4, "trix": 3}
 # The channel entries' level build, per ticker, level above the rows and
 # bar: one max and one min (csrc/extrema.cuh).
 OPS_LEVEL = 2
 # Per (combo, bar) below the ticker's length, beside the 20 of the metric
 # update, from csrc/ema_cross.cu: macd the row difference and the signal
-# EMA (sub, two muls, add = 4); trix the zero test of the previous value,
-# the division, the -1 and the signal EMA (1 + 1 + 1 + 3 = 6).
-OPS_EACH_BAR = {"macd": 4, "trix": 6}
+# EMA (sub, two muls, add = 4); trix the signal EMA (3).
+OPS_EACH_BAR = {"macd": 4, "trix": 3}
+
+# The table kernels. csrc/ema_rows.cu, per (ticker, span, bar) and ladder:
+# the input times the decay (1), then per pass of the ladder the B update's
+# multiply and add (2; A is one product a pass). csrc/pairs_tables.cu, per
+# (pair, lookback, bar): the OLS from the legs' four window sums (cov 3,
+# var 4, beta 2, alpha 6) and the spread (3 and its select) = 19, the
+# hedged return on the bar before's hedge ratio (select, mul, sub, abs,
+# add, max, div = 7), the centred spread and its square (2), z from three
+# window sums (varz 5, mz 1, sqrt, +eps, sub, div, select = 11) = 39 in
+# fp32; per (pair, bar) the centred legs and their products (4) and the two
+# legs' returns (4). In fp64: each prefix sum a conversion in and an add
+# (2) per element, four rows a pair and three a (pair, lookback); each
+# window sum a difference and its rounding to f32 (2), seven a (pair,
+# lookback, bar); the spread's mean a conversion and an add (2) per
+# element.
+OPS_LADDER_INPUT = 1
+OPS_LADDER_PASS = 2
+OPS_PAIRS_ROW = 39
+OPS_PAIRS_LEG = 8
+OPS64_PREFIX = 2
+OPS64_WINDOW = 2
+OPS64_MEAN = 2
 
 # K8 (csrc/stages.cu), per (lane, bar), by scaffold and stage: "all" counts
 # on every bar the stage walks (T_pad bars for matmul and signal, the real
@@ -80,12 +106,42 @@ STAGE_OPS = {
 }
 
 
-def bound_ms(ops: float, n_bytes: float) -> tuple[float, str]:
-    """Least time for ``ops`` single fp32 operations and ``n_bytes`` of
-    memory traffic on the H100, in ms, and which of the two bounds it."""
-    t_ops, t_bytes = ops / PEAK_FP32_OPS, n_bytes / PEAK_HBM_BYTES
+def bound_ms(ops: float, n_bytes: float,
+             ops64: float = 0.0) -> tuple[float, str]:
+    """Least time for ``ops`` single fp32 operations (and ``ops64`` fp64
+    ones, each at its type's rate) and ``n_bytes`` of memory traffic on the
+    H100, in ms, and which of the two bounds it."""
+    t_ops = ops / PEAK_FP32_OPS + ops64 / PEAK_FP64_OPS
+    t_bytes = n_bytes / PEAK_HBM_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def ladder_passes(T: int) -> int:
+    """Passes of the EMA ladder over T bars: steps 1, 2, 4, ... below T,
+    ceil(log2 T)."""
+    return max(int(T) - 1, 0).bit_length()
+
+
+def ema_rows_bound(N: int, W: int, T: int,
+                   ladders: int) -> tuple[float, str]:
+    """Bound of ``dbx_ema_rows`` (csrc/ema_rows.cu) on (N, T) rows and W
+    decays: the ladders' operations on every (ticker, span, bar), against
+    reading the rows and decays and writing the (N, W, T) table."""
+    cells = float(N) * W * T
+    ops = ladders * (OPS_LADDER_INPUT + OPS_LADDER_PASS * ladder_passes(T))
+    return bound_ms(ops * cells, 4.0 * (N * T + W) + 4.0 * cells)
+
+
+def pairs_tables_bound(N: int, W: int, T: int) -> tuple[float, str]:
+    """Bound of ``dbx_pairs_tables`` (csrc/pairs_tables.cu) on N pairs of
+    T bars and W lookbacks: its fp32 and fp64 operations, against reading
+    the legs, their means and the lookbacks and writing z and hr."""
+    rows, legs = float(N) * W * T, float(N) * T
+    return bound_ms(OPS_PAIRS_ROW * rows + OPS_PAIRS_LEG * legs,
+                    4.0 * (2 * legs + 2 * N + W) + 8.0 * rows,
+                    OPS64_PREFIX * (3 * rows + 4 * legs)
+                    + (7 * OPS64_WINDOW + OPS64_MEAN) * rows)
 
 
 def signal_bars(tr, warm, limit=None) -> float:

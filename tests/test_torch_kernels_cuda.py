@@ -1,4 +1,5 @@
-"""K1-K8 (``csrc/*.cu``) against their plain PyTorch versions on the card.
+"""K1-K8 and the table kernels (``csrc/*.cu``) against their plain PyTorch
+versions on the card.
 
 Marked ``cuda``: every test skips with a reason where no CUDA card is
 present (the kernels have no CPU mode). On a machine with a card, and without
@@ -13,22 +14,27 @@ identical (n_trades and turnover bit-equal) and the other metrics agree at
 rtol=2e-4, atol=2e-5; the window-major entries (K2's table and stochastic
 entries, K3's donchian) take their lanes sorted by window, as their sweeps
 pass them, and must be bit-equal in every metric, as must the tile entries
-(K1, K2's inline entry and K6, which share each window's value across the
-lanes of a CTA) at every CTA width, and K3's momentum entry. On returns
-that drive equity to +-inf and NaN, K1 and momentum give NaN where their
-plain versions do and every other value bit-equal.
+(K1, K2's inline entry, K5 and K6, which share each window's value across
+the lanes of a CTA) at every CTA width, and K3's momentum entry. On returns
+that drive equity to +-inf and NaN, K1, momentum and K5 give NaN where
+their plain versions do and every other value bit-equal. The table kernels
+(``dbx_ema_rows``, ``dbx_pairs_tables``) equal their plain versions
+(``trix_ema_table`` and ``macd_ema_table``, ``pairs_tables_plain``) bit
+for bit, on rows staged in shared memory and on long rows in device
+memory.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from distributed_backtesting_exploration_tpu_torch.models import pairs
 from distributed_backtesting_exploration_tpu_torch.ops import (
     _kernels, fused, rolling, stages)
 from distributed_backtesting_exploration_tpu_torch.parallel import sweep
 from distributed_backtesting_exploration_tpu_torch.utils import data
 
-from torch_parity import ATOL, RTOL, crafted_returns
+from torch_parity import ATOL, RTOL, assert_metrics_match, crafted_returns
 
 pytestmark = pytest.mark.cuda
 
@@ -215,10 +221,10 @@ def _macd_inputs(dev, n, T, seed, lens=None):
             *fused._to(dev, fidx, sidx, a_sig, warm))
 
 
-def _trix_inputs(dev, n, T, seed, lens=None):
+def _trix_inputs(dev, n, T, seed, lens=None, spans=(3, 8, 100),
+                 signals=(2, 9)):
     close, _, _, tr, r = _panel(dev, n, T, seed, lens)
-    g = sweep.product_grid(span=np.float32([3, 8, 100]),
-                           signal=np.float32([2, 9]))
+    g = sweep.product_grid(span=np.float32(spans), signal=np.float32(signals))
     spans, widx, a_sig, warm = fused._trix_grid_setup(g["span"].numpy(),
                                                       g["signal"].numpy())
     return (fused.trix_ema_table(close, spans), r, tr,
@@ -314,7 +320,7 @@ _NEW_ENTRIES = {
 # The window-major entries and the tile entries: held bit-equal.
 _EXACT = {e for e in _NEW_ENTRIES
           if e.startswith(("band_table", "band_stoch", "donchian",
-                           "band_inline", "momentum", "obv"))}
+                           "band_inline", "momentum", "obv", "trix"))}
 
 
 @pytest.mark.parametrize("entry", sorted(_NEW_ENTRIES))
@@ -407,6 +413,7 @@ _TILE_ENTRIES = {
                           fused.band_inline_plain,
                           {"machine": "touch", "z_exit": 0.0}),
     "obv": (_obv_inputs, fused.obv_cuda, fused.obv_plain, {}),
+    "trix": (_trix_inputs, fused.trix_cuda, fused.trix_plain, {}),
 }
 # The tile entries' cases, which K3 momentum's per-lane read runs too.
 _CASE_ENTRIES = {**_TILE_ENTRIES,
@@ -421,6 +428,8 @@ _MANY_WINDOWS = {
                           "windows": np.arange(5, 301)},
     _obv_inputs: {"windows": _WIDE},
     _momentum_inputs: {"lookbacks": _WIDE},
+    # 399 spans x 2 signals: tiles straddle spans at every width.
+    _trix_inputs: {"spans": np.arange(2, 401)},
 }
 _TILE_CASES = {
     # The old kernels' unstaged branch, now the same code.
@@ -445,9 +454,10 @@ def test_tile_entries_match_plain(cuda, entry, case):
 @pytest.mark.parametrize("entry", sorted(_TILE_ENTRIES))
 def test_tile_entries_match_plain_at_every_width(cuda, monkeypatch, entry,
                                                  lanes):
-    # 400 (K1), 96 (K2) and 5 (K6) lanes: a ragged last tile at most
-    # widths.
-    for name in ("_SMA_LANES", "_BAND_INLINE_LANES", "_OBV_LANES"):
+    # 400 (K1), 96 (K2), 5 (K6) and 6 (K5) lanes: a ragged last tile at
+    # most widths.
+    for name in ("_SMA_LANES", "_BAND_INLINE_LANES", "_OBV_LANES",
+                 "_TRIX_LANES"):
         monkeypatch.setattr(fused, name, lanes)
     build, kernel, plain, kw = _TILE_ENTRIES[entry]
     inputs = build(cuda, 3, 300, 9, lens=np.asarray([300, 251, 170]))
@@ -467,7 +477,7 @@ def test_tile_entries_refuse_a_width_they_cannot_launch(cuda, lanes):
 
 
 @pytest.mark.parametrize("cost", [0.0, 1e-3])
-@pytest.mark.parametrize("entry", ["fused_sma", "momentum"])
+@pytest.mark.parametrize("entry", ["fused_sma", "momentum", "trix"])
 def test_crafted_returns_match_plain(cuda, entry, cost):
     # NaN where the plain version has NaN, every other value bit-equal:
     # the metric update propagates NaN as torch's max and clamp do.
@@ -546,7 +556,7 @@ def test_ema_launch_counters_count_kernel_launches_only(cuda):
     fused.fused_keltner_sweep(p.close, p.high, p.low, [20.0], [1.5],
                               device="cuda")
     torch.cuda.synchronize()
-    assert dict(_kernels.LAUNCHES) == {"macd": 1, "trix": 1,
+    assert dict(_kernels.LAUNCHES) == {"macd": 1, "trix": 1, "ema_rows": 1,
                                        "band_table": 2}
 
 
@@ -580,7 +590,7 @@ def test_volume_and_pairs_launch_counters_count_kernel_launches_only(cuda):
                             device="cuda")
     torch.cuda.synchronize()
     assert dict(_kernels.LAUNCHES) == {"obv": 1, "band_table": 1,
-                                       "pairs": 1}
+                                       "pairs": 1, "pairs_tables": 1}
 
 
 def test_volume_and_pairs_wrappers_check_their_inputs(cuda):
@@ -594,6 +604,145 @@ def test_volume_and_pairs_wrappers_check_their_inputs(cuda):
     with pytest.raises(ValueError, match="is on"):
         fused.pairs_cuda(z, hr, tr, widx, k, zx.cpu(), warm, cost=0.0,
                          ppy=252)
+
+
+# --- the table kernels (csrc/ema_rows.cu, csrc/pairs_tables.cu) ------------
+
+def _bits(x):
+    return x.view(torch.int32)
+
+
+@pytest.mark.parametrize("n,T,seed,lens", [
+    (3, 200, 0, None),
+    (2, 251, 5, None),
+    (3, 300, 9, [300, 251, 170]),      # ragged: padded by the last bar
+    (2, 13000, 4, None),               # rows on scratch in device memory
+    (2, 1, 3, None),
+    (2, 2, 3, None),
+])
+def test_ema_rows_match_trix_ema_table(cuda, n, T, seed, lens):
+    close, _, _, _, _ = _panel(cuda, n, T, seed, lens)
+    spans = np.float32([2, 3, 8, 14, 100])
+    got = fused.ema_rows_cuda(close, fused.ema_decay(cuda, spans), 3)
+    ref = fused.trix_ema_table(close, spans)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(ref))
+
+
+@pytest.mark.parametrize("T", [200, 13000])
+def test_ema_rows_one_ladder_match_macd_ema_table(cuda, T):
+    close, _, _, _, _ = _panel(cuda, 2, T, 6)
+    spans = np.float32([5, 12, 26, 300])
+    got = fused.ema_rows_cuda((close - close[:, :1]).contiguous(),
+                              fused.ema_decay(cuda, spans), 1)
+    assert torch.equal(_bits(got), _bits(fused.macd_ema_table(close, spans)))
+
+
+def _pairs_table_args(dev, n, T, seed, lens=None,
+                      lookbacks=(1, 5, 20, 300)):
+    closes = data.synthetic_ohlcv(2 * n, T, seed=seed).close
+    for i, m in enumerate(lens if lens is not None else ()):
+        closes[[i, n + i], m:] = closes[[i, n + i], m - 1:m]
+    y, x = (torch.as_tensor(c, device=dev).contiguous()
+            for c in (closes[:n], closes[n:]))
+    windows = torch.tensor(lookbacks, dtype=torch.int32, device=dev)
+    return y, x, x.mean(dim=1), y.mean(dim=1), windows
+
+
+@pytest.mark.parametrize("n,T,seed,lens", [
+    (3, 200, 0, None),
+    (2, 251, 5, None),
+    (3, 300, 9, [300, 251, 170]),
+    (2, 3500, 4, None),                # three lookbacks a CTA, then one
+    (1, 5000, 4, None),                # rows on scratch in device memory
+    (1, 13000, 4, None),
+    (2, 1, 3, None),
+    (2, 2, 3, None),
+])
+def test_pairs_tables_match_plain(cuda, n, T, seed, lens):
+    args = _pairs_table_args(cuda, n, T, seed, lens)
+    got = fused.pairs_tables_cuda(*args)
+    ref = fused.pairs_tables_plain(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert torch.isfinite(a).all()
+        assert torch.equal(_bits(a), _bits(b))
+
+
+def test_table_kernels_count_their_launches_and_check_inputs(cuda):
+    close, _, _, _, _ = _panel(cuda, 2, 80, 1)
+    decay = fused.ema_decay(cuda, np.float32([5, 9]))
+    args = _pairs_table_args(cuda, 2, 80, 1)
+    _kernels.reset_launch_counts()
+    fused.trix_ema_table(close, np.float32([5, 9]))
+    fused.pairs_tables_plain(*args)
+    assert sum(_kernels.LAUNCHES.values()) == 0
+    fused.ema_rows_cuda(close, decay, 3)
+    fused.pairs_tables_cuda(*args)
+    torch.cuda.synchronize()
+    assert dict(_kernels.LAUNCHES) == {"ema_rows": 1, "pairs_tables": 1}
+    with pytest.raises(ValueError, match="ladders"):
+        fused.ema_rows_cuda(close, decay, 4)
+    with pytest.raises(TypeError, match="float32"):
+        fused.ema_rows_cuda(close.double(), decay, 3)
+    with pytest.raises(ValueError, match="is on"):
+        fused.ema_rows_cuda(close, decay.cpu(), 3)
+    # A CTA per pair and group of lookbacks, fewer for longer rows, then
+    # scratch in device memory.
+    assert fused.pairs_tables_plan(1260, 10) == (10, 0)
+    assert fused.pairs_tables_plan(200, 4) == (4, 0)
+    assert fused.pairs_tables_plan(3000, 10) == (4, 0)
+    assert fused.pairs_tables_plan(3500, 4) == (3, 0)
+    # The legs' four f64 prefix rows and two f32 rows, then the spreads'
+    # 2 x 10 rows beside their 2 x 10 sum rows (pitch 5025, 13025), in
+    # multiples of 32 floats.
+    assert fused.pairs_tables_plan(5000, 10) == (10, 201024)
+    assert fused.pairs_tables_plan(13000, 10) == (10, 521024)
+    y, x, mx, my, windows = args
+    with pytest.raises(TypeError, match="int32"):
+        fused.pairs_tables_cuda(y, x, mx, my, windows.long())
+    with pytest.raises(ValueError, match="shape"):
+        fused.pairs_tables_cuda(y, x[:1], mx, my, windows)
+
+
+def test_fused_pairs_sweep_builds_no_other_table_on_the_card(cuda):
+    # z and hr are the only (N, W, T) tensors the card's pairs sweep holds.
+    closes = data.synthetic_ohlcv(64, 1260, seed=2).close
+    lookbacks = np.arange(20, 70, 5, dtype=np.float32)
+    g = sweep.product_grid(lookback=lookbacks,
+                           z_entry=np.linspace(0.5, 3.0, 10, dtype=np.float32))
+    y, x = (torch.as_tensor(c, device=cuda) for c in (closes[:32],
+                                                       closes[32:]))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    m = fused.fused_pairs_sweep(y, x, g["lookback"].numpy(),
+                                g["z_entry"].numpy(), device="cuda")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del m
+    table = 4 * 32 * lookbacks.size * 1260
+    assert peak < 3 * table
+
+
+def test_fused_pairs_sweep_on_the_card_holds_the_budget_against_f64(cuda):
+    # The card's tables (windowed sums rounded once from f64) against the
+    # generic pairs sweep with its legs in f64: the flip-aware budget.
+    closes = data.synthetic_ohlcv(16, 1260, seed=132).close
+    g = sweep.product_grid(lookback=np.arange(20, 70, 5, dtype=np.float32),
+                           z_entry=np.linspace(0.5, 3.0, 50,
+                                               dtype=np.float32))
+    y, x = (torch.as_tensor(c, device=cuda) for c in (closes[:8],
+                                                       closes[8:]))
+    got = fused.fused_pairs_sweep(y, x, g["lookback"].numpy(),
+                                  g["z_entry"].numpy(), cost=1e-3,
+                                  device="cuda")
+    y64, x64 = (leg.double()[:, None, :] for leg in (y, x))
+    witness = sweep.map_param_chunks(
+        g, 8 * 1260, cuda,
+        lambda sub: pairs.pair_backtest(y64, x64, sub, cost=1e-3))
+    assert_metrics_match(got, witness, rtol=2e-3, atol=2e-4,
+                         drift_counts=True)
 
 
 # --- K8: the roofline stage scaffolds (csrc/stages.cu) ----------------------
