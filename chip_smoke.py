@@ -4,6 +4,10 @@ Run from the repository root with one CUDA card visible:
 
     python3 chip_smoke.py
 
+(``python3 chip_smoke.py --sass DIR`` prints only the SASS instructions a
+bar of the kernels' metric loops built from another tree's ``csrc/``
+``DIR``, to set beside this tree's: :func:`sass_of`.)
+
 Phases (each asserts; any failure exits non-zero and prints no result):
 
 1. The card's name and power limit (nvidia-smi), and CUDA must be present.
@@ -19,11 +23,11 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    entry on the 1000-combo stochastic grid, each with both machines
    (hysteresis, touch); K3's momentum entry on 2000 lookback lanes and its
    donchian entry on the 1000-lane high/low grid; K4 (macd) and K5 (trix)
-   on their 1000-combo EMA tables (trix's built on the card by
+   on their 1000-combo EMA tables (built on the card by
    ``dbx_ema_rows``); K6 (obv) on the 2000-lane OBV grid; K7 (pairs) on
    1000 pairs x 1260 bars x the 500-combo pairs grid, its small cases on
-   32 pairs, its tables built on the card by ``dbx_pairs_tables``; the SASS
-   a bar of K7's metric loop and of K2's table entry's. The window-major
+   32 pairs, its tables built on the card by ``dbx_pairs_tables``;
+   the SASS a bar of K2's table entry's metric loop. The window-major
    entries (K2's table and stochastic entries, K3's donchian) take their
    lanes sorted by window, as their sweeps pass them, and run two more
    cases: long rows (4 x 5000, where the channel levels live in device
@@ -32,22 +36,25 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    windows, held against the plain version in the caller's lane order,
    and launched in that order too. Their registers, resident warps an SM
    and shared memory are printed (``csrc/occupancy.cuh``). The tile
-   entries (K1, K2's inline entry, K5 and K6, which form each window's
-   value once per bar block in shared memory, ``csrc/bar_blocks.cuh``) and
-   K3's momentum entry run three more cases: long rows (4 x 13000), a grid
-   of many distinct windows (K1 fast 2..129 x slow 130..400, K2 8 k x
-   window 5..300, K5 spans 2..400 x 2 signals, K6 and momentum windows
-   2..400 three times, on 4 x 1260) and
+   entries (K1, K2's inline entry, K4, K5, K6 and K7, which form each
+   window's value once per bar block in shared memory,
+   ``csrc/bar_blocks.cuh``) and K3's momentum entry run three more cases:
+   long rows (4 x 13000), a grid of many distinct windows (K1 fast 2..129
+   x slow 130..400, K2 8 k x window 5..300, K4 fast 2..41 x slow 42..400
+   step 9 x 2 signals, K5 spans 2..400 x 2 signals, K6 and momentum
+   windows 2..400 three times, K7 lookbacks 2..400 x 2 z_entry, on 4 x
+   1260, K7 on 4 pairs) and
    eight histories that end mid-block and are shorter than most windows;
    then the tile entries sweep their CTA width (128-1024 lanes), bit-equal
    and timed at each; their build report and the per-bar instruction count
    of their metric loop in the SASS (``cuobjdump -sass``, :func:`_per_bar`)
    are printed. Their kernel time is the kernel alone, with the tiles'
    window lists built beforehand; the time through the wrapper, which
-   builds them with torch ops, is printed beside it. K1, momentum and K5
-   also run crafted returns (8 x 1260, cost 0 and 1e-3) that drive equity
-   through 0, below 0, to +-inf and to NaN: NaN where the plain version
-   has NaN, every other value bit-equal. Positions must be identical, so
+   builds them with torch ops, is printed beside it. K1, momentum, K4, K5
+   and K7 (the crafted rows as its hedged returns) also run crafted
+   returns (8 x 1260, cost 0 and 1e-3) that drive equity through 0, below
+   0, to +-inf and to NaN: NaN where the plain version has NaN, every
+   other value bit-equal. Positions must be identical, so
    n_trades and turnover (sums of small integers) must be bit-equal; every
    other metric must agree at rtol=2e-4, atol=2e-5, and for the
    window-major and tile entries and momentum every metric must be
@@ -55,7 +62,8 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    Then the table kernels: ``dbx_ema_rows`` (``csrc/ema_rows.cu``) against
    ``trix_ema_table`` on trix's table of the main path's panel, 32 ragged
    rows, T=251 and long rows (4 x 13000, in device memory), and with one
-   ladder against ``macd_ema_table``; ``dbx_pairs_tables``
+   ladder against ``macd_ema_table`` on macd's (timed too);
+   ``dbx_pairs_tables``
    (``csrc/pairs_tables.cu``) against ``pairs_tables_plain`` on K7's four
    cases and long rows (4 x 3000, four lookbacks a CTA, and 2 x 13000 in
    device memory): every value bit-equal; each timed at its main path's shape beside its bound and
@@ -121,7 +129,8 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    (N, W, T) table on the card: their peak allocation during a 500-ticker
    sweep stays below one int8 breakout-sign table of that grid; the pairs
    sweep's stays below three f32 (N, W, T) tables (z, hr and less than one
-   more). trix's and pairs' main paths must launch their table kernels.
+   more). macd's, trix's and pairs' main paths must launch their table
+   kernels.
    K8's main path is the port bench (``python -m
    distributed_backtesting_exploration_tpu_torch.bench``), run here
    in-process on every config with 3 timed iterations: every config must
@@ -182,7 +191,8 @@ FAMILIES = {s: (AXES[s], roofline.ENTRY[s], c) for s, c in CHECKS.items()}
 # fused path's row count, and positions must then be identical.
 SAME_ORDER_AXIS = {"vwap_reversion": "k"}
 # The kernel that builds a strategy's table on its main path.
-TABLE_KERNELS = {"trix": "ema_rows", "pairs": "pairs_tables"}
+TABLE_KERNELS = {"macd": "ema_rows", "trix": "ema_rows",
+                 "pairs": "pairs_tables"}
 # The families whose fused path takes its windowed moments on the card as
 # f64 differences of f64 prefix sums, rounded once (csrc/pairs_tables.cu),
 # nearer exact arithmetic than the generic path's f32 sums, which cancel:
@@ -391,19 +401,19 @@ def _k1_bound_ms(inputs) -> tuple[float, str]:
                   OPS_WINDOW["fused_sma"] * per_window)
 
 
-# The tile entries (K1, K2's inline entry and K6, csrc/bar_blocks.cuh): the
-# CTA widths of the width sweep, and the further cases that hold them (and
-# momentum) bit-equal to their plain versions: long rows, a grid of many
-# distinct windows, and histories that end mid-block and are shorter than
-# most windows.
+# The tile entries (K1, K2's inline entry, K4, K5, K6 and K7,
+# csrc/bar_blocks.cuh): the CTA widths of the width sweep, and the further
+# cases that hold them (and momentum) bit-equal to their plain versions:
+# long rows, a grid of many distinct windows, and histories that end
+# mid-block and are shorter than most windows.
 TILE_LANES = (128, 256, 512, 1024)
 LONG_TILE_ROWS = (4, 13000)
 SHORT_LENS = np.asarray([1, 5, 63, 65, 100, 127, 129, 700])
 
 
-def _short_histories(data, n_bars=N_BARS):
-    """Eight tickers padded by repeating their last bar past SHORT_LENS."""
-    panel = data.synthetic_ohlcv(SHORT_LENS.size, n_bars, seed=8)
+def _short_histories(panel):
+    """The SHORT_LENS.size rows of each array of ``panel`` (an OHLCV panel,
+    or a pair's legs) padded by repeating their last bar past SHORT_LENS."""
     for f in panel:
         for i, n in enumerate(SHORT_LENS):
             f[i, n:] = f[i, n - 1]
@@ -413,8 +423,10 @@ def _short_histories(data, n_bars=N_BARS):
 # Each tile entry's library and the C entry of its build report.
 TILE_REPORTS = {"fused_sma": ("fused_sma", "dbx_fused_sma_occupancy"),
                 "band_inline": ("band_machine", "dbx_band_inline_occupancy"),
+                "macd": ("ema_cross", "dbx_macd_occupancy"),
                 "obv": ("fused_sma", "dbx_obv_occupancy"),
-                "trix": ("ema_cross", "dbx_trix_occupancy")}
+                "trix": ("ema_cross", "dbx_trix_occupancy"),
+                "pairs": ("band_machine", "dbx_pairs_occupancy")}
 
 
 def _tile_report(fused, entry: str, lanes: int, *windows) -> dict:
@@ -555,6 +567,32 @@ def _trix_launch(fused, inputs, kw, lanes):
                                            ppy=kw["ppy"])
 
 
+def _macd_launch(fused, inputs, kw, lanes):
+    """K4 as :func:`_k1_launch`."""
+    tbl, r, tr, fidx, sidx, a_sig, warm = inputs
+    tiles = fused.window_tiles(lanes, _macd_keys(fused, inputs)[0])
+    out = torch.empty((9, tbl.shape[0], fidx.shape[0]), device=tbl.device)
+    return out, lambda: fused._launch_macd(tbl, r, tr, tiles, a_sig, warm,
+                                           out, lanes, cost=kw["cost"],
+                                           ppy=kw["ppy"])
+
+
+def _pairs_launch(fused, inputs, kw, lanes):
+    """K7 as :func:`_k1_launch`."""
+    z, hr, tr, widx, k, zx, warm = inputs
+    tiles = fused.window_tiles(lanes, widx)
+    out = torch.empty((9, z.shape[0], widx.shape[0]), device=z.device)
+    return out, lambda: fused._launch_pairs(z, hr, tr, tiles, k, zx, warm,
+                                            out, lanes, cost=kw["cost"],
+                                            ppy=kw["ppy"])
+
+
+def _macd_keys(fused, inputs) -> tuple:
+    """K4's tile keys (``fused.macd_keys``) of its inputs, as a 1-tuple."""
+    tbl, _, _, fidx, sidx, *_ = inputs
+    return (fused.macd_keys(fidx, sidx, tbl.shape[1]),)
+
+
 def _width_sweep(launch, plain_ref, label) -> dict:
     """A tile entry at every width of TILE_LANES (``launch(lanes)`` as
     :func:`_k1_launch` gives it): bit-equal to its plain version's planes
@@ -622,8 +660,9 @@ def phase_kernels(kernels_mod, fused, pnl, data) -> dict:
         COST))
     errs.append(_k1_compare(
         fused, f"short histories {SHORT_LENS.tolist()} x2000",
-        _k1_inputs(fused, pnl, _short_histories(data).close, SHORT_LENS,
-                   grid_f, grid_s), COST))
+        _k1_inputs(fused, pnl, _short_histories(data.synthetic_ohlcv(
+            SHORT_LENS.size, N_BARS, seed=8)).close, SHORT_LENS, grid_f,
+            grid_s), COST))
     crafted = _with_returns(
         _k1_inputs(fused, pnl, head[:8], None, grid_f, grid_s), 1,
         _crafted_returns(N_BARS))
@@ -651,8 +690,9 @@ def phase_kernels(kernels_mod, fused, pnl, data) -> dict:
           f"{bound_ms:.4f} ms ({bound_by})")
     occupancy = _tile_report(fused, "fused_sma", fused._SMA_LANES,
                              *main_in[3:5])
-    loops = _sass_loops(kernels_mod, "fused_sma", "fused_sma_kernel")
-    print(f"k1 fused_sma at the headline: {occupancy}; SASS loops {loops}")
+    loops, per_bar = _loop_sass(kernels_mod, "fused_sma")
+    print(f"k1 fused_sma at the headline: {occupancy}; SASS a bar "
+          f"{per_bar[None]}; loops {loops}")
     return {"name": "fused_sma", "route": "cuda",
             "source": f"{PKG}/csrc/fused_sma.cu",
             "replaces": f"{REF}:728",
@@ -663,7 +703,7 @@ def phase_kernels(kernels_mod, fused, pnl, data) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "wrapper_ms": wrapper_ms, "width_ms": widths,
             "occupancy": occupancy,
-            "sass_per_bar": _per_bar(loops)}
+            "sass_per_bar": per_bar[None]}
 
 
 # --- K2 and K3: inputs of each entry as its sweep wrapper prepares them ---
@@ -735,12 +775,12 @@ def _keltner_table_inputs(fused, pnl, panel, t_real):
     return (z, r, tr, *_lanes(fused, dev, widx, widx, g["k"], warm))
 
 
-def _macd_inputs(fused, pnl, panel, t_real):
+def _macd_inputs(fused, pnl, panel, t_real, axes=None):
     dev, close, _, _, tr, r = _common(fused, pnl, panel, t_real)
-    g = _flat_grid(AXES["macd"])
+    g = _flat_grid(axes or AXES["macd"])
     spans, fidx, sidx, a_sig, warm = fused._macd_grid_setup(
         g["fast"], g["slow"], g["signal"])
-    return (fused.macd_ema_table(close, spans), r, tr,
+    return (fused.macd_sweep_table(close, spans), r, tr,
             *fused._to(dev, fidx, sidx, a_sig, warm))
 
 
@@ -774,10 +814,10 @@ def _obv_inputs(fused, pnl, panel, t_real, axes=None):
             tr, *fused._to(dev, win, warm))
 
 
-def _pairs_inputs(fused, pnl, legs, t_real):
+def _pairs_inputs(fused, pnl, legs, t_real, axes=None):
     dev = torch.device("cuda")
     y, x = (torch.as_tensor(c, device=dev).contiguous() for c in legs)
-    g = _flat_grid(AXES["pairs"])
+    g = _flat_grid(axes or AXES["pairs"])
     windows, widx, k, zx, warm = fused._pairs_grid_setup(
         g["lookback"], g["z_entry"], 0.0)
     z, hr = fused.pairs_sweep_tables(y, x, windows)
@@ -789,6 +829,13 @@ def _pairs_legs(data, n_pairs, n_bars, seed):
     closes = data.synthetic_ohlcv(2 * n_pairs, n_bars, seed=seed)
     return (data.OHLCV(*(f[:n_pairs] for f in closes)),
             data.OHLCV(*(f[n_pairs:] for f in closes)))
+
+
+def _pairs_panel(data, n_pairs, n_bars, seed):
+    """K7's inputs' source for a case: the (y, x) close legs of
+    ``n_pairs`` pairs."""
+    return tuple(leg.close for leg in _pairs_legs(data, n_pairs, n_bars,
+                                                  seed))
 
 
 def _pairs_cases(data):
@@ -843,15 +890,12 @@ class Tile(NamedTuple):
     """What a tile entry (``csrc/bar_blocks.cuh``) reports beside its
     cases: the launch of its kernel alone on tiles built beforehand
     (``launch(fused, inputs, kw, lanes)`` as :func:`_k1_launch`), the name
-    of its shipped width in ``ops/fused.py``, the position of each lane's
-    window in its inputs, its library and its kernels' names in the SASS
-    (by machine)."""
+    of its shipped width in ``ops/fused.py``, and ``windows(fused,
+    inputs)``, the lanes' windows its wrapper builds the tiles of."""
 
     launch: Callable
     lanes: str
-    window_at: int
-    lib: str
-    sass: dict
+    windows: Callable
 
 
 class Entry(NamedTuple):
@@ -865,7 +909,10 @@ class Entry(NamedTuple):
     of many distinct windows) is held bit-equal and runs the long-row,
     many-window and short-history cases; a tile entry (``tile``) also the
     width sweep. ``returns_at``: the position of the returns in the inputs
-    of an entry that also runs the crafted returns."""
+    of an entry that also runs the crafted returns (K7: its hedged-return
+    table, each row of a pair the crafted row). ``panel(data, n, T,
+    seed)`` makes what ``build`` takes for those further cases (None: an
+    OHLCV panel of n tickers)."""
 
     tag: str
     line: int
@@ -880,10 +927,17 @@ class Entry(NamedTuple):
     wide_axes: dict | None = None
     tile: Tile | None = None
     returns_at: int | None = None
+    panel: Callable | None = None
 
 
 # Many distinct windows on one axis: 399 a list, tiled three times.
 WIDE_WINDOWS = np.tile(np.arange(2, 401, dtype=np.float32), 3)
+
+
+def _at(i: int) -> Callable:
+    """A Tile's ``windows``: the lanes' windows at position ``i`` of the
+    inputs."""
+    return lambda fused, inputs: (inputs[i],)
 
 
 def _entries(fused):
@@ -897,10 +951,7 @@ def _entries(fused):
                                         "window": np.arange(
                                             5, 301, dtype=np.float32)},
                              tile=Tile(_inline_launch, "_BAND_INLINE_LANES",
-                                       6, "band_machine",
-                                       {m: f"band_inline_kernelILi{code}E"
-                                        for m, code in
-                                        fused._MACHINES.items()})),
+                                       _at(6))),
         "band_table": Entry("k2", 1166, "band_machine.cu",
                             _rsi_table_inputs, 2, fused.band_table_cuda,
                             fused.band_machine_plain,
@@ -917,22 +968,31 @@ def _entries(fused):
                           4, fused.donchian_cuda, fused.donchian_plain,
                           (None,), n_lane=2),
         "macd": Entry("k4", 2661, "ema_cross.cu", _macd_inputs, 2,
-                      fused.macd_cuda, fused.macd_plain, (None,)),
+                      fused.macd_cuda, fused.macd_plain, (None,),
+                      wide_axes={"fast": np.arange(2, 42, dtype=np.float32),
+                                 "signal": np.float32([3, 9]),
+                                 "slow": np.arange(42, 401, 9,
+                                                   dtype=np.float32)},
+                      tile=Tile(_macd_launch, "_MACD_LANES", _macd_keys),
+                      returns_at=1),
         "trix": Entry("k5", 3009, "ema_cross.cu", _trix_inputs, 2,
                       fused.trix_cuda, fused.trix_plain, (None,),
                       wide_axes={"signal": np.float32([3, 9]),
                                  "span": np.arange(2, 401, dtype=np.float32)},
-                      tile=Tile(_trix_launch, "_TRIX_LANES", 3, "ema_cross",
-                                {None: "trix_kernel"}),
+                      tile=Tile(_trix_launch, "_TRIX_LANES", _at(3)),
                       returns_at=1),
         "obv": Entry("k6", 2841, "fused_sma.cu", _obv_inputs, 3,
                      fused.obv_cuda, fused.obv_plain, (None,),
                      wide_axes={"window": WIDE_WINDOWS},
-                     tile=Tile(_obv_launch, "_OBV_LANES", 4, "fused_sma",
-                               {None: "obv_kernel"})),
+                     tile=Tile(_obv_launch, "_OBV_LANES", _at(4))),
         "pairs": Entry("k7", 1482, "band_machine.cu", _pairs_inputs, 2,
                        fused.pairs_cuda, fused.pairs_plain, (None,),
-                       _pairs_cases),
+                       _pairs_cases,
+                       wide_axes={"lookback": np.arange(2, 401,
+                                                        dtype=np.float32),
+                                  "z_entry": np.float32([1.0, 2.0])},
+                       tile=Tile(_pairs_launch, "_PAIRS_LANES", _at(3)),
+                       returns_at=1, panel=_pairs_panel),
     }
 
 
@@ -952,12 +1012,21 @@ def _level_ops(tr, window) -> float:
                      for n in tr.cpu().tolist()))
 
 
-def _entry_bound(entry, e: Entry, inputs):
+def _n_series(fused, entry, inputs) -> int:
+    """The distinct series a ticker's lanes of trix or macd read: the
+    table's spans (trix), the lanes' (fast, slow) pairs (macd)."""
+    if entry == "trix":
+        return inputs[0].shape[1]
+    return int(torch.unique(_macd_keys(fused, inputs)[0]).numel())
+
+
+def _entry_bound(fused, entry, e: Entry, inputs):
     tr = inputs[e.tr_at]
     warm = inputs[-2] if e.n_lane else inputs[-1]
-    if entry == "trix":
-        # The rate of change once per (ticker, span, bar) from bar 0.
-        extra = OPS_WINDOW[entry] * inputs[0].shape[1] * float(
+    if entry in ("trix", "macd"):
+        # The rate of change or the macd line once per (ticker, distinct
+        # series, bar) from bar 0.
+        extra = OPS_WINDOW[entry] * _n_series(fused, entry, inputs) * float(
             tr.double().sum())
     else:
         # The per-window work once per (ticker, distinct window), from its
@@ -969,6 +1038,15 @@ def _entry_bound(entry, e: Entry, inputs):
     return _bound(tr, warm, warm.shape[0],
                   OPS_PER_BAR + OPS_EACH_BAR.get(entry, 0),
                   OPS_SIGNAL[entry], _entry_bytes(inputs), extra)
+
+
+def _macd_lane_bound(inputs):
+    """K4's bound with the macd line counted on every lane, the count of
+    its kernel before it ran on tiles."""
+    tr, warm = inputs[2], inputs[-1]
+    return _bound(tr, warm, warm.shape[0],
+                  OPS_PER_BAR + OPS_EACH_BAR["macd"] + OPS_WINDOW["macd"],
+                  OPS_SIGNAL["macd"], _entry_bytes(inputs))
 
 
 def _lane_cases(data, entry: str, e: Entry):
@@ -986,6 +1064,14 @@ def _lane_cases(data, entry: str, e: Entry):
              True)]
 
 
+def _panel_of(data, e: Entry, n: int, T: int, seed: int):
+    """What ``e.build`` takes for a further case of n tickers (K7: n
+    pairs) of T bars."""
+    if e.panel is not None:
+        return e.panel(data, n, T, seed)
+    return data.synthetic_ohlcv(n, T, seed=seed)
+
+
 def _tile_cases(data, e: Entry):
     """The further runs of an entry with ``wide_axes``: (label, inputs
     function, panel, t_real, cost, caller order)."""
@@ -994,12 +1080,24 @@ def _tile_cases(data, e: Entry):
 
     def wide(fused, pnl, panel, t_real):
         return e.build(fused, pnl, panel, t_real, axes=e.wide_axes)
-    return [(f"long rows {n}x{T}", e.build,
-             data.synthetic_ohlcv(n, T, seed=5), None, COST, False),
+    return [(f"long rows {n}x{T}", e.build, _panel_of(data, e, n, T, 5),
+             None, COST, False),
             (f"many windows 4x{N_BARS}x{n_wide}", wide,
-             data.synthetic_ohlcv(4, N_BARS, seed=6), None, COST, False),
+             _panel_of(data, e, 4, N_BARS, 6), None, COST, False),
             (f"short histories {SHORT_LENS.tolist()}", e.build,
-             _short_histories(data), SHORT_LENS, COST, False)]
+             _short_histories(_panel_of(data, e, SHORT_LENS.size, N_BARS,
+                                        8)), SHORT_LENS, COST, False)]
+
+
+def _crafted_inputs(inputs, at: int):
+    """``inputs`` with the returns at position ``at`` the crafted returns
+    (:func:`_crafted_returns`); a (N, W, T) table of returns (K7's hedged
+    returns) takes each ticker's crafted row on every one of its rows."""
+    r = _crafted_returns(N_BARS)
+    if inputs[at].ndim == 3:
+        r = np.ascontiguousarray(np.broadcast_to(r[:, None, :],
+                                                 inputs[at].shape))
+    return _with_returns(inputs, at, r)
 
 
 def _occupancy(fused, entry: str, T: int) -> dict:
@@ -1039,20 +1137,38 @@ def _caller_order(inputs, n_lane: int):
     return (*head[:-n_lane], *per_lane, ident)
 
 
-# The per-lane entries whose metric loop's SASS a bar is printed: K7, and
-# K2's table entry (hysteresis, rows staged), which runs the same band
-# machine and metric update.
-LOOP_SASS = {"band_table": ("band_source_kernelILi0E", "TableZILb1E"),
-             "pairs": "pairs_kernel"}
+# The entries whose metric loop's SASS a bar is printed: entry ->
+# (library, {machine: the kernel's name in the SASS, or parts of it}). K2's
+# table entry is its hysteresis kernel on rows staged.
+LOOP_SASS = {
+    "fused_sma": ("fused_sma", {None: "fused_sma_kernel"}),
+    "band_inline": ("band_machine",
+                    {"hysteresis": "band_inline_kernelILi0E",
+                     "touch": "band_inline_kernelILi1E"}),
+    "band_table": ("band_machine",
+                   {None: ("band_source_kernelILi0E", "TableZILb1E")}),
+    "macd": ("ema_cross", {None: "macd_kernel"}),
+    "trix": ("ema_cross", {None: "trix_kernel"}),
+    "obv": ("fused_sma", {None: "obv_kernel"}),
+    "pairs": ("band_machine", {None: "pairs_kernel"}),
+}
+
+
+def _loop_sass(kernels_mod, entry: str) -> tuple[dict, dict]:
+    """The SASS loops (:func:`_sass_loops`) of ``LOOP_SASS[entry]``'s
+    kernels and their instructions a bar (:func:`_per_bar`), by machine."""
+    lib, kernels = LOOP_SASS[entry]
+    loops = {m: _sass_loops(kernels_mod, lib, k) for m, k in kernels.items()}
+    return loops, {m: _per_bar(x) for m, x in loops.items()}
 
 
 def phase_new_kernels(fused, pnl, data) -> dict:
     """K2-K7, every entry and machine, against their plain versions in the
     four cases (and K2's table entry on the keltner and vwap z-tables; the
     window-major entries also on long rows and a straddling grid; the tile
-    entries and momentum on the cases of :func:`_tile_cases`, momentum on
-    crafted returns); times and bound at the main path's shape, the first
-    case. Returns one kernels-line record per entry."""
+    entries and momentum on the cases of :func:`_tile_cases`; momentum,
+    K4, K5 and K7 on crafted returns); times and bound at the main path's
+    shape, the first case. Returns one kernels-line record per entry."""
     head = data.synthetic_ohlcv(N_TICKERS, N_BARS, seed=0)
     shared = [(f"headline {N_TICKERS}x{N_BARS}", head, None, COST)] + \
         _small_cases(data, head)
@@ -1076,10 +1192,12 @@ def phase_new_kernels(fused, pnl, data) -> dict:
             runs += _tile_cases(data, e)
         if e.returns_at is not None:
             def crafted(fused, pnl, panel, t_real):
-                return _with_returns(e.build(fused, pnl, panel, t_real),
-                                     e.returns_at, _crafted_returns(N_BARS))
+                return _crafted_inputs(e.build(fused, pnl, panel, t_real),
+                                       e.returns_at)
+            crafted_panel = (_panel_of(data, e, 8, N_BARS, 12) if e.panel
+                             else data.OHLCV(*(f[:8] for f in head)))
             runs += [(f"crafted returns 8x{N_BARS} cost={cost}", crafted,
-                      data.OHLCV(*(f[:8] for f in head)), None, cost, False)
+                      crafted_panel, None, cost, False)
                      for cost in (0.0, COST)]
         tables = {}
         for i, (label, make, panel, t_real, cost, caller) in enumerate(runs):
@@ -1093,9 +1211,10 @@ def phase_new_kernels(fused, pnl, data) -> dict:
                 if label.startswith("crafted"):
                     errs.append(_compare_bits(fused, e.tag, f"{name} {label}",
                                               got, ref))
-                    continue
-                errs.append(_compare(fused, e.tag, f"{name} {label}", got,
-                                     ref, exact=bool(e.n_lane or e.wide_axes)))
+                else:
+                    errs.append(_compare(fused, e.tag, f"{name} {label}",
+                                         got, ref,
+                                         exact=bool(e.n_lane or e.wide_axes)))
                 if caller:
                     errs.append(_compare(
                         fused, e.tag, f"{name} {label} (caller's order)",
@@ -1105,7 +1224,7 @@ def phase_new_kernels(fused, pnl, data) -> dict:
                     print(f"{e.tag} {entry} at T={N_BARS}: {occupancy}")
                 run = functools.partial(e.kernel, *inputs, **kw)
                 if i == 0 and e.tile:
-                    head_win = inputs[e.tile.window_at]
+                    head_win = e.tile.windows(fused, inputs)
                     widths[machine] = _width_sweep(
                         lambda lanes: e.tile.launch(fused, inputs, kw,
                                                     lanes), ref,
@@ -1117,17 +1236,22 @@ def phase_new_kernels(fused, pnl, data) -> dict:
                     ms = _cuda_ms(run, reps=20, warmup=2)
                     plain_ms = _cuda_ms(lambda: e.plain(*inputs, **kw),
                                         reps=2, warmup=1)
-                    bound = _entry_bound(entry, e, inputs)
+                    bound = _entry_bound(fused, entry, e, inputs)
                     timing[machine] = (ms, plain_ms, bound)
                     print(f"{e.tag} {name} headline: kernel {ms:.4f} ms, "
                           f"plain {plain_ms:.4f} ms, bound {bound[0]:.4f} "
                           f"ms ({bound[1]})")
+                    if entry == "macd":
+                        lane_bound = _macd_lane_bound(inputs)
+                        print(f"{e.tag} {name} bound with the macd line on "
+                              f"every lane (the parent's count): "
+                              f"{lane_bound[0]:.4f} ms ({lane_bound[1]})")
             if i > 0 and label.endswith(f"z-table {N_TICKERS}x{N_BARS}"):
                 # Another main path's table: timed on its machine.
                 kw = _kw(e.machines[0], cost)
                 ms = _cuda_ms(lambda: e.kernel(*inputs, **kw), reps=20,
                               warmup=2)
-                bound = _entry_bound(entry, e, inputs)
+                bound = _entry_bound(fused, entry, e, inputs)
                 what = label.split(" z-table")[0]
                 tables[what] = {"ms": ms, "bound_ms": bound[0],
                                 "bound_by": bound[1]}
@@ -1148,25 +1272,23 @@ def phase_new_kernels(fused, pnl, data) -> dict:
             out[entry]["other_tables"] = tables
         if e.n_lane:
             out[entry]["occupancy"] = occupancy
+        if entry == "macd":
+            out[entry]["lane_bound_ms"] = lane_bound[0]
         if entry in LOOP_SASS:
-            per_bar = _per_bar(_sass_loops(fused._kernels, "band_machine",
-                                           LOOP_SASS[entry]))
-            out[entry]["sass_per_bar"] = per_bar
-            print(f"{e.tag} {entry} SASS a bar (common path): {per_bar}")
+            loops, per_bar = _loop_sass(fused._kernels, entry)
+            out[entry]["sass_per_bar"] = per_bar.get(None, per_bar)
+            print(f"{e.tag} {entry} SASS a bar (common path): {per_bar}; "
+                  f"loops {loops}")
         if e.tile:
-            loops = {m: _sass_loops(fused._kernels, e.tile.lib, kernel)
-                     for m, kernel in e.tile.sass.items()}
-            per_bar = {m: _per_bar(x) for m, x in loops.items()}
             if e.machines == (None,):       # one machine: no dict by machine
-                wrapper_ms, widths, per_bar = (x[None] for x in (
-                    wrapper_ms, widths, per_bar))
+                wrapper_ms, widths = wrapper_ms[None], widths[None]
             out[entry].update(
-                wrapper_ms=wrapper_ms, width_ms=widths, sass_per_bar=per_bar,
+                wrapper_ms=wrapper_ms, width_ms=widths,
                 occupancy=_tile_report(fused, entry,
                                        getattr(fused, e.tile.lanes),
-                                       head_win))
+                                       *head_win))
             print(f"{e.tag} {entry} at the headline: "
-                  f"{out[entry]['occupancy']}; SASS loops {loops}")
+                  f"{out[entry]['occupancy']}")
     return out
 
 
@@ -1242,20 +1364,26 @@ def phase_tables(fused, data) -> dict:
         _check(_bits_equal(got, ref), f"ema_rows {label} differs from its "
                f"plain version (max {errs['ema_rows'][-1]})")
         print(f"ema_rows {label} {tuple(got.shape)}: bit-equal")
-        if i == 0:
+        if i == 0 or label.startswith("macd"):
+            # The main paths' tables: trix's (the first case), macd's.
             N, W, T = got.shape
             ms = _cuda_ms(lambda: fused.ema_rows_cuda(x, decay, ladders),
                           reps=20, warmup=2)
             plain_ms = _cuda_ms(plain, reps=5, warmup=1)
             bound = roofline.ema_rows_bound(N, W, T, ladders)
-            records["ema_rows"] = {
-                "name": "ema_rows", "route": "cuda",
-                "source": f"{PKG}/csrc/ema_rows.cu",
-                "replaces": f"{REF}:3009", "ms": ms,
-                "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
-                "bound_by": bound[1], "library_ms": None}
+            timed = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+                     "bound_by": bound[1]}
+            if i == 0:
+                records["ema_rows"] = {
+                    "name": "ema_rows", "route": "cuda",
+                    "source": f"{PKG}/csrc/ema_rows.cu",
+                    "replaces": f"{REF}:3009", "kernel_ms": ms,
+                    **timed, "library_ms": None}
+            else:
+                records["ema_rows"]["other_tables"] = {"macd": {
+                    **timed, "replaces": f"{REF}:2675"}}
             print(f"ema_rows {label}: kernel {ms:.4f} ms, plain "
-                  f"(trix_ema_table) {plain_ms:.4f} ms, bound "
+                  f"({plain.func.__name__}) {plain_ms:.4f} ms, bound "
                   f"{bound[0]:.4f} ms ({bound[1]})")
     windows = torch.from_numpy(
         np.unique(AXES["pairs"]["lookback"]).astype(np.int32)).to(dev)
@@ -1915,5 +2043,22 @@ def main() -> None:
         "count": torch.cuda.device_count()}}))
 
 
+def sass_of(csrc: str) -> None:
+    """``python3 chip_smoke.py --sass DIR``: the SASS instructions a bar of
+    every kernel of LOOP_SASS built from the sources in ``DIR`` (another
+    tree's ``csrc/``, such as a parent commit's), as phase 3 prints them for
+    this tree. The libraries go to this tree's ``_build/``, keyed on their
+    sources' hash as every build is; nothing is written beside ``DIR``.
+    Needs nvcc and cuobjdump, no card."""
+    from distributed_backtesting_exploration_tpu_torch.ops import _kernels
+    _kernels.SRC_DIR = Path(csrc).resolve()
+    for entry in LOOP_SASS:
+        loops, per_bar = _loop_sass(_kernels, entry)
+        print(f"sass of {csrc}: {entry} {per_bar} a bar; loops {loops}")
+
+
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 3 and sys.argv[1] == "--sass":
+        sass_of(sys.argv[2])
+    else:
+        main()

@@ -251,9 +251,13 @@ class _Bench:
         self.rates[name] = rate
         n_distinct = np.unique(np.concatenate(
             [g[n] for n in names if n in _WINDOW_AXES])).size
+        # macd forms its line once per distinct (fast, slow) pair.
+        n_series = (np.unique(np.stack([g["fast"], g["slow"]]), axis=1)
+                    .shape[1] if strategy == "macd" else None)
         self.roofline[name] = roofline.utilization(
             rate if self.dev.type == "cuda" else None, self.s.n_bars,
-            roofline.config_model(strategy, n_distinct, P, self.s.n_bars))
+            roofline.config_model(strategy, n_distinct, P, self.s.n_bars,
+                                  n_series))
 
     def _stage_times(self, kind: str, cases, a, b) -> dict[str, float]:
         close = self.panel["close"]

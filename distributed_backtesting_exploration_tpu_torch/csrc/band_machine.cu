@@ -70,15 +70,22 @@
 // K7 (dbx_pairs) replaces the reference's `_fused_pairs_call` with its body
 // `_pairs_kernel`: one one-hot selection of a stacked (z, hedged return)
 // table row per lane, the band ladder with per-lane z_entry and z_exit,
-// net = prev * hr - cost * |dpos| and `_metrics_pack`. Here each thread
-// reads its lane's rows of two torch-built (N, W, T) tables (the spread
-// z-score and the hedged spread return, 50 MB each at 1000 pairs x 10
-// lookbacks x 1260 bars), steps band_next<kHysteresis> with its own k and
-// z_exit, and passes hr[t] to MetricsAcc::step in place of the ticker's
-// return, which is exactly the reference's net. The pairs grid runs
-// lookback-major, so a warp's 32 lanes read one or two rows a bar: loads
-// coalesce into a few sectors and the kernel is bound by its ~24 fp32
-// operations a (combo, bar), not by the 100 MB of tables.
+// net = prev * hr - cost * |dpos| and `_metrics_pack`. Its inputs are two
+// (N, W, T) tables built on the card (pairs_tables.cu: the spread z-score
+// and the hedged spread return) with one row per distinct lookback; the
+// lanes differ only in their bands. What bounds it is each lane's
+// sequential chain of instructions a bar (the machine and the metric
+// update), not the bytes: the bench grid's 500 lanes read 10 rows. So the
+// lanes run in tiles on the read path of K1 (bar_blocks.cuh, layout
+// kPairs): one CTA covers one pair x one tile of lanes and fills the
+// (z, hr) pair of each lookback its tile reads once per bar of a block in
+// shared memory; each lane reads its pair with one 8-byte shared load,
+// steps band_next<kHysteresis> with its own k and z_exit and passes hr to
+// MetricsAcc::step in place of the ticker's return, which is exactly the
+// reference's net. No table read, 64-bit address or row pointer stays on
+// a lane's chain, and no ticker returns row is staged. The wrapper builds
+// the tiles' lookback lists with torch ops (ops/fused.py `window_tiles`),
+// and each lane walks its own slot of the blocks (lane_block_pass).
 //
 // Built without fast math and with -fmad=false: divisions and sqrtf are
 // IEEE round-to-nearest and nothing is contracted, so z and %K equal the
@@ -286,29 +293,44 @@ __global__ void __launch_bounds__(Source::kLanes) band_source_kernel(
   acc.store(out, n, lane[slot], N, P, tr, ppy);
 }
 
-__global__ void __launch_bounds__(kThreads) pairs_kernel(
+// K7 on tiles: wins, the (n_tiles, wmax) lists of the table rows (one a
+// lookback) each tile reads, counts their lengths; wi, each lane's index
+// into its tile's list.
+__global__ void __launch_bounds__(dbx::kMaxTileLanes) pairs_kernel(
     const float* __restrict__ z, const float* __restrict__ hr,
-    const int* __restrict__ t_real, const int* __restrict__ widx,
+    const int* __restrict__ t_real, const int* __restrict__ wins,
+    const int* __restrict__ counts, const int* __restrict__ wi,
     const float* __restrict__ k, const float* __restrict__ z_exit,
     const int* __restrict__ warm, float* __restrict__ out, int N, int T,
-    int W, int P, float cost, float ppy) {
+    int W, int P, int wmax, float cost, float ppy) {
+  extern __shared__ float smem[];
   const int n = blockIdx.x;
-  const int p = blockIdx.y * kThreads + threadIdx.x;
-  if (p >= P) return;
+  const int p = blockIdx.y * blockDim.x + threadIdx.x;
   const int tr = min(max(t_real[n], 0), T);
-  const size_t row = (static_cast<size_t>(n) * W + widx[p]) * T;
-  const float* z_row = z + row;
-  const float* hr_row = hr + row;
-  const float kk = k[p];
-  const float zx = z_exit[p];
-  const int t_on = warm[p] - 1;
+  const size_t base = static_cast<size_t>(n) * W * T;
+  const float* z_rows = z + base;
+  const float* hr_rows = hr + base;
+  const int* list = wins + static_cast<size_t>(blockIdx.y) * wmax;
+  const bool live = p < P;
+  const int j = live ? wi[p] : 0;
+  const float kk = live ? k[p] : 0.f;
+  const float zx = live ? z_exit[p] : 0.f;
+  const int t_on = live ? warm[p] - 1 : 0;
+
   dbx::MetricsAcc acc;
-  for (int t = 0; t < tr; ++t) {
-    float pos = 0.f;
-    if (t >= t_on) pos = band_next<kHysteresis>(acc.prev, z_row[t], kk, zx);
-    acc.step(pos, hr_row[t], cost);
-  }
-  acc.store(out, n, p, N, P, tr, ppy);
+  dbx::lane_block_pass<dbx::kPairs>(
+      smem, counts[blockIdx.y], tr, nullptr, live, j,
+      [&](int i, int t) {
+        const size_t at = static_cast<size_t>(list[i]) * T + t;
+        return make_float2(z_rows[at], hr_rows[at]);
+      },
+      [&](float2 zh, int t) {
+        // Step the machine on every bar, then select: no branch.
+        const float nxt = band_next<kHysteresis>(acc.prev, zh.x, kk, zx);
+        const float pos = t >= t_on ? nxt : 0.f;
+        acc.step(pos, zh.y, cost);
+      });
+  if (live) acc.store(out, n, p, N, P, tr, ppy);
 }
 
 template <int kMachine, class Source>
@@ -502,20 +524,42 @@ extern "C" int dbx_band_occupancy(int source, int T, int* info) {
 }
 
 // dbx_pairs (K7): z, hr: (N, W, T) f32 spread z-table (0 before each
-// lookback's warmup) and hedged-return table; t_real: (N,) i32; widx: (P,)
-// i32 row of each lane; k, z_exit: (P,) f32 entry and exit bands; warm: (P,)
-// i32 (truncated 2 * lookback - 1).
+// lookback's warmup) and hedged-return table; t_real: (N,) i32; wins:
+// (n_tiles, wmax) i32, the sorted distinct table rows each tile of `lanes`
+// lanes reads, counts: (n_tiles,) i32 their number; wi: (P,) i32 each
+// lane's index into its tile's list; k, z_exit: (P,) f32 entry and exit
+// bands; warm: (P,) i32 (truncated 2 * lookback - 1). lanes: a multiple of
+// 32 up to 1024, the lanes a CTA.
 extern "C" int dbx_pairs(const void* z, const void* hr, const void* t_real,
-                         const void* widx, const void* k, const void* z_exit,
-                         const void* warm, void* out, int N, int T, int W,
-                         int P, float cost, int ppy, void* stream) {
+                         const void* wins, const void* counts, const void* wi,
+                         const void* k, const void* z_exit, const void* warm,
+                         void* out, int N, int T, int W, int P, int lanes,
+                         int wmax, float cost, int ppy, void* stream) {
   if (N <= 0 || P <= 0) return static_cast<int>(cudaSuccess);
-  const dim3 grid(N, (P + kThreads - 1) / kThreads);
-  pairs_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (!dbx::tile_ok(lanes, wmax)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = dbx::block_smem_bytes(wmax, dbx::kPairs);
+  const int err = dbx::allow_smem(pairs_kernel, smem);
+  if (err != 0) return err;
+  const dim3 grid(N, (P + lanes - 1) / lanes);
+  pairs_kernel<<<grid, lanes, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(z), static_cast<const float*>(hr),
-      static_cast<const int*>(t_real), static_cast<const int*>(widx),
+      static_cast<const int*>(t_real), static_cast<const int*>(wins),
+      static_cast<const int*>(counts), static_cast<const int*>(wi),
       static_cast<const float*>(k), static_cast<const float*>(z_exit),
       static_cast<const int*>(warm), static_cast<float*>(out), N, T, W, P,
-      cost, static_cast<float>(ppy));
+      wmax, cost, static_cast<float>(ppy));
   return static_cast<int>(cudaGetLastError());
+}
+
+// dbx_pairs_occupancy: the build report (occupancy.cuh) of K7's kernel
+// launched as dbx_pairs launches it on `lanes`-lane tiles with lists of at
+// most `wmax` rows.
+extern "C" int dbx_pairs_occupancy(int lanes, int wmax, int* info) {
+  if (!dbx::tile_ok(lanes, wmax)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return dbx::launch_report(pairs_kernel, lanes,
+                            dbx::block_smem_bytes(wmax, dbx::kPairs), info);
 }

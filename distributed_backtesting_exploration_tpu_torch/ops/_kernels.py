@@ -116,7 +116,8 @@ _SIGNATURES = {
         "dbx_band_inline_occupancy": [_CI, _CI, _PI],
         "dbx_band_table": [_VP] * 8 + [_CI] * 5 + [_CF, _CF, _CI, _VP],
         "dbx_band_stoch": [_VP] * 12 + [_CI] * 4 + [_CF, _CF, _CI, _VP],
-        "dbx_pairs": [_VP] * 8 + [_CI] * 4 + [_CF, _CI, _VP],
+        "dbx_pairs": [_VP] * 10 + [_CI] * 6 + [_CF, _CI, _VP],
+        "dbx_pairs_occupancy": [_CI, _CI, _PI],
         "dbx_channel_levels": [_CI],
         "dbx_band_occupancy": [_CI, _CI, _PI],
     },
@@ -127,7 +128,8 @@ _SIGNATURES = {
         "dbx_donchian_occupancy": [_CI, _PI],
     },
     "ema_cross": {
-        "dbx_macd": [_VP] * 8 + [_CI] * 4 + [_CF, _CI, _VP],
+        "dbx_macd": [_VP] * 9 + [_CI] * 6 + [_CF, _CI, _VP],
+        "dbx_macd_occupancy": [_CI, _CI, _PI],
         "dbx_trix": [_VP] * 9 + [_CI] * 6 + [_CF, _CI, _VP],
         "dbx_trix_occupancy": [_CI, _CI, _PI],
     },
@@ -184,7 +186,7 @@ def ema_cross_lib() -> ctypes.CDLL:
 
 def ema_rows_lib() -> ctypes.CDLL:
     """The EMA-table library (``csrc/ema_rows.cu``): ``dbx_ema_rows``, the
-    triple-EMA table K5 reads."""
+    EMA table K4 reads and the triple-EMA table K5 reads."""
     return _typed("ema_rows")
 
 

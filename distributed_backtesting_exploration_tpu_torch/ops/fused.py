@@ -21,6 +21,7 @@ sweep                           entry                     kernel source
 ``fused_keltner_sweep``,
 ``fused_vwap_sweep``
 ``fused_macd_sweep``            :func:`macd`              ``ema_cross.cu``
+                                :func:`ema_rows_cuda`     ``ema_rows.cu``
 ``fused_trix_sweep``            :func:`trix`              ``ema_cross.cu``
                                 :func:`ema_rows_cuda`     ``ema_rows.cu``
 ``fused_obv_sweep``             :func:`obv`               ``fused_sma.cu``
@@ -36,19 +37,21 @@ versions step bar by bar in the kernels' order (:class:`_MetricState`), so
 on the card a kernel and its plain version agree to the bit; they are the
 yardstick the kernels are held against.
 
-:func:`fused_sma`, :func:`band_inline`, :func:`obv` and :func:`trix` run
-their lanes in tiles, one tile a CTA, that form the SMA, z or signal of
-the tile's distinct windows once per bar block in shared memory; their
-CUDA wrappers build the tiles' window lists with torch ops on the card
-(:func:`window_tiles`). The channel entries (:func:`band_stoch`,
+:func:`fused_sma`, :func:`band_inline`, :func:`macd`, :func:`trix`,
+:func:`obv` and :func:`pairs` run their lanes in tiles, one tile a CTA,
+that form the SMA, z, macd line, rate of change, signal or (z, hedged
+return) pair of the tile's distinct windows once per bar block in shared
+memory; their CUDA wrappers build the tiles' window lists with torch ops
+on the card (:func:`window_tiles`). The channel entries (:func:`band_stoch`,
 :func:`donchian`) take the raw rows and build the channel extrema on the
 card (no ``(N, W, T)`` table),
 and the table entries (:func:`band_table`, :func:`band_stoch`,
 :func:`donchian`) take their lanes window-major: the sweep sorts them by
 window (:func:`window_major`) and passes ``lane``, each slot's lane in the
 caller's order, where the entry writes the slot's metrics. On the card,
-trix's triple-EMA table and pairs' z- and hedged-return tables are built
-by kernels of their own (:func:`ema_rows_cuda`, :func:`pairs_tables_cuda`).
+macd's EMA table, trix's triple-EMA table and pairs' z- and hedged-return
+tables are built by kernels of their own (:func:`ema_rows_cuda`,
+:func:`pairs_tables_cuda`).
 """
 
 from __future__ import annotations
@@ -68,13 +71,15 @@ from .pnl import simple_returns
 _EPS = 1e-12
 _N_METRICS = 9
 _KERNEL_THREADS = 128      # lanes per CTA (kThreads in csrc/*.cu)
-# Lanes a tile (one CTA) of K1, K2's inline entry, K5 and K6, which share
-# the values of a tile's distinct windows (csrc/bar_blocks.cuh): the fastest
-# of chip_smoke.py's width sweep (PERF.md, section 6).
+# Lanes a tile (one CTA) of K1, K2's inline entry, K4, K5, K6 and K7, which
+# share the values of a tile's distinct windows (csrc/bar_blocks.cuh): the
+# fastest of chip_smoke.py's width sweep (PERF.md, section 6).
 _SMA_LANES = 1024
 _BAND_INLINE_LANES = 512
+_MACD_LANES = 512
 _OBV_LANES = 1024
 _TRIX_LANES = 1024
+_PAIRS_LANES = 1024
 _MAX_PARAM_BLOCKS = 65535  # CUDA gridDim.y limit
 _MACHINES = {"hysteresis": 0, "touch": 1}
 # The reference's stand-in for the generic channel's +-inf warmup fill.
@@ -174,14 +179,16 @@ def _window_setup(vals, what: str, warm_offset: float, min_window: int,
 
 
 def window_tiles(lanes: int, *windows: torch.Tensor):
-    """The window lists of the tiles of K1, K2's inline entry, K5 and K6
-    (``csrc/bar_blocks.cuh``), built with torch ops on the windows' device.
+    """The window lists of the tiles of K1, K2's inline entry, K4, K5, K6
+    and K7 (``csrc/bar_blocks.cuh``), built with torch ops on the windows'
+    device.
 
     The kernels run ``lanes`` consecutive lanes a tile, one tile a CTA, and
     form the value of each window a tile reads once per bar in shared
     memory. ``windows`` are one or two ``(P,)`` integer tensors of each
     lane's windows (K2, K6: its window; K1: its fast and its slow window;
-    K5: its span's row in the triple-EMA table).
+    K4: its key :func:`macd_keys`; K5: its span's row in the triple-EMA
+    table; K7: its lookback's row in the pairs tables).
     Returns ``(wins, counts, *idx)``, all int32: ``wins`` the
     ``(n_tiles, Wc)`` lists, ``Wc = lanes * len(windows)``, row t holding
     tile t's ``counts[t]`` sorted distinct windows, then its smallest window
@@ -973,24 +980,45 @@ def trix_plain(tbl, r, t_real, widx, a_sig, warm, *, cost: float,
                                ppy=ppy)
 
 
+def macd_keys(fidx: torch.Tensor, sidx: torch.Tensor, W: int) -> torch.Tensor:
+    """Each lane's tile key ``fidx * W + sidx`` (int64) for
+    :func:`window_tiles`: one value a distinct (fast, slow) pair of rows of
+    a ``W``-row EMA table, sorted as the pairs are."""
+    return fidx.long() * W + sidx.long()
+
+
 def macd_cuda(tbl, r, t_real, fidx, sidx, a_sig, warm, *, cost: float,
               ppy: int) -> torch.Tensor:
     """Launch K4 (``csrc/ema_cross.cu``, ``dbx_macd``): same inputs and
-    output as :func:`macd_plain`, all on one CUDA device."""
+    output as :func:`macd_plain`, all on one CUDA device. The lanes run in
+    tiles of ``_MACD_LANES``, whose lists of (fast, slow) keys are built on
+    the card (:func:`window_tiles` of :func:`macd_keys`); each tile forms
+    the macd line of its pairs once per bar."""
     N, W, T = tbl.shape
     P = fidx.shape[0]
+    lanes = _MACD_LANES
     f32, i32 = torch.float32, torch.int32
-    _check_launch("macd_cuda", tbl.device, P,
+    _check_launch("macd_cuda", tbl.device, P, lanes,
                   tbl=(tbl, f32, (N, W, T)), r=(r, f32, (N, T)),
                   t_real=(t_real, i32, (N,)), fidx=(fidx, i32, (P,)),
                   sidx=(sidx, i32, (P,)), a_sig=(a_sig, f32, (P,)),
                   warm=(warm, i32, (P,)))
     out = torch.empty((_N_METRICS, N, P), dtype=f32, device=tbl.device)
     if N and P:
-        _launch("macd", _kernels.ema_cross_lib().dbx_macd, tbl, r, t_real,
-                fidx, sidx, a_sig, warm, out, N, T, W, P, float(cost),
-                int(ppy))
+        _launch_macd(tbl, r, t_real, window_tiles(lanes, macd_keys(
+            fidx, sidx, W)), a_sig, warm, out, lanes, cost=cost, ppy=ppy)
     return out
+
+
+def _launch_macd(tbl, r, t_real, tiles, a_sig, warm, out, lanes: int, *,
+                 cost: float, ppy: int) -> None:
+    """K4's launch on checked inputs and its tiles (:func:`window_tiles`
+    of the lanes' :func:`macd_keys`)."""
+    wins, counts, wi = tiles
+    N, W, T = tbl.shape
+    _launch("macd", _kernels.ema_cross_lib().dbx_macd, tbl, r, t_real, wins,
+            counts, wi, a_sig, warm, out, N, T, W, wi.shape[0], lanes,
+            wins.shape[1], float(cost), int(ppy))
 
 
 def trix_cuda(tbl, r, t_real, widx, a_sig, warm, *, cost: float,
@@ -1066,21 +1094,35 @@ def pairs_plain(z, hr, t_real, widx, k, z_exit, warm, *, cost: float,
 def pairs_cuda(z, hr, t_real, widx, k, z_exit, warm, *, cost: float,
                ppy: int) -> torch.Tensor:
     """Launch K7 (``csrc/band_machine.cu``, ``dbx_pairs``): same inputs and
-    output as :func:`pairs_plain`, all on one CUDA device."""
+    output as :func:`pairs_plain`, all on one CUDA device. The lanes run in
+    tiles of ``_PAIRS_LANES``, whose lists of table rows are built on the
+    card from ``widx`` (:func:`window_tiles`); each tile stages the (z, hr)
+    pair of its rows once per bar."""
     N, W, T = z.shape
     P = widx.shape[0]
+    lanes = _PAIRS_LANES
     f32, i32 = torch.float32, torch.int32
-    _check_launch("pairs_cuda", z.device, P,
+    _check_launch("pairs_cuda", z.device, P, lanes,
                   z=(z, f32, (N, W, T)), hr=(hr, f32, (N, W, T)),
                   t_real=(t_real, i32, (N,)), widx=(widx, i32, (P,)),
                   k=(k, f32, (P,)), z_exit=(z_exit, f32, (P,)),
                   warm=(warm, i32, (P,)))
     out = torch.empty((_N_METRICS, N, P), dtype=f32, device=z.device)
     if N and P:
-        _launch("pairs", _kernels.band_machine_lib().dbx_pairs, z, hr,
-                t_real, widx, k, z_exit, warm, out, N, T, W, P, float(cost),
-                int(ppy))
+        _launch_pairs(z, hr, t_real, window_tiles(lanes, widx), k, z_exit,
+                      warm, out, lanes, cost=cost, ppy=ppy)
     return out
+
+
+def _launch_pairs(z, hr, t_real, tiles, k, z_exit, warm, out, lanes: int, *,
+                  cost: float, ppy: int) -> None:
+    """K7's launch on checked inputs and its tiles (:func:`window_tiles`
+    of the lanes' table rows)."""
+    wins, counts, wi = tiles
+    N, W, T = z.shape
+    _launch("pairs", _kernels.band_machine_lib().dbx_pairs, z, hr, t_real,
+            wins, counts, wi, k, z_exit, warm, out, N, T, W, wi.shape[0],
+            lanes, wins.shape[1], float(cost), int(ppy))
 
 
 def pairs(z, hr, t_real, widx, k, z_exit, warm, *, cost: float,
@@ -1243,6 +1285,16 @@ def _ema_rows_scratch(T: int) -> int:
     """Floats of device-memory scratch a row of ``dbx_ema_rows`` needs at
     row length ``T``, 0 where it is staged in shared memory."""
     return int(_kernels.ema_rows_lib().dbx_ema_rows_scratch(T))
+
+
+def macd_sweep_table(close, spans: np.ndarray) -> torch.Tensor:
+    """K4's EMA table on the close's device: :func:`macd_ema_table` (torch
+    ops) on the CPU, :func:`ema_rows_cuda` (one ladder of the close
+    demeaned by its first bar) on the card."""
+    if close.device.type == "cpu":
+        return macd_ema_table(close, spans)
+    return ema_rows_cuda((close - close[:, :1]).contiguous(),
+                         ema_decay(close.device, spans), 1)
 
 
 def trix_sweep_table(close, spans: np.ndarray) -> torch.Tensor:
@@ -1749,8 +1801,13 @@ def fused_pairs_sweep(y_close, x_close, lookback, z_entry, *, t_real=None,
     N, T = y_close.shape
     windows, widx, k, zx, warm = _pairs_grid_setup(lookback, z_entry, z_exit)
     tr = _check_t_real(t_real, N, T)
+    # The lanes' arrays go to the card before the tables' launch: a copy
+    # from host memory waits for the card's stream, so after the launch it
+    # would hold the host until the tables are built, and the card would
+    # then idle while the host launches the tiles' build (window_tiles).
+    lanes = _to(dev, tr, widx, k, zx, warm)
     z, hr = pairs_sweep_tables(y_close, x_close, windows)
-    planes = pairs(z, hr, *_to(dev, tr, widx, k, zx, warm), cost=float(cost),
+    planes = pairs(z, hr, *lanes, cost=float(cost),
                    ppy=int(periods_per_year))
     return Metrics(*planes)
 
@@ -1885,19 +1942,22 @@ def fused_macd_sweep(close, fast, slow, signal, *, t_real=None,
     ``fast``/``slow``/``signal`` are flat per-combo span arrays
     (:func:`product_grid` order); spans and signal spans must be integral.
     Matches ``run_sweep(..., "macd")`` to the reference's flip-aware budget:
-    the EMA table is the generic path's ladder, but the kernel carries the
-    signal line sequentially, which rounds in another order than the
-    generic ladder. Other arguments as :func:`fused_sma_sweep`.
+    the EMA table is the generic path's ladder (:func:`macd_sweep_table`),
+    but the kernel carries the signal line sequentially, which rounds in
+    another order than the generic ladder. Other arguments as
+    :func:`fused_sma_sweep`.
     """
     dev = _prologue(carry_out, None, epilogue, device)
     (close,) = _panel(dev, close)
     N, T = close.shape
     spans, fidx, sidx, a_sig, warm = _macd_grid_setup(fast, slow, signal)
     tr = _check_t_real(t_real, N, T)
-    planes = macd(macd_ema_table(close, spans),
-                  simple_returns(close).contiguous(),
-                  *_to(dev, tr, fidx, sidx, a_sig, warm), cost=float(cost),
-                  ppy=int(periods_per_year))
+    # The lanes' arrays go to the card before the table's launch, as in
+    # fused_pairs_sweep.
+    lanes = _to(dev, tr, fidx, sidx, a_sig, warm)
+    planes = macd(macd_sweep_table(close, spans),
+                  simple_returns(close).contiguous(), *lanes,
+                  cost=float(cost), ppy=int(periods_per_year))
     return Metrics(*planes)
 
 
@@ -1917,8 +1977,10 @@ def fused_trix_sweep(close, span, signal, *, t_real=None, cost: float = 0.0,
     N, T = close.shape
     spans, widx, a_sig, warm = _trix_grid_setup(span, signal)
     tr = _check_t_real(t_real, N, T)
+    # The lanes' arrays go to the card before the table's launch, as in
+    # fused_pairs_sweep.
+    lanes = _to(dev, tr, widx, a_sig, warm)
     planes = trix(trix_sweep_table(close, spans),
-                  simple_returns(close).contiguous(),
-                  *_to(dev, tr, widx, a_sig, warm), cost=float(cost),
-                  ppy=int(periods_per_year))
+                  simple_returns(close).contiguous(), *lanes,
+                  cost=float(cost), ppy=int(periods_per_year))
     return Metrics(*planes)

@@ -52,17 +52,20 @@ OPS_SIGNAL = {"fused_sma": 2, "band_inline": 4, "band_table": 4,
 # sub, its compare, c - lo, *100, rng + eps, div, -50 = 9); donchian the
 # channel's max and min and the two breakout compares (4; the channel of
 # bar t - 1 on bar t: the warmup is window + 1); trix the rate of change of
-# the span's triple EMA (zero test, division, -1 = 3), on every bar from
-# bar 0, where its signal line starts (csrc/ema_cross.cu).
+# the span's triple EMA (zero test, division, -1 = 3) and macd the macd
+# line, the fast row minus the slow row (1), once per (ticker, distinct
+# span or (fast, slow) pair, bar) on every bar from bar 0, where the
+# signal line starts (csrc/ema_cross.cu).
 OPS_WINDOW = {"fused_sma": 2, "band_inline": 13, "obv": 4, "momentum": 2,
-              "band_stoch": 9, "donchian": 4, "trix": 3}
+              "band_stoch": 9, "donchian": 4, "trix": 3, "macd": 1}
 # The channel entries' level build, per ticker, level above the rows and
 # bar: one max and one min (csrc/extrema.cuh).
 OPS_LEVEL = 2
 # Per (combo, bar) below the ticker's length, beside the 20 of the metric
-# update, from csrc/ema_cross.cu: macd the row difference and the signal
-# EMA (sub, two muls, add = 4); trix the signal EMA (3).
-OPS_EACH_BAR = {"macd": 4, "trix": 3}
+# update, from csrc/ema_cross.cu: the signal EMA (two muls, add = 3) of
+# macd and trix. (Until macd ran on tiles its lanes formed the row
+# difference each, 4 a (combo, bar).)
+OPS_EACH_BAR = {"macd": 3, "trix": 3}
 
 # The table kernels. csrc/ema_rows.cu, per (ticker, span, bar) and ladder:
 # the input times the decay (1), then per pass of the ladder the B update's
@@ -267,16 +270,19 @@ _ROWS = {"fused_sma": lambda w: 2, "band_inline": lambda w: 5,
          "pairs": lambda w: 2 * w}
 
 
-def config_model(strategy: str, n_distinct: int, P: int,
-                 T: int) -> dict[str, float]:
+def config_model(strategy: str, n_distinct: int, P: int, T: int,
+                 n_series: int | None = None) -> dict[str, float]:
     """Operations and bytes per (cell, bar) of one fused sweep's kernel:
     the metric update, the entry's signal work on every bar (an upper
     bound: warmup bars do less) with the per-window work shared by the
-    lanes of each of the ``n_distinct`` windows, its input rows shared by
-    the ticker's P lanes, and the 9 metrics of each cell."""
+    lanes of each of the ``n_series`` series it runs on (default the
+    ``n_distinct`` windows; macd's are its (fast, slow) pairs), its input
+    rows (a function of the ``n_distinct`` windows) shared by the ticker's
+    P lanes, and the 9 metrics of each cell."""
     entry = ENTRY[strategy]
+    n_series = n_distinct if n_series is None else n_series
     ops = (OPS_PER_BAR + OPS_EACH_BAR.get(entry, 0) + OPS_SIGNAL[entry]
-           + OPS_WINDOW.get(entry, 0) * n_distinct / P)
+           + OPS_WINDOW.get(entry, 0) * n_series / P)
     n_bytes = 4.0 * _ROWS[entry](n_distinct) / P + 4.0 * 9 / T
     return {"ops": float(ops), "bytes": n_bytes}
 

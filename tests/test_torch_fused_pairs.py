@@ -5,8 +5,11 @@ against the reference's ``fused_pairs_sweep`` (Pallas, interpret mode on
 the CPU) and its generic ``run_pairs_sweep``, on the cases of the
 reference's ``tests/test_fused.py`` (``_check_pairs``): 3 x 200, T=251,
 the wide lookback grid, a single parameter, zero cost and per-lane
-``z_exit``; a ragged group; the port's own generic ``run_pairs_sweep``;
-and ``rolling_ols`` and ``obv_series`` against the reference's.
+``z_exit``; the same cases with the tables in the card's order of
+summation (``pairs_tables_plain``, f64 windowed sums rounded once, which
+``dbx_pairs_tables`` builds) under K7's plain version; a ragged group; the
+port's own generic ``run_pairs_sweep``; and ``rolling_ols`` and
+``obv_series`` against the reference's.
 
 Tolerance: the reference's pairs budget (``_check_pairs``): at most
 max(1, 1%) flipped cells; the rest at rtol=2e-3, atol=2e-4. Every case
@@ -93,6 +96,36 @@ def test_fused_pairs_matches_reference(case):
     _match(got, ref_pairs.run_pairs_sweep(
         jnp.asarray(y), jnp.asarray(x),
         {k: jnp.asarray(v) for k, v in g.items()}, cost=cost), drift)
+
+
+def _port_card_order(y, x, g, cost):
+    """K7's plain version over the tables in the card's order
+    (``pairs_tables_plain``: f64 prefix sums, each windowed sum rounded once
+    from their f64 difference) on the CPU, from the legs, their means and
+    the distinct lookbacks as ``pairs_sweep_tables`` passes them to the
+    card."""
+    windows, widx, k, zx, warm = fused._pairs_grid_setup(
+        g["lookback"], g["z_entry"], g.get("z_exit", 0.0))
+    yt, xt = torch.from_numpy(y), torch.from_numpy(x)
+    z, hr = fused.pairs_tables_plain(
+        yt, xt, xt.mean(dim=1), yt.mean(dim=1),
+        torch.from_numpy(windows.astype(np.int32)))
+    tr = fused._check_t_real(None, *y.shape)
+    planes = fused.pairs_plain(z, hr, *fused._to(torch.device("cpu"), tr,
+                                                 widx, k, zx, warm),
+                               cost=cost, ppy=252)
+    return fused.Metrics(*planes)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_card_table_order_matches_reference(case):
+    # The card builds the pairs tables in another order of summation than
+    # the CPU path (and the reference): it is held to the same budget.
+    n, T, lb, ze, cost, seed, zx = CASES[case]
+    y, x = _legs(n, T, seed)
+    g = _grid(lb, ze, zx)
+    _match(_port_card_order(y, x, g, cost), _ref(y, x, g, cost=cost),
+           case == "wide-grid")
 
 
 def test_fused_pairs_rejects_non_integral_lookbacks():

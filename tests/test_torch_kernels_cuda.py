@@ -210,11 +210,11 @@ def _keltner_table_inputs(dev, n, T, seed, lens=None):
     return (z, r, tr, *_lanes(dev, widx, widx, g["k"].numpy(), warm))
 
 
-def _macd_inputs(dev, n, T, seed, lens=None):
+def _macd_inputs(dev, n, T, seed, lens=None, fast=(5, 12),
+                 slow=(20, 26, 300), signals=(3, 9)):
     close, _, _, tr, r = _panel(dev, n, T, seed, lens)
-    g = sweep.product_grid(fast=np.float32([5, 12]),
-                           slow=np.float32([20, 26, 300]),
-                           signal=np.float32([3, 9]))
+    g = sweep.product_grid(fast=np.float32(fast), signal=np.float32(signals),
+                           slow=np.float32(slow))
     spans, fidx, sidx, a_sig, warm = fused._macd_grid_setup(
         g["fast"].numpy(), g["slow"].numpy(), g["signal"].numpy())
     return (fused.macd_ema_table(close, spans), r, tr,
@@ -262,13 +262,13 @@ def _vwap_table_inputs(dev, n, T, seed, lens=None):
     return (z, r, tr, *_lanes(dev, widx, widx, g["k"].numpy(), warm))
 
 
-def _pairs_inputs(dev, n, T, seed, lens=None):
+def _pairs_inputs(dev, n, T, seed, lens=None, lookbacks=(5, 20, 300)):
     closes = data.synthetic_ohlcv(2 * n, T, seed=seed).close
     for i, m in enumerate(lens if lens is not None else ()):
         closes[[i, n + i], m:] = closes[[i, n + i], m - 1:m]
     y, x = (torch.as_tensor(c, device=dev).contiguous()
             for c in (closes[:n], closes[n:]))
-    g = sweep.product_grid(lookback=np.float32([5, 20, 300]),
+    g = sweep.product_grid(lookback=np.float32(lookbacks),
                            z_entry=np.float32([0.5, 1.5]),
                            z_exit=np.float32([0.0, 0.5]))
     windows, widx, k, zx, warm = fused._pairs_grid_setup(
@@ -317,10 +317,12 @@ _NEW_ENTRIES = {
 }
 
 
-# The window-major entries and the tile entries: held bit-equal.
+# The window-major entries, momentum and the tile entries: held bit-equal
+# (every entry).
 _EXACT = {e for e in _NEW_ENTRIES
           if e.startswith(("band_table", "band_stoch", "donchian",
-                           "band_inline", "momentum", "obv", "trix"))}
+                           "band_inline", "momentum", "obv", "trix", "macd",
+                           "pairs"))}
 
 
 @pytest.mark.parametrize("entry", sorted(_NEW_ENTRIES))
@@ -390,8 +392,8 @@ def test_window_major_entries_match_plain_on_straddling_grid(cuda, entry):
                                  **kw)
 
 
-# The tile entries (K1, K2's inline entry, K6; csrc/bar_blocks.cuh): inputs
-# on a case's panel, and their kernel, plain version and machine.
+# The tile entries (K1, K2's inline entry, K4-K7; csrc/bar_blocks.cuh):
+# inputs on a case's panel, and their kernel, plain version and machine.
 _SHORT_LENS = np.asarray([1, 5, 63, 65, 127, 129, 300])
 
 
@@ -414,6 +416,8 @@ _TILE_ENTRIES = {
                           {"machine": "touch", "z_exit": 0.0}),
     "obv": (_obv_inputs, fused.obv_cuda, fused.obv_plain, {}),
     "trix": (_trix_inputs, fused.trix_cuda, fused.trix_plain, {}),
+    "macd": (_macd_inputs, fused.macd_cuda, fused.macd_plain, {}),
+    "pairs": (_pairs_inputs, fused.pairs_cuda, fused.pairs_plain, {}),
 }
 # The tile entries' cases, which K3 momentum's per-lane read runs too.
 _CASE_ENTRIES = {**_TILE_ENTRIES,
@@ -430,6 +434,9 @@ _MANY_WINDOWS = {
     _momentum_inputs: {"lookbacks": _WIDE},
     # 399 spans x 2 signals: tiles straddle spans at every width.
     _trix_inputs: {"spans": np.arange(2, 401)},
+    # 1600 (fast, slow) pairs x 2 signals: about 512 keys a 1024-lane tile.
+    _macd_inputs: {"fast": range(2, 42), "slow": range(42, 401, 9)},
+    _pairs_inputs: {"lookbacks": np.arange(2, 401)},
 }
 _TILE_CASES = {
     # The old kernels' unstaged branch, now the same code.
@@ -454,10 +461,10 @@ def test_tile_entries_match_plain(cuda, entry, case):
 @pytest.mark.parametrize("entry", sorted(_TILE_ENTRIES))
 def test_tile_entries_match_plain_at_every_width(cuda, monkeypatch, entry,
                                                  lanes):
-    # 400 (K1), 96 (K2), 5 (K6) and 6 (K5) lanes: a ragged last tile at
-    # most widths.
+    # 400 (K1), 96 (K2), 5 (K6), 6 (K5), 12 (K4) and 12 (K7) lanes: a
+    # ragged last tile at most widths.
     for name in ("_SMA_LANES", "_BAND_INLINE_LANES", "_OBV_LANES",
-                 "_TRIX_LANES"):
+                 "_TRIX_LANES", "_MACD_LANES", "_PAIRS_LANES"):
         monkeypatch.setattr(fused, name, lanes)
     build, kernel, plain, kw = _TILE_ENTRIES[entry]
     inputs = build(cuda, 3, 300, 9, lens=np.asarray([300, 251, 170]))
@@ -477,13 +484,18 @@ def test_tile_entries_refuse_a_width_they_cannot_launch(cuda, lanes):
 
 
 @pytest.mark.parametrize("cost", [0.0, 1e-3])
-@pytest.mark.parametrize("entry", ["fused_sma", "momentum", "trix"])
+@pytest.mark.parametrize("entry", ["fused_sma", "momentum", "trix", "macd",
+                                   "pairs"])
 def test_crafted_returns_match_plain(cuda, entry, cost):
     # NaN where the plain version has NaN, every other value bit-equal:
-    # the metric update propagates NaN as torch's max and clamp do.
+    # the metric update propagates NaN as torch's max and clamp do. K7
+    # earns its hedged returns: each pair's crafted row on every lookback.
     build, kernel, plain, kw = _CASE_ENTRIES[entry]
     inputs = list(build(cuda, 8, 300, 3))
-    inputs[1] = torch.as_tensor(crafted_returns(300), device=cuda)
+    r = torch.as_tensor(crafted_returns(300), device=cuda)
+    if inputs[1].ndim == 3:
+        r = r[:, None, :].expand(inputs[1].shape).contiguous()
+    inputs[1] = r
     got = kernel(*inputs, cost=cost, ppy=252, **kw).cpu().numpy()
     ref = plain(*inputs, cost=cost, ppy=252, **kw).cpu().numpy()
     assert np.isnan(ref).any() and np.isinf(ref).any()
@@ -556,7 +568,8 @@ def test_ema_launch_counters_count_kernel_launches_only(cuda):
     fused.fused_keltner_sweep(p.close, p.high, p.low, [20.0], [1.5],
                               device="cuda")
     torch.cuda.synchronize()
-    assert dict(_kernels.LAUNCHES) == {"macd": 1, "trix": 1, "ema_rows": 1,
+    # macd's and trix's tables are built on the card.
+    assert dict(_kernels.LAUNCHES) == {"macd": 1, "trix": 1, "ema_rows": 2,
                                        "band_table": 2}
 
 
@@ -635,6 +648,16 @@ def test_ema_rows_one_ladder_match_macd_ema_table(cuda, T):
     spans = np.float32([5, 12, 26, 300])
     got = fused.ema_rows_cuda((close - close[:, :1]).contiguous(),
                               fused.ema_decay(cuda, spans), 1)
+    assert torch.equal(_bits(got), _bits(fused.macd_ema_table(close, spans)))
+
+
+@pytest.mark.parametrize("T", [200, 13000])
+def test_macd_sweep_table_on_the_card_is_macd_ema_table(cuda, T):
+    close, _, _, _, _ = _panel(cuda, 3, T, 8, None)
+    spans = np.float32([5, 12, 20, 26, 300])
+    _kernels.reset_launch_counts()
+    got = fused.macd_sweep_table(close, spans)
+    assert dict(_kernels.LAUNCHES) == {"ema_rows": 1}
     assert torch.equal(_bits(got), _bits(fused.macd_ema_table(close, spans)))
 
 
