@@ -135,7 +135,29 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    distributed_backtesting_exploration_tpu_torch.bench``), run here
    in-process on every config with 3 timed iterations: every config must
    report a rate and every K8 case must launch; its JSON line is printed.
-5. One JSON line with each kernel entry's (K8: each case's) launches,
+5. The worker path at the same widths, through ``submit`` and
+   ``collect``: 500 sma jobs with ``top_k=16`` under sharpe and
+   max_drawdown and 1000 pairs jobs under sharpe (the launch counts reset
+   just before; K1 and K7 with its tables must launch), each DBXS block
+   held against the same job's full DBXM block from ``process``: the
+   indices of a numpy total-order rank of the full row (+0 ahead of -0,
+   the lower index first), the rows bit-equal; each batch timed five more
+   times beside the full batch, the top-k reduce at (500, 2000) by CUDA
+   events, and DBXS against DBXM bytes a job. 64 best-returns sma jobs on
+   a 1/32 tick grid: each index that of ``sweep.best_params`` over the
+   generic sweep of the same batch on the card, the row bit-equal to that
+   sweep's, the return series bit-equal to the chosen combo repriced
+   alone (``Strategy.positions``, ``pnl.backtest_prefix``). 500 sma jobs
+   with digests, inline and then digest-only: ten cache misses, ten
+   host hits (the host level filled by ``prefetch``) and ten device
+   hits, with no decode on a hit, no device miss on a device hit and the
+   inline batch's bytes; a device level with room for half the panels,
+   filled by one batch of misses, must hold on the card just the bytes
+   it charges; a digest neither cached nor fetchable must raise. Then ``worker_rate.measure``: 8 batches of 500 sma jobs through
+   ``process`` and through the depth-2 executor in turns, the bytes
+   identical, batches/s and backtests/s printed; and a cProfile of one
+   ``process`` call, its top host frames by own time.
+6. One JSON line with each kernel entry's (K8: each case's) launches,
    error, times, bound and library time (the tile entries also their
    width sweep, wrapper time, build report and SASS count; the table
    kernels each a record of their own); then the JSON result line, last.
@@ -2012,6 +2034,268 @@ def phase_bench(kernels_mod, bench, records) -> None:
                "bench")
 
 
+# --- the worker path: top-k, best-returns, digest-only, the pipeline -------
+
+TOP_K = 16
+
+
+def _with(jobs, **fields) -> list:
+    """Copies of ``jobs`` with ``fields`` set."""
+    out = []
+    for j in jobs:
+        c = type(j)()
+        c.CopyFrom(j)
+        for k, v in fields.items():
+            setattr(c, k, v)
+        out.append(c)
+    return out
+
+
+def _total_order_topk(values: np.ndarray, sign: float, k: int) -> np.ndarray:
+    """The reference's ``lax.top_k`` selection in numpy: ``sign * values``
+    with NaN as -inf, ranked by the floats' total order (+0 ahead of -0),
+    the lower index first among equal keys."""
+    score = (values * np.float32(sign)).astype(np.float32)
+    score[np.isnan(score)] = -np.inf
+    bits = score.view(np.int32)
+    key = np.where(bits < 0, bits ^ np.int32(0x7FFFFFFF), bits)
+    return np.argsort(-key.astype(np.int64), axis=-1, kind="stable")[..., :k]
+
+
+def _u32(a) -> np.ndarray:
+    return np.ascontiguousarray(np.asarray(a, np.float32)).view(np.uint32)
+
+
+def _submit_collect(backend, jobs) -> tuple[list, float]:
+    t0 = time.perf_counter()
+    done = backend.collect(backend.submit(jobs))
+    return done, time.perf_counter() - t0
+
+
+def _secs(label: str, secs: list) -> str:
+    return (f"{label} median {statistics.median(secs):.4f} s (runs "
+            f"{', '.join(f'{x:.4f}' for x in secs)})")
+
+
+def _check_topk(wire, label, jobs, done, full, metric, sign) -> None:
+    """Each DBXS block against its job's full DBXM matrix: the indices of
+    the numpy total-order rank, the rows bit-equal to the matrix's."""
+    _check(len(done) == len(jobs), f"{label}: {len(done)} completions")
+    for c in done:
+        idx, rows, name = wire.topk_from_bytes(c.metrics)
+        whole = full[c.job_id]
+        want = _total_order_topk(getattr(whole, metric), sign, TOP_K)
+        _check(name == metric and np.array_equal(idx, want),
+               f"{label} {c.job_id}: indices {idx} != {want}")
+        for f in whole._fields:
+            _check(np.array_equal(_u32(getattr(rows, f)),
+                                  _u32(getattr(whole, f)[idx])),
+                   f"{label} {c.job_id}: {f} rows not bit-equal")
+
+
+def phase_worker_path(kernels_mod, compute, executor, wire, pb, data,
+                      sweep, models, fused, pnl, panel_store) -> None:
+    """Top-k, best-returns and digest-only jobs and the pipelined executor
+    at the bench's widths, through ``submit``/``collect``; the top-k run
+    is this phase's main path (K1 and K7 must launch); then a host profile
+    of one ``process`` call."""
+    import cProfile
+    import pstats
+
+    import worker_rate
+    from distributed_backtesting_exploration_tpu_torch.ops.metrics import (
+        metric_sign)
+
+    backend = compute.TorchSweepBackend(device="cuda")
+    sma = _jobs_from_panel(pb, data,
+                           data.synthetic_ohlcv(N_TICKERS, N_BARS, seed=7))
+    pairs = _jobs(pb, data, "pairs", AXES["pairs"],
+                  _pairs_legs(data, N_PAIRS, N_BARS, 1))
+    full = {c.job_id: wire.metrics_from_bytes(c.metrics)
+            for c in backend.process(sma + pairs)}
+
+    kernels_mod.reset_launch_counts()
+    topk_s, blocks = {}, {}
+    for label, base, metric in (("sma sharpe", sma, "sharpe"),
+                                ("sma max_drawdown", sma, "max_drawdown"),
+                                ("pairs sharpe", pairs, "sharpe")):
+        jobs = _with(base, top_k=TOP_K, rank_metric=metric)
+        done, topk_s[label] = _submit_collect(backend, jobs)
+        _check_topk(wire, f"top-k {label}", jobs, done, full, metric,
+                    metric_sign(metric))
+        blocks[label] = (len(done[0].metrics),
+                         len(wire.metrics_to_bytes(full[base[0].id])))
+    launches = dict(kernels_mod.LAUNCHES)
+    print(f"top-k main path launches {launches}")
+    for entry in ("fused_sma", "pairs", "pairs_tables"):
+        _check(launches.get(entry, 0) > 0,
+               f"the top-k main path launched {entry} no time")
+    print(f"top-k, k={TOP_K}, {len(sma)} sma jobs x "
+          f"{FAST_AXIS.size * SLOW_AXIS.size} combos and {len(pairs)} pairs "
+          f"jobs x {wire.grid_n_combos(pairs[0].grid)}: every index that of "
+          "the numpy total order, every row bit-equal; first batch s "
+          + ", ".join(f"{k} {v:.4f}" for k, v in topk_s.items()))
+    # Batch times on the host's clock vary between identical calls: five
+    # more of each, beside five of the same jobs' full blocks.
+    for label, base, fields in (
+            ("sma full", sma, {}),
+            ("sma top-k sharpe", sma, {"top_k": TOP_K}),
+            ("pairs full", pairs, {}),
+            ("pairs top-k sharpe", pairs, {"top_k": TOP_K})):
+        jobs = _with(base, **fields)
+        print("batch " + _secs(label, [_submit_collect(backend, jobs)[1]
+                                       for _ in range(5)]))
+    print("bytes a job, DBXS vs DBXM: " + ", ".join(
+        f"{k} {s} vs {m}" for k, (s, m) in blocks.items()))
+    stack, run = _route(compute, fused, "sma_crossover",
+                        {"fast": FAST_AXIS, "slow": SLOW_AXIS})
+    m = run(stack([(data.from_wire_bytes(j.ohlcv),) for j in sma]))
+    for metric in ("sharpe", "max_drawdown"):
+        k = min(TOP_K, m.sharpe.shape[1])
+        ms = _cuda_ms(lambda: compute._topk_reduce(m, metric, k), 20)
+        print(f"top-k reduce {metric} at {tuple(m.sharpe.shape)}, k={k}: "
+              f"{ms:.4f} ms")
+
+    # Best-returns: closes on a 1/32 tick grid, so every cumsum is exact
+    # and a ticker repriced alone gives the group's bits.
+    k = 64
+    small = data.synthetic_ohlcv(k, N_BARS, seed=11)
+    small = data.OHLCV(*(np.round(f * 32) / np.float32(32) for f in small))
+    _check(float(small.close.sum(axis=1).max()) * 32 < 2 ** 24,
+           "tick-grid closes too large for an exact f32 cumsum")
+    bjobs = _with(_jobs_from_panel(pb, data, small), best_returns=True,
+                  rank_metric="sharpe")
+    done, best_s = _submit_collect(backend, bjobs)
+    best_more = [_submit_collect(backend, bjobs)[1] for _ in range(3)]
+    _check(len(done) == k, f"best-returns: {len(done)} completions")
+    series = [data.from_wire_bytes(j.ohlcv) for j in bjobs]
+    batch, _, mask = data.pad_and_stack(series)
+    grid = sweep.product_grid(fast=FAST_AXIS, slow=SLOW_AXIS)
+    strategy = models.get_strategy("sma_crossover")
+    gm = sweep.run_sweep(batch, strategy, grid, cost=COST, bar_mask=mask,
+                         device="cuda")
+    _, _, gidx = sweep.best_params(gm.sharpe, grid, metric="sharpe",
+                                   return_index=True)
+    gidx = gidx.cpu().numpy()
+    gm = {f: getattr(gm, f).cpu().numpy() for f in gm._fields}
+    for i, c in enumerate(done):
+        g, row, ret, _ = wire.best_returns_from_bytes(c.metrics)
+        _check(g == int(gidx[i]), f"best-returns {c.job_id}: index {g} != "
+               f"best_params {gidx[i]}")
+        _check(np.array_equal(_u32([float(x) for x in row]),
+                              _u32([gm[f][i, g] for f in gm])),
+               f"best-returns {c.job_id}: row not bit-equal")
+        one = series[i]
+        fields = data.OHLCV(*(torch.tensor(f, device=backend.device)[
+            None, None, :] for f in one))
+        params = {n: torch.tensor([[float(v[g])]], device=backend.device)
+                  for n, v in grid.items()}
+        plain = pnl.backtest_prefix(fields.close,
+                                    strategy.positions(fields, params),
+                                    cost=COST).returns[0, 0].cpu().numpy()
+        _check(ret.shape == (one.n_bars,) and np.array_equal(
+            _u32(ret), _u32(plain)), f"best-returns {c.job_id}: returns "
+            "not bit-equal to a plain repricing")
+    print(f"best-returns: {k} sma jobs x {grid['fast'].numel()} combos, "
+          f"first group {best_s:.4f} s, "
+          + _secs("three more", best_more)
+          + "; every index, row and series bit-equal")
+
+    # Digest-only: the same jobs inline, then by digest alone.
+    djobs = _jobs_from_panel(pb, data,
+                             data.synthetic_ohlcv(N_TICKERS, N_BARS, seed=13))
+    for j in djobs:
+        j.panel_digest = panel_store.panel_digest(j.ohlcv)
+        j.panel_bytes_len = len(j.ohlcv)
+    only = _with(djobs, ohlcv=b"")
+    inline = None
+    miss_s, host_s = [], []
+    reps = 10
+    for _ in range(reps):
+        # A miss: a fresh cache. A host hit: a fresh cache whose host
+        # level the prefetch filled (untimed); its device level is empty.
+        done, s = _submit_collect(compute.TorchSweepBackend(device="cuda"),
+                                  djobs)
+        miss_s.append(s)
+        inline = inline or [c.metrics for c in done]
+        host = compute.TorchSweepBackend(device="cuda")
+        _check(host.prefetch(djobs) == len(djobs), "prefetch decoded too few")
+        done, s = _submit_collect(host, only)
+        host_s.append(s)
+        st = host.panel_cache.stats()
+        _check(host.decodes == 0 and st["misses"]["device"] == len(djobs)
+               and [c.metrics for c in done] == inline,
+               f"host-hit batch decoded, hit the device level or differs: "
+               f"{st}")
+    cached = host
+    decodes, st0 = cached.decodes, cached.panel_cache.stats()
+    dev_s = []
+    for _ in range(reps):
+        again, s = _submit_collect(cached, only)
+        dev_s.append(s)
+        _check([c.metrics for c in again] == inline,
+               "digest-only blocks differ from the inline batch's")
+    st1 = cached.panel_cache.stats()
+    _check(cached.decodes == decodes, "digest-only batch decoded")
+    _check(st1["hits"]["device"] - st0["hits"]["device"] == reps * len(djobs)
+           and st1["misses"]["device"] == st0["misses"]["device"],
+           f"digest-only batch missed the device level: {st0} -> {st1}")
+    # The device level's bytes on the card: a cache with room for half the
+    # panels, filled by one batch of misses (one upload), keeps alive only
+    # the blocks it charges.
+    half = compute.PanelCache(max_bytes=len(djobs) // 2 * 5 * N_BARS * 4)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    compute.TorchSweepBackend(device="cuda", panel_cache=half).process(djobs)
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - before
+    st = half.stats()
+    held = {b.untyped_storage().data_ptr(): b.untyped_storage().nbytes()
+            for b, _ in half._device._entries.values()}
+    _check(0 < st["device_panels"] < len(djobs)
+           and sum(held.values()) == st["device_bytes"],
+           f"the device level holds {sum(held.values())} bytes on the card "
+           f"and charges {st['device_bytes']} ({st['device_panels']} "
+           "panels)")
+    print(f"device level after a partial eviction: {st['device_panels']} of "
+          f"{len(djobs)} panels, {sum(held.values())} bytes held = "
+          f"{st['device_bytes']} charged; allocated on the card "
+          f"+{grown} bytes")
+    try:
+        cached.process(_with(djobs[:1], ohlcv=b"", panel_digest="0" * 32))
+        _fail("a digest neither cached nor fetchable did not raise")
+    except ValueError as e:
+        print(f"unfetchable digest raised: {e}")
+    print(f"digest-only, {len(djobs)} sma jobs: "
+          + _secs("inline (cache miss)", miss_s) + "; "
+          + _secs("host hit", host_s) + "; " + _secs("device hit", dev_s)
+          + "; no decode on a hit, the same bytes")
+
+    # The pipeline: process against the executor at depth 2 (worker_rate).
+    batches = worker_rate.sma_batches(pb, data, roofline, 8, N_TICKERS)
+    runs = worker_rate.measure(compute, executor, batches, reps=5)
+    n_bt = 8 * N_TICKERS * FAST_AXIS.size * SLOW_AXIS.size
+    for mode, secs in runs.items():
+        med = statistics.median(secs)
+        print(f"pipeline {mode}: 8 batches of {N_TICKERS} jobs, runs "
+              f"{[round(x, 4) for x in secs]} s, median {8 / med:.2f} "
+              f"batches/s ({n_bt / med:.1f} backtests/s)")
+    print("pipeline: depth-2 blocks identical to process's")
+
+    # Host profile of one process call.
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.runcall(backend.process, sma)
+    wall = time.perf_counter() - t0
+    stats = pstats.Stats(prof)
+    print(f"host profile of one process call ({len(sma)} sma jobs, "
+          f"{wall:.4f} s under cProfile), top frames by own time:")
+    rows = sorted(stats.stats.items(), key=lambda kv: -kv[1][2])[:15]
+    for (path, line, func), (_, ncalls, tottime, cumtime, _) in rows:
+        print(f"  {tottime:.4f} s own, {cumtime:.4f} s total, {ncalls} "
+              f"calls: {Path(path).name}:{line} {func}")
+
+
 def main() -> None:
     phase_card()
     from distributed_backtesting_exploration_tpu_torch import bench, models
@@ -2019,7 +2303,7 @@ def main() -> None:
         _kernels, fused, pnl, stages)
     from distributed_backtesting_exploration_tpu_torch.parallel import sweep
     from distributed_backtesting_exploration_tpu_torch.rpc import (
-        backtesting_pb2 as pb, compute, wire)
+        backtesting_pb2 as pb, compute, executor, panel_store, wire)
     from distributed_backtesting_exploration_tpu_torch.utils import data
 
     phase_build(_kernels)
@@ -2037,6 +2321,8 @@ def main() -> None:
         _check(rec["launches"] > 0, f"{entry} launched no time on the main "
                "paths")
     phase_bench(_kernels, bench, k8)
+    phase_worker_path(_kernels, compute, executor, wire, pb, data, sweep,
+                      models, fused, pnl, panel_store)
     print(json.dumps({"kernels": [k1, *new.values(), *k8]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -70,30 +70,56 @@ def run_sweep(
         :class:`~..ops.metrics.Metrics` with every field ``(n_tickers, P)``.
     """
     dev = device_mod.resolve(device)
-    fields = OHLCV(*(device_mod.as_tensor(f, torch.float32, dev)[:, None, :]
-                     for f in ohlcv))
+    fields, mask = _panel(ohlcv, bar_mask, dev)
     N, _, T = fields.close.shape
-    mask = None
-    last_idx = None
-    if bar_mask is not None:
-        mask = device_mod.as_tensor(bar_mask, torch.bool, dev)[:, None, :]
-        last_idx = (mask.to(torch.int64).sum(-1) - 1).clamp_min(0)
 
     def one_chunk(sub):
-        pos = strategy.positions(fields, sub)             # (N, Pc, T)
-        if mask is not None:
-            # Padding is a suffix: HOLD the last valid position through the
-            # padded bars (repeat-last closes earn zero return there), as
-            # the reference does, instead of charging a phantom exit.
-            pos_last = torch.gather(
-                pos, -1, last_idx.expand(N, pos.shape[1])[..., None])
-            pos = torch.where(mask, pos, pos_last)
+        pos = _held(strategy.positions(fields, sub), mask)   # (N, Pc, T)
         res = pnl_mod.backtest_prefix(fields.close, pos, cost=cost)
         return metrics_mod.summary_metrics(
             res.returns, res.equity, res.positions,
             periods_per_year=periods_per_year, mask=mask)
 
     return map_param_chunks(grid, N * T, dev, one_chunk)
+
+
+def reprice(ohlcv, strategy: Strategy, params: Mapping[str, object], *,
+            cost: float = 0.0, bar_mask=None,
+            device: str | torch.device = device_mod.DEFAULT_DEVICE
+            ) -> torch.Tensor:
+    """Net-return series of each ticker under its own parameter set (the
+    reference's best-returns repricing): ``params`` maps each of the
+    strategy's parameters to an ``(n_tickers,)`` array; returns the
+    ``(n_tickers, T)`` returns, with :func:`run_sweep`'s handling of
+    ``bar_mask``."""
+    dev = device_mod.resolve(device)
+    fields, mask = _panel(ohlcv, bar_mask, dev)
+    cols = {k: device_mod.as_tensor(v, torch.float32, dev)[:, None, None]
+            for k, v in params.items()}
+    pos = _held(strategy.positions(fields, cols), mask)      # (N, 1, T)
+    return pnl_mod.backtest_prefix(fields.close, pos, cost=cost).returns[:, 0]
+
+
+def _panel(ohlcv, bar_mask, dev: torch.device):
+    """The fields as ``(N, 1, T)`` f32 tensors on ``dev``, and the mask as
+    ``(N, 1, T)`` (or None)."""
+    fields = OHLCV(*(device_mod.as_tensor(f, torch.float32, dev)[:, None, :]
+                     for f in ohlcv))
+    if bar_mask is None:
+        return fields, None
+    return fields, device_mod.as_tensor(bar_mask, torch.bool, dev)[:, None, :]
+
+
+def _held(pos: torch.Tensor, mask) -> torch.Tensor:
+    """``pos`` with the last valid position HELD through the padded bars
+    (padding is a suffix; repeat-last closes earn zero return there), as
+    the reference does, instead of charging a phantom exit."""
+    if mask is None:
+        return pos
+    last_idx = (mask.to(torch.int64).sum(-1) - 1).clamp_min(0)   # (N, 1)
+    pos_last = torch.gather(
+        pos, -1, last_idx.expand(pos.shape[0], pos.shape[1])[..., None])
+    return torch.where(mask, pos, pos_last)
 
 
 def map_param_chunks(grid: Mapping[str, object], row_elems: int,
@@ -115,3 +141,34 @@ def map_param_chunks(grid: Mapping[str, object], row_elems: int,
     parts = [one_chunk({k: v[lo:lo + chunk, None] for k, v in params.items()})
              for lo in range(0, P, chunk)]
     return metrics_mod.Metrics(*(torch.cat(f, dim=-1) for f in zip(*parts)))
+
+
+def best_params(metric_values: torch.Tensor, grid: Mapping[str, object], *,
+                axis: int = -1, metric: str | None = None,
+                return_index: bool = False):
+    """Select the best point of a ``(..., P)`` metric over the param axis
+    (the reference's ``best_params``, the one selection routine of the
+    best-returns path).
+
+    Returns ``(best_value, {name: best_param})`` with the leading shape of
+    ``metric_values`` minus the param axis, and the flat-grid indices as a
+    third element when ``return_index`` is true. ``metric`` (a
+    :class:`~..ops.metrics.Metrics` field name) sets the direction: the
+    lower-is-better metrics select the minimum. NaN cells rank last (an
+    all-NaN row still returns a NaN best), and among equal scores the
+    first index wins (``torch.argmax``, as ``jnp.argmax``; +0 and -0 are
+    equal here).
+    """
+    sign = metrics_mod.metric_sign(metric) if metric is not None else 1.0
+    score = torch.where(torch.isnan(metric_values),
+                        torch.full_like(metric_values, -torch.inf),
+                        sign * metric_values)
+    idx = torch.argmax(score, dim=axis)
+    best = torch.take_along_dim(
+        metric_values, idx.unsqueeze(axis), dim=axis).squeeze(axis)
+    chosen = {n: device_mod.as_tensor(v, torch.float32,
+                                      metric_values.device)[idx]
+              for n, v in grid.items()}
+    if return_index:
+        return best, chosen, idx
+    return best, chosen

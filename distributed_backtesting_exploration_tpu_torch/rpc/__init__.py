@@ -2,9 +2,12 @@
 
 ``backtesting.proto`` and ``backtesting_pb2`` are byte-identical copies of
 the reference's, so JAX and PyTorch workers serve one fleet. :mod:`.wire`
-is the DBXM result codec, :mod:`.compute` the sweep backend, :mod:`.service`
-the client stub and :mod:`.worker` the polling loop. Only the last two
-import ``grpc``, so nothing is imported here eagerly.
+holds the result codecs (DBXM, DBXS, DBXP), :mod:`.panel_store` the panel
+digest and its byte-bounded LRU, :mod:`.compute` the two-phase sweep
+backend with its panel cache, :mod:`.executor` the worker's compute side
+(a serial loop, or the submit/collect pipeline), :mod:`.service` the client stub and
+:mod:`.worker` the polling loop. Only the last two import ``grpc``, so
+nothing is imported here eagerly.
 
 Run a worker against a dispatcher:
 

@@ -1,30 +1,44 @@
 """Worker compute backend of the port (reference ``rpc/compute.py``).
 
 :class:`TorchSweepBackend` turns a batch of ``JobSpec`` protos into
-:class:`Completion` objects carrying DBXM metric blocks, the way the
-reference's ``JaxSweepBackend`` does for the SMA-crossover sweep: it
-decodes each DBX1 payload, groups stackable jobs, runs one fused sweep per
-group on the backend's device and packs one DBXM block per job.
+:class:`Completion` objects, as the reference's ``JaxSweepBackend`` does:
+it resolves each job's DBX1 panel (inline bytes, the digest-keyed
+:class:`PanelCache`, or the worker's ``payload_fetcher``), groups stackable
+jobs, runs one sweep per group on the backend's device and packs one
+result block per job. It is two-phase: :meth:`~TorchSweepBackend.submit`
+launches a batch's sweeps and starts one device-to-host copy of each
+group's results into pinned host memory without waiting for the card;
+:meth:`~TorchSweepBackend.collect` waits for those copies and packs the
+blocks; ``process = collect(submit(jobs))``. The worker overlaps the two
+on separate threads (``rpc/executor.py``).
 
 The port serves every strategy of the reference: the single-asset
 families of ``_FUSED_STRATEGIES`` (sma_crossover on K1; bollinger,
 bollinger_touch, stochastic, rsi, keltner and vwap_reversion on K2;
 momentum, donchian and donchian_hl on K3; macd on K4, trix on K5,
 obv_trend on K6) and the two-legged pairs jobs (K7, the second leg in
-``JobSpec.ohlcv2``). A pairs
-job without a second leg, or with legs of unequal length, completes with
-an empty metric block and a logged error, as in the reference. A job
-carrying a field the port does not serve yet (streaming append, scenario
-batches, walk-forward, top-k, best-returns) is refused on its own: it gets
-a logged warning naming the field and no completion, so it stays leased
-and the dispatcher re-queues it when the lease runs out, while the other
-jobs of its batch are served. Nothing is computed some other way.
+``JobSpec.ohlcv2``), each as a full DBXM block, as the top-k DBXS block
+(``JobSpec.top_k``, selected on the card) or, for single-asset jobs, as
+the best-returns DBXP block (``JobSpec.best_returns``, on the generic
+sweep, whose positions it reprices). A job the reference completes empty
+completes empty here too, with the reference's logged error: a pairs job
+without a second leg or with legs of unequal length, a top-k or
+best-returns request by an unknown metric, a pairs best-returns request.
+A job carrying a field the port does not serve yet (streaming append,
+scenario batches, walk-forward) is refused on its own: it gets a logged
+warning naming the field and no completion, so it stays leased and the
+dispatcher re-queues it when the lease runs out, while the other jobs of
+its batch are served. Nothing is computed some other way.
+
+This module imports no ``grpc``: the worker injects the fetcher.
 """
 
 from __future__ import annotations
 
 import logging
 import math
+import os
+import threading
 import time
 from typing import Callable, NamedTuple
 
@@ -35,12 +49,94 @@ from .. import device as device_mod
 from ..models import base as models_base
 from ..models import donchian, pairs as pairs_mod, stochastic
 from ..ops import fused
-from ..ops.metrics import Metrics
+from ..ops.metrics import Metrics, metric_sign
 from ..parallel import sweep as sweep_mod
 from ..utils import data as data_mod
 from . import wire
+from .panel_store import ByteLRU
 
 log = logging.getLogger("dbx.torch.compute")
+
+_DEFAULT_CACHE_MB = 256
+
+
+def cache_max_bytes() -> int:
+    """The panel cache's budget per level in bytes, ``DBX_PANEL_CACHE_MB``
+    (default 256), read when a cache is made, not at import."""
+    return int(float(os.environ.get("DBX_PANEL_CACHE_MB",
+                                    _DEFAULT_CACHE_MB)) * 1024 * 1024)
+
+
+class PanelCache:
+    """Two-level digest-keyed panel cache (the worker's half of dispatch by
+    digest; the reference's ``PanelCache`` without its page level).
+
+    - **host level**: decoded :class:`~..utils.data.OHLCV` panels; a hit
+      skips the DBX1 decode;
+    - **device level**: the panel's ``(5, T)`` f32 field block on the
+      backend's device; a hit also skips the host-to-device copy, and the
+      group is stacked on the device.
+
+    Each level is a :class:`~.panel_store.ByteLRU` bounded by
+    ``max_bytes`` (``DBX_PANEL_CACHE_MB``). Eviction is not an error: the
+    worker recovers a digest-only miss through ``FetchPayload``. Hit and
+    miss counts by level are plain attributes that :meth:`stats` returns.
+    Thread-safe: the worker's control and prefetch threads probe and fill
+    the host level while the compute thread serves from both.
+    """
+
+    def __init__(self, max_bytes: int | None = None):
+        self.max_bytes = (cache_max_bytes() if max_bytes is None
+                          else int(max_bytes))
+        self._lock = threading.Lock()
+        self._series = ByteLRU(self.max_bytes, self._nbytes)
+        self._device = ByteLRU(self.max_bytes)   # put() passes nbytes
+        self.hits = {"host": 0, "device": 0}
+        self.misses = {"host": 0, "device": 0}
+
+    @staticmethod
+    def _nbytes(arrays) -> int:
+        return int(sum(getattr(a, "nbytes", 0) for a in arrays))
+
+    def contains_series(self, digest: str) -> bool:
+        """Probe that counts neither a hit nor a miss (the control
+        thread's check before it fetches a payload)."""
+        with self._lock:
+            return digest in self._series
+
+    def _get(self, lru: ByteLRU, level: str, digest: str):
+        with self._lock:
+            value = lru.get(digest)
+            if value is None:
+                self.misses[level] += 1
+            else:
+                self.hits[level] += 1
+        return value
+
+    def get_series(self, digest: str):
+        return self._get(self._series, "host", digest)
+
+    def put_series(self, digest: str, series) -> None:
+        with self._lock:
+            self._series.put(digest, series)
+
+    def get_device(self, digest: str):
+        return self._get(self._device, "device", digest)
+
+    def put_device(self, digest: str, block: torch.Tensor,
+                   nbytes: int) -> None:
+        """Cache a ``(5, T)`` device block, charged ``nbytes``."""
+        with self._lock:
+            self._device.put(digest, block, nbytes)
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {"host_panels": len(self._series),
+                    "host_bytes": self._series.bytes,
+                    "device_panels": len(self._device),
+                    "device_bytes": self._device.bytes,
+                    "max_bytes": self.max_bytes,
+                    "hits": dict(self.hits), "misses": dict(self.misses)}
 
 
 class _FusedSpec(NamedTuple):
@@ -119,8 +215,10 @@ _FUSED_STRATEGIES = {
 _PAIRS = "pairs"
 
 
+
+
 class Completion:
-    """One finished job: id + packed DBXM metrics + compute seconds.
+    """One finished job: id + packed result block + compute seconds.
 
     ``trace_id`` echoes the job's dispatcher-minted trace
     (``JobSpec.trace_id``); empty for jobs enqueued without one."""
@@ -165,10 +263,6 @@ def _unsupported(job) -> str | None:
     if (job.ohlcv2 or job.panel_digest2) and job.strategy != _PAIRS:
         return (f"a second leg (ohlcv2) on strategy {job.strategy!r}; only "
                 "pairs jobs take one")
-    if job.top_k > 0:
-        return "top-k selection (top_k)"
-    if job.best_returns:
-        return "best-returns block (best_returns)"
     return None
 
 
@@ -206,25 +300,97 @@ def _pairs_demotion_reason(axes: dict) -> str | None:
     return None
 
 
-def _decode(job, leg2: bool = False):
-    """A job's leg as OHLCV; raises on a digest-only leg (this backend asks
-    for inline payloads)."""
-    payload = job.ohlcv2 if leg2 else job.ohlcv
-    if not payload:
-        raise ValueError(
-            f"job {job.id}: no inline payload{' for leg 2' if leg2 else ''} "
-            "(digest-only dispatch); this backend needs the DBX1 bytes "
-            "inline")
-    return data_mod.from_wire_bytes(payload)
+def _topk_reduce(m: Metrics, metric: str, k: int):
+    """Top-k on the metrics' device: ``(N, P)`` Metrics -> ``((N, k)
+    indices, Metrics of (N, k) rows)`` (the reference's ``_topk_reduce``).
+
+    Rows rank by ``metric`` in its own direction (``metric_sign``), NaN
+    last, in the order of the reference's ``lax.top_k``: floats by total
+    order, so +0 ranks ahead of -0 (a flat combo scores -0 under a
+    lower-is-better metric), and among equal scores the lower index first.
+    ``torch.sort`` and ``torch.topk`` on the floats order neither. So each
+    score becomes its order-preserving int32 key (its bits, the low 31
+    flipped where the sign bit is set), widened to int64 with the index
+    below it, ``key * 2**32 + (P - 1 - j)``: the keys of a row are then
+    distinct, and ``torch.topk`` of them is exact.
+    """
+    score = getattr(m, metric) * metric_sign(metric)
+    score = torch.where(torch.isnan(score), torch.full_like(score, -math.inf),
+                        score).contiguous()
+    bits = score.view(torch.int32)
+    key = bits ^ ((bits >> 31) & 0x7FFFFFFF)
+    P = score.shape[-1]
+    below = torch.arange(P - 1, -1, -1, dtype=torch.int64, device=key.device)
+    _, idx = torch.topk(key.to(torch.int64) * (1 << 32) + below, k, dim=-1)
+    return idx, Metrics(*(torch.take_along_dim(f, idx, dim=-1) for f in m))
+
+
+def _copy_to_host(tensors: dict):
+    """Start one device-to-host copy of each of ``tensors`` (the
+    reference's ``copy_to_host_async``): into pinned host tensors with
+    ``non_blocking=True`` on the current stream, then one recorded CUDA
+    event that :meth:`TorchSweepBackend.collect` waits on before it reads
+    them (a non-blocking copy into pageable memory would be synchronous,
+    and a read before the event fires reads stale bytes). Returns
+    ``(host tensors, event)``; on the CPU the tensors themselves and no
+    event."""
+    if next(iter(tensors.values())).device.type != "cuda":
+        return dict(tensors), None
+    host = {}
+    for name, t in tensors.items():
+        host[name] = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host[name].copy_(t, non_blocking=True)
+    ready = torch.cuda.Event()
+    ready.record(torch.cuda.current_stream(t.device))
+    return host, ready
+
+
+def _upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """``a`` on ``dev``: on the card through pinned memory, a copy that
+    does not wait for the stream's earlier work."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if dev.type != "cuda":
+        return t
+    return t.pin_memory().to(dev, non_blocking=True)
+
+
+class _Pending(NamedTuple):
+    """One group between :meth:`~TorchSweepBackend.submit` and
+    :meth:`~TorchSweepBackend.collect`."""
+
+    jobs: list        # the group's jobs; the first ``n_real`` have results
+    n_real: int
+    t0: float         # when the group's submit began
+    host: dict        # "planes" (9, n, P or k), and "idx"/"returns"
+    ready: object     # the CUDA event after the copies, or None
+    kind: str = "metrics"    # "metrics" (DBXM), "topk" (DBXS), "returns"
+    metric: str = ""         # the rank metric of "topk" and "returns"
+    lengths: tuple = ()      # "returns": each job's real bar count
+
+
+def _empty(group, t0: float) -> _Pending:
+    """A validated-bad group: every job completes with an empty block."""
+    return _Pending(list(group), 0, t0, {}, None)
 
 
 class TorchSweepBackend:
-    """Sweep backend on one device (``"cuda"`` unless the caller asks for
-    ``"cpu"``)."""
+    """Two-phase sweep backend on one device (``"cuda"`` unless the caller
+    asks for ``"cpu"``).
+
+    ``panel_cache`` holds decoded panels and their device blocks by digest;
+    ``payload_fetcher`` (``digest -> bytes``, set by the worker while it
+    runs) recovers a digest-only panel the cache no longer holds.
+    ``decodes`` counts the DBX1 decodes of the submit path.
+    """
 
     def __init__(self, *, device: str | torch.device =
-                 device_mod.DEFAULT_DEVICE):
+                 device_mod.DEFAULT_DEVICE,
+                 panel_cache: PanelCache | None = None):
         self.device = device_mod.resolve(device)
+        self.panel_cache = (PanelCache() if panel_cache is None
+                            else panel_cache)
+        self.payload_fetcher: Callable[[str], bytes] | None = None
+        self.decodes = 0
 
     @property
     def chips(self) -> int:
@@ -232,42 +398,225 @@ class TorchSweepBackend:
         return 1
 
     def process(self, jobs) -> list[Completion]:
-        """Run a job batch and return one Completion per servable job.
+        """Run a job batch to completion: ``collect(submit(jobs))``."""
+        return self.collect(self.submit(jobs))
+
+    def submit(self, jobs) -> list[_Pending]:
+        """Launch a batch and start its result copies; returns the handle
+        :meth:`collect` takes.
 
         A job that ``_unsupported`` refuses is logged and left without a
         completion (it stays leased until the dispatcher re-queues it);
         the rest are grouped as the reference's ``submit`` groups them: by
-        strategy, grid, power-of-two payload length bucket of each leg,
-        cost and periods per year. A batch of refused jobs returns ``[]``.
+        strategy, grid, power-of-two payload length bucket of each leg
+        (the stamped ``panel_bytes_len`` for a digest-only leg), cost,
+        periods per year, walk-forward window, top-k request and
+        best-returns flag.
         """
-        served = []
+        groups: dict[tuple, list] = {}
         for job in jobs:
             what = _unsupported(job)
-            if what is None:
-                served.append(job)
-            else:
+            if what is not None:
                 log.warning("job %s refused: %s is not ported to the "
                             "PyTorch backend yet (see ROADMAP.md, Queue 1); "
                             "it stays leased", job.id, what)
-        groups: dict[tuple, list] = {}
-        for job in served:
+                continue
             axes = wire.grid_from_proto(job.grid)
             key = (job.strategy,
                    tuple(sorted((k, v.tobytes()) for k, v in axes.items())),
                    (len(job.ohlcv) or job.panel_bytes_len).bit_length(),
                    (len(job.ohlcv2) or job.panel_bytes_len2).bit_length(),
-                   job.cost, job.periods_per_year)
+                   job.cost, job.periods_per_year,
+                   job.wf_train, job.wf_test, job.wf_metric,
+                   job.top_k, job.rank_metric, job.best_returns)
             groups.setdefault(key, []).append(job)
-        out: list[Completion] = []
+        pending = []
         for group in groups.values():
-            run = (self._run_pairs_group if group[0].strategy == _PAIRS
-                   else self._run_group)
-            out.extend(run(group))
+            t0 = time.perf_counter()
+            job0 = group[0]
+            if not self._topk_request_ok(group):
+                pending.append(_empty(group, t0))
+            elif job0.best_returns and job0.strategy == _PAIRS:
+                log.error("jobs %s: best_returns is not supported for pairs "
+                          "jobs; completing empty", [j.id for j in group])
+                pending.append(_empty(group, t0))
+            elif job0.strategy == _PAIRS:
+                pending.append(self._submit_pairs_group(group, t0))
+            elif job0.best_returns:
+                pending.append(self._submit_best_returns_group(
+                    group, self._decode_group(group), t0))
+            else:
+                pending.append(self._submit_group(
+                    group, self._decode_group(group), t0))
+        return pending
+
+    def collect(self, pending: list[_Pending]) -> list[Completion]:
+        """Wait for each group's result copy and pack one block per job;
+        a job past a group's ``n_real`` (validated-bad) completes empty."""
+        out: list[Completion] = []
+        for p in pending:
+            if p.ready is not None:
+                p.ready.synchronize()
+            host = {name: t.numpy() for name, t in p.host.items()}
+            if p.kind == "metrics" and p.n_real:
+                blobs = wire.metrics_blocks(host["planes"])
+            else:
+                blobs = [self._block(p, host, i) for i in range(p.n_real)]
+            per_job = (time.perf_counter() - p.t0) / max(len(p.jobs), 1)
+            for i, job in enumerate(p.jobs):
+                out.append(Completion(job.id,
+                                      blobs[i] if i < p.n_real else b"",
+                                      per_job, trace_id=job.trace_id))
         return out
 
-    def _run_group(self, group) -> list[Completion]:
-        t0 = time.perf_counter()
-        series = [_decode(j) for j in group]
+    @staticmethod
+    def _block(p: _Pending, host: dict, i: int) -> bytes:
+        """Job ``i``'s DBXS or DBXP block."""
+        row = Metrics(*host["planes"][:, i])
+        if p.kind == "topk":
+            return wire.topk_to_bytes(host["idx"][i], row, p.metric)
+        # Trimmed to the job's real history: its padded bars earn exactly
+        # zero but belong to the group.
+        return wire.best_returns_to_bytes(int(host["idx"][i]), row,
+                                          host["returns"][i, :p.lengths[i]],
+                                          p.metric)
+
+    def prefetch(self, jobs) -> int:
+        """Decode a batch's inline payloads into the host cache ahead of
+        the compute thread (the worker's prefetch thread calls this while
+        earlier batches run). Best-effort: the submit path resolves through
+        the same cache, so a skipped or failed prefetch costs only the
+        overlap. A zero-budget cache skips the decode it could not keep.
+        Returns the number of panels decoded."""
+        cache = self.panel_cache
+        if cache.max_bytes <= 0:
+            return 0
+        warmed = 0
+        seen: set = set()
+        for job in jobs:
+            for digest, raw in ((job.panel_digest, job.ohlcv),
+                                (job.panel_digest2, job.ohlcv2)):
+                if (not digest or not raw or digest in seen
+                        or cache.contains_series(digest)):
+                    continue
+                seen.add(digest)
+                try:
+                    s = data_mod.from_wire_bytes(raw)
+                except ValueError:
+                    log.exception("prefetch decode failed for digest %s; "
+                                  "the compute thread will decode (and "
+                                  "fail) inline", digest[:16])
+                    continue
+                cache.put_series(digest, s)
+                warmed += 1
+        return warmed
+
+    def _resolve_series(self, job, *, leg2: bool = False):
+        """One leg's decoded panel: host cache, then inline bytes, then
+        ``payload_fetcher``. Returns ``(series, cache_hit)``. A digest-only
+        leg that none of them can serve raises ``ValueError``: the worker
+        logs it and leaves the lease, and the dispatcher's re-dispatch
+        ships the full bytes."""
+        digest = job.panel_digest2 if leg2 else job.panel_digest
+        raw = job.ohlcv2 if leg2 else job.ohlcv
+        if digest:
+            s = self.panel_cache.get_series(digest)
+            if s is not None:
+                return s, True
+        if not raw and digest and self.payload_fetcher is not None:
+            raw = self.payload_fetcher(digest)
+        if not raw:
+            raise ValueError(
+                f"job {job.id}: digest-only payload "
+                f"{digest[:16] if digest else '?'} is in no cache and not "
+                "fetchable; leaving the lease to requeue it")
+        s = data_mod.from_wire_bytes(raw)
+        self.decodes += 1
+        if digest:
+            self.panel_cache.put_series(digest, s)
+        return s, False
+
+    def _decode_group(self, group) -> list:
+        """The group's leg-1 panels, each through :meth:`_resolve_series`."""
+        return [self._resolve_series(j)[0] for j in group]
+
+    def _device_fields(self, group, series, fields, lengths):
+        """``{field: (n, T_max)}`` of a fused group.
+
+        With a digest on every job, each panel is cached on the device as
+        its ``(5, T)`` block, in storage of its own: a hit skips the
+        host-to-device copy, a miss uploads (all of a group's misses in one
+        copy) and fills the cache.
+        The group is then stacked on the device, repeat-last padded to the
+        group's longest panel by one gather when ragged: the same values as
+        :func:`_stack_field_ragged`'s host stack. Digestless jobs keep the
+        host stack, and the sweep uploads it.
+        """
+        t_max = max(lengths)
+        uniform = len(set(lengths)) == 1
+        if not all(j.panel_digest for j in group):
+            if uniform:
+                return {f: np.stack([getattr(s, f) for s in series])
+                        for f in fields}
+            return {f: _stack_field_ragged(series, t_max, f) for f in fields}
+        cache = self.panel_cache
+        blocks = [cache.get_device(j.panel_digest) for j in group]
+        miss = [i for i, b in enumerate(blocks) if b is None]
+        if miss:
+            # One upload for the misses, then a copy of each block into
+            # storage of its own: a cached view of the upload would keep
+            # the whole upload alive, past what the budget charges it.
+            host = [np.stack([np.asarray(f, np.float32) for f in series[i]])
+                    for i in miss]
+            flat = _upload(np.concatenate(host, axis=1), self.device)
+            pieces = torch.split(flat, [h.shape[1] for h in host], dim=1)
+            for i, piece in zip(miss, pieces):
+                blocks[i] = piece.clone()
+                cache.put_device(group[i].panel_digest, blocks[i],
+                                 blocks[i].nbytes)
+        rows = [data_mod._FIELDS.index(f) for f in fields]
+        if uniform:
+            return {f: torch.stack([b[r] for b in blocks])
+                    for f, r in zip(fields, rows)}
+        lens = _upload(np.asarray(lengths, np.int64), self.device)
+        starts = torch.cumsum(lens, 0) - lens
+        bars = torch.arange(t_max, device=self.device)
+        at = starts[:, None] + torch.minimum(bars[None, :], lens[:, None] - 1)
+        flat = torch.cat(blocks, dim=1)                       # (5, sum T)
+        return {f: flat[r][at] for f, r in zip(fields, rows)}
+
+    @staticmethod
+    def _topk_request_ok(group) -> bool:
+        """Validate a group's top-k request up front: an unknown rank
+        metric completes empty with a logged error, no compute."""
+        job0 = group[0]
+        if job0.top_k <= 0 or job0.wf_train > 0:
+            return True
+        metric = job0.rank_metric or "sharpe"
+        if metric in Metrics._fields:
+            return True
+        log.error("jobs %s request top-k by unknown metric %r (known: %s); "
+                  "completing with empty metrics", [j.id for j in group],
+                  metric, ", ".join(Metrics._fields))
+        return False
+
+    def _finish_group(self, jobs, m: Metrics, t0: float, n_real: int,
+                      job0) -> _Pending:
+        """The shared tail of the sweep paths: the top-k selection on the
+        device where the job asks for it, then the result copy."""
+        if job0.top_k <= 0:
+            host, ready = _copy_to_host({"planes": torch.stack(list(m))})
+            return _Pending(list(jobs), n_real, t0, host, ready)
+        metric = job0.rank_metric or "sharpe"
+        k = min(int(job0.top_k), wire.grid_n_combos(job0.grid))
+        idx, m = _topk_reduce(m, metric, k)
+        host, ready = _copy_to_host({"planes": torch.stack(list(m)),
+                                     "idx": idx})
+        return _Pending(list(jobs), n_real, t0, host, ready, "topk", metric)
+
+    def _submit_group(self, group, series, t0: float) -> _Pending:
+        """A single-asset group: its fused sweep, or the generic sweep where
+        the kernel does not take its grid."""
         lengths = [s.n_bars for s in series]
         job0 = group[0]
         axes = wire.grid_from_proto(job0.grid)
@@ -277,14 +626,9 @@ class TorchSweepBackend:
         spec = _FUSED_STRATEGIES[job0.strategy]
         demotion = _fused_demotion_reason(spec, axes)
         if demotion is None:
-            if len(set(lengths)) > 1:
-                fields = {f: _stack_field_ragged(series, max(lengths), field=f)
-                          for f in spec.fields}
-                t_real = np.asarray(lengths, np.int32)
-            else:
-                fields = {f: np.stack([getattr(s, f) for s in series])
-                          for f in spec.fields}
-                t_real = None
+            fields = self._device_fields(group, series, spec.fields, lengths)
+            t_real = (None if len(set(lengths)) == 1
+                      else np.asarray(lengths, np.int32))
             m = spec.run(fields, {k: v.numpy() for k, v in grid.items()},
                          t_real=t_real, cost=cost, periods_per_year=ppy,
                          device=self.device)
@@ -296,16 +640,49 @@ class TorchSweepBackend:
                 batch, models_base.get_strategy(job0.strategy), grid,
                 cost=cost, bar_mask=mask, periods_per_year=ppy,
                 device=self.device)
-        return _completions(group, m, t0)
+        return self._finish_group(group, m, t0, len(group), job0)
 
-    def _run_pairs_group(self, group) -> list[Completion]:
+    def _submit_best_returns_group(self, group, series, t0: float) -> _Pending:
+        """Best-returns jobs (``JobSpec.best_returns``, the reference's
+        ``_submit_best_returns_group``): the generic sweep of the group
+        (the repricing needs positions, which the fused kernels do not
+        materialize), each job's best combo by ``rank_metric``
+        (``sweep.best_params``: NaN last, in the metric's direction, ties
+        to the first index), that combo repriced, and one copy of the index,
+        the metric row and the return series. The ``(N, P)`` metrics never
+        leave the device; the sweep runs in param chunks."""
+        job0 = group[0]
+        metric = job0.rank_metric or "sharpe"
+        if metric not in Metrics._fields:
+            log.error("jobs %s: unknown best_returns rank metric %r; "
+                      "completing empty", [j.id for j in group], metric)
+            return _empty(group, t0)
+        strategy = models_base.get_strategy(job0.strategy)
+        grid = sweep_mod.product_grid(**wire.grid_from_proto(job0.grid))
+        cost = float(job0.cost)
+        batch, _, mask = data_mod.pad_and_stack(series)
+        m = sweep_mod.run_sweep(batch, strategy, grid, cost=cost,
+                                bar_mask=mask,
+                                periods_per_year=job0.periods_per_year or 252,
+                                device=self.device)
+        _, chosen, idx = sweep_mod.best_params(
+            getattr(m, metric), grid, metric=metric, return_index=True)
+        returns = sweep_mod.reprice(batch, strategy, chosen, cost=cost,
+                                    bar_mask=mask, device=self.device)
+        planes = torch.stack([torch.take_along_dim(f, idx[:, None], dim=1)
+                              for f in m])                  # (9, N, 1)
+        host, ready = _copy_to_host({"planes": planes, "idx": idx,
+                                     "returns": returns})
+        return _Pending(list(group), len(group), t0, host, ready, "returns",
+                        metric, tuple(s.n_bars for s in series))
+
+    def _submit_pairs_group(self, group, t0: float) -> _Pending:
         """Two-legged jobs (the reference's ``_submit_pairs_group`` for
         plain pairs jobs): stack both legs, run the fused pairs sweep, with
         ``t_real`` for a ragged group; a group the kernel does not take runs
         the generic ``run_pairs_sweep``, one job at a time when ragged (it
         has no bar mask). A job without a second leg, or with legs of
-        unequal length, completes with an empty metric block."""
-        t0 = time.perf_counter()
+        unequal length, completes with an empty block."""
         good, bad = [], []
         for j in group:
             if not j.ohlcv2 and not j.panel_digest2:
@@ -313,7 +690,8 @@ class TorchSweepBackend:
                           "completing with empty metrics", j.id)
                 bad.append(j)
                 continue
-            y, x = _decode(j), _decode(j, leg2=True)
+            y, _ = self._resolve_series(j)
+            x, _ = self._resolve_series(j, leg2=True)
             if y.n_bars != x.n_bars:
                 log.error("pairs job %s legs differ in length (%d vs %d); "
                           "completing with empty metrics", j.id, y.n_bars,
@@ -321,9 +699,8 @@ class TorchSweepBackend:
                 bad.append(j)
                 continue
             good.append((j, y, x))
-        out = [Completion(j.id, b"", 0.0, trace_id=j.trace_id) for j in bad]
         if not good:
-            return out
+            return _empty(bad, t0)
         jobs = [j for j, _, _ in good]
         lens = np.asarray([y.n_bars for _, y, _ in good], np.int32)
         t_max = int(lens.max())
@@ -353,14 +730,4 @@ class TorchSweepBackend:
                     y_close[i:i + 1, :n], x_close[i:i + 1, :n], grid, **kw)
                     for i, n in enumerate(lens)]
                 m = Metrics(*(torch.cat(f, dim=0) for f in zip(*rows)))
-        return out + _completions(jobs, m, t0)
-
-
-def _completions(jobs, m: Metrics, t0: float) -> list[Completion]:
-    """One DBXM block per job from the ``(N, P)`` metric fields of its
-    group, with the group's seconds shared out per job."""
-    host = torch.stack(list(m)).cpu().numpy()              # (9, N, P)
-    per_job = (time.perf_counter() - t0) / len(jobs)
-    return [Completion(job.id, wire.metrics_to_bytes(Metrics(*host[:, i])),
-                       per_job, trace_id=job.trace_id)
-            for i, job in enumerate(jobs)]
+        return self._finish_group(jobs + bad, m, t0, len(jobs), job0)

@@ -19,6 +19,7 @@ _METHODS = (
     ("RequestJobs", pb.JobsRequest, pb.JobsReply),
     ("SendStatus", pb.StatusRequest, pb.Ack),
     ("CompleteJobs", pb.CompleteBatch, pb.CompleteBatchReply),
+    ("FetchPayload", pb.PayloadRequest, pb.PayloadReply),
 )
 
 

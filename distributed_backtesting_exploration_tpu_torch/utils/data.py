@@ -1,10 +1,12 @@
 """Market-data representation and codecs (numpy only).
 
-A copy of the parts of the reference's ``utils/data.py`` that the SMA sweep
-job needs. The DBX1 binary block and the synthetic panel must stay
-byte-identical to the reference: a mixed fleet of JAX and PyTorch workers
-decodes the same payloads, and the tests pin both codecs to the
-reference's bytes.
+A copy of the reference's ``utils/data.py`` codecs: the synthetic panel,
+CSV, Parquet and the DBX1 binary block with its streaming-append splice.
+Every encoder must stay byte-identical to the reference: a mixed fleet of
+JAX and PyTorch workers decodes the same payloads and content-addresses
+the same panel bytes, and the tests pin each codec to the reference's
+bytes. pyarrow is imported inside the Parquet functions only (hosts
+without it still import this module).
 
 Layout: every field is a separate ``(..., T)`` float32 array
 (struct-of-arrays). Ragged histories are padded at the end with the last
@@ -14,6 +16,7 @@ bar repeated, so padded bars have exactly zero return
 
 from __future__ import annotations
 
+import io
 import struct
 from typing import NamedTuple, Sequence
 
@@ -66,6 +69,17 @@ def synthetic_ohlcv(
     return OHLCV(*(a.astype(dtype) for a in (open_, high, low, close, volume)))
 
 
+def to_csv_bytes(series: OHLCV) -> bytes:
+    """Encode a single ticker (fields shaped ``(T,)``) as OHLCV CSV bytes."""
+    if series.close.ndim != 1:
+        raise ValueError("to_csv_bytes takes a single ticker, fields shaped (T,)")
+    buf = io.StringIO()
+    buf.write("open,high,low,close,volume\n")
+    for row in zip(*(np.asarray(getattr(series, f), np.float64) for f in _FIELDS)):
+        buf.write(",".join(repr(float(v)) for v in row) + "\n")
+    return buf.getvalue().encode()
+
+
 def from_csv_bytes(data: bytes, *, dtype=np.float32) -> OHLCV:
     """Decode OHLCV CSV bytes (header with open/high/low/close/volume columns).
 
@@ -87,6 +101,51 @@ def from_csv_bytes(data: bytes, *, dtype=np.float32) -> OHLCV:
     for name, j in cols.items():
         out[name] = np.asarray([float(r[j]) for r in rows], dtype=dtype)
     return OHLCV(**out)
+
+
+def to_parquet_bytes(series: OHLCV) -> bytes:
+    """Encode a single ticker as a Parquet file (pyarrow): the five named
+    columns as f64, the reference's columnar twin of :func:`to_csv_bytes`."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    if series.close.ndim != 1:
+        raise ValueError(
+            "to_parquet_bytes takes a single ticker, fields shaped (T,)")
+    table = pa.table({f: np.asarray(getattr(series, f), np.float64)
+                      for f in _FIELDS})
+    sink = io.BytesIO()
+    pq.write_table(table, sink)
+    return sink.getvalue()
+
+
+def from_parquet_bytes(data: bytes, *, dtype=np.float32) -> OHLCV:
+    """Decode a Parquet file's OHLCV columns (name-matched,
+    case-insensitive; extra columns such as a date index are tolerated).
+
+    A host without pyarrow, an unreadable file and missing columns all
+    raise ``ValueError``, the bad-payload error of every decoder here.
+    """
+    try:
+        import pyarrow.parquet as pq
+    except ImportError as e:
+        raise ValueError(
+            "pyarrow is required to decode Parquet payloads but is not "
+            "installed on this host; install pyarrow or feed CSV/DBX1 "
+            f"files instead ({e})") from e
+
+    try:
+        table = pq.read_table(io.BytesIO(data))
+    except Exception as e:
+        raise ValueError(f"not a readable Parquet file: {e}") from e
+    by_name = {name.strip().lower(): i
+               for i, name in enumerate(table.column_names)}
+    missing = [f for f in _FIELDS if f not in by_name]
+    if missing:
+        raise ValueError(f"Parquet missing columns: {missing}; "
+                         f"columns={table.column_names}")
+    return OHLCV(*(np.asarray(table.column(by_name[f]).to_numpy(),
+                              dtype=dtype) for f in _FIELDS))
 
 
 def to_wire_bytes(series: OHLCV) -> bytes:
@@ -117,6 +176,22 @@ def from_wire_bytes(data: bytes) -> OHLCV:
         fields.append(np.frombuffer(data, dtype="<f4", count=T, offset=off).copy())
         off += 4 * T
     return OHLCV(*fields)
+
+
+def splice_wire_bytes(base: bytes, delta: bytes) -> bytes:
+    """Extend a DBX1 panel by a DBX1 delta slice: per-field concatenation.
+
+    The streaming-append primitive: deterministic, so a replayed delta
+    chain gives byte-identical extended panels, and so the same content
+    digests.
+    """
+    b = from_wire_bytes(base)
+    d = from_wire_bytes(delta)
+    if d.n_bars < 1:
+        raise ValueError("empty delta slice")
+    return to_wire_bytes(OHLCV(*(
+        np.concatenate([np.asarray(bf), np.asarray(df)])
+        for bf, df in zip(b, d))))
 
 
 def pad_and_stack(

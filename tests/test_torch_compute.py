@@ -3,8 +3,11 @@
 ``TorchSweepBackend(device="cpu").process`` against
 ``JaxSweepBackend(use_fused=True).process`` on the same JobSpecs (DBXM
 blocks decoded and held to the flip rule of ``torch_parity``), for every
-strategy the port serves, and one in-process reference dispatcher drained
-by the port's gRPC worker.
+strategy the port serves; the backend's panel cache and digest-only
+payloads; and one in-process reference dispatcher drained by the port's
+gRPC worker. Top-k, best-returns and the pipelined worker have files of
+their own (``test_torch_topk.py``, ``test_torch_best_returns.py``,
+``test_torch_pipeline.py``).
 """
 
 import threading
@@ -21,7 +24,8 @@ from distributed_backtesting_exploration_tpu.rpc.dispatcher import (
 from distributed_backtesting_exploration_tpu_torch.models import get_strategy
 from distributed_backtesting_exploration_tpu_torch.ops.metrics import Metrics
 from distributed_backtesting_exploration_tpu_torch.parallel import sweep
-from distributed_backtesting_exploration_tpu_torch.rpc import compute, wire
+from distributed_backtesting_exploration_tpu_torch.rpc import (
+    compute, panel_store, wire)
 from distributed_backtesting_exploration_tpu_torch.rpc.worker import Worker
 from distributed_backtesting_exploration_tpu_torch.utils import data
 
@@ -162,8 +166,6 @@ def _assert_serves_around(refused, good, what, caplog):
 
 @pytest.mark.parametrize("field,value,what", [
     ("strategy", "no_such_strategy", "strategy 'no_such_strategy'"),
-    ("top_k", 4, "top-k"),
-    ("best_returns", True, "best-returns"),
     ("wf_train", 40, "walk-forward"),
     ("append_parent_digest", "abc", "append"),
     ("scenario_batch", True, "scenario"),
@@ -179,7 +181,8 @@ def test_backend_refuses_what_it_does_not_serve(field, value, what, caplog):
 
 def test_backend_batch_of_refused_jobs_returns_nothing(caplog):
     specs = _specs(synthetic_jobs(3, 64, "sma_crossover", GRID))
-    for spec, (field, value) in zip(specs, [("top_k", 4), ("wf_train", 40),
+    for spec, (field, value) in zip(specs, [("append_parent_digest", "abc"),
+                                            ("wf_train", 40),
                                             ("strategy", "nope")]):
         _refuse(spec, field, value)
     with caplog.at_level("WARNING", logger="dbx.torch.compute"):
@@ -252,8 +255,6 @@ def test_backend_completes_malformed_pairs_jobs_empty(caplog):
 
 @pytest.mark.parametrize("field,value,what", [
     ("wf_train", 40, "walk-forward"),
-    ("top_k", 4, "top-k"),
-    ("best_returns", True, "best-returns"),
 ])
 def test_backend_refuses_unported_pairs_fields(field, value, what, caplog):
     refused, good = _specs(synthetic_jobs(2, 64, "pairs", PAIRS_GRID))
@@ -262,11 +263,198 @@ def test_backend_refuses_unported_pairs_fields(field, value, what, caplog):
 
 
 def test_backend_refuses_digest_only_payload():
+    # A digest-only payload that no cache holds and no fetcher serves
+    # raises (the worker leaves the lease; the re-dispatch ships bytes).
     (spec,) = _specs(synthetic_jobs(1, 64, "sma_crossover", GRID))
     spec.ohlcv = b""
     spec.panel_digest = "d" * 32
-    with pytest.raises(ValueError, match="inline"):
-        compute.TorchSweepBackend(device="cpu").process([spec])
+    backend = compute.TorchSweepBackend(device="cpu")
+    with pytest.raises(ValueError, match="not fetchable"):
+        backend.process([spec])
+    backend.payload_fetcher = lambda digest: b""
+    with pytest.raises(ValueError, match="not fetchable"):
+        backend.process([spec])
+
+
+def _digest_specs(recs, **kw):
+    specs = _specs(recs)
+    for s in specs:
+        s.panel_digest = panel_store.panel_digest(s.ohlcv)
+        s.panel_bytes_len = len(s.ohlcv)
+        if s.ohlcv2:
+            s.panel_digest2 = panel_store.panel_digest(s.ohlcv2)
+            s.panel_bytes_len2 = len(s.ohlcv2)
+        for k, v in kw.items():
+            setattr(s, k, v)
+    return specs
+
+
+def _digest_only(specs):
+    out = []
+    for s in specs:
+        d = type(s)()
+        d.CopyFrom(s)
+        d.ohlcv = d.ohlcv2 = b""
+        out.append(d)
+    return out
+
+
+@pytest.mark.parametrize("strategy,grid,bars", [
+    ("sma_crossover", GRID, [96]),
+    ("keltner", GRIDS["keltner"], [110, 125]),
+    ("pairs", PAIRS_GRID, [96]),
+], ids=["sma", "keltner-ragged", "pairs"])
+def test_digest_only_batch_is_served_from_the_cache(strategy, grid, bars):
+    recs = []
+    for i, n in enumerate(bars):
+        recs += synthetic_jobs(3, n, strategy, grid, cost=1e-3, seed=80 + i)
+    specs = _digest_specs(recs)
+    backend = compute.TorchSweepBackend(device="cpu")
+    first = backend.process(specs)
+    legs = 2 if strategy == "pairs" else 1
+    assert backend.decodes == legs * len(specs)
+    again = backend.process(_digest_only(specs))
+    assert backend.decodes == legs * len(specs)       # no decode at all
+    assert [c.metrics for c in again] == [c.metrics for c in first]
+    st = backend.panel_cache.stats()
+    assert st["hits"]["host"] == legs * len(specs)
+    if strategy != "pairs":     # the fused single-asset path stacks on
+        assert st["hits"]["device"] == len(specs)     # the device level
+        assert st["misses"]["device"] == len(specs)
+    assert [c.metrics for c in first] == [
+        c.metrics for c in compute.TorchSweepBackend(device="cpu").process(
+            _specs(recs))]
+
+
+def test_digest_only_batch_is_fetched_after_an_eviction():
+    recs = synthetic_jobs(3, 96, "sma_crossover", GRID, cost=1e-3, seed=90)
+    specs = _digest_specs(recs)
+    one_panel = 5 * 96 * 4          # a decoded panel: 5 f32 rows of 96
+    backend = compute.TorchSweepBackend(
+        device="cpu", panel_cache=compute.PanelCache(max_bytes=one_panel))
+    first = backend.process(specs)
+    st = backend.panel_cache.stats()
+    assert st["host_panels"] == 1 and st["device_panels"] == 1
+    blobs = {s.panel_digest: s.ohlcv for s in specs}
+    fetched = []
+    backend.payload_fetcher = lambda d: fetched.append(d) or blobs[d]
+    again = backend.process(_digest_only(specs))
+    assert [c.metrics for c in again] == [c.metrics for c in first]
+    # The cache keeps one panel: each fetch evicts the next job's.
+    assert fetched == [s.panel_digest for s in specs]
+    assert backend.decodes == 2 * len(specs)
+
+
+def test_prefetch_fills_the_host_level_only():
+    specs = _digest_specs(synthetic_jobs(3, 80, "sma_crossover", GRID,
+                                         seed=91))
+    backend = compute.TorchSweepBackend(device="cpu")
+    assert backend.prefetch(specs + specs) == 3
+    assert backend.prefetch(specs) == 0
+    st = backend.panel_cache.stats()
+    assert st["host_panels"] == 3 and st["device_panels"] == 0
+    backend.process(_digest_only(specs))
+    assert backend.decodes == 0
+    assert compute.TorchSweepBackend(
+        device="cpu", panel_cache=compute.PanelCache(max_bytes=0)).prefetch(
+            specs) == 0
+
+
+@pytest.mark.parametrize("lengths", [[7, 7, 7], [5, 9, 3, 9]],
+                         ids=["uniform", "ragged"])
+def test_device_stack_equals_the_host_stack(lengths):
+    # The device level's stack (hits and misses mixed, ragged groups by one
+    # gather) equals _stack_field_ragged's repeat-last host stack exactly.
+    panels = [data.OHLCV(*(f[0] for f in data.synthetic_ohlcv(1, T,
+                                                              seed=i)))
+              for i, T in enumerate(lengths)]
+    specs = [ref_pb.JobSpec(id=f"j{i}", panel_digest=f"{i:032x}")
+             for i in range(len(panels))]
+    backend = compute.TorchSweepBackend(device="cpu")
+    fields = ("close", "high", "volume")
+    for half in (specs[:1], specs):       # the second call mixes hits in
+        n = len(half)
+        got = backend._device_fields(half, panels[:n], fields, lengths[:n])
+        for f in fields:
+            want = compute._stack_field_ragged(panels[:n], max(lengths[:n]),
+                                               f)
+            np.testing.assert_array_equal(np.asarray(got[f]), want)
+    assert backend.panel_cache.stats()["hits"]["device"] == 1
+
+
+@pytest.mark.parametrize("lengths", [[7, 7, 7, 7], [5, 9, 3, 9]],
+                         ids=["uniform", "ragged"])
+def test_device_level_holds_only_the_bytes_it_charges(lengths):
+    # A group of misses is uploaded in one copy; after the level evicts
+    # part of the group, the storage its blocks keep alive must be the
+    # bytes it charges (a view of the upload would keep all of it).
+    panels = [data.OHLCV(*(f[0] for f in data.synthetic_ohlcv(1, T,
+                                                              seed=i)))
+              for i, T in enumerate(lengths)]
+    specs = [ref_pb.JobSpec(id=f"j{i}", panel_digest=f"{i:032x}")
+             for i in range(len(panels))]
+    budget = 5 * 4 * sum(lengths[-2:])        # the last two blocks
+    cache = compute.PanelCache(max_bytes=budget)
+    backend = compute.TorchSweepBackend(device="cpu", panel_cache=cache)
+    backend._device_fields(specs, panels, ("close",), lengths)
+    st = cache.stats()
+    assert st["device_panels"] == 2 and st["device_bytes"] == budget
+    blocks = [cache.get_device(s.panel_digest) for s in specs[-2:]]
+    storages = {b.untyped_storage().data_ptr(): b.untyped_storage().nbytes()
+                for b in blocks}
+    assert len(storages) == 2
+    assert sum(storages.values()) == st["device_bytes"] <= budget
+    assert all(b.untyped_storage().nbytes() == b.nbytes for b in blocks)
+
+
+def test_panel_cache_survives_concurrent_use():
+    # More threads than cores, a short switch interval: every get is
+    # counted once, and the byte accounting matches what is resident.
+    import sys
+
+    cache = compute.PanelCache(max_bytes=40 * 24)
+    panels = [data.OHLCV(*(np.zeros(6, np.float32) for _ in range(5)))
+              for _ in range(64)]
+    gets = 0
+    lock = threading.Lock()
+
+    def hammer(seed):
+        nonlocal gets
+        rng = np.random.default_rng(seed)
+        for _ in range(300):
+            d = f"{int(rng.integers(64)):032x}"
+            if cache.get_series(d) is None:
+                cache.put_series(d, panels[int(d, 16)])
+            cache.put_device(d, object(), 24)
+            cache.get_device(d)
+            with lock:
+                gets += 1
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=hammer, args=(i,))
+                   for i in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    st = cache.stats()
+    assert st["hits"]["host"] + st["misses"]["host"] == gets
+    assert st["hits"]["device"] + st["misses"]["device"] == gets
+    assert st["host_bytes"] == 120 * st["host_panels"] <= 40 * 24
+    assert st["device_bytes"] == 24 * st["device_panels"] <= 40 * 24
+
+
+def test_panel_cache_budget_is_read_when_made(monkeypatch):
+    monkeypatch.setenv("DBX_PANEL_CACHE_MB", "0.5")
+    assert compute.cache_max_bytes() == 512 * 1024
+    assert compute.PanelCache().max_bytes == 512 * 1024
+    monkeypatch.delenv("DBX_PANEL_CACHE_MB")
+    assert compute.PanelCache().max_bytes == 256 * 1024 * 1024
 
 
 def test_stack_field_ragged_repeats_last_bar():

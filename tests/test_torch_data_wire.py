@@ -1,7 +1,8 @@
 """The port's data and wire codecs are byte-identical to the reference's.
 
 A mixed fleet of JAX and PyTorch workers shares one dispatcher: both must
-decode the same DBX1 payloads and produce the same DBXM blocks, and the
+decode the same DBX1, CSV and Parquet payloads, content-address them with
+the same digest, and produce the same DBXM, DBXS and DBXP blocks, and the
 protobuf copy must not drift from the reference's.
 """
 
@@ -11,11 +12,11 @@ import torch
 
 from distributed_backtesting_exploration_tpu.ops import metrics as ref_metrics
 from distributed_backtesting_exploration_tpu.rpc import (
-    backtesting_pb2 as ref_pb, wire as ref_wire)
+    backtesting_pb2 as ref_pb, panel_store as ref_store, wire as ref_wire)
 from distributed_backtesting_exploration_tpu.utils import data as ref_data
 from distributed_backtesting_exploration_tpu_torch.ops import metrics
 from distributed_backtesting_exploration_tpu_torch.rpc import (
-    backtesting_pb2 as pb, wire)
+    backtesting_pb2 as pb, panel_store, wire)
 from distributed_backtesting_exploration_tpu_torch.utils import data
 
 from torch_parity import to_np
@@ -83,6 +84,16 @@ def test_dbxm_bytes_identical_both_ways(as_tensor):
         wire.metrics_from_bytes(raw[:-1])
 
 
+@pytest.mark.parametrize("n,P", [(5, 37), (1, 1), (0, 4)])
+def test_metrics_blocks_equal_per_row_blocks(n, P):
+    planes = np.random.default_rng(n + P).standard_normal(
+        (9, n, P)).astype(np.float32)
+    got = wire.metrics_blocks(planes)
+    assert got == [ref_wire.metrics_to_bytes(
+        ref_metrics.Metrics(*planes[:, i])) for i in range(n)]
+    assert wire.metrics_blocks(planes.astype(np.float64)) == got
+
+
 def test_grid_helpers_match_reference():
     job = ref_pb.JobSpec(grid=ref_wire.grid_to_proto(
         {"slow": np.float32([10, 12]), "fast": np.float32([3, 4, 5])}))
@@ -142,3 +153,167 @@ def test_metrics_from_reductions_matches_reference():
         np.testing.assert_allclose(to_np(getattr(got, name)),
                                    to_np(getattr(want, name)),
                                    rtol=2e-6, atol=1e-7, err_msg=name)
+
+
+def _one(T, seed):
+    return data.OHLCV(*(f[0] for f in data.synthetic_ohlcv(1, T, seed=seed)))
+
+
+@pytest.mark.parametrize("T,seed", [(20, 2), (1, 4), (251, 6)])
+def test_csv_bytes_identical(T, seed):
+    one = _one(T, seed)
+    raw = data.to_csv_bytes(one)
+    assert raw == ref_data.to_csv_bytes(ref_data.OHLCV(*one))
+    for fa, fb in zip(data.from_csv_bytes(raw), one):
+        np.testing.assert_array_equal(fa, fb)
+    with pytest.raises(ValueError, match="single ticker"):
+        data.to_csv_bytes(data.synthetic_ohlcv(2, 5))
+
+
+@pytest.mark.parametrize("T,seed", [(20, 2), (251, 6)])
+def test_parquet_bytes_identical_both_ways(T, seed):
+    one = _one(T, seed)
+    raw = data.to_parquet_bytes(one)
+    assert raw == ref_data.to_parquet_bytes(ref_data.OHLCV(*one))
+    for fa, fb in zip(data.from_parquet_bytes(raw),
+                      ref_data.from_parquet_bytes(raw)):
+        assert fa.dtype == fb.dtype == np.float32
+        np.testing.assert_array_equal(fa, fb)
+    with pytest.raises(ValueError, match="Parquet"):
+        data.from_parquet_bytes(b"not parquet")
+
+
+def test_codec_modules_import_without_pyarrow_and_grpc():
+    import subprocess
+    import sys
+
+    code = ("import sys\n"
+            "sys.modules['pyarrow'] = None\n"
+            "sys.modules['grpc'] = None\n"
+            "from distributed_backtesting_exploration_tpu_torch.utils "
+            "import data\n"
+            "from distributed_backtesting_exploration_tpu_torch.rpc import "
+            "compute, executor, panel_store, wire\n"
+            "one = data.OHLCV(*(f[0] for f in data.synthetic_ohlcv(1, 4)))\n"
+            "try:\n"
+            "    data.from_parquet_bytes(b'x')\n"
+            "except ValueError as e:\n"
+            "    assert 'pyarrow is required' in str(e)\n"
+            "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_splice_wire_bytes_identical():
+    base, delta = _one(30, 7), _one(5, 8)
+    got = data.splice_wire_bytes(data.to_wire_bytes(base),
+                                 data.to_wire_bytes(delta))
+    want = ref_data.splice_wire_bytes(
+        ref_data.to_wire_bytes(ref_data.OHLCV(*base)),
+        ref_data.to_wire_bytes(ref_data.OHLCV(*delta)))
+    assert got == want
+    assert data.from_wire_bytes(got).n_bars == 35
+    empty = data.to_wire_bytes(data.OHLCV(*(f[:0] for f in delta)))
+    with pytest.raises(ValueError, match="empty delta"):
+        data.splice_wire_bytes(data.to_wire_bytes(base), empty)
+
+
+@pytest.mark.parametrize("T,seed", [(64, 0), (1260, 3)])
+def test_panel_digest_matches_reference(T, seed):
+    raw = data.to_wire_bytes(_one(T, seed))
+    d = panel_store.panel_digest(raw)
+    assert d == ref_store.panel_digest(raw) and len(d) == 32
+    assert panel_store.panel_digest(raw + b"x") != d
+
+
+def test_byte_lru_evicts_by_bytes():
+    lru = panel_store.ByteLRU(10)
+    lru.put("a", b"xxxx")
+    lru.put("b", b"yyyy")
+    assert lru.get("a") == b"xxxx"            # "a" is now the most recent
+    lru.put("c", b"zzz")                      # 11 bytes: "b" goes first
+    assert "b" not in lru and "a" in lru and "c" in lru
+    assert lru.bytes == 7 and lru.evictions == 1
+    lru.put("d", b"w" * 20)                   # larger than the bound
+    assert len(lru) == 0 and lru.bytes == 0 and lru.evictions == 4
+    lru.put("e", object(), nbytes=3)
+    lru.put("e", object(), nbytes=2)          # a refresh recharges the key
+    assert len(lru) == 1 and lru.bytes == 2
+
+
+def _topk_block(k, seed):
+    rng = np.random.default_rng(seed)
+    idx = rng.permutation(50)[:k].astype(np.int64)
+    return idx, [rng.standard_normal(k).astype(np.float32) for _ in range(9)]
+
+
+@pytest.mark.parametrize("k,name", [(4, "sharpe"), (1, "max_drawdown"),
+                                    (0, "turnover")])
+def test_dbxs_bytes_identical_both_ways(k, name):
+    idx, rows = _topk_block(k, k)
+    raw = wire.topk_to_bytes(torch.from_numpy(idx),
+                             metrics.Metrics(*rows), name)
+    assert raw == ref_wire.topk_to_bytes(idx, ref_metrics.Metrics(*rows),
+                                         name)
+    gi, gm, gname = wire.topk_from_bytes(raw)
+    ri, rm, rname = ref_wire.topk_from_bytes(raw)
+    assert gname == rname == name
+    np.testing.assert_array_equal(gi, ri)
+    for fa, fb in zip(gm, rm):
+        np.testing.assert_array_equal(fa, fb)
+    assert wire.result_kind(raw) == "topk"
+    with pytest.raises(ValueError, match="bad magic"):
+        wire.topk_from_bytes(b"DBXM" + raw[4:])
+    with pytest.raises(ValueError, match="truncated"):
+        wire.topk_from_bytes(raw[:12])
+    if k:
+        with pytest.raises(ValueError, match="truncated"):
+            wire.topk_from_bytes(raw[:-1])
+
+
+@pytest.mark.parametrize("T,grid_idx", [(96, 7), (1, 0)])
+def test_dbxp_bytes_identical_both_ways(T, grid_idx):
+    rng = np.random.default_rng(T)
+    row = [np.float32([v]) for v in rng.standard_normal(9)]
+    ret = rng.standard_normal(T).astype(np.float32)
+    raw = wire.best_returns_to_bytes(grid_idx, metrics.Metrics(*row),
+                                     torch.from_numpy(ret), "sortino")
+    assert raw == ref_wire.best_returns_to_bytes(
+        grid_idx, ref_metrics.Metrics(*row), ret, "sortino")
+    g = wire.best_returns_from_bytes(raw)
+    r = ref_wire.best_returns_from_bytes(raw)
+    assert g[0] == r[0] == grid_idx and g[3] == r[3] == "sortino"
+    np.testing.assert_array_equal(g[2], r[2])
+    np.testing.assert_array_equal(np.float32(list(g[1])),
+                                  np.float32(list(r[1])))
+    assert wire.result_kind(raw) == "returns"
+    with pytest.raises(ValueError, match="bad magic"):
+        wire.best_returns_from_bytes(b"DBXS" + raw[4:])
+    with pytest.raises(ValueError, match="truncated"):
+        wire.best_returns_from_bytes(raw[:-1])
+
+
+def test_result_kind_matches_reference():
+    blocks = [b"", wire.metrics_to_bytes(metrics.Metrics(
+        *_metric_rows(3))), b"DBXS", b"DBXP"]
+    for b in blocks:
+        assert wire.result_kind(b) == ref_wire.result_kind(b)
+    for bad in (b"XXXX", b"DBX1"):
+        with pytest.raises(ValueError, match="unknown result block"):
+            wire.result_kind(bad)
+
+
+def test_grid_to_proto_round_trips_and_matches_reference():
+    axes = {"slow": np.float32([10, 12]), "fast": [3.0, 4.0, 5.5],
+            "k": torch.tensor([0.5, 1.0])}
+    got = pb.JobSpec(grid=wire.grid_to_proto(axes))
+    want = ref_pb.JobSpec(grid=ref_wire.grid_to_proto(
+        {k: np.asarray(v) for k, v in axes.items()}))
+    assert got.SerializeToString(deterministic=True) == \
+        want.SerializeToString(deterministic=True)
+    back = wire.grid_from_proto(got.grid)
+    assert list(back) == ["fast", "k", "slow"]
+    for k, v in axes.items():
+        np.testing.assert_array_equal(back[k], np.asarray(v, np.float32))

@@ -14,6 +14,20 @@ import numpy as np
 
 RTOL, ATOL = 2e-4, 2e-5
 
+# Rows of a ranked metric, 8 combos each, with ties, NaN, +-inf, +-0 and
+# subnormals, for the selection tests (top-k and best_params). The first is
+# the row where torch's sorts and lax.top_k disagree: lax.top_k ranks +0
+# ahead of -0, and among equal keys the lower index first.
+CRAFTED = np.float32([
+    [-0., 0., 1., 1., -np.inf, 0., -0., -np.inf],
+    [np.nan, 2., np.nan, -np.inf, np.inf, 2., -0., 0.],
+    [np.nan] * 8,
+    [3.] * 8,
+    [-1., -0., -2., 0., -1., -0., 0., -2.],
+    [np.inf, np.nan, np.inf, -np.inf, 1e-30, -1e-30, 5e-45, -5e-45],
+    [0.25, -0.5, 0.75, -1., 1.25, -1.5, 1.75, -2.],
+])
+
 
 def to_np(x) -> np.ndarray:
     if hasattr(x, "detach"):
