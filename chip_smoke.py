@@ -157,16 +157,55 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    ``process`` and through the depth-2 executor in turns, the bytes
    identical, batches/s and backtests/s printed; and a cProfile of one
    ``process`` call, its top host frames by own time.
-6. One JSON line with each kernel entry's (K8: each case's) launches,
+6. Walk-forward at the reference bench's settings: 500 tickers x 1260
+   bars, train 600, test 55 (12 windows), cost 1e-3. First the refit's
+   argmax on the card against numpy's (jnp.argmax's rule: the first NaN
+   wins, ties go to the first index) on crafted rows, whole and across
+   param chunks. Then, for each of the 13 single-asset families, 500
+   walk-forward JobSpecs on its bench grid (1000-2000 combos, so the
+   fused-train route) through ``process``, the launch counts reset just
+   before: the family's kernel entry (and macd's and trix's table kernel)
+   must launch, and every block is one stitched row with finite sharpe;
+   the batch is timed three more times. The same 500 tickers' 6000
+   stacked train windows (the shape the main path gave the kernel) then
+   go through ``walk_forward_fused`` with the kernel and again with every
+   entry's plain version as the train sweep (the entry must launch no
+   time in the plain run): chosen params and out-of-sample metrics
+   bit-equal, and the main path's 500 blocks bit-equal to the plain run's
+   rows. 16 jobs (sma on a 1/32
+   tick grid) are held against the generic ``walk_forward`` on the card
+   under the reference's flip-aware rule: a job whose sharpe is off by
+   more than 0.01 + 1% is flipped (at most 2 of 16), the others within
+   rtol=2e-3, atol=2e-4 (cagr within ``_cagr_slack``). 1000 pairs
+   walk-forward jobs (500 combos, generic: the reference has no fused
+   route for them) must be bit-equal to ``walk_forward_pairs`` on the
+   same stacked legs; the jobs flipped against the same refit in f64
+   are counted and held at most 200 of 1000 (146 on the H100), and the
+   unflipped jobs' metrics off the flip-aware tolerance are counted and
+   printed. Then the rates in backtests/s (tickers x combos x
+   windows over the median of 5 runs after a warm-up) of the bench's
+   walk-forward config, generic and fused at P = 400 and fused at
+   P = 2000, and the port bench's ``walkforward`` config in both routes,
+   each beside the card's name and power limit. Last,
+   ``sweep_and_compose`` at 500 x 1260 on the sma bench grid (chosen =
+   ``best_params`` of the generic sweep; the book's series and metrics
+   against a numpy f64 recomputation at the reference tests'
+   tolerances), ``correlation_matrix`` of the 500 tickers' returns
+   against numpy's f64 at rtol=1e-4, atol=1e-4, and a ``SweepCheckpointer``
+   round trip of the (500, 2000) sweep Metrics, bit-equal.
+7. One JSON line with each kernel entry's (K8: each case's) launches,
    error, times, bound and library time (the tile entries also their
    width sweep, wrapper time, build report and SASS count; the table
-   kernels each a record of their own); then the JSON result line, last.
+   kernels each a record of their own; K1-K6 also their launches on the
+   walk-forward main paths, ``walkforward_launches``); then the JSON
+   result line, last.
 
 This script imports nothing of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import json
@@ -1598,19 +1637,20 @@ def phase_main_path(kernels_mod, compute, wire, pb, data, sweep, models,
     return launches
 
 
-def _cagr_slack(gold) -> np.ndarray:
+def _cagr_slack(gold, n_bars: int = N_BARS, rtol: float = RTOL,
+                atol: float = ATOL) -> np.ndarray:
     """What cagr may carry of its final equity's error: cagr =
     eq ** (1 / years) - 1 multiplies an error in eq by
     eq ** (1 / years - 1) / years, which grows as eq -> 0, and the two
     paths sum the equity in other orders. The equity error allowed is
-    total_return's own tolerance. The slack is capped at the flip rule's
-    own bound (0.01 + 0.01 |cagr|), so cagr stays checked where the final
-    equity nears 0."""
-    tr = gold.total_return.cpu().numpy()
-    cagr = gold.cagr.cpu().numpy()
+    total_return's own tolerance (``rtol``, ``atol``) over ``n_bars``. The
+    slack is capped at the flip rule's own bound (0.01 + 0.01 |cagr|), so
+    cagr stays checked where the final equity nears 0."""
+    tr = np.asarray(gold.total_return.cpu().numpy())
+    cagr = np.asarray(gold.cagr.cpu().numpy())
     eq = np.maximum(1.0 + tr, 1e-12)
-    years = N_BARS / 252
-    slack = eq ** (1.0 / years - 1.0) / years * (ATOL + RTOL * np.abs(tr))
+    years = n_bars / 252
+    slack = eq ** (1.0 / years - 1.0) / years * (atol + rtol * np.abs(tr))
     return np.minimum(slack, 0.01 + 0.01 * np.abs(cagr))
 
 
@@ -2025,7 +2065,7 @@ def phase_bench(kernels_mod, bench, records) -> None:
     print(json.dumps(result))
     print(f"bench launches {launches}")
     for name in (*bench.FUSED, "roofline_stages_full",
-                 "roofline_stages_boll_full"):
+                 "roofline_stages_boll_full", "walkforward"):
         _check(result["configs"].get(name, 0) > 0, f"bench: {name} gave "
                "no rate")
     for rec in records:
@@ -2296,8 +2336,445 @@ def phase_worker_path(kernels_mod, compute, executor, wire, pb, data,
               f"calls: {Path(path).name}:{line} {func}")
 
 
+# --- walk-forward, portfolio composition and checkpoints ------------------
+
+# The reference bench's walk-forward settings (bench.py configs[4]): the
+# bars' second half less 30 as the train span, 12 refit windows.
+WF_TRAIN = N_BARS // 2 - 30                           # 600
+WF_TEST = (N_BARS - WF_TRAIN) // 12                   # 55
+WF_WINDOWS = (N_BARS - WF_TRAIN) // WF_TEST           # 12
+WF_KW = {"train": WF_TRAIN, "test": WF_TEST, "cost": COST}
+# The cost a JobSpec carries (a proto float), for runs held bit-equal to
+# the backend's blocks.
+JOB_COST = float(np.float32(COST))
+# The flip-aware rule of the reference's walk-forward wire tests
+# (tests/test_walkforward_fused_wire.py), and the jobs of 16 that may flip.
+WF_RTOL, WF_ATOL, WF_MAX_FLIPS = 2e-3, 2e-4, 2
+# Pairs walk-forward jobs of 1000 that may flip against the f64 refit: at
+# the bench shape no f32 pairs path meets the 2-of-16 budget (146 flipped
+# on the H100), so this bound catches a regression, not the f32 drift.
+PAIRS_F64_MAX_FLIPS = 200
+# Each kernel entry's dispatch (ops/fused.py) and its plain version.
+PLAIN = {"fused_sma": "fused_sma_plain", "obv": "obv_plain",
+         "band_inline": "band_inline_plain",
+         "band_table": "band_machine_plain",
+         "band_stoch": "band_stoch_plain", "momentum": "momentum_plain",
+         "donchian": "donchian_plain", "macd": "macd_plain",
+         "trix": "trix_plain", "pairs": "pairs_plain"}
+
+
+@contextlib.contextmanager
+def _plain_entries(fused):
+    """Every kernel entry's dispatch bound to its plain version, so a sweep
+    runs the plain versions on the card's tensors. The tables still come
+    from their kernels, which phase 3 holds bit-equal to theirs."""
+    saved = {name: getattr(fused, name) for name in PLAIN}
+    try:
+        for name, plain in PLAIN.items():
+            setattr(fused, name, getattr(fused, plain))
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(fused, name, fn)
+
+
+def _wf_jobs(pb, data, strategy, axes, panels) -> list:
+    return _with(_jobs(pb, data, strategy, axes, panels), wf_train=WF_TRAIN,
+                 wf_test=WF_TEST, wf_metric="sharpe")
+
+
+def _oos_rows(wire, done, jobs) -> dict:
+    """Each job's one stitched row, as a (jobs,) array a metric."""
+    by_id = {c.job_id: wire.metrics_from_bytes(c.metrics) for c in done}
+    _check(set(by_id) == {j.id for j in jobs},
+           "walk-forward: completion ids differ")
+    for jid, m in by_id.items():
+        _check(all(f.shape == (1,) for f in m), f"{jid}: not one row")
+    return {name: np.concatenate([getattr(by_id[j.id], name) for j in jobs])
+            for name in wire.Metrics._fields}
+
+
+def _wf_flips(label, got: dict, gold) -> int:
+    """``got`` against ``gold`` (Metrics of (jobs,) tensors) under the
+    flip-aware rule: a job whose sharpe is off by more than 0.01 + 1% is
+    flipped, and every metric of the others agrees at WF_RTOL, WF_ATOL
+    (cagr within :func:`_cagr_slack` more); NaN must meet NaN. Returns the
+    flipped jobs' count."""
+    ref = {name: getattr(gold, name).cpu().numpy() for name in gold._fields}
+    flipped = (np.abs(got["sharpe"] - ref["sharpe"])
+               > 0.01 + 0.01 * np.abs(ref["sharpe"]))
+    slack = dict.fromkeys(ref, 0.0)
+    slack["cagr"] = _cagr_slack(gold, WF_WINDOWS * WF_TEST, WF_RTOL, WF_ATOL)
+    for name, b in ref.items():
+        a = got[name]
+        bad = ((np.abs(a - b) > WF_ATOL + WF_RTOL * np.abs(b) + slack[name])
+               | (np.isnan(a) != np.isnan(b))) & ~flipped
+        _check(not bad.any(), f"{label}: {name} off in {int(bad.sum())} "
+               f"unflipped jobs, max abs err "
+               f"{float(np.nanmax(np.abs(a - b)[~flipped], initial=0.0))}")
+    return int(flipped.sum())
+
+
+# Train metrics with NaN, ties, +-0 and +-inf for the refit's argmax rule.
+WF_CRAFTED = np.float32([
+    [-0., 0., 1., 1., -np.inf, 0., -0., -np.inf],
+    [np.nan, 2., np.nan, -np.inf, np.inf, 2., -0., 0.],
+    [3., 3., 3., 3., 3., 3., 3., 3.],
+    [-1., -0., -2., 0., -1., -0., 0., -2.],
+    [1., 2., 3., np.nan, 3., 2., 1., np.nan],
+])
+
+
+def _wf_argmax_rule(walkforward, sweep, dev) -> None:
+    """The refit's argmax on the card, whole and across param chunks of
+    every size: numpy's argmax, which is jnp.argmax's rule (the first NaN
+    wins; among equal values the first index)."""
+    rows = torch.as_tensor(WF_CRAFTED, device=dev)
+    n, P = rows.shape
+    grid = {"x": np.arange(P, dtype=np.float32)}
+    saved = sweep._CHUNK_ELEMS
+    try:
+        for sign in (1.0, -1.0):
+            want = np.argmax(sign * WF_CRAFTED, axis=-1)
+            got = walkforward.argmax_nan_first(sign * rows).cpu().numpy()
+            _check(np.array_equal(got, want), f"argmax rule: {got} != {want}")
+            for chunk in (1, 3, P):
+                sweep._CHUNK_ELEMS = chunk
+                _, idx = walkforward._refit(
+                    grid, 1, dev, sign,
+                    lambda sub: (rows[:, sub["x"][:, 0].long()],))
+                _check(np.array_equal(idx.cpu().numpy(), want),
+                       f"argmax rule across chunks of {chunk}: "
+                       f"{idx.cpu().numpy()} != {want}")
+    finally:
+        sweep._CHUNK_ELEMS = saved
+    print("walk-forward argmax on the card: numpy's (jnp.argmax's) rule on "
+          "crafted rows, whole and across chunks of 1, 3 and 8")
+
+
+def _median_s(run, reps: int = 5) -> float:
+    """Median host seconds of ``reps`` calls of ``run`` after one warm-up,
+    each synchronized."""
+    run()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def _wf_family(kernels_mod, backend, wire, pb, data, models, fused,
+               walkforward, compute, strategy, axes, entry, seed):
+    """One family's walk-forward main path, its kernel against its plain
+    version on the stacked train windows, and 16 jobs against the generic
+    refit; returns (launches, first batch s, median of 3 more)."""
+    n_combos = int(np.prod([v.size for v in axes.values()]))
+    _check(n_combos >= backend._WF_FUSED_MIN_COMBOS,
+           f"{strategy}: {n_combos} combos stay below the fused-train route")
+    panel = data.synthetic_ohlcv(N_TICKERS, N_BARS, seed=seed)
+    jobs = _wf_jobs(pb, data, strategy, axes, (panel,))
+    kernels_mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = backend.process(jobs)
+    first = time.perf_counter() - t0
+    launches = dict(kernels_mod.LAUNCHES)
+    print(f"{strategy} walk-forward main path launches {launches}")
+    _check(launches.get(entry, 0) > 0,
+           f"the {strategy} walk-forward main path launched {entry} no time")
+    if strategy in TABLE_KERNELS:
+        _check(launches.get(TABLE_KERNELS[strategy], 0) > 0,
+               f"the {strategy} walk-forward main path launched its table "
+               "kernel no time")
+    rows = _oos_rows(wire, done, jobs)
+    _check(bool(np.isfinite(rows["sharpe"]).all()),
+           f"{strategy}: stitched sharpe not finite")
+    more = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        backend.process(jobs)
+        more.append(time.perf_counter() - t0)
+
+    # The kernel against its plain version as the train sweep, on the
+    # whole panel's W x 500 stacked train windows: the shape the main path
+    # gave the kernel. The main path's blocks must be the plain run's rows.
+    g = _flat_grid(axes)
+    spec = compute._FUSED_STRATEGIES[strategy]
+    strat = models.get_strategy(strategy)
+    dev = backend.device
+    tpanel = data.OHLCV(*(torch.as_tensor(f, device=dev) for f in panel))
+    kw = dict(WF_KW, cost=JOB_COST)
+
+    def train_fn(*fields):
+        return spec.run(dict(zip(spec.fields, fields)), g, cost=JOB_COST,
+                        periods_per_year=252, device=dev)
+
+    def run():
+        return walkforward.walk_forward_fused(
+            tpanel, strat, g, train_fn, fields=spec.fields, device=dev, **kw)
+
+    kern = run()
+    kernels_mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    with _plain_entries(fused):
+        plain = run()
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    _check(kernels_mod.LAUNCHES.get(entry, 0) == 0,
+           f"{strategy} walk-forward: the plain run launched {entry}")
+    for k in g:
+        _check(torch.equal(kern.chosen[k], plain.chosen[k]),
+               f"{strategy} walk-forward: kernel and plain version chose "
+               f"other {k}")
+    for name in kern.oos_metrics._fields:
+        want = getattr(plain.oos_metrics, name)
+        _check(_bits_equal(getattr(kern.oos_metrics, name), want),
+               f"{strategy} walk-forward: {name} of the kernel's route not "
+               "bit-equal to the plain version's")
+        _check(np.array_equal(_u32(rows[name]), _u32(want.cpu())),
+               f"{strategy} walk-forward: {name} of the main path's blocks "
+               "not bit-equal to the plain run's")
+
+    # 16 jobs through the backend against the generic refit on the card.
+    small = data.synthetic_ohlcv(16, N_BARS, seed=seed + 100)
+    if strategy == "sma_crossover":
+        # Exact f32 cumsums whatever their association, as phase 4.
+        small = data.OHLCV(*(np.round(f * 32) / np.float32(32)
+                             for f in small))
+    sjobs = _wf_jobs(pb, data, strategy, axes, (small,))
+    got = _oos_rows(wire, backend.process(sjobs), sjobs)
+    gold = walkforward.walk_forward(small, strat, g, device=dev,
+                                    **WF_KW).oos_metrics
+    n_flips = _wf_flips(f"{strategy} walk-forward vs the generic refit", got,
+                        gold)
+    _check(n_flips <= WF_MAX_FLIPS, f"{strategy} walk-forward: {n_flips} of "
+           f"16 jobs flipped against the generic refit")
+    print(f"{strategy} walk-forward: {N_TICKERS} jobs x {n_combos} combos x "
+          f"{WF_WINDOWS} windows, first batch {first:.4f} s, 3 more "
+          f"{[round(t, 4) for t in more]} s; kernel, plain version "
+          f"({plain_s:.4f} s) and blocks bit-equal on "
+          f"{N_TICKERS * WF_WINDOWS} stacked train rows; 16 jobs vs the "
+          f"generic refit: {n_flips} flipped")
+    return launches, first, statistics.median(more)
+
+
+def _wf_pairs(backend, wire, pb, data, walkforward):
+    """1000 pairs walk-forward jobs through ``process``, bit-equal to
+    ``walk_forward_pairs`` on the same stacked legs; the jobs flipped
+    against the same refit in f64 are held at PAIRS_F64_MAX_FLIPS."""
+    axes = AXES["pairs"]
+    g = _flat_grid(axes)
+    legs = _pairs_legs(data, N_PAIRS, N_BARS, 1)
+    jobs = _wf_jobs(pb, data, "pairs", axes, legs)
+    t0 = time.perf_counter()
+    done = backend.process(jobs)
+    secs = time.perf_counter() - t0
+    got = _oos_rows(wire, done, jobs)
+    y, x = (leg.close for leg in legs)
+    direct = walkforward.walk_forward_pairs(y, x, g, device=backend.device,
+                                            **WF_KW).oos_metrics
+    for name in direct._fields:
+        _check(np.array_equal(_u32(got[name]),
+                              _u32(getattr(direct, name).cpu())),
+               f"pairs walk-forward: {name} of the blocks not bit-equal to "
+               "walk_forward_pairs")
+    y64, x64 = (torch.as_tensor(a, dtype=torch.float64, device=backend.device)
+                for a in (y, x))
+    f64 = {name: v.cpu().numpy() for name, v in zip(
+        direct._fields,
+        walkforward._walk_forward_pairs(y64, x64, g, **WF_KW).oos_metrics)}
+    s64 = f64["sharpe"]
+    flipped = np.abs(got["sharpe"] - s64) > 0.01 + 0.01 * np.abs(s64)
+    flips = int(flipped.sum())
+    _check(flips <= PAIRS_F64_MAX_FLIPS, f"pairs walk-forward: {flips} of "
+           f"{N_PAIRS} jobs flipped against the refit in f64")
+    off = {name: int((((np.abs(got[name] - b)
+                        > WF_ATOL + WF_RTOL * np.abs(b))
+                       | (np.isnan(got[name]) != np.isnan(b)))
+                      & ~flipped).sum())
+           for name, b in f64.items()}
+    print(f"pairs walk-forward: {N_PAIRS} jobs x {g['lookback'].size} combos "
+          f"x {WF_WINDOWS} windows, batch {secs:.4f} s, blocks bit-equal to "
+          f"walk_forward_pairs; {flips} of {N_PAIRS} jobs flipped against "
+          f"the refit in f64 (at most {PAIRS_F64_MAX_FLIPS}); unflipped jobs "
+          f"off rtol={WF_RTOL}, atol={WF_ATOL} of f64, a metric: {off}")
+    return secs
+
+
+def _np_book(close, pos, expo_card):
+    """The equal-weight book of ``pos`` on ``close`` in numpy f64: (net,
+    equity, exposure, metrics). hit_rate's active bars are those where the
+    card's f32 exposure is nonzero: a bar with as many long as short
+    tickers is exactly flat in f64 and may carry a rounding residue in
+    f32."""
+    from distributed_backtesting_exploration_tpu_torch.rpc import aggregate
+
+    close = close.astype(np.float64)
+    n = close.shape[0]
+    r = np.zeros_like(close)
+    r[:, 1:] = close[:, 1:] / close[:, :-1] - 1.0
+    prev = np.concatenate([np.zeros((n, 1)), pos[:, :-1]], axis=1)
+    net = (prev * r - COST * np.abs(pos - prev)).sum(axis=0) / n
+    expo = pos.sum(axis=0) / n
+    out = aggregate._np_portfolio_metrics(net)
+    active = np.abs(np.concatenate([[0.0], expo_card[:-1]])) > 0
+    out["hit_rate"] = float((active & (net > 0)).sum()
+                            / (active.sum() + 1e-12))
+    turnover = float(np.abs(np.diff(expo, prepend=0.0)).sum())
+    out.update(n_trades=0.5 * turnover, turnover=turnover)
+    return net, 1.0 + np.cumsum(net), expo, out
+
+
+def _wf_portfolio(sweep, models, portfolio, checkpoint, data, dev) -> None:
+    """``sweep_and_compose`` at 500 x 1260 on the sma bench grid against
+    ``best_params`` and a numpy f64 book, ``correlation_matrix`` against
+    numpy's, and a (500, 2000) Metrics checkpoint round trip."""
+    import tempfile
+
+    panel = data.synthetic_ohlcv(N_TICKERS, N_BARS, seed=0)
+    tpanel = data.OHLCV(*(torch.as_tensor(f, device=dev) for f in panel))
+    sma = models.get_strategy("sma_crossover")
+    g = _flat_grid({"fast": FAST_AXIS, "slow": SLOW_AXIS})
+    t0 = time.perf_counter()
+    pm, chosen = portfolio.sweep_and_compose(tpanel, sma, g, cost=COST,
+                                             device=dev)
+    torch.cuda.synchronize()
+    compose_s = time.perf_counter() - t0
+    m = sweep.run_sweep(tpanel, sma, g, cost=COST, device=dev)
+    _, want = sweep.best_params(m.sharpe, g, metric="sharpe")
+    for k in g:
+        _check(torch.equal(chosen[k], want[k]), f"sweep_and_compose: chosen "
+               f"{k} is not best_params' of the generic sweep")
+    pos = portfolio.per_ticker_positions(tpanel, sma, chosen, device=dev)
+    net, equity, expo = portfolio.portfolio_returns(tpanel.close, pos,
+                                                    cost=COST, device=dev)
+    n64, e64, x64, m64 = _np_book(panel.close, pos.double().cpu().numpy(),
+                                  expo.cpu().numpy())
+    # The reference tests' tolerances (tests/test_portfolio.py).
+    for label, a, b, rtol, atol in (("net", net, n64, 1e-4, 1e-6),
+                                    ("equity", equity, e64, 1e-4, 1e-5),
+                                    ("exposure", expo, x64, 1e-5, 1e-6)):
+        a = a.cpu().numpy()
+        _check(bool(np.all(np.abs(a - b) <= atol + rtol * np.abs(b))),
+               f"portfolio {label} off the numpy f64 book by "
+               f"{float(np.abs(a - b).max())}")
+    for name, b in m64.items():
+        a = float(getattr(pm, name))
+        _check(abs(a - b) <= 1e-5 + 1e-4 * abs(b), f"portfolio {name} "
+               f"{a} off the numpy f64 book's {b}")
+    r = torch.cat([torch.zeros_like(tpanel.close[:, :1]),
+                   tpanel.close[:, 1:] / tpanel.close[:, :-1] - 1.0], dim=1)
+    corr = portfolio.correlation_matrix(r, device=dev).cpu().numpy()
+    want_corr = np.corrcoef(r.double().cpu().numpy())
+    err = float(np.abs(corr - want_corr).max())
+    _check(bool(np.all(np.abs(corr - want_corr)
+                       <= 1e-4 + 1e-4 * np.abs(want_corr))),
+           f"correlation_matrix off numpy's f64 by {err}")
+    corr_ms = _cuda_ms(lambda: portfolio.correlation_matrix(r, device=dev),
+                       20)
+    print(f"portfolio: sweep_and_compose {N_TICKERS} x {N_BARS} x "
+          f"{g['fast'].size} combos in {compose_s:.4f} s (first call), "
+          f"chosen = best_params, book sharpe {float(pm.sharpe):.6f} vs "
+          f"numpy f64 {m64['sharpe']:.6f}; correlation_matrix "
+          f"({N_TICKERS}, {N_TICKERS}) max abs err {err:.3g} vs numpy f64, "
+          f"{corr_ms:.4f} ms")
+
+    with tempfile.TemporaryDirectory() as root:
+        ck = checkpoint.SweepCheckpointer(root)
+        t0 = time.perf_counter()
+        ck.add("sma", m, meta={"tickers": N_TICKERS})
+        save_s = time.perf_counter() - t0
+        _check(ck.done() == {"sma"}, "checkpoint: done() wrong")
+        got, meta = ck.get("sma")
+        _check(meta == {"tickers": N_TICKERS}, "checkpoint: meta lost")
+        for name, a in zip(m._fields, got):
+            _check(np.array_equal(_u32(a), _u32(getattr(m, name).cpu()))
+                   and a.shape == (N_TICKERS, g["fast"].size),
+                   f"checkpoint: {name} not bit-equal")
+    print(f"checkpoint: {tuple(m.sharpe.shape)} Metrics round trip "
+          f"bit-equal, save {save_s:.4f} s")
+
+
+def phase_walkforward(kernels_mod, compute, wire, pb, data, sweep, models,
+                      fused, bench, card: str) -> dict:
+    """Walk-forward jobs of the 13 single-asset families on the fused-train
+    route and of pairs on the generic refit, the walk-forward rates, the
+    portfolio composition and a checkpoint; returns the launches per kernel
+    entry summed over the families' main paths."""
+    from distributed_backtesting_exploration_tpu_torch.parallel import (
+        portfolio, walkforward)
+    from distributed_backtesting_exploration_tpu_torch.utils import (
+        checkpoint)
+
+    backend = compute.TorchSweepBackend(device="cuda")
+    _check(backend._WF_FUSED_MIN_COMBOS == 512, "the fused-train route's "
+           "threshold is not the reference's 512")
+    _wf_argmax_rule(walkforward, sweep, backend.device)
+    total, batch_s = {}, {}
+    families = {s: AXES[s] for s in ("sma_crossover", *FAMILIES)
+                if s != "pairs"}
+    for seed, (strategy, axes) in enumerate(families.items(), start=40):
+        entry = roofline.ENTRY[strategy]
+        launches, first, med = _wf_family(
+            kernels_mod, backend, wire, pb, data, models, fused, walkforward,
+            compute, strategy, axes, entry, seed)
+        batch_s[strategy] = (first, med)
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+    kernels_mod.reset_launch_counts()
+    pairs_s = _wf_pairs(backend, wire, pb, data, walkforward)
+    print(f"pairs walk-forward launches {dict(kernels_mod.LAUNCHES)} (the "
+          "reference has no fused route for it)")
+
+    # The bench's walk-forward config (500 x 1260, 12 windows, cost 1e-3):
+    # backtests/s = tickers x combos x windows over the median of 5 runs.
+    dev = backend.device
+    panel = data.OHLCV(*(torch.as_tensor(f, device=dev)
+                         for f in data.synthetic_ohlcv(N_TICKERS, N_BARS,
+                                                       seed=0)))
+    sma = models.get_strategy("sma_crossover")
+    g400 = _flat_grid({"fast": np.arange(5, 25, dtype=np.float32),
+                       "slow": np.arange(30, 130, 5, dtype=np.float32)})
+    g2000 = _flat_grid({"fast": FAST_AXIS, "slow": SLOW_AXIS})
+
+    def generic(g):
+        return lambda: walkforward.walk_forward(panel, sma, g, device=dev,
+                                                **WF_KW)
+
+    def fused_route(g):
+        def train_fn(close):
+            return fused.fused_sma_sweep(close, g["fast"], g["slow"],
+                                         cost=COST, device=dev)
+        return lambda: walkforward.walk_forward_fused(
+            panel, sma, g, train_fn, device=dev, **WF_KW)
+
+    rates = {}
+    for label, g, run in (("generic P=400", g400, generic(g400)),
+                          ("fused P=400", g400, fused_route(g400)),
+                          ("fused P=2000", g2000, fused_route(g2000))):
+        med = _median_s(run)
+        rates[label] = N_TICKERS * g["fast"].size * WF_WINDOWS / med
+        print(f"walk-forward {label}: median of 5 {med:.4f} s, "
+              f"{rates[label]:.1f} backtests/s ({card})")
+    for wf_fused in (False, True):
+        out = bench.run(bench.Settings(configs=frozenset({"walkforward"}),
+                                       wf_fused=wf_fused))
+        print(f"port bench walkforward ({'fused' if wf_fused else 'generic'}"
+              f" route): {out['configs']['walkforward']:.1f} backtests/s "
+              f"({card})")
+    print("walk-forward 500-job batches (s, first and median of 3 more): "
+          + ", ".join(f"{k} {a:.4f}/{b:.4f}" for k, (a, b) in
+                      batch_s.items())
+          + f", pairs ({N_PAIRS} jobs, generic) {pairs_s:.4f} ({card})")
+
+    _wf_portfolio(sweep, models, portfolio, checkpoint, data, dev)
+    return total
+
+
 def main() -> None:
-    phase_card()
+    card = phase_card()
     from distributed_backtesting_exploration_tpu_torch import bench, models
     from distributed_backtesting_exploration_tpu_torch.ops import (
         _kernels, fused, pnl, stages)
@@ -2323,6 +2800,11 @@ def main() -> None:
     phase_bench(_kernels, bench, k8)
     phase_worker_path(_kernels, compute, executor, wire, pb, data, sweep,
                       models, fused, pnl, panel_store)
+    wf = phase_walkforward(_kernels, compute, wire, pb, data, sweep, models,
+                           fused, bench, card)
+    k1["walkforward_launches"] = wf.get("fused_sma", 0)
+    for entry, rec in new.items():
+        rec["walkforward_launches"] = wf.get(entry, 0)
     print(json.dumps({"kernels": [k1, *new.values(), *k8]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

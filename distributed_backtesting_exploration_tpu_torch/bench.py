@@ -8,9 +8,13 @@ Run on the card from the repository root:
 It is the counterpart of the reference's ``bench.py`` for the configs the
 port serves: the 14 fused sweeps (``sma_fused`` the headline: 500 tickers x
 1260 daily bars x a 2000-combo SMA-crossover grid) with the reference's
-grids, and ``roofline_stages``, the stage scaffolds of K8
-(``ops/stages.py``). It prints one JSON line to stdout with the
-reference's top-level keys:
+grids, ``roofline_stages``, the stage scaffolds of K8 (``ops/stages.py``),
+and ``walkforward``, the reference's walk-forward config (the bars' second
+half less 30 as the train span, 12 refit windows, the 400-combo SMA grid
+fast 5..24 x slow 30..125 step 5; backtests are tickers x combos x
+windows), on the generic ``walk_forward``, or with ``DBX_BENCH_WF_FUSED=1``
+on ``walk_forward_fused`` with K1 as its train sweep. It prints one JSON
+line to stdout with the reference's top-level keys:
 
     {"metric": ..., "value": N, "unit": "backtests/sec", "vs_baseline": N,
      "configs": {name: rate, ...}, "roofline": {...}, "device": {...}}
@@ -37,9 +41,10 @@ the same code on both sides and their ratios read about 1 by construction.
 Environment: ``DBX_BENCH_TICKERS`` (500), ``DBX_BENCH_BARS`` (1260),
 ``DBX_BENCH_PARAMS`` (2000), ``DBX_BENCH_ITERS`` (10),
 ``DBX_BENCH_WARMUP`` (12), ``DBX_BENCH_CONFIGS`` (a comma list, default
-all) and ``DBX_BENCH_CPU=1``, the explicit request to run the plain
-versions on the CPU (a structure check; its times are the CPU's). Without
-it the bench runs on CUDA and raises where there is no card.
+all), ``DBX_BENCH_WF_FUSED=1`` and ``DBX_BENCH_CPU=1``, the explicit
+request to run the plain versions on the CPU (a structure check; its
+times are the CPU's). Without it the bench runs on CUDA and raises where
+there is no card.
 """
 
 from __future__ import annotations
@@ -56,7 +61,9 @@ import torch
 
 from . import device as device_mod
 from . import roofline
+from .models import get_strategy
 from .ops import fused, stages
+from .parallel import sweep, walkforward
 from .utils import data
 
 COST = 1e-3
@@ -98,8 +105,9 @@ FUSED = {
     "pairs": ("pairs", fused.fused_pairs_sweep, None,
               ("lookback", "z_entry")),
 }
-# The reference bench's order, roofline_stages second.
-CONFIGS = ("sma_fused", "roofline_stages", *list(FUSED)[1:])
+# The reference bench's order: roofline_stages second, walkforward after
+# the fused sweeps.
+CONFIGS = ("sma_fused", "roofline_stages", *list(FUSED)[1:], "walkforward")
 _WINDOW_AXES = {"fast", "slow", "window", "lookback", "period", "span"}
 
 # (stage, lanes) cases of the SMA scaffold (the reference's bench.py
@@ -119,6 +127,7 @@ class Settings(NamedTuple):
     warmup: int = 12
     configs: frozenset | None = None
     cpu: bool = False
+    wf_fused: bool = False
 
 
 def settings_from_env(env) -> Settings:
@@ -130,7 +139,8 @@ def settings_from_env(env) -> Settings:
         iters=int(env.get("DBX_BENCH_ITERS", 10)),
         warmup=int(env.get("DBX_BENCH_WARMUP", 12)),
         configs=frozenset(only.split(",")) if only else None,
-        cpu=env.get("DBX_BENCH_CPU") == "1")
+        cpu=env.get("DBX_BENCH_CPU") == "1",
+        wf_fused=env.get("DBX_BENCH_WF_FUSED") == "1")
 
 
 def device_info(dev: torch.device) -> dict:
@@ -215,7 +225,7 @@ class _Bench:
         self.roofline: dict = {}
         panel = data.synthetic_ohlcv(s.n_tickers, s.n_bars, seed=0)
         self.panel = {f: torch.as_tensor(getattr(panel, f), device=dev)
-                      for f in ("close", "high", "low", "volume")}
+                      for f in data._FIELDS}
         self.axes = roofline.bench_axes(s.n_params)
         _sync(dev)
 
@@ -341,6 +351,37 @@ class _Bench:
               file=sys.stderr)
 
 
+    def walkforward(self) -> None:
+        """The reference bench's walk-forward config at this panel."""
+        n_bars = self.s.n_bars
+        train = n_bars // 2 - 30
+        test = max((n_bars - train) // 12, 1)
+        grid = sweep.product_grid(fast=np.arange(5, 25, dtype=np.float32),
+                                  slow=np.arange(30, 130, 5, dtype=np.float32))
+        n_windows = (n_bars - train) // test
+        panel = data.OHLCV(*(self.panel[f] for f in data._FIELDS))
+        kw = dict(train=train, test=test, cost=COST, device=self.dev)
+        strategy = get_strategy("sma_crossover")
+        if self.s.wf_fused:
+            fast, slow = grid["fast"].numpy(), grid["slow"].numpy()
+
+            def run():
+                return walkforward.walk_forward_fused(
+                    panel, strategy, grid,
+                    lambda close: fused.fused_sma_sweep(
+                        close, fast, slow, cost=COST, device=self.dev),
+                    **kw).oos_metrics.sharpe
+        else:
+            def run():
+                return walkforward.walk_forward(
+                    panel, strategy, grid, **kw).oos_metrics.sharpe
+        self.rates["walkforward"] = _measure(
+            run, self.s.n_tickers * sweep.grid_size(grid) * n_windows,
+            iters=max(self.s.iters // 2, 3),
+            warmup=max(self.s.warmup // 3, 2), name="walkforward",
+            dev=self.dev)
+
+
 def run(s: Settings) -> dict:
     """Run the configs of ``s`` and return the result line's object."""
     dev = (torch.device("cpu") if s.cpu
@@ -353,6 +394,8 @@ def run(s: Settings) -> dict:
             continue
         if name == "roofline_stages":
             b.roofline_stages()
+        elif name == "walkforward":
+            b.walkforward()
         else:
             b.fused_config(name)
     if not b.rates:

@@ -1,4 +1,6 @@
-"""Sweep engines. :mod:`.sweep` is the generic (ticker x param) sweep, the
-golden path of the fused kernels."""
+"""Sweep engines and what composes them. :mod:`.sweep` is the generic
+(ticker x param) sweep, the golden path of the fused kernels;
+:mod:`.walkforward` the out-of-sample refit over sliding windows;
+:mod:`.portfolio` the composition of per-ticker backtests into one book."""
 
-from . import sweep  # noqa: F401
+from . import portfolio, sweep, walkforward  # noqa: F401

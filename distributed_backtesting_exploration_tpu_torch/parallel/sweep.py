@@ -134,13 +134,20 @@ def map_param_chunks(grid: Mapping[str, object], row_elems: int,
     stays near ``_CHUNK_ELEMS``. Returns the ``(..., P)`` fields in flat
     grid order.
     """
+    parts = [one_chunk(sub) for _, sub in param_chunks(grid, row_elems, dev)]
+    return metrics_mod.Metrics(*(torch.cat(f, dim=-1) for f in zip(*parts)))
+
+
+def param_chunks(grid: Mapping[str, object], row_elems: int,
+                 dev: torch.device):
+    """The chunks of :func:`map_param_chunks`: yields ``(lo, sub)``, where
+    ``sub`` maps each grid name to its ``(P_chunk, 1)`` f32 column on
+    ``dev`` and ``lo`` is the chunk's first flat grid index."""
     params = {k: device_mod.as_tensor(v, torch.float32, dev)
               for k, v in grid.items()}
-    P = grid_size(params)
     chunk = max(1, _CHUNK_ELEMS // max(row_elems, 1))
-    parts = [one_chunk({k: v[lo:lo + chunk, None] for k, v in params.items()})
-             for lo in range(0, P, chunk)]
-    return metrics_mod.Metrics(*(torch.cat(f, dim=-1) for f in zip(*parts)))
+    for lo in range(0, grid_size(params), chunk):
+        yield lo, {k: v[lo:lo + chunk, None] for k, v in params.items()}
 
 
 def best_params(metric_values: torch.Tensor, grid: Mapping[str, object], *,

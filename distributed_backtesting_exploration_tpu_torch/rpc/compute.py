@@ -18,17 +18,23 @@ bollinger_touch, stochastic, rsi, keltner and vwap_reversion on K2;
 momentum, donchian and donchian_hl on K3; macd on K4, trix on K5,
 obv_trend on K6) and the two-legged pairs jobs (K7, the second leg in
 ``JobSpec.ohlcv2``), each as a full DBXM block, as the top-k DBXS block
-(``JobSpec.top_k``, selected on the card) or, for single-asset jobs, as
-the best-returns DBXP block (``JobSpec.best_returns``, on the generic
-sweep, whose positions it reprices). A job the reference completes empty
+(``JobSpec.top_k``, selected on the card), for single-asset jobs as the
+best-returns DBXP block (``JobSpec.best_returns``, on the generic sweep,
+whose positions it reprices), or as a walk-forward job's one stitched
+out-of-sample metrics row (``JobSpec.wf_train``, ``wf_test``,
+``wf_metric``; :mod:`..parallel.walkforward`), whose train sweep runs on
+the family's fused kernel where the grid has at least
+``_WF_FUSED_MIN_COMBOS`` combos. A job the reference completes empty
 completes empty here too, with the reference's logged error: a pairs job
 without a second leg or with legs of unequal length, a top-k or
-best-returns request by an unknown metric, a pairs best-returns request.
+best-returns request by an unknown metric, a pairs or walk-forward
+best-returns request, a walk-forward request by an unknown metric, with
+``wf_test <= 0`` or on a history shorter than one train and test window.
 A job carrying a field the port does not serve yet (streaming append,
-scenario batches, walk-forward) is refused on its own: it gets a logged
-warning naming the field and no completion, so it stays leased and the
-dispatcher re-queues it when the lease runs out, while the other jobs of
-its batch are served. Nothing is computed some other way.
+scenario batches) is refused on its own: it gets a logged warning naming
+the field and no completion, so it stays leased and the dispatcher
+re-queues it when the lease runs out, while the other jobs of its batch
+are served. Nothing is computed some other way.
 
 This module imports no ``grpc``: the worker injects the fetcher.
 """
@@ -51,6 +57,7 @@ from ..models import donchian, pairs as pairs_mod, stochastic
 from ..ops import fused
 from ..ops.metrics import Metrics, metric_sign
 from ..parallel import sweep as sweep_mod
+from ..parallel import walkforward
 from ..utils import data as data_mod
 from . import wire
 from .panel_store import ByteLRU
@@ -258,8 +265,6 @@ def _unsupported(job) -> str | None:
         return "streaming append (append_parent_digest)"
     if job.scenario_batch:
         return "scenario spec batch (scenario_batch)"
-    if job.wf_train > 0:
-        return "walk-forward (wf_train)"
     if (job.ohlcv2 or job.panel_digest2) and job.strategy != _PAIRS:
         return (f"a second leg (ohlcv2) on strategy {job.strategy!r}; only "
                 "pairs jobs take one")
@@ -383,6 +388,13 @@ class TorchSweepBackend:
     ``decodes`` counts the DBX1 decodes of the submit path.
     """
 
+    # A uniform walk-forward group whose grid has at least this many combos
+    # runs its train sweep on the fused kernel (walk_forward_fused); a
+    # smaller one takes the generic walk_forward. The reference's value,
+    # kept so that a mixed fleet routes a group the same way on either
+    # worker.
+    _WF_FUSED_MIN_COMBOS = 512
+
     def __init__(self, *, device: str | torch.device =
                  device_mod.DEFAULT_DEVICE,
                  panel_cache: PanelCache | None = None):
@@ -436,12 +448,18 @@ class TorchSweepBackend:
             job0 = group[0]
             if not self._topk_request_ok(group):
                 pending.append(_empty(group, t0))
-            elif job0.best_returns and job0.strategy == _PAIRS:
-                log.error("jobs %s: best_returns is not supported for pairs "
-                          "jobs; completing empty", [j.id for j in group])
+            elif job0.best_returns and (job0.strategy == _PAIRS
+                                        or job0.wf_train > 0):
+                log.error("jobs %s: best_returns is not supported for %s "
+                          "jobs; completing empty", [j.id for j in group],
+                          "pairs" if job0.strategy == _PAIRS
+                          else "walk-forward")
                 pending.append(_empty(group, t0))
             elif job0.strategy == _PAIRS:
                 pending.append(self._submit_pairs_group(group, t0))
+            elif job0.wf_train > 0:
+                pending.append(self._submit_walkforward_group(
+                    group, self._decode_group(group), t0))
             elif job0.best_returns:
                 pending.append(self._submit_best_returns_group(
                     group, self._decode_group(group), t0))
@@ -603,8 +621,9 @@ class TorchSweepBackend:
     def _finish_group(self, jobs, m: Metrics, t0: float, n_real: int,
                       job0) -> _Pending:
         """The shared tail of the sweep paths: the top-k selection on the
-        device where the job asks for it, then the result copy."""
-        if job0.top_k <= 0:
+        device where the job asks for it (never for a walk-forward job's
+        one row), then the result copy."""
+        if job0.top_k <= 0 or job0.wf_train > 0:
             host, ready = _copy_to_host({"planes": torch.stack(list(m))})
             return _Pending(list(jobs), n_real, t0, host, ready)
         metric = job0.rank_metric or "sharpe"
@@ -676,13 +695,104 @@ class TorchSweepBackend:
         return _Pending(list(group), len(group), t0, host, ready, "returns",
                         metric, tuple(s.n_bars for s in series))
 
+    def _submit_walkforward_group(self, group, series, t0: float) -> _Pending:
+        """Walk-forward jobs (the reference's ``_submit_walkforward_group``):
+        per refit window, the train-span sweep, each job's argmax by
+        ``wf_metric``, and that combo realized on the next ``wf_test``
+        bars; each job's result is one stitched out-of-sample metrics row.
+        A uniform group whose grid has at least ``_WF_FUSED_MIN_COMBOS``
+        combos and routes to a fused sweep takes the fused-train route
+        (:func:`~..parallel.walkforward.walk_forward_fused`, the family's
+        kernel on all windows' train spans at once); any other uniform
+        group the generic ``walk_forward``, and a ragged group refits one
+        job at a time, since window starts are global bar indices. An
+        unknown metric completes the group empty; a job with ``wf_test <=
+        0`` or shorter than one train and test window completes empty."""
+        job0 = group[0]
+        need = job0.wf_train + job0.wf_test
+        metric = job0.wf_metric or "sharpe"
+        if metric not in Metrics._fields:
+            log.error("walk-forward jobs %s request unknown selection "
+                      "metric %r (known: %s); completing with empty metrics",
+                      [j.id for j in group], metric, ", ".join(Metrics._fields))
+            return _empty(group, t0)
+        good, bad = [], []
+        for j, s in zip(group, series):
+            if job0.wf_test <= 0 or s.n_bars < need:
+                log.error(
+                    "walk-forward job %s needs wf_test > 0 and >= %d bars "
+                    "(train %d + test %d), has %d; completing with empty "
+                    "metrics", j.id, need, job0.wf_train, job0.wf_test,
+                    s.n_bars)
+                bad.append(j)
+            else:
+                good.append((j, s))
+        if not good:
+            return _empty(bad, t0)
+        jobs = [j for j, _ in good]
+        series = [s for _, s in good]
+        lengths = [s.n_bars for s in series]
+        axes = wire.grid_from_proto(job0.grid)
+        grid = sweep_mod.product_grid(**axes)
+        strategy = models_base.get_strategy(job0.strategy)
+        kw = dict(train=job0.wf_train, test=job0.wf_test, metric=metric,
+                  cost=float(job0.cost),
+                  periods_per_year=job0.periods_per_year or 252,
+                  device=self.device)
+        if len(set(lengths)) == 1:
+            panel = data_mod.OHLCV(**self._device_fields(
+                jobs, series, data_mod._FIELDS, lengths))
+            spec = _FUSED_STRATEGIES[job0.strategy]
+            P = sweep_mod.grid_size(grid)
+            if (P >= self._WF_FUSED_MIN_COMBOS
+                    and _fused_demotion_reason(spec, axes) is None):
+                log.info("walk-forward jobs %s (%s, P=%d) using the "
+                         "fused-train route", [j.id for j in jobs],
+                         job0.strategy, P)
+                g = {k: v.numpy() for k, v in grid.items()}
+
+                def train_fn(*fields):
+                    return spec.run(dict(zip(spec.fields, fields)), g,
+                                    cost=kw["cost"],
+                                    periods_per_year=kw["periods_per_year"],
+                                    device=self.device)
+
+                m = walkforward.walk_forward_fused(
+                    panel, strategy, grid, train_fn, fields=spec.fields,
+                    **kw).oos_metrics
+            else:
+                m = walkforward.walk_forward(panel, strategy, grid,
+                                             **kw).oos_metrics
+        else:
+            rows = [walkforward.walk_forward(
+                data_mod.OHLCV(*(np.asarray(f)[None] for f in s)), strategy,
+                grid, **kw).oos_metrics for s in series]
+            m = Metrics(*(torch.cat(f) for f in zip(*rows)))
+        m = Metrics(*(f[:, None] for f in m))        # one OOS row per job
+        return self._finish_group(jobs + bad, m, t0, len(jobs), job0)
+
     def _submit_pairs_group(self, group, t0: float) -> _Pending:
-        """Two-legged jobs (the reference's ``_submit_pairs_group`` for
-        plain pairs jobs): stack both legs, run the fused pairs sweep, with
-        ``t_real`` for a ragged group; a group the kernel does not take runs
-        the generic ``run_pairs_sweep``, one job at a time when ragged (it
-        has no bar mask). A job without a second leg, or with legs of
-        unequal length, completes with an empty block."""
+        """Two-legged jobs (the reference's ``_submit_pairs_group``): stack
+        both legs, run the fused pairs sweep, with ``t_real`` for a ragged
+        group; a group the kernel does not take runs the generic
+        ``run_pairs_sweep``, one job at a time when ragged (it has no bar
+        mask). A job without a second leg, or with legs of unequal length,
+        completes with an empty block. Walk-forward jobs run the generic
+        ``walk_forward_pairs`` (the reference has no fused route for them),
+        one job at a time when ragged, and return one stitched row a job;
+        an unknown metric or ``wf_test <= 0`` completes the group empty, a
+        job shorter than one train and test window completes empty."""
+        wf = group[0].wf_train > 0
+        if wf:
+            job0 = group[0]
+            metric = job0.wf_metric or "sharpe"
+            if job0.wf_test <= 0 or metric not in Metrics._fields:
+                log.error(
+                    "pairs walk-forward jobs %s need wf_test > 0 and a "
+                    "known metric (got test=%d, metric=%r); completing "
+                    "with empty metrics", [j.id for j in group],
+                    job0.wf_test, metric)
+                return _empty(group, t0)
         good, bad = [], []
         for j in group:
             if not j.ohlcv2 and not j.panel_digest2:
@@ -696,6 +806,13 @@ class TorchSweepBackend:
                 log.error("pairs job %s legs differ in length (%d vs %d); "
                           "completing with empty metrics", j.id, y.n_bars,
                           x.n_bars)
+                bad.append(j)
+                continue
+            if wf and y.n_bars < j.wf_train + j.wf_test:
+                log.error(
+                    "pairs walk-forward job %s needs >= %d bars (train %d + "
+                    "test %d), has %d; completing with empty metrics", j.id,
+                    j.wf_train + j.wf_test, j.wf_train, j.wf_test, y.n_bars)
                 bad.append(j)
                 continue
             good.append((j, y, x))
@@ -713,6 +830,18 @@ class TorchSweepBackend:
         kw = dict(cost=float(job0.cost),
                   periods_per_year=job0.periods_per_year or 252,
                   device=self.device)
+        if wf:
+            kw.update(train=job0.wf_train, test=job0.wf_test, metric=metric)
+            if uniform:
+                m = walkforward.walk_forward_pairs(y_close, x_close, grid,
+                                                   **kw).oos_metrics
+            else:
+                rows = [walkforward.walk_forward_pairs(
+                    y_close[i:i + 1, :n], x_close[i:i + 1, :n], grid,
+                    **kw).oos_metrics for i, n in enumerate(lens)]
+                m = Metrics(*(torch.cat(f) for f in zip(*rows)))
+            m = Metrics(*(f[:, None] for f in m))    # one OOS row per job
+            return self._finish_group(jobs + bad, m, t0, len(jobs), job0)
         demotion = _pairs_demotion_reason(axes)
         if demotion is None:
             g = {k: v.numpy() for k, v in grid.items()}

@@ -78,7 +78,23 @@ def test_every_config_reports_a_positive_rate(result):
         assert configs[name] > 0.0, name
     assert configs["roofline_stages_full"] > 0.0
     assert configs["roofline_stages_boll_full"] > 0.0
-    assert len(FUSED_CONFIGS) + 1 == 15 == len(bench.CONFIGS)
+    assert configs["walkforward"] > 0.0
+    assert len(FUSED_CONFIGS) + 2 == 16 == len(bench.CONFIGS)
+
+
+@pytest.mark.parametrize("wf_fused", ["0", "1"], ids=["generic", "fused"])
+def test_walkforward_config_runs_either_route(wf_fused):
+    # The reference's walk-forward config: generic by default, the fused
+    # train sweep with DBX_BENCH_WF_FUSED=1; tickers x combos x windows.
+    env = dict(TINY, DBX_BENCH_CONFIGS="walkforward",
+               DBX_BENCH_WF_FUSED=wf_fused)
+    assert bench.settings_from_env(env).wf_fused == (wf_fused == "1")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        bench.main(env)
+    out = json.loads(buf.getvalue())
+    assert set(out["configs"]) == {"walkforward"}
+    assert out["configs"]["walkforward"] > 0.0
 
 
 def test_sma_stage_keys_are_the_references(result):

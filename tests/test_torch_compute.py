@@ -5,8 +5,9 @@
 blocks decoded and held to the flip rule of ``torch_parity``), for every
 strategy the port serves; the backend's panel cache and digest-only
 payloads; and one in-process reference dispatcher drained by the port's
-gRPC worker. Top-k, best-returns and the pipelined worker have files of
-their own (``test_torch_topk.py``, ``test_torch_best_returns.py``,
+gRPC worker. Top-k, best-returns, walk-forward and the pipelined worker
+have files of their own (``test_torch_topk.py``,
+``test_torch_best_returns.py``, ``test_torch_walkforward.py``,
 ``test_torch_pipeline.py``).
 """
 
@@ -166,7 +167,6 @@ def _assert_serves_around(refused, good, what, caplog):
 
 @pytest.mark.parametrize("field,value,what", [
     ("strategy", "no_such_strategy", "strategy 'no_such_strategy'"),
-    ("wf_train", 40, "walk-forward"),
     ("append_parent_digest", "abc", "append"),
     ("scenario_batch", True, "scenario"),
     ("ohlcv2", b"DBX1", "pairs"),
@@ -182,7 +182,7 @@ def test_backend_refuses_what_it_does_not_serve(field, value, what, caplog):
 def test_backend_batch_of_refused_jobs_returns_nothing(caplog):
     specs = _specs(synthetic_jobs(3, 64, "sma_crossover", GRID))
     for spec, (field, value) in zip(specs, [("append_parent_digest", "abc"),
-                                            ("wf_train", 40),
+                                            ("scenario_batch", True),
                                             ("strategy", "nope")]):
         _refuse(spec, field, value)
     with caplog.at_level("WARNING", logger="dbx.torch.compute"):
@@ -251,15 +251,6 @@ def test_backend_completes_malformed_pairs_jobs_empty(caplog):
     _pairs_match({good.id: got},
                  {good.id: wire.metrics_from_bytes(want[good.id])},
                  [good.id])
-
-
-@pytest.mark.parametrize("field,value,what", [
-    ("wf_train", 40, "walk-forward"),
-])
-def test_backend_refuses_unported_pairs_fields(field, value, what, caplog):
-    refused, good = _specs(synthetic_jobs(2, 64, "pairs", PAIRS_GRID))
-    _refuse(refused, field, value)
-    _assert_serves_around(refused, good, what, caplog)
 
 
 def test_backend_refuses_digest_only_payload():

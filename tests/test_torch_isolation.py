@@ -2,10 +2,10 @@
 
 The port runs on machines without JAX, and importing any module of the
 reference package runs its ``__init__`` and so imports JAX. These tests
-import every module of the port (and ``chip_smoke.py``) with ``jax``
-blocked, scan the sources for forbidden imports, and check the device
-policy: ``cuda`` unless the caller asks for the CPU, and no silent
-fallback.
+import every module of the port (and the root scripts that drive it,
+``chip_smoke.py`` and ``worker_rate.py``) with ``jax`` blocked, scan the
+sources for forbidden imports, and check the device policy: ``cuda``
+unless the caller asks for the CPU, and no silent fallback.
 """
 
 import ast
@@ -39,8 +39,12 @@ def _port_modules() -> list[str]:
     return mods
 
 
+# The root scripts that drive the port on the card.
+SCRIPTS = ("chip_smoke", "worker_rate")
+
+
 def _sources() -> list[Path]:
-    return sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return sorted(PKG.rglob("*.py")) + [REPO / f"{s}.py" for s in SCRIPTS]
 
 
 def _kernel_sources() -> list[Path]:
@@ -59,7 +63,7 @@ def test_every_module_imports_with_jax_blocked():
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "import importlib\n"
-            f"for m in {mods!r} + ['chip_smoke']:\n"
+            f"for m in {mods!r} + {list(SCRIPTS)!r}:\n"
             "    importlib.import_module(m)\n"
             f"bad = sorted(m for m, v in sys.modules.items() if v is not "
             f"None and (m == 'jax' or m.startswith('jax.') or m == {REF!r} "
