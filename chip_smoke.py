@@ -193,12 +193,46 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    tolerances), ``correlation_matrix`` of the 500 tickers' returns
    against numpy's f64 at rtol=1e-4, atol=1e-4, and a ``SweepCheckpointer``
    round trip of the (500, 2000) sweep Metrics, bit-equal.
-7. One JSON line with each kernel entry's (K8: each case's) launches,
+7. Streaming (``streaming/``), at the widths of phase 4: (a) each of the
+   14 ``fused_*_sweep`` wrappers with ``carry_out=True`` on the bench's
+   500 x 1260 panel and grid (pairs 1000 x 1260, 500 combos), the launch
+   counts reset just before (every K1-K7 entry and the table kernels must
+   launch): the kernel's metrics bit-equal to the same call without it,
+   every carry tensor f32 on the card, and ``finalize(carry)`` against the
+   port's generic sweep (``run_sweep``, ``run_pairs_sweep``) under
+   ``tests/test_streaming.py``'s rule with a 1% budget (a
+   lane whose turnover or hit rate differs is flipped; on the rest those
+   and n_trades bit-equal, the other metrics at rtol=2e-5, atol=2e-6,
+   pairs 5e-3, 5e-4, cagr within ``_cagr_slack``). (b) Per family, a
+   carry at 1260 bars plus one 16-bar append on ``synthetic_ohlcv(500,
+   1276, seed=0)`` (pairs: 1000 pairs) against the cold path: the carry
+   advanced by the cold build's positions and returns on the appended
+   bars, flipped lanes those whose positions there differ, at most 1%;
+   and against ``build_carry`` at 1276 under the same rule, the lanes
+   whose first 1260 bars differ between the generic models at the two
+   lengths set aside and counted (pairs: a lane off the tolerance or
+   with another hit rate counts as flipped, phase 4's pairs budget). sma
+   also runs 16 one-bar appends against the 16-bar one, and sma, macd and
+   rsi an append after a device-level eviction and a host restore,
+   bit-equal to the one never evicted. (c) 500 sma append jobs (one
+   ticker, 1260 bars, 2000 combos) through ``TorchSweepBackend.process``:
+   round 1 repriced in full (500 counted), round 2 the next 16 bars as
+   delta-only jobs spliced onto the cached base (500 carry hits, no
+   decode, blocks bit-equal to ``finalize(append_step(...))`` of the
+   round-1 carries called directly), round 3 round 2 again (a retried
+   delivery: nothing advanced, blocks bit-equal to round 2's), one carry
+   a stream kept at the default 64 MB; three times, the median of each
+   round printed; then a budget for half the carries: every job completes
+   and its block is the append's or the full reprice's, the reprices
+   counted; 64 macd and 64 rsi jobs rounds 1 and 2 the same way. (d) The
+   port bench's ``streaming_append`` (T = 8192, ΔT = 16, P = 32), printed.
+8. One JSON line with each kernel entry's (K8: each case's) launches,
    error, times, bound and library time (the tile entries also their
    width sweep, wrapper time, build report and SASS count; the table
    kernels each a record of their own; K1-K6 also their launches on the
-   walk-forward main paths, ``walkforward_launches``); then the JSON
-   result line, last.
+   walk-forward main paths, ``walkforward_launches``, and every entry but
+   K8's on the streaming phase's carry_out calls,
+   ``streaming_launches``); then the JSON result line, last.
 
 This script imports nothing of JAX and nothing of the JAX package.
 """
@@ -2773,6 +2807,546 @@ def phase_walkforward(kernels_mod, compute, wire, pb, data, sweep, models,
     return total
 
 
+# --- streaming: carry checkpoints, carry_out=True, append jobs ------------
+
+STREAM_DT = 16
+STREAM_JOBS, STREAM_EMA_JOBS = 500, 64
+# tests/test_streaming.py's cold-versus-append tolerances (pairs: its pairs
+# budget) and the count metrics that are bit-equal where positions match.
+STREAM_TOL = {"pairs": (5e-3, 5e-4)}
+STREAM_RTOL, STREAM_ATOL = 2e-5, 2e-6
+STREAM_COUNTS = ("turnover", "n_trades", "hit_rate")
+
+
+def _carry_on(carry, dev: torch.device, label: str) -> None:
+    """Every tensor of a carry is f32 on ``dev``'s kind of device."""
+    for ns in ("tail", "state", "metric"):
+        for k, v in getattr(carry, ns).items():
+            _check(v.device.type == dev.type and v.dtype == torch.float32,
+                   f"{label}: carry leaf {ns}/{k} is {v.dtype} on "
+                   f"{v.device}, not float32 on {dev.type}")
+
+
+def _np_metrics(m) -> dict:
+    return {name: getattr(m, name).cpu().numpy() for name in m._fields}
+
+
+def _off_tolerance(g: dict, w: dict, want, strategy: str,
+                   n_bars: int) -> np.ndarray:
+    """The lanes where a metric other than the counts is off the streaming
+    tolerance (:func:`_stream_rule`); ``g``, ``w`` the numpy metrics."""
+    rtol, atol = STREAM_TOL.get(strategy, (STREAM_RTOL, STREAM_ATOL))
+    slack = _cagr_slack(want, n_bars, rtol, atol)
+    off = np.zeros(w["turnover"].shape, dtype=bool)
+    for name in want._fields:
+        if name in STREAM_COUNTS:
+            continue
+        a, b = g[name], w[name]
+        extra = slack if name == "cagr" else 0.0
+        off |= ((np.abs(a - b) > atol + rtol * np.abs(b) + extra)
+                | (np.isnan(a) != np.isnan(b)))
+    return off
+
+
+def _stream_rule(label, got, want, strategy: str, n_bars: int,
+                 flipped=None, set_aside=None) -> int:
+    """``tests/test_streaming.py``'s cold-versus-append rule with a 1%
+    budget: on the lanes that did not flip, turnover, n_trades and
+    hit_rate are bit-equal and every other metric agrees at rtol=2e-5,
+    atol=2e-6 (pairs 5e-3, 5e-4), cagr within ``_cagr_slack``; at most
+    max(1, 1%) of the lanes may flip, not counting those in ``set_aside``.
+    ``flipped`` marks the lanes whose position paths differ; without it, a
+    lane is flipped where its turnover or hit rate differs (both exact
+    functions of the path, but an entry and an exit each a bar late keep
+    them). For pairs, as in phase 4's pairs budget, a lane off the
+    tolerance counts as flipped too, and so does one whose hit rate
+    differs: its hedge ratio's windowed sums cancel in f32, and a bar's
+    win is the sign of its hedged return. Returns the flipped lanes
+    counted against the budget."""
+    g, w = _np_metrics(got), _np_metrics(want)
+    if flipped is None:
+        flipped = ((g["turnover"] != w["turnover"])
+                   | (g["hit_rate"] != w["hit_rate"]))
+    off = _off_tolerance(g, w, want, strategy, n_bars)
+    if strategy == "pairs":
+        flipped = flipped | off | (g["hit_rate"] != w["hit_rate"])
+    counted = flipped if set_aside is None else flipped & ~set_aside
+    n_flips = int(counted.sum())
+    _check(n_flips <= max(1, int(0.01 * flipped.size)),
+           f"{label}: {n_flips}/{flipped.size} flipped lanes")
+    ok = ~flipped
+    for name in STREAM_COUNTS:
+        _check(np.array_equal(g[name][ok], w[name][ok]), f"{label}: {name} "
+               "not bit-equal on the unflipped lanes")
+    bad = off & ok
+    _check(not bad.any(), f"{label}: {int(bad.sum())} unflipped lanes off "
+           f"the tolerance, max abs err of sharpe "
+           f"{float(np.nanmax(np.abs(g['sharpe'] - w['sharpe'])[ok])):.3e}")
+    return n_flips
+
+
+def _stream_fields(data, strategy, n, n_pairs, bars, dev):
+    """A family's ``(N, T)`` fields on ``dev``: the bench's seed-0 panel,
+    or pairs' (y, x) legs from ``2 n_pairs`` seed-1 tickers."""
+    if strategy == "pairs":
+        y, x = _pairs_legs(data, n_pairs, bars, 1)
+        cols = {"close": y.close, "close2": x.close}
+    else:
+        panel = data.synthetic_ohlcv(n, bars, seed=0)
+        cols = {f: getattr(panel, f) for f in data._FIELDS}
+    return {k: torch.as_tensor(v, device=dev) for k, v in cols.items()}
+
+
+def _wrapper(compute, fused, strategy, fields, g, dev, **kw):
+    """The family's ``fused_*_sweep`` as the backend calls it."""
+    if strategy == "pairs":
+        return fused.fused_pairs_sweep(fields["close"], fields["close2"],
+                                       g["lookback"], g["z_entry"],
+                                       cost=COST, device=dev, **kw)
+    return compute._FUSED_STRATEGIES[strategy].run(fields, g, cost=COST,
+                                                   device=dev, **kw)
+
+
+def _golden_sweep(sweep, models, data, strategy, fields, g, dev):
+    if strategy == "pairs":
+        return models.pairs.run_pairs_sweep(fields["close"],
+                                            fields["close2"], g, cost=COST,
+                                            device=dev)
+    return sweep.run_sweep(data.OHLCV(*(fields[f] for f in data._FIELDS)),
+                           models.get_strategy(strategy), g, cost=COST,
+                           device=dev)
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _stream_carry_out(kernels_mod, compute, fused, sweep, models, data,
+                      recurrent, families, n, n_pairs, bars, dev) -> dict:
+    """(a): each wrapper with ``carry_out=True`` at the main path's shape:
+    the kernel's metrics bit-equal to the same call without it, the carry's
+    metrics against the generic sweep under :func:`_stream_rule`. Returns
+    the kernel launches of the carry_out calls."""
+    launches: dict = {}
+    for strategy, axes in families.items():
+        fields = _stream_fields(data, strategy, n, n_pairs, bars, dev)
+        g = _flat_grid(axes)
+        plain = _wrapper(compute, fused, strategy, fields, g, dev)
+        _sync(dev)
+        kernels_mod.reset_launch_counts()
+        t0 = time.perf_counter()
+        m, carry = _wrapper(compute, fused, strategy, fields, g, dev,
+                            carry_out=True)
+        _sync(dev)
+        wrap_s = time.perf_counter() - t0
+        for name, c in kernels_mod.LAUNCHES.items():
+            launches[name] = launches.get(name, 0) + c
+        _check(sum(kernels_mod.LAUNCHES.values()) > 0 or dev.type != "cuda",
+               f"{strategy} carry_out=True launched no kernel")
+        for name in m._fields:
+            _check(_bits_equal(getattr(m, name), getattr(plain, name)),
+                   f"{strategy} carry_out=True moved the kernel's {name}")
+        _carry_on(carry, dev, f"{strategy} carry_out")
+        _check(carry.n_bars == bars and carry.strategy == strategy,
+               f"{strategy} carry_out: carry of {carry.strategy} at "
+               f"{carry.n_bars} bars")
+        t0 = time.perf_counter()
+        gold = _golden_sweep(sweep, models, data, strategy, fields, g, dev)
+        _sync(dev)
+        gold_s = time.perf_counter() - t0
+        flips = _stream_rule(f"{strategy} carry_out finalize vs generic "
+                             "sweep", recurrent.finalize(carry), gold,
+                             strategy, bars)
+        print(f"streaming (a) {strategy}: {carry.metric['s1'].shape[0]} x "
+              f"{g[next(iter(g))].size} x {bars}: kernel metrics bit-equal "
+              f"with carry_out; {flips} flipped lanes of "
+              f"{carry.metric['s1'].numel()} against the generic sweep; "
+              f"carry_out call {wrap_s:.4f} s, generic sweep {gold_s:.4f} s, "
+              f"carry {carry.nbytes} bytes")
+        del carry, m, plain, gold
+    return launches
+
+
+def _path_flips(recurrent, strategy, base, fields, bars, dev):
+    """Where the cold build's position paths over ``bars + ΔT`` bars differ
+    from the carry's followed by the append's, ``(N, P)`` bool each:
+    ``hist``, on the first ``bars`` bars (the generic models at two
+    lengths: those that center a series by its mean over the whole history
+    round their windowed sums differently once it has more bars), where
+    the positions differ or the metrics of those bars do (pairs' hedged
+    returns move with the length too), and
+    ``delta``, on the appended bars (the append's head, or the model
+    replayed over the carry's tail window, against the models over the
+    whole history). Also the append's positions, ``(N, P, ΔT)``, and the
+    metrics of the carry advanced by the cold build's positions and
+    returns on the appended bars: the cold path with the carry's history,
+    the append's own yardstick."""
+    spec = recurrent._STREAM_FAMILIES[strategy]
+    K = base.tail["close"].shape[-1]
+    win = {f: torch.cat([base.tail[f], fields[f][:, bars:]], dim=-1)[:, None]
+           for f in base.tail}
+    f3 = {f: fields[f][:, None] for f in base.tail}
+    b3 = {f: v[..., :bars] for f, v in f3.items()}
+    N, T = fields["close"].shape
+    # The append's positions, in append_step's param chunks: on the card
+    # a chunk's shape sets how torch sums its rows, so other chunks could
+    # round the head's windowed sums otherwise.
+    app = []
+    for lo, hi, sub in recurrent._chunks(base.grid, N * (K + STREAM_DT),
+                                         dev):
+        if spec.head is None:
+            app.append(recurrent._positions_full(strategy, win, sub)[0][
+                ..., K:])
+        else:
+            app.append(spec.head(win, STREAM_DT, sub,
+                                 recurrent._lane_slice(base.state, lo, hi),
+                                 base.metric["pos_last"][..., lo:hi])[0])
+    app = torch.cat(app, dim=1)
+    # The base carry's history positions, in build_carry's chunks at
+    # ``bars`` bars (int8: every position is -1, 0 or 1).
+    P = app.shape[1]
+    base_pos = torch.empty((N, P, bars), dtype=torch.int8, device=dev)
+    for lo, hi, sub in recurrent._chunks(base.grid, N * bars, dev):
+        base_pos[:, lo:hi] = recurrent._positions_full(
+            strategy, b3, sub)[0].to(torch.int8)
+    hist, delta, iso = [], [], []
+    block = recurrent._block(STREAM_DT, None)
+    for lo, hi, sub in recurrent._chunks(base.grid, N * T, dev):
+        cold, ret = recurrent._positions_full(strategy, f3, sub)
+        base_m = recurrent._lane_slice(base.metric, lo, hi)
+        iso.append(recurrent._advance_metrics(
+            base_m, cold[..., bars:], ret[..., bars:], cost=base.cost,
+            block=block))
+        # The cold build's first bars folded alone, against the base's.
+        cold_m = recurrent._finalize(recurrent._advance_metrics(
+            recurrent._metric_init(N, hi - lo, dev), cold[..., :bars],
+            ret[..., :bars], cost=base.cost,
+            block=recurrent._block(bars, None)), bars, base.ppy)
+        base_f = recurrent._finalize(base_m, bars, base.ppy)
+        g, w = _np_metrics(cold_m), _np_metrics(base_f)
+        moved = (_off_tolerance(g, w, base_f, strategy, bars)
+                 | (g["turnover"] != w["turnover"])
+                 | (g["hit_rate"] != w["hit_rate"]))
+        hist.append(torch.as_tensor(moved, device=dev)
+                    | (cold[..., :bars].to(torch.int8)
+                       != base_pos[:, lo:hi]).any(dim=-1))
+        delta.append((cold[..., bars:] != app[:, lo:hi]).any(dim=-1))
+        del cold, ret
+    return (torch.cat(hist, dim=1).cpu().numpy(),
+            torch.cat(delta, dim=1).cpu().numpy(), app,
+            recurrent._finalize(recurrent._join(iso), T, base.ppy))
+
+
+def _stream_append_vs_cold(data, recurrent, store_mod, families, n, n_pairs,
+                           bars, dev) -> None:
+    """(b): a carry at ``bars`` plus one ΔT append against the cold build at
+    ``bars + ΔT``, per family; for sma 16 one-bar appends against the one
+    16-bar append; and an append after a device-level eviction and a
+    restore from the host level bit-equal to the append never evicted."""
+    full = bars + STREAM_DT
+    for strategy, axes in families.items():
+        fields = _stream_fields(data, strategy, n, n_pairs, full, dev)
+        g = _flat_grid(axes)
+        base_f = {k: v[:, :bars] for k, v in fields.items()}
+        delta = {k: v[:, bars:] for k, v in fields.items()}
+        base = recurrent.build_carry(strategy, base_f, g, cost=COST,
+                                     device=dev)
+        _sync(dev)
+        t0 = time.perf_counter()
+        stepped = recurrent.append_step(base, delta)
+        got = recurrent.finalize(stepped)
+        _sync(dev)
+        append_s = time.perf_counter() - t0
+        _carry_on(stepped, dev, f"{strategy} append")
+        t0 = time.perf_counter()
+        cold = recurrent.finalize(recurrent.build_carry(
+            strategy, fields, g, cost=COST, device=dev))
+        _sync(dev)
+        cold_s = time.perf_counter() - t0
+        hist, delta_f, app_pos, iso = _path_flips(recurrent, strategy, base,
+                                                  fields, bars, dev)
+        n_delta = _stream_rule(f"{strategy} append vs the cold path on the "
+                               "appended bars", got, iso, strategy, full,
+                               flipped=delta_f)
+        # Against the cold build itself: the lanes whose history paths
+        # differ (the generic models at two lengths) are set aside and
+        # counted; the rest are held to the same rule.
+        n_cold = _stream_rule(f"{strategy} append vs cold build", got, cold,
+                              strategy, full, flipped=hist | delta_f,
+                              set_aside=hist)
+        print(f"streaming (b) {strategy}: carry@{bars} + {STREAM_DT}-bar "
+              f"append: {n_delta} lanes of {cold.sharpe.numel()} flipped "
+              f"against the cold path on the appended bars; against the "
+              f"cold build@{full} {n_cold}, and {int(hist.sum())} set aside "
+              f"whose first {bars} bars' positions or metrics differ "
+              f"between the generic models at {bars} and at {full} bars; "
+              "append "
+              f"{append_s:.4f} s, cold build {cold_s:.4f} s")
+        if strategy == "sma_crossover":
+            c, path = base, []
+            for t in range(STREAM_DT):
+                c = recurrent.append_step(
+                    c, {k: v[:, t:t + 1] for k, v in delta.items()})
+                path.append(c.metric["pos_last"])     # the bar's position
+            flipped = (torch.stack(path, dim=-1) != app_pos).any(dim=-1)
+            flips = _stream_rule("sma 16 one-bar appends vs one 16-bar "
+                                 "append", recurrent.finalize(c), got,
+                                 strategy, full,
+                                 flipped=flipped.cpu().numpy())
+            print(f"streaming (b) sma_crossover: 16 one-bar appends vs one "
+                  f"16-bar append: {flips} flipped lanes")
+        if strategy in ("sma_crossover", "macd", "rsi"):
+            store = store_mod.CarryStore(max_bytes=4 * base.nbytes + (1 << 20),
+                                         device=dev)
+            key = ("stream-smoke", recurrent.stream_key(strategy, g, COST,
+                                                        252))
+            store.put(key, base)
+            store.evict_device(key)
+            restored = store.get(key)
+            _check(restored is not None and restored is not base
+                   and store.hits["host"] == 1,
+                   f"{strategy}: the host level did not restore the carry")
+            _carry_on(restored, dev, f"{strategy} restored")
+            again = recurrent.finalize(recurrent.append_step(restored,
+                                                             delta))
+            for name in got._fields:
+                _check(_bits_equal(getattr(again, name), getattr(got, name)),
+                       f"{strategy}: append after evict and restore moved "
+                       f"{name}")
+            print(f"streaming (b) {strategy}: append after a device-level "
+                  "eviction and a host restore bit-equal")
+        del base, stepped, got, cold, app_pos, iso
+
+
+def _append_jobs(pb, data, panel_store, strategy, axes, panel, lo, hi, tag,
+                 delta_only):
+    """One append JobSpec a ticker of ``panel``: bars ``[lo, hi)`` appended
+    to the first ``lo``, as the dispatcher makes them; ``delta_only`` ships
+    only the appended bars (``ohlcv`` empty)."""
+    grid = {k: pb.GridAxis(values=[float(v) for v in vals])
+            for k, vals in axes.items()}
+    jobs = []
+    for i in range(panel.close.shape[0]):
+        def cut(a, b, i=i):
+            return data.to_wire_bytes(data.OHLCV(*(f[i, a:b] for f in panel)))
+        ext = cut(0, hi)
+        jobs.append(pb.JobSpec(
+            id=f"{tag}-{i:04d}", strategy=strategy, grid=grid, cost=COST,
+            periods_per_year=252, ohlcv=b"" if delta_only else ext,
+            panel_digest=panel_store.panel_digest(ext),
+            append_parent_digest=panel_store.panel_digest(cut(0, lo)),
+            append_base_len=lo, append_delta=cut(lo, hi)))
+    return jobs
+
+
+def _timed(backend, jobs):
+    t0 = time.perf_counter()
+    done = backend.process(jobs)
+    return done, time.perf_counter() - t0
+
+
+def _stored_carries(wire, recurrent, sweep, backend, jobs, bars, dev,
+                    label) -> list:
+    """The carries ``jobs`` left in the backend's store, each at ``bars``
+    bars with its tensors on ``dev``."""
+    job0 = jobs[0]
+    g = {k: v.numpy() for k, v in sweep.product_grid(
+        **wire.grid_from_proto(job0.grid)).items()}
+    skey = recurrent.stream_key(job0.strategy, g, COST, 252)
+    out = []
+    for job in jobs:
+        carry = backend.carry_store.get((job.panel_digest, skey))
+        _check(carry is not None and carry.n_bars == bars,
+               f"{label}: the stored carry of job {job.id} is missing")
+        _carry_on(carry, dev, label)
+        out.append(carry)
+    return out
+
+
+def _direct_appends(recurrent, wire, bases, panel, jobs, bars, dev, label,
+                    done) -> None:
+    """Each round-2 block bit-equal to ``finalize(append_step(...))`` of
+    the round-1 carry it advanced, called directly."""
+    names = recurrent.stream_fields(jobs[0].strategy)
+    for i, (job, c, base) in enumerate(zip(jobs, done, bases)):
+        delta = {f: torch.as_tensor(getattr(panel, f)[i:i + 1,
+                                                      bars:bars + STREAM_DT],
+                                    device=dev) for f in names}
+        want = recurrent.finalize(recurrent.append_step(base, delta))
+        got = wire.metrics_from_bytes(c.metrics)
+        for name in want._fields:
+            _check(np.array_equal(getattr(got, name),
+                                  getattr(want, name).cpu().numpy()[0],
+                                  equal_nan=True),
+                   f"{label}: job {job.id} {name} differs from the direct "
+                   "append")
+
+
+def _stream_worker_path(compute, wire, pb, data, sweep, recurrent, store_mod,
+                        panel_store, axes, n_jobs, n_ema, bars, dev,
+                        card) -> None:
+    """(c): append jobs through ``TorchSweepBackend.process``."""
+    strategy = "sma_crossover"
+    panel = data.synthetic_ohlcv(n_jobs, bars + STREAM_DT, seed=70)
+    r1 = _append_jobs(pb, data, panel_store, strategy, axes[strategy], panel,
+                      bars - STREAM_DT, bars, "r1", False)
+    r2 = _append_jobs(pb, data, panel_store, strategy, axes[strategy], panel,
+                      bars, bars + STREAM_DT, "r2", True)
+    times = {1: [], 2: [], 3: []}
+    round2 = None
+    for rep in range(3):
+        backend = compute.TorchSweepBackend(device=dev)
+        _check(backend.carry_store.max_bytes == 64 * 1024 * 1024,
+               "the carry store's default budget is not 64 MB")
+        d1, s1 = _timed(backend, r1)
+        _check(backend.appends == {"carry_hit": 0, "full_reprice": n_jobs}
+               and all(c.metrics for c in d1),
+               f"round 1: {backend.appends}, expected {n_jobs} full "
+               "reprices")
+        st = backend.carry_store.stats()
+        _check(st["device_carries"] == n_jobs == st["host_carries"],
+               f"round 1 stored {st}")
+        if rep == 0:
+            bases = _stored_carries(wire, recurrent, sweep, backend, r1,
+                                    bars, dev, "round 1")
+            per_carry = bases[0].nbytes
+        d2, s2 = _timed(backend, r2)
+        _check(backend.appends == {"carry_hit": n_jobs,
+                                   "full_reprice": n_jobs}
+               and backend.advances == n_jobs,
+               f"round 2: {backend.appends}, {backend.advances} advances; "
+               f"expected {n_jobs} carry hits")
+        _check(backend.decodes == n_jobs, f"round 2 decoded panels: "
+               f"{backend.decodes} decodes (round 1's {n_jobs} only)")
+        d3, s3 = _timed(backend, r2)
+        _check(backend.appends["carry_hit"] == 2 * n_jobs
+               and backend.advances == n_jobs,
+               f"round 3 (a retried delivery) advanced: {backend.appends}, "
+               f"{backend.advances} advances")
+        _check([c.metrics for c in d3] == [c.metrics for c in d2],
+               "round 3's blocks differ from round 2's")
+        for k, s in zip((1, 2, 3), (s1, s2, s3)):
+            times[k].append(s)
+        st = backend.carry_store.stats()
+        _check(st["device_carries"] == n_jobs == st["host_carries"],
+               f"one carry a stream after round 3: {st}")
+        if rep == 0:
+            round2 = d2
+            _direct_appends(recurrent, wire, bases, panel, r2, bars, dev,
+                            "round 2", d2)
+            _stored_carries(wire, recurrent, sweep, backend, r2,
+                            bars + STREAM_DT, dev, "round 2")
+            del bases
+    print(f"streaming (c) {n_jobs} sma append jobs (1 ticker x {bars} bars "
+          f"x {wire.grid_n_combos(r1[0].grid)} combos), median of 3 (s, "
+          f"batch / a job): " + ", ".join(
+              f"round {k} {statistics.median(v):.4f} / "
+              f"{statistics.median(v) / n_jobs * 1e3:.4f} ms"
+              for k, v in times.items())
+          + f"; runs {times}; {per_carry} bytes a carry ({card})")
+
+    # A budget for about half of the carries: every job completes, and the
+    # evicted parents are counted full reprices.
+    half = compute.TorchSweepBackend(
+        device=dev, carry_store=store_mod.CarryStore(
+            max_bytes=per_carry * n_jobs // 2, device=dev))
+    half.process(r1)
+    g = {k: v.numpy() for k, v in sweep.product_grid(
+        **wire.grid_from_proto(r1[0].grid)).items()}
+    skey = recurrent.stream_key(strategy, g, COST, 252)
+    store = half.carry_store
+    with store._lock:
+        gone = sum((j.panel_digest, skey) not in store._device
+                   and (j.panel_digest, skey) not in store._host
+                   for j in r1)
+    d2h = half.process(r2)
+    hits, reprices = half.appends["carry_hit"], half.appends["full_reprice"]
+    _check(len(d2h) == n_jobs and all(c.metrics for c in d2h),
+           "half budget: a job did not complete")
+    _check(hits + reprices == 2 * n_jobs and reprices - n_jobs >= gone > 0,
+           f"half budget: {hits} hits, {reprices - n_jobs} round-2 full "
+           f"reprices, {gone} parents evicted")
+    # Each block is the append's (a hit) or the full reprice's (a miss):
+    # bit-equal to the full budget's round 2 or to a store that keeps
+    # nothing, and the full reprices' blocks are counted.
+    none = compute.TorchSweepBackend(
+        device=dev, panel_cache=half.panel_cache,
+        carry_store=store_mod.CarryStore(max_bytes=0, device=dev))
+    d2z = none.process(r2)
+    _check(none.appends == {"carry_hit": 0, "full_reprice": n_jobs},
+           f"a store that keeps nothing: {none.appends}")
+    as_append = sum(h.metrics == a.metrics for h, a in zip(d2h, round2))
+    as_reprice = sum(h.metrics == z.metrics and h.metrics != a.metrics
+                     for h, a, z in zip(d2h, round2, d2z))
+    _check(as_append + as_reprice == n_jobs
+           and as_reprice <= reprices - n_jobs,
+           f"half budget: {as_append} blocks of appends, {as_reprice} of "
+           f"full reprices, {reprices - n_jobs} full reprices counted")
+    print(f"streaming (c) half budget ({store.max_bytes} bytes): "
+          f"{gone} parents evicted before round 2; round 2 {hits} carry "
+          f"hits, {reprices - n_jobs} counted full reprices; blocks: "
+          f"{as_append} the appends', {as_reprice} the full reprices' "
+          "(the rest equal in both)")
+
+    for strategy, seed in (("macd", 71), ("rsi", 72)):
+        panel = data.synthetic_ohlcv(n_ema, bars + STREAM_DT, seed=seed)
+        e1 = _append_jobs(pb, data, panel_store, strategy, axes[strategy],
+                          panel, bars - STREAM_DT, bars, f"{strategy}-r1",
+                          False)
+        e2 = _append_jobs(pb, data, panel_store, strategy, axes[strategy],
+                          panel, bars, bars + STREAM_DT, f"{strategy}-r2",
+                          True)
+        backend = compute.TorchSweepBackend(device=dev)
+        _, s1 = _timed(backend, e1)
+        bases = _stored_carries(wire, recurrent, sweep, backend, e1, bars,
+                                dev, f"{strategy} round 1")
+        d2, s2 = _timed(backend, e2)
+        _check(backend.appends == {"carry_hit": n_ema, "full_reprice": n_ema}
+               and backend.advances == n_ema,
+               f"{strategy} append jobs: {backend.appends}")
+        _direct_appends(recurrent, wire, bases, panel, e2, bars, dev,
+                        f"{strategy} round 2", d2)
+        print(f"streaming (c) {n_ema} {strategy} append jobs "
+              f"({wire.grid_n_combos(e1[0].grid)} combos): round 1 (full "
+              f"reprices) {s1:.4f} s, round 2 (carry hits) {s2:.4f} s; "
+              f"round 2 bit-equal to the direct appends ({card})")
+
+
+def phase_streaming(kernels_mod, compute, wire, pb, data, sweep, models,
+                    fused, bench, panel_store, card: str, *, axes=AXES,
+                    n: int = N_TICKERS, n_pairs: int = N_PAIRS,
+                    bars: int = N_BARS, n_jobs: int = STREAM_JOBS,
+                    n_ema: int = STREAM_EMA_JOBS,
+                    dev=torch.device("cuda")) -> dict:
+    """Streaming: ``carry_out=True`` on the 14 wrappers, appends against
+    cold builds, append jobs through the backend, and the port bench's
+    ``streaming_append``. Returns the kernel launches of the carry_out
+    calls (the phase's main path)."""
+    from distributed_backtesting_exploration_tpu_torch.streaming import (
+        recurrent, store as store_mod)
+
+    families = {s: axes[s] for s in ("sma_crossover", *CHECKS)}
+    t0 = time.perf_counter()
+    launches = _stream_carry_out(kernels_mod, compute, fused, sweep, models,
+                                 data, recurrent, families, n, n_pairs, bars,
+                                 dev)
+    t_a = time.perf_counter()
+    _stream_append_vs_cold(data, recurrent, store_mod, families, n, n_pairs,
+                           bars, dev)
+    t_b = time.perf_counter()
+    _stream_worker_path(compute, wire, pb, data, sweep, recurrent, store_mod,
+                        panel_store, axes, n_jobs, n_ema, bars, dev, card)
+    t_c = time.perf_counter()
+    if dev.type == "cuda":
+        out = bench.run(bench.Settings(configs=frozenset({"streaming_append"})))
+        print(f"streaming (d) port bench streaming_append: "
+              f"{json.dumps(out['roofline']['streaming_append'])} ({card})")
+    print(f"streaming phase wall (s): (a) {t_a - t0:.1f}, (b) {t_b - t_a:.1f}"
+          f", (c) {t_c - t_b:.1f}, (d) {time.perf_counter() - t_c:.1f}")
+    return launches
+
+
 def main() -> None:
     card = phase_card()
     from distributed_backtesting_exploration_tpu_torch import bench, models
@@ -2805,6 +3379,12 @@ def main() -> None:
     k1["walkforward_launches"] = wf.get("fused_sma", 0)
     for entry, rec in new.items():
         rec["walkforward_launches"] = wf.get(entry, 0)
+    stream = phase_streaming(_kernels, compute, wire, pb, data, sweep,
+                             models, fused, bench, panel_store, card)
+    for rec in (k1, *new.values()):
+        rec["streaming_launches"] = stream.get(rec["name"], 0)
+        _check(rec["streaming_launches"] > 0, f"{rec['name']} launched no "
+               "time on the streaming phase's carry_out calls")
     print(json.dumps({"kernels": [k1, *new.values(), *k8]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,8 +13,16 @@ and ``walkforward``, the reference's walk-forward config (the bars' second
 half less 30 as the train span, 12 refit windows, the 400-combo SMA grid
 fast 5..24 x slow 30..125 step 5; backtests are tickers x combos x
 windows), on the generic ``walk_forward``, or with ``DBX_BENCH_WF_FUSED=1``
-on ``walk_forward_fused`` with K1 as its train sweep. It prints one JSON
-line to stdout with the reference's top-level keys:
+on ``walk_forward_fused`` with K1 as its train sweep, and
+``streaming_append``, the reference's streaming A/B: one ticker (seed 77)
+of ``DBX_BENCH_STREAM_T`` bars (8192) on the 32-combo SMA grid fast 5..12
+x slow 30..42 step 4, each update a ``DBX_BENCH_STREAM_DT``-bar slice (16)
+priced by advancing the carry checkpoint
+(``streaming.recurrent.append_step``) against a full scan-form reprice of
+the whole T + ΔT bars; its rate is updates/s of the append, and its
+``roofline`` entry the seconds an update of each, their ratio and the wire
+bytes of a delta against the whole panel. It prints one JSON line to stdout
+with the reference's top-level keys:
 
     {"metric": ..., "value": N, "unit": "backtests/sec", "vs_baseline": N,
      "configs": {name: rate, ...}, "roofline": {...}, "device": {...}}
@@ -41,7 +49,8 @@ the same code on both sides and their ratios read about 1 by construction.
 Environment: ``DBX_BENCH_TICKERS`` (500), ``DBX_BENCH_BARS`` (1260),
 ``DBX_BENCH_PARAMS`` (2000), ``DBX_BENCH_ITERS`` (10),
 ``DBX_BENCH_WARMUP`` (12), ``DBX_BENCH_CONFIGS`` (a comma list, default
-all), ``DBX_BENCH_WF_FUSED=1`` and ``DBX_BENCH_CPU=1``, the explicit
+all), ``DBX_BENCH_WF_FUSED=1``, ``DBX_BENCH_STREAM_T`` (8192),
+``DBX_BENCH_STREAM_DT`` (16) and ``DBX_BENCH_CPU=1``, the explicit
 request to run the plain versions on the CPU (a structure check; its
 times are the CPU's). Without it the bench runs on CUDA and raises where
 there is no card.
@@ -64,6 +73,7 @@ from . import roofline
 from .models import get_strategy
 from .ops import fused, stages
 from .parallel import sweep, walkforward
+from .streaming import recurrent as stream_rc
 from .utils import data
 
 COST = 1e-3
@@ -107,7 +117,8 @@ FUSED = {
 }
 # The reference bench's order: roofline_stages second, walkforward after
 # the fused sweeps.
-CONFIGS = ("sma_fused", "roofline_stages", *list(FUSED)[1:], "walkforward")
+CONFIGS = ("sma_fused", "roofline_stages", *list(FUSED)[1:], "walkforward",
+           "streaming_append")
 _WINDOW_AXES = {"fast", "slow", "window", "lookback", "period", "span"}
 
 # (stage, lanes) cases of the SMA scaffold (the reference's bench.py
@@ -128,6 +139,8 @@ class Settings(NamedTuple):
     configs: frozenset | None = None
     cpu: bool = False
     wf_fused: bool = False
+    stream_bars: int = 8192
+    stream_delta: int = 16
 
 
 def settings_from_env(env) -> Settings:
@@ -140,7 +153,9 @@ def settings_from_env(env) -> Settings:
         warmup=int(env.get("DBX_BENCH_WARMUP", 12)),
         configs=frozenset(only.split(",")) if only else None,
         cpu=env.get("DBX_BENCH_CPU") == "1",
-        wf_fused=env.get("DBX_BENCH_WF_FUSED") == "1")
+        wf_fused=env.get("DBX_BENCH_WF_FUSED") == "1",
+        stream_bars=int(env.get("DBX_BENCH_STREAM_T", 8192)),
+        stream_delta=int(env.get("DBX_BENCH_STREAM_DT", 16)))
 
 
 def device_info(dev: torch.device) -> dict:
@@ -381,6 +396,57 @@ class _Bench:
             warmup=max(self.s.warmup // 3, 2), name="walkforward",
             dev=self.dev)
 
+    def streaming_append(self) -> None:
+        """The reference bench's streaming A/B: the same ΔT-bar update
+        priced by the append (the carry advanced, its metrics finalized and
+        fetched) and by a full reprice of the T + ΔT bars, each timed over
+        ``updates`` updates after one warm-up of both."""
+        T, D = self.s.stream_bars, self.s.stream_delta
+        updates = max(min(self.s.iters, 10), 3)
+        grid = {k: v.numpy() for k, v in sweep.product_grid(
+            fast=np.arange(5.0, 13.0, dtype=np.float32),
+            slow=np.arange(30.0, 46.0, 4.0, dtype=np.float32)).items()}
+        close = torch.as_tensor(data.synthetic_ohlcv(
+            1, T + D * (updates + 1), seed=77).close, device=self.dev)
+        kw = dict(device=self.dev)
+
+        def full():
+            return stream_rc.finalize(stream_rc.build_carry(
+                "sma_crossover", {"close": close[:, :T + D]}, grid,
+                **kw)).sharpe.cpu()
+
+        carry0 = stream_rc.build_carry("sma_crossover",
+                                       {"close": close[:, :T]}, grid, **kw)
+        stream_rc.finalize(stream_rc.append_step(
+            carry0, {"close": close[:, T:T + D]})).sharpe.cpu()
+        full()
+        t0 = time.perf_counter()
+        c = carry0
+        for i in range(updates):
+            lo = T + i * D
+            c = stream_rc.append_step(c, {"close": close[:, lo:lo + D]})
+            stream_rc.finalize(c).sharpe.cpu()      # the served result
+        t_append = (time.perf_counter() - t0) / updates
+        t0 = time.perf_counter()
+        for _ in range(updates):
+            full()
+        t_full = (time.perf_counter() - t0) / updates
+        wire_full = 8 + 4 * 5 * (T + D)     # DBX1: magic, T, 5 f32 rows
+        wire_delta = 8 + 4 * 5 * D
+        self.roofline["streaming_append"] = {
+            "bars_base": T, "delta_bars": D, "updates": updates,
+            "combos": int(grid["fast"].size),
+            "append_s_per_update": t_append,
+            "full_reprice_s_per_update": t_full,
+            "append_speedup": t_full / t_append,
+            "wire_bytes_full": wire_full, "wire_bytes_delta": wire_delta,
+            "wire_reduction": wire_full / wire_delta}
+        self.rates["streaming_append"] = 1.0 / t_append
+        print(f"bench[streaming_append]: T={T} dT={D} P={grid['fast'].size}:"
+              f" append {t_append * 1e3:.3f} ms/update vs full reprice "
+              f"{t_full * 1e3:.3f} ms -> {t_full / t_append:.2f}x (wire "
+              f"{wire_full}B -> {wire_delta}B)", file=sys.stderr)
+
 
 def run(s: Settings) -> dict:
     """Run the configs of ``s`` and return the result line's object."""
@@ -396,6 +462,8 @@ def run(s: Settings) -> dict:
             b.roofline_stages()
         elif name == "walkforward":
             b.walkforward()
+        elif name == "streaming_append":
+            b.streaming_append()
         else:
             b.fused_config(name)
     if not b.rates:

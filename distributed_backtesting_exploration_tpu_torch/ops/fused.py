@@ -111,6 +111,80 @@ def _resolve_epilogue(epilogue: str | None) -> str:
         f"or 'ladder', got {epilogue!r}")
 
 
+# The reference's T-block schedule of its carry scan (``_scan_block``): one
+# sublane tile a block, doubled until the blocks number at most 256. The
+# kernels here run one sequential pass a lane and need none; the streaming
+# metric advance (:func:`_equity_advance`) blocks its equity scan by it.
+_SCAN_BLOCK_DEFAULT = 8
+_SCAN_MAX_BLOCKS = 256
+
+
+def _scan_block(T_pad: int, epilogue: str) -> int:
+    """The T-block size of the reference's carry scan: ``B`` of
+    ``"scan:<B>"``, else 8 doubled until at most ``_SCAN_MAX_BLOCKS``
+    blocks cover ``T_pad`` bars."""
+    if epilogue.startswith("scan:"):
+        return int(epilogue[5:])
+    b = _SCAN_BLOCK_DEFAULT
+    while -(-T_pad // b) > _SCAN_MAX_BLOCKS:
+        b *= 2
+    return b
+
+
+def _spans(T_pad: int, block: int):
+    """(start, stop) spans tiling ``T_pad`` bars by ``block``."""
+    return [(s, min(s + block, T_pad)) for s in range(0, T_pad, block)]
+
+
+def _cumsum_last(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum over the last axis as the reference's
+    Hillis-Steele shift-doubling ladder, op for op: each pass adds the
+    series shifted by ``s`` bars (zeros shifted in), ``s`` doubling. Not
+    ``torch.cumsum``, whose CUDA scan splits a row by the tensor's row
+    count: the ladder's adds are elementwise, so every device and shape
+    gives the reference's bits."""
+    T = x.shape[-1]
+    s = 1
+    while s < T:
+        pad = torch.zeros(x.shape[:-1] + (s,), dtype=x.dtype, device=x.device)
+        x = x + torch.cat([pad, x[..., :-s]], dim=-1)
+        s *= 2
+    return x
+
+
+def _cummax_last(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive running max over the last axis (the shift ladder of
+    :func:`_cumsum_last`, -inf shifted in)."""
+    T = x.shape[-1]
+    s = 1
+    while s < T:
+        pad = torch.full(x.shape[:-1] + (s,), -math.inf, dtype=x.dtype,
+                         device=x.device)
+        x = torch.maximum(x, torch.cat([pad, x[..., :-s]], dim=-1))
+        s *= 2
+    return x
+
+
+def _equity_advance(net: torch.Tensor, block: int, cum: torch.Tensor,
+                    peak: torch.Tensor, mdd: torch.Tensor):
+    """The reference's ``_equity_advance``: advance the (cumulative net,
+    running peak, max drawdown) carry of ``equity = 1 + cumsum(net)``
+    across a ``(..., D)`` net-return slice in blocks of ``block`` bars.
+    Seeded 0 / -inf / 0 it is the scan over a whole panel; from a stored
+    carry, the streaming append's recurrent step. Returns new tensors
+    ``(cum, peak, mdd)`` and writes into none of its inputs."""
+    eps = torch.tensor(_EPS, dtype=net.dtype, device=net.device)
+    for s, e in _spans(net.shape[-1], block):
+        cs = _cumsum_last(net[..., s:e])
+        eq = (1.0 + cum)[..., None] + cs
+        pk = torch.maximum(_cummax_last(eq), peak[..., None])
+        dd = (pk - eq) / torch.maximum(pk, eps)
+        mdd = torch.maximum(mdd, dd.amax(dim=-1))
+        cum = cum + cs[..., -1]
+        peak = pk[..., -1]
+    return cum, peak, mdd
+
+
 def _check_table(table: str | None) -> None:
     """The reference's table rule: None, ``"inline"`` or ``"hbm"``. Any
     other value raises."""
@@ -1524,18 +1598,45 @@ def pairs_sweep_tables(y, x, windows: np.ndarray):
 
 # --- sweep wrappers -------------------------------------------------------
 
-def _prologue(carry_out: bool, table, epilogue, device):
-    """The reference wrappers' argument rules: ``carry_out=True`` (the
-    streaming checkpoint) is not ported yet and raises; ``table`` and
-    ``epilogue`` are validated and an invalid value raises. Returns the
-    resolved device."""
-    if carry_out:
-        raise NotImplementedError(
-            "carry_out=True (the streaming checkpoint) is not ported yet; "
-            "see the streaming slice in ROADMAP.md, Queue 1")
+def _prologue(carry_out: bool, t_real, table, epilogue, device):
+    """The reference wrappers' argument rules, checked before any work:
+    ``carry_out=True`` takes a uniform full-history panel only
+    (:func:`_check_carry_out_args`); ``table`` and ``epilogue`` are
+    validated and an invalid value raises. Returns the resolved device."""
+    _check_carry_out_args(carry_out, t_real)
     _check_table(table)
     _resolve_epilogue(epilogue)
     return device_mod.resolve(device)
+
+
+def _check_carry_out_args(carry_out: bool, t_real) -> None:
+    """The reference's ``_check_carry_out_args``: a streaming checkpoint
+    summarizes one panel state, so ``carry_out=True`` with ``t_real``
+    (a ragged group) raises."""
+    if carry_out and t_real is not None:
+        raise ValueError(
+            "carry_out=True supports uniform full-history panels only "
+            "(a streaming checkpoint summarizes ONE panel state; ragged "
+            "groups checkpoint per panel)")
+
+
+def _carry_out_tail(metrics: Metrics, carry_out: bool, strategy: str,
+                    fields: dict, grid: dict, *, cost, ppy, epilogue):
+    """The shared tail of every sweep wrapper (the reference's
+    ``_carry_out_tail``): ``metrics`` as the kernel gave them, or with
+    ``carry_out=True`` ``(metrics, carry)``, the carry the streaming
+    checkpoint of this sweep (:class:`..streaming.recurrent.StreamCarry`)
+    built by the generic models' scan form
+    (:func:`..streaming.recurrent.build_carry`) on the fields' device, so
+    that a later bar slice appends in O(bars)."""
+    if not carry_out:
+        return metrics
+    from ..streaming import recurrent
+
+    carry = recurrent.build_carry(
+        strategy, fields, grid, cost=float(cost), periods_per_year=int(ppy),
+        epilogue=epilogue, device=next(iter(fields.values())).device)
+    return metrics, carry
 
 
 def _panel(dev: torch.device, close, *others):
@@ -1577,10 +1678,13 @@ def fused_sma_sweep(close, fast, slow, *, t_real=None, cost: float = 0.0,
     ``"scan:<B>"``, ``"ladder"``) are validated by the reference's rules,
     and an invalid value raises; on Hopper one kernel design serves every
     value (no table, one sequential pass per lane), so a valid value
-    changes nothing. ``carry_out=True`` (the streaming checkpoint) is not
-    ported yet and raises ``NotImplementedError``.
+    changes nothing. ``carry_out=True`` returns ``(metrics, carry)``: the
+    kernel's metrics untouched and the streaming checkpoint of the sweep
+    (:func:`..streaming.recurrent.build_carry` on the same device); it
+    takes a uniform panel only, and with ``t_real`` raises ``ValueError``
+    before the kernel runs.
     """
-    dev = _prologue(carry_out, table, epilogue, device)
+    dev = _prologue(carry_out, t_real, table, epilogue, device)
     (close,) = _panel(dev, close)
     N, T = close.shape
     fast_w, slow_w, warm = _grid_setup(fast, slow)
@@ -1590,13 +1694,20 @@ def fused_sma_sweep(close, fast, slow, *, t_real=None, cost: float = 0.0,
         simple_returns(close).contiguous(),
         *_to(dev, tr, fast_w, slow_w, warm),
         cost=float(cost), ppy=int(periods_per_year))
-    return Metrics(*planes)
+    return _carry_out_tail(Metrics(*planes), carry_out, "sma_crossover",
+                           {"close": close}, {"fast": fast, "slow": slow},
+                           cost=cost, ppy=periods_per_year, epilogue=epilogue)
 
 
 def _bollinger_family_sweep(close, window, k, *, machine: str, z_exit: float,
                             t_real, cost, periods_per_year, table, epilogue,
                             carry_out, device) -> Metrics:
-    dev = _prologue(carry_out, table, epilogue, device)
+    dev = _prologue(carry_out, t_real, table, epilogue, device)
+    if carry_out and machine == "hysteresis" and float(z_exit) != 0.0:
+        raise ValueError(
+            "carry_out=True requires z_exit=0 for the bollinger machine "
+            "(the streaming family follows models.bollinger, which exits "
+            "at the rolling mean)")
     (close,) = _panel(dev, close)
     N, T = close.shape
     window, k = _flat(window), _flat(k)
@@ -1614,7 +1725,11 @@ def _bollinger_family_sweep(close, window, k, *, machine: str, z_exit: float,
                          *_to(dev, tr, win, k, warm), machine=machine,
                          z_exit=float(z_exit), cost=float(cost),
                          ppy=int(periods_per_year))
-    return Metrics(*planes)
+    return _carry_out_tail(
+        Metrics(*planes), carry_out,
+        "bollinger" if machine == "hysteresis" else "bollinger_touch",
+        {"close": close}, {"window": window, "k": k}, cost=cost,
+        ppy=periods_per_year, epilogue=epilogue)
 
 
 def fused_bollinger_sweep(close, window, k, *, t_real=None,
@@ -1671,11 +1786,12 @@ def fused_stochastic_sweep(close, high, low, window, band, *, t_real=None,
     ``window``/``band`` are flat per-combo arrays; windows must be integral
     bar counts. Matches ``run_sweep(..., "stochastic")``.
     """
-    dev = _prologue(carry_out, None, epilogue, device)
+    dev = _prologue(carry_out, t_real, None, epilogue, device)
     close, high, low = _panel(dev, close, high, low)
     N, T = close.shape
     window, band = _flat(window), _flat(band)
     _same_length(window=window, band=band)
+    grid = {"window": window, "band": band}
     _, win, widx, warm = _window_setup(window, "windows", 0.0, 1)
     lane, _, win, band, warm = window_major(widx, win, band, warm)
     tr = _check_t_real(t_real, N, T)
@@ -1683,7 +1799,10 @@ def fused_stochastic_sweep(close, high, low, window, band, *, t_real=None,
                         *_to(dev, tr, win, band, warm, lane),
                         machine="hysteresis", z_exit=0.0, cost=float(cost),
                         ppy=int(periods_per_year))
-    return Metrics(*planes)
+    return _carry_out_tail(
+        Metrics(*planes), carry_out, "stochastic",
+        {"close": close, "high": high, "low": low}, grid, cost=cost,
+        ppy=periods_per_year, epilogue=epilogue)
 
 
 def _band_table_sweep(close, window, band, names, warm_offset: float,
@@ -1724,12 +1843,16 @@ def fused_vwap_sweep(close, volume, window, k, *, t_real=None,
     z-score another ``window``). A window longer than the history leaves
     its lanes flat. Matches ``run_sweep(..., "vwap_reversion")``.
     """
-    dev = _prologue(carry_out, None, epilogue, device)
+    dev = _prologue(carry_out, t_real, None, epilogue, device)
     close, volume = _panel(dev, close, volume)
-    return _band_table_sweep(
+    m = _band_table_sweep(
         close, window, k, ("window", "k"), -1.0,
         lambda w: vwap_z_table(close, volume, w), t_real=t_real, cost=cost,
         periods_per_year=periods_per_year, warm_scale=2.0)
+    return _carry_out_tail(m, carry_out, "vwap_reversion",
+                           {"close": close, "volume": volume},
+                           {"window": window, "k": k}, cost=cost,
+                           ppy=periods_per_year, epilogue=epilogue)
 
 
 def fused_obv_sweep(close, volume, window, *, t_real=None, cost: float = 0.0,
@@ -1749,7 +1872,7 @@ def fused_obv_sweep(close, volume, window, *, t_real=None, cost: float = 0.0,
     changes nothing (the kernel forms each lane's SMA from the staged OBV
     cumsum row, K1's design). Other arguments as :func:`fused_sma_sweep`.
     """
-    dev = _prologue(carry_out, table, epilogue, device)
+    dev = _prologue(carry_out, t_real, table, epilogue, device)
     close, volume = _panel(dev, close, volume)
     N, T = close.shape
     _, win, _, warm = _window_setup(_flat(window), "windows", 0.0, 1)
@@ -1759,7 +1882,10 @@ def fused_obv_sweep(close, volume, window, *, t_real=None, cost: float = 0.0,
                  simple_returns(close).contiguous(),
                  *_to(dev, tr, win, warm), cost=float(cost),
                  ppy=int(periods_per_year))
-    return Metrics(*planes)
+    return _carry_out_tail(Metrics(*planes), carry_out, "obv_trend",
+                           {"close": close, "volume": volume},
+                           {"window": window}, cost=cost,
+                           ppy=periods_per_year, epilogue=epilogue)
 
 
 def _pairs_grid_setup(lookback, z_entry, z_exit):
@@ -1796,7 +1922,7 @@ def fused_pairs_sweep(y_close, x_close, lookback, z_entry, *, t_real=None,
     whose windowed sums are f64 differences rounded once, so a z at the
     band can land a bar apart from the generic path's f32 sums).
     """
-    dev = _prologue(carry_out, None, epilogue, device)
+    dev = _prologue(carry_out, t_real, None, epilogue, device)
     y_close, x_close = _panel(dev, y_close, x_close)
     N, T = y_close.shape
     windows, widx, k, zx, warm = _pairs_grid_setup(lookback, z_entry, z_exit)
@@ -1809,7 +1935,11 @@ def fused_pairs_sweep(y_close, x_close, lookback, z_entry, *, t_real=None,
     z, hr = pairs_sweep_tables(y_close, x_close, windows)
     planes = pairs(z, hr, *lanes, cost=float(cost),
                    ppy=int(periods_per_year))
-    return Metrics(*planes)
+    return _carry_out_tail(
+        Metrics(*planes), carry_out, "pairs",
+        {"close": y_close, "close2": x_close},
+        {"lookback": lookback, "z_entry": k, "z_exit": zx}, cost=cost,
+        ppy=periods_per_year, epilogue=epilogue)
 
 
 def fused_momentum_sweep(close, lookback, *, t_real=None, cost: float = 0.0,
@@ -1823,7 +1953,7 @@ def fused_momentum_sweep(close, lookback, *, t_real=None, cost: float = 0.0,
     (K3's momentum entry). Lookbacks must be integral; the signal is exact.
     A valid ``table`` changes nothing (the kernel reads the staged close
     row). Other arguments as :func:`fused_sma_sweep`."""
-    dev = _prologue(carry_out, table, epilogue, device)
+    dev = _prologue(carry_out, t_real, table, epilogue, device)
     (close,) = _panel(dev, close)
     N, T = close.shape
     _, lb, _, warm = _window_setup(_flat(lookback), "lookbacks",
@@ -1832,7 +1962,9 @@ def fused_momentum_sweep(close, lookback, *, t_real=None, cost: float = 0.0,
     planes = momentum(close, simple_returns(close).contiguous(),
                       *_to(dev, tr, lb, warm), cost=float(cost),
                       ppy=int(periods_per_year))
-    return Metrics(*planes)
+    return _carry_out_tail(Metrics(*planes), carry_out, "momentum",
+                           {"close": close}, {"lookback": lookback},
+                           cost=cost, ppy=periods_per_year, epilogue=epilogue)
 
 
 def _donchian_family_sweep(close, hi_src, lo_src, window, *, t_real, cost,
@@ -1862,11 +1994,14 @@ def fused_donchian_sweep(close, window, *, t_real=None, cost: float = 0.0,
     generic path's. A valid ``table`` changes nothing: the port runs one
     design (the reference's ``"inline"`` substrate, ``_don_kernel_inline``)
     whatever the value."""
-    dev = _prologue(carry_out, table, epilogue, device)
+    dev = _prologue(carry_out, t_real, table, epilogue, device)
     (close,) = _panel(dev, close)
-    return _donchian_family_sweep(
+    m = _donchian_family_sweep(
         close, close, close, window, t_real=t_real, cost=cost,
         periods_per_year=periods_per_year)
+    return _carry_out_tail(m, carry_out, "donchian", {"close": close},
+                           {"window": window}, cost=cost,
+                           ppy=periods_per_year, epilogue=epilogue)
 
 
 def fused_donchian_hl_sweep(close, high, low, window, *, t_real=None,
@@ -1878,11 +2013,15 @@ def fused_donchian_hl_sweep(close, high, low, window, *, t_real=None,
                             device_mod.DEFAULT_DEVICE) -> Metrics:
     """Fused high/low-channel Donchian sweep: the breakout channel comes
     from the highs and lows; otherwise as :func:`fused_donchian_sweep`."""
-    dev = _prologue(carry_out, table, epilogue, device)
+    dev = _prologue(carry_out, t_real, table, epilogue, device)
     close, high, low = _panel(dev, close, high, low)
-    return _donchian_family_sweep(
+    m = _donchian_family_sweep(
         close, high, low, window, t_real=t_real, cost=cost,
         periods_per_year=periods_per_year)
+    return _carry_out_tail(m, carry_out, "donchian_hl",
+                           {"close": close, "high": high, "low": low},
+                           {"window": window}, cost=cost,
+                           ppy=periods_per_year, epilogue=epilogue)
 
 
 def fused_rsi_sweep(close, period, band, *, t_real=None, cost: float = 0.0,
@@ -1900,12 +2039,15 @@ def fused_rsi_sweep(close, period, band, *, t_real=None, cost: float = 0.0,
     ``run_sweep(..., "rsi")``: both paths build the RSI with the same ops.
     Other arguments as :func:`fused_sma_sweep`.
     """
-    dev = _prologue(carry_out, None, epilogue, device)
+    dev = _prologue(carry_out, t_real, None, epilogue, device)
     (close,) = _panel(dev, close)
-    return _band_table_sweep(
+    m = _band_table_sweep(
         close, period, band, ("period", "band"), 1.0,
         lambda p: rsi_z_table(close, p), t_real=t_real, cost=cost,
         periods_per_year=periods_per_year)
+    return _carry_out_tail(m, carry_out, "rsi", {"close": close},
+                           {"period": period, "band": band}, cost=cost,
+                           ppy=periods_per_year, epilogue=epilogue)
 
 
 def fused_keltner_sweep(close, high, low, window, k, *, t_real=None,
@@ -1922,12 +2064,16 @@ def fused_keltner_sweep(close, high, low, window, k, *, t_real=None,
     counts. Matches ``run_sweep(..., "keltner")``: both paths build the
     deviation with the same ops.
     """
-    dev = _prologue(carry_out, None, epilogue, device)
+    dev = _prologue(carry_out, t_real, None, epilogue, device)
     close, high, low = _panel(dev, close, high, low)
-    return _band_table_sweep(
+    m = _band_table_sweep(
         close, window, k, ("window", "k"), 0.0,
         lambda w: keltner_z_table(close, high, low, w), t_real=t_real,
         cost=cost, periods_per_year=periods_per_year)
+    return _carry_out_tail(m, carry_out, "keltner",
+                           {"close": close, "high": high, "low": low},
+                           {"window": window, "k": k}, cost=cost,
+                           ppy=periods_per_year, epilogue=epilogue)
 
 
 def fused_macd_sweep(close, fast, slow, signal, *, t_real=None,
@@ -1947,7 +2093,7 @@ def fused_macd_sweep(close, fast, slow, signal, *, t_real=None,
     another order than the generic ladder. Other arguments as
     :func:`fused_sma_sweep`.
     """
-    dev = _prologue(carry_out, None, epilogue, device)
+    dev = _prologue(carry_out, t_real, None, epilogue, device)
     (close,) = _panel(dev, close)
     N, T = close.shape
     spans, fidx, sidx, a_sig, warm = _macd_grid_setup(fast, slow, signal)
@@ -1958,7 +2104,10 @@ def fused_macd_sweep(close, fast, slow, signal, *, t_real=None,
     planes = macd(macd_sweep_table(close, spans),
                   simple_returns(close).contiguous(), *lanes,
                   cost=float(cost), ppy=int(periods_per_year))
-    return Metrics(*planes)
+    return _carry_out_tail(Metrics(*planes), carry_out, "macd",
+                           {"close": close},
+                           {"fast": fast, "slow": slow, "signal": signal},
+                           cost=cost, ppy=periods_per_year, epilogue=epilogue)
 
 
 def fused_trix_sweep(close, span, signal, *, t_real=None, cost: float = 0.0,
@@ -1972,7 +2121,7 @@ def fused_trix_sweep(close, span, signal, *, t_real=None, cost: float = 0.0,
     ``span``/``signal`` are flat per-combo span arrays; both must be
     integral. Matches ``run_sweep(..., "trix")`` to the same flip-aware
     budget as :func:`fused_macd_sweep`, for the same reason."""
-    dev = _prologue(carry_out, None, epilogue, device)
+    dev = _prologue(carry_out, t_real, None, epilogue, device)
     (close,) = _panel(dev, close)
     N, T = close.shape
     spans, widx, a_sig, warm = _trix_grid_setup(span, signal)
@@ -1983,4 +2132,6 @@ def fused_trix_sweep(close, span, signal, *, t_real=None, cost: float = 0.0,
     planes = trix(trix_sweep_table(close, spans),
                   simple_returns(close).contiguous(), *lanes,
                   cost=float(cost), ppy=int(periods_per_year))
-    return Metrics(*planes)
+    return _carry_out_tail(Metrics(*planes), carry_out, "trix",
+                           {"close": close}, {"span": span, "signal": signal},
+                           cost=cost, ppy=periods_per_year, epilogue=epilogue)

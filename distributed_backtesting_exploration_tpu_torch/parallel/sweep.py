@@ -139,13 +139,14 @@ def map_param_chunks(grid: Mapping[str, object], row_elems: int,
 
 
 def param_chunks(grid: Mapping[str, object], row_elems: int,
-                 dev: torch.device):
+                 dev: torch.device, chunk_elems: int = _CHUNK_ELEMS):
     """The chunks of :func:`map_param_chunks`: yields ``(lo, sub)``, where
     ``sub`` maps each grid name to its ``(P_chunk, 1)`` f32 column on
-    ``dev`` and ``lo`` is the chunk's first flat grid index."""
+    ``dev`` and ``lo`` is the chunk's first flat grid index. A chunk holds
+    ``chunk_elems // row_elems`` params (at least one)."""
     params = {k: device_mod.as_tensor(v, torch.float32, dev)
               for k, v in grid.items()}
-    chunk = max(1, _CHUNK_ELEMS // max(row_elems, 1))
+    chunk = max(1, chunk_elems // max(row_elems, 1))
     for lo in range(0, grid_size(params), chunk):
         yield lo, {k: v[lo:lo + chunk, None] for k, v in params.items()}
 

@@ -30,11 +30,25 @@ without a second leg or with legs of unequal length, a top-k or
 best-returns request by an unknown metric, a pairs or walk-forward
 best-returns request, a walk-forward request by an unknown metric, with
 ``wf_test <= 0`` or on a history shorter than one train and test window.
-A job carrying a field the port does not serve yet (streaming append,
-scenario batches) is refused on its own: it gets a logged warning naming
-the field and no completion, so it stays leased and the dispatcher
-re-queues it when the lease runs out, while the other jobs of its batch
-are served. Nothing is computed some other way.
+
+Streaming append jobs (``JobSpec.append_parent_digest``, the dispatcher's
+``AppendBars``) are served one at a time from the backend's
+:class:`~..streaming.store.CarryStore`: the parent panel's carry
+checkpoint advanced by the appended bars in O(ΔT)
+(:func:`~..streaming.recurrent.append_step`), or where there is none a
+full scan-form reprice over the extended panel
+(:func:`~..streaming.recurrent.build_carry`), counted; either way the new
+checkpoint is stored under the job's digest, and an advanced parent's is
+dropped. A delta-only append (no
+``ohlcv``, ``append_delta`` set) is spliced onto the cached base panel.
+An append of pairs, of an unknown family, or of a grid the family cannot
+price completes empty with the reference's logged error.
+
+A job carrying a field the port does not serve yet (scenario batches) is
+refused on its own: it gets a logged warning naming the field and no
+completion, so it stays leased and the dispatcher re-queues it when the
+lease runs out, while the other jobs of its batch are served. Nothing is
+computed some other way.
 
 This module imports no ``grpc``: the worker injects the fetcher.
 """
@@ -58,6 +72,8 @@ from ..ops import fused
 from ..ops.metrics import Metrics, metric_sign
 from ..parallel import sweep as sweep_mod
 from ..parallel import walkforward
+from ..streaming import recurrent
+from ..streaming.store import CarryStore
 from ..utils import data as data_mod
 from . import wire
 from .panel_store import ByteLRU
@@ -261,8 +277,6 @@ def _unsupported(job) -> str | None:
     if job.strategy != _PAIRS and job.strategy not in _FUSED_STRATEGIES:
         return (f"strategy {job.strategy!r} (served: "
                 f"{', '.join(sorted([*_FUSED_STRATEGIES, _PAIRS]))})")
-    if job.append_parent_digest:
-        return "streaming append (append_parent_digest)"
     if job.scenario_batch:
         return "scenario spec batch (scenario_batch)"
     if (job.ohlcv2 or job.panel_digest2) and job.strategy != _PAIRS:
@@ -383,9 +397,13 @@ class TorchSweepBackend:
     asks for ``"cpu"``).
 
     ``panel_cache`` holds decoded panels and their device blocks by digest;
-    ``payload_fetcher`` (``digest -> bytes``, set by the worker while it
-    runs) recovers a digest-only panel the cache no longer holds.
-    ``decodes`` counts the DBX1 decodes of the submit path.
+    ``carry_store`` the streaming appends' carry checkpoints
+    (``DBX_CARRY_CACHE_MB``); ``payload_fetcher`` (``digest -> bytes``,
+    set by the worker while it runs) recovers a digest-only panel the cache
+    no longer holds. ``decodes`` counts the DBX1 decodes of the submit
+    path; ``appends`` the append jobs served by outcome (``carry_hit``: a
+    stored checkpoint served or advanced, ``full_reprice``: rebuilt over
+    the whole panel) and ``advances`` the checkpoints advanced.
     """
 
     # A uniform walk-forward group whose grid has at least this many combos
@@ -397,17 +415,29 @@ class TorchSweepBackend:
 
     def __init__(self, *, device: str | torch.device =
                  device_mod.DEFAULT_DEVICE,
-                 panel_cache: PanelCache | None = None):
+                 panel_cache: PanelCache | None = None,
+                 carry_store: CarryStore | None = None):
         self.device = device_mod.resolve(device)
         self.panel_cache = (PanelCache() if panel_cache is None
                             else panel_cache)
+        self.carry_store = (CarryStore(device=self.device)
+                            if carry_store is None else carry_store)
         self.payload_fetcher: Callable[[str], bytes] | None = None
         self.decodes = 0
+        self.appends = {"carry_hit": 0, "full_reprice": 0}
+        self.advances = 0
 
     @property
     def chips(self) -> int:
         """Device count to advertise to the dispatcher."""
         return 1
+
+    def stats(self) -> dict:
+        """The caches' levels and the append counts."""
+        return {"panel_cache": self.panel_cache.stats(),
+                "carry": self.carry_store.stats(),
+                "appends": dict(self.appends), "advances": self.advances,
+                "decodes": self.decodes}
 
     def process(self, jobs) -> list[Completion]:
         """Run a job batch to completion: ``collect(submit(jobs))``."""
@@ -417,16 +447,23 @@ class TorchSweepBackend:
         """Launch a batch and start its result copies; returns the handle
         :meth:`collect` takes.
 
-        A job that ``_unsupported`` refuses is logged and left without a
-        completion (it stays leased until the dispatcher re-queues it);
-        the rest are grouped as the reference's ``submit`` groups them: by
+        Streaming append jobs are peeled off first and served one at a time
+        (:meth:`_submit_append_job`). A job that ``_unsupported`` refuses is
+        logged and left without a completion (it stays leased until the
+        dispatcher re-queues it); the rest are grouped as the reference's
+        ``submit`` groups them: by
         strategy, grid, power-of-two payload length bucket of each leg
         (the stamped ``panel_bytes_len`` for a digest-only leg), cost,
         periods per year, walk-forward window, top-k request and
         best-returns flag.
         """
+        jobs = list(jobs)
+        pending = [self._submit_append_job(j) for j in jobs
+                   if j.append_parent_digest]
         groups: dict[tuple, list] = {}
         for job in jobs:
+            if job.append_parent_digest:
+                continue
             what = _unsupported(job)
             if what is not None:
                 log.warning("job %s refused: %s is not ported to the "
@@ -442,7 +479,6 @@ class TorchSweepBackend:
                    job.wf_train, job.wf_test, job.wf_metric,
                    job.top_k, job.rank_metric, job.best_returns)
             groups.setdefault(key, []).append(job)
-        pending = []
         for group in groups.values():
             t0 = time.perf_counter()
             job0 = group[0]
@@ -512,6 +548,10 @@ class TorchSweepBackend:
         warmed = 0
         seen: set = set()
         for job in jobs:
+            if job.append_parent_digest:
+                # The append route resolves its own panel (a splice for a
+                # delta-only job).
+                continue
             for digest, raw in ((job.panel_digest, job.ohlcv),
                                 (job.panel_digest2, job.ohlcv2)):
                 if (not digest or not raw or digest in seen
@@ -553,6 +593,94 @@ class TorchSweepBackend:
         if digest:
             self.panel_cache.put_series(digest, s)
         return s, False
+
+    def _resolve_append_series(self, job):
+        """The extended panel of an append job: the host cache by its
+        digest, then a splice of the cached base panel and
+        ``JobSpec.append_delta`` (delta-only dispatch: no full panel on the
+        wire), then inline bytes or ``payload_fetcher``
+        (:meth:`_resolve_series`). Returns ``(series, cache_hit)``."""
+        digest = job.panel_digest
+        if (digest and not job.ohlcv and job.append_delta
+                and not self.panel_cache.contains_series(digest)):
+            base = self.panel_cache.get_series(job.append_parent_digest)
+            if base is not None and base.n_bars == int(job.append_base_len):
+                delta = data_mod.from_wire_bytes(job.append_delta)
+                s = data_mod.OHLCV(*(
+                    np.concatenate([np.asarray(b), np.asarray(d)])
+                    for b, d in zip(base, delta)))
+                self.panel_cache.put_series(digest, s)
+                return s, True
+        return self._resolve_series(job)
+
+    def _submit_append_job(self, job) -> _Pending:
+        """One streaming append job (the reference's
+        ``_submit_append_job``). A checkpoint stored under the job's digest
+        at the panel's length is a retried delivery: it is served, not
+        advanced again. Otherwise the parent's checkpoint at
+        ``append_base_len`` bars advances by the appended bars and is then
+        dropped (the reference keeps it: a stream here holds one
+        checkpoint, its tip, so a batch of N streams needs room for N
+        carries, not 2N), and where there is none the extended panel is
+        repriced in full by the scan form. The new checkpoint is stored
+        under the job's digest, so the next append of the chain hits.
+        Pairs (the append carries one panel), an unknown family and a grid
+        the family cannot price complete empty with a logged error: a
+        malformed spec would never heal by re-queueing."""
+        t0 = time.perf_counter()
+        if (not recurrent.supports_strategy(job.strategy)
+                or job.strategy == _PAIRS):
+            log.error("append job %s: strategy %r is not streamable over "
+                      "AppendBars; completing with empty metrics", job.id,
+                      job.strategy)
+            return _empty([job], t0)
+        axes = wire.grid_from_proto(job.grid)
+        grid = {k: v.numpy()
+                for k, v in sweep_mod.product_grid(**axes).items()}
+        cost = float(job.cost)
+        ppy = int(job.periods_per_year or 252)
+        skey = recurrent.stream_key(job.strategy, grid, cost, ppy)
+        series, _ = self._resolve_append_series(job)
+        fields = {f: _upload(np.asarray(getattr(series, f),
+                                        np.float32)[None, :], self.device)
+                  for f in recurrent.stream_fields(job.strategy)}
+        base_len = int(job.append_base_len)
+        store = self.carry_store
+        hit = retried = False
+        try:
+            carry = (store.get((job.panel_digest, skey))
+                     if job.panel_digest else None)
+            if carry is not None and carry.n_bars == series.n_bars:
+                # A retried delivery: nothing to advance or store again.
+                hit = retried = True
+            else:
+                carry = None
+                if 0 < base_len < series.n_bars:
+                    parent = (job.append_parent_digest, skey)
+                    base = store.get(parent)
+                    if base is not None and base.n_bars == base_len:
+                        carry = recurrent.append_step(
+                            base, {f: v[:, base_len:]
+                                   for f, v in fields.items()})
+                        self.advances += 1
+                        hit = True
+                        store.drop(parent)     # one checkpoint a stream
+                if carry is None:
+                    carry = recurrent.build_carry(
+                        job.strategy, fields, grid, cost=cost,
+                        periods_per_year=ppy, device=self.device)
+        except (ValueError, KeyError) as e:
+            log.error("append job %s: %s; completing with empty metrics",
+                      job.id, e)
+            return _empty([job], t0)
+        if job.panel_digest and not retried:
+            store.put((job.panel_digest, skey), carry)
+        self.appends["carry_hit" if hit else "full_reprice"] += 1
+        # finalize gives fresh tensors and the copy goes to storage of its
+        # own: the block never aliases the stored checkpoint.
+        host, ready = _copy_to_host(
+            {"planes": torch.stack(list(recurrent.finalize(carry)))})
+        return _Pending([job], 1, t0, host, ready)
 
     def _decode_group(self, group) -> list:
         """The group's leg-1 panels, each through :meth:`_resolve_series`."""

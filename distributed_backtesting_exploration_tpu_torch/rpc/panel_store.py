@@ -10,7 +10,8 @@ digest-only; the worker keeps decoded panels keyed by the same digest
   the reference's for the same bytes, or the caches of a mixed fleet of
   JAX and PyTorch workers would miss.
 - :class:`ByteLRU` is the byte-bounded LRU map of both levels of the
-  worker's panel cache.
+  worker's panel cache and of its carry store
+  (``streaming.store.CarryStore``).
 
 The reference module's ``PanelStore`` is the dispatcher's store of DBX1
 bytes; the port has no dispatcher, so it has no copy of it.
@@ -63,6 +64,12 @@ class ByteLRU:
             _, (_, ev_nb) = self._entries.popitem(last=False)
             self.bytes -= ev_nb
             self.evictions += 1
+
+    def pop(self, key) -> None:
+        """Drop one entry (no error if absent); the byte count follows."""
+        entry = self._entries.pop(key, None)
+        if entry is not None:
+            self.bytes -= entry[1]
 
     def __contains__(self, key) -> bool:
         return key in self._entries

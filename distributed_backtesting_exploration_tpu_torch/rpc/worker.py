@@ -12,13 +12,16 @@ compute side is an :class:`~.executor.Executor`: one serial thread, or
 with ``DBX_PIPELINE=1`` and a two-phase backend a submit thread and a
 collector thread (``DBX_PIPELINE_DEPTH``).
 
-The backend serves top-k, best-returns and digest-only jobs. A job it
-refuses (a field the port does not serve yet: walk-forward, streaming
-append, scenario batches) gets no completion and stays leased, and the
-dispatcher re-queues it when the lease expires; the other jobs of its
-batch are reported. A batch whose submit or collect raises is logged and
-left leased the same way. On exit the worker drains in order: every batch
-taken is submitted, collected and reported before it returns.
+The backend serves top-k, best-returns, walk-forward, digest-only and
+streaming append jobs; a delta-only append (the appended bars alone,
+``append_delta``) whose base panel the backend's cache holds is left for
+the backend to splice, not fetched in full. A job it refuses (a field the
+port does not serve yet: scenario batches) gets no completion and stays
+leased, and the dispatcher re-queues it when the lease expires; the other
+jobs of its batch are reported. A batch whose submit or collect raises is
+logged and left leased the same way. On exit the worker drains in order:
+every batch taken is submitted, collected and reported before it
+returns.
 
 Run it:
 
@@ -173,9 +176,12 @@ class Worker:
         """Give each digest-only leg whose panel the backend's cache does
         not hold its bytes before the batch reaches the compute side: from
         a sibling job of the batch that carries them, else by one
-        ``FetchPayload`` a digest. An unfetchable digest leaves the leg
-        empty; the backend then fails the batch and the lease re-queues
-        it, by when the dispatcher re-dispatches full bytes."""
+        ``FetchPayload`` a digest. A delta-only append whose base panel the
+        cache holds is skipped: the backend splices base and delta, and
+        fetching the extended panel would undo the O(ΔT) wire. An
+        unfetchable digest leaves the leg empty; the backend then fails the
+        batch and the lease re-queues it, by when the dispatcher
+        re-dispatches full bytes."""
         cache = getattr(self.backend, "panel_cache", None)
         if cache is None:
             return
@@ -190,6 +196,10 @@ class Worker:
                                   (job.panel_digest2, "ohlcv2")):
                 if (not digest or getattr(job, field)
                         or cache.contains_series(digest)):
+                    continue
+                if (field == "ohlcv" and job.append_parent_digest
+                        and job.append_delta
+                        and cache.contains_series(job.append_parent_digest)):
                     continue
                 blob = blobs.get(digest)
                 if blob is None:

@@ -79,7 +79,8 @@ def test_every_config_reports_a_positive_rate(result):
     assert configs["roofline_stages_full"] > 0.0
     assert configs["roofline_stages_boll_full"] > 0.0
     assert configs["walkforward"] > 0.0
-    assert len(FUSED_CONFIGS) + 2 == 16 == len(bench.CONFIGS)
+    assert configs["streaming_append"] > 0.0
+    assert len(FUSED_CONFIGS) + 3 == 17 == len(bench.CONFIGS)
 
 
 @pytest.mark.parametrize("wf_fused", ["0", "1"], ids=["generic", "fused"])
@@ -95,6 +96,31 @@ def test_walkforward_config_runs_either_route(wf_fused):
     out = json.loads(buf.getvalue())
     assert set(out["configs"]) == {"walkforward"}
     assert out["configs"]["walkforward"] > 0.0
+
+
+def test_streaming_append_keys_are_the_references():
+    # The reference's streaming A/B keys (tests/test_z_bench_roofline.py
+    # `test_streaming_append_keys_present`), at its tiny T and ΔT.
+    env = dict(TINY, DBX_BENCH_CONFIGS="streaming_append",
+               DBX_BENCH_STREAM_T="192", DBX_BENCH_STREAM_DT="8",
+               DBX_BENCH_ITERS="2")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        bench.main(env)
+    out = json.loads(buf.getvalue())
+    sa = out["roofline"]["streaming_append"]
+    for key in ("bars_base", "delta_bars", "updates", "combos",
+                "append_s_per_update", "full_reprice_s_per_update",
+                "append_speedup", "wire_bytes_full", "wire_bytes_delta",
+                "wire_reduction"):
+        assert key in sa, key
+    assert (sa["bars_base"], sa["delta_bars"], sa["updates"],
+            sa["combos"]) == (192, 8, 3, 32)
+    assert sa["append_s_per_update"] > 0.0
+    assert sa["full_reprice_s_per_update"] > 0.0
+    assert sa["wire_bytes_delta"] < sa["wire_bytes_full"]
+    assert out["configs"] == {"streaming_append": pytest.approx(
+        1.0 / sa["append_s_per_update"])}
 
 
 def test_sma_stage_keys_are_the_references(result):

@@ -167,7 +167,7 @@ def _assert_serves_around(refused, good, what, caplog):
 
 @pytest.mark.parametrize("field,value,what", [
     ("strategy", "no_such_strategy", "strategy 'no_such_strategy'"),
-    ("append_parent_digest", "abc", "append"),
+    ("panel_digest2", "abc", "second leg"),
     ("scenario_batch", True, "scenario"),
     ("ohlcv2", b"DBX1", "pairs"),
 ])
@@ -181,7 +181,7 @@ def test_backend_refuses_what_it_does_not_serve(field, value, what, caplog):
 
 def test_backend_batch_of_refused_jobs_returns_nothing(caplog):
     specs = _specs(synthetic_jobs(3, 64, "sma_crossover", GRID))
-    for spec, (field, value) in zip(specs, [("append_parent_digest", "abc"),
+    for spec, (field, value) in zip(specs, [("panel_digest2", "abc"),
                                             ("scenario_batch", True),
                                             ("strategy", "nope")]):
         _refuse(spec, field, value)

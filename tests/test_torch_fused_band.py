@@ -161,14 +161,22 @@ def test_fused_band_rejects_non_integer_windows(call):
 
 
 @pytest.mark.parametrize("kw,exc", [
-    ({"carry_out": True}, NotImplementedError),
+    ({"carry_out": True}, None),
     ({"epilogue": "scan:7"}, ValueError),
     ({"table": "vmem"}, ValueError),
 ])
 def test_fused_bollinger_argument_rules(kw, exc):
-    with pytest.raises(exc):
-        fused.fused_bollinger_sweep(np.ones((1, 64), np.float32), [10.0],
-                                    [1.0], device="cpu", **kw)
+    def call():
+        return fused.fused_bollinger_sweep(np.ones((1, 64), np.float32),
+                                           [10.0], [1.0], device="cpu", **kw)
+    if exc is None:
+        # carry_out=True: the metrics beside the streaming checkpoint.
+        m, carry = call()
+        assert carry.strategy == "bollinger" and carry.n_bars == 64
+        assert m.sharpe.shape == carry.metric["s1"].shape == (1, 1)
+    else:
+        with pytest.raises(exc):
+            call()
 
 
 def test_fused_band_rejects_mismatched_grid():

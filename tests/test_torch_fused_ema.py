@@ -274,21 +274,28 @@ def test_fused_ema_rejects_mismatched_grid(call):
 
 
 @pytest.mark.parametrize("kw,exc", [
-    ({"carry_out": True}, NotImplementedError),
+    ({"carry_out": True}, None),
     ({"epilogue": "scan:7"}, ValueError),
 ])
 def test_fused_ema_argument_rules(kw, exc):
     c = np.ones((1, 64), np.float32)
-    for call in (lambda: fused.fused_macd_sweep(c, [5.0], [20.0], [9.0],
-                                                device="cpu", **kw),
-                 lambda: fused.fused_trix_sweep(c, [8.0], [9.0],
-                                                device="cpu", **kw),
-                 lambda: fused.fused_rsi_sweep(c, [14.0], [20.0],
-                                               device="cpu", **kw),
-                 lambda: fused.fused_keltner_sweep(c, c, c, [20.0], [1.0],
-                                                   device="cpu", **kw)):
-        with pytest.raises(exc):
-            call()
+    for strategy, call in (
+            ("macd", lambda: fused.fused_macd_sweep(
+                c, [5.0], [20.0], [9.0], device="cpu", **kw)),
+            ("trix", lambda: fused.fused_trix_sweep(
+                c, [8.0], [9.0], device="cpu", **kw)),
+            ("rsi", lambda: fused.fused_rsi_sweep(
+                c, [14.0], [20.0], device="cpu", **kw)),
+            ("keltner", lambda: fused.fused_keltner_sweep(
+                c, c, c, [20.0], [1.0], device="cpu", **kw))):
+        if exc is None:
+            # carry_out=True: the metrics beside the streaming checkpoint.
+            m, carry = call()
+            assert carry.strategy == strategy and carry.n_bars == 64
+            assert m.sharpe.shape == carry.metric["s1"].shape == (1, 1)
+        else:
+            with pytest.raises(exc):
+                call()
 
 
 def _turnover_of_signal_cross(x, a, warm):

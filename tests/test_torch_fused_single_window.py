@@ -134,14 +134,22 @@ def test_fused_single_window_rejects_empty_windows(call, vals):
 
 
 @pytest.mark.parametrize("kw,exc", [
-    ({"carry_out": True}, NotImplementedError),
+    ({"carry_out": True}, None),
     ({"epilogue": "bogus"}, ValueError),
     ({"table": "vmem"}, ValueError),
 ])
 def test_fused_donchian_argument_rules(kw, exc):
-    with pytest.raises(exc):
-        fused.fused_donchian_sweep(np.ones((1, 64), np.float32), [10.0],
-                                   device="cpu", **kw)
+    def call():
+        return fused.fused_donchian_sweep(np.ones((1, 64), np.float32),
+                                          [10.0], device="cpu", **kw)
+    if exc is None:
+        # carry_out=True: the metrics beside the streaming checkpoint.
+        m, carry = call()
+        assert carry.strategy == "donchian" and carry.n_bars == 64
+        assert m.sharpe.shape == carry.metric["s1"].shape == (1, 1)
+    else:
+        with pytest.raises(exc):
+            call()
 
 
 def test_fused_donchian_rejects_mismatched_fields():

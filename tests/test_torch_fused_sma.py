@@ -122,9 +122,17 @@ def test_fused_rejects_bad_lengths(t_real):
                               t_real=t_real, device="cpu")
 
 
-def test_fused_carry_out_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fused.fused_sma_sweep(np.ones((1, 64), np.float32), [3.0], [10.0],
+def test_fused_carry_out_returns_the_streaming_checkpoint():
+    close = data.synthetic_ohlcv(2, 64, seed=4).close
+    plain = fused.fused_sma_sweep(close, [3.0], [10.0], device="cpu")
+    m, carry = fused.fused_sma_sweep(close, [3.0], [10.0], carry_out=True,
+                                     device="cpu")
+    for got, want in zip(m, plain):
+        assert torch.equal(got, want)
+    assert (carry.strategy, carry.n_bars) == ("sma_crossover", 64)
+    assert carry.metric["s1"].shape == (2, 1)
+    with pytest.raises(ValueError, match="uniform full-history"):
+        fused.fused_sma_sweep(close, [3.0], [10.0], t_real=[64, 60],
                               carry_out=True, device="cpu")
 
 

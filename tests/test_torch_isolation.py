@@ -58,7 +58,8 @@ def test_every_module_imports_with_jax_blocked():
               "models.momentum", "models.donchian", "models.macd",
               "models.trix", "models.rsi", "models.keltner", "models.obv",
               "models.vwap", "models.pairs", "bench", "roofline",
-              "ops.stages"):
+              "ops.stages", "streaming", "streaming.recurrent",
+              "streaming.store"):
         assert f"{dbxt.__name__}.{m}" in mods
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
