@@ -112,10 +112,12 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    z-scores' sums in other orders, and the windowed variance cancels, so
    a z at the band can land a bar apart. There every cell off by more than
    rtol=2e-3, atol=2e-4 counts as flipped, and at most max(1, 1%) may
-   flip. vwap's fused path takes torch's CUDA cumsum over tensors of
-   another row count, which that scan splits in another order: its golden
+   flip. vwap's fused path takes torch's CUDA reductions over tensors of
+   another row count, which split a row in another order: its golden
    path runs again one k at a time, so its tensors have the fused path's
    row count and sum in its order, and positions must then be identical.
+   Both paths take their prefix sums in f64 rounded once a bar
+   (``ops.rolling.prefix_sum``), the same bits whatever the shape.
    pairs' fused path takes each windowed sum as the f64 difference of two
    f64 prefix sums, rounded once (``csrc/pairs_tables.cu``), where the
    generic path takes it in f32 from torch's f32 CUDA scan, which cancels:
@@ -226,13 +228,61 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    and its block is the append's or the full reprice's, the reprices
    counted; 64 macd and 64 rsi jobs rounds 1 and 2 the same way. (d) The
    port bench's ``streaming_append`` (T = 8192, ΔT = 16, P = 32), printed.
-8. One JSON line with each kernel entry's (K8: each case's) launches,
+8. Paged mode and scenario batches (``rpc/page_pool.py``,
+   ``fused.fused_paged_sweep``, ``scenarios/``, ``fused.
+   fused_scenario_sweep``), every check collected and failed together at
+   the phase's end. (a) Each of the 13 single-asset families on its bench
+   grid over ``synthetic_ohlcv(500, 1260, seed=0)`` cut to lengths drawn
+   in 64..1260 (seed 8), from a page pool through ``fused_paged_sweep``
+   (``DBX_PAGE_BARS``, 512: three page-count bins), the launch counts
+   reset just before the 13 sweeps: the family's entry (and macd's and
+   trix's table kernel) launched once a bin; each bin bit-equal to the
+   dense wrapper on the same rows stacked to the bin's longest (the
+   reference's bit-exact twin of a bin). Against the dense ragged stack
+   of the whole group (every row padded to 1260) the cells not bit-equal
+   and off the flip-aware tolerance are printed, not held: the f32
+   cumsums of the preps (K1, K6, K2 inline, keltner's and vwap's
+   z-tables) associate by the tensor's row count and length on the card,
+   and bollinger's centering mean takes the pad bars (ROADMAP Queue 3).
+   Before the sweeps, the prefix sums of the whole group's closes against
+   those of its first 512 and 1024 bars and of each bin's rows, in f32
+   and in f64 rounded once, are printed, and K1 on the whole group's own
+   inputs cut to each bin's rows and bars must be bit-equal to the whole
+   group's run.
+   (b) The port bench's ``ragged_paged``, printed. (c) 500 sma jobs with
+   digests, lengths in 64..1260 (seed 9), through ``process`` with the
+   paged route (one group) and with it off (the power-of-two length
+   buckets), four batches each in turns: the two routes' blocks within
+   the flip-aware budget (at most max(1, 1%) of the cells off its
+   tolerance; the cells not bit-equal printed), groups and K1's launches
+   printed, the batches timed; 16 of the panels extended by 16 bars
+   upload at most ⌈16 / 512⌉ + 1 pages each, their blocks within the
+   same budget of the dense route's; a pool with room for half the
+   group's pages rejects it once, counted, and the group is served dense,
+   bit-equal to the dense route. (d) One spec generated twice gives the same
+   bytes; 500 specs of one 1260-bar base (seed 920; block 16, 3 regimes,
+   vol_scale 2, shock 0.01) generated on the card hold ``high >=
+   max(open, close) >= min(open, close) >= low > 0``; each family's
+   ``fused_scenario_sweep`` of the 500 on its bench grid, the launch
+   counts reset just before the 13 sweeps (the entry launched once a
+   chunk), against the dense wrapper on the same panels brought to the
+   host and back (the materialized rung's data path) in one launch:
+   bit-equal where the two see the same row count, the flip-aware budget
+   otherwise; a carrier job of the 500 specs through ``process``, three
+   times on the fused route and three times with ``DBX_SCENARIO_FUSED=0``
+   (the materialized rung): every spec completed under its id on the
+   route asked for, counted, and the two routes' blocks bit-equal; then
+   the port bench's ``scenario_megakernel`` and ``scenario_sweep``,
+   printed.
+9. One JSON line with each kernel entry's (K8: each case's) launches,
    error, times, bound and library time (the tile entries also their
    width sweep, wrapper time, build report and SASS count; the table
    kernels each a record of their own; K1-K6 also their launches on the
-   walk-forward main paths, ``walkforward_launches``, and every entry but
-   K8's on the streaming phase's carry_out calls,
-   ``streaming_launches``); then the JSON result line, last.
+   walk-forward main paths, ``walkforward_launches``, every entry but
+   K8's on the streaming phase's carry_out calls, ``streaming_launches``,
+   and every entry on phase 8's paged and scenario sweeps,
+   ``paged_launches`` and ``scenario_launches``, each of them but K7's
+   and its tables' launched there); then the JSON result line, last.
 
 This script imports nothing of JAX and nothing of the JAX package.
 """
@@ -243,6 +293,7 @@ import contextlib
 import ctypes
 import functools
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -278,10 +329,10 @@ CHECKS = {"bollinger": "flip", "bollinger_touch": "flip",
           "macd": "shift", "trix": "shift", "obv_trend": "exact",
           "vwap_reversion": "shift", "pairs": "shift"}
 FAMILIES = {s: (AXES[s], roofline.ENTRY[s], c) for s, c in CHECKS.items()}
-# The "shift" families whose golden path takes the z-score's cumsums over
-# (tickers, combos, bars) tensors where the fused path takes them over
-# (tickers, distinct windows, bars): torch's CUDA scan splits a row over a
-# number of threads set by the row count, so the two sum in other orders.
+# The "shift" families whose golden path takes the z-score's reductions
+# over (tickers, combos, bars) tensors where the fused path takes them over
+# (tickers, distinct windows, bars): torch's CUDA reductions split a row by
+# the row count, so the two sum in other orders.
 # Run one value of this axis at a time, the golden path's tensors have the
 # fused path's row count, and positions must then be identical.
 SAME_ORDER_AXIS = {"vwap_reversion": "k"}
@@ -3347,6 +3398,493 @@ def phase_streaming(kernels_mod, compute, wire, pb, data, sweep, models,
     return launches
 
 
+# --- paged mode and scenario batches ---------------------------------------
+
+PAGED_JOBS = 500
+# Families held to the flip-aware rule, not bit-equality, paged against
+# the whole group's dense stack: vwap's z-table centers the deviation over
+# all the bars of the stack, pad bars included (the reference's rule), and
+# keltner's (N, W, T) tables are held alike.
+FLIP_AWARE_PAGED = ("keltner", "vwap_reversion")
+PAGED_APPEND_JOBS = 16
+SCENARIO_K = 500
+SCENARIO_PARAMS = {"n_bars": N_BARS, "block": 16, "regimes": 3,
+                   "vol_scale": 2.0, "shock": 0.01}
+
+
+class _Soft:
+    """Checks of phase 8 collected and failed together at its end, so one
+    run on the card reports every one."""
+
+    def __init__(self):
+        self.failed: list[str] = []
+
+    def check(self, cond: bool, msg: str) -> None:
+        if not cond:
+            print(f"phase 8 check failed: {msg}")
+            self.failed.append(msg)
+
+    def done(self) -> None:
+        _check(not self.failed, f"{len(self.failed)} phase 8 checks failed: "
+               f"{self.failed}")
+
+
+def _mixed_lengths(n: int, bars: int, seed: int) -> np.ndarray:
+    """``n`` history lengths in [64, bars], the first ``bars``."""
+    lens = np.random.default_rng(seed).integers(64, bars + 1, n)
+    lens[0] = bars
+    return lens
+
+
+def _cut_rows(data, panel, lens) -> list:
+    return [data.OHLCV(*(np.asarray(f)[i, :t] for f in panel))
+            for i, t in enumerate(lens)]
+
+
+def _cells_off(got, want) -> tuple[int, int]:
+    """Cells (ticker, combo) of two Metrics not bit-equal, and off the
+    flip-aware budget's tolerance, in any metric."""
+    diff = np.zeros(tuple(got.sharpe.shape), dtype=bool)
+    off = diff.copy()
+    for a, b in zip(got, want):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        diff |= _u32(a) != _u32(b)
+        off |= ~np.isclose(a, b, rtol=SHIFT_RTOL, atol=SHIFT_ATOL,
+                           equal_nan=True)
+    return int(diff.sum()), int(off.sum())
+
+
+def _hold_rows(soft, label, got, want, flip_ok: bool) -> str:
+    """``got`` against ``want``: bit-equal, or where ``flip_ok`` at most
+    max(1, 1%) of the cells off the flip-aware tolerance."""
+    diff, off = _cells_off(got, want)
+    return _hold_counts(soft, label, diff, off,
+                        int(np.prod(tuple(got.sharpe.shape))), flip_ok)
+
+
+def _hold_counts(soft, label, diff: int, off: int, cells: int,
+                 flip_ok: bool) -> str:
+    if flip_ok:
+        soft.check(off <= max(1, cells // 100),
+                   f"{label}: {off} of {cells} cells off the flip-aware "
+                   "tolerance")
+    else:
+        soft.check(diff == 0, f"{label}: {diff} of {cells} cells not "
+                   "bit-equal")
+    return f"{diff} of {cells} cells not bit-equal, {off} off tolerance"
+
+
+def _not_bit_equal(a, b) -> int:
+    return int((a.view(torch.int32) != b.view(torch.int32)).sum())
+
+
+def _stack_shapes(soft, compute, fused, pnl, series, lens, bins, bars, axes,
+                  dev) -> None:
+    """Why rows stacked otherwise round otherwise on the card: the f32
+    cumsum of the whole group's closes against the same cumsum of the
+    first bars only or of the rows of each bin, and the same in f64 rounded
+    once, printed; K1 on the whole group's own inputs cut to each bin's
+    rows and bars held bit-equal to its rows of the whole group's run (the
+    kernel reads nothing past a row's length)."""
+    close = torch.as_tensor(compute._stack_field_ragged(series, bars),
+                            device=dev)
+    full, full64 = torch.cumsum(close, 1), torch.cumsum(close.double(), 1)
+    B = fused.resolve_page_bars()
+    cut_t = {T: (_not_bit_equal(torch.cumsum(close[:, :T].contiguous(), 1),
+                                full[:, :T]),
+                 _not_bit_equal(torch.cumsum(close[:, :T].double()
+                                             .contiguous(), 1).float(),
+                                full64[:, :T].float()), close.shape[0] * T)
+             for T in (B, 2 * B)}
+    cut_n = {}
+    for idx in bins:
+        rows = torch.as_tensor(idx, device=dev)
+        cut_n[idx.size] = (
+            _not_bit_equal(torch.cumsum(close[rows], 1), full[rows]),
+            _not_bit_equal(torch.cumsum(close[rows].double(), 1).float(),
+                           full64[rows].float()), idx.size * bars)
+    print(f"paged (a) prefix sums of the whole group's closes ({bars} bars, "
+          f"{close.shape[0]} rows) against the same of the first T bars "
+          f"(f32, f64 rounded once, of): {cut_t}; of a bin's rows: {cut_n}")
+    g = _flat_grid(axes["sma_crossover"])
+    fast_w, slow_w, warm = fused._grid_setup(g["fast"], g["slow"])
+    r = pnl.simple_returns(close).contiguous()
+    whole = fused.fused_sma(full.contiguous(), r, *fused._to(
+        dev, lens.astype(np.int32), fast_w, slow_w, warm), cost=COST,
+        ppy=252)
+    for idx in bins:
+        rows = torch.as_tensor(idx, device=dev)
+        T = int(lens[idx].max())
+        part = fused.fused_sma(
+            full[rows, :T].contiguous(), r[rows, :T].contiguous(),
+            *fused._to(dev, lens[idx].astype(np.int32), fast_w, slow_w,
+                       warm), cost=COST, ppy=252)
+        soft.check(_not_bit_equal(part, whole[:, rows]) == 0,
+                   f"paged (a): K1 on the group's inputs cut to {idx.size} "
+                   f"rows and {T} bars differs from the whole group's run")
+    print("paged (a) K1 on the whole group's inputs cut to each bin's rows "
+          "and bars: bit-equal to the whole group's run")
+
+
+def _paged_families(soft, kernels_mod, compute, fused, pnl, data, page_pool,
+                    n, bars, axes, dev) -> dict:
+    """(a): each family's paged sweep of one mixed-length group against the
+    dense route. Returns the kernel launches of the paged sweeps."""
+    panel = data.synthetic_ohlcv(n, bars, seed=0)
+    lens = _mixed_lengths(n, bars, seed=8)
+    series = _cut_rows(data, panel, lens)
+    B = fused.resolve_page_bars()
+    pages = -(-lens // B)
+    bins = [np.flatnonzero(pages == p) for p in np.unique(pages)]
+    _stack_shapes(soft, compute, fused, pnl, series, lens, bins, bars, axes,
+                  dev)
+    runs = {}
+    kernels_mod.reset_launch_counts()
+    for strategy in sorted(fused._PAGED_FAMILIES):
+        fields = fused.paged_fields(strategy)
+        g = _flat_grid(axes[strategy])
+        pool = page_pool.PagePool(
+            device=dev, max_bytes=n * len(fields) * int(pages.max()) * B * 4)
+        with pool.lock:
+            pool_arr, tables, _ = pool.prepare(
+                [f"{strategy}-{i}" for i in range(n)], series, fields)
+            before = dict(kernels_mod.LAUNCHES)
+            _sync(dev)
+            t0 = time.perf_counter()
+            m = fused.fused_paged_sweep(strategy, pool_arr, tables, lens, g,
+                                        cost=COST)
+            _sync(dev)
+        grew = {k: v - before.get(k, 0)
+                for k, v in kernels_mod.LAUNCHES.items()}
+        runs[strategy] = (m, g, time.perf_counter() - t0, grew)
+    launches = dict(kernels_mod.LAUNCHES)
+    for strategy, (m, g, paged_s, grew) in runs.items():
+        fam = fused._PAGED_FAMILIES[strategy]
+        fields, call = fam.fields, fam.call
+        label = f"paged (a) {strategy}"
+        entries = [roofline.ENTRY[strategy]] + (
+            [TABLE_KERNELS[strategy]] if strategy in TABLE_KERNELS else [])
+        if dev.type == "cuda":
+            for e in entries:
+                soft.check(grew.get(e, 0) == len(bins),
+                           f"{label}: {e} launched {grew.get(e, 0)} times "
+                           f"for {len(bins)} page-count bins")
+        # The dense route of each bin's rows: the same rows and bars.
+        for idx in bins:
+            t_bin = lens[idx]
+            arrays = [compute._stack_field_ragged([series[i] for i in idx],
+                                                  int(t_bin.max()), f)
+                      for f in fields]
+            want = call(arrays, g, t_real=None if (t_bin == t_bin.max()).all()
+                        else t_bin, cost=COST, device=dev)
+            _hold_rows(soft, f"{label} bin of {idx.size} rows", type(m)(
+                *(f[torch.as_tensor(idx, device=dev)] for f in m)), want,
+                False)
+        # The dense ragged route of the whole group (every row padded to
+        # the longest): bit-equal, the preps' prefix sums and centering
+        # being functions of a row's own bars; keltner and vwap_reversion
+        # under the flip-aware rule (vwap centers its deviation over the
+        # pad bars, as the reference does).
+        arrays = [compute._stack_field_ragged(series, bars, f)
+                  for f in fields]
+        _sync(dev)
+        t0 = time.perf_counter()
+        want = call(arrays, g, t_real=lens.astype(np.int32), cost=COST,
+                    device=dev)
+        _sync(dev)
+        dense_s = time.perf_counter() - t0
+        how = _hold_rows(soft, f"{label} vs the whole group's dense stack",
+                         m, want, strategy in FLIP_AWARE_PAGED)
+        print(f"{label}: {n} rows of 64..{bars} bars x {g[next(iter(g))].size}"
+              f" combos, {len(bins)} bins ({[int(i.size) for i in bins]} "
+              f"rows), launches {dict((e, grew.get(e, 0)) for e in entries)};"
+              f" each bin bit-equal to its dense stack; vs the whole group's "
+              f"dense stack {how}; paged {paged_s:.4f} s, dense "
+              f"{dense_s:.4f} s (first calls)")
+    return launches
+
+
+def _hold_blocks(soft, wire, label, got: dict, want: dict,
+                 flip_ok: bool = True) -> str:
+    """Two routes' DBXM blocks by job id: bit-equal, or where ``flip_ok``
+    under the flip-aware budget."""
+    soft.check(set(got) == set(want) and all(got.values()),
+               f"{label}: other jobs completed, or empty blocks")
+    diff = off = cells = 0
+    for job_id, blob in want.items():
+        if job_id not in got:
+            continue
+        a = wire.metrics_from_bytes(got[job_id])
+        b = wire.metrics_from_bytes(blob)
+        d, o = _cells_off(type(a)(*(torch.as_tensor(f) for f in a)),
+                          type(b)(*(torch.as_tensor(f) for f in b)))
+        diff, off, cells = diff + d, off + o, cells + b.sharpe.size
+    return _hold_counts(soft, label, diff, off, cells, flip_ok)
+
+
+def _paged_jobs(pb, data, panel_store, panel, lens, tag, axes):
+    grid = {k: pb.GridAxis(values=[float(v) for v in vals])
+            for k, vals in axes.items()}
+    jobs = []
+    for i, t in enumerate(lens):
+        raw = data.to_wire_bytes(data.OHLCV(*(f[i, :t] for f in panel)))
+        jobs.append(pb.JobSpec(
+            id=f"{tag}-{i:04d}", strategy="sma_crossover", grid=grid,
+            cost=COST, periods_per_year=252, ohlcv=raw,
+            panel_digest=panel_store.panel_digest(raw),
+            panel_bytes_len=len(raw)))
+    return jobs
+
+
+def _paged_backend(soft, kernels_mod, compute, pb, data, panel_store, wire,
+                   n_jobs, bars, dev, card) -> None:
+    """(c): sma jobs with digests through ``process`` on the paged route
+    (``use_paged``, ``DBX_PAGED=1``'s) and on the dense stacks (the
+    default), of mixed lengths and of one length; an append-extended
+    digest, and a pool too small for the group."""
+    axes = {"fast": FAST_AXIS, "slow": SLOW_AXIS}
+    panel = data.synthetic_ohlcv(n_jobs, bars + STREAM_DT, seed=81)
+    lens = _mixed_lengths(n_jobs, bars, seed=9)
+    jobs = _paged_jobs(pb, data, panel_store, panel, lens, "pg", axes)
+    # The uniform batch's panels share no page with the mixed batch's, so
+    # the extension check below sees only its own pages.
+    uniform = _paged_jobs(pb, data, panel_store,
+                          data.synthetic_ohlcv(n_jobs, bars, seed=82),
+                          np.full(n_jobs, bars), "pu", axes)
+
+    def backend(paged: bool):
+        b = compute.TorchSweepBackend(device=dev)
+        b.use_paged = paged
+        return b
+
+    paged, dense = backend(True), backend(False)
+    for batch, what in ((jobs, f"of 64..{bars} bars"),
+                        (uniform, f"of {bars} bars")):
+        blocks, times = {}, {"paged": [], "dense": []}
+        for rep in range(4):
+            for label, b in (("paged", paged), ("dense", dense)):
+                _sync(dev)
+                kernels_mod.reset_launch_counts()
+                t0 = time.perf_counter()
+                pend = b.submit(batch)
+                done = b.collect(pend)
+                times[label].append(time.perf_counter() - t0)
+                k1 = kernels_mod.LAUNCHES["fused_sma"]
+                if rep == 0:
+                    blocks[label] = {c.job_id: c.metrics for c in done}
+                    print(f"paged (c) {label}: {len(batch)} sma jobs {what}"
+                          f" in {len(pend)} groups, K1 launched {k1} times,"
+                          f" first batch {times[label][0]:.4f} s")
+        how = _hold_blocks(soft, wire, f"paged (c) {what}: paged route vs "
+                           "dense route", blocks["paged"], blocks["dense"],
+                           flip_ok=False)
+        print(f"paged (c) {what}: blocks, paged against dense: {how}; "
+              "batches after the first: " + _secs("paged", times["paged"][1:])
+              + "; " + _secs("dense", times["dense"][1:]) + f" ({card})")
+        if batch is jobs:
+            mixed = blocks["dense"]
+    st = paged.stats()
+    print(f"paged (c) pool {st['panel_cache']['page_pool']}; pad bars paged "
+          f"{st['pad_bars']['paged']}, dense {dense.stats()['pad_bars']}")
+    # An append-extended digest: each of the first jobs' panels extended
+    # by STREAM_DT bars uploads at most ceil(dt / B) + 1 pages a panel.
+    B = paged.panel_cache.pages.page_bars
+    ext_lens = lens[:PAGED_APPEND_JOBS] + STREAM_DT
+    ext = _paged_jobs(pb, data, panel_store, panel, ext_lens, "pgx", axes)
+    misses = paged.panel_cache.pages.stats()["misses"]["close"]
+    got = {c.job_id: c.metrics for c in paged.process(ext)}
+    new = paged.panel_cache.pages.stats()["misses"]["close"] - misses
+    bound = len(ext) * (-(-STREAM_DT // B) + 1)
+    soft.check(new <= bound, f"paged (c): {len(ext)} extended "
+               f"panels uploaded {new} pages, more than {bound}")
+    how = _hold_blocks(soft, wire, "paged (c) extended panels",
+                       got, {c.job_id: c.metrics for c in dense.process(ext)},
+                       flip_ok=False)
+    print(f"paged (c) append-extended: {len(ext)} panels + {STREAM_DT} bars "
+          f"uploaded {new} pages (bound {bound}); against the dense route "
+          f"{how}")
+    # A pool with room for half the group's pages falls back dense.
+    half = int((-(-lens // B)).sum()) // 2
+    prior = os.environ.get("DBX_PAGE_POOL_MB")
+    os.environ["DBX_PAGE_POOL_MB"] = str(half * B * 4 / 2**20)
+    try:
+        small = backend(True)
+        cap = small.panel_cache.pages.capacity
+    finally:
+        if prior is None:
+            os.environ.pop("DBX_PAGE_POOL_MB")
+        else:
+            os.environ["DBX_PAGE_POOL_MB"] = prior
+    got = {c.job_id: c.metrics for c in small.process(jobs)}
+    st = small.stats()
+    soft.check(st["paged_fallbacks"]["rejected"] == 1
+               and st["panel_cache"]["page_pool"]["rejects"] == 1,
+               f"paged (c): a pool of {cap} pages did not reject the group "
+               f"once: {st['paged_fallbacks']}")
+    soft.check(got == mixed, "paged (c): the rejected group's blocks "
+               "differ from the dense route's")
+    print(f"paged (c) a pool of {cap} pages: group rejected and served "
+          f"dense, counted {st['paged_fallbacks']}, blocks bit-equal")
+
+
+def _scenario_phase(soft, kernels_mod, compute, fused, pb, data, panel_store,
+                    synth, axes, k, bars, dev, card) -> dict:
+    """(d): the generator and the scenario route. Returns the kernel
+    launches of the fused scenario sweeps."""
+    one = data.synthetic_ohlcv(1, bars, seed=920)
+    base = data.OHLCV(*(f[0] for f in one))
+    blob = data.to_wire_bytes(base)
+    digest = panel_store.panel_digest(blob)
+    p0 = synth.ScenarioParams(**{**SCENARIO_PARAMS, "n_bars": bars})
+    soft.check(synth.scenario_panel_bytes(blob, p0, device=dev)
+               == synth.scenario_panel_bytes(blob, p0, device=dev),
+               "scenarios (d): one spec generated twice gave other bytes")
+    specs = [synth.ScenarioParams(**{**SCENARIO_PARAMS, "n_bars": bars},
+                                  seed=i) for i in range(k)]
+    words = [synth.seed_words(synth.scenario_seed(digest, p)) for p in specs]
+    gen = ([w[0] for w in words], [w[1] for w in words],
+           [p.vol_scale for p in specs], [p.shock for p in specs])
+    shape = dict(n_bars=bars, block=SCENARIO_PARAMS["block"],
+                 regimes=SCENARIO_PARAMS["regimes"])
+    _sync(dev)
+    t0 = time.perf_counter()
+    chunks = list(synth.generate_rows(base._asdict(), *gen, **shape,
+                                      device=dev))
+    _sync(dev)
+    gen_s = time.perf_counter() - t0
+    rows = {f: torch.cat([c[f] for _, c in chunks]) for f in synth.FIELDS}
+    o, h, lo, c = (rows[f] for f in ("open", "high", "low", "close"))
+    ok = bool(((h >= torch.maximum(o, c)) & (torch.minimum(o, c) >= lo)
+               & (lo > 0) & torch.isfinite(h)).all())
+    soft.check(ok, "scenarios (d): a generated bar breaks high >= max(open,"
+               " close) >= min(open, close) >= low > 0")
+    print(f"scenarios (d) generator: {k} panels x {bars} bars in "
+          f"{len(chunks)} chunk(s) of <= "
+          f"{synth.chunk_rows(bars, SCENARIO_PARAMS['block'])} rows, "
+          f"{gen_s:.4f} s (first call); invariants hold: {ok}; one spec "
+          "twice: the same bytes")
+    host = {f: t.cpu().numpy() for f, t in rows.items()}
+    runs = {}
+    kernels_mod.reset_launch_counts()
+    for strategy in sorted(fused._PAGED_FAMILIES):
+        g = _flat_grid(axes[strategy])
+        before = dict(kernels_mod.LAUNCHES)
+        _sync(dev)
+        t0 = time.perf_counter()
+        m = fused.fused_scenario_sweep(strategy, base._asdict(), *gen, g,
+                                       **shape, cost=COST, device=dev)
+        _sync(dev)
+        grew = {n: v - before.get(n, 0)
+                for n, v in kernels_mod.LAUNCHES.items()}
+        runs[strategy] = (m, g, time.perf_counter() - t0, grew)
+    launches = dict(kernels_mod.LAUNCHES)
+    for strategy, (m, g, fused_s, grew) in runs.items():
+        fam = fused._PAGED_FAMILIES[strategy]
+        fields, call = fam.fields, fam.call
+        label = f"scenarios (d) {strategy}"
+        entry = roofline.ENTRY[strategy]
+        if dev.type == "cuda":
+            soft.check(grew.get(entry, 0) == len(chunks),
+                       f"{label}: {entry} launched {grew.get(entry, 0)} "
+                       f"times for {len(chunks)} chunk(s)")
+        # The dense wrapper on the materialized panels (on the host and
+        # back, as the materialized rung's inline jobs), one launch of all
+        # K rows: the fused route's row count where K is one chunk.
+        want = call([host[f] for f in fields], g, cost=COST, device=dev)
+        how = _hold_rows(soft, f"{label} vs the dense wrapper on the "
+                         "materialized panels", m, want, len(chunks) > 1)
+        print(f"{label}: {k} scenarios x {g[next(iter(g))].size} combos, "
+              f"{entry} launched {grew.get(entry, 0)}; vs the materialized "
+              f"panels {how}; {fused_s:.4f} s")
+    # A carrier of K specs through process, on the fused route and on the
+    # materialized rung.
+    grid = {n: pb.GridAxis(values=[float(v) for v in vals])
+            for n, vals in axes["sma_crossover"].items()}
+    job = pb.JobSpec(id="scn-0000", strategy="sma_crossover", ohlcv=blob,
+                     grid=grid, cost=COST, periods_per_year=252,
+                     panel_digest=digest, panel_bytes_len=len(blob))
+    for i, p in enumerate(specs):
+        job.scenario_batch.add(
+            base_digest=digest, n_bars=p.n_bars, block=p.block,
+            regimes=p.regimes, vol_scale=p.vol_scale, shock=p.shock,
+            seed=synth.seed_to_int64(synth.scenario_seed(digest, p)),
+            id=f"scn-{i:04d}", trace_id=f"t{i}")
+    out = {}
+    for route in ("fused", "materialized"):
+        prior = os.environ.get("DBX_SCENARIO_FUSED")
+        os.environ["DBX_SCENARIO_FUSED"] = "1" if route == "fused" else "0"
+        try:
+            backend = compute.TorchSweepBackend(device=dev)
+            secs = []
+            for _ in range(3):
+                done, s = _timed(backend, [job])
+                secs.append(s)
+        finally:
+            if prior is None:
+                os.environ.pop("DBX_SCENARIO_FUSED")
+            else:
+                os.environ["DBX_SCENARIO_FUSED"] = prior
+        n_route = backend.stats()["scenarios"]
+        soft.check(n_route == {"fused": 0, "materialized": 0,
+                               route: 3 * k},
+                   f"scenarios (d) carrier, {route}: routes counted "
+                   f"{n_route}")
+        soft.check([c.job_id for c in done] == [f"scn-{i:04d}"
+                                                for i in range(k)]
+                   and all(c.metrics for c in done),
+                   f"scenarios (d) carrier, {route}: not every spec "
+                   "completed under its id")
+        out[route] = [c.metrics for c in done]
+        print(f"scenarios (d) carrier of {k} specs, {route}: {k} of {k} "
+              f"served on the {route} route ({n_route}); "
+              + _secs("process", secs) + f" ({card})")
+    soft.check(out["fused"] == out["materialized"],
+               "scenarios (d) carrier: the fused route's blocks differ from "
+               "the materialized rung's")
+    return launches
+
+
+def phase_paged_scenarios(kernels_mod, compute, fused, pnl, pb, data, bench,
+                          panel_store, wire, card: str, *, axes=AXES,
+                          n: int = N_TICKERS, n_jobs: int = PAGED_JOBS,
+                          k: int = SCENARIO_K, bars: int = N_BARS,
+                          dev=torch.device("cuda")) -> tuple[dict, dict]:
+    """Paged mode and scenario batches: (a) every family's paged sweep, (b)
+    the bench's ``ragged_paged``, (c) the paged route of the backend, (d)
+    the generator and the scenario route, and the bench's
+    ``scenario_megakernel`` and ``scenario_sweep``. Returns the kernel
+    launches of (a)'s paged sweeps and of (d)'s scenario sweeps."""
+    from distributed_backtesting_exploration_tpu_torch.rpc import page_pool
+    from distributed_backtesting_exploration_tpu_torch.scenarios import synth
+
+    soft = _Soft()
+    t0 = time.perf_counter()
+    paged = _paged_families(soft, kernels_mod, compute, fused, pnl, data,
+                            page_pool, n, bars, axes, dev)
+    t_a = time.perf_counter()
+    if dev.type == "cuda":
+        out = bench.run(bench.Settings(configs=frozenset({"ragged_paged"})))
+        print(f"paged (b) port bench ragged_paged: "
+              f"{json.dumps(out['roofline']['ragged_paged'])} ({card})")
+    t_b = time.perf_counter()
+    _paged_backend(soft, kernels_mod, compute, pb, data, panel_store, wire,
+                   n_jobs, bars, dev, card)
+    t_c = time.perf_counter()
+    scen = _scenario_phase(soft, kernels_mod, compute, fused, pb, data,
+                           panel_store, synth, axes, k, bars, dev, card)
+    if dev.type == "cuda":
+        out = bench.run(bench.Settings(configs=frozenset(
+            {"scenario_megakernel", "scenario_sweep"})))
+        for name in ("scenario_megakernel", "scenario_sweep"):
+            print(f"scenarios (d) port bench {name}: "
+                  f"{json.dumps(out['roofline'][name])} ({card})")
+    print(f"paged and scenario phase wall (s): (a) {t_a - t0:.1f}, (b) "
+          f"{t_b - t_a:.1f}, (c) {t_c - t_b:.1f}, (d) "
+          f"{time.perf_counter() - t_c:.1f}")
+    soft.done()
+    return paged, scen
+
+
 def main() -> None:
     card = phase_card()
     from distributed_backtesting_exploration_tpu_torch import bench, models
@@ -3385,6 +3923,16 @@ def main() -> None:
         rec["streaming_launches"] = stream.get(rec["name"], 0)
         _check(rec["streaming_launches"] > 0, f"{rec['name']} launched no "
                "time on the streaming phase's carry_out calls")
+    paged, scen = phase_paged_scenarios(_kernels, compute, fused, pnl, pb,
+                                        data, bench, panel_store, wire, card)
+    for rec in (k1, *new.values(), *k8):
+        rec["paged_launches"] = paged.get(rec["name"], 0)
+        rec["scenario_launches"] = scen.get(rec["name"], 0)
+    for rec in (k1, *new.values()):
+        if rec["name"] not in ("pairs", "pairs_tables"):
+            _check(rec["paged_launches"] > 0 and rec["scenario_launches"] > 0,
+                   f"{rec['name']} launched no time on the paged or the "
+                   "scenario sweeps")
     print(json.dumps({"kernels": [k1, *new.values(), *k8]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,8 +21,27 @@ priced by advancing the carry checkpoint
 (``streaming.recurrent.append_step``) against a full scan-form reprice of
 the whole T + ΔT bars; its rate is updates/s of the append, and its
 ``roofline`` entry the seconds an update of each, their ratio and the wire
-bytes of a delta against the whole panel. It prints one JSON line to stdout
-with the reference's top-level keys:
+bytes of a delta against the whole panel. Then the reference's paged and
+scenario configs: ``ragged_paged``, ``DBX_BENCH_RAGGED_TICKERS`` tickers
+(1024) of lengths log-spaced from max(bars / 8, 64) to the bars, on the
+32-combo SMA grid, through the page pool (``fused.fused_paged_sweep``, one
+launch a page-count bin) against one uniform sweep of the same total bars,
+with the dense route's power-of-two buckets beside the paged bins, the pad
+bars each computes (bars past a ticker's length up to its bucket's or
+bin's longest) and the pool's bytes a ticker; ``scenario_sweep``, the
+generator alone: ``DBX_BENCH_SCENARIO_N`` (32) panels of
+``DBX_BENCH_SCENARIO_BARS`` (2048) bars of one base (seed 900; block 16, 3
+regimes, vol_scale 2, shock 0.01) as DBX1 bytes one spec at a time, and in
+one batch, panels/s and bars/s, determinism, and a panel's bytes against a
+spec's; ``scenario_megakernel``, ``DBX_BENCH_MEGAKERNEL_K`` (48) specs of
+``DBX_BENCH_MEGAKERNEL_BARS`` (512) bars (seed 910) on the 16-combo SMA grid
+fast 3..6 x slow 12..36 step 8 as one carrier job through
+``TorchSweepBackend.process`` on the fused route and with
+``DBX_SCENARIO_FUSED=0`` (the materialized rung), scenarios/s of each (the
+median of ``max(DBX_BENCH_ITERS // 2, 3)`` legs at K a route, the routes
+alternating, with the speedup of each pair of legs) and the peak device
+bytes of each at K/4, K/2 and K. It prints one JSON line to
+stdout with the reference's top-level keys:
 
     {"metric": ..., "value": N, "unit": "backtests/sec", "vs_baseline": N,
      "configs": {name: rate, ...}, "roofline": {...}, "device": {...}}
@@ -50,7 +69,8 @@ Environment: ``DBX_BENCH_TICKERS`` (500), ``DBX_BENCH_BARS`` (1260),
 ``DBX_BENCH_PARAMS`` (2000), ``DBX_BENCH_ITERS`` (10),
 ``DBX_BENCH_WARMUP`` (12), ``DBX_BENCH_CONFIGS`` (a comma list, default
 all), ``DBX_BENCH_WF_FUSED=1``, ``DBX_BENCH_STREAM_T`` (8192),
-``DBX_BENCH_STREAM_DT`` (16) and ``DBX_BENCH_CPU=1``, the explicit
+``DBX_BENCH_STREAM_DT`` (16), the paged and scenario sizes above,
+``DBX_PAGE_BARS`` (512) and ``DBX_BENCH_CPU=1``, the explicit
 request to run the plain versions on the CPU (a structure check; its
 times are the CPU's). Without it the bench runs on CUDA and raises where
 there is no card.
@@ -58,8 +78,10 @@ there is no card.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -73,6 +95,10 @@ from . import roofline
 from .models import get_strategy
 from .ops import fused, stages
 from .parallel import sweep, walkforward
+from .rpc import backtesting_pb2 as pb
+from .rpc import compute, panel_store, wire
+from .rpc.page_pool import PagePool
+from .scenarios import synth
 from .streaming import recurrent as stream_rc
 from .utils import data
 
@@ -118,7 +144,8 @@ FUSED = {
 # The reference bench's order: roofline_stages second, walkforward after
 # the fused sweeps.
 CONFIGS = ("sma_fused", "roofline_stages", *list(FUSED)[1:], "walkforward",
-           "streaming_append")
+           "streaming_append", "ragged_paged", "scenario_sweep",
+           "scenario_megakernel")
 _WINDOW_AXES = {"fast", "slow", "window", "lookback", "period", "span"}
 
 # (stage, lanes) cases of the SMA scaffold (the reference's bench.py
@@ -141,6 +168,11 @@ class Settings(NamedTuple):
     wf_fused: bool = False
     stream_bars: int = 8192
     stream_delta: int = 16
+    ragged_tickers: int = 1024
+    scenario_bars: int = 2048
+    scenario_n: int = 32
+    megakernel_bars: int = 512
+    megakernel_k: int = 48
 
 
 def settings_from_env(env) -> Settings:
@@ -155,7 +187,12 @@ def settings_from_env(env) -> Settings:
         cpu=env.get("DBX_BENCH_CPU") == "1",
         wf_fused=env.get("DBX_BENCH_WF_FUSED") == "1",
         stream_bars=int(env.get("DBX_BENCH_STREAM_T", 8192)),
-        stream_delta=int(env.get("DBX_BENCH_STREAM_DT", 16)))
+        stream_delta=int(env.get("DBX_BENCH_STREAM_DT", 16)),
+        ragged_tickers=int(env.get("DBX_BENCH_RAGGED_TICKERS", 1024)),
+        scenario_bars=int(env.get("DBX_BENCH_SCENARIO_BARS", 2048)),
+        scenario_n=int(env.get("DBX_BENCH_SCENARIO_N", 32)),
+        megakernel_bars=int(env.get("DBX_BENCH_MEGAKERNEL_BARS", 512)),
+        megakernel_k=max(int(env.get("DBX_BENCH_MEGAKERNEL_K", 48)), 4))
 
 
 def device_info(dev: torch.device) -> dict:
@@ -448,6 +485,206 @@ class _Bench:
               f"{wire_full}B -> {wire_delta}B)", file=sys.stderr)
 
 
+    def ragged_paged(self) -> None:
+        """The reference's ``ragged_paged``: a log-spaced mixed-length
+        fleet swept from the page pool against one uniform dense sweep of
+        the same total bars."""
+        n, t_max = self.s.ragged_tickers, self.s.n_bars
+        B = fused.resolve_page_bars()
+        lens = np.unique(np.round(np.geomspace(
+            max(t_max / 8, 64), t_max, n)).astype(np.int64))
+        lens = np.sort(np.resize(lens, n))
+        total = int(lens.sum())
+        t_uni = max(total // n, 64)
+        grid = {k: v.numpy() for k, v in sweep.product_grid(
+            fast=np.arange(5.0, 13.0, dtype=np.float32),
+            slow=np.arange(30.0, 46.0, 4.0, dtype=np.float32)).items()}
+        P = int(grid["fast"].size)
+        panel = data.synthetic_ohlcv(n, t_max, seed=11)
+        series = [data.OHLCV(*(np.asarray(f)[i, :t] for f in panel))
+                  for i, t in enumerate(lens)]
+        pool = PagePool(device=self.dev,
+                        max_bytes=2 * n * -(-t_max // B) * B * 4)
+        prep = pool.prepare([f"rp{i}" for i in range(n)], series, ("close",))
+        if prep is None:
+            raise SystemExit("bench[ragged_paged]: the page pool rejected "
+                             "the fleet")
+        pool_arr, tables, _ = prep
+        t_real = lens.astype(np.int32)
+        close = torch.as_tensor(panel.close[:, :t_uni], device=self.dev)
+
+        def paged():
+            return fused.fused_paged_sweep("sma_crossover", pool_arr, tables,
+                                           t_real, grid, cost=COST).sharpe
+
+        def uniform():
+            return fused.fused_sma_sweep(close, grid["fast"], grid["slow"],
+                                         cost=COST, device=self.dev).sharpe
+
+        kw = dict(iters=max(min(self.s.iters, 5), 2),
+                  warmup=max(min(self.s.warmup, 2), 1), dev=self.dev)
+        t_paged = n * P / _measure(paged, n * P, name="ragged_paged", **kw)
+        t_uni_s = n * P / _measure(uniform, n * P,
+                                   name="ragged_paged_uniform", **kw)
+        # The dense route's counterfactual: power-of-two buckets of the
+        # DBX1 wire length (8 + 20 T bytes), each padded to its longest.
+        buckets: dict[int, list[int]] = {}
+        for t in lens.tolist():
+            buckets.setdefault((8 + 20 * t).bit_length(), []).append(t)
+        pad_dense = sum(max(ts) * len(ts) - sum(ts)
+                        for ts in buckets.values())
+        pages = -(-lens // B)
+        bins = np.unique(pages)
+        pad_paged = int(sum(lens[pages == p].max() * (pages == p).sum()
+                            - lens[pages == p].sum() for p in bins))
+        st = pool.stats()
+        ratio = t_paged / t_uni_s
+        self.roofline["ragged_paged"] = {
+            "tickers": n, "t_max": int(lens.max()), "t_min": int(lens.min()),
+            "total_bars": total, "uniform_bars": t_uni, "combos": P,
+            "page_bars": B, "paged_s_per_sweep": t_paged,
+            "uniform_s_per_sweep": t_uni_s,
+            "paged_vs_uniform_ratio": ratio, "ratio_ok": ratio <= 1.3,
+            "launches_dense": len(buckets), "launches_paged": int(bins.size),
+            "pad_bars_dense": int(pad_dense), "pad_bars_paged": pad_paged,
+            "pool_bytes": st["bytes"],
+            "pool_bytes_per_ticker": st["bytes"] / n}
+        self.rates["ragged_paged"] = n * P / t_paged
+        print(f"bench[ragged_paged]: {n} tickers x {P} combos, lengths "
+              f"{int(lens.min())}..{int(lens.max())} (B={B}): paged/uniform "
+              f"{ratio:.3f}x, launches {len(buckets)} dense -> {bins.size} "
+              f"paged, pad bars {pad_dense} -> {pad_paged}", file=sys.stderr)
+
+    def scenario_sweep(self) -> None:
+        """The generator half of the reference's ``scenario_sweep``: panels
+        generated as DBX1 bytes one spec at a time (and in one batch),
+        their determinism, and a panel's bytes against a spec's."""
+        T, n = self.s.scenario_bars, self.s.scenario_n
+        base = data.synthetic_ohlcv(1, T, seed=900)
+        blob = data.to_wire_bytes(data.OHLCV(*(f[0] for f in base)))
+        p0 = synth.ScenarioParams(block=16, regimes=3, vol_scale=2.0,
+                                  shock=0.01)
+        kw = dict(device=self.dev)
+        synth.scenario_panel_bytes(blob, p0, **kw)     # warm
+        t0 = time.perf_counter()
+        blobs = [synth.scenario_panel_bytes(
+            blob, dataclasses.replace(p0, seed=i), **kw) for i in range(n)]
+        gen_s = time.perf_counter() - t0
+        deterministic = synth.scenario_panel_bytes(
+            blob, dataclasses.replace(p0, seed=0), **kw) == blobs[0]
+        digest = panel_store.panel_digest(blob)
+        words = [synth.seed_words(synth.scenario_seed(
+            digest, dataclasses.replace(p0, seed=i))) for i in range(n)]
+        t0 = time.perf_counter()
+        for _, rows in synth.generate_rows(
+                data.from_wire_bytes(blob)._asdict(),
+                [w[0] for w in words], [w[1] for w in words], [2.0] * n,
+                [0.01] * n, n_bars=T, block=16, regimes=3, **kw):
+            rows["close"].sum().item()
+        batch_s = time.perf_counter() - t0
+        spec_bytes = 32 + pb.ScenarioSpec(
+            base_digest=digest, n_bars=T, block=16, regimes=3,
+            vol_scale=2.0, shock=0.01, seed=n).ByteSize()
+        self.roofline["scenario_sweep"] = {
+            "panels": n, "bars": T, "gen_s_per_panel": gen_s / n,
+            "panels_per_s": n / gen_s, "bar_rate": n * T / gen_s,
+            "batched_panels_per_s": n / batch_s,
+            "digest_deterministic": bool(deterministic),
+            "panel_bytes": len(blobs[0]), "spec_bytes": spec_bytes,
+            "spec_wire_reduction": len(blobs[0]) / spec_bytes}
+        self.rates["scenario_sweep"] = n / gen_s
+        print(f"bench[scenario_sweep]: {n} panels x {T} bars at "
+              f"{n / gen_s:.1f} panels/s one at a time, {n / batch_s:.1f} "
+              f"batched (deterministic={deterministic}), spec {spec_bytes}B "
+              f"vs panel {len(blobs[0])}B", file=sys.stderr)
+
+    def scenario_megakernel(self) -> None:
+        """The reference's ``scenario_megakernel`` without its dispatcher:
+        one carrier job of K scenario specs through
+        ``TorchSweepBackend.process`` on the fused route and on the
+        materialized rung (``DBX_SCENARIO_FUSED=0``), after a warm-up at
+        the full K: the median of several legs at K a route, and a leg at
+        each of K/4, K/2 and K for the peak device bytes."""
+        T, K = self.s.megakernel_bars, self.s.megakernel_k
+        axes = {"fast": np.arange(3.0, 7.0, dtype=np.float32),
+                "slow": np.arange(12.0, 44.0, 8.0, dtype=np.float32)}
+        P = axes["fast"].size * axes["slow"].size
+        base = data.synthetic_ohlcv(1, T, seed=910)
+        blob = data.to_wire_bytes(data.OHLCV(*(f[0] for f in base)))
+        digest = panel_store.panel_digest(blob)
+
+        def carrier(k: int) -> pb.JobSpec:
+            job = pb.JobSpec(id="scn-0", strategy="sma_crossover",
+                             ohlcv=blob, grid=wire.grid_to_proto(axes),
+                             periods_per_year=252, panel_digest=digest,
+                             panel_bytes_len=len(blob))
+            for i in range(k):
+                p = synth.ScenarioParams(n_bars=T, block=16, regimes=3,
+                                         vol_scale=2.0, shock=0.01, seed=i)
+                job.scenario_batch.add(
+                    base_digest=digest, n_bars=T, block=16, regimes=3,
+                    vol_scale=2.0, shock=0.01, id=f"scn-{i}",
+                    seed=synth.seed_to_int64(synth.scenario_seed(digest, p)))
+            return job
+
+        def leg(k: int, on: bool) -> tuple[float, int | None]:
+            prior = os.environ.get("DBX_SCENARIO_FUSED")
+            os.environ["DBX_SCENARIO_FUSED"] = "1" if on else "0"
+            try:
+                backend = compute.TorchSweepBackend(device=self.dev)
+                job = carrier(k)
+                _sync(self.dev)
+                if self.dev.type == "cuda":
+                    torch.cuda.reset_peak_memory_stats(self.dev)
+                    base_bytes = torch.cuda.memory_allocated(self.dev)
+                t0 = time.perf_counter()
+                out = backend.process([job])
+                elapsed = time.perf_counter() - t0
+                route = "fused" if on else "materialized"
+                if (len(out) != k or not all(c.metrics for c in out)
+                        or backend.scenarios[route] != k):
+                    raise RuntimeError(f"scenario_megakernel: the {route} "
+                                       f"route did not serve {k} specs")
+                peak = (torch.cuda.max_memory_allocated(self.dev)
+                        - base_bytes if self.dev.type == "cuda" else None)
+                return elapsed, peak
+            finally:
+                if prior is None:
+                    os.environ.pop("DBX_SCENARIO_FUSED", None)
+                else:
+                    os.environ["DBX_SCENARIO_FUSED"] = prior
+
+        leg(K, True)
+        leg(K, False)
+        # The rates: medians of legs at K, the two routes alternating; the
+        # spread: the speedup of each pair of legs.
+        secs = {True: [], False: []}
+        for _ in range(max(self.s.iters // 2, 3)):
+            for on in (True, False):
+                secs[on].append(leg(K, on)[0])
+        pairs = sorted(m / f for f, m in zip(secs[True], secs[False]))
+        ks = sorted({max(K // 4, 2), max(K // 2, 2), K})
+        curves = {}
+        for on in (True, False):
+            curves[on] = [dict(zip(("k", "elapsed_s", "peak_device_bytes"),
+                                   (k, *leg(k, on)))) for k in ks]
+        fused_rate = K / statistics.median(secs[True])
+        mat_rate = K / statistics.median(secs[False])
+        self.roofline["scenario_megakernel"] = {
+            "scenarios": K, "bars": T, "combos": int(P),
+            "fused_scn_per_s": fused_rate,
+            "materialized_scn_per_s": mat_rate,
+            "speedup": fused_rate / mat_rate,
+            "speedup_min": pairs[0], "speedup_max": pairs[-1],
+            "fused_s": secs[True], "materialized_s": secs[False],
+            "by_k_fused": curves[True], "by_k_materialized": curves[False]}
+        self.rates["scenario_megakernel"] = fused_rate
+        print(f"bench[scenario_megakernel]: {K} scenarios x {P} combos @ "
+              f"{T} bars -> fused {fused_rate:.1f} scn/s vs materialized "
+              f"{mat_rate:.1f} scn/s ({fused_rate / mat_rate:.2f}x, pairs "
+              f"{pairs[0]:.2f}-{pairs[-1]:.2f}x)", file=sys.stderr)
+
+
 def run(s: Settings) -> dict:
     """Run the configs of ``s`` and return the result line's object."""
     dev = (torch.device("cpu") if s.cpu
@@ -462,8 +699,9 @@ def run(s: Settings) -> dict:
             b.roofline_stages()
         elif name == "walkforward":
             b.walkforward()
-        elif name == "streaming_append":
-            b.streaming_append()
+        elif name in ("streaming_append", "ragged_paged", "scenario_sweep",
+                      "scenario_megakernel"):
+            getattr(b, name)()
         else:
             b.fused_config(name)
     if not b.rates:

@@ -39,3 +39,13 @@ def resolve(device: str | torch.device = DEFAULT_DEVICE) -> torch.device:
     if dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}; use 'cuda' or 'cpu'")
     return dev
+
+
+def upload(a, dev: torch.device) -> torch.Tensor:
+    """The numpy array ``a`` as a tensor on ``dev``: on the card through
+    pinned memory, a copy that does not wait for the stream's earlier
+    work."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if dev.type != "cuda":
+        return t
+    return t.pin_memory().to(dev, non_blocking=True)

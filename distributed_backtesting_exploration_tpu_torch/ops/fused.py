@@ -59,11 +59,15 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import os
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
 from .. import device as device_mod
+from ..models import donchian as donchian_model
+from ..models import stochastic as stochastic_model
 from . import _kernels, rolling
 from .metrics import Metrics, metrics_from_reductions
 from .pnl import simple_returns
@@ -350,6 +354,24 @@ def _check_t_real(t_real, N: int, T: int) -> np.ndarray:
         raise ValueError(f"t_real values must lie in [1, {T}]; got "
                          f"[{tr.min()}, {tr.max()}]")
     return tr.astype(np.int32)
+
+
+def row_mean(close: torch.Tensor, t_real: np.ndarray) -> torch.Tensor:
+    """The ``(N, 1)`` mean of each row's ``t_real`` real bars, summed in f64,
+    divided by ``t_real`` and rounded once: the centering of the Bollinger
+    preps. Where the reference's ``_fused_boll_call`` centers a ragged stack
+    over all its bars, pad bars included, this mean is a function of the
+    row's own bars, on any device and whatever the rows and bars stacked
+    with it (a sum of f32 prices is exact in f64 in any order); on a full
+    row it is :func:`~.rolling.mean_f64`'s, the generic model's centering.
+    """
+    T = close.shape[1]
+    tr = torch.as_tensor(np.asarray(t_real, np.int64),
+                         device=close.device)[:, None]
+    bars = torch.arange(T, device=close.device)[None, :]
+    zero = torch.zeros((), dtype=torch.float64, device=close.device)
+    total = torch.where(bars < tr, close.double(), zero).sum(1, keepdim=True)
+    return (total / tr).to(close.dtype)
 
 
 def _check_launch(name: str, dev: torch.device, P: int,
@@ -1406,7 +1428,7 @@ def keltner_z_table(close, high, low, windows: np.ndarray) -> torch.Tensor:
                                torch.maximum((high - prev).abs(),
                                              (low - prev).abs()))
     w, fw = _windows_col(close.device, windows)
-    atr = _lagged_window_sum(torch.cumsum(true_range, dim=1), w) / fw
+    atr = _lagged_window_sum(rolling.prefix_sum(true_range, 1), w) / fw
     mid = rolling.ema(close[:, None, :], span=fw)
     dev = close[:, None, :] - mid
     t = torch.arange(close.shape[1], device=close.device)
@@ -1421,20 +1443,21 @@ def vwap_z_table(close, volume, windows: np.ndarray) -> torch.Tensor:
     prep, op for op): the deviation is 0 before ``t = w - 1`` and where the
     window's volume is not above 1e-12; its z-score is centered with the
     deviation's mean over all T bars of the panel (a ragged group's pad
-    bars included, as the reference centers over the stacked panel); z is 0
-    before ``t = w - 1``."""
+    bars included, as the reference centers over the stacked panel),
+    :func:`~.rolling.mean_f64`'s as the generic path's; z is 0 before ``t
+    = w - 1``. The prefix sums are :func:`~.rolling.prefix_sum`'s."""
     w, fw = _windows_col(close.device, windows)
     t = torch.arange(close.shape[1], device=close.device)
     warm_ok = t[None, :] >= w[:, None] - 1                      # (W, T)
     zero = torch.zeros((), dtype=close.dtype, device=close.device)
-    pv = _lagged_window_sum(torch.cumsum(close * volume, dim=1), w)
-    v = _lagged_window_sum(torch.cumsum(volume, dim=1), w)
+    pv = _lagged_window_sum(rolling.prefix_sum(close * volume, 1), w)
+    v = _lagged_window_sum(rolling.prefix_sum(volume, 1), w)
     dev = torch.where(warm_ok & (v > _EPS),
                       close[:, None, :] - pv / (v + _EPS), zero)
-    m = _lagged_window_sum(torch.cumsum(dev, dim=2), w) / fw
-    xc = dev - dev.mean(dim=2, keepdim=True)
-    s1 = _lagged_window_sum(torch.cumsum(xc, dim=2), w)
-    s2 = _lagged_window_sum(torch.cumsum(xc * xc, dim=2), w)
+    m = _lagged_window_sum(rolling.prefix_sum(dev, 2), w) / fw
+    xc = dev - rolling.mean_f64(dev, 2)
+    s1 = _lagged_window_sum(rolling.prefix_sum(xc, 2), w)
+    s2 = _lagged_window_sum(rolling.prefix_sum(xc * xc, 2), w)
     var = ((s2 - s1 * s1 / fw) / fw).clamp_min(0.0)
     z = (dev - m) / (torch.sqrt(var) + _EPS)
     return torch.where(warm_ok, z, zero)
@@ -1690,7 +1713,7 @@ def fused_sma_sweep(close, fast, slow, *, t_real=None, cost: float = 0.0,
     fast_w, slow_w, warm = _grid_setup(fast, slow)
     tr = _check_t_real(t_real, N, T)
     planes = fused_sma(
-        torch.cumsum(close, dim=1).contiguous(),
+        rolling.prefix_sum(close, 1).contiguous(),
         simple_returns(close).contiguous(),
         *_to(dev, tr, fast_w, slow_w, warm),
         cost=float(cost), ppy=int(periods_per_year))
@@ -1714,12 +1737,10 @@ def _bollinger_family_sweep(close, window, k, *, machine: str, z_exit: float,
     _same_length(window=window, k=k)
     _, win, _, warm = _window_setup(window, "windows", 0.0, 1)
     tr = _check_t_real(t_real, N, T)
-    # Centered with the mean over all T columns of the group, as the
-    # reference's `_fused_boll_call` centers over the stacked panel.
-    xc = close - close.mean(dim=1, keepdim=True)
-    cs = torch.cumsum(close, dim=1)
-    csx = torch.cumsum(xc, dim=1)
-    csx2 = torch.cumsum(xc * xc, dim=1)
+    xc = close - row_mean(close, tr)
+    cs = rolling.prefix_sum(close, 1)
+    csx = rolling.prefix_sum(xc, 1)
+    csx2 = rolling.prefix_sum(xc * xc, 1)
     planes = band_inline(close, cs, csx, csx2,
                          simple_returns(close).contiguous(),
                          *_to(dev, tr, win, k, warm), machine=machine,
@@ -1878,7 +1899,7 @@ def fused_obv_sweep(close, volume, window, *, t_real=None, cost: float = 0.0,
     _, win, _, warm = _window_setup(_flat(window), "windows", 0.0, 1)
     tr = _check_t_real(t_real, N, T)
     series = rolling.obv_series(close, volume).contiguous()
-    planes = obv(series, torch.cumsum(series, dim=1).contiguous(),
+    planes = obv(series, rolling.prefix_sum(series, 1).contiguous(),
                  simple_returns(close).contiguous(),
                  *_to(dev, tr, win, warm), cost=float(cost),
                  ppy=int(periods_per_year))
@@ -2135,3 +2156,258 @@ def fused_trix_sweep(close, span, signal, *, t_real=None, cost: float = 0.0,
     return _carry_out_tail(Metrics(*planes), carry_out, "trix",
                            {"close": close}, {"span": span, "signal": signal},
                            cost=cost, ppy=periods_per_year, epilogue=epilogue)
+
+
+# --- the family registry, paged mode and scenario batches -----------------
+
+
+class _Family(NamedTuple):
+    """One single-asset family's row: the OHLCV fields its wrapper consumes
+    (in its argument order), its grid axes, the call ``(arrays, grid, **kw)
+    -> Metrics``, the axes that hold bar counts (integral), and the generic
+    path's channel view bound where it has one."""
+
+    fields: tuple
+    axes: tuple
+    call: Callable
+    window_axes: tuple = ("window",)
+    max_window: float = math.inf
+
+
+# The one registry of the families: the backend's routing rows
+# (``rpc.compute._FUSED_STRATEGIES``) are built from it, so the fields the
+# page pool gathers and the scenario generator feeds are the fields the
+# wrappers take.
+_PAGED_FAMILIES = {
+    "sma_crossover": _Family(
+        ("close",), ("fast", "slow"),
+        lambda a, g, **kw: fused_sma_sweep(a[0], g["fast"], g["slow"],
+                                           **kw),
+        window_axes=("fast", "slow")),
+    "bollinger": _Family(
+        ("close",), ("window", "k"),
+        lambda a, g, **kw: fused_bollinger_sweep(a[0], g["window"], g["k"],
+                                                 **kw)),
+    "bollinger_touch": _Family(
+        ("close",), ("window", "k"),
+        lambda a, g, **kw: fused_bollinger_touch_sweep(
+            a[0], g["window"], g["k"], **kw)),
+    "momentum": _Family(
+        ("close",), ("lookback",),
+        lambda a, g, **kw: fused_momentum_sweep(a[0], g["lookback"], **kw),
+        window_axes=("lookback",)),
+    "donchian": _Family(
+        ("close",), ("window",),
+        lambda a, g, **kw: fused_donchian_sweep(a[0], g["window"], **kw),
+        max_window=donchian_model.MAX_WINDOW),
+    "donchian_hl": _Family(
+        ("close", "high", "low"), ("window",),
+        lambda a, g, **kw: fused_donchian_hl_sweep(
+            a[0], a[1], a[2], g["window"], **kw),
+        max_window=donchian_model.MAX_WINDOW),
+    "rsi": _Family(
+        ("close",), ("period", "band"),
+        lambda a, g, **kw: fused_rsi_sweep(a[0], g["period"], g["band"],
+                                           **kw),
+        window_axes=("period",)),
+    "stochastic": _Family(
+        ("close", "high", "low"), ("window", "band"),
+        lambda a, g, **kw: fused_stochastic_sweep(
+            a[0], a[1], a[2], g["window"], g["band"], **kw),
+        max_window=stochastic_model.MAX_WINDOW),
+    "keltner": _Family(
+        ("close", "high", "low"), ("window", "k"),
+        lambda a, g, **kw: fused_keltner_sweep(
+            a[0], a[1], a[2], g["window"], g["k"], **kw)),
+    "macd": _Family(
+        ("close",), ("fast", "slow", "signal"),
+        lambda a, g, **kw: fused_macd_sweep(
+            a[0], g["fast"], g["slow"], g["signal"], **kw),
+        window_axes=("fast", "slow", "signal")),
+    "trix": _Family(
+        ("close",), ("span", "signal"),
+        lambda a, g, **kw: fused_trix_sweep(a[0], g["span"], g["signal"],
+                                            **kw),
+        window_axes=("span", "signal")),
+    "vwap_reversion": _Family(
+        ("close", "volume"), ("window", "k"),
+        lambda a, g, **kw: fused_vwap_sweep(
+            a[0], a[1], g["window"], g["k"], **kw)),
+    "obv_trend": _Family(
+        ("close", "volume"), ("window",),
+        lambda a, g, **kw: fused_obv_sweep(a[0], a[1], g["window"], **kw)),
+}
+
+_PAGE_BARS_DEFAULT = 512
+
+
+def paged_enabled() -> bool:
+    """Switch of the paged route, read when a backend is made: on with
+    ``DBX_PAGED=1``; unset or ``0`` sends every group to the dense stacks.
+    Off by default, where the reference's is on: on the H100 a 500-job
+    mixed-length batch ran slower paged than on the dense stacks."""
+    return os.environ.get("DBX_PAGED", "0") not in ("", "0")
+
+
+def resolve_page_bars() -> int:
+    """The validated page size ``DBX_PAGE_BARS`` (default 512 bars): a
+    positive multiple of 8."""
+    raw = os.environ.get("DBX_PAGE_BARS")
+    if not raw:
+        return _PAGE_BARS_DEFAULT
+    try:
+        v = int(raw)
+    except ValueError:
+        raise ValueError(
+            f"DBX_PAGE_BARS={raw!r} is not an integer (expected a "
+            "positive multiple of 8)") from None
+    if v < 8 or v % 8:
+        raise ValueError(
+            f"DBX_PAGE_BARS={v} is unusable: pages must be a positive "
+            "multiple of 8 bars (the f32 sublane tile)")
+    return v
+
+
+def paged_supported(strategy: str) -> bool:
+    """True when ``strategy`` has a paged (and scenario) row."""
+    return strategy in _PAGED_FAMILIES
+
+
+def paged_fields(strategy: str) -> tuple:
+    """The OHLCV fields the strategy's paged route gathers."""
+    return _PAGED_FAMILIES[strategy].fields
+
+
+def _paged_gather(pool: torch.Tensor, table: torch.Tensor,
+                  t_real: torch.Tensor, T_run: int) -> torch.Tensor:
+    """An ``(n, T_run)`` field block from the page pool: one
+    ``index_select`` of each row's pages (``table``, ``(n, pages)`` slots),
+    then every bar at or past a row's ``t_real`` replaced by its last real
+    bar, so the block equals the dense repeat-last stack whatever the
+    table's padded entries point at."""
+    n = table.shape[0]
+    rows = pool.index_select(0, table.reshape(-1)).reshape(n, -1)[:, :T_run]
+    tr = t_real.long()[:, None]
+    last = rows.gather(1, (tr - 1).clamp_min(0))
+    bars = torch.arange(T_run, device=pool.device)[None, :]
+    return torch.where(bars < tr, rows, last)
+
+
+def fused_paged_sweep(strategy: str, pool: torch.Tensor, tables: dict,
+                      t_real, grid: dict, *, cost: float = 0.0,
+                      periods_per_year: int = 252,
+                      epilogue: str | None = None) -> Metrics:
+    """A (possibly mixed-length) group's sweep from the device page pool.
+
+    ``pool`` is the ``(slots, page_bars)`` f32 pool, ``tables`` maps each
+    field the family consumes to a host ``(n, max_pages)`` int32 slot table
+    (a short row padded with any slot in bounds), ``t_real`` the rows' real
+    lengths, ``grid`` the flat per-combo axes. The group is binned by page
+    count; each bin is gathered at its own longest length
+    (:func:`_paged_gather`) and swept by one call of the family's wrapper
+    (a uniform bin without ``t_real``), so a row pads at most to its bin's
+    longest, within one page of its own length. Rows come back in the
+    caller's order; the metrics lie on the pool's device.
+
+    The pool is written in place (``rpc.page_pool``): the caller holds the
+    pool's writer lock from its ``prepare`` until this returns.
+    """
+    fam = _PAGED_FAMILIES.get(strategy)
+    if fam is None:
+        raise ValueError(
+            f"strategy {strategy!r} has no paged execution row "
+            f"(known: {sorted(_PAGED_FAMILIES)})")
+    fields, call = fam.fields, fam.call
+    missing = [f for f in fields if f not in tables]
+    if missing:
+        raise ValueError(
+            f"paged sweep for {strategy!r} needs page tables for fields "
+            f"{list(fields)}; missing {missing}")
+    t_real = np.asarray(t_real, np.int32).reshape(-1)
+    n = t_real.shape[0]
+    if n == 0:
+        raise ValueError("paged sweep over an empty group")
+    dev = pool.device
+    pages_of = -(-t_real // int(pool.shape[1]))
+    kw = dict(cost=float(cost), periods_per_year=int(periods_per_year),
+              epilogue=epilogue, device=dev)
+    parts, order = [], []
+    for p in np.unique(pages_of):
+        idx = np.flatnonzero(pages_of == p)
+        t_bin = t_real[idx]
+        T_bin = int(t_bin.max())
+        tr_dev = device_mod.upload(t_bin, dev)
+        arrays = [_paged_gather(
+            pool, device_mod.upload(
+                np.asarray(tables[f], np.int64)[idx][:, :int(p)], dev),
+            tr_dev, T_bin) for f in fields]
+        uniform = bool((t_bin == T_bin).all())
+        parts.append(call(arrays, grid, t_real=None if uniform else t_bin,
+                          **kw))
+        order.extend(idx.tolist())
+    if len(parts) == 1:
+        return parts[0]
+    inv = np.empty(n, np.int64)
+    inv[np.asarray(order)] = np.arange(n)
+    inv = device_mod.upload(inv, dev)
+    return Metrics(*(torch.cat(cols, dim=0)[inv] for cols in zip(*parts)))
+
+
+def scenario_fused_enabled() -> bool:
+    """Kill switch of the fused scenario route (``DBX_SCENARIO_FUSED=0``
+    keeps scenario batches on the materialized rung; default on), read per
+    call."""
+    return os.environ.get("DBX_SCENARIO_FUSED", "1") != "0"
+
+
+def scenario_supported(strategy: str) -> bool:
+    """True when ``strategy`` can serve a scenario spec batch: the paged
+    registry's families (the generator emits every OHLCV field)."""
+    return strategy in _PAGED_FAMILIES
+
+
+def fused_scenario_sweep(strategy: str, base: dict, seed_lo, seed_hi,
+                         vol_scale, shock, grid: dict, *, n_bars: int,
+                         block: int, regimes: int, cost: float = 0.0,
+                         periods_per_year: int = 252,
+                         epilogue: str | None = None,
+                         device: str | torch.device =
+                         device_mod.DEFAULT_DEVICE) -> Metrics:
+    """K scenarios of one base panel through a family's sweep, the panels
+    generated on the device and never stored.
+
+    ``base`` maps the five OHLCV names to the real base's ``(T,)`` arrays;
+    ``seed_lo``/``seed_hi`` are each scenario's :func:`seed_words
+    <..scenarios.synth.seed_words>`, ``vol_scale``/``shock`` its generator
+    modulation, all ``(K,)``; ``n_bars``, ``block`` and ``regimes`` are
+    shared by the batch. The generator (:func:`..scenarios.synth.
+    generate_rows`) yields chunks of rows bounded by a byte budget, and each
+    chunk goes through one call of the family's wrapper: a row is one
+    ticker, so row k is the sweep of scenario k alone. Returns
+    :class:`Metrics` of ``(K, P)`` fields on ``device``.
+    """
+    from ..scenarios import synth
+
+    fam = _PAGED_FAMILIES.get(strategy)
+    if fam is None:
+        raise ValueError(
+            f"strategy {strategy!r} has no scenario execution row "
+            f"(known: {sorted(_PAGED_FAMILIES)})")
+    if n_bars < 1 or block < 1 or regimes < 1:
+        raise ValueError(
+            f"scenario sweep needs n_bars/block/regimes >= 1 "
+            f"(got {n_bars}/{block}/{regimes})")
+    if np.asarray(seed_lo).shape[0] == 0:
+        raise ValueError("scenario sweep over an empty spec batch")
+    fields, call = fam.fields, fam.call
+    dev = device_mod.resolve(device)
+    parts = []
+    for _, rows in synth.generate_rows(
+            base, seed_lo, seed_hi, vol_scale, shock, n_bars=int(n_bars),
+            block=int(block), regimes=int(regimes), device=dev):
+        parts.append(call([rows[f] for f in fields], grid, cost=float(cost),
+                          periods_per_year=int(periods_per_year),
+                          epilogue=epilogue, device=dev))
+    if len(parts) == 1:
+        return parts[0]
+    return Metrics(*(torch.cat(cols, dim=0) for cols in zip(*parts)))

@@ -52,12 +52,25 @@ def valid_mask(T: int, window, device=None) -> Tensor:
     return torch.arange(T, device=w.device) >= w - 1
 
 
+def prefix_sum(x: Tensor, dim: int = -1) -> Tensor:
+    """Inclusive prefix sums of ``x`` along ``dim``, accumulated in f64 and
+    rounded once a bar to ``x``'s dtype. On the CPU this is torch's cumsum
+    of f32 bit for bit (it accumulates in f64 too). On CUDA torch's f32
+    scan associates by the tensor's row count and length, so a row's sums
+    would depend on the rows stacked with it; sums of f32 prices are exact
+    in f64 whatever the order, so these round to the same bits on any
+    device and shape."""
+    return torch.cumsum(x.double(), dim=dim).to(x.dtype)
+
+
 def rolling_sum(x: Tensor, window, *, fill: float = math.nan) -> Tensor:
     """Rolling sum over the trailing ``window`` bars (inclusive), same length.
 
     ``out[..., t] = sum(x[..., t-window+1 : t+1])``; warmup -> ``fill``.
+    The difference of two :func:`prefix_sum` bars, so the generic models'
+    sums round as the fused preps' do.
     """
-    cs = torch.cumsum(x, dim=-1)
+    cs = prefix_sum(x)
     return _mask_warmup(cs - _shifted(cs, window), window, fill)
 
 
@@ -71,10 +84,20 @@ def _mask_warmup(out: Tensor, window, fill: float) -> Tensor:
     return torch.where(valid, out, torch.full_like(out, fill))
 
 
+def mean_f64(x: Tensor, dim: int = -1) -> Tensor:
+    """The mean of ``x`` along ``dim`` (kept), its sum taken in f64, divided
+    by the length and rounded once to ``x``'s dtype: the centering of the
+    generic models and the fused preps. A sum of f32 prices is exact in f64
+    whatever the order, so the mean has the same bits on any device and
+    shape."""
+    total = x.double().sum(dim=dim, keepdim=True)
+    return (total / x.shape[dim]).to(x.dtype)
+
+
 def _centered(x: Tensor) -> Tensor:
     # Constant per-series shift: preserves variances, kills the float32
     # cancellation between E[x^2] and E[x]^2 for price-level inputs.
-    return x - x.mean(dim=-1, keepdim=True)
+    return x - mean_f64(x)
 
 
 def rolling_var(x: Tensor, window, *, ddof: int = 0,
@@ -135,7 +158,7 @@ def obv_series(close: Tensor, volume: Tensor) -> Tensor:
     v0 = volume[..., :1]
     v = volume / torch.where(v0 == 0.0, torch.ones_like(v0), v0)
     step = torch.sign(torch.diff(close, dim=-1, prepend=close[..., :1])) * v
-    return torch.cumsum(step, dim=-1)
+    return prefix_sum(step)
 
 
 def _decay(x: Tensor, span, alpha) -> Tensor:

@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from .. import device as device_mod
-from . import _kernels, fused
+from . import _kernels, fused, rolling
 from .pnl import simple_returns
 
 SMA_STAGES = ("prep", "touch", "matmul", "signal", "no_ladders", "full",
@@ -119,7 +119,7 @@ def sma_stage_inputs(close, fast, slow, *,
     fast_w, slow_w, warm = fused._grid_setup(fast, slow)
     windows = np.unique(np.concatenate([fast_w, slow_w]))
     close_p = _pad_last(close, _round_up(T, 8))
-    table = fused.sma_table(torch.cumsum(close_p, dim=1),
+    table = fused.sma_table(rolling.prefix_sum(close_p, 1),
                             torch.from_numpy(windows.astype(np.int64)).to(dev))
     rows = fused._to(dev, np.searchsorted(windows, fast_w).astype(np.int32),
                      np.searchsorted(windows, slow_w).astype(np.int32), warm)
@@ -144,10 +144,10 @@ def boll_stage_inputs(close, window, k, *,
     fused._same_length(window=window, k=k)
     windows, _, widx, warm = fused._window_setup(window, "windows", 0.0, 1)
     close_p = _pad_last(close, _round_up(T, 128))
-    xc = close_p - close_p[:, :T].mean(dim=1, keepdim=True)
+    xc = close_p - fused.row_mean(close_p, np.full(N, T))
     z = fused.boll_z_table(
-        close_p, torch.cumsum(close_p, dim=1), torch.cumsum(xc, dim=1),
-        torch.cumsum(xc * xc, dim=1),
+        close_p, rolling.prefix_sum(close_p, 1), rolling.prefix_sum(xc, 1),
+        rolling.prefix_sum(xc * xc, 1),
         torch.from_numpy(windows.astype(np.int64)).to(dev))
     lanes = fused._to(dev, widx, k, warm)
     return StageInputs(simple_returns(close_p).contiguous(),

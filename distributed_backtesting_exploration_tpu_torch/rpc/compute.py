@@ -44,11 +44,27 @@ dropped. A delta-only append (no
 An append of pairs, of an unknown family, or of a grid the family cannot
 price completes empty with the reference's logged error.
 
-A job carrying a field the port does not serve yet (scenario batches) is
-refused on its own: it gets a logged warning naming the field and no
-completion, so it stays leased and the dispatcher re-queues it when the
-lease runs out, while the other jobs of its batch are served. Nothing is
-computed some other way.
+Paged mode (the reference's ragged paged batching), on with
+``DBX_PAGED=1``: a fused group whose jobs all carry digests takes its
+fields from the device page pool (:attr:`PanelCache.pages`,
+:mod:`.page_pool`), mixed lengths in one group, one launch a page-count bin
+(``fused.fused_paged_sweep``); where the pool rejects the group, it takes
+the dense stacks, logged and counted. Unlike the reference's, the route is
+off by default (``fused.paged_enabled``), and such groups then take the
+dense stacks, counted.
+
+Scenario spec batches (``JobSpec.scenario_batch``, declared by
+:attr:`TorchSweepBackend.accepts_scenario_batch`) generate their panels on
+the device and sweep them chunk by chunk (``fused.fused_scenario_sweep``),
+each spec completed under its own id; ``DBX_SCENARIO_FUSED=0``, a family or
+grid without the fused route, or an invalid batch take the materialized
+rung (the panels as inline jobs), logged and counted.
+
+A job carrying a field the port does not serve (a second leg on a
+single-asset strategy, an unknown strategy) is refused on its own: it gets
+a logged warning naming the field and no completion, so it stays leased
+and the dispatcher re-queues it when the lease runs out, while the other
+jobs of its batch are served. Nothing is computed some other way.
 
 This module imports no ``grpc``: the worker injects the fetcher.
 """
@@ -67,15 +83,18 @@ import torch
 
 from .. import device as device_mod
 from ..models import base as models_base
-from ..models import donchian, pairs as pairs_mod, stochastic
+from ..models import pairs as pairs_mod
 from ..ops import fused
 from ..ops.metrics import Metrics, metric_sign
 from ..parallel import sweep as sweep_mod
 from ..parallel import walkforward
+from ..scenarios import synth
 from ..streaming import recurrent
 from ..streaming.store import CarryStore
 from ..utils import data as data_mod
+from . import backtesting_pb2 as pb
 from . import wire
+from .page_pool import PagePool
 from .panel_store import ByteLRU
 
 log = logging.getLogger("dbx.torch.compute")
@@ -91,31 +110,49 @@ def cache_max_bytes() -> int:
 
 
 class PanelCache:
-    """Two-level digest-keyed panel cache (the worker's half of dispatch by
-    digest; the reference's ``PanelCache`` without its page level).
+    """Digest-keyed panel cache (the worker's half of dispatch by digest;
+    the reference's ``PanelCache``).
 
     - **host level**: decoded :class:`~..utils.data.OHLCV` panels; a hit
       skips the DBX1 decode;
     - **device level**: the panel's ``(5, T)`` f32 field block on the
       backend's device; a hit also skips the host-to-device copy, and the
-      group is stacked on the device.
+      group is stacked on the device;
+    - **page level** (:attr:`pages`, made at first use on ``device``): the
+      :class:`~.page_pool.PagePool` of the paged route
+      (``DBX_PAGE_POOL_MB``).
 
-    Each level is a :class:`~.panel_store.ByteLRU` bounded by
-    ``max_bytes`` (``DBX_PANEL_CACHE_MB``). Eviction is not an error: the
-    worker recovers a digest-only miss through ``FetchPayload``. Hit and
-    miss counts by level are plain attributes that :meth:`stats` returns.
-    Thread-safe: the worker's control and prefetch threads probe and fill
-    the host level while the compute thread serves from both.
+    The host and device levels are each a :class:`~.panel_store.ByteLRU`
+    bounded by ``max_bytes`` (``DBX_PANEL_CACHE_MB``). Eviction is not an
+    error: the worker recovers a digest-only miss through
+    ``FetchPayload``. Hit and miss counts by level are plain attributes
+    that :meth:`stats` returns. Thread-safe: the worker's control and
+    prefetch threads probe and fill the host level while the compute
+    thread serves from both. ``device`` is the backend's (a
+    :class:`TorchSweepBackend` sets it where it is None).
     """
 
-    def __init__(self, max_bytes: int | None = None):
+    def __init__(self, max_bytes: int | None = None, *,
+                 device: str | torch.device | None = None):
         self.max_bytes = (cache_max_bytes() if max_bytes is None
                           else int(max_bytes))
+        self.device = device
         self._lock = threading.Lock()
         self._series = ByteLRU(self.max_bytes, self._nbytes)
         self._device = ByteLRU(self.max_bytes)   # put() passes nbytes
+        self._pages: PagePool | None = None
         self.hits = {"host": 0, "device": 0}
         self.misses = {"host": 0, "device": 0}
+
+    @property
+    def pages(self) -> PagePool:
+        """The page level, made at first use (``DBX_PAGE_BARS``,
+        ``DBX_PAGE_POOL_MB`` read then)."""
+        with self._lock:
+            if self._pages is None:
+                self._pages = PagePool(device=self.device
+                                       or device_mod.DEFAULT_DEVICE)
+            return self._pages
 
     @staticmethod
     def _nbytes(arrays) -> int:
@@ -159,7 +196,9 @@ class PanelCache:
                     "device_panels": len(self._device),
                     "device_bytes": self._device.bytes,
                     "max_bytes": self.max_bytes,
-                    "hits": dict(self.hits), "misses": dict(self.misses)}
+                    "hits": dict(self.hits), "misses": dict(self.misses),
+                    "page_pool": (None if self._pages is None
+                                  else self._pages.stats())}
 
 
 class _FusedSpec(NamedTuple):
@@ -172,69 +211,20 @@ class _FusedSpec(NamedTuple):
     max_window: float = math.inf  # the generic path's channel view bound
 
 
+def _fused_spec(strategy: str) -> _FusedSpec:
+    """The routing row of ``strategy``, from its row of the fused registry
+    (``fused._PAGED_FAMILIES``) alone."""
+    fam = fused._PAGED_FAMILIES[strategy]
+    return _FusedSpec(
+        frozenset(fam.axes), fam.window_axes,
+        lambda f, g, **kw: fam.call([f[x] for x in fam.fields], g, **kw),
+        fam.fields, fam.max_window)
+
+
 # Strategy -> fused route, modelled on the reference's
 # ``JaxSweepBackend._FUSED_STRATEGIES``. ``run`` gets the stacked fields by
 # name and the flat grid.
-_FUSED_STRATEGIES = {
-    "sma_crossover": _FusedSpec(
-        frozenset({"fast", "slow"}), ("fast", "slow"),
-        lambda f, g, **kw: fused.fused_sma_sweep(
-            f["close"], g["fast"], g["slow"], **kw)),
-    "bollinger": _FusedSpec(
-        frozenset({"window", "k"}), ("window",),
-        lambda f, g, **kw: fused.fused_bollinger_sweep(
-            f["close"], g["window"], g["k"], **kw)),
-    "bollinger_touch": _FusedSpec(
-        frozenset({"window", "k"}), ("window",),
-        lambda f, g, **kw: fused.fused_bollinger_touch_sweep(
-            f["close"], g["window"], g["k"], **kw)),
-    "stochastic": _FusedSpec(
-        frozenset({"window", "band"}), ("window",),
-        lambda f, g, **kw: fused.fused_stochastic_sweep(
-            f["close"], f["high"], f["low"], g["window"], g["band"], **kw),
-        fields=("close", "high", "low"), max_window=stochastic.MAX_WINDOW),
-    "momentum": _FusedSpec(
-        frozenset({"lookback"}), ("lookback",),
-        lambda f, g, **kw: fused.fused_momentum_sweep(
-            f["close"], g["lookback"], **kw)),
-    "donchian": _FusedSpec(
-        frozenset({"window"}), ("window",),
-        lambda f, g, **kw: fused.fused_donchian_sweep(
-            f["close"], g["window"], **kw),
-        max_window=donchian.MAX_WINDOW),
-    "donchian_hl": _FusedSpec(
-        frozenset({"window"}), ("window",),
-        lambda f, g, **kw: fused.fused_donchian_hl_sweep(
-            f["close"], f["high"], f["low"], g["window"], **kw),
-        fields=("close", "high", "low"), max_window=donchian.MAX_WINDOW),
-    "rsi": _FusedSpec(
-        frozenset({"period", "band"}), ("period",),
-        lambda f, g, **kw: fused.fused_rsi_sweep(
-            f["close"], g["period"], g["band"], **kw)),
-    "keltner": _FusedSpec(
-        frozenset({"window", "k"}), ("window",),
-        lambda f, g, **kw: fused.fused_keltner_sweep(
-            f["close"], f["high"], f["low"], g["window"], g["k"], **kw),
-        fields=("close", "high", "low")),
-    "macd": _FusedSpec(
-        frozenset({"fast", "slow", "signal"}), ("fast", "slow", "signal"),
-        lambda f, g, **kw: fused.fused_macd_sweep(
-            f["close"], g["fast"], g["slow"], g["signal"], **kw)),
-    "trix": _FusedSpec(
-        frozenset({"span", "signal"}), ("span", "signal"),
-        lambda f, g, **kw: fused.fused_trix_sweep(
-            f["close"], g["span"], g["signal"], **kw)),
-    "obv_trend": _FusedSpec(
-        frozenset({"window"}), ("window",),
-        lambda f, g, **kw: fused.fused_obv_sweep(
-            f["close"], f["volume"], g["window"], **kw),
-        fields=("close", "volume")),
-    "vwap_reversion": _FusedSpec(
-        frozenset({"window", "k"}), ("window",),
-        lambda f, g, **kw: fused.fused_vwap_sweep(
-            f["close"], f["volume"], g["window"], g["k"], **kw),
-        fields=("close", "volume")),
-}
+_FUSED_STRATEGIES = {s: _fused_spec(s) for s in fused._PAGED_FAMILIES}
 _PAIRS = "pairs"
 
 
@@ -277,8 +267,6 @@ def _unsupported(job) -> str | None:
     if job.strategy != _PAIRS and job.strategy not in _FUSED_STRATEGIES:
         return (f"strategy {job.strategy!r} (served: "
                 f"{', '.join(sorted([*_FUSED_STRATEGIES, _PAIRS]))})")
-    if job.scenario_batch:
-        return "scenario spec batch (scenario_batch)"
     if (job.ohlcv2 or job.panel_digest2) and job.strategy != _PAIRS:
         return (f"a second leg (ohlcv2) on strategy {job.strategy!r}; only "
                 "pairs jobs take one")
@@ -364,15 +352,6 @@ def _copy_to_host(tensors: dict):
     return host, ready
 
 
-def _upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
-    """``a`` on ``dev``: on the card through pinned memory, a copy that
-    does not wait for the stream's earlier work."""
-    t = torch.from_numpy(np.ascontiguousarray(a))
-    if dev.type != "cuda":
-        return t
-    return t.pin_memory().to(dev, non_blocking=True)
-
-
 class _Pending(NamedTuple):
     """One group between :meth:`~TorchSweepBackend.submit` and
     :meth:`~TorchSweepBackend.collect`."""
@@ -387,6 +366,13 @@ class _Pending(NamedTuple):
     lengths: tuple = ()      # "returns": each job's real bar count
 
 
+class _ScenarioJob(NamedTuple):
+    """A scenario spec of a carrier's batch, completed under its own id."""
+
+    id: str
+    trace_id: str
+
+
 def _empty(group, t0: float) -> _Pending:
     """A validated-bad group: every job completes with an empty block."""
     return _Pending(list(group), 0, t0, {}, None)
@@ -396,14 +382,24 @@ class TorchSweepBackend:
     """Two-phase sweep backend on one device (``"cuda"`` unless the caller
     asks for ``"cpu"``).
 
-    ``panel_cache`` holds decoded panels and their device blocks by digest;
-    ``carry_store`` the streaming appends' carry checkpoints
-    (``DBX_CARRY_CACHE_MB``); ``payload_fetcher`` (``digest -> bytes``,
-    set by the worker while it runs) recovers a digest-only panel the cache
-    no longer holds. ``decodes`` counts the DBX1 decodes of the submit
-    path; ``appends`` the append jobs served by outcome (``carry_hit``: a
-    stored checkpoint served or advanced, ``full_reprice``: rebuilt over
-    the whole panel) and ``advances`` the checkpoints advanced.
+    ``panel_cache`` holds decoded panels, their device blocks and the page
+    pool by digest; ``carry_store`` the streaming appends' carry
+    checkpoints (``DBX_CARRY_CACHE_MB``); ``payload_fetcher`` (``digest ->
+    bytes``, set by the worker while it runs) recovers a digest-only panel
+    the cache no longer holds. ``use_paged`` (``DBX_PAGED=1``, read here;
+    off by default) sends fused groups of jobs with digests through the
+    page pool. Counts,
+    plain attributes that :meth:`stats` returns: ``decodes``, the DBX1
+    decodes of the submit path; ``appends``, the append jobs served by
+    outcome (``carry_hit``: a stored checkpoint served or advanced,
+    ``full_reprice``: rebuilt over the whole panel) and ``advances``, the
+    checkpoints advanced; ``pad_bars``, the pad bars of the dense ragged
+    stacks (``dense``) and of the pages the pool uploaded (``paged``);
+    ``paged_fallbacks``, the fused groups of jobs with digests served from
+    the dense stacks, by why (``rejected`` by the pool, paging
+    ``disabled``);
+    ``scenarios``, the scenario specs served by route (``fused``,
+    ``materialized``).
     """
 
     # A uniform walk-forward group whose grid has at least this many combos
@@ -422,22 +418,41 @@ class TorchSweepBackend:
                             else panel_cache)
         self.carry_store = (CarryStore(device=self.device)
                             if carry_store is None else carry_store)
+        if self.panel_cache.device is None:
+            self.panel_cache.device = self.device
         self.payload_fetcher: Callable[[str], bytes] | None = None
+        self.use_paged = fused.paged_enabled()
         self.decodes = 0
         self.appends = {"carry_hit": 0, "full_reprice": 0}
         self.advances = 0
+        self.pad_bars = {"dense": 0, "paged": 0}
+        self.paged_fallbacks = {"rejected": 0, "disabled": 0}
+        if not self.use_paged:
+            log.info("paged route off (DBX_PAGED=1 turns it on): fused "
+                     "groups use the dense stacks")
+        self.scenarios = {"fused": 0, "materialized": 0}
 
     @property
     def chips(self) -> int:
         """Device count to advertise to the dispatcher."""
         return 1
 
+    @property
+    def accepts_scenario_batch(self) -> bool:
+        """The capability the worker declares on each poll: scenario spec
+        batches are served on the fused route. Read per poll, so
+        ``DBX_SCENARIO_FUSED=0`` stops new batches at once (a batch already
+        leased goes to the materialized rung)."""
+        return fused.scenario_fused_enabled()
+
     def stats(self) -> dict:
-        """The caches' levels and the append counts."""
+        """The caches' levels and the backend's counts."""
         return {"panel_cache": self.panel_cache.stats(),
                 "carry": self.carry_store.stats(),
                 "appends": dict(self.appends), "advances": self.advances,
-                "decodes": self.decodes}
+                "decodes": self.decodes, "pad_bars": dict(self.pad_bars),
+                "paged_fallbacks": dict(self.paged_fallbacks),
+                "scenarios": dict(self.scenarios)}
 
     def process(self, jobs) -> list[Completion]:
         """Run a job batch to completion: ``collect(submit(jobs))``."""
@@ -448,22 +463,29 @@ class TorchSweepBackend:
         :meth:`collect` takes.
 
         Streaming append jobs are peeled off first and served one at a time
-        (:meth:`_submit_append_job`). A job that ``_unsupported`` refuses is
-        logged and left without a completion (it stays leased until the
-        dispatcher re-queues it); the rest are grouped as the reference's
-        ``submit`` groups them: by
-        strategy, grid, power-of-two payload length bucket of each leg
-        (the stamped ``panel_bytes_len`` for a digest-only leg), cost,
+        (:meth:`_submit_append_job`), then scenario spec batches, one
+        carrier at a time (:meth:`_submit_scenario_group`). A job that
+        ``_unsupported`` refuses is logged and left without a completion (it
+        stays leased until the dispatcher re-queues it); the rest are
+        grouped as the reference's ``submit`` groups them: by strategy,
+        grid, length bucket of each leg (:meth:`_length_bucket`), cost,
         periods per year, walk-forward window, top-k request and
         best-returns flag.
         """
         jobs = list(jobs)
         pending = [self._submit_append_job(j) for j in jobs
                    if j.append_parent_digest]
+        jobs = [j for j in jobs if not j.append_parent_digest]
+        for j in jobs:
+            if j.scenario_batch:
+                pending.extend(self._submit_scenario_group(j))
+        jobs = [j for j in jobs if not j.scenario_batch]
+        # A scenario job the dispatcher materialized arrives as a plain job
+        # that names its spec.
+        self.scenarios["materialized"] += sum(
+            1 for j in jobs if j.scenario.base_digest)
         groups: dict[tuple, list] = {}
         for job in jobs:
-            if job.append_parent_digest:
-                continue
             what = _unsupported(job)
             if what is not None:
                 log.warning("job %s refused: %s is not ported to the "
@@ -473,7 +495,7 @@ class TorchSweepBackend:
             axes = wire.grid_from_proto(job.grid)
             key = (job.strategy,
                    tuple(sorted((k, v.tobytes()) for k, v in axes.items())),
-                   (len(job.ohlcv) or job.panel_bytes_len).bit_length(),
+                   self._length_bucket(job, axes),
                    (len(job.ohlcv2) or job.panel_bytes_len2).bit_length(),
                    job.cost, job.periods_per_year,
                    job.wf_train, job.wf_test, job.wf_metric,
@@ -500,9 +522,30 @@ class TorchSweepBackend:
                 pending.append(self._submit_best_returns_group(
                     group, self._decode_group(group), t0))
             else:
-                pending.append(self._submit_group(
+                pending.extend(self._submit_group(
                     group, self._decode_group(group), t0))
         return pending
+
+    def _length_bucket(self, job, axes) -> int:
+        """The leg-1 length bucket of the grouping key: the power-of-two
+        bucket of the payload's length (the stamped ``panel_bytes_len`` for
+        a digest-only leg), or 0 for a job the paged route serves, whose
+        mixed lengths one group takes (one launch a page-count bin)."""
+        if self._paged_servable(job, axes):
+            return 0
+        return (len(job.ohlcv) or job.panel_bytes_len).bit_length()
+
+    def _paged_servable(self, job, axes) -> bool:
+        """The paged route's eligibility, which grouping and
+        :meth:`prefetch` share: paging on, a digest, a plain fused job (no
+        walk-forward, best-returns, pairs or scenario batch) whose grid the
+        kernel takes."""
+        return (self.use_paged and bool(job.panel_digest)
+                and job.wf_train == 0 and not job.best_returns
+                and not job.scenario_batch
+                and fused.paged_supported(job.strategy)
+                and _fused_demotion_reason(_FUSED_STRATEGIES[job.strategy],
+                                           axes) is None)
 
     def collect(self, pending: list[_Pending]) -> list[Completion]:
         """Wait for each group's result copy and pack one block per job;
@@ -541,12 +584,16 @@ class TorchSweepBackend:
         earlier batches run). Best-effort: the submit path resolves through
         the same cache, so a skipped or failed prefetch costs only the
         overlap. A zero-budget cache skips the decode it could not keep.
+        The panels decoded here of jobs the paged route serves then have
+        their missing pages uploaded to the pool, a group a strategy (a
+        rejection is fine: submit falls back as it would without it).
         Returns the number of panels decoded."""
         cache = self.panel_cache
         if cache.max_bytes <= 0:
             return 0
         warmed = 0
         seen: set = set()
+        paged: dict[str, tuple[list, list]] = {}
         for job in jobs:
             if job.append_parent_digest:
                 # The append route resolves its own panel (a splice for a
@@ -567,6 +614,14 @@ class TorchSweepBackend:
                     continue
                 cache.put_series(digest, s)
                 warmed += 1
+                if (digest == job.panel_digest and self._paged_servable(
+                        job, wire.grid_from_proto(job.grid))):
+                    digests, series = paged.setdefault(job.strategy,
+                                                       ([], []))
+                    digests.append(digest)
+                    series.append(s)
+        for strategy, (digests, series) in paged.items():
+            cache.pages.prepare(digests, series, fused.paged_fields(strategy))
         return warmed
 
     def _resolve_series(self, job, *, leg2: bool = False):
@@ -641,7 +696,7 @@ class TorchSweepBackend:
         ppy = int(job.periods_per_year or 252)
         skey = recurrent.stream_key(job.strategy, grid, cost, ppy)
         series, _ = self._resolve_append_series(job)
-        fields = {f: _upload(np.asarray(getattr(series, f),
+        fields = {f: device_mod.upload(np.asarray(getattr(series, f),
                                         np.float32)[None, :], self.device)
                   for f in recurrent.stream_fields(job.strategy)}
         base_len = int(job.append_base_len)
@@ -682,6 +737,105 @@ class TorchSweepBackend:
             {"planes": torch.stack(list(recurrent.finalize(carry)))})
         return _Pending([job], 1, t0, host, ready)
 
+    def _submit_scenario_group(self, job) -> list[_Pending]:
+        """One carrier job's scenario spec batch (``JobSpec.scenario_batch``,
+        the reference's ``_submit_scenario_group``): the K panels generated
+        on the device from the base panel and each spec's effective seed,
+        in chunks, each chunk through one call of the family's wrapper
+        (``fused.fused_scenario_sweep``); every spec completes under its
+        own id and trace id. The batch shares the first spec's ``n_bars``,
+        ``block`` and ``regimes``.
+
+        ``DBX_SCENARIO_FUSED=0``, a family without a scenario row, a grid
+        the kernel does not take, or a batch the fused route rejects as
+        invalid (``ValueError``) go to the materialized rung
+        (:meth:`_submit_scenario_materialized`), logged and counted.
+        Nothing else is caught: a failure on the card propagates. An
+        unresolvable base raises, and the lease re-queues the batch."""
+        t0 = time.perf_counter()
+        specs = list(job.scenario_batch)
+        series, _ = self._resolve_series(job)
+        axes = wire.grid_from_proto(job.grid)
+        if not fused.scenario_fused_enabled():
+            why = "DBX_SCENARIO_FUSED=0"
+        elif not fused.scenario_supported(job.strategy):
+            why = f"strategy {job.strategy!r} has no scenario row"
+        else:
+            why = _fused_demotion_reason(_FUSED_STRATEGIES[job.strategy],
+                                         axes)
+        if why is None:
+            try:
+                n_bars, block, regimes = synth.check_shape(
+                    series.n_bars, specs[0].n_bars, specs[0].block,
+                    specs[0].regimes)
+                words = [synth.seed_words(int(s.seed)) for s in specs]
+                m = fused.fused_scenario_sweep(
+                    job.strategy, series._asdict(),
+                    [w[0] for w in words], [w[1] for w in words],
+                    [s.vol_scale for s in specs], [s.shock for s in specs],
+                    {k: v.numpy() for k, v in
+                     sweep_mod.product_grid(**axes).items()},
+                    n_bars=n_bars, block=block, regimes=regimes,
+                    cost=float(job.cost),
+                    periods_per_year=int(job.periods_per_year or 252),
+                    device=self.device)
+            except ValueError as e:
+                why = str(e)
+        if why is not None:
+            log.warning("scenario batch %s (%s, %d specs) takes the "
+                        "materialized rung: %s", job.id, job.strategy,
+                        len(specs), why)
+            return self._submit_scenario_materialized(job, specs, series, t0)
+        self.scenarios["fused"] += len(specs)
+        pseudo = [_ScenarioJob(s.id, s.trace_id) for s in specs]
+        return [self._finish_group(pseudo, m, t0, len(specs), job)]
+
+    def _submit_scenario_materialized(self, job, specs, series,
+                                      t0: float) -> list[_Pending]:
+        """The materialized rung: each spec's panel generated by the same
+        chunked generator call as the fused route (so the same bits), as
+        DBX1 bytes in an ordinary inline job under the spec's id, and the K
+        jobs submitted as any batch is. Specs are generated a group of equal
+        ``(n_bars, block, regimes)`` at a time; a group whose shape is
+        invalid completes empty with a logged error (a malformed spec would
+        never heal by re-queueing)."""
+        self.scenarios["materialized"] += len(specs)
+        shapes: dict[tuple, list] = {}
+        for s in specs:
+            shapes.setdefault((s.n_bars, s.block, s.regimes), []).append(s)
+        pending, expanded = [], []
+        for (n_bars, block, regimes), group in shapes.items():
+            try:
+                n_bars, block, regimes = synth.check_shape(
+                    series.n_bars, n_bars, block, regimes)
+            except ValueError as e:
+                log.error("scenario specs %s: %s; completing with empty "
+                          "metrics", [s.id for s in group], e)
+                pending.append(_empty(
+                    [_ScenarioJob(s.id, s.trace_id) for s in group], t0))
+                continue
+            words = [synth.seed_words(int(s.seed)) for s in group]
+            for r0, rows in synth.generate_rows(
+                    series._asdict(), [w[0] for w in words],
+                    [w[1] for w in words], [s.vol_scale for s in group],
+                    [s.shock for s in group], n_bars=n_bars, block=block,
+                    regimes=regimes, device=self.device):
+                host = {f: rows[f].cpu().numpy() for f in synth.FIELDS}
+                for i in range(host["close"].shape[0]):
+                    out = pb.JobSpec()
+                    out.CopyFrom(job)
+                    del out.scenario_batch[:]
+                    out.id = group[r0 + i].id
+                    out.trace_id = group[r0 + i].trace_id
+                    out.ohlcv = data_mod.to_wire_bytes(data_mod.OHLCV(
+                        *(host[f][i] for f in synth.FIELDS)))
+                    out.panel_digest = ""
+                    out.panel_bytes_len = 0
+                    expanded.append(out)
+        if expanded:
+            pending.extend(self.submit(expanded))
+        return pending
+
     def _decode_group(self, group) -> list:
         """The group's leg-1 panels, each through :meth:`_resolve_series`."""
         return [self._resolve_series(j)[0] for j in group]
@@ -714,7 +868,7 @@ class TorchSweepBackend:
             # the whole upload alive, past what the budget charges it.
             host = [np.stack([np.asarray(f, np.float32) for f in series[i]])
                     for i in miss]
-            flat = _upload(np.concatenate(host, axis=1), self.device)
+            flat = device_mod.upload(np.concatenate(host, axis=1), self.device)
             pieces = torch.split(flat, [h.shape[1] for h in host], dim=1)
             for i, piece in zip(miss, pieces):
                 blocks[i] = piece.clone()
@@ -724,7 +878,7 @@ class TorchSweepBackend:
         if uniform:
             return {f: torch.stack([b[r] for b in blocks])
                     for f, r in zip(fields, rows)}
-        lens = _upload(np.asarray(lengths, np.int64), self.device)
+        lens = device_mod.upload(np.asarray(lengths, np.int64), self.device)
         starts = torch.cumsum(lens, 0) - lens
         bars = torch.arange(t_max, device=self.device)
         at = starts[:, None] + torch.minimum(bars[None, :], lens[:, None] - 1)
@@ -761,9 +915,14 @@ class TorchSweepBackend:
                                      "idx": idx})
         return _Pending(list(jobs), n_real, t0, host, ready, "topk", metric)
 
-    def _submit_group(self, group, series, t0: float) -> _Pending:
+    def _submit_group(self, group, series, t0: float, *,
+                      allow_paged: bool = True) -> list[_Pending]:
         """A single-asset group: its fused sweep, or the generic sweep where
-        the kernel does not take its grid."""
+        the kernel does not take its grid. A fused group whose jobs all
+        carry digests goes through the page pool (:meth:`_try_paged`); where
+        the pool rejects it, through the dense stacks, a ragged group first
+        split again by the power-of-two length bucket (the dense route's
+        pad bound). Returns the group's pending entries."""
         lengths = [s.n_bars for s in series]
         job0 = group[0]
         axes = wire.grid_from_proto(job0.grid)
@@ -772,13 +931,44 @@ class TorchSweepBackend:
         ppy = job0.periods_per_year or 252
         spec = _FUSED_STRATEGIES[job0.strategy]
         demotion = _fused_demotion_reason(spec, axes)
+        ragged = len(set(lengths)) > 1
+        m = None
         if demotion is None:
-            fields = self._device_fields(group, series, spec.fields, lengths)
-            t_real = (None if len(set(lengths)) == 1
-                      else np.asarray(lengths, np.int32))
-            m = spec.run(fields, {k: v.numpy() for k, v in grid.items()},
-                         t_real=t_real, cost=cost, periods_per_year=ppy,
-                         device=self.device)
+            g = {k: v.numpy() for k, v in grid.items()}
+            digests = all(j.panel_digest for j in group)
+            if digests and allow_paged and not self.use_paged:
+                self.paged_fallbacks["disabled"] += 1
+            elif digests and allow_paged:
+                m = self._try_paged(group, series, lengths, g, cost, ppy)
+                if m is None:
+                    self.paged_fallbacks["rejected"] += 1
+                    buckets: dict[int, list[int]] = {}
+                    for i, j in enumerate(group):
+                        b = (len(j.ohlcv) or j.panel_bytes_len).bit_length()
+                        buckets.setdefault(b, []).append(i)
+                    log.warning("%d %s jobs (first %s): the page pool "
+                                "rejected the group; serving it from the "
+                                "dense stacks in %d length bucket(s)",
+                                len(group), job0.strategy, job0.id,
+                                len(buckets))
+                    if ragged and len(buckets) > 1:
+                        out = []
+                        for _, idx in sorted(buckets.items()):
+                            out.extend(self._submit_group(
+                                [group[i] for i in idx],
+                                [series[i] for i in idx], t0,
+                                allow_paged=False))
+                            t0 = time.perf_counter()
+                        return out
+            if m is None:
+                fields = self._device_fields(group, series, spec.fields,
+                                             lengths)
+                t_real = np.asarray(lengths, np.int32) if ragged else None
+                if ragged:
+                    self.pad_bars["dense"] += sum(max(lengths) - t
+                                                  for t in lengths)
+                m = spec.run(fields, g, t_real=t_real, cost=cost,
+                             periods_per_year=ppy, device=self.device)
         else:
             log.warning("jobs %s (%s) take the generic path: %s",
                         [j.id for j in group], job0.strategy, demotion)
@@ -787,7 +977,27 @@ class TorchSweepBackend:
                 batch, models_base.get_strategy(job0.strategy), grid,
                 cost=cost, bar_mask=mask, periods_per_year=ppy,
                 device=self.device)
-        return self._finish_group(group, m, t0, len(group), job0)
+        return [self._finish_group(group, m, t0, len(group), job0)]
+
+    def _try_paged(self, group, series, lengths, grid, cost, ppy):
+        """The paged route of a fused group: its pages resolved against the
+        pool (only missing pages upload) and one launch a page-count bin
+        (``fused.fused_paged_sweep``). The pool's writer lock is held from
+        ``prepare`` until the sweep has enqueued its gathers, so the
+        prefetch thread cannot overwrite a slot in between. Returns the
+        metrics, or None when the pool rejects the group."""
+        pages = self.panel_cache.pages
+        strategy = group[0].strategy
+        with pages.lock:
+            prep = pages.prepare([j.panel_digest for j in group], series,
+                                 fused.paged_fields(strategy))
+            if prep is None:
+                return None
+            pool, tables, info = prep
+            self.pad_bars["paged"] += info["pad_bars_new"]
+            return fused.fused_paged_sweep(
+                strategy, pool, tables, np.asarray(lengths, np.int32), grid,
+                cost=cost, periods_per_year=ppy)
 
     def _submit_best_returns_group(self, group, series, t0: float) -> _Pending:
         """Best-returns jobs (``JobSpec.best_returns``, the reference's

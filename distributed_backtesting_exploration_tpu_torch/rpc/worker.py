@@ -12,11 +12,12 @@ compute side is an :class:`~.executor.Executor`: one serial thread, or
 with ``DBX_PIPELINE=1`` and a two-phase backend a submit thread and a
 collector thread (``DBX_PIPELINE_DEPTH``).
 
-The backend serves top-k, best-returns, walk-forward, digest-only and
-streaming append jobs; a delta-only append (the appended bars alone,
-``append_delta``) whose base panel the backend's cache holds is left for
-the backend to splice, not fetched in full. A job it refuses (a field the
-port does not serve yet: scenario batches) gets no completion and stays
+The backend serves top-k, best-returns, walk-forward, digest-only,
+streaming append and scenario spec-batch jobs (the poll declares
+``accepts_scenario_batch`` as the backend does); a delta-only append (the
+appended bars alone, ``append_delta``) whose base panel the backend's
+cache holds is left for the backend to splice, not fetched in full. A job
+it refuses (a field the port does not serve) gets no completion and stays
 leased, and the dispatcher re-queues it when the lease expires; the other
 jobs of its batch are reported. A batch whose submit or collect raises is
 logged and left leased the same way. On exit the worker drains in order:
@@ -162,7 +163,9 @@ class Worker:
         error."""
         req = pb.JobsRequest(
             worker_id=self.worker_id, chips=self.backend.chips,
-            jobs_per_chip=self.jobs_per_chip, accepts_digest_only=True)
+            jobs_per_chip=self.jobs_per_chip, accepts_digest_only=True,
+            accepts_scenario_batch=getattr(self.backend,
+                                           "accepts_scenario_batch", False))
         try:
             jobs = list(stub.RequestJobs(req, timeout=30.0).jobs)
         except grpc.RpcError as e:

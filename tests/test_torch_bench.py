@@ -38,6 +38,10 @@ def _ref_constants() -> dict:
 REF = _ref_constants()
 TINY = {k: v for k, v in REF["_TINY_ENV"].items()
         if k not in ("DBX_BENCH_CONFIGS", "DBX_BENCH_CACHE")}
+# The paged and scenario configs at a tiny size of their own.
+TINY.update(DBX_BENCH_RAGGED_TICKERS="16", DBX_BENCH_SCENARIO_BARS="96",
+            DBX_BENCH_SCENARIO_N="3", DBX_BENCH_MEGAKERNEL_BARS="64",
+            DBX_BENCH_MEGAKERNEL_K="4")
 FUSED_CONFIGS = ("sma_fused", "bollinger_fused", "bollinger_touch_fused",
                  "momentum_fused", "donchian_fused", "donchian_hl_fused",
                  "vwap_fused", "keltner_fused", "stochastic_fused",
@@ -80,7 +84,9 @@ def test_every_config_reports_a_positive_rate(result):
     assert configs["roofline_stages_boll_full"] > 0.0
     assert configs["walkforward"] > 0.0
     assert configs["streaming_append"] > 0.0
-    assert len(FUSED_CONFIGS) + 3 == 17 == len(bench.CONFIGS)
+    for name in ("ragged_paged", "scenario_sweep", "scenario_megakernel"):
+        assert configs[name] > 0.0, name
+    assert len(FUSED_CONFIGS) + 6 == 20 == len(bench.CONFIGS)
 
 
 @pytest.mark.parametrize("wf_fused", ["0", "1"], ids=["generic", "fused"])
@@ -121,6 +127,36 @@ def test_streaming_append_keys_are_the_references():
     assert sa["wire_bytes_delta"] < sa["wire_bytes_full"]
     assert out["configs"] == {"streaming_append": pytest.approx(
         1.0 / sa["append_s_per_update"])}
+
+
+def test_paged_and_scenario_keys_are_the_references(result):
+    # The reference bench's keys of the three configs (its dispatcher's
+    # e2e and panel-store keys aside: the port has no dispatcher).
+    rp = result["roofline"]["ragged_paged"]
+    for key in ("tickers", "t_max", "t_min", "total_bars", "uniform_bars",
+                "combos", "page_bars", "paged_s_per_sweep",
+                "uniform_s_per_sweep", "paged_vs_uniform_ratio", "ratio_ok",
+                "launches_dense", "launches_paged", "pad_bars_dense",
+                "pad_bars_paged", "pool_bytes", "pool_bytes_per_ticker"):
+        assert key in rp, key
+    assert (rp["tickers"], rp["combos"], rp["t_max"]) == (16, 32, 64)
+    assert rp["pad_bars_paged"] <= rp["pad_bars_dense"]
+    sw = result["roofline"]["scenario_sweep"]
+    for key in ("panels", "bars", "gen_s_per_panel", "panels_per_s",
+                "bar_rate", "digest_deterministic", "panel_bytes",
+                "spec_bytes", "spec_wire_reduction"):
+        assert key in sw, key
+    assert sw["digest_deterministic"] is True
+    assert sw["panel_bytes"] == 8 + 20 * 96 > sw["spec_bytes"]
+    mk = result["roofline"]["scenario_megakernel"]
+    for key in ("scenarios", "bars", "combos", "fused_scn_per_s",
+                "materialized_scn_per_s", "speedup", "speedup_min",
+                "speedup_max", "fused_s", "materialized_s"):
+        assert key in mk, key
+    assert mk["speedup_min"] <= mk["speedup_max"]
+    assert len(mk["fused_s"]) == len(mk["materialized_s"]) >= 3
+    assert [p["k"] for p in mk["by_k_fused"]] == [2, 4]
+    assert all(p["peak_device_bytes"] is None for p in mk["by_k_fused"])
 
 
 def test_sma_stage_keys_are_the_references(result):

@@ -144,10 +144,7 @@ def test_backend_non_integral_grid_takes_generic_path():
 
 
 def _refuse(spec, field, value):
-    if field == "scenario_batch":
-        spec.scenario_batch.add()
-    else:
-        setattr(spec, field, value)
+    setattr(spec, field, value)
 
 
 def _assert_serves_around(refused, good, what, caplog):
@@ -168,7 +165,6 @@ def _assert_serves_around(refused, good, what, caplog):
 @pytest.mark.parametrize("field,value,what", [
     ("strategy", "no_such_strategy", "strategy 'no_such_strategy'"),
     ("panel_digest2", "abc", "second leg"),
-    ("scenario_batch", True, "scenario"),
     ("ohlcv2", b"DBX1", "pairs"),
 ])
 def test_backend_refuses_what_it_does_not_serve(field, value, what, caplog):
@@ -182,7 +178,7 @@ def test_backend_refuses_what_it_does_not_serve(field, value, what, caplog):
 def test_backend_batch_of_refused_jobs_returns_nothing(caplog):
     specs = _specs(synthetic_jobs(3, 64, "sma_crossover", GRID))
     for spec, (field, value) in zip(specs, [("panel_digest2", "abc"),
-                                            ("scenario_batch", True),
+                                            ("strategy", "no_such_strategy"),
                                             ("strategy", "nope")]):
         _refuse(spec, field, value)
     with caplog.at_level("WARNING", logger="dbx.torch.compute"):

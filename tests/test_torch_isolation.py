@@ -59,7 +59,8 @@ def test_every_module_imports_with_jax_blocked():
               "models.trix", "models.rsi", "models.keltner", "models.obv",
               "models.vwap", "models.pairs", "bench", "roofline",
               "ops.stages", "streaming", "streaming.recurrent",
-              "streaming.store"):
+              "streaming.store", "rpc.page_pool", "scenarios",
+              "scenarios.synth", "scenarios.threefry"):
         assert f"{dbxt.__name__}.{m}" in mods
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
