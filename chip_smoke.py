@@ -274,7 +274,30 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    route asked for, counted, and the two routes' blocks bit-equal; then
    the port bench's ``scenario_megakernel`` and ``scenario_sweep``,
    printed.
-9. One JSON line with each kernel entry's (K8: each case's) launches,
+9. Multiple devices on the one card (``parallel/sharding.py``,
+   ``timeshard.py``, ``multihost.py``, ``rpc/slice_worker.py``): first
+   one pair's K7 block alone, in the 1000-pair stack and in a ragged
+   stack, bits compared. (a) The mesh route: a backend on a mesh of the
+   card four times against the meshless backend on each family's 500-job
+   batch (1000 pairs jobs) of its bench grid and on a ragged batch of
+   vwap_reversion (lengths 64..1260, seed 8): every block bit-equal, each
+   entry (and its table kernel) launched 4 times a group, both batches
+   timed twice. (b) ``sharded_cumsum``, ``sharded_ema`` and
+   ``sharded_band_positions`` over 4 shards of 4 x 8192 bars bit-equal to
+   ``prefix_sum``, a one-shard mesh's EMA and ``band_hysteresis_assoc``;
+   each of the 14 ``sharded_*_backtest`` on 4 x 8192 bars, one combo,
+   against the generic sweep (rtol=2e-4, atol=2e-5; macd, trix and pairs
+   at most 2 series flipped, the rest at 2e-3/2e-4), both timed; the
+   reference bench's ``long_context`` (1 x 65537 bars, seed 7, P = 32)
+   time-sharded, generic and on K1, timed and held to each other; one
+   8201-bar momentum job through the mesh backend's time-sharded route
+   against the meshless backend. (c) Two spawned processes, a gloo group
+   and a mesh of the card twice each: ``initialize``, ``host_shard``, the
+   sharded sweep of each rank's share of a 64-ticker panel gathered and
+   bit-equal to one process's, then a ``run`` and a ``run_ts`` round of
+   the slice bit-equal to the single-host backend; each child killed at
+   150 s.
+10. One JSON line with each kernel entry's (K8: each case's) launches,
    error, times, bound and library time (the tile entries also their
    width sweep, wrapper time, build report and SASS count; the table
    kernels each a record of their own; K1-K6 also their launches on the
@@ -282,7 +305,8 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    K8's on the streaming phase's carry_out calls, ``streaming_launches``,
    and every entry on phase 8's paged and scenario sweeps,
    ``paged_launches`` and ``scenario_launches``, each of them but K7's
-   and its tables' launched there); then the JSON result line, last.
+   and its tables' launched there, and K1-K7's on phase 9 (a)'s mesh
+   route, ``mesh_launches``); then the JSON result line, last.
 
 This script imports nothing of JAX and nothing of the JAX package.
 """
@@ -3402,10 +3426,10 @@ def phase_streaming(kernels_mod, compute, wire, pb, data, sweep, models,
 
 PAGED_JOBS = 500
 # Families held to the flip-aware rule, not bit-equality, paged against
-# the whole group's dense stack: vwap's z-table centers the deviation over
-# all the bars of the stack, pad bars included (the reference's rule), and
-# keltner's (N, W, T) tables are held alike.
-FLIP_AWARE_PAGED = ("keltner", "vwap_reversion")
+# the whole group's dense stack: none. Every family's prep is a function of
+# a row's own bars (vwap's deviation is centered over them, fused.row_mean),
+# so all 13 are held bit-equal.
+FLIP_AWARE_PAGED = ()
 PAGED_APPEND_JOBS = 16
 SCENARIO_K = 500
 SCENARIO_PARAMS = {"n_bars": N_BARS, "block": 16, "regimes": 3,
@@ -3582,9 +3606,7 @@ def _paged_families(soft, kernels_mod, compute, fused, pnl, data, page_pool,
                 False)
         # The dense ragged route of the whole group (every row padded to
         # the longest): bit-equal, the preps' prefix sums and centering
-        # being functions of a row's own bars; keltner and vwap_reversion
-        # under the flip-aware rule (vwap centers its deviation over the
-        # pad bars, as the reference does).
+        # being functions of a row's own bars.
         arrays = [compute._stack_field_ragged(series, bars, f)
                   for f in fields]
         _sync(dev)
@@ -3885,6 +3907,456 @@ def phase_paged_scenarios(kernels_mod, compute, fused, pnl, pb, data, bench,
     return paged, scen
 
 
+# --- multiple devices: the mesh route, time sharding, two processes -------
+
+def _bits_off(a: np.ndarray, b: np.ndarray) -> int:
+    """Cells of two f32 arrays whose bits differ."""
+    return int((np.ascontiguousarray(a, np.float32).view(np.int32)
+                != np.ascontiguousarray(b, np.float32).view(np.int32)).sum())
+
+
+def _pairs_three_ways(fused, data, dev, i: int = 123) -> dict:
+    """One pair's K7 block computed three ways: alone, inside the 1000-pair
+    bench stack, and inside a ragged stack (lengths 64..1260, the pair kept
+    at its 1260 bars, as the backend's pairs group stacks them). Returns the
+    cells of the pair's (9, 500) block whose bits differ from the block
+    alone, by way."""
+    y, x = (leg.close for leg in _pairs_legs(data, N_PAIRS, N_BARS, 1))
+    g = _flat_grid(AXES["pairs"])
+
+    def block(yy, xx, tr=None):
+        m = fused.fused_pairs_sweep(yy, xx, g["lookback"], g["z_entry"],
+                                    t_real=tr, cost=COST, device=dev)
+        return torch.stack(list(m)).cpu().numpy()
+
+    lens = np.random.default_rng(8).integers(64, N_BARS + 1, N_PAIRS)
+    lens[i] = N_BARS
+    ry, rx = y.copy(), x.copy()
+    for leg in (ry, rx):
+        for j, n in enumerate(lens):
+            leg[j, n:] = leg[j, n - 1]
+    alone = block(y[i:i + 1], x[i:i + 1])[:, 0]
+    out = {"stack": _bits_off(block(y, x)[:, i], alone),
+           "ragged": _bits_off(block(ry, rx, lens)[:, i], alone)}
+    print(f"multi-device (a) pairs block of pair {i} against the block "
+          f"alone, cells with other bits of {alone.size}: in the "
+          f"{N_PAIRS}-pair stack {out['stack']}, in the ragged stack "
+          f"{out['ragged']}")
+    return out
+
+
+MESH_SHARDS = 4
+TS_BARS = 8192
+LC_BARS = 65537
+# Each time-sharded family's function, fields and one combo (the
+# parameters of the CPU tests, tests/test_torch_timeshard.py).
+TS_FAMILIES = {
+    "sma_crossover": ("sharded_sma_backtest", ("close",),
+                      {"fast": 5, "slow": 21}),
+    "bollinger": ("sharded_bollinger_backtest", ("close",),
+                  {"window": 20, "k": 1.5}),
+    "bollinger_touch": ("sharded_bollinger_touch_backtest", ("close",),
+                        {"window": 20, "k": 1.5}),
+    "rsi": ("sharded_rsi_backtest", ("close",), {"period": 14, "band": 15.0}),
+    "donchian": ("sharded_donchian_backtest", ("close",), {"window": 20}),
+    "donchian_hl": ("sharded_donchian_hl_backtest", ("close", "high", "low"),
+                    {"window": 20}),
+    "stochastic": ("sharded_stochastic_backtest", ("close", "high", "low"),
+                   {"window": 14, "band": 30.0}),
+    "trix": ("sharded_trix_backtest", ("close",), {"span": 8, "signal": 5}),
+    "momentum": ("sharded_momentum_backtest", ("close",), {"lookback": 20}),
+    "keltner": ("sharded_keltner_backtest", ("close", "high", "low"),
+                {"window": 20, "k": 1.5}),
+    "vwap_reversion": ("sharded_vwap_backtest", ("close", "volume"),
+                       {"window": 20, "k": 1.5}),
+    "macd": ("sharded_macd_backtest", ("close",),
+             {"fast": 12, "slow": 26, "signal": 9}),
+    "obv_trend": ("sharded_obv_backtest", ("close", "volume"),
+                  {"window": 20}),
+}
+# The reference's flip-aware families (tests/test_timeshard.py): at most 2
+# series flipped, the rest at SHIFT_RTOL, SHIFT_ATOL.
+TS_FLIP_AWARE = ("macd", "trix", "pairs")
+SLICE_CHILD_S = 150
+
+
+def _mesh_batches(pb, data) -> list:
+    """Phase 9 (a)'s batches: each of the 13 single-asset families' 500
+    jobs and 1000 pairs jobs of 1260 bars on its bench grid, and one
+    ragged batch of vwap_reversion (lengths 64..1260, phase 8 (a)'s rule),
+    as (label, strategy, jobs)."""
+    out = [(s, s, _jobs(pb, data, s, AXES[s], _panels(
+        data, s, N_PAIRS if s == "pairs" else N_TICKERS, 40 + k)))
+        for k, s in enumerate(sorted([*FAMILIES, "sma_crossover"]))]
+    lens = np.random.default_rng(8).integers(64, N_BARS + 1, N_TICKERS)
+    panel = data.synthetic_ohlcv(N_TICKERS, N_BARS, seed=60)
+    grid = {k: pb.GridAxis(values=[float(v) for v in vals])
+            for k, vals in AXES["vwap_reversion"].items()}
+    ragged = [pb.JobSpec(id=f"ragged-{i:04d}", strategy="vwap_reversion",
+                         grid=grid, cost=COST, periods_per_year=252,
+                         ohlcv=data.to_wire_bytes(data.OHLCV(
+                             *(f[i, :n] for f in panel))))
+              for i, n in enumerate(lens)]
+    return out + [("ragged vwap_reversion", "vwap_reversion", ragged)]
+
+
+def _phase9_mesh(kernels_mod, compute, sharding, pb, data, card) -> dict:
+    """(a) The mesh route: every batch through a backend on a mesh of the
+    card four times and through the meshless backend; every block
+    bit-equal, each entry (and its table kernel) launched 4 times a group.
+    Returns the launches of the mesh runs."""
+    mesh = compute.TorchSweepBackend(mesh=sharding.make_mesh(
+        ["cuda:0"] * MESH_SHARDS))
+    _check(mesh.chips == 1, f"a mesh of one card advertises {mesh.chips}")
+    one = compute.TorchSweepBackend(device="cuda")
+    total: dict = {}
+    for label, strategy, jobs in _mesh_batches(pb, data):
+        entry = roofline.ENTRY[strategy]
+        groups = len({len(j.ohlcv).bit_length() for j in jobs})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = {c.job_id: c.metrics for c in one.process(jobs)}
+        one_s = time.perf_counter() - t0
+        kernels_mod.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = {c.job_id: c.metrics for c in mesh.process(jobs)}
+        mesh_s = time.perf_counter() - t0
+        grew = dict(kernels_mod.LAUNCHES)
+        for k, v in grew.items():
+            total[k] = total.get(k, 0) + v
+        _check(set(got) == set(want) == {j.id for j in jobs},
+               f"mesh (a) {label}: completion ids differ")
+        off = [j for j in want if got[j] != want[j]]
+        _check(not off, f"mesh (a) {label}: {len(off)} of {len(want)} blocks "
+               "not bit-equal to the meshless backend's")
+        # Second batches of both, alternating: the first calls above carry
+        # the allocator's growth.
+        again = []
+        for backend in (one, mesh):
+            t0 = time.perf_counter()
+            backend.process(jobs)
+            again.append(time.perf_counter() - t0)
+        need = {entry: MESH_SHARDS * groups}
+        if strategy in TABLE_KERNELS:
+            need[TABLE_KERNELS[strategy]] = MESH_SHARDS * groups
+        for e, n in need.items():
+            _check(grew.get(e, 0) == n, f"mesh (a) {label}: {e} launched "
+                   f"{grew.get(e, 0)} times, {n} expected ({groups} groups)")
+        print(f"multi-device (a) {label}: {len(jobs)} jobs, {groups} groups, "
+              f"mesh of {MESH_SHARDS} shards launches {grew}; every block "
+              f"bit-equal to the meshless backend's; meshless batch "
+              f"{one_s:.4f}, {again[0]:.4f} s, mesh batch {mesh_s:.4f}, "
+              f"{again[1]:.4f} s (first, second) ({card})")
+    return total
+
+
+def _ts_compare(got, want, flip_aware: bool) -> tuple[int, float]:
+    """``(series flipped, the worst error of the rest against its
+    tolerance)``: a series flips where a metric is off by more than 0.01 +
+    1% (only under ``flip_aware``); the rest are held at SHIFT_RTOL,
+    SHIFT_ATOL where ``flip_aware``, else at RTOL, ATOL."""
+    a = {n: getattr(got, n).cpu().numpy().reshape(-1) for n in want._fields}
+    b = {n: getattr(want, n).cpu().numpy().reshape(-1) for n in want._fields}
+    rtol, atol = (SHIFT_RTOL, SHIFT_ATOL) if flip_aware else (RTOL, ATOL)
+    flipped = np.zeros(a["sharpe"].shape, bool)
+    if flip_aware:
+        for n in a:
+            flipped |= np.abs(a[n] - b[n]) > 0.01 + 0.01 * np.abs(b[n])
+    worst = 0.0
+    for n in a:
+        err = np.abs(a[n] - b[n])[~flipped] / (
+            atol + rtol * np.abs(b[n])[~flipped])
+        worst = max(worst, float(err.max(initial=0.0)))
+    return int(flipped.sum()), worst
+
+
+def _ts_hold(label, got, want, flip_aware: bool) -> str:
+    """The reference's rule (tests/test_timeshard.py): every series at
+    RTOL, ATOL; for the flip-aware families at most 2 series flipped, the
+    rest at SHIFT_RTOL, SHIFT_ATOL."""
+    flips, worst = _ts_compare(got, want, flip_aware)
+    _check(flips <= 2, f"{label}: {flips} series flipped")
+    _check(worst <= 1.0, f"{label}: off tolerance ({worst:.3f} x its "
+           "tolerance)")
+    return f"{flips} flipped, worst {worst:.4f} x tolerance"
+
+
+def _median_timed(fn, reps: int = 3):
+    """(result, median seconds) of ``fn`` on the card."""
+    secs, out = [], None
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return out, statistics.median(secs)
+
+
+def _phase9_timeshard(kernels_mod, compute, sharding, timeshard, fused, pb,
+                      data, card) -> None:
+    """(b) The time-sharded primitives bit-equal to their single-device
+    forms, the 14 families against the generic path, the reference bench's
+    long_context three ways, and one 8201-bar momentum job through the
+    backend's route."""
+    from distributed_backtesting_exploration_tpu_torch import models
+    from distributed_backtesting_exploration_tpu_torch.models import pairs
+    from distributed_backtesting_exploration_tpu_torch.ops import (
+        rolling, signals)
+    from distributed_backtesting_exploration_tpu_torch.parallel import sweep
+
+    dev = torch.device("cuda")
+    four = sharding.make_mesh(["cuda:0"] * MESH_SHARDS,
+                              axis_name=timeshard.TIME_AXIS)
+    one = sharding.make_mesh(["cuda:0"], axis_name=timeshard.TIME_AXIS)
+    x = torch.as_tensor(data.synthetic_ohlcv(4, TS_BARS, seed=2).close,
+                        device=dev)
+    _check(torch.equal(timeshard.sharded_cumsum(four, x),
+                       rolling.prefix_sum(x)),
+           "sharded_cumsum differs from prefix_sum")
+    _check(torch.equal(timeshard.sharded_ema(four, x, span=20),
+                       timeshard.sharded_ema(one, x, span=20)),
+           "sharded_ema on 4 shards differs from 1 shard")
+    z = (x - x.mean(dim=1, keepdim=True)) / x.std(dim=1, keepdim=True)
+    valid = torch.arange(TS_BARS, device=dev) >= 19
+    _check(torch.equal(
+        timeshard.sharded_band_positions(four, z, valid, 1.0, 0.0),
+        signals.band_hysteresis_assoc(z, valid, 1.0, 0.0)),
+        "sharded_band_positions differ from band_hysteresis_assoc")
+    print(f"multi-device (b) sharded_cumsum, sharded_ema and "
+          f"sharded_band_positions on 4 x {TS_BARS} bars over "
+          f"{MESH_SHARDS} shards: bit-equal to prefix_sum, a one-shard mesh's "
+          f"EMA and band_hysteresis_assoc")
+    panel = data.synthetic_ohlcv(4, TS_BARS, seed=9)
+    fields = data.OHLCV(*(torch.as_tensor(f, device=dev) for f in panel))
+    for strategy, (fn, cols, params) in TS_FAMILIES.items():
+        got, ts_s = _median_timed(lambda: getattr(timeshard, fn)(
+            four, *(getattr(fields, c) for c in cols), *params.values(),
+            cost=COST))
+        want, gen_s = _median_timed(lambda: sweep.run_sweep(
+            fields, models.get_strategy(strategy),
+            {k: np.float32([v]) for k, v in params.items()}, cost=COST,
+            device=dev))
+        how = _ts_hold(f"multi-device (b) {strategy}", got, want,
+                       strategy in TS_FLIP_AWARE)
+        print(f"multi-device (b) {fn} 4 x {TS_BARS} bars {params}: vs the "
+              f"generic sweep {how}; time-sharded {ts_s:.4f} s, generic "
+              f"{gen_s:.4f} s ({card})")
+    legs = data.synthetic_ohlcv(8, TS_BARS, seed=9).close
+    y, xl = (torch.as_tensor(a, device=dev) for a in (legs[:4], legs[4:]))
+    got, ts_s = _median_timed(lambda: timeshard.sharded_pairs_backtest(
+        four, y, xl, 20, 1.2, cost=COST))
+    want, gen_s = _median_timed(lambda: pairs.run_pairs_sweep(
+        y, xl, {"lookback": np.float32([20]), "z_entry": np.float32([1.2])},
+        cost=COST, device=dev))
+    how = _ts_hold("multi-device (b) pairs", got, want, True)
+    print(f"multi-device (b) sharded_pairs_backtest 4 x {TS_BARS} bars "
+          f"lookback 20 z_entry 1.2: vs the generic sweep {how}; "
+          f"time-sharded {ts_s:.4f} s, generic {gen_s:.4f} s ({card})")
+
+    # The reference bench's long_context three ways.
+    lc = data.synthetic_ohlcv(1, LC_BARS, seed=7)
+    grid = sweep.product_grid(fast=np.arange(5, 13, dtype=np.float32),
+                              slow=np.arange(30, 70, 10, dtype=np.float32))
+    combos = [(int(f), int(s)) for f, s in zip(grid["fast"], grid["slow"])]
+    T_pad = -(-LC_BARS // MESH_SHARDS) * MESH_SHARDS
+    padded = torch.as_tensor(np.concatenate(
+        [lc.close, np.repeat(lc.close[:, -1:], T_pad - LC_BARS, 1)], 1),
+        device=dev)
+    lc_fields = data.OHLCV(*(torch.as_tensor(f, device=dev) for f in lc))
+
+    def sharded():
+        ms = [timeshard.sharded_sma_backtest(four, padded, f, s, cost=COST,
+                                             t_real=LC_BARS)
+              for f, s in combos]
+        return type(ms[0])(*(torch.stack(c, dim=-1) for c in zip(*ms)))
+
+    ts_m, ts_s = _median_timed(sharded)
+    gen_m, gen_s = _median_timed(lambda: sweep.run_sweep(
+        lc_fields, models.get_strategy("sma_crossover"), grid, cost=COST,
+        device=dev))
+    kernels_mod.reset_launch_counts()
+    k1_m, k1_s = _median_timed(lambda: fused.fused_sma_sweep(
+        lc_fields.close, grid["fast"].numpy(), grid["slow"].numpy(),
+        cost=COST, device=dev))
+    _check(kernels_mod.LAUNCHES["fused_sma"] == 3, "long_context: K1 not "
+           "launched")
+    for m in (ts_m, gen_m, k1_m):
+        _check(tuple(m.sharpe.shape) == (1, len(combos))
+               and bool(torch.isfinite(m.sharpe).all()),
+               "long_context: a route's sharpe is not finite (1, 32)")
+    # The closes reach ~4.9e6 over 65537 bars: their f64 prefix sums are
+    # not exact in every order, so the blocks' bits are counted, not held.
+    cs_off = _bits_off(
+        timeshard.sharded_cumsum(four, padded)[:, :LC_BARS].cpu().numpy(),
+        rolling.prefix_sum(lc_fields.close).cpu().numpy())
+    how_g = _ts_hold("long_context time-sharded vs generic", ts_m, gen_m,
+                     False)
+    how_k = _ts_hold("long_context time-sharded vs K1", ts_m, k1_m, False)
+    print(f"multi-device (b) long_context 1 x {LC_BARS} bars x "
+          f"{len(combos)} combos: time-sharded over {MESH_SHARDS} shards "
+          f"{ts_s:.4f} s, generic sweep {gen_s:.4f} s, fused K1 sweep "
+          f"{k1_s:.4f} s (medians of 3); prefix sums with other bits than "
+          f"the whole row's: {cs_off} of {LC_BARS}; time-sharded vs generic "
+          f"{how_g}, vs K1 {how_k} ({card})")
+
+    # One 8201-bar momentum job through the backend's route.
+    mom = data.synthetic_ohlcv(1, 8201, seed=150)
+    axes = {"lookback": np.float32([20.0, 60.0])}
+    jobs = _jobs(pb, data, "momentum", axes, (mom,))
+    mesh_backend = compute.TorchSweepBackend(mesh=sharding.make_mesh(
+        ["cuda:0"] * MESH_SHARDS))
+    kernels_mod.reset_launch_counts()
+    got = mesh_backend.process(jobs)
+    routed = dict(kernels_mod.LAUNCHES)
+    want = compute.TorchSweepBackend(device="cuda").process(jobs)
+    _check(routed.get("momentum", 0) == 0, "the 8201-bar job launched K3: "
+           "it did not take the time-sharded route")
+    wire = compute.wire
+    how = _ts_hold("multi-device (b) 8201-bar momentum job",
+                   _metrics_on(wire, got[0].metrics),
+                   _metrics_on(wire, want[0].metrics), True)
+    print(f"multi-device (b) one 8201-bar momentum job (lookbacks 20, 60) "
+          f"through the mesh backend's time-sharded route: vs the meshless "
+          f"backend (K3) {how}")
+
+
+def _metrics_on(wire, blob):
+    m = wire.metrics_from_bytes(blob)
+    return type(m)(*(torch.from_numpy(np.asarray(f)) for f in m))
+
+
+def _slice_child(rank: int, port: int, out: str) -> None:
+    """(c)'s process ``rank`` of two: a gloo group, a mesh of the card
+    twice, ``host_shard``, the sharded sweep of its share of a 64-ticker
+    panel gathered on rank 0, then one ``run`` and one ``run_ts`` round of
+    the slice. Rank 0 holds every result against one process and writes
+    ``out``."""
+    from distributed_backtesting_exploration_tpu_torch import models
+    from distributed_backtesting_exploration_tpu_torch.parallel import (
+        multihost, sharding, sweep)
+    from distributed_backtesting_exploration_tpu_torch.rpc import (
+        backtesting_pb2 as pb, compute, slice_worker)
+    from distributed_backtesting_exploration_tpu_torch.utils import data
+
+    report = {"rank": rank}
+    try:
+        n = multihost.initialize(f"tcp://127.0.0.1:{port}", world_size=2,
+                                 rank=rank)
+        mine = multihost.host_shard(64)
+        report["world"], report["shard"] = n, [mine.start, mine.stop]
+        mesh = sharding.make_mesh(["cuda:0"] * 2)
+        panel = data.synthetic_ohlcv(64, N_BARS, seed=3)
+        strategy = models.get_strategy("sma_crossover")
+        grid = sweep.product_grid(fast=FAST_AXIS, slow=SLOW_AXIS)
+        m = sharding.sharded_sweep(mesh, data.OHLCV(*(f[mine]
+                                                      for f in panel)),
+                                   strategy, grid, cost=COST)
+        parts = slice_worker._gather(torch.stack(list(m)).cpu().numpy())
+        runner = slice_worker.SliceRunner(mesh)
+        mom = data.synthetic_ohlcv(1, 8201, seed=150)
+        rounds = [("sma_crossover", {"fast": FAST_AXIS, "slow": SLOW_AXIS},
+                   panel, 10),
+                  ("momentum", {"lookback": np.float32([20.0, 60.0])}, mom,
+                   1)]
+        blocks = []
+        for name, axes, src, k in rounds:
+            msg = arrays = None
+            if rank == 0:
+                msg, arrays = slice_worker.group_message(
+                    name, axes, float(np.float32(COST)), 252,
+                    [data.OHLCV(*(f[i] for f in src)) for i in range(k)],
+                    runner)
+            hdr, got = runner.round(msg, arrays)
+            blocks.append((hdr["op"], got))
+        runner.round(slice_worker.STOP if rank == 0 else None)
+        if rank == 0:
+            one = sweep.run_sweep(panel, strategy, grid, cost=COST,
+                                  device="cuda")
+            report["sweep_bit_equal"] = bool(np.array_equal(
+                np.concatenate(parts, axis=1),
+                torch.stack(list(one)).cpu().numpy()))
+            backend = compute.TorchSweepBackend(mesh=mesh)
+            report["rounds"] = []
+            for (op, got), (name, axes, src, k) in zip(blocks, rounds):
+                want = backend.process(_jobs(pb, data, name, axes, (
+                    data.OHLCV(*(f[:k] for f in src)),)))
+                report["rounds"].append(
+                    [op, got == [c.metrics for c in want]])
+            report["chips"], report["shards"] = runner.chips, runner.shards
+        report["ok"] = True
+    finally:
+        if rank == 0 or not report.get("ok"):
+            Path(f"{out}.{rank}").write_text(json.dumps(report))
+
+
+def _phase9_processes(card) -> None:
+    """(c) Two processes on the card (spawned: CUDA does not survive a
+    fork), each with a gloo group and a mesh of the card twice; each child
+    has SLICE_CHILD_S seconds and is killed at them."""
+    import multiprocessing as mp
+    import socket
+    import tempfile
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    out = os.path.join(tempfile.mkdtemp(prefix="dbx-slice-"), "report")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_slice_child, args=(r, port, out))
+             for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + SLICE_CHILD_S
+    for p in procs:
+        p.join(timeout=max(deadline - time.monotonic(), 1))
+    hung = [p for p in procs if p.is_alive()]
+    for p in hung:
+        p.kill()
+        p.join()
+    _check(not hung, f"multi-device (c): {len(hung)} process(es) did not "
+           f"finish in {SLICE_CHILD_S} s")
+    _check(all(p.exitcode == 0 for p in procs), f"multi-device (c): exit "
+           f"codes {[p.exitcode for p in procs]}")
+    report = json.loads(Path(f"{out}.0").read_text())
+    _check(report.get("ok") and report["world"] == 2
+           and report["shard"] == [0, 32], f"multi-device (c): {report}")
+    _check(report["sweep_bit_equal"], "multi-device (c): the two-process "
+           "sweep differs from one process's")
+    _check(report["rounds"] == [["run", True], ["run_ts", True]],
+           f"multi-device (c): rounds {report['rounds']}")
+    print(f"multi-device (c) two processes on the card (gloo, a mesh of "
+          f"the card twice each): initialize 2, host_shard(64) of rank 0 "
+          f"{report['shard']}; the sharded sweep of 64 x {N_BARS} bars x "
+          f"{FAST_AXIS.size * SLOW_AXIS.size} combos bit-equal to one "
+          f"process's; a run round (10 sma_crossover jobs) and a run_ts round "
+          f"(one 8201-bar momentum job) bit-equal to the single-host "
+          f"backend's; the slice advertises {report['chips']} chip(s), "
+          f"{report['shards']} shards; {time.perf_counter() - t0:.1f} s "
+          f"({card})")
+
+
+def phase_multi_device(kernels_mod, compute, fused, pb, data, card) -> dict:
+    """Phase 9, multiple devices on the one card: (a) the mesh route, (b)
+    the time-sharded route and primitives, (c) two processes. Returns the
+    kernel launches of (a)'s mesh runs."""
+    from distributed_backtesting_exploration_tpu_torch.parallel import (
+        sharding, timeshard)
+
+    t0 = time.perf_counter()
+    _pairs_three_ways(fused, data, torch.device("cuda"))
+    launches = _phase9_mesh(kernels_mod, compute, sharding, pb, data, card)
+    t_a = time.perf_counter()
+    _phase9_timeshard(kernels_mod, compute, sharding, timeshard, fused, pb,
+                      data, card)
+    t_b = time.perf_counter()
+    _phase9_processes(card)
+    print(f"multi-device phase wall (s): (a) {t_a - t0:.1f}, (b) "
+          f"{t_b - t_a:.1f}, (c) {time.perf_counter() - t_b:.1f}")
+    return launches
+
+
 def main() -> None:
     card = phase_card()
     from distributed_backtesting_exploration_tpu_torch import bench, models
@@ -3933,6 +4405,11 @@ def main() -> None:
             _check(rec["paged_launches"] > 0 and rec["scenario_launches"] > 0,
                    f"{rec['name']} launched no time on the paged or the "
                    "scenario sweeps")
+    mesh = phase_multi_device(_kernels, compute, fused, pb, data, card)
+    for rec in (k1, *new.values()):
+        rec["mesh_launches"] = mesh.get(rec["name"], 0)
+        _check(rec["mesh_launches"] > 0, f"{rec['name']} launched no time on "
+               "the mesh route")
     print(json.dumps({"kernels": [k1, *new.values(), *k8]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -40,7 +40,12 @@ fast 3..6 x slow 12..36 step 8 as one carrier job through
 ``DBX_SCENARIO_FUSED=0`` (the materialized rung), scenarios/s of each (the
 median of ``max(DBX_BENCH_ITERS // 2, 3)`` legs at K a route, the routes
 alternating, with the speedup of each pair of legs) and the peak device
-bytes of each at K/4, K/2 and K. It prints one JSON line to
+bytes of each at K/4, K/2 and K; ``long_context``, the reference's
+long-context config: one history of ``DBX_BENCH_LC_BARS`` (65537) bars on
+the 32-combo SMA grid fast 5..12 x slow 30..60 step 10, time-sharded over
+a mesh (``DBX_BENCH_LC_SHARDS=n`` shards of the bench's one device, or
+every GPU of a host with two or more) or else the generic sweep on one
+device. It prints one JSON line to
 stdout with the reference's top-level keys:
 
     {"metric": ..., "value": N, "unit": "backtests/sec", "vs_baseline": N,
@@ -94,7 +99,7 @@ from . import device as device_mod
 from . import roofline
 from .models import get_strategy
 from .ops import fused, stages
-from .parallel import sweep, walkforward
+from .parallel import sharding, sweep, timeshard, walkforward
 from .rpc import backtesting_pb2 as pb
 from .rpc import compute, panel_store, wire
 from .rpc.page_pool import PagePool
@@ -145,7 +150,7 @@ FUSED = {
 # the fused sweeps.
 CONFIGS = ("sma_fused", "roofline_stages", *list(FUSED)[1:], "walkforward",
            "streaming_append", "ragged_paged", "scenario_sweep",
-           "scenario_megakernel")
+           "scenario_megakernel", "long_context")
 _WINDOW_AXES = {"fast", "slow", "window", "lookback", "period", "span"}
 
 # (stage, lanes) cases of the SMA scaffold (the reference's bench.py
@@ -173,6 +178,8 @@ class Settings(NamedTuple):
     scenario_n: int = 32
     megakernel_bars: int = 512
     megakernel_k: int = 48
+    lc_bars: int = 65537
+    lc_shards: int = 0          # long_context's shards of the one device
 
 
 def settings_from_env(env) -> Settings:
@@ -192,7 +199,9 @@ def settings_from_env(env) -> Settings:
         scenario_bars=int(env.get("DBX_BENCH_SCENARIO_BARS", 2048)),
         scenario_n=int(env.get("DBX_BENCH_SCENARIO_N", 32)),
         megakernel_bars=int(env.get("DBX_BENCH_MEGAKERNEL_BARS", 512)),
-        megakernel_k=max(int(env.get("DBX_BENCH_MEGAKERNEL_K", 48)), 4))
+        megakernel_k=max(int(env.get("DBX_BENCH_MEGAKERNEL_K", 48)), 4),
+        lc_bars=int(env.get("DBX_BENCH_LC_BARS", 65537)),
+        lc_shards=int(env.get("DBX_BENCH_LC_SHARDS", 0)))
 
 
 def device_info(dev: torch.device) -> dict:
@@ -432,6 +441,60 @@ class _Bench:
             iters=max(self.s.iters // 2, 3),
             warmup=max(self.s.warmup // 3, 2), name="walkforward",
             dev=self.dev)
+
+    def long_context(self) -> None:
+        """The reference bench's long-context config: one history of
+        ``lc_bars`` bars (seed 7) on the 32-combo SMA grid fast 5..12 x
+        slow 30..60 step 10, cost 1e-3; on a mesh (``lc_shards`` shards of
+        the bench's device, or every GPU of a host with two or more) each
+        combo one time-sharded backtest
+        (:func:`~.parallel.timeshard.sharded_sma_backtest`, the bars
+        right-padded to a mesh multiple with their real length passed),
+        else the generic sweep on the bench's device. Backtests are
+        combos."""
+        bars = self.s.lc_bars
+        mesh = None
+        if self.s.lc_shards > 0:
+            mesh = sharding.make_mesh([self.dev] * self.s.lc_shards)
+        elif self.dev.type == "cuda" and torch.cuda.device_count() > 1:
+            mesh = sharding.make_mesh()
+        grid = sweep.product_grid(fast=np.arange(5, 13, dtype=np.float32),
+                                  slow=np.arange(30, 70, 10,
+                                                 dtype=np.float32))
+        P = sweep.grid_size(grid)
+        panel = data.synthetic_ohlcv(1, bars, seed=7)
+        if mesh is not None and mesh.size > 1:
+            tmesh = sharding.Mesh(mesh.devices, timeshard.TIME_AXIS)
+            T_pad = -(-bars // tmesh.size) * tmesh.size
+            close = torch.as_tensor(np.concatenate(
+                [panel.close, np.repeat(panel.close[:, -1:], T_pad - bars,
+                                        axis=1)], axis=1),
+                device=tmesh.devices[0])
+            combos = [(int(f), int(s)) for f, s in zip(grid["fast"],
+                                                        grid["slow"])]
+            t_real = None if T_pad == bars else bars
+
+            def run():
+                return torch.stack([timeshard.sharded_sma_backtest(
+                    tmesh, close, f, s, cost=COST, t_real=t_real).sharpe
+                    for f, s in combos], dim=-1)
+            route = f"time-sharded over {tmesh.size} shards"
+        else:
+            fields = data.OHLCV(*(torch.as_tensor(f, device=self.dev)
+                                  for f in panel))
+            strategy = get_strategy("sma_crossover")
+
+            def run():
+                return sweep.run_sweep(fields, strategy, grid, cost=COST,
+                                       device=self.dev).sharpe
+            route = "generic sweep on one device"
+        self.rates["long_context"] = _measure(
+            run, P, iters=max(self.s.iters // 2, 3),
+            warmup=max(self.s.warmup // 3, 2), name="long_context",
+            dev=self.dev)
+        self.roofline["long_context"] = {
+            "bars": bars, "combos": P, "route": route,
+            "s_per_sweep": P / self.rates["long_context"]}
 
     def streaming_append(self) -> None:
         """The reference bench's streaming A/B: the same ΔT-bar update
@@ -700,7 +763,7 @@ def run(s: Settings) -> dict:
         elif name == "walkforward":
             b.walkforward()
         elif name in ("streaming_append", "ragged_paged", "scenario_sweep",
-                      "scenario_megakernel"):
+                      "scenario_megakernel", "long_context"):
             getattr(b, name)()
         else:
             b.fused_config(name)

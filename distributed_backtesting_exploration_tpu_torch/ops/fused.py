@@ -356,22 +356,28 @@ def _check_t_real(t_real, N: int, T: int) -> np.ndarray:
     return tr.astype(np.int32)
 
 
-def row_mean(close: torch.Tensor, t_real: np.ndarray) -> torch.Tensor:
-    """The ``(N, 1)`` mean of each row's ``t_real`` real bars, summed in f64,
-    divided by ``t_real`` and rounded once: the centering of the Bollinger
-    preps. Where the reference's ``_fused_boll_call`` centers a ragged stack
-    over all its bars, pad bars included, this mean is a function of the
-    row's own bars, on any device and whatever the rows and bars stacked
-    with it (a sum of f32 prices is exact in f64 in any order); on a full
-    row it is :func:`~.rolling.mean_f64`'s, the generic model's centering.
+def row_mean(x: torch.Tensor, t_real: np.ndarray) -> torch.Tensor:
+    """The mean of each row's ``t_real`` real bars along the last axis, kept
+    (``(N, 1)`` of an ``(N, T)`` stack, ``(N, W, 1)`` of an ``(N, W, T)``
+    table), summed in f64, divided by ``t_real`` and rounded once: the
+    centering of the Bollinger preps and of the VWAP deviation. Where the
+    reference's ``_fused_boll_call`` and ``_fused_vwap_call`` center a
+    ragged stack over all its bars, pad bars included, this mean is a
+    function of the row's own bars, on any device and whatever the rows and
+    bars stacked with it: a sum of f32 values whose exponents span less
+    than 2**29 is exact in f64 in any order (prices always; a deviation
+    unless one bar's is below 2**-29 of the largest, and then the f64 sums
+    differ by one f64 rounding, far below the f32 rounding of the mean).
+    On a full row it is :func:`~.rolling.mean_f64`'s, the generic model's
+    centering.
     """
-    T = close.shape[1]
-    tr = torch.as_tensor(np.asarray(t_real, np.int64),
-                         device=close.device)[:, None]
-    bars = torch.arange(T, device=close.device)[None, :]
-    zero = torch.zeros((), dtype=torch.float64, device=close.device)
-    total = torch.where(bars < tr, close.double(), zero).sum(1, keepdim=True)
-    return (total / tr).to(close.dtype)
+    T = x.shape[-1]
+    tr = torch.as_tensor(np.asarray(t_real, np.int64), device=x.device)
+    tr = tr.reshape(-1, *([1] * (x.ndim - 1)))
+    bars = torch.arange(T, device=x.device)
+    zero = torch.zeros((), dtype=torch.float64, device=x.device)
+    total = torch.where(bars < tr, x.double(), zero).sum(-1, keepdim=True)
+    return (total / tr).to(x.dtype)
 
 
 def _check_launch(name: str, dev: torch.device, P: int,
@@ -1437,17 +1443,21 @@ def keltner_z_table(close, high, low, windows: np.ndarray) -> torch.Tensor:
                        torch.zeros((), dtype=dev.dtype, device=dev.device))
 
 
-def vwap_z_table(close, volume, windows: np.ndarray) -> torch.Tensor:
+def vwap_z_table(close, volume, windows: np.ndarray,
+                 t_real=None) -> torch.Tensor:
     """The ``(N, W, T)`` z-table of the close's deviation from its rolling
     VWAP, one row per distinct window (the reference's ``_fused_vwap_call``
-    prep, op for op): the deviation is 0 before ``t = w - 1`` and where the
-    window's volume is not above 1e-12; its z-score is centered with the
-    deviation's mean over all T bars of the panel (a ragged group's pad
-    bars included, as the reference centers over the stacked panel),
-    :func:`~.rolling.mean_f64`'s as the generic path's; z is 0 before ``t
-    = w - 1``. The prefix sums are :func:`~.rolling.prefix_sum`'s."""
+    prep, op for op but for the centering): the deviation is 0 before ``t =
+    w - 1`` and where the window's volume is not above 1e-12; its z-score is
+    centered with the deviation's mean over each row's own ``t_real`` bars
+    (:func:`row_mean`; all T where ``t_real`` is None), where the reference
+    centers over all the bars of the stacked panel, a ragged group's pad
+    bars included; z is 0 before ``t = w - 1``. The prefix sums are
+    :func:`~.rolling.prefix_sum`'s. So a row's z-table is a function of its
+    own bars, whatever the rows and bars stacked with it."""
+    N, T = close.shape
     w, fw = _windows_col(close.device, windows)
-    t = torch.arange(close.shape[1], device=close.device)
+    t = torch.arange(T, device=close.device)
     warm_ok = t[None, :] >= w[:, None] - 1                      # (W, T)
     zero = torch.zeros((), dtype=close.dtype, device=close.device)
     pv = _lagged_window_sum(rolling.prefix_sum(close * volume, 1), w)
@@ -1455,7 +1465,7 @@ def vwap_z_table(close, volume, windows: np.ndarray) -> torch.Tensor:
     dev = torch.where(warm_ok & (v > _EPS),
                       close[:, None, :] - pv / (v + _EPS), zero)
     m = _lagged_window_sum(rolling.prefix_sum(dev, 2), w) / fw
-    xc = dev - rolling.mean_f64(dev, 2)
+    xc = dev - row_mean(dev, _check_t_real(t_real, N, T))
     s1 = _lagged_window_sum(rolling.prefix_sum(xc, 2), w)
     s2 = _lagged_window_sum(rolling.prefix_sum(xc * xc, 2), w)
     var = ((s2 - s1 * s1 / fw) / fw).clamp_min(0.0)
@@ -1467,7 +1477,9 @@ def pairs_tables(y_close, x_close, windows: np.ndarray):
     """The ``(N, W, T)`` spread z-table and hedged-return table of each
     pair and distinct lookback (the reference's ``_fused_pairs_call`` prep,
     op for op). Rolling OLS of y on x from the windowed moments of the legs
-    centered by their means over all T bars: ``beta = cov / (var + 1e-12)``,
+    centered by their means over all T bars (summed in f64 and rounded once,
+    :func:`~.rolling.mean_f64`, as the generic model's
+    ``rolling_ols``): ``beta = cov / (var + 1e-12)``,
     ``var = max(sxx - sx*sx/w, 0)``, ``alpha = (sy/w + my) - beta*(sx/w +
     mx)``; during the OLS warmup (``t < w - 1``) beta is 0 and the spread is
     exactly y. The spread's z-score: moments of the spread centered by its
@@ -1478,8 +1490,8 @@ def pairs_tables(y_close, x_close, windows: np.ndarray):
     ``torch.mean``'s."""
     y, x = y_close, x_close
     w, fw = _windows_col(y.device, windows)
-    return _pairs_z_hr(y, x, x.mean(dim=1, keepdim=True),
-                       y.mean(dim=1, keepdim=True), w, fw,
+    return _pairs_z_hr(y, x, rolling.mean_f64(x, 1), rolling.mean_f64(y, 1),
+                       w, fw,
                        lambda s: torch.cumsum(s, dim=-1),
                        lambda s: s.mean(dim=-1, keepdim=True))
 
@@ -1611,11 +1623,13 @@ def pairs_tables_plan(T: int, W: int) -> tuple[int, int]:
 
 def pairs_sweep_tables(y, x, windows: np.ndarray):
     """K7's tables on the legs' device: :func:`pairs_tables` (torch ops) on
-    the CPU, :func:`pairs_tables_cuda` on the card from the legs' means in
-    torch."""
+    the CPU, :func:`pairs_tables_cuda` on the card from the legs' means
+    (:func:`~.rolling.mean_f64`, the generic model's centering of the
+    legs, the same bits on any device and stack)."""
     if y.device.type == "cpu":
         return pairs_tables(y, x, windows)
-    return pairs_tables_cuda(y, x, x.mean(dim=1), y.mean(dim=1),
+    return pairs_tables_cuda(y, x, rolling.mean_f64(x, 1)[:, 0],
+                             rolling.mean_f64(y, 1)[:, 0],
                              *_to(y.device, windows.astype(np.int32)))
 
 
@@ -1868,8 +1882,8 @@ def fused_vwap_sweep(close, volume, window, k, *, t_real=None,
     close, volume = _panel(dev, close, volume)
     m = _band_table_sweep(
         close, window, k, ("window", "k"), -1.0,
-        lambda w: vwap_z_table(close, volume, w), t_real=t_real, cost=cost,
-        periods_per_year=periods_per_year, warm_scale=2.0)
+        lambda w: vwap_z_table(close, volume, w, t_real), t_real=t_real,
+        cost=cost, periods_per_year=periods_per_year, warm_scale=2.0)
     return _carry_out_tail(m, carry_out, "vwap_reversion",
                            {"close": close, "volume": volume},
                            {"window": window, "k": k}, cost=cost,

@@ -131,13 +131,15 @@ def rolling_ols(y: Tensor, x: Tensor, window, *, eps: float = 1e-12,
                 fill: float = math.nan) -> tuple[Tensor, Tensor]:
     """Rolling least squares of ``y`` on ``x`` with an intercept, from
     windowed moments of the series-centered legs (the reference's op
-    order): ``beta = cov / (var + eps)`` with ``cov = sxy - sx*sy/w`` and
+    order; each leg centered by :func:`mean_f64`, so the same bits on any
+    device and shape, and the time-sharded pairs backtest's blockwise f64
+    means give the same): ``beta = cov / (var + eps)`` with ``cov = sxy - sx*sy/w`` and
     ``var = max(sxx - sx*sx/w, 0)``, ``alpha = (sy/w + my) - beta*(sx/w +
     mx)``. Returns ``(alpha, beta)``, each broadcast of ``y``, ``x`` and the
     window; warmup bars ``t < w - 1`` hold ``fill``."""
     w = _as_window(window, y)
-    mx = x.mean(dim=-1, keepdim=True)
-    my = y.mean(dim=-1, keepdim=True)
+    mx = mean_f64(x)
+    my = mean_f64(y)
     xc, yc = x - mx, y - my
     sx = rolling_sum(xc, window)
     sy = rolling_sum(yc, window)

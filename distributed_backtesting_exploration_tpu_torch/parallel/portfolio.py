@@ -11,9 +11,8 @@ Semantics: the book's net return per bar is ``sum_i w_i * net_i[t]``,
 .backtest_prefix`) and ``w`` normalized to unit gross exposure; the book
 is additive (equity ``1 + cumsum``), as the sweep engine's equity is. The
 weighted sums and the ``(N, T) x (T, N)`` correlation product are plain
-``einsum``/``matmul`` calls (TF32 is off, :mod:`..device`). The
-reference's ``sharded_portfolio_returns`` (one ``psum`` across chips)
-belongs to the multi-device slice.
+``einsum``/``matmul`` calls (TF32 is off, :mod:`..device`).
+:func:`sharded_portfolio_returns` splits the book over a mesh of devices.
 """
 
 from __future__ import annotations
@@ -160,3 +159,37 @@ def avg_pairwise_correlation(corr: Tensor) -> Tensor:
     n = corr.shape[0]
     off = corr.sum() - torch.trace(corr)
     return off / float(max(n * (n - 1), 1))
+
+
+def sharded_portfolio_returns(mesh, close, positions, *, weights=None,
+                              cost: float = 0.0):
+    """:func:`portfolio_returns` with the book's tickers split over a
+    :class:`~.sharding.Mesh`: each shard prices its slice on its device and
+    reduces it to a weighted partial sum, and one sum in shard order gives
+    the portfolio series (the reference's ``psum``). ``N`` must divide by
+    the mesh's size (pad the book with zero-weight tickers otherwise).
+    Returns the same ``(net, equity, exposure)`` triple, on shard 0's
+    device."""
+    from . import sharding
+
+    n = int(close.shape[0])
+    if n % mesh.size:
+        raise ValueError(
+            f"N={n} tickers not divisible by the {mesh.size}-way "
+            f"{mesh.axis_name!r} axis; pad the book with zero-weight tickers")
+    cpu = torch.device("cpu")
+    w = _normalize_weights(weights, n, cpu)
+    closes = sharding.shard_rows(mesh, device_mod.as_tensor(close,
+                                                            torch.float32,
+                                                            cpu))
+    pos = sharding.shard_rows(mesh, device_mod.as_tensor(positions,
+                                                         torch.float32, cpu))
+    ws = sharding.shard_rows(mesh, w)
+    nets, exps = [], []
+    for c, p, wb in zip(closes, pos, ws):
+        res = pnl_mod.backtest_prefix(c, p, cost=cost)
+        nets.append(torch.einsum("n,nt->t", wb, res.returns))
+        exps.append(torch.einsum("n,nt->t", wb, p))
+    net = sharding.total(mesh, nets)
+    exposure = sharding.total(mesh, exps)
+    return net, 1.0 + torch.cumsum(net, dim=-1), exposure

@@ -66,6 +66,22 @@ a logged warning naming the field and no completion, so it stays leased
 and the dispatcher re-queues it when the lease runs out, while the other
 jobs of its batch are served. Nothing is computed some other way.
 
+Multiple devices (the reference's mesh route): a backend given a
+:class:`~..parallel.sharding.Mesh` (``TorchSweepBackend(mesh=...)``; by
+default a mesh of every local GPU where there are two or more, and none on
+one card) pads each group's rows to a multiple of the mesh with repeat-last
+rows, runs the group's runner on each shard's rows on that shard's device
+and concatenates the metrics in shard order (:meth:`~TorchSweepBackend.
+_mesh_call`); pad rows are computed and never reported. That covers the
+fused sweeps of the 13 single-asset families (ragged ``t_real`` split by
+shard), the generic sweep (:func:`~..parallel.sharding.sharded_sweep`),
+fused and generic pairs, the walk-forward refits (fused-train, generic and
+pairs), top-k and best-returns. A long-context group, fewer tickers than
+shards with a history longer than ``_LONG_CONTEXT_BARS``, shards its bars
+instead (:mod:`..parallel.timeshard`, one composed backtest a combo; the
+route of the reference's ``_submit_timeshard_groups``). The paged route and
+the scenario route stay meshless, as in the reference.
+
 This module imports no ``grpc``: the worker injects the fetcher.
 """
 
@@ -86,7 +102,9 @@ from ..models import base as models_base
 from ..models import pairs as pairs_mod
 from ..ops import fused
 from ..ops.metrics import Metrics, metric_sign
+from ..parallel import sharding
 from ..parallel import sweep as sweep_mod
+from ..parallel import timeshard
 from ..parallel import walkforward
 from ..scenarios import synth
 from ..streaming import recurrent
@@ -226,6 +244,122 @@ def _fused_spec(strategy: str) -> _FusedSpec:
 # name and the flat grid.
 _FUSED_STRATEGIES = {s: _fused_spec(s) for s in fused._PAGED_FAMILIES}
 _PAIRS = "pairs"
+
+
+class _TimeshardSpec(NamedTuple):
+    """One time-sharded (long-context) routing row (the reference's
+    ``_TimeshardSpec``): the positional parameter order of the sharded
+    backtest, its name in :mod:`..parallel.timeshard`, and whether its
+    windows must fit one block (the EMA families carry O(1) state and have
+    no such bound). It takes the OHLCV columns of the family's fused row
+    (``_FUSED_STRATEGIES``), in their order."""
+
+    params: tuple
+    fn_name: str
+    halo_bound: bool = True
+
+
+_TIMESHARD_STRATEGIES = {
+    "sma_crossover": _TimeshardSpec(("fast", "slow"), "sharded_sma_backtest"),
+    "bollinger": _TimeshardSpec(("window", "k"), "sharded_bollinger_backtest"),
+    "bollinger_touch": _TimeshardSpec(("window", "k"),
+                                      "sharded_bollinger_touch_backtest"),
+    "momentum": _TimeshardSpec(("lookback",), "sharded_momentum_backtest"),
+    "donchian": _TimeshardSpec(("window",), "sharded_donchian_backtest"),
+    "donchian_hl": _TimeshardSpec(("window",), "sharded_donchian_hl_backtest"),
+    "rsi": _TimeshardSpec(("period", "band"), "sharded_rsi_backtest",
+                          halo_bound=False),
+    "stochastic": _TimeshardSpec(("window", "band"),
+                                 "sharded_stochastic_backtest"),
+    "keltner": _TimeshardSpec(("window", "k"), "sharded_keltner_backtest"),
+    "macd": _TimeshardSpec(("fast", "slow", "signal"), "sharded_macd_backtest",
+                           halo_bound=False),
+    "trix": _TimeshardSpec(("span", "signal"), "sharded_trix_backtest",
+                           halo_bound=False),
+    "vwap_reversion": _TimeshardSpec(("window", "k"), "sharded_vwap_backtest"),
+    "obv_trend": _TimeshardSpec(("window",), "sharded_obv_backtest"),
+}
+
+# Every combo of a time-sharded group runs its own composed backtest; the
+# reference caps a group's combos so a huge grid cannot stall a batch.
+_TIMESHARD_MAX_COMBOS = 128
+
+
+def _timeshard_window_reason(wins, n_combos: int, t_min: int, n_dev: int, *,
+                             halo_bound: bool = True,
+                             what: str = "window") -> str | None:
+    """The grid gates of every time-sharded route (single-asset, pairs and
+    the slice worker): the combo cap, integral windows >= 1, and a window
+    that fits one block of the shortest history."""
+    wins = np.asarray(wins, np.float64)
+    if n_combos == 0 or wins.size == 0:
+        return "empty grid"
+    if n_combos > _TIMESHARD_MAX_COMBOS:
+        return (f"{n_combos} grid combos exceed the per-group cap of "
+                f"{_TIMESHARD_MAX_COMBOS}")
+    if not np.allclose(wins, np.round(wins)):
+        return f"non-integral {what} values"
+    if wins.min() < 1:
+        return f"{what} values below 1"
+    if halo_bound:
+        block = -(-int(t_min) // n_dev)
+        if int(wins.max()) > block:
+            return (f"max {what} {int(wins.max())} exceeds the {block}-bar "
+                    "per-shard block; the halo exchange needs the window to "
+                    "fit one neighbor block")
+    return None
+
+
+def timeshard_route_reason(strategy: str, axes, lengths,
+                           n_dev: int) -> str | None:
+    """None when a long-context single-asset group can take the
+    time-sharded backtests over ``n_dev`` shards; otherwise why not. Shared
+    by the backend and the slice worker."""
+    fam = _TIMESHARD_STRATEGIES.get(strategy)
+    if fam is None:
+        return f"strategy {strategy!r} has no time-sharded backtest"
+    if set(axes) != set(fam.params):
+        return (f"grid axes {sorted(axes)} do not match the time-sharded "
+                f"contract {sorted(fam.params)}")
+    prod = sweep_mod.product_grid(**axes)
+    n_combos = sweep_mod.grid_size(prod)
+    spec = _FUSED_STRATEGIES[strategy]
+    wins = np.concatenate([np.asarray(axes[a], np.float64)
+                           for a in spec.window_axes])
+    reason = _timeshard_window_reason(
+        wins, n_combos, min(lengths), n_dev, halo_bound=fam.halo_bound,
+        what=f"window ({'/'.join(spec.window_axes)})")
+    if reason is not None:
+        return reason
+    if strategy == "sma_crossover":
+        if (np.round(prod["fast"].numpy()) >= np.round(
+                prod["slow"].numpy())).any():
+            return "grid contains fast >= slow combos"
+    if float(wins.max()) > spec.max_window:
+        return (f"max window {int(wins.max())} exceeds the channel view "
+                f"bound {spec.max_window}")
+    return None
+
+
+def timeshard_combos(strategy: str, axes) -> tuple:
+    """The per-combo parameter tuples of a time-sharded sweep in the DBXM
+    (product_grid) column order: ints for the window axes, floats
+    otherwise."""
+    fam = _TIMESHARD_STRATEGIES[strategy]
+    prod = {k: v.numpy() for k, v in sweep_mod.product_grid(**axes).items()}
+    ints = set(_FUSED_STRATEGIES[strategy].window_axes)
+    return tuple(tuple(int(round(float(prod[p][i]))) if p in ints
+                       else float(prod[p][i]) for p in fam.params)
+                 for i in range(sweep_mod.grid_size(prod)))
+
+
+def default_mesh(device) -> sharding.Mesh | None:
+    """The backend's mesh when none is given: every local GPU where there
+    are two or more and the backend runs on CUDA, else None."""
+    if (torch.device(device).type == "cuda" and torch.cuda.is_available()
+            and torch.cuda.device_count() > 1):
+        return sharding.make_mesh()
+    return None
 
 
 
@@ -380,7 +514,10 @@ def _empty(group, t0: float) -> _Pending:
 
 class TorchSweepBackend:
     """Two-phase sweep backend on one device (``"cuda"`` unless the caller
-    asks for ``"cpu"``).
+    asks for ``"cpu"``), or over a :class:`~..parallel.sharding.Mesh`
+    (``mesh``; results gathered on its first device, which is then the
+    backend's ``device``). Where no mesh is given, a host with two or more
+    GPUs gets a mesh of all of them (:func:`default_mesh`), one card none.
 
     ``panel_cache`` holds decoded panels, their device blocks and the page
     pool by digest; ``carry_store`` the streaming appends' carry
@@ -408,12 +545,24 @@ class TorchSweepBackend:
     # kept so that a mixed fleet routes a group the same way on either
     # worker.
     _WF_FUSED_MIN_COMBOS = 512
+    # A group with fewer tickers than the mesh has shards and a history
+    # longer than this takes the time-sharded route. The reference's value
+    # (its fused kernels' VMEM bar cap, which the Hopper kernels do not
+    # have), kept so that a mixed fleet routes a group the same way.
+    _LONG_CONTEXT_BARS = 8192
 
-    def __init__(self, *, device: str | torch.device =
-                 device_mod.DEFAULT_DEVICE,
+    def __init__(self, *, device: str | torch.device | None = None,
                  panel_cache: PanelCache | None = None,
-                 carry_store: CarryStore | None = None):
+                 carry_store: CarryStore | None = None,
+                 mesh: sharding.Mesh | None = None):
+        if device is None:
+            device = (mesh.devices[0] if mesh is not None
+                      else device_mod.DEFAULT_DEVICE)
         self.device = device_mod.resolve(device)
+        self.mesh = default_mesh(self.device) if mesh is None else mesh
+        if self.mesh is not None and self.device != self.mesh.devices[0]:
+            raise ValueError(f"device {self.device} is not the mesh's first "
+                             f"device {self.mesh.devices[0]}")
         self.panel_cache = (PanelCache() if panel_cache is None
                             else panel_cache)
         self.carry_store = (CarryStore(device=self.device)
@@ -421,7 +570,9 @@ class TorchSweepBackend:
         if self.panel_cache.device is None:
             self.panel_cache.device = self.device
         self.payload_fetcher: Callable[[str], bytes] | None = None
-        self.use_paged = fused.paged_enabled()
+        # The paged route is meshless, as the reference's (its page pool
+        # lives on one device).
+        self.use_paged = fused.paged_enabled() and self.mesh is None
         self.decodes = 0
         self.appends = {"carry_hit": 0, "full_reprice": 0}
         self.advances = 0
@@ -434,8 +585,11 @@ class TorchSweepBackend:
 
     @property
     def chips(self) -> int:
-        """Device count to advertise to the dispatcher."""
-        return 1
+        """Device count to advertise to the dispatcher: the mesh's distinct
+        devices (1 without a mesh). A mesh that lists one card four times
+        (a test and smoke construct) advertises 1, so the worker takes no
+        leases it cannot run in parallel."""
+        return 1 if self.mesh is None else self.mesh.distinct
 
     @property
     def accepts_scenario_batch(self) -> bool:
@@ -916,16 +1070,30 @@ class TorchSweepBackend:
         return _Pending(list(jobs), n_real, t0, host, ready, "topk", metric)
 
     def _submit_group(self, group, series, t0: float, *,
-                      allow_paged: bool = True) -> list[_Pending]:
+                      allow_paged: bool = True,
+                      long_context: bool = True) -> list[_Pending]:
         """A single-asset group: its fused sweep, or the generic sweep where
         the kernel does not take its grid. A fused group whose jobs all
         carry digests goes through the page pool (:meth:`_try_paged`); where
         the pool rejects it, through the dense stacks, a ragged group first
         split again by the power-of-two length bucket (the dense route's
-        pad bound). Returns the group's pending entries."""
+        pad bound). On a mesh, a long-context group first takes the
+        time-sharded route (:meth:`_route_timeshard`) unless
+        ``long_context`` is False (its remainder, already refused). Returns
+        the group's pending entries."""
         lengths = [s.n_bars for s in series]
         job0 = group[0]
         axes = wire.grid_from_proto(job0.grid)
+        if long_context and self._long_context(group, lengths):
+            pending, rest = self._route_timeshard(group, series, lengths,
+                                                  t0, axes)
+            if not rest:
+                return pending
+            # The remainder restarts the clock and keeps the other routes.
+            return pending + self._submit_group(
+                [group[i] for i in rest], [series[i] for i in rest],
+                time.perf_counter(), allow_paged=allow_paged,
+                long_context=False)
         grid = sweep_mod.product_grid(**axes)
         cost = float(job0.cost)
         ppy = job0.periods_per_year or 252
@@ -967,17 +1135,126 @@ class TorchSweepBackend:
                 if ragged:
                     self.pad_bars["dense"] += sum(max(lengths) - t
                                                   for t in lengths)
-                m = spec.run(fields, g, t_real=t_real, cost=cost,
-                             periods_per_year=ppy, device=self.device)
+                if self.mesh is None:
+                    m = spec.run(fields, g, t_real=t_real, cost=cost,
+                                 periods_per_year=ppy, device=self.device)
+                else:
+                    m = self._mesh_call(
+                        lambda blks, tr, dev: spec.run(
+                            dict(zip(spec.fields, blks)), g, t_real=tr,
+                            cost=cost, periods_per_year=ppy, device=dev),
+                        [fields[f] for f in spec.fields], t_real)
         else:
             log.warning("jobs %s (%s) take the generic path: %s",
                         [j.id for j in group], job0.strategy, demotion)
             batch, _, mask = data_mod.pad_and_stack(series)
-            m = sweep_mod.run_sweep(
-                batch, models_base.get_strategy(job0.strategy), grid,
-                cost=cost, bar_mask=mask, periods_per_year=ppy,
-                device=self.device)
+            strategy = models_base.get_strategy(job0.strategy)
+            if self.mesh is None:
+                m = sweep_mod.run_sweep(batch, strategy, grid, cost=cost,
+                                        bar_mask=mask, periods_per_year=ppy,
+                                        device=self.device)
+            else:
+                m = sharding.sharded_sweep(self.mesh, batch, strategy, grid,
+                                           cost=cost, bar_mask=mask,
+                                           periods_per_year=ppy)
         return [self._finish_group(group, m, t0, len(group), job0)]
+
+    def _mesh_call(self, runner, row_arrays, t_real=None):
+        """Run ``runner(blocks, t_real_block, device) -> Metrics`` (or a
+        tuple of row tensors) with the group's rows split over the mesh (the
+        reference's ``_mesh_call``): the rows of ``row_arrays`` (numpy or
+        tensors) padded to a multiple of the mesh by repeating the last row,
+        shard ``i``'s block on ``mesh.devices[i]``, its lengths from
+        ``t_real`` (numpy, or None); the outputs concatenated in shard order
+        on the backend's device and cut to the real rows, so pad rows are
+        computed and never reported. Each shard's launches queue on its own
+        device, so shards on distinct cards run at once."""
+        mesh = self.mesh
+        n = int(row_arrays[0].shape[0])
+        n_pad = sharding.pad_tickers(n, mesh.size)
+        per = n_pad // mesh.size
+        blocks = [sharding.shard_rows(mesh, a) for a in row_arrays]
+        tr = (None if t_real is None else
+              sharding.pad_rows(np.asarray(t_real, np.int32), n_pad))
+        parts = [runner([b[i] for b in blocks],
+                        None if tr is None else tr[i * per:(i + 1) * per],
+                        dev)
+                 for i, dev in enumerate(mesh.devices)]
+        out = [sharding.gather(mesh, f)[:n] for f in zip(*parts)]
+        return type(parts[0])(*out) if isinstance(parts[0], Metrics) \
+            else tuple(out)
+
+    def _long_context(self, group, lengths) -> bool:
+        """The time-sharded route's trigger: a mesh of two or more shards,
+        fewer tickers than shards, a history longer than
+        ``_LONG_CONTEXT_BARS``."""
+        return (self.mesh is not None and self.mesh.size >= 2
+                and len(group) < self.mesh.size
+                and max(lengths) > self._LONG_CONTEXT_BARS)
+
+    def _route_timeshard(self, group, series, lengths, t0, axes):
+        """A long-context group on the time-sharded route: the whole group
+        where :func:`timeshard_route_reason` allows it; otherwise, gated
+        job by job (one short job must not drag the long ones off the
+        route, and a job within ``_LONG_CONTEXT_BARS`` keeps the fused
+        route), the jobs it allows. Returns ``(pending, indices of the jobs
+        left to the other routes)``."""
+        strategy = group[0].strategy
+        n_dev = self.mesh.size
+        reason = timeshard_route_reason(strategy, axes, lengths, n_dev)
+        if reason is None:
+            ok = list(range(len(group)))
+        else:
+            ok = [i for i, t in enumerate(lengths)
+                  if t > self._LONG_CONTEXT_BARS and timeshard_route_reason(
+                      strategy, axes, [t], n_dev) is None]
+        rest = [i for i in range(len(group)) if i not in set(ok)]
+        if not ok:
+            log.warning("jobs %s (%s) are long-context (%d bars) but not "
+                        "time-shardable (%s); they take the other routes",
+                        [j.id for j in group], strategy, max(lengths),
+                        reason)
+            return [], rest
+        log.info("jobs %s (%s) routed to the time-sharded long-context path "
+                 "(%d bars over %d shards)%s", [group[i].id for i in ok],
+                 strategy, max(lengths[i] for i in ok), n_dev,
+                 "" if not rest else f"; {[group[i].id for i in rest]} "
+                 f"take the other routes ({reason})")
+        return self._submit_timeshard_groups(
+            [group[i] for i in ok], [series[i] for i in ok],
+            [lengths[i] for i in ok], t0, axes), rest
+
+    def _submit_timeshard_groups(self, group, series, lengths, t0,
+                                 axes) -> list[_Pending]:
+        """Long-context jobs with their bars split over the mesh (the
+        reference's ``_submit_timeshard_groups``): each grid combo runs the
+        family's composed blockwise backtest (:mod:`..parallel.timeshard`).
+        Histories pad right with repeat-last bars to a mesh multiple and
+        pass their real length, so pad bars are dead in every metric. One
+        pending entry a distinct length (ragged histories cannot share one
+        padded panel)."""
+        job0 = group[0]
+        fn = getattr(timeshard, _TIMESHARD_STRATEGIES[job0.strategy].fn_name)
+        tmesh = sharding.Mesh(self.mesh.devices, timeshard.TIME_AXIS)
+        n_dev = tmesh.size
+        cost = float(job0.cost)
+        ppy = int(job0.periods_per_year or 252)
+        combos = timeshard_combos(job0.strategy, axes)
+        by_len: dict[int, list[int]] = {}
+        for i, t in enumerate(lengths):
+            by_len.setdefault(int(t), []).append(i)
+        pending = []
+        for t, idx in sorted(by_len.items()):
+            T_pad = -(-t // n_dev) * n_dev
+            arrays = [device_mod.upload(_stack_field_ragged(
+                [series[i] for i in idx], T_pad, f), tmesh.devices[0])
+                for f in _FUSED_STRATEGIES[job0.strategy].fields]
+            ms = [fn(tmesh, *arrays, *cmb, cost=cost, periods_per_year=ppy,
+                     t_real=None if t == T_pad else t) for cmb in combos]
+            m = Metrics(*(torch.stack(cols, dim=-1) for cols in zip(*ms)))
+            pending.append(self._finish_group([group[i] for i in idx], m, t0,
+                                              len(idx), job0))
+        return pending
 
     def _try_paged(self, group, series, lengths, grid, cost, ppy):
         """The paged route of a fused group: its pages resolved against the
@@ -1017,19 +1294,28 @@ class TorchSweepBackend:
         strategy = models_base.get_strategy(job0.strategy)
         grid = sweep_mod.product_grid(**wire.grid_from_proto(job0.grid))
         cost = float(job0.cost)
+        ppy = job0.periods_per_year or 252
         batch, _, mask = data_mod.pad_and_stack(series)
-        m = sweep_mod.run_sweep(batch, strategy, grid, cost=cost,
-                                bar_mask=mask,
-                                periods_per_year=job0.periods_per_year or 252,
-                                device=self.device)
-        _, chosen, idx = sweep_mod.best_params(
-            getattr(m, metric), grid, metric=metric, return_index=True)
-        returns = sweep_mod.reprice(batch, strategy, chosen, cost=cost,
-                                    bar_mask=mask, device=self.device)
-        planes = torch.stack([torch.take_along_dim(f, idx[:, None], dim=1)
-                              for f in m])                  # (9, N, 1)
-        host, ready = _copy_to_host({"planes": planes, "idx": idx,
-                                     "returns": returns})
+
+        def best(blks, _tr, dev):
+            panel, bar_mask = data_mod.OHLCV(*blks[:5]), blks[5]
+            m = sweep_mod.run_sweep(panel, strategy, grid, cost=cost,
+                                    bar_mask=bar_mask, periods_per_year=ppy,
+                                    device=dev)
+            _, chosen, idx = sweep_mod.best_params(
+                getattr(m, metric), grid, metric=metric, return_index=True)
+            returns = sweep_mod.reprice(panel, strategy, chosen, cost=cost,
+                                        bar_mask=bar_mask, device=dev)
+            rows = torch.stack([torch.take_along_dim(f, idx[:, None], dim=1)
+                                for f in m], dim=1)           # (N, 9, 1)
+            return rows, idx, returns
+
+        arrays = [*batch, mask]
+        rows, idx, returns = (best(arrays, None, self.device)
+                              if self.mesh is None
+                              else self._mesh_call(best, arrays))
+        host, ready = _copy_to_host({"planes": rows.permute(1, 0, 2),
+                                     "idx": idx, "returns": returns})
         return _Pending(list(group), len(group), t0, host, ready, "returns",
                         metric, tuple(s.n_bars for s in series))
 
@@ -1078,29 +1364,38 @@ class TorchSweepBackend:
                   periods_per_year=job0.periods_per_year or 252,
                   device=self.device)
         if len(set(lengths)) == 1:
-            panel = data_mod.OHLCV(**self._device_fields(
-                jobs, series, data_mod._FIELDS, lengths))
+            fields = self._device_fields(jobs, series, data_mod._FIELDS,
+                                         lengths)
             spec = _FUSED_STRATEGIES[job0.strategy]
             P = sweep_mod.grid_size(grid)
-            if (P >= self._WF_FUSED_MIN_COMBOS
-                    and _fused_demotion_reason(spec, axes) is None):
+            fused_train = (P >= self._WF_FUSED_MIN_COMBOS
+                           and _fused_demotion_reason(spec, axes) is None)
+            if fused_train:
                 log.info("walk-forward jobs %s (%s, P=%d) using the "
                          "fused-train route", [j.id for j in jobs],
                          job0.strategy, P)
-                g = {k: v.numpy() for k, v in grid.items()}
+            g = {k: v.numpy() for k, v in grid.items()}
 
-                def train_fn(*fields):
-                    return spec.run(dict(zip(spec.fields, fields)), g,
+            def refit(blks, _tr, dev):
+                panel = data_mod.OHLCV(*blks)
+                kwd = dict(kw, device=dev)
+                if not fused_train:
+                    return walkforward.walk_forward(panel, strategy, grid,
+                                                    **kwd).oos_metrics
+
+                def train_fn(*fs):
+                    return spec.run(dict(zip(spec.fields, fs)), g,
                                     cost=kw["cost"],
                                     periods_per_year=kw["periods_per_year"],
-                                    device=self.device)
+                                    device=dev)
 
-                m = walkforward.walk_forward_fused(
+                return walkforward.walk_forward_fused(
                     panel, strategy, grid, train_fn, fields=spec.fields,
-                    **kw).oos_metrics
-            else:
-                m = walkforward.walk_forward(panel, strategy, grid,
-                                             **kw).oos_metrics
+                    **kwd).oos_metrics
+
+            arrays = [fields[f] for f in data_mod._FIELDS]
+            m = (refit(arrays, None, self.device) if self.mesh is None
+                 else self._mesh_call(refit, arrays))
         else:
             rows = [walkforward.walk_forward(
                 data_mod.OHLCV(*(np.asarray(f)[None] for f in s)), strategy,
@@ -1170,7 +1465,13 @@ class TorchSweepBackend:
                   device=self.device)
         if wf:
             kw.update(train=job0.wf_train, test=job0.wf_test, metric=metric)
-            if uniform:
+            if uniform and self.mesh is not None:
+                m = self._mesh_call(
+                    lambda blks, _tr, dev: walkforward.walk_forward_pairs(
+                        blks[0], blks[1], grid,
+                        **dict(kw, device=dev)).oos_metrics,
+                    [y_close, x_close])
+            elif uniform:
                 m = walkforward.walk_forward_pairs(y_close, x_close, grid,
                                                    **kw).oos_metrics
             else:
@@ -1180,21 +1481,72 @@ class TorchSweepBackend:
                 m = Metrics(*(torch.cat(f) for f in zip(*rows)))
             m = Metrics(*(f[:, None] for f in m))    # one OOS row per job
             return self._finish_group(jobs + bad, m, t0, len(jobs), job0)
+        if uniform and self._long_context(jobs, [t_max]):
+            lb = grid.get("lookback")
+            ts_reason = ("no 'lookback' axis in grid" if lb is None
+                         else _timeshard_window_reason(
+                             lb.numpy(), sweep_mod.grid_size(grid), t_max,
+                             self.mesh.size, what="lookback"))
+            if ts_reason is None:
+                log.info("jobs %s (pairs) routed to the time-sharded "
+                         "long-context path (%d bars over %d shards)",
+                         [j.id for j in jobs], t_max, self.mesh.size)
+                return self._submit_pairs_timeshard(
+                    jobs, bad, y_close, x_close, t0, grid, kw)
+            log.warning("jobs %s (pairs) are long-context (%d bars) but not "
+                        "time-shardable (%s); they take the other routes",
+                        [j.id for j in jobs], t_max, ts_reason)
         demotion = _pairs_demotion_reason(axes)
         if demotion is None:
             g = {k: v.numpy() for k, v in grid.items()}
-            m = fused.fused_pairs_sweep(
-                y_close, x_close, g["lookback"], g["z_entry"],
-                z_exit=g.get("z_exit", 0.0),
-                t_real=None if uniform else lens, **kw)
+
+            def run(blks, tr, dev):
+                return fused.fused_pairs_sweep(
+                    blks[0], blks[1], g["lookback"], g["z_entry"],
+                    z_exit=g.get("z_exit", 0.0), t_real=tr,
+                    **dict(kw, device=dev))
+
+            tr = None if uniform else lens
+            m = (run([y_close, x_close], tr, self.device)
+                 if self.mesh is None
+                 else self._mesh_call(run, [y_close, x_close], tr))
         else:
             log.warning("jobs %s (pairs) take the generic path: %s",
                         [j.id for j in jobs], demotion)
-            if uniform:
+            if uniform and self.mesh is not None:
+                m = self._mesh_call(
+                    lambda blks, _tr, dev: pairs_mod.run_pairs_sweep(
+                        blks[0], blks[1], grid, **dict(kw, device=dev)),
+                    [y_close, x_close])
+            elif uniform:
                 m = pairs_mod.run_pairs_sweep(y_close, x_close, grid, **kw)
             else:
                 rows = [pairs_mod.run_pairs_sweep(
                     y_close[i:i + 1, :n], x_close[i:i + 1, :n], grid, **kw)
                     for i, n in enumerate(lens)]
                 m = Metrics(*(torch.cat(f, dim=0) for f in zip(*rows)))
+        return self._finish_group(jobs + bad, m, t0, len(jobs), job0)
+
+    def _submit_pairs_timeshard(self, jobs, bad, y_close, x_close, t0, grid,
+                                kw) -> _Pending:
+        """A uniform long-context pairs group with both legs' bars split
+        over the mesh (the reference's ``_submit_pairs_timeshard``): one
+        :func:`~..parallel.timeshard.sharded_pairs_backtest` a combo, the
+        legs right-padded with repeat-last bars to a mesh multiple and
+        their real length passed."""
+        job0 = jobs[0]
+        tmesh = sharding.Mesh(self.mesh.devices, timeshard.TIME_AXIS)
+        t = y_close.shape[1]
+        T_pad = -(-t // tmesh.size) * tmesh.size
+        y, x = (device_mod.upload(np.concatenate(
+            [a, np.repeat(a[:, -1:], T_pad - t, axis=1)], axis=1),
+            tmesh.devices[0]) for a in (y_close, x_close))
+        g = {k: v.numpy() for k, v in grid.items()}
+        zx = g.get("z_exit", np.zeros_like(g["z_entry"]))
+        ms = [timeshard.sharded_pairs_backtest(
+            tmesh, y, x, int(round(float(lb))), float(ze), z_exit=float(z),
+            cost=kw["cost"], periods_per_year=kw["periods_per_year"],
+            t_real=None if t == T_pad else t)
+            for lb, ze, z in zip(g["lookback"], g["z_entry"], zx)]
+        m = Metrics(*(torch.stack(cols, dim=-1) for cols in zip(*ms)))
         return self._finish_group(jobs + bad, m, t0, len(jobs), job0)

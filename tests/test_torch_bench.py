@@ -41,7 +41,8 @@ TINY = {k: v for k, v in REF["_TINY_ENV"].items()
 # The paged and scenario configs at a tiny size of their own.
 TINY.update(DBX_BENCH_RAGGED_TICKERS="16", DBX_BENCH_SCENARIO_BARS="96",
             DBX_BENCH_SCENARIO_N="3", DBX_BENCH_MEGAKERNEL_BARS="64",
-            DBX_BENCH_MEGAKERNEL_K="4")
+            DBX_BENCH_MEGAKERNEL_K="4", DBX_BENCH_LC_BARS="301",
+            DBX_BENCH_LC_SHARDS="4")
 FUSED_CONFIGS = ("sma_fused", "bollinger_fused", "bollinger_touch_fused",
                  "momentum_fused", "donchian_fused", "donchian_hl_fused",
                  "vwap_fused", "keltner_fused", "stochastic_fused",
@@ -84,9 +85,10 @@ def test_every_config_reports_a_positive_rate(result):
     assert configs["roofline_stages_boll_full"] > 0.0
     assert configs["walkforward"] > 0.0
     assert configs["streaming_append"] > 0.0
-    for name in ("ragged_paged", "scenario_sweep", "scenario_megakernel"):
+    for name in ("ragged_paged", "scenario_sweep", "scenario_megakernel",
+                 "long_context"):
         assert configs[name] > 0.0, name
-    assert len(FUSED_CONFIGS) + 6 == 20 == len(bench.CONFIGS)
+    assert len(FUSED_CONFIGS) + 7 == 21 == len(bench.CONFIGS)
 
 
 @pytest.mark.parametrize("wf_fused", ["0", "1"], ids=["generic", "fused"])
@@ -300,3 +302,21 @@ def test_unknown_configs_stop_the_bench():
     s = bench.settings_from_env({**TINY, "DBX_BENCH_CONFIGS": "e2e"})
     with pytest.raises(SystemExit, match="no configs ran"):
         bench.run(s)
+
+
+def test_long_context_runs_time_sharded_on_a_mesh_and_generic_without():
+    # The reference's long_context config (one history, the 32-combo SMA
+    # grid) at a tiny length: over a mesh of 4 CPU shards where one is
+    # given, the generic sweep on one device otherwise; the same rates'
+    # units (combos a second).
+    for shards, route in (("4", "time-sharded over 4 shards"),
+                          ("0", "generic sweep on one device")):
+        env = dict(TINY, DBX_BENCH_CONFIGS="long_context",
+                   DBX_BENCH_LC_SHARDS=shards)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            bench.main(env)
+        out = json.loads(buf.getvalue())
+        assert out["configs"]["long_context"] > 0.0
+        assert out["roofline"]["long_context"]["route"] == route
+        assert out["roofline"]["long_context"]["combos"] == 32

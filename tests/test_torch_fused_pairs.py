@@ -108,7 +108,7 @@ def _port_card_order(y, x, g, cost):
         g["lookback"], g["z_entry"], g.get("z_exit", 0.0))
     yt, xt = torch.from_numpy(y), torch.from_numpy(x)
     z, hr = fused.pairs_tables_plain(
-        yt, xt, xt.mean(dim=1), yt.mean(dim=1),
+        yt, xt, rolling.mean_f64(xt, 1)[:, 0], rolling.mean_f64(yt, 1)[:, 0],
         torch.from_numpy(windows.astype(np.int32)))
     tr = fused._check_t_real(None, *y.shape)
     planes = fused.pairs_plain(z, hr, *fused._to(torch.device("cpu"), tr,

@@ -180,3 +180,27 @@ def test_window_tiles_give_each_obv_lane_its_window(lanes, tiles):
         0.0, 1)
     w = torch.from_numpy(w)
     assert_window_tiles(lanes, (w,), fused.window_tiles(lanes, w))
+
+
+def test_vwap_z_table_is_a_function_of_a_rows_own_bars():
+    # Each row of a ragged stack (repeat-last pad bars) has, over its own
+    # bars, the bits of the row's z-table built alone: the deviation is
+    # centered over the row's t_real bars, not over the stack's.
+    panel = data.synthetic_ohlcv(4, 200, seed=21)
+    lens = np.int32([200, 120, 77, 163])
+    close, volume = (torch.from_numpy(np.ascontiguousarray(f))
+                     for f in (panel.close, panel.volume))
+    for i, n in enumerate(lens):
+        close[i, n:] = close[i, n - 1]
+        volume[i, n:] = volume[i, n - 1]
+    windows = np.float32([5, 12, 30])
+    z = fused.vwap_z_table(close, volume, windows, lens)
+    for i, n in enumerate(lens):
+        alone = fused.vwap_z_table(close[i:i + 1, :n], volume[i:i + 1, :n],
+                                   windows)
+        torch.testing.assert_close(z[i:i + 1, :, :n], alone, rtol=0, atol=0)
+    # The full-length default is the t_real of every row at T.
+    torch.testing.assert_close(
+        fused.vwap_z_table(close, volume, windows),
+        fused.vwap_z_table(close, volume, windows, np.full(4, 200)),
+        rtol=0, atol=0)

@@ -60,7 +60,9 @@ def test_every_module_imports_with_jax_blocked():
               "models.vwap", "models.pairs", "bench", "roofline",
               "ops.stages", "streaming", "streaming.recurrent",
               "streaming.store", "rpc.page_pool", "scenarios",
-              "scenarios.synth", "scenarios.threefry"):
+              "scenarios.synth", "scenarios.threefry", "parallel.sharding",
+              "parallel.timeshard", "parallel.multihost",
+              "rpc.slice_worker"):
         assert f"{dbxt.__name__}.{m}" in mods
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
@@ -127,6 +129,21 @@ def test_default_device_is_cuda_and_raises_without_it():
         compute.TorchSweepBackend()
     with pytest.raises(RuntimeError, match="cuda"):
         fused.fused_sma_sweep(np.ones((1, 32), np.float32), [3.0], [10.0])
+
+
+def test_make_mesh_needs_cuda_and_never_meshes_the_cpu_unasked():
+    from distributed_backtesting_exploration_tpu_torch.parallel import (
+        sharding)
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: make_mesh() takes it")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sharding.make_mesh()
+    # A CPU mesh only where the caller lists the CPU; the backend stays
+    # meshless unless given one.
+    assert sharding.make_mesh(["cpu"] * 2).devices == (
+        torch.device("cpu"),) * 2
+    assert compute.TorchSweepBackend(device="cpu").mesh is None
+    assert compute.default_mesh("cuda") is None
 
 
 def test_device_policy():

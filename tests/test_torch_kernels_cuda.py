@@ -918,3 +918,95 @@ def test_stage_wrappers_check_their_inputs(cuda):
     with pytest.raises(ValueError, match="no layout"):
         stages.sma_stage_cuda(inp._replace(table=wide, r=inp.r[:1, :8],
                                            tr=8), stage="full")
+
+
+# --- the mesh route and the time-sharded primitives on the card ------------
+
+def _mesh_jobs(strategy: str, n: int, T: int, seed: int):
+    from distributed_backtesting_exploration_tpu_torch import roofline
+    from distributed_backtesting_exploration_tpu_torch.rpc import (
+        backtesting_pb2 as pb, wire)
+
+    axes = {k: v[::7] for k, v in roofline.bench_axes(100)[strategy].items()}
+    grid = wire.grid_to_proto(axes)
+    if strategy == "pairs":
+        legs = data.synthetic_ohlcv(2 * n, T, seed=seed)
+        return [pb.JobSpec(
+            id=f"{strategy}-{i}", strategy=strategy, grid=grid, cost=1e-3,
+            ohlcv=data.to_wire_bytes(data.OHLCV(*(f[i] for f in legs))),
+            ohlcv2=data.to_wire_bytes(data.OHLCV(*(f[n + i] for f in legs))))
+            for i in range(n)]
+    panel = data.synthetic_ohlcv(n, T, seed=seed)
+    return [pb.JobSpec(id=f"{strategy}-{i}", strategy=strategy, grid=grid,
+                       cost=1e-3, ohlcv=data.to_wire_bytes(
+                           data.OHLCV(*(f[i] for f in panel))))
+            for i in range(n)]
+
+
+@pytest.mark.parametrize("strategy", [
+    "sma_crossover", "bollinger", "stochastic", "rsi", "momentum",
+    "donchian_hl", "macd", "trix", "obv_trend", "vwap_reversion", "pairs"])
+def test_mesh_route_launches_each_entry_once_a_shard(cuda, strategy):
+    # A mesh of the one card four times: each shard's rows launch the
+    # family's entry once, and the blocks are those of the meshless
+    # backend bit for bit (every prep is a function of a row's own bars).
+    from distributed_backtesting_exploration_tpu_torch import roofline
+    from distributed_backtesting_exploration_tpu_torch.parallel import (
+        sharding)
+    from distributed_backtesting_exploration_tpu_torch.rpc import compute
+
+    jobs = _mesh_jobs(strategy, 10, 300, seed=17)
+    mesh = compute.TorchSweepBackend(mesh=sharding.make_mesh(["cuda:0"] * 4))
+    one = compute.TorchSweepBackend(device="cuda")
+    want = {c.job_id: c.metrics for c in one.process(jobs)}
+    _kernels.reset_launch_counts()
+    got = {c.job_id: c.metrics for c in mesh.process(jobs)}
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES[roofline.ENTRY[strategy]] == 4
+    assert got == want
+
+
+def test_time_sharded_primitives_are_bit_equal_on_the_card(cuda):
+    from distributed_backtesting_exploration_tpu_torch.ops import signals
+    from distributed_backtesting_exploration_tpu_torch.parallel import (
+        sharding, timeshard)
+
+    four = sharding.make_mesh(["cuda:0"] * 4)
+    one = sharding.make_mesh(["cuda:0"])
+    x = torch.as_tensor(data.synthetic_ohlcv(4, 8192, seed=2).close,
+                        device=cuda)
+    assert torch.equal(timeshard.sharded_cumsum(four, x),
+                       rolling.prefix_sum(x))
+    assert torch.equal(timeshard.sharded_ema(four, x, span=20),
+                       timeshard.sharded_ema(one, x, span=20))
+    z = (x - x.mean(dim=1, keepdim=True)) / x.std(dim=1, keepdim=True)
+    valid = torch.arange(8192, device=cuda) >= 19
+    assert torch.equal(
+        timeshard.sharded_band_positions(four, z, valid, 1.0, 0.0),
+        signals.band_hysteresis_assoc(z, valid, 1.0, 0.0))
+
+
+def test_pairs_block_is_the_same_alone_and_stacked(cuda):
+    # One pair's K7 block alone, in a 64-pair stack and in a ragged stack
+    # (the pair at its full length): bit-equal, the tables' leg means being
+    # f64 means rounded once.
+    closes = data.synthetic_ohlcv(128, 400, seed=5).close
+    y, x = closes[:64], closes[64:]
+    g = sweep.product_grid(lookback=np.float32([20, 35]),
+                           z_entry=np.float32([1.0, 2.0]))
+    lb, ze = g["lookback"].numpy(), g["z_entry"].numpy()
+
+    def block(yy, xx, tr=None):
+        m = fused.fused_pairs_sweep(yy, xx, lb, ze, t_real=tr, cost=1e-3,
+                                    device="cuda")
+        return torch.stack(list(m)).cpu()
+
+    lens = np.random.default_rng(3).integers(60, 401, 64).astype(np.int32)
+    lens[7] = 400
+    ry, rx = y.copy(), x.copy()
+    for leg in (ry, rx):
+        for i, n in enumerate(lens):
+            leg[i, n:] = leg[i, n - 1]
+    alone = block(y[7:8], x[7:8])[:, 0]
+    assert torch.equal(block(y, x)[:, 7], alone)
+    assert torch.equal(block(ry, rx, lens)[:, 7], alone)

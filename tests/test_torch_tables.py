@@ -165,14 +165,15 @@ def test_pairs_tables_plain_equals_a_numpy_model_of_the_kernel(case):
 @pytest.mark.parametrize("case", sorted(PAIR_CASES))
 def test_pairs_tables_with_f32_sums_and_torch_mean_are_pairs_tables(case):
     # The kernel's formulas are the CPU path's: with its prefix sums rounded
-    # to f32 at every bar (torch's CPU cumsum of f32) and torch's mean in
-    # place of the lane tree, every cell is bit-equal.
+    # to f32 at every bar (torch's CPU cumsum of f32), the legs' f64 means
+    # (both paths' centering) and torch's mean in place of the lane tree,
+    # every cell is bit-equal.
     n, T, lookbacks, seed, lens = PAIR_CASES[case]
     y, x = _legs(n, T, seed, lens)
     windows = np.float32(lookbacks)
     w = torch.from_numpy(windows.astype(np.int64))
-    got = fused._pairs_z_hr(y, x, x.mean(1, keepdim=True),
-                            y.mean(1, keepdim=True), w, w.float()[:, None],
+    got = fused._pairs_z_hr(y, x, rolling.mean_f64(x, 1),
+                            rolling.mean_f64(y, 1), w, w.float()[:, None],
                             lambda s: fused.seq_cumsum(s).float(),
                             lambda s: s.mean(dim=-1, keepdim=True))
     for a, b in zip(got, fused.pairs_tables(y, x, windows)):
@@ -200,7 +201,8 @@ def _kernel_path(y, x, g, cost):
     windows, widx, k, zx, warm = fused._pairs_grid_setup(
         g["lookback"], g["z_entry"], 0.0)
     w = torch.from_numpy(windows.astype(np.int32))
-    z, hr = fused.pairs_tables_plain(y, x, x.mean(1), y.mean(1), w)
+    z, hr = fused.pairs_tables_plain(y, x, rolling.mean_f64(x, 1)[:, 0],
+                                     rolling.mean_f64(y, 1)[:, 0], w)
     tr = torch.full((y.shape[0],), y.shape[1], dtype=torch.int32)
     return fused.Metrics(*fused.pairs_plain(
         z, hr, tr, *fused._to(CPU, widx, k, zx, warm), cost=cost, ppy=252))
