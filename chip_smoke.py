@@ -6,7 +6,10 @@ Run from the repository root with one CUDA card visible:
 
 (``python3 chip_smoke.py --sass DIR`` prints only the SASS instructions a
 bar of the kernels' metric loops built from another tree's ``csrc/``
-``DIR``, to set beside this tree's: :func:`sass_of`.)
+``DIR``, to set beside this tree's: :func:`sass_of`. ``python3
+chip_smoke.py --parent DIR`` times the table kernels and the port bench's
+pairs, trix and macd configs in another tree ``DIR`` and in this one, in
+turns on the same card: :func:`parent_compare`.)
 
 Phases (each asserts; any failure exits non-zero and prints no result):
 
@@ -61,12 +64,16 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    bit-equal. Kernel and plain times come from CUDA events after warmup.
    Then the table kernels: ``dbx_ema_rows`` (``csrc/ema_rows.cu``) against
    ``trix_ema_table`` on trix's table of the main path's panel, 32 ragged
-   rows, T=251 and long rows (4 x 13000, in device memory), and with one
-   ladder against ``macd_ema_table`` on macd's (timed too);
-   ``dbx_pairs_tables``
-   (``csrc/pairs_tables.cu``) against ``pairs_tables_plain`` on K7's four
-   cases and long rows (4 x 3000, four lookbacks a CTA, and 2 x 13000 in
-   device memory): every value bit-equal; each timed at its main path's shape beside its bound and
+   rows, T=251, T=2, T=2048 (the largest register plan) and long rows
+   (4 x 13000, staged in device memory), and with one ladder against
+   ``macd_ema_table`` on macd's, each with its register plan;
+   ``dbx_pairs_tables`` (``csrc/pairs_tables.cu``) against
+   ``pairs_tables_plain`` on K7's four cases, long rows (2 x 3500 and
+   1 x 5000 with the prefix rows in device memory, 2 x 13000), T=1, T=2
+   and a lookback of 600 bars (past the sums launch's ring: the lags from
+   device memory), each with its plan: every value bit-equal; each kernel
+   timed at its main path's shape (through the
+   wrapper, and its device time from a CUDA graph) beside its bound and
    plain version (pairs also beside ``pairs_tables``, the torch prep it
    replaced).
    Then K8, the roofline stage scaffolds
@@ -1478,19 +1485,23 @@ def _max_abs_err(a, b) -> float:
 def _ema_rows_cases(fused, data):
     """``dbx_ema_rows``'s cases, (label, x, decay, ladders, plain): trix's
     table of the main path's panel, of 32 ragged rows (padded by their last
-    bar), at T=251 and on long rows (4 x 13000, on scratch in device
-    memory), and macd's one-ladder table of the main path's panel."""
+    bar), at T=251, T=2 and T=2048 (the largest register plan) and on long
+    rows (4 x 13000, staged in device memory), and macd's one-ladder table
+    of the main path's panel."""
     dev = torch.device("cuda")
     head = data.synthetic_ohlcv(N_TICKERS, N_BARS, seed=0)
     spans = np.unique(AXES["trix"]["span"])
     _, (_, ragged, _, _), (_, short, _, _) = _small_cases(data, head)
     n, T = LONG_TILE_ROWS
-    long = data.synthetic_ohlcv(n, T, seed=5)
     cases = []
     for label, panel in ((f"trix {N_TICKERS}x{N_BARS}", head),
                          (f"trix ragged 32x{N_BARS}", ragged),
                          ("trix 32x251", short),
-                         (f"trix long rows {n}x{T}", long)):
+                         ("trix 3x2", data.synthetic_ohlcv(3, 2, seed=4)),
+                         ("trix 3x2048", data.synthetic_ohlcv(3, 2048,
+                                                             seed=6)),
+                         (f"trix long rows {n}x{T}",
+                          data.synthetic_ohlcv(n, T, seed=5))):
         close = torch.as_tensor(panel.close, device=dev).contiguous()
         cases.append((label, close, fused.ema_decay(dev, spans), 3,
                       functools.partial(fused.trix_ema_table, close, spans)))
@@ -1505,23 +1516,54 @@ def _ema_rows_cases(fused, data):
 
 
 def _pairs_table_cases(data):
-    """``dbx_pairs_tables``'s cases, (label, (y, x) close legs): the cases of
-    :func:`_pairs_cases`, and long rows: 4 x 3000 (four lookbacks a CTA)
-    and 2 x 13000 (on scratch in device memory)."""
+    """``dbx_pairs_tables``'s cases, (label, (y, x) close legs, lookbacks or
+    None for the bench's): the cases of :func:`_pairs_cases`; long rows
+    2 x 3500 and 1 x 5000 (the prefix rows read from device memory) and
+    2 x 13000; T=1 and T=2; and 4 x 1300 with a lookback of 600 bars,
+    longer than the sums launch's ring (the lags read from device memory,
+    a fourth launch for hr)."""
     longs = [(f"long rows {n}x{T}",
-              tuple(leg.close for leg in _pairs_legs(data, n, T, 5)))
-             for n, T in ((4, 3000), (2, 13000))]
-    return ([(label, legs) for label, legs, _, _ in _pairs_cases(data)]
-            + longs)
+              tuple(leg.close for leg in _pairs_legs(data, n, T, 5)), None)
+             for n, T in ((2, 3500), (1, 5000), (2, 13000), (3, 1), (3, 2))]
+    lag_mem = np.concatenate([np.unique(AXES["pairs"]["lookback"]), [600]])
+    return ([(label, legs, None) for label, legs, _, _ in _pairs_cases(data)]
+            + longs
+            + [("lags from memory 4x1300",
+                tuple(leg.close for leg in _pairs_legs(data, 4, 1300, 6)),
+                lag_mem)])
+
+
+def _launch_split(run, reps: int = 5) -> dict:
+    """Device microseconds a call of each kernel ``run`` launches, by
+    kernel name, from ``torch.profiler`` over ``reps`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        # "(anonymous namespace)::legs_kernel(...)": the name after the
+        # first "::" (the arguments may hold more).
+        name = re.search(r"::(\w+)[<(]", e.key)
+        if e.device_time_total > 0 and name:
+            split[name.group(1)] = e.device_time_total / reps
+    return split
 
 
 def phase_tables(fused, data) -> dict:
     """The table kernels against their plain versions, every value
     bit-equal: ``dbx_ema_rows`` against ``trix_ema_table`` (and, one
     ladder, ``macd_ema_table``), ``dbx_pairs_tables`` against
-    ``pairs_tables_plain``; each timed at its main path's shape beside its
-    bound and plain version (pairs also beside ``pairs_tables``, the torch
-    prep it replaced on the card). Returns one kernels-line record each."""
+    ``pairs_tables_plain``, each case with its plan. Each kernel is timed at its main path's
+    shape (CUDA events through the wrapper, and the device time from a CUDA
+    graph of 20 calls) beside its bound and plain version (pairs also
+    beside ``pairs_tables``, the torch prep it replaced); ``python3
+    chip_smoke.py --parent DIR`` times another tree's beside them. Returns
+    one kernels-line record each."""
     dev = torch.device("cuda")
     records = {}
     errs = {"ema_rows": [], "pairs_tables": []}
@@ -1533,16 +1575,20 @@ def phase_tables(fused, data) -> dict:
         errs["ema_rows"].append(_max_abs_err(got, ref))
         _check(_bits_equal(got, ref), f"ema_rows {label} differs from its "
                f"plain version (max {errs['ema_rows'][-1]})")
-        print(f"ema_rows {label} {tuple(got.shape)}: bit-equal")
+        T = x.shape[1]
+        print(f"ema_rows {label} {tuple(got.shape)}: bit-equal (registers "
+              f"a lane {fused.ema_rows_registers(T)}, scratch floats a row "
+              f"{fused._ema_rows_scratch(T)})")
         if i == 0 or label.startswith("macd"):
             # The main paths' tables: trix's (the first case), macd's.
             N, W, T = got.shape
-            ms = _cuda_ms(lambda: fused.ema_rows_cuda(x, decay, ladders),
-                          reps=20, warmup=2)
+            run = functools.partial(fused.ema_rows_cuda, x, decay, ladders)
+            ms = _cuda_ms(run, reps=20, warmup=2)
+            device_ms = _graph_ms(run)
             plain_ms = _cuda_ms(plain, reps=5, warmup=1)
             bound = roofline.ema_rows_bound(N, W, T, ladders)
-            timed = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
-                     "bound_by": bound[1]}
+            timed = {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+                     "bound_ms": bound[0], "bound_by": bound[1]}
             if i == 0:
                 records["ema_rows"] = {
                     "name": "ema_rows", "route": "cuda",
@@ -1552,15 +1598,18 @@ def phase_tables(fused, data) -> dict:
             else:
                 records["ema_rows"]["other_tables"] = {"macd": {
                     **timed, "replaces": f"{REF}:2675"}}
-            print(f"ema_rows {label}: kernel {ms:.4f} ms, plain "
-                  f"({plain.func.__name__}) {plain_ms:.4f} ms, bound "
-                  f"{bound[0]:.4f} ms ({bound[1]})")
-    windows = torch.from_numpy(
-        np.unique(AXES["pairs"]["lookback"]).astype(np.int32)).to(dev)
-    for i, (label, legs) in enumerate(_pairs_table_cases(data)):
+            print(f"ema_rows {label}: kernel {ms:.4f} ms (device "
+                  f"{device_ms:.4f}), plain ({plain.func.__name__}) "
+                  f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+    bench_windows = np.unique(AXES["pairs"]["lookback"]).astype(np.int32)
+    for i, (label, legs, lookbacks) in enumerate(_pairs_table_cases(data)):
+        w_np = (bench_windows if lookbacks is None
+                else np.asarray(lookbacks, np.int32))
+        windows = torch.from_numpy(w_np).to(dev)
         y, x = (torch.as_tensor(c, device=dev).contiguous() for c in legs)
         args = (y, x, x.mean(dim=1), y.mean(dim=1), windows)
-        got = fused.pairs_tables_cuda(*args)
+        max_window = int(w_np.max())
+        got = fused.pairs_tables_cuda(*args, max_window=max_window)
         ref = fused.pairs_tables_plain(*args)
         torch.cuda.synchronize()
         for name, a, b in zip(("z", "hr"), got, ref):
@@ -1568,28 +1617,37 @@ def phase_tables(fused, data) -> dict:
             _check(_bits_equal(a, b), f"pairs_tables {label}: {name} "
                    f"differs from its plain version (max "
                    f"{errs['pairs_tables'][-1]})")
+        N, T = y.shape
+        plan = fused.pairs_tables_plan(N, T, w_np.size, max_window)
         print(f"pairs_tables {label} {tuple(got[0].shape)}: z and hr "
-              f"bit-equal (lookbacks a CTA, scratch floats a CTA: "
-              f"{fused.pairs_tables_plan(y.shape[1], windows.numel())})")
+              f"bit-equal (plan: scratch floats {plan[0]}, pairs a legs CTA "
+              f"{plan[1]}, rows a sums CTA {plan[2]}, launches {plan[3]}, "
+              f"prefix rows staged {plan[4]}, ring tiles {plan[5]}, prefix "
+              f"rows in z {plan[6]})")
         if i == 0:
             N, W, T = got[0].shape
-            ms = _cuda_ms(lambda: fused.pairs_tables_cuda(*args), reps=20,
-                          warmup=2)
+            run = functools.partial(fused.pairs_tables_cuda, *args,
+                                    max_window=max_window)
+            ms = _cuda_ms(run, reps=20, warmup=2)
+            device_ms = _graph_ms(run)
             plain_ms = _cuda_ms(lambda: fused.pairs_tables_plain(*args),
                                 reps=1, warmup=1)
-            spans = windows.cpu().numpy()
+            spans = w_np.astype(np.float32)
             prep_ms = _cuda_ms(lambda: fused.pairs_tables(y, x, spans),
                                reps=5, warmup=1)
             bound = roofline.pairs_tables_bound(N, W, T)
+            split = _launch_split(run)
             records["pairs_tables"] = {
                 "name": "pairs_tables", "route": "cuda",
                 "source": f"{PKG}/csrc/pairs_tables.cu",
-                "replaces": f"{REF}:1482", "ms": ms,
+                "replaces": f"{REF}:1482", "ms": ms, "device_ms": device_ms,
                 "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
                 "bound_by": bound[1], "library_ms": None,
-                "torch_prep_ms": prep_ms}
-            print(f"pairs_tables {label}: kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, torch prep (pairs_tables) "
+                "torch_prep_ms": prep_ms, "launch_us": split}
+            print(f"pairs_tables {label}: kernel {ms:.4f} ms (device "
+                  f"{device_ms:.4f}; by launch, us: " + ", ".join(
+                      f"{k} {v:.1f}" for k, v in split.items()) +
+                  f"), plain {plain_ms:.4f} ms, torch prep (pairs_tables) "
                   f"{prep_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
     for name, rec in records.items():
         rec["max_abs_err"] = max(errs[name])
@@ -4430,8 +4488,116 @@ def sass_of(csrc: str) -> None:
         print(f"sass of {csrc}: {entry} {per_bar} a bar; loops {loops}")
 
 
+# Run in each tree by ``--parent`` (``python -c``, from the tree's root):
+# the table kernels at their main paths' shapes, through the tree's own
+# wrappers, CUDA events around 20 calls (after 2) and the device time of a
+# CUDA graph of 20 calls; one JSON line.
+TABLE_TIMES = r"""
+import inspect, json, sys
+import numpy as np, torch
+sys.path.insert(0, ".")
+from distributed_backtesting_exploration_tpu_torch import roofline
+from distributed_backtesting_exploration_tpu_torch.ops import fused
+from distributed_backtesting_exploration_tpu_torch.utils import data
+
+def times(fn):
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(True), torch.cuda.Event(True)
+    a.record()
+    for _ in range(20):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    ms = a.elapsed_time(b) / 20
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(20):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    a.record()
+    g.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return {"ms": ms, "device_ms": a.elapsed_time(b) / 20}
+
+dev = torch.device("cuda")
+axes = roofline.bench_axes()
+close = torch.as_tensor(data.synthetic_ohlcv(500, 1260, seed=0).close,
+                        device=dev).contiguous()
+trix = fused.ema_decay(dev, np.unique(axes["trix"]["span"]))
+macd = fused.ema_decay(dev, np.unique(np.concatenate(
+    [axes["macd"]["fast"], axes["macd"]["slow"]])))
+demeaned = (close - close[:, :1]).contiguous()
+legs = data.synthetic_ohlcv(2000, 1260, seed=1).close
+y, x = (torch.as_tensor(c, device=dev).contiguous()
+        for c in (legs[:1000], legs[1000:]))
+w = np.unique(axes["pairs"]["lookback"]).astype(np.int32)
+args = (y, x, x.mean(dim=1), y.mean(dim=1), torch.from_numpy(w).to(dev))
+kw = ({"max_window": int(w.max())} if "max_window" in
+      inspect.signature(fused.pairs_tables_cuda).parameters else {})
+print(json.dumps({
+    "trix": times(lambda: fused.ema_rows_cuda(close, trix, 3)),
+    "macd": times(lambda: fused.ema_rows_cuda(demeaned, macd, 1)),
+    "pairs_tables": times(lambda: fused.pairs_tables_cuda(*args, **kw))}))
+"""
+PARENT_BENCH = "pairs,trix_fused,macd_fused"
+
+
+def _tree_json(tree: Path, argv: list, env: dict | None = None) -> dict:
+    """The last line of ``argv``'s stdout, run from ``tree``, as JSON."""
+    proc = subprocess.run(argv, cwd=tree, capture_output=True, text=True,
+                          env={**os.environ, **(env or {})}, timeout=900)
+    _check(proc.returncode == 0, f"{argv[1:3]} in {tree} failed "
+           f"(exit {proc.returncode}):\n{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def parent_compare(tree: str) -> None:
+    """``python3 chip_smoke.py --parent DIR``: the table kernels
+    (``dbx_ema_rows`` at trix's and macd's main-path shapes,
+    ``dbx_pairs_tables`` at the bench's 1000 pairs) and the port bench's
+    pairs, trix_fused and macd_fused, run from another tree ``DIR`` (an
+    unpacked earlier commit) and from this one in turns: parent, change,
+    change, parent, parent, change, each leg a process of its own on the
+    same card. Prints each leg, the medians and one JSON line; no result
+    line of the smoke run."""
+    card = phase_card()
+    trees = {"parent": Path(tree).resolve(),
+             "change": Path(__file__).resolve().parent}
+    order = ["parent", "change", "change", "parent", "parent", "change"]
+    legs: dict = {"parent": [], "change": []}
+    for leg in order:
+        t = _tree_json(trees[leg], [sys.executable, "-c", TABLE_TIMES])
+        legs[leg].append(t)
+        print(f"tables {leg}: {json.dumps(t)}", flush=True)
+    rates: dict = {"parent": [], "change": []}
+    for leg in order:
+        out = _tree_json(trees[leg], [
+            sys.executable, "-m",
+            "distributed_backtesting_exploration_tpu_torch.bench"],
+            {"DBX_BENCH_CONFIGS": PARENT_BENCH})
+        rates[leg].append(out["configs"])
+        print(f"bench {leg}: " + ", ".join(
+            f"{k} {v / 1e6:.4f} M/s" for k, v in out["configs"].items()),
+            flush=True)
+    summary = {"card": card, "tables": {}, "bench_backtests_per_s": {}}
+    for leg in legs:
+        summary["tables"][leg] = {
+            k: {m: statistics.median(t[k][m] for t in legs[leg])
+                for m in ("ms", "device_ms")} for k in legs[leg][0]}
+        summary["bench_backtests_per_s"][leg] = {
+            k: statistics.median(r[k] for r in rates[leg])
+            for k in rates[leg][0]}
+    print(json.dumps(summary))
+
+
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--sass":
         sass_of(sys.argv[2])
+    elif len(sys.argv) == 3 and sys.argv[1] == "--parent":
+        parent_compare(sys.argv[2])
     else:
         main()

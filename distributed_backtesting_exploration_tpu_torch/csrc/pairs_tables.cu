@@ -12,172 +12,200 @@
 // the bench shape (1000 pairs x 10 lookbacks x 1260 bars), with seven
 // cumsums and a gather per windowed sum.
 //
-// Design.
-// - The sums. A windowed sum is c[t] - c[t-w] of a prefix sum c, as in the
-//   reference. In f32 that difference cancels: c grows with t, the window
-//   sum does not, and the windowed variance cancels once more (sxx - sx *
-//   sx / w). So every prefix sum is kept in f64, taken sequentially along
-//   the row (torch's CUDA cumsum splits a row by the tensor's row count, so
-//   no kernel can repeat its order, and a sequential chain is one that the
-//   plain version repeats), and every windowed sum is the f64 difference
-//   c[t] - c[t-w] rounded once to f32. All the rest is the f32 formula of
-//   `pairs_tables`. The generic path run in f64 is the witness this is held
-//   to (chip_smoke.py).
-// - A sum is a chain of T dependent f64 adds a row, each with a conversion
-//   in and one out; a conversion costs a warp instruction whatever lanes
-//   run it, so the chains run few to a warp, on warps 0-3 (one a scheduler).
-// - So one CTA per pair and group of up to 10 lookbacks (all 10 of the
-//   bench grid at T = 1260). The four legs' sums (x, y, x x and x y, the
-//   legs centred by their means) run on four warps and keep their f64
-//   prefix rows, from which a parallel pass takes every lookback's OLS and
-//   spread. The three sums of every lookback's spread (its own, and those
-//   of the spread centred by its mean and of that squared) run on four
-//   warps together, each chain carrying its prefix sum and the same sum w
-//   bars behind, so it writes its f32 window sums and keeps no f64 row.
-//   Everything between the legs and the two output rows stays in shared
-//   memory (at the bench shape 200 KB, one CTA an SM): the legs' prefix
-//   rows and centred legs share their space with the spreads' last two sum
-//   rows, which are written after the legs' rows are done. The hedge ratios
-//   wait in the spread's first sum row for the hedged returns, which take
-//   the bar before's. Only z and hr are written to device memory. Rows too
-//   long for the staging budget run the same code on device-memory scratch
-//   that the wrapper allocates (kStaged false).
-// - The spread's mean over the T bars, which centres its moments, is taken
-//   in a fixed order that the plain version (`pairs_tables_plain`,
-//   `lane_tree_mean`) repeats: lane l of a warp sums the bars l, l + 32,
-//   ... in f64 (0 past T), the 32 sums fold in a fixed tree (l + 16, then
-//   l + 8, ...), and the total is divided by T in f64 and rounded to f32.
-// - The legs' means come in from torch ((N,) each, formed before the
-//   launch), as the plain version takes them.
-// - Every other value is the formula of `pairs_tables`, evaluated left to
-//   right as torch does ((sx * sy) / fw, and alpha = (sy / fw + my) -
-//   beta * (sx / fw + mx)), one thread a (lookback, bar).
+// The sums. A windowed sum is c[t] - c[t-w] of a prefix sum c, as in the
+// reference. In f32 that difference cancels: c grows with t, the window sum
+// does not, and the windowed variance cancels once more (sxx - sx * sx /
+// w). So every prefix sum is kept in f64, taken sequentially along the row
+// (a chain of T dependent adds, each with a conversion in), and every
+// windowed sum is the f64 difference c[t] - c[t-w] rounded once to f32. The
+// lag c[t-w] is a second chain over the same values w bars behind (0 below
+// w): the same adds in the same order, so the same bits. All the rest is
+// the f32 formula of `pairs_tables`. The plain version, ops/fused.py
+// `pairs_tables_plain` (`seq_cumsum`, `lane_tree_mean`), repeats every
+// order, so the two are bit-equal; the generic path run in f64 is the
+// witness both are held to (chip_smoke.py).
 //
 // What bounds it on this card: the two tables it writes, 8 B a (pair,
 // lookback, bar), 101 MB at the bench shape, 30 us at 3.35 TB/s; its
 // operations (39 fp32 and 22 fp64 a (pair, lookback, bar)) take about
-// 32 us at those rates. In practice the sequential chains take about half
-// its time and the parallel passes the rest, at one CTA an SM; a chain's
-// reads must stay ahead of its adds and off branches, or each bar waits on
-// a shared-memory read.
+// 32 us. Beside them runs work that the bound does not count, at a quarter
+// of the fp32 rate: 14 f32 <-> f64 conversions a (pair, lookback, bar) (16
+// an SM a clock: the CUDA C Programming Guide's throughput table for
+// compute capability 9.0) and 11 IEEE divisions (each a reciprocal and a
+// range check at that rate, five FMAs and a branch). What held
+// the earlier design (one CTA a pair, 200 KB of shared memory, one CTA an
+// SM) far above the bound: its 34 chains a pair ran on 1-8 lanes of four
+// warps while 28 warps waited at a barrier, and a chain's conversion and
+// add issue as a warp instruction however few lanes are live.
+//
+// This design puts every chain on a full warp, by row: lane i sums row i of
+// 32 rows of one kind, so each conversion and add serves 32 chains. Three
+// launches, each with as many warps as it has rows:
+// 1. legs: 8 pairs a CTA. Warp 0 is the chains, lane kind x 8 + pair: the
+//    prefix sums of the centred legs x, y and of x x and x y (4 f64 rows
+//    a pair) into the pair's own slice of the z table where it has room
+//    (W >= 8; launch 2 reads them before it writes the spread there), else
+//    into device-memory scratch. Warps 1-3 bring the legs'
+//    bars in up to seven tiles of 32 ahead (cp.async), form the next tile's
+//    values and write the last tile's sums out, one barrier a tile, so the
+//    adds never wait on device memory.
+// 2. spread and hedged returns: one CTA a pair, its four prefix rows and
+//    the legs' returns staged in shared memory (T <= 3072), one warp a
+//    (pair, lookback) row, lane on bar. The rolling OLS from the rows'
+//    window sums, the spread (into the z table, where launch 3 turns it
+//    into z), the hedged return on the hedge ratio of the bar before (a
+//    shuffle from the lane below; 0 before bar 0 and in the OLS warmup),
+//    and the spread's mean over the T bars in the fixed order that
+//    `lane_tree_mean` repeats: lane l sums the bars l, l + 32, ... in f64
+//    (0 past T), the 32 sums fold in a fixed tree (l + 16, then l + 8,
+//    ...), and the total over T in f64 rounds to f32.
+// 3. sums and z: 32 (pair, lookback) rows a CTA, three CTAs an SM. Warps
+//    0-2 are the chains, lane on row, one warp for each of the spread's
+//    three sums (its own, and those of the spread centred by its mean and
+//    of that squared), each lane a lead and a lag chain over a tile of 32
+//    bars. Warps 3-7, lane on bar, meanwhile form z for the tile before
+//    from its three sums and write it over the spread, store the next tile
+//    (loaded a tile ahead, coalesced) into a ring of tiles in shared
+//    memory, and gather from the ring the next tile's lags, w bars behind
+//    each row. Every tile is on a skewed pitch (row i starts i banks on),
+//    so a lane walking its row and a lane on its bar both touch 32 banks;
+//    chains read each half tile into registers first, so their adds run
+//    back to back. The ring holds ceil(w_max / 32) + 1 tiles or more (a
+//    power of two, at least 4).
+// Only z and hr are (N, W, T). Where the longest lookback is longer than
+// the ring can hold (480 bars), the lags are read from device memory
+// instead, so the spread stays in the hr table until z is written, and a
+// fourth launch forms the hedged returns (one CTA a pair, the hedge ratio
+// of the bar before formed again from the prefix rows, kept in scratch).
+//
+// chip_smoke.py prints each launch's time at the bench shape (PERF.md): the
+// spread and sums launches take most of it; the sums' chains are bound by
+// their conversions (9 a (pair, lookback, bar)), the rest by issue.
 //
 // Built without fast math and with -fmad=false: the divisions and the
 // square root are IEEE round-to-nearest and nothing is contracted, so every
 // value rounds as the torch ops of the plain version.
 
+#include <cuda_pipeline.h>
+
+#include <climits>
+
 #include "metrics_tail.cuh"
 
 namespace {
 
-constexpr int kThreads = 1024;
-// Lookbacks a CTA at most: their spreads' three sums fit 32 lanes.
-constexpr int kMaxGroup = 10;
-constexpr size_t kMaxStagedBytes = 226 * 1024;
-// The warps that run the chains, one a scheduler.
-constexpr int kChainWarps = 4;
+constexpr unsigned kFull = 0xffffffffu;
+// Bars a tile of launches 1 and 3.
+constexpr int kTile = 32;
+// Row pitch of a tile in shared memory: row i starts i banks on.
+constexpr int kPitch = kTile + 1;
+constexpr int kTileFloats = 32 * kPitch;
+// Launch 1: pairs a CTA, four kinds each (one chain warp); warps a CTA;
+// stages of the legs' bars (tiles in flight: one fewer).
+constexpr int kLegPairs = 8;
+constexpr int kKinds = 4;
+constexpr int kLegWarps = 4;
+constexpr int kLegStages = 8;
+// Launches 2 and 4: one CTA a pair, at most 16 warps; the pair's four
+// prefix rows (and in launch 2 the legs' returns) staged in shared memory
+// where the rows take up to this many bytes (T <= 3072), else read from
+// device memory.
+constexpr int kPairWarps = 16;
+constexpr size_t kMaxStagedBytes = 96 * 1024;
+// Launch 3: rows a CTA (one a lane); three chain warps (one a sum) and
+// five warps for z, the ring and the lags (rows zw, zw + 5, ...); at most
+// 80 registers a thread, so three CTAs share an SM.
+constexpr int kSumRows = 32;
+constexpr int kSums = 3;
+constexpr int kZWarps = 5;
+constexpr int kSumCtasPerSm = 3;
+constexpr int kSumWarps = kSums + kZWarps;
+constexpr int kOwnRows = (kSumRows + kZWarps - 1) / kZWarps;
+// The ring's tiles at most: lookbacks up to (kMaxRing - 1) x 32 bars.
+constexpr int kMaxRing = 16;
 
-// The stride of a CTA's f32 rows: T rounded up to 1 more than a multiple
-// of 32, so that row r starts r banks on.
-__host__ __device__ inline int pitch(int T) {
-  return T + (33 - T % 32) % 32;
+static_assert(kLegPairs * kKinds == 32, "launch 1 fills a warp");
+
+// Where the legs' four f64 prefix rows live: row `kind` of pair n at
+// c + n pair + kind kind_stride (in doubles).
+struct PrefixRows {
+  double* c;
+  size_t pair, kind;
+};
+
+// Bytes of a pair's four prefix rows, and whether launches 2 and 4 stage
+// them in shared memory.
+inline size_t pair_rows_bytes(int T) {
+  return kKinds * sizeof(double) * static_cast<size_t>(T);
 }
 
-// Floats of a CTA's first region at row length T and G lookbacks: the
-// legs' four f64 prefix rows and two centred f32 legs, which the last two
-// sum rows of every lookback's spread take over later.
-__host__ __device__ inline size_t shared_floats(int T, int G) {
-  const size_t legs = 8 * static_cast<size_t>(T) + 2 * pitch(T);
-  const size_t sums = 2 * static_cast<size_t>(G) * pitch(T);
-  return legs > sums ? legs : sums;
+inline bool staged(int T) { return pair_rows_bytes(T) <= kMaxStagedBytes; }
+
+// Warps a CTA of launch 2 at W lookbacks: as few as take the rows in
+// ceil(W / 16) rounds.
+inline int pair_warps(int W) {
+  const int rounds = (W + kPairWarps - 1) / kPairWarps;
+  return (W + rounds - 1) / rounds;
 }
 
-// Floats of shared memory (or scratch) of a CTA of G lookbacks at row
-// length T: the first region, then each lookback's spread and first sum
-// row; a multiple of 32, so every CTA's scratch starts 128-byte aligned.
-__host__ __device__ inline size_t cta_floats(int T, int G) {
-  const size_t n = shared_floats(T, G) + 2 * static_cast<size_t>(G) * pitch(T);
-  return (n + 31) / 32 * 32;
+// Whether the prefix rows of pair n live in its own slice of the z table
+// (W T floats): launch 2 stages them in shared memory before it writes the
+// pair's spread there, so that needs the ring path (z untouched until
+// launch 2), staging, room (W >= 8) and 8-byte alignment (W T even).
+// Elsewhere they live in device-memory scratch.
+inline bool prefix_in_z(int T, int W, int ring) {
+  return ring != 0 && staged(T) && W >= 2 * kKinds &&
+         static_cast<long long>(W) * T % 2 == 0;
 }
 
-// Lookbacks a CTA takes out of W at row length T (*group), and the floats
-// of scratch it needs (*scratch, 0 where it is staged in shared memory).
-inline void plan(int T, int W, int* group, int* scratch) {
-  int g = W < kMaxGroup ? W : kMaxGroup;
-  while (g > 1 && cta_floats(T, g) * sizeof(float) > kMaxStagedBytes) --g;
-  if (cta_floats(T, g) * sizeof(float) <= kMaxStagedBytes) {
-    *group = g;
-    *scratch = 0;
-  } else {
-    *group = W < kMaxGroup ? W : kMaxGroup;
-    *scratch = static_cast<int>(cta_floats(T, *group));
+// Floats of device-memory scratch: the spreads' means a (pair, lookback),
+// after the prefix rows (kind-major, (4, N, T)) where they are not in z.
+inline size_t scratch_floats(int N, int T, int W, bool in_z) {
+  return (in_z ? 0 : 2 * static_cast<size_t>(kKinds) * N * T) +
+         static_cast<size_t>(N) * W;
+}
+
+// Tiles of launch 3's ring for lookbacks up to max_window: the newest tile
+// and the ceil(max_window / 32) before it that its lags reach; a power of
+// two, at least 4 (the tiles being summed, formed into z and stored); 0
+// where that is more than kMaxRing (the lags then come from device memory;
+// 4 tiles still hold the leads).
+inline int ring_tiles(int max_window) {
+  const int need = (max_window + kTile - 1) / kTile + 1;
+  int r = 4;
+  while (r < need) r *= 2;
+  return r <= kMaxRing ? r : 0;
+}
+
+// Shared memory of launch 3 with `ring` tiles: the ring, two lag tiles and
+// two tiles of each of the three sums.
+inline size_t sums_smem(int ring) {
+  return sizeof(float) * kTileFloats * (ring + 2 + 2 * kSums);
+}
+
+// Pair n's four prefix rows (x, y, x x, x y), `stride` apart: in shared
+// memory (`rows`, stride T), copied there by the whole CTA, or where `c`
+// keeps them.
+template <bool kStaged>
+__device__ __forceinline__ const double* pair_rows(const PrefixRows& c,
+                                                   double* rows, int n,
+                                                   int T, size_t* stride) {
+  const double* base = c.c + n * c.pair;
+  if (!kStaged) {
+    *stride = c.kind;
+    return base;
   }
-}
-
-// The running f64 sum c of value(t) over the bars t < T and, with kLag,
-// the same sum w bars behind (c[t - w], 0 for t < w: the same adds in the
-// same order, so it equals c[t - w] bit for bit); emit(t, c[t], c[t - w])
-// at every bar. Whole blocks of kChunk bars run unchecked, the values of
-// the next block read before this block's sums and without a branch (past
-// the row a read is clamped to its last bar and unused), so the chain is
-// the f64 adds alone; the last T % kChunk bars follow one at a time.
-template <bool kLag, class Value, class Emit>
-__device__ void running_sum(Value value, Emit emit, int T, int w) {
-  constexpr int kChunk = 8;
-  const int whole = T - T % kChunk;
-  const auto lead_at = [&](int t) { return value(min(t, T - 1)); };
-  const auto lag_at = [&](int t) {
-    const float u = value(min(max(t - w, 0), T - 1));
-    return t >= w ? u : 0.f;
-  };
-  float v[kChunk];
-  float u[kChunk];
-#pragma unroll
-  for (int k = 0; k < kChunk; ++k) {
-    v[k] = lead_at(k);
-    if (kLag) u[k] = lag_at(k);
-  }
-  double lead = 0.0;
-  double lag = 0.0;
-  for (int t0 = 0; t0 < whole; t0 += kChunk) {
-    float next[kChunk];
-    float next_u[kChunk];
-#pragma unroll
-    for (int k = 0; k < kChunk; ++k) {
-      next[k] = lead_at(t0 + kChunk + k);
-      if (kLag) next_u[k] = lag_at(t0 + kChunk + k);
+  for (int kind = 0; kind < kKinds; ++kind) {
+    const double* src = base + kind * c.kind;
+    for (int t = threadIdx.x; t < T; t += blockDim.x) {
+      __pipeline_memcpy_async(rows + kind * T + t, src + t, sizeof(double));
     }
-#pragma unroll
-    for (int k = 0; k < kChunk; ++k) {
-      lead += static_cast<double>(v[k]);
-      if (kLag) lag += static_cast<double>(u[k]);
-      emit(t0 + k, lead, lag);
-    }
-#pragma unroll
-    for (int k = 0; k < kChunk; ++k) {
-      v[k] = next[k];
-      if (kLag) u[k] = next_u[k];
-    }
   }
-  for (int t = whole; t < T; ++t) {
-    lead += static_cast<double>(value(t));
-    if (kLag) lag += static_cast<double>(lag_at(t));
-    emit(t, lead, lag);
-  }
-}
-
-// The mean of row `s` over its T bars in the fixed order above, on the 32
-// lanes of one warp (every lane gets it).
-__device__ float lane_tree_mean(const float* s, int T) {
-  const int lane = threadIdx.x % 32;
-  double acc = 0.0;
-  for (int t0 = 0; t0 < T; t0 += 32) {
-    const int t = t0 + lane;
-    acc += t < T ? static_cast<double>(s[t]) : 0.0;
-  }
-  for (int off = 16; off >= 1; off /= 2) {
-    acc += __shfl_down_sync(0xffffffffu, acc, off);
-  }
-  return __double2float_rn(__shfl_sync(0xffffffffu, acc, 0) / T);
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  *stride = T;
+  return rows;
 }
 
 // The window sum ending at bar t of the f64 prefix row c: c[t] - c[t-w]
@@ -191,183 +219,522 @@ struct Ols {
 };
 
 // The rolling OLS of y on x at bar t from the f64 prefix rows of the
-// centred legs and of their products: c + 0 x, 1 y, 2 x x, 3 x y.
-__device__ __forceinline__ Ols ols_at(const double* c, int T, int t, int w,
-                                      float fw, float mx, float my) {
+// centred legs and of their products, `stride` apart: x, y, x x, x y.
+__device__ __forceinline__ Ols ols_at(const double* c, size_t stride, int t,
+                                      int w, float fw, float mx, float my) {
   const float sx = window_sum(c, t, w);
-  const float sy = window_sum(c + T, t, w);
-  const float sxx = window_sum(c + 2 * static_cast<size_t>(T), t, w);
-  const float sxy = window_sum(c + 3 * static_cast<size_t>(T), t, w);
+  const float sy = window_sum(c + stride, t, w);
+  const float sxx = window_sum(c + 2 * stride, t, w);
+  const float sxy = window_sum(c + 3 * stride, t, w);
   const float cov = sxy - sx * sy / fw;
   const float var = dbx::max_nan(sxx - sx * sx / fw, 0.f);
   const float beta = cov / (var + dbx::kEps);
   return {beta, (sy / fw + my) - beta * (sx / fw + mx)};
 }
 
-// One CTA: pair n, lookbacks w0 .. w0 + g - 1 of `windows` (G a CTA, the
-// last group of a pair may hold fewer).
-template <bool kStaged>
-__global__ void __launch_bounds__(kThreads) pairs_tables_kernel(
+// The hedged return on returns ry, rx and the hedge ratio bp of the bar
+// before.
+__device__ __forceinline__ float hedged_return(float ry, float rx, float bp) {
+  return (ry - bp * rx) / dbx::max_nan(1.f + fabsf(bp), 1.f);
+}
+
+// z from the three window sums s0, s1, s2 of the spread s (its own, and
+// those of the centred spread and of its square) over lookback fw.
+__device__ __forceinline__ float z_of(float s, float s0, float s1, float s2,
+                                      float fw) {
+  const float mz = s0 / fw;
+  const float varz = dbx::max_nan((s2 - s1 * s1 / fw) / fw, 0.f);
+  return (s - mz) / (sqrtf(varz) + dbx::kEps);
+}
+
+// The legs' returns at bar t (the bar before's price, bar 0's at bar 0).
+__device__ __forceinline__ void returns_at(const float* yr, const float* xr,
+                                           int t, float* ry, float* rx) {
+  const int tp = t > 0 ? t - 1 : 0;
+  *ry = yr[t] / yr[tp] - 1.f;
+  *rx = xr[t] / xr[tp] - 1.f;
+}
+
+// Launch 1: the legs' prefix sums of pairs n0 .. n0 + 7. Warp 0 is the
+// chains: lane kind x 8 + p sums row kind x 8 + p of the tile's values
+// (x - mx, y - my, and their products x x and x y, as the plain version
+// forms them) into the tile's sums. Warps 1-3 (lane on bar; pairs h, h + 3,
+// ...; rows h, h + 3, ...) meanwhile form the next tile's values from the
+// legs' bars, which they bring in up to seven tiles ahead (cp.async), and
+// write the last tile's sums out. One barrier a tile.
+__global__ void __launch_bounds__(kLegWarps * 32) legs_kernel(
     const float* __restrict__ y, const float* __restrict__ x,
     const float* __restrict__ mx, const float* __restrict__ my,
-    const int* __restrict__ windows, float* __restrict__ z,
-    float* __restrict__ hr, float* __restrict__ scratch, int T, int W,
-    int G) {
-  extern __shared__ __align__(16) float staged[];
-  __shared__ float means[kMaxGroup];
-  const int groups = (W + G - 1) / G;
-  const int n = blockIdx.x / groups;
-  const int w0 = (blockIdx.x % groups) * G;
-  const int g = min(G, W - w0);
+    PrefixRows c, int N, int T) {
+  __shared__ float raw[kLegStages][2 * kLegPairs][kTile];
+  __shared__ float vals[2][32][kPitch];
+  __shared__ double sums[2][32][kPitch];
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  // Chain i runs on lane i / kChainWarps of warp i % kChainWarps.
-  const int chain = lane * kChainWarps + warp;
-  const bool chain_warp = warp < kChainWarps;
-  const int P = pitch(T);
+  const int n0 = blockIdx.x * kLegPairs;
+  const int tiles = (T + kTile - 1) / kTile;
+  if (warp == 0) {
+    double acc = 0.0;
+    for (int b = 0; b <= tiles; ++b) {
+      __syncthreads();
+      if (b == tiles) continue;
+      const float* own = vals[b & 1][lane];
+      double* out = sums[b & 1][lane];
+      const int nb = min(kTile, T - b * kTile);
+      if (nb == kTile) {
+        // The row's reads first, so the adds run back to back.
+        float v[kTile];
+#pragma unroll
+        for (int i = 0; i < kTile; ++i) v[i] = own[i];
+#pragma unroll
+        for (int i = 0; i < kTile; ++i) {
+          acc += static_cast<double>(v[i]);
+          out[i] = acc;
+        }
+      } else {
+        for (int i = 0; i < nb; ++i) {
+          acc += static_cast<double>(own[i]);
+          out[i] = acc;
+        }
+      }
+    }
+    return;
+  }
+  const int h = warp - 1;
+  constexpr int kHelpers = kLegWarps - 1;
+  constexpr int kOwnPairs = (kLegPairs + kHelpers - 1) / kHelpers;
+  float mxp[kOwnPairs], myp[kOwnPairs];
+#pragma unroll
+  for (int k = 0; k < kOwnPairs; ++k) {
+    const int p = h + kHelpers * k;
+    const bool ok = p < kLegPairs && n0 + p < N;
+    mxp[k] = ok ? mx[n0 + p] : 0.f;
+    myp[k] = ok ? my[n0 + p] : 0.f;
+  }
+  // Tile b's bars of the thread's pairs into stage b % kLegStages, one
+  // commit group a tile (an empty one past the last tile); 0 where there
+  // is no bar.
+  const auto issue = [&](int b) {
+    if (b < tiles) {
+      const int t = b * kTile + lane;
+#pragma unroll
+      for (int k = 0; k < kOwnPairs; ++k) {
+        const int p = h + kHelpers * k;
+        if (p >= kLegPairs) continue;
+        const bool ok = n0 + p < N && t < T;
+        const size_t at = ok ? static_cast<size_t>(n0 + p) * T + t : 0;
+        float(*stage)[kTile] = raw[b % kLegStages];
+        __pipeline_memcpy_async(&stage[p][lane], x + at, 4, ok ? 0 : 4);
+        __pipeline_memcpy_async(&stage[kLegPairs + p][lane], y + at, 4,
+                                ok ? 0 : 4);
+      }
+    }
+    __pipeline_commit();
+  };
+  // Tile b's values of the thread's pairs (its own copies) into vals.
+  const auto form = [&](int b) {
+    const float(*stage)[kTile] = raw[b % kLegStages];
+    float(*v)[kPitch] = vals[b & 1];
+#pragma unroll
+    for (int k = 0; k < kOwnPairs; ++k) {
+      const int p = h + kHelpers * k;
+      if (p >= kLegPairs) continue;
+      const float xc = stage[p][lane] - mxp[k];
+      const float yc = stage[kLegPairs + p][lane] - myp[k];
+      v[p][lane] = xc;
+      v[kLegPairs + p][lane] = yc;
+      v[2 * kLegPairs + p][lane] = xc * xc;
+      v[3 * kLegPairs + p][lane] = xc * yc;
+    }
+  };
+#pragma unroll
+  for (int b = 0; b < kLegStages - 1; ++b) issue(b);
+  __pipeline_wait_prior(kLegStages - 2);
+  form(0);
+  for (int b = 0; b <= tiles; ++b) {
+    __syncthreads();
+    if (b >= 1) {
+      const int t = (b - 1) * kTile + lane;
+      if (t < T) {
+#pragma unroll
+        for (int k = 0; k < (32 + kHelpers - 1) / kHelpers; ++k) {
+          const int row = h + kHelpers * k;
+          const int n = n0 + row % kLegPairs;
+          if (row < 32 && n < N) {
+            c.c[n * c.pair + row / kLegPairs * c.kind + t] =
+                sums[(b - 1) & 1][row][lane];
+          }
+        }
+      }
+    }
+    if (b + 1 < tiles) {
+      issue(b + kLegStages - 1);
+      __pipeline_wait_prior(kLegStages - 2);
+      form(b + 1);
+    }
+  }
+  __pipeline_wait_prior(0);
+}
+
+// Launch 2: pair n's spreads into `spread` and their means into means[n W
+// + j], one warp a (pair, lookback) row (warp v takes j = v, v + warps,
+// ...), lane on bar; with kHr also the hedged returns into `hr`.
+template <bool kStaged, bool kHr>
+__global__ void __launch_bounds__(kPairWarps * 32) spread_kernel(
+    const float* __restrict__ y, const float* __restrict__ x,
+    const float* __restrict__ mx, const float* __restrict__ my,
+    const int* __restrict__ windows, PrefixRows c, float* spread,
+    float* __restrict__ hr, float* __restrict__ means, int T, int W) {
+  extern __shared__ double rows[];
+  const int n = blockIdx.x;
+  const float* yr = y + static_cast<size_t>(n) * T;
+  const float* xr = x + static_cast<size_t>(n) * T;
+  // With the rows staged, the legs' returns too, once a bar.
+  float* const ret = reinterpret_cast<float*>(rows + kKinds * T);
+  if (kStaged && kHr) {
+    for (int t = threadIdx.x; t < T; t += blockDim.x) {
+      returns_at(yr, xr, t, &ret[t], &ret[T + t]);
+    }
+  }
+  size_t stride = 0;
+  const double* cn = pair_rows<kStaged>(c, rows, n, T, &stride);
+  const int lane = threadIdx.x % 32;
+  const float mxn = mx[n];
+  const float myn = my[n];
+  for (int j = threadIdx.x / 32; j < W; j += blockDim.x / 32) {
+    const int w = windows[j];
+    const float fw = static_cast<float>(w);
+    const size_t r = static_cast<size_t>(n) * W + j;
+    float* out = spread + r * T;
+    double acc = 0.0;
+    float beta_before = 0.f;  // the hedge ratio of the bar before the block
+#pragma unroll 2
+    for (int t0 = 0; t0 < T; t0 += 32) {
+      const int t = t0 + lane;
+      const int tc = min(t, T - 1);
+      const Ols o = ols_at(cn, stride, tc, w, fw, mxn, myn);
+      const bool ok = tc >= w - 1;
+      const float yt = yr[tc];
+      const float s = ok ? yt - (o.alpha + o.beta * xr[tc]) : yt;
+      if (kHr) {
+        const float beta = ok ? o.beta : 0.f;
+        const float below = __shfl_up_sync(kFull, beta, 1);
+        const float bp = lane == 0 ? beta_before : below;
+        beta_before = __shfl_sync(kFull, beta, 31);
+        float ry, rx;
+        if (kStaged) {
+          ry = ret[tc];
+          rx = ret[T + tc];
+        } else {
+          returns_at(yr, xr, tc, &ry, &rx);
+        }
+        if (t < T) hr[r * T + t] = hedged_return(ry, rx, bp);
+      }
+      if (t < T) out[t] = s;
+      acc += t < T ? static_cast<double>(s) : 0.0;
+    }
+    for (int off = 16; off >= 1; off /= 2) {
+      acc += __shfl_down_sync(kFull, acc, off);
+    }
+    if (lane == 0) means[r] = __double2float_rn(acc / T);
+  }
+}
+
+// Launch 3's chains over one tile: sum K (0 the spread, 1 the spread
+// centred by its mean m, 2 that squared) of the lane's row, from the tile
+// (`lead`) and the tile w bars behind (`lag`, 0 below bar w), each window
+// sum into `out`.
+template <int K>
+__device__ __forceinline__ float sum_value(float s, float m) {
+  if (K == 0) return s;
+  const float sc = s - m;
+  return K == 1 ? sc : sc * sc;
+}
+
+template <int K>
+__device__ __forceinline__ void sum_chains(const float* lead,
+                                           const float* lag, float* out,
+                                           int t0, int nb, int w, float m,
+                                           double& lead_acc,
+                                           double& lag_acc) {
+  const auto step = [&](int i, float s, float s_lag) {
+    const float v = sum_value<K>(s, m);
+    const float u = t0 + i >= w ? sum_value<K>(s_lag, m) : 0.f;
+    lead_acc += static_cast<double>(v);
+    lag_acc += static_cast<double>(u);
+    out[i] = __double2float_rn(lead_acc - lag_acc);
+  };
+  if (nb == kTile) {
+    // Each half tile's reads first, so the adds run back to back.
+#pragma unroll
+    for (int i0 = 0; i0 < kTile; i0 += kTile / 2) {
+      float a[kTile / 2], b[kTile / 2];
+#pragma unroll
+      for (int i = 0; i < kTile / 2; ++i) {
+        a[i] = lead[i0 + i];
+        b[i] = lag[i0 + i];
+      }
+#pragma unroll
+      for (int i = 0; i < kTile / 2; ++i) step(i0 + i, a[i], b[i]);
+    }
+  } else {
+    for (int i = 0; i < nb; ++i) step(i, lead[i], lag[i]);
+  }
+}
+
+// Launch 3: rows r0 .. r0 + 31 of the spread: their three window sums and
+// z. With kRing, z goes over the spread (z == spread) and the lags come
+// from the ring of the last `ring` tiles; else from device memory, and z
+// goes to its own table.
+template <bool kRing>
+__global__ void __launch_bounds__(kSumWarps * 32, kSumCtasPerSm) sums_kernel(
+    const float* spread, float* z, const float* __restrict__ means,
+    const int* __restrict__ windows, int N, int T, int W, int ring) {
+  extern __shared__ float smem[];
+  __shared__ int row_w[kSumRows];
+  // The ring's tiles, then two lag tiles, then two sets of three sum tiles.
+  float* const ring_base = smem;
+  float* const lag_base = smem + ring * kTileFloats;
+  float* const sum_base = lag_base + 2 * kTileFloats;
+  const auto tile_of = [&](float* base, int k) {
+    return base + k * kTileFloats;
+  };
+  const long long rows = static_cast<long long>(N) * W;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const long long r0 = static_cast<long long>(blockIdx.x) * kSumRows;
+  const int tiles = (T + kTile - 1) / kTile;
+  if (threadIdx.x < kSumRows) {
+    row_w[threadIdx.x] = windows[(r0 + threadIdx.x) % W];
+  }
+  __syncthreads();
+  if (warp < kSums) {
+    // A chain: row r0 + lane, sum `warp`, tile b at step b.
+    const int w = row_w[lane];
+    const float m = r0 + lane < rows ? means[r0 + lane] : 0.f;
+    double lead_acc = 0.0;
+    double lag_acc = 0.0;
+    for (int b = 0; b <= tiles; ++b) {
+      __syncthreads();
+      if (b == tiles) continue;
+      const int t0 = b * kTile;
+      const int nb = min(kTile, T - t0);
+      const float* lead = tile_of(ring_base, b & (ring - 1)) + lane * kPitch;
+      const float* lag = tile_of(lag_base, b & 1) + lane * kPitch;
+      float* out = tile_of(sum_base, (b & 1) * kSums + warp) + lane * kPitch;
+      if (warp == 0) {
+        sum_chains<0>(lead, lag, out, t0, nb, w, m, lead_acc, lag_acc);
+      } else if (warp == 1) {
+        sum_chains<1>(lead, lag, out, t0, nb, w, m, lead_acc, lag_acc);
+      } else {
+        sum_chains<2>(lead, lag, out, t0, nb, w, m, lead_acc, lag_acc);
+      }
+    }
+    return;
+  }
+  // z, the ring and the lags: bar t0 + lane of rows zw, zw + 5, ...
+  const int zw = warp - kSums;
+  float next[kOwnRows];
+  // Tile b's bars of the rows into registers (0 past the rows and bars).
+  const auto load = [&](int b) {
+    const int t = b * kTile + lane;
+#pragma unroll
+    for (int q = 0; q < kOwnRows; ++q) {
+      const int i = zw + kZWarps * q;
+      const bool ok = i < kSumRows && r0 + i < rows && t < T;
+      next[q] = ok ? spread[static_cast<size_t>(r0 + i) * T + t] : 0.f;
+    }
+  };
+  // The registers into tile b's ring slot, then tile b's lags (bar t - w
+  // of each row, 0 below bar 0) into its lag tile.
+  const auto store = [&](int b) {
+    float* lead = tile_of(ring_base, b & (ring - 1));
+    float* lag = tile_of(lag_base, b & 1);
+    const int t = b * kTile + lane;
+#pragma unroll
+    for (int q = 0; q < kOwnRows; ++q) {
+      const int i = zw + kZWarps * q;
+      if (i < kSumRows) lead[i * kPitch + lane] = next[q];
+    }
+    __syncwarp();
+#pragma unroll
+    for (int q = 0; q < kOwnRows; ++q) {
+      const int i = zw + kZWarps * q;
+      if (i >= kSumRows) continue;
+      const int u = t - row_w[i];
+      float v = 0.f;
+      if (u >= 0 && t < T && r0 + i < rows) {
+        v = kRing ? tile_of(ring_base, (u / kTile) & (ring - 1))[i * kPitch +
+                                                                 u % kTile]
+                  : spread[static_cast<size_t>(r0 + i) * T + u];
+      }
+      lag[i * kPitch + lane] = v;
+    }
+  };
+  load(0);
+  store(0);
+  if (tiles > 1) load(1);
+  for (int b = 0; b <= tiles; ++b) {
+    __syncthreads();
+    if (b >= 1) {
+      // z of tile b - 1 from bar 2w - 2 on (the OLS warmup, then the
+      // z-score's).
+      const float* lead = tile_of(ring_base, (b - 1) & (ring - 1));
+      const float* s0 = tile_of(sum_base, ((b - 1) & 1) * kSums);
+      const float* s1r = s0 + kTileFloats;
+      const float* s2r = s1r + kTileFloats;
+      const int t = (b - 1) * kTile + lane;
+#pragma unroll
+      for (int q = 0; q < kOwnRows; ++q) {
+        const int i = zw + kZWarps * q;
+        if (i >= kSumRows || r0 + i >= rows || t >= T) continue;
+        const int at = i * kPitch + lane;
+        const int wi = row_w[i];
+        const float zt = z_of(lead[at], s0[at], s1r[at], s2r[at],
+                              static_cast<float>(wi));
+        z[static_cast<size_t>(r0 + i) * T + t] = t >= 2 * wi - 2 ? zt : 0.f;
+      }
+    }
+    if (b + 1 < tiles) store(b + 1);
+    if (b + 2 < tiles) load(b + 2);
+  }
+}
+
+// Launch 4 (lookbacks too long for the ring): pair n's hedged returns,
+// each on the hedge ratio of the bar before (0 before bar 0 and in the OLS
+// warmup t < w - 1), one thread a bar and every lookback.
+template <bool kStaged>
+__global__ void __launch_bounds__(kPairWarps * 32) hedged_kernel(
+    const float* __restrict__ y, const float* __restrict__ x,
+    const float* __restrict__ mx, const float* __restrict__ my,
+    const int* __restrict__ windows, PrefixRows c, float* __restrict__ hr,
+    int T, int W) {
+  extern __shared__ double rows[];
+  const int n = blockIdx.x;
+  size_t stride = 0;
+  const double* cn = pair_rows<kStaged>(c, rows, n, T, &stride);
   const float mxn = mx[n];
   const float myn = my[n];
   const float* yr = y + static_cast<size_t>(n) * T;
   const float* xr = x + static_cast<size_t>(n) * T;
-  float* buf = kStaged ? staged : scratch + blockIdx.x * cta_floats(T, G);
-  // The first region: the legs' f64 prefix rows, then the centred legs;
-  // later the last two sum rows of each lookback's spread.
-  double* c = reinterpret_cast<double*>(buf);
-  float* xc = buf + 8 * static_cast<size_t>(T);
-  float* yc = xc + P;
-  float* const second = buf + shared_floats(T, G);
-  // Lookback j's rows: its spread; the window sums of the spread (the
-  // hedge ratio's row before them), of the centred spread and of its
-  // square.
-  const auto spread = [&](int j) {
-    return second + j * static_cast<size_t>(P);
-  };
-  const auto sum_row = [&](int j, int k) {
-    return k == 0 ? second + (G + j) * static_cast<size_t>(P)
-                  : buf + (2 * j + k - 1) * static_cast<size_t>(P);
-  };
-  // f(j, t) for every (lookback, bar) of the CTA, its threads on
-  // consecutive bars.
-  const auto each = [&](auto f) {
-    int j = threadIdx.x / T;
-    int t = threadIdx.x % T;
-    while (j < g) {
-      f(j, t);
-      for (t += kThreads; t >= T; t -= T) ++j;
+  for (int t = threadIdx.x; t < T; t += blockDim.x) {
+    for (int j = 0; j < W; ++j) {
+      const int w = windows[j];
+      float bp = 0.f;
+      if (t > 0 && t - 1 >= w - 1) {
+        bp = ols_at(cn, stride, t - 1, w, static_cast<float>(w), mxn, myn)
+                 .beta;
+      }
+      float ry, rx;
+      returns_at(yr, xr, t, &ry, &rx);
+      hr[(static_cast<size_t>(n) * W + j) * T + t] =
+          hedged_return(ry, rx, bp);
     }
-  };
-
-  // The centred legs, then the prefix sums of them and of their products.
-  for (int t = threadIdx.x; t < T; t += kThreads) {
-    xc[t] = xr[t] - mxn;
-    yc[t] = yr[t] - myn;
   }
-  __syncthreads();
-  if (chain_warp && chain < 4) {
-    // x, y, x x, x y.
-    const float* a = chain == 1 ? yc : xc;
-    const float* b = chain == 3 ? yc : xc;
-    const bool product = chain >= 2;
-    double* out = c + chain * static_cast<size_t>(T);
-    running_sum<false>(
-        [=](int t) {
-          const float va = a[t];
-          const float vb = b[t];
-          return product ? va * vb : va;
-        },
-        [=](int t, double lead, double) { out[t] = lead; }, T, 0);
+}
+
+int launched() { return static_cast<int>(cudaGetLastError()); }
+
+template <bool kStaged, bool kHr>
+int launch_spread(const float* y, const float* x, const float* mx,
+                  const float* my, const int* windows, PrefixRows c,
+                  float* spread, float* hr, float* means, int N, int T,
+                  int W, cudaStream_t s) {
+  const size_t smem =
+      kStaged ? pair_rows_bytes(T) +
+                    (kHr ? 2 * sizeof(float) * static_cast<size_t>(T) : 0)
+              : 0;
+  if (const int err = dbx::allow_smem(spread_kernel<kStaged, kHr>, smem)) {
+    return err;
   }
-  __syncthreads();
+  spread_kernel<kStaged, kHr><<<N, 32 * pair_warps(W), smem, s>>>(
+      y, x, mx, my, windows, c, spread, hr, means, T, W);
+  return launched();
+}
 
-  // Each lookback's spread, and its hedge ratio (0 during the OLS warmup
-  // t < w - 1) in the row of the spread's first window sum.
-  each([&](int j, int t) {
-    const int w = windows[w0 + j];
-    const Ols o = ols_at(c, T, t, w, static_cast<float>(w), mxn, myn);
-    const bool ok = t >= w - 1;
-    spread(j)[t] = ok ? yr[t] - (o.alpha + o.beta * xr[t]) : yr[t];
-    sum_row(j, 0)[t] = ok ? o.beta : 0.f;
-  });
-  __syncthreads();
-
-  // The spreads' means, warp j for lookback j, and the hedged returns on
-  // the hedge ratio of the bar before (0 before bar 0).
-  if (warp < g) {
-    const float m = lane_tree_mean(spread(warp), T);
-    if (lane == 0) means[warp] = m;
+template <bool kStaged>
+int launch_hedged(const float* y, const float* x, const float* mx,
+                  const float* my, const int* windows, PrefixRows c,
+                  float* hr, int N, int T, int W, cudaStream_t s) {
+  const size_t smem = kStaged ? pair_rows_bytes(T) : 0;
+  if (const int err = dbx::allow_smem(hedged_kernel<kStaged>, smem)) {
+    return err;
   }
-  each([&](int j, int t) {
-    const float bp = t > 0 ? sum_row(j, 0)[t - 1] : 0.f;
-    const int tp = t > 0 ? t - 1 : 0;
-    const float ry = yr[t] / yr[tp] - 1.f;
-    const float rx = xr[t] / xr[tp] - 1.f;
-    hr[(static_cast<size_t>(n) * W + w0 + j) * T + t] =
-        (ry - bp * rx) / dbx::max_nan(1.f + fabsf(bp), 1.f);
-  });
-  __syncthreads();
+  hedged_kernel<kStaged><<<N, 256, smem, s>>>(
+      y, x, mx, my, windows, c, hr, T, W);
+  return launched();
+}
 
-  // The window sums of each spread (k 0), of the spread centred by its
-  // mean (k 1) and of that squared (k 2), one chain each.
-  if (chain_warp && chain < 3 * g) {
-    const int j = chain / 3;
-    const int k = chain % 3;
-    const float* sp = spread(j);
-    const float m = means[j];
-    float* out = sum_row(j, k);
-    running_sum<true>(
-        [=](int t) {
-          const float s = sp[t];
-          const float sc = s - m;
-          return k == 0 ? s : k == 1 ? sc : sc * sc;
-        },
-        [=](int t, double lead, double lag) {
-          out[t] = __double2float_rn(lead - lag);
-        },
-        T, windows[w0 + j]);
-  }
-  __syncthreads();
-
-  // z from bar 2w - 2 on (the OLS warmup, then the z-score's).
-  each([&](int j, int t) {
-    const int w = windows[w0 + j];
-    const float fw = static_cast<float>(w);
-    const float mz = sum_row(j, 0)[t] / fw;
-    const float s1 = sum_row(j, 1)[t];
-    const float s2 = sum_row(j, 2)[t];
-    const float varz = dbx::max_nan((s2 - s1 * s1 / fw) / fw, 0.f);
-    const float zt = (spread(j)[t] - mz) / (sqrtf(varz) + dbx::kEps);
-    z[(static_cast<size_t>(n) * W + w0 + j) * T + t] =
-        t >= 2 * w - 2 ? zt : 0.f;
-  });
+template <bool kRing>
+int launch_sums(const float* spread, float* z, const float* means,
+                const int* windows, int N, int T, int W, int ring,
+                cudaStream_t s) {
+  const size_t smem = sums_smem(ring);
+  if (const int err = dbx::allow_smem(sums_kernel<kRing>, smem)) return err;
+  const long long rows = static_cast<long long>(N) * W;
+  sums_kernel<kRing>
+      <<<static_cast<unsigned>((rows + kSumRows - 1) / kSumRows),
+         kSumWarps * 32, smem, s>>>(spread, z, means, windows, N, T, W,
+                                    ring);
+  return launched();
 }
 
 }  // namespace
 
-// dbx_pairs_tables_plan: info[0], the lookbacks a CTA of dbx_pairs_tables
-// takes at row length T out of W; info[1], the floats of device-memory
-// scratch each of its N * ceil(W / info[0]) CTAs needs, 0 where they stage
-// their rows in shared memory.
-extern "C" int dbx_pairs_tables_plan(int T, int W, int* info) {
-  if (T <= 0 || W <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  plan(T, W, &info[0], &info[1]);
+// dbx_pairs_tables_plan: how dbx_pairs_tables lays out N pairs of T bars
+// and W lookbacks, the longest `max_window` bars. info[0], the floats of
+// device-memory scratch it needs (the legs' f64 prefix rows where they are
+// not in z, then the spreads' means); info[1], the pairs a warp of the
+// legs' chains takes; info[2], the (pair, lookback) rows a CTA of the
+// spreads' chains takes;
+// info[3], the launches a call makes; info[4], 1 where the spread launch
+// stages a pair's prefix rows in shared memory, 0 where it reads them from
+// device memory; info[5], the tiles of the sums launch's ring, 0 where
+// the lags come from device memory; info[6], 1 where the prefix rows live
+// in the z table, 0 where in the scratch.
+extern "C" int dbx_pairs_tables_plan(int N, int T, int W, int max_window,
+                                     int* info) {
+  if (N <= 0 || T <= 0 || W <= 0 || max_window <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int ring = ring_tiles(max_window);
+  const bool in_z = prefix_in_z(T, W, ring);
+  const size_t floats = scratch_floats(N, T, W, in_z);
+  if (floats > static_cast<size_t>(INT_MAX)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  info[0] = static_cast<int>(floats);
+  info[1] = kLegPairs;
+  info[2] = kSumRows;
+  info[3] = ring != 0 ? 3 : 4;
+  info[4] = staged(T) ? 1 : 0;
+  info[5] = ring;
+  info[6] = in_z ? 1 : 0;
   return static_cast<int>(cudaSuccess);
 }
 
 // dbx_pairs_tables: y, x (N, T) f32 close legs; mx, my (N,) f32 their means
-// over the T bars; windows (W,) i32 distinct lookbacks (each at least 1);
-// z, hr (N, W, T) f32 out: the spread z-table and the hedged-return table;
-// scratch: as dbx_pairs_tables_plan says, else unused. Pointers are device
-// pointers. Launches on `stream` and returns cudaGetLastError() as an int.
+// over the T bars; windows (W,) i32 distinct lookbacks (each at least 1),
+// the longest `max_window` bars (it sizes the sums launch's ring: a
+// smaller value than the longest gives wrong z); z, hr (N, W, T) f32 out:
+// the spread z-table and the hedged-return table (one of the two holds the
+// spread until z is written, and z the legs' prefix rows before that where
+// they fit); scratch: the floats dbx_pairs_tables_plan gives. Pointers are
+// device pointers. Launches on `stream` and returns the first launch's
+// error, or cudaGetLastError() of the last, as an int.
 extern "C" int dbx_pairs_tables(const void* y, const void* x, const void* mx,
                                 const void* my, const void* windows, void* z,
                                 void* hr, void* scratch, int N, int T, int W,
-                                void* stream) {
+                                int max_window, void* stream) {
   if (N <= 0 || W <= 0 || T <= 0) return static_cast<int>(cudaSuccess);
-  int G = 0;
-  int per_cta = 0;
-  plan(T, W, &G, &per_cta);
-  const unsigned ctas =
-      static_cast<unsigned>(N) * static_cast<unsigned>((W + G - 1) / G);
+  if (scratch == nullptr || max_window <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int ring = ring_tiles(max_window);
+  const bool in_z = prefix_in_z(T, W, ring);
+  if (scratch_floats(N, T, W, in_z) > static_cast<size_t>(INT_MAX)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* yp = static_cast<const float*>(y);
   const auto* xp = static_cast<const float*>(x);
@@ -376,17 +743,39 @@ extern "C" int dbx_pairs_tables(const void* y, const void* x, const void* mx,
   const auto* wp = static_cast<const int*>(windows);
   auto* zp = static_cast<float*>(z);
   auto* hp = static_cast<float*>(hr);
-  if (per_cta == 0) {
-    const size_t smem = cta_floats(T, G) * sizeof(float);
-    const int err = dbx::allow_smem(pairs_tables_kernel<true>, smem);
+  const size_t NT = static_cast<size_t>(N) * T;
+  const PrefixRows c =
+      in_z ? PrefixRows{reinterpret_cast<double*>(zp),
+                        static_cast<size_t>(W) * T / 2,
+                        static_cast<size_t>(T)}
+           : PrefixRows{static_cast<double*>(scratch),
+                        static_cast<size_t>(T), NT};
+  auto* means = static_cast<float*>(scratch) + (in_z ? 0 : 2 * kKinds * NT);
+  legs_kernel<<<(N + kLegPairs - 1) / kLegPairs, kLegWarps * 32, 0, s>>>(
+      yp, xp, mxp, myp, c, N, T);
+  if (const int err = launched()) return err;
+  if (ring != 0) {
+    // The spread in the z table, z over it; hr in launch 2.
+    const int err =
+        staged(T) ? launch_spread<true, true>(yp, xp, mxp, myp, wp, c, zp,
+                                              hp, means, N, T, W, s)
+                  : launch_spread<false, true>(yp, xp, mxp, myp, wp, c, zp,
+                                               hp, means, N, T, W, s);
     if (err != 0) return err;
-    pairs_tables_kernel<true><<<ctas, kThreads, smem, s>>>(
-        yp, xp, mxp, myp, wp, zp, hp, nullptr, T, W, G);
-  } else {
-    if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    pairs_tables_kernel<false><<<ctas, kThreads, 0, s>>>(
-        yp, xp, mxp, myp, wp, zp, hp, static_cast<float*>(scratch), T, W,
-        G);
+    return launch_sums<true>(zp, zp, means, wp, N, T, W, ring, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  // The spread in the hr table until z is written, then hr over it.
+  int err = staged(T) ? launch_spread<true, false>(yp, xp, mxp, myp, wp, c,
+                                                   hp, nullptr, means, N, T,
+                                                   W, s)
+                      : launch_spread<false, false>(yp, xp, mxp, myp, wp, c,
+                                                    hp, nullptr, means, N,
+                                                    T, W, s);
+  if (err != 0) return err;
+  err = launch_sums<false>(hp, zp, means, wp, N, T, W, 4, s);
+  if (err != 0) return err;
+  return staged(T) ? launch_hedged<true>(yp, xp, mxp, myp, wp, c, hp, N, T,
+                                         W, s)
+                   : launch_hedged<false>(yp, xp, mxp, myp, wp, c, hp, N, T,
+                                          W, s);
 }

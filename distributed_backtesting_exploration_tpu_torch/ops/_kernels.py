@@ -136,10 +136,11 @@ _SIGNATURES = {
     "ema_rows": {
         "dbx_ema_rows": [_VP] * 4 + [_CI] * 4 + [_VP],
         "dbx_ema_rows_scratch": [_CI],
+        "dbx_ema_rows_registers": [_CI],
     },
     "pairs_tables": {
-        "dbx_pairs_tables": [_VP] * 8 + [_CI] * 3 + [_VP],
-        "dbx_pairs_tables_plan": [_CI, _CI, _PI],
+        "dbx_pairs_tables": [_VP] * 8 + [_CI] * 4 + [_VP],
+        "dbx_pairs_tables_plan": [_CI] * 4 + [_PI],
     },
     "stages": {
         "dbx_sma_stage": [_VP] * 6 + [_CI] * 7 + [_CF, _CI, _VP],

@@ -1363,8 +1363,10 @@ def ema_rows_cuda(x, decay, ladders: int) -> torch.Tensor:
     rows ``x``, one row per ``(W,)`` f32 decay, on the card. With the decays
     of :func:`ema_decay` it equals, bit for bit, :func:`trix_ema_table`
     (3 ladders of the close) and :func:`macd_ema_table` (1 ladder of the
-    close demeaned by its first bar), the plain versions; rows too long to
-    stage in shared memory run on scratch in device memory."""
+    close demeaned by its first bar), the plain versions. A row of up to
+    2048 bars runs in one warp's registers (:func:`ema_rows_registers`);
+    longer rows are staged in shared memory, or run on scratch in device
+    memory where they are too long to stage."""
     N, T = x.shape
     W = decay.shape[0]
     if not 1 <= ladders <= 3:
@@ -1385,8 +1387,18 @@ def ema_rows_cuda(x, decay, ladders: int) -> torch.Tensor:
 @functools.lru_cache(maxsize=None)
 def _ema_rows_scratch(T: int) -> int:
     """Floats of device-memory scratch a row of ``dbx_ema_rows`` needs at
-    row length ``T``, 0 where it is staged in shared memory."""
+    row length ``T``, 0 where it is held in registers or staged in shared
+    memory."""
     return int(_kernels.ema_rows_lib().dbx_ema_rows_scratch(T))
+
+
+@functools.lru_cache(maxsize=None)
+def ema_rows_registers(T: int) -> int:
+    """The registers a lane of ``dbx_ema_rows`` holds of a row of ``T``
+    bars (bar t on lane t % 32 in register t // 32, one row a warp), 0
+    where the row is longer than the largest register plan and runs on the
+    staged path."""
+    return int(_kernels.ema_rows_lib().dbx_ema_rows_registers(int(T)))
 
 
 def macd_sweep_table(close, spans: np.ndarray) -> torch.Tensor:
@@ -1583,11 +1595,15 @@ def pairs_tables_plain(y, x, mx, my, windows):
                        lane_tree_mean)
 
 
-def pairs_tables_cuda(y, x, mx, my, windows):
+def pairs_tables_cuda(y, x, mx, my, windows, max_window=None):
     """Launch ``dbx_pairs_tables`` (``csrc/pairs_tables.cu``): same inputs
-    and output as :func:`pairs_tables_plain`, all on one CUDA device. No
-    ``(N, W, T)`` tensor but the two tables is allocated, save scratch for
-    rows too long to stage in shared memory."""
+    and output as :func:`pairs_tables_plain`, all on one CUDA device.
+    ``max_window`` is the longest lookback (it sizes the kernel's ring of
+    tiles; a value below it gives wrong z); ``None`` reads it from
+    ``windows``, which waits for the card. No ``(N, W, T)`` tensor but the
+    two tables is allocated: the z table holds the legs' f64 prefix rows
+    (32 B a (pair, bar)) where it has room and then the spread, else the
+    scratch holds them; the scratch holds the spreads' means."""
     N, T = y.shape
     W = windows.shape[0]
     f32 = torch.float32
@@ -1598,27 +1614,37 @@ def pairs_tables_cuda(y, x, mx, my, windows):
     z = torch.empty((N, W, T), dtype=f32, device=y.device)
     hr = torch.empty_like(z)
     if N and W and T:
+        if max_window is None:
+            max_window = int(windows.max())
         lib = _kernels.pairs_tables_lib()
-        group, per_cta = pairs_tables_plan(T, W)
-        scratch = (torch.empty((N * -(-W // group) * per_cta,), dtype=f32,
-                               device=y.device) if per_cta else None)
+        scratch = torch.empty((pairs_tables_plan(N, T, W, max_window)[0],),
+                              dtype=f32, device=y.device)
         _launch("pairs_tables", lib.dbx_pairs_tables, y, x, mx, my, windows,
-                z, hr, scratch, N, T, W)
+                z, hr, scratch, N, T, W, int(max_window))
     return z, hr
 
 
 @functools.lru_cache(maxsize=None)
-def pairs_tables_plan(T: int, W: int) -> tuple[int, int]:
-    """How ``dbx_pairs_tables`` lays out a launch at row length ``T`` and
-    ``W`` lookbacks: the lookbacks a CTA takes (one CTA per pair and group
-    of them), and the floats of device-memory scratch a CTA needs, 0 where
-    its rows are staged in shared memory."""
-    info = (ctypes.c_int * 2)()
-    err = _kernels.pairs_tables_lib().dbx_pairs_tables_plan(int(T), int(W),
-                                                            info)
+def pairs_tables_plan(N: int, T: int, W: int,
+                      max_window: int) -> tuple[int, ...]:
+    """How ``dbx_pairs_tables`` lays out a call on ``N`` pairs of ``T``
+    bars and ``W`` lookbacks, the longest ``max_window`` bars: the floats
+    of device-memory scratch it needs, the pairs a warp of the legs' prefix
+    chains takes (four chains a pair, one a lane), the (pair, lookback)
+    rows a CTA of the spreads' chains takes (one a lane, a warp for each of
+    the three sums), the launches a call makes (3, or 4 where the lookbacks
+    are too long for the ring), 1 where the spread launch stages a pair's
+    four prefix rows in shared memory (0: it reads them from device
+    memory), the tiles of 32 bars in the sums launch's ring (0: its lags
+    come from device memory), and 1 where the legs' prefix rows live in
+    the z table (0: in the scratch)."""
+    info = (ctypes.c_int * 7)()
+    err = _kernels.pairs_tables_lib().dbx_pairs_tables_plan(
+        int(N), int(T), int(W), int(max_window), info)
     if err != 0:
-        raise ValueError(f"dbx_pairs_tables takes no T={T}, W={W}")
-    return int(info[0]), int(info[1])
+        raise ValueError(f"dbx_pairs_tables takes no N={N}, T={T}, W={W}, "
+                         f"max_window={max_window}")
+    return tuple(int(v) for v in info)
 
 
 def pairs_sweep_tables(y, x, windows: np.ndarray):
@@ -1628,9 +1654,11 @@ def pairs_sweep_tables(y, x, windows: np.ndarray):
     legs, the same bits on any device and stack)."""
     if y.device.type == "cpu":
         return pairs_tables(y, x, windows)
+    lookbacks = np.asarray(windows).astype(np.int32)
     return pairs_tables_cuda(y, x, rolling.mean_f64(x, 1)[:, 0],
                              rolling.mean_f64(y, 1)[:, 0],
-                             *_to(y.device, windows.astype(np.int32)))
+                             *_to(y.device, lookbacks),
+                             max_window=int(lookbacks.max(initial=1)))
 
 
 # --- sweep wrappers -------------------------------------------------------

@@ -20,8 +20,8 @@ that drive equity to +-inf and NaN, K1, momentum and K5 give NaN where
 their plain versions do and every other value bit-equal. The table kernels
 (``dbx_ema_rows``, ``dbx_pairs_tables``) equal their plain versions
 (``trix_ema_table`` and ``macd_ema_table``, ``pairs_tables_plain``) bit
-for bit, on rows staged in shared memory and on long rows in device
-memory.
+for bit, on rows in registers or staged in shared memory and on long rows
+in device memory.
 """
 
 import numpy as np
@@ -625,17 +625,22 @@ def _bits(x):
     return x.view(torch.int32)
 
 
-@pytest.mark.parametrize("n,T,seed,lens", [
-    (3, 200, 0, None),
-    (2, 251, 5, None),
-    (3, 300, 9, [300, 251, 170]),      # ragged: padded by the last bar
-    (2, 13000, 4, None),               # rows on scratch in device memory
-    (2, 1, 3, None),
-    (2, 2, 3, None),
+@pytest.mark.parametrize("n,T,seed,lens,spans", [
+    (3, 200, 0, None, None),
+    (2, 251, 5, None, None),
+    (3, 300, 9, [300, 251, 170], None),  # ragged: padded by the last bar
+    (2, 13000, 4, None, None),         # rows on scratch in device memory
+    (2, 1, 3, None, None),
+    (2, 2, 3, None, None),
+    (1, 1260, 6, None, None),          # one row a warp: 5 rows, 2 CTAs
+    (31, 1260, 7, None, [9]),          # one span: 31 rows
+    (33, 33, 8, None, None),           # two registers a lane
+    (2, 2048, 9, None, None),          # the largest register plan
+    (2, 2049, 9, None, None),          # one bar past it: staged
 ])
-def test_ema_rows_match_trix_ema_table(cuda, n, T, seed, lens):
+def test_ema_rows_match_trix_ema_table(cuda, n, T, seed, lens, spans):
     close, _, _, _, _ = _panel(cuda, n, T, seed, lens)
-    spans = np.float32([2, 3, 8, 14, 100])
+    spans = np.float32(spans or [2, 3, 8, 14, 100])
     got = fused.ema_rows_cuda(close, fused.ema_decay(cuda, spans), 3)
     ref = fused.trix_ema_table(close, spans)
     torch.cuda.synchronize()
@@ -672,18 +677,26 @@ def _pairs_table_args(dev, n, T, seed, lens=None,
     return y, x, x.mean(dim=1), y.mean(dim=1), windows
 
 
-@pytest.mark.parametrize("n,T,seed,lens", [
-    (3, 200, 0, None),
-    (2, 251, 5, None),
-    (3, 300, 9, [300, 251, 170]),
-    (2, 3500, 4, None),                # three lookbacks a CTA, then one
-    (1, 5000, 4, None),                # rows on scratch in device memory
-    (1, 13000, 4, None),
-    (2, 1, 3, None),
-    (2, 2, 3, None),
+@pytest.mark.parametrize("n,T,seed,lens,lookbacks", [
+    (3, 200, 0, None, None),
+    (2, 251, 5, None, None),
+    (3, 300, 9, [300, 251, 170], None),
+    (2, 3500, 4, None, None),          # prefix rows read from memory
+    (1, 5000, 4, None, None),
+    (1, 13000, 4, None, None),
+    (2, 1, 3, None, None),
+    (2, 2, 3, None, None),
+    (1, 1260, 6, None, tuple(range(20, 70, 5))),   # the bench lookbacks
+    (31, 1260, 7, None, tuple(range(20, 70, 5))),  # 310 rows: 10 CTAs
+    (33, 251, 8, None, (7,)),          # one lookback: 33 rows
+    (3, 1300, 9, None, (7, 50, 600)),  # past the ring: lags from memory
+    (1, 13000, 10, None, (20, 481)),   # both, on long rows
+    (3, 251, 11, None, tuple(range(5, 50, 5))),    # W T odd: rows in scratch
+    (2, 252, 12, None, tuple(range(5, 50, 5))),    # prefix rows in z
 ])
-def test_pairs_tables_match_plain(cuda, n, T, seed, lens):
-    args = _pairs_table_args(cuda, n, T, seed, lens)
+def test_pairs_tables_match_plain(cuda, n, T, seed, lens, lookbacks):
+    args = _pairs_table_args(cuda, n, T, seed, lens,
+                             **({"lookbacks": lookbacks} if lookbacks else {}))
     got = fused.pairs_tables_cuda(*args)
     ref = fused.pairs_tables_plain(*args)
     torch.cuda.synchronize()
@@ -710,17 +723,32 @@ def test_table_kernels_count_their_launches_and_check_inputs(cuda):
         fused.ema_rows_cuda(close.double(), decay, 3)
     with pytest.raises(ValueError, match="is on"):
         fused.ema_rows_cuda(close, decay.cpu(), 3)
-    # A CTA per pair and group of lookbacks, fewer for longer rows, then
-    # scratch in device memory.
-    assert fused.pairs_tables_plan(1260, 10) == (10, 0)
-    assert fused.pairs_tables_plan(200, 4) == (4, 0)
-    assert fused.pairs_tables_plan(3000, 10) == (4, 0)
-    assert fused.pairs_tables_plan(3500, 4) == (3, 0)
-    # The legs' four f64 prefix rows and two f32 rows, then the spreads'
-    # 2 x 10 rows beside their 2 x 10 sum rows (pitch 5025, 13025), in
-    # multiples of 32 floats.
-    assert fused.pairs_tables_plan(5000, 10) == (10, 201024)
-    assert fused.pairs_tables_plan(13000, 10) == (10, 521024)
+    # Scratch: a mean a (pair, lookback), after the legs' four f64 prefix
+    # rows a pair (8 floats a (pair, bar)) unless those live in the z
+    # table (W >= 8, W T even, staged, the ring); 8 pairs a legs CTA, 32
+    # rows a sums CTA; 3 launches, the prefix rows staged up to T = 3072, a
+    # ring of ceil(w / 32) + 1 tiles or more (a power of two, at least 4) up
+    # to 16 tiles; past it the lags come from memory and hr takes a 4th.
+    assert fused.pairs_tables_plan(1000, 1260, 10, 65) == (
+        10000, 8, 32, 3, 1, 4, 1)
+    assert fused.pairs_tables_plan(2, 252, 9, 65) == (18, 8, 32, 3, 1, 4, 1)
+    assert fused.pairs_tables_plan(2, 251, 9, 65) == (
+        4034, 8, 32, 3, 1, 4, 0)
+    assert fused.pairs_tables_plan(2, 200, 4, 97) == (
+        3208, 8, 32, 3, 1, 8, 0)
+    assert fused.pairs_tables_plan(2, 200, 4, 300) == (
+        3208, 8, 32, 3, 1, 16, 0)
+    assert fused.pairs_tables_plan(1, 3072, 8, 96) == (8, 8, 32, 3, 1, 4, 1)
+    assert fused.pairs_tables_plan(1, 3073, 8, 480) == (
+        24592, 8, 32, 3, 0, 16, 0)
+    assert fused.pairs_tables_plan(3, 1300, 8, 481) == (
+        31224, 8, 32, 4, 1, 0, 0)
+    with pytest.raises(ValueError, match="max_window"):
+        fused.pairs_tables_plan(1, 10, 1, 0)
+    # One row a warp in registers up to 2048 bars, 32 bars a register.
+    assert [fused.ema_rows_registers(T) for T in (1, 32, 33, 251, 1260, 2048,
+                                                  2049)] == [1, 1, 2, 8, 40,
+                                                             64, 0]
     y, x, mx, my, windows = args
     with pytest.raises(TypeError, match="int32"):
         fused.pairs_tables_cuda(y, x, mx, my, windows.long())

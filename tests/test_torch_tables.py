@@ -24,6 +24,7 @@ replace on the card and against an independent model.
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 from distributed_backtesting_exploration_tpu_torch import roofline
 from distributed_backtesting_exploration_tpu_torch.models import pairs
@@ -370,3 +371,372 @@ def test_table_kernels_and_trix_bounds():
     assert by == "bytes"
     n_bytes = 4.0 * (2 * 1000 * 1260 + 2 * 1000 + 10) + 8.0 * 1000 * 10 * 1260
     assert ms == pytest.approx(1e3 * n_bytes / roofline.PEAK_HBM_BYTES)
+
+
+# --- the kernels' lane and tile mappings (csrc/pairs_tables.cu, ema_rows.cu)
+#
+# Numpy models that walk the data the way the kernels do: rows dealt to
+# lanes, warps and CTAs, bars in tiles of 32, the legs' and the spreads'
+# chains carried across tiles, the spreads' lags gathered from a ring of
+# tiles, z written over the spread, each row's EMA ladder striped over a
+# warp's registers with its shuffles and in-lane shifts. Each must equal
+# the plain version bit for bit: the mapping moves where the work runs, not
+# one rounding.
+
+_TILE = 32
+_LEG_PAIRS = 8          # pairs a CTA of the legs' launch (4 chains each)
+_SUM_ROWS = 32          # (pair, lookback) rows a CTA of the sums' launch
+_MAX_RING = 16          # tiles of that launch's ring at most
+_REGISTER_SIZES = (1, 2, 4, 8, 16, 24, 32, 40, 48, 56, 64)
+
+
+def _ring_tiles(max_window: int) -> int:
+    """csrc/pairs_tables.cu ``ring_tiles``: a power of two, at least
+    ceil(max_window / 32) + 1 (the newest tile and the tiles its lags
+    reach back to) and 4; 0 where that exceeds 16."""
+    need = -(-max_window // _TILE) + 1
+    r = 4
+    while r < need:
+        r *= 2
+    return r if r <= _MAX_RING else 0
+
+
+def _legs_model(y, x, mx, my):
+    """Launch 1: 8 pairs a CTA, lane kind x 8 + p summing row kind x 8 + p
+    of the tile's values (xc, yc, xc xc, xc yc) in f64, the chain carried
+    from tile to tile; the (4, N, T) f64 prefix rows."""
+    f32 = np.float32
+    N, T = y.shape
+    ctas = -(-N // _LEG_PAIRS)
+    pair = np.arange(ctas)[:, None] * _LEG_PAIRS + np.arange(_LEG_PAIRS)
+    live_pair = pair < N
+    pc = np.minimum(pair, N - 1)
+    mxp = np.where(live_pair, mx[pc], f32(0))[..., None]
+    myp = np.where(live_pair, my[pc], f32(0))[..., None]
+    c = np.zeros((4, N, T))
+    acc = np.zeros((ctas, 32))
+    for b in range(-(-T // _TILE)):
+        bars = b * _TILE + np.arange(_TILE)
+        live = live_pair[..., None] & (bars < T)
+        bc = np.minimum(bars, T - 1)
+        xs = np.where(live, x[pc][:, :, bc], f32(0))
+        ys = np.where(live, y[pc][:, :, bc], f32(0))
+        xc, yc = xs - mxp, ys - myp
+        vals = np.concatenate([xc, yc, xc * xc, xc * yc], axis=1)
+        assert vals.dtype == f32 and vals.shape == (ctas, 32, _TILE)
+        sums = np.zeros((ctas, 32, _TILE))
+        for i in range(min(_TILE, T - b * _TILE)):
+            acc = acc + vals[:, :, i].astype(np.float64)
+            sums[:, :, i] = acc
+        for row in range(32):
+            kind, p = divmod(row, _LEG_PAIRS)
+            rows = np.flatnonzero(pair[:, p] < N)
+            cols = bars[bars < T]
+            c[kind, pair[rows, p][:, None], cols] = sums[rows, row][:, :cols.size]
+    return c
+
+
+def _spread_model(y, x, mx, my, lookbacks, c):
+    """Launch 2: one warp a (pair, lookback) row, lane on bar, blocks of 32
+    bars: the OLS from the f64 prefix rows' window sums (rounded once),
+    the spread, the hedged return on the hedge ratio of the bar before
+    (lane 0 takes the last block's lane 31), and the spread's mean in the
+    lane tree. Returns the (N, W, T) spread, hr and the (N, W) means."""
+    f32 = np.float32
+    N, T = y.shape
+    W = len(lookbacks)
+    w = np.asarray(lookbacks, np.int64)[None, :, None]          # (1, W, 1)
+    fw = w.astype(f32)
+    mxn, myn = mx[:, None, None], my[:, None, None]
+    lane = np.arange(32)
+    spread = np.zeros((N, W, T), f32)
+    hr = np.zeros((N, W, T), f32)
+    acc = np.zeros((N, W, 32))
+    beta_before = np.zeros((N, W), f32)
+    tp_all = np.maximum(np.arange(T) - 1, 0)
+    ry_all = y / y[:, tp_all] - f32(1)
+    rx_all = x / x[:, tp_all] - f32(1)
+
+    def wsum(kind, tc):
+        lead = c[kind][:, None, :][:, :, tc]                        # (N, 1, 32)
+        lag_at = tc[None, None, :] - w
+        lag = np.where(lag_at >= 0, c[kind][:, None, :][
+            np.arange(N)[:, None, None], 0, np.maximum(lag_at, 0)], 0.0)
+        return (lead - lag).astype(f32)
+
+    for t0 in range(0, T, 32):
+        t = t0 + lane
+        tc = np.minimum(t, T - 1)
+        sx, sy, sxx, sxy = (wsum(k, tc) for k in range(4))
+        cov = sxy - sx * sy / fw
+        var = np.maximum(sxx - sx * sx / fw, f32(0))
+        beta = cov / (var + f32(1e-12))
+        alpha = (sy / fw + myn) - beta * (sx / fw + mxn)
+        ok = tc[None, None, :] >= w - 1
+        yt = y[:, tc][:, None, :]
+        s = np.where(ok, yt - (alpha + beta * x[:, tc][:, None, :]), yt)
+        beta_tbl = np.where(ok, beta, f32(0))
+        bp = np.concatenate([beta_before[..., None], beta_tbl[..., :-1]], -1)
+        beta_before = beta_tbl[..., 31]
+        h = (ry_all[:, tc][:, None, :] - bp * rx_all[:, tc][:, None, :]) / \
+            np.maximum(f32(1) + np.abs(bp), f32(1))
+        live = t < T
+        spread[..., t[live]] = s[..., live]
+        hr[..., t[live]] = h[..., live]
+        acc = acc + np.where(live, s.astype(np.float64), 0.0)
+    for off in (16, 8, 4, 2, 1):
+        acc[..., :off] = acc[..., :off] + acc[..., off:2 * off]
+    return spread, hr, (acc[..., 0] / T).astype(f32)
+
+
+def _sums_model(spread, means, lookbacks, ring, sqrt):
+    """Launch 3: rows r = n W + j dealt 32 to a CTA; per tile, each row's
+    lead and lag chains of its three sums (lane on row), then z for the tile
+    (lane on bar). Each tile goes into a ring of `ring` slots (slot b &
+    (ring - 1)) a tile ahead of its sums and its lags are gathered from the
+    ring, z written over the spread; with ring 0 the lags come from the
+    spread itself and z goes to its own table (4 slots hold the leads)."""
+    f32 = np.float32
+    N, W, T = spread.shape
+    rows = N * W
+    tiles = -(-T // _TILE)
+    ctas = -(-rows // _SUM_ROWS)
+    flat = spread.reshape(rows, T)            # a view: z goes over it
+    z_out = flat if ring else np.zeros((rows, T), f32)
+    slots = ring or 4
+    r_of = np.arange(ctas)[:, None] * _SUM_ROWS + np.arange(_SUM_ROWS)
+    live_row = r_of < rows
+    rc = np.minimum(r_of, rows - 1)
+    w = np.asarray(lookbacks, np.int64)[rc % W]                  # (C, 32)
+    fw = w.astype(f32)
+    m = np.where(live_row, means.reshape(-1)[rc], f32(0))
+    lane = np.arange(_TILE)
+    lead_ring = np.zeros((slots, ctas, _SUM_ROWS, _TILE), f32)
+    lag_tiles = np.zeros((2, ctas, _SUM_ROWS, _TILE), f32)
+    sum_tiles = np.zeros((2, 3, ctas, _SUM_ROWS, _TILE), f32)
+    lead_acc = np.zeros((3, ctas, _SUM_ROWS))
+    lag_acc = np.zeros((3, ctas, _SUM_ROWS))
+
+    def store(b):
+        t = b * _TILE + lane
+        ok = live_row[..., None] & (t < T)
+        lead_ring[b & (slots - 1)] = np.where(
+            ok, flat[rc[..., None], np.minimum(t, T - 1)], f32(0))
+        u = t[None, None, :] - w[..., None]
+        ok_lag = ok & (u >= 0)
+        uc = np.maximum(u, 0)
+        if ring:
+            slot = (uc // _TILE) & (ring - 1)
+            got = lead_ring[slot, np.arange(ctas)[:, None, None],
+                            np.arange(_SUM_ROWS)[None, :, None], uc % _TILE]
+        else:
+            got = flat[rc[..., None], np.minimum(uc, T - 1)]
+        lag_tiles[b & 1] = np.where(ok_lag, got, f32(0))
+
+    def value(k, s):
+        if k == 0:
+            return s
+        sc = s - m
+        return sc if k == 1 else sc * sc
+
+    def chains(b):
+        lead = lead_ring[b & (slots - 1)]
+        lag = lag_tiles[b & 1]
+        for i in range(min(_TILE, T - b * _TILE)):
+            behind = b * _TILE + i >= w
+            for k in range(3):
+                v = value(k, lead[..., i])
+                u = np.where(behind, value(k, lag[..., i]), f32(0))
+                lead_acc[k] += v.astype(np.float64)
+                lag_acc[k] += u.astype(np.float64)
+                sum_tiles[b & 1, k, ..., i] = (lead_acc[k] - lag_acc[k])
+
+    def z_tile(b):
+        t = b * _TILE + lane
+        s0, s1, s2 = sum_tiles[b & 1]
+        f = fw[..., None]
+        mz = s0 / f
+        varz = np.maximum((s2 - s1 * s1 / f) / f, f32(0))
+        zt = (lead_ring[b & (slots - 1)] - mz) / (sqrt(varz) + f32(1e-12))
+        zt = np.where(t >= 2 * w[..., None] - 2, zt, f32(0))
+        ok = live_row[..., None] & (t < T)
+        ci, ri, li = np.nonzero(ok)
+        z_out[r_of[ci, ri], t[li]] = zt[ci, ri, li]
+
+    store(0)
+    for b in range(tiles + 1):
+        if b < tiles:
+            chains(b)
+        if b >= 1:
+            z_tile(b - 1)
+        if b + 1 < tiles:
+            store(b + 1)
+    return z_out.reshape(N, W, T)
+
+
+def _pairs_mapping_model(y, x, mx, my, lookbacks, sqrt):
+    """The three (or four) launches of ``dbx_pairs_tables`` in numpy, on
+    numpy f32 inputs; returns (z, hr)."""
+    c = _legs_model(y, x, mx, my)
+    spread, hr, means = _spread_model(y, x, mx, my, lookbacks, c)
+    ring = _ring_tiles(int(max(lookbacks)))
+    z = _sums_model(spread.copy(), means, lookbacks, ring, sqrt)
+    return z, hr
+
+
+def _torch_sqrt(v):
+    return to_np(torch.sqrt(torch.from_numpy(np.ascontiguousarray(v))))
+
+
+def _check_pairs_mapping(n, T, lookbacks, seed, lens=None):
+    y, x = _legs(n, T, seed, lens)
+    mx, my = rolling.mean_f64(x, 1)[:, 0], rolling.mean_f64(y, 1)[:, 0]
+    w = torch.from_numpy(np.asarray(lookbacks, np.int32))
+    z, hr = fused.pairs_tables_plain(y, x, mx, my, w)
+    z_np, hr_np = _pairs_mapping_model(to_np(y), to_np(x), to_np(mx),
+                                       to_np(my), lookbacks, _torch_sqrt)
+    np.testing.assert_array_equal(hr_np.view(np.uint32),
+                                  to_np(hr).view(np.uint32))
+    np.testing.assert_array_equal(z_np.view(np.uint32),
+                                  to_np(z).view(np.uint32))
+
+
+# (n_pairs, T, lookbacks): N off the 8 pairs a legs CTA takes, N x W off
+# the 32 rows a sums CTA takes, lookbacks past T, one lookback, and one past
+# the ring (the lags from memory).
+PAIR_MAPPING_CASES = {
+    "T1": (3, 1, [1, 5, 20]),
+    "T2": (9, 2, [1, 2, 7]),
+    "T31": (5, 31, [3, 30, 45]),
+    "T33": (11, 33, [1, 16, 33]),
+    "T251": (9, 251, [5, 8, 16, 60, 300]),
+    "T1260-bench-lookbacks": (5, 1260, list(range(20, 70, 5))),
+    "one-lookback": (33, 120, [7]),
+    "lags-from-memory": (3, 700, [7, 50, 600]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PAIR_MAPPING_CASES))
+def test_pairs_tables_launch_mapping_equals_plain(case):
+    n, T, lookbacks = PAIR_MAPPING_CASES[case]
+    _check_pairs_mapping(n, T, lookbacks, seed=T + n)
+
+
+def test_pairs_tables_launch_mapping_on_ragged_rows():
+    _check_pairs_mapping(10, 300, [6, 24, 97], seed=13,
+                         lens=[300, 251, 170, 33, 1, 2, 299, 64, 65, 300])
+
+
+@settings(max_examples=12, deadline=None)
+@given(n=st.integers(1, 12), T=st.integers(1, 140),
+       lookbacks=st.lists(st.integers(1, 160), min_size=1, max_size=6,
+                          unique=True),
+       seed=st.integers(0, 2**16))
+def test_pairs_tables_launch_mapping_drawn(n, T, lookbacks, seed):
+    _check_pairs_mapping(n, T, lookbacks, seed)
+
+
+def test_ring_tiles_hold_every_lag():
+    # The ring must hold the newest tile and the tiles its lags reach back
+    # to (ceil(w / 32)), and at least the four a tile's lifetime spans; past
+    # 16 tiles (lookbacks over 480 bars) the lags come from memory.
+    assert [_ring_tiles(w) for w in (1, 32, 65, 96, 97, 224, 225, 480)] == [
+        4, 4, 4, 4, 8, 8, 16, 16]
+    assert _ring_tiles(481) == 0
+    for w in range(1, 481):
+        r = _ring_tiles(w)
+        assert r & (r - 1) == 0 and r >= -(-w // _TILE) + 1
+
+
+def _ema_registers(T: int) -> int:
+    """csrc/ema_rows.cu ``registers``: the least compiled size that holds
+    T bars 32 a register, 0 past 64 registers (2048 bars)."""
+    need = -(-T // 32)
+    return next((r for r in _REGISTER_SIZES if r >= need), 0)
+
+
+def _ema_register_model(x: np.ndarray, a: np.ndarray,
+                        ladders: int) -> np.ndarray:
+    """dbx_ema_rows' register design in numpy f32: row (n, w) on one warp,
+    bar t on lane t % 32 in register t // 32. Per ladder: B = x at bar 0
+    and x a after; steps 1 .. 16 by a shuffle from lane (lane - s) % 32 of
+    register r, or r - 1 where the receiving lane is below s (the sender,
+    lane < 32 - s, keeps r); steps 32 k by a move from the lane's own
+    register r - k; A is q above the step and 0 below, q = 1 - a squared
+    each pass."""
+    f32 = np.float32
+    N, T = x.shape
+    R = _ema_registers(T)
+    assert R > 0
+    lane = np.arange(32)
+    bars = np.arange(R)[:, None] * 32 + lane                     # (R, 32)
+    xs = np.where(bars < T, x[:, np.minimum(bars, T - 1)], f32(0))
+    a_ = a[None, :, None, None]
+    b = np.broadcast_to(xs[:, None], (N, a.shape[0], R, 32)).copy()
+    for _ in range(ladders):
+        b = np.where(bars == 0, b, b * a_)
+        q = f32(1) - a_
+        s = 1
+        while s < 32 and s < T:
+            new = b.copy()
+            for r in range(R - 1, -1, -1):
+                below = b[..., r - 1, :] if r > 0 else np.zeros_like(b[..., 0, :])
+                send = np.where(lane < 32 - s, b[..., r, :], below)
+                be = send[..., (lane - s) & 31]
+                if r > 0:
+                    new[..., r, :] = q[..., 0, :] * be + b[..., r, :]
+                else:
+                    on = lane >= s
+                    new[..., 0, :] = (np.where(on, q[..., 0, :], f32(0)) *
+                                      np.where(on, be, f32(0)) + b[..., 0, :])
+            b, q, s = new, q * q, s * 2
+        k = 1
+        while k < R and 32 * k < T:
+            new = b.copy()
+            for r in range(R):
+                new[..., r, :] = (q[..., 0, :] * b[..., r - k, :] + b[..., r, :]
+                                  if r >= k else f32(0) * f32(0) + b[..., r, :])
+            b, q, k = new, q * q, k * 2
+    flat = b.reshape(N, a.shape[0], R * 32)
+    return np.ascontiguousarray(flat[..., :T])
+
+
+@pytest.mark.parametrize("T", [1, 2, 31, 33, 251, 1260])
+def test_ema_register_mapping_equals_trix_and_macd_tables(T):
+    # 3 tickers x 5 spans: 15 rows, off the 4 rows (warps) a CTA takes.
+    close = data.synthetic_ohlcv(3, T, seed=T + 7).close
+    spans = np.float32([2, 5, 9, 14, 90])
+    decay = to_np(fused.ema_decay(CPU, spans))
+    c = torch.from_numpy(close)
+    got = _ema_register_model(close, decay, 3)
+    want = to_np(fused.trix_ema_table(c, spans))
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    got = _ema_register_model(close - close[:, :1], decay, 1)
+    want = to_np(fused.macd_ema_table(c, spans))
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+@settings(max_examples=15, deadline=None)
+@given(n=st.integers(1, 5), T=st.integers(1, 300),
+       spans=st.lists(st.integers(2, 400), min_size=1, max_size=5,
+                      unique=True),
+       ladders=st.integers(1, 3), seed=st.integers(0, 2**16))
+def test_ema_register_mapping_drawn(n, T, spans, ladders, seed):
+    close = data.synthetic_ohlcv(n, T, seed=seed).close
+    spans = np.float32(spans)
+    decay = to_np(fused.ema_decay(CPU, spans))
+    e = torch.from_numpy(close)[:, None, :]
+    for _ in range(ladders):
+        e = rolling.ema_ladder(e, span=torch.from_numpy(spans)[:, None])
+    got = _ema_register_model(close, decay, ladders)
+    np.testing.assert_array_equal(got.view(np.uint32),
+                                  to_np(e).view(np.uint32))
+
+
+def test_ema_register_plan_covers_every_row_length():
+    # Every row up to 2048 bars has a register plan that holds it (at most
+    # a quarter of it padding past 8 registers); longer rows run staged.
+    for T in range(1, 2049):
+        r = _ema_registers(T)
+        assert 32 * r >= T and (r <= 8 or 32 * r < 1.25 * T + 256)
+    assert _ema_registers(2049) == 0
