@@ -304,7 +304,25 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    bit-equal to one process's, then a ``run`` and a ``run_ts`` round of
    the slice bit-equal to the single-host backend; each child killed at
    150 s.
-10. One JSON line with each kernel entry's (K8: each case's) launches,
+10. Tuning (``tune/``, the reference's tune layer). (a) The six tile
+   families (sma_crossover, bollinger, macd, trix, obv_trend: 500 jobs of
+   1260 bars on the bench grid; pairs: 1000 jobs) through a
+   ``TorchSweepBackend`` with ``DBX_AUTOTUNE=1``, ``DBX_AUTOTUNE_REPS=3``
+   and a fresh ``DBX_SCHEDULE_DIR``, the launch counts reset just before
+   each batch: ``dbx_autotune_trials_total`` grew for the family, its
+   entry launched, the winner recorded under the card's platform
+   (``torch-cuda-sm90``) and the same after the journal is opened again,
+   and every DBXM block bit-equal to a backend's with ``DBX_AUTOTUNE``
+   off; each family's default and tuned batch times (medians of three,
+   alternating), its winner and the measured and modeled speedups are
+   printed. (b) The compile cache: ``ema_rows`` built by nvcc into an
+   empty directory (cold) and offered to a ``tune.CompileStore``; a second
+   ``CacheSync`` installs it into another empty directory, and with nvcc
+   unreachable (``CUDA_HOME`` a directory without it, ``PATH`` stripped,
+   ``_kernels._nvcc`` raising) the library loads from there and its
+   kernel, on trix's main-path table, is bit-equal to ``trix_ema_table``;
+   the cold and warm walls are printed.
+11. One JSON line with each kernel entry's (K8: each case's) launches,
    error, times, bound and library time (the tile entries also their
    width sweep, wrapper time, build report and SASS count; the table
    kernels each a record of their own; K1-K6 also their launches on the
@@ -313,7 +331,8 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    and every entry on phase 8's paged and scenario sweeps,
    ``paged_launches`` and ``scenario_launches``, each of them but K7's
    and its tables' launched there, and K1-K7's on phase 9 (a)'s mesh
-   route, ``mesh_launches``); then the JSON result line, last.
+   route, ``mesh_launches``, and the tile entries' on phase 10 (a)'s tuned
+   batches, ``tune_launches``); then the JSON result line, last.
 
 This script imports nothing of JAX and nothing of the JAX package.
 """
@@ -326,9 +345,11 @@ import functools
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -383,6 +404,25 @@ F64_WITNESS = ("pairs",)
 SHIFT_RTOL, SHIFT_ATOL = 2e-3, 2e-4
 PKG = "distributed_backtesting_exploration_tpu_torch"
 REF = "distributed_backtesting_exploration_tpu/ops/fused.py"
+
+
+@contextlib.contextmanager
+def _env(**values):
+    """Set (a str) or unset (None) environment variables for a block."""
+    prior = {k: os.environ.get(k) for k in values}
+    try:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in prior.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def _fail(msg: str) -> None:
@@ -2227,7 +2267,9 @@ def phase_bench(kernels_mod, bench, records) -> None:
     iterations than its default), with the launch counts reset just before
     it; every K8 case must have launched. Prints the bench's JSON line."""
     kernels_mod.reset_launch_counts()
-    result = bench.run(bench.Settings(iters=3, warmup=1))
+    # Every config but autotune, whose halves phase 10 runs.
+    result = bench.run(bench.Settings(iters=3, warmup=1, configs=frozenset(
+        c for c in bench.CONFIGS if c != "autotune")))
     launches = dict(kernels_mod.LAUNCHES)
     print(json.dumps(result))
     print(f"bench launches {launches}")
@@ -2536,9 +2578,14 @@ def _plain_entries(fused):
     runs the plain versions on the card's tensors. The tables still come
     from their kernels, which phase 3 holds bit-equal to theirs."""
     saved = {name: getattr(fused, name) for name in PLAIN}
+
+    def as_entry(plain):
+        # The tile entries' CTA width (``lanes``) has no plain counterpart.
+        return lambda *args, lanes=None, **kw: plain(*args, **kw)
+
     try:
         for name, plain in PLAIN.items():
-            setattr(fused, name, getattr(fused, plain))
+            setattr(fused, name, as_entry(getattr(fused, plain)))
         yield
     finally:
         for name, fn in saved.items():
@@ -3785,16 +3832,9 @@ def _paged_backend(soft, kernels_mod, compute, pb, data, panel_store, wire,
           f"{how}")
     # A pool with room for half the group's pages falls back dense.
     half = int((-(-lens // B)).sum()) // 2
-    prior = os.environ.get("DBX_PAGE_POOL_MB")
-    os.environ["DBX_PAGE_POOL_MB"] = str(half * B * 4 / 2**20)
-    try:
+    with _env(DBX_PAGE_POOL_MB=str(half * B * 4 / 2**20)):
         small = backend(True)
         cap = small.panel_cache.pages.capacity
-    finally:
-        if prior is None:
-            os.environ.pop("DBX_PAGE_POOL_MB")
-        else:
-            os.environ["DBX_PAGE_POOL_MB"] = prior
     got = {c.job_id: c.metrics for c in small.process(jobs)}
     st = small.stats()
     soft.check(st["paged_fallbacks"]["rejected"] == 1
@@ -3891,19 +3931,12 @@ def _scenario_phase(soft, kernels_mod, compute, fused, pb, data, panel_store,
             id=f"scn-{i:04d}", trace_id=f"t{i}")
     out = {}
     for route in ("fused", "materialized"):
-        prior = os.environ.get("DBX_SCENARIO_FUSED")
-        os.environ["DBX_SCENARIO_FUSED"] = "1" if route == "fused" else "0"
-        try:
+        with _env(DBX_SCENARIO_FUSED="1" if route == "fused" else "0"):
             backend = compute.TorchSweepBackend(device=dev)
             secs = []
             for _ in range(3):
                 done, s = _timed(backend, [job])
                 secs.append(s)
-        finally:
-            if prior is None:
-                os.environ.pop("DBX_SCENARIO_FUSED")
-            else:
-                os.environ["DBX_SCENARIO_FUSED"] = prior
         n_route = backend.stats()["scenarios"]
         soft.check(n_route == {"fused": 0, "materialized": 0,
                                route: 3 * k},
@@ -4415,6 +4448,201 @@ def phase_multi_device(kernels_mod, compute, fused, pb, data, card) -> dict:
     return launches
 
 
+# --- tuning: the autotuner on the tile families, the compile cache ----------
+
+TUNE_FAMILIES = ("sma_crossover", "bollinger", "macd", "trix", "obv_trend",
+                 "pairs")
+# Phase 10 (b)'s library: built cold, exchanged, loaded without nvcc.
+TUNE_LIB = "ema_rows"
+
+
+def _timed_batches(backends, jobs, reps: int = 3) -> list:
+    """The median wall of ``reps`` ``process`` calls of each backend on
+    ``jobs``, after one untimed call of each (a backend's first contact
+    with a bucket may tune it), the backends alternating and each round
+    led by the other one than the round before."""
+    for b in backends:
+        b.process(jobs)
+    secs = [[] for _ in backends]
+    for r in range(reps):
+        order = list(enumerate(backends))
+        for i, b in (order if r % 2 == 0 else order[::-1]):
+            t0 = time.perf_counter()
+            b.process(jobs)
+            secs[i].append(time.perf_counter() - t0)
+    return [statistics.median(x) for x in secs]
+
+
+def _phase10_autotune(kernels_mod, compute, fused, obs, tune, pb, data,
+                      sched_dir, card) -> dict:
+    """(a) The autotuner on the six tile families' main-path batches.
+    Returns the launches of the tuned backend's first batches."""
+    reg = obs.get_registry()
+    batches = {s: _jobs(pb, data, s, AXES[s], _panels(
+        data, s, N_PAIRS if s == "pairs" else N_TICKERS, 70 + k))
+        for k, s in enumerate(TUNE_FAMILIES)}
+    with _env(DBX_AUTOTUNE="0", DBX_SCHEDULE_DIR=None):
+        plain = compute.TorchSweepBackend(device="cuda")
+        want = {s: {c.job_id: c.metrics for c in plain.process(jobs)}
+                for s, jobs in batches.items()}
+    cap = torch.cuda.get_device_capability(0)
+    total: dict = {}
+    with _env(DBX_AUTOTUNE="1", DBX_AUTOTUNE_REPS="3",
+              DBX_SCHEDULE_DIR=sched_dir, DBX_LANES_CAP=None):
+        tuned = compute.TorchSweepBackend(device="cuda")
+        platform = f"torch-cuda-sm{cap[0]}{cap[1]}"
+        _check(tuned.platform == platform, f"tune (a): platform "
+               f"{tuned.platform}, the card's is {platform}")
+        winners = {}
+        for s, jobs in batches.items():
+            entry = roofline.ENTRY[s]
+            axes = _flat_grid(AXES[s])
+            n_combos = len(next(iter(axes.values())))
+            bucket = tune.group_bucket(N_BARS, n_combos, len(jobs))
+            before = reg.peek("dbx_autotune_trials_total", family=s) or 0.0
+            kernels_mod.reset_launch_counts()
+            t0 = time.perf_counter()
+            got = {c.job_id: c.metrics for c in tuned.process(jobs)}
+            first_s = time.perf_counter() - t0
+            grew = dict(kernels_mod.LAUNCHES)
+            for k, v in grew.items():
+                total[k] = total.get(k, 0) + v
+            trials = (reg.peek("dbx_autotune_trials_total", family=s)
+                      or 0.0) - before
+            winner = tuned.schedule_registry.lookup(s, bucket, platform)
+            _check(trials > 0, f"tune (a) {s}: no autotune trial counted")
+            _check(grew.get(entry, 0) > 0, f"tune (a) {s}: {entry} launched "
+                   "no time")
+            _check(winner is not None, f"tune (a) {s}: no winner recorded "
+                   f"under {platform} {bucket}")
+            _check(set(got) == set(want[s]) == {j.id for j in jobs},
+                   f"tune (a) {s}: completion ids differ")
+            off = [j for j in got if got[j] != want[s][j]]
+            _check(not off, f"tune (a) {s}: {len(off)} of {len(got)} blocks "
+                   "not bit-equal to the untuned backend's")
+            default_s, tuned_s = _timed_batches((plain, tuned), jobs)
+            entry_rec = [e for e in tuned.schedule_registry.entries()
+                         if (e["family"], e["bucket"], e["platform"])
+                         == (s, bucket, platform)][0]
+            n_rows = len(jobs)
+            prior = dict(n_bars=N_BARS, n_combos=n_combos, n_rows=n_rows,
+                         grid=axes)
+            incumbent = tune.autotune.default_substrates(s)
+            modeled = (tune.modeled_cost(s, incumbent, **prior)
+                       / tune.modeled_cost(s, winner, **prior))
+            winners[s] = (bucket, winner)
+            cap = int(winner.get("lanes_cap", "0"))
+            shipped = fused.shipped_lanes(s)
+            print(f"tune (a) {s}: {n_rows} jobs x {n_combos} combos, bucket "
+                  f"{bucket}, winner {winner} ({entry_rec['trials']} trials, "
+                  f"best {entry_rec['best_us']} us a sweep; width "
+                  f"{min(shipped, cap) if cap else shipped} of {shipped}), "
+                  f"{int(trials)} trials counted; first batch {first_s:.4f} "
+                  f"s with the tuning; default {default_s:.4f} s, tuned "
+                  f"{tuned_s:.4f} s a batch (medians of 3): measured "
+                  f"{default_s / tuned_s:.4f}x, modeled {modeled:.4f}x; "
+                  f"launches {grew}; every block bit-equal to the untuned "
+                  f"backend's ({card})")
+        reopened = tune.ScheduleRegistry.open_default()
+    for s, (bucket, winner) in winners.items():
+        _check(reopened.lookup(s, bucket, platform) == winner,
+               f"tune (a) {s}: the reopened journal holds "
+               f"{reopened.lookup(s, bucket, platform)}, not {winner}")
+    print(f"tune (a): {len(winners)} winners in the journal under "
+          f"{platform}, the same after reopening it "
+          f"({len(reopened)} entries, {reopened.corrupt_entries} corrupt)")
+    return total
+
+
+def _phase10_compile_cache(kernels_mod, tune, fused, data, root, card):
+    """(b) One library built cold, offered to a store, installed by a
+    second sync and loaded with nvcc unreachable; its kernel bit-equal to
+    the plain version."""
+    a, b, empty = (os.path.join(root, d) for d in ("a", "b", "no-cuda"))
+    os.makedirs(empty)
+    store = tune.CompileStore()
+    sync_a = tune.CacheSync(a)
+    prior_dir, prior_nvcc = kernels_mod.BUILD_DIR, kernels_mod._nvcc
+    prior_lib = kernels_mod._LIBS.pop(TUNE_LIB, None)
+    try:
+        kernels_mod.BUILD_DIR = Path(a)
+        t0 = time.perf_counter()
+        built = kernels_mod.build(TUNE_LIB)
+        ctypes.CDLL(str(built))
+        cold_s = time.perf_counter() - t0
+        offers = sync_a.poll_new()
+        _check([o[1] for o in offers] == [built.name], f"tune (b): offers "
+               f"{[o[1] for o in offers]}, built {built.name}")
+        _check(all(store.offer(*o) for o in offers), "tune (b): the store "
+               "refused the offer")
+        t0 = time.perf_counter()
+        sync_b = tune.CacheSync(b)
+        miss = sync_b.missing(store.keys())
+        installed = sync_b.install((k, *store.get(k)) for k in miss)
+        install_s = time.perf_counter() - t0
+        _check(installed == 1, f"tune (b): {installed} entries installed")
+
+        def no_nvcc():
+            raise RuntimeError("nvcc is unreachable in this check")
+
+        with _env(CUDA_HOME=empty, CUDA_PATH=None, PATH=empty):
+            _check(shutil.which("nvcc") is None, "tune (b): nvcc on PATH")
+            kernels_mod._nvcc = no_nvcc
+            kernels_mod.BUILD_DIR = Path(b)
+            t0 = time.perf_counter()
+            lib = kernels_mod.ema_rows_lib()
+            load_s = time.perf_counter() - t0
+            _check(Path(lib._name).parent == Path(b), f"tune (b): loaded "
+                   f"{lib._name}, not the installed library")
+            dev = torch.device("cuda")
+            close = torch.as_tensor(data.synthetic_ohlcv(
+                N_TICKERS, N_BARS, seed=0).close, device=dev).contiguous()
+            spans = np.unique(AXES["trix"]["span"])
+            kernels_mod.reset_launch_counts()
+            got = fused.ema_rows_cuda(close, fused.ema_decay(dev, spans), 3)
+            want = fused.trix_ema_table(close, spans)
+            torch.cuda.synchronize()
+            _check(kernels_mod.LAUNCHES.get(TUNE_LIB, 0) == 1,
+                   "tune (b): the installed kernel launched no time")
+            _check(_bits_equal(got, want), "tune (b): the installed "
+                   "library's kernel is not bit-equal to trix_ema_table")
+    finally:
+        kernels_mod._nvcc = prior_nvcc
+        kernels_mod.BUILD_DIR = prior_dir
+        if prior_lib is not None:
+            kernels_mod._LIBS[TUNE_LIB] = prior_lib
+        else:
+            kernels_mod._LIBS.pop(TUNE_LIB, None)
+    warm_s = install_s + load_s
+    print(f"tune (b): {built.name} ({built.stat().st_size} bytes) cold "
+          f"(nvcc into an empty directory and load) {cold_s:.4f} s; "
+          f"fleet-warm (install from the store {install_s:.4f} s + load "
+          f"with nvcc unreachable {load_s:.4f} s) {warm_s:.4f} s "
+          f"({cold_s / warm_s:.1f}x); the kernel on trix's {N_TICKERS}x"
+          f"{N_BARS} table bit-equal to trix_ema_table ({card})")
+
+
+def phase_tune(kernels_mod, compute, fused, pb, data, card) -> dict:
+    """Phase 10, tuning: (a) the autotuner on the tile families' batches,
+    (b) the compile cache. Returns (a)'s launches."""
+    from distributed_backtesting_exploration_tpu_torch import obs, tune
+
+    root = tempfile.mkdtemp(prefix="dbx-tune-")
+    try:
+        t0 = time.perf_counter()
+        os.makedirs(os.path.join(root, "schedule"))
+        launches = _phase10_autotune(kernels_mod, compute, fused, obs, tune,
+                                     pb, data, os.path.join(root, "schedule"),
+                                     card)
+        t_a = time.perf_counter()
+        _phase10_compile_cache(kernels_mod, tune, fused, data, root, card)
+        print(f"tune phase wall (s): (a) {t_a - t0:.1f}, (b) "
+              f"{time.perf_counter() - t_a:.1f}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 def main() -> None:
     card = phase_card()
     from distributed_backtesting_exploration_tpu_torch import bench, models
@@ -4468,6 +4696,9 @@ def main() -> None:
         rec["mesh_launches"] = mesh.get(rec["name"], 0)
         _check(rec["mesh_launches"] > 0, f"{rec['name']} launched no time on "
                "the mesh route")
+    tuned = phase_tune(_kernels, compute, fused, pb, data, card)
+    for rec in (k1, *new.values()):
+        rec["tune_launches"] = tuned.get(rec["name"], 0)
     print(json.dumps({"kernels": [k1, *new.values(), *k8]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -45,7 +45,25 @@ long-context config: one history of ``DBX_BENCH_LC_BARS`` (65537) bars on
 the 32-combo SMA grid fast 5..12 x slow 30..60 step 10, time-sharded over
 a mesh (``DBX_BENCH_LC_SHARDS=n`` shards of the bench's one device, or
 every GPU of a host with two or more) or else the generic sweep on one
-device. It prints one JSON line to
+device; ``autotune``, the reference's autotune config: (a) for its
+families (sma_crossover, bollinger, momentum, stochastic, obv_trend) on
+the bench panel and grids, the autotuner's measured winner of the tile
+width (``tune.Autotuner``, ``DBX_AUTOTUNE_REPS``), s a sweep at the
+defaults and at the winner, and the measured and modeled speedups
+(momentum and stochastic run no tiles: no knob, winner None); (b) the
+build wall of a second worker: ``AUTOTUNE_LIB`` (``fused_sma``) built by
+``nvcc`` into an empty directory (cold) against installed from a
+``tune.CompileStore`` that the first worker offered it to and loaded
+(fleet-warm). The offer and the fetch go in-process through the store,
+not over the dispatcher's RPCs: the card's machine has no JAX to run a
+dispatcher. Half (b) needs ``nvcc`` and does not run on the CPU. Part
+(c), ``width_by_rows``: the six tile families (K1, K2 inline, K4, K5, K6,
+K7) on the first 8, 32 and 128 rows of the bench panel and on all of it,
+at the shipped CTA width and each narrower width of the ladder, in
+interleaved rounds: the wall of a sweep (CUDA events around back-to-back
+runs) and the device time of its tile kernel (``torch.profiler``), so
+whether a narrower tile pays where few rows leave SMs idle. It prints one
+JSON line to
 stdout with the reference's top-level keys:
 
     {"metric": ..., "value": N, "unit": "backtests/sec", "vs_baseline": N,
@@ -83,22 +101,27 @@ there is no card.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
 from . import device as device_mod
-from . import roofline
+from . import roofline, tune
 from .models import get_strategy
-from .ops import fused, stages
+from .ops import _kernels, fused, stages
 from .parallel import sharding, sweep, timeshard, walkforward
 from .rpc import backtesting_pb2 as pb
 from .rpc import compute, panel_store, wire
@@ -150,7 +173,17 @@ FUSED = {
 # the fused sweeps.
 CONFIGS = ("sma_fused", "roofline_stages", *list(FUSED)[1:], "walkforward",
            "streaming_append", "ragged_paged", "scenario_sweep",
-           "scenario_megakernel", "long_context")
+           "scenario_megakernel", "long_context", "autotune")
+# The reference bench's autotune families, as bench configs.
+AUTOTUNE_CONFIGS = ("sma_fused", "bollinger_fused", "momentum_fused",
+                    "stochastic_fused", "obv_fused")
+# Part (c) of autotune: the tile families' configs, and the group sizes
+# (rows) beside the bench's own.
+TILE_CONFIGS = ("sma_fused", "bollinger_fused", "macd_fused", "trix_fused",
+                "obv_fused", "pairs")
+WIDTH_ROWS = (8, 32, 128)
+# Part (b) of autotune: the library a second worker builds or installs.
+AUTOTUNE_LIB = "fused_sma"
 _WINDOW_AXES = {"fast", "slow", "window", "lookback", "period", "span"}
 
 # (stage, lanes) cases of the SMA scaffold (the reference's bench.py
@@ -230,6 +263,21 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def _event_ms(run: Callable[[], torch.Tensor], n: int) -> float:
+    """CUDA-event ms a call of ``run`` over ``n`` back-to-back calls after
+    one untimed call, the device synchronized before and after."""
+    run()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        run()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / n
+
+
 def _measure(run: Callable[[], torch.Tensor], n_backtests: int, *,
              iters: int, warmup: int, name: str, dev: torch.device) -> float:
     """Backtests/s of ``run`` (returning its (N, P) sharpe or stage row):
@@ -298,22 +346,14 @@ class _Bench:
         return roofline.product(self.axes[strategy])
 
     def fused_config(self, name: str) -> None:
-        strategy, sweep, fields, names = FUSED[name]
+        strategy, sweep, names, inputs = self._inputs(name)
         g = self.grid(strategy)
         P = len(g[names[0]])
+        n_rows = int(inputs[0].shape[0])
         iters, warmup = self.s.iters, self.s.warmup
-        if fields is None:
-            # bench.py's pairs: 2 * n_pairs synthetic tickers, seed 1, and
-            # fewer runs.
-            n_rows = min(2 * self.s.n_tickers, 1000)
-            legs = data.synthetic_ohlcv(2 * n_rows, self.s.n_bars,
-                                        seed=1).close
-            closes = torch.as_tensor(legs, device=self.dev)
-            inputs = (closes[:n_rows], closes[n_rows:])
+        if FUSED[name][2] is None:
+            # bench.py's pairs: fewer runs.
             iters, warmup = max(iters // 2, 3), max(warmup // 3, 2)
-        else:
-            inputs = tuple(self.panel[f] for f in fields)
-            n_rows = self.s.n_tickers
         args = inputs + tuple(g[n] for n in names)
         _sync(self.dev)
         rate = _measure(
@@ -748,6 +788,195 @@ class _Bench:
               f"{pairs[0]:.2f}-{pairs[-1]:.2f}x)", file=sys.stderr)
 
 
+    def autotune(self) -> None:
+        """The reference's ``autotune`` config: (a) the tuned tile width
+        against the defaults for its families, (b) a second worker's build
+        wall, cold against fleet-warm (module docstring)."""
+        from .rpc.compute import platform_of
+
+        reps = max(min(self.s.iters, 5), 2)
+        platform = platform_of(self.dev)
+        prior_mode = os.environ.get("DBX_AUTOTUNE")
+        os.environ["DBX_AUTOTUNE"] = prior_mode or "1"
+        tuner = tune.Autotuner(tune.ScheduleRegistry())
+        rows, speedups, modeled = {}, {}, {}
+        try:
+            for name in AUTOTUNE_CONFIGS:
+                strategy, sweep, fields, names = FUSED[name]
+                g = self.grid(strategy)
+                P = len(g[names[0]])
+                args = (tuple(self.panel[f] for f in fields)
+                        + tuple(g[n] for n in names))
+
+                def wall(subs=None, sweep=sweep, args=args):
+                    with fused.tuned_schedule(subs):
+                        sweep(*args, cost=COST, device=self.dev)
+                        _sync(self.dev)
+                        t0 = time.perf_counter()
+                        for _ in range(reps):
+                            sweep(*args, cost=COST, device=self.dev)
+                        _sync(self.dev)
+                        return (time.perf_counter() - t0) / reps
+
+                bucket = tune.group_bucket(self.s.n_bars, P,
+                                           self.s.n_tickers)
+                prior = dict(n_bars=self.s.n_bars, n_combos=P,
+                             n_rows=self.s.n_tickers, grid=g)
+                winner = tuner.tune(strategy, bucket, platform,
+                                    measure=wall, **prior)
+                t_default, t_tuned = wall(), wall(winner)
+                incumbent = tune.autotune.default_substrates(strategy)
+                m_default = tune.modeled_cost(strategy, incumbent, **prior)
+                m_tuned = tune.modeled_cost(strategy, winner or incumbent,
+                                            **prior)
+                speedups[strategy] = t_default / max(t_tuned, 1e-12)
+                modeled[strategy] = m_default / max(m_tuned, 1e-12)
+                rows[strategy] = {"bucket": bucket,
+                                  "default_s_per_sweep": t_default,
+                                  "tuned_s_per_sweep": t_tuned,
+                                  "substrates": winner}
+                print(f"bench[autotune:{strategy}]: default "
+                      f"{t_default * 1e3:.4f} ms -> tuned "
+                      f"{t_tuned * 1e3:.4f} ms ({speedups[strategy]:.3f}x, "
+                      f"modeled {modeled[strategy]:.3f}x) {winner}",
+                      file=sys.stderr)
+        finally:
+            if prior_mode is None:
+                os.environ.pop("DBX_AUTOTUNE", None)
+            else:
+                os.environ["DBX_AUTOTUNE"] = prior_mode
+        out = {"bars": self.s.n_bars, "tickers": self.s.n_tickers,
+               "platform": platform,
+               "autotuned_vs_default_speedup": speedups,
+               "autotuned_vs_default_speedup_modeled": modeled,
+               "families": rows,
+               "speedup_families_ok": sum(1 for v in speedups.values()
+                                          if v >= 1.2)}
+        out.update(self._compile_cache_ab())
+        if self.dev.type == "cuda":
+            out["width_by_rows"] = self._width_by_rows()
+        self.roofline["autotune"] = out
+        self.rates["autotune"] = 1.0 / max(
+            sum(r["tuned_s_per_sweep"] for r in rows.values()), 1e-12)
+
+    def _inputs(self, name: str, n_rows: int | None = None):
+        """A fused config's strategy, sweep, grid names and leading
+        arguments, on the first ``n_rows`` rows of its panel (None: all of
+        them). The pairs config, as the reference bench's: 2 * n_pairs
+        synthetic tickers (at most 1000 pairs), seed 1."""
+        strategy, sweep, fields, names = FUSED[name]
+        if fields is None:
+            n = min(2 * self.s.n_tickers, 1000)
+            legs = torch.as_tensor(data.synthetic_ohlcv(
+                2 * n, self.s.n_bars, seed=1).close, device=self.dev)
+            inputs = (legs[:n], legs[n:])
+        else:
+            inputs = tuple(self.panel[f] for f in fields)
+        if n_rows is not None:
+            inputs = tuple(a[:n_rows].contiguous() for a in inputs)
+        return strategy, sweep, names, inputs
+
+    def _width_by_rows(self) -> dict:
+        """Part (c) of ``autotune`` (module docstring): ms a sweep and the
+        tile kernel's device ms by CTA width, for each tile family and
+        group size, the medians of interleaved rounds."""
+        from torch.profiler import ProfilerActivity, profile
+
+        rounds, runs = 5, 3
+        out = {}
+        for name in TILE_CONFIGS:
+            strategy, sweep, names, full = self._inputs(name)
+            shipped = fused.shipped_lanes(strategy)
+            widths = [w for w in (128, 256, 512, 1024) if w <= shipped]
+            tile_kernel = rf"\b{roofline.ENTRY[strategy]}_kernel\b"
+            g = self.grid(strategy)
+            fam = {}
+            for n in (*WIDTH_ROWS, int(full[0].shape[0])):
+                args = tuple(a[:n].contiguous() for a in full) + tuple(
+                    g[k] for k in names)
+
+                def run(args=args):
+                    return sweep(*args, cost=COST, device=self.dev).sharpe
+
+                wall = {w: [] for w in widths}
+                for _ in range(rounds):
+                    for w in widths:
+                        with fused.tuned_schedule({"lanes_cap": str(w)}):
+                            wall[w].append(_event_ms(run, runs))
+                kernel = {}
+                for w in widths:
+                    with fused.tuned_schedule({"lanes_cap": str(w)}):
+                        with profile(activities=[ProfilerActivity.CUDA]) as pr:
+                            for _ in range(runs):
+                                run()
+                            _sync(self.dev)
+                    kernel[w] = sum(
+                        e.device_time_total for e in pr.key_averages()
+                        if re.search(tile_kernel, e.key)) / (runs * 1e3)
+                ms = {w: statistics.median(v) for w, v in wall.items()}
+                best = min(ms, key=ms.get)
+                kbest = min(kernel, key=kernel.get)
+                fam[n] = {"sweep_ms": ms, "kernel_ms": kernel,
+                          "best_sweep_lanes": best,
+                          "best_kernel_lanes": kbest,
+                          "sweep_gain": ms[shipped] / ms[best],
+                          "kernel_gain": (kernel[shipped] / kernel[kbest]
+                                          if kernel[kbest] else None)}
+                print(f"bench[autotune:rows] {strategy} {n} rows: sweep ms "
+                      + ", ".join(f"{w} {t:.4f}" for w, t in ms.items())
+                      + "; tile kernel ms " + ", ".join(
+                          f"{w} {t:.4f}" for w, t in kernel.items())
+                      + f"; best {best} ({fam[n]['sweep_gain']:.3f}x of "
+                      f"{shipped}) / kernel {kbest}", file=sys.stderr)
+            out[strategy] = {"shipped_lanes": shipped, "rows": fam}
+        return out
+
+    def _compile_cache_ab(self) -> dict:
+        """Half (b) of ``autotune``: worker A builds a library with nvcc
+        into an empty directory and offers it to a ``CompileStore``; worker
+        B, another empty directory, fetches and installs it from the store
+        and loads it. The two walls, each to a loaded library."""
+        if self.dev.type != "cuda":
+            return {"compile_cache": "not run: no nvcc where the bench runs "
+                                     "on the CPU"}
+        lib = AUTOTUNE_LIB
+        prior_dir = _kernels.BUILD_DIR
+        root = tempfile.mkdtemp(prefix="dbx-autotune-")
+        try:
+            a, b = os.path.join(root, "a"), os.path.join(root, "b")
+            sync_a = tune.CacheSync(a)
+            store = tune.CompileStore()
+            _kernels.BUILD_DIR = Path(a)
+            t0 = time.perf_counter()
+            ctypes.CDLL(str(_kernels.build(lib)))
+            wall_cold = time.perf_counter() - t0
+            offers = sync_a.poll_new()
+            for key, name, payload in offers:
+                store.offer(key, name, payload)
+            t0 = time.perf_counter()
+            sync_b = tune.CacheSync(b)
+            miss = sync_b.missing(store.keys())
+            installed = sync_b.install((k, *store.get(k)) for k in miss)
+            _kernels.BUILD_DIR = Path(b)
+            ctypes.CDLL(str(_kernels.build(lib)))
+            wall_warm = time.perf_counter() - t0
+        finally:
+            _kernels.BUILD_DIR = prior_dir
+            shutil.rmtree(root, ignore_errors=True)
+        print(f"bench[autotune]: {lib} second-worker build wall "
+              f"{wall_cold:.4f} s cold -> {wall_warm:.4f} s fleet-warm "
+              f"({installed} installed from the store)", file=sys.stderr)
+        return {"library": lib,
+                "second_worker_compile_wall_cold_s": wall_cold,
+                "second_worker_compile_wall_warm_s": wall_warm,
+                "compile_wall_reduction": wall_cold / max(wall_warm, 1e-12),
+                "fleet_entries_offered": len(offers),
+                "fleet_entries_installed": installed,
+                "fleet_store_bytes": store.stats()["bytes"],
+                "compile_exchange": "in-process through tune.CompileStore "
+                                    "(no dispatcher on the card's machine)"}
+
+
 def run(s: Settings) -> dict:
     """Run the configs of ``s`` and return the result line's object."""
     dev = (torch.device("cpu") if s.cpu
@@ -763,7 +992,7 @@ def run(s: Settings) -> dict:
         elif name == "walkforward":
             b.walkforward()
         elif name in ("streaming_append", "ragged_paged", "scenario_sweep",
-                      "scenario_megakernel", "long_context"):
+                      "scenario_megakernel", "long_context", "autotune"):
             getattr(b, name)()
         else:
             b.fused_config(name)

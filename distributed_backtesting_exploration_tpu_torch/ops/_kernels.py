@@ -3,9 +3,16 @@
 Each kernel source under ``csrc/`` is compiled with ``nvcc`` into a shared
 library with a plain C interface and loaded with ``ctypes``. The build runs
 at first use, never at import (the CPU test machines have no ``nvcc``),
-into ``_build/`` inside the package (listed in ``.gitignore``). The library
-name carries a hash of the source, the shared headers (``csrc/*.cuh``) and
-the flags, so an edited source or header is rebuilt rather than reused.
+into the build directory (:func:`build_dir`: the one
+``tune.compile_cache.configure`` set, else ``DBX_COMPILE_CACHE_DIR``, else
+``_build/`` inside the package, listed in ``.gitignore``). The library
+name, ``lib<name>-<16 hex>.so``, carries a hash of the source, the shared
+headers (``csrc/*.cuh``) and the flags, so an edited source or header is
+rebuilt rather than reused, and a library that a peer built from the same
+sources and installed there (``tune.compile_cache.CacheSync``) is loaded
+without running ``nvcc``. A library is loaded once a process (``_LIBS``,
+by name): pointing the build directory elsewhere affects only the
+libraries loaded after.
 
 ``LAUNCHES`` counts launches per kernel: each wrapper adds one where it
 launches its kernel, and nowhere else, so a run can show that its main
@@ -26,7 +33,9 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
-BUILD_DIR = _PKG / "_build"
+DEFAULT_BUILD_DIR = _PKG / "_build"
+# The build directory ``tune.compile_cache.configure`` set (None: not set).
+BUILD_DIR: Path | None = None
 
 # IEEE division and square root (the nvcc defaults, spelled out) and no
 # contracted multiply-adds: see the note at the top of each source.
@@ -44,6 +53,16 @@ def reset_launch_counts() -> None:
     LAUNCHES.clear()
 
 
+def build_dir() -> Path:
+    """Where libraries are built and looked up: :data:`BUILD_DIR` where set,
+    else ``DBX_COMPILE_CACHE_DIR`` (read at each build), else
+    :data:`DEFAULT_BUILD_DIR`."""
+    if BUILD_DIR is not None:
+        return Path(BUILD_DIR)
+    env = os.environ.get("DBX_COMPILE_CACHE_DIR")
+    return Path(env) if env else DEFAULT_BUILD_DIR
+
+
 def _nvcc() -> str:
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
     if home and (Path(home) / "bin" / "nvcc").exists():
@@ -57,23 +76,36 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def build(name: str, defines: tuple[str, ...] = ()) -> Path:
-    """Compile ``csrc/<name>.cu`` into ``_build/`` (if not already built)
-    and return the library path. ``defines`` (``"NAME=VALUE"``) go to nvcc
-    as ``-D`` flags: a source's build-time settings, which only a sweep
-    over them sets."""
-    src = SRC_DIR / f"{name}.cu"
-    flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
-    h = hashlib.sha256(src.read_bytes())
+def _flags(defines: tuple[str, ...]) -> tuple[str, ...]:
+    return (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
+
+
+def library_path(name: str, defines: tuple[str, ...] = ()) -> Path:
+    """Where :func:`build` puts (and looks for) the library of
+    ``csrc/<name>.cu``: ``lib<name>-<16 hex>.so`` in :func:`build_dir`, the
+    hex a hash of the source, the shared headers and the flags."""
+    h = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
     for header in sorted(SRC_DIR.glob("*.cuh")):
         h.update(header.read_bytes())
-    h.update(" ".join(flags).encode())
-    digest = h.hexdigest()[:16]
-    lib = BUILD_DIR / f"lib{name}-{digest}.so"
+    h.update(" ".join(_flags(defines)).encode())
+    return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(name: str, defines: tuple[str, ...] = ()) -> Path:
+    """Compile ``csrc/<name>.cu`` into :func:`build_dir` (unless its
+    :func:`library_path` is already there, built here or installed from a
+    peer) and return the library path. ``defines`` (``"NAME=VALUE"``) go to
+    nvcc as ``-D`` flags: a source's build-time settings, which only a
+    sweep over them sets."""
+    src = SRC_DIR / f"{name}.cu"
+    flags = _flags(defines)
+    lib = library_path(name, defines)
     if lib.exists():
         return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    out_dir = lib.parent
+    out_dir.mkdir(parents=True, exist_ok=True)
+    # A dot-name while it is written: the compile cache's scan skips it.
+    fd, tmp = tempfile.mkstemp(prefix=".nvcc-", suffix=".so", dir=out_dir)
     os.close(fd)
     try:
         proc = subprocess.run([_nvcc(), *flags, "-o", tmp, str(src)],

@@ -56,10 +56,12 @@ tables are built by kernels of their own (:func:`ema_rows_cuda`,
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import math
 import os
+import threading
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -77,7 +79,9 @@ _N_METRICS = 9
 _KERNEL_THREADS = 128      # lanes per CTA (kThreads in csrc/*.cu)
 # Lanes a tile (one CTA) of K1, K2's inline entry, K4, K5, K6 and K7, which
 # share the values of a tile's distinct windows (csrc/bar_blocks.cuh): the
-# fastest of chip_smoke.py's width sweep (PERF.md, section 6).
+# fastest of chip_smoke.py's width sweep (PERF.md, section 6). These are the
+# shipped widths; a sweep runs at ``min(shipped, lanes_cap)`` where
+# :func:`resolve_lanes_cap` gives a cap (:func:`tile_lanes`).
 _SMA_LANES = 1024
 _BAND_INLINE_LANES = 512
 _MACD_LANES = 512
@@ -100,6 +104,127 @@ def _epilogue_ok(epilogue) -> bool:
             return False
         return b >= 8 and b % 8 == 0
     return False
+
+
+# ---------------------------------------------------------------------------
+# Tuned schedules (the reference's tuned-schedule layer, ``ops/fused.py``).
+#
+# Every substrate knob resolves through one chain: explicit argument > env
+# knob > tuned schedule > shipped default. The tuned schedule is the
+# autotuner's recorded winner for a group's (family, shape bucket,
+# platform), made active by the backend around one group's submit
+# (:func:`tuned_schedule`, thread-local, so the pipelined executor's submit
+# thread and the control thread never see each other's), or process-wide
+# for knobs that bind when something is built (:func:`set_tuned_defaults`:
+# the page pool's page size). An invalid argument or env value raises; an
+# invalid tuned value degrades to the default, since tuning must never fail
+# a job. The tuned knobs are the two that select other code on Hopper: the
+# tile entries' CTA width (``lanes_cap``) and the page size
+# (``page_bars``). The reference's ``epilogue`` and ``table_*`` knobs are
+# not tuned here: the port runs one design for every value of those.
+# ---------------------------------------------------------------------------
+
+_TUNED_TLS = threading.local()
+_TUNED_GLOBAL: dict = {}
+
+
+def set_tuned_defaults(schedule: dict | None) -> None:
+    """Install (or clear, with None) process-wide tuned substrate
+    defaults: the knobs that bind before any group is submitted (the page
+    pool's page size)."""
+    _TUNED_GLOBAL.clear()
+    if schedule:
+        _TUNED_GLOBAL.update({str(k): str(v)
+                              for k, v in schedule.items()})
+
+
+@contextlib.contextmanager
+def tuned_schedule(schedule: dict | None):
+    """Make a tuned substrate schedule active on the calling thread: every
+    resolver called inside sees its values (below env)."""
+    prev = getattr(_TUNED_TLS, "schedule", None)
+    _TUNED_TLS.schedule = dict(schedule) if schedule else None
+    try:
+        yield
+    finally:
+        _TUNED_TLS.schedule = prev
+
+
+def _tuned_value(key: str):
+    """The active tuned value of ``key`` (the thread's schedule first,
+    then the process-wide defaults), or None."""
+    sched = getattr(_TUNED_TLS, "schedule", None)
+    if sched is not None and key in sched:
+        return sched[key]
+    return _TUNED_GLOBAL.get(key)
+
+
+# The legal caps of a tile's width: the reference's ladder.
+_LANES_LADDER = (_KERNEL_THREADS, 256, 512, 1024)
+
+
+def resolve_lanes_cap() -> int:
+    """The validated cap of the tile entries' CTA width (0 = none):
+    ``DBX_LANES_CAP``, else the tuned ``lanes_cap``, else 0.
+
+    An env value off the ladder (128, 256, 512, 1024) raises; a tuned value
+    off it degrades to 0. Read once a public sweep call (:func:`tile_lanes`)
+    and passed down to the launch, so every shard of the mesh route and
+    every bin of the paged route runs at the width resolved for its call.
+    """
+    raw = os.environ.get("DBX_LANES_CAP")
+    if not raw:
+        tuned = _tuned_value("lanes_cap")
+        if tuned is not None:
+            try:
+                tv = int(tuned)
+            except (TypeError, ValueError):
+                tv = -1
+            if tv == 0 or tv in _LANES_LADDER:
+                return tv
+        return 0   # invalid tuned value: degrade to unset, never raise
+    try:
+        v = int(raw)
+    except ValueError:
+        raise ValueError(
+            f"DBX_LANES_CAP={raw!r} is not an integer; expected one of "
+            f"{_LANES_LADDER} (or 0/empty to disable)") from None
+    if v == 0:
+        return 0
+    if v not in _LANES_LADDER:
+        raise ValueError(
+            f"DBX_LANES_CAP={v} is unusable: no kernel block ladder "
+            f"candidate matches it (legal values: {_LANES_LADDER})")
+    return v
+
+
+def tile_lanes(shipped: int) -> int:
+    """A tile entry's CTA width for one sweep call: its ``shipped`` width,
+    capped by :func:`resolve_lanes_cap` where that gives a cap (the
+    reference's cap semantics: a cap never widens a tile). Every width
+    gives the same bits (``chip_smoke.py`` phase 3's width sweep)."""
+    cap = resolve_lanes_cap()
+    return min(shipped, cap) if cap else shipped
+
+
+# Strategy -> its tile entry's shipped width, read when called (so a test
+# that sets a constant sees it); the families whose CTA width can be tuned.
+_TILE_WIDTHS = {
+    "sma_crossover": lambda: _SMA_LANES,
+    "bollinger": lambda: _BAND_INLINE_LANES,
+    "bollinger_touch": lambda: _BAND_INLINE_LANES,
+    "macd": lambda: _MACD_LANES,
+    "trix": lambda: _TRIX_LANES,
+    "obv_trend": lambda: _OBV_LANES,
+    "pairs": lambda: _PAIRS_LANES,
+}
+
+
+def shipped_lanes(strategy: str) -> int | None:
+    """The shipped CTA width of ``strategy``'s tile entry, or None where
+    its entry runs no tiles (its width is not a knob)."""
+    width = _TILE_WIDTHS.get(strategy)
+    return None if width is None else width()
 
 
 def _resolve_epilogue(epilogue: str | None) -> str:
@@ -478,6 +603,12 @@ def _on_device(plain, cuda, x: torch.Tensor):
     return plain if x.device.type == "cpu" else cuda
 
 
+def _at_width(cuda, lanes: int | None):
+    """A tile entry's kernel wrapper bound to CTA width ``lanes`` (None:
+    its shipped width)."""
+    return cuda if lanes is None else functools.partial(cuda, lanes=lanes)
+
+
 def _to_lanes(planes: torch.Tensor, lane) -> torch.Tensor:
     """``(9, N, P)`` planes in slot order put in the caller's lane order:
     slot p at lane ``lane[p]`` (``lane`` None: the orders are one)."""
@@ -576,18 +707,18 @@ def fused_sma_plain(cs, r, t_real, fast, slow, warm, *, cost: float,
 
 
 def fused_sma_cuda(cs, r, t_real, fast, slow, warm, *, cost: float,
-                   ppy: int) -> torch.Tensor:
+                   ppy: int, lanes: int | None = None) -> torch.Tensor:
     """Launch K1 (``csrc/fused_sma.cu``) on PyTorch's current stream.
 
     Same inputs and output as :func:`fused_sma_plain`, all on one CUDA
-    device. The lanes run in tiles of ``_SMA_LANES``, whose window lists
-    are built on the card from ``fast`` and ``slow`` (:func:`window_tiles`).
-    Raises on a wrong device, dtype, shape or layout, and when the launch
-    reports an error.
+    device. The lanes run in tiles of ``lanes`` (None: ``_SMA_LANES``, the
+    shipped width), whose window lists are built on the card from ``fast``
+    and ``slow`` (:func:`window_tiles`). Raises on a wrong device, dtype,
+    shape or layout, and when the launch reports an error.
     """
     N, T = cs.shape
     P = fast.shape[0]
-    lanes = _SMA_LANES
+    lanes = _SMA_LANES if lanes is None else lanes
     f32, i32 = torch.float32, torch.int32
     _check_launch("fused_sma_cuda", cs.device, P, lanes,
                   cs=(cs, f32, (N, T)), r=(r, f32, (N, T)),
@@ -612,10 +743,10 @@ def _launch_fused_sma(cs, r, t_real, tiles, warm, out, lanes: int, *,
 
 
 def fused_sma(cs, r, t_real, fast, slow, warm, *, cost: float,
-              ppy: int) -> torch.Tensor:
-    """K1 on the inputs' device: the kernel on CUDA, the plain version on
-    the CPU."""
-    fn = _on_device(fused_sma_plain, fused_sma_cuda, cs)
+              ppy: int, lanes: int | None = None) -> torch.Tensor:
+    """K1 on the inputs' device: the kernel on CUDA at CTA width ``lanes``,
+    the plain version on the CPU."""
+    fn = _on_device(fused_sma_plain, _at_width(fused_sma_cuda, lanes), cs)
     return fn(cs, r, t_real, fast, slow, warm, cost=cost, ppy=ppy)
 
 
@@ -642,13 +773,14 @@ def obv_plain(obv, cs, r, t_real, window, warm, *, cost: float,
 
 
 def obv_cuda(obv, cs, r, t_real, window, warm, *, cost: float,
-             ppy: int) -> torch.Tensor:
+             ppy: int, lanes: int | None = None) -> torch.Tensor:
     """Launch K6 (``csrc/fused_sma.cu``, ``dbx_obv``): same inputs and
     output as :func:`obv_plain`, all on one CUDA device. The lanes run in
-    tiles of ``_OBV_LANES`` as :func:`fused_sma_cuda`'s do."""
+    tiles of ``lanes`` (None: ``_OBV_LANES``) as :func:`fused_sma_cuda`'s
+    do."""
     N, T = obv.shape
     P = window.shape[0]
-    lanes = _OBV_LANES
+    lanes = _OBV_LANES if lanes is None else lanes
     f32, i32 = torch.float32, torch.int32
     _check_launch("obv_cuda", obv.device, P, lanes,
                   obv=(obv, f32, (N, T)), cs=(cs, f32, (N, T)),
@@ -673,9 +805,9 @@ def _launch_obv(obv, cs, r, t_real, tiles, warm, out, lanes: int, *,
 
 
 def obv(obv, cs, r, t_real, window, warm, *, cost: float,
-        ppy: int) -> torch.Tensor:
-    """K6 on the inputs' device."""
-    fn = _on_device(obv_plain, obv_cuda, obv)
+        ppy: int, lanes: int | None = None) -> torch.Tensor:
+    """K6 on the inputs' device (the kernel at CTA width ``lanes``)."""
+    fn = _on_device(obv_plain, _at_width(obv_cuda, lanes), obv)
     return fn(obv, cs, r, t_real, window, warm, cost=cost, ppy=ppy)
 
 
@@ -767,14 +899,15 @@ def band_inline_plain(close, cs, csx, csx2, r, t_real, window, k, warm, *,
 
 def band_inline_cuda(close, cs, csx, csx2, r, t_real, window, k, warm, *,
                      machine: str, z_exit: float, cost: float,
-                     ppy: int) -> torch.Tensor:
+                     ppy: int, lanes: int | None = None) -> torch.Tensor:
     """Launch K2's inline entry (``csrc/band_machine.cu``,
     ``dbx_band_inline``): same inputs and output as
     :func:`band_inline_plain`, all on one CUDA device; the lanes run in
-    tiles of ``_BAND_INLINE_LANES`` as :func:`fused_sma_cuda`'s do."""
+    tiles of ``lanes`` (None: ``_BAND_INLINE_LANES``) as
+    :func:`fused_sma_cuda`'s do."""
     N, T = close.shape
     P = window.shape[0]
-    lanes = _BAND_INLINE_LANES
+    lanes = _BAND_INLINE_LANES if lanes is None else lanes
     code = _machine_code(machine)
     f32, i32 = torch.float32, torch.int32
     row = (N, T)
@@ -880,9 +1013,11 @@ def band_stoch_cuda(close, high, low, r, t_real, window, k, warm, lane=None,
 
 def band_inline(close, cs, csx, csx2, r, t_real, window, k, warm, *,
                 machine: str, z_exit: float, cost: float,
-                ppy: int) -> torch.Tensor:
-    """K2's inline entry on the inputs' device."""
-    fn = _on_device(band_inline_plain, band_inline_cuda, close)
+                ppy: int, lanes: int | None = None) -> torch.Tensor:
+    """K2's inline entry on the inputs' device (the kernel at CTA width
+    ``lanes``)."""
+    fn = _on_device(band_inline_plain, _at_width(band_inline_cuda, lanes),
+                    close)
     return fn(close, cs, csx, csx2, r, t_real, window, k, warm,
               machine=machine, z_exit=z_exit, cost=cost, ppy=ppy)
 
@@ -1090,15 +1225,15 @@ def macd_keys(fidx: torch.Tensor, sidx: torch.Tensor, W: int) -> torch.Tensor:
 
 
 def macd_cuda(tbl, r, t_real, fidx, sidx, a_sig, warm, *, cost: float,
-              ppy: int) -> torch.Tensor:
+              ppy: int, lanes: int | None = None) -> torch.Tensor:
     """Launch K4 (``csrc/ema_cross.cu``, ``dbx_macd``): same inputs and
     output as :func:`macd_plain`, all on one CUDA device. The lanes run in
-    tiles of ``_MACD_LANES``, whose lists of (fast, slow) keys are built on
-    the card (:func:`window_tiles` of :func:`macd_keys`); each tile forms
-    the macd line of its pairs once per bar."""
+    tiles of ``lanes`` (None: ``_MACD_LANES``), whose lists of (fast, slow)
+    keys are built on the card (:func:`window_tiles` of :func:`macd_keys`);
+    each tile forms the macd line of its pairs once per bar."""
     N, W, T = tbl.shape
     P = fidx.shape[0]
-    lanes = _MACD_LANES
+    lanes = _MACD_LANES if lanes is None else lanes
     f32, i32 = torch.float32, torch.int32
     _check_launch("macd_cuda", tbl.device, P, lanes,
                   tbl=(tbl, f32, (N, W, T)), r=(r, f32, (N, T)),
@@ -1124,15 +1259,15 @@ def _launch_macd(tbl, r, t_real, tiles, a_sig, warm, out, lanes: int, *,
 
 
 def trix_cuda(tbl, r, t_real, widx, a_sig, warm, *, cost: float,
-              ppy: int) -> torch.Tensor:
+              ppy: int, lanes: int | None = None) -> torch.Tensor:
     """Launch K5 (``csrc/ema_cross.cu``, ``dbx_trix``): same inputs and
     output as :func:`trix_plain`, all on one CUDA device. The lanes run in
-    tiles of ``_TRIX_LANES``, whose lists of table rows are built on the
-    card from ``widx`` (:func:`window_tiles`); each tile forms the rate of
-    change of its rows once per bar."""
+    tiles of ``lanes`` (None: ``_TRIX_LANES``), whose lists of table rows
+    are built on the card from ``widx`` (:func:`window_tiles`); each tile
+    forms the rate of change of its rows once per bar."""
     N, W, T = tbl.shape
     P = widx.shape[0]
-    lanes = _TRIX_LANES
+    lanes = _TRIX_LANES if lanes is None else lanes
     f32, i32 = torch.float32, torch.int32
     _check_launch("trix_cuda", tbl.device, P, lanes,
                   tbl=(tbl, f32, (N, W, T)), r=(r, f32, (N, T)),
@@ -1157,16 +1292,16 @@ def _launch_trix(tbl, r, t_real, tiles, a_sig, warm, out, lanes: int, *,
 
 
 def macd(tbl, r, t_real, fidx, sidx, a_sig, warm, *, cost: float,
-         ppy: int) -> torch.Tensor:
-    """K4 on the inputs' device."""
-    fn = _on_device(macd_plain, macd_cuda, tbl)
+         ppy: int, lanes: int | None = None) -> torch.Tensor:
+    """K4 on the inputs' device (the kernel at CTA width ``lanes``)."""
+    fn = _on_device(macd_plain, _at_width(macd_cuda, lanes), tbl)
     return fn(tbl, r, t_real, fidx, sidx, a_sig, warm, cost=cost, ppy=ppy)
 
 
 def trix(tbl, r, t_real, widx, a_sig, warm, *, cost: float,
-         ppy: int) -> torch.Tensor:
-    """K5 on the inputs' device."""
-    fn = _on_device(trix_plain, trix_cuda, tbl)
+         ppy: int, lanes: int | None = None) -> torch.Tensor:
+    """K5 on the inputs' device (the kernel at CTA width ``lanes``)."""
+    fn = _on_device(trix_plain, _at_width(trix_cuda, lanes), tbl)
     return fn(tbl, r, t_real, widx, a_sig, warm, cost=cost, ppy=ppy)
 
 
@@ -1194,15 +1329,15 @@ def pairs_plain(z, hr, t_real, widx, k, z_exit, warm, *, cost: float,
 
 
 def pairs_cuda(z, hr, t_real, widx, k, z_exit, warm, *, cost: float,
-               ppy: int) -> torch.Tensor:
+               ppy: int, lanes: int | None = None) -> torch.Tensor:
     """Launch K7 (``csrc/band_machine.cu``, ``dbx_pairs``): same inputs and
     output as :func:`pairs_plain`, all on one CUDA device. The lanes run in
-    tiles of ``_PAIRS_LANES``, whose lists of table rows are built on the
-    card from ``widx`` (:func:`window_tiles`); each tile stages the (z, hr)
-    pair of its rows once per bar."""
+    tiles of ``lanes`` (None: ``_PAIRS_LANES``), whose lists of table rows
+    are built on the card from ``widx`` (:func:`window_tiles`); each tile
+    stages the (z, hr) pair of its rows once per bar."""
     N, W, T = z.shape
     P = widx.shape[0]
-    lanes = _PAIRS_LANES
+    lanes = _PAIRS_LANES if lanes is None else lanes
     f32, i32 = torch.float32, torch.int32
     _check_launch("pairs_cuda", z.device, P, lanes,
                   z=(z, f32, (N, W, T)), hr=(hr, f32, (N, W, T)),
@@ -1228,9 +1363,9 @@ def _launch_pairs(z, hr, t_real, tiles, k, z_exit, warm, out, lanes: int, *,
 
 
 def pairs(z, hr, t_real, widx, k, z_exit, warm, *, cost: float,
-          ppy: int) -> torch.Tensor:
-    """K7 on the inputs' device."""
-    fn = _on_device(pairs_plain, pairs_cuda, z)
+          ppy: int, lanes: int | None = None) -> torch.Tensor:
+    """K7 on the inputs' device (the kernel at CTA width ``lanes``)."""
+    fn = _on_device(pairs_plain, _at_width(pairs_cuda, lanes), z)
     return fn(z, hr, t_real, widx, k, z_exit, warm, cost=cost, ppy=ppy)
 
 
@@ -1750,6 +1885,7 @@ def fused_sma_sweep(close, fast, slow, *, t_real=None, cost: float = 0.0,
     before the kernel runs.
     """
     dev = _prologue(carry_out, t_real, table, epilogue, device)
+    lanes = tile_lanes(_SMA_LANES)
     (close,) = _panel(dev, close)
     N, T = close.shape
     fast_w, slow_w, warm = _grid_setup(fast, slow)
@@ -1758,7 +1894,7 @@ def fused_sma_sweep(close, fast, slow, *, t_real=None, cost: float = 0.0,
         rolling.prefix_sum(close, 1).contiguous(),
         simple_returns(close).contiguous(),
         *_to(dev, tr, fast_w, slow_w, warm),
-        cost=float(cost), ppy=int(periods_per_year))
+        cost=float(cost), ppy=int(periods_per_year), lanes=lanes)
     return _carry_out_tail(Metrics(*planes), carry_out, "sma_crossover",
                            {"close": close}, {"fast": fast, "slow": slow},
                            cost=cost, ppy=periods_per_year, epilogue=epilogue)
@@ -1768,6 +1904,7 @@ def _bollinger_family_sweep(close, window, k, *, machine: str, z_exit: float,
                             t_real, cost, periods_per_year, table, epilogue,
                             carry_out, device) -> Metrics:
     dev = _prologue(carry_out, t_real, table, epilogue, device)
+    lanes = tile_lanes(_BAND_INLINE_LANES)
     if carry_out and machine == "hysteresis" and float(z_exit) != 0.0:
         raise ValueError(
             "carry_out=True requires z_exit=0 for the bollinger machine "
@@ -1787,7 +1924,7 @@ def _bollinger_family_sweep(close, window, k, *, machine: str, z_exit: float,
                          simple_returns(close).contiguous(),
                          *_to(dev, tr, win, k, warm), machine=machine,
                          z_exit=float(z_exit), cost=float(cost),
-                         ppy=int(periods_per_year))
+                         ppy=int(periods_per_year), lanes=lanes)
     return _carry_out_tail(
         Metrics(*planes), carry_out,
         "bollinger" if machine == "hysteresis" else "bollinger_touch",
@@ -1936,6 +2073,7 @@ def fused_obv_sweep(close, volume, window, *, t_real=None, cost: float = 0.0,
     cumsum row, K1's design). Other arguments as :func:`fused_sma_sweep`.
     """
     dev = _prologue(carry_out, t_real, table, epilogue, device)
+    lanes = tile_lanes(_OBV_LANES)
     close, volume = _panel(dev, close, volume)
     N, T = close.shape
     _, win, _, warm = _window_setup(_flat(window), "windows", 0.0, 1)
@@ -1944,7 +2082,7 @@ def fused_obv_sweep(close, volume, window, *, t_real=None, cost: float = 0.0,
     planes = obv(series, rolling.prefix_sum(series, 1).contiguous(),
                  simple_returns(close).contiguous(),
                  *_to(dev, tr, win, warm), cost=float(cost),
-                 ppy=int(periods_per_year))
+                 ppy=int(periods_per_year), lanes=lanes)
     return _carry_out_tail(Metrics(*planes), carry_out, "obv_trend",
                            {"close": close, "volume": volume},
                            {"window": window}, cost=cost,
@@ -1986,6 +2124,7 @@ def fused_pairs_sweep(y_close, x_close, lookback, z_entry, *, t_real=None,
     band can land a bar apart from the generic path's f32 sums).
     """
     dev = _prologue(carry_out, t_real, None, epilogue, device)
+    width = tile_lanes(_PAIRS_LANES)
     y_close, x_close = _panel(dev, y_close, x_close)
     N, T = y_close.shape
     windows, widx, k, zx, warm = _pairs_grid_setup(lookback, z_entry, z_exit)
@@ -1997,7 +2136,7 @@ def fused_pairs_sweep(y_close, x_close, lookback, z_entry, *, t_real=None,
     lanes = _to(dev, tr, widx, k, zx, warm)
     z, hr = pairs_sweep_tables(y_close, x_close, windows)
     planes = pairs(z, hr, *lanes, cost=float(cost),
-                   ppy=int(periods_per_year))
+                   ppy=int(periods_per_year), lanes=width)
     return _carry_out_tail(
         Metrics(*planes), carry_out, "pairs",
         {"close": y_close, "close2": x_close},
@@ -2157,6 +2296,7 @@ def fused_macd_sweep(close, fast, slow, signal, *, t_real=None,
     :func:`fused_sma_sweep`.
     """
     dev = _prologue(carry_out, t_real, None, epilogue, device)
+    width = tile_lanes(_MACD_LANES)
     (close,) = _panel(dev, close)
     N, T = close.shape
     spans, fidx, sidx, a_sig, warm = _macd_grid_setup(fast, slow, signal)
@@ -2166,7 +2306,7 @@ def fused_macd_sweep(close, fast, slow, signal, *, t_real=None,
     lanes = _to(dev, tr, fidx, sidx, a_sig, warm)
     planes = macd(macd_sweep_table(close, spans),
                   simple_returns(close).contiguous(), *lanes,
-                  cost=float(cost), ppy=int(periods_per_year))
+                  cost=float(cost), ppy=int(periods_per_year), lanes=width)
     return _carry_out_tail(Metrics(*planes), carry_out, "macd",
                            {"close": close},
                            {"fast": fast, "slow": slow, "signal": signal},
@@ -2185,6 +2325,7 @@ def fused_trix_sweep(close, span, signal, *, t_real=None, cost: float = 0.0,
     integral. Matches ``run_sweep(..., "trix")`` to the same flip-aware
     budget as :func:`fused_macd_sweep`, for the same reason."""
     dev = _prologue(carry_out, t_real, None, epilogue, device)
+    width = tile_lanes(_TRIX_LANES)
     (close,) = _panel(dev, close)
     N, T = close.shape
     spans, widx, a_sig, warm = _trix_grid_setup(span, signal)
@@ -2194,7 +2335,7 @@ def fused_trix_sweep(close, span, signal, *, t_real=None, cost: float = 0.0,
     lanes = _to(dev, tr, widx, a_sig, warm)
     planes = trix(trix_sweep_table(close, spans),
                   simple_returns(close).contiguous(), *lanes,
-                  cost=float(cost), ppy=int(periods_per_year))
+                  cost=float(cost), ppy=int(periods_per_year), lanes=width)
     return _carry_out_tail(Metrics(*planes), carry_out, "trix",
                            {"close": close}, {"span": span, "signal": signal},
                            cost=cost, ppy=periods_per_year, epilogue=epilogue)
@@ -2292,10 +2433,19 @@ def paged_enabled() -> bool:
 
 
 def resolve_page_bars() -> int:
-    """The validated page size ``DBX_PAGE_BARS`` (default 512 bars): a
-    positive multiple of 8."""
+    """The validated page size: ``DBX_PAGE_BARS``, else the tuned
+    ``page_bars``, else 512 bars; a positive multiple of 8. An env value
+    off that rule raises; a tuned one degrades to the default."""
     raw = os.environ.get("DBX_PAGE_BARS")
     if not raw:
+        tuned = _tuned_value("page_bars")
+        if tuned is not None:
+            try:
+                tv = int(tuned)
+            except (TypeError, ValueError):
+                tv = -1
+            if tv >= 8 and tv % 8 == 0:
+                return tv
         return _PAGE_BARS_DEFAULT
     try:
         v = int(raw)

@@ -22,6 +22,11 @@ PEAK_FP32_OPS = PEAK_FP32_FLOPS / 2
 PEAK_FP64_FLOPS = 34e12
 PEAK_FP64_OPS = PEAK_FP64_FLOPS / 2
 PEAK_HBM_BYTES = 3.35e12
+# Streaming multiprocessors of the H100 SXM and the threads one holds at
+# once (compute capability 9.0): a launch's CTAs run in waves of
+# SMS x (resident CTAs an SM).
+SMS = 132
+THREADS_PER_SM = 2048
 
 # Floating-point operations per (combo, bar) below the ticker's length,
 # from csrc/metrics_tail.cuh: the PnL and metric updates (position change

@@ -82,11 +82,29 @@ instead (:mod:`..parallel.timeshard`, one composed backtest a combo; the
 route of the reference's ``_submit_timeshard_groups``). The paged route and
 the scenario route stay meshless, as in the reference.
 
+Tuned schedules (the reference's tune layer, :mod:`..tune`): each fused
+group (dense, paged or on the mesh, and the fused pairs groups) runs under
+the tuned substrate schedule of its (family, shape bucket with the rows a
+card sweeps, platform) in the backend's
+:class:`~..tune.ScheduleRegistry` (``DBX_SCHEDULE_DIR``), below any env
+knob. On Hopper the tuned knobs are the tile entries' CTA width
+(``lanes_cap``) and the page size (``page_bars``, applied when the
+backend is made); every width gives the same bits. Under
+``DBX_AUTOTUNE=1`` the first group of a (family, bucket) with no entry
+measures the candidates on warm runs of the group's own sweep, on the
+route that serves it, and records the winner (``model``: the prior's
+pick, nothing measured); a challenger must beat the shipped width by more
+than the noise. The platform names the runtime and the card
+(``torch-cuda-sm90``, ``torch-cpu``) and is never a JAX backend's name,
+so neither kind of worker adopts the other's entries. A failed
+consultation serves the defaults.
+
 This module imports no ``grpc``: the worker injects the fetcher.
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 import math
 import os
@@ -98,6 +116,8 @@ import numpy as np
 import torch
 
 from .. import device as device_mod
+from .. import obs
+from .. import tune as tune_mod
 from ..models import base as models_base
 from ..models import pairs as pairs_mod
 from ..ops import fused
@@ -353,6 +373,24 @@ def timeshard_combos(strategy: str, axes) -> tuple:
                  for i in range(sweep_mod.grid_size(prod)))
 
 
+def platform_of(device) -> str:
+    """The schedule registry's platform of a backend on ``device``:
+    ``torch-cuda-sm<major><minor>`` of the card, or ``torch-<type>``. Never
+    a JAX backend's name (``cpu``, ``gpu``, ``tpu``)."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        major, minor = torch.cuda.get_device_capability(dev)
+        return f"torch-cuda-sm{major}{minor}"
+    return f"torch-{dev.type}"
+
+
+def _synchronize(devices) -> None:
+    """Wait for the work queued on each CUDA device of ``devices``."""
+    for dev in {torch.device(d) for d in devices}:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+
 def default_mesh(device) -> sharding.Mesh | None:
     """The backend's mesh when none is given: every local GPU where there
     are two or more and the backend runs on CUDA, else None."""
@@ -536,7 +574,9 @@ class TorchSweepBackend:
     the dense stacks, by why (``rejected`` by the pool, paging
     ``disabled``);
     ``scenarios``, the scenario specs served by route (``fused``,
-    ``materialized``).
+    ``materialized``). ``schedule_registry`` holds the tuned schedules
+    (``DBX_SCHEDULE_DIR``; the worker gossips it), ``platform`` their
+    platform on this backend's device.
     """
 
     # A uniform walk-forward group whose grid has at least this many combos
@@ -582,6 +622,31 @@ class TorchSweepBackend:
             log.info("paged route off (DBX_PAGED=1 turns it on): fused "
                      "groups use the dense stacks")
         self.scenarios = {"fused": 0, "materialized": 0}
+        self._obs = obs.get_registry()
+        self.schedule_registry = tune_mod.ScheduleRegistry.open_default(
+            registry=self._obs)
+        self._autotuner = tune_mod.Autotuner(self.schedule_registry,
+                                             registry=self._obs)
+        self.platform = platform_of(self.device)
+        # First-contact memo: a (family, bucket) whose tune found no winner
+        # is not measured again on every group.
+        self._tuned_attempted: set = set()
+        self._tuned_info_seen: set = set()
+        # The page size binds when the page pool is made: a restored
+        # registry's page_bars winners of this platform apply process-wide
+        # (the most common value, ties to the smallest).
+        pb_counts: dict = {}
+        for e in self.schedule_registry.entries():
+            if e["platform"] != self.platform:
+                continue
+            v = e["substrates"].get("page_bars")
+            if v:
+                pb_counts[v] = pb_counts.get(v, 0) + 1
+        if pb_counts:
+            # (length, string) orders digit strings by their value.
+            pb_pick = min(pb_counts,
+                          key=lambda v: (-pb_counts[v], len(v), v))
+            fused.set_tuned_defaults({"page_bars": pb_pick})
 
     @property
     def chips(self) -> int:
@@ -1099,51 +1164,12 @@ class TorchSweepBackend:
         ppy = job0.periods_per_year or 252
         spec = _FUSED_STRATEGIES[job0.strategy]
         demotion = _fused_demotion_reason(spec, axes)
-        ragged = len(set(lengths)) > 1
-        m = None
         if demotion is None:
             g = {k: v.numpy() for k, v in grid.items()}
-            digests = all(j.panel_digest for j in group)
-            if digests and allow_paged and not self.use_paged:
-                self.paged_fallbacks["disabled"] += 1
-            elif digests and allow_paged:
-                m = self._try_paged(group, series, lengths, g, cost, ppy)
-                if m is None:
-                    self.paged_fallbacks["rejected"] += 1
-                    buckets: dict[int, list[int]] = {}
-                    for i, j in enumerate(group):
-                        b = (len(j.ohlcv) or j.panel_bytes_len).bit_length()
-                        buckets.setdefault(b, []).append(i)
-                    log.warning("%d %s jobs (first %s): the page pool "
-                                "rejected the group; serving it from the "
-                                "dense stacks in %d length bucket(s)",
-                                len(group), job0.strategy, job0.id,
-                                len(buckets))
-                    if ragged and len(buckets) > 1:
-                        out = []
-                        for _, idx in sorted(buckets.items()):
-                            out.extend(self._submit_group(
-                                [group[i] for i in idx],
-                                [series[i] for i in idx], t0,
-                                allow_paged=False))
-                            t0 = time.perf_counter()
-                        return out
-            if m is None:
-                fields = self._device_fields(group, series, spec.fields,
-                                             lengths)
-                t_real = np.asarray(lengths, np.int32) if ragged else None
-                if ragged:
-                    self.pad_bars["dense"] += sum(max(lengths) - t
-                                                  for t in lengths)
-                if self.mesh is None:
-                    m = spec.run(fields, g, t_real=t_real, cost=cost,
-                                 periods_per_year=ppy, device=self.device)
-                else:
-                    m = self._mesh_call(
-                        lambda blks, tr, dev: spec.run(
-                            dict(zip(spec.fields, blks)), g, t_real=tr,
-                            cost=cost, periods_per_year=ppy, device=dev),
-                        [fields[f] for f in spec.fields], t_real)
+            m = self._submit_fused(group, series, lengths, g, cost, ppy, t0,
+                                   allow_paged, spec)
+            if isinstance(m, list):
+                return m
         else:
             log.warning("jobs %s (%s) take the generic path: %s",
                         [j.id for j in group], job0.strategy, demotion)
@@ -1158,6 +1184,174 @@ class TorchSweepBackend:
                                            cost=cost, bar_mask=mask,
                                            periods_per_year=ppy)
         return [self._finish_group(group, m, t0, len(group), job0)]
+
+    def _submit_fused(self, group, series, lengths, g, cost, ppy, t0,
+                      allow_paged: bool, spec):
+        """A fused group's sweep on the paged route (jobs with digests,
+        paging on) or the dense stacks, under the tuned schedule of the
+        route that serves it (:meth:`_tuned_schedule_for`). Returns its
+        Metrics, or the pending entries of a ragged group that the pool
+        rejected, split again by the power-of-two length bucket."""
+        job0 = group[0]
+        ragged = len(set(lengths)) > 1
+        consult = functools.partial(self._tuned_schedule_for, job0.strategy,
+                                    lengths, g)
+        m = None
+        digests = all(j.panel_digest for j in group)
+        if digests and allow_paged and not self.use_paged:
+            self.paged_fallbacks["disabled"] += 1
+        elif digests and allow_paged:
+            m = self._try_paged(group, series, lengths, g, cost, ppy, consult)
+            if m is None:
+                self.paged_fallbacks["rejected"] += 1
+                buckets: dict[int, list[int]] = {}
+                for i, j in enumerate(group):
+                    b = (len(j.ohlcv) or j.panel_bytes_len).bit_length()
+                    buckets.setdefault(b, []).append(i)
+                log.warning("%d %s jobs (first %s): the page pool rejected "
+                            "the group; serving it from the dense stacks in "
+                            "%d length bucket(s)", len(group), job0.strategy,
+                            job0.id, len(buckets))
+                if ragged and len(buckets) > 1:
+                    out = []
+                    for _, idx in sorted(buckets.items()):
+                        out.extend(self._submit_group(
+                            [group[i] for i in idx],
+                            [series[i] for i in idx], t0,
+                            allow_paged=False))
+                        t0 = time.perf_counter()
+                    return out
+        if m is None:
+            if ragged:
+                self.pad_bars["dense"] += sum(max(lengths) - t
+                                              for t in lengths)
+            fields = self._device_fields(group, series, spec.fields, lengths)
+            run = functools.partial(
+                self._dense_sweep, spec, g=g, cost=cost, ppy=ppy,
+                t_real=np.asarray(lengths, np.int32) if ragged else None)
+            # A measurement times the sweep on fields already on the card
+            # (a digestless group's host stacks uploaded once for it).
+            with fused.tuned_schedule(consult(
+                    lambda: functools.partial(run, self._resident(fields)))):
+                m = run(fields)
+        return m
+
+    def _resident(self, arrays):
+        """``arrays`` (a dict or a list) with each host array uploaded to
+        the backend's device; a tensor stays as it is."""
+        up = (lambda a: a if isinstance(a, torch.Tensor)
+              else device_mod.upload(a, self.device))
+        if isinstance(arrays, dict):
+            return {k: up(v) for k, v in arrays.items()}
+        return [up(a) for a in arrays]
+
+    def _dense_sweep(self, spec, fields, *, g, t_real, cost,
+                     ppy) -> Metrics:
+        """A fused group's sweep on its dense stacks: one wrapper call on
+        the backend's device, or one a shard on the mesh."""
+        if self.mesh is None:
+            return spec.run(fields, g, t_real=t_real, cost=cost,
+                            periods_per_year=ppy, device=self.device)
+        return self._mesh_call(
+            lambda blks, tr, dev: spec.run(
+                dict(zip(spec.fields, blks)), g, t_real=tr, cost=cost,
+                periods_per_year=ppy, device=dev),
+            [fields[f] for f in spec.fields], t_real)
+
+    def _tuned_schedule_for(self, family: str, lengths, grid: dict,
+                            make_run) -> dict | None:
+        """The tuned substrate schedule of a fused group's (family, shape
+        bucket with its rows a card, :func:`~..tune.group_bucket`,
+        platform), or None (the defaults). Under ``DBX_AUTOTUNE`` a
+        first contact with no entry tunes it: ``make_run()`` gives the
+        group's own sweep on the route that serves it as a call, its inputs
+        on the card, measured by :meth:`_autotune_measure` (``model``: the
+        prior's pick). Never raises: a broken registry or a failed tune
+        serves the defaults."""
+        try:
+            n_bars = int(max(lengths))
+            n_combos = max((int(np.asarray(v).shape[0])
+                            for v in grid.values()), default=1)
+            # The rows one card sweeps: the mesh splits the group's rows.
+            n_rows = -(-len(lengths) // (self.mesh.size if self.mesh
+                                         is not None else 1))
+            bucket = tune_mod.group_bucket(n_bars, n_combos, n_rows)
+            sched = self.schedule_registry.lookup(family, bucket,
+                                                  self.platform)
+            mode = tune_mod.autotune_mode()
+            if (sched is None and mode != "off"
+                    and (family, bucket) not in self._tuned_attempted):
+                self._tuned_attempted.add((family, bucket))
+                # page_bars joins the search under the prior only: it
+                # binds when the pool is made, so the runs measured here
+                # could not tell its candidates apart.
+                sched = self._autotuner.tune(
+                    family, bucket, self.platform, n_bars=n_bars,
+                    n_combos=n_combos,
+                    measure=(None if mode == "model"
+                             else self._autotune_measure(make_run)),
+                    paged=(mode == "model" and self.use_paged
+                           and fused.paged_supported(family)),
+                    n_rows=n_rows, grid=grid)
+            if sched:
+                self._publish_tuned_info(family, bucket, sched)
+            return sched
+        except Exception:
+            log.exception("tuned-schedule consultation failed; serving the "
+                          "default substrates")
+            return None
+
+    # Runs of a group's sweep timed together in one autotune measurement.
+    _MEASURE_RUNS = 3
+
+    def _autotune_measure(self, make_run):
+        """The autotuner's harness for one group: ``measure(substrates)``
+        runs the group's own sweep (``make_run()``, made once: the route
+        that serves the group, its inputs on the card) under the
+        candidate, once to warm, then
+        ``_MEASURE_RUNS`` times back to back between two synchronizations
+        of the card, and returns the mean: the host's enqueue of a run
+        overlaps the card's work on the one before, so the time is the
+        card's, and host jitter is spread over the runs. Not a one-ticker
+        probe: a tile's width trades CTAs against the card's SMs, so the
+        group's own rows set the winner."""
+        devices = (self.mesh.devices if self.mesh is not None
+                   else [self.device])
+        runs: list = []
+
+        def measure(substrates: dict) -> float:
+            if not runs:
+                runs.append(make_run())
+            with fused.tuned_schedule(substrates):
+                runs[0]()
+                _synchronize(devices)
+                t0 = time.perf_counter()
+                for _ in range(self._MEASURE_RUNS):
+                    runs[0]()
+                _synchronize(devices)
+                return (time.perf_counter() - t0) / self._MEASURE_RUNS
+        return measure
+
+    def _publish_tuned_info(self, family: str, bucket: str,
+                            sched: dict) -> None:
+        """``dbx_tuned_substrate_info``: constant 1, its labels the tuned
+        substrates serving this (family, shape bucket) ("default" where a
+        knob is left to the default; always for the reference's
+        ``epilogue`` and ``table`` labels, which select no other code
+        here)."""
+        key = (family, bucket, tuple(sorted(sched.items())))
+        if key in self._tuned_info_seen:
+            return
+        self._tuned_info_seen.add(key)
+        self._obs.gauge(
+            "dbx_tuned_substrate_info",
+            help="constant 1; labels carry the tuned substrate schedule "
+                 "serving this (kernel family, shape-bucket) — the "
+                 "tuned-vs-default twin of dbx_fused_substrate_info",
+            kernel=family, bucket=bucket,
+            epilogue="default", table="default",
+            lanes_cap=sched.get("lanes_cap", "default"),
+            page_bars=sched.get("page_bars", "default")).set(1)
 
     def _mesh_call(self, runner, row_arrays, t_real=None):
         """Run ``runner(blocks, t_real_block, device) -> Metrics`` (or a
@@ -1256,12 +1450,14 @@ class TorchSweepBackend:
                                               len(idx), job0))
         return pending
 
-    def _try_paged(self, group, series, lengths, grid, cost, ppy):
+    def _try_paged(self, group, series, lengths, grid, cost, ppy, consult):
         """The paged route of a fused group: its pages resolved against the
         pool (only missing pages upload) and one launch a page-count bin
-        (``fused.fused_paged_sweep``). The pool's writer lock is held from
-        ``prepare`` until the sweep has enqueued its gathers, so the
-        prefetch thread cannot overwrite a slot in between. Returns the
+        (``fused.fused_paged_sweep``), under the tuned schedule
+        ``consult(make_run)`` gives for this route (a measurement times the
+        paged sweep on the pages just resolved). The pool's writer lock is
+        held from ``prepare`` until the sweep has enqueued its gathers, so
+        the prefetch thread cannot overwrite a slot in between. Returns the
         metrics, or None when the pool rejects the group."""
         pages = self.panel_cache.pages
         strategy = group[0].strategy
@@ -1272,9 +1468,12 @@ class TorchSweepBackend:
                 return None
             pool, tables, info = prep
             self.pad_bars["paged"] += info["pad_bars_new"]
-            return fused.fused_paged_sweep(
-                strategy, pool, tables, np.asarray(lengths, np.int32), grid,
-                cost=cost, periods_per_year=ppy)
+            run = functools.partial(
+                fused.fused_paged_sweep, strategy, pool, tables,
+                np.asarray(lengths, np.int32), grid, cost=cost,
+                periods_per_year=ppy)
+            with fused.tuned_schedule(consult(lambda: run)):
+                return run()
 
     def _submit_best_returns_group(self, group, series, t0: float) -> _Pending:
         """Best-returns jobs (``JobSpec.best_returns``, the reference's
@@ -1507,9 +1706,18 @@ class TorchSweepBackend:
                     **dict(kw, device=dev))
 
             tr = None if uniform else lens
-            m = (run([y_close, x_close], tr, self.device)
-                 if self.mesh is None
-                 else self._mesh_call(run, [y_close, x_close], tr))
+
+            def make_run():
+                legs = self._resident([y_close, x_close])
+                if self.mesh is None:
+                    return lambda: run(legs, tr, self.device)
+                return lambda: self._mesh_call(run, legs, tr)
+
+            with fused.tuned_schedule(self._tuned_schedule_for(
+                    _PAIRS, lens, g, make_run)):
+                m = (run([y_close, x_close], tr, self.device)
+                     if self.mesh is None
+                     else self._mesh_call(run, [y_close, x_close], tr))
         else:
             log.warning("jobs %s (pairs) take the generic path: %s",
                         [j.id for j in jobs], demotion)

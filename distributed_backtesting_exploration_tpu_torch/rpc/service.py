@@ -20,6 +20,9 @@ _METHODS = (
     ("SendStatus", pb.StatusRequest, pb.Ack),
     ("CompleteJobs", pb.CompleteBatch, pb.CompleteBatchReply),
     ("FetchPayload", pb.PayloadRequest, pb.PayloadReply),
+    ("GetStats", pb.StatsRequest, pb.StatsReply),
+    ("FetchCompiled", pb.CompiledRequest, pb.CompiledReply),
+    ("OfferCompiled", pb.CompiledOffer, pb.Ack),
 )
 
 

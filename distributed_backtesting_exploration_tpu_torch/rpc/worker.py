@@ -24,6 +24,16 @@ logged and left leased the same way. On exit the worker drains in order:
 every batch taken is submitted, collected and reported before it
 returns.
 
+Tuning (the reference's tune legs), for a backend with a
+``schedule_registry``: each poll carries the schedule entries tuned or
+adopted since the last (``JobsRequest.schedule_json``; put back when the
+poll fails), and every ``tune_sync_interval_s`` (10 s) the control thread
+offers the kernel libraries its own builds wrote (``OfferCompiled``),
+fetches and installs those it lacks in chunks (``FetchCompiled``, through
+a :class:`~..tune.CacheSync` on the build directory) and adopts the
+fleet's merged schedule (``GetStats.schedule_json``). Each leg is
+best-effort: a failed one costs a tick, never a job.
+
 Run it:
 
     python -m distributed_backtesting_exploration_tpu_torch.rpc.worker \
@@ -37,10 +47,12 @@ import logging
 import queue
 import signal
 import threading
+import time
 import uuid
 
 import grpc
 
+from .. import tune
 from . import backtesting_pb2 as pb
 from . import compute, service
 from .executor import Executor
@@ -52,6 +64,9 @@ log = logging.getLogger("dbx.torch.worker")
 _REPORT_BACKOFF_S = (0.2, 1.0, 3.0)
 # Completions per CompleteJobs RPC.
 _REPORT_BATCH = 256
+# Compile-cache entries fetched a FetchCompiled RPC (a reply stays under
+# the channel's message cap even when the fleet store is full).
+_COMPILE_FETCH_BATCH = 32
 
 
 class Worker:
@@ -69,6 +84,11 @@ class Worker:
         self.jobs_completed = 0
         self.completions_dropped = 0
         self.payload_fetches = 0
+        # Seconds between tune sync ticks (libraries offered and fetched,
+        # the fleet's schedule adopted); the push leg rides every poll.
+        self.tune_sync_interval_s = 10.0
+        self._compile_sync = None
+        self._next_tune_sync = 0.0
         self._stop = threading.Event()
         self._executor: Executor | None = None
 
@@ -90,6 +110,9 @@ class Worker:
             # thread-safe).
             self.backend.payload_fetcher = (
                 lambda digest: self._fetch_payload(stub, digest))
+        tunes = getattr(self.backend, "schedule_registry", None) is not None
+        if tunes:
+            self._compile_sync = tune.attach()
         ex = self._executor = Executor(self.backend)
         prefetch_q: queue.Queue | None = None
         prefetcher = None
@@ -109,6 +132,10 @@ class Worker:
         saw_work = False
         try:
             while not self._stop.is_set():
+                now = time.monotonic()
+                if tunes and now >= self._next_tune_sync:
+                    self._next_tune_sync = now + self.tune_sync_interval_s
+                    self._sync_tune(stub)
                 if not ex.inbox.full():
                     jobs = self._poll(stub)
                     if jobs:
@@ -158,18 +185,64 @@ class Worker:
                 log.warning("SendStatus failed: %s", e.code())
             done.wait(self.status_interval_s)
 
+    def _sync_tune(self, stub) -> None:
+        """One tune sync tick (control thread): offer the libraries this
+        worker's builds wrote, fetch and install the fleet's that it lacks,
+        adopt the fleet's merged schedule. A failed leg ends the tick; the
+        next tick retries."""
+        sync = self._compile_sync
+        try:
+            if sync is not None:
+                fresh = sync.poll_new()
+                if fresh:
+                    try:
+                        stub.OfferCompiled(pb.CompiledOffer(
+                            worker_id=self.worker_id,
+                            entries=[pb.CompiledEntry(key=k, name=n,
+                                                      payload=p)
+                                     for k, n, p in fresh]), timeout=30.0)
+                    except grpc.RpcError:
+                        # Offered again on the next tick.
+                        sync.unmark(fresh)
+                        raise
+                listing = stub.FetchCompiled(pb.CompiledRequest(
+                    worker_id=self.worker_id), timeout=10.0)
+                miss = sync.missing(listing.known_keys)
+                for i in range(0, len(miss), _COMPILE_FETCH_BATCH):
+                    chunk = miss[i:i + _COMPILE_FETCH_BATCH]
+                    got = stub.FetchCompiled(pb.CompiledRequest(
+                        worker_id=self.worker_id, keys=chunk), timeout=60.0)
+                    installed = sync.install(
+                        (e.key, e.name, e.payload) for e in got.entries)
+                    sync.count_fleet_misses(len(chunk) - installed)
+            stats = stub.GetStats(pb.StatsRequest(), timeout=10.0)
+            if stats.schedule_json:
+                self.backend.schedule_registry.merge_json(
+                    stats.schedule_json)
+        except grpc.RpcError as e:
+            log.warning("tune sync tick failed (%s); retrying next tick",
+                        e.code())
+        except Exception:
+            log.exception("tune sync tick failed; retrying next tick")
+
     def _poll(self, stub):
         """One ``RequestJobs``: the jobs (maybe none), or None on an RPC
-        error."""
+        error. It carries the schedule entries tuned since the last poll;
+        a failed poll marks them to be sent again."""
+        reg = getattr(self.backend, "schedule_registry", None)
+        schedule_json = reg.take_dirty_json() if reg is not None else ""
         req = pb.JobsRequest(
             worker_id=self.worker_id, chips=self.backend.chips,
             jobs_per_chip=self.jobs_per_chip, accepts_digest_only=True,
             accepts_scenario_batch=getattr(self.backend,
-                                           "accepts_scenario_batch", False))
+                                           "accepts_scenario_batch", False),
+            schedule_json=schedule_json)
         try:
             jobs = list(stub.RequestJobs(req, timeout=30.0).jobs)
         except grpc.RpcError as e:
             log.warning("RequestJobs failed: %s", e.code())
+            if schedule_json:
+                reg.remark_dirty(schedule_json)
             return None
         if jobs:
             log.info("received %d jobs", len(jobs))

@@ -86,9 +86,9 @@ def test_every_config_reports_a_positive_rate(result):
     assert configs["walkforward"] > 0.0
     assert configs["streaming_append"] > 0.0
     for name in ("ragged_paged", "scenario_sweep", "scenario_megakernel",
-                 "long_context"):
+                 "long_context", "autotune"):
         assert configs[name] > 0.0, name
-    assert len(FUSED_CONFIGS) + 7 == 21 == len(bench.CONFIGS)
+    assert len(FUSED_CONFIGS) + 8 == 22 == len(bench.CONFIGS)
 
 
 @pytest.mark.parametrize("wf_fused", ["0", "1"], ids=["generic", "fused"])

@@ -62,7 +62,8 @@ def test_every_module_imports_with_jax_blocked():
               "streaming.store", "rpc.page_pool", "scenarios",
               "scenarios.synth", "scenarios.threefry", "parallel.sharding",
               "parallel.timeshard", "parallel.multihost",
-              "rpc.slice_worker"):
+              "rpc.slice_worker", "obs", "obs.registry", "tune",
+              "tune.registry", "tune.autotune", "tune.compile_cache"):
         assert f"{dbxt.__name__}.{m}" in mods
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"

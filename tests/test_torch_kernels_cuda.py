@@ -1038,3 +1038,81 @@ def test_pairs_block_is_the_same_alone_and_stacked(cuda):
     alone = block(y[7:8], x[7:8])[:, 0]
     assert torch.equal(block(y, x)[:, 7], alone)
     assert torch.equal(block(ry, rx, lens)[:, 7], alone)
+
+
+# --- tuned CTA widths (tune/) ----------------------------------------------
+
+def _tile_sweeps():
+    """Each tile entry's public sweep on 3 x 300 bars and a grid of more
+    lanes than its widest tile, as (strategy, call(**kw) -> Metrics)."""
+    p = data.synthetic_ohlcv(6, 300, seed=12)
+    c, v = p.close[:3], p.volume[:3]
+    axes = {
+        "sma_crossover": dict(fast=np.arange(3, 33), slow=np.arange(40, 80)),
+        "bollinger": dict(window=np.arange(5, 65),
+                          k=np.linspace(0.5, 3.0, 20)),
+        "macd": dict(fast=np.arange(3, 13), slow=np.arange(20, 40, 2),
+                     signal=np.arange(3, 13)),
+        "trix": dict(span=np.arange(3, 53), signal=np.arange(2, 22)),
+        "obv_trend": dict(window=np.tile(np.arange(3, 103), 12)),
+        "pairs": dict(lookback=np.arange(10, 60, 2),
+                      z_entry=np.linspace(0.5, 3.0, 44)),
+    }
+    g = {s: {k: vv.numpy() for k, vv in sweep.product_grid(
+        **{a: np.float32(x) for a, x in ax.items()}).items()}
+        for s, ax in axes.items()}
+    return {
+        "sma_crossover": lambda **kw: fused.fused_sma_sweep(
+            c, g["sma_crossover"]["fast"], g["sma_crossover"]["slow"], **kw),
+        "bollinger": lambda **kw: fused.fused_bollinger_sweep(
+            c, g["bollinger"]["window"], g["bollinger"]["k"], **kw),
+        "macd": lambda **kw: fused.fused_macd_sweep(
+            c, g["macd"]["fast"], g["macd"]["slow"], g["macd"]["signal"],
+            **kw),
+        "trix": lambda **kw: fused.fused_trix_sweep(
+            c, g["trix"]["span"], g["trix"]["signal"], **kw),
+        "obv_trend": lambda **kw: fused.fused_obv_sweep(
+            c, v, g["obv_trend"]["window"], **kw),
+        "pairs": lambda **kw: fused.fused_pairs_sweep(
+            p.close[:3], p.close[3:], g["pairs"]["lookback"],
+            g["pairs"]["z_entry"], **kw),
+    }
+
+
+@pytest.mark.parametrize("cap", [128, 256, 512])
+@pytest.mark.parametrize("strategy", sorted(_tile_sweeps()))
+def test_tuned_width_gives_the_shipped_widths_bits(cuda, monkeypatch,
+                                                   strategy, cap):
+    # The sweep resolves the width once, inside the tuned schedule, and
+    # launches at min(shipped, cap); every block is the shipped width's.
+    monkeypatch.delenv("DBX_LANES_CAP", raising=False)
+    run = _tile_sweeps()[strategy]
+    widths = []
+    tiles = fused.window_tiles
+
+    def spy(lanes, *windows):
+        widths.append(lanes)
+        return tiles(lanes, *windows)
+
+    monkeypatch.setattr(fused, "window_tiles", spy)
+    want = torch.stack(list(run(cost=1e-3, device=cuda)))
+    with fused.tuned_schedule({"lanes_cap": str(cap)}):
+        got = torch.stack(list(run(cost=1e-3, device=cuda)))
+    shipped = fused.shipped_lanes(strategy)
+    assert widths == [shipped, min(shipped, cap)]
+    assert torch.equal(got, want)
+
+
+def test_autotune_measure_times_the_groups_sweep_on_the_card(cuda):
+    from distributed_backtesting_exploration_tpu_torch.rpc import compute
+
+    backend = compute.TorchSweepBackend(device=cuda)
+    close = torch.as_tensor(data.synthetic_ohlcv(8, 300, seed=4).close,
+                            device=cuda)
+    g = {k: v.numpy() for k, v in sweep.product_grid(
+        fast=np.float32(np.arange(3, 23)),
+        slow=np.float32(np.arange(30, 90))).items()}
+    measure = backend._autotune_measure(lambda: lambda: fused.fused_sma_sweep(
+        close, g["fast"], g["slow"], cost=1e-3, device=cuda))
+    for cap in ("0", "256", "512"):
+        assert measure({"lanes_cap": cap}) > 0.0
