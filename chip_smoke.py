@@ -202,9 +202,10 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    tolerances), ``correlation_matrix`` of the 500 tickers' returns
    against numpy's f64 at rtol=1e-4, atol=1e-4, and a ``SweepCheckpointer``
    round trip of the (500, 2000) sweep Metrics, bit-equal.
-7. Streaming (``streaming/``), at the widths of phase 4: (a) each of the
-   14 ``fused_*_sweep`` wrappers with ``carry_out=True`` on the bench's
-   500 x 1260 panel and grid (pairs 1000 x 1260, 500 combos), the launch
+7. Streaming (``streaming/``), at the widths of phase 4 and half its
+   tickers: (a) each of the 14 ``fused_*_sweep`` wrappers with
+   ``carry_out=True`` on ``synthetic_ohlcv(250, 1260, seed=0)`` and the
+   bench's grid (pairs 500 x 1260, 500 combos), the launch
    counts reset just before (every K1-K7 entry and the table kernels must
    launch): the kernel's metrics bit-equal to the same call without it,
    every carry tensor f32 on the card, and ``finalize(carry)`` against the
@@ -213,8 +214,8 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    lane whose turnover or hit rate differs is flipped; on the rest those
    and n_trades bit-equal, the other metrics at rtol=2e-5, atol=2e-6,
    pairs 5e-3, 5e-4, cagr within ``_cagr_slack``). (b) Per family, a
-   carry at 1260 bars plus one 16-bar append on ``synthetic_ohlcv(500,
-   1276, seed=0)`` (pairs: 1000 pairs) against the cold path: the carry
+   carry at 1260 bars plus one 16-bar append on ``synthetic_ohlcv(250,
+   1276, seed=0)`` (pairs: 500 pairs) against the cold path: the carry
    advanced by the cold build's positions and returns on the appended
    bars, flipped lanes those whose positions there differ, at most 1%;
    and against ``build_carry`` at 1276 under the same rule, the lanes
@@ -223,17 +224,17 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    with another hit rate counts as flipped, phase 4's pairs budget). sma
    also runs 16 one-bar appends against the 16-bar one, and sma, macd and
    rsi an append after a device-level eviction and a host restore,
-   bit-equal to the one never evicted. (c) 500 sma append jobs (one
+   bit-equal to the one never evicted. (c) 250 sma append jobs (one
    ticker, 1260 bars, 2000 combos) through ``TorchSweepBackend.process``:
-   round 1 repriced in full (500 counted), round 2 the next 16 bars as
-   delta-only jobs spliced onto the cached base (500 carry hits, no
+   round 1 repriced in full (250 counted), round 2 the next 16 bars as
+   delta-only jobs spliced onto the cached base (250 carry hits, no
    decode, blocks bit-equal to ``finalize(append_step(...))`` of the
    round-1 carries called directly), round 3 round 2 again (a retried
    delivery: nothing advanced, blocks bit-equal to round 2's), one carry
    a stream kept at the default 64 MB; three times, the median of each
    round printed; then a budget for half the carries: every job completes
    and its block is the append's or the full reprice's, the reprices
-   counted; 64 macd and 64 rsi jobs rounds 1 and 2 the same way. (d) The
+   counted; 32 macd and 32 rsi jobs rounds 1 and 2 the same way. (d) The
    port bench's ``streaming_append`` (T = 8192, ΔT = 16, P = 32), printed.
 8. Paged mode and scenario batches (``rpc/page_pool.py``,
    ``fused.fused_paged_sweep``, ``scenarios/``, ``fused.
@@ -294,7 +295,8 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    ``prefix_sum``, a one-shard mesh's EMA and ``band_hysteresis_assoc``;
    each of the 14 ``sharded_*_backtest`` on 4 x 8192 bars, one combo,
    against the generic sweep (rtol=2e-4, atol=2e-5; macd, trix and pairs
-   at most 2 series flipped, the rest at 2e-3/2e-4), both timed; the
+   at most 2 series flipped, the rest at 2e-3/2e-4), both timed (the
+   generic sweep once, the time-sharded one the median of 3); the
    reference bench's ``long_context`` (1 x 65537 bars, seed 7, P = 32)
    time-sharded, generic and on K1, timed and held to each other; one
    8201-bar momentum job through the mesh backend's time-sharded route
@@ -322,7 +324,38 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    ``_kernels._nvcc`` raising) the library loads from there and its
    kernel, on trix's main-path table, is bit-equal to ``trix_ema_table``;
    the cold and warm walls are printed.
-11. One JSON line with each kernel entry's (K8: each case's) launches,
+11. The dispatch loop (``rpc/dispatcher.py`` and what it imports): the
+   port's ``DispatcherServer`` on ``localhost:0`` with a journal and a
+   results directory, and one port ``Worker`` with ``TorchSweepBackend``
+   on the card (``jobs_per_chip=100``, polling every 5 ms), over
+   loopback gRPC, the launch counts reset before each part. (a) 500 sma
+   jobs of phase 4's panel and grid (explicit ids): every stored block
+   bit-equal to ``process`` of the same jobs called directly, K1
+   launched; the drain's wall, jobs/s, backtests/s, ``RequestJobs``
+   batches, the median ``dbx_rpc_seconds`` by method, the worker's
+   serialized wire bytes a job and the drain's attribution (enqueue,
+   the backend's ``process`` calls, each RPC's handler seconds) printed.
+   (b) The same panels again: 500 digest-only legs
+   (``dbx_dispatch_payloads_total{mode="digest_only"}``), blocks
+   bit-equal to (a)'s. (c) The same jobs with ``top_k=16`` under sharpe,
+   bit-equal to the direct ``process``. (a') 500 jobs like (a) on
+   another panel, drained under ``obs.trace.device_profile`` (CPU and
+   CUDA activities): the card's busy seconds, the union of the trace's
+   kernel, copy and set intervals, and their share of the drain's wall
+   printed; blocks bit-equal to the direct ``process``; the journal
+   replays to 2000 completed and none pending. (d) Eight sma streams built cold, then two
+   ``AppendBars`` rounds of 16 bars each (the first a full reprice, the
+   second a carry hit, counted): every block bit-equal to a fresh backend
+   given the worker's batches in the same order. (e) One base panel and
+   64 scenario specs with ``DBX_SCENARIO_FUSED=1`` (the worker's
+   spec-batch route; the panel store holds 1 panel) and ``=0`` (the
+   dispatcher materializes each panel on the card; 65 panels): the two
+   rungs' blocks bit-equal. (f) 500 jobs, the dispatcher stopped once it
+   has recorded its first ``CompleteJobs``, a new one on the same port
+   from ``JobQueue.restore`` of the journal: one block a job, bit-equal
+   to (a)'s, no job pending. The phase's wall is printed.
+12. Each phase's wall on one line, then one JSON line with each kernel
+   entry's (K8: each case's) launches,
    error, times, bound and library time (the tile entries also their
    width sweep, wrapper time, build report and SASS count; the table
    kernels each a record of their own; K1-K6 also their launches on the
@@ -331,8 +364,9 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    and every entry on phase 8's paged and scenario sweeps,
    ``paged_launches`` and ``scenario_launches``, each of them but K7's
    and its tables' launched there, and K1-K7's on phase 9 (a)'s mesh
-   route, ``mesh_launches``, and the tile entries' on phase 10 (a)'s tuned
-   batches, ``tune_launches``); then the JSON result line, last.
+   route, ``mesh_launches``, the tile entries' on phase 10 (a)'s tuned
+   batches, ``tune_launches``, and every entry's in phase 11,
+   ``dispatch_launches``); then the JSON result line, last.
 
 This script imports nothing of JAX and nothing of the JAX package.
 """
@@ -341,6 +375,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import functools
 import json
 import os
@@ -2990,7 +3025,10 @@ def phase_walkforward(kernels_mod, compute, wire, pb, data, sweep, models,
 # --- streaming: carry checkpoints, carry_out=True, append jobs ------------
 
 STREAM_DT = 16
-STREAM_JOBS, STREAM_EMA_JOBS = 500, 64
+# The phase's scale: half the bench's tickers, pairs and append jobs, so
+# that the whole script stays well inside its time limit.
+STREAM_TICKERS, STREAM_PAIRS = 250, 500
+STREAM_JOBS, STREAM_EMA_JOBS = 250, 32
 # tests/test_streaming.py's cold-versus-append tolerances (pairs: its pairs
 # budget) and the count metrics that are bit-equal where positions match.
 STREAM_TOL = {"pairs": (5e-3, 5e-4)}
@@ -3495,7 +3533,7 @@ def _stream_worker_path(compute, wire, pb, data, sweep, recurrent, store_mod,
 
 def phase_streaming(kernels_mod, compute, wire, pb, data, sweep, models,
                     fused, bench, panel_store, card: str, *, axes=AXES,
-                    n: int = N_TICKERS, n_pairs: int = N_PAIRS,
+                    n: int = STREAM_TICKERS, n_pairs: int = STREAM_PAIRS,
                     bars: int = N_BARS, n_jobs: int = STREAM_JOBS,
                     n_ema: int = STREAM_EMA_JOBS,
                     dev=torch.device("cuda")) -> dict:
@@ -4227,23 +4265,24 @@ def _phase9_timeshard(kernels_mod, compute, sharding, timeshard, fused, pb,
         want, gen_s = _median_timed(lambda: sweep.run_sweep(
             fields, models.get_strategy(strategy),
             {k: np.float32([v]) for k, v in params.items()}, cost=COST,
-            device=dev))
+            device=dev), reps=1)
         how = _ts_hold(f"multi-device (b) {strategy}", got, want,
                        strategy in TS_FLIP_AWARE)
         print(f"multi-device (b) {fn} 4 x {TS_BARS} bars {params}: vs the "
-              f"generic sweep {how}; time-sharded {ts_s:.4f} s, generic "
-              f"{gen_s:.4f} s ({card})")
+              f"generic sweep {how}; time-sharded {ts_s:.4f} s (median of "
+              f"3), generic {gen_s:.4f} s (one run) ({card})")
     legs = data.synthetic_ohlcv(8, TS_BARS, seed=9).close
     y, xl = (torch.as_tensor(a, device=dev) for a in (legs[:4], legs[4:]))
     got, ts_s = _median_timed(lambda: timeshard.sharded_pairs_backtest(
         four, y, xl, 20, 1.2, cost=COST))
     want, gen_s = _median_timed(lambda: pairs.run_pairs_sweep(
         y, xl, {"lookback": np.float32([20]), "z_entry": np.float32([1.2])},
-        cost=COST, device=dev))
+        cost=COST, device=dev), reps=1)
     how = _ts_hold("multi-device (b) pairs", got, want, True)
     print(f"multi-device (b) sharded_pairs_backtest 4 x {TS_BARS} bars "
           f"lookback 20 z_entry 1.2: vs the generic sweep {how}; "
-          f"time-sharded {ts_s:.4f} s, generic {gen_s:.4f} s ({card})")
+          f"time-sharded {ts_s:.4f} s (median of 3), generic {gen_s:.4f} s "
+          f"(one run) ({card})")
 
     # The reference bench's long_context three ways.
     lc = data.synthetic_ohlcv(1, LC_BARS, seed=7)
@@ -4643,6 +4682,477 @@ def phase_tune(kernels_mod, compute, fused, pb, data, card) -> dict:
     return launches
 
 
+# Phase 11: the dispatch loop. Phase 4's panel and grid as JobRecords with
+# explicit ids; the stream and scenario sizes of parts (d) and (e).
+LOOP_JOBS_PER_CHIP = 100
+LOOP_POLL_S = 0.005
+STREAMS, STREAM_ROUNDS = 8, 2
+LOOP_SCENARIOS = 64
+
+
+def _loop_records(dispatcher, data, panel, prefix: str, **kw) -> list:
+    grid = {"fast": FAST_AXIS, "slow": SLOW_AXIS}
+    return [dispatcher.JobRecord(
+        id=f"{prefix}-{i:04d}", strategy="sma_crossover", grid=grid,
+        cost=COST, ohlcv=data.to_wire_bytes(data.OHLCV(*(f[i]
+                                                         for f in panel))),
+        **kw) for i in range(panel.close.shape[0])]
+
+
+def _loop_specs(pb, wire, recs) -> list:
+    """The JobSpecs of ``recs`` as ``TorchSweepBackend.process`` takes
+    them directly."""
+    return [pb.JobSpec(id=r.id, strategy=r.strategy, ohlcv=r.ohlcv,
+                       grid=wire.grid_to_proto(r.grid), cost=r.cost,
+                       periods_per_year=252, top_k=r.top_k,
+                       rank_metric=r.rank_metric) for r in recs]
+
+
+def _loop_blocks(results_dir: str, recs) -> dict:
+    """The dispatcher's stored block of each of ``recs`` (every kind of
+    block is stored as ``<id>.dbxm``)."""
+    out = {}
+    for r in recs:
+        path = os.path.join(results_dir, f"{r.id}.dbxm")
+        _check(os.path.exists(path), f"dispatch loop: no block for {r.id}")
+        with open(path, "rb") as fh:
+            out[r.id] = fh.read()
+    return out
+
+
+def _hold_loop_blocks(label, got: dict, want: dict,
+                      against: str = "the direct backend") -> None:
+    """Every block of ``got`` bit-equal to ``want``'s block at the same
+    position (``want`` holds the same jobs in the same order)."""
+    _check(len(got) == len(want), f"{label}: {len(got)} blocks, "
+           f"{len(want)} wanted")
+    off = [g for (g, a), b in zip(got.items(), want.values()) if a != b]
+    _check(not off, f"{label}: {len(off)} blocks not bit-equal to "
+           f"{against} (first {off[:3]})")
+    print(f"{label}: {len(got)} blocks bit-equal to {against}")
+
+
+def _device_busy_s(trace_path: str) -> tuple:
+    """(seconds, events): the union of the card's kernel, copy and set
+    intervals in a ``torch.profiler`` Chrome trace, and how many there
+    were."""
+    with open(trace_path) as fh:
+        events = json.load(fh)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("ph") == "X" and e.get("cat") in
+                   ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e6, len(spans)
+
+
+def _rpc_medians(disp) -> dict:
+    return {m: h.summary().get("p50", 0.0)
+            for m, h in disp._h_rpc.items() if h.count}
+
+
+def _rpc_totals(disp) -> dict:
+    """Each RPC's handler calls and seconds in all (``dbx_rpc_seconds``)."""
+    return {m: [h.count, round(h.sum, 6)]
+            for m, h in disp._h_rpc.items() if h.count}
+
+
+def _timed_backend(compute):
+    """The port's backend, adding the seconds of each ``process`` call
+    (the serial executor's one call a batch) to ``process_s``."""
+    class Timed(compute.TorchSweepBackend):
+        process_s = 0.0
+
+        def process(self, jobs):
+            t0 = time.perf_counter()
+            try:
+                return super().process(jobs)
+            finally:
+                self.process_s += time.perf_counter() - t0
+
+    return Timed(device="cuda")
+
+
+def _loop_main(kernels_mod, compute, pb, wire, data, bench, journal_mod,
+               root, card) -> tuple:
+    """Parts (a), (b), (c) and (a'): one dispatcher and one worker, four
+    drains. Returns (the blocks of (a), K1's launches in the drains)."""
+    from distributed_backtesting_exploration_tpu_torch.obs import trace
+    from distributed_backtesting_exploration_tpu_torch.rpc import dispatcher
+
+    panel = data.synthetic_ohlcv(N_TICKERS, N_BARS, seed=7)
+    recs_a = _loop_records(dispatcher, data, panel, "a")
+    recs_b = _loop_records(dispatcher, data, panel, "b")
+    recs_c = _loop_records(dispatcher, data, panel, "c", top_k=TOP_K,
+                           rank_metric="sharpe")
+    recs_p = _loop_records(dispatcher, data,
+                           data.synthetic_ohlcv(N_TICKERS, N_BARS, seed=8),
+                           "p")
+    prof_dir = os.path.join(root, "profile")
+    n_combos = FAST_AXIS.size * SLOW_AXIS.size
+    jp = os.path.join(root, "a.jsonl")
+    res = os.path.join(root, "res-a")
+    launches = 0
+    backend = _timed_backend(compute)
+    with bench.DispatchLoop([backend],
+                            device="cuda", jobs_per_chip=LOOP_JOBS_PER_CHIP,
+                            poll_interval_s=LOOP_POLL_S, journal=jp,
+                            results_dir=res) as loop:
+        disp = loop.dispatcher
+        digest_only = disp._c_payloads["digest_only"]
+        kernels_mod.reset_launch_counts()
+        t0 = time.perf_counter()
+        loop.drain(recs_a)
+        wall_a = time.perf_counter() - t0
+        k1_a = kernels_mod.LAUNCHES["fused_sma"]
+        _check(k1_a > 0, "dispatch loop (a): fused_sma launched no time")
+        launches += k1_a
+        wire_a, batches_a = loop.wire_bytes(), loop.batches
+        rpc_a, totals_a = _rpc_medians(disp), _rpc_totals(disp)
+        enqueue_a, process_a = loop.enqueue_s, backend.process_s
+        d0 = digest_only.value
+        kernels_mod.reset_launch_counts()
+        t0 = time.perf_counter()
+        loop.drain(recs_b)
+        wall_b = time.perf_counter() - t0
+        launches += kernels_mod.LAUNCHES["fused_sma"]
+        d_only = int(digest_only.value - d0)
+        _check(d_only == len(recs_b), f"dispatch loop (b): {d_only} "
+               f"digest-only legs, {len(recs_b)} wanted")
+        kernels_mod.reset_launch_counts()
+        t0 = time.perf_counter()
+        loop.drain(recs_c)
+        wall_c = time.perf_counter() - t0
+        launches += kernels_mod.LAUNCHES["fused_sma"]
+        wire_all = loop.wire_bytes()
+        kernels_mod.reset_launch_counts()
+        with trace.device_profile(prof_dir):
+            t0 = time.perf_counter()
+            loop.drain(recs_p)
+            wall_p = time.perf_counter() - t0
+        launches += kernels_mod.LAUNCHES["fused_sma"]
+    busy_p, n_dev = _device_busy_s(os.path.join(prof_dir, "trace.json"))
+    print(f"dispatch loop (a): {len(recs_a)} sma jobs x {n_combos} combos x "
+          f"{N_BARS} bars through the port's dispatcher over loopback gRPC "
+          f"and one port worker (jobs_per_chip={LOOP_JOBS_PER_CHIP}, poll "
+          f"{LOOP_POLL_S} s): drain {wall_a:.4f} s, "
+          f"{len(recs_a) / wall_a:.1f} jobs/s, "
+          f"{len(recs_a) * n_combos / wall_a:.4e} backtests/s, "
+          f"{batches_a} RequestJobs batches, K1 launches {k1_a}, "
+          f"worker wire bytes a job {wire_a / len(recs_a):.1f} "
+          f"(RequestJobs + CompleteJobs + FetchPayload, serialized), "
+          f"median dbx_rpc_seconds by method {json.dumps(rpc_a)} "
+          f"[{card}]")
+    print(f"dispatch loop (a) attribution: enqueue (journal appends "
+          f"included) {enqueue_a:.4f} s, the backend's process calls "
+          f"{process_a:.4f} s, handler [calls, seconds] by RPC "
+          f"{json.dumps(totals_a)}, of a {wall_a:.4f} s drain")
+    print(f"dispatch loop (b): the same panels digest-only ({d_only} legs): "
+          f"drain {wall_b:.4f} s, {len(recs_b) / wall_b:.1f} jobs/s; "
+          f"(c) top-{TOP_K} by sharpe: drain {wall_c:.4f} s, "
+          f"{len(recs_c) / wall_c:.1f} jobs/s; worker wire bytes a job "
+          f"over (a)-(c) {wire_all / (3 * len(recs_a)):.1f} [{card}]")
+    if n_dev:
+        print(f"dispatch loop (a'): {len(recs_p)} jobs like (a) on another "
+              f"panel under torch.profiler: drain {wall_p:.4f} s, the card "
+              f"busy {busy_p:.6f} s in {n_dev} kernel, copy and set "
+              f"intervals (their union), {100 * busy_p / wall_p:.4f}% of "
+              f"the drain, idle {100 * (1 - busy_p / wall_p):.4f}% "
+              f"[{card}]")
+    else:
+        print(f"dispatch loop (a'): drain {wall_p:.4f} s under "
+              f"torch.profiler; the card's busy share not measured: the "
+              f"trace holds no device interval [{card}]")
+    st = journal_mod.Journal.replay(jp)
+    done = len(recs_a) + len(recs_b) + len(recs_c) + len(recs_p)
+    _check(len(st.completed) == done and not st.pending and not st.failed,
+           f"dispatch loop: the journal replays to {len(st.completed)} "
+           f"completed, {len(st.pending)} pending, {len(st.failed)} failed")
+    print(f"dispatch loop: journal replays to {len(st.completed)} completed,"
+          f" 0 pending")
+    direct = compute.TorchSweepBackend(device="cuda")
+    blocks_a = _loop_blocks(res, recs_a)
+    want_a = {c.job_id: c.metrics for c in
+              direct.process(_loop_specs(pb, wire, recs_a))}
+    _hold_loop_blocks("dispatch loop (a)", blocks_a, want_a)
+    _hold_loop_blocks("dispatch loop (b)", _loop_blocks(res, recs_b),
+                      blocks_a, "(a)'s")
+    want_c = {c.job_id: c.metrics for c in
+              direct.process(_loop_specs(pb, wire, recs_c))}
+    _hold_loop_blocks("dispatch loop (c)", _loop_blocks(res, recs_c), want_c)
+    want_p = {c.job_id: c.metrics for c in
+              direct.process(_loop_specs(pb, wire, recs_p))}
+    _hold_loop_blocks("dispatch loop (a')", _loop_blocks(res, recs_p),
+                      want_p)
+    return blocks_a, launches
+
+
+def _loop_streams(kernels_mod, compute, pb, wire, data, bench, service,
+                  root, card):
+    """Part (d): eight sma streams built cold through the loop, then
+    ``STREAM_ROUNDS`` AppendBars rounds of 16 bars each; every block
+    bit-equal to a fresh backend given the worker's batches in order."""
+    import grpc
+
+    from distributed_backtesting_exploration_tpu_torch.rpc import dispatcher
+
+    class Recording(compute.TorchSweepBackend):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.batches = []
+
+        def submit(self, jobs):
+            copies = []
+            for j in jobs:
+                c = pb.JobSpec()
+                c.CopyFrom(j)
+                copies.append(c)
+            self.batches.append(copies)
+            return super().submit(jobs)
+
+    full = data.synthetic_ohlcv(STREAMS, N_BARS + STREAM_ROUNDS * STREAM_DT,
+                                seed=17)
+    cold = _loop_records(dispatcher, data, data.OHLCV(
+        *(f[:, :N_BARS] for f in full)), "d")
+    backend = Recording(device="cuda")
+    res = os.path.join(root, "res-d")
+    tmpl = pb.JobSpec(strategy="sma_crossover",
+                      grid=wire.grid_to_proto({"fast": FAST_AXIS,
+                                               "slow": SLOW_AXIS}),
+                      cost=COST, periods_per_year=252)
+    kernels_mod.reset_launch_counts()
+    ids = [r.id for r in cold]
+    t0 = time.perf_counter()
+    with bench.DispatchLoop([backend], device="cuda",
+                            jobs_per_chip=LOOP_JOBS_PER_CHIP,
+                            poll_interval_s=LOOP_POLL_S,
+                            results_dir=res) as loop:
+        loop.drain(cold)
+        channel = grpc.insecure_channel(
+            f"localhost:{loop.server.port}",
+            options=service.default_channel_options())
+        stub = service.DispatcherStub(channel)
+        heads = {r.id: (r.panel_digest, N_BARS) for r in cold}
+        try:
+            for k in range(STREAM_ROUNDS):
+                lo = N_BARS + k * STREAM_DT
+                for i, r in enumerate(cold):
+                    dig, n = heads[r.id]
+                    delta = data.to_wire_bytes(data.OHLCV(
+                        *(f[i, lo:lo + STREAM_DT] for f in full)))
+                    reply = stub.AppendBars(pb.AppendRequest(
+                        worker_id="feed", panel_digest=dig, base_len=n,
+                        delta=delta, job=tmpl), timeout=30.0)
+                    _check(reply.ok, f"dispatch loop (d): AppendBars "
+                           f"refused: {reply.detail}")
+                    heads[r.id] = (reply.panel_digest, reply.new_len)
+                    ids.append(reply.job_id)
+                deadline = time.monotonic() + 300.0
+                while not loop.queue.drained:
+                    _check(time.monotonic() < deadline,
+                           f"dispatch loop (d): appends wedged "
+                           f"{loop.queue.stats()}")
+                    time.sleep(0.002)
+        finally:
+            channel.close()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels_mod.LAUNCHES)
+    got = {}
+    for jid in ids:
+        with open(os.path.join(res, f"{jid}.dbxm"), "rb") as fh:
+            got[jid] = fh.read()
+    fresh = compute.TorchSweepBackend(device="cuda")
+    want = {}
+    for batch in backend.batches:
+        want.update((c.job_id, c.metrics) for c in fresh.process(batch))
+    _check(set(want) == set(got), "dispatch loop (d): the worker's batches "
+           "are not the jobs that completed")
+    _hold_loop_blocks("dispatch loop (d)", got, {j: want[j] for j in got})
+    _check(backend.appends == fresh.appends, f"dispatch loop (d): append "
+           f"routes {backend.appends} against {fresh.appends} direct")
+    _check(backend.appends.get("carry_hit", 0) > 0,
+           f"dispatch loop (d): no carry hit ({backend.appends})")
+    print(f"dispatch loop (d): {STREAMS} sma streams cold, then "
+          f"{STREAM_ROUNDS} AppendBars rounds of {STREAM_DT} bars: "
+          f"{len(ids)} jobs in {wall:.4f} s, appends {backend.appends}, "
+          f"launches {launches} [{card}]")
+    return launches
+
+
+def _loop_scenarios(kernels_mod, compute, data, bench, root, card):
+    """Part (e): one base panel and ``LOOP_SCENARIOS`` specs, drained on
+    the worker's spec-batch route and on the materialized rung (the
+    dispatcher generates each panel on the card); the rungs' blocks
+    bit-equal, the panel store holding 1 and 1 + LOOP_SCENARIOS panels."""
+    from distributed_backtesting_exploration_tpu_torch.rpc import dispatcher
+
+    base_panel = data.synthetic_ohlcv(1, N_BARS, seed=920)
+    (base,) = _loop_records(dispatcher, data, base_panel, "e-base")
+    blocks, launches = {}, {}
+    for fused_on in ("1", "0"):
+        res = os.path.join(root, f"res-e{fused_on}")
+        with _env(DBX_SCENARIO_FUSED=fused_on):
+            kernels_mod.reset_launch_counts()
+            t0 = time.perf_counter()
+            with bench.DispatchLoop(
+                    [compute.TorchSweepBackend(device="cuda")],
+                    device="cuda", jobs_per_chip=LOOP_SCENARIOS + 1,
+                    poll_interval_s=LOOP_POLL_S, results_dir=res) as loop:
+                loop.drain([base])
+                _check(bool(base.panel_digest), "dispatch loop (e): the "
+                       "base job has no digest")
+                specs = [dataclasses.replace(r, id=f"e-{i:03d}")
+                         for i, r in enumerate(dispatcher.scenario_jobs(
+                             base.panel_digest, LOOP_SCENARIOS,
+                             "sma_crossover", base.grid, cost=COST,
+                             params=dict(SCENARIO_PARAMS, seed=0)))]
+                loop.drain(specs)
+                panels = loop.queue.panel_store.stats()["panels"]
+            wall = time.perf_counter() - t0
+        launches[fused_on] = dict(kernels_mod.LAUNCHES)
+        want = 1 if fused_on == "1" else 1 + LOOP_SCENARIOS
+        _check(panels == want, f"dispatch loop (e) DBX_SCENARIO_FUSED="
+               f"{fused_on}: the panel store holds {panels} panels, "
+               f"{want} wanted")
+        blocks[fused_on] = _loop_blocks(res, specs)
+        print(f"dispatch loop (e) DBX_SCENARIO_FUSED={fused_on}: "
+              f"{LOOP_SCENARIOS} specs in {wall:.4f} s, {panels} panels in "
+              f"the store, launches {launches[fused_on]} [{card}]")
+    _hold_loop_blocks("dispatch loop (e) materialized rung", blocks["0"],
+                      blocks["1"], "the spec-batch route's")
+    total = {}
+    for part in launches.values():
+        for k, v in part.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def _loop_restart(kernels_mod, compute, data, journal_mod, root, blocks_a,
+                  card) -> int:
+    """Part (f): a 500-job drain stopped once the dispatcher has recorded
+    its first CompleteJobs; a new dispatcher on the same port from
+    ``JobQueue.restore`` of the journal; every job one block, bit-equal to
+    (a)'s, and no job pending in the journal. Returns K1's launches."""
+    import threading
+
+    from distributed_backtesting_exploration_tpu_torch import obs
+    from distributed_backtesting_exploration_tpu_torch.rpc import dispatcher
+    from distributed_backtesting_exploration_tpu_torch.rpc.worker import (
+        Worker)
+
+    panel = data.synthetic_ohlcv(N_TICKERS, N_BARS, seed=7)
+    recs = _loop_records(dispatcher, data, panel, "f")
+    jp = os.path.join(root, "f.jsonl")
+    res = os.path.join(root, "res-f")
+
+    def serve(port: int, restore: bool):
+        q = dispatcher.JobQueue(journal_mod.Journal(jp), device="cuda")
+        n = q.restore(jp) if restore else 0
+        d = dispatcher.Dispatcher(
+            q, dispatcher.PeerRegistry(prune_window_s=30.0),
+            results_dir=res, registry=obs.Registry())
+        srv = dispatcher.DispatcherServer(d, bind=f"localhost:{port}",
+                                          prune_interval_s=0.5).start()
+        return q, srv, n
+
+    kernels_mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    q1, srv1, _ = serve(0, False)
+    port = srv1.port
+    q1.enqueue_many(recs)
+    w = Worker(f"localhost:{port}", compute.TorchSweepBackend(device="cuda"),
+               worker_id="restart", poll_interval_s=LOOP_POLL_S,
+               jobs_per_chip=LOOP_JOBS_PER_CHIP)
+    t = threading.Thread(target=w.run, daemon=True)
+    t.start()
+    srv2 = None
+    try:
+        deadline = time.monotonic() + 300.0
+        while q1.stats()["jobs_completed"] == 0:
+            _check(time.monotonic() < deadline, "dispatch loop (f): no "
+                   "completion before the stop")
+            time.sleep(0.001)
+        srv1.stop()
+        q1._journal.close()
+        done_before = q1.stats()["jobs_completed"]
+        q2, srv2, restored = serve(port, True)
+        deadline = time.monotonic() + 300.0
+        while not q2.drained:
+            _check(time.monotonic() < deadline, f"dispatch loop (f): the "
+                   f"restored drain wedged {q2.stats()}")
+            time.sleep(0.002)
+    finally:
+        w.stop()
+        t.join(timeout=60)
+        if srv2 is not None:
+            srv2.stop()
+            q2._journal.close()
+    wall = time.perf_counter() - t0
+    _check(not t.is_alive(), "dispatch loop (f): the worker did not stop")
+    files = sorted(os.listdir(res))
+    _check(files == sorted(f"{r.id}.dbxm" for r in recs), f"dispatch loop "
+           f"(f): {len(files)} blocks for {len(recs)} jobs")
+    got = _loop_blocks(res, recs)
+    _hold_loop_blocks("dispatch loop (f)", got,
+                      dict(zip(got, blocks_a.values())), "(a)'s")
+    st = journal_mod.Journal.replay(jp)
+    _check(not st.pending and st.completed == {r.id for r in recs},
+           f"dispatch loop (f): the journal replays to "
+           f"{len(st.completed)} completed, {len(st.pending)} pending")
+    k1 = kernels_mod.LAUNCHES["fused_sma"]
+    print(f"dispatch loop (f): stopped after {done_before} completions, "
+          f"{restored} jobs restored from the journal on port {port}, "
+          f"{len(recs)} blocks in {wall:.4f} s, K1 launches {k1} [{card}]")
+    return k1
+
+
+def phase_dispatch_loop(kernels_mod, compute, pb, wire, data, bench,
+                        card) -> dict:
+    """Phase 11, the dispatch loop on the card: (a)-(c) and (a') one
+    dispatcher and worker, (d) streams, (e) scenarios, (f) a restart. Returns every
+    entry's launches in the phase."""
+    from distributed_backtesting_exploration_tpu_torch.rpc import (
+        journal, service)
+
+    root = tempfile.mkdtemp(prefix="dbx-loop-")
+    t0 = time.perf_counter()
+    try:
+        blocks_a, k1_abc = _loop_main(kernels_mod, compute, pb, wire, data,
+                                      bench, journal, root, card)
+        t_abc = time.perf_counter()
+        streams = _loop_streams(kernels_mod, compute, pb, wire, data, bench,
+                                service, root, card)
+        t_d = time.perf_counter()
+        scen = _loop_scenarios(kernels_mod, compute, data, bench, root,
+                               card)
+        t_e = time.perf_counter()
+        k1_f = _loop_restart(kernels_mod, compute, data, journal, root,
+                             blocks_a, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    print(f"dispatch loop phase wall (s): {wall:.1f} ((a)-(c), (a') "
+          f"{t_abc - t0:.1f}, (d) {t_d - t_abc:.1f}, (e) {t_e - t_d:.1f}, "
+          f"(f) {time.perf_counter() - t_e:.1f})")
+    total = {"fused_sma": k1_abc + k1_f}
+    for part in (streams, scen):
+        for k, v in part.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def _phase_wall(walls: dict, name: str, fn, *args):
+    """``fn(*args)``, its wall seconds kept in ``walls[name]``."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        walls[name] = round(time.perf_counter() - t0, 1)
+
+
 def main() -> None:
     card = phase_card()
     from distributed_backtesting_exploration_tpu_torch import bench, models
@@ -4653,36 +5163,39 @@ def main() -> None:
         backtesting_pb2 as pb, compute, executor, panel_store, wire)
     from distributed_backtesting_exploration_tpu_torch.utils import data
 
-    phase_build(_kernels)
-    k1 = phase_kernels(_kernels, fused, pnl, data)
-    new = phase_new_kernels(fused, pnl, data)
-    new.update(phase_tables(fused, data))
-    k8 = phase_stages(_kernels, stages, bench, data)
-    launches = phase_main_path(_kernels, compute, wire, pb, data, sweep,
-                               models, fused)
+    walls: dict = {}
+    timed = functools.partial(_phase_wall, walls)
+    timed("build", phase_build, _kernels)
+    k1 = timed("kernels", phase_kernels, _kernels, fused, pnl, data)
+    new = timed("new_kernels", phase_new_kernels, fused, pnl, data)
+    new.update(timed("tables", phase_tables, fused, data))
+    k8 = timed("stages", phase_stages, _kernels, stages, bench, data)
+    launches = timed("main_path", phase_main_path, _kernels, compute, wire,
+                     pb, data, sweep, models, fused)
     k1["launches"] = launches.get("fused_sma", 0)
-    new_launches = phase_new_main_paths(_kernels, compute, wire, pb, data,
-                                        sweep, models, fused)
+    new_launches = timed("new_main_paths", phase_new_main_paths, _kernels,
+                         compute, wire, pb, data, sweep, models, fused)
     for entry, rec in new.items():
         rec["launches"] = new_launches.get(entry, 0)
         _check(rec["launches"] > 0, f"{entry} launched no time on the main "
                "paths")
-    phase_bench(_kernels, bench, k8)
-    phase_worker_path(_kernels, compute, executor, wire, pb, data, sweep,
-                      models, fused, pnl, panel_store)
-    wf = phase_walkforward(_kernels, compute, wire, pb, data, sweep, models,
-                           fused, bench, card)
+    timed("bench", phase_bench, _kernels, bench, k8)
+    timed("worker_path", phase_worker_path, _kernels, compute, executor,
+          wire, pb, data, sweep, models, fused, pnl, panel_store)
+    wf = timed("walkforward", phase_walkforward, _kernels, compute, wire, pb,
+               data, sweep, models, fused, bench, card)
     k1["walkforward_launches"] = wf.get("fused_sma", 0)
     for entry, rec in new.items():
         rec["walkforward_launches"] = wf.get(entry, 0)
-    stream = phase_streaming(_kernels, compute, wire, pb, data, sweep,
-                             models, fused, bench, panel_store, card)
+    stream = timed("streaming", phase_streaming, _kernels, compute, wire,
+                   pb, data, sweep, models, fused, bench, panel_store, card)
     for rec in (k1, *new.values()):
         rec["streaming_launches"] = stream.get(rec["name"], 0)
         _check(rec["streaming_launches"] > 0, f"{rec['name']} launched no "
                "time on the streaming phase's carry_out calls")
-    paged, scen = phase_paged_scenarios(_kernels, compute, fused, pnl, pb,
-                                        data, bench, panel_store, wire, card)
+    paged, scen = timed("paged_scenarios", phase_paged_scenarios, _kernels,
+                        compute, fused, pnl, pb, data, bench, panel_store,
+                        wire, card)
     for rec in (k1, *new.values(), *k8):
         rec["paged_launches"] = paged.get(rec["name"], 0)
         rec["scenario_launches"] = scen.get(rec["name"], 0)
@@ -4691,14 +5204,23 @@ def main() -> None:
             _check(rec["paged_launches"] > 0 and rec["scenario_launches"] > 0,
                    f"{rec['name']} launched no time on the paged or the "
                    "scenario sweeps")
-    mesh = phase_multi_device(_kernels, compute, fused, pb, data, card)
+    mesh = timed("multi_device", phase_multi_device, _kernels, compute,
+                 fused, pb, data, card)
     for rec in (k1, *new.values()):
         rec["mesh_launches"] = mesh.get(rec["name"], 0)
         _check(rec["mesh_launches"] > 0, f"{rec['name']} launched no time on "
                "the mesh route")
-    tuned = phase_tune(_kernels, compute, fused, pb, data, card)
+    tuned = timed("tune", phase_tune, _kernels, compute, fused, pb, data,
+                  card)
     for rec in (k1, *new.values()):
         rec["tune_launches"] = tuned.get(rec["name"], 0)
+    loop = timed("dispatch_loop", phase_dispatch_loop, _kernels, compute,
+                 pb, wire, data, bench, card)
+    for rec in (k1, *new.values(), *k8):
+        rec["dispatch_launches"] = loop.get(rec["name"], 0)
+    _check(k1["dispatch_launches"] > 0, "fused_sma launched no time in the "
+           "dispatch loop")
+    print(f"phase walls (s): {json.dumps(walls)}")
     print(json.dumps({"kernels": [k1, *new.values(), *k8]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

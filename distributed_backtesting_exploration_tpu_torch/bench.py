@@ -55,15 +55,23 @@ build wall of a second worker: ``AUTOTUNE_LIB`` (``fused_sma``) built by
 ``nvcc`` into an empty directory (cold) against installed from a
 ``tune.CompileStore`` that the first worker offered it to and loaded
 (fleet-warm). The offer and the fetch go in-process through the store,
-not over the dispatcher's RPCs: the card's machine has no JAX to run a
-dispatcher. Half (b) needs ``nvcc`` and does not run on the CPU. Part
-(c), ``width_by_rows``: the six tile families (K1, K2 inline, K4, K5, K6,
+not over the dispatcher's RPCs. Half (b) needs ``nvcc`` and does not run
+on the CPU. Part (c), ``width_by_rows``: the six tile families (K1, K2 inline, K4, K5, K6,
 K7) on the first 8, 32 and 128 rows of the bench panel and on all of it,
 at the shipped CTA width and each narrower width of the ladder, in
 interleaved rounds: the wall of a sweep (CUDA events around back-to-back
 runs) and the device time of its tile kernel (``torch.profiler``), so
-whether a narrower tile pays where few rows leave SMs idle. It prints one
-JSON line to
+whether a narrower tile pays where few rows leave SMs idle. Then the
+reference's dispatch-loop configs, through the port's dispatcher
+(:class:`DispatchLoop`, loopback gRPC): ``e2e``, backtests/s of
+``DBX_BENCH_TICKERS`` sma jobs a drain on a 20 x ``DBX_BENCH_PARAMS // 20``
+grid through one port worker (``jobs_per_chip=100``, polling every 5 ms),
+and ``e2e_topk``, the same with ``top_k=16``; ``e2e_local``, the control
+plane alone: port workers with ``compute.InstantBackend``, jobs/s and wire
+bytes a job at each count of ``DBX_BENCH_LOCAL_WORKERS`` (1,2,4) over
+``DBX_BENCH_LOCAL_JOBS`` (1500) jobs, and dispatch by digest on and off
+over jobs sharing one ``DBX_BENCH_DEDUPE_BARS``-bar panel (4096). It prints
+one JSON line to
 stdout with the reference's top-level keys:
 
     {"metric": ..., "value": N, "unit": "backtests/sec", "vs_baseline": N,
@@ -111,6 +119,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 from typing import Callable, NamedTuple
@@ -173,7 +182,11 @@ FUSED = {
 # the fused sweeps.
 CONFIGS = ("sma_fused", "roofline_stages", *list(FUSED)[1:], "walkforward",
            "streaming_append", "ragged_paged", "scenario_sweep",
-           "scenario_megakernel", "long_context", "autotune")
+           "scenario_megakernel", "long_context", "autotune", "e2e",
+           "e2e_topk", "e2e_local")
+# The worker RPCs whose serialized request and reply bytes count as its
+# wire bytes (the reference's dbx_worker_wire_bytes_total methods).
+WIRE_METHODS = ("RequestJobs", "CompleteJobs", "FetchPayload")
 # The reference bench's autotune families, as bench configs.
 AUTOTUNE_CONFIGS = ("sma_fused", "bollinger_fused", "momentum_fused",
                     "stochastic_fused", "obv_fused")
@@ -213,6 +226,9 @@ class Settings(NamedTuple):
     megakernel_k: int = 48
     lc_bars: int = 65537
     lc_shards: int = 0          # long_context's shards of the one device
+    local_jobs: int = 1500
+    local_workers: tuple = (1, 2, 4)
+    dedupe_bars: int = 4096
 
 
 def settings_from_env(env) -> Settings:
@@ -234,7 +250,11 @@ def settings_from_env(env) -> Settings:
         megakernel_bars=int(env.get("DBX_BENCH_MEGAKERNEL_BARS", 512)),
         megakernel_k=max(int(env.get("DBX_BENCH_MEGAKERNEL_K", 48)), 4),
         lc_bars=int(env.get("DBX_BENCH_LC_BARS", 65537)),
-        lc_shards=int(env.get("DBX_BENCH_LC_SHARDS", 0)))
+        lc_shards=int(env.get("DBX_BENCH_LC_SHARDS", 0)),
+        local_jobs=int(env.get("DBX_BENCH_LOCAL_JOBS", 1500)),
+        local_workers=tuple(int(x) for x in env.get(
+            "DBX_BENCH_LOCAL_WORKERS", "1,2,4").split(",")),
+        dedupe_bars=int(env.get("DBX_BENCH_DEDUPE_BARS", 4096)))
 
 
 def device_info(dev: torch.device) -> dict:
@@ -973,8 +993,252 @@ class _Bench:
                 "fleet_entries_offered": len(offers),
                 "fleet_entries_installed": installed,
                 "fleet_store_bytes": store.stats()["bytes"],
-                "compile_exchange": "in-process through tune.CompileStore "
-                                    "(no dispatcher on the card's machine)"}
+                "compile_exchange": "in-process through tune.CompileStore"}
+
+    # --- the dispatch loop ------------------------------------------------
+
+    def e2e(self, name: str, *, top_k: int = 0) -> None:
+        """The reference's ``e2e`` (and ``e2e_topk``, ``top_k=16``):
+        backtests/s through the port's dispatcher and one port worker over
+        loopback gRPC, inline DBX1 payloads, the worker's decode, RPCs and
+        result packing included. ``DBX_BENCH_TICKERS`` jobs a drain on the
+        grid fast 5..24 x ``DBX_BENCH_PARAMS // 20`` slows from 30 step 2;
+        one drain to warm up, then ``max(DBX_BENCH_ITERS // 3, 2)`` timed
+        drains."""
+        from .rpc import dispatcher
+
+        s = self.s
+        n_jobs = s.n_tickers
+        grid = {"fast": np.arange(5, 25, dtype=np.float32),
+                "slow": np.arange(30, 30 + 2 * max(s.n_params // 20, 1), 2,
+                                  dtype=np.float32)}
+        combos = int(np.prod([v.size for v in grid.values()]))
+        kw = dict(top_k=top_k, rank_metric="sharpe") if top_k else {}
+
+        def recs(seed):
+            return dispatcher.synthetic_jobs(n_jobs, s.n_bars,
+                                             "sma_crossover", grid,
+                                             cost=COST, seed=seed, **kw)
+
+        iters = max(s.iters // 3, 2)
+        with DispatchLoop([compute.TorchSweepBackend(device=self.dev)],
+                          device=str(self.dev), jobs_per_chip=100,
+                          poll_interval_s=0.005) as loop:
+            t0 = time.perf_counter()
+            loop.drain(recs(100))
+            warm_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            for i in range(iters):
+                loop.drain(recs(101 + i))
+            elapsed = time.perf_counter() - t0
+        rate = n_jobs * combos * iters / elapsed
+        print(f"bench[{name}]: warmup {warm_s:.1f}s, {iters}x "
+              f"{n_jobs * combos} backtests through the dispatch loop in "
+              f"{elapsed:.3f}s -> {rate / 1e6:.2f}M/s", file=sys.stderr)
+        self.rates[name] = rate
+
+    def e2e_local(self) -> None:
+        """The reference's ``e2e_local``: the control plane alone. N port
+        workers with ``compute.InstantBackend`` drain small inline jobs
+        (32 bars, 4 combos) over loopback gRPC, jobs/s and wire bytes a job
+        for each worker count of ``DBX_BENCH_LOCAL_WORKERS`` (1,2,4); then
+        the dispatch-by-digest A/B on ``DBX_BENCH_LOCAL_JOBS // 2`` jobs
+        sharing one ``DBX_BENCH_DEDUPE_BARS``-bar panel, dedupe on and
+        off."""
+        from .rpc import dispatcher
+
+        s = self.s
+        lgrid = {"fast": np.arange(5.0, 9.0, dtype=np.float32)}
+
+        def synthetic(n, seed):
+            return dispatcher.synthetic_jobs(n, 32, "sma_crossover", lgrid,
+                                             seed=seed)
+
+        def run_local(n_workers, n_jobs, job_recs, name, dedupe=True):
+            with DispatchLoop([compute.InstantBackend()
+                               for _ in range(n_workers)],
+                              device=str(self.dev), jobs_per_chip=32,
+                              poll_interval_s=0.001,
+                              panel_dedupe=dedupe) as loop:
+                loop.drain(job_recs(max(n_jobs // 4, 64), 300))
+                wire0 = loop.wire_bytes()
+                t0 = time.perf_counter()
+                loop.drain(job_recs(n_jobs, 301))
+                elapsed = time.perf_counter() - t0
+                wire = (loop.wire_bytes() - wire0) / n_jobs
+                substrate = loop.queue.substrate
+            rate = n_jobs / elapsed
+            print(f"bench[{name}]: {n_jobs} instant jobs, {n_workers} "
+                  f"worker(s), substrate={substrate}, dedupe="
+                  f"{'on' if dedupe else 'off'} -> {rate:.0f} jobs/s, "
+                  f"{wire:.0f} wire B/job", file=sys.stderr)
+            self.rates[name] = rate
+            return rate, wire
+
+        wire_cols = {}
+        for n_workers in s.local_workers:
+            _, wb = run_local(n_workers, s.local_jobs, synthetic,
+                              f"e2e_local_w{n_workers}")
+            wire_cols[f"w{n_workers}"] = wb
+        series = data.synthetic_ohlcv(1, s.dedupe_bars, seed=500)
+        blob = data.to_wire_bytes(data.OHLCV(*(np.asarray(f[0])
+                                               for f in series)))
+        n_dd = max(s.local_jobs // 2, 48)
+
+        def shared(n, seed):
+            return [dispatcher.JobRecord(
+                id=f"dd-{seed}-{i}", strategy="sma_crossover", grid=lgrid,
+                ohlcv=blob) for i in range(n)]
+
+        r_on, wb_on = run_local(1, n_dd, shared, "e2e_local_dedupe_on")
+        r_off, wb_off = run_local(1, n_dd, shared, "e2e_local_dedupe_off",
+                                  dedupe=False)
+        self.roofline["e2e_local"] = {
+            "wire_bytes_per_job": wire_cols,
+            "dedupe": {
+                "panel_bytes": len(blob), "jobs": n_dd,
+                "jobs_per_s_on": r_on, "jobs_per_s_off": r_off,
+                "dedupe_speedup": r_on / max(r_off, 1e-9),
+                "wire_bytes_per_job_on": wb_on,
+                "wire_bytes_per_job_off": wb_off,
+                "wire_reduction": wb_off / max(wb_on, 1e-9)}}
+
+
+class _CountingChannel:
+    """A worker's gRPC channel that counts into ``loop`` the serialized
+    bytes of its ``WIRE_METHODS`` requests and replies, and the
+    ``RequestJobs`` replies that carried jobs. It wraps each method's
+    serializers, so it measures the bytes that serialization makes
+    anyway; every other attribute is the channel's own."""
+
+    def __init__(self, channel, loop: "DispatchLoop"):
+        self._channel = channel
+        self._loop = loop
+
+    def __getattr__(self, name):
+        return getattr(self._channel, name)
+
+    def unary_unary(self, method, request_serializer=None,
+                    response_deserializer=None, **kw):
+        name = method.rsplit("/", 1)[-1]
+        if name in WIRE_METHODS:
+            count = self._loop._count
+
+            def serialize(msg, _ser=request_serializer):
+                b = _ser(msg)
+                count(name, len(b))
+                return b
+
+            def deserialize(b, _de=response_deserializer):
+                rep = _de(b)
+                count(name, len(b),
+                      batch=name == "RequestJobs" and len(rep.jobs) > 0)
+                return rep
+
+            request_serializer = serialize
+            response_deserializer = deserialize
+        return self._channel.unary_unary(
+            method, request_serializer=request_serializer,
+            response_deserializer=response_deserializer, **kw)
+
+
+class DispatchLoop:
+    """The port's dispatcher on ``localhost:0`` and one port worker a
+    backend, each polling from its own thread; a context manager.
+
+    :meth:`drain` enqueues records and waits until the queue has no job
+    pending or leased; :meth:`wire_bytes` is the serialized bytes of the
+    workers' ``WIRE_METHODS`` requests and replies so far, and ``batches``
+    the ``RequestJobs`` replies that carried jobs, both counted on the
+    workers' own channels (:class:`_CountingChannel`; the port's worker
+    keeps no such counter).
+    """
+
+    def __init__(self, backends, *, device: str, jobs_per_chip: int,
+                 poll_interval_s: float, panel_dedupe: bool = True,
+                 journal: str | None = None, results_dir: str | None = None,
+                 timeout_s: float = 600.0):
+        self.backends = backends
+        self.device = device
+        self.jobs_per_chip = jobs_per_chip
+        self.poll_interval_s = poll_interval_s
+        self.panel_dedupe = panel_dedupe
+        self.journal = journal
+        self.results_dir = results_dir
+        self.timeout_s = timeout_s
+        self._bytes = {m: 0 for m in WIRE_METHODS}
+        self.batches = 0
+        self._lock = threading.Lock()
+
+    def _count(self, method: str, n_bytes: int, batch: bool = False) -> None:
+        with self._lock:
+            self._bytes[method] += n_bytes
+            self.batches += batch
+
+    def wire_bytes(self, method: str | None = None) -> int:
+        with self._lock:
+            return (self._bytes[method] if method
+                    else sum(self._bytes.values()))
+
+    def __enter__(self) -> "DispatchLoop":
+        from . import obs
+        from .rpc import dispatcher, journal
+        from .rpc.worker import Worker
+
+        self._tmp = None
+        if self.results_dir is None:
+            self._tmp = tempfile.mkdtemp(prefix="dbx-e2e-")
+            self.results_dir = self._tmp
+        self.queue = dispatcher.JobQueue(journal.Journal(self.journal),
+                                         device=self.device)
+        self.dispatcher = dispatcher.Dispatcher(
+            self.queue, dispatcher.PeerRegistry(prune_window_s=30.0),
+            results_dir=self.results_dir, registry=obs.Registry(),
+            panel_dedupe=self.panel_dedupe)
+        self.server = dispatcher.DispatcherServer(
+            self.dispatcher, bind="localhost:0",
+            prune_interval_s=0.5).start()
+        loop = self
+
+        class CountedWorker(Worker):
+            def _channel(self):
+                return _CountingChannel(super()._channel(), loop)
+
+        self.workers = [CountedWorker(f"localhost:{self.server.port}", b,
+                               worker_id=f"loop-{i}",
+                               poll_interval_s=self.poll_interval_s,
+                               status_interval_s=0.5,
+                               jobs_per_chip=self.jobs_per_chip)
+                        for i, b in enumerate(self.backends)]
+        self.threads = [threading.Thread(target=w.run, daemon=True)
+                        for w in self.workers]
+        for t in self.threads:
+            t.start()
+        return self
+
+    def drain(self, recs) -> None:
+        """Enqueue ``recs`` (``enqueue_s`` keeps the seconds that took,
+        journal appends included) and wait for the queue to drain."""
+        t0 = time.perf_counter()
+        self.queue.enqueue_many(list(recs))
+        self.enqueue_s = time.perf_counter() - t0
+        deadline = time.monotonic() + self.timeout_s
+        while not self.queue.drained:
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"dispatch loop drain wedged for "
+                                   f"{self.timeout_s:.0f} s: "
+                                   f"{self.queue.stats()}")
+            time.sleep(0.002)
+
+    def __exit__(self, *exc) -> None:
+        for w in self.workers:
+            w.stop()
+        for t in self.threads:
+            t.join(timeout=60)
+        self.server.stop()
+        self.queue._journal.close()
+        if self._tmp is not None:
+            shutil.rmtree(self._tmp, ignore_errors=True)
 
 
 def run(s: Settings) -> dict:
@@ -992,8 +1256,11 @@ def run(s: Settings) -> dict:
         elif name == "walkforward":
             b.walkforward()
         elif name in ("streaming_append", "ragged_paged", "scenario_sweep",
-                      "scenario_megakernel", "long_context", "autotune"):
+                      "scenario_megakernel", "long_context", "autotune",
+                      "e2e_local"):
             getattr(b, name)()
+        elif name in ("e2e", "e2e_topk"):
+            b.e2e(name, top_k=16 if name == "e2e_topk" else 0)
         else:
             b.fused_config(name)
     if not b.rates:

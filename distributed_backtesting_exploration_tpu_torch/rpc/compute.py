@@ -1758,3 +1758,24 @@ class TorchSweepBackend:
             for lb, ze, z in zip(g["lookback"], g["z_entry"], zx)]
         m = Metrics(*(torch.stack(cols, dim=-1) for cols in zip(*ms)))
         return self._finish_group(jobs + bad, m, t0, len(jobs), job0)
+
+
+class InstantBackend:
+    """Completes every job at once with an empty metric block (the
+    reference's ``InstantBackend``): the control plane alone, for the
+    bench's ``e2e_local`` key and the dispatcher tests."""
+
+    chips = 1
+
+    def __init__(self):
+        self.seen: list[str] = []
+
+    def process(self, jobs) -> list[Completion]:
+        empty = wire.metrics_to_bytes(
+            Metrics(*(np.zeros(1, np.float32) for _ in Metrics._fields)))
+        out = []
+        for job in jobs:
+            self.seen.append(job.id)
+            out.append(Completion(job.id, empty, 0.0,
+                                  trace_id=job.trace_id))
+        return out

@@ -95,13 +95,17 @@ class Worker:
     def stop(self) -> None:
         self._stop.set()
 
+    def _channel(self) -> grpc.Channel:
+        """The channel :meth:`run` opens to the dispatcher."""
+        return grpc.insecure_channel(
+            self.target, options=service.default_channel_options(),
+            compression=grpc.Compression.Gzip)
+
     def run(self, *, max_idle_polls: int | None = None) -> None:
         """Run until stopped, or until ``max_idle_polls`` consecutive empty
         polls with nothing in flight once at least one job was seen; then
         drain what was taken."""
-        channel = grpc.insecure_channel(
-            self.target, options=service.default_channel_options(),
-            compression=grpc.Compression.Gzip)
+        channel = self._channel()
         stub = service.DispatcherStub(channel)
         fetches = hasattr(self.backend, "payload_fetcher")
         if fetches:

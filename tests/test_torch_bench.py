@@ -42,7 +42,8 @@ TINY = {k: v for k, v in REF["_TINY_ENV"].items()
 TINY.update(DBX_BENCH_RAGGED_TICKERS="16", DBX_BENCH_SCENARIO_BARS="96",
             DBX_BENCH_SCENARIO_N="3", DBX_BENCH_MEGAKERNEL_BARS="64",
             DBX_BENCH_MEGAKERNEL_K="4", DBX_BENCH_LC_BARS="301",
-            DBX_BENCH_LC_SHARDS="4")
+            DBX_BENCH_LC_SHARDS="4", DBX_BENCH_LOCAL_JOBS="64",
+            DBX_BENCH_LOCAL_WORKERS="1,2", DBX_BENCH_DEDUPE_BARS="64")
 FUSED_CONFIGS = ("sma_fused", "bollinger_fused", "bollinger_touch_fused",
                  "momentum_fused", "donchian_fused", "donchian_hl_fused",
                  "vwap_fused", "keltner_fused", "stochastic_fused",
@@ -88,7 +89,13 @@ def test_every_config_reports_a_positive_rate(result):
     for name in ("ragged_paged", "scenario_sweep", "scenario_megakernel",
                  "long_context", "autotune"):
         assert configs[name] > 0.0, name
-    assert len(FUSED_CONFIGS) + 8 == 22 == len(bench.CONFIGS)
+    # The dispatch loop's configs, through the port's dispatcher.
+    for name in ("e2e", "e2e_topk", "e2e_local_w1", "e2e_local_w2",
+                 "e2e_local_dedupe_on", "e2e_local_dedupe_off"):
+        assert configs[name] > 0.0, name
+    dedupe = result["roofline"]["e2e_local"]["dedupe"]
+    assert dedupe["wire_bytes_per_job_on"] < dedupe["wire_bytes_per_job_off"]
+    assert len(FUSED_CONFIGS) + 11 == 25 == len(bench.CONFIGS)
 
 
 @pytest.mark.parametrize("wf_fused", ["0", "1"], ids=["generic", "fused"])
@@ -132,8 +139,9 @@ def test_streaming_append_keys_are_the_references():
 
 
 def test_paged_and_scenario_keys_are_the_references(result):
-    # The reference bench's keys of the three configs (its dispatcher's
-    # e2e and panel-store keys aside: the port has no dispatcher).
+    # The reference bench's keys of the three configs (apart from the
+    # panel-store curve that its scenario config reads off a dispatcher's
+    # queue; the port's e2e configs are tested above).
     rp = result["roofline"]["ragged_paged"]
     for key in ("tickers", "t_max", "t_min", "total_bars", "uniform_bars",
                 "combos", "page_bars", "paged_s_per_sweep",
@@ -299,7 +307,8 @@ def test_without_the_cpu_request_the_bench_needs_a_card():
 
 
 def test_unknown_configs_stop_the_bench():
-    s = bench.settings_from_env({**TINY, "DBX_BENCH_CONFIGS": "e2e"})
+    s = bench.settings_from_env({**TINY,
+                                 "DBX_BENCH_CONFIGS": "direct_dispatch"})
     with pytest.raises(SystemExit, match="no configs ran"):
         bench.run(s)
 
@@ -320,3 +329,37 @@ def test_long_context_runs_time_sharded_on_a_mesh_and_generic_without():
         assert out["configs"]["long_context"] > 0.0
         assert out["roofline"]["long_context"]["route"] == route
         assert out["roofline"]["long_context"]["combos"] == 32
+
+
+def test_dispatch_loop_counts_only_its_workers_wire_bytes():
+    """The loop counts its workers' serialized request and reply bytes on
+    their own channels: the module's stub stays the service's, and a stub
+    that another caller opens meanwhile is not counted."""
+    import grpc
+
+    from distributed_backtesting_exploration_tpu_torch.rpc import (
+        backtesting_pb2 as pb, compute, dispatcher, panel_store, service)
+
+    stub_cls = service.DispatcherStub
+    recs = dispatcher.synthetic_jobs(
+        12, 32, "sma_crossover",
+        {"fast": np.arange(5.0, 9.0, dtype=np.float32)}, seed=3)
+    with bench.DispatchLoop([compute.InstantBackend()], device="cpu",
+                            jobs_per_chip=4, poll_interval_s=0.001) as loop:
+        assert service.DispatcherStub is stub_cls
+        loop.drain(recs)
+        # Every job's panel went out inline, at most 4 to a batch.
+        assert loop.wire_bytes("RequestJobs") > sum(len(r.ohlcv)
+                                                    for r in recs)
+        assert loop.wire_bytes("CompleteJobs") > 0
+        assert loop.batches >= 3
+        # The instant backend never fetches a payload; an outsider's
+        # fetch on a stub of its own stays out of the count.
+        assert loop.wire_bytes("FetchPayload") == 0
+        digest = panel_store.panel_digest(recs[0].ohlcv)
+        with grpc.insecure_channel(f"localhost:{loop.server.port}") as ch:
+            rep = service.DispatcherStub(ch).FetchPayload(
+                pb.PayloadRequest(worker_id="outsider", digest=digest))
+        assert rep.payload == recs[0].ohlcv
+        assert loop.wire_bytes("FetchPayload") == 0
+    assert service.DispatcherStub is stub_cls

@@ -63,7 +63,14 @@ def test_every_module_imports_with_jax_blocked():
               "scenarios.synth", "scenarios.threefry", "parallel.sharding",
               "parallel.timeshard", "parallel.multihost",
               "rpc.slice_worker", "obs", "obs.registry", "tune",
-              "tune.registry", "tune.autotune", "tune.compile_cache"):
+              "tune.registry", "tune.autotune", "tune.compile_cache",
+              "sched", "sched.tenancy", "sched.explain", "sched.wfq",
+              "sched.placement", "obs.events", "obs.trace", "obs.http",
+              "obs.timeline", "obs.flight", "obs.costmodel", "obs.fleet",
+              "obs.decisions", "streaming.delta", "serve", "serve.registry",
+              "analysis", "analysis.lockdep", "runtime", "runtime._core",
+              "rpc.journal", "rpc.panel_store", "rpc.service",
+              "rpc.dispatcher"):
         assert f"{dbxt.__name__}.{m}" in mods
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
@@ -145,6 +152,17 @@ def test_make_mesh_needs_cuda_and_never_meshes_the_cpu_unasked():
         torch.device("cpu"),) * 2
     assert compute.TorchSweepBackend(device="cpu").mesh is None
     assert compute.default_mesh("cuda") is None
+
+
+def test_dispatcher_defaults_to_the_card_and_raises_without_it():
+    from distributed_backtesting_exploration_tpu_torch.rpc import dispatcher
+    assert dispatcher.JobQueue().device == "cuda"
+    assert dispatcher.make_parser().parse_args([]).device == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works")
+    args = dispatcher.make_parser().parse_args(["--synthetic", "1"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        dispatcher.build_dispatcher(args)
 
 
 def test_device_policy():

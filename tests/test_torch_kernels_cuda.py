@@ -1116,3 +1116,81 @@ def test_autotune_measure_times_the_groups_sweep_on_the_card(cuda):
         close, g["fast"], g["slow"], cost=1e-3, device=cuda))
     for cap in ("0", "256", "512"):
         assert measure({"lanes_cap": cap}) > 0.0
+
+
+def _dispatch_loop(dev, recs, results_dir, **queue_kw):
+    """The port's dispatcher over loopback gRPC and the port's worker on
+    ``dev``; the results directory's blocks by job id."""
+    import os
+    import threading
+    import time
+
+    from distributed_backtesting_exploration_tpu_torch import obs
+    from distributed_backtesting_exploration_tpu_torch.rpc import (
+        compute, dispatcher)
+    from distributed_backtesting_exploration_tpu_torch.rpc.worker import (
+        Worker)
+
+    q = dispatcher.JobQueue(**queue_kw)
+    disp = dispatcher.Dispatcher(q, dispatcher.PeerRegistry(),
+                                 results_dir=str(results_dir),
+                                 registry=obs.Registry())
+    srv = dispatcher.DispatcherServer(disp, bind="localhost:0").start()
+    w = Worker(f"localhost:{srv.port}", compute.TorchSweepBackend(device=dev),
+               poll_interval_s=0.005, jobs_per_chip=8)
+    t = threading.Thread(target=w.run, daemon=True)
+    t.start()
+    try:
+        for r in recs:
+            q.enqueue(r)
+        deadline = time.monotonic() + 300.0
+        while not q.drained:
+            assert time.monotonic() < deadline, q.stats()
+            time.sleep(0.01)
+    finally:
+        w.stop()
+        t.join(timeout=60)
+        srv.stop()
+        disp.close()
+    return {r.id: open(os.path.join(str(results_dir), f"{r.id}.dbxm"),
+                       "rb").read() for r in recs}
+
+
+def test_dispatch_loop_blocks_equal_the_direct_backend(cuda, tmp_path):
+    import dataclasses
+
+    from distributed_backtesting_exploration_tpu_torch.rpc import (
+        backtesting_pb2 as pb, compute, dispatcher, wire)
+
+    grid = dispatcher.parse_grid("fast=5:25,slow=30:130:5")
+    recs = [dataclasses.replace(r, id=f"loop-{i}") for i, r in enumerate(
+        dispatcher.synthetic_jobs(32, 1260, "sma_crossover", grid,
+                                  cost=1e-3, seed=7))]
+    before = _kernels.LAUNCHES["fused_sma"]
+    got = _dispatch_loop(cuda, recs, tmp_path, device="cuda")
+    assert _kernels.LAUNCHES["fused_sma"] > before
+    specs = [pb.JobSpec(id=r.id, strategy=r.strategy, ohlcv=r.ohlcv,
+                        grid=wire.grid_to_proto(r.grid), cost=r.cost,
+                        periods_per_year=252) for r in recs]
+    want = {c.job_id: c.metrics for c in
+            compute.TorchSweepBackend(device=cuda).process(specs)}
+    assert got == want
+
+
+def test_dispatcher_scenario_panels_on_the_card(cuda):
+    from distributed_backtesting_exploration_tpu_torch import scenarios
+    from distributed_backtesting_exploration_tpu_torch.rpc import dispatcher
+
+    grid = dispatcher.parse_grid("fast=5:9,slow=30:40:5")
+    (base,) = dispatcher.synthetic_jobs(1, 1260, "sma_crossover", grid,
+                                        seed=8)
+    q = dispatcher.JobQueue(device="cuda")
+    q.enqueue(base)
+    for rec in dispatcher.scenario_jobs(
+            base.panel_digest, 4, "sma_crossover", grid,
+            params={"n_bars": 1260, "seed": 2}):
+        blob, digest = q._scenario_payload(rec.scenario)
+        params = scenarios.ScenarioParams.from_dict(rec.scenario)
+        assert blob == scenarios.scenario_panel_bytes(base.ohlcv, params,
+                                                      device="cuda")
+        assert q.panel_store.get(digest) == blob

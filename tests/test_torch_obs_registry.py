@@ -109,4 +109,18 @@ def test_package_exports_and_global_registry():
     assert obs.LATENCY_BUCKETS_S == ref_reg.LATENCY_BUCKETS_S
     for name in ("Counter", "Gauge", "Histogram", "histogram_quantile"):
         assert getattr(obs, name) is getattr(registry, name)
-    assert not hasattr(obs, "span")    # spans come with the control plane
+    # The control plane's spans, events and HTTP surface: the reference
+    # package's export list.
+    from distributed_backtesting_exploration_tpu import obs as ref_obs
+    from distributed_backtesting_exploration_tpu_torch.obs import trace
+
+    for name in ("events", "MetricsServer", "start_metrics_server",
+                 "LATENCY_BUCKETS_S", "Counter", "Gauge", "Histogram",
+                 "Registry", "get_registry", "StepTimer",
+                 "add_span_listener", "configure_ring", "current_span",
+                 "current_trace", "device_profile", "emit_span",
+                 "job_trace_pairs", "new_span_id", "new_trace_id",
+                 "recent_spans", "remove_span_listener", "span", "timed",
+                 "timer", "trace_context"):
+        assert hasattr(ref_obs, name) and hasattr(obs, name), name
+    assert obs.span is trace.span
