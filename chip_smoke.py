@@ -354,7 +354,30 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    has recorded its first ``CompleteJobs``, a new one on the same port
    from ``JobQueue.restore`` of the journal: one block a job, bit-equal
    to (a)'s, no job pending. The phase's wall is printed.
-12. Each phase's wall on one line, then one JSON line with each kernel
+12. The worker's observability (the worker's and backend's spans,
+   metrics and fleet telemetry, ``obs.timeline``, ``obs.dump``,
+   ``obs.why``), K1's launches counted from 0 before each drain. (a) The
+   port's dispatcher and two port workers (``jobs_per_chip=100``, 5 ms
+   polls, telemetry on, the span log ``DBX_OBS_JSONL`` to one file): 500
+   sma jobs of phase 4's panel and grid, every stored block bit-equal to
+   the direct ``process``; the dispatcher's fleet view lists both
+   workers, not stale, with the stages decode, compile, execute and d2h,
+   and its execute histogram is the fold of the workers' rows; the
+   timeline over the log gives each job a lifecycle, and the drain's
+   critical path by stage is printed; ``obs.dump`` on the log and
+   ``obs.why`` on one job exit 0. (b) The same drain with
+   ``DBX_FLEET_TELEMETRY=0`` and no log against (a)'s setup, three rounds
+   of each in turns: the median walls and the overhead printed (no bound
+   fails the phase). (c) One worker whose backend's ``collect`` raises
+   once for a 100-job batch, ``DBX_FLIGHT_DIR`` set, 5 s leases: one
+   ``collect_fail`` bundle, the 100 jobs re-served, every block bit-equal
+   to (a)'s. (d) The process's ``/metrics`` (an ``obs.MetricsServer``, as
+   the worker CLI's ``--metrics-port`` serves it) scraped over HTTP
+   before and after (a)'s drain: ``dbx_worker_rpc_seconds`` for
+   ``RequestJobs`` and ``CompleteJobs``, the encoded DBXM bytes equal to
+   the stored blocks', ``dbx_backtests_total`` 500 x 2000, the
+   panel-cache counters equal to the two caches' ``stats()``.
+13. Each phase's wall on one line, then one JSON line with each kernel
    entry's (K8: each case's) launches,
    error, times, bound and library time (the tile entries also their
    width sweep, wrapper time, build report and SASS count; the table
@@ -365,8 +388,9 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    ``paged_launches`` and ``scenario_launches``, each of them but K7's
    and its tables' launched there, and K1-K7's on phase 9 (a)'s mesh
    route, ``mesh_launches``, the tile entries' on phase 10 (a)'s tuned
-   batches, ``tune_launches``, and every entry's in phase 11,
-   ``dispatch_launches``); then the JSON result line, last.
+   batches, ``tune_launches``, every entry's in phase 11,
+   ``dispatch_launches``, and K1's in phase 12, ``obs_launches``); then
+   the JSON result line, last.
 
 This script imports nothing of JAX and nothing of the JAX package.
 """
@@ -377,6 +401,7 @@ import contextlib
 import ctypes
 import dataclasses
 import functools
+import io
 import json
 import os
 import re
@@ -5144,6 +5169,312 @@ def phase_dispatch_loop(kernels_mod, compute, pb, wire, data, bench,
     return total
 
 
+OBS_WORKERS = 2
+OBS_REPS = 3                  # (b)'s interleaved rounds of each arm
+OBS_LEASE_S = 5.0             # (c): the failed batch's lease
+OBS_FAIL_JOBS = 100           # (c): the batch whose collect raises
+OBS_ORDER = ("queue_wait", "dispatch", "transport", "panel_cache_hit",
+             "decode", "compile", "execute", "d2h", "report")
+
+
+def _prom(text: str) -> dict:
+    """``{"name{labels}": value}`` of a Prometheus text scrape."""
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            key, _, value = line.rpartition(" ")
+            out[key] = float(value)
+    return out
+
+
+def _scrape(url: str) -> dict:
+    import urllib.request
+
+    with urllib.request.urlopen(url + "/metrics", timeout=10) as resp:
+        return _prom(resp.read().decode())
+
+
+def _obs_drain(kernels_mod, compute, bench, recs, res, *, workers: int,
+               telemetry: bool, log: str | None, backends=None,
+               lease_s: float | None = None, on_drained=None):
+    """One drain of ``recs`` through the port's dispatcher and ``workers``
+    port workers with ``TorchSweepBackend`` on the card (``backends``
+    where given), fleet telemetry on or off, the span log to ``log`` or
+    nowhere. Returns (the drain's wall seconds, K1's launches, the
+    ``on_drained(loop)`` result, taken before the loop stops)."""
+    from distributed_backtesting_exploration_tpu_torch.obs import events
+
+    prior = events.configured_path()
+    backends = backends or [compute.TorchSweepBackend(device="cuda")
+                            for _ in range(workers)]
+    with _env(DBX_FLEET_TELEMETRY=None if telemetry else "0",
+              DBX_OBS_JSONL=log):
+        events.configure(log)
+        try:
+            with bench.DispatchLoop(backends, device="cuda",
+                                    jobs_per_chip=LOOP_JOBS_PER_CHIP,
+                                    poll_interval_s=LOOP_POLL_S,
+                                    results_dir=res) as loop:
+                if lease_s is not None:
+                    loop.queue.lease_s = lease_s
+                kernels_mod.reset_launch_counts()
+                t0 = time.perf_counter()
+                loop.drain(recs)
+                wall = time.perf_counter() - t0
+                k1 = kernels_mod.LAUNCHES["fused_sma"]
+                got = on_drained(loop) if on_drained else None
+        finally:
+            events.configure(prior)
+    _check(k1 > 0, f"worker obs: a drain of {len(recs)} jobs launched K1 "
+           "no time")
+    return wall, k1, got
+
+
+def _fleet_ready(loop, deadline_s: float = 30.0) -> dict:
+    """The dispatcher's fleet document once every worker's frame carries
+    the four stages (the frames ride the idle polls after the drain)."""
+    from distributed_backtesting_exploration_tpu_torch.obs import fleet
+
+    ids = {w.worker_id for w in loop.workers}
+    deadline = time.monotonic() + deadline_s
+    while True:
+        doc = loop.dispatcher.fleet.snapshot()
+        rows = doc["workers"]
+        if ids <= set(rows) and all(
+                not rows[w]["stale"] and all(
+                    rows[w]["stages"].get(st, {}).get("n", 0) > 0
+                    for st in fleet.TELEMETRY_STAGES) for w in ids):
+            return doc
+        _check(time.monotonic() < deadline, f"worker obs (a): the fleet "
+               f"view lacks a worker or a stage: {json.dumps(rows)[:2000]}")
+        time.sleep(0.05)
+
+
+def _obs_a(kernels_mod, compute, pb, wire, data, bench, root, card):
+    """Part (a) and (d): one drain with two workers, telemetry on, the span
+    log on; the fleet view, the timeline, obs.dump and obs.why over the
+    log, and a scrape of the workers' /metrics against their counts.
+    Returns (the blocks, K1's launches)."""
+    from distributed_backtesting_exploration_tpu_torch import obs
+    from distributed_backtesting_exploration_tpu_torch.obs import (
+        dump, timeline, why)
+    from distributed_backtesting_exploration_tpu_torch.rpc import dispatcher
+
+    panel = data.synthetic_ohlcv(N_TICKERS, N_BARS, seed=7)
+    recs = _loop_records(dispatcher, data, panel, "o")
+    log = os.path.join(root, "obs-a.jsonl")
+    res = os.path.join(root, "res-obs-a")
+    backends = [compute.TorchSweepBackend(device="cuda")
+                for _ in range(OBS_WORKERS)]
+    metrics = obs.MetricsServer(0, bind="127.0.0.1").start()
+    url = f"http://127.0.0.1:{metrics.port}"
+    try:
+        before = _scrape(url)
+        wall, k1, (doc, after) = _obs_drain(
+            kernels_mod, compute, bench, recs, res, workers=OBS_WORKERS,
+            telemetry=True, log=log, backends=backends,
+            on_drained=lambda loop: (_fleet_ready(loop), _scrape(url)))
+    finally:
+        metrics.stop()
+    blocks = _loop_blocks(res, recs)
+    # (d) the scrape, before anything else in the process encodes.
+    n_combos = FAST_AXIS.size * SLOW_AXIS.size
+
+    def delta(key):
+        return after.get(key, 0.0) - before.get(key, 0.0)
+
+    for m in ("RequestJobs", "CompleteJobs"):
+        _check(delta(f'dbx_worker_rpc_seconds_count{{method="{m}"}}') > 0,
+               f"worker obs (d): no dbx_worker_rpc_seconds for {m}")
+    enc = delta('dbx_wire_bytes_total{direction="encode",kind="metrics"}')
+    _check(enc == sum(len(b) for b in blocks.values()), f"worker obs (d): "
+           f"{enc} encoded bytes, {sum(len(b) for b in blocks.values())} "
+           "in the stored blocks")
+    bt = delta("dbx_backtests_total")
+    _check(bt == len(recs) * n_combos, f"worker obs (d): "
+           f"dbx_backtests_total grew {bt}, {len(recs) * n_combos} wanted")
+    for kind in ("hits", "misses"):
+        for lvl in ("host", "device"):
+            want = sum(b.panel_cache.stats()[kind][lvl] for b in backends)
+            got = delta(f'dbx_panel_cache_{kind}_total{{level="{lvl}"}}')
+            _check(got == want, f"worker obs (d): dbx_panel_cache_{kind}"
+                   f"_total{{level={lvl}}} grew {got}, the caches' stats() "
+                   f"say {want}")
+    rpcs = {m: delta(f'dbx_worker_rpc_seconds_count{{method="{m}"}}')
+            for m in ("RequestJobs", "CompleteJobs", "SendStatus")}
+    print(f"worker obs (d): /metrics scraped over HTTP, over the drain: "
+          f"{enc:.0f} encoded DBXM bytes = the {len(blocks)} stored blocks', "
+          f"dbx_backtests_total +{bt:.0f} = {len(recs)} x {n_combos}, the "
+          f"panel-cache counters = the two caches' stats(), "
+          f"dbx_worker_rpc_seconds calls {json.dumps(rpcs)} [{card}]")
+    # (a) the fleet document.
+    ids = {f"loop-{i}" for i in range(OBS_WORKERS)}
+    _check(ids <= set(doc["workers"]), f"worker obs (a): fleet view "
+           f"workers {sorted(doc['workers'])}")
+    _check(bench.fleet_merge_exact(doc), "worker obs (a): the fleet's "
+           "execute histogram is not the fold of the workers' rows")
+    print(f"worker obs (a): {len(recs)} sma jobs x {n_combos} combos through "
+          f"the port's dispatcher and {OBS_WORKERS} workers "
+          f"(jobs_per_chip={LOOP_JOBS_PER_CHIP}, poll {LOOP_POLL_S} s, "
+          f"telemetry and span log on): drain {wall:.4f} s, "
+          f"{len(recs) / wall:.1f} jobs/s, K1 launches {k1}; fleet view "
+          + json.dumps({w: {"stale": doc["workers"][w]["stale"],
+                            "stages": {st: v["n"] for st, v in
+                                       doc["workers"][w]["stages"].items()}}
+                        for w in sorted(ids)})
+          + f", execute histogram the fold of the rows [{card}]")
+    # The timeline over the log.
+    evs, bad = timeline.parse_events([log])
+    tls = timeline.reconstruct([e for e in evs if e.get("ev") == "span"])
+    summary = timeline.summarize(tls)
+    jobs = {j["job"] for j in summary["per_job"] if j["e2e_s"] > 0}
+    _check({r.id for r in recs} <= jobs, f"worker obs (a): the timeline "
+           f"has {len(jobs & {r.id for r in recs})} of {len(recs)} jobs")
+    e2e = summary["e2e_total_s"]
+    shares = {st: summary["stages"][st]["total_s"] / e2e
+              for st in OBS_ORDER}
+    print(f"worker obs (a) critical path by stage, share of the jobs' "
+          f"summed e2e ({e2e:.4f} s over {summary['jobs']} jobs, {len(evs)} "
+          f"events, {bad} malformed): " + ", ".join(
+              f"{st} {100 * v:.4f}%" for st, v in shares.items())
+          + f", mean e2e a job {e2e / summary['jobs']:.4f} s [{card}]")
+    for name, main, argv in (("obs.dump", dump.main, [log]),
+                             ("obs.why", why.main, [recs[7].id, "--jsonl",
+                                                    log])):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = main(argv)
+        _check(rc == 0, f"worker obs (a): {name} exited {rc}")
+        print(f"worker obs (a) {name}: exit 0, "
+              f"{len(out.getvalue().splitlines())} lines; first: "
+              f"{out.getvalue().splitlines()[0][:160]}")
+    want = {c.job_id: c.metrics for c in compute.TorchSweepBackend(
+        device="cuda").process(_loop_specs(pb, wire, recs))}
+    _hold_loop_blocks("worker obs (a)", blocks, want)
+    return blocks, k1
+
+
+def _obs_cost(kernels_mod, compute, data, bench, root, card) -> int:
+    """Part (b): the same drain with telemetry and the span log off and
+    on, ``OBS_REPS`` rounds (off, on); the medians and the overhead.
+    Returns K1's launches."""
+    from distributed_backtesting_exploration_tpu_torch.rpc import dispatcher
+
+    panel = data.synthetic_ohlcv(N_TICKERS, N_BARS, seed=7)
+    walls = {"off": [], "on": []}
+    k1 = 0
+    for r in range(OBS_REPS):
+        for arm in ("off", "on"):
+            recs = _loop_records(dispatcher, data, panel, f"o{arm}{r}")
+            log = (os.path.join(root, f"obs-b{r}.jsonl") if arm == "on"
+                   else None)
+            wall, launches, _ = _obs_drain(
+                kernels_mod, compute, bench, recs,
+                os.path.join(root, f"res-obs-b-{arm}{r}"),
+                workers=OBS_WORKERS, telemetry=arm == "on", log=log)
+            walls[arm].append(wall)
+            k1 += launches
+    med = {arm: statistics.median(v) for arm, v in walls.items()}
+    overhead = 100 * (med["on"] - med["off"]) / med["off"]
+    print(f"worker obs (b) drains of {N_TICKERS} jobs, {OBS_REPS} rounds "
+          f"(off, on): off {[round(w, 4) for w in walls['off']]} s, on "
+          f"{[round(w, 4) for w in walls['on']]} s; medians off "
+          f"{med['off']:.4f} s ({N_TICKERS / med['off']:.1f} jobs/s), on "
+          f"{med['on']:.4f} s ({N_TICKERS / med['on']:.1f} jobs/s); "
+          f"telemetry and span log cost {overhead:+.2f}% of the drain "
+          f"(the reference's bar: 5%) [{card}]")
+    return k1
+
+
+class _CollectFailsOnce:
+    """Makes a backend's ``collect`` raise on the first batch of
+    ``OBS_FAIL_JOBS`` jobs it sees."""
+
+    def __init__(self, backend):
+        self.failed = 0
+        inner = backend.collect
+
+        def collect(pending):
+            if not self.failed and sum(len(p.jobs)
+                                       for p in pending) == OBS_FAIL_JOBS:
+                self.failed += 1
+                raise RuntimeError("injected collect failure")
+            return inner(pending)
+
+        backend.collect = collect
+
+
+def _obs_flight(kernels_mod, compute, data, bench, root, blocks_a,
+                card) -> int:
+    """Part (c): one worker whose backend's collect raises once for a
+    100-job batch, ``DBX_FLIGHT_DIR`` set: one ``collect_fail`` bundle
+    (the dispatcher's lease expiry writes a ``requeue_expired`` one of its
+    own), the batch re-served when its lease expires, every block
+    bit-equal to (a)'s. Returns K1's launches."""
+    from distributed_backtesting_exploration_tpu_torch.obs import flight
+    from distributed_backtesting_exploration_tpu_torch.rpc import dispatcher
+
+    panel = data.synthetic_ohlcv(N_TICKERS, N_BARS, seed=7)
+    recs = _loop_records(dispatcher, data, panel, "f")
+    fdir = os.path.join(root, "flight")
+    os.makedirs(fdir)
+    backend = compute.TorchSweepBackend(device="cuda")
+    fails = _CollectFailsOnce(backend)
+    with _env(DBX_FLIGHT_DIR=fdir):
+        flight.reset()
+        try:
+            wall, k1, stats = _obs_drain(
+                kernels_mod, compute, bench, recs,
+                os.path.join(root, "res-obs-c"), workers=1,
+                telemetry=True, log=None, backends=[backend],
+                lease_s=OBS_LEASE_S,
+                on_drained=lambda loop: loop.queue.stats())
+            _check(flight.get_recorder().flush(10.0), "worker obs (c): the "
+                   "flight recorder did not flush")
+        finally:
+            flight.reset()
+    bundles = sorted(f for f in os.listdir(fdir) if f.endswith(".json"))
+    failed = [b for b in bundles if "-collect_fail-" in b]
+    _check(fails.failed == 1, "worker obs (c): the collect never failed")
+    _check(len(failed) == 1, f"worker obs (c): bundles {bundles}, one "
+           "collect_fail wanted")
+    _check(stats["jobs_requeued"] == OBS_FAIL_JOBS, f"worker obs (c): "
+           f"{stats['jobs_requeued']} jobs re-queued, {OBS_FAIL_JOBS} "
+           "wanted")
+    got = _loop_blocks(os.path.join(root, "res-obs-c"), recs)
+    _hold_loop_blocks("worker obs (c)", got,
+                      dict(zip(got, blocks_a.values())), "(a)'s")
+    print(f"worker obs (c): a collect failure on a {OBS_FAIL_JOBS}-job "
+          f"batch: bundles {bundles}, {stats['jobs_requeued']} jobs "
+          f"re-served after the {OBS_LEASE_S} s lease, drain {wall:.4f} s, "
+          f"K1 launches {k1} [{card}]")
+    return k1
+
+
+def phase_worker_obs(kernels_mod, compute, pb, wire, data, bench,
+                     card) -> int:
+    """Phase 12, the worker's observability on the card: (a) and (d) a
+    drain with two workers and the span log, (b) the cost of telemetry
+    and the log, (c) a forced collect failure. Returns K1's launches in
+    the phase."""
+    root = tempfile.mkdtemp(prefix="dbx-obs-")
+    t0 = time.perf_counter()
+    try:
+        blocks_a, k1_a = _obs_a(kernels_mod, compute, pb, wire, data,
+                                bench, root, card)
+        t_a = time.perf_counter()
+        k1_b = _obs_cost(kernels_mod, compute, data, bench, root, card)
+        t_b = time.perf_counter()
+        k1_c = _obs_flight(kernels_mod, compute, data, bench, root,
+                           blocks_a, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"worker obs phase wall (s): {time.perf_counter() - t0:.1f} "
+          f"((a) and (d) {t_a - t0:.1f}, (b) {t_b - t_a:.1f}, (c) "
+          f"{time.perf_counter() - t_b:.1f})")
+    return k1_a + k1_b + k1_c
+
+
 def _phase_wall(walls: dict, name: str, fn, *args):
     """``fn(*args)``, its wall seconds kept in ``walls[name]``."""
     t0 = time.perf_counter()
@@ -5220,6 +5551,8 @@ def main() -> None:
         rec["dispatch_launches"] = loop.get(rec["name"], 0)
     _check(k1["dispatch_launches"] > 0, "fused_sma launched no time in the "
            "dispatch loop")
+    k1["obs_launches"] = timed("worker_obs", phase_worker_obs, _kernels,
+                               compute, pb, wire, data, bench, card)
     print(f"phase walls (s): {json.dumps(walls)}")
     print(json.dumps({"kernels": [k1, *new.values(), *k8]}))
     print(json.dumps({"ok": True, "device": {

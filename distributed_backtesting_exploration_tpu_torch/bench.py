@@ -70,8 +70,23 @@ and ``e2e_topk``, the same with ``top_k=16``; ``e2e_local``, the control
 plane alone: port workers with ``compute.InstantBackend``, jobs/s and wire
 bytes a job at each count of ``DBX_BENCH_LOCAL_WORKERS`` (1,2,4) over
 ``DBX_BENCH_LOCAL_JOBS`` (1500) jobs, and dispatch by digest on and off
-over jobs sharing one ``DBX_BENCH_DEDUPE_BARS``-bar panel (4096). It prints
-one JSON line to
+over jobs sharing one ``DBX_BENCH_DEDUPE_BARS``-bar panel (4096). Then the
+reference's observability configs, the control plane alone:
+``fleet_telemetry``, (a) jobs/s of a direct poll-and-complete loop
+(``DBX_BENCH_LOCAL_JOBS`` jobs, 32 a poll) against the port's dispatcher
+without and with a telemetry frame on each poll (the best of three
+interleaved trials an arm), the overhead and the frame's bytes, and (b)
+``DBX_BENCH_FLEET_WORKERS`` (2) port workers with ``InstantBackend``
+polling every ``DBX_BENCH_FLEET_POLL_S`` (0.25 s) and two probes (a fast
+and an artificially slow execute stream) draining
+``DBX_BENCH_FLEET_JOBS`` (600) jobs while the fleet view is sampled: every
+worker visible on the served ``/fleet.json``, the frames' staleness p95
+against two poll periods, the slow probe flagged a straggler, the fleet's
+execute histogram equal to the fold of the workers'; ``flight``, the same
+direct loop with the flight recorder armed (``DBX_FLIGHT_DIR`` set) and
+not, no bundle written while armed, a ``capture_now`` that writes one,
+and a synthetic residual stream through the cost model's tracker. It
+prints one JSON line to
 stdout with the reference's top-level keys:
 
     {"metric": ..., "value": N, "unit": "backtests/sec", "vs_baseline": N,
@@ -183,7 +198,7 @@ FUSED = {
 CONFIGS = ("sma_fused", "roofline_stages", *list(FUSED)[1:], "walkforward",
            "streaming_append", "ragged_paged", "scenario_sweep",
            "scenario_megakernel", "long_context", "autotune", "e2e",
-           "e2e_topk", "e2e_local")
+           "e2e_topk", "e2e_local", "fleet_telemetry", "flight")
 # The worker RPCs whose serialized request and reply bytes count as its
 # wire bytes (the reference's dbx_worker_wire_bytes_total methods).
 WIRE_METHODS = ("RequestJobs", "CompleteJobs", "FetchPayload")
@@ -229,6 +244,9 @@ class Settings(NamedTuple):
     local_jobs: int = 1500
     local_workers: tuple = (1, 2, 4)
     dedupe_bars: int = 4096
+    fleet_jobs: int = 600
+    fleet_workers: int = 2
+    fleet_poll_s: float = 0.25
 
 
 def settings_from_env(env) -> Settings:
@@ -254,7 +272,10 @@ def settings_from_env(env) -> Settings:
         local_jobs=int(env.get("DBX_BENCH_LOCAL_JOBS", 1500)),
         local_workers=tuple(int(x) for x in env.get(
             "DBX_BENCH_LOCAL_WORKERS", "1,2,4").split(",")),
-        dedupe_bars=int(env.get("DBX_BENCH_DEDUPE_BARS", 4096)))
+        dedupe_bars=int(env.get("DBX_BENCH_DEDUPE_BARS", 4096)),
+        fleet_jobs=int(env.get("DBX_BENCH_FLEET_JOBS", 600)),
+        fleet_workers=int(env.get("DBX_BENCH_FLEET_WORKERS", 2)),
+        fleet_poll_s=float(env.get("DBX_BENCH_FLEET_POLL_S", 0.25)))
 
 
 def device_info(dev: torch.device) -> dict:
@@ -1103,6 +1124,314 @@ class _Bench:
                 "wire_bytes_per_job_off": wb_off,
                 "wire_reduction": wb_off / max(wb_on, 1e-9)}}
 
+    def fleet_telemetry(self) -> None:
+        """The reference's ``fleet_telemetry``: (a) the direct loop's
+        jobs/s without and with a telemetry frame a poll, the best of three
+        interleaved trials an arm (run-to-run jitter is of the overhead
+        bar's order); (b) the loopback fleet of :func:`_fleet_e2e`."""
+        from .obs import timeline
+
+        s, dev = self.s, str(self.dev)
+        r_off, r_on, on_frames = 0.0, 0.0, []
+        for _ in range(3):
+            r, _ = _direct_dispatch(dev, 32, s.local_jobs)
+            r_off = max(r_off, r)
+            r, f = _direct_dispatch(dev, 32, s.local_jobs, telemetry=True)
+            if r > r_on:
+                r_on, on_frames = r, f
+        overhead_pct = (r_off - r_on) / max(r_off, 1e-9) * 100
+        doc, ages, e2e_frames = _fleet_e2e(dev, s.fleet_workers,
+                                           s.fleet_jobs, s.fleet_poll_s)
+        frames = sorted(e2e_frames or on_frames)
+        frame_p50 = frames[len(frames) // 2] if frames else 0
+        stale_p95 = timeline._quantile(sorted(ages), 0.95) if ages else 0.0
+        stale_bar = 2 * s.fleet_poll_s
+        expected = ({f"fleet-{i}" for i in range(s.fleet_workers)}
+                    | {"fleet-fast", "fleet-slow"})
+        seen = set(doc.get("workers", {}))
+        flagged = "execute" in doc["workers"].get(
+            "fleet-slow", {}).get("stragglers", [])
+        exact = fleet_merge_exact(doc)
+        self.rates["fleet_telemetry"] = r_on
+        self.roofline["fleet_telemetry"] = {
+            "jobs": s.local_jobs, "batch": 32,
+            "jobs_per_s_off": r_off, "jobs_per_s_on": r_on,
+            "telemetry_overhead_pct": overhead_pct,
+            "overhead_ok": overhead_pct <= 5.0,
+            "frame_bytes_p50": frame_p50, "frames_sampled": len(frames),
+            "e2e_jobs": s.fleet_jobs, "e2e_workers": s.fleet_workers,
+            "e2e_poll_s": s.fleet_poll_s, "workers_seen": len(seen),
+            "all_workers_visible": expected <= seen,
+            "fleet_staleness_p95_s": stale_p95,
+            "staleness_bar_s": stale_bar,
+            "staleness_ok": stale_p95 <= stale_bar,
+            "straggler_flagged": flagged, "histogram_merge_exact": exact}
+        print(f"bench[fleet_telemetry]: direct b32 off {r_off:.0f} -> on "
+              f"{r_on:.0f} jobs/s ({overhead_pct:+.1f}%), frame p50 "
+              f"{frame_p50} B; e2e {s.fleet_workers}+2 workers @ poll "
+              f"{s.fleet_poll_s * 1e3:.0f}ms -> {len(seen)} visible, "
+              f"staleness p95 {stale_p95 * 1e3:.0f}ms (bar "
+              f"{stale_bar * 1e3:.0f}ms), straggler "
+              f"{'flagged' if flagged else 'NOT FLAGGED'}, merge "
+              f"{'exact' if exact else 'MISMATCH'}", file=sys.stderr)
+
+    def flight(self) -> None:
+        """The reference's ``flight``: (a) the direct loop's jobs/s with
+        the flight recorder armed (``DBX_FLIGHT_DIR`` set) and not, the
+        best of three interleaved trials an arm, no bundle written while
+        armed, then a ``capture_now`` that must write one; (b) a synthetic
+        residual stream through a private ``CostModelTracker`` (durations
+        computed from the op model, so the answer is known)."""
+        from .obs import Registry, costmodel, flight as flight_mod
+
+        s, dev = self.s, str(self.dev)
+        prior = os.environ.pop("DBX_FLIGHT_DIR", None)
+        r_off = r_on = 0.0
+        try:
+            with tempfile.TemporaryDirectory() as fdir:
+                for _ in range(3):
+                    os.environ.pop("DBX_FLIGHT_DIR", None)
+                    flight_mod.reset()
+                    r_off = max(r_off, _direct_dispatch(dev, 32,
+                                                        s.local_jobs)[0])
+                    os.environ["DBX_FLIGHT_DIR"] = fdir
+                    flight_mod.reset()
+                    r_on = max(r_on, _direct_dispatch(dev, 32,
+                                                      s.local_jobs)[0])
+                bundles = len([f for f in os.listdir(fdir)
+                               if f.endswith(".json")])
+                capture_ok = flight_mod.capture_now(
+                    "admin", subject="bench-smoke") is not None
+        finally:
+            flight_mod.reset()
+            if prior is None:
+                os.environ.pop("DBX_FLIGHT_DIR", None)
+            else:
+                os.environ["DBX_FLIGHT_DIR"] = prior
+        overhead_pct = (r_off - r_on) / max(r_off, 1e-9) * 100
+        tr = costmodel.CostModelTracker(registry=Registry())
+        spu0 = 1e-6
+        base = {"name": "worker.execute", "kernel": "fused:sma_crossover",
+                "bars": 2048, "combos": 64, "jobs": 1}
+        units = costmodel._model_units("sma_crossover", 2048, 64)
+        for r_log2 in ([0.0] * costmodel.warmup_n() + [3.5] + [0.1] * 8
+                       + [0.5] * 8 + [2.0] * 3):
+            tr.observe(dict(base, dur_s=units * spu0 * (2.0 ** r_log2)))
+        snap = tr.snapshot()
+        res_p50 = costmodel.residual_quantile(snap["buckets"], 0.5)
+        res_p95 = costmodel.residual_quantile(snap["buckets"], 0.95)
+        self.rates["flight"] = r_on
+        self.roofline["flight"] = {
+            "jobs": s.local_jobs, "batch": 32, "jobs_per_s_off": r_off,
+            "jobs_per_s_on": r_on, "overhead_pct": overhead_pct,
+            "overhead_ok": overhead_pct <= 2.0,
+            "bundles_during_run": bundles, "quiet_ok": bundles == 0,
+            "capture_smoke_ok": capture_ok,
+            "costmodel_obs": snap["n"], "costmodel_blowouts": snap["blowouts"],
+            "costmodel_residual_p50": res_p50,
+            "costmodel_residual_p95": res_p95}
+        print(f"bench[flight]: direct b32 off {r_off:.0f} -> armed "
+              f"{r_on:.0f} jobs/s ({overhead_pct:+.1f}%), {bundles} "
+              f"bundle(s) during run, capture smoke "
+              f"{'ok' if capture_ok else 'FAILED'}; synthetic residuals "
+              f"p50 {res_p50:+.2f} / p95 {res_p95:+.2f} log2, "
+              f"{snap['blowouts']} blowout(s)", file=sys.stderr)
+
+
+def _direct_dispatch(device: str, batch: int, n_jobs: int, *,
+                     telemetry: bool = False) -> tuple[float, list]:
+    """Jobs/s of one client polling ``RequestJobs`` (``batch`` jobs a
+    poll) and completing each batch at once with ``CompleteJobs``, against
+    the port's dispatcher over loopback gRPC: the control plane's floor
+    (the reference bench's ``run_fleet_direct``). With ``telemetry`` each
+    poll carries a ``WorkerTelemetry`` frame. Returns (jobs/s, the
+    dispatcher's frame sizes)."""
+    import grpc
+
+    from . import obs
+    from .obs import fleet as fleet_mod
+    from .rpc import dispatcher, journal, service
+
+    lgrid = {"fast": np.arange(5.0, 9.0, dtype=np.float32)}
+    queue = dispatcher.JobQueue(journal.Journal(None), device=device)
+    done_jobs = [0]
+    telem = (fleet_mod.WorkerTelemetry("direct", stats_fn=lambda: {
+        "jobs_completed": done_jobs[0], "busy": 1}) if telemetry else None)
+    with tempfile.TemporaryDirectory() as results_dir:
+        disp = dispatcher.Dispatcher(
+            queue, dispatcher.PeerRegistry(prune_window_s=30.0),
+            results_dir=results_dir, registry=obs.Registry())
+        srv = dispatcher.DispatcherServer(disp, bind="localhost:0",
+                                          prune_interval_s=5.0).start()
+        channel = grpc.insecure_channel(
+            f"localhost:{srv.port}",
+            options=service.default_channel_options(),
+            compression=grpc.Compression.Gzip)
+        stub = service.DispatcherStub(channel)
+
+        def cycle(n, seed):
+            queue.enqueue_many(dispatcher.synthetic_jobs(
+                n, 32, "sma_crossover", lgrid, seed=seed))
+            done = 0
+            while done < n:
+                reply = stub.RequestJobs(pb.JobsRequest(
+                    worker_id="direct", chips=1, jobs_per_chip=batch,
+                    telemetry_json=(telem.take_frame_json()
+                                    if telem is not None else "")))
+                if not reply.jobs:
+                    break
+                stub.CompleteJobs(pb.CompleteBatch(
+                    worker_id="direct",
+                    items=[pb.CompleteItem(id=j.id, metrics=b"",
+                                           elapsed_s=0.0)
+                           for j in reply.jobs]))
+                done += len(reply.jobs)
+                done_jobs[0] += len(reply.jobs)
+            return done
+
+        try:
+            cycle(max(n_jobs // 4, 64), seed=700)      # warm the channel
+            t0 = time.perf_counter()
+            done = cycle(n_jobs, seed=701)
+            elapsed = time.perf_counter() - t0
+            frames = disp.fleet.frame_sizes()
+        finally:
+            channel.close()
+            srv.stop()
+    return done / elapsed, frames
+
+
+def _fleet_e2e(device: str, n_workers: int, n_jobs: int,
+               poll_s: float) -> tuple[dict, list, list]:
+    """``n_workers`` port workers with ``InstantBackend`` and two probes
+    (one fast and one artificially slow execute stream, polling the real
+    ``RequestJobs`` leg) draining ``n_jobs`` jobs from the port's
+    dispatcher, the fleet view sampled while they run (the reference
+    bench's ``run_fleet_e2e``). Returns (the served ``/fleet.json``, the
+    frames' ages sampled, the frame sizes)."""
+    import urllib.request
+
+    import grpc
+
+    from . import obs
+    from .obs import fleet as fleet_mod
+    from .rpc import dispatcher, journal, service
+    from .rpc.worker import Worker
+
+    lgrid = {"fast": np.arange(5.0, 9.0, dtype=np.float32)}
+    queue = dispatcher.JobQueue(journal.Journal(None), device=device)
+    ages: list[float] = []
+    probe_stats = {}
+    for wid, durs in (("fleet-fast", [0.001] * 100),
+                      ("fleet-slow", [0.8] * 4)):
+        st = fleet_mod._StageStats()
+        for d in durs:
+            st.observe({"name": "worker.execute", "dur_s": d})
+        probe_stats[wid] = st
+    stop_probes = threading.Event()
+
+    def probe_loop(wid, port):
+        telem = fleet_mod.WorkerTelemetry(wid, stats_fn=lambda: {"busy": 0},
+                                          stages=probe_stats[wid])
+        ch = grpc.insecure_channel(f"localhost:{port}",
+                                   options=service.default_channel_options())
+        stub = service.DispatcherStub(ch)
+        try:
+            while not stop_probes.is_set():
+                try:
+                    reply = stub.RequestJobs(pb.JobsRequest(
+                        worker_id=wid, chips=1, jobs_per_chip=1,
+                        telemetry_json=telem.take_frame_json()),
+                        timeout=10.0)
+                    if reply.jobs:
+                        stub.CompleteJobs(pb.CompleteBatch(
+                            worker_id=wid, items=[pb.CompleteItem(
+                                id=j.id, metrics=b"", elapsed_s=0.0)
+                                for j in reply.jobs]), timeout=10.0)
+                except grpc.RpcError:
+                    pass
+                stop_probes.wait(poll_s)
+        finally:
+            ch.close()
+
+    with tempfile.TemporaryDirectory() as results_dir:
+        disp = dispatcher.Dispatcher(
+            queue, dispatcher.PeerRegistry(prune_window_s=30.0),
+            results_dir=results_dir, registry=obs.Registry())
+        srv = dispatcher.DispatcherServer(
+            disp, bind="localhost:0", prune_interval_s=0.5, metrics_port=0,
+            metrics_host="127.0.0.1").start()
+        workers = [Worker(f"localhost:{srv.port}", compute.InstantBackend(),
+                          worker_id=f"fleet-{i}", poll_interval_s=poll_s,
+                          status_interval_s=0.5, jobs_per_chip=16)
+                   for i in range(n_workers)]
+        threads = [threading.Thread(target=w.run, daemon=True)
+                   for w in workers]
+        threads += [threading.Thread(target=probe_loop, args=(wid, srv.port),
+                                     daemon=True) for wid in probe_stats]
+        # "Staleness <= 2 poll periods" holds for idle workers only when
+        # the heartbeat rides the poll cadence: the knob this config pins,
+        # restored in the finally below.
+        prior_hb = os.environ.get("DBX_FLEET_HEARTBEAT_S")
+        os.environ["DBX_FLEET_HEARTBEAT_S"] = str(poll_s)
+        try:
+            for t in threads:
+                t.start()
+            queue.enqueue_many(dispatcher.synthetic_jobs(
+                n_jobs, 32, "sma_crossover", lgrid, seed=702))
+            deadline = time.monotonic() + 300.0
+            while not queue.drained:
+                if time.monotonic() > deadline:
+                    raise RuntimeError(f"bench[fleet_telemetry]: drain "
+                                       f"wedged for 300 s: {queue.stats()}")
+                ages.extend(w["age_s"] for w in
+                            disp.fleet.snapshot()["workers"].values())
+                time.sleep(0.01)
+            deadline = time.monotonic() + 10.0
+            while (len(disp.fleet.snapshot()["workers"])
+                   < n_workers + len(probe_stats)
+                   and time.monotonic() < deadline):
+                time.sleep(0.05)
+            url = f"http://127.0.0.1:{srv.metrics.port}/fleet.json"
+            with urllib.request.urlopen(url, timeout=10) as resp:
+                doc = json.loads(resp.read())
+            frames = disp.fleet.frame_sizes()
+        finally:
+            stop_probes.set()
+            for w in workers:
+                w.stop()
+            for t in threads:
+                t.join(timeout=30)
+            srv.stop()
+            if prior_hb is None:
+                os.environ.pop("DBX_FLEET_HEARTBEAT_S", None)
+            else:
+                os.environ["DBX_FLEET_HEARTBEAT_S"] = prior_hb
+    return doc, ages, frames
+
+
+def fleet_merge_exact(doc: dict) -> bool:
+    """The fleet's execute histogram equals the fold of the live workers'
+    rows: worker-scoped streams summed, process-scoped ones once a pid
+    (the reference bench's rule)."""
+    own_n, own_sum = 0, 0.0
+    per_pid: dict = {}
+    for w in doc["workers"].values():
+        if w.get("stale"):
+            continue
+        st = w.get("stages", {}).get("execute", {"n": 0, "sum_s": 0.0})
+        if w.get("scope") == "worker":
+            own_n += st["n"]
+            own_sum += st["sum_s"]
+        else:
+            cur = per_pid.get(w["pid"])
+            if cur is None or st["n"] > cur[0]:
+                per_pid[w["pid"]] = (st["n"], st["sum_s"])
+    ex = doc["fleet"]["stages"]["execute"]
+    return (ex["n"] == own_n + sum(n for n, _ in per_pid.values())
+            and abs(ex["sum_s"] - own_sum
+                    - sum(v for _, v in per_pid.values())) < 1e-6)
+
 
 class _CountingChannel:
     """A worker's gRPC channel that counts into ``loop`` the serialized
@@ -1150,8 +1479,9 @@ class DispatchLoop:
     pending or leased; :meth:`wire_bytes` is the serialized bytes of the
     workers' ``WIRE_METHODS`` requests and replies so far, and ``batches``
     the ``RequestJobs`` replies that carried jobs, both counted on the
-    workers' own channels (:class:`_CountingChannel`; the port's worker
-    keeps no such counter).
+    workers' own channels (:class:`_CountingChannel`) for this loop alone:
+    the workers' ``dbx_worker_wire_bytes_total`` counts the same bytes for
+    the whole process, and the registry counts no batches.
     """
 
     def __init__(self, backends, *, device: str, jobs_per_chip: int,
@@ -1257,7 +1587,7 @@ def run(s: Settings) -> dict:
             b.walkforward()
         elif name in ("streaming_append", "ragged_paged", "scenario_sweep",
                       "scenario_megakernel", "long_context", "autotune",
-                      "e2e_local"):
+                      "e2e_local", "fleet_telemetry", "flight"):
             getattr(b, name)()
         elif name in ("e2e", "e2e_topk"):
             b.e2e(name, top_k=16 if name == "e2e_topk" else 0)

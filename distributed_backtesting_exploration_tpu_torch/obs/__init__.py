@@ -8,6 +8,9 @@
 - :mod:`.events` — opt-in JSONL event log (``DBX_OBS_JSONL``) for
   post-mortem trace reconstruction;
 - :mod:`.http` — the ``/metrics`` + ``/stats.json`` HTTP surface;
+- :mod:`.dump` — ``python -m ...obs.dump`` pretty-printer / phase table;
+- :mod:`.why` — ``python -m ...obs.why``: a job's dispatch decisions
+  beside its timeline;
 - :mod:`.timeline` — merge JSONL logs from any number of processes into
   per-job lifecycle timelines with critical-path stage attribution;
 - :mod:`.flight`, :mod:`.costmodel`, :mod:`.fleet`, :mod:`.decisions` —
@@ -15,8 +18,9 @@
   residuals, the fleet view and the scheduling-decision records.
 
 Each module is a copy of the reference's, held to its outputs by the
-``tests/test_torch_obs_*.py`` tests. The tune layer and the dispatcher
-count into :func:`get_registry`.
+``tests/test_torch_obs_*.py`` tests. The tune layer, the dispatcher, the
+worker and its backend count into :func:`get_registry`;
+``utils.trace`` is the reference's deprecation shim over :mod:`.trace`.
 """
 
 from . import events  # noqa: F401

@@ -121,6 +121,7 @@ from .. import tune as tune_mod
 from ..models import base as models_base
 from ..models import pairs as pairs_mod
 from ..ops import fused
+from ..obs import flight as obs_flight
 from ..ops.metrics import Metrics, metric_sign
 from ..parallel import sharding
 from ..parallel import sweep as sweep_mod
@@ -164,14 +165,19 @@ class PanelCache:
     bounded by ``max_bytes`` (``DBX_PANEL_CACHE_MB``). Eviction is not an
     error: the worker recovers a digest-only miss through
     ``FetchPayload``. Hit and miss counts by level are plain attributes
-    that :meth:`stats` returns. Thread-safe: the worker's control and
+    that :meth:`stats` returns, this cache's own; the same events count
+    into ``registry`` (the process's by default) as the reference's
+    ``dbx_panel_cache_hits_total`` and ``dbx_panel_cache_misses_total``
+    ``{level}``, with the two levels' bytes in the gauge
+    ``dbx_panel_cache_bytes``. Thread-safe: the worker's control and
     prefetch threads probe and fill the host level while the compute
     thread serves from both. ``device`` is the backend's (a
     :class:`TorchSweepBackend` sets it where it is None).
     """
 
     def __init__(self, max_bytes: int | None = None, *,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 registry: obs.Registry | None = None):
         self.max_bytes = (cache_max_bytes() if max_bytes is None
                           else int(max_bytes))
         self.device = device
@@ -181,6 +187,22 @@ class PanelCache:
         self._pages: PagePool | None = None
         self.hits = {"host": 0, "device": 0}
         self.misses = {"host": 0, "device": 0}
+        reg = self._reg = registry or obs.get_registry()
+        self._c_hits = {
+            lvl: reg.counter("dbx_panel_cache_hits_total",
+                             help="panel-cache hits by level "
+                                  "(host=decode skipped, device=h2d "
+                                  "skipped too)", level=lvl)
+            for lvl in ("host", "device")}
+        self._c_misses = {
+            lvl: reg.counter("dbx_panel_cache_misses_total",
+                             help="panel-cache misses by level",
+                             level=lvl)
+            for lvl in ("host", "device")}
+        self._g_bytes = reg.gauge(
+            "dbx_panel_cache_bytes",
+            help="approximate bytes resident in the worker panel cache "
+                 "(host + device levels)")
 
     @property
     def pages(self) -> PagePool:
@@ -189,7 +211,8 @@ class PanelCache:
         with self._lock:
             if self._pages is None:
                 self._pages = PagePool(device=self.device
-                                       or device_mod.DEFAULT_DEVICE)
+                                       or device_mod.DEFAULT_DEVICE,
+                                       registry=self._reg)
             return self._pages
 
     @staticmethod
@@ -209,7 +232,11 @@ class PanelCache:
                 self.misses[level] += 1
             else:
                 self.hits[level] += 1
+        (self._c_misses if value is None else self._c_hits)[level].inc()
         return value
+
+    def _publish_bytes(self) -> None:
+        self._g_bytes.set(self._series.bytes + self._device.bytes)
 
     def get_series(self, digest: str):
         return self._get(self._series, "host", digest)
@@ -217,6 +244,7 @@ class PanelCache:
     def put_series(self, digest: str, series) -> None:
         with self._lock:
             self._series.put(digest, series)
+            self._publish_bytes()
 
     def get_device(self, digest: str):
         return self._get(self._device, "device", digest)
@@ -226,6 +254,7 @@ class PanelCache:
         """Cache a ``(5, T)`` device block, charged ``nbytes``."""
         with self._lock:
             self._device.put(digest, block, nbytes)
+            self._publish_bytes()
 
     def stats(self) -> dict:
         with self._lock:
@@ -237,6 +266,17 @@ class PanelCache:
                     "hits": dict(self.hits), "misses": dict(self.misses),
                     "page_pool": (None if self._pages is None
                                   else self._pages.stats())}
+
+    def top_digests(self, k: int = 8) -> list[dict]:
+        """The ``k`` resident panels with the most bytes over the host and
+        device levels, as 12-hex digest prefixes and byte sizes: the fleet
+        telemetry frame's sketch of the cache (never the full key list)."""
+        sizes: dict[str, int] = {}
+        with self._lock:
+            for key, nb in self._series.sizes() + self._device.sizes():
+                sizes[key] = sizes.get(key, 0) + int(nb)
+        top = sorted(sizes.items(), key=lambda kv: (-kv[1], kv[0]))[:k]
+        return [{"d": str(d)[:12], "b": nb} for d, nb in top]
 
 
 class _FusedSpec(NamedTuple):
@@ -536,13 +576,17 @@ class _Pending(NamedTuple):
     kind: str = "metrics"    # "metrics" (DBXM), "topk" (DBXS), "returns"
     metric: str = ""         # the rank metric of "topk" and "returns"
     lengths: tuple = ()      # "returns": each job's real bar count
+    h2d_hit: bool = False    # every panel's device block came from the cache
 
 
 class _ScenarioJob(NamedTuple):
-    """A scenario spec of a carrier's batch, completed under its own id."""
+    """A scenario spec of a carrier's batch, completed under its own id;
+    ``grid`` is the carrier's, which every spec sweeps."""
 
     id: str
     trace_id: str
+    grid: object = None
+    parent_span_id: str = ""
 
 
 def _empty(group, t0: float) -> _Pending:
@@ -568,8 +612,9 @@ class TorchSweepBackend:
     decodes of the submit path; ``appends``, the append jobs served by
     outcome (``carry_hit``: a stored checkpoint served or advanced,
     ``full_reprice``: rebuilt over the whole panel) and ``advances``, the
-    checkpoints advanced; ``pad_bars``, the pad bars of the dense ragged
-    stacks (``dense``) and of the pages the pool uploaded (``paged``);
+    checkpoints advanced; ``pad_bars``, the pad bars of the ragged stacks
+    of the fused and generic sweeps (``dense``) and of the pages the pool
+    uploaded (``paged``);
     ``paged_fallbacks``, the fused groups of jobs with digests served from
     the dense stacks, by why (``rejected`` by the pool, paging
     ``disabled``);
@@ -577,6 +622,27 @@ class TorchSweepBackend:
     ``materialized``). ``schedule_registry`` holds the tuned schedules
     (``DBX_SCHEDULE_DIR``; the worker gossips it), ``platform`` their
     platform on this backend's device.
+
+    The same events count into the process's registry under the
+    reference's names (the backend's counts are its own, the registry's
+    the process's): ``dbx_compute_decode_seconds`` and
+    ``_decode_bytes_total``, ``dbx_compute_collect_seconds`` and
+    ``dbx_compute_d2h_bytes_total``, ``dbx_backtests_total`` and the gauge
+    ``dbx_compute_backtests_per_sec``, ``dbx_pad_bars_total{path}``,
+    ``dbx_worker_append_total{outcome}``, ``dbx_scenario_route_total
+    {mode}``, ``dbx_fused_substrate_total`` and ``_info``, and
+    ``dbx_kernel_submit_seconds{kernel=route:strategy,phase}``. A group's
+    submit is also the span ``worker.compile`` or ``worker.execute``
+    (``kernel``, ``jobs``, ``bars``, ``combos``) on each job's trace; the
+    decode, the payload fetch, an append and the device-to-host wait are
+    the spans ``worker.decode``, ``worker.payload_fetch``,
+    ``worker.append`` and ``worker.d2h``. The spans and histograms read
+    the host clock around calls that are made anyway: none adds a wait
+    for the card. ``phase="compile"`` marks the first group of a
+    ``route:strategy`` a backend serves (on the card the group whose call
+    builds or loads the kernel library, for the process's first backend;
+    there is no jit to trace a new shape), on the routes where the
+    reference splits compile from execute.
     """
 
     # A uniform walk-forward group whose grid has at least this many combos
@@ -622,7 +688,56 @@ class TorchSweepBackend:
             log.info("paged route off (DBX_PAGED=1 turns it on): fused "
                      "groups use the dense stacks")
         self.scenarios = {"fused": 0, "materialized": 0}
-        self._obs = obs.get_registry()
+        reg = self._obs = obs.get_registry()
+        self._h_decode = reg.histogram(
+            "dbx_compute_decode_seconds",
+            help="OHLCV wire decode wall per job group")
+        self._c_decode_bytes = reg.counter(
+            "dbx_compute_decode_bytes_total",
+            help="OHLCV payload bytes decoded")
+        self._h_collect = reg.histogram(
+            "dbx_compute_collect_seconds",
+            help="device drain + d2h wait per pending group")
+        self._c_d2h_bytes = reg.counter(
+            "dbx_compute_d2h_bytes_total",
+            help="result bytes copied device->host")
+        self._c_backtests = reg.counter(
+            "dbx_backtests_total", help="(ticker x param) combos computed")
+        self._bt_rate = obs.StepTimer(reg.gauge(
+            "dbx_compute_backtests_per_sec",
+            help="combos/s since backend start"))
+        self._kern_h: dict = {}    # (strategy, route, cold) -> Histogram
+        self._seen_cold: set = set()
+        _pad_help = ("panel pad bars materialized for batching, by "
+                     "execution path (dense = stacks padded to the group "
+                     "max; paged = in-page pad of uploaded tail pages)")
+        self._c_pad_bars = {path: reg.counter("dbx_pad_bars_total",
+                                              help=_pad_help, path=path)
+                            for path in ("dense", "paged")}
+        # The reference's epilogue and table knobs select no other code
+        # here: their labels read "default", as dbx_tuned_substrate_info's
+        # do.
+        reg.gauge("dbx_fused_substrate_info",
+                  help="constant 1; labels carry the live fused-kernel "
+                       "substrate defaults (epilogue/table/lanes)",
+                  epilogue="default", lanes_cap=str(fused.resolve_lanes_cap()),
+                  **{f"table_{fam}": "default"
+                     for fam in ("sma", "boll", "mom", "don", "obv")}).set(1)
+        self._substrate_counters: dict = {}
+        self._c_append = {
+            outcome: reg.counter(
+                "dbx_worker_append_total",
+                help="streaming append jobs served, by outcome "
+                     "(carry_hit=O(ΔT) advance, full_reprice=checkpoint "
+                     "miss fallback)", outcome=outcome)
+            for outcome in ("carry_hit", "full_reprice")}
+        self._c_scenario_route = {
+            mode: reg.counter(
+                "dbx_scenario_route_total",
+                help="scenario jobs served, by route (fused=in-trace "
+                     "regeneration, materialized=concrete panel)",
+                mode=mode)
+            for mode in ("materialized", "fused")}
         self.schedule_registry = tune_mod.ScheduleRegistry.open_default(
             registry=self._obs)
         self._autotuner = tune_mod.Autotuner(self.schedule_registry,
@@ -673,6 +788,81 @@ class TorchSweepBackend:
                 "paged_fallbacks": dict(self.paged_fallbacks),
                 "scenarios": dict(self.scenarios)}
 
+    def telemetry(self) -> dict:
+        """Capability flags and cache residency for the worker's fleet
+        telemetry frame (``obs.fleet``): the reference's keys, with
+        ``backend`` "torch"."""
+        return {
+            "caps": {"backend": "torch", "chips": self.chips,
+                     "platform": self.platform, "fused": True,
+                     "mesh": self.mesh is not None,
+                     "paged": bool(self.use_paged)},
+            "caches": {
+                "panel": self.panel_cache.stats(),
+                "panel_topk": self.panel_cache.top_digests(),
+                "carry": self.carry_store.stats(),
+                "schedule_entries": len(self.schedule_registry.entries()),
+            },
+        }
+
+    def _count_pad(self, path: str, bars: int) -> None:
+        self.pad_bars[path] += bars
+        self._c_pad_bars[path].inc(bars)
+
+    def _count_scenarios(self, mode: str, n: int) -> None:
+        self.scenarios[mode] += n
+        self._c_scenario_route[mode].inc(n)
+
+    def _observe_submit(self, strategy: str, route: str, t0: float, *,
+                        cold: bool = False, group=None, bars=None,
+                        combos=None) -> None:
+        """A group's submit wall (group start to its launches, decode
+        included) into ``dbx_kernel_submit_seconds{kernel=route:strategy,
+        phase}``. Where ``cold`` (the routes the reference splits), the
+        backend's first group of this ``route:strategy`` is
+        ``phase="compile"``, the rest ``"execute"``. With ``group``, the
+        same interval is the span ``worker.compile`` or ``worker.execute``
+        on each job's trace, ``bars`` and ``combos`` with it (the cost
+        model's shape)."""
+        dt = time.perf_counter() - t0
+        if cold:
+            cold = (route, strategy) not in self._seen_cold
+            self._seen_cold.add((route, strategy))
+        hk = (strategy, route, cold)
+        h = self._kern_h.get(hk)
+        if h is None:
+            h = self._kern_h[hk] = self._obs.histogram(
+                "dbx_kernel_submit_seconds",
+                help="per-group submit wall (decode + H2D + launch) by "
+                     "route:strategy",
+                kernel=f"{route}:{strategy}",
+                phase="compile" if cold else "execute")
+        h.observe(dt)
+        if group is not None:
+            pairs = obs.job_trace_pairs(group)
+            if pairs:
+                shape = {}
+                if bars is not None:
+                    shape["bars"] = int(bars)
+                if combos is not None:
+                    shape["combos"] = int(combos)
+                obs.emit_span("worker.compile" if cold else "worker.execute",
+                              time.time() - dt, dt, pairs=pairs,
+                              kernel=f"{route}:{strategy}",
+                              jobs=len(group), **shape)
+
+    def _observe_substrates(self, strategy: str) -> None:
+        """Count a fused group into ``dbx_fused_substrate_total{kernel,
+        epilogue,table}`` (both "default": one design a family)."""
+        c = self._substrate_counters.get(strategy)
+        if c is None:
+            c = self._substrate_counters[strategy] = self._obs.counter(
+                "dbx_fused_substrate_total",
+                help="fused job groups served, by kernel and "
+                     "epilogue/table substrate",
+                kernel=strategy, epilogue="default", table="default")
+        c.inc()
+
     def process(self, jobs) -> list[Completion]:
         """Run a job batch to completion: ``collect(submit(jobs))``."""
         return self.collect(self.submit(jobs))
@@ -701,8 +891,9 @@ class TorchSweepBackend:
         jobs = [j for j in jobs if not j.scenario_batch]
         # A scenario job the dispatcher materialized arrives as a plain job
         # that names its spec.
-        self.scenarios["materialized"] += sum(
-            1 for j in jobs if j.scenario.base_digest)
+        n_mat = sum(1 for j in jobs if j.scenario.base_digest)
+        if n_mat:
+            self._count_scenarios("materialized", n_mat)
         groups: dict[tuple, list] = {}
         for job in jobs:
             what = _unsupported(job)
@@ -734,12 +925,19 @@ class TorchSweepBackend:
                 pending.append(_empty(group, t0))
             elif job0.strategy == _PAIRS:
                 pending.append(self._submit_pairs_group(group, t0))
+                self._observe_submit(
+                    _PAIRS, "pairs_wf" if job0.wf_train > 0 else "pairs",
+                    t0, group=group)
             elif job0.wf_train > 0:
                 pending.append(self._submit_walkforward_group(
                     group, self._decode_group(group), t0))
+                self._observe_submit(job0.strategy, "walkforward", t0,
+                                     group=group)
             elif job0.best_returns:
                 pending.append(self._submit_best_returns_group(
                     group, self._decode_group(group), t0))
+                self._observe_submit(job0.strategy, "best_returns", t0,
+                                     group=group)
             else:
                 pending.extend(self._submit_group(
                     group, self._decode_group(group), t0))
@@ -771,9 +969,27 @@ class TorchSweepBackend:
         a job past a group's ``n_real`` (validated-bad) completes empty."""
         out: list[Completion] = []
         for p in pending:
-            if p.ready is not None:
-                p.ready.synchronize()
-            host = {name: t.numpy() for name, t in p.host.items()}
+            host = {}
+            if p.host:
+                t_wait = time.perf_counter()
+                # The wait for the group's copies: the d2h stage of each
+                # job's timeline. cache_hit says the submit's panel upload
+                # came from the device cache.
+                with obs.trace_context(obs.job_trace_pairs(p.jobs)), \
+                        obs.span("worker.d2h", jobs=len(p.jobs),
+                                 cache_hit=p.h2d_hit):
+                    if p.ready is not None:
+                        p.ready.synchronize()
+                    host = {name: t.numpy() for name, t in p.host.items()}
+                # Combos count the real jobs' grids, as the dispatcher's
+                # rate does (a top-k group ships k rows of its full grid).
+                planes = host["planes"]
+                combos = sum(wire.grid_n_combos(job.grid) for job in
+                             p.jobs[:min(planes.shape[1], p.n_real)])
+                self._h_collect.observe(time.perf_counter() - t_wait)
+                self._c_d2h_bytes.inc(planes.nbytes)
+                self._c_backtests.inc(combos)
+                self._bt_rate.add(combos)
             if p.kind == "metrics" and p.n_real:
                 blobs = wire.metrics_blocks(host["planes"])
             else:
@@ -856,7 +1072,14 @@ class TorchSweepBackend:
             if s is not None:
                 return s, True
         if not raw and digest and self.payload_fetcher is not None:
+            # The recovery RPC is its own span, so that obs.timeline
+            # charges its wall to transport, not to the decode around it.
+            t0_wall, t0 = time.time(), time.perf_counter()
             raw = self.payload_fetcher(digest)
+            obs.emit_span("worker.payload_fetch", t0_wall,
+                          time.perf_counter() - t0,
+                          pairs=obs.job_trace_pairs([job]), digest=digest,
+                          ok=bool(raw))
         if not raw:
             raise ValueError(
                 f"job {job.id}: digest-only payload "
@@ -900,8 +1123,9 @@ class TorchSweepBackend:
         under the job's digest, so the next append of the chain hits.
         Pairs (the append carries one panel), an unknown family and a grid
         the family cannot price complete empty with a logged error: a
-        malformed spec would never heal by re-queueing."""
-        t0 = time.perf_counter()
+        malformed spec would never heal by re-queueing. The whole window is
+        the span ``worker.append`` with its ``carry_hit`` flag."""
+        t0, t0_wall = time.perf_counter(), time.time()
         if (not recurrent.supports_strategy(job.strategy)
                 or job.strategy == _PAIRS):
             log.error("append job %s: strategy %r is not streamable over "
@@ -949,11 +1173,20 @@ class TorchSweepBackend:
             return _empty([job], t0)
         if job.panel_digest and not retried:
             store.put((job.panel_digest, skey), carry)
-        self.appends["carry_hit" if hit else "full_reprice"] += 1
+        outcome = "carry_hit" if hit else "full_reprice"
+        self.appends[outcome] += 1
+        self._c_append[outcome].inc()
         # finalize gives fresh tensors and the copy goes to storage of its
         # own: the block never aliases the stored checkpoint.
         host, ready = _copy_to_host(
             {"planes": torch.stack(list(recurrent.finalize(carry)))})
+        obs.emit_span("worker.append", t0_wall, time.perf_counter() - t0,
+                      pairs=obs.job_trace_pairs([job]), job=job.id,
+                      carry_hit=hit, bars=series.n_bars,
+                      delta_bars=series.n_bars - base_len)
+        # The histogram alone: an execute span over the same window would
+        # tie with worker.append in obs.timeline's attribution.
+        self._observe_submit(job.strategy, "append", t0)
         return _Pending([job], 1, t0, host, ready)
 
     def _submit_scenario_group(self, job) -> list[_Pending]:
@@ -1004,10 +1237,21 @@ class TorchSweepBackend:
             log.warning("scenario batch %s (%s, %d specs) takes the "
                         "materialized rung: %s", job.id, job.strategy,
                         len(specs), why)
+            obs_flight.trigger("scenario_fused_fail", subject=job.id,
+                               strategy=job.strategy, specs=len(specs),
+                               error=why)
             return self._submit_scenario_materialized(job, specs, series, t0)
-        self.scenarios["fused"] += len(specs)
-        pseudo = [_ScenarioJob(s.id, s.trace_id) for s in specs]
+        self._count_scenarios("fused", len(specs))
+        pseudo = self._scenario_jobs(job, specs)
+        self._observe_submit(job.strategy, "scenario", t0, cold=True,
+                             group=pseudo, bars=n_bars,
+                             combos=len(specs) * wire.grid_n_combos(job.grid))
         return [self._finish_group(pseudo, m, t0, len(specs), job)]
+
+    @staticmethod
+    def _scenario_jobs(job, specs) -> list:
+        return [_ScenarioJob(s.id, s.trace_id, job.grid, job.parent_span_id)
+                for s in specs]
 
     def _submit_scenario_materialized(self, job, specs, series,
                                       t0: float) -> list[_Pending]:
@@ -1018,7 +1262,7 @@ class TorchSweepBackend:
         ``(n_bars, block, regimes)`` at a time; a group whose shape is
         invalid completes empty with a logged error (a malformed spec would
         never heal by re-queueing)."""
-        self.scenarios["materialized"] += len(specs)
+        self._count_scenarios("materialized", len(specs))
         shapes: dict[tuple, list] = {}
         for s in specs:
             shapes.setdefault((s.n_bars, s.block, s.regimes), []).append(s)
@@ -1030,8 +1274,7 @@ class TorchSweepBackend:
             except ValueError as e:
                 log.error("scenario specs %s: %s; completing with empty "
                           "metrics", [s.id for s in group], e)
-                pending.append(_empty(
-                    [_ScenarioJob(s.id, s.trace_id) for s in group], t0))
+                pending.append(_empty(self._scenario_jobs(job, group), t0))
                 continue
             words = [synth.seed_words(int(s.seed)) for s in group]
             for r0, rows in synth.generate_rows(
@@ -1056,11 +1299,38 @@ class TorchSweepBackend:
         return pending
 
     def _decode_group(self, group) -> list:
-        """The group's leg-1 panels, each through :meth:`_resolve_series`."""
-        return [self._resolve_series(j)[0] for j in group]
+        """The group's leg-1 panels, each through :meth:`_resolve_series`,
+        under the span ``worker.decode`` (``cache_hit`` where every panel
+        came from the host cache: obs.timeline then charges the window to
+        ``panel_cache_hit``)."""
+        t0_wall, t0 = time.time(), time.perf_counter()
+        series, hits = [], 0
+        for j in group:
+            s, hit = self._resolve_series(j)
+            series.append(s)
+            hits += hit
+        self._observe_decode(group, t0_wall, t0, hits,
+                             hits == len(group), len(group))
+        return series
 
-    def _device_fields(self, group, series, fields, lengths):
-        """``{field: (n, T_max)}`` of a fused group.
+    def _observe_decode(self, group, t0_wall: float, t0: float, hits: int,
+                        cache_hit: bool, n_jobs: int) -> None:
+        """A group's decode into ``dbx_compute_decode_seconds``,
+        ``dbx_compute_decode_bytes_total`` (both legs' inline bytes) and
+        the span ``worker.decode``."""
+        dur = time.perf_counter() - t0
+        self._h_decode.observe(dur)
+        self._c_decode_bytes.inc(sum(len(j.ohlcv) + len(j.ohlcv2)
+                                     for j in group))
+        obs.emit_span("worker.decode", t0_wall, dur,
+                      pairs=obs.job_trace_pairs(group), jobs=n_jobs,
+                      cache_hit=cache_hit, cache_hits=hits)
+
+    def _device_fields(self, group, series, fields, lengths, *,
+                       hits: list | None = None):
+        """``{field: (n, T_max)}`` of a fused group; where ``hits`` is
+        given, whether every block came from the device cache is appended
+        to it.
 
         With a digest on every job, each panel is cached on the device as
         its ``(5, T)`` block, in storage of its own: a hit skips the
@@ -1073,6 +1343,8 @@ class TorchSweepBackend:
         """
         t_max = max(lengths)
         uniform = len(set(lengths)) == 1
+        if hits is not None:
+            hits.append(False)
         if not all(j.panel_digest for j in group):
             if uniform:
                 return {f: np.stack([getattr(s, f) for s in series])
@@ -1081,6 +1353,8 @@ class TorchSweepBackend:
         cache = self.panel_cache
         blocks = [cache.get_device(j.panel_digest) for j in group]
         miss = [i for i, b in enumerate(blocks) if b is None]
+        if hits is not None:
+            hits[-1] = not miss
         if miss:
             # One upload for the misses, then a copy of each block into
             # storage of its own: a cached view of the upload would keep
@@ -1120,19 +1394,22 @@ class TorchSweepBackend:
         return False
 
     def _finish_group(self, jobs, m: Metrics, t0: float, n_real: int,
-                      job0) -> _Pending:
+                      job0, *, h2d_hit: bool = False) -> _Pending:
         """The shared tail of the sweep paths: the top-k selection on the
         device where the job asks for it (never for a walk-forward job's
-        one row), then the result copy."""
+        one row), then the result copy. ``h2d_hit`` rides to collect's
+        ``worker.d2h`` span."""
         if job0.top_k <= 0 or job0.wf_train > 0:
             host, ready = _copy_to_host({"planes": torch.stack(list(m))})
-            return _Pending(list(jobs), n_real, t0, host, ready)
+            return _Pending(list(jobs), n_real, t0, host, ready,
+                            h2d_hit=h2d_hit)
         metric = job0.rank_metric or "sharpe"
         k = min(int(job0.top_k), wire.grid_n_combos(job0.grid))
         idx, m = _topk_reduce(m, metric, k)
         host, ready = _copy_to_host({"planes": torch.stack(list(m)),
                                      "idx": idx})
-        return _Pending(list(jobs), n_real, t0, host, ready, "topk", metric)
+        return _Pending(list(jobs), n_real, t0, host, ready, "topk", metric,
+                        h2d_hit=h2d_hit)
 
     def _submit_group(self, group, series, t0: float, *,
                       allow_paged: bool = True,
@@ -1166,34 +1443,38 @@ class TorchSweepBackend:
         demotion = _fused_demotion_reason(spec, axes)
         if demotion is None:
             g = {k: v.numpy() for k, v in grid.items()}
-            m = self._submit_fused(group, series, lengths, g, cost, ppy, t0,
-                                   allow_paged, spec)
-            if isinstance(m, list):
-                return m
+            return self._submit_fused(group, series, lengths, g, cost, ppy,
+                                      t0, allow_paged, spec)
+        log.warning("jobs %s (%s) take the generic path: %s",
+                    [j.id for j in group], job0.strategy, demotion)
+        if len(set(lengths)) > 1:
+            self._count_pad("dense", sum(max(lengths) - t for t in lengths))
+        batch, _, mask = data_mod.pad_and_stack(series)
+        strategy = models_base.get_strategy(job0.strategy)
+        if self.mesh is None:
+            m = sweep_mod.run_sweep(batch, strategy, grid, cost=cost,
+                                    bar_mask=mask, periods_per_year=ppy,
+                                    device=self.device)
         else:
-            log.warning("jobs %s (%s) take the generic path: %s",
-                        [j.id for j in group], job0.strategy, demotion)
-            batch, _, mask = data_mod.pad_and_stack(series)
-            strategy = models_base.get_strategy(job0.strategy)
-            if self.mesh is None:
-                m = sweep_mod.run_sweep(batch, strategy, grid, cost=cost,
-                                        bar_mask=mask, periods_per_year=ppy,
-                                        device=self.device)
-            else:
-                m = sharding.sharded_sweep(self.mesh, batch, strategy, grid,
-                                           cost=cost, bar_mask=mask,
-                                           periods_per_year=ppy)
+            m = sharding.sharded_sweep(self.mesh, batch, strategy, grid,
+                                       cost=cost, bar_mask=mask,
+                                       periods_per_year=ppy)
+        self._observe_submit(
+            job0.strategy, "generic" + ("_mesh" if self.mesh else ""), t0,
+            cold=True, group=group, bars=max(lengths),
+            combos=sweep_mod.grid_size(grid))
         return [self._finish_group(group, m, t0, len(group), job0)]
 
     def _submit_fused(self, group, series, lengths, g, cost, ppy, t0,
                       allow_paged: bool, spec):
         """A fused group's sweep on the paged route (jobs with digests,
         paging on) or the dense stacks, under the tuned schedule of the
-        route that serves it (:meth:`_tuned_schedule_for`). Returns its
-        Metrics, or the pending entries of a ragged group that the pool
-        rejected, split again by the power-of-two length bucket."""
+        route that serves it (:meth:`_tuned_schedule_for`). Returns the
+        group's pending entries: one, or those of a ragged group that the
+        pool rejected, split again by the power-of-two length bucket."""
         job0 = group[0]
         ragged = len(set(lengths)) > 1
+        self._observe_substrates(job0.strategy)
         consult = functools.partial(self._tuned_schedule_for, job0.strategy,
                                     lengths, g)
         m = None
@@ -1221,11 +1502,15 @@ class TorchSweepBackend:
                             allow_paged=False))
                         t0 = time.perf_counter()
                     return out
+        route = "paged"
+        h2d_hit = [False]
         if m is None:
+            route = "fused" + ("_mesh" if self.mesh else "")
             if ragged:
-                self.pad_bars["dense"] += sum(max(lengths) - t
-                                              for t in lengths)
-            fields = self._device_fields(group, series, spec.fields, lengths)
+                self._count_pad("dense", sum(max(lengths) - t
+                                             for t in lengths))
+            fields = self._device_fields(group, series, spec.fields, lengths,
+                                         hits=h2d_hit)
             run = functools.partial(
                 self._dense_sweep, spec, g=g, cost=cost, ppy=ppy,
                 t_real=np.asarray(lengths, np.int32) if ragged else None)
@@ -1234,7 +1519,11 @@ class TorchSweepBackend:
             with fused.tuned_schedule(consult(
                     lambda: functools.partial(run, self._resident(fields)))):
                 m = run(fields)
-        return m
+        self._observe_submit(job0.strategy, route, t0, cold=True,
+                             group=group, bars=max(lengths),
+                             combos=sweep_mod.grid_size(g))
+        return [self._finish_group(group, m, t0, len(group), job0,
+                                   h2d_hit=h2d_hit[-1])]
 
     def _resident(self, arrays):
         """``arrays`` (a dict or a list) with each host array uploaded to
@@ -1414,9 +1703,15 @@ class TorchSweepBackend:
                  strategy, max(lengths[i] for i in ok), n_dev,
                  "" if not rest else f"; {[group[i].id for i in rest]} "
                  f"take the other routes ({reason})")
-        return self._submit_timeshard_groups(
+        pending = self._submit_timeshard_groups(
             [group[i] for i in ok], [series[i] for i in ok],
-            [lengths[i] for i in ok], t0, axes), rest
+            [lengths[i] for i in ok], t0, axes)
+        self._observe_submit(
+            strategy, "timeshard", t0, cold=True,
+            group=[group[i] for i in ok],
+            bars=max(lengths[i] for i in ok),
+            combos=sweep_mod.grid_size(sweep_mod.product_grid(**axes)))
+        return pending, rest
 
     def _submit_timeshard_groups(self, group, series, lengths, t0,
                                  axes) -> list[_Pending]:
@@ -1467,7 +1762,7 @@ class TorchSweepBackend:
             if prep is None:
                 return None
             pool, tables, info = prep
-            self.pad_bars["paged"] += info["pad_bars_new"]
+            self._count_pad("paged", info["pad_bars_new"])
             run = functools.partial(
                 fused.fused_paged_sweep, strategy, pool, tables,
                 np.asarray(lengths, np.int32), grid, cost=cost,
@@ -1573,6 +1868,7 @@ class TorchSweepBackend:
                 log.info("walk-forward jobs %s (%s, P=%d) using the "
                          "fused-train route", [j.id for j in jobs],
                          job0.strategy, P)
+                self._observe_substrates(job0.strategy)
             g = {k: v.numpy() for k, v in grid.items()}
 
             def refit(blks, _tr, dev):
@@ -1626,14 +1922,16 @@ class TorchSweepBackend:
                     job0.wf_test, metric)
                 return _empty(group, t0)
         good, bad = [], []
+        t0_wall, t_dec = time.time(), time.perf_counter()
+        hits = 0
         for j in group:
             if not j.ohlcv2 and not j.panel_digest2:
                 log.error("pairs job %s has no second leg (ohlcv2); "
                           "completing with empty metrics", j.id)
                 bad.append(j)
                 continue
-            y, _ = self._resolve_series(j)
-            x, _ = self._resolve_series(j, leg2=True)
+            y, hit_y = self._resolve_series(j)
+            x, hit_x = self._resolve_series(j, leg2=True)
             if y.n_bars != x.n_bars:
                 log.error("pairs job %s legs differ in length (%d vs %d); "
                           "completing with empty metrics", j.id, y.n_bars,
@@ -1647,7 +1945,10 @@ class TorchSweepBackend:
                     j.wf_train + j.wf_test, j.wf_train, j.wf_test, y.n_bars)
                 bad.append(j)
                 continue
+            hits += hit_y and hit_x
             good.append((j, y, x))
+        self._observe_decode(group, t0_wall, t_dec, hits,
+                             bool(good) and hits == len(good), len(group))
         if not good:
             return _empty(bad, t0)
         jobs = [j for j, _, _ in good]
@@ -1697,6 +1998,7 @@ class TorchSweepBackend:
                         [j.id for j in jobs], t_max, ts_reason)
         demotion = _pairs_demotion_reason(axes)
         if demotion is None:
+            self._observe_substrates(_PAIRS)
             g = {k: v.numpy() for k, v in grid.items()}
 
             def run(blks, tr, dev):

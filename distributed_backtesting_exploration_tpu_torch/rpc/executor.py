@@ -22,15 +22,29 @@ Shutdown is an ordered drain: the sentinel :meth:`Executor.close` puts
 behind the queued batches passes through both stages in order, so every
 batch taken before it is submitted and collected before the threads exit.
 A batch whose submit or collect raises is logged and gets no completions:
-its jobs stay leased and the dispatcher re-queues them.
+its jobs stay leased and the dispatcher re-queues them; it also fires the
+flight recorder's ``collect_fail`` trigger (``obs.flight``), which writes
+a bundle where ``DBX_FLIGHT_DIR`` is set.
+
+Spans, the reference worker's, each on the batch's traces and carrying
+``jobs`` and ``worker``: ``worker.process`` around a serial batch;
+``worker.submit`` and ``worker.collect`` around the pipeline's two halves,
+and ``worker.inflight`` for the window between a batch's submit and the
+start of its collect, when it is on the card while the submit thread
+stages the next.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import queue
 import threading
+import time
+
+from .. import obs
+from ..obs import flight as obs_flight
 
 log = logging.getLogger("dbx.torch.executor")
 
@@ -56,11 +70,14 @@ class Executor:
     ``pipelined`` and ``depth`` default to ``DBX_PIPELINE`` and
     ``DBX_PIPELINE_DEPTH``; a backend without ``submit`` and ``collect``
     always runs serially. :attr:`busy` is set while any batch is in flight.
+    ``worker_id`` names the worker in spans and flight triggers.
     """
 
     def __init__(self, backend, *, max_queued: int = 2,
-                 pipelined: bool | None = None, depth: int | None = None):
+                 pipelined: bool | None = None, depth: int | None = None,
+                 worker_id: str = ""):
         self.backend = backend
+        self.worker_id = worker_id
         two_phase = (hasattr(backend, "submit")
                      and hasattr(backend, "collect"))
         self.pipelined = two_phase and (pipeline_enabled() if pipelined
@@ -98,6 +115,28 @@ class Executor:
             except queue.Empty:
                 return out
 
+    @property
+    def inflight(self) -> int:
+        """Batches taken and not yet fully collected."""
+        with self._lock:
+            return self._inflight
+
+    @contextlib.contextmanager
+    def _span(self, name: str, batch):
+        """The span ``name`` inside ``obs.trace_context`` of the batch's
+        dispatcher-minted traces: it joins each job's trace."""
+        with obs.trace_context(obs.job_trace_pairs(batch)), \
+                obs.span(name, jobs=len(batch), worker=self.worker_id):
+            yield
+
+    def _failed(self, what: str, batch, err: Exception) -> None:
+        """The boundary that must keep running: the batch's jobs stay
+        leased and the dispatcher re-queues them."""
+        log.error("%s a batch of %d jobs failed; leaving the leases to "
+                  "re-queue them", what, len(batch), exc_info=err)
+        obs_flight.trigger("collect_fail", subject=self.worker_id,
+                           jobs=len(batch), reason=repr(err))
+
     def _begin(self) -> None:
         with self._lock:
             self._inflight += 1
@@ -124,12 +163,11 @@ class Executor:
                 return
             self._begin()
             try:
-                self._emit(batch, self.backend.process(batch))
-            except Exception:
-                # The boundary that must keep running: the jobs stay
-                # leased and the dispatcher re-queues them.
-                log.exception("batch of %d jobs failed; leaving the leases "
-                              "to re-queue them", len(batch))
+                with self._span("worker.process", batch):
+                    completions = self.backend.process(batch)
+                self._emit(batch, completions)
+            except Exception as e:
+                self._failed("processing", batch, e)
             finally:
                 self._end()
 
@@ -151,15 +189,14 @@ class Executor:
                 slots.acquire()
                 self._begin()
                 try:
-                    handle = self.backend.submit(batch)
-                except Exception:
-                    log.exception("submitting a batch of %d jobs failed; "
-                                  "leaving the leases to re-queue them",
-                                  len(batch))
+                    with self._span("worker.submit", batch):
+                        handle = self.backend.submit(batch)
+                except Exception as e:
+                    self._failed("submitting", batch, e)
                     self._end()
                     slots.release()
                     continue
-                handoff.put((handle, batch))
+                handoff.put((handle, batch, time.time()))
         finally:
             # The sentinel lands behind every submitted batch, so the
             # collector finishes them all before it exits.
@@ -171,13 +208,21 @@ class Executor:
             item = handoff.get()
             if item is None:
                 return
-            handle, batch = item
+            handle, batch, submitted = item
+            # Without a span, obs.timeline would charge the window in which
+            # the batch is on the card to transport.
+            wait_s = time.time() - submitted
+            if wait_s > 0:
+                obs.emit_span("worker.inflight", submitted, wait_s,
+                              pairs=obs.job_trace_pairs(batch),
+                              jobs=len(batch))
             try:
-                self._emit(batch, self.backend.collect(handle))
-            except Exception:
-                log.exception("collecting a batch of %d jobs failed; "
-                              "leaving the leases to re-queue them",
-                              len(batch))
+                with self._span("worker.collect", batch):
+                    completions = self.backend.collect(handle)
+                self._emit(batch, completions)
+            except Exception as e:
+                self._failed("collecting", batch, e)
             finally:
                 self._end()
                 slots.release()
+

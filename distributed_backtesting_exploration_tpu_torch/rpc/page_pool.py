@@ -28,7 +28,11 @@ behind those gathers on the same stream. A pool that grows is a new
 tensor; ``prepare`` returns the newest.
 
 Hits and misses by field, rejects and the pad bars of new pages are plain
-attributes that :meth:`PagePool.stats` returns.
+attributes that :meth:`PagePool.stats` returns, the pool's own. The same
+events count into the registry (the process's by default) under the
+reference's names: ``dbx_page_pool_hits_total`` and
+``dbx_page_pool_misses_total{field}``, ``dbx_page_pool_rejects_total``,
+and the gauges ``dbx_page_pool_bytes`` and ``dbx_page_pool_pages``.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ import numpy as np
 import torch
 
 from .. import device as device_mod
+from .. import obs
 from ..ops.fused import resolve_page_bars
 from ..utils import data as data_mod
 
@@ -85,7 +90,8 @@ class PagePool:
 
     def __init__(self, *, device: str | torch.device =
                  device_mod.DEFAULT_DEVICE, page_bars: int | None = None,
-                 max_bytes: int | None = None):
+                 max_bytes: int | None = None,
+                 registry: obs.Registry | None = None):
         self.device = device_mod.resolve(device)
         self.page_bars = int(page_bars if page_bars is not None
                              else resolve_page_bars())
@@ -107,6 +113,26 @@ class PagePool:
         self.misses = {f: 0 for f in data_mod._FIELDS}
         self.rejects = 0
         self.pad_bars_new = 0
+        reg = registry or obs.get_registry()
+        # Made for every OHLCV field up front, so that /metrics shows them
+        # from the first scrape.
+        help_ = ("page-pool page lookups by OHLCV field (hit = page already "
+                 "device-resident)")
+        self._c_hits = {f: reg.counter("dbx_page_pool_hits_total",
+                                       help=help_, field=f)
+                        for f in data_mod._FIELDS}
+        self._c_misses = {f: reg.counter("dbx_page_pool_misses_total",
+                                         help=help_, field=f)
+                          for f in data_mod._FIELDS}
+        self._c_rejects = reg.counter(
+            "dbx_page_pool_rejects_total",
+            help="groups the page pool could not hold (caller fell back "
+                 "to the dense path)")
+        self._g_bytes = reg.gauge(
+            "dbx_page_pool_bytes",
+            help="bytes of live pages in the device page pool")
+        self._g_pages = reg.gauge(
+            "dbx_page_pool_pages", help="live pages in the device page pool")
 
     def _keys_for(self, digest: str, field: str, values) -> list[str]:
         """Page keys of one panel's field, memoized per ``(digest,
@@ -169,9 +195,12 @@ class PagePool:
                 plan = self._plan(digests, series_list, fields)
                 if plan is None:
                     self.rejects += 1
+                    self._c_rejects.inc()
                     return None
                 tables, new_slots, new_pages, pad_new = plan
                 self.pad_bars_new += pad_new
+                self._g_pages.set(len(self._slots))
+                self._g_bytes.set(len(self._slots) * self.page_bars * 4)
                 if self._pool is None:
                     self._ensure_alloc(_MIN_SLOTS)
                 pool = self._pool
@@ -229,6 +258,10 @@ class PagePool:
         for f in fields:
             self.hits[f] += hits[f]
             self.misses[f] += miss[f]
+            if hits[f]:
+                self._c_hits[f].inc(hits[f])
+            if miss[f]:
+                self._c_misses[f].inc(miss[f])
         max_pages = max((len(k) for ks in per_field.values() for k in ks),
                         default=1)
         tables = {}

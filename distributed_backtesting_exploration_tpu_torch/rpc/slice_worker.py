@@ -51,6 +51,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import obs
 from ..ops.metrics import Metrics
 from ..parallel import multihost
 from ..parallel import sharding
@@ -249,7 +250,17 @@ class SliceWorker:
             self._channel = grpc.insecure_channel(
                 connect, options=service.default_channel_options())
             self._stub = service.DispatcherStub(self._channel)
-            self._series = compute.PanelCache(device="cpu")
+            # The leader's RPCs share the worker's metric families: the
+            # dispatcher, and /metrics, see a slice as one worker.
+            reg = obs.get_registry()
+            self._h_rpc = {
+                m: reg.histogram("dbx_worker_rpc_seconds",
+                                 help="worker-side RPC wall (incl. wire)",
+                                 method=m)
+                for m in ("RequestJobs", "CompleteJobs", "FetchPayload")}
+            self._c_jobs_in = reg.counter(
+                "dbx_worker_jobs_received_total", help="jobs received")
+            self._series = compute.PanelCache(device="cpu", registry=reg)
             log.info("slice worker %s: leader of %d processes, %d chips",
                      self.worker_id, multihost.process_count(), runner.chips)
 
@@ -275,11 +286,14 @@ class SliceWorker:
     def _leader_loop(self, max_idle_polls: int | None) -> None:
         idle = 0
         while True:
-            reply = self._stub.RequestJobs(pb.JobsRequest(
-                worker_id=self.worker_id, chips=self.runner.chips,
-                jobs_per_chip=self.jobs_per_chip, accepts_digest_only=True),
-                timeout=10.0)
+            with obs.timer(self._h_rpc["RequestJobs"]):
+                reply = self._stub.RequestJobs(pb.JobsRequest(
+                    worker_id=self.worker_id, chips=self.runner.chips,
+                    jobs_per_chip=self.jobs_per_chip,
+                    accepts_digest_only=True), timeout=10.0)
             jobs = list(reply.jobs)
+            if jobs:
+                self._c_jobs_in.inc(len(jobs))
             if not jobs:
                 idle += 1
                 if max_idle_polls is not None and idle >= max_idle_polls:
@@ -351,9 +365,10 @@ class SliceWorker:
         raw = job.ohlcv
         if not raw and job.panel_digest:
             try:
-                raw = self._stub.FetchPayload(pb.PayloadRequest(
-                    worker_id=self.worker_id, digest=job.panel_digest),
-                    timeout=10.0).payload
+                with obs.timer(self._h_rpc["FetchPayload"]):
+                    raw = self._stub.FetchPayload(pb.PayloadRequest(
+                        worker_id=self.worker_id, digest=job.panel_digest),
+                        timeout=10.0).payload
             except Exception:
                 log.exception("slice worker: FetchPayload %s failed",
                               job.panel_digest[:16])
@@ -367,9 +382,13 @@ class SliceWorker:
         return s
 
     def _complete(self, items) -> None:
-        self._stub.CompleteJobs(pb.CompleteBatch(
-            worker_id=self.worker_id,
-            items=[pb.CompleteItem(id=j.id, metrics=b, elapsed_s=s,
-                                   trace_id=j.trace_id)
-                   for j, b, s in items]), timeout=10.0)
+        # The report span joins each job's trace.
+        with obs.trace_context(obs.job_trace_pairs(j for j, _, _ in items)), \
+                obs.span("worker.report", jobs=len(items)), \
+                obs.timer(self._h_rpc["CompleteJobs"]):
+            self._stub.CompleteJobs(pb.CompleteBatch(
+                worker_id=self.worker_id,
+                items=[pb.CompleteItem(id=j.id, metrics=b, elapsed_s=s,
+                                       trace_id=j.trace_id)
+                       for j, b, s in items]), timeout=10.0)
         self.jobs_completed += len(items)

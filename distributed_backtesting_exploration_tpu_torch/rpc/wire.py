@@ -7,6 +7,11 @@ block (the k best grid indices and their metric rows), a best-returns job
 metric row and the net-return series under it). The bytes must equal the
 reference's for the same values: the dispatcher decodes blocks from JAX
 and PyTorch workers alike.
+
+Every block through the codec counts into ``dbx_wire_blocks_total`` and
+``dbx_wire_bytes_total{direction,kind}`` (direction ``encode`` or
+``decode``, kind ``metrics``, ``topk`` or ``returns``), the reference's
+counters in the port's registry.
 """
 
 from __future__ import annotations
@@ -16,8 +21,31 @@ from typing import Mapping
 
 import numpy as np
 
+from ..obs import get_registry
 from ..ops.metrics import Metrics
 from . import backtesting_pb2 as pb
+
+# Made once here: encode runs once a completed job on the worker's hot
+# path, two increments a block.
+_WIRE_COUNTERS = {
+    (d, kind): (get_registry().counter(
+                    "dbx_wire_blocks_total",
+                    help="result blocks through the codec",
+                    direction=d, kind=kind),
+                get_registry().counter(
+                    "dbx_wire_bytes_total",
+                    help="result bytes through the codec",
+                    direction=d, kind=kind))
+    for d in ("encode", "decode")
+    for kind in ("metrics", "topk", "returns")}
+
+
+def _count_wire(direction: str, kind: str, n_bytes: int,
+                n_blocks: int = 1) -> None:
+    blocks, total = _WIRE_COUNTERS[(direction, kind)]
+    blocks.inc(n_blocks)
+    total.inc(n_bytes)
+
 
 _METRICS_MAGIC = b"DBXM"
 
@@ -30,7 +58,9 @@ def metrics_to_bytes(m: Metrics) -> bytes:
     if any(f.shape[0] != P for f in fields):
         raise ValueError("all metric fields must have equal length")
     head = _METRICS_MAGIC + struct.pack("<II", P, len(fields))
-    return head + b"".join(f.tobytes() for f in fields)
+    out = head + b"".join(f.tobytes() for f in fields)
+    _count_wire("encode", "metrics", len(out))
+    return out
 
 
 def metrics_blocks(planes: np.ndarray) -> list[bytes]:
@@ -40,7 +70,9 @@ def metrics_blocks(planes: np.ndarray) -> list[bytes]:
     planes = np.ascontiguousarray(planes, dtype="<f4")
     n_fields, n, P = planes.shape
     head = _METRICS_MAGIC + struct.pack("<II", P, n_fields)
-    return [b"".join([head, *planes[:, i]]) for i in range(n)]
+    out = [b"".join([head, *planes[:, i]]) for i in range(n)]
+    _count_wire("encode", "metrics", n * (len(head) + 4 * n_fields * P), n)
+    return out
 
 
 def metrics_from_bytes(data: bytes) -> Metrics:
@@ -62,6 +94,7 @@ def metrics_from_bytes(data: bytes) -> Metrics:
     for _ in range(n_fields):
         out.append(np.frombuffer(data, dtype="<f4", count=P, offset=off).copy())
         off += 4 * P
+    _count_wire("decode", "metrics", len(data))
     return Metrics(*out)
 
 
@@ -81,7 +114,9 @@ def topk_to_bytes(indices, m: Metrics, rank_metric: str) -> bytes:
     if len(name) > 255:
         raise ValueError("rank_metric name too long")
     head = _TOPK_MAGIC + struct.pack("<IIB", k, len(fields), len(name)) + name
-    return head + idx.tobytes() + b"".join(f.tobytes() for f in fields)
+    out = head + idx.tobytes() + b"".join(f.tobytes() for f in fields)
+    _count_wire("encode", "topk", len(out))
+    return out
 
 
 def topk_from_bytes(data: bytes) -> tuple[np.ndarray, Metrics, str]:
@@ -111,6 +146,7 @@ def topk_from_bytes(data: bytes) -> tuple[np.ndarray, Metrics, str]:
         out.append(np.frombuffer(data, dtype="<f4", count=k,
                                  offset=off).copy())
         off += 4 * k
+    _count_wire("decode", "topk", len(data))
     return idx, Metrics(*out), rank_metric
 
 
@@ -131,7 +167,9 @@ def best_returns_to_bytes(grid_idx: int, m_row: Metrics, returns,
     head = _RETURNS_MAGIC + struct.pack(
         "<IIIB", int(grid_idx), ret.shape[0], vals.shape[0],
         len(name)) + name
-    return head + vals.tobytes() + ret.tobytes()
+    out = head + vals.tobytes() + ret.tobytes()
+    _count_wire("encode", "returns", len(out))
+    return out
 
 
 def best_returns_from_bytes(
@@ -162,6 +200,7 @@ def best_returns_from_bytes(
     vals = np.frombuffer(data, dtype="<f4", count=n_fields, offset=off)
     off += 4 * n_fields
     ret = np.frombuffer(data, dtype="<f4", count=T, offset=off).copy()
+    _count_wire("decode", "returns", len(data))
     return (int(grid_idx), Metrics(*(np.float32(v) for v in vals)), ret,
             rank_metric)
 

@@ -7,10 +7,12 @@ The control thread (:meth:`Worker.run`) polls ``RequestJobs`` with
 each digest-only payload its backend's panel cache does not hold through
 ``FetchPayload`` (at most once a digest a batch) before the batch crosses
 to the compute side, hands the batch to the backend's ``prefetch`` on a
-prefetch thread, and reports the completions with ``CompleteJobs``. The
-compute side is an :class:`~.executor.Executor`: one serial thread, or
-with ``DBX_PIPELINE=1`` and a two-phase backend a submit thread and a
-collector thread (``DBX_PIPELINE_DEPTH``).
+prefetch thread (``DBX_PREFETCH``, default on, read when :meth:`run`
+starts; ``0`` leaves every decode to the compute side), and reports the
+completions with ``CompleteJobs``. The compute side is an
+:class:`~.executor.Executor`: one serial thread, or with
+``DBX_PIPELINE=1`` and a two-phase backend a submit thread and a collector
+thread (``DBX_PIPELINE_DEPTH``).
 
 The backend serves top-k, best-returns, walk-forward, digest-only,
 streaming append and scenario spec-batch jobs (the poll declares
@@ -20,9 +22,9 @@ cache holds is left for the backend to splice, not fetched in full. A job
 it refuses (a field the port does not serve) gets no completion and stays
 leased, and the dispatcher re-queues it when the lease expires; the other
 jobs of its batch are reported. A batch whose submit or collect raises is
-logged and left leased the same way. On exit the worker drains in order:
-every batch taken is submitted, collected and reported before it
-returns.
+logged, fires the flight recorder's ``collect_fail`` trigger and is left
+leased the same way. On exit the worker drains in order: every batch
+taken is submitted, collected and reported before it returns.
 
 Tuning (the reference's tune legs), for a backend with a
 ``schedule_registry``: each poll carries the schedule entries tuned or
@@ -34,16 +36,36 @@ a :class:`~..tune.CacheSync` on the build directory) and adopts the
 fleet's merged schedule (``GetStats.schedule_json``). Each leg is
 best-effort: a failed one costs a tick, never a job.
 
+Observability, the reference's names in the worker's registry (the
+process's by default): ``dbx_worker_rpc_seconds`` and
+``dbx_worker_rpc_errors_total{method}`` for every RPC;
+``dbx_worker_wire_bytes_total{method,direction}``, the serialized bytes
+of ``RequestJobs``, ``CompleteJobs`` and ``FetchPayload`` requests and
+replies, counted by the channel's serializers as the request is
+serialized and as the reply is parsed (before gzip); the polls, idle
+polls, jobs received, payload fetches and dropped completions; and, made
+in :meth:`run` and removed when it ends, the gauges of this worker
+(``dbx_worker_jobs_per_sec``, ``dbx_worker_channel_depth{channel}``,
+``dbx_worker_deferred_completions``, ``dbx_worker_busy``). Spans on each
+job's trace: ``worker.prefetch`` (a warm-up that decoded something),
+``worker.report`` (a ``CompleteJobs`` attempt), the executor's and the
+backend's. Fleet telemetry (``DBX_FLEET_TELEMETRY``, default on): each
+poll carries an ``obs.fleet.WorkerTelemetry`` frame on
+``JobsRequest.telemetry_json`` when something changed or the heartbeat
+elapsed, sent again after a failed poll; the dispatcher's fleet view
+merges it.
+
 Run it:
 
-    python -m distributed_backtesting_exploration_tpu_torch.rpc.worker \
-        --connect localhost:50051 --device cuda
+    python -m distributed_backtesting_exploration_tpu_torch.rpc.worker \\
+        --connect localhost:50051 --device cuda --metrics-port 9100
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 import queue
 import signal
 import threading
@@ -52,10 +74,11 @@ import uuid
 
 import grpc
 
-from .. import tune
+from .. import obs, tune
+from ..obs import fleet as obs_fleet
 from . import backtesting_pb2 as pb
 from . import compute, service
-from .executor import Executor
+from .executor import Executor, pipeline_depth
 
 log = logging.getLogger("dbx.torch.worker")
 
@@ -67,14 +90,68 @@ _REPORT_BATCH = 256
 # Compile-cache entries fetched a FetchCompiled RPC (a reply stays under
 # the channel's message cap even when the fleet store is full).
 _COMPILE_FETCH_BATCH = 32
+_RPC_METHODS = ("RequestJobs", "SendStatus", "CompleteJobs", "FetchPayload",
+                "FetchCompiled", "OfferCompiled", "GetStats")
+# The RPCs whose serialized bytes count as the worker's wire bytes.
+_WIRE_METHODS = ("RequestJobs", "CompleteJobs", "FetchPayload")
+
+
+def prefetch_enabled() -> bool:
+    """``DBX_PREFETCH`` (default on): the prefetch thread decodes queued
+    batches' payloads into the backend's cache ahead of the compute side.
+    Any of ``0``, ``off``, ``false`` turns it off."""
+    return os.environ.get("DBX_PREFETCH", "1").lower() not in (
+        "0", "off", "false")
+
+
+class _WireCountingChannel:
+    """A gRPC channel whose ``_WIRE_METHODS`` count their serialized
+    request and reply bytes into ``counters[(method, direction)]``, in the
+    serializers the call runs anyway. Every other attribute is the
+    channel's own."""
+
+    def __init__(self, channel, counters: dict):
+        self._channel = channel
+        self._counters = counters
+
+    def __getattr__(self, name):
+        return getattr(self._channel, name)
+
+    def unary_unary(self, method, request_serializer=None,
+                    response_deserializer=None, **kw):
+        name = method.rsplit("/", 1)[-1]
+        if name in _WIRE_METHODS:
+            sent = self._counters[(name, "request")]
+            got = self._counters[(name, "reply")]
+
+            def serialize(msg, _ser=request_serializer):
+                b = _ser(msg)
+                sent.inc(len(b))
+                return b
+
+            def deserialize(b, _de=response_deserializer):
+                got.inc(len(b))
+                return _de(b)
+
+            request_serializer, response_deserializer = serialize, deserialize
+        return self._channel.unary_unary(
+            method, request_serializer=request_serializer,
+            response_deserializer=response_deserializer, **kw)
+
+
+class _SyncLegFailed(Exception):
+    """One tune-sync RPC failed (counted under its method); the tick
+    ends and the next retries."""
 
 
 class Worker:
-    """Poll ``target`` for jobs and run them on ``backend``."""
+    """Poll ``target`` for jobs and run them on ``backend``; metrics go to
+    ``registry`` (the process's by default)."""
 
     def __init__(self, target: str, backend, *, worker_id: str | None = None,
                  poll_interval_s: float = 0.25,
-                 status_interval_s: float = 1.0, jobs_per_chip: int = 1):
+                 status_interval_s: float = 1.0, jobs_per_chip: int = 1,
+                 registry: obs.Registry | None = None):
         self.target = target
         self.backend = backend
         self.worker_id = worker_id or str(uuid.uuid4())
@@ -91,15 +168,99 @@ class Worker:
         self._next_tune_sync = 0.0
         self._stop = threading.Event()
         self._executor: Executor | None = None
+        # Completions waiting for a retry of their CompleteJobs.
+        self._retrying = 0
+        reg = self.obs = registry or obs.get_registry()
+        self._h_rpc = {m: reg.histogram(
+            "dbx_worker_rpc_seconds",
+            help="worker-side RPC wall (incl. wire)", method=m)
+            for m in _RPC_METHODS}
+        self._c_rpc_errors = {m: reg.counter(
+            "dbx_worker_rpc_errors_total",
+            help="failed worker RPC attempts", method=m)
+            for m in _RPC_METHODS}
+        self._c_wire = {(m, d): reg.counter(
+            "dbx_worker_wire_bytes_total",
+            help="serialized proto bytes over worker RPCs",
+            method=m, direction=d)
+            for m in _WIRE_METHODS for d in ("request", "reply")}
+        self._c_fetches = reg.counter(
+            "dbx_worker_payload_fetches_total",
+            help="FetchPayload recoveries for digest-only jobs")
+        self._c_polls = reg.counter(
+            "dbx_worker_polls_total", help="RequestJobs polls sent")
+        self._c_idle_polls = reg.counter(
+            "dbx_worker_idle_polls_total", help="polls answered empty")
+        self._c_jobs_in = reg.counter(
+            "dbx_worker_jobs_received_total", help="jobs received")
+        self._c_dropped = reg.counter(
+            "dbx_worker_completions_dropped_total",
+            help="completions dropped after retry exhaustion")
+        # The per-worker gauges are made in run() and removed when it
+        # ends: a worker made and never run leaves no series behind.
+        self._jobs_rate = obs.StepTimer()
+        self._gauges: dict | None = None
+        self._telemetry: obs_fleet.WorkerTelemetry | None = None
 
     def stop(self) -> None:
         self._stop.set()
 
     def _channel(self) -> grpc.Channel:
-        """The channel :meth:`run` opens to the dispatcher."""
-        return grpc.insecure_channel(
+        """The channel :meth:`run` opens to the dispatcher, counting the
+        wire bytes of its calls."""
+        return _WireCountingChannel(grpc.insecure_channel(
             self.target, options=service.default_channel_options(),
-            compression=grpc.Compression.Gzip)
+            compression=grpc.Compression.Gzip), self._c_wire)
+
+    def _telemetry_stats(self) -> dict:
+        """The worker's counts for its fleet telemetry frame."""
+        ex = self._executor
+        return {"jobs_completed": self.jobs_completed,
+                "completions_dropped": self.completions_dropped,
+                "polls": int(self._c_polls.value),
+                "busy": int(ex is not None and ex.busy.is_set()),
+                "inflight": ex.inflight if ex is not None else 0,
+                "pipeline_on": bool(ex is not None and ex.pipelined),
+                "pipeline_depth": (ex.depth if ex is not None
+                                   else pipeline_depth())}
+
+    def _collect_gauges(self, reg) -> None:
+        # Sets the children made in run(): a scrape racing run()'s cleanup
+        # sets detached objects and registers nothing again.
+        g, ex = self._gauges, self._executor
+        if g is None or ex is None:
+            return
+        g["in"].set(ex.inbox.qsize())
+        g["out"].set(ex.outbox.qsize())
+        g["deferred"].set(self._retrying)
+        g["busy"].set(1 if ex.busy.is_set() else 0)
+
+    def _start_gauges(self) -> None:
+        wid, reg = self.worker_id, self.obs
+        self._jobs_rate = obs.StepTimer(reg.gauge(
+            "dbx_worker_jobs_per_sec",
+            help="accepted completions/s since worker start", worker=wid))
+        self._gauges = {
+            "in": reg.gauge("dbx_worker_channel_depth", worker=wid,
+                            channel="in"),
+            "out": reg.gauge("dbx_worker_channel_depth", worker=wid,
+                             channel="out"),
+            "deferred": reg.gauge("dbx_worker_deferred_completions",
+                                  worker=wid),
+            "busy": reg.gauge("dbx_worker_busy", worker=wid)}
+        reg.add_collector(f"worker-{wid}", self._collect_gauges)
+
+    def _stop_gauges(self) -> None:
+        wid, reg = self.worker_id, self.obs
+        reg.remove_collector(f"worker-{wid}")
+        self._jobs_rate.bind_gauge(None)
+        self._gauges = None
+        reg.remove_child("dbx_worker_jobs_per_sec", worker=wid)
+        for ch in ("in", "out"):
+            reg.remove_child("dbx_worker_channel_depth", worker=wid,
+                             channel=ch)
+        reg.remove_child("dbx_worker_deferred_completions", worker=wid)
+        reg.remove_child("dbx_worker_busy", worker=wid)
 
     def run(self, *, max_idle_polls: int | None = None) -> None:
         """Run until stopped, or until ``max_idle_polls`` consecutive empty
@@ -117,10 +278,18 @@ class Worker:
         tunes = getattr(self.backend, "schedule_registry", None) is not None
         if tunes:
             self._compile_sync = tune.attach()
-        ex = self._executor = Executor(self.backend)
+        if obs_fleet.telemetry_enabled():
+            # A new frame generation a run: a restarted worker's frames
+            # supersede its predecessor's at the dispatcher.
+            self._telemetry = obs_fleet.WorkerTelemetry(
+                self.worker_id, stats_fn=self._telemetry_stats,
+                backend=self.backend, registry=self.obs)
+        ex = self._executor = Executor(self.backend,
+                                       worker_id=self.worker_id)
+        self._start_gauges()
         prefetch_q: queue.Queue | None = None
         prefetcher = None
-        if hasattr(self.backend, "prefetch"):
+        if hasattr(self.backend, "prefetch") and prefetch_enabled():
             prefetch_q = queue.Queue()
             prefetcher = threading.Thread(target=self._prefetch_loop,
                                           args=(prefetch_q,),
@@ -175,6 +344,7 @@ class Worker:
             done.set()
             beat.join(timeout=10.0)
             channel.close()
+            self._stop_gauges()
 
     def _heartbeat(self, stub, done: threading.Event) -> None:
         while not done.is_set():
@@ -183,11 +353,24 @@ class Worker:
                       if ex is not None and ex.busy.is_set()
                       else pb.WORKER_STATUS_IDLE)
             try:
-                stub.SendStatus(pb.StatusRequest(
-                    worker_id=self.worker_id, status=status), timeout=5.0)
+                with obs.timer(self._h_rpc["SendStatus"]):
+                    stub.SendStatus(pb.StatusRequest(
+                        worker_id=self.worker_id, status=status),
+                        timeout=5.0)
             except grpc.RpcError as e:
+                self._c_rpc_errors["SendStatus"].inc()
                 log.warning("SendStatus failed: %s", e.code())
             done.wait(self.status_interval_s)
+
+    def _call(self, method: str, fn, *args, **kw):
+        """One timed RPC; a failure counts under ``method`` and raises
+        :class:`_SyncLegFailed`."""
+        try:
+            with obs.timer(self._h_rpc[method]):
+                return fn(*args, **kw)
+        except grpc.RpcError as e:
+            self._c_rpc_errors[method].inc()
+            raise _SyncLegFailed(f"{method}: {e.code()}") from e
 
     def _sync_tune(self, stub) -> None:
         """One tune sync tick (control thread): offer the libraries this
@@ -200,56 +383,73 @@ class Worker:
                 fresh = sync.poll_new()
                 if fresh:
                     try:
-                        stub.OfferCompiled(pb.CompiledOffer(
-                            worker_id=self.worker_id,
-                            entries=[pb.CompiledEntry(key=k, name=n,
-                                                      payload=p)
-                                     for k, n, p in fresh]), timeout=30.0)
-                    except grpc.RpcError:
+                        self._call("OfferCompiled", stub.OfferCompiled,
+                                   pb.CompiledOffer(
+                                       worker_id=self.worker_id,
+                                       entries=[pb.CompiledEntry(
+                                           key=k, name=n, payload=p)
+                                           for k, n, p in fresh]),
+                                   timeout=30.0)
+                    except _SyncLegFailed:
                         # Offered again on the next tick.
                         sync.unmark(fresh)
                         raise
-                listing = stub.FetchCompiled(pb.CompiledRequest(
-                    worker_id=self.worker_id), timeout=10.0)
+                listing = self._call("FetchCompiled", stub.FetchCompiled,
+                                     pb.CompiledRequest(
+                                         worker_id=self.worker_id),
+                                     timeout=10.0)
                 miss = sync.missing(listing.known_keys)
                 for i in range(0, len(miss), _COMPILE_FETCH_BATCH):
                     chunk = miss[i:i + _COMPILE_FETCH_BATCH]
-                    got = stub.FetchCompiled(pb.CompiledRequest(
-                        worker_id=self.worker_id, keys=chunk), timeout=60.0)
+                    got = self._call("FetchCompiled", stub.FetchCompiled,
+                                     pb.CompiledRequest(
+                                         worker_id=self.worker_id,
+                                         keys=chunk), timeout=60.0)
                     installed = sync.install(
                         (e.key, e.name, e.payload) for e in got.entries)
                     sync.count_fleet_misses(len(chunk) - installed)
-            stats = stub.GetStats(pb.StatsRequest(), timeout=10.0)
+            stats = self._call("GetStats", stub.GetStats, pb.StatsRequest(),
+                               timeout=10.0)
             if stats.schedule_json:
                 self.backend.schedule_registry.merge_json(
                     stats.schedule_json)
-        except grpc.RpcError as e:
-            log.warning("tune sync tick failed (%s); retrying next tick",
-                        e.code())
+        except _SyncLegFailed as e:
+            log.warning("tune sync tick failed (%s); retrying next tick", e)
         except Exception:
             log.exception("tune sync tick failed; retrying next tick")
 
     def _poll(self, stub):
         """One ``RequestJobs``: the jobs (maybe none), or None on an RPC
-        error. It carries the schedule entries tuned since the last poll;
-        a failed poll marks them to be sent again."""
+        error. It carries the schedule entries tuned since the last poll
+        and the telemetry frame; a failed poll marks both to be sent
+        again."""
+        self._c_polls.inc()
         reg = getattr(self.backend, "schedule_registry", None)
         schedule_json = reg.take_dirty_json() if reg is not None else ""
+        telemetry_json = (self._telemetry.take_frame_json()
+                          if self._telemetry is not None else "")
         req = pb.JobsRequest(
             worker_id=self.worker_id, chips=self.backend.chips,
             jobs_per_chip=self.jobs_per_chip, accepts_digest_only=True,
             accepts_scenario_batch=getattr(self.backend,
                                            "accepts_scenario_batch", False),
-            schedule_json=schedule_json)
+            schedule_json=schedule_json, telemetry_json=telemetry_json)
         try:
-            jobs = list(stub.RequestJobs(req, timeout=30.0).jobs)
+            with obs.timer(self._h_rpc["RequestJobs"]):
+                jobs = list(stub.RequestJobs(req, timeout=30.0).jobs)
         except grpc.RpcError as e:
+            self._c_rpc_errors["RequestJobs"].inc()
             log.warning("RequestJobs failed: %s", e.code())
             if schedule_json:
                 reg.remark_dirty(schedule_json)
+            if telemetry_json:
+                self._telemetry.remark_dirty()
             return None
         if jobs:
             log.info("received %d jobs", len(jobs))
+            self._c_jobs_in.inc(len(jobs))
+        else:
+            self._c_idle_polls.inc()
         return jobs
 
     def _resolve_payloads(self, stub, jobs) -> None:
@@ -294,8 +494,10 @@ class Worker:
         serve the digest or the RPC fails."""
         req = pb.PayloadRequest(worker_id=self.worker_id, digest=digest)
         try:
-            reply = stub.FetchPayload(req, timeout=30.0)
+            with obs.timer(self._h_rpc["FetchPayload"]):
+                reply = stub.FetchPayload(req, timeout=30.0)
         except grpc.RpcError as e:
+            self._c_rpc_errors["FetchPayload"].inc()
             log.warning("FetchPayload failed: %s", e.code())
             return b""
         if not reply.payload:
@@ -304,21 +506,32 @@ class Worker:
                         digest[:16])
             return b""
         self.payload_fetches += 1
+        self._c_fetches.inc()
         return reply.payload
 
     def _prefetch_loop(self, jobs_q: queue.Queue) -> None:
         """Best-effort decode of queued batches into the backend's cache,
         off the control thread; the compute side re-resolves through the
-        same cache, so a failure costs only the overlap."""
+        same cache, so a failure costs only the overlap. A warm-up that
+        decoded something is the span ``worker.prefetch`` (decode work done
+        early, so obs.timeline still sees it when the compute side's decode
+        is a cache hit)."""
         while True:
             jobs = jobs_q.get()
             if jobs is None:
                 return
+            t0_wall, t0 = time.time(), time.perf_counter()
             try:
-                self.backend.prefetch(jobs)
+                warmed = self.backend.prefetch(jobs)
             except Exception:
                 log.exception("backend prefetch failed; the compute thread "
                               "will decode inline")
+                continue
+            if warmed:
+                obs.emit_span("worker.prefetch", t0_wall,
+                              time.perf_counter() - t0,
+                              pairs=obs.job_trace_pairs(jobs),
+                              jobs=len(jobs), warmed=warmed)
 
     def _report(self, stub, completions) -> None:
         for lo in range(0, len(completions), _REPORT_BATCH):
@@ -329,20 +542,33 @@ class Worker:
             pb.CompleteItem(id=c.job_id, metrics=c.metrics,
                             elapsed_s=c.elapsed_s, trace_id=c.trace_id)
             for c in completions])
+        # The report joins each completion's trace as a root-level stage.
+        pairs = [(c.trace_id, "") for c in completions]
         for attempt, backoff in enumerate((0.0,) + _REPORT_BACKOFF_S):
-            if backoff and self._stop.wait(backoff):
-                break
+            if backoff:
+                self._retrying = len(completions)
+                stopped = self._stop.wait(backoff)
+                self._retrying = 0
+                if stopped:
+                    break
             try:
-                reply = stub.CompleteJobs(req, timeout=8.0)
+                with obs.trace_context(pairs), \
+                        obs.span("worker.report", jobs=len(completions),
+                                 worker=self.worker_id), \
+                        obs.timer(self._h_rpc["CompleteJobs"]):
+                    reply = stub.CompleteJobs(req, timeout=8.0)
             except grpc.RpcError as e:
+                self._c_rpc_errors["CompleteJobs"].inc()
                 log.warning("CompleteJobs attempt %d failed: %s", attempt + 1,
                             e.code())
                 continue
             self.jobs_completed += reply.accepted
+            self._jobs_rate.add(reply.accepted)
             for jid in reply.unknown_ids:
                 log.warning("completion %s rejected: unknown job", jid)
             return
         self.completions_dropped += len(completions)
+        self._c_dropped.inc(len(completions))
         log.error("dropping %d completions (leases will re-queue them)",
                   len(completions))
 
@@ -350,7 +576,10 @@ class Worker:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(
         description="dbx PyTorch worker: poll a dispatcher and run backtest "
-                    "jobs on one device")
+                    "jobs on one device. Environment: DBX_PIPELINE, "
+                    "DBX_PIPELINE_DEPTH, DBX_PREFETCH, DBX_FLEET_TELEMETRY, "
+                    "DBX_OBS_JSONL (span event log), DBX_FLIGHT_DIR (flight "
+                    "bundles), DBX_LOCKDEP.")
     ap.add_argument("--connect", default="localhost:50051")
     ap.add_argument("--id", default=None, help="stable worker id")
     ap.add_argument("--device", default="cuda",
@@ -361,11 +590,22 @@ def main(argv=None) -> None:
     ap.add_argument("--jobs-per-chip", type=int, default=1)
     ap.add_argument("--exit-after-idle", type=int, default=None,
                     help="exit after N consecutive empty polls (batch mode)")
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    help="serve Prometheus /metrics (and /stats.json) on this "
+                         "port (0 = ephemeral; omit to disable)")
+    ap.add_argument("--metrics-host", default="0.0.0.0",
+                    help="interface of the /metrics server (127.0.0.1 keeps "
+                         "the scrape surface on this host)")
     args = ap.parse_args(argv)
 
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s %(name)s %(levelname)s %(message)s")
+    # Runtime lockdep (DBX_LOCKDEP=1): installed before the backend and its
+    # caches make their locks, so that every one is instrumented.
+    from ..analysis import lockdep
+
+    lockdep.maybe_install()
     backend = compute.TorchSweepBackend(device=args.device)
     worker = Worker(args.connect, backend, worker_id=args.id,
                     poll_interval_s=args.poll_s,
@@ -373,9 +613,16 @@ def main(argv=None) -> None:
                     jobs_per_chip=args.jobs_per_chip)
     for sig in (signal.SIGTERM, signal.SIGINT):
         signal.signal(sig, lambda *_: worker.stop())
+    metrics_srv = (obs.MetricsServer(args.metrics_port,
+                                     bind=args.metrics_host).start()
+                   if args.metrics_port is not None else None)
     log.info("worker %s -> %s (device=%s)", worker.worker_id, args.connect,
              backend.device)
-    worker.run(max_idle_polls=args.exit_after_idle)
+    try:
+        worker.run(max_idle_polls=args.exit_after_idle)
+    finally:
+        if metrics_srv is not None:
+            metrics_srv.stop()
 
 
 if __name__ == "__main__":

@@ -17,7 +17,10 @@ summarizes and its parameter block (:func:`~.recurrent.stream_key`), so a
 checkpoint never serves another grid, cost or strategy. An eviction is not
 an error: the worker reprices in full and checkpoints again. Hits and
 misses by level are plain attributes that :meth:`CarryStore.stats`
-returns. Thread-safe.
+returns, the store's own; the same events count into the registry (the
+process's by default) as the reference's ``dbx_carry_cache_hits_total``
+and ``dbx_carry_cache_misses_total{level}``, with both levels' bytes in
+the gauge ``dbx_carry_cache_bytes``. Thread-safe.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import threading
 import torch
 
 from .. import device as device_mod
+from .. import obs
 from ..rpc.panel_store import ByteLRU
 from . import recurrent
 
@@ -46,7 +50,8 @@ class CarryStore:
     ``device`` (``"cuda"`` unless the caller asks for the CPU)."""
 
     def __init__(self, max_bytes: int | None = None, *,
-                 device: str | torch.device = device_mod.DEFAULT_DEVICE):
+                 device: str | torch.device = device_mod.DEFAULT_DEVICE,
+                 registry: obs.Registry | None = None):
         self.max_bytes = (carry_cache_max_bytes() if max_bytes is None
                           else int(max_bytes))
         self.device = device_mod.resolve(device)
@@ -55,19 +60,41 @@ class CarryStore:
         self._host = ByteLRU(self.max_bytes)      # serialized bytes
         self.hits = {"host": 0, "device": 0}
         self.misses = {"host": 0, "device": 0}
+        reg = registry or obs.get_registry()
+        self._c_hits = {
+            lvl: reg.counter("dbx_carry_cache_hits_total",
+                             help="carry-checkpoint cache hits by level "
+                                  "(device=resident carry, host="
+                                  "deserialized checkpoint)", level=lvl)
+            for lvl in ("host", "device")}
+        self._c_misses = {
+            lvl: reg.counter("dbx_carry_cache_misses_total",
+                             help="carry-checkpoint cache misses by level",
+                             level=lvl)
+            for lvl in ("host", "device")}
+        self._g_bytes = reg.gauge(
+            "dbx_carry_cache_bytes",
+            help="approximate bytes resident in the carry cache "
+                 "(device + host levels)")
+
+    def _count(self, hit: bool, level: str) -> None:
+        """One lookup of ``level`` (``_lock`` held)."""
+        (self.hits if hit else self.misses)[level] += 1
+        (self._c_hits if hit else self._c_misses)[level].inc()
+
+    def _publish_bytes(self) -> None:
+        self._g_bytes.set(self._device.bytes + self._host.bytes)
 
     def get(self, key) -> "recurrent.StreamCarry | None":
         with self._lock:
             carry = self._device.get(key)
+            self._count(carry is not None, "device")
             if carry is not None:
-                self.hits["device"] += 1
                 return carry
-            self.misses["device"] += 1
             blob = self._host.get(key)
+            self._count(blob is not None, "host")
             if blob is None:
-                self.misses["host"] += 1
                 return None
-            self.hits["host"] += 1
         carry = recurrent.carry_from_bytes(blob, self.device)
         with self._lock:
             if key in self._device:
@@ -79,6 +106,7 @@ class CarryStore:
             # Re-prime the device level so the next append skips the
             # deserialize too.
             self._device.put(key, carry, carry.nbytes)
+            self._publish_bytes()
         return carry
 
     def put(self, key, carry: "recurrent.StreamCarry") -> None:
@@ -86,12 +114,14 @@ class CarryStore:
         with self._lock:
             self._device.put(key, carry, carry.nbytes)
             self._host.put(key, blob)
+            self._publish_bytes()
 
     def evict_device(self, key) -> None:
         """Drop the device copy only (memory pressure, tests); the host
         checkpoint keeps the state restorable."""
         with self._lock:
             self._device.pop(key)
+            self._publish_bytes()
 
     def drop(self, key) -> None:
         """Drop both levels' copies: a checkpoint its stream has moved past
@@ -100,6 +130,7 @@ class CarryStore:
         with self._lock:
             self._device.pop(key)
             self._host.pop(key)
+            self._publish_bytes()
 
     def stats(self) -> dict:
         with self._lock:

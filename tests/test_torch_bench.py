@@ -43,7 +43,8 @@ TINY.update(DBX_BENCH_RAGGED_TICKERS="16", DBX_BENCH_SCENARIO_BARS="96",
             DBX_BENCH_SCENARIO_N="3", DBX_BENCH_MEGAKERNEL_BARS="64",
             DBX_BENCH_MEGAKERNEL_K="4", DBX_BENCH_LC_BARS="301",
             DBX_BENCH_LC_SHARDS="4", DBX_BENCH_LOCAL_JOBS="64",
-            DBX_BENCH_LOCAL_WORKERS="1,2", DBX_BENCH_DEDUPE_BARS="64")
+            DBX_BENCH_LOCAL_WORKERS="1,2", DBX_BENCH_DEDUPE_BARS="64",
+            DBX_BENCH_FLEET_JOBS="32", DBX_BENCH_FLEET_POLL_S="0.05")
 FUSED_CONFIGS = ("sma_fused", "bollinger_fused", "bollinger_touch_fused",
                  "momentum_fused", "donchian_fused", "donchian_hl_fused",
                  "vwap_fused", "keltner_fused", "stochastic_fused",
@@ -95,7 +96,15 @@ def test_every_config_reports_a_positive_rate(result):
         assert configs[name] > 0.0, name
     dedupe = result["roofline"]["e2e_local"]["dedupe"]
     assert dedupe["wire_bytes_per_job_on"] < dedupe["wire_bytes_per_job_off"]
-    assert len(FUSED_CONFIGS) + 11 == 25 == len(bench.CONFIGS)
+    # The observability configs, the control plane alone.
+    for name in ("fleet_telemetry", "flight"):
+        assert configs[name] > 0.0, name
+    ft = result["roofline"]["fleet_telemetry"]
+    assert ft["all_workers_visible"] and ft["straggler_flagged"]
+    assert ft["histogram_merge_exact"] and ft["frame_bytes_p50"] > 0
+    fl = result["roofline"]["flight"]
+    assert fl["quiet_ok"] and fl["capture_smoke_ok"]
+    assert len(FUSED_CONFIGS) + 13 == 27 == len(bench.CONFIGS)
 
 
 @pytest.mark.parametrize("wf_fused", ["0", "1"], ids=["generic", "fused"])

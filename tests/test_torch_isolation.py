@@ -70,7 +70,7 @@ def test_every_module_imports_with_jax_blocked():
               "obs.decisions", "streaming.delta", "serve", "serve.registry",
               "analysis", "analysis.lockdep", "runtime", "runtime._core",
               "rpc.journal", "rpc.panel_store", "rpc.service",
-              "rpc.dispatcher"):
+              "rpc.dispatcher", "obs.dump", "obs.why", "utils.trace"):
         assert f"{dbxt.__name__}.{m}" in mods
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"

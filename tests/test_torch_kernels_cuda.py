@@ -1194,3 +1194,68 @@ def test_dispatcher_scenario_panels_on_the_card(cuda):
         assert blob == scenarios.scenario_panel_bytes(base.ohlcv, params,
                                                       device="cuda")
         assert q.panel_store.get(digest) == blob
+
+
+def _obs_counts(backend, batches):
+    """The registry deltas of the backend's deterministic families and
+    the worker span names of ``process`` on each batch."""
+    from distributed_backtesting_exploration_tpu_torch import obs
+
+    names = ("dbx_backtests_total", "dbx_compute_decode_bytes_total",
+             "dbx_compute_d2h_bytes_total", "dbx_wire_",
+             "dbx_panel_cache_hits_total", "dbx_panel_cache_misses_total",
+             "dbx_kernel_submit_seconds")
+
+    def values():
+        out = {}
+        for name, fam in obs.get_registry().snapshot().items():
+            if name.startswith(names):
+                for label, v in fam["values"].items():
+                    out[(name, label)] = (v["count"] if isinstance(v, dict)
+                                          else v)
+        return out
+
+    spans = []
+    obs.add_span_listener("obs-cuda", lambda r: spans.append(r["name"])
+                          if r["name"].startswith("worker.") else None)
+    before = values()
+    try:
+        blocks = [[c.metrics for c in backend.process(b)] for b in batches]
+    finally:
+        obs.remove_span_listener("obs-cuda")
+    after = values()
+    return blocks, {k: v - before.get(k, 0) for k, v in after.items()
+                    if v != before.get(k, 0)}, spans
+
+
+def test_obs_counts_on_the_card_equal_the_cpus_without_a_sync(cuda,
+                                                              monkeypatch):
+    # The registry block reads the host clock around calls made anyway:
+    # the card's backend counts what the CPU's does, and process never
+    # calls torch.cuda.synchronize (only the result copy's event waits).
+    from distributed_backtesting_exploration_tpu_torch.rpc import (
+        backtesting_pb2 as pb, compute, dispatcher, panel_store, wire)
+
+    grid = wire.grid_to_proto(dispatcher.parse_grid("fast=5:25,slow=30:60:5"))
+    panel = data.synthetic_ohlcv(16, 1260, seed=3)
+    inline, repeat = [], []
+    for i in range(16):
+        blob = data.to_wire_bytes(data.OHLCV(*(f[i] for f in panel)))
+        kw = dict(strategy="sma_crossover", grid=grid, cost=1e-3,
+                  periods_per_year=252, trace_id=f"{i:032x}",
+                  panel_digest=panel_store.panel_digest(blob),
+                  panel_bytes_len=len(blob))
+        inline.append(pb.JobSpec(id=f"in-{i}", ohlcv=blob, **kw))
+        repeat.append(pb.JobSpec(id=f"re-{i}", **kw))
+    want = _obs_counts(compute.TorchSweepBackend(device="cpu"),
+                       [inline, repeat])
+    syncs = []
+    real = torch.cuda.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a: syncs.append(a) or real(*a))
+    got = _obs_counts(compute.TorchSweepBackend(device=cuda),
+                      [inline, repeat])
+    assert not syncs
+    assert got[1] == want[1] and got[2] == want[2]
+    assert got[2][:3] == ["worker.decode", "worker.compile", "worker.d2h"]
+    assert all(b for blocks in got[0] for b in blocks)
