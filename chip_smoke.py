@@ -142,8 +142,14 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    kernels.
    K8's main path is the port bench (``python -m
    distributed_backtesting_exploration_tpu_torch.bench``), run here
-   in-process on every config with 3 timed iterations: every config must
-   report a rate and every K8 case must launch; its JSON line is printed.
+   in-process with 3 timed iterations on every config but ``autotune``
+   (phase 10) and the control-plane keys of ``bench.CONTROL_CONFIGS``,
+   which run no kernel (phase 13 runs ``pipeline`` and ``queue_machine``;
+   the script's time), the control plane's ``e2e_local``,
+   ``fleet_telemetry`` and ``flight`` on 500 jobs (the bench's 1500) and
+   the fleet's 200 (600), also for the script's time: every config must
+   report a rate and every K8 case must launch; its JSON line is
+   printed.
 5. The worker path at the same widths, through ``submit`` and
    ``collect``: 500 sma jobs with ``top_k=16`` under sharpe and
    max_drawdown and 1000 pairs jobs under sharpe (the launch counts reset
@@ -185,13 +191,14 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    tick grid) are held against the generic ``walk_forward`` on the card
    under the reference's flip-aware rule: a job whose sharpe is off by
    more than 0.01 + 1% is flipped (at most 2 of 16), the others within
-   rtol=2e-3, atol=2e-4 (cagr within ``_cagr_slack``). 1000 pairs
-   walk-forward jobs (500 combos, generic: the reference has no fused
-   route for them) must be bit-equal to ``walk_forward_pairs`` on the
-   same stacked legs; the jobs flipped against the same refit in f64
-   are counted and held at most 200 of 1000 (146 on the H100), and the
-   unflipped jobs' metrics off the flip-aware tolerance are counted and
-   printed. Then the rates in backtests/s (tickers x combos x
+   rtol=2e-3, atol=2e-4 (cagr within ``_cagr_slack``). 500 pairs
+   walk-forward jobs (the first 500 of phase 4's 1000 pairs, which keeps
+   the script inside its time; 500 combos, generic: the reference has no
+   fused route for them) must be bit-equal to ``walk_forward_pairs`` on
+   the same stacked legs; the jobs flipped against the same refit in f64
+   are counted and held at most a fifth (76 of these 500 on the H100),
+   and the unflipped jobs' metrics off the flip-aware tolerance are
+   counted and printed. Then the rates in backtests/s (tickers x combos x
    windows over the median of 5 runs after a warm-up) of the bench's
    walk-forward config, generic and fused at P = 400 and fused at
    P = 2000, and the port bench's ``walkforward`` config in both routes,
@@ -377,7 +384,29 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    ``RequestJobs`` and ``CompleteJobs``, the encoded DBXM bytes equal to
    the stored blocks', ``dbx_backtests_total`` 500 x 2000, the
    panel-cache counters equal to the two caches' ``stats()``.
-13. Each phase's wall on one line, then one JSON line with each kernel
+13. The native worker shell (``csrc/worker_native.cc``, built by
+   ``runtime._core.build_worker_shell`` with g++; each shell's log must
+   show the core selftest passed and the proto selftest not failed,
+   skipped where the build found no libprotobuf). Five shells start at
+   once, each group on a port dispatcher of its own. (a) Phase 11's 500
+   sma jobs (panel seed 7, the 2000-combo grid) drained by two shells,
+   ``--backend torch --device cuda --jobs-per-chip 100`` polling every 5
+   ms, after a warm-up drain of 200 jobs of another panel: every stored
+   block bit-equal to the direct ``process``; the cold start (spawn to
+   both shells polling), the drain's wall, jobs/s and backtests/s, and
+   K1's launches read from each shell's ``/metrics``
+   (``dbx_kernel_launches``, its wrappers' own count) before and after the
+   drain. One pair runs its channels native, the other with
+   ``DBX_NO_NATIVE=1`` (python), each shown in the shells' logs; each pair
+   drains ``SHELL_ROUNDS`` (2) times, the pairs in turns, either first
+   in alternate rounds (``phase_native_shell(..., rounds=12)`` for a
+   closer comparison of the two kinds). K1's library, built in phase 2, must be loaded and not
+   rebuilt. (b) One shell with ``--fused off`` on 16 of the jobs: its
+   blocks within the flip-aware budget of the fused route's. (c) The port
+   bench's ``pipeline`` and ``queue_machine`` on the card (its C-ABI
+   grain from the port-built ``dbx_core_bench``), printed. Every shell
+   must exit 0 on SIGTERM.
+14. Each phase's wall on one line, then one JSON line with each kernel
    entry's (K8: each case's) launches,
    error, times, bound and library time (the tile entries also their
    width sweep, wrapper time, build report and SASS count; the table
@@ -389,7 +418,8 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    and its tables' launched there, and K1-K7's on phase 9 (a)'s mesh
    route, ``mesh_launches``, the tile entries' on phase 10 (a)'s tuned
    batches, ``tune_launches``, every entry's in phase 11,
-   ``dispatch_launches``, and K1's in phase 12, ``obs_launches``); then
+   ``dispatch_launches``, and K1's in phase 12, ``obs_launches``, and in
+   phase 13's shells, ``native_launches``); then
    the JSON result line, last.
 
 This script imports nothing of JAX and nothing of the JAX package.
@@ -2323,13 +2353,18 @@ def phase_stages(kernels_mod, stages, bench, data) -> list:
 
 
 def phase_bench(kernels_mod, bench, records) -> None:
-    """K8's main path: the port bench in-process on every config (fewer
+    """K8's main path: the port bench in-process on its configs (fewer
     iterations than its default), with the launch counts reset just before
     it; every K8 case must have launched. Prints the bench's JSON line."""
     kernels_mod.reset_launch_counts()
-    # Every config but autotune, whose halves phase 10 runs.
-    result = bench.run(bench.Settings(iters=3, warmup=1, configs=frozenset(
-        c for c in bench.CONFIGS if c != "autotune")))
+    # Every config but autotune, whose halves phase 10 runs, and the
+    # control-plane keys of CONTROL_CONFIGS, which run no kernel (phase 13
+    # runs pipeline and queue_machine), and e2e_local, fleet_telemetry and
+    # flight on a third of their jobs: the script's time limit.
+    skip = ("autotune", *bench.CONTROL_CONFIGS)
+    result = bench.run(bench.Settings(
+        iters=3, warmup=1, local_jobs=500, fleet_jobs=200,
+        configs=frozenset(c for c in bench.CONFIGS if c not in skip)))
     launches = dict(kernels_mod.LAUNCHES)
     print(json.dumps(result))
     print(f"bench launches {launches}")
@@ -2619,10 +2654,14 @@ JOB_COST = float(np.float32(COST))
 # The flip-aware rule of the reference's walk-forward wire tests
 # (tests/test_walkforward_fused_wire.py), and the jobs of 16 that may flip.
 WF_RTOL, WF_ATOL, WF_MAX_FLIPS = 2e-3, 2e-4, 2
-# Pairs walk-forward jobs of 1000 that may flip against the f64 refit: at
-# the bench shape no f32 pairs path meets the 2-of-16 budget (146 flipped
-# on the H100), so this bound catches a regression, not the f32 drift.
-PAIRS_F64_MAX_FLIPS = 200
+# The pairs walk-forward jobs (the first half of phase 4's 1000 pairs,
+# which keeps the script inside its time), and how many may flip against
+# the f64 refit: at the bench shape no f32 pairs path
+# meets the 2-of-16 budget (on the H100 138 of 1000 flipped, and 76 of
+# these 500 in three runs), so this bound, a fifth of the jobs (100),
+# catches a regression, not the f32 drift.
+WF_PAIRS = 500
+PAIRS_F64_MAX_FLIPS = WF_PAIRS // 5
 # Each kernel entry's dispatch (ops/fused.py) and its plain version.
 PLAIN = {"fused_sma": "fused_sma_plain", "obv": "obv_plain",
          "band_inline": "band_inline_plain",
@@ -2835,12 +2874,14 @@ def _wf_family(kernels_mod, backend, wire, pb, data, models, fused,
 
 
 def _wf_pairs(backend, wire, pb, data, walkforward):
-    """1000 pairs walk-forward jobs through ``process``, bit-equal to
-    ``walk_forward_pairs`` on the same stacked legs; the jobs flipped
-    against the same refit in f64 are held at PAIRS_F64_MAX_FLIPS."""
+    """``WF_PAIRS`` pairs walk-forward jobs (the first of phase 4's pairs)
+    through ``process``, bit-equal to ``walk_forward_pairs`` on the same
+    stacked legs; the jobs flipped against the same refit in f64 are held
+    at PAIRS_F64_MAX_FLIPS."""
     axes = AXES["pairs"]
     g = _flat_grid(axes)
-    legs = _pairs_legs(data, N_PAIRS, N_BARS, 1)
+    legs = tuple(data.OHLCV(*(f[:WF_PAIRS] for f in leg))
+                 for leg in _pairs_legs(data, N_PAIRS, N_BARS, 1))
     jobs = _wf_jobs(pb, data, "pairs", axes, legs)
     t0 = time.perf_counter()
     done = backend.process(jobs)
@@ -2863,15 +2904,15 @@ def _wf_pairs(backend, wire, pb, data, walkforward):
     flipped = np.abs(got["sharpe"] - s64) > 0.01 + 0.01 * np.abs(s64)
     flips = int(flipped.sum())
     _check(flips <= PAIRS_F64_MAX_FLIPS, f"pairs walk-forward: {flips} of "
-           f"{N_PAIRS} jobs flipped against the refit in f64")
+           f"{WF_PAIRS} jobs flipped against the refit in f64")
     off = {name: int((((np.abs(got[name] - b)
                         > WF_ATOL + WF_RTOL * np.abs(b))
                        | (np.isnan(got[name]) != np.isnan(b)))
                       & ~flipped).sum())
            for name, b in f64.items()}
-    print(f"pairs walk-forward: {N_PAIRS} jobs x {g['lookback'].size} combos "
+    print(f"pairs walk-forward: {WF_PAIRS} jobs x {g['lookback'].size} combos "
           f"x {WF_WINDOWS} windows, batch {secs:.4f} s, blocks bit-equal to "
-          f"walk_forward_pairs; {flips} of {N_PAIRS} jobs flipped against "
+          f"walk_forward_pairs; {flips} of {WF_PAIRS} jobs flipped against "
           f"the refit in f64 (at most {PAIRS_F64_MAX_FLIPS}); unflipped jobs "
           f"off rtol={WF_RTOL}, atol={WF_ATOL} of f64, a metric: {off}")
     return secs
@@ -5475,6 +5516,301 @@ def phase_worker_obs(kernels_mod, compute, pb, wire, data, bench,
     return k1_a + k1_b + k1_c
 
 
+# Phase 13: the native worker shell. Phase 11's panel (seed 7) and grid as
+# 500 jobs, drained by pairs of shells that poll as phase 11's worker does,
+# after a warm-up drain of 200 jobs of another panel (seed 8).
+SHELLS = 2
+SHELL_WARM_JOBS = 200
+SHELL_FUSED_OFF_JOBS = 16
+SHELL_ROUNDS = 2              # timed drains of each channel kind
+SHELL_TIMEOUT_S = 300.0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _shell_k1(port: int) -> int:
+    """K1's launches so far in the shell serving ``/metrics`` on ``port``
+    (``dbx_kernel_launches{kernel="fused_sma"}``: its wrappers' own
+    count)."""
+    rows = _scrape(f"http://127.0.0.1:{port}")
+    return int(sum(v for k, v in rows.items()
+                   if k.startswith("dbx_kernel_launches{")
+                   and 'kernel="fused_sma"' in k))
+
+
+def _log_tail(path: str, n: int = 3000) -> str:
+    with open(path, errors="replace") as fh:
+        return fh.read()[-n:]
+
+
+@contextlib.contextmanager
+def _shell_fleet(shell: str, target: str, root: str, tag: str, n: int,
+                 env: dict, *args):
+    """``n`` native worker shells polling ``target``, each serving
+    ``/metrics`` on a port of its own, their output in ``root``. Yields
+    (the processes, their metrics ports, their log paths); on exit each
+    gets SIGTERM (the worker drains and returns) and must exit 0."""
+    import signal
+
+    procs, ports, logs = [], [_free_port() for _ in range(n)], []
+    try:
+        for i, port in enumerate(ports):
+            path = os.path.join(root, f"shell-{tag}-{i}.log")
+            logs.append(path)
+            with open(path, "w") as out:
+                procs.append(subprocess.Popen(
+                    [shell, "--connect", target, "--id", f"shell-{tag}-{i}",
+                     "--backend", "torch", "--device", "cuda",
+                     "--jobs-per-chip", str(LOOP_JOBS_PER_CHIP), "--poll-s",
+                     str(LOOP_POLL_S), "--status-s", "0.5", "--metrics-port",
+                     str(port), "--metrics-host", "127.0.0.1", *args],
+                    cwd=root, env=env, stdout=out, stderr=subprocess.STDOUT))
+        yield procs, ports, logs
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.send_signal(signal.SIGTERM)
+        for p, path in zip(procs, logs):
+            try:
+                rc = p.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+                rc = "killed after 60 s"
+            _check(rc == 0, f"native shell {tag}: exit {rc}; its log ends:\n"
+                   f"{_log_tail(path)}")
+
+
+def _shell_loop(root: str, tag: str):
+    """The port's dispatcher on ``localhost:0``, results under ``root``:
+    (queue, dispatcher, server)."""
+    from distributed_backtesting_exploration_tpu_torch import obs
+    from distributed_backtesting_exploration_tpu_torch.rpc import (
+        dispatcher, journal)
+
+    q = dispatcher.JobQueue(journal.Journal(None), device="cuda")
+    disp = dispatcher.Dispatcher(
+        q, dispatcher.PeerRegistry(prune_window_s=30.0),
+        results_dir=os.path.join(root, f"res-{tag}"), registry=obs.Registry())
+    srv = dispatcher.DispatcherServer(disp, bind="localhost:0",
+                                      prune_interval_s=0.5).start()
+    return q, disp, srv
+
+
+def _wait_queue(q, label: str, procs=(), logs=()) -> None:
+    deadline = time.monotonic() + SHELL_TIMEOUT_S
+    while not q.drained:
+        for p, path in zip(procs, logs):
+            _check(p.poll() is None, f"{label}: a shell exited ({p.poll()}) "
+                   f"before the drain ended; its log ends:\n"
+                   f"{_log_tail(path)}")
+        _check(time.monotonic() < deadline, f"{label}: drain wedged for "
+               f"{SHELL_TIMEOUT_S:.0f} s: {q.stats()}")
+        time.sleep(0.002)
+
+
+def _wait_polling(fleets, t0: float) -> dict:
+    """Seconds from ``t0`` until each fleet's dispatcher sees all its
+    shells polling: ``{tag: seconds}``. ``fleets`` maps a tag to (the
+    dispatcher, the processes, their logs)."""
+    cold: dict = {}
+    deadline = time.monotonic() + SHELL_TIMEOUT_S
+    while len(cold) < len(fleets):
+        for tag, (disp, procs, logs) in fleets.items():
+            for p, path in zip(procs, logs):
+                _check(p.poll() is None, f"native shell ({tag}): a shell "
+                       f"exited ({p.poll()}) before polling; its log "
+                       f"ends:\n{_log_tail(path)}")
+            if tag not in cold and disp.peers.alive() >= len(procs):
+                cold[tag] = time.perf_counter() - t0
+        _check(time.monotonic() < deadline, f"native shell: shells not "
+               f"polling after {SHELL_TIMEOUT_S:.0f} s ({sorted(cold)} "
+               "ready)")
+        time.sleep(0.02)
+    return cold
+
+
+def _timed_shell_drain(q, ports, procs, logs, recs, label) -> tuple:
+    """One drain of ``recs``: (its wall seconds, K1's launches in the
+    shells during it)."""
+    k0 = sum(_shell_k1(p) for p in ports)
+    t0 = time.perf_counter()
+    q.enqueue_many(recs)
+    _wait_queue(q, label, procs, logs)
+    wall = time.perf_counter() - t0
+    return wall, sum(_shell_k1(p) for p in ports) - k0
+
+
+def _fused_off_check(got_blocks: dict, fused_blocks, wire, wall, card):
+    """Part (b): the ``--fused off`` shell's blocks (the generic sweep)
+    within the flip-aware budget of the fused route's blocks of the same
+    tickers."""
+    from distributed_backtesting_exploration_tpu_torch.ops.metrics import (
+        Metrics)
+
+    rows = [wire.metrics_from_bytes(b) for b in got_blocks.values()]
+    gold_rows = [wire.metrics_from_bytes(b) for b in fused_blocks]
+    got = {f: np.stack([getattr(r, f) for r in rows]) for f in Metrics._fields}
+    gold = Metrics(*(torch.as_tensor(np.stack([getattr(r, f)
+                                               for r in gold_rows]))
+                     for f in Metrics._fields))
+    same = sum(a == b for a, b in zip(got_blocks.values(), fused_blocks))
+    n_flips = _golden_check("native shell --fused off", got, gold, "shift")
+    print(f"native shell --fused off ({card}): {len(rows)} jobs through the "
+          f"generic sweep drained in {wall:.4f} s; against the fused "
+          f"route's blocks within the flip-aware budget, {n_flips} flipped "
+          f"cells, {same} of {len(rows)} blocks bit-equal")
+
+
+def phase_native_shell(kernels_mod, compute, pb, wire, data, bench,
+                       card, rounds: int = SHELL_ROUNDS) -> int:
+    """Phase 13, the native worker shell on the card: five shells started
+    at once, each fleet on a dispatcher of its own: (a) two with native
+    channels and two with python channels (``DBX_NO_NATIVE=1``, the
+    core's existing switch), each pair warmed up and then draining phase
+    11's 500 jobs ``rounds`` times, the pairs in turns, every block
+    bit-equal to the direct ``process``; (b) one with ``--fused off`` on
+    16 of the jobs; (c) the bench's ``pipeline`` and ``queue_machine``.
+    Returns K1's launches read from the shells."""
+    from distributed_backtesting_exploration_tpu_torch.rpc import dispatcher
+    from distributed_backtesting_exploration_tpu_torch.runtime import _core
+
+    root = tempfile.mkdtemp(prefix="dbx-shell-")
+    t0 = time.perf_counter()
+    loops = {}
+    try:
+        shell = _core.build_worker_shell()
+        print(f"native shell: built in {time.perf_counter() - t0:.2f} s")
+        lib = kernels_mod.library_path("fused_sma")
+        _check(lib.exists(), f"native shell: {lib} was not built by phase 2")
+        before = (lib.stat().st_ino, lib.stat().st_mtime_ns,
+                  sorted(p.name for p in lib.parent.glob("libfused_sma*")))
+        panel = data.synthetic_ohlcv(N_TICKERS, N_BARS, seed=7)
+        recs = _loop_records(dispatcher, data, panel, "n")
+        warm = _loop_records(dispatcher, data, data.synthetic_ohlcv(
+            SHELL_WARM_JOBS, N_BARS, seed=8), "w")
+        direct = {c.job_id: c.metrics for c in compute.TorchSweepBackend(
+            device="cuda").process(_loop_specs(pb, wire, recs))}
+        off = [dataclasses.replace(r, id=f"f-{i:04d}")
+               for i, r in enumerate(recs[:SHELL_FUSED_OFF_JOBS])]
+        no_native = dict(os.environ, DBX_NO_NATIVE="1")
+        for tag in ("native", "python", "fused-off"):
+            loops[tag] = _shell_loop(root, tag)
+        target = {tag: f"localhost:{srv.port}"
+                  for tag, (_, _, srv) in loops.items()}
+        walls: dict = {"native": [], "python": []}
+        k1_timed: dict = {"native": [], "python": []}
+        t_start = time.perf_counter()
+        with _shell_fleet(shell, target["native"], root, "native", SHELLS,
+                          dict(os.environ)) as nat, \
+                _shell_fleet(shell, target["python"], root, "python",
+                             SHELLS, no_native) as pyt, \
+                _shell_fleet(shell, target["fused-off"], root, "fused-off",
+                             1, dict(os.environ), "--fused", "off") as foff:
+            fleets = {"native": nat, "python": pyt, "fused-off": foff}
+            cold = _wait_polling({tag: (loops[tag][1], f[0], f[2])
+                                  for tag, f in fleets.items()}, t_start)
+            for tag in ("native", "python"):
+                procs, ports, logs = fleets[tag]
+                w_s, _ = _timed_shell_drain(loops[tag][0], ports, procs,
+                                            logs, [dataclasses.replace(
+                                                r, id=f"{tag}-{r.id}")
+                                                for r in warm],
+                                            f"native shell ({tag}) warm-up")
+                print(f"native shell ({tag} channels): warm-up of "
+                      f"{len(warm)} jobs {w_s:.4f} s")
+            for rnd in range(rounds):
+                # Either kind first in turn, so that neither always runs
+                # on the host the other has just warmed.
+                for tag in (("native", "python") if rnd % 2 == 0
+                            else ("python", "native")):
+                    procs, ports, logs = fleets[tag]
+                    rr = [dataclasses.replace(r, id=f"{tag}{rnd}-{r.id}")
+                          for r in recs]
+                    wall, k1 = _timed_shell_drain(
+                        loops[tag][0], ports, procs, logs, rr,
+                        f"native shell ({tag})")
+                    _check(k1 > 0, f"native shell ({tag}): the shells "
+                           "launched K1 no time on a timed drain")
+                    walls[tag].append(wall)
+                    k1_timed[tag].append(k1)
+                    _hold_loop_blocks(
+                        f"native shell ({tag} channels, round {rnd + 1})",
+                        _loop_blocks(os.path.join(root, f"res-{tag}"), rr),
+                        direct)
+            procs, ports, logs = foff
+            off_wall, _ = _timed_shell_drain(loops["fused-off"][0], ports,
+                                             procs, logs, off,
+                                             "native shell --fused off")
+            k1_all = {tag: sum(_shell_k1(p) for p in fleets[tag][1])
+                      for tag in ("native", "python")}
+        for tag in ("native", "python", "fused-off"):
+            for path in fleets[tag][2]:
+                text = _log_tail(path, 1 << 20)
+                proto = re.search(r"proto selftest (\w+)", text)
+                channel = "python" if tag == "python" else "native"
+                _check("core selftest ok" in text and proto is not None
+                       and proto.group(1) != "FAILED"
+                       and f"channel={channel}" in text,
+                       f"native shell ({tag}): the log does not show the "
+                       f"selftests and {channel} channels:\n{text[-3000:]}")
+        print(f"native shell: core selftest ok, proto selftest "
+              f"{proto.group(1)} in every shell's log")
+        after = (lib.stat().st_ino, lib.stat().st_mtime_ns,
+                 sorted(p.name for p in lib.parent.glob("libfused_sma*")))
+        _check(before == after, f"native shell: the shells rebuilt K1's "
+               f"library ({before} -> {after})")
+        n_combos = FAST_AXIS.size * SLOW_AXIS.size
+        for tag in ("native", "python"):
+            print(f"native shell ({tag} channels, {card}): {SHELLS} shells "
+                  f"polling {cold[tag]:.2f} s after the five started (cold "
+                  f"start); {len(recs)} jobs drained in "
+                  f"{[round(w, 4) for w in walls[tag]]} s, "
+                  f"{[round(len(recs) / w, 1) for w in walls[tag]]} jobs/s, "
+                  f"{[round(len(recs) * n_combos / w) for w in walls[tag]]}"
+                  f" backtests/s; K1 launches read from the shells: "
+                  f"{k1_timed[tag]} on the timed drains, {k1_all[tag]} in "
+                  "all")
+        t_a = time.perf_counter()
+        _fused_off_check(_loop_blocks(os.path.join(root, "res-fused-off"),
+                                      off),
+                         list(direct.values())[:SHELL_FUSED_OFF_JOBS], wire,
+                         off_wall, card)
+        t_b = time.perf_counter()
+        out = bench.run(bench.settings_from_env(
+            {"DBX_BENCH_CONFIGS": "pipeline,queue_machine"}))
+        _check(all(out["configs"].get(k, 0) > 0 for k in (
+            "pipeline", "queue_machine_python", "queue_machine_native",
+            "queue_machine_native_cabi")),
+            f"native shell (c): a bench key reported no rate: "
+            f"{out['configs']}")
+        print(f"native shell (c) bench ({card}): " + json.dumps(
+            {"configs": out["configs"],
+             "pipeline": out["roofline"]["pipeline"]}))
+    finally:
+        for _, _, srv in loops.values():
+            srv.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    med = {tag: statistics.median(walls[tag]) for tag in walls}
+    print(f"native shell ({card}): timed drains native {med['native']:.4f} "
+          f"s against python {med['python']:.4f} s (medians of "
+          f"{rounds}, in turns; python / native "
+          f"{med['python'] / med['native']:.3f}); cold start native "
+          f"{cold['native']:.2f} s, python {cold['python']:.2f} s, fused off "
+          f"{cold['fused-off']:.2f} s; K1's library loaded from the build "
+          "directory, not rebuilt")
+    print(f"native shell phase wall (s): {time.perf_counter() - t0:.1f} "
+          f"((a) {t_a - t0:.1f}, (b) {t_b - t_a:.1f}, (c) "
+          f"{time.perf_counter() - t_b:.1f})")
+    return k1_all["native"] + k1_all["python"]
+
+
 def _phase_wall(walls: dict, name: str, fn, *args):
     """``fn(*args)``, its wall seconds kept in ``walls[name]``."""
     t0 = time.perf_counter()
@@ -5553,6 +5889,11 @@ def main() -> None:
            "dispatch loop")
     k1["obs_launches"] = timed("worker_obs", phase_worker_obs, _kernels,
                                compute, pb, wire, data, bench, card)
+    k1["native_launches"] = timed("native_shell", phase_native_shell,
+                                  _kernels, compute, pb, wire, data, bench,
+                                  card)
+    _check(k1["native_launches"] > 0, "fused_sma launched no time in the "
+           "native shells")
     print(f"phase walls (s): {json.dumps(walls)}")
     print(json.dumps({"kernels": [k1, *new.values(), *k8]}))
     print(json.dumps({"ok": True, "device": {

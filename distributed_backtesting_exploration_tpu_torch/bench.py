@@ -85,8 +85,24 @@ against two poll periods, the slow probe flagged a straggler, the fleet's
 execute histogram equal to the fold of the workers'; ``flight``, the same
 direct loop with the flight recorder armed (``DBX_FLIGHT_DIR`` set) and
 not, no bundle written while armed, a ``capture_now`` that writes one,
-and a synthetic residual stream through the cost model's tracker. It
-prints one JSON line to
+and a synthetic residual stream through the cost model's tracker. Then
+the reference's other control-plane configs, through the port's
+dispatcher over loopback gRPC with its printed names and ``roofline``
+keys: ``direct_dispatch`` (the direct loop at batch 32 and 128, wire bytes
+a job, the 2k jobs/s floor printed, and with the port's lockdep);
+``decision_plane`` (the direct loop with the decision plane killed and
+recording, five paired rounds, and a synthetic shadow-scored stream);
+``e2e_local_placement`` (a mixed append-chain workload on two workers
+that sleep what they hold, placement off and live; ``DBX_BENCH_PL_SCALE``,
+``_PL_CHAINS``, ``_PL_LINKS``); ``queue_machine`` (``JobQueue`` alone on
+each substrate, ``DBX_BENCH_QUEUE_JOBS``, and ``cpp/dbx_core_bench.cc``
+built by the port at the C-ABI grain); ``fanout`` (``DBX_BENCH_SUB_N``
+subscriptions over ``_SUB_SYMBOLS`` streams on ``_SUB_CONNS``
+connections, one tick a symbol); ``e2e_local_tenants`` (two small
+tenants alone and behind a whale, ``DBX_BENCH_TENANT_SMALL_JOBS``,
+``_WHALE_JOBS``, ``_WHALE_COMBOS``); ``pipeline`` (one port worker with
+``TorchSweepBackend`` serial against pipelined, ``DBX_BENCH_PIPELINE_JOBS``,
+``_BARS``, ``_FAST``, ``_SLOW``, ``_BATCH``). It prints one JSON line to
 stdout with the reference's top-level keys:
 
     {"metric": ..., "value": N, "unit": "backtests/sec", "vs_baseline": N,
@@ -124,6 +140,7 @@ there is no card.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import json
@@ -198,7 +215,16 @@ FUSED = {
 CONFIGS = ("sma_fused", "roofline_stages", *list(FUSED)[1:], "walkforward",
            "streaming_append", "ragged_paged", "scenario_sweep",
            "scenario_megakernel", "long_context", "autotune", "e2e",
-           "e2e_topk", "e2e_local", "fleet_telemetry", "flight")
+           "e2e_topk", "e2e_local", "direct_dispatch", "fleet_telemetry",
+           "flight", "decision_plane", "e2e_local_placement",
+           "queue_machine", "fanout", "e2e_local_tenants", "pipeline")
+# The reference's control-plane configs, each a method of _Bench.
+CONTROL_CONFIGS = ("direct_dispatch", "decision_plane",
+                   "e2e_local_placement", "queue_machine", "fanout",
+                   "e2e_local_tenants", "pipeline")
+# The reference's printed regression floor of the direct loop at batch 32
+# (jobs/s): a check printed beside the rate, never a failure.
+DIRECT_FLOOR = 2000
 # The worker RPCs whose serialized request and reply bytes count as its
 # wire bytes (the reference's dbx_worker_wire_bytes_total methods).
 WIRE_METHODS = ("RequestJobs", "CompleteJobs", "FetchPayload")
@@ -247,6 +273,21 @@ class Settings(NamedTuple):
     fleet_jobs: int = 600
     fleet_workers: int = 2
     fleet_poll_s: float = 0.25
+    queue_jobs: int = 20000
+    sub_n: int = 10000
+    sub_symbols: int = 1000
+    sub_conns: int = 32
+    tenant_small_jobs: int = 64
+    tenant_whale_jobs: int = 512
+    tenant_whale_combos: int = 64
+    pl_scale: float = 1.0
+    pl_chains: int = 10
+    pl_links: int = 20
+    pipeline_jobs: int = 64
+    pipeline_bars: int = 512
+    pipeline_fast: int = 8
+    pipeline_slow: int = 8
+    pipeline_batch: int = 4
 
 
 def settings_from_env(env) -> Settings:
@@ -275,7 +316,23 @@ def settings_from_env(env) -> Settings:
         dedupe_bars=int(env.get("DBX_BENCH_DEDUPE_BARS", 4096)),
         fleet_jobs=int(env.get("DBX_BENCH_FLEET_JOBS", 600)),
         fleet_workers=int(env.get("DBX_BENCH_FLEET_WORKERS", 2)),
-        fleet_poll_s=float(env.get("DBX_BENCH_FLEET_POLL_S", 0.25)))
+        fleet_poll_s=float(env.get("DBX_BENCH_FLEET_POLL_S", 0.25)),
+        queue_jobs=int(env.get("DBX_BENCH_QUEUE_JOBS", 20000)),
+        sub_n=int(env.get("DBX_BENCH_SUB_N", 10000)),
+        sub_symbols=int(env.get("DBX_BENCH_SUB_SYMBOLS", 1000)),
+        sub_conns=int(env.get("DBX_BENCH_SUB_CONNS", 32)),
+        tenant_small_jobs=int(env.get("DBX_BENCH_TENANT_SMALL_JOBS", 64)),
+        tenant_whale_jobs=int(env.get("DBX_BENCH_TENANT_WHALE_JOBS", 512)),
+        tenant_whale_combos=int(env.get("DBX_BENCH_TENANT_WHALE_COMBOS",
+                                        64)),
+        pl_scale=float(env.get("DBX_BENCH_PL_SCALE", 1.0)),
+        pl_chains=int(env.get("DBX_BENCH_PL_CHAINS", 10)),
+        pl_links=int(env.get("DBX_BENCH_PL_LINKS", 20)),
+        pipeline_jobs=int(env.get("DBX_BENCH_PIPELINE_JOBS", 64)),
+        pipeline_bars=int(env.get("DBX_BENCH_PIPELINE_BARS", 512)),
+        pipeline_fast=int(env.get("DBX_BENCH_PIPELINE_FAST", 8)),
+        pipeline_slow=int(env.get("DBX_BENCH_PIPELINE_SLOW", 8)),
+        pipeline_batch=int(env.get("DBX_BENCH_PIPELINE_BATCH", 4)))
 
 
 def device_info(dev: torch.device) -> dict:
@@ -1134,9 +1191,10 @@ class _Bench:
         s, dev = self.s, str(self.dev)
         r_off, r_on, on_frames = 0.0, 0.0, []
         for _ in range(3):
-            r, _ = _direct_dispatch(dev, 32, s.local_jobs)
+            r, _, _ = _direct_dispatch(dev, 32, s.local_jobs)
             r_off = max(r_off, r)
-            r, f = _direct_dispatch(dev, 32, s.local_jobs, telemetry=True)
+            r, f, _ = _direct_dispatch(dev, 32, s.local_jobs,
+                                       telemetry=True)
             if r > r_on:
                 r_on, on_frames = r, f
         overhead_pct = (r_off - r_on) / max(r_off, 1e-9) * 100
@@ -1185,10 +1243,10 @@ class _Bench:
         from .obs import Registry, costmodel, flight as flight_mod
 
         s, dev = self.s, str(self.dev)
-        prior = os.environ.pop("DBX_FLIGHT_DIR", None)
         r_off = r_on = 0.0
         try:
-            with tempfile.TemporaryDirectory() as fdir:
+            with _env_set(DBX_FLIGHT_DIR=None), \
+                    tempfile.TemporaryDirectory() as fdir:
                 for _ in range(3):
                     os.environ.pop("DBX_FLIGHT_DIR", None)
                     flight_mod.reset()
@@ -1204,10 +1262,6 @@ class _Bench:
                     "admin", subject="bench-smoke") is not None
         finally:
             flight_mod.reset()
-            if prior is None:
-                os.environ.pop("DBX_FLIGHT_DIR", None)
-            else:
-                os.environ["DBX_FLIGHT_DIR"] = prior
         overhead_pct = (r_off - r_on) / max(r_off, 1e-9) * 100
         tr = costmodel.CostModelTracker(registry=Registry())
         spu0 = 1e-6
@@ -1237,15 +1291,705 @@ class _Bench:
               f"p50 {res_p50:+.2f} / p95 {res_p95:+.2f} log2, "
               f"{snap['blowouts']} blowout(s)", file=sys.stderr)
 
+    # --- the reference's control-plane keys -------------------------------
+
+    def direct_dispatch(self) -> None:
+        """The reference's ``direct_dispatch``: jobs/s of the direct
+        poll-and-complete loop against the port's dispatcher at batch 32
+        and 128 over ``DBX_BENCH_LOCAL_JOBS`` jobs, each with its wire
+        bytes a job; the reference's 2k jobs/s floor at batch 32, printed,
+        not enforced; then batch 32 with the port's runtime lockdep
+        installed (``analysis.lockdep``): its jobs/s, overhead, edges and
+        violations, the tables' state before restored."""
+        from .analysis import lockdep
+
+        s, dev = self.s, str(self.dev)
+        r32, _, wb32 = _direct_dispatch(dev, 32, s.local_jobs, wire=True)
+        r128, _, wb128 = _direct_dispatch(dev, 128, s.local_jobs, wire=True)
+        for batch, r, wb in ((32, r32, wb32), (128, r128, wb128)):
+            self.rates[f"direct_dispatch_b{batch}"] = r
+            print(f"bench[direct_dispatch_b{batch}]: {s.local_jobs} inline "
+                  f"jobs, bare client cycle, batch {batch} -> {r:.0f} "
+                  f"jobs/s, {wb:.0f} wire B/job", file=sys.stderr)
+        if r32 < DIRECT_FLOOR:
+            print(f"bench[direct_dispatch]: WARNING batch-32 ceiling "
+                  f"{r32:.0f} jobs/s is below the {DIRECT_FLOOR} jobs/s "
+                  "regression floor", file=sys.stderr)
+        was_active = lockdep.active()
+        if was_active:
+            base = lockdep.report()
+            base_edges, base_viol = base["edges"], len(base["violations"])
+        else:
+            lockdep.install()
+            lockdep.reset()
+            base_edges = base_viol = 0
+        try:
+            r_ld, _, _ = _direct_dispatch(dev, 32, s.local_jobs)
+            ld = lockdep.report()
+        finally:
+            if not was_active:
+                lockdep.uninstall()
+        edges = ld["edges"] - base_edges
+        violations = len(ld["violations"]) - base_viol
+        overhead = (r32 - r_ld) / max(r32, 1e-9) * 100
+        print(f"bench[direct_dispatch]: lockdep on -> {r_ld:.0f} jobs/s "
+              f"({overhead:+.1f}% vs off), {edges} edges, {violations} "
+              "violations", file=sys.stderr)
+        self.roofline["direct_dispatch_floor"] = {
+            "batch32_jobs_per_s": r32, "floor": DIRECT_FLOOR,
+            "floor_ok": r32 >= DIRECT_FLOOR,
+            "wire_bytes_per_job": {"b32": wb32, "b128": wb128},
+            "lockdep": {"batch32_jobs_per_s": r_ld, "overhead_pct": overhead,
+                        "floor_ok": r_ld >= DIRECT_FLOOR, "edges": edges,
+                        "violations": violations}}
+
+    def decision_plane(self) -> None:
+        """The reference's ``decision_plane``: (a) five paired rounds of
+        the direct loop at batch 32 with the decision plane killed
+        (``DBX_DECISIONS=0``) then recording, the median of the rounds'
+        deltas; (b) a synthetic stream of 16 decisions over a two-worker
+        fleet (12 on the worker holding the panel) through a private
+        ``DecisionPlane``: agreement and regret have known answers."""
+        from .obs import Registry, decisions
+
+        s, dev = self.s, str(self.dev)
+        r_off = r_on = 0.0
+        deltas = []
+        with _env_set(DBX_DECISIONS=None):
+            for _ in range(5):
+                os.environ["DBX_DECISIONS"] = "0"
+                ro = _direct_dispatch(dev, 32, s.local_jobs)[0]
+                os.environ["DBX_DECISIONS"] = "1"
+                rn = _direct_dispatch(dev, 32, s.local_jobs)[0]
+                r_off, r_on = max(r_off, ro), max(r_on, rn)
+                deltas.append((ro - rn) / max(ro, 1e-9) * 100)
+        overhead = sorted(deltas)[len(deltas) // 2]
+        digest, panel_b = "ab" * 32, 100_000_000
+
+        class Fleet:
+            def snapshot(self):
+                return {"workers": {
+                    "fast": {"stale": False, "age_s": 0.1, "caches": {
+                        "panel_topk": [{"d": digest[:12], "b": 1}]}},
+                    "slow": {"stale": False, "age_s": 0.1, "caches": {}}}}
+
+        plane = decisions.DecisionPlane(fleet=Fleet(), registry=Registry())
+        try:
+            plane.submit([
+                {"jid": f"dp-{i}", "trace_id": f"dp-{i}", "worker": wid,
+                 "tenant": "default", "strategy": "sma_crossover",
+                 "combos": 64.0, "affinity_skips": 0, "wfq": None,
+                 "digest": digest, "panel_b": panel_b, "append_parent": "",
+                 "base_len": 0, "bars": 2048, "t_take": float(i),
+                 "route": "full"}
+                for i, wid in enumerate(["fast"] * 12 + ["slow"] * 4)])
+            scored = plane.flush(timeout=30.0)
+            snap = plane.snapshot()
+        finally:
+            plane.close()
+        want_regret = panel_b / decisions.h2d_rate_bps()
+        self.rates["decision_plane"] = r_on
+        self.roofline["decision_plane"] = {
+            "jobs": s.local_jobs, "batch": 32, "jobs_per_s_off": r_off,
+            "jobs_per_s_on": r_on, "decision_overhead_delta_pct": overhead,
+            "overhead_rounds_pct": deltas, "overhead_ok": overhead <= 2.0,
+            "floor_ok": r_on >= DIRECT_FLOOR,
+            "shadow_scored": snap["n_scored"] if scored else -1,
+            "shadow_agreement_pct": snap["agreement"]["pct"],
+            "regret_p50": snap["regret"]["p50_s"],
+            "regret_p95": snap["regret"]["p95_s"],
+            "regret_expected_s": want_regret}
+        print(f"bench[decision_plane]: direct b32 killed {r_off:.0f} -> "
+              f"recording {r_on:.0f} jobs/s (median paired delta "
+              f"{overhead:+.1f}%); shadow stream {snap['n_scored']} scored, "
+              f"agreement {snap['agreement']['pct']:.0f}%, regret p50 "
+              f"{snap['regret']['p50_s']:.4f}s / p95 "
+              f"{snap['regret']['p95_s']:.4f}s (expected {want_regret:.4f}s "
+              "per mis-placement)", file=sys.stderr)
+
+    def e2e_local_placement(self) -> None:
+        """The reference's ``e2e_local_placement``: one mixed workload
+        (``DBX_BENCH_PL_CHAINS`` append chains of ``DBX_BENCH_PL_LINKS``
+        links, repeats of 4 panels, cold panels) drained by two port
+        workers whose backend sleeps the stage ladder of what it holds
+        (a carry hit, a full reprice, a panel transfer on top; seconds
+        scaled by ``DBX_BENCH_PL_SCALE``), placement off
+        (``DBX_PLACEMENT=0``) then live: jobs/s, the shadow scorer's
+        regret of each arm, the placement verdicts."""
+        from .rpc import dispatcher, panel_store
+
+        s = self.s
+        reprice_s, carry_s, transfer_s = (0.100 * s.pl_scale,
+                                          0.002 * s.pl_scale,
+                                          0.060 * s.pl_scale)
+        bars, step, n_panels = 1024, 64, 4
+        repeats, n_cold = min(4, s.pl_links), min(8, s.pl_links)
+        grid = {"fast": np.arange(5.0, 9.0, dtype=np.float32)}
+
+        class LocalityBackend:
+            """Sleeps the ladder of what this worker holds, keyed on
+            digests alone."""
+
+            chips = 1
+
+            def __init__(self):
+                self.held: set[str] = set()
+
+            def process(self, jobs):
+                out = []
+                for job in jobs:
+                    base = job.append_parent_digest
+                    if base and base in self.held:
+                        dt = carry_s
+                    else:
+                        dt = reprice_s + (transfer_s if job.panel_digest
+                                          not in self.held else 0.0)
+                    time.sleep(dt)
+                    self.held.add(job.panel_digest)
+                    out.append(compute.Completion(job.id, b"", dt,
+                                                  trace_id=job.trace_id))
+                return out
+
+        def blob(seed, n):
+            x = data.synthetic_ohlcv(1, n, seed=seed)
+            return data.to_wire_bytes(data.OHLCV(*(np.asarray(f[0][:n])
+                                                   for f in x)))
+
+        def records():
+            master = data.synthetic_ohlcv(1, bars + s.pl_links * step,
+                                          seed=700)
+            chains = []
+            for c in range(s.pl_chains):
+                links, prev_d, prev_n = [], "", 0
+                for k in range(s.pl_links):
+                    n = bars + k * step
+                    b = data.to_wire_bytes(data.OHLCV(*(
+                        np.asarray(f[0][:n]) + c for f in master)))
+                    links.append(dispatcher.JobRecord(
+                        id=f"pl-c{c}-l{k}", strategy="sma_crossover",
+                        grid=grid, ohlcv=b, append_parent=prev_d,
+                        append_base_len=prev_n))
+                    prev_d, prev_n = panel_store.panel_digest(b), n
+                chains.append(links)
+            rep_blobs = [blob(710 + p, bars) for p in range(n_panels)]
+            cold_blobs = [blob(730 + i, bars) for i in range(n_cold)]
+            recs = []
+            for r in range(s.pl_links):
+                recs += [links[r] for links in chains]
+                if r < repeats:
+                    recs += [dispatcher.JobRecord(
+                        id=f"pl-r{p}-{r}", strategy="sma_crossover",
+                        grid=grid, ohlcv=b) for p, b in enumerate(rep_blobs)]
+                if r < n_cold:
+                    recs.append(dispatcher.JobRecord(
+                        id=f"pl-x{r}", strategy="sma_crossover", grid=grid,
+                        ohlcv=cold_blobs[r]))
+            return recs
+
+        def arm(tag, live):
+            recs = records()
+            with _env_set(DBX_PLACEMENT="1" if live else "0",
+                          DBX_PLACEMENT_DEFER_CAP="64",
+                          DBX_DECISIONS_H2D_GBPS="0.0007",
+                          DBX_DECISIONS_RATE="100000"), \
+                    DispatchLoop([LocalityBackend(), LocalityBackend()],
+                                 device=str(self.dev), jobs_per_chip=2,
+                                 poll_interval_s=0.002) as loop:
+                t0 = time.perf_counter()
+                loop.drain(recs)
+                elapsed = time.perf_counter() - t0
+                disp = loop.dispatcher
+                disp.decisions.flush(timeout=30.0)
+                snap = disp.decisions.snapshot()
+                counts = {o: disp.obs.counter("dbx_placement_total",
+                                              outcome=o).value
+                          for o in ("served", "deferred", "cap")}
+            rate = len(recs) / elapsed
+            print(f"bench[e2e_local_placement/{tag}]: {len(recs)} jobs, 2 "
+                  f"workers -> {rate:.0f} jobs/s, regret sum "
+                  f"{snap['regret']['sum_s']:.3f}s over {snap['n_scored']} "
+                  f"scored, placement counts {counts}", file=sys.stderr)
+            return rate, snap, counts, len(recs)
+
+        r_blind, snap_blind, _, _ = arm("blind", False)
+        r_live, snap_live, counts, n = arm("live", True)
+        polls = sum(counts.values())
+        speedup = r_live / max(r_blind, 1e-9)
+        regret_shadow = snap_blind["regret"]["sum_s"]
+        regret_live = snap_live["regret"]["sum_s"]
+        self.rates["e2e_local_placement"] = r_live
+        self.roofline["e2e_local_placement"] = {
+            "jobs": n, "workers": 2, "jobs_per_s_blind": r_blind,
+            "jobs_per_s_live": r_live, "placement_speedup": speedup,
+            "defer_rate": counts["deferred"] / max(polls, 1),
+            "admit_counts": {o: int(v) for o, v in counts.items()},
+            "regret_seconds_shadow": regret_shadow,
+            "regret_seconds_live": regret_live,
+            "scored_shadow": snap_blind["n_scored"],
+            "scored_live": snap_live["n_scored"],
+            "speedup_ok": speedup >= 1.5,
+            "regret_ok": regret_live < regret_shadow}
+        print(f"bench[e2e_local_placement]: blind {r_blind:.0f} -> live "
+              f"{r_live:.0f} jobs/s ({speedup:.2f}x), regret "
+              f"{regret_shadow:.3f}s -> {regret_live:.3f}s, defer rate "
+              f"{counts['deferred'] / max(polls, 1):.3f}", file=sys.stderr)
+
+    def queue_machine(self) -> None:
+        """The reference's ``queue_machine``: the port's ``JobQueue``
+        state machine alone, ``DBX_BENCH_QUEUE_JOBS`` jobs through
+        enqueue (32 a call), ``take(32)`` and ``complete_batch`` on each
+        substrate (python, native), the best of three; then
+        ``cpp/dbx_core_bench.cc`` built by the port into ``_build/``
+        (``runtime._core.build_core_bench``), the same cycle at the C-ABI
+        grain over 200000 jobs."""
+        from .rpc import dispatcher
+        from .runtime import _core as native_core
+
+        s = self.s
+        recs = [dispatcher.JobRecord(id=f"q{i}", strategy="s", grid={},
+                                     ohlcv=b"x")
+                for i in range(s.queue_jobs)]
+        for substrate in ("python", "native"):
+            if substrate == "native" and not native_core.available():
+                print("bench[queue_machine]: native core unavailable, "
+                      "skipping", file=sys.stderr)
+                continue
+            best = 0.0
+            for _ in range(3):
+                q = dispatcher.JobQueue(use_native=substrate == "native",
+                                        device=str(self.dev))
+                assert q.substrate == substrate
+                t0 = time.perf_counter()
+                for i in range(0, len(recs), 32):
+                    q.enqueue_many(recs[i:i + 32])
+                while True:
+                    got = q.take(32, "w")
+                    if not got:
+                        break
+                    q.complete_batch([r.id for r, _ in got], "w")
+                elapsed = time.perf_counter() - t0
+                assert q.drained and (q.stats()["jobs_completed"]
+                                      == len(recs))
+                best = max(best, len(recs) / elapsed)
+            print(f"bench[queue_machine_{substrate}]: {len(recs)} full "
+                  "enqueue->take(32)->complete_batch cycles, best of 3 -> "
+                  f"{best / 1e3:.0f}k jobs/s", file=sys.stderr)
+            self.rates[f"queue_machine_{substrate}"] = best
+        try:
+            binary = native_core.build_core_bench()
+            out = subprocess.run([binary, "200000"], capture_output=True,
+                                 text=True, timeout=120)
+        except (native_core.ToolchainError, OSError,
+                subprocess.SubprocessError) as e:
+            print(f"bench[queue_machine_native_cabi]: skipped ({e})",
+                  file=sys.stderr)
+            return
+        m = re.search(r"-> (\d+) jobs/s", out.stdout)
+        if out.returncode == 0 and m:
+            self.rates["queue_machine_native_cabi"] = float(m.group(1))
+            print("bench[queue_machine_native_cabi]: " + out.stdout.strip(),
+                  file=sys.stderr)
+
+    def fanout(self) -> None:
+        """The reference's ``fanout``: ``DBX_BENCH_SUB_SYMBOLS`` 64-bar
+        symbols drained once by a port worker with ``InstantBackend``,
+        then ``DBX_BENCH_SUB_N`` subscriptions over
+        ``DBX_BENCH_SUB_CONNS`` ``Subscribe`` streams (a symbol's
+        subscribers on distinct connections) and one one-bar
+        ``AppendBars`` tick a symbol: advances (one a stream), pushes
+        delivered and dropped, tick-to-push latency by the client's
+        clock."""
+        import grpc
+
+        from . import obs
+        from .obs import timeline
+        from .rpc import dispatcher, service
+        from .rpc.worker import Worker
+
+        s = self.s
+        n_sub, n_sym = s.sub_n, s.sub_symbols
+        n_conns = min(s.sub_conns, n_sub)
+        bars = 64
+        grid = {"fast": np.arange(5.0, 9.0, dtype=np.float32)}
+        hist = data.synthetic_ohlcv(n_sym, bars + 1, seed=700)
+
+        def cut(i, lo, hi):
+            return data.to_wire_bytes(data.OHLCV(*(np.asarray(f[i, lo:hi])
+                                                   for f in hist)))
+
+        base = [dispatcher.JobRecord(id=f"fan-{i}", strategy="sma_crossover",
+                                     grid=grid, ohlcv=cut(i, 0, bars))
+                for i in range(n_sym)]
+        per_sym = n_sub // n_sym
+        if per_sym > n_conns:
+            raise SystemExit(f"bench[fanout]: DBX_BENCH_SUB_CONNS "
+                             f"({n_conns}) < subscribers per symbol "
+                             f"({per_sym}): a connection would name one "
+                             "stream twice, which dedupes to one push")
+
+        class Collector:
+            """Drains one Subscribe stream, sampling tick-to-receipt."""
+
+            def __init__(self, stub, request, expected):
+                self.lat: list[float] = []
+                self.expected = expected
+                self._call = stub.Subscribe(request)
+                self.thread = threading.Thread(target=self._drain,
+                                               daemon=True)
+                self.thread.start()
+
+            def _drain(self):
+                try:
+                    for item in self._call:
+                        if item.tick_unix:
+                            self.lat.append(time.time() - item.tick_unix)
+                        if len(self.lat) >= self.expected:
+                            break
+                except grpc.RpcError:
+                    pass
+
+            def stop(self):
+                self._call.cancel()
+                self.thread.join(timeout=10)
+
+        q = dispatcher.JobQueue(device=str(self.dev))
+        reg = obs.Registry()
+        collectors = []
+        with tempfile.TemporaryDirectory() as res:
+            disp = dispatcher.Dispatcher(
+                q, dispatcher.PeerRegistry(prune_window_s=60.0),
+                results_dir=res, registry=reg)
+            srv = dispatcher.DispatcherServer(
+                disp, bind="localhost:0", prune_interval_s=0.5,
+                max_workers=n_conns + 16).start()
+            worker = Worker(f"localhost:{srv.port}", compute.InstantBackend(),
+                            worker_id="fanout-worker", poll_interval_s=0.001,
+                            status_interval_s=0.5, jobs_per_chip=64)
+            wt = threading.Thread(target=worker.run, daemon=True)
+            channel = grpc.insecure_channel(
+                f"localhost:{srv.port}",
+                options=service.default_channel_options())
+            stub = service.DispatcherStub(channel)
+            try:
+                wt.start()
+                q.enqueue_many(base)
+                _wait_drained(q, 300.0, "fanout base")
+                per_conn = [[] for _ in range(n_conns)]
+                for j in range(n_sub):
+                    sym, k = divmod(j, per_sym) if per_sym else (j, 0)
+                    sym %= n_sym
+                    per_conn[(sym + k) % n_conns].append(pb.JobSpec(
+                        strategy="sma_crossover",
+                        panel_digest=base[sym].panel_digest,
+                        grid=wire.grid_to_proto(grid), periods_per_year=252))
+                for c, interests in enumerate(per_conn):
+                    collectors.append(Collector(stub, pb.SubscribeRequest(
+                        subscriber_id=f"fan-c{c}", interests=interests),
+                        expected=len(interests)))
+                deadline = time.monotonic() + 120.0
+                while disp.hub.stats()["interests"] < n_sub:
+                    if time.monotonic() > deadline:
+                        raise RuntimeError("bench[fanout]: subscriptions "
+                                           f"never registered: "
+                                           f"{disp.hub.stats()}")
+                    time.sleep(0.01)
+                t0 = time.perf_counter()
+                for i, rec in enumerate(base):
+                    r = stub.AppendBars(pb.AppendRequest(
+                        worker_id="feed", panel_digest=rec.panel_digest,
+                        base_len=bars, delta=cut(i, bars, bars + 1),
+                        job=pb.JobSpec()))
+                    if not r.ok:
+                        raise RuntimeError(f"bench[fanout]: tick {i} "
+                                           f"rejected: {r.detail}")
+                t_ticks = time.perf_counter() - t0
+                deadline = time.monotonic() + 300.0
+                while any(len(c.lat) < c.expected for c in collectors):
+                    if time.monotonic() > deadline:
+                        got = sum(len(c.lat) for c in collectors)
+                        print(f"bench[fanout]: {got}/{n_sub} pushes after "
+                              "300s (rest dropped or late)", file=sys.stderr)
+                        break
+                    time.sleep(0.01)
+                t_all = time.perf_counter() - t0
+            finally:
+                for c in collectors:
+                    c.stop()
+                worker.stop()
+                wt.join(timeout=30)
+                channel.close()
+                srv.stop()
+        lat = sorted(x for c in collectors for x in c.lat)
+        advances = reg.counter("dbx_stream_advances_total").value
+        dropped = reg.counter("dbx_sub_pushes_total", outcome="dropped").value
+        p50, p99 = timeline._quantile(lat, 0.50), timeline._quantile(lat, 0.99)
+        p99_bar = 2.0
+        self.roofline["fanout"] = {
+            "subscriptions": n_sub, "symbols": n_sym, "connections": n_conns,
+            "unique_streams": n_sym, "ticks": n_sym,
+            "advances_total": int(advances),
+            "advances_per_tick": advances / max(n_sym, 1),
+            "advances_eq_streams": advances == n_sym,
+            "pushes_delivered": len(lat), "pushes_dropped": int(dropped),
+            "pushes_per_advance": len(lat) / max(advances, 1),
+            "tick_to_push_p50_s": p50, "tick_to_push_p99_s": p99,
+            "p99_bar_s": p99_bar, "p99_ok": p99 <= p99_bar,
+            "tick_wall_s": t_ticks, "drain_wall_s": t_all}
+        self.rates["fanout"] = len(lat) / max(t_all, 1e-9)
+        print(f"bench[fanout]: {n_sub} subs / {n_sym} symbols on {n_conns} "
+              f"conns: {advances:.0f} advances, {len(lat)} pushes "
+              f"({dropped:.0f} dropped), tick->push p50 {p50 * 1e3:.1f}ms "
+              f"p99 {p99 * 1e3:.1f}ms, drain {t_all:.1f}s", file=sys.stderr)
+
+    def e2e_local_tenants(self) -> None:
+        """The reference's ``e2e_local_tenants``: two drains by one port
+        worker with ``InstantBackend`` (8 jobs a poll) of the same two
+        small tenants' ``DBX_BENCH_TENANT_SMALL_JOBS`` jobs each, alone
+        and behind a whale's ``DBX_BENCH_TENANT_WHALE_JOBS`` jobs of
+        ``DBX_BENCH_TENANT_WHALE_COMBOS`` combos enqueued first: each
+        tenant's p95 queue wait from ``obs.timeline`` over the span ring,
+        and the ratio of the small tenants' worst p95s."""
+        from . import obs
+        from .obs import timeline
+        from .rpc import dispatcher
+
+        s = self.s
+        series = data.synthetic_ohlcv(1, 32, seed=910)
+        blob = data.to_wire_bytes(data.OHLCV(*(np.asarray(f[0])
+                                               for f in series)))
+        small_grid = {"fast": np.arange(5.0, 9.0, dtype=np.float32)}
+        whale_grid = {"fast": np.arange(5.0, 5.0 + s.tenant_whale_combos,
+                                        dtype=np.float32)}
+
+        def recs(tag, tenant, n, grid):
+            return [dispatcher.JobRecord(id=f"{tag}:{tenant}-{i}",
+                                         strategy="sma_crossover", grid=grid,
+                                         ohlcv=blob, tenant=tenant)
+                    for i in range(n)]
+
+        def drain(groups):
+            all_recs = [r for g in groups for r in g]
+            with DispatchLoop([compute.InstantBackend()],
+                              device=str(self.dev), jobs_per_chip=8,
+                              poll_interval_s=0.001) as loop:
+                t0 = time.perf_counter()
+                loop.drain(all_recs)
+                elapsed = time.perf_counter() - t0
+            return len(all_recs) / elapsed
+
+        def p95(tag, tenant):
+            tls = timeline.reconstruct(obs.recent_spans())
+            # A timeline torn by the ring's eviction lost its queue_wait
+            # span first: leave it out rather than read its wait as ~0.
+            tls = {t: tl for t, tl in tls.items()
+                   if any(x["name"] == "job.queue_wait" for x in tl.spans)}
+            per_job = (timeline.summarize(tls, min_straggler_jobs=1 << 30)
+                       ["per_job"] if tls else [])
+            waits = sorted(j["stages"]["queue_wait"] for j in per_job
+                           if j["job"].startswith(f"{tag}:{tenant}-"))
+            if not waits:
+                raise SystemExit(f"bench[e2e_local_tenants]: no queue_wait "
+                                 f"timelines survive for {tag}:{tenant}; "
+                                 "the span ring is too small")
+            return timeline._quantile(waits, 0.95), len(waits)
+
+        n_small, n_whale = s.tenant_small_jobs, s.tenant_whale_jobs
+        # The drains' spans, about five a job, must outlive them in the
+        # ring: the reference bench's ring size (DBX_SPAN_RING=32768)
+        # unless the caller set one; the caller's ring comes back after.
+        with _env_set(DBX_SPAN_RING=os.environ.get("DBX_SPAN_RING",
+                                                   "32768")):
+            obs.configure_ring()
+            try:
+                r_solo = drain([recs("solo", "small_a", n_small, small_grid),
+                                recs("solo", "small_b", n_small,
+                                     small_grid)])
+                solo = {t: p95("solo", t) for t in ("small_a", "small_b")}
+                r_cont = drain([recs("cont", "whale", n_whale, whale_grid),
+                                recs("cont", "small_a", n_small, small_grid),
+                                recs("cont", "small_b", n_small,
+                                     small_grid)])
+                cont = {t: p95("cont", t)
+                        for t in ("whale", "small_a", "small_b")}
+            finally:
+                obs.configure_ring()
+        p95_solo = max(v[0] for v in solo.values())
+        per_tenant = {t: v[0] for t, v in cont.items()}
+        p95_cont = max(per_tenant["small_a"], per_tenant["small_b"])
+        ratio = p95_cont / max(p95_solo, 1e-9)
+        self.roofline["e2e_local_tenants"] = {
+            "tenant_queue_wait_samples": {
+                **{f"solo_{t}": v[1] for t, v in solo.items()},
+                **{f"contended_{t}": v[1] for t, v in cont.items()}},
+            "small_jobs": n_small, "whale_jobs": n_whale,
+            "small_combos_per_job": int(small_grid["fast"].size),
+            "whale_combos_per_job": s.tenant_whale_combos,
+            "tenant_p95_queue_wait_solo": p95_solo,
+            "tenant_p95_queue_wait_contended": p95_cont,
+            "fairness_ratio": ratio, "fairness_ok": ratio <= 2.0,
+            "per_tenant_p95_contended": per_tenant,
+            "jobs_per_s_solo": r_solo, "jobs_per_s_contended": r_cont}
+        self.rates["e2e_local_tenants"] = r_cont
+        print(f"bench[e2e_local_tenants]: whale {n_whale}x"
+              f"{s.tenant_whale_combos} combos vs 2x{n_small} small jobs: "
+              f"small p95 queue_wait {p95_solo * 1e3:.1f}ms solo -> "
+              f"{p95_cont * 1e3:.1f}ms contended = {ratio:.2f}x (bar: <= "
+              "2x)", file=sys.stderr)
+
+    def pipeline(self) -> None:
+        """The reference's ``pipeline``, on the live backend: one port
+        worker with ``TorchSweepBackend`` on the bench's device drains
+        ``DBX_BENCH_PIPELINE_JOBS`` sma jobs of ``DBX_BENCH_PIPELINE_BARS``
+        bars on a ``_FAST`` x ``_SLOW`` grid, ``DBX_BENCH_PIPELINE_BATCH``
+        a poll, serial (``DBX_PIPELINE=0``) and pipelined
+        (``DBX_PIPELINE=1``, depth 2), prefetch off, each after a warm-up
+        drain; jobs/s of each, the overlap factor and the stage seconds
+        from ``obs.timeline`` over the measured drain's spans. The
+        reference replays a calibrated host wall and models the device
+        as a wait, since its CPU twin has no device apart from the host;
+        here the host and device stage walls are the live backend's
+        medians of ``submit`` and ``collect`` on one batch."""
+        from . import obs
+        from .obs import timeline
+        from .rpc import dispatcher
+        from .rpc.worker import Worker
+
+        s = self.s
+        grid = {"fast": np.arange(2.0, 2.0 + s.pipeline_fast,
+                                  dtype=np.float32),
+                "slow": np.arange(32.0, 32.0 + 2 * s.pipeline_slow, 2,
+                                  dtype=np.float32)}
+
+        def specs(recs):
+            return [pb.JobSpec(id=r.id, strategy=r.strategy, ohlcv=r.ohlcv,
+                               grid=wire.grid_to_proto(r.grid), cost=r.cost,
+                               periods_per_year=252) for r in recs]
+
+        cal = specs(dispatcher.synthetic_jobs(
+            s.pipeline_batch, s.pipeline_bars, "sma_crossover", grid,
+            seed=6999))
+        backend = compute.TorchSweepBackend(device=self.dev)
+        for _ in range(2):
+            backend.process(cal)
+        host, dev_w = [], []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            h = backend.submit(cal)
+            t1 = time.perf_counter()
+            backend.collect(h)
+            host.append(t1 - t0)
+            dev_w.append(time.perf_counter() - t1)
+        host_s, device_s = statistics.median(host), statistics.median(dev_w)
+
+        def mode(pipelined: bool):
+            q = dispatcher.JobQueue(device=str(self.dev))
+            with _env_set(DBX_PIPELINE="1" if pipelined else "0",
+                          DBX_PREFETCH="0"), \
+                    tempfile.TemporaryDirectory() as res:
+                disp = dispatcher.Dispatcher(
+                    q, dispatcher.PeerRegistry(prune_window_s=60.0),
+                    results_dir=res, registry=obs.Registry())
+                srv = dispatcher.DispatcherServer(
+                    disp, bind="localhost:0", prune_interval_s=1.0).start()
+                # Four batches may wait ahead of the depth-2 pipeline, so a
+                # slow poll starves neither mode.
+                w = Worker(f"localhost:{srv.port}", backend,
+                           poll_interval_s=0.001, status_interval_s=0.5,
+                           jobs_per_chip=s.pipeline_batch,
+                           max_inflight_batches=4)
+                t = threading.Thread(target=w.run, daemon=True)
+                seed = 7000 if pipelined else 8000
+                try:
+                    t.start()
+                    q.enqueue_many(dispatcher.synthetic_jobs(
+                        max(s.pipeline_jobs // 4, s.pipeline_batch * 3),
+                        s.pipeline_bars, "sma_crossover", grid, seed=seed))
+                    _wait_drained(q, 600.0, "pipeline warm-up")
+                    obs.configure_ring()
+                    t0 = time.perf_counter()
+                    q.enqueue_many(dispatcher.synthetic_jobs(
+                        s.pipeline_jobs, s.pipeline_bars, "sma_crossover",
+                        grid, seed=seed + 1))
+                    _wait_drained(q, 600.0, "pipeline")
+                    elapsed = time.perf_counter() - t0
+                finally:
+                    w.stop()
+                    t.join(timeout=60)
+                    srv.stop()
+            digest = timeline.summarize_spans(obs.recent_spans(),
+                                              overlap=True)
+            return s.pipeline_jobs / elapsed, digest
+
+        r_serial, tl_serial = mode(False)
+        r_piped, tl_piped = mode(True)
+        obs.configure_ring()
+
+        def totals(tl):
+            return {k: v["total_s"] for k, v in tl.get("stages", {}).items()
+                    if v["total_s"] > 0}
+
+        ov_piped = tl_piped.get("overlap", {}).get("overlap_factor", 1.0)
+        ov_serial = tl_serial.get("overlap", {}).get("overlap_factor", 1.0)
+        self.rates["pipeline"] = r_piped
+        self.roofline["pipeline"] = {
+            "jobs": s.pipeline_jobs, "bars": s.pipeline_bars,
+            "combos_per_job": s.pipeline_fast * s.pipeline_slow,
+            "batch": s.pipeline_batch, "host_stage_ms": host_s * 1e3,
+            "device_stage_ms": device_s * 1e3,
+            "jobs_per_s_serial": r_serial, "jobs_per_s_pipelined": r_piped,
+            "pipeline_speedup": r_piped / max(r_serial, 1e-9),
+            "overlap_factor": ov_piped, "overlap_factor_serial": ov_serial,
+            "stages_serial": totals(tl_serial),
+            "stages_pipelined": totals(tl_piped)}
+        print(f"bench[pipeline]: {s.pipeline_jobs} jobs x "
+              f"{s.pipeline_fast * s.pipeline_slow} combos @ "
+              f"{s.pipeline_bars} bars, batch={s.pipeline_batch}, submit "
+              f"{host_s * 1e3:.2f} ms, collect {device_s * 1e3:.2f} ms -> "
+              f"serial {r_serial:.2f} jobs/s, pipelined {r_piped:.2f} jobs/s"
+              f" ({r_piped / max(r_serial, 1e-9):.2f}x), overlap "
+              f"{ov_serial:.2f} -> {ov_piped:.2f}", file=sys.stderr)
+
+
+@contextlib.contextmanager
+def _env_set(**values):
+    """Set (a value) or unset (None) environment variables for the block,
+    then restore what was there."""
+    prior = {k: os.environ.get(k) for k in values}
+    try:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in prior.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _wait_drained(queue, timeout_s: float, what: str) -> None:
+    deadline = time.monotonic() + timeout_s
+    while not queue.drained:
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"bench[{what}]: drain wedged for "
+                               f"{timeout_s:.0f} s: {queue.stats()}")
+        time.sleep(0.002)
+
 
 def _direct_dispatch(device: str, batch: int, n_jobs: int, *,
-                     telemetry: bool = False) -> tuple[float, list]:
+                     telemetry: bool = False,
+                     wire: bool = False) -> tuple[float, list, float]:
     """Jobs/s of one client polling ``RequestJobs`` (``batch`` jobs a
     poll) and completing each batch at once with ``CompleteJobs``, against
     the port's dispatcher over loopback gRPC: the control plane's floor
-    (the reference bench's ``run_fleet_direct``). With ``telemetry`` each
-    poll carries a ``WorkerTelemetry`` frame. Returns (jobs/s, the
-    dispatcher's frame sizes)."""
+    (the reference bench's ``run_fleet_direct``, and with ``wire`` its
+    ``run_direct_dispatch``, which also sums the serialized bytes of each
+    request and reply). With ``telemetry`` each poll carries a
+    ``WorkerTelemetry`` frame. Returns (jobs/s, the dispatcher's frame
+    sizes, wire bytes a job or 0.0)."""
     import grpc
 
     from . import obs
@@ -1255,6 +1999,7 @@ def _direct_dispatch(device: str, batch: int, n_jobs: int, *,
     lgrid = {"fast": np.arange(5.0, 9.0, dtype=np.float32)}
     queue = dispatcher.JobQueue(journal.Journal(None), device=device)
     done_jobs = [0]
+    wire_bytes = [0]
     telem = (fleet_mod.WorkerTelemetry("direct", stats_fn=lambda: {
         "jobs_completed": done_jobs[0], "busy": 1}) if telemetry else None)
     with tempfile.TemporaryDirectory() as results_dir:
@@ -1274,23 +2019,29 @@ def _direct_dispatch(device: str, batch: int, n_jobs: int, *,
                 n, 32, "sma_crossover", lgrid, seed=seed))
             done = 0
             while done < n:
-                reply = stub.RequestJobs(pb.JobsRequest(
+                req = pb.JobsRequest(
                     worker_id="direct", chips=1, jobs_per_chip=batch,
                     telemetry_json=(telem.take_frame_json()
-                                    if telem is not None else "")))
+                                    if telem is not None else ""))
+                reply = stub.RequestJobs(req)
                 if not reply.jobs:
                     break
-                stub.CompleteJobs(pb.CompleteBatch(
+                creq = pb.CompleteBatch(
                     worker_id="direct",
                     items=[pb.CompleteItem(id=j.id, metrics=b"",
                                            elapsed_s=0.0)
-                           for j in reply.jobs]))
+                           for j in reply.jobs])
+                crep = stub.CompleteJobs(creq)
+                if wire:
+                    wire_bytes[0] += (req.ByteSize() + reply.ByteSize()
+                                      + creq.ByteSize() + crep.ByteSize())
                 done += len(reply.jobs)
                 done_jobs[0] += len(reply.jobs)
             return done
 
         try:
             cycle(max(n_jobs // 4, 64), seed=700)      # warm the channel
+            wire_bytes[0] = 0
             t0 = time.perf_counter()
             done = cycle(n_jobs, seed=701)
             elapsed = time.perf_counter() - t0
@@ -1298,7 +2049,7 @@ def _direct_dispatch(device: str, batch: int, n_jobs: int, *,
         finally:
             channel.close()
             srv.stop()
-    return done / elapsed, frames
+    return done / elapsed, frames, wire_bytes[0] / max(done, 1)
 
 
 def _fleet_e2e(device: str, n_workers: int, n_jobs: int,
@@ -1587,7 +2338,8 @@ def run(s: Settings) -> dict:
             b.walkforward()
         elif name in ("streaming_append", "ragged_paged", "scenario_sweep",
                       "scenario_megakernel", "long_context", "autotune",
-                      "e2e_local", "fleet_telemetry", "flight"):
+                      "e2e_local", "fleet_telemetry", "flight",
+                      *CONTROL_CONFIGS):
             getattr(b, name)()
         elif name in ("e2e", "e2e_topk"):
             b.e2e(name, top_k=16 if name == "e2e_topk" else 0)

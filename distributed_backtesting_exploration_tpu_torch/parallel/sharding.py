@@ -191,12 +191,11 @@ def _local_sweep(panel, strategy, grid, *, cost, mask, periods_per_year,
                                    bar_mask=mask,
                                    periods_per_year=periods_per_year,
                                    device=device)
-    P = sweep_mod.grid_size(grid)
-    parts = [sweep_mod.run_sweep(
-        panel, strategy, {k: v[lo:lo + param_chunk] for k, v in grid.items()},
-        cost=cost, bar_mask=mask, periods_per_year=periods_per_year,
-        device=device) for lo in range(0, P, param_chunk)]
-    return metrics_mod.Metrics(*(torch.cat(f, dim=-1) for f in zip(*parts)))
+    return sweep_mod.chunked_sweep(panel, strategy, grid,
+                                   param_chunk=param_chunk, cost=cost,
+                                   bar_mask=mask,
+                                   periods_per_year=periods_per_year,
+                                   device=device)
 
 
 def sharded_sweep(mesh: Mesh, ohlcv, strategy: Strategy,

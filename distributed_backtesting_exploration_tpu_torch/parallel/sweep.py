@@ -83,6 +83,24 @@ def run_sweep(
     return map_param_chunks(grid, N * T, dev, one_chunk)
 
 
+def chunked_sweep(ohlcv, strategy: Strategy, grid: Mapping[str, object], *,
+                  param_chunk: int, cost: float = 0.0, bar_mask=None,
+                  periods_per_year: int = 252,
+                  device: str | torch.device = device_mod.DEFAULT_DEVICE
+                  ) -> metrics_mod.Metrics:
+    """:func:`run_sweep` over the grid in chunks of ``param_chunk`` combos
+    (the last may be shorter), the ``(n_tickers, P)`` metrics concatenated
+    in grid order: the reference's ``chunked_sweep``, a bound on the live
+    set of one call."""
+    P = grid_size(grid)
+    parts = [run_sweep(ohlcv, strategy,
+                       {k: v[lo:lo + param_chunk] for k, v in grid.items()},
+                       cost=cost, bar_mask=bar_mask,
+                       periods_per_year=periods_per_year, device=device)
+             for lo in range(0, P, param_chunk)]
+    return metrics_mod.Metrics(*(torch.cat(f, dim=-1) for f in zip(*parts)))
+
+
 def reprice(ohlcv, strategy: Strategy, params: Mapping[str, object], *,
             cost: float = 0.0, bar_mask=None,
             device: str | torch.device = device_mod.DEFAULT_DEVICE

@@ -99,6 +99,19 @@ than the noise. The platform names the runtime and the card
 so neither kind of worker adopts the other's entries. A failed
 consultation serves the defaults.
 
+The worker CLI's ``--fused``, ``--mesh`` and ``--param-chunk`` map onto
+``TorchSweepBackend(use_fused=, use_mesh=, param_chunk=)``, which take the
+meaning of the reference's ``JaxSweepBackend`` arguments: ``use_fused=
+False`` sends every single-asset and pairs group down the generic sweep,
+walk-forward groups to the generic refit, scenario batches to the
+materialized rung (and the worker then declares no spec batches), and
+turns paging off; ``use_mesh=False`` gives no mesh even on a host of
+several GPUs; None keeps the defaults (fused; a mesh of every local GPU
+where there are two or more). ``param_chunk`` runs a generic sweep whose
+grid it divides in chunks of that many combos
+(:func:`~..parallel.sweep.chunked_sweep`). :class:`InstantBackend` and
+:class:`SleepBackend` are the reference's control-plane fakes.
+
 This module imports no ``grpc``: the worker injects the fetcher.
 """
 
@@ -660,12 +673,21 @@ class TorchSweepBackend:
     def __init__(self, *, device: str | torch.device | None = None,
                  panel_cache: PanelCache | None = None,
                  carry_store: CarryStore | None = None,
-                 mesh: sharding.Mesh | None = None):
+                 mesh: sharding.Mesh | None = None,
+                 param_chunk: int | None = None,
+                 use_fused: bool | None = None,
+                 use_mesh: bool | None = None):
+        if use_mesh is False and mesh is not None:
+            raise ValueError("use_mesh=False with a mesh given")
         if device is None:
             device = (mesh.devices[0] if mesh is not None
                       else device_mod.DEFAULT_DEVICE)
         self.device = device_mod.resolve(device)
-        self.mesh = default_mesh(self.device) if mesh is None else mesh
+        self.param_chunk = param_chunk
+        self.use_fused = use_fused is not False
+        if mesh is None and use_mesh is not False:
+            mesh = default_mesh(self.device)
+        self.mesh = mesh
         if self.mesh is not None and self.device != self.mesh.devices[0]:
             raise ValueError(f"device {self.device} is not the mesh's first "
                              f"device {self.mesh.devices[0]}")
@@ -678,7 +700,8 @@ class TorchSweepBackend:
         self.payload_fetcher: Callable[[str], bytes] | None = None
         # The paged route is meshless, as the reference's (its page pool
         # lives on one device).
-        self.use_paged = fused.paged_enabled() and self.mesh is None
+        self.use_paged = (self.use_fused and fused.paged_enabled()
+                          and self.mesh is None)
         self.decodes = 0
         self.appends = {"carry_hit": 0, "full_reprice": 0}
         self.advances = 0
@@ -776,8 +799,9 @@ class TorchSweepBackend:
         """The capability the worker declares on each poll: scenario spec
         batches are served on the fused route. Read per poll, so
         ``DBX_SCENARIO_FUSED=0`` stops new batches at once (a batch already
-        leased goes to the materialized rung)."""
-        return fused.scenario_fused_enabled()
+        leased goes to the materialized rung). False with ``use_fused``
+        off."""
+        return self.use_fused and fused.scenario_fused_enabled()
 
     def stats(self) -> dict:
         """The caches' levels and the backend's counts."""
@@ -794,7 +818,7 @@ class TorchSweepBackend:
         ``backend`` "torch"."""
         return {
             "caps": {"backend": "torch", "chips": self.chips,
-                     "platform": self.platform, "fused": True,
+                     "platform": self.platform, "fused": self.use_fused,
                      "mesh": self.mesh is not None,
                      "paged": bool(self.use_paged)},
             "caches": {
@@ -1208,7 +1232,9 @@ class TorchSweepBackend:
         specs = list(job.scenario_batch)
         series, _ = self._resolve_series(job)
         axes = wire.grid_from_proto(job.grid)
-        if not fused.scenario_fused_enabled():
+        if not self.use_fused:
+            why = "use_fused=False"
+        elif not fused.scenario_fused_enabled():
             why = "DBX_SCENARIO_FUSED=0"
         elif not fused.scenario_supported(job.strategy):
             why = f"strategy {job.strategy!r} has no scenario row"
@@ -1440,25 +1466,36 @@ class TorchSweepBackend:
         cost = float(job0.cost)
         ppy = job0.periods_per_year or 252
         spec = _FUSED_STRATEGIES[job0.strategy]
-        demotion = _fused_demotion_reason(spec, axes)
-        if demotion is None:
-            g = {k: v.numpy() for k, v in grid.items()}
-            return self._submit_fused(group, series, lengths, g, cost, ppy,
-                                      t0, allow_paged, spec)
-        log.warning("jobs %s (%s) take the generic path: %s",
-                    [j.id for j in group], job0.strategy, demotion)
+        if self.use_fused:
+            demotion = _fused_demotion_reason(spec, axes)
+            if demotion is None:
+                g = {k: v.numpy() for k, v in grid.items()}
+                return self._submit_fused(group, series, lengths, g, cost,
+                                          ppy, t0, allow_paged, spec)
+            log.warning("jobs %s (%s) take the generic path: %s",
+                        [j.id for j in group], job0.strategy, demotion)
         if len(set(lengths)) > 1:
             self._count_pad("dense", sum(max(lengths) - t for t in lengths))
         batch, _, mask = data_mod.pad_and_stack(series)
         strategy = models_base.get_strategy(job0.strategy)
-        if self.mesh is None:
+        # The reference's rule: chunks only where they divide the grid.
+        P = sweep_mod.grid_size(grid)
+        chunk = (self.param_chunk
+                 if self.param_chunk and P % self.param_chunk == 0 else None)
+        if self.mesh is not None:
+            m = sharding.sharded_sweep(self.mesh, batch, strategy, grid,
+                                       cost=cost, bar_mask=mask,
+                                       periods_per_year=ppy,
+                                       param_chunk=chunk)
+        elif chunk:
+            m = sweep_mod.chunked_sweep(batch, strategy, grid,
+                                        param_chunk=chunk, cost=cost,
+                                        bar_mask=mask, periods_per_year=ppy,
+                                        device=self.device)
+        else:
             m = sweep_mod.run_sweep(batch, strategy, grid, cost=cost,
                                     bar_mask=mask, periods_per_year=ppy,
                                     device=self.device)
-        else:
-            m = sharding.sharded_sweep(self.mesh, batch, strategy, grid,
-                                       cost=cost, bar_mask=mask,
-                                       periods_per_year=ppy)
         self._observe_submit(
             job0.strategy, "generic" + ("_mesh" if self.mesh else ""), t0,
             cold=True, group=group, bars=max(lengths),
@@ -1862,7 +1899,8 @@ class TorchSweepBackend:
                                          lengths)
             spec = _FUSED_STRATEGIES[job0.strategy]
             P = sweep_mod.grid_size(grid)
-            fused_train = (P >= self._WF_FUSED_MIN_COMBOS
+            fused_train = (self.use_fused
+                           and P >= self._WF_FUSED_MIN_COMBOS
                            and _fused_demotion_reason(spec, axes) is None)
             if fused_train:
                 log.info("walk-forward jobs %s (%s, P=%d) using the "
@@ -1996,7 +2034,8 @@ class TorchSweepBackend:
             log.warning("jobs %s (pairs) are long-context (%d bars) but not "
                         "time-shardable (%s); they take the other routes",
                         [j.id for j in jobs], t_max, ts_reason)
-        demotion = _pairs_demotion_reason(axes)
+        demotion = (_pairs_demotion_reason(axes) if self.use_fused
+                    else "use_fused=False")
         if demotion is None:
             self._observe_substrates(_PAIRS)
             g = {k: v.numpy() for k, v in grid.items()}
@@ -2021,8 +2060,9 @@ class TorchSweepBackend:
                      if self.mesh is None
                      else self._mesh_call(run, [y_close, x_close], tr))
         else:
-            log.warning("jobs %s (pairs) take the generic path: %s",
-                        [j.id for j in jobs], demotion)
+            if self.use_fused:
+                log.warning("jobs %s (pairs) take the generic path: %s",
+                            [j.id for j in jobs], demotion)
             if uniform and self.mesh is not None:
                 m = self._mesh_call(
                     lambda blks, _tr, dev: pairs_mod.run_pairs_sweep(
@@ -2079,5 +2119,24 @@ class InstantBackend:
         for job in jobs:
             self.seen.append(job.id)
             out.append(Completion(job.id, empty, 0.0,
+                                  trace_id=job.trace_id))
+        return out
+
+
+class SleepBackend:
+    """A fixed delay a job and an empty block (the reference's
+    ``SleepBackend``): the control plane with a compute side that takes
+    time, for liveness tests."""
+
+    chips = 1
+
+    def __init__(self, delay_s: float = 0.05):
+        self.delay_s = delay_s
+
+    def process(self, jobs) -> list[Completion]:
+        out = []
+        for job in jobs:
+            time.sleep(self.delay_s)
+            out.append(Completion(job.id, b"", self.delay_s,
                                   trace_id=job.trace_id))
         return out

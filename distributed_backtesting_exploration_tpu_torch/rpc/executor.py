@@ -71,11 +71,15 @@ class Executor:
     ``DBX_PIPELINE_DEPTH``; a backend without ``submit`` and ``collect``
     always runs serially. :attr:`busy` is set while any batch is in flight.
     ``worker_id`` names the worker in spans and flight triggers.
+    ``inbox`` and ``outbox`` default to a ``queue.Queue`` of
+    ``max_queued`` batches and an unbounded one; the worker passes its
+    channels (anything with ``put``, ``get``, ``get_nowait`` raising
+    ``queue.Empty``, and ``qsize``).
     """
 
     def __init__(self, backend, *, max_queued: int = 2,
                  pipelined: bool | None = None, depth: int | None = None,
-                 worker_id: str = ""):
+                 worker_id: str = "", inbox=None, outbox=None):
         self.backend = backend
         self.worker_id = worker_id
         two_phase = (hasattr(backend, "submit")
@@ -83,8 +87,8 @@ class Executor:
         self.pipelined = two_phase and (pipeline_enabled() if pipelined
                                         is None else pipelined)
         self.depth = pipeline_depth() if depth is None else max(int(depth), 1)
-        self.inbox: queue.Queue = queue.Queue(max_queued)
-        self.outbox: queue.Queue = queue.Queue()
+        self.inbox = queue.Queue(max_queued) if inbox is None else inbox
+        self.outbox = queue.Queue() if outbox is None else outbox
         self.busy = threading.Event()
         self._lock = threading.Lock()
         self._inflight = 0

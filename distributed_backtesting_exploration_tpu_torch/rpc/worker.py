@@ -14,6 +14,20 @@ completions with ``CompleteJobs``. The compute side is an
 ``DBX_PIPELINE=1`` and a two-phase backend a submit thread and a collector
 thread (``DBX_PIPELINE_DEPTH``).
 
+The control and compute sides meet in two bounded channels
+(:class:`_Channel`, the reference's): on the native core's MPMC queue
+(``runtime._core.NativeQueue``), each batch and completion crossing as
+proto bytes, and on ``queue.Queue`` only where the core cannot load;
+``_Channel.backend`` reads ``native`` or ``python`` (:meth:`Worker.stats`).
+Completions are reported in ``CompleteJobs`` batches of up to
+``_COMPLETION_BATCH``; a failed batch parks its items with a due time
+(``_COMPLETION_BACKOFF_S``, the control thread never sleeps on it) and
+each is retried when due, dropped after its last retry
+(``dbx_worker_completions_dropped_total``; the lease re-queues the job).
+The dispatcher going unreachable and coming back each log one line, on
+the edge. The heartbeat runs on its own thread, so unlike the
+reference's the report loop never yields to an overdue status.
+
 The backend serves top-k, best-returns, walk-forward, digest-only,
 streaming append and scenario spec-batch jobs (the poll declares
 ``accepts_scenario_batch`` as the backend does); a delta-only append (the
@@ -55,10 +69,15 @@ poll carries an ``obs.fleet.WorkerTelemetry`` frame on
 elapsed, sent again after a failed poll; the dispatcher's fleet view
 merges it.
 
-Run it:
+Run it (``--backend torch``, the default, or the control plane's fakes
+``instant`` and ``sleep``; ``--fused``, ``--mesh`` ``auto|on|off`` and
+``--param-chunk`` as :func:`make_backend` maps them):
 
     python -m distributed_backtesting_exploration_tpu_torch.rpc.worker \\
         --connect localhost:50051 --device cuda --metrics-port 9100
+
+or through the native shell, ``runtime._core.build_worker_shell()``'s
+``_build/dbx_worker_native`` with the same arguments.
 """
 
 from __future__ import annotations
@@ -76,17 +95,13 @@ import grpc
 
 from .. import obs, tune
 from ..obs import fleet as obs_fleet
+from ..runtime import _core as native_core
 from . import backtesting_pb2 as pb
 from . import compute, service
 from .executor import Executor, pipeline_depth
 
 log = logging.getLogger("dbx.torch.worker")
 
-# Seconds between the attempts to report one batch of completions; after
-# the last the batch is dropped and its leases re-queue the jobs.
-_REPORT_BACKOFF_S = (0.2, 1.0, 3.0)
-# Completions per CompleteJobs RPC.
-_REPORT_BATCH = 256
 # Compile-cache entries fetched a FetchCompiled RPC (a reply stays under
 # the channel's message cap even when the fleet store is full).
 _COMPILE_FETCH_BATCH = 32
@@ -102,6 +117,102 @@ def prefetch_enabled() -> bool:
     Any of ``0``, ``off``, ``false`` turns it off."""
     return os.environ.get("DBX_PREFETCH", "1").lower() not in (
         "0", "off", "false")
+
+
+class _Channel:
+    """A bounded channel between the control and compute threads (the
+    reference worker's): the native core's MPMC queue where the core
+    loads, items crossing as bytes through ``enc`` and ``dec``, else
+    ``queue.Queue``. A ``capacity`` of None is unbounded; the native queue
+    is always bounded, so it gets ``_UNBOUNDED``, past which a producer
+    blocks where ``queue.Queue(0)`` would not (2**20 undrained items, far
+    past the dispatcher's prune window). :meth:`get_nowait` raises
+    ``queue.Empty``, as ``queue.Queue``'s does."""
+
+    _UNBOUNDED = 1 << 20
+
+    def __init__(self, capacity: int | None, enc, dec):
+        self._enc, self._dec = enc, dec
+        self._capacity = capacity
+        self._nq = None
+        if native_core.available():
+            try:
+                self._nq = native_core.NativeQueue(capacity or self._UNBOUNDED)
+            except RuntimeError:
+                self._nq = None
+        self._pq: queue.Queue | None = (
+            None if self._nq is not None else queue.Queue(capacity or 0))
+        self.backend = "native" if self._nq is not None else "python"
+
+    def put(self, item) -> None:
+        if self._nq is not None:
+            self._nq.push(self._enc(item))
+        else:
+            self._pq.put(item)
+
+    def get(self):
+        if self._nq is not None:
+            return self._dec(self._nq.pop())
+        return self._pq.get()
+
+    def get_nowait(self):
+        if self._nq is not None:
+            b = self._nq.pop(timeout_ms=0)
+            if b is None:
+                raise queue.Empty
+            return self._dec(b)
+        return self._pq.get_nowait()
+
+    def full(self) -> bool:
+        if self._nq is not None:
+            return (self._capacity is not None
+                    and len(self._nq) >= self._capacity)
+        return self._pq.full()
+
+    def empty(self) -> bool:
+        if self._nq is not None:
+            return len(self._nq) == 0
+        return self._pq.empty()
+
+    def qsize(self) -> int:
+        """Occupancy now (a gauge's reading; racy by nature)."""
+        if self._nq is not None:
+            return len(self._nq)
+        return self._pq.qsize()
+
+
+_BATCH_SENTINEL = b"S"
+
+
+def _encode_batch(batch) -> bytes:
+    """A job batch as ``b"B"`` and a serialized ``JobsReply``; None (the
+    executor's shutdown sentinel) as ``b"S"``."""
+    if batch is None:
+        return _BATCH_SENTINEL
+    return b"B" + pb.JobsReply(jobs=batch).SerializeToString()
+
+
+def _decode_batch(data: bytes):
+    if data[:1] == _BATCH_SENTINEL:
+        return None
+    reply = pb.JobsReply()
+    reply.ParseFromString(data[1:])
+    return list(reply.jobs)
+
+
+def _encode_completion(c: compute.Completion) -> bytes:
+    # The wire's CompleteRequest is the envelope, trace id included, so a
+    # completion comes out of the queue still joined to its trace.
+    return pb.CompleteRequest(id=c.job_id, metrics=c.metrics,
+                              elapsed_s=c.elapsed_s,
+                              trace_id=c.trace_id).SerializeToString()
+
+
+def _decode_completion(data: bytes) -> compute.Completion:
+    req = pb.CompleteRequest()
+    req.ParseFromString(data)
+    return compute.Completion(req.id, req.metrics, req.elapsed_s,
+                              trace_id=req.trace_id)
 
 
 class _WireCountingChannel:
@@ -146,11 +257,20 @@ class _SyncLegFailed(Exception):
 
 class Worker:
     """Poll ``target`` for jobs and run them on ``backend``; metrics go to
-    ``registry`` (the process's by default)."""
+    ``registry`` (the process's by default). At most
+    ``max_inflight_batches`` batches wait for the compute side; while they
+    do the worker polls for no more."""
+
+    # Seconds after a failed CompleteJobs before each of an item's retries;
+    # a failure after the last drops it and its lease re-queues the job.
+    _COMPLETION_BACKOFF_S = (0.5, 1.0, 2.0)
+    # Completions per CompleteJobs RPC.
+    _COMPLETION_BATCH = 256
 
     def __init__(self, target: str, backend, *, worker_id: str | None = None,
                  poll_interval_s: float = 0.25,
                  status_interval_s: float = 1.0, jobs_per_chip: int = 1,
+                 max_inflight_batches: int = 2,
                  registry: obs.Registry | None = None):
         self.target = target
         self.backend = backend
@@ -168,8 +288,16 @@ class Worker:
         self._next_tune_sync = 0.0
         self._stop = threading.Event()
         self._executor: Executor | None = None
-        # Completions waiting for a retry of their CompleteJobs.
-        self._retrying = 0
+        self._in = _Channel(max_inflight_batches, _encode_batch,
+                            _decode_batch)
+        self._out = _Channel(None, _encode_completion, _decode_completion)
+        # Completions whose CompleteJobs failed: (due, attempts, completion),
+        # touched by the control thread alone.
+        self._deferred: list[tuple[float, int, compute.Completion]] = []
+        # The dispatcher's reachability as last seen, for one log line an
+        # edge; the heartbeat thread and the control thread both see RPCs.
+        self._connected = True
+        self._conn_lock = threading.Lock()
         reg = self.obs = registry or obs.get_registry()
         self._h_rpc = {m: reg.histogram(
             "dbx_worker_rpc_seconds",
@@ -224,16 +352,25 @@ class Worker:
                 "pipeline_depth": (ex.depth if ex is not None
                                    else pipeline_depth())}
 
+    def stats(self) -> dict:
+        """The worker's counts and its channels' backend (``native`` or
+        ``python``)."""
+        return {"jobs_completed": self.jobs_completed,
+                "completions_dropped": self.completions_dropped,
+                "payload_fetches": self.payload_fetches,
+                "deferred_completions": len(self._deferred),
+                "channel": self._in.backend}
+
     def _collect_gauges(self, reg) -> None:
         # Sets the children made in run(): a scrape racing run()'s cleanup
         # sets detached objects and registers nothing again.
         g, ex = self._gauges, self._executor
-        if g is None or ex is None:
+        if g is None:
             return
-        g["in"].set(ex.inbox.qsize())
-        g["out"].set(ex.outbox.qsize())
-        g["deferred"].set(self._retrying)
-        g["busy"].set(1 if ex.busy.is_set() else 0)
+        g["in"].set(self._in.qsize())
+        g["out"].set(self._out.qsize())
+        g["deferred"].set(len(self._deferred))
+        g["busy"].set(1 if ex is not None and ex.busy.is_set() else 0)
 
     def _start_gauges(self) -> None:
         wid, reg = self.worker_id, self.obs
@@ -284,7 +421,8 @@ class Worker:
             self._telemetry = obs_fleet.WorkerTelemetry(
                 self.worker_id, stats_fn=self._telemetry_stats,
                 backend=self.backend, registry=self.obs)
-        ex = self._executor = Executor(self.backend,
+        ex = self._executor = Executor(self.backend, inbox=self._in,
+                                       outbox=self._out,
                                        worker_id=self.worker_id)
         self._start_gauges()
         prefetch_q: queue.Queue | None = None
@@ -309,7 +447,7 @@ class Worker:
                 if tunes and now >= self._next_tune_sync:
                     self._next_tune_sync = now + self.tune_sync_interval_s
                     self._sync_tune(stub)
-                if not ex.inbox.full():
+                if not self._in.full():
                     jobs = self._poll(stub)
                     if jobs:
                         saw_work = True
@@ -317,11 +455,12 @@ class Worker:
                         self._resolve_payloads(stub, jobs)
                         if prefetch_q is not None:
                             prefetch_q.put(jobs)
-                        ex.inbox.put(jobs)
+                        self._in.put(jobs)
                     elif (jobs is not None and not ex.busy.is_set()
-                          and ex.inbox.empty() and ex.outbox.empty()):
+                          and self._in.empty() and self._out.empty()
+                          and not self._deferred):
                         idle_polls += 1
-                self._report(stub, ex.take_completions())
+                self._drain_completions(stub)
                 if (max_idle_polls is not None and saw_work
                         and idle_polls >= max_idle_polls):
                     log.info("idle for %d polls; draining and exiting",
@@ -335,7 +474,7 @@ class Worker:
                 log.error("compute pipeline did not drain within the exit "
                           "budget; in-flight batches stay leased and will "
                           "be re-queued by lease expiry")
-            self._report(stub, ex.take_completions())
+            self._flush_completions(stub)
         finally:
             if fetches:
                 # The fetcher closes over this run's channel; a backend
@@ -357,9 +496,10 @@ class Worker:
                     stub.SendStatus(pb.StatusRequest(
                         worker_id=self.worker_id, status=status),
                         timeout=5.0)
+                self._log_reconnected()
             except grpc.RpcError as e:
                 self._c_rpc_errors["SendStatus"].inc()
-                log.warning("SendStatus failed: %s", e.code())
+                self._log_disconnected(e)
             done.wait(self.status_interval_s)
 
     def _call(self, method: str, fn, *args, **kw):
@@ -413,8 +553,9 @@ class Worker:
             if stats.schedule_json:
                 self.backend.schedule_registry.merge_json(
                     stats.schedule_json)
+            self._log_reconnected()
         except _SyncLegFailed as e:
-            log.warning("tune sync tick failed (%s); retrying next tick", e)
+            self._log_disconnected(e.__cause__)
         except Exception:
             log.exception("tune sync tick failed; retrying next tick")
 
@@ -437,9 +578,10 @@ class Worker:
         try:
             with obs.timer(self._h_rpc["RequestJobs"]):
                 jobs = list(stub.RequestJobs(req, timeout=30.0).jobs)
+            self._log_reconnected()
         except grpc.RpcError as e:
             self._c_rpc_errors["RequestJobs"].inc()
-            log.warning("RequestJobs failed: %s", e.code())
+            self._log_disconnected(e)
             if schedule_json:
                 reg.remark_dirty(schedule_json)
             if telemetry_json:
@@ -496,9 +638,10 @@ class Worker:
         try:
             with obs.timer(self._h_rpc["FetchPayload"]):
                 reply = stub.FetchPayload(req, timeout=30.0)
+            self._log_reconnected()
         except grpc.RpcError as e:
             self._c_rpc_errors["FetchPayload"].inc()
-            log.warning("FetchPayload failed: %s", e.code())
+            self._log_disconnected(e)
             return b""
         if not reply.payload:
             log.warning("payload fetch for digest %s came back empty; the "
@@ -533,44 +676,119 @@ class Worker:
                               pairs=obs.job_trace_pairs(jobs),
                               jobs=len(jobs), warmed=warmed)
 
-    def _report(self, stub, completions) -> None:
-        for lo in range(0, len(completions), _REPORT_BATCH):
-            self._report_chunk(stub, completions[lo:lo + _REPORT_BATCH])
+    def _drain_completions(self, stub, *, due_all: bool = False) -> None:
+        """Report the completions the compute side produced and the parked
+        ones now due (``due_all``: every parked one), in ``CompleteJobs``
+        batches of up to ``_COMPLETION_BATCH``. Never sleeps."""
+        now = time.monotonic()
+        ready = [(a, c) for due, a, c in self._deferred
+                 if due_all or due <= now]
+        self._deferred = [d for d in self._deferred
+                          if not (due_all or d[0] <= now)]
+        while True:
+            while len(ready) < self._COMPLETION_BATCH:
+                try:
+                    ready.append((0, self._out.get_nowait()))
+                except queue.Empty:
+                    break
+            if not ready:
+                return
+            chunk = ready[:self._COMPLETION_BATCH]
+            ready = ready[self._COMPLETION_BATCH:]
+            self._report_completions(stub, chunk)
 
-    def _report_chunk(self, stub, completions) -> None:
+    def _flush_completions(self, stub, budget_s: float = 8.0) -> None:
+        """On exit, after the compute side drained: report everything,
+        retrying the parked completions at once, for up to ``budget_s``
+        seconds; what is left stays leased and the dispatcher re-queues
+        it."""
+        deadline = time.monotonic() + budget_s
+        self._drain_completions(stub, due_all=True)
+        while self._deferred and time.monotonic() < deadline:
+            time.sleep(0.1)
+            self._drain_completions(stub, due_all=True)
+        if self._deferred:
+            log.error("exiting with %d undelivered completions (leases "
+                      "will re-queue them)", len(self._deferred))
+
+    def _report_completions(self, stub, chunk) -> None:
+        """One ``CompleteJobs`` attempt for ``chunk``, a list of
+        (attempts so far, completion). Where it fails each item parks
+        until its next backoff is due, or is dropped after its last."""
         req = pb.CompleteBatch(worker_id=self.worker_id, items=[
             pb.CompleteItem(id=c.job_id, metrics=c.metrics,
                             elapsed_s=c.elapsed_s, trace_id=c.trace_id)
-            for c in completions])
+            for _, c in chunk])
         # The report joins each completion's trace as a root-level stage.
-        pairs = [(c.trace_id, "") for c in completions]
-        for attempt, backoff in enumerate((0.0,) + _REPORT_BACKOFF_S):
-            if backoff:
-                self._retrying = len(completions)
-                stopped = self._stop.wait(backoff)
-                self._retrying = 0
-                if stopped:
-                    break
-            try:
-                with obs.trace_context(pairs), \
-                        obs.span("worker.report", jobs=len(completions),
-                                 worker=self.worker_id), \
-                        obs.timer(self._h_rpc["CompleteJobs"]):
-                    reply = stub.CompleteJobs(req, timeout=8.0)
-            except grpc.RpcError as e:
-                self._c_rpc_errors["CompleteJobs"].inc()
-                log.warning("CompleteJobs attempt %d failed: %s", attempt + 1,
-                            e.code())
-                continue
-            self.jobs_completed += reply.accepted
-            self._jobs_rate.add(reply.accepted)
-            for jid in reply.unknown_ids:
-                log.warning("completion %s rejected: unknown job", jid)
+        pairs = [(c.trace_id, "") for _, c in chunk]
+        try:
+            with obs.trace_context(pairs), \
+                    obs.span("worker.report", jobs=len(chunk),
+                             worker=self.worker_id), \
+                    obs.timer(self._h_rpc["CompleteJobs"]):
+                reply = stub.CompleteJobs(req, timeout=8.0)
+            self._log_reconnected()
+        except grpc.RpcError as e:
+            self._c_rpc_errors["CompleteJobs"].inc()
+            self._log_disconnected(e)
+            for attempts, c in chunk:
+                if attempts >= len(self._COMPLETION_BACKOFF_S):
+                    self.completions_dropped += 1
+                    self._c_dropped.inc()
+                    log.error("dropping completion %s after %d attempts "
+                              "(its lease will re-queue it)", c.job_id,
+                              attempts + 1)
+                else:
+                    due = (time.monotonic()
+                           + self._COMPLETION_BACKOFF_S[attempts])
+                    self._deferred.append((due, attempts + 1, c))
             return
-        self.completions_dropped += len(completions)
-        self._c_dropped.inc(len(completions))
-        log.error("dropping %d completions (leases will re-queue them)",
-                  len(completions))
+        self.jobs_completed += reply.accepted
+        self._jobs_rate.add(reply.accepted)
+        for jid in reply.unknown_ids:
+            log.warning("completion %s rejected: unknown job", jid)
+
+    def _log_disconnected(self, err) -> None:
+        with self._conn_lock:
+            edge, self._connected = self._connected, False
+        if edge:
+            log.error("dispatcher unreachable: %s",
+                      getattr(err, "code", lambda: err)())
+
+    def _log_reconnected(self) -> None:
+        with self._conn_lock:
+            edge, self._connected = not self._connected, True
+        if edge:
+            log.info("dispatcher reachable again")
+
+
+def make_backend(name: str, **kw):
+    """The worker CLI's backend by name (the reference's ``make_backend``):
+    ``torch``, a :class:`~.compute.TorchSweepBackend` on ``device`` with
+    ``param_chunk``, ``use_fused`` and ``use_mesh``; ``instant``,
+    :class:`~.compute.InstantBackend`; ``sleep``,
+    :class:`~.compute.SleepBackend` with ``delay_s``."""
+    if name == "torch":
+        return compute.TorchSweepBackend(
+            device=kw.get("device"), param_chunk=kw.get("param_chunk"),
+            use_fused=kw.get("use_fused"), use_mesh=kw.get("use_mesh"))
+    if name == "instant":
+        return compute.InstantBackend()
+    if name == "sleep":
+        return compute.SleepBackend(kw.get("delay_s", 0.05))
+    raise ValueError(f"unknown backend {name!r}")
+
+
+def _count_launches(reg) -> None:
+    """The process's kernel launch counts (``ops._kernels.LAUNCHES``, each
+    wrapper's own) as the gauges ``dbx_kernel_launches{kernel}``, set when
+    the registry is scraped: a worker process's launches are readable
+    from outside it, on ``/metrics``."""
+    from ..ops import _kernels
+
+    for name, n in list(_kernels.LAUNCHES.items()):
+        reg.gauge("dbx_kernel_launches", help="kernel launches by this "
+                  "process's wrappers", kernel=name).set(n)
 
 
 def main(argv=None) -> None:
@@ -582,9 +800,20 @@ def main(argv=None) -> None:
                     "bundles), DBX_LOCKDEP.")
     ap.add_argument("--connect", default="localhost:50051")
     ap.add_argument("--id", default=None, help="stable worker id")
+    ap.add_argument("--backend", default="torch",
+                    choices=("torch", "instant", "sleep"))
     ap.add_argument("--device", default="cuda",
-                    help="'cuda' (default) or 'cpu'; cuda without a GPU "
-                         "is an error")
+                    help="the torch backend's device: 'cuda' (default) or "
+                         "'cpu'; cuda without a GPU is an error")
+    ap.add_argument("--param-chunk", type=int, default=None,
+                    help="run generic sweeps in chunks of this many combos "
+                         "(where they divide the grid)")
+    ap.add_argument("--fused", choices=("auto", "on", "off"), default="auto",
+                    help="the fused kernels (auto: on); off sends every "
+                         "group down the generic sweep")
+    ap.add_argument("--mesh", choices=("auto", "on", "off"), default="auto",
+                    help="shard job groups over the local GPUs (auto: on "
+                         "where there are two or more)")
     ap.add_argument("--poll-s", type=float, default=0.25)
     ap.add_argument("--status-s", type=float, default=1.0)
     ap.add_argument("--jobs-per-chip", type=int, default=1)
@@ -592,7 +821,9 @@ def main(argv=None) -> None:
                     help="exit after N consecutive empty polls (batch mode)")
     ap.add_argument("--metrics-port", type=int, default=None,
                     help="serve Prometheus /metrics (and /stats.json) on this "
-                         "port (0 = ephemeral; omit to disable)")
+                         "port (0 = ephemeral; omit to disable), the "
+                         "process's kernel launches among them "
+                         "(dbx_kernel_launches{kernel})")
     ap.add_argument("--metrics-host", default="0.0.0.0",
                     help="interface of the /metrics server (127.0.0.1 keeps "
                          "the scrape surface on this host)")
@@ -606,18 +837,26 @@ def main(argv=None) -> None:
     from ..analysis import lockdep
 
     lockdep.maybe_install()
-    backend = compute.TorchSweepBackend(device=args.device)
+    tristate = {"auto": None, "on": True, "off": False}
+    backend = make_backend(args.backend, device=args.device,
+                           param_chunk=args.param_chunk,
+                           use_fused=tristate[args.fused],
+                           use_mesh=tristate[args.mesh])
     worker = Worker(args.connect, backend, worker_id=args.id,
                     poll_interval_s=args.poll_s,
                     status_interval_s=args.status_s,
                     jobs_per_chip=args.jobs_per_chip)
     for sig in (signal.SIGTERM, signal.SIGINT):
         signal.signal(sig, lambda *_: worker.stop())
-    metrics_srv = (obs.MetricsServer(args.metrics_port,
-                                     bind=args.metrics_host).start()
-                   if args.metrics_port is not None else None)
-    log.info("worker %s -> %s (device=%s)", worker.worker_id, args.connect,
-             backend.device)
+    metrics_srv = None
+    if args.metrics_port is not None:
+        obs.get_registry().add_collector("kernel-launches", _count_launches)
+        metrics_srv = obs.MetricsServer(args.metrics_port,
+                                        bind=args.metrics_host).start()
+    log.info("worker %s -> %s (backend=%s, device=%s, chips=%d, "
+             "channel=%s)", worker.worker_id, args.connect, args.backend,
+             getattr(backend, "device", None), backend.chips,
+             worker.stats()["channel"])
     try:
         worker.run(max_idle_polls=args.exit_after_idle)
     finally:

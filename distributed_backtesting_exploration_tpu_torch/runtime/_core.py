@@ -1,23 +1,44 @@
 """ctypes bindings to the native runtime core (``libdbx_core.so``), the
-reference's ``runtime/_core.py``.
+reference's ``runtime/_core.py``, and the builds of the port's two native
+binaries.
 
 The boundary is a plain C ABI loaded with ctypes (see ``cpp/dbx_core.h``
 for the contract). The port reads the shared ``cpp/`` sources in place and
 builds the library alone, with one direct ``g++`` command, into the
 package's ``_build/`` directory on first use; it never writes ``cpp/build/``
-and never runs the cmake build, whose other target embeds CPython to drive
-the JAX engine. Every consumer degrades to the pure-Python path when
-:func:`load` returns None (no compiler), so the host code stays functional
-on machines without one.
+and never runs the cmake build, whose shell target drives the JAX engine.
+Every consumer degrades to the pure-Python path when :func:`load` returns
+None (no compiler), so the host code stays functional on machines without
+one.
+
+:func:`build_worker_shell` builds the port's native worker shell
+(``csrc/worker_native.cc`` with ``cpp/dbx_core.cc`` compiled in, and the
+C++ of the port's ``rpc/backtesting.proto`` where ``protoc`` and
+libprotobuf are found) into ``_build/dbx_worker_native``;
+:func:`build_core_bench` builds ``cpp/dbx_core_bench.cc`` into
+``_build/dbx_core_bench``. Each is one ``g++`` command run under an
+``fcntl`` lock on a file in ``_build/``, into a temporary name renamed
+into place: processes that build at once wait for the first, and none
+executes a binary being written. A binary is built again only when the
+key beside it (``<binary>.key``: a hash of its sources, and for the shell
+of the interpreter and the protobuf toolchain it was built against)
+differs from this build's. Without ``g++`` or a python-config of the
+running interpreter, or where a build fails (``protoc`` and the link
+against libprotobuf included, once they are found), they raise
+:class:`ToolchainError`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
+import hashlib
 import logging
 import os
 import shutil
 import subprocess
+import sys
 import threading
 
 import numpy as np
@@ -94,6 +115,174 @@ def _stale() -> bool:
         if os.path.exists(src) and os.path.getmtime(src) > lib_mtime:
             return True
     return False
+
+
+SHELL_PATH = os.path.join(_BUILD_DIR, "dbx_worker_native")
+CORE_BENCH_PATH = os.path.join(_BUILD_DIR, "dbx_core_bench")
+_SHELL_SRC = os.path.join(_PKG_DIR, "csrc", "worker_native.cc")
+_PROTO = os.path.join(_PKG_DIR, "rpc", "backtesting.proto")
+_PROTO_DIR = os.path.join(_BUILD_DIR, "proto")
+
+
+class ToolchainError(RuntimeError):
+    """A native binary could not be built (no compiler, or it failed)."""
+
+
+@contextlib.contextmanager
+def _build_lock(name: str):
+    """An exclusive ``fcntl`` lock on ``_build/.<name>.lock``, across
+    processes and threads."""
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    with open(os.path.join(_BUILD_DIR, f".{name}.lock"), "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+def _build_key(srcs, *inputs) -> str:
+    """A hash of the sources' bytes and the build's other inputs."""
+    h = hashlib.sha256()
+    for src in srcs:
+        with open(src, "rb") as f:
+            h.update(f.read())
+    h.update(repr(inputs).encode())
+    return h.hexdigest()[:32]
+
+
+def _fresh(target: str, key: str) -> bool:
+    """``target`` exists and was built with ``key``."""
+    try:
+        with open(f"{target}.key") as f:
+            return os.path.exists(target) and f.read() == key
+    except OSError:
+        return False
+
+
+def _stamp(target: str, key: str) -> None:
+    tmp = f"{target}.key.{os.getpid()}.tmp"
+    with open(tmp, "w") as f:
+        f.write(key)
+    os.replace(tmp, f"{target}.key")
+
+
+def _gxx() -> str:
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise ToolchainError("g++ not found: the native binaries need a C++17 "
+                         "compiler")
+    return gxx
+
+
+def _link(cmd: list, target: str) -> None:
+    """Run the compiler command ``cmd`` with ``-o`` a temporary name, then
+    rename the result onto ``target``."""
+    tmp = f"{target}.{os.getpid()}.tmp"
+    try:
+        out = subprocess.run(cmd + ["-o", tmp], capture_output=True,
+                             text=True, timeout=600)
+        if out.returncode != 0:
+            raise ToolchainError(f"building {os.path.basename(target)} failed "
+                             f"({out.returncode}):\n{out.stderr[-4000:]}")
+        os.replace(tmp, target)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
+def _run_text(cmd: list) -> str | None:
+    """``cmd``'s stdout, or None where it is missing or fails."""
+    try:
+        out = subprocess.run(cmd, capture_output=True, text=True, timeout=60)
+    except (OSError, subprocess.SubprocessError):
+        return None
+    return out.stdout if out.returncode == 0 else None
+
+
+def _python_flags() -> tuple[list, list]:
+    """(compile, link) flags that embed the interpreter running this
+    build: ``python3-config --includes`` and ``--ldflags --embed`` of its
+    own version. Raises :class:`ToolchainError` where no python-config of
+    that version is found."""
+    ver = f"{sys.version_info.major}.{sys.version_info.minor}"
+    for name in (os.path.join(sys.base_exec_prefix, "bin",
+                              f"python{ver}-config"),
+                 f"python{ver}-config", "python3-config"):
+        inc = _run_text([name, "--includes"])
+        ld = _run_text([name, "--ldflags", "--embed"])
+        if inc and ld is not None and f"python{ver}" in inc:
+            return inc.split(), ld.split()
+    raise ToolchainError(f"no python{ver}-config found: the native shell "
+                         f"embeds Python {ver}")
+
+
+def _protobuf() -> tuple | None:
+    """(``protoc``, its version, the ``pkg-config`` flags of libprotobuf,
+    which name abseil where newer protobufs need it), or None where either
+    is missing."""
+    protoc = shutil.which("protoc")
+    flags = _run_text(["pkg-config", "--cflags", "--libs", "protobuf"])
+    if protoc is None or flags is None:
+        return None
+    return protoc, _run_text([protoc, "--version"]), flags.split()
+
+
+def _proto_flags(protoc: str, flags: list) -> list:
+    """Sources and flags of the C++ that ``protoc`` generates from the
+    port's ``rpc/backtesting.proto`` into ``_build/proto/``. Raises
+    :class:`ToolchainError` where ``protoc`` fails."""
+    os.makedirs(_PROTO_DIR, exist_ok=True)
+    out = subprocess.run(
+        [protoc, f"-I{os.path.dirname(_PROTO)}", f"--cpp_out={_PROTO_DIR}",
+         _PROTO], capture_output=True, text=True, timeout=120)
+    if out.returncode != 0:
+        raise ToolchainError(f"protoc failed ({out.returncode}):\n"
+                             f"{out.stderr[-4000:]}")
+    return ["-DDBX_HAVE_PROTO", f"-I{_PROTO_DIR}",
+            os.path.join(_PROTO_DIR, "backtesting.pb.cc"), *flags]
+
+
+def build_worker_shell() -> str:
+    """Build (where its key changed) the port's native worker shell and
+    return its path, ``_build/dbx_worker_native``. Raises
+    :class:`ToolchainError` without ``g++`` or when the build fails."""
+    srcs = [_SHELL_SRC, _PROTO, os.path.join(_CPP_DIR, "dbx_core.cc"),
+            os.path.join(_CPP_DIR, "dbx_core.h")]
+    with _build_lock("dbx_worker_native"):
+        inc, ld = _python_flags()
+        protobuf = _protobuf()
+        key = _build_key(srcs, sys.executable, inc, ld, protobuf)
+        if _fresh(SHELL_PATH, key):
+            return SHELL_PATH
+        gxx = _gxx()
+        base = [gxx, "-O2", "-std=c++17", "-pthread", "-rdynamic",
+                f"-I{_CPP_DIR}", *inc,
+                f'-DDBX_PYTHON_EXE="{sys.executable}"',
+                _SHELL_SRC, srcs[2]]
+        tail = [*ld, *(f"-Wl,-rpath,{f[2:]}" for f in ld
+                       if f.startswith("-L"))]
+        proto = (_proto_flags(protobuf[0], protobuf[2])
+                 if protobuf is not None else [])
+        _link(base + proto + tail, SHELL_PATH)
+        _stamp(SHELL_PATH, key)
+        return SHELL_PATH
+
+
+def build_core_bench() -> str:
+    """Build (where its sources changed) ``cpp/dbx_core_bench.cc``, the job
+    queue's state machine timed at its C-ABI grain, and return its path,
+    ``_build/dbx_core_bench``. Raises :class:`ToolchainError` without ``g++``
+    or when the build fails."""
+    srcs = [os.path.join(_CPP_DIR, n)
+            for n in ("dbx_core_bench.cc", "dbx_core.cc", "dbx_core.h")]
+    with _build_lock("dbx_core_bench"):
+        key = _build_key(srcs)
+        if not _fresh(CORE_BENCH_PATH, key):
+            _link([_gxx(), "-O2", "-std=c++17", "-pthread",
+                   f"-I{_CPP_DIR}", srcs[0], srcs[1]], CORE_BENCH_PATH)
+            _stamp(CORE_BENCH_PATH, key)
+        return CORE_BENCH_PATH
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:

@@ -35,6 +35,19 @@ def _ref_constants() -> dict:
     return out
 
 
+def _ref_keys(test_name: str) -> list[tuple]:
+    """The key tuples that the reference bench test ``test_name`` loops
+    over (``for key in (...)``), in order."""
+    for node in ast.parse(REF_TEST.read_text()).body:
+        if isinstance(node, ast.FunctionDef) and node.name == test_name:
+            return [ast.literal_eval(n.iter) for n in ast.walk(node)
+                    if isinstance(n, ast.For) and isinstance(n.iter,
+                                                             ast.Tuple)
+                    and isinstance(n.target, ast.Name)
+                    and n.target.id == "key"]
+    raise LookupError(test_name)
+
+
 REF = _ref_constants()
 TINY = {k: v for k, v in REF["_TINY_ENV"].items()
         if k not in ("DBX_BENCH_CONFIGS", "DBX_BENCH_CACHE")}
@@ -45,6 +58,17 @@ TINY.update(DBX_BENCH_RAGGED_TICKERS="16", DBX_BENCH_SCENARIO_BARS="96",
             DBX_BENCH_LC_SHARDS="4", DBX_BENCH_LOCAL_JOBS="64",
             DBX_BENCH_LOCAL_WORKERS="1,2", DBX_BENCH_DEDUPE_BARS="64",
             DBX_BENCH_FLEET_JOBS="32", DBX_BENCH_FLEET_POLL_S="0.05")
+# The reference's control-plane configs at the tiny sizes of its own tests
+# (tests/test_z_bench_roofline.py's _FANOUT_ENV, _TENANT_ENV,
+# _PLACEMENT_ENV, _PIPELINE_ENV).
+TINY.update(DBX_BENCH_QUEUE_JOBS="500", DBX_BENCH_SUB_N="12",
+            DBX_BENCH_SUB_SYMBOLS="3", DBX_BENCH_SUB_CONNS="4",
+            DBX_BENCH_TENANT_SMALL_JOBS="6", DBX_BENCH_TENANT_WHALE_JOBS="18",
+            DBX_BENCH_TENANT_WHALE_COMBOS="16", DBX_BENCH_PL_SCALE="0.25",
+            DBX_BENCH_PL_CHAINS="3", DBX_BENCH_PL_LINKS="4",
+            DBX_BENCH_PIPELINE_JOBS="8", DBX_BENCH_PIPELINE_BARS="128",
+            DBX_BENCH_PIPELINE_FAST="2", DBX_BENCH_PIPELINE_SLOW="2",
+            DBX_BENCH_PIPELINE_BATCH="2")
 FUSED_CONFIGS = ("sma_fused", "bollinger_fused", "bollinger_touch_fused",
                  "momentum_fused", "donchian_fused", "donchian_hl_fused",
                  "vwap_fused", "keltner_fused", "stochastic_fused",
@@ -104,7 +128,7 @@ def test_every_config_reports_a_positive_rate(result):
     assert ft["histogram_merge_exact"] and ft["frame_bytes_p50"] > 0
     fl = result["roofline"]["flight"]
     assert fl["quiet_ok"] and fl["capture_smoke_ok"]
-    assert len(FUSED_CONFIGS) + 13 == 27 == len(bench.CONFIGS)
+    assert len(FUSED_CONFIGS) + 20 == 34 == len(bench.CONFIGS)
 
 
 @pytest.mark.parametrize("wf_fused", ["0", "1"], ids=["generic", "fused"])
@@ -317,7 +341,7 @@ def test_without_the_cpu_request_the_bench_needs_a_card():
 
 def test_unknown_configs_stop_the_bench():
     s = bench.settings_from_env({**TINY,
-                                 "DBX_BENCH_CONFIGS": "direct_dispatch"})
+                                 "DBX_BENCH_CONFIGS": "no_such_config"})
     with pytest.raises(SystemExit, match="no configs ran"):
         bench.run(s)
 
@@ -372,3 +396,84 @@ def test_dispatch_loop_counts_only_its_workers_wire_bytes():
         assert rep.payload == recs[0].ohlcv
         assert loop.wire_bytes("FetchPayload") == 0
     assert service.DispatcherStub is stub_cls
+
+
+def test_direct_dispatch_keys_are_the_references(result):
+    (lockdep_keys,) = _ref_keys("test_direct_dispatch_lockdep_ab_keys_present")
+    floor = result["roofline"]["direct_dispatch_floor"]
+    assert floor["floor"] == bench.DIRECT_FLOOR == 2000
+    assert isinstance(floor["floor_ok"], bool)
+    assert floor["wire_bytes_per_job"]["b32"] > 0.0
+    assert floor["wire_bytes_per_job"]["b128"] > 0.0
+    ld = floor["lockdep"]
+    assert set(lockdep_keys) <= set(ld)
+    assert ld["batch32_jobs_per_s"] > 0.0 and ld["violations"] == 0
+    for b in (32, 128):
+        assert result["configs"][f"direct_dispatch_b{b}"] > 0.0
+
+
+def test_decision_plane_keys_are_the_references(result):
+    (keys,) = _ref_keys("test_decision_plane_keys_present")
+    dp = result["roofline"]["decision_plane"]
+    assert set(keys) <= set(dp)
+    assert len(dp["overhead_rounds_pct"]) == 5
+    # The synthetic stream's answers are exact: 16 scored, 12 agree.
+    assert dp["shadow_scored"] == 16
+    assert dp["shadow_agreement_pct"] == 75.0
+    assert dp["regret_p95"] >= dp["regret_p50"] >= 0.0
+    assert result["configs"]["decision_plane"] > 0.0
+
+
+def test_placement_keys_are_the_references(result):
+    (keys,) = _ref_keys("test_placement_keys_present")
+    pl = result["roofline"]["e2e_local_placement"]
+    assert set(keys) <= set(pl)
+    assert pl["jobs"] > 0 and pl["workers"] == 2
+    assert pl["scored_shadow"] > 0 and pl["scored_live"] > 0
+    assert set(pl["admit_counts"]) <= {"served", "deferred", "cap"}
+    assert pl["admit_counts"]["served"] > 0
+    assert 0.0 <= pl["defer_rate"] <= 1.0
+    assert result["configs"]["e2e_local_placement"] > 0.0
+
+
+def test_queue_machine_rates_are_the_references(result):
+    # Both substrates, and the C-ABI grain from the port-built binary.
+    for name in ("queue_machine_python", "queue_machine_native",
+                 "queue_machine_native_cabi"):
+        assert result["configs"][name] > 0.0, name
+
+
+def test_fanout_keys_are_the_references(result):
+    (keys,) = _ref_keys("test_fanout_keys_present")
+    fb = result["roofline"]["fanout"]
+    assert set(keys) <= set(fb)
+    # Exact at any size: 3 ticks, one advance a stream, 12 pushes.
+    assert fb["advances_total"] == 3 and fb["advances_per_tick"] == 1.0
+    assert fb["advances_eq_streams"] is True
+    assert fb["pushes_delivered"] == 12 and fb["pushes_dropped"] == 0
+    assert fb["pushes_per_advance"] == 4.0
+    assert fb["tick_to_push_p99_s"] > 0.0
+
+
+def test_tenant_keys_are_the_references(result):
+    (keys,) = _ref_keys("test_tenant_fairness_keys_present")
+    tb = result["roofline"]["e2e_local_tenants"]
+    assert set(keys) <= set(tb)
+    assert tb["tenant_p95_queue_wait_solo"] > 0.0
+    assert tb["tenant_p95_queue_wait_contended"] > 0.0
+    assert set(tb["per_tenant_p95_contended"]) == {"whale", "small_a",
+                                                   "small_b"}
+    assert result["configs"]["e2e_local_tenants"] > 0.0
+
+
+def test_pipeline_keys_are_the_references(result):
+    (keys,) = _ref_keys("test_pipeline_ab_keys_present")
+    pl = result["roofline"]["pipeline"]
+    assert set(keys) <= set(pl)
+    assert pl["jobs_per_s_serial"] > 0.0 and pl["jobs_per_s_pipelined"] > 0.0
+    assert pl["host_stage_ms"] > 0.0 and pl["device_stage_ms"] > 0.0
+    assert pl["overlap_factor"] >= 1.0
+    assert pl["overlap_factor_serial"] == pytest.approx(1.0, abs=0.25)
+    for stages in (pl["stages_serial"], pl["stages_pipelined"]):
+        assert stages.get("execute", 0.0) > 0.0
+        assert stages.get("d2h", 0.0) > 0.0

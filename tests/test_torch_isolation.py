@@ -246,3 +246,24 @@ def test_new_kernel_wrappers_refuse_cpu_tensors(wrapper):
         kw.update(machine="hysteresis", z_exit=0.0)
     with pytest.raises(ValueError, match="CUDA"):
         getattr(fused, wrapper)(*args, **kw)
+
+
+def test_native_shell_boots_the_port_alone():
+    # The shell's string literals (its boot code among them) name the
+    # port's package and nothing of JAX or the reference; it includes
+    # only system headers, the shared core's header and the C++ generated
+    # from the port's own proto.
+    import re
+
+    text = (PKG / "csrc" / "worker_native.cc").read_text()
+    literals = re.findall(r'"((?:[^"\\]|\\.)*)"', text)
+    boot = [s for s in literals if "import" in s]
+    assert any(f"from {dbxt.__name__}.rpc import worker" in s for s in boot)
+    for s in literals:
+        assert "jax" not in s.lower(), s
+        assert not re.search(rf"{REF}(?!_torch)", s), s
+    for line in text.splitlines():
+        if line.startswith("#include"):
+            target = line.split(None, 1)[1].strip()
+            assert target.startswith("<") or target in (
+                '"dbx_core.h"', '"backtesting.pb.h"'), line
