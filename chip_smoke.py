@@ -406,7 +406,18 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    bench's ``pipeline`` and ``queue_machine`` on the card (its C-ABI
    grain from the port-built ``dbx_core_bench``), printed. Every shell
    must exit 0 on SIGTERM.
-14. Each phase's wall on one line, then one JSON line with each kernel
+14. The port's static analysis and model checker (``analysis/``), which
+   launch no kernel (the launch counts, reset just before, stay 0): dbxlint
+   (``python -m distributed_backtesting_exploration_tpu_torch.analysis.lint
+   --format json``, a process of its own in which jax and the JAX package
+   cannot be imported) over the port package must exit 0, clean, with
+   every ported rule run and none skipped; dbxmc
+   (``analysis.modelcheck``) at the port bench's size (12 ops, seed 0, 120
+   schedules a substrate) on the Python substrate and, where the port's
+   native core loads, the native one, with zero violations; its
+   schedules, crash points and wall printed beside the card's name and
+   power limit.
+15. Each phase's wall on one line, then one JSON line with each kernel
    entry's (K8: each case's) launches,
    error, times, bound and library time (the tile entries also their
    width sweep, wrapper time, build report and SASS count; the table
@@ -5811,6 +5822,58 @@ def phase_native_shell(kernels_mod, compute, pb, wire, data, bench,
     return k1_all["native"] + k1_all["python"]
 
 
+def phase_analysis(kernels_mod, card) -> dict:
+    """Phase 14: dbxlint over the port package in a process of its own
+    that cannot import jax (exit 0, clean, every ported rule run), then
+    dbxmc at the bench size on
+    every available substrate (zero violations). No kernel launches.
+    Returns dbxmc's result."""
+    from distributed_backtesting_exploration_tpu_torch.analysis import (
+        core, modelcheck)
+
+    kernels_mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    # The CLI as ``python -m`` runs it, with jax and the JAX package made
+    # unimportable: the analysis must need neither.
+    mod = "distributed_backtesting_exploration_tpu_torch.analysis.lint"
+    ref = "distributed_backtesting_exploration_tpu"
+    blocked = ("import runpy, sys\n"
+               "sys.modules['jax'] = None\n"
+               f"sys.modules[{ref!r}] = None\n"
+               f"sys.argv = [{mod!r}, '--format', 'json']\n"
+               f"runpy.run_module({mod!r}, run_name='__main__')\n")
+    proc = subprocess.run([sys.executable, "-c", blocked],
+                          capture_output=True, text=True, timeout=300)
+    t_lint = time.perf_counter() - t0
+    _check(proc.returncode == 0, f"analysis: dbxlint exited "
+           f"{proc.returncode}:\n{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    res = json.loads(proc.stdout)
+    rules = [r.name for r in core.all_rules()]
+    _check(res["clean"] and res["rules"] == rules
+           and not res["rules_skipped"],
+           f"analysis: dbxlint ran {res['rules']}, skipped "
+           f"{res['rules_skipped']}, want {rules} clean")
+    print(f"analysis: dbxlint clean over the port package in {t_lint:.2f} s "
+          f"({res['suppressed']} suppressed; rules {', '.join(rules)})")
+    subs = modelcheck.available_substrates()
+    mc = modelcheck.explore(modelcheck.MCConfig(ops=12, seed=0,
+                                                schedules=120), subs)
+    _check(mc["clean"] and not mc["violations"],
+           f"analysis: dbxmc found violations: {mc['violations'][:2]}")
+    for sub, r in mc["substrates"].items():
+        _check(r["schedules"] == 120, f"analysis: dbxmc [{sub}] explored "
+               f"{r['schedules']} schedules, want 120")
+        print(f"analysis ({card}): dbxmc [{sub}] schedules={r['schedules']} "
+              f"crash_points={r['crash_points']} "
+              f"boundaries={r['boundaries']} wall_s={r['wall_s']}")
+    print(f"analysis ({card}): dbxmc schedules={mc['schedules']} "
+          f"crash_points={mc['crash_points']} wall_s={mc['wall_s']} on "
+          f"{', '.join(subs)}, 0 violations")
+    launched = sum(kernels_mod.LAUNCHES.values())
+    _check(launched == 0, f"analysis: {launched} kernel launches")
+    return mc
+
+
 def _phase_wall(walls: dict, name: str, fn, *args):
     """``fn(*args)``, its wall seconds kept in ``walls[name]``."""
     t0 = time.perf_counter()
@@ -5894,6 +5957,7 @@ def main() -> None:
                                   card)
     _check(k1["native_launches"] > 0, "fused_sma launched no time in the "
            "native shells")
+    timed("analysis", phase_analysis, _kernels, card)
     print(f"phase walls (s): {json.dumps(walls)}")
     print(json.dumps({"kernels": [k1, *new.values(), *k8]}))
     print(json.dumps({"ok": True, "device": {

@@ -96,7 +96,11 @@ recording, five paired rounds, and a synthetic shadow-scored stream);
 that sleep what they hold, placement off and live; ``DBX_BENCH_PL_SCALE``,
 ``_PL_CHAINS``, ``_PL_LINKS``); ``queue_machine`` (``JobQueue`` alone on
 each substrate, ``DBX_BENCH_QUEUE_JOBS``, and ``cpp/dbx_core_bench.cc``
-built by the port at the C-ABI grain); ``fanout`` (``DBX_BENCH_SUB_N``
+built by the port at the C-ABI grain); ``modelcheck`` (dbxmc,
+``analysis.modelcheck``, over the port's dispatcher on every available
+substrate: ``DBX_MC_OPS`` (12), ``DBX_MC_SEED`` (0),
+``DBX_BENCH_MC_SCHEDULES`` (120) schedules a substrate; its rate is
+schedules/s); ``fanout`` (``DBX_BENCH_SUB_N``
 subscriptions over ``_SUB_SYMBOLS`` streams on ``_SUB_CONNS``
 connections, one tick a symbol); ``e2e_local_tenants`` (two small
 tenants alone and behind a whale, ``DBX_BENCH_TENANT_SMALL_JOBS``,
@@ -217,11 +221,12 @@ CONFIGS = ("sma_fused", "roofline_stages", *list(FUSED)[1:], "walkforward",
            "scenario_megakernel", "long_context", "autotune", "e2e",
            "e2e_topk", "e2e_local", "direct_dispatch", "fleet_telemetry",
            "flight", "decision_plane", "e2e_local_placement",
-           "queue_machine", "fanout", "e2e_local_tenants", "pipeline")
+           "queue_machine", "modelcheck", "fanout", "e2e_local_tenants",
+           "pipeline")
 # The reference's control-plane configs, each a method of _Bench.
 CONTROL_CONFIGS = ("direct_dispatch", "decision_plane",
-                   "e2e_local_placement", "queue_machine", "fanout",
-                   "e2e_local_tenants", "pipeline")
+                   "e2e_local_placement", "queue_machine", "modelcheck",
+                   "fanout", "e2e_local_tenants", "pipeline")
 # The reference's printed regression floor of the direct loop at batch 32
 # (jobs/s): a check printed beside the rate, never a failure.
 DIRECT_FLOOR = 2000
@@ -274,6 +279,9 @@ class Settings(NamedTuple):
     fleet_workers: int = 2
     fleet_poll_s: float = 0.25
     queue_jobs: int = 20000
+    mc_ops: int = 12
+    mc_seed: int = 0
+    mc_schedules: int = 120
     sub_n: int = 10000
     sub_symbols: int = 1000
     sub_conns: int = 32
@@ -318,6 +326,9 @@ def settings_from_env(env) -> Settings:
         fleet_workers=int(env.get("DBX_BENCH_FLEET_WORKERS", 2)),
         fleet_poll_s=float(env.get("DBX_BENCH_FLEET_POLL_S", 0.25)),
         queue_jobs=int(env.get("DBX_BENCH_QUEUE_JOBS", 20000)),
+        mc_ops=int(env.get("DBX_MC_OPS", 12)),
+        mc_seed=int(env.get("DBX_MC_SEED", 0)),
+        mc_schedules=int(env.get("DBX_BENCH_MC_SCHEDULES", 120)),
         sub_n=int(env.get("DBX_BENCH_SUB_N", 10000)),
         sub_symbols=int(env.get("DBX_BENCH_SUB_SYMBOLS", 1000)),
         sub_conns=int(env.get("DBX_BENCH_SUB_CONNS", 32)),
@@ -1589,6 +1600,29 @@ class _Bench:
             self.rates["queue_machine_native_cabi"] = float(m.group(1))
             print("bench[queue_machine_native_cabi]: " + out.stdout.strip(),
                   file=sys.stderr)
+
+    def modelcheck(self) -> None:
+        """The reference's ``modelcheck``: dbxmc's exploration cost, a CI
+        gate's, summed over every available substrate of the port's
+        dispatcher (python, and native where the port's core loads)."""
+        from .analysis import modelcheck as dbxmc
+
+        s = self.s
+        res = dbxmc.explore(dbxmc.MCConfig(ops=s.mc_ops, seed=s.mc_seed,
+                                           schedules=s.mc_schedules),
+                            dbxmc.available_substrates())
+        self.roofline["modelcheck"] = {
+            "schedules": res["schedules"],
+            "crash_points": res["crash_points"],
+            "boundaries": res["boundaries"],
+            "violations": len(res["violations"]),
+            "wall_s": res["wall_s"]}
+        self.rates["modelcheck"] = res["schedules"] / max(res["wall_s"],
+                                                          1e-9)
+        print(f"bench[modelcheck]: {res['schedules']} schedules, "
+              f"{res['crash_points']} crash points, "
+              f"{len(res['violations'])} violations in "
+              f"{res['wall_s']:.2f}s", file=sys.stderr)
 
     def fanout(self) -> None:
         """The reference's ``fanout``: ``DBX_BENCH_SUB_SYMBOLS`` 64-bar

@@ -59,11 +59,13 @@ def build_dir() -> Path:
     :data:`DEFAULT_BUILD_DIR`."""
     if BUILD_DIR is not None:
         return Path(BUILD_DIR)
+    # dbxlint: disable=trace-time-env -- a place, not a kernel setting
     env = os.environ.get("DBX_COMPILE_CACHE_DIR")
     return Path(env) if env else DEFAULT_BUILD_DIR
 
 
 def _nvcc() -> str:
+    # dbxlint: disable=trace-time-env -- the compiler's place, not a flag
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
     if home and (Path(home) / "bin" / "nvcc").exists():
         return str(Path(home) / "bin" / "nvcc")
@@ -108,6 +110,7 @@ def build(name: str, defines: tuple[str, ...] = ()) -> Path:
     fd, tmp = tempfile.mkstemp(prefix=".nvcc-", suffix=".so", dir=out_dir)
     os.close(fd)
     try:
+        # dbxlint: disable=lock-blocking -- build-serialization lock
         proc = subprocess.run([_nvcc(), *flags, "-o", tmp, str(src)],
                               capture_output=True, text=True)
         if proc.returncode != 0:

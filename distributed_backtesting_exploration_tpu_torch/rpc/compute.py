@@ -734,9 +734,11 @@ class TorchSweepBackend:
         _pad_help = ("panel pad bars materialized for batching, by "
                      "execution path (dense = stacks padded to the group "
                      "max; paged = in-page pad of uploaded tail pages)")
-        self._c_pad_bars = {path: reg.counter("dbx_pad_bars_total",
-                                              help=_pad_help, path=path)
-                            for path in ("dense", "paged")}
+        self._c_pad_bars = {
+            "dense": reg.counter("dbx_pad_bars_total", help=_pad_help,
+                                 path="dense"),
+            "paged": reg.counter("dbx_pad_bars_total", help=_pad_help,
+                                 path="paged")}
         # The reference's epilogue and table knobs select no other code
         # here: their labels read "default", as dbx_tuned_substrate_info's
         # do.

@@ -467,20 +467,14 @@ class Worker:
                              idle_polls)
                     break
                 self._stop.wait(self.poll_interval_s)
-            if prefetch_q is not None:
-                prefetch_q.put(None)
-                prefetcher.join(timeout=5.0)
-            if not ex.close():
-                log.error("compute pipeline did not drain within the exit "
-                          "budget; in-flight batches stay leased and will "
-                          "be re-queued by lease expiry")
-            self._flush_completions(stub)
+            self._shutdown(stub, ex, prefetch_q, prefetcher)
         finally:
             if fetches:
                 # The fetcher closes over this run's channel; a backend
                 # that outlives the run must not keep calling it.
                 self.backend.payload_fetcher = None
             done.set()
+            # dbxlint: disable=blocking-call -- bounded heartbeat join at exit
             beat.join(timeout=10.0)
             channel.close()
             self._stop_gauges()
@@ -697,11 +691,19 @@ class Worker:
             ready = ready[self._COMPLETION_BATCH:]
             self._report_completions(stub, chunk)
 
-    def _flush_completions(self, stub, budget_s: float = 8.0) -> None:
-        """On exit, after the compute side drained: report everything,
-        retrying the parked completions at once, for up to ``budget_s``
-        seconds; what is left stays leased and the dispatcher re-queues
-        it."""
+    def _shutdown(self, stub, ex, prefetch_q, prefetcher,
+                  budget_s: float = 8.0) -> None:
+        """On exit: stop the prefetch thread, drain the compute side
+        (``ex.close``), then report everything, retrying the parked
+        completions at once, for up to ``budget_s`` seconds; what is left
+        stays leased and the dispatcher re-queues it."""
+        if prefetch_q is not None:
+            prefetch_q.put(None)
+            prefetcher.join(timeout=5.0)
+        if not ex.close():
+            log.error("compute pipeline did not drain within the exit "
+                      "budget; in-flight batches stay leased and will "
+                      "be re-queued by lease expiry")
         deadline = time.monotonic() + budget_s
         self._drain_completions(stub, due_all=True)
         while self._deferred and time.monotonic() < deadline:

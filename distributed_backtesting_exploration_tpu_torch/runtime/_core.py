@@ -78,7 +78,9 @@ def _build() -> bool:
         return False
     tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
     try:
+        # dbxlint: disable=lock-blocking -- build-serialization lock
         os.makedirs(_BUILD_DIR, exist_ok=True)
+        # dbxlint: disable=lock-blocking -- build-serialization lock
         subprocess.run(
             ["g++", "-O2", "-std=c++17", "-shared", "-fPIC", src, "-o", tmp],
             check=True, capture_output=True, timeout=300)
@@ -378,6 +380,7 @@ def load() -> ctypes.CDLL | None:
         if _lib is not None or _tried:
             return _lib
         _tried = True
+        # dbxlint: disable=trace-time-env -- kill switch, read at first load
         if os.environ.get("DBX_NO_NATIVE") == "1":
             return None
         if _stale() and not _build():

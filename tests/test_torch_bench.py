@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from distributed_backtesting_exploration_tpu_torch import bench, roofline
+from distributed_backtesting_exploration_tpu_torch.analysis import modelcheck
 
 REF_TEST = Path(__file__).resolve().parent / "test_z_bench_roofline.py"
 
@@ -69,6 +70,8 @@ TINY.update(DBX_BENCH_QUEUE_JOBS="500", DBX_BENCH_SUB_N="12",
             DBX_BENCH_PIPELINE_JOBS="8", DBX_BENCH_PIPELINE_BARS="128",
             DBX_BENCH_PIPELINE_FAST="2", DBX_BENCH_PIPELINE_SLOW="2",
             DBX_BENCH_PIPELINE_BATCH="2")
+# dbxmc's sweep at the size of the reference's _MC_ENV.
+TINY.update(DBX_BENCH_MC_SCHEDULES="30")
 FUSED_CONFIGS = ("sma_fused", "bollinger_fused", "bollinger_touch_fused",
                  "momentum_fused", "donchian_fused", "donchian_hl_fused",
                  "vwap_fused", "keltner_fused", "stochastic_fused",
@@ -128,7 +131,7 @@ def test_every_config_reports_a_positive_rate(result):
     assert ft["histogram_merge_exact"] and ft["frame_bytes_p50"] > 0
     fl = result["roofline"]["flight"]
     assert fl["quiet_ok"] and fl["capture_smoke_ok"]
-    assert len(FUSED_CONFIGS) + 20 == 34 == len(bench.CONFIGS)
+    assert len(FUSED_CONFIGS) + 21 == 35 == len(bench.CONFIGS)
 
 
 @pytest.mark.parametrize("wf_fused", ["0", "1"], ids=["generic", "fused"])
@@ -441,6 +444,18 @@ def test_queue_machine_rates_are_the_references(result):
     for name in ("queue_machine_python", "queue_machine_native",
                  "queue_machine_native_cabi"):
         assert result["configs"][name] > 0.0, name
+
+
+def test_modelcheck_keys_are_the_references(result):
+    (keys,) = _ref_keys("test_modelcheck_bench_keys")
+    mc = result["roofline"]["modelcheck"]
+    assert set(mc) == set(keys)
+    n_subs = len(modelcheck.available_substrates())
+    assert mc["schedules"] == 30 * n_subs
+    assert mc["crash_points"] >= 10 * n_subs
+    assert mc["boundaries"] > mc["crash_points"]
+    assert mc["violations"] == 0 and mc["wall_s"] > 0.0
+    assert result["configs"]["modelcheck"] > 0.0
 
 
 def test_fanout_keys_are_the_references(result):

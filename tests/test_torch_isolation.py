@@ -68,7 +68,10 @@ def test_every_module_imports_with_jax_blocked():
               "sched.placement", "obs.events", "obs.trace", "obs.http",
               "obs.timeline", "obs.flight", "obs.costmodel", "obs.fleet",
               "obs.decisions", "streaming.delta", "serve", "serve.registry",
-              "analysis", "analysis.lockdep", "runtime", "runtime._core",
+              "analysis", "analysis.lockdep", "analysis.core",
+              "analysis.ast_rules", "analysis.locks", "analysis.proto_rules",
+              "analysis.lint", "analysis.schedules", "analysis.modelcheck",
+              "runtime", "runtime._core",
               "rpc.journal", "rpc.panel_store", "rpc.service",
               "rpc.dispatcher", "obs.dump", "obs.why", "utils.trace"):
         assert f"{dbxt.__name__}.{m}" in mods

@@ -42,7 +42,7 @@ from distributed_backtesting_exploration_tpu_torch.rpc import (
 from distributed_backtesting_exploration_tpu_torch.runtime import _core
 from distributed_backtesting_exploration_tpu_torch.utils import data
 
-from torch_parity import assert_metrics_match
+from torch_parity import assert_metrics_match, reference_native_core
 
 AXES = {"fast": np.arange(3.0, 7.0, dtype=np.float32),
         "slow": np.arange(10.0, 18.0, 2.0, dtype=np.float32)}   # 16 combos
@@ -275,6 +275,7 @@ def test_mesh_off_gives_no_mesh_where_auto_gives_one(monkeypatch):
 @pytest.mark.skipif(not _core.available(),
                     reason="the native core needs g++")
 def test_channel_is_native_and_round_trips_bit_for_bit():
+    reference_native_core()
     w = worker.Worker("localhost:1", compute.InstantBackend())
     ref = ref_worker.Worker("localhost:1", ref_compute.InstantBackend())
     assert w._in.backend == w._out.backend == "native" == ref._in.backend
@@ -310,7 +311,9 @@ def test_channel_is_native_and_round_trips_bit_for_bit():
 def test_channel_is_bounded_as_the_references(monkeypatch, native):
     if native and not _core.available():
         pytest.skip("the native core needs g++")
-    if not native:
+    if native:
+        reference_native_core()
+    else:
         monkeypatch.setattr(worker.native_core, "available", lambda: False)
         monkeypatch.setattr(ref_worker.native_core, "available",
                             lambda: False)

@@ -114,3 +114,67 @@ def crafted_returns(n_bars: int) -> np.ndarray:
     r[6, n_bars // 3:] = 3e38
     r[7] *= np.float32(1e-40)
     return r
+
+
+# Why the reference's native core could not be had, once a wait has run
+# out: later callers in the process fail at once instead of waiting again.
+_REF_CORE_FAILURE: list[str] = []
+
+
+def reference_native_core(wait_s: float = 180.0):
+    """The reference's native core (``libdbx_core.so`` under ``cpp/build/``),
+    loaded once any concurrent build of it has ended.
+
+    The reference's ``runtime._core.load()`` builds the library on first
+    use with an unlocked ``cmake --build`` and memoizes a failure for the
+    rest of the process. Test processes started together all build at
+    once, and one that loses the race would keep the reference on its
+    Python substrate. Here the build is serialized between the callers of
+    this helper by an ``fcntl`` lock on ``cpp/build.lock``; a memoized
+    failure is cleared and the load tried again, within ``wait_s``
+    seconds, while a compiler is present (callers of ``load()`` that do
+    not take the lock may still be building). The test is skipped, with
+    the reason, only where the toolchain is absent or native code is
+    switched off; where a build never succeeds it fails, and so does
+    every later call in the process, at once.
+    """
+    import fcntl
+    import os
+    import shutil
+    import time
+
+    import pytest
+
+    from distributed_backtesting_exploration_tpu.runtime import (
+        _core as ref_core)
+
+    if os.environ.get("DBX_NO_NATIVE") == "1":
+        pytest.skip("DBX_NO_NATIVE=1 switches the native core off")
+    if not shutil.which("g++") and not (shutil.which("cmake")
+                                        and shutil.which("ninja")):
+        pytest.skip("the reference's native core needs g++ (or cmake and "
+                    "ninja) to build")
+    if _REF_CORE_FAILURE:
+        pytest.fail(_REF_CORE_FAILURE[0])
+    lock_path = os.path.join(os.path.dirname(ref_core._BUILD_DIR),
+                             "build.lock")
+    deadline = time.monotonic() + wait_s
+    pause = 0.5
+    with open(lock_path, "a") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        try:
+            while True:
+                lib = ref_core.load()
+                if lib is not None:
+                    return lib
+                if time.monotonic() >= deadline:
+                    _REF_CORE_FAILURE.append(
+                        f"the reference's native core did not build "
+                        f"within {wait_s:.0f} s")
+                    pytest.fail(_REF_CORE_FAILURE[0])
+                time.sleep(pause)
+                pause = min(2 * pause, 8.0)
+                with ref_core._lock:
+                    ref_core._tried = False
+        finally:
+            fcntl.flock(fh, fcntl.LOCK_UN)
