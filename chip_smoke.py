@@ -9,7 +9,9 @@ bar of the kernels' metric loops built from another tree's ``csrc/``
 ``DIR``, to set beside this tree's: :func:`sass_of`. ``python3
 chip_smoke.py --parent DIR`` times the table kernels and the port bench's
 pairs, trix and macd configs in another tree ``DIR`` and in this one, in
-turns on the same card: :func:`parent_compare`.)
+turns on the same card: :func:`parent_compare`. ``python3 chip_smoke.py
+--obs-split`` times phase 12 (b)'s drain with neither fleet telemetry nor
+the span log, each alone and both, in turns: :func:`obs_split`.)
 
 Phases (each asserts; any failure exits non-zero and prints no result):
 
@@ -372,10 +374,9 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    and its execute histogram is the fold of the workers' rows; the
    timeline over the log gives each job a lifecycle, and the drain's
    critical path by stage is printed; ``obs.dump`` on the log and
-   ``obs.why`` on one job exit 0. (b) The same drain with
-   ``DBX_FLEET_TELEMETRY=0`` and no log against (a)'s setup, three rounds
-   of each in turns: the median walls and the overhead printed (no bound
-   fails the phase). (c) One worker whose backend's ``collect`` raises
+   ``obs.why`` on one job exit 0. (b) The cost of telemetry and the span
+   log is not in the default run: ``--obs-split`` times the drain in its
+   four arms, 12 rounds each. (c) One worker whose backend's ``collect`` raises
    once for a 100-job batch, ``DBX_FLIGHT_DIR`` set, 5 s leases: one
    ``collect_fail`` bundle, the 100 jobs re-served, every block bit-equal
    to (a)'s. (d) The process's ``/metrics`` (an ``obs.MetricsServer``, as
@@ -398,25 +399,39 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    (``dbx_kernel_launches``, its wrappers' own count) before and after the
    drain. One pair runs its channels native, the other with
    ``DBX_NO_NATIVE=1`` (python), each shown in the shells' logs; each pair
-   drains ``SHELL_ROUNDS`` (2) times, the pairs in turns, either first
+   drains ``SHELL_ROUNDS`` (1) times, the pairs in turns, either first
    in alternate rounds (``phase_native_shell(..., rounds=12)`` for a
-   closer comparison of the two kinds). K1's library, built in phase 2, must be loaded and not
+   comparison of the two kinds: 1-4 rounds cannot resolve it). K1's library, built in phase 2, must be loaded and not
    rebuilt. (b) One shell with ``--fused off`` on 16 of the jobs: its
    blocks within the flip-aware budget of the fused route's. (c) The port
    bench's ``pipeline`` and ``queue_machine`` on the card (its C-ABI
    grain from the port-built ``dbx_core_bench``), printed. Every shell
    must exit 0 on SIGTERM.
-14. The port's static analysis and model checker (``analysis/``), which
-   launch no kernel (the launch counts, reset just before, stay 0): dbxlint
-   (``python -m distributed_backtesting_exploration_tpu_torch.analysis.lint
-   --format json``, a process of its own in which jax and the JAX package
-   cannot be imported) over the port package must exit 0, clean, with
-   every ported rule run and none skipped; dbxmc
+14. The port's static analysis, certifier and model checker
+   (``analysis/``). (a) dbxlint (``python -m
+   distributed_backtesting_exploration_tpu_torch.analysis.lint --format
+   json`` as its ``main``, in a process of its own in which jax and the
+   JAX package cannot be imported) over the port package must exit 0,
+   clean, with all fourteen rules run and none skipped (the numerics
+   certifier and kernel-hygiene run on the CPU there); dbxmc
    (``analysis.modelcheck``) at the port bench's size (12 ops, seed 0, 120
    schedules a substrate) on the Python substrate and, where the port's
-   native core loads, the native one, with zero violations; its
-   schedules, crash points and wall printed beside the card's name and
-   power limit.
+   native core loads, the native one, with zero violations; no kernel
+   launches (the launch counts, reset just before, stay 0). (b) ``lint
+   --certify --format json`` in the same process exits 0: 59 rows against
+   ``numerics.torch.contract.json``, no drift, no finding. (c)
+   kernel-hygiene with ``device="cuda"``: every fused family (dense,
+   pairs, paged, scenario, append steps, both substrates) and the K8
+   scaffolds run on the card, their kernels launching, the boundary read
+   at each launch: no finding, and every entry of ``HYGIENE_LAUNCHES``
+   launched; its launches by entry printed. (d) Every output the port's
+   table certifies exact, selection or int-exact (in both substrates'
+   build rows) bit-identical between the ``scan:8`` and ``ladder``
+   ``build_carry`` on the card: sma_crossover and bollinger on
+   ``synthetic_ohlcv(500, 1260, seed=7)`` with the bench grids, the other
+   twelve families on 32 tickers of it (pairs on 32 pairs of seed-7
+   legs). (a) and (b)'s process runs while this one runs dbxmc, (c) and
+   (d). Walls printed beside the card's name and power limit.
 15. Each phase's wall on one line, then one JSON line with each kernel
    entry's (K8: each case's) launches,
    error, times, bound and library time (the tile entries also their
@@ -430,7 +445,8 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    route, ``mesh_launches``, the tile entries' on phase 10 (a)'s tuned
    batches, ``tune_launches``, every entry's in phase 11,
    ``dispatch_launches``, and K1's in phase 12, ``obs_launches``, and in
-   phase 13's shells, ``native_launches``); then
+   phase 13's shells, ``native_launches``, and every entry's under phase
+   14 (c)'s kernel-hygiene, ``hygiene_launches``); then
    the JSON result line, last.
 
 This script imports nothing of JAX and nothing of the JAX package.
@@ -5222,7 +5238,6 @@ def phase_dispatch_loop(kernels_mod, compute, pb, wire, data, bench,
 
 
 OBS_WORKERS = 2
-OBS_REPS = 3                  # (b)'s interleaved rounds of each arm
 OBS_LEASE_S = 5.0             # (c): the failed batch's lease
 OBS_FAIL_JOBS = 100           # (c): the batch whose collect raises
 OBS_ORDER = ("queue_wait", "dispatch", "transport", "panel_cache_hit",
@@ -5406,36 +5421,86 @@ def _obs_a(kernels_mod, compute, pb, wire, data, bench, root, card):
     return blocks, k1
 
 
-def _obs_cost(kernels_mod, compute, data, bench, root, card) -> int:
-    """Part (b): the same drain with telemetry and the span log off and
-    on, ``OBS_REPS`` rounds (off, on); the medians and the overhead.
-    Returns K1's launches."""
-    from distributed_backtesting_exploration_tpu_torch.rpc import dispatcher
+# ``--obs-split``: phase 12 (b)'s drain in four arms, in turns, each
+# OBS_SPLIT_ROUNDS times.
+OBS_SPLIT_ARMS = (("neither", False, False), ("frames", True, False),
+                  ("log", False, True), ("both", True, True))
+OBS_SPLIT_ROUNDS = 12
 
+
+def obs_split(rounds: int = OBS_SPLIT_ROUNDS) -> None:
+    """``python3 chip_smoke.py --obs-split``: the cost of fleet telemetry
+    (the frames) and of the span log apart. Phase 12 (b)'s drain (500 sma
+    jobs of ``synthetic_ohlcv(500, 1260, seed=7)``, two workers) in four
+    arms, neither, frames only, log only, both, in turns (the order
+    rotated a round), ``rounds`` drains each after one warm-up drain of
+    each arm. Prints every drain, each arm's median, spread (min, max,
+    and the middle half) and cost against the median of neither, the
+    span-log records a drain writes and the time ``emit_record`` takes for
+    one alone; one JSON line; no result line of the smoke run."""
+    from distributed_backtesting_exploration_tpu_torch import bench
+    from distributed_backtesting_exploration_tpu_torch.ops import _kernels
+    from distributed_backtesting_exploration_tpu_torch.rpc import (
+        compute, dispatcher)
+    from distributed_backtesting_exploration_tpu_torch.utils import data
+
+    card = phase_card()
+    phase_build(_kernels)
     panel = data.synthetic_ohlcv(N_TICKERS, N_BARS, seed=7)
-    walls = {"off": [], "on": []}
-    k1 = 0
-    for r in range(OBS_REPS):
-        for arm in ("off", "on"):
-            recs = _loop_records(dispatcher, data, panel, f"o{arm}{r}")
-            log = (os.path.join(root, f"obs-b{r}.jsonl") if arm == "on"
-                   else None)
-            wall, launches, _ = _obs_drain(
-                kernels_mod, compute, bench, recs,
-                os.path.join(root, f"res-obs-b-{arm}{r}"),
-                workers=OBS_WORKERS, telemetry=arm == "on", log=log)
-            walls[arm].append(wall)
-            k1 += launches
-    med = {arm: statistics.median(v) for arm, v in walls.items()}
-    overhead = 100 * (med["on"] - med["off"]) / med["off"]
-    print(f"worker obs (b) drains of {N_TICKERS} jobs, {OBS_REPS} rounds "
-          f"(off, on): off {[round(w, 4) for w in walls['off']]} s, on "
-          f"{[round(w, 4) for w in walls['on']]} s; medians off "
-          f"{med['off']:.4f} s ({N_TICKERS / med['off']:.1f} jobs/s), on "
-          f"{med['on']:.4f} s ({N_TICKERS / med['on']:.1f} jobs/s); "
-          f"telemetry and span log cost {overhead:+.2f}% of the drain "
-          f"(the reference's bar: 5%) [{card}]")
-    return k1
+    root = tempfile.mkdtemp(prefix="dbx-obs-split-")
+    walls: dict = {name: [] for name, _, _ in OBS_SPLIT_ARMS}
+    records: list = []
+    sample = None
+    try:
+        for r in range(-1, rounds):
+            k = r % len(OBS_SPLIT_ARMS)
+            for name, frames, logged in (OBS_SPLIT_ARMS[k:]
+                                         + OBS_SPLIT_ARMS[:k]):
+                tag = f"s{name}{r + 1}"
+                recs = _loop_records(dispatcher, data, panel, tag)
+                log = (os.path.join(root, f"{tag}.jsonl") if logged
+                       else None)
+                wall, _, _ = _obs_drain(
+                    _kernels, compute, bench, recs,
+                    os.path.join(root, f"res-{tag}"), workers=OBS_WORKERS,
+                    telemetry=frames, log=log)
+                if log is not None:
+                    with open(log) as fh:
+                        lines = fh.read().splitlines()
+                    records.append(len(lines))
+                    sample = sample or json.loads(lines[-1])
+                    os.remove(log)
+                shutil.rmtree(os.path.join(root, f"res-{tag}"),
+                              ignore_errors=True)
+                if r >= 0:
+                    walls[name].append(wall)
+                print(f"obs split round {r + 1} {name}: {wall:.4f} s"
+                      + (" (warm-up)" if r < 0 else ""), flush=True)
+        emit_us = _emit_cost(sample, os.path.join(root, "emit.jsonl"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    base = statistics.median(walls["neither"])
+    summary = {"card": card, "jobs": N_TICKERS, "rounds": rounds,
+               "log_records": statistics.median(records),
+               "emit_us": emit_us, "arms": {}}
+    print(f"obs split: {statistics.median(records):.0f} span-log records a "
+          f"drain (median; {min(records)}-{max(records)}), "
+          f"{emit_us:.2f} us a record written and flushed alone, "
+          f"{statistics.median(records) * emit_us / 1e6:.4f} s a drain "
+          f"[{card}]")
+    for name, v in walls.items():
+        q = statistics.quantiles(v, n=4)
+        med = statistics.median(v)
+        summary["arms"][name] = {
+            "median_s": med, "min_s": min(v), "max_s": max(v),
+            "q1_s": q[0], "q3_s": q[2],
+            "cost_pct": 100 * (med - base) / base,
+            "spread_pct": 100 * (q[2] - q[0]) / med, "walls_s": v}
+        print(f"obs split {name}: median {med:.4f} s, min {min(v):.4f}, "
+              f"max {max(v):.4f}, middle half {q[0]:.4f}-{q[2]:.4f} s "
+              f"({100 * (q[2] - q[0]) / med:.2f}% of the median); cost "
+              f"against neither {100 * (med - base) / base:+.2f}% [{card}]")
+    print(json.dumps(summary))
 
 
 class _CollectFailsOnce:
@@ -5506,25 +5571,23 @@ def _obs_flight(kernels_mod, compute, data, bench, root, blocks_a,
 def phase_worker_obs(kernels_mod, compute, pb, wire, data, bench,
                      card) -> int:
     """Phase 12, the worker's observability on the card: (a) and (d) a
-    drain with two workers and the span log, (b) the cost of telemetry
-    and the log, (c) a forced collect failure. Returns K1's launches in
-    the phase."""
+    drain with two workers and the span log, (c) a forced collect failure
+    ((b), the cost of telemetry and the log, is :func:`obs_split`).
+    Returns K1's launches in the phase."""
     root = tempfile.mkdtemp(prefix="dbx-obs-")
     t0 = time.perf_counter()
     try:
         blocks_a, k1_a = _obs_a(kernels_mod, compute, pb, wire, data,
                                 bench, root, card)
         t_a = time.perf_counter()
-        k1_b = _obs_cost(kernels_mod, compute, data, bench, root, card)
-        t_b = time.perf_counter()
         k1_c = _obs_flight(kernels_mod, compute, data, bench, root,
                            blocks_a, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(f"worker obs phase wall (s): {time.perf_counter() - t0:.1f} "
-          f"((a) and (d) {t_a - t0:.1f}, (b) {t_b - t_a:.1f}, (c) "
-          f"{time.perf_counter() - t_b:.1f})")
-    return k1_a + k1_b + k1_c
+          f"((a) and (d) {t_a - t0:.1f}, (c) "
+          f"{time.perf_counter() - t_a:.1f})")
+    return k1_a + k1_c
 
 
 # Phase 13: the native worker shell. Phase 11's panel (seed 7) and grid as
@@ -5533,7 +5596,7 @@ def phase_worker_obs(kernels_mod, compute, pb, wire, data, bench,
 SHELLS = 2
 SHELL_WARM_JOBS = 200
 SHELL_FUSED_OFF_JOBS = 16
-SHELL_ROUNDS = 2              # timed drains of each channel kind
+SHELL_ROUNDS = 1              # timed drains of each channel kind
 SHELL_TIMEOUT_S = 300.0
 
 
@@ -5822,39 +5885,149 @@ def phase_native_shell(kernels_mod, compute, pb, wire, data, bench,
     return k1_all["native"] + k1_all["python"]
 
 
+# Run by phase 14 (a) and (b) in a process of its own in which jax and the
+# JAX package cannot be imported: dbxlint over the port package as
+# ``python -m ...analysis.lint --format json`` runs it, then
+# ``--certify --format json`` in the same process (its certified rows
+# traced once, by the first); one JSON line of both results and walls.
+ANALYSIS_BLOCKED = r"""
+import contextlib, io, json, sys, time
+sys.modules["jax"] = None
+sys.modules["distributed_backtesting_exploration_tpu"] = None
+from distributed_backtesting_exploration_tpu_torch.analysis import lint
+
+def run(argv):
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = lint.main(argv)
+    return rc, json.loads(buf.getvalue()), time.perf_counter() - t0
+
+lint_rc, lint_res, lint_s = run(["--format", "json"])
+cert_rc, cert_res, cert_s = run(["--certify", "--format", "json"])
+print(json.dumps({"lint_rc": lint_rc, "lint": lint_res, "lint_s": lint_s,
+                  "certify_rc": cert_rc, "certify": cert_res,
+                  "certify_s": cert_s}))
+"""
+
+# Phase 14 (c): the entry of every kernel kernel-hygiene must launch on the
+# card (K8 at its full stage, 128 lanes).
+HYGIENE_LAUNCHES = ("fused_sma", "obv", "band_inline", "band_table",
+                    "band_stoch", "momentum", "donchian", "macd", "trix",
+                    "pairs", "ema_rows", "pairs_tables",
+                    "sma_stage_full_l128", "boll_stage_full_l128")
+# Phase 14 (d): the families held at the bench's shape; the rest at
+# ANALYSIS_SMALL tickers.
+ANALYSIS_FULL = ("sma_crossover", "bollinger")
+ANALYSIS_SMALL = 32
+
+
+def _substrate_bits(recurrent, certify, data, dev) -> dict:
+    """Phase 14 (d): every output the port's table certifies exact,
+    selection or int-exact in both substrates' build rows is bit-identical
+    between the ``scan:8`` and ``ladder`` builds on the card. Returns
+    {family: outputs compared}."""
+    table = certify.load_contract()["rows"]
+    checked = {}
+    for fam in certify.stream_families():
+        n = N_TICKERS if fam in ANALYSIS_FULL else ANALYSIS_SMALL
+        if fam == "pairs":
+            y, x = _pairs_legs(data, n, N_BARS, 7)
+            cols = {"close": y.close, "close2": x.close}
+        else:
+            panel = data.synthetic_ohlcv(n, N_BARS, seed=7)
+            cols = {f: getattr(panel, f)
+                    for f in recurrent.stream_fields(fam)}
+        fields = {k: torch.as_tensor(v, device=dev) for k, v in cols.items()}
+        g = _flat_grid(AXES[fam])
+        out = {}
+        for sub in certify.SUBSTRATES:
+            c = recurrent.build_carry(fam, fields, g, cost=COST,
+                                      epilogue=sub, device=dev)
+            m = recurrent.finalize(c)
+            vals = {f"metrics/{k}": getattr(m, k) for k in m._fields}
+            vals.update({f"metric/{k}": v for k, v in c.metric.items()})
+            vals.update({f"state/{k}": v for k, v in c.state.items()})
+            out[sub] = vals
+            del c, m
+        rows = [table[certify.row_key(fam, sub, "build_carry")]["outputs"]
+                for sub in certify.SUBSTRATES]
+        labels = [lab for lab in sorted(rows[0])
+                  if all(r[lab]["class"] in ("exact", "selection",
+                                             "int-exact") for r in rows)]
+        _check(bool(labels), f"analysis (d): {fam} certifies no output "
+               "exact, selection or int-exact")
+        for lab in labels:
+            a, b = (out[sub][lab] for sub in certify.SUBSTRATES)
+            _check(_bits_equal(a, b), f"analysis (d): {fam} {lab}, "
+                   f"certified {rows[0][lab]['class']}, differs between "
+                   "the scan:8 and ladder builds")
+        checked[fam] = len(labels)
+        del out
+    return checked
+
+
 def phase_analysis(kernels_mod, card) -> dict:
-    """Phase 14: dbxlint over the port package in a process of its own
-    that cannot import jax (exit 0, clean, every ported rule run), then
-    dbxmc at the bench size on
-    every available substrate (zero violations). No kernel launches.
-    Returns dbxmc's result."""
-    from distributed_backtesting_exploration_tpu_torch.analysis import (
-        core, modelcheck)
+    """Phase 14: (a) dbxlint (all fourteen rules: the certifier and
+    kernel-hygiene run on the CPU there) over the port package in a
+    process of its own that cannot import jax, exit 0 and clean; dbxmc at
+    the bench size on every available substrate, zero violations; no
+    kernel launch. (b) ``lint --certify`` in the same process: exit 0, 59
+    rows, no drift. (c) kernel-hygiene on the card, its kernels really
+    launching: no finding, every entry of ``HYGIENE_LAUNCHES`` launched.
+    (d) :func:`_substrate_bits`. Returns the hygiene's launches by
+    entry."""
+    from distributed_backtesting_exploration_tpu_torch.analysis import core
 
     kernels_mod.reset_launch_counts()
+    # (a) and (b)'s process runs on the host's CPU while this one runs
+    # dbxmc, (c) and (d); it is read at the end.
     t0 = time.perf_counter()
-    # The CLI as ``python -m`` runs it, with jax and the JAX package made
-    # unimportable: the analysis must need neither.
-    mod = "distributed_backtesting_exploration_tpu_torch.analysis.lint"
-    ref = "distributed_backtesting_exploration_tpu"
-    blocked = ("import runpy, sys\n"
-               "sys.modules['jax'] = None\n"
-               f"sys.modules[{ref!r}] = None\n"
-               f"sys.argv = [{mod!r}, '--format', 'json']\n"
-               f"runpy.run_module({mod!r}, run_name='__main__')\n")
-    proc = subprocess.run([sys.executable, "-c", blocked],
-                          capture_output=True, text=True, timeout=300)
-    t_lint = time.perf_counter() - t0
-    _check(proc.returncode == 0, f"analysis: dbxlint exited "
-           f"{proc.returncode}:\n{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
-    res = json.loads(proc.stdout)
+    proc = subprocess.Popen([sys.executable, "-c", ANALYSIS_BLOCKED],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    try:
+        launches = _analysis_in_process(kernels_mod, card)
+        out, err = proc.communicate(timeout=400)
+    finally:
+        proc.kill()
+        proc.wait()
+    t_proc = time.perf_counter() - t0
+    _check(proc.returncode == 0, f"analysis: the dbxlint process exited "
+           f"{proc.returncode}:\n{out[-3000:]}{err[-3000:]}")
+    got = json.loads(out.strip().splitlines()[-1])
+    res = got["lint"]
     rules = [r.name for r in core.all_rules()]
-    _check(res["clean"] and res["rules"] == rules
+    _check(got["lint_rc"] == 0 and res["clean"] and res["rules"] == rules
            and not res["rules_skipped"],
-           f"analysis: dbxlint ran {res['rules']}, skipped "
-           f"{res['rules_skipped']}, want {rules} clean")
-    print(f"analysis: dbxlint clean over the port package in {t_lint:.2f} s "
-          f"({res['suppressed']} suppressed; rules {', '.join(rules)})")
+           f"analysis: dbxlint exited {got['lint_rc']}, ran {res['rules']}, "
+           f"skipped {res['rules_skipped']}, findings "
+           f"{res['findings'][:3]}; want {rules} clean")
+    print(f"analysis (a) ({card}): dbxlint clean over the port package in "
+          f"{got['lint_s']:.2f} s ({res['suppressed']} suppressed; rules "
+          f"{', '.join(rules)}); the process {t_proc:.2f} s")
+    cert = got["certify"]
+    _check(got["certify_rc"] == 0 and cert["rows"] == 59
+           and not cert["drift"] and not cert["findings"],
+           f"analysis (b): lint --certify exited {got['certify_rc']}, "
+           f"{cert['rows']} rows, drift {cert['drift'][:2]}, findings "
+           f"{cert['findings'][:2]}")
+    print(f"analysis (b) ({card}): lint --certify clean, {cert['rows']} rows "
+          f"vs {os.path.basename(cert['contract'])}, no drift, in "
+          f"{got['certify_s']:.2f} s after the lint's trace")
+    return launches
+
+
+def _analysis_in_process(kernels_mod, card) -> dict:
+    """Phase 14's part in this process: (a)'s dbxmc, then (c) and (d).
+    Returns (c)'s launches by entry."""
+    from distributed_backtesting_exploration_tpu_torch.analysis import (
+        certify, core, fx_rules, modelcheck)
+    from distributed_backtesting_exploration_tpu_torch.streaming import (
+        recurrent)
+    from distributed_backtesting_exploration_tpu_torch.utils import data
+
+    dev = torch.device("cuda")
     subs = modelcheck.available_substrates()
     mc = modelcheck.explore(modelcheck.MCConfig(ops=12, seed=0,
                                                 schedules=120), subs)
@@ -5863,15 +6036,39 @@ def phase_analysis(kernels_mod, card) -> dict:
     for sub, r in mc["substrates"].items():
         _check(r["schedules"] == 120, f"analysis: dbxmc [{sub}] explored "
                f"{r['schedules']} schedules, want 120")
-        print(f"analysis ({card}): dbxmc [{sub}] schedules={r['schedules']} "
-              f"crash_points={r['crash_points']} "
+        print(f"analysis (a) ({card}): dbxmc [{sub}] "
+              f"schedules={r['schedules']} crash_points={r['crash_points']} "
               f"boundaries={r['boundaries']} wall_s={r['wall_s']}")
-    print(f"analysis ({card}): dbxmc schedules={mc['schedules']} "
+    print(f"analysis (a) ({card}): dbxmc schedules={mc['schedules']} "
           f"crash_points={mc['crash_points']} wall_s={mc['wall_s']} on "
           f"{', '.join(subs)}, 0 violations")
     launched = sum(kernels_mod.LAUNCHES.values())
-    _check(launched == 0, f"analysis: {launched} kernel launches")
-    return mc
+    _check(launched == 0, f"analysis: {launched} kernel launches in (a)")
+
+    t0 = time.perf_counter()
+    kernels_mod.reset_launch_counts()
+    pkg = str(Path(certify.__file__).resolve().parent.parent)
+    findings = fx_rules.KernelHygieneRule(device=dev).check(
+        core.load_context(pkg))
+    torch.cuda.synchronize()
+    t_hyg = time.perf_counter() - t0
+    launches = dict(kernels_mod.LAUNCHES)
+    _check(not findings, "analysis (c): kernel-hygiene on the card:\n"
+           + "\n".join(f.format() for f in findings[:10]))
+    missing = [e for e in HYGIENE_LAUNCHES if not launches.get(e)]
+    _check(not missing, f"analysis (c): kernel-hygiene launched no "
+           f"{missing}; launches {launches}")
+    print(f"analysis (c) ({card}): kernel-hygiene on the card clean in "
+          f"{t_hyg:.2f} s; launches by entry {json.dumps(launches)}")
+
+    t0 = time.perf_counter()
+    checked = _substrate_bits(recurrent, certify, data, dev)
+    print(f"analysis (d) ({card}): scan:8 and ladder builds bit-identical "
+          f"on every exact/selection/int-exact output ({N_TICKERS} x "
+          f"{N_BARS} for {', '.join(ANALYSIS_FULL)}, {ANALYSIS_SMALL} x "
+          f"{N_BARS} for the rest; outputs a family "
+          f"{json.dumps(checked)}) in {time.perf_counter() - t0:.2f} s")
+    return launches
 
 
 def _phase_wall(walls: dict, name: str, fn, *args):
@@ -5957,7 +6154,9 @@ def main() -> None:
                                   card)
     _check(k1["native_launches"] > 0, "fused_sma launched no time in the "
            "native shells")
-    timed("analysis", phase_analysis, _kernels, card)
+    hygiene = timed("analysis", phase_analysis, _kernels, card)
+    for rec in (k1, *new.values(), *k8):
+        rec["hygiene_launches"] = hygiene.get(rec["name"], 0)
     print(f"phase walls (s): {json.dumps(walls)}")
     print(json.dumps({"kernels": [k1, *new.values(), *k8]}))
     print(json.dumps({"ok": True, "device": {
@@ -6090,5 +6289,7 @@ if __name__ == "__main__":
         sass_of(sys.argv[2])
     elif len(sys.argv) == 3 and sys.argv[1] == "--parent":
         parent_compare(sys.argv[2])
+    elif len(sys.argv) == 2 and sys.argv[1] == "--obs-split":
+        obs_split()
     else:
         main()

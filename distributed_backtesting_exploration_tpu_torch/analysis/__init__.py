@@ -1,5 +1,5 @@
-"""dbxlint and dbxmc over the port: the reference's ``analysis/`` aimed at
-this package, without its jaxpr layer.
+"""dbxlint, dbxcert and dbxmc over the port: the reference's
+``analysis/`` aimed at this package.
 
 - **AST layer** (:mod:`.ast_rules`): *trace-time-env* (env reads reachable
   from a kernel's build, load or launch: the launch boundary of
@@ -17,20 +17,27 @@ this package, without its jaxpr layer.
   ``_lockdep_report`` and its ``main`` read.
 - **wire layer** (:mod:`.proto_rules`): *proto-drift* between
   ``rpc/backtesting.proto`` and the generated ``rpc/backtesting_pb2.py``.
+- **traced-program layer** (:mod:`.dataflow`, the reference's jaxpr
+  walker over torch programs recorded op by op): *kernel-hygiene*
+  (:mod:`.fx_rules`: host round trips, the launch boundary's dtypes and
+  layouts, non-f32 and default-dtype outputs, a source pass over
+  ``csrc/``) and dbxcert (:mod:`.certify`: *substrate-contract*,
+  *weak-type-provenance*, *digest-determinism* against the port's own
+  ``numerics.torch.contract.json``).
 - **dbxmc** (:mod:`.modelcheck` over :mod:`.schedules`): the interleaving
   and crash-point model checker over the port's journaled dispatcher
   (its ``JobQueue``, ``Journal``, ``WfqScheduler`` and ``PanelStore``, on
   each available substrate).
 
-The reference's jaxpr rule (*kernel-hygiene*) and its numerics certifier
-(dbxcert: *substrate-contract*, *weak-type-provenance*,
-*digest-determinism*) walk jaxprs and have no port yet. Nothing here
-imports jax or the JAX package.
+Nothing here imports jax or the JAX package.
 
 CLI::
 
     python -m distributed_backtesting_exploration_tpu_torch.analysis.lint \
         [paths ...] [--format text|json] [--rules a,b] [--list-rules]
+        [--certify [--update-contract]]
+    python -m distributed_backtesting_exploration_tpu_torch.analysis.certify \
+        [--update] [--format text|json]
     python -m \
         distributed_backtesting_exploration_tpu_torch.analysis.modelcheck \
         [--ops N] [--seed S] [--schedules K] \

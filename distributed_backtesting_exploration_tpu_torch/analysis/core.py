@@ -4,10 +4,9 @@ A *rule* is a plain object with ``name``, ``doc`` and
 ``check(ctx) -> list[Finding]``. Rules are registered in ``all_rules()``
 (import-cycle-free: the rule modules import this one, not vice versa at
 import time). The engine is deliberately dependency-free — stdlib ``ast``
-alone. It is the reference's ``analysis/core.py`` aimed at this package;
-the reference's jaxpr and certifier rules (``kernel-hygiene``,
-``substrate-contract``, ``weak-type-provenance``, ``digest-determinism``)
-have no port yet and are not registered.
+alone, plus, for the traced-program layer only, torch inside the rules
+that run programs. It is the reference's ``analysis/core.py`` aimed at
+this package.
 """
 
 from __future__ import annotations
@@ -62,7 +61,7 @@ class LintContext:
     package: bool = False     # True when root IS the dbx package itself
     skipped: list[tuple[str, str]] = dataclasses.field(default_factory=list)
     # Filled by lint_path: rule names that ran vs. were not applicable to
-    # this root (e.g. proto-drift on a single file) — "skipped" must
+    # this root (e.g. kernel-hygiene outside the package) — "skipped" must
     # never masquerade as "clean".
     rules_ran: list[str] = dataclasses.field(default_factory=list)
     rules_skipped: list[str] = dataclasses.field(default_factory=list)
@@ -214,7 +213,7 @@ def apply_suppressions(findings: list[Finding], root: str,
 
 def all_rules() -> list:
     """The registered rule set, in catalogue order."""
-    from . import ast_rules, locks, proto_rules
+    from . import ast_rules, certify, fx_rules, locks, proto_rules
 
     return [
         ast_rules.TraceTimeEnvRule(),
@@ -226,6 +225,10 @@ def all_rules() -> list:
         ast_rules.BlockingCallRule(),
         ast_rules.ObsCardinalityRule(),
         ast_rules.JournalDisciplineRule(),
+        fx_rules.KernelHygieneRule(),
+        certify.SubstrateContractRule(),
+        certify.WeakTypeProvenanceRule(),
+        certify.DigestDeterminismRule(),
         proto_rules.ProtoDriftRule(),
     ]
 

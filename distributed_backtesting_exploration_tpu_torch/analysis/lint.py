@@ -4,10 +4,8 @@
 Runs the registered rule set over the package (default) or over explicit
 paths, prints findings as text or JSON, and exits non-zero when any
 finding survives suppression — ``tests/test_torch_lint_clean.py`` drives
-this entry point. The reference's ``--certify`` and ``--update-contract``
-(the numerics certifier, which walks jaxprs) have no port yet and are
-left out, and so are its jaxpr and certifier rules (``--list-rules``
-names them).
+this entry point. ``--certify`` runs the numerics certifier alone
+(:mod:`.certify`; ``--update-contract`` rewrites the port's table).
 """
 
 from __future__ import annotations
@@ -21,17 +19,12 @@ from . import core
 
 _PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# The reference's rules that have no port: the jaxpr layer and the
-# numerics certifier.
-NOT_PORTED = ("kernel-hygiene", "substrate-contract", "weak-type-provenance",
-              "digest-determinism")
-
 
 def make_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="dbxlint",
         description="static analysis for the dbx codebase "
-                    "(AST, lock and proto layers)")
+                    "(AST, lock, traced-program and proto layers)")
     ap.add_argument("paths", nargs="*", default=None,
                     help="files/directories to lint (default: the "
                          "installed "
@@ -44,6 +37,13 @@ def make_parser() -> argparse.ArgumentParser:
                          "(default: all; see --list-rules)")
     ap.add_argument("--list-rules", action="store_true",
                     help="print the rule catalogue and exit")
+    ap.add_argument("--certify", action="store_true",
+                    help="run the numerics certifier only (analysis."
+                         "certify): exit 0 clean / 1 findings / 2 "
+                         "contract drift")
+    ap.add_argument("--update-contract", action="store_true",
+                    help="with --certify: regenerate and write "
+                         "numerics.torch.contract.json from the live trace")
     return ap
 
 
@@ -65,8 +65,8 @@ def run(paths, rules) -> dict:
     """Lint ``paths`` with ``rules``; returns the JSON-able result dict.
 
     ``rules`` lists only rules that actually RAN on at least one path;
-    ``rules_skipped`` names the rest (e.g. proto-drift on a single file)
-    — a skipped rule must never read as clean coverage."""
+    ``rules_skipped`` names the rest (e.g. kernel-hygiene outside the
+    package) — a skipped rule must never read as clean coverage."""
     all_findings: list[core.Finding] = []
     suppressed = 0
     skipped: list = []
@@ -92,12 +92,28 @@ def run(paths, rules) -> dict:
 
 def main(argv=None) -> int:
     args = make_parser().parse_args(argv)
+    if args.certify:
+        from . import certify
+
+        # The certifier traces the installed package's registries; path
+        # and rule selectors don't apply — reject them loudly rather
+        # than silently running the full certifier anyway.
+        if args.paths or args.rules or args.list_rules:
+            raise SystemExit(
+                "dbxlint --certify runs the whole certified registry of "
+                "the installed package: positional paths, --rules and "
+                "--list-rules do not apply (use plain dbxlint for "
+                "scoped lint runs)")
+        result = certify.run_certify(update=args.update_contract)
+        if args.format == "json":
+            print(json.dumps(result, indent=2))
+        else:
+            certify.render_text(result, prog="dbxlint --certify")
+        return certify.exit_code(result)
     rules = _select_rules(args.rules)
     if args.list_rules:
         for r in rules:
             print(f"{r.name:20s} {r.doc}")
-        print(f"not ported (they walk jaxprs): {', '.join(NOT_PORTED)}; "
-              "--certify and --update-contract with them")
         return 0
     paths = args.paths or [_PACKAGE_DIR]
     result = run(paths, rules)

@@ -96,7 +96,10 @@ recording, five paired rounds, and a synthetic shadow-scored stream);
 that sleep what they hold, placement off and live; ``DBX_BENCH_PL_SCALE``,
 ``_PL_CHAINS``, ``_PL_LINKS``); ``queue_machine`` (``JobQueue`` alone on
 each substrate, ``DBX_BENCH_QUEUE_JOBS``, and ``cpp/dbx_core_bench.cc``
-built by the port at the C-ABI grain); ``modelcheck`` (dbxmc,
+built by the port at the C-ABI grain); ``certify`` (dbxcert,
+``analysis.certify``: its wall a family and for the digest cones, its
+rate rows/s; ``DBX_BENCH_CERTIFY_FAMILIES`` subsets the families);
+``modelcheck`` (dbxmc,
 ``analysis.modelcheck``, over the port's dispatcher on every available
 substrate: ``DBX_MC_OPS`` (12), ``DBX_MC_SEED`` (0),
 ``DBX_BENCH_MC_SCHEDULES`` (120) schedules a substrate; its rate is
@@ -221,12 +224,12 @@ CONFIGS = ("sma_fused", "roofline_stages", *list(FUSED)[1:], "walkforward",
            "scenario_megakernel", "long_context", "autotune", "e2e",
            "e2e_topk", "e2e_local", "direct_dispatch", "fleet_telemetry",
            "flight", "decision_plane", "e2e_local_placement",
-           "queue_machine", "modelcheck", "fanout", "e2e_local_tenants",
-           "pipeline")
+           "queue_machine", "certify", "modelcheck", "fanout",
+           "e2e_local_tenants", "pipeline")
 # The reference's control-plane configs, each a method of _Bench.
 CONTROL_CONFIGS = ("direct_dispatch", "decision_plane",
-                   "e2e_local_placement", "queue_machine", "modelcheck",
-                   "fanout", "e2e_local_tenants", "pipeline")
+                   "e2e_local_placement", "queue_machine", "certify",
+                   "modelcheck", "fanout", "e2e_local_tenants", "pipeline")
 # The reference's printed regression floor of the direct loop at batch 32
 # (jobs/s): a check printed beside the rate, never a failure.
 DIRECT_FLOOR = 2000
@@ -279,6 +282,7 @@ class Settings(NamedTuple):
     fleet_workers: int = 2
     fleet_poll_s: float = 0.25
     queue_jobs: int = 20000
+    certify_families: tuple | None = None   # None: the whole registry
     mc_ops: int = 12
     mc_seed: int = 0
     mc_schedules: int = 120
@@ -326,6 +330,9 @@ def settings_from_env(env) -> Settings:
         fleet_workers=int(env.get("DBX_BENCH_FLEET_WORKERS", 2)),
         fleet_poll_s=float(env.get("DBX_BENCH_FLEET_POLL_S", 0.25)),
         queue_jobs=int(env.get("DBX_BENCH_QUEUE_JOBS", 20000)),
+        certify_families=tuple(
+            f.strip() for f in env.get("DBX_BENCH_CERTIFY_FAMILIES",
+                                       "").split(",") if f.strip()) or None,
         mc_ops=int(env.get("DBX_MC_OPS", 12)),
         mc_seed=int(env.get("DBX_MC_SEED", 0)),
         mc_schedules=int(env.get("DBX_BENCH_MC_SCHEDULES", 120)),
@@ -1600,6 +1607,27 @@ class _Bench:
             self.rates["queue_machine_native_cabi"] = float(m.group(1))
             print("bench[queue_machine_native_cabi]: " + out.stdout.strip(),
                   file=sys.stderr)
+
+    def certify(self) -> None:
+        """The reference's ``certify``: dbxcert's analysis cost, a CI
+        gate's, per family (its 4 rows: 2 substrates x 2 forms) and for
+        the digest cones, on the CPU wherever the bench runs (the
+        certifier traces the plain versions)."""
+        from .analysis import certify as dbxcert
+
+        t0 = time.perf_counter()
+        rows, walls = dbxcert.timed_rows(
+            families=(list(self.s.certify_families)
+                      if self.s.certify_families else None))
+        total = time.perf_counter() - t0
+        self.roofline["certify"] = {
+            "certify_wall_s": {k: round(v, 4) for k, v in walls.items()},
+            "rows": len(rows),
+            "wall_s_total": round(total, 4)}
+        self.rates["certify"] = len(rows) / max(total, 1e-9)
+        print(f"bench[certify]: {len(rows)} rows in {total:.2f}s "
+              f"({len(walls) - 1} families + digest cones)",
+              file=sys.stderr)
 
     def modelcheck(self) -> None:
         """The reference's ``modelcheck``: dbxmc's exploration cost, a CI

@@ -22,13 +22,14 @@ MAX_WINDOW = 256
 
 
 def stochastic_k(high, low, close, window, *, max_window: int = MAX_WINDOW,
-                 eps: float = 1e-12):
+                 eps: float = 1e-12, bound: int | None = None):
     """%K in ``[0, 100]``; ``window`` may be a tensor of windows that
-    broadcasts against the ``(..., T)`` series."""
+    broadcasts against the ``(..., T)`` series (``bound`` as
+    :func:`~..ops.rolling.rolling_max`'s)."""
     hh = rolling.rolling_max(high, window, max_window=max_window,
-                             fill=math.inf)
+                             fill=math.inf, bound=bound)
     ll = rolling.rolling_min(low, window, max_window=max_window,
-                             fill=-math.inf)
+                             fill=-math.inf, bound=bound)
     rng = hh - ll
     return torch.where(rng > eps, 100.0 * (close - ll) / (rng + eps),
                        torch.full_like(rng, 50.0))

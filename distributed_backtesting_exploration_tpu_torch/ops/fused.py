@@ -505,13 +505,28 @@ def row_mean(x: torch.Tensor, t_real: np.ndarray) -> torch.Tensor:
     return (total / tr).to(x.dtype)
 
 
+# Kernel-hygiene's watch on the launch boundary (``analysis.fx_rules``):
+# while one is set, every entry :func:`_on_device` resolves and every
+# launch is shown to the newest first. Empty outside the rule.
+_WATCH: list = []
+
+
+class DryCheck(Exception):
+    """Raised by :func:`_check_launch` on CPU tensors while a watch is set:
+    the arguments passed the kernel's checks and no kernel is to run."""
+
+
 def _check_launch(name: str, dev: torch.device, P: int,
                   lanes: int = _KERNEL_THREADS, **args) -> None:
     """Refuse what a kernel cannot take: ``args`` maps each argument name to
     ``(tensor, dtype, shape)``; every tensor must be a contiguous tensor of
     that dtype and shape on ``dev`` (a CUDA device), and the ``P`` combos
-    must fit the grid of ``lanes`` lanes a CTA."""
-    if dev.type != "cuda":
+    must fit the grid of ``lanes`` lanes a CTA. While a watch is set, CPU
+    tensors are checked as the card's would be and :class:`DryCheck`
+    raised: how kernel-hygiene reads a kernel's declared arguments on the
+    CPU, where its plain version runs."""
+    dry = bool(_WATCH) and dev.type == "cpu"
+    if dev.type != "cuda" and not dry:
         raise ValueError(f"{name} needs CUDA tensors; got {dev}")
     for arg, (x, dtype, shape) in args.items():
         if x.device != dev:
@@ -526,10 +541,14 @@ def _check_launch(name: str, dev: torch.device, P: int,
     if -(-P // lanes) > _MAX_PARAM_BLOCKS:
         raise ValueError(f"{P} combos exceed the kernel's grid limit of "
                          f"{_MAX_PARAM_BLOCKS * lanes}")
+    if dry:
+        raise DryCheck(name)
 
 
 def _launch(name: str, entry, *args) -> None:
     """Call a C entry on the current stream and count the launch."""
+    if _WATCH:
+        _WATCH[-1].launch(name, args)
     with torch.cuda.device(args[0].device):
         stream = torch.cuda.current_stream().cuda_stream
         err = entry(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
@@ -599,8 +618,12 @@ class _MetricState:
 
 
 def _on_device(plain, cuda, x: torch.Tensor):
-    """The plain version for a CPU tensor, the kernel wrapper otherwise."""
-    return plain if x.device.type == "cpu" else cuda
+    """The plain version for a CPU tensor, the kernel wrapper otherwise
+    (shown to a set watch first)."""
+    fn = plain if x.device.type == "cpu" else cuda
+    if _WATCH:
+        return functools.partial(_WATCH[-1].entry, fn, plain, cuda)
+    return fn
 
 
 def _at_width(cuda, lanes: int | None):
@@ -1488,8 +1511,8 @@ def trix_ema_table(close, spans: np.ndarray) -> torch.Tensor:
 def ema_decay(dev: torch.device, spans: np.ndarray) -> torch.Tensor:
     """The ``(W,)`` f32 EMA decays ``2 / (span + 1)`` of the distinct
     spans, formed as :func:`~.rolling.ema_ladder` forms them."""
-    return rolling._decay(torch.empty(0, device=dev), _col(dev, spans),
-                          None).reshape(-1).contiguous()
+    return rolling._decay(torch.empty(0, dtype=torch.float32, device=dev),
+                          _col(dev, spans), None).reshape(-1).contiguous()
 
 
 def ema_rows_cuda(x, decay, ladders: int) -> torch.Tensor:
@@ -1536,22 +1559,26 @@ def ema_rows_registers(T: int) -> int:
     return int(_kernels.ema_rows_lib().dbx_ema_rows_registers(int(T)))
 
 
+def _macd_table_cuda(close, spans: np.ndarray) -> torch.Tensor:
+    return ema_rows_cuda((close - close[:, :1]).contiguous(),
+                         ema_decay(close.device, spans), 1)
+
+
+def _trix_table_cuda(close, spans: np.ndarray) -> torch.Tensor:
+    return ema_rows_cuda(close, ema_decay(close.device, spans), 3)
+
+
 def macd_sweep_table(close, spans: np.ndarray) -> torch.Tensor:
     """K4's EMA table on the close's device: :func:`macd_ema_table` (torch
     ops) on the CPU, :func:`ema_rows_cuda` (one ladder of the close
     demeaned by its first bar) on the card."""
-    if close.device.type == "cpu":
-        return macd_ema_table(close, spans)
-    return ema_rows_cuda((close - close[:, :1]).contiguous(),
-                         ema_decay(close.device, spans), 1)
+    return _on_device(macd_ema_table, _macd_table_cuda, close)(close, spans)
 
 
 def trix_sweep_table(close, spans: np.ndarray) -> torch.Tensor:
     """K5's triple-EMA table on the close's device: :func:`trix_ema_table`
     (torch ops) on the CPU, :func:`ema_rows_cuda` on the card."""
-    if close.device.type == "cpu":
-        return trix_ema_table(close, spans)
-    return ema_rows_cuda(close, ema_decay(close.device, spans), 3)
+    return _on_device(trix_ema_table, _trix_table_cuda, close)(close, spans)
 
 
 def rsi_z_table(close, periods: np.ndarray) -> torch.Tensor:
@@ -1787,8 +1814,10 @@ def pairs_sweep_tables(y, x, windows: np.ndarray):
     the CPU, :func:`pairs_tables_cuda` on the card from the legs' means
     (:func:`~.rolling.mean_f64`, the generic model's centering of the
     legs, the same bits on any device and stack)."""
-    if y.device.type == "cpu":
-        return pairs_tables(y, x, windows)
+    return _on_device(pairs_tables, _pairs_tables_of_legs, y)(y, x, windows)
+
+
+def _pairs_tables_of_legs(y, x, windows: np.ndarray):
     lookbacks = np.asarray(windows).astype(np.int32)
     return pairs_tables_cuda(y, x, rolling.mean_f64(x, 1)[:, 0],
                              rolling.mean_f64(y, 1)[:, 0],
@@ -2589,7 +2618,7 @@ def fused_scenario_sweep(strategy: str, base: dict, seed_lo, seed_hi,
         raise ValueError(
             f"scenario sweep needs n_bars/block/regimes >= 1 "
             f"(got {n_bars}/{block}/{regimes})")
-    if np.asarray(seed_lo).shape[0] == 0:
+    if len(seed_lo) == 0:
         raise ValueError("scenario sweep over an empty spec batch")
     fields, call = fam.fields, fam.call
     dev = device_mod.resolve(device)
@@ -2603,3 +2632,111 @@ def fused_scenario_sweep(strategy: str, base: dict, seed_lo, seed_hi,
     if len(parts) == 1:
         return parts[0]
     return Metrics(*(torch.cat(cols, dim=0) for cols in zip(*parts)))
+
+
+# --- analysis probes ------------------------------------------------------
+
+# One value per grid axis for the tiny hygiene probes (the reference's
+# ``_PAGED_PROBE_AXES``: windows small and integral, MACD/TRIX fast <
+# slow, 18 real bars clear every warmup).
+_PAGED_PROBE_AXES = {
+    "fast": [2.0], "slow": [5.0], "window": [3.0], "k": [1.0],
+    "lookback": [2.0], "period": [3.0], "band": [20.0], "signal": [2.0],
+    "span": [2.0],
+}
+_PAGED_PROBE_BARS = (20, 18)    # ragged pair, both 3 pages of 8 bars
+
+
+def _probe_close(T: int) -> np.ndarray:
+    t = np.arange(1, T + 1, dtype=np.float32)
+    return 100.0 + np.sin(t) + 0.01 * t
+
+
+def paged_hygiene_probe(strategy: str, *, epilogue: str | None = None):
+    """``(fn, args)`` running the paged path of ``strategy`` (the page
+    gather, the repeat-last fix, the family's sweep on the assembled
+    block) over a tiny pool and a ragged two-ticker page table, for
+    kernel-hygiene; the pool is the argument, on the device its caller
+    places it. Raises for a registry entry with no paged row (the rule
+    reports that as a finding)."""
+    fields, axes = _PAGED_FAMILIES[strategy][:2]
+    B = 8
+    T = max(_PAGED_PROBE_BARS)
+    t_real = np.asarray(_PAGED_PROBE_BARS, np.int32)
+    close = _probe_close(T)
+    by_name = {
+        "close": close, "high": close * 1.01, "low": close * 0.99,
+        "open": close, "volume": np.full(T, 1e4, np.float32),
+    }
+    pool_rows: list = []
+    tables: dict = {}
+    n_pages = -(-T // B)
+    for f in fields:
+        tbl = np.zeros((len(t_real), n_pages), np.int32)
+        for i, tr in enumerate(t_real):
+            series = (by_name[f][:tr] * (1.0 + 0.001 * i)).astype(
+                np.float32)
+            pages = [series[s:s + B] for s in range(0, tr, B)]
+            pages = [np.concatenate(
+                [pg, np.full(B - pg.shape[0], pg[-1], np.float32)])
+                if pg.shape[0] < B else pg for pg in pages]
+            slots = list(range(len(pool_rows),
+                               len(pool_rows) + len(pages)))
+            pool_rows.extend(pages)
+            tbl[i, :len(slots)] = slots
+            tbl[i, len(slots):] = slots[-1]
+        tables[f] = tbl
+    pool = np.stack(pool_rows)
+    grid = {a: np.asarray(_PAGED_PROBE_AXES[a], np.float32) for a in axes}
+
+    def fn(pool_arg):
+        return fused_paged_sweep(strategy, pool_arg, tables, t_real, grid,
+                                 epilogue=epilogue)
+
+    return fn, (pool,)
+
+
+# 18 real base bars and 16 generated bars clear every probe axis's warmup
+# (the paged probe's sizing rule).
+_SCENARIO_PROBE_BARS = 18
+
+
+def scenario_hygiene_probe(strategy: str, *, epilogue: str | None = None):
+    """``(fn, args)`` running the scenario route of ``strategy`` (the seed
+    fold, the per-block generator and the family's sweep over the
+    generated rows) over a tiny base panel and two scenario specs, for
+    kernel-hygiene; the specs are the arguments, on the device their
+    caller places them. Raises for a family with no scenario row."""
+    axes = _PAGED_FAMILIES[strategy].axes
+    T = _SCENARIO_PROBE_BARS
+    close = _probe_close(T)
+    base = {
+        "open": close, "high": close * 1.01, "low": close * 0.99,
+        "close": close, "volume": np.full(T, 1e4, np.float32),
+    }
+    grid = {a: np.asarray(_PAGED_PROBE_AXES[a], np.float32) for a in axes}
+    args = (np.asarray([3, 5], np.int64), np.asarray([1, 2], np.int64),
+            np.asarray([2.0, 1.5], np.float32),
+            np.asarray([0.1, 0.0], np.float32))
+
+    def fn(lo, hi, vs, sh):
+        return fused_scenario_sweep(strategy, base, lo, hi, vs, sh, grid,
+                                    n_bars=16, block=4, regimes=2,
+                                    epilogue=epilogue, device=lo.device)
+
+    return fn, args
+
+
+def scenario_certify_probe():
+    """``(fn, args, integral_keys)`` for dbxcert: the flagship family's
+    scenario route on tiny pinned shapes, seed words to metrics. The
+    in-sweep generation is sound only if this program is run-to-run
+    deterministic for fixed seed words: the certifier asserts that no
+    nondet-class op reaches a metric. With the ``scenario_synth`` cone it
+    shows that the fused and materialized rungs cannot diverge in kind."""
+    probe_fn, args = scenario_hygiene_probe("sma_crossover")
+
+    def fn(lo, hi, vs, sh):
+        return dict(zip(Metrics._fields, probe_fn(lo, hi, vs, sh)))
+
+    return fn, args, frozenset()

@@ -223,17 +223,17 @@ def ema(x: Tensor, *, span=None, alpha=None) -> Tensor:
 
 
 def _rolling_extremum(x: Tensor, window, max_window, fill: float,
-                      mode: str) -> Tensor:
+                      mode: str, bound: int | None = None) -> Tensor:
     T = x.shape[-1]
     w = _as_window(window, x)
-    top = math.ceil(float(w.max()))
-    bound = top if max_window is None else min(int(max_window), top)
+    top = math.ceil(float(w.max())) if bound is None else int(bound)
+    reach = top if max_window is None else min(int(max_window), top)
     neutral = -math.inf if mode == "max" else math.inf
     pick = torch.maximum if mode == "max" else torch.minimum
     # Offset o reads x[t - o] for every lane whose window covers it
     # (o < window, t - o >= 0); other lanes see the neutral value.
     out = torch.where(0 < w, x, neutral)
-    for o in range(1, min(bound, T)):
+    for o in range(1, min(reach, T)):
         shifted = torch.cat(
             [torch.full_like(x[..., :o], neutral), x[..., :T - o]], dim=-1)
         out = pick(out, torch.where(o < w, shifted, neutral))
@@ -245,7 +245,7 @@ def _rolling_extremum(x: Tensor, window, max_window, fill: float,
 
 
 def rolling_max(x: Tensor, window, *, max_window: int | None = None,
-                fill: float = math.nan) -> Tensor:
+                fill: float = math.nan, bound: int | None = None) -> Tensor:
     """Rolling max over the trailing ``window`` bars (inclusive).
 
     ``window`` may be a tensor of windows that broadcasts against ``x``
@@ -253,12 +253,15 @@ def rolling_max(x: Tensor, window, *, max_window: int | None = None,
     window beyond it yields NaN, as the reference's traced-window kernel
     (``rolling_extrema_traced``) does. Max of exact values is exact in any
     order, so this equals the reference's doubling and masked-view forms.
+    ``bound``, a host-side bound of the windows, spares reading the largest
+    window off the device (a sync); any bound at or above it gives the same
+    values.
     """
-    return _rolling_extremum(x, window, max_window, fill, "max")
+    return _rolling_extremum(x, window, max_window, fill, "max", bound)
 
 
 def rolling_min(x: Tensor, window, *, max_window: int | None = None,
-                fill: float = math.nan) -> Tensor:
+                fill: float = math.nan, bound: int | None = None) -> Tensor:
     """Rolling min over the trailing ``window`` bars; see
     :func:`rolling_max`."""
-    return _rolling_extremum(x, window, max_window, fill, "min")
+    return _rolling_extremum(x, window, max_window, fill, "min", bound)

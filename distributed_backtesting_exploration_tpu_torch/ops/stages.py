@@ -342,6 +342,9 @@ def _stage_cuda(kind: str, inp: StageInputs, stage: str,
         # fused._launch, but with the entry's refusal of a table too wide
         # for its blocks raised as the caller's error.
         label = f"{kind}_stage_{stage}_l{lanes}"
+        if fused._WATCH:
+            fused._WATCH[-1].launch(label, (inp.r, inp.table, inp.row_a,
+                                            lane_b, inp.warm, out))
         entry = getattr(_kernels.stages_lib(), f"dbx_{kind}_stage")
         with torch.cuda.device(out.device):
             err = entry(inp.r.data_ptr(), inp.table.data_ptr(),

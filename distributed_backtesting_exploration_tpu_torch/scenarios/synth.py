@@ -269,22 +269,21 @@ def generate_rows(base, seed_lo, seed_hi, vol_scale, shock, *, n_bars: int,
                   ) -> Iterator[tuple[int, dict[str, torch.Tensor]]]:
     """K scenarios of one base, a chunk at a time.
 
-    ``base`` maps the five OHLCV names to ``(T,)`` arrays; ``seed_lo``,
-    ``seed_hi`` (:func:`seed_words` of each effective seed), ``vol_scale``
-    and ``shock`` are ``(K,)``; ``n_bars``, ``block`` and ``regimes`` as
+    ``base`` maps the five OHLCV names to ``(T,)`` arrays or tensors;
+    ``seed_lo``, ``seed_hi`` (:func:`seed_words` of each effective seed),
+    ``vol_scale`` and ``shock`` are ``(K,)`` arrays or tensors; ``n_bars``,
+    ``block`` and ``regimes`` as
     :func:`check_shape` returns them. Yields ``(first row, {field: (k, n_bars)
     f32 tensor})`` for chunks of at most :func:`chunk_rows` rows, on
     ``device``."""
     dev = device_mod.resolve(device)
-    b = {f: device_mod.as_tensor(np.asarray(base[f], np.float32),
-                                 torch.float32, dev) for f in FIELDS}
+    b = {f: device_mod.as_tensor(base[f], torch.float32, dev)
+         for f in FIELDS}
     geo = _geometry(b)
-    lo = torch.as_tensor(np.asarray(seed_lo, np.int64), device=dev)
-    hi = torch.as_tensor(np.asarray(seed_hi, np.int64), device=dev)
-    vs = device_mod.as_tensor(np.asarray(vol_scale, np.float32),
-                              torch.float32, dev)
-    sh = device_mod.as_tensor(np.asarray(shock, np.float32), torch.float32,
-                              dev)
+    lo = device_mod.as_tensor(seed_lo, torch.int64, dev)
+    hi = device_mod.as_tensor(seed_hi, torch.int64, dev)
+    vs = device_mod.as_tensor(vol_scale, torch.float32, dev)
+    sh = device_mod.as_tensor(shock, torch.float32, dev)
     if lo.ndim != 1 or not lo.shape == hi.shape == vs.shape == sh.shape:
         raise ValueError("seed_lo, seed_hi, vol_scale and shock must be "
                          "matching (K,) arrays")
@@ -313,6 +312,31 @@ def generate(base: data_mod.OHLCV, params: ScenarioParams, seed: int, *,
         base._asdict(), [lo], [hi], [params.vol_scale], [params.shock],
         n_bars=n_bars, block=block, regimes=regimes, device=device)
     return data_mod.OHLCV(*(rows[f][0].cpu().numpy() for f in FIELDS))
+
+
+def certify_probe():
+    """``(fn, args, integral_keys)`` for dbxcert: the generation digest
+    cone on tiny pinned shapes (the reference's). The scenario digest
+    scheme is sound only if this program is run-to-run deterministic for a
+    fixed (seed, params): the certifier asserts that no nondet-class op
+    reaches these outputs (float association is fine: the program always
+    evaluates in its own fixed order). Runs on the CPU."""
+    base = data_mod.synthetic_ohlcv(1, 48, seed=3)
+
+    def fn(open_, high, low, close, volume, lo, hi):
+        b = {"open": open_, "high": high, "low": low, "close": close,
+             "volume": volume}
+        dev = close.device
+        keys = block_keys(lo, hi, 4, dev)
+        rows = _rows(b, _geometry(b), keys,
+                     torch.tensor([2.0], dtype=torch.float32, device=dev),
+                     torch.tensor([0.1], dtype=torch.float32, device=dev),
+                     n_bars=16, block=4, regimes=2)
+        return {f: rows[f][0] for f in FIELDS}
+
+    args = [np.asarray(getattr(base, f)[0], np.float32) for f in FIELDS]
+    args += [np.asarray([7], np.int64), np.asarray([11], np.int64)]
+    return fn, args, frozenset()
 
 
 def scenario_panel_bytes(base_bytes: bytes, params: ScenarioParams, *,

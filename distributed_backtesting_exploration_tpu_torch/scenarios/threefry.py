@@ -151,8 +151,11 @@ def erf_inv(x: torch.Tensor) -> torch.Tensor:
     w = torch.where(small, w - 2.5, torch.sqrt(w) - 3.0)
     p = None
     for cs, cl in zip(_ERFINV_SMALL, _ERFINV_LARGE):
-        c = torch.where(small, torch.tensor(float(cs), device=x.device),
-                        torch.tensor(float(cl), device=x.device))
+        c = torch.where(small,
+                        torch.tensor(float(cs), dtype=x.dtype,
+                                     device=x.device),
+                        torch.tensor(float(cl), dtype=x.dtype,
+                                     device=x.device))
         p = c if p is None else c + p * w
     return torch.where(x.abs() == 1.0, x * math.inf, p * x)
 

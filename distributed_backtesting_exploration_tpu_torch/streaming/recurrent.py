@@ -43,6 +43,7 @@ job can advance the stored base again.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import io
 import json
@@ -399,8 +400,10 @@ def _head_bollinger(win, D, sub, state, pos0):
 
 def _head_stochastic(win, D, sub, state, pos0):
     K = win["close"].shape[-1] - D
+    # The tail holds every window (``tail_bars``), so its length bounds
+    # them without reading the windows off the device.
     z = stoch_mod.stochastic_k(win["high"], win["low"], win["close"],
-                               sub["window"])[..., K:] - 50.0
+                               sub["window"], bound=K)[..., K:] - 50.0
     return _band_advance(z, sub["band"], 0.0, pos0), None, state
 
 
@@ -495,10 +498,10 @@ def _donchian_head(hi_src: str, lo_src: str):
         w = sub["window"]
         hi = rolling.rolling_max(win[hi_src], w,
                                  max_window=donchian_mod.MAX_WINDOW,
-                                 fill=math.inf)
+                                 fill=math.inf, bound=K)
         lo = rolling.rolling_min(win[lo_src], w,
                                  max_window=donchian_mod.MAX_WINDOW,
-                                 fill=-math.inf)
+                                 fill=-math.inf, bound=K)
         hi_prev = torch.cat([torch.full_like(hi[..., :1], math.inf),
                              hi[..., :-1]], dim=-1)
         lo_prev = torch.cat([torch.full_like(lo[..., :1], -math.inf),
@@ -705,3 +708,145 @@ def append_step(carry: StreamCarry, delta_fields: dict, *,
                              for f, v in win.items()},
                        state=_join(states),
                        metric=_join(metrics))
+
+
+# ---------------------------------------------------------------------------
+# Analysis probes: kernel-hygiene's append step and dbxcert's labeled cones
+# ---------------------------------------------------------------------------
+
+_PROBE_DELTA_BARS = 4
+
+
+@functools.lru_cache(maxsize=None)
+def _probe_inputs(strategy: str, scale: int = 1):
+    """Tiny concrete ``(carry, delta, grid, base)`` of ``strategy`` for the
+    analysis probes (the reference's): one ticker, the family's tail plus
+    6 bars of a seeded random walk, then a 4-bar delta, both times
+    ``scale`` (the census's length test doubles them); the carry built on
+    the CPU, cached per family."""
+    spec = _STREAM_FAMILIES[strategy]
+    axes = {"fast": [2.0], "slow": [5.0], "window": [3.0], "k": [1.0],
+            "lookback": [3.0], "period": [3.0], "band": [20.0],
+            "signal": [2.0], "span": [2.0], "z_entry": [1.0],
+            "z_exit": [0.0]}
+    strat_axes = {
+        "sma_crossover": ("fast", "slow"), "momentum": ("lookback",),
+        "bollinger": ("window", "k"), "bollinger_touch": ("window", "k"),
+        "obv_trend": ("window",), "stochastic": ("window", "band"),
+        "vwap_reversion": ("window", "k"), "keltner": ("window", "k"),
+        "rsi": ("period", "band"), "macd": ("fast", "slow", "signal"),
+        "trix": ("span", "signal"), "donchian": ("window",),
+        "donchian_hl": ("window",), "pairs": ("lookback", "z_entry",
+                                              "z_exit"),
+    }[strategy]
+    grid = {a: np.asarray(axes[a], np.float32) for a in strat_axes}
+    rng = np.random.default_rng(7)
+    T = scale * (tail_bars(strategy, grid) + 6)
+    D = scale * _PROBE_DELTA_BARS
+
+    def series():
+        walk = np.cumsum(rng.standard_normal(T + D) * 0.5)
+        return (100.0 + walk).astype(np.float32)[None, :]
+
+    close = series()
+    fields = {}
+    for f in spec.fields:
+        fields[f] = {"close": close, "high": close * 1.01,
+                     "low": close * 0.99,
+                     "volume": np.full_like(close, 1e4),
+                     "close2": series() * 0.9}[f]
+    base = {f: v[..., :T] for f, v in fields.items()}
+    carry = build_carry(strategy, base, grid, device="cpu")
+    delta = {f: np.asarray(v[..., T:]) for f, v in fields.items()}
+    return carry, delta, grid, base
+
+
+def _carry_args(carry: StreamCarry) -> list:
+    return [{k: _np32(v) for k, v in d.items()}
+            for d in (carry.tail, carry.state, carry.metric)]
+
+
+def _probe_append(carry: StreamCarry, tail, delta, state, metric, *,
+                  cost: float, epilogue: str | None) -> StreamCarry:
+    """:func:`append_step` of ``carry``'s checkpoint with its arrays
+    replaced by the traced ``tail``, ``state`` and ``metric``."""
+    base = StreamCarry(strategy=carry.strategy, grid=carry.grid, cost=cost,
+                       ppy=carry.ppy, n_bars=carry.n_bars, tail=tail,
+                       state=state, metric=metric)
+    return append_step(base, delta, epilogue=epilogue)
+
+
+def hygiene_probe(strategy: str, *, epilogue: str | None = None):
+    """``(fn, args)`` for kernel-hygiene: ``fn(*args)`` runs one recurrent
+    append step (the partial-tail signal head, the metric advance, the
+    finalize) of ``strategy`` over tiny concrete numpy inputs, on the
+    device its caller places them on, with the equity advance blocked for
+    the ``epilogue`` substrate."""
+    carry, delta, _, _ = _probe_inputs(strategy)
+
+    def fn(tail, delta_a, state, metric):
+        new = _probe_append(carry, tail, delta_a, state, metric, cost=0.0,
+                            epilogue=epilogue)
+        m = _finalize(new.metric, new.n_bars, 252)
+        return tuple(m) + tuple(
+            new.tail[k] for k in sorted(new.tail)) + tuple(
+            new.state[k] for k in sorted(new.state)) + tuple(
+            new.metric[k] for k in sorted(new.metric))
+
+    tail, state, metric = _carry_args(carry)
+    return fn, [tail, dict(delta), state, metric]
+
+
+# Carry accumulators that are f32 sums or holds of exact small integers by
+# the carry contract (positions in {-1, 0, 1}, bool-cast win and active
+# counts, |Δpos| turnover increments): dbxcert seeds the append form's
+# inputs with this integrality hint.
+_INTEGRAL_CARRY_KEYS = frozenset(
+    {"wins", "active", "turnover", "pos_last"})
+
+
+def certify_probe(strategy: str, *, form: str, epilogue: str | None = None,
+                  scale: int = 1):
+    """``(fn, args, integral_keys)`` for dbxcert (``analysis.certify``).
+
+    ``fn(*args)`` runs one certified cone of ``strategy``: ``form``
+    ``"build_carry"`` (the scan form over the full tiny panel from the
+    zero state) or ``"append_step"`` (the recurrent form over a ΔT slice
+    from the stored carry), on the CPU, returning a dict so that every
+    output has a stable label in the contract table: ``metrics/<name>``
+    the 9 public metrics, ``metric/<k>`` the accumulators, ``state/<k>``
+    the family's signal state, ``tail/<k>`` the raw-input tail. The
+    substrate is passed explicitly; ``integral_keys`` names the input keys
+    the analyzer may assume integer-valued (the carry contract's hints).
+    ``scale`` multiplies the probe's bars."""
+    if form not in ("build_carry", "append_step"):
+        raise ValueError(f"unknown certify form {form!r}")
+    carry, delta, grid, base_fields = _probe_inputs(strategy, scale)
+
+    def _label(m: Metrics, metric: dict, state: dict, extra: dict) -> dict:
+        out = {f"metrics/{k}": getattr(m, k) for k in Metrics._fields}
+        out.update({f"metric/{k}": v for k, v in metric.items()})
+        out.update({f"state/{k}": v for k, v in state.items()})
+        out.update(extra)
+        return out
+
+    if form == "append_step":
+        def fn(tail, delta_a, state, metric):
+            new = _probe_append(carry, tail, delta_a, state, metric,
+                                cost=0.001, epilogue=epilogue)
+            m = _finalize(new.metric, new.n_bars, 252)
+            return _label(m, new.metric, new.state,
+                          {f"tail/{k}": v for k, v in new.tail.items()})
+
+        tail, state, metric = _carry_args(carry)
+        return fn, [tail, dict(delta), state, metric], _INTEGRAL_CARRY_KEYS
+
+    T = int(base_fields["close"].shape[-1])
+
+    def fn(fields):
+        c = build_carry(strategy, fields, grid, cost=0.001,
+                        epilogue=epilogue, device=fields["close"].device)
+        m = _finalize(c.metric, T, 252)
+        return _label(m, c.metric, c.state, {})
+
+    return fn, [dict(base_fields)], frozenset()

@@ -194,6 +194,31 @@ def splice_wire_bytes(base: bytes, delta: bytes) -> bytes:
         for bf, df in zip(b, d))))
 
 
+def splice_cone_probe():
+    """``(fn, args, integral_keys)`` for dbxcert: the array-dataflow cone
+    of :func:`splice_wire_bytes`, per-field concatenation and nothing else
+    (the reference's, ``torch.cat`` for its ``jnp.concatenate``).
+
+    Replayed chains reproduce the extended panels' digests because the
+    splice is pure data movement: the certifier pins every output of this
+    cone to the *exact* class with a zero boundary census, so an edit that
+    slips arithmetic into the splice fails the digest-determinism gate.
+    The byte framing around it is held by the wire round-trip tests."""
+    import torch  # lazy: this module stays numpy-only otherwise
+
+    base = synthetic_ohlcv(1, 12, seed=5)
+    delta = synthetic_ohlcv(1, 4, seed=6)
+
+    def fn(b, d):
+        return {f: torch.cat([b[f], d[f]], dim=-1) for f in _FIELDS}
+
+    args = [{f: np.asarray(getattr(base, f)[0], np.float32)
+             for f in _FIELDS},
+            {f: np.asarray(getattr(delta, f)[0], np.float32)
+             for f in _FIELDS}]
+    return fn, args, frozenset()
+
+
 def pad_and_stack(
     series: Sequence[OHLCV], *, lane_multiple: int = 128
 ) -> tuple[OHLCV, np.ndarray, np.ndarray]:

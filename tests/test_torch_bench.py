@@ -70,8 +70,10 @@ TINY.update(DBX_BENCH_QUEUE_JOBS="500", DBX_BENCH_SUB_N="12",
             DBX_BENCH_PIPELINE_JOBS="8", DBX_BENCH_PIPELINE_BARS="128",
             DBX_BENCH_PIPELINE_FAST="2", DBX_BENCH_PIPELINE_SLOW="2",
             DBX_BENCH_PIPELINE_BATCH="2")
-# dbxmc's sweep at the size of the reference's _MC_ENV.
-TINY.update(DBX_BENCH_MC_SCHEDULES="30")
+# dbxmc's sweep at the size of the reference's _MC_ENV, and dbxcert's
+# families at its _CERTIFY_ENV's.
+TINY.update(DBX_BENCH_MC_SCHEDULES="30",
+            DBX_BENCH_CERTIFY_FAMILIES="sma_crossover,bollinger")
 FUSED_CONFIGS = ("sma_fused", "bollinger_fused", "bollinger_touch_fused",
                  "momentum_fused", "donchian_fused", "donchian_hl_fused",
                  "vwap_fused", "keltner_fused", "stochastic_fused",
@@ -131,7 +133,7 @@ def test_every_config_reports_a_positive_rate(result):
     assert ft["histogram_merge_exact"] and ft["frame_bytes_p50"] > 0
     fl = result["roofline"]["flight"]
     assert fl["quiet_ok"] and fl["capture_smoke_ok"]
-    assert len(FUSED_CONFIGS) + 21 == 35 == len(bench.CONFIGS)
+    assert len(FUSED_CONFIGS) + 22 == 36 == len(bench.CONFIGS)
 
 
 @pytest.mark.parametrize("wf_fused", ["0", "1"], ids=["generic", "fused"])
@@ -456,6 +458,22 @@ def test_modelcheck_keys_are_the_references(result):
     assert mc["boundaries"] > mc["crash_points"]
     assert mc["violations"] == 0 and mc["wall_s"] > 0.0
     assert result["configs"]["modelcheck"] > 0.0
+
+
+def test_certify_keys_are_the_references(result):
+    """dbxcert's wall a family and for the digest cones, at the reference
+    test's two families: 4 rows each and the 3 digest cones."""
+    cf = result["roofline"]["certify"]
+    for key in ("certify_wall_s", "rows", "wall_s_total"):
+        assert key in cf, key
+    walls = cf["certify_wall_s"]
+    assert set(walls) == {"sma_crossover", "bollinger", "digest"}
+    assert all(w > 0.0 for w in walls.values())
+    assert cf["rows"] == 2 * 4 + 3
+    assert cf["wall_s_total"] > 0.0
+    assert result["configs"]["certify"] > 0.0
+    assert bench.CONFIGS.index("certify") + 1 == bench.CONFIGS.index(
+        "modelcheck")
 
 
 def test_fanout_keys_are_the_references(result):

@@ -71,6 +71,7 @@ def test_every_module_imports_with_jax_blocked():
               "analysis", "analysis.lockdep", "analysis.core",
               "analysis.ast_rules", "analysis.locks", "analysis.proto_rules",
               "analysis.lint", "analysis.schedules", "analysis.modelcheck",
+              "analysis.dataflow", "analysis.fx_rules", "analysis.certify",
               "runtime", "runtime._core",
               "rpc.journal", "rpc.panel_store", "rpc.service",
               "rpc.dispatcher", "obs.dump", "obs.why", "utils.trace"):

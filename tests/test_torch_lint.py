@@ -228,12 +228,14 @@ def test_cli_json_format_and_exit_codes(capsys, tmp_path):
 
 
 def test_cli_unknown_rule_and_certify_are_refused(capsys):
+    """An unknown rule is refused, and so is ``--certify`` with a path or a
+    rule selector (it runs the whole certified registry or nothing)."""
     with pytest.raises(SystemExit):
         lint_cli.main(["--rules", "no-such-rule"])
     with pytest.raises(SystemExit):
-        lint_cli.main(["--certify"])
+        lint_cli.main(["--certify", FIXTURES])
     with pytest.raises(SystemExit):
-        lint_cli.main(["--rules", "kernel-hygiene"])
+        lint_cli.main(["--certify", "--rules", "kernel-hygiene"])
 
 
 def test_unparseable_file_is_loud(tmp_path):
