@@ -193,12 +193,12 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    tick grid) are held against the generic ``walk_forward`` on the card
    under the reference's flip-aware rule: a job whose sharpe is off by
    more than 0.01 + 1% is flipped (at most 2 of 16), the others within
-   rtol=2e-3, atol=2e-4 (cagr within ``_cagr_slack``). 500 pairs
-   walk-forward jobs (the first 500 of phase 4's 1000 pairs, which keeps
+   rtol=2e-3, atol=2e-4 (cagr within ``_cagr_slack``). 250 pairs
+   walk-forward jobs (the first 250 of phase 4's 1000 pairs, which keeps
    the script inside its time; 500 combos, generic: the reference has no
    fused route for them) must be bit-equal to ``walk_forward_pairs`` on
    the same stacked legs; the jobs flipped against the same refit in f64
-   are counted and held at most a fifth (76 of these 500 on the H100),
+   are counted and held at most a fifth (76 of the first 500 on the H100),
    and the unflipped jobs' metrics off the flip-aware tolerance are
    counted and printed. Then the rates in backtests/s (tickers x combos x
    windows over the median of 5 runs after a warm-up) of the bench's
@@ -233,17 +233,17 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    with another hit rate counts as flipped, phase 4's pairs budget). sma
    also runs 16 one-bar appends against the 16-bar one, and sma, macd and
    rsi an append after a device-level eviction and a host restore,
-   bit-equal to the one never evicted. (c) 250 sma append jobs (one
+   bit-equal to the one never evicted. (c) 128 sma append jobs (one
    ticker, 1260 bars, 2000 combos) through ``TorchSweepBackend.process``:
-   round 1 repriced in full (250 counted), round 2 the next 16 bars as
-   delta-only jobs spliced onto the cached base (250 carry hits, no
+   round 1 repriced in full (128 counted), round 2 the next 16 bars as
+   delta-only jobs spliced onto the cached base (128 carry hits, no
    decode, blocks bit-equal to ``finalize(append_step(...))`` of the
    round-1 carries called directly), round 3 round 2 again (a retried
    delivery: nothing advanced, blocks bit-equal to round 2's), one carry
    a stream kept at the default 64 MB; three times, the median of each
    round printed; then a budget for half the carries: every job completes
    and its block is the append's or the full reprice's, the reprices
-   counted; 32 macd and 32 rsi jobs rounds 1 and 2 the same way. (d) The
+   counted; 16 macd and 16 rsi jobs rounds 1 and 2 the same way. (d) The
    port bench's ``streaming_append`` (T = 8192, ΔT = 16, P = 32), printed.
 8. Paged mode and scenario batches (``rpc/page_pool.py``,
    ``fused.fused_paged_sweep``, ``scenarios/``, ``fused.
@@ -374,10 +374,12 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    and its execute histogram is the fold of the workers' rows; the
    timeline over the log gives each job a lifecycle, and the drain's
    critical path by stage is printed; ``obs.dump`` on the log and
-   ``obs.why`` on one job exit 0. (b) The cost of telemetry and the span
-   log is not in the default run: ``--obs-split`` times the drain in its
-   four arms, 12 rounds each. (c) One worker whose backend's ``collect`` raises
-   once for a 100-job batch, ``DBX_FLIGHT_DIR`` set, 5 s leases: one
+   ``obs.why`` on one job exit 0 (the drain runs with
+   ``DBX_DECISIONS_RATE=0``, and the decision plane's queue is scored
+   before the loop stops, so every job has its decision record). (b)
+   The cost of telemetry and the span log is not in the default run:
+   ``--obs-split`` times the drain in its four arms, 12 rounds each. (c)
+   One worker whose backend's ``collect`` raises once for a 100-job batch, ``DBX_FLIGHT_DIR`` set, 5 s leases: one
    ``collect_fail`` bundle, the 100 jobs re-served, every block bit-equal
    to (a)'s. (d) The process's ``/metrics`` (an ``obs.MetricsServer``, as
    the worker CLI's ``--metrics-port`` serves it) scraped over HTTP
@@ -432,7 +434,41 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    twelve families on 32 tickers of it (pairs on 32 pairs of seed-7
    legs). (a) and (b)'s process runs while this one runs dbxmc, (c) and
    (d). Walls printed beside the card's name and power limit.
-15. Each phase's wall on one line, then one JSON line with each kernel
+15. The reference's public API that the port took over last, at full
+   width on phase 4's panels (:func:`phase_api`). (a) The eight standalone
+   metrics (``ops/metrics.py``) of the sma bench grid's positions through
+   ``backtest_prefix`` (500 x 2000 x 1260, 100 combos a chunk; the first
+   chunk also under a ragged mask): each bit-equal to the same field of
+   ``summary_metrics`` on the same tensors (they run the same reductions),
+   and on a CPU copy of 64 tickers of the first chunk within rtol=1e-5,
+   atol=1e-6. (b) ``backtest_prefix(compound=True)`` on that chunk, its
+   returns and equity against the CPU copy's within the same tolerance.
+   (c) ``backtest_scan`` with a band-hysteresis step over the bollinger
+   bench grid's z (500 x 1000 x 1260): positions identical to
+   ``signals.band_hysteresis``, returns and equity bit-equal to
+   ``backtest_prefix`` of them; the 1260-step loop timed. (d)
+   ``chunked_pairs_sweep`` (1000 pairs of ``synthetic_ohlcv(2000, 1260,
+   seed=1)`` x 500 combos, ``param_chunk=50``) against
+   ``run_pairs_sweep`` under the flip rule of ``tests/torch_parity.py``
+   (a cell off by more than 0.01 + 1% is flipped, at most 1%; the rest
+   at rtol=2e-4, atol=2e-5, cagr within ``_cagr_slack``): torch's CUDA
+   cumsum of the equity associates by the row count; both walls printed.
+   (e) The port bench's generic A/B (``DBX_BENCH_GENERIC=1``) through its
+   ``sweep_call``: ``sma_fused`` and ``pairs`` fused and generic (the
+   generic pairs arm is (d)'s ``chunked_pairs_sweep`` call, the bench's
+   own on the same legs), the launch counts reset before each arm (K1 and
+   K7 with its tables must launch in the fused arms, nothing in the
+   generic ones): sma under the same flip rule against the generic arm
+   (tests/test_fused.py's rtol=2e-4, atol=2e-5 elsewhere); pairs under
+   phase 4's flip-aware budget (a cell off by more than rtol=2e-3,
+   atol=2e-4 counts as flipped, at most 1%) against the generic path in
+   f64, phase 4's witness (the f32 generic arm's windowed sums cancel:
+   1.016% of the cells flip against it on the H100), the counts against
+   the f32 arm and between the two generic runs printed; each arm's
+   backtests/s from the
+   median of warm calls (fused 5, generic sma 3, generic pairs (d)'s one)
+   and the fused/generic ratio. The walls of (a)-(e) printed.
+16. Each phase's wall on one line, then one JSON line with each kernel
    entry's (K8: each case's) launches,
    error, times, bound and library time (the tile entries also their
    width sweep, wrapper time, build report and SASS count; the table
@@ -446,7 +482,8 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    batches, ``tune_launches``, every entry's in phase 11,
    ``dispatch_launches``, and K1's in phase 12, ``obs_launches``, and in
    phase 13's shells, ``native_launches``, and every entry's under phase
-   14 (c)'s kernel-hygiene, ``hygiene_launches``); then
+   14 (c)'s kernel-hygiene, ``hygiene_launches``, and K1's, K7's and its
+   tables' in phase 15 (e)'s fused arms, ``api_launches``); then
    the JSON result line, last.
 
 This script imports nothing of JAX and nothing of the JAX package.
@@ -564,6 +601,20 @@ def _cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def _once_ms(fn) -> tuple:
+    """``fn()`` and the CUDA-event ms of that one call, the card idle
+    before it: the plain versions' time, taken on the call that their
+    comparison needs anyway (a per-bar loop of torch ops takes seconds)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
 
 
 def _graph_ms(fn, reps: int = 20) -> float:
@@ -1006,7 +1057,8 @@ def phase_kernels(kernels_mod, fused, pnl, data) -> dict:
             fused.fused_sma_cuda(*crafted, cost=cost, ppy=252),
             fused.fused_sma_plain(*crafted, cost=cost, ppy=252)))
 
-    ref = fused.fused_sma_plain(*main_in, cost=COST, ppy=252)
+    ref, plain_ms = _once_ms(
+        lambda: fused.fused_sma_plain(*main_in, cost=COST, ppy=252))
     widths = _width_sweep(
         lambda lanes: _k1_launch(fused, main_in, COST, lanes), ref,
         "k1 fused_sma")
@@ -1015,9 +1067,6 @@ def phase_kernels(kernels_mod, fused, pnl, data) -> dict:
     wrapper_ms = _cuda_ms(
         lambda: fused.fused_sma_cuda(*main_in, cost=COST, ppy=252), reps=20,
         warmup=2)
-    plain_ms = _cuda_ms(
-        lambda: fused.fused_sma_plain(*main_in, cost=COST, ppy=252),
-        reps=2, warmup=1)
     bound_ms, bound_by = _k1_bound_ms(main_in)
     print(f"k1 headline: kernel {ms:.4f} ms, wrapper (with its tile "
           f"build) {wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
@@ -1540,7 +1589,7 @@ def phase_new_kernels(fused, pnl, data) -> dict:
             for machine in e.machines:
                 kw = _kw(machine, cost)
                 name = f"{entry}" + (f" {machine}" if machine else "")
-                ref = e.plain(*ref_in, **kw)
+                ref, plain_ms = _once_ms(lambda: e.plain(*ref_in, **kw))
                 got = e.kernel(*inputs, **kw)
                 if label.startswith("crafted"):
                     errs.append(_compare_bits(fused, e.tag, f"{name} {label}",
@@ -1568,8 +1617,6 @@ def phase_new_kernels(fused, pnl, data) -> dict:
                                         getattr(fused, e.tile.lanes))[1]
                 if i == 0:
                     ms = _cuda_ms(run, reps=20, warmup=2)
-                    plain_ms = _cuda_ms(lambda: e.plain(*inputs, **kw),
-                                        reps=2, warmup=1)
                     bound = _entry_bound(fused, entry, e, inputs)
                     timing[machine] = (ms, plain_ms, bound)
                     print(f"{e.tag} {name} headline: kernel {ms:.4f} ms, "
@@ -2307,7 +2354,8 @@ def phase_stages(kernels_mod, stages, bench, data) -> list:
                 continue
             label = f"{kind}_stage_{stage}_l{lanes}"
             got = kernel(inp, stage=stage, lanes=lanes)
-            ref = plain(inp, stage=stage, lanes=lanes)
+            ref, plain_ms = _once_ms(lambda: plain(inp, stage=stage,
+                                                   lanes=lanes))
             refs[stage] = ref
             torch.cuda.synchronize()
             _check(bool(torch.isfinite(got).all()), f"{label}: not finite")
@@ -2318,8 +2366,6 @@ def phase_stages(kernels_mod, stages, bench, data) -> list:
                           reps=20, warmup=2)
             device_ms = _graph_ms(lambda: kernel(inp, stage=stage,
                                                  lanes=lanes))
-            plain_ms = _cuda_ms(lambda: plain(inp, stage=stage, lanes=lanes),
-                                reps=1, warmup=0)
             bound_ms, bound_by = roofline.stage_bound(
                 kind, stage, N=N, T_pad=T, W_pad=W, tr=inp.tr,
                 warm=inp.warm.cpu().numpy())
@@ -2681,13 +2727,13 @@ JOB_COST = float(np.float32(COST))
 # The flip-aware rule of the reference's walk-forward wire tests
 # (tests/test_walkforward_fused_wire.py), and the jobs of 16 that may flip.
 WF_RTOL, WF_ATOL, WF_MAX_FLIPS = 2e-3, 2e-4, 2
-# The pairs walk-forward jobs (the first half of phase 4's 1000 pairs,
+# The pairs walk-forward jobs (the first quarter of phase 4's 1000 pairs,
 # which keeps the script inside its time), and how many may flip against
 # the f64 refit: at the bench shape no f32 pairs path
 # meets the 2-of-16 budget (on the H100 138 of 1000 flipped, and 76 of
-# these 500 in three runs), so this bound, a fifth of the jobs (100),
+# the first 500 in three runs), so this bound, a fifth of the jobs (50),
 # catches a regression, not the f32 drift.
-WF_PAIRS = 500
+WF_PAIRS = 250
 PAIRS_F64_MAX_FLIPS = WF_PAIRS // 5
 # Each kernel entry's dispatch (ops/fused.py) and its plain version.
 PLAIN = {"fused_sma": "fused_sma_plain", "obv": "obv_plain",
@@ -3118,10 +3164,12 @@ def phase_walkforward(kernels_mod, compute, wire, pb, data, sweep, models,
 # --- streaming: carry checkpoints, carry_out=True, append jobs ------------
 
 STREAM_DT = 16
-# The phase's scale: half the bench's tickers, pairs and append jobs, so
-# that the whole script stays well inside its time limit.
+# The phase's scale: half the bench's tickers and pairs, and about a
+# quarter of phase 4's append jobs, so that the whole script stays well
+# inside its time limit (the full reprices the append jobs are checked
+# against are per-bar loops of torch ops).
 STREAM_TICKERS, STREAM_PAIRS = 250, 500
-STREAM_JOBS, STREAM_EMA_JOBS = 250, 32
+STREAM_JOBS, STREAM_EMA_JOBS = 128, 16
 # tests/test_streaming.py's cold-versus-append tolerances (pairs: its pairs
 # budget) and the count metrics that are bit-equal where positions match.
 STREAM_TOL = {"pairs": (5e-3, 5e-4)}
@@ -3192,7 +3240,10 @@ def _stream_rule(label, got, want, strategy: str, n_bars: int,
     bad = off & ok
     _check(not bad.any(), f"{label}: {int(bad.sum())} unflipped lanes off "
            f"the tolerance, max abs err of sharpe "
-           f"{float(np.nanmax(np.abs(g['sharpe'] - w['sharpe'])[ok])):.3e}")
+           f"{float(np.nanmax(np.abs(g['sharpe'] - w['sharpe'])[ok])):.3e}; "
+           "on those lanes, (got, want) by metric: " + json.dumps(
+               {k: list(zip(g[k][bad].tolist()[:4], w[k][bad].tolist()[:4]))
+                for k in want._fields}))
     return n_flips
 
 
@@ -5335,12 +5386,23 @@ def _obs_a(kernels_mod, compute, pb, wire, data, bench, root, card):
                 for _ in range(OBS_WORKERS)]
     metrics = obs.MetricsServer(0, bind="127.0.0.1").start()
     url = f"http://127.0.0.1:{metrics.port}"
+
+    def drained(loop):
+        # The decision plane samples (DBX_DECISIONS_RATE) and scores on its
+        # own thread; a stopped dispatcher drops what it has not scored.
+        # So obs.why's job has a record only with the budget off and the
+        # queue scored before the loop stops.
+        _check(loop.dispatcher.decisions.flush(timeout=30.0),
+               "worker obs (a): the decision plane did not score its queue")
+        return _fleet_ready(loop), _scrape(url)
+
     try:
         before = _scrape(url)
-        wall, k1, (doc, after) = _obs_drain(
-            kernels_mod, compute, bench, recs, res, workers=OBS_WORKERS,
-            telemetry=True, log=log, backends=backends,
-            on_drained=lambda loop: (_fleet_ready(loop), _scrape(url)))
+        with _env(DBX_DECISIONS_RATE="0"):
+            wall, k1, (doc, after) = _obs_drain(
+                kernels_mod, compute, bench, recs, res, workers=OBS_WORKERS,
+                telemetry=True, log=log, backends=backends,
+                on_drained=drained)
     finally:
         metrics.stop()
     blocks = _loop_blocks(res, recs)
@@ -6071,6 +6133,308 @@ def _analysis_in_process(kernels_mod, card) -> dict:
     return launches
 
 
+# --- the rest of the reference's public API -------------------------------
+
+API_CHUNK = 100        # (a): combos a chunk of the 2000-combo SMA grid
+API_CPU_ROWS = 64      # (a), (b): tickers held against a CPU copy
+API_PAIRS_CHUNK = 50   # (d)
+API_RTOL, API_ATOL = 1e-5, 1e-6       # against the CPU copy
+
+
+def _standalone(metrics, res, mask) -> dict:
+    """The eight standalone metrics of one backtest, by ``Metrics``
+    field (``turnover_total`` as ``turnover``)."""
+    r, eq, pos = res.returns, res.equity, res.positions
+    kw = {} if mask is None else {"mask": mask}
+    return {"sharpe": metrics.sharpe(r, **kw),
+            "sortino": metrics.sortino(r, **kw),
+            "max_drawdown": metrics.max_drawdown(eq),
+            "total_return": metrics.total_return(eq),
+            "cagr": metrics.cagr(eq, **kw),
+            "hit_rate": metrics.hit_rate(r, pos, **kw),
+            "turnover": metrics.turnover_total(pos),
+            "n_trades": metrics.n_trades(pos)}
+
+
+def _near_cpu(label, got: torch.Tensor, want: torch.Tensor) -> float:
+    """``got`` (on the card) against ``want`` (the same call on a CPU
+    copy) within API_RTOL, API_ATOL; returns the max abs error."""
+    a, b = got.cpu().numpy(), want.numpy()
+    _check(np.array_equal(np.isfinite(a), np.isfinite(b)),
+           f"api {label}: finite on one device only")
+    fin = np.isfinite(b)
+    err = np.abs(a[fin] - b[fin])
+    bad = err > API_ATOL + API_RTOL * np.abs(b[fin])
+    _check(not bad.any(), f"api {label}: {int(bad.sum())} values off the "
+           f"CPU copy, max abs err {float(err.max())}")
+    return float(err.max()) if err.size else 0.0
+
+
+def _api_metrics(metrics, pnl, models, data, b, card) -> None:
+    """(a) and (b): the standalone metrics and ``compound=True``."""
+    dev = b.dev
+    fields = data.OHLCV(*(b.panel[f][:, None, :] for f in data._FIELDS))
+    g = b.grid("sma_crossover")
+    strat = models.get_strategy("sma_crossover")
+    lens = np.random.default_rng(15).integers(N_BARS // 2, N_BARS + 1,
+                                              N_TICKERS)
+    mask = (torch.arange(N_BARS, device=dev)[None, None, :]
+            < torch.as_tensor(lens, device=dev)[:, None, None])
+    worst: dict = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for lo in range(0, len(g["fast"]), API_CHUNK):
+        cols = {k: torch.as_tensor(v[lo:lo + API_CHUNK], device=dev)[:, None]
+                for k, v in g.items()}
+        res = pnl.backtest_prefix(fields.close, strat.positions(fields, cols),
+                                  cost=COST)
+        for m in (None, mask) if lo == 0 else (None,):
+            summary = metrics.summary_metrics(*res, mask=m)
+            got = _standalone(metrics, res, m)
+            for name, v in got.items():
+                _check(torch.equal(v, getattr(summary, name)),
+                       f"api (a): {name} (mask {m is not None}, combos "
+                       f"{lo}..) not bit-equal to summary_metrics' field")
+            if lo:
+                continue
+            cpu = pnl.BacktestResult(*(t[:API_CPU_ROWS].cpu() for t in res))
+            want = _standalone(metrics, cpu, None if m is None
+                               else m[:API_CPU_ROWS].cpu())
+            for name, v in got.items():
+                worst[name] = max(worst.get(name, 0.0), _near_cpu(
+                    f"(a) {name}", v[:API_CPU_ROWS], want[name]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(f"api (a) ({card}): the 8 standalone metrics bit-equal to "
+          f"summary_metrics' fields on {N_TICKERS} x {len(g['fast'])} x "
+          f"{N_BARS} sma positions ({API_CHUNK} combos a chunk; the first "
+          f"chunk also with a ragged mask); against a CPU copy of "
+          f"{API_CPU_ROWS} tickers x {API_CHUNK} combos (rtol={API_RTOL}, "
+          f"atol={API_ATOL}) max abs err {json.dumps(worst)}; "
+          f"{wall:.4f} s")
+
+    cols = {k: torch.as_tensor(v[:API_CHUNK], device=dev)[:, None]
+            for k, v in g.items()}
+    pos = strat.positions(fields, cols)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = pnl.backtest_prefix(fields.close, pos, cost=COST, compound=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cpu = pnl.backtest_prefix(fields.close[:API_CPU_ROWS].cpu(),
+                              pos[:API_CPU_ROWS].cpu(), cost=COST,
+                              compound=True)
+    errs = {k: _near_cpu(f"(b) {k}", getattr(res, k)[:API_CPU_ROWS],
+                         getattr(cpu, k)) for k in ("returns", "equity")}
+    _check(bool(torch.isfinite(res.equity).all()),
+           "api (b): compound equity not finite")
+    print(f"api (b) ({card}): compound=True on {N_TICKERS} x {API_CHUNK} x "
+          f"{N_BARS} in {wall:.4f} s; against a CPU copy of {API_CPU_ROWS} "
+          f"tickers (rtol={API_RTOL}, atol={API_ATOL}) max abs err "
+          f"{json.dumps(errs)}")
+
+
+def _band_step(signals, z_entry, like: torch.Tensor):
+    """``signals.band_hysteresis``'s bar (``z_exit`` 0) as a
+    ``backtest_scan`` step over ``(z_t, valid_t)``."""
+    ze = signals._per_series(z_entry, like)
+    zx = signals._per_series(0.0, like)
+    one = torch.ones((), dtype=like.dtype, device=like.device)
+    zero = torch.zeros((), dtype=like.dtype, device=like.device)
+
+    def step(pos, bar):
+        zt, valid_t = bar
+        entered = torch.where(zt < -ze, one, torch.where(zt > ze, -one, zero))
+        exit_long = (pos > 0) & (zt >= -zx)
+        exit_short = (pos < 0) & (zt <= zx)
+        held = torch.where(exit_long | exit_short, zero, pos)
+        pos = torch.where(valid_t, torch.where(pos == 0, entered, held), zero)
+        return pos, pos
+    return step
+
+
+def _api_scan(pnl, signals, bollinger, data, b, card) -> None:
+    """(c): ``backtest_scan`` with a band-hysteresis step on the
+    bollinger bench grid's z."""
+    dev = b.dev
+    fields = data.OHLCV(*(b.panel[f][:, None, :] for f in data._FIELDS))
+    cols = {k: torch.as_tensor(v, device=dev)[:, None]
+            for k, v in b.grid("bollinger").items()}
+    z, valid = bollinger._z_and_valid(fields, cols)
+    step = _band_step(signals, cols["k"], z)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = pnl.backtest_scan(step, torch.zeros(z.shape[:-1], device=dev),
+                            (z, torch.broadcast_to(valid, z.shape)),
+                            fields.close, cost=COST)
+    torch.cuda.synchronize()
+    t_scan = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = signals.band_hysteresis(z, valid, cols["k"], 0.0)
+    torch.cuda.synchronize()
+    t_band = time.perf_counter() - t0
+    _check(torch.equal(got.positions, want), "api (c): backtest_scan's "
+           "positions differ from band_hysteresis'")
+    ref = pnl.backtest_prefix(fields.close, want, cost=COST)
+    _check(torch.equal(got.returns, ref.returns)
+           and torch.equal(got.equity, ref.equity),
+           "api (c): backtest_scan's returns or equity not bit-equal to "
+           "backtest_prefix of its positions")
+    print(f"api (c) ({card}): backtest_scan, a band-hysteresis step over "
+          f"{tuple(z.shape)} bollinger z: positions identical to "
+          f"band_hysteresis, returns and equity bit-equal to backtest_prefix;"
+          f" the {N_BARS}-step loop and its pricing {t_scan:.4f} s, "
+          f"band_hysteresis {t_band:.4f} s")
+
+
+def _np_fields(m) -> dict:
+    return {n: getattr(m, n).cpu().numpy() for n in m._fields}
+
+
+def _timed_s(run) -> tuple:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _api_pairs(pairs, data, b, card):
+    """(d): ``chunked_pairs_sweep`` against ``run_pairs_sweep``. Returns
+    its Metrics and wall: the bench's generic pairs arm, the same call on
+    the same legs."""
+    y, x = (torch.as_tensor(leg.close, device=b.dev)
+            for leg in _pairs_legs(data, N_PAIRS, N_BARS, 1))
+    g = b.grid("pairs")
+    got, t_chunked = _timed_s(lambda: pairs.chunked_pairs_sweep(
+        y, x, g, param_chunk=API_PAIRS_CHUNK, cost=COST, device=b.dev))
+    want, t_run = _timed_s(lambda: pairs.run_pairs_sweep(
+        y, x, g, cost=COST, device=b.dev))
+    flips = _golden_check("api (d) chunked_pairs_sweep vs run_pairs_sweep",
+                          _np_fields(got), want, "flip")
+    print(f"api (d) ({card}): chunked_pairs_sweep {N_PAIRS} pairs x "
+          f"{len(g['lookback'])} combos x {N_BARS} bars, param_chunk="
+          f"{API_PAIRS_CHUNK}: {flips} flipped cells against run_pairs_sweep"
+          f" (the flip rule); chunked {t_chunked:.4f} s, run_pairs_sweep "
+          f"{t_run:.4f} s")
+    return got, t_chunked
+
+
+def _pairs_witness(sweep, pairs, data, b):
+    """The generic pairs sweep with its legs in f64 (phase 4's witness,
+    :func:`_gold_f64`), in chunks of 2**27 elements: eight times phase
+    4's, a tenth of the Python band loops."""
+    y, x = (torch.as_tensor(leg.close, dtype=torch.float64,
+                            device=b.dev)[:, None, :]
+            for leg in _pairs_legs(data, N_PAIRS, N_BARS, 1))
+    parts = [pairs.pair_backtest(y, x, sub, cost=COST)
+             for _, sub in sweep.param_chunks(
+                 b.grid("pairs"), y.shape[0] * y.shape[-1], b.dev,
+                 chunk_elems=1 << 27)]
+    return type(parts[0])(*(torch.cat(f, dim=-1) for f in zip(*parts)))
+
+
+def _bench_arm(kernels_mod, b, name: str, generic: bool, reps: int):
+    """One arm of the bench's A/B: the metrics of a call of its
+    ``sweep_call``, the median wall of ``reps`` more, and the launches of
+    the first call (the counts reset just before)."""
+    b.s = b.s._replace(generic=generic)
+    run = b.sweep_call(name)
+    kernels_mod.reset_launch_counts()
+    m, _ = _timed_s(run)
+    launches = dict(kernels_mod.LAUNCHES)
+    wall = statistics.median(_timed_s(run)[1] for _ in range(reps))
+    b.s = b.s._replace(generic=False)
+    return m, wall, launches
+
+
+def _api_bench_ab(kernels_mod, bench, sweep, pairs, data, b, pairs_generic,
+                  card) -> dict:
+    """(e): the port bench's generic A/B (``DBX_BENCH_GENERIC=1``) through
+    its own ``sweep_call``; the generic pairs arm is (d)'s
+    ``chunked_pairs_sweep`` call (``pairs_generic``: its Metrics and
+    wall), the bench's own call on the same legs. Returns the fused arms'
+    launches."""
+    _check(bench.GENERIC_PAIRS_CHUNK == API_PAIRS_CHUNK,
+           "api (e): (d) is not the bench's generic pairs call")
+    out, launches = {}, {}
+    for name in ("sma_fused", "pairs"):
+        fused_m, fused_s, lc = _bench_arm(kernels_mod, b, name, False, 5)
+        launches.update(lc)
+        if name == "pairs":
+            gen_m, gen_s = pairs_generic
+            gen_how = "its one call in (d)"
+        else:
+            gen_m, gen_s, lc = _bench_arm(kernels_mod, b, name, True, 3)
+            _check(not lc, f"api (e) {name}: the generic arm launched "
+                   f"kernels {lc}")
+            gen_how = "3 warm calls"
+        got = _np_fields(fused_m)
+        if name == "pairs":
+            # pairs' f32 generic path leaves the flip budget (its hedge
+            # ratio's f32 windowed sums cancel): the fused arm is held to
+            # the generic path in f64, as in phase 4.
+            t0 = time.perf_counter()
+            gold = _pairs_witness(sweep, pairs, data, b)
+            t_gold = time.perf_counter() - t0
+            off_f32 = int(_flipped(got, gen_m, "shift", _slack(gen_m)).sum())
+            f32_f64 = int(_flipped(_np_fields(gen_m), gold, "shift",
+                                   _slack(gold)).sum())
+            flips = _golden_check(f"api (e) {name} fused vs generic in f64",
+                                  got, gold, "shift")
+            rule = (f"the flip-aware budget against the generic path in f64 "
+                    f"({t_gold:.4f} s); against the generic arm in f32 "
+                    f"{off_f32}, the f32 arm against f64 {f32_f64}")
+        else:
+            flips = _golden_check(f"api (e) {name} fused vs generic", got,
+                                  gen_m, "flip")
+            rule = "the flip rule against the generic arm"
+        n_bt = int(fused_m.sharpe.numel())
+        rates = (n_bt / fused_s, n_bt / gen_s)
+        out[name] = {"fused_bt_s": rates[0], "generic_bt_s": rates[1],
+                     "fused_over_generic": rates[0] / rates[1],
+                     "flipped": flips}
+        print(f"api (e) ({card}): bench {name} {n_bt} backtests: fused "
+              f"{rates[0]:.1f} backtests/s (the median of 5 warm calls), "
+              f"generic {rates[1]:.1f} backtests/s ({gen_how}), "
+              f"fused/generic {rates[0] / rates[1]:.2f}x; {flips} flipped "
+              f"cells ({rule})")
+    for entry in ("fused_sma", "pairs", "pairs_tables"):
+        _check(launches.get(entry, 0) > 0, f"api (e): {entry} launched no "
+               "time in the fused arms")
+    print(f"api (e) fused arms' launches {json.dumps(launches)}; "
+          f"{json.dumps(out)}")
+    return launches
+
+
+def phase_api(kernels_mod, bench, card) -> dict:
+    """Phase 15: the reference's public API that the port took over last,
+    at full width on phase 4's panels. Returns (e)'s launches by entry."""
+    from distributed_backtesting_exploration_tpu_torch import models
+    from distributed_backtesting_exploration_tpu_torch.models import (
+        bollinger, pairs)
+    from distributed_backtesting_exploration_tpu_torch.ops import (
+        metrics, pnl, signals)
+    from distributed_backtesting_exploration_tpu_torch.parallel import sweep
+    from distributed_backtesting_exploration_tpu_torch.utils import data
+
+    b = bench._Bench(bench.Settings(), torch.device("cuda"))
+    t0 = time.perf_counter()
+    _api_metrics(metrics, pnl, models, data, b, card)
+    t_a = time.perf_counter() - t0
+    _api_scan(pnl, signals, bollinger, data, b, card)
+    torch.cuda.empty_cache()
+    t_c = time.perf_counter() - t0 - t_a
+    pairs_generic = _api_pairs(pairs, data, b, card)
+    t_d = time.perf_counter() - t0 - t_a - t_c
+    launches = _api_bench_ab(kernels_mod, bench, sweep, pairs, data, b,
+                             pairs_generic, card)
+    t_e = time.perf_counter() - t0 - t_a - t_c - t_d
+    print(f"api walls (s) ({card}): (a)+(b) {t_a:.2f}, (c) {t_c:.2f}, (d) "
+          f"{t_d:.2f}, (e) {t_e:.2f}")
+    return launches
+
+
 def _phase_wall(walls: dict, name: str, fn, *args):
     """``fn(*args)``, its wall seconds kept in ``walls[name]``."""
     t0 = time.perf_counter()
@@ -6157,6 +6521,9 @@ def main() -> None:
     hygiene = timed("analysis", phase_analysis, _kernels, card)
     for rec in (k1, *new.values(), *k8):
         rec["hygiene_launches"] = hygiene.get(rec["name"], 0)
+    api = timed("api", phase_api, _kernels, bench, card)
+    for rec in (k1, *new.values(), *k8):
+        rec["api_launches"] = api.get(rec["name"], 0)
     print(f"phase walls (s): {json.dumps(walls)}")
     print(json.dumps({"kernels": [k1, *new.values(), *k8]}))
     print(json.dumps({"ok": True, "device": {

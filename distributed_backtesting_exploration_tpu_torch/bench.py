@@ -134,11 +134,19 @@ the reference's substrate A/Bs (``full_ladder``, ``signal_ladder``,
 ``table_hbm``/``table_inline``, ``epilogue_ladder``/``epilogue_scan``) run
 the same code on both sides and their ratios read about 1 by construction.
 
+The reference's generic A/B: with ``DBX_BENCH_GENERIC=1``, ``sma_fused``
+runs the generic sweep (``parallel.sweep.chunked_sweep``,
+``DBX_BENCH_CHUNK`` combos a chunk, 100) and ``pairs`` the generic pairs
+sweep (``models.pairs.chunked_pairs_sweep``, 50 combos a chunk) in place
+of their kernels, under the same config names; the two runs' rates give
+the fused/generic speedup.
+
 Environment: ``DBX_BENCH_TICKERS`` (500), ``DBX_BENCH_BARS`` (1260),
 ``DBX_BENCH_PARAMS`` (2000), ``DBX_BENCH_ITERS`` (10),
 ``DBX_BENCH_WARMUP`` (12), ``DBX_BENCH_CONFIGS`` (a comma list, default
 all), ``DBX_BENCH_WF_FUSED=1``, ``DBX_BENCH_STREAM_T`` (8192),
-``DBX_BENCH_STREAM_DT`` (16), the paged and scenario sizes above,
+``DBX_BENCH_STREAM_DT`` (16), ``DBX_BENCH_GENERIC=1`` and
+``DBX_BENCH_CHUNK`` (100), the paged and scenario sizes above,
 ``DBX_PAGE_BARS`` (512) and ``DBX_BENCH_CPU=1``, the explicit
 request to run the plain versions on the CPU (a structure check; its
 times are the CPU's). Without it the bench runs on CUDA and raises where
@@ -169,7 +177,9 @@ import torch
 from . import device as device_mod
 from . import roofline, tune
 from .models import get_strategy
+from .models import pairs as pairs_mod
 from .ops import _kernels, fused, stages
+from .ops.metrics import Metrics
 from .parallel import sharding, sweep, timeshard, walkforward
 from .rpc import backtesting_pb2 as pb
 from .rpc import compute, panel_store, wire
@@ -244,6 +254,8 @@ AUTOTUNE_CONFIGS = ("sma_fused", "bollinger_fused", "momentum_fused",
 TILE_CONFIGS = ("sma_fused", "bollinger_fused", "macd_fused", "trix_fused",
                 "obv_fused", "pairs")
 WIDTH_ROWS = (8, 32, 128)
+# The generic arm's pairs chunk (the reference bench's).
+GENERIC_PAIRS_CHUNK = 50
 # Part (b) of autotune: the library a second worker builds or installs.
 AUTOTUNE_LIB = "fused_sma"
 _WINDOW_AXES = {"fast", "slow", "window", "lookback", "period", "span"}
@@ -266,6 +278,8 @@ class Settings(NamedTuple):
     configs: frozenset | None = None
     cpu: bool = False
     wf_fused: bool = False
+    generic: bool = False       # sma_fused and pairs on the generic sweeps
+    generic_chunk: int = 100    # sma_fused's combos a chunk there
     stream_bars: int = 8192
     stream_delta: int = 16
     ragged_tickers: int = 1024
@@ -313,6 +327,8 @@ def settings_from_env(env) -> Settings:
         configs=frozenset(only.split(",")) if only else None,
         cpu=env.get("DBX_BENCH_CPU") == "1",
         wf_fused=env.get("DBX_BENCH_WF_FUSED") == "1",
+        generic=env.get("DBX_BENCH_GENERIC") == "1",
+        generic_chunk=int(env.get("DBX_BENCH_CHUNK", 100)),
         stream_bars=int(env.get("DBX_BENCH_STREAM_T", 8192)),
         stream_delta=int(env.get("DBX_BENCH_STREAM_DT", 16)),
         ragged_tickers=int(env.get("DBX_BENCH_RAGGED_TICKERS", 1024)),
@@ -462,7 +478,7 @@ class _Bench:
         return roofline.product(self.axes[strategy])
 
     def fused_config(self, name: str) -> None:
-        strategy, sweep, names, inputs = self._inputs(name)
+        strategy, _, names, inputs = self._inputs(name)
         g = self.grid(strategy)
         P = len(g[names[0]])
         n_rows = int(inputs[0].shape[0])
@@ -470,10 +486,10 @@ class _Bench:
         if FUSED[name][2] is None:
             # bench.py's pairs: fewer runs.
             iters, warmup = max(iters // 2, 3), max(warmup // 3, 2)
-        args = inputs + tuple(g[n] for n in names)
+        run = self.sweep_call(name, inputs)
         _sync(self.dev)
         rate = _measure(
-            lambda: sweep(*args, cost=COST, device=self.dev).sharpe,
+            lambda: run().sharpe,
             n_rows * P, name=name, dev=self.dev, iters=iters, warmup=warmup)
         self.rates[name] = rate
         n_distinct = np.unique(np.concatenate(
@@ -485,6 +501,29 @@ class _Bench:
             rate if self.dev.type == "cuda" else None, self.s.n_bars,
             roofline.config_model(strategy, n_distinct, P, self.s.n_bars,
                                   n_series))
+
+    def sweep_call(self, name: str, inputs=None) -> Callable[[], Metrics]:
+        """The call that fused config ``name`` times on ``inputs`` (None:
+        its panel's), returning its Metrics: the config's fused sweep, or
+        with ``generic`` the generic arm of ``sma_fused``
+        (``sweep.chunked_sweep``, ``generic_chunk`` combos a chunk) and of
+        ``pairs`` (``chunked_pairs_sweep``, ``GENERIC_PAIRS_CHUNK``)."""
+        strategy, sweep_fn, _, names = FUSED[name]
+        if inputs is None:
+            inputs = self._inputs(name)[3]
+        g = self.grid(strategy)
+        if self.s.generic and name == "sma_fused":
+            panel = data.OHLCV(*(self.panel[f] for f in data._FIELDS))
+            strat = get_strategy(strategy)
+            return lambda: sweep.chunked_sweep(
+                panel, strat, g, param_chunk=self.s.generic_chunk,
+                cost=COST, device=self.dev)
+        if self.s.generic and name == "pairs":
+            return lambda: pairs_mod.chunked_pairs_sweep(
+                *inputs, g, param_chunk=GENERIC_PAIRS_CHUNK, cost=COST,
+                device=self.dev)
+        args = inputs + tuple(g[n] for n in names)
+        return lambda: sweep_fn(*args, cost=COST, device=self.dev)
 
     def _stage_times(self, kind: str, cases, a, b) -> dict[str, float]:
         close = self.panel["close"]

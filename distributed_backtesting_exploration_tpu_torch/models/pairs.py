@@ -108,3 +108,27 @@ def run_pairs_sweep(y_close, x_close, grid: Mapping[str, object], *,
         grid, y.shape[0] * y.shape[-1], dev,
         lambda sub: pair_backtest(y, x, sub, cost=cost,
                                   periods_per_year=periods_per_year))
+
+
+def chunked_pairs_sweep(y_close, x_close, grid: Mapping[str, object], *,
+                        param_chunk: int, cost: float = 0.0,
+                        periods_per_year: int = 252,
+                        device: str | torch.device = device_mod.DEFAULT_DEVICE,
+                        ) -> metrics_mod.Metrics:
+    """:func:`run_pairs_sweep` over the grid ``param_chunk`` combos at a
+    time, the ``(n_pairs, P)`` fields concatenated in grid order: the
+    reference's memory-bounded pairs sweep, with a chunk the caller
+    chooses. ``P`` must be divisible by ``param_chunk``."""
+    P = sweep_mod.grid_size(grid)
+    if P % param_chunk:
+        raise ValueError(f"grid size {P} not divisible by chunk {param_chunk}")
+    dev = device_mod.resolve(device)
+    y = device_mod.as_tensor(y_close, torch.float32, dev)
+    x = device_mod.as_tensor(x_close, torch.float32, dev)
+    parts = [run_pairs_sweep(y, x,
+                             {k: v[lo:lo + param_chunk]
+                              for k, v in grid.items()},
+                             cost=cost, periods_per_year=periods_per_year,
+                             device=dev)
+             for lo in range(0, P, param_chunk)]
+    return metrics_mod.Metrics(*(torch.cat(f, dim=-1) for f in zip(*parts)))

@@ -2,15 +2,40 @@
 performance metrics and the fused sweeps (K1-K7). Time is always the last
 axis."""
 
-from .rolling import rolling_sum, rolling_mean, valid_mask  # noqa: F401
-from .pnl import simple_returns, backtest_prefix, BacktestResult  # noqa: F401
+from .rolling import (  # noqa: F401
+    rolling_sum,
+    rolling_mean,
+    rolling_std,
+    rolling_var,
+    rolling_ols,
+    rolling_zscore,
+    ema,
+    rolling_max,
+    rolling_min,
+    valid_mask,
+)
+from .pnl import (  # noqa: F401
+    simple_returns,
+    log_returns,
+    backtest_prefix,
+    backtest_scan,
+    BacktestResult,
+)
 from .metrics import (  # noqa: F401
     Metrics,
     LOWER_IS_BETTER,
     metric_sign,
     metrics_from_reductions,
     summary_metrics,
+    sharpe,
+    sortino,
+    max_drawdown,
+    total_return,
+    cagr,
+    hit_rate,
+    n_trades,
 )
+from .signals import band_hysteresis  # noqa: F401
 from .fused import (  # noqa: F401
     fused_bollinger_sweep,
     fused_bollinger_touch_sweep,

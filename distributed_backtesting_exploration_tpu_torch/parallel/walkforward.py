@@ -69,6 +69,14 @@ def window_starts_np(T: int, train: int, test: int) -> np.ndarray:
     return np.arange(n) * test
 
 
+def window_starts(T: int, train: int, test: int, *,
+                  device: str | torch.device = device_mod.DEFAULT_DEVICE
+                  ) -> Tensor:
+    """:func:`window_starts_np` as an int64 tensor on ``device``."""
+    return torch.as_tensor(window_starts_np(T, train, test),
+                           device=device_mod.resolve(device))
+
+
 def argmax_nan_first(score: Tensor, dim: int = -1) -> Tensor:
     """``jnp.argmax`` along ``dim``: the first NaN where a row has one,
     otherwise the first index of the maximum (+0 and -0 are equal)."""

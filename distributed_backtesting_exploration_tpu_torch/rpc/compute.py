@@ -123,7 +123,7 @@ import math
 import os
 import threading
 import time
-from typing import Callable, NamedTuple
+from typing import Callable, Iterable, NamedTuple, Protocol, runtime_checkable
 
 import numpy as np
 import torch
@@ -469,6 +469,24 @@ class Completion:
         self.metrics = metrics
         self.elapsed_s = elapsed_s
         self.trace_id = trace_id
+
+
+@runtime_checkable
+class ComputeBackend(Protocol):
+    """What a worker needs of a backend (the reference's protocol);
+    :class:`TorchSweepBackend` satisfies it. A backend may also expose the
+    two phases ``submit(jobs)`` and ``collect(handle)``, which the
+    executor pipelines when both exist, and ``prefetch(jobs)``, which the
+    worker calls for queued batches."""
+
+    def process(self, jobs: Iterable) -> list[Completion]:
+        """Run a job batch to completion."""
+        ...
+
+    @property
+    def chips(self) -> int:
+        """Device count to advertise to the dispatcher."""
+        ...
 
 
 def _stack_field_ragged(series_list, t_max: int,

@@ -98,7 +98,8 @@ from ..obs import fleet as obs_fleet
 from ..runtime import _core as native_core
 from . import backtesting_pb2 as pb
 from . import compute, service
-from .executor import Executor, pipeline_depth
+# pipeline_enabled is re-exported where the reference's worker defines it.
+from .executor import Executor, pipeline_depth, pipeline_enabled  # noqa: F401
 
 log = logging.getLogger("dbx.torch.worker")
 

@@ -10,6 +10,7 @@ carries by digest on the device, with a serialized host level that
 outlives a device-level eviction.
 """
 
+from .delta import metric_delta  # noqa: F401
 from .recurrent import (  # noqa: F401
     StreamCarry, append_step, build_carry, carry_from_bytes, carry_to_bytes,
     finalize, stream_fields, stream_key, supports_strategy, tail_bars)

@@ -425,12 +425,19 @@ def _head_keltner(win, D, sub, state, pos0):
         mids.append(mid)
     mids = torch.stack(mids, dim=-1)                         # (N, P, D)
     atr = rolling.rolling_mean(
-        keltner_mod.true_range(win["high"], win["low"], close),
+        keltner_true_range(win["high"], win["low"], close),
         sub["window"], fill=math.nan)[..., K:]
     dev = close[..., K:] - mids
     z = torch.where(atr > _EPS, dev / (atr + _EPS),
                     torch.zeros((), dtype=dev.dtype, device=dev.device))
     return _band_advance(z, sub["k"], 0.0, pos0), None, {"mid": mid}
+
+
+def keltner_true_range(high: torch.Tensor, low: torch.Tensor,
+                       close: torch.Tensor) -> torch.Tensor:
+    """Keltner's per-bar true range (:func:`..models.keltner.true_range`),
+    the ATR's input in the keltner head."""
+    return keltner_mod.true_range(high, low, close)
 
 
 def _head_rsi(win, D, sub, state, pos0):

@@ -510,3 +510,70 @@ def test_pipeline_keys_are_the_references(result):
     for stages in (pl["stages_serial"], pl["stages_pipelined"]):
         assert stages.get("execute", 0.0) > 0.0
         assert stages.get("d2h", 0.0) > 0.0
+
+
+def _sweep_counts(monkeypatch) -> dict:
+    """Count the generic sweeps' calls through the bench, by param_chunk."""
+    calls = {"chunked_sweep": [], "chunked_pairs_sweep": []}
+    for mod, name in ((bench.sweep, "chunked_sweep"),
+                      (bench.pairs_mod, "chunked_pairs_sweep")):
+        real = getattr(mod, name)
+
+        def counted(*a, _real=real, _name=name, **kw):
+            calls[_name].append(kw["param_chunk"])
+            return _real(*a, **kw)
+        monkeypatch.setattr(mod, name, counted)
+    return calls
+
+
+@pytest.mark.parametrize("name", ["sma_fused", "pairs"])
+def test_generic_arm_matches_the_fused_arm(name, monkeypatch):
+    # The reference bench's DBX_BENCH_GENERIC=1 A/B: sma_fused on the
+    # generic chunked sweep (DBX_BENCH_CHUNK combos a chunk), pairs on
+    # chunked_pairs_sweep (50), within the reference's budgets of fused
+    # against generic: tests/test_fused.py's rtol=2e-4, atol=2e-5 for sma,
+    # its pairs budget (_check_pairs: rtol=2e-3, atol=2e-4, at most
+    # max(1, 1%) cells flipped) for pairs.
+    from torch_parity import assert_metrics_match
+
+    calls = _sweep_counts(monkeypatch)
+    env = dict(TINY, DBX_BENCH_CONFIGS=name, DBX_BENCH_CHUNK="8")
+    got = {}
+    for generic in ("0", "1"):
+        s = bench.settings_from_env(dict(env, DBX_BENCH_GENERIC=generic))
+        assert s.generic == (generic == "1") and s.generic_chunk == 8
+        got[generic] = bench._Bench(s, torch.device("cpu")).sweep_call(name)()
+    assert calls == ({"chunked_sweep": [8], "chunked_pairs_sweep": []}
+                     if name == "sma_fused" else
+                     {"chunked_sweep": [], "chunked_pairs_sweep": [50]})
+    for f in got["0"]._fields:
+        assert getattr(got["1"], f).shape == getattr(got["0"], f).shape
+    if name == "pairs":
+        assert_metrics_match(got["1"], got["0"], rtol=2e-3, atol=2e-4)
+    else:
+        for f in got["0"]._fields:
+            np.testing.assert_allclose(
+                getattr(got["1"], f).numpy(), getattr(got["0"], f).numpy(),
+                rtol=2e-4, atol=2e-5, err_msg=f)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        bench.main(dict(env, DBX_BENCH_GENERIC="1"))
+    out = json.loads(buf.getvalue())
+    assert set(out["configs"]) == {name} and out["configs"][name] > 0.0
+
+
+def test_without_generic_the_bench_is_as_it_was(result, monkeypatch):
+    # With DBX_BENCH_GENERIC unset the settings are the defaults (the
+    # generic chunk read but unused), the fused configs call their kernels'
+    # sweeps and never a generic one, and the result line has its keys.
+    s = bench.settings_from_env({})
+    assert s == bench.Settings() and not s.generic
+    assert bench.settings_from_env({"DBX_BENCH_CHUNK": "5"}) == \
+        bench.Settings(generic_chunk=5)
+    calls = _sweep_counts(monkeypatch)
+    b = bench._Bench(bench.settings_from_env(TINY), torch.device("cpu"))
+    for name in ("sma_fused", "pairs"):
+        b.sweep_call(name)()
+    assert calls == {"chunked_sweep": [], "chunked_pairs_sweep": []}
+    assert set(result["configs"]) >= set(FUSED_CONFIGS)
+    assert set(result["roofline"]) >= set(FUSED_CONFIGS)
